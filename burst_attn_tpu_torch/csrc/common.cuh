@@ -1,0 +1,88 @@
+// Helpers shared by the port's CUDA kernels (included, not built alone).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace bat {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// dtype codes shared with the Python wrappers
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+__device__ __forceinline__ float neg_inf() { return -CUDART_INF_F; }
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// 8 consecutive elements, 16-byte aligned -> fp32
+__device__ __forceinline__ void load8(const float* p, float* o) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+// Copy rows [r0, r0 + ROWS) of a row-major [S, D] matrix into shared memory
+// as fp32 with row stride `ld` (a multiple of 4), times `mul`.  Rows at or
+// past S are zero-filled.  All NT threads of the block take part.
+template <typename T, int D, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, int r0,
+                                          int S, float* dst, int ld,
+                                          float mul) {
+  constexpr int kChunks = D / 8;  // 8-element chunks per row
+#pragma unroll 4
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += NT) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    float v[8];
+    if (r0 + r < S) {
+      load8(src + (size_t)(r0 + r) * D + col, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    }
+    float4* d = reinterpret_cast<float4*>(dst + r * ld + col);
+    d[0] = make_float4(v[0] * mul, v[1] * mul, v[2] * mul, v[3] * mul);
+    d[1] = make_float4(v[4] * mul, v[5] * mul, v[6] * mul, v[7] * mul);
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// Set a kernel's dynamic shared memory limit once per instantiation.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) *done = true;
+  return e;
+}
+
+}  // namespace bat

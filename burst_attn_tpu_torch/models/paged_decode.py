@@ -1,0 +1,327 @@
+"""Paged KV-cache serving path (port of burst_attn_tpu/models/paged_decode.py):
+a shared page pool and ragged continuous batching on top of
+ops/paged_attention.py.
+
+  * `PagePool` (host-side): the refcounted free list of pool pages.
+    Sequences acquire pages as they grow and release them on retirement —
+    admission control falls out of `available`.
+  * `PagedState` (device tensors): per-layer page pools, the page table,
+    per-sequence lengths.  Shapes never change; the host rewrites the
+    table (tiny int32 tensors) as sequences come and go.
+  * `paged_prefill` absorbs a prompt into freshly acquired pages (flash
+    attention over the contiguous prompt, then a scatter of the rope'd K/V
+    into the pages); `paged_decode_step` appends one token per live slot
+    and attends through the paged kernel.
+
+In-place updates: the JAX functions donate the state and return a new
+one.  Here the pools, table and lengths are updated IN PLACE (index_put_ /
+index_copy_) and the same state object is returned, so call sites keep
+the JAX shape `logits, state = paged_decode_step(...)`.  The pool is sized
+to fill device memory, so a copy per step is not an option.
+
+Page 0 is a reserved sink: dead slots scatter their mandatory K/V write
+into it, and a LIVE slot whose next page is 0 (capacity was never
+provisioned) gets NaN logits, which sample_logits(nan_sentinel=True)
+turns into -1.
+
+Not ported yet: PrefixCache, paged_multi_step, suffix prefill, quantized
+pools and tensor-parallel meshes.
+"""
+
+from dataclasses import dataclass
+from typing import List
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.paged_attention import paged_decode_attention
+from .decode import _flash_prompt_attention
+from .transformer import (
+    ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
+)
+
+
+class PoolExhausted(RuntimeError):
+    pass
+
+
+class PoolRefError(ValueError):
+    pass
+
+
+@dataclass
+class PagedState:
+    """Device-side paged cache (one pool per layer, table shared)."""
+    k_pages: List[torch.Tensor]  # each [P, Nkv, page, D]
+    v_pages: List[torch.Tensor]
+    page_table: torch.Tensor     # [slots, max_pages_per_seq] int32
+    lengths: torch.Tensor        # [slots] int32 (0 = empty slot)
+
+
+class PagePool:
+    """Host-side REFCOUNTED page allocator for a PagedState.
+
+    `acquire(n)` pops page ids from the free list at refcount 1 (raises
+    PoolExhausted, a RuntimeError, when short — callers use `available`
+    for admission control); `release(ids)` decrements and returns a page to
+    the free list when its count reaches zero; `share(ids)` adds a
+    reference to live pages.  The pool never touches device memory: pages
+    are recycled by table rewrite, stale contents are simply never
+    addressed.  Page 0 is the reserved write sink and never enters the
+    free list.  Same transitions, ids and messages as the JAX package's
+    pool machine (protocols/pool.py)."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = n_pages
+        self._free: List[int] = list(range(n_pages - 1, 0, -1))
+        self._refs = [0] * n_pages
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    def refcount(self, i: int) -> int:
+        return self._refs[int(i)]
+
+    def acquire(self, n: int) -> List[int]:
+        n = int(n)
+        if n > len(self._free):
+            raise PoolExhausted(
+                f"page pool exhausted: want {n}, have {len(self._free)}")
+        ids = [self._free[-1 - k] for k in range(n)]  # pop order
+        del self._free[len(self._free) - n:]
+        for i in ids:
+            self._refs[i] = 1
+        return ids
+
+    def share(self, ids) -> None:
+        """Add one reference to already-live pages."""
+        ids = [int(i) for i in ids]
+        for i in ids:
+            if not 0 < i < self.n_pages:
+                raise PoolRefError(f"bad page id {i}")
+            if self._refs[i] == 0:
+                raise PoolRefError(
+                    f"page {i} is free; share() needs a live page")
+        for i in ids:
+            self._refs[i] += 1
+
+    def release(self, ids) -> None:
+        # validate the whole batch before mutating anything: an
+        # over-release would put a still-referenced page on the free list
+        ids = [int(i) for i in ids]
+        counts: dict = {}
+        for i in ids:
+            counts[i] = counts.get(i, 0) + 1
+        for i, c in counts.items():
+            if not 0 < i < self.n_pages:  # page 0 is the reserved sink
+                raise PoolRefError(f"bad page id {i}")
+            if self._refs[i] < c:
+                raise PoolRefError(
+                    f"page {i} released {c}x but has {self._refs[i]} refs")
+        for i in ids:
+            self._refs[i] -= 1
+            if self._refs[i] == 0:
+                self._free.append(i)
+
+
+def init_paged_state(cfg: ModelConfig, *, slots: int, n_pages: int,
+                     page: int = 128, max_pages_per_seq: int = 64,
+                     quantize=False, device=None):
+    """Fresh pool + allocator: (PagedState, PagePool).  `page` must be a
+    multiple of 128, as in the JAX package, so both accept the same
+    configurations.  Total pool capacity is n_pages * page tokens shared
+    by all slots."""
+    if page % 128:
+        raise ValueError(f"page size {page} must be a multiple of 128")
+    if quantize:
+        raise NotImplementedError("quantized pools are not ported yet")
+    dev = resolve_device(device)
+    shape = (n_pages, cfg.n_kv_heads, page, cfg.d_head)
+    k_pages = [torch.zeros(shape, dtype=cfg.dtype, device=dev)
+               for _ in range(cfg.n_layers)]
+    v_pages = [torch.zeros(shape, dtype=cfg.dtype, device=dev)
+               for _ in range(cfg.n_layers)]
+    table = torch.zeros((slots, max_pages_per_seq), dtype=torch.int32,
+                        device=dev)
+    lengths = torch.zeros((slots,), dtype=torch.int32, device=dev)
+    return PagedState(k_pages, v_pages, table, lengths), PagePool(n_pages)
+
+
+def _scatter_pages(pages, new, page_ids):
+    """Write [1, Nkv, T, D] rope'd K/V into pool pages `page_ids` IN PLACE
+    (T padded to a whole number of pages by the caller); returns pages."""
+    page = pages.shape[2]
+    n_kv, t, d = new.shape[1:]
+    chunks = new[0].reshape(n_kv, t // page, page, d).transpose(0, 1)
+    return pages.index_copy_(0, page_ids, chunks.to(pages.dtype))
+
+
+def paged_prefill(params, tokens, state: PagedState, pool: PagePool,
+                  slot: int, cfg: ModelConfig, mesh=None, cache=None):
+    """Absorb one prompt [T] into batch slot `slot`: acquires ceil(T/page)
+    pages, runs the prompt pass (flash attention + paged K/V scatter) and
+    writes the slot's table row, all IN PLACE on `state`.  Returns
+    (last-token logits [vocab] fp32, state).  On a failure the acquired
+    pages are released before re-raising."""
+    if mesh is not None or cache is not None:
+        raise NotImplementedError(
+            "tensor-parallel meshes and the prefix cache are not ported yet")
+    dev = state.lengths.device
+    tokens = torch.as_tensor(tokens, device=dev).reshape(-1).long()
+    t = tokens.numel()
+    page = state.k_pages[0].shape[2]
+    max_pages = state.page_table.shape[1]
+    n_need = -(-t // page)
+    if n_need > max_pages:
+        raise ValueError(f"prompt needs {n_need} pages > table width "
+                         f"{max_pages}")
+    length = int(state.lengths[slot])
+    if length != 0:
+        raise RuntimeError(f"slot {slot} is still live (len {length}); "
+                           "retire_slot first or its pages leak")
+    ids = pool.acquire(n_need)
+    try:
+        logits = _prefill(params, tokens, state, ids, slot, cfg)
+    except Exception:
+        pool.release(ids)
+        raise
+    return logits, state
+
+
+def _prefill(params, tokens, state: PagedState, ids, slot, cfg):
+    t = tokens.numel()
+    dev = tokens.device
+    page = state.k_pages[0].shape[2]
+    t_pad = len(ids) * page
+    pos = torch.arange(t, device=dev)[None]
+    page_ids = torch.tensor(ids, dtype=torch.long, device=dev)
+    x = params["embed"][tokens[None]].to(cfg.dtype)
+    for li, p in enumerate(params["layers"]):
+        q, k, v = _qkv_proj(p, x, pos, cfg)
+        o = _flash_prompt_attention(q, k, v)
+        pad = (0, 0, 0, t_pad - t)
+        _scatter_pages(state.k_pages[li], F.pad(k, pad), page_ids)
+        _scatter_pages(state.v_pages[li], F.pad(v, pad), page_ids)
+        x = x + _attn_out(p, o)
+        x = x + _mlp(p, x)
+    x = _rms_norm(x[:, -1:], params["final_norm"])
+    logits = _logits(x, params["lm_head"])[0, 0]
+    state.page_table[slot] = 0
+    state.page_table[slot, :len(ids)] = page_ids.to(torch.int32)
+    state.lengths[slot] = t
+    return logits
+
+
+def paged_decode_step(params, tokens, state: PagedState, cfg: ModelConfig,
+                      mesh=None):
+    """One decode step for EVERY live slot (ragged batch), IN PLACE.
+
+    tokens: [slots] int — next input token per slot (ignored for empty
+    slots).  Every live slot must already own the page its next token
+    lands in (`ensure_capacity` / `provision_capacity`); a live slot that
+    does not gets NaN logits instead of silently writing into the sink.
+    Returns ([slots, vocab] fp32 logits, state).  No host sync."""
+    if mesh is not None:
+        raise NotImplementedError("tensor-parallel meshes are not ported yet")
+    dev = state.lengths.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    slots = tokens.shape[0]
+    page = state.k_pages[0].shape[2]
+    width = state.page_table.shape[1]
+    lengths = state.lengths
+    live = lengths > 0
+    pos = lengths.long()  # next position = current length (0 when dead)
+    x = params["embed"][tokens[:, None]].to(cfg.dtype)  # [slots, 1, d]
+    group = cfg.n_heads // cfg.n_kv_heads
+
+    # which (page, offset) receives the new token per slot
+    slot_page = (lengths // page).long()
+    offset = (lengths % page).long()
+    in_table = slot_page < width
+    page_id = state.page_table.gather(
+        1, slot_page.clamp(max=width - 1)[:, None])[:, 0]
+    page_id = torch.where(in_table, page_id, 0)
+    # a LIVE slot mapping to page 0 skipped ensure_capacity at a page
+    # boundary: its token would land in the sink — poison its logits
+    boundary_unassigned = live & (page_id == 0)
+    page_id = torch.where(live, page_id, 0).long()  # dead slots -> sink
+    new_lengths = lengths + live.to(torch.int32)
+
+    for li, p in enumerate(params["layers"]):
+        kp, vp = state.k_pages[li], state.v_pages[li]
+        q, k, v = _qkv_proj(p, x, pos[:, None], cfg)
+        kp[page_id, :, offset] = k[:, :, 0].to(kp.dtype)
+        vp[page_id, :, offset] = v[:, :, 0].to(vp.dtype)
+        qg = q.reshape(slots, cfg.n_kv_heads, group, cfg.d_head).contiguous()
+        o = paged_decode_attention(qg, kp, vp, state.page_table, new_lengths)
+        o = o.reshape(slots, cfg.n_heads, 1, cfg.d_head)
+        x = x + _attn_out(p, o)
+        x = x + _mlp(p, x)
+    x = _rms_norm(x, params["final_norm"])
+    logits = _logits(x, params["lm_head"])[:, 0]
+    logits = logits.masked_fill(boundary_unassigned[:, None], float("nan"))
+    state.lengths.copy_(new_lengths)
+    return logits, state
+
+
+def ensure_capacity(state: PagedState, pool: PagePool, slot: int
+                    ) -> PagedState:
+    """Host-side: guarantee `slot` has a page for its next token, acquiring
+    one if its last page is full.  Call before paged_decode_step."""
+    length = int(state.lengths[slot])
+    page = state.k_pages[0].shape[2]
+    if length % page != 0 or length == 0:
+        return state  # room in the current page (or empty slot)
+    slot_page = length // page
+    if slot_page >= state.page_table.shape[1]:
+        raise RuntimeError(f"slot {slot} exceeded max_pages_per_seq")
+    if int(state.page_table[slot, slot_page]) != 0:
+        # idempotent: page 0 is the sink, so 0 reliably means unassigned
+        return state
+    (new_id,) = pool.acquire(1)
+    state.page_table[slot, slot_page] = new_id
+    return state
+
+
+def provision_capacity(state: PagedState, pool: PagePool, slot: int,
+                       n_tokens: int) -> PagedState:
+    """Host-side: pre-assign every page `slot` needs to absorb `n_tokens`
+    MORE tokens, so a decode loop of that many steps needs no further
+    allocation (one table read here instead of one per step)."""
+    if n_tokens <= 0:
+        return state
+    length = int(state.lengths[slot])
+    if length == 0:
+        raise RuntimeError(
+            f"slot {slot} is empty; paged_prefill acquires its own pages — "
+            "provisioning now would leak them when prefill rewrites the row")
+    page = state.k_pages[0].shape[2]
+    need_through = (length + n_tokens - 1) // page  # highest column needed
+    if need_through >= state.page_table.shape[1]:
+        raise RuntimeError(
+            f"slot {slot}: {n_tokens} more tokens need table column "
+            f"{need_through} >= max_pages_per_seq "
+            f"{state.page_table.shape[1]}")
+    row = state.page_table[slot].tolist()
+    missing = [c for c in range(need_through + 1) if row[c] == 0]
+    if not missing:
+        return state
+    ids = pool.acquire(len(missing))
+    dev = state.page_table.device
+    state.page_table[slot, torch.tensor(missing, device=dev)] = torch.tensor(
+        ids, dtype=torch.int32, device=dev)
+    return state
+
+
+def retire_slot(state: PagedState, pool: PagePool, slot: int) -> PagedState:
+    """Host-side: release a finished sequence's pages (used or
+    pre-acquired) and empty the slot, zeroing its table row so a later
+    prefill/provision cannot mistake stale ids for assignments."""
+    if int(state.lengths[slot]) == 0:
+        return state
+    pool.release([i for i in state.page_table[slot].tolist() if i != 0])
+    state.lengths[slot] = 0
+    state.page_table[slot] = 0
+    return state

@@ -1,0 +1,194 @@
+"""Decoder-only transformer LM (port of burst_attn_tpu/models/transformer.py,
+the single-device dense parts the serving path uses).
+
+Parameters are a plain dictionary with the JAX pytree's names and shapes:
+{"embed" [V, d], "layers": [{"attn_norm", "wq" [d, N, H], "wk"/"wv"
+[d, Nkv, H], "wo" [N, H, d], "mlp_norm", "w_gate"/"w_up" [d, F],
+"w_down" [F, d]}], "final_norm", "lm_head" [V, d]}.  `params_from_jax`
+turns the JAX tree (as numpy arrays) into this, so both packages compute
+the same function in the tests.
+
+Numerics follow the JAX model: RMSNorm and rotary in fp32, cast back to
+the activation dtype; logits accumulated and returned in fp32.
+"""
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.tile import single_device_attention
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    vocab: int = 32768
+    d_model: int = 1024
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    d_head: int = 128
+    d_ff: int = 2816
+    rope_theta: float = 10000.0
+    dtype: Any = torch.bfloat16
+    # attention / parallelism (kept so both packages take the same
+    # configurations; the ring fields take effect in a later slice)
+    causal: bool = True
+    attn_strategy: str = "burst"
+    layout: str = "zigzag"
+    attn_backend: str = "auto"
+    window: Optional[int] = None
+    seq_axes: Tuple[str, ...] = ("sp",)
+    batch_axis: Optional[str] = "dp"
+    head_axis: Optional[str] = "tp"
+    block_q: Optional[int] = None
+    block_kv: Optional[int] = None
+    remat: bool = True
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    expert_axis: Optional[str] = None
+    pp_axis: Optional[str] = None
+    pp_microbatches: int = 1
+
+    def __post_init__(self):
+        if self.n_experts > 0:
+            raise NotImplementedError("MoE layers are not ported yet")
+        if self.pp_axis is not None:
+            raise NotImplementedError("pipeline parallelism is not ported yet")
+        if self.window is not None:
+            raise NotImplementedError("window attention is not ported yet")
+        if self.attn_strategy != "burst":
+            raise NotImplementedError(
+                f"attn_strategy {self.attn_strategy!r} is not ported yet")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"n_heads {self.n_heads} must be a multiple of "
+                             f"n_kv_heads {self.n_kv_heads}")
+
+
+Params = Dict[str, Any]
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """Random parameters from a numpy seed: normal(std 0.02) matrices in
+    cfg.dtype, fp32 norm scales of ones.  Same names and shapes as the JAX
+    init_params (the values differ: jax.random draws other numbers)."""
+    dev = resolve_device(device)
+    d, nh, nkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.d_head, cfg.d_ff)
+    rng = np.random.default_rng(seed)
+
+    def dense(*shape):
+        w = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        return torch.from_numpy(w).to(device=dev, dtype=cfg.dtype)
+
+    def ones():
+        return torch.ones(d, dtype=torch.float32, device=dev)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "attn_norm": ones(),
+            "wq": dense(d, nh, hd),
+            "wk": dense(d, nkv, hd),
+            "wv": dense(d, nkv, hd),
+            "wo": dense(nh, hd, d),
+            "mlp_norm": ones(),
+            "w_gate": dense(d, f),
+            "w_up": dense(d, f),
+            "w_down": dense(f, d),
+        })
+    return {
+        "embed": dense(cfg.vocab, d),
+        "layers": layers,
+        "final_norm": ones(),
+        "lm_head": dense(cfg.vocab, d),
+    }
+
+
+def _to_torch(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: reinterpret the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_jax(tree, device=None) -> Params:
+    """The JAX model's parameter tree (arrays convertible by np.asarray)
+    as the port's parameter dictionary, dtypes kept."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return _to_torch(x, dev)
+
+    return conv(tree)
+
+
+def _rms_norm(x, scale, eps=1e-6):
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def _rope(x, positions, theta):
+    """Rotary embedding. x [B, N, S, H], positions [B, S] (global ids)."""
+    h = x.shape[-1]
+    exps = torch.arange(0, h, 2, dtype=torch.float32, device=x.device) / h
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[:, None, :, None].float() * freqs  # [B,1,S,H/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv_proj(p, x, positions, cfg: ModelConfig):
+    """Norm + qkv projections + rotary: x [B, S, d] -> q [B, N, S, H],
+    k, v [B, Nkv, S, H]."""
+    h = _rms_norm(x, p["attn_norm"])
+    q = torch.einsum("bsd,dnh->bnsh", h, p["wq"])
+    k = torch.einsum("bsd,dnh->bnsh", h, p["wk"])
+    v = torch.einsum("bsd,dnh->bnsh", h, p["wv"])
+    return (_rope(q, positions, cfg.rope_theta),
+            _rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn_out(p, o):
+    """Output projection: o [B, N, S, H] -> [B, S, d]."""
+    return torch.einsum("bnsh,nhd->bsd", o, p["wo"])
+
+
+def _mlp(p, x):
+    """Dense SwiGLU block (pre-norm)."""
+    h = _rms_norm(x, p["mlp_norm"])
+    gate = h @ p["w_gate"]
+    up = h @ p["w_up"]
+    return (F.silu(gate) * up) @ p["w_down"]
+
+
+def _logits(x, lm_head):
+    """fp32 logits [..., vocab] (the JAX model's preferred_element_type
+    accumulation).  A caller that computes logits every step passes an
+    fp32 `lm_head` (ServeEngine does), and the cast costs nothing."""
+    return x.float() @ lm_head.float().t()
+
+
+def forward(params: Params, tokens, positions, cfg: ModelConfig):
+    """Dense single-device forward: tokens, positions [B, S] int -> fp32
+    logits [B, S, vocab].  Causal attention through the plain tile
+    (single_device_attention), no kernels: the serving path's plain
+    reference."""
+    x = params["embed"][tokens].to(cfg.dtype)
+    for p in params["layers"]:
+        q, k, v = _qkv_proj(p, x, positions, cfg)
+        x = x + _attn_out(p, single_device_attention(q, k, v, causal=True))
+        x = x + _mlp(p, x)
+    return _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])

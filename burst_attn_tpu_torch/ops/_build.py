@@ -1,0 +1,139 @@
+"""Build and bind the port's CUDA kernels.
+
+Each `csrc/<name>.cu` compiles with `nvcc` into its own shared library
+with a plain C interface, loaded through `ctypes` (no PyTorch headers:
+seconds to build, not minutes).  Builds happen at first use, into
+`build/kernels/` at the repository root, keyed by a hash of the source, the
+shared `csrc/*.cuh` headers and the flags, so an edited source rebuilds and
+an unchanged one is reused.
+`build_all()` starts one `nvcc` per source, all at once, and waits.
+
+Binding conventions (every C entry point follows them):
+  * every pointer and the stream are `ctypes.c_void_p` (a plain int
+    argument would be cut to 32 bits);
+  * the launch stream is `torch.cuda.current_stream().cuda_stream`;
+  * the entry point returns `cudaGetLastError()` after its launch, and
+    `check()` raises on anything but 0 — a refused launch (too many
+    threads, too much shared memory) never runs and `synchronize()`
+    would not report it.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# argtypes of each library's C entry points, by source stem
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES: Dict[str, Dict[str, Sequence]] = {
+    "flash_fwd": {
+        # q k v m_in lse_in acc_in m_out lse_out out,
+        # B N Nk Sq Skv D dtype, scale, q_lo q_hi kv_hi causal offset emit_o,
+        # stream
+        "flash_fwd_launch": [P] * 9 + [I] * 7 + [F] + [I] * 6 + [P],
+    },
+    "paged_decode": {
+        # q k_pages v_pages table lengths out,
+        # B Nkv G D page width dtype, scale, stream
+        "paged_decode_launch": [P] * 6 + [I] * 7 + [F] + [P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           "/usr/local/cuda/bin); the CUDA kernels are built "
+                           "on the machine with the card")
+    return path
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [src, *sorted(CSRC.glob("*.cuh"))]:  # the shared headers too
+        h.update(f.read_bytes())
+    return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (Popen, tmp path, final path), or
+    None when the library is already built."""
+    src, so = _target(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so
+
+
+def _finish(name: str, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp, so = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
+    return out
+
+
+def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, str]:
+    """Build every named kernel library in parallel (one nvcc each) and
+    load it.  Returns {name: compiler output} (ptxas register and shared
+    memory report; empty when the library was already built)."""
+    jobs = {n: _start(n) for n in names}
+    logs = {}
+    try:
+        for n in names:
+            logs[n] = _finish(n, jobs[n])
+    finally:
+        for job in jobs.values():  # stop any nvcc still running
+            if job is not None and job[0].poll() is None:
+                job[0].kill()
+                job[0].wait()
+    for n in names:
+        load(n)
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library for `csrc/<name>.cu`, building it at first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    _, so = _target(name)
+    if not so.exists():
+        _finish(name, _start(name))
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch "
+                           "(cudaGetLastError)")

@@ -1,0 +1,151 @@
+"""Ragged paged-attention decode (port of
+burst_attn_tpu/ops/paged_attention.py).
+
+K/V live in a shared pool of fixed-size pages `[n_pages, Nkv, page, D]`; a
+sequence owns a row of the page table.  One decode step attends each
+sequence's single new query against its own pages only, so cost follows
+the live length, not max_seq.
+
+`paged_decode_attention` launches the hand-written kernel in
+csrc/paged_decode.cu for CUDA tensors (or raises) and runs the plain
+`paged_decode_reference` for CPU tensors.  GQA folds the query-head group
+into the kernel's rows: q arrives [B, Nkv, G, D].  The TPU kernel's
+padding of G to 8 sublanes is a TPU tiling artefact and is not carried
+over.  Full-precision pools only in this slice; `quantize_tokens` is kept
+as plain torch for the quantized pools that come next.
+"""
+
+import torch
+
+from . import _build
+from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
+
+# 1 B/elem pool storage dtypes and the full-range absmax each scale maps
+# onto: int8 rounds into [-127, 127]; fp8 e4m3fn casts into +-448.
+QUANT_DTYPES = {
+    "int8": (torch.int8, 127.0),
+    "fp8": (torch.float8_e4m3fn, 448.0),
+}
+KERNEL_MAX_GROUP = 16  # query rows per kv head (csrc/paged_decode.cu MAXG)
+
+
+def _quant_range(dtype):
+    """(canonical name, full-scale range) for a 1 B pool dtype."""
+    for name, (cand, rng) in QUANT_DTYPES.items():
+        if dtype == cand:
+            return name, rng
+    raise ValueError(f"unsupported quantized pool dtype {dtype!r} "
+                     f"(one of {sorted(QUANT_DTYPES)})")
+
+
+def quantize_tokens(x, dtype=torch.int8):
+    """Per-token symmetric quantization of [..., T, D] K/V rows into a
+    1 B/elem pool dtype: returns (quantized values, f32 scales [..., T]).
+    scale = max|x| / range per token (127 for int8, 448 for fp8 e4m3fn);
+    zero rows get scale 1 (they dequantize to exact zeros).  int8 rounds
+    half to even and clips; fp8 casts directly (the cast IS the
+    rounding)."""
+    name, rng = _quant_range(dtype)
+    amax = x.float().abs().amax(dim=-1)
+    s = torch.where(amax > 0, amax / rng, torch.ones_like(amax))
+    xs = x.float() / s[..., None]
+    if name == "int8":
+        q = torch.clamp(torch.round(xs), -rng, rng).to(torch.int8)
+    else:
+        q = xs.to(torch.float8_e4m3fn)
+    return q, s
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           k_scales=None, v_scales=None, window=None,
+                           scale=None):
+    """One ragged decode step against a paged KV pool.
+
+    q          [B, Nkv, G, D]    one new token per sequence, query heads
+                                 grouped under their kv head
+    k_pages    [P, Nkv, page, D] shared pool
+    v_pages    [P, Nkv, page, D]
+    page_table [B, S] int32      pool page id per (sequence, slot); slots at
+                                 or past ceil(len/page) are ignored
+    lengths    [B] int32         live tokens per sequence (0 = empty)
+
+    Returns [B, Nkv, G, D] in q's dtype; empty sequences give zeros.
+    `k_scales`/`v_scales` (quantized pools) and `window` are not ported
+    yet."""
+    if k_scales is not None or v_scales is not None or window is not None:
+        raise NotImplementedError(
+            "quantized pools and window are not ported yet")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return paged_decode_reference(q, k_pages, v_pages, page_table,
+                                      lengths, scale=scale)
+    return _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths,
+                              scale)
+
+
+paged_decode_attention.launches = 0
+
+
+def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, scale):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cuda or cpu "
+                         f"tensors, got {dev}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"paged_decode kernel takes {list(KERNEL_DTYPES)}, "
+                         f"got {q.dtype}")
+    b, n_kv, g, d = q.shape
+    n_pages, _, page, _ = k_pages.shape
+    width = page_table.shape[1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_decode kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    if not 1 <= g <= KERNEL_MAX_GROUP:
+        raise ValueError(f"paged_decode kernel takes 1..{KERNEL_MAX_GROUP} "
+                         f"query rows per kv head, got {g}")
+    if page % 64:
+        raise ValueError(f"page size {page} must be a multiple of 64")
+    _check_kernel_operand("q", q, dev, q.dtype)
+    _check_kernel_operand("k_pages", k_pages, dev, q.dtype,
+                          (n_pages, n_kv, page, d))
+    _check_kernel_operand("v_pages", v_pages, dev, q.dtype,
+                          (n_pages, n_kv, page, d))
+    _check_kernel_operand("page_table", page_table, dev, torch.int32,
+                          (b, width))
+    _check_kernel_operand("lengths", lengths, dev, torch.int32, (b,))
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = _build.load("paged_decode")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.paged_decode_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, n_kv, g, d, page, width, KERNEL_DTYPES[q.dtype], float(scale),
+            stream)
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_reference(q, k_pages, v_pages, page_table, lengths,
+                           scale=None):
+    """Plain version of the kernel: gathers each sequence's pages into a
+    contiguous cache and runs dense masked attention in fp32.
+    O(B·S·page) memory."""
+    b, n_kv, g, d = q.shape
+    page = k_pages.shape[2]
+    n_slots = page_table.shape[1]
+    if scale is None:
+        scale = d**-0.5
+    idx = page_table.long()
+    k = k_pages[idx].movedim(2, 1).reshape(b, n_kv, n_slots * page, d)
+    v = v_pages[idx].movedim(2, 1).reshape(b, n_kv, n_slots * page, d)
+    s = torch.einsum("bngd,bnjd->bngj", q.float(), k.float()) * scale
+    pos = torch.arange(n_slots * page, device=q.device)[None, :]
+    valid = (pos < lengths[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, float("-inf"))
+    p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)  # all-masked -> 0
+    return torch.einsum("bngj,bnjd->bngd", p, v.float()).to(q.dtype)

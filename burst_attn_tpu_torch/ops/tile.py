@@ -1,0 +1,87 @@
+"""Plain online-softmax attention tile with carry-in state (port of
+burst_attn_tpu/ops/tile.py).
+
+One round of FlashAttention-style attention: given carry state (m =
+running row max, lse = running log-sum-exp, acc = unnormalized output
+accumulator), fold in the contribution of one KV block.  This is the
+plain version behind the flash kernel (ops/flash.py) and the numerics
+oracle the kernel is held to.
+
+Conventions (the JAX package's, kept at the public surface):
+  q, k, v : [B, N, S, D]
+  m, lse  : [B, N, S]     float32, initialized to -inf
+  acc     : [B, N, S, D]  float32, initialized to 0, unnormalized
+  final   : o = acc * exp(m - lse)   (guarded for fully-masked rows)
+
+GQA: N query heads, Nk kv heads with N % Nk == 0; kv head g serves query
+heads [g*G, (g+1)*G).
+"""
+
+import torch
+
+from .masks import MaskSpec, dense_mask, round_spec
+
+NEG_INF = float("-inf")
+
+
+def init_state(batch, heads, seq, dim, device=None):
+    m = torch.full((batch, heads, seq), NEG_INF, dtype=torch.float32,
+                   device=device)
+    lse = torch.full((batch, heads, seq), NEG_INF, dtype=torch.float32,
+                     device=device)
+    acc = torch.zeros((batch, heads, seq, dim), dtype=torch.float32,
+                      device=device)
+    return m, lse, acc
+
+
+def _expand_kv(x, n_q_heads):
+    """Repeat kv heads to match query heads (GQA)."""
+    n_kv = x.shape[1]
+    if n_kv == n_q_heads:
+        return x
+    if n_q_heads % n_kv:
+        raise ValueError(f"GQA needs Nq % Nk == 0, got {n_q_heads} % {n_kv}")
+    return x.repeat_interleave(n_q_heads // n_kv, dim=1)
+
+
+def tile_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec):
+    """One online-softmax round; returns updated (m, lse, acc)."""
+    s_q, s_kv = q.shape[2], k.shape[2]
+    k = _expand_kv(k, q.shape[1])
+    v = _expand_kv(v, q.shape[1])
+    mask = dense_mask(spec, s_q, s_kv, device=q.device)
+
+    s = torch.einsum("bnid,bnjd->bnij", q.float(), k.float()) * scale
+    s = s.masked_fill(~mask, NEG_INF)
+
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # alpha rescales the old accumulator; rows where m stays -inf keep
+    # alpha=1 (their acc is 0 anyway) to avoid -inf - -inf = nan.
+    alpha = torch.where(m >= m_new, 1.0, torch.exp(m - m_new))
+    p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+    l_step = p.sum(dim=-1)
+
+    acc = acc * alpha[..., None] + torch.einsum("bnij,bnjd->bnid", p,
+                                                v.float())
+    prior = torch.where(torch.isneginf(lse), 0.0, torch.exp(lse - m_new))
+    total = prior + l_step
+    lse_new = torch.where(total > 0, m_new + torch.log(total), NEG_INF)
+    return m_new, lse_new, acc
+
+
+def finalize(m, lse, acc, dtype):
+    """Normalize the accumulator: o = acc * exp(m - lse)."""
+    o_scale = torch.where(torch.isneginf(lse), 0.0, torch.exp(m - lse))
+    return (acc * o_scale[..., None]).to(dtype)
+
+
+def single_device_attention(q, k, v, scale=None, causal=False):
+    """Full attention on one device via the plain tile (a one-round
+    "ring").  GQA is expanded inside the tile."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, n, s, d = q.shape
+    spec = round_spec(0, 0, s, k.shape[2], causal, "contig")
+    m, lse, acc = init_state(b, n, s, d, device=q.device)
+    m, lse, acc = tile_fwd(q, k, v, m, lse, acc, scale, spec)
+    return finalize(m, lse, acc, q.dtype)

@@ -1,0 +1,141 @@
+"""CUDA kernels of the PyTorch port against their plain versions, on the
+card.  Marked `cuda`; without a CUDA device every test skips.  Run them
+on a machine with an NVIDIA GPU (the repository's conftest imports JAX,
+which that machine need not have):
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from burst_attn_tpu_torch.models.serve import ServeEngine
+from burst_attn_tpu_torch.models.transformer import ModelConfig, init_params
+from burst_attn_tpu_torch.ops import flash, masks, paged_attention, tile
+
+pytestmark = pytest.mark.cuda
+
+# fp32: only summation order and exp2-vs-exp differ.  In bf16 each side
+# rounds its output once: up to two bf16 ulps (2 * 2^-7) relative, with an
+# absolute floor for outputs near zero.
+TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
+       torch.bfloat16: dict(atol=2e-3, rtol=1.6e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(g, dev, dtype, *shape):
+    return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,n_kv,s_q,s_kv,d,causal", [
+    (4, 4, 256, 256, 128, True),
+    (8, 2, 200, 200, 128, True),    # GQA, ragged edge
+    (4, 1, 96, 333, 128, False),    # cross lengths
+])
+def test_flash_kernel_matches_plain(dev, dtype, n, n_kv, s_q, s_kv, d,
+                                    causal):
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = _rand(g, dev, dtype, 2, n, s_q, d)
+    k, v = (_rand(g, dev, dtype, 2, n_kv, s_kv, d) for _ in range(2))
+    spec = masks.round_spec(0, 0, s_q, s_kv, causal, "contig")
+    before = flash.flash_fwd.launches
+    m, lse, o = flash.flash_fwd(q, k, v, None, None, None, d**-0.5, spec,
+                                emit_o=True)
+    torch.cuda.synchronize()
+    assert flash.flash_fwd.launches == before + 1
+    st = tile.tile_fwd(q, k, v, *tile.init_state(2, n, s_q, d, device=dev),
+                       d**-0.5, spec)
+    torch.testing.assert_close(o, tile.finalize(*st, dtype), **TOL[dtype])
+    torch.testing.assert_close(m, st[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, st[1], atol=1e-4, rtol=0)
+
+
+def test_flash_kernel_carry_in(dev):
+    n, s, d = 4, 160, 128
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = _rand(g, dev, torch.float32, 1, n, s, d)
+    k0, v0, k1, v1 = (_rand(g, dev, torch.float32, 1, 2, s, d)
+                      for _ in range(4))
+    st = tile.tile_fwd(q, k0, v0, *tile.init_state(1, n, s, d, device=dev),
+                       d**-0.5, masks.full_spec(s, s))
+    spec = masks.round_spec(0, 0, s, s, True, "contig")
+    got = flash.flash_fwd(q, k1, v1, *st, d**-0.5, spec)
+    want = tile.tile_fwd(q, k1, v1, *st, d**-0.5, spec)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_paged_kernel_matches_plain(dev, dtype, group):
+    page, n_kv, n_pages, width, d = 128, 2, 32, 4, 128  # 7 x 4 pages
+    g = torch.Generator(device=dev).manual_seed(2)
+    lengths = [0, 1, 37, page, page + 1, 3 * page + 5, 4 * page]
+    q = _rand(g, dev, dtype, len(lengths), n_kv, group, d)
+    kp, vp = (_rand(g, dev, dtype, n_pages, n_kv, page, d) for _ in range(2))
+    perm = np.random.default_rng(0).permutation(n_pages - 1) + 1
+    table = torch.from_numpy(
+        perm[: len(lengths) * width].reshape(len(lengths), width).astype(
+            np.int32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = paged_attention.paged_decode_attention.launches
+    o = paged_attention.paged_decode_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_decode_attention.launches == before + 1
+    want = paged_attention.paged_decode_reference(q, kp, vp, table, lens)
+    torch.testing.assert_close(o, want, **TOL[dtype])
+    assert (o[0] == 0).all()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 2, 64, 128, device=dev)
+    spec = masks.full_spec(64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), q, q,
+                        None, None, None, 1.0, spec)
+    with pytest.raises(ValueError, match="head dims"):
+        x = torch.zeros(1, 2, 64, 64, device=dev)
+        flash.flash_fwd(x, x, x, None, None, None, 1.0, spec)
+    with pytest.raises(ValueError, match="takes"):
+        h = q.half()
+        flash.flash_fwd(h, h, h, None, None, None, 1.0, spec)
+
+
+def test_engine_on_the_card_matches_the_cpu_engine(dev):
+    """fp32 model: the kernels' engine is token-exact with the plain CPU
+    engine on the same weights, and both kernels ran."""
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_head=128, d_ff=512, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (9, 130, 300)]
+    out = {}
+    for where in ("cpu", dev):
+        p = {k: (v.to(where) if torch.is_tensor(v) else
+                 [{n: w.to(where) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        eng = ServeEngine(p, cfg, slots=2, n_pages=12, max_pages_per_seq=4,
+                          device=where)
+        for pr in prompts:
+            eng.submit(pr, 7)
+        before = (flash.flash_fwd.launches,
+                  paged_attention.paged_decode_attention.launches)
+        out[str(where)] = eng.run()
+        moved = [a - b for a, b in zip(
+            (flash.flash_fwd.launches,
+             paged_attention.paged_decode_attention.launches), before)]
+        if str(where) == "cpu":
+            assert moved == [0, 0]
+        else:
+            assert min(moved) > 0
+        assert eng.pool.available == 11
+    assert out["cpu"] == out[str(dev)]

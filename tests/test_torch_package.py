@@ -1,0 +1,106 @@
+"""Package rules of the PyTorch port: no JAX and nothing of the JAX
+package on its import path, the card by default (no silent CPU
+fallback), and the plain versions only for CPU tensors."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from burst_attn_tpu_torch.models.paged_decode import init_paged_state
+from burst_attn_tpu_torch.models.serve import ServeEngine
+from burst_attn_tpu_torch.models.transformer import ModelConfig, init_params
+from burst_attn_tpu_torch.ops import flash, masks, paged_attention, tile
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import burst_attn_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "burst_attn_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_import_pulls_in_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(maxsplit=1)
+    assert int(n) >= 10  # every module was walked
+    assert bad.strip() == "[]"
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA behaviour")
+    cfg = ModelConfig(vocab=16, d_model=8, n_layers=1, n_heads=1,
+                      n_kv_heads=1, d_head=8, d_ff=8, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_state(cfg, slots=1, n_pages=2)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(params, cfg, slots=1, n_pages=2)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """CPU tensors run the plain version and launch nothing; a tensor on
+    any other non-CUDA device raises instead of falling back."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 40, 32, generator=g, device="cpu")
+    k = torch.randn(1, 2, 40, 32, generator=g, device="cpu")
+    before = (flash.flash_fwd.launches,
+              paged_attention.paged_decode_attention.launches)
+    spec = masks.round_spec(0, 0, 40, 40, True, "contig")
+    got = flash.flash_fwd(q, k, k, None, None, None, 0.5, spec)
+    want = tile.tile_fwd(q, k, k, *tile.init_state(1, 4, 40, 32), 0.5, spec)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+    qd = torch.randn(2, 2, 2, 32, generator=g)
+    pages = torch.randn(3, 2, 128, 32, generator=g)
+    table = torch.tensor([[1], [2]], dtype=torch.int32)
+    lengths = torch.tensor([5, 0], dtype=torch.int32)
+    assert torch.equal(
+        paged_attention.paged_decode_attention(qd, pages, pages, table,
+                                               lengths),
+        paged_attention.paged_decode_reference(qd, pages, pages, table,
+                                               lengths))
+    assert (flash.flash_fwd.launches,
+            paged_attention.paged_decode_attention.launches) == before
+
+    meta = q.to("meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash.flash_fwd(meta, k.to("meta"), k.to("meta"), None, None, None,
+                        0.5, spec)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        paged_attention.paged_decode_attention(
+            qd.to("meta"), pages.to("meta"), pages.to("meta"),
+            table.to("meta"), lengths.to("meta"))
+
+
+def test_chip_smoke_refuses_without_the_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line when no
+    card is present, and also when run alone outside the repository."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA behaviour")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd, script in [(ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")]:
+        if cwd == tmp_path:
+            script.write_bytes((ROOT / "chip_smoke.py").read_bytes())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

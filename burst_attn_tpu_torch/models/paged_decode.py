@@ -24,18 +24,31 @@ into it, and a LIVE slot whose next page is 0 (capacity was never
 provisioned) gets NaN logits, which sample_logits(nan_sentinel=True)
 turns into -1.
 
-Not ported yet: PrefixCache, paged_multi_step, suffix prefill, quantized
-pools and tensor-parallel meshes.
+Quantized pools (`init_paged_state(quantize="int8" | "fp8")`) store
+1 B/elem pages with per-token fp32 scales beside them; every write
+quantizes into both, every read dequantizes through both, and a page is
+never copied without its scales.  `PrefixCache` is the content-hashed
+index of full prompt pages the ragged engine shares through the pool's
+refcounts.
+
+Not ported yet: paged_multi_step, the suffix prefill (so `paged_prefill`
+takes no cache), PrefixCache.to_meta/from_meta and tensor-parallel
+meshes.
 """
 
+import hashlib
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.paged_attention import paged_decode_attention
+from ..ops.paged_attention import (
+    QUANT_DTYPES, paged_decode_attention, pool_bytes, quantize_tokens,
+)
 from .decode import _flash_prompt_attention
 from .transformer import (
     ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
@@ -50,13 +63,31 @@ class PoolRefError(ValueError):
     pass
 
 
+def resolve_pool_dtype(quantize, default):
+    """(pool storage dtype, canonical tag) for an init_paged_state-style
+    `quantize` knob: False -> (default, None); True / "int8" -> int8;
+    "fp8" -> float8_e4m3fn.  The tag is the string every downstream user
+    keys on (the prefix-cache hash seed, the pool's `dtype`)."""
+    if not quantize:
+        return default, None
+    name = "int8" if quantize is True else str(quantize)
+    if name not in QUANT_DTYPES:
+        raise ValueError(f"quantize must be False, True, or one of "
+                         f"{sorted(QUANT_DTYPES)}; got {quantize!r}")
+    return QUANT_DTYPES[name][0], name
+
+
 @dataclass
 class PagedState:
-    """Device-side paged cache (one pool per layer, table shared)."""
+    """Device-side paged cache (one pool per layer, table shared).  A
+    quantized pool keeps per-token fp32 dequant scales beside the pages;
+    the scale banks are pool state exactly like the page bytes."""
     k_pages: List[torch.Tensor]  # each [P, Nkv, page, D]
     v_pages: List[torch.Tensor]
     page_table: torch.Tensor     # [slots, max_pages_per_seq] int32
     lengths: torch.Tensor        # [slots] int32 (0 = empty slot)
+    k_scales: Optional[List[torch.Tensor]] = None  # each [P, Nkv, page]
+    v_scales: Optional[List[torch.Tensor]] = None
 
 
 class PagePool:
@@ -70,16 +101,36 @@ class PagePool:
     are recycled by table rewrite, stale contents are simply never
     addressed.  Page 0 is the reserved write sink and never enters the
     free list.  Same transitions, ids and messages as the JAX package's
-    pool machine (protocols/pool.py)."""
+    pool machine (protocols/pool.py).  `dtype` is the storage tag of the
+    pools it fronts: None = full precision, "int8" / "fp8" = 1 B pages
+    with scale banks."""
 
-    def __init__(self, n_pages: int):
+    def __init__(self, n_pages: int, dtype: Optional[str] = None):
         self.n_pages = n_pages
+        self.dtype = dtype
         self._free: List[int] = list(range(n_pages - 1, 0, -1))
         self._refs = [0] * n_pages
 
     @property
     def available(self) -> int:
         return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        """PHYSICAL pages currently held (each shared page counts once)."""
+        return self.n_pages - 1 - len(self._free)
+
+    @property
+    def logical_refs(self) -> int:
+        """Sum of refcounts — the pages the pool would need WITHOUT
+        sharing."""
+        return sum(self._refs)
+
+    @property
+    def has_shared(self) -> bool:
+        """True iff any page is held at refcount > 1: the cheap gate that
+        lets the serving engine skip the copy-on-write scan."""
+        return any(r > 1 for r in self._refs)
 
     def refcount(self, i: int) -> int:
         return self._refs[int(i)]
@@ -126,36 +177,172 @@ class PagePool:
                 self._free.append(i)
 
 
+class PrefixCache:
+    """Host-side page-aligned prefix cache (automatic prefix caching,
+    restricted to FULL pages).
+
+    Maps the rolling hash of each full-page token prefix to the pool page
+    holding that page's K/V (one page id is valid across every layer's
+    pool — the table is layer-shared).  The cache owns ONE pool reference
+    per registered page, so cached pages survive their sequences retiring;
+    `evict(n)` drops least-recently-used leaf entries and their refs.  A
+    write into a shared page goes through the engine's copy-on-write
+    barrier (serving/model.cow_pages) first."""
+
+    def __init__(self, pool: PagePool):
+        self._pool = pool
+        self._pages: Dict[bytes, int] = {}   # prefix hash -> page id
+        self._lru: "OrderedDict[bytes, None]" = OrderedDict()  # oldest first
+        # chain structure: a lookup stops at the first miss, so an entry
+        # whose parent is gone can never hit again — eviction goes
+        # leaf-first
+        self._parent: Dict[bytes, Optional[bytes]] = {}
+        self._nkids: Dict[bytes, int] = {}
+
+    @staticmethod
+    def chain(tokens, page: int, dtype: Optional[str] = None) -> List[bytes]:
+        """Rolling hash per FULL page of `tokens` (1-D int array): entry i
+        identifies the whole prefix tokens[:(i+1)*page].  The pool's
+        storage `dtype` tag seeds the chain, so an entry made against an
+        int8 pool never aliases one made against fp8 or full precision;
+        dtype None keeps the full-precision chain.  Same bytes as the JAX
+        package's chain."""
+        toks = np.asarray(tokens, np.int32)
+        out: List[bytes] = []
+        h = b"" if dtype is None else f"pool:{dtype}".encode()
+        for i in range(len(toks) // page):
+            h = hashlib.sha1(h + toks[i * page:(i + 1) * page].tobytes()
+                             ).digest()
+            out.append(h)
+        return out
+
+    def __len__(self):
+        return len(self._pages)
+
+    def lookup(self, hashes: List[bytes]) -> List[int]:
+        """Longest cached prefix of `hashes`; bumps the pool refcount of
+        every returned page (the caller owns the new references) and marks
+        the entries recently used."""
+        ids: List[int] = []
+        for h in hashes:
+            pid = self._pages.get(h)
+            if pid is None:
+                break
+            ids.append(pid)
+            self._lru.move_to_end(h)
+        self._pool.share(ids)
+        return ids
+
+    def insert(self, hashes: List[bytes], page_ids) -> None:
+        """Register a prompt's FULL hash chain (hashes[i]'s parent is
+        hashes[i-1]); the cache takes one reference per NEWLY inserted
+        page.  Entries already present are only marked recently used."""
+        assert len(hashes) == len(page_ids)
+        prev: Optional[bytes] = None
+        for h, pid in zip(hashes, page_ids):
+            if h in self._pages:
+                self._lru.move_to_end(h)
+            else:
+                self._pool.share([int(pid)])
+                self._pages[h] = int(pid)
+                self._lru[h] = None
+                self._parent[h] = prev
+                self._nkids[h] = 0
+                if prev is not None:
+                    self._nkids[prev] += 1
+            prev = h
+
+    def evictable(self) -> int:
+        """Upper bound on the pages evict() could free now: entries whose
+        page only the cache references (a shed heuristic, not a
+        guarantee — a parent pinned behind a live child counts)."""
+        return sum(1 for pid in self._pages.values()
+                   if self._pool.refcount(pid) == 1)
+
+    def evict(self, n: int) -> int:
+        """Free up to n pages by dropping entries, least recently used
+        first among LEAVES, skipping entries a live sequence still shares.
+        Returns the pages actually freed."""
+        freed = 0
+        progress = True
+        while freed < n and progress:
+            progress = False
+            for h in list(self._lru):
+                if freed >= n:
+                    break
+                if self._nkids.get(h, 0) > 0:
+                    continue  # not a leaf
+                if self._pool.refcount(self._pages[h]) > 1:
+                    continue  # shared with a live sequence
+                del self._lru[h]
+                self._pool.release([self._pages.pop(h)])
+                parent = self._parent.pop(h)
+                self._nkids.pop(h, None)
+                if parent is not None and parent in self._nkids:
+                    self._nkids[parent] -= 1
+                freed += 1
+                progress = True  # a parent may have become a leaf
+        return freed
+
+
 def init_paged_state(cfg: ModelConfig, *, slots: int, n_pages: int,
                      page: int = 128, max_pages_per_seq: int = 64,
                      quantize=False, device=None):
     """Fresh pool + allocator: (PagedState, PagePool).  `page` must be a
     multiple of 128, as in the JAX package, so both accept the same
     configurations.  Total pool capacity is n_pages * page tokens shared
-    by all slots."""
+    by all slots.  `quantize`: False = pools in cfg.dtype; True or "int8"
+    = int8 pools; "fp8" = float8_e4m3fn pools, each with fp32 scale banks
+    [n_pages, Nkv, page] initialized to ones."""
     if page % 128:
         raise ValueError(f"page size {page} must be a multiple of 128")
-    if quantize:
-        raise NotImplementedError("quantized pools are not ported yet")
+    dt, tag = resolve_pool_dtype(quantize, cfg.dtype)
     dev = resolve_device(device)
     shape = (n_pages, cfg.n_kv_heads, page, cfg.d_head)
-    k_pages = [torch.zeros(shape, dtype=cfg.dtype, device=dev)
-               for _ in range(cfg.n_layers)]
-    v_pages = [torch.zeros(shape, dtype=cfg.dtype, device=dev)
-               for _ in range(cfg.n_layers)]
-    table = torch.zeros((slots, max_pages_per_seq), dtype=torch.int32,
-                        device=dev)
-    lengths = torch.zeros((slots,), dtype=torch.int32, device=dev)
-    return PagedState(k_pages, v_pages, table, lengths), PagePool(n_pages)
+
+    def banks(shape, dtype):
+        return [torch.zeros(shape, dtype=dtype, device=dev)
+                for _ in range(cfg.n_layers)]
+
+    state = PagedState(
+        banks(shape, dt), banks(shape, dt),
+        torch.zeros((slots, max_pages_per_seq), dtype=torch.int32,
+                    device=dev),
+        torch.zeros((slots,), dtype=torch.int32, device=dev))
+    if tag is not None:
+        state.k_scales = [b.fill_(1.0) for b in banks(shape[:3],
+                                                      torch.float32)]
+        state.v_scales = [b.fill_(1.0) for b in banks(shape[:3],
+                                                      torch.float32)]
+    return state, PagePool(n_pages, dtype=tag)
 
 
-def _scatter_pages(pages, new, page_ids):
+def _scatter_pages(pages, new, page_ids, scales=None):
     """Write [1, Nkv, T, D] rope'd K/V into pool pages `page_ids` IN PLACE
-    (T padded to a whole number of pages by the caller); returns pages."""
+    (T padded to a whole number of pages by the caller).  A quantized pool
+    passes its `scales` bank: the rows quantize per token into the pool's
+    dtype and both banks are written together."""
     page = pages.shape[2]
     n_kv, t, d = new.shape[1:]
     chunks = new[0].reshape(n_kv, t // page, page, d).transpose(0, 1)
-    return pages.index_copy_(0, page_ids, chunks.to(pages.dtype))
+    if scales is None:
+        pages.index_copy_(0, page_ids, chunks.to(pages.dtype))
+        return
+    q8, s = quantize_tokens(chunks, dtype=pages.dtype)
+    pool_bytes(pages).index_copy_(0, page_ids, pool_bytes(q8))
+    scales.index_copy_(0, page_ids, s)
+
+
+def _write_tokens(pages, scales, page_id, offset, rows):
+    """Write K or V rows [..., Nkv, D] at pool positions (page_id, offset)
+    [...] IN PLACE; a quantized pool (scales given) gets the rows
+    quantized per token into its bytes and scales together."""
+    if scales is None:
+        pages[page_id, :, offset] = rows.to(pages.dtype)
+        return
+    q8, s = quantize_tokens(rows, dtype=pages.dtype)
+    pool_bytes(pages)[page_id, :, offset] = pool_bytes(q8)
+    scales[page_id, :, offset] = s
 
 
 def paged_prefill(params, tokens, state: PagedState, pool: PagePool,
@@ -198,12 +385,17 @@ def _prefill(params, tokens, state: PagedState, ids, slot, cfg):
     pos = torch.arange(t, device=dev)[None]
     page_ids = torch.tensor(ids, dtype=torch.long, device=dev)
     x = params["embed"][tokens[None]].to(cfg.dtype)
+    quant = state.k_scales is not None
     for li, p in enumerate(params["layers"]):
         q, k, v = _qkv_proj(p, x, pos, cfg)
+        # the prompt attends its own full-precision K/V; only the pool
+        # stores the (possibly quantized) copies
         o = _flash_prompt_attention(q, k, v)
         pad = (0, 0, 0, t_pad - t)
-        _scatter_pages(state.k_pages[li], F.pad(k, pad), page_ids)
-        _scatter_pages(state.v_pages[li], F.pad(v, pad), page_ids)
+        _scatter_pages(state.k_pages[li], F.pad(k, pad), page_ids,
+                       state.k_scales[li] if quant else None)
+        _scatter_pages(state.v_pages[li], F.pad(v, pad), page_ids,
+                       state.v_scales[li] if quant else None)
         x = x + _attn_out(p, o)
         x = x + _mlp(p, x)
     x = _rms_norm(x[:, -1:], params["final_norm"])
@@ -248,14 +440,18 @@ def paged_decode_step(params, tokens, state: PagedState, cfg: ModelConfig,
     boundary_unassigned = live & (page_id == 0)
     page_id = torch.where(live, page_id, 0).long()  # dead slots -> sink
     new_lengths = lengths + live.to(torch.int32)
+    quant = state.k_scales is not None
 
     for li, p in enumerate(params["layers"]):
         kp, vp = state.k_pages[li], state.v_pages[li]
         q, k, v = _qkv_proj(p, x, pos[:, None], cfg)
-        kp[page_id, :, offset] = k[:, :, 0].to(kp.dtype)
-        vp[page_id, :, offset] = v[:, :, 0].to(vp.dtype)
+        ks = state.k_scales[li] if quant else None
+        vs = state.v_scales[li] if quant else None
+        _write_tokens(kp, ks, page_id, offset, k[:, :, 0])
+        _write_tokens(vp, vs, page_id, offset, v[:, :, 0])
         qg = q.reshape(slots, cfg.n_kv_heads, group, cfg.d_head).contiguous()
-        o = paged_decode_attention(qg, kp, vp, state.page_table, new_lengths)
+        o = paged_decode_attention(qg, kp, vp, state.page_table, new_lengths,
+                                   k_scales=ks, v_scales=vs)
         o = o.reshape(slots, cfg.n_heads, 1, cfg.d_head)
         x = x + _attn_out(p, o)
         x = x + _mlp(p, x)

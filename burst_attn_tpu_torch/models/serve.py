@@ -18,9 +18,12 @@ never change shape; admission and retirement only rewrite the page table
 and lengths.  Per-slot bookkeeping is host-side Python over ONE [slots]
 token fetch per step.
 
-Not ported yet: speculative serving (`draft_params`), the prefix cache,
-the write-ahead journal, tensor-parallel meshes, quantized pools, and the
-obs metrics and request tracing.
+`quantize=True | "int8" | "fp8"` stores the pool at 1 B/elem with
+per-token scales (models/paged_decode.py).
+
+Not ported yet: speculative serving (`draft_params`), the prefix cache
+(it needs the suffix prefill), the write-ahead journal, tensor-parallel
+meshes, and the obs metrics and request tracing.
 """
 
 from dataclasses import dataclass, field
@@ -67,14 +70,14 @@ class ServeEngine:
         if draft_params is not None or draft_cfg is not None:
             raise NotImplementedError("speculative serving is not ported yet")
         if prefix_cache:
-            raise NotImplementedError("the prefix cache is not ported yet")
+            raise NotImplementedError(
+                "the ServeEngine prefix cache (suffix prefill) is not ported "
+                "yet; RaggedServeEngine has one")
         if journal is not None:
             raise NotImplementedError("the token journal is not ported yet")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving is not ported yet")
-        if quantize:
-            raise NotImplementedError("quantized pools are not ported yet")
         self.device = resolve_device(device)
         # the logits accumulate in fp32: upcast lm_head once here, so no
         # step makes a fresh fp32 copy of it (_logits' cast is then a no-op)
@@ -92,7 +95,8 @@ class ServeEngine:
         self._rng = rng
         self.state, self.pool = init_paged_state(
             cfg, slots=slots, n_pages=n_pages, page=page,
-            max_pages_per_seq=max_pages_per_seq, device=self.device)
+            max_pages_per_seq=max_pages_per_seq, quantize=quantize,
+            device=self.device)
         self.slots: List[Optional[_Request]] = [None] * slots
         self._next_tok = np.zeros((slots,), np.int64)
         self._queue: List[_Request] = []

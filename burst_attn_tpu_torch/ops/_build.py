@@ -43,9 +43,14 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "flash_fwd_launch": [P] * 9 + [I] * 7 + [F] + [I] * 6 + [P],
     },
     "paged_decode": {
-        # q k_pages v_pages table lengths out,
-        # B Nkv G D page width dtype, scale, stream
-        "paged_decode_launch": [P] * 6 + [I] * 7 + [F] + [P],
+        # q k_pages v_pages k_scales v_scales table lengths out,
+        # B Nkv G D page width dtype kv_dtype, scale, stream
+        "paged_decode_launch": [P] * 8 + [I] * 8 + [F] + [P],
+    },
+    "ragged_paged": {
+        # q k_pages v_pages k_scales v_scales table q_lens kv_lens ctx_lo
+        # out acc m l, S Nkv G QT D page width dtype kv_dtype, scale, stream
+        "ragged_paged_launch": [P] * 13 + [I] * 9 + [F] + [P],
     },
 }
 

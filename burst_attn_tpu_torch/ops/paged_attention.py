@@ -11,8 +11,10 @@ csrc/paged_decode.cu for CUDA tensors (or raises) and runs the plain
 `paged_decode_reference` for CPU tensors.  GQA folds the query-head group
 into the kernel's rows: q arrives [B, Nkv, G, D].  The TPU kernel's
 padding of G to 8 sublanes is a TPU tiling artefact and is not carried
-over.  Full-precision pools only in this slice; `quantize_tokens` is kept
-as plain torch for the quantized pools that come next.
+over.  Pools are in q's dtype, or 1 B/elem (int8 / fp8 e4m3fn) with
+per-token fp32 scales from `quantize_tokens`: the kernel dequantizes as a
+column rescale of the scores and of the probabilities, as the TPU kernel
+does; the plain version dequantizes the whole pool first.
 """
 
 import torch
@@ -27,6 +29,9 @@ QUANT_DTYPES = {
     "fp8": (torch.float8_e4m3fn, 448.0),
 }
 KERNEL_MAX_GROUP = 16  # query rows per kv head (csrc/paged_decode.cu MAXG)
+KERNEL_PAGE_MULTIPLE = 64  # tokens per shared-memory chunk (common.cuh)
+# quantized pool dtype codes of the kernels (csrc/common.cuh)
+KERNEL_POOL_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
 def _quant_range(dtype):
@@ -56,6 +61,25 @@ def quantize_tokens(x, dtype=torch.int8):
     return q, s
 
 
+def pool_bytes(t):
+    """A 1 B/elem pool (or rows for it) seen as uint8, else t itself: pool
+    writes, copies and gathers move quantized pages as bytes, since not
+    every PyTorch indexing kernel has an fp8 instance."""
+    return t.view(torch.uint8) if t.dtype in KERNEL_POOL_DTYPES else t
+
+
+def gather_pages(pages, scales, idx):
+    """Gather pool pages page-contiguously, dequantizing a quantized pool
+    (pages times per-token scales, fp32): pages [P, Nkv, page, D], idx
+    [..., n] -> [..., Nkv, n*page, D]."""
+    g = pool_bytes(pages)[idx.long()].view(pages.dtype)
+    if scales is not None:
+        g = g.float() * scales[idx.long()][..., None]
+    g = g.movedim(-3, -4)
+    return g.reshape(*g.shape[:-4], g.shape[-4], g.shape[-3] * g.shape[-2],
+                     g.shape[-1])
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            k_scales=None, v_scales=None, window=None,
                            scale=None):
@@ -63,31 +87,64 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
     q          [B, Nkv, G, D]    one new token per sequence, query heads
                                  grouped under their kv head
-    k_pages    [P, Nkv, page, D] shared pool
+    k_pages    [P, Nkv, page, D] shared pool, in q's dtype or int8 / fp8
     v_pages    [P, Nkv, page, D]
     page_table [B, S] int32      pool page id per (sequence, slot); slots at
                                  or past ceil(len/page) are ignored
     lengths    [B] int32         live tokens per sequence (0 = empty)
+    k_scales / v_scales  [P, Nkv, page] fp32 per-token dequant scales of a
+                                 quantized pool: both or neither
 
     Returns [B, Nkv, G, D] in q's dtype; empty sequences give zeros.
-    `k_scales`/`v_scales` (quantized pools) and `window` are not ported
-    yet."""
-    if k_scales is not None or v_scales is not None or window is not None:
-        raise NotImplementedError(
-            "quantized pools and window are not ported yet")
+    `window` is not ported yet."""
+    if window is not None:
+        raise NotImplementedError("window is not ported yet")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pages, v_pages, page_table,
-                                      lengths, scale=scale)
+                                      lengths, scale=scale,
+                                      k_scales=k_scales, v_scales=v_scales)
     return _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths,
-                              scale)
+                              k_scales, v_scales, scale)
 
 
 paged_decode_attention.launches = 0
 
 
-def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, scale):
+def check_pool_operands(q, k_pages, v_pages, k_scales, v_scales):
+    """Check the pool a paged kernel reads: pages in q's dtype, or a
+    1 B/elem pool with its two fp32 scale banks.  Returns the pool's dtype
+    code (csrc/common.cuh)."""
+    dev = q.device
+    n_pages, n_kv, page, d = k_pages.shape
+    if page % KERNEL_PAGE_MULTIPLE:
+        raise ValueError(f"page size {page} must be a multiple of "
+                         f"{KERNEL_PAGE_MULTIPLE}")
+    pool_dtype = q.dtype
+    if k_scales is not None:
+        if k_pages.dtype not in KERNEL_POOL_DTYPES:
+            raise ValueError(f"a pool with scales must be int8 or fp8 "
+                             f"e4m3fn, got {k_pages.dtype}")
+        pool_dtype = k_pages.dtype
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            _check_kernel_operand(name, t, dev, torch.float32,
+                                  (n_pages, n_kv, page))
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _check_kernel_operand(name, t, dev, pool_dtype,
+                              (n_pages, n_kv, page, d))
+    return KERNEL_POOL_DTYPES.get(pool_dtype, KERNEL_DTYPES[q.dtype])
+
+
+def data_ptr(t):
+    """A tensor's device address for a kernel argument (None for None)."""
+    return None if t is None else t.data_ptr()
+
+
+def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, k_scales,
+                       v_scales, scale):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu "
@@ -96,7 +153,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, scale):
         raise ValueError(f"paged_decode kernel takes {list(KERNEL_DTYPES)}, "
                          f"got {q.dtype}")
     b, n_kv, g, d = q.shape
-    n_pages, _, page, _ = k_pages.shape
+    page = k_pages.shape[2]
     width = page_table.shape[1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"paged_decode kernel takes head dims "
@@ -104,13 +161,8 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, scale):
     if not 1 <= g <= KERNEL_MAX_GROUP:
         raise ValueError(f"paged_decode kernel takes 1..{KERNEL_MAX_GROUP} "
                          f"query rows per kv head, got {g}")
-    if page % 64:
-        raise ValueError(f"page size {page} must be a multiple of 64")
     _check_kernel_operand("q", q, dev, q.dtype)
-    _check_kernel_operand("k_pages", k_pages, dev, q.dtype,
-                          (n_pages, n_kv, page, d))
-    _check_kernel_operand("v_pages", v_pages, dev, q.dtype,
-                          (n_pages, n_kv, page, d))
+    kv_code = check_pool_operands(q, k_pages, v_pages, k_scales, v_scales)
     _check_kernel_operand("page_table", page_table, dev, torch.int32,
                           (b, width))
     _check_kernel_operand("lengths", lengths, dev, torch.int32, (b,))
@@ -122,29 +174,26 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, scale):
     with torch.cuda.device(dev):
         err = lib.paged_decode_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, n_kv, g, d, page, width, KERNEL_DTYPES[q.dtype], float(scale),
-            stream)
+            data_ptr(k_scales), data_ptr(v_scales), page_table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), b, n_kv, g, d, page, width,
+            KERNEL_DTYPES[q.dtype], kv_code, float(scale), stream)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
 
 def paged_decode_reference(q, k_pages, v_pages, page_table, lengths,
-                           scale=None):
+                           scale=None, k_scales=None, v_scales=None):
     """Plain version of the kernel: gathers each sequence's pages into a
-    contiguous cache and runs dense masked attention in fp32.
-    O(B·S·page) memory."""
-    b, n_kv, g, d = q.shape
-    page = k_pages.shape[2]
-    n_slots = page_table.shape[1]
+    contiguous cache (dequantized first for a quantized pool) and runs
+    dense masked attention in fp32.  O(B·S·page) memory."""
+    d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
-    idx = page_table.long()
-    k = k_pages[idx].movedim(2, 1).reshape(b, n_kv, n_slots * page, d)
-    v = v_pages[idx].movedim(2, 1).reshape(b, n_kv, n_slots * page, d)
+    k = gather_pages(k_pages, k_scales, page_table)  # [B, Nkv, S*page, D]
+    v = gather_pages(v_pages, v_scales, page_table)
     s = torch.einsum("bngd,bnjd->bngj", q.float(), k.float()) * scale
-    pos = torch.arange(n_slots * page, device=q.device)[None, :]
+    pos = torch.arange(k.shape[2], device=q.device)[None, :]
     valid = (pos < lengths[:, None])[:, None, None, :]
     s = s.masked_fill(~valid, float("-inf"))
     p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)  # all-masked -> 0

@@ -1,0 +1,20 @@
+"""Ragged paged serving (port of burst_attn_tpu/serving): one kernel, one
+pool, one engine.
+
+  * `ops/ragged_paged.py` — one launch per layer attends a mixed
+    chunked-prefill + decode token batch against the paged KV pool
+    (csrc/ragged_paged.cu on the card).
+  * `serving.model.ragged_model_step` — the transformer step that scatters
+    each slot's new K/V into its pages and attends through that kernel.
+  * `serving.engine.RaggedServeEngine` — continuous batching: per-step
+    admission, chunked prefill interleaved with in-flight decode, prefix
+    cache with copy-on-write pages, int8/fp8 pools.
+
+Not ported yet: the handoff, the checkpoint layer, the pipelined engine
+and speculative serving.
+"""
+
+from .engine import RaggedServeEngine
+from .model import ragged_model_step
+
+__all__ = ["RaggedServeEngine", "ragged_model_step"]

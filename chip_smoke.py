@@ -9,12 +9,25 @@ Phases (any failure exits non-zero; nothing is caught):
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes, with its time, the plain version's time, one
      PyTorch library call's time (a yardstick only, never used by the
-     port) and its roofline bound;
+     port) and its roofline bound: flash forward; paged decode on bf16,
+     fp32, int8 and fp8 pools; the ragged kernel on a mixed prefill +
+     decode batch (fp32, bf16, int8, fp8 pools), its split-k partials
+     with a page-aligned ctx_lo, and its QT=1 rows bitwise against paged
+     decode;
   4. the ServeEngine at the serving benchmark's width (vocab 32768,
-     d_model 2048, 8 layers, 16/4 heads, d_ff 8192, bf16, random weights
-     from a seed): 12 requests over 8 slots, launch counters read around
-     the run, greedy tokens teacher-forced through the dense plain forward;
-  5. a `kernels` JSON line, then the result line
+     d_model 2048, 8 layers, 16/4 heads, d_ff 8192, random weights from a
+     seed): 12 requests over 8 slots in bf16 and fp32, plus a bf16 run
+     with plain attention (the noise floor), launch counters read around
+     each run, greedy tokens teacher-forced through the dense plain
+     forward;
+  5. the RaggedServeEngine at the same width (chunk 128): the same 12
+     requests in bf16, fp32 (token-exact with the dense forward and with
+     the fp32 ServeEngine) and with plain attention; a prefix-cache wave
+     on a 1024-token template (tokens equal to the cache-off run, counter
+     values as expected, the pool empty after drain and evict); int8 and
+     fp8 pools against plain attention; TTFT of a 2048-token prompt, a
+     decode tick and a mixed tick, with a profiler breakdown;
+  6. a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -35,16 +48,17 @@ PEAK_HBM_BYTES = 3.35e12
 SERVE_DIMS = dict(vocab=32768, d_model=2048, n_layers=8, n_heads=16,
                   n_kv_heads=4, d_head=128, d_ff=8192)
 SLOTS, N_PAGES, PAGE, MAX_PAGES = 8, 160, 128, 17
+CHUNK = 128
 N_REQUESTS = 12
 
 # kernel-vs-plain tolerances, scaled to the values compared.  Both sides
-# compute in fp32 and differ only in summation order and exp2-vs-exp, so
-# an fp32 run differs by rounding alone; in bf16 each side rounds its
-# output once, so they may differ by up to two bf16 ulps (2 * 2^-7
-# relative), with an absolute floor for outputs near zero.  The checks
-# run at both dtypes: fp32 catches a small fault (one page of a long
-# context skipped moves |o| ~ 0.03 outputs by ~4e-2) that bf16 rounding
-# could hide.
+# compute in fp32 and differ only in summation order and exp2-vs-exp (and,
+# on 1-byte pools, where the per-token scale multiplies), so an fp32 run
+# differs by rounding alone; in bf16 each side rounds its output once, so
+# they may differ by up to two bf16 ulps (2 * 2^-7 relative), with an
+# absolute floor for outputs near zero.  The checks run at both dtypes:
+# fp32 catches a small fault (one page of a long context skipped moves
+# |o| ~ 0.03 outputs by ~4e-2) that bf16 rounding could hide.
 O_TOL = {"bf16": dict(atol=2e-3, rtol=1.6e-2),
          "fp32": dict(atol=1e-5, rtol=1e-4)}
 STATS_ATOL = {"bf16": 1e-3, "fp32": 1e-4}  # m, lse (always fp32)
@@ -52,11 +66,13 @@ ACC_RTOL = 1e-4     # raw fp32 accumulator, relative to its largest entry
 # Greedy tokens vs the dense plain forward, teacher-forced.  In bf16 the
 # engine's per-token decode matmuls and incremental K/V round differently
 # from one dense pass, which flips near-tied argmaxes: with the kernels
-# swapped for their plain versions (the control run below) the engine
+# swapped for their plain versions (the control runs below) the engine
 # agreed at 97.2% (559/575) on an H100.  So bf16 requires >= 95% AND every
 # disagreement to be a near tie (reference logit gap <= TIE_GAP; logits
 # have std ~0.9 here, a real fault gives O(1) gaps); fp32 at the same
-# width must agree token for token.
+# width must agree token for token.  A quantized pool is held to the same
+# engine with plain attention: token-exact, or a flip at a near tie of
+# the dense forward.
 MIN_AGREE_BF16 = 0.95
 TIE_GAP = 0.1
 
@@ -87,6 +103,20 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, repeats=3):
+    """Median host milliseconds of `fn`, synchronized on both sides."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
 def bound_ms(n_bytes, n_flops):
     t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
     t_ops = n_flops / PEAK_BF16_FLOPS * 1e3
@@ -111,6 +141,13 @@ def device_breakdown(fn, n_calls, top=6):
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     return wall, sum(t for _, t in rows), [(k[:60], t) for k, t in rows[:top]]
+
+
+def print_profile(what, prof):
+    wall, dev, top = prof
+    print(f"profile {what}: wall {wall:.2f} ms, device {dev:.2f} ms "
+          f"(busy {dev / wall:.2f}); top kernels (ms): "
+          + "; ".join(f"{k} {t:.3f}" for k, t in top), flush=True)
 
 
 def _max_err(a, b):
@@ -208,14 +245,43 @@ def check_flash(device, b=1, n=16, n_kv=4, s=2048, d=128, dtype=None,
                 bound_by=by, library_ms=lib_ms)
 
 
+def _pool(g, device, dtype, quant, n_pages, n_kv, page, d):
+    """Random k/v pools in `dtype`, or quantized to `quant` ("int8" /
+    "fp8") with their per-token scales."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+
+    k, v = (torch.randn(n_pages, n_kv, page, d, generator=g, device=device)
+            for _ in range(2))
+    if quant is None:
+        return k.to(dtype), v.to(dtype), None, None
+    qdt = pa.QUANT_DTYPES[quant][0]
+    (k8, ks), (v8, vs) = (pa.quantize_tokens(x, dtype=qdt) for x in (k, v))
+    return k8, v8, ks, vs
+
+
+def _table(seed, lengths, n_pages, page, width, device):
+    """Distinct random pages per slot, enough for each slot's length."""
+    import numpy as np
+    import torch
+
+    free = list(np.random.default_rng(seed).permutation(n_pages - 1) + 1)
+    table = np.zeros((len(lengths), width), np.int32)
+    for i, ln in enumerate(lengths):
+        for c in range(-(-ln // page)):
+            table[i, c] = free.pop()
+    return torch.from_numpy(table).to(device)
+
+
 def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
                        lengths=(0, 1, 128, 2112, 2048, 1000, 129, 1536),
-                       n_pages=N_PAGES, width=MAX_PAGES, dtype=None, seed=0,
-                       timing=True):
+                       n_pages=N_PAGES, width=MAX_PAGES, dtype=None,
+                       quant=None, seed=0, timing=True):
     """paged_decode_attention against paged_decode_reference on the card
-    at 8 slots with ragged lengths.  Returns the kernels-line record, or
-    with `timing` False the max-abs error."""
-    import numpy as np
+    at 8 slots with ragged lengths, on a pool in q's dtype or quantized.
+    Returns the kernels-line record, or with `timing` False the max-abs
+    error (and, on a quantized pool, the kernel's ms)."""
     import torch
     import torch.nn.functional as F
 
@@ -226,31 +292,31 @@ def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn(slots, n_kv, group, d, generator=g,
                     device=device).to(dtype)
-    kp = torch.randn(n_pages, n_kv, page, d, generator=g,
-                     device=device).to(dtype)
-    vp = torch.randn(n_pages, n_kv, page, d, generator=g,
-                     device=device).to(dtype)
-    rng = np.random.default_rng(seed)
-    free = list(rng.permutation(n_pages - 1) + 1)
-    table = np.zeros((slots, width), np.int32)
-    for i, ln in enumerate(lengths):
-        for c in range(-(-ln // page)):
-            table[i, c] = free.pop()
-    table = torch.from_numpy(table).to(device)
+    kp, vp, ks, vs = _pool(g, device, dtype, quant, n_pages, n_kv, page, d)
+    table = _table(seed, lengths, n_pages, page, width, device)
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
 
-    o = pa.paged_decode_attention(q, kp, vp, table, lens)
-    want = pa.paged_decode_reference(q, kp, vp, table, lens)
-    err = _check_o("paged_decode", o, want, dtype)
+    def kernel():
+        return pa.paged_decode_attention(q, kp, vp, table, lens,
+                                         k_scales=ks, v_scales=vs)
+
+    o = kernel()
+    want = pa.paged_decode_reference(q, kp, vp, table, lens, k_scales=ks,
+                                     v_scales=vs)
+    err = _check_o(f"paged_decode {quant or ''}", o, want, dtype)
     for i, ln in enumerate(lengths):
         assert ln or (o[i] == 0).all(), "an empty slot must give zeros"
     key = _dtype_key(dtype)
-    print(f"paged_decode {key} lengths={list(lengths)} max_abs_err={err:.3e} "
-          f"(tolerance {O_TOL[key]})", flush=True)
+    print(f"paged_decode {key} pool={quant or key} lengths={list(lengths)} "
+          f"max_abs_err={err:.3e} (tolerance {O_TOL[key]})", flush=True)
+    if quant is not None and timing:
+        ms = time_ms(kernel)
+        print(f"paged_decode {key} pool={quant}: {ms:.4f} ms", flush=True)
+        return err, ms
     if not timing:
         return err
 
-    ms = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table, lens))
+    ms = time_ms(kernel)
     plain_ms = time_ms(
         lambda: pa.paged_decode_reference(q, kp, vp, table, lens), iters=5)
     # the library yardstick: SDPA over the cache gathered to dense
@@ -274,130 +340,554 @@ def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
                 bound_by=by, library_ms=lib_ms)
 
 
+# the ragged kernel's check batch at the serving shapes: idle, decode at
+# the longest context, a first chunk shorter than a page, a full chunk
+# ending exactly on a page edge (1024), a full chunk at 2K, a decode of a
+# 1-token sequence, a full chunk mid-page, a short tail chunk
+RAGGED_Q_LENS = (0, 1, 37, 128, 128, 1, 128, 37)
+RAGGED_KV_LENS = (0, 2112, 37, 1024, 2048, 1, 700, 1500)
+
+
+def _ragged_case(device, dtype, quant, seed, n_kv=4, group=4, d=128,
+                 page=PAGE, n_pages=N_PAGES, width=MAX_PAGES):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    slots = len(RAGGED_Q_LENS)
+    q = torch.randn(slots, n_kv * group, CHUNK, d, generator=g,
+                    device=device).to(dtype)
+    kp, vp, ks, vs = _pool(g, device, dtype, quant, n_pages, n_kv, page, d)
+    table = _table(seed, RAGGED_KV_LENS, n_pages, page, width, device)
+    ql, kl = (torch.tensor(x, dtype=torch.int32, device=device)
+              for x in (RAGGED_Q_LENS, RAGGED_KV_LENS))
+    return q, kp, vp, table, ql, kl, ks, vs
+
+
+def check_ragged(device, dtype, quant=None, seed=1, timing=False):
+    """ragged_paged_attention against ragged_paged_reference on the mixed
+    batch; with `timing`, the kernels-line record (times, SDPA yardstick
+    over the gathered cache with a causal-band mask, bound from this
+    batch's live positions and visible pairs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    q, kp, vp, table, ql, kl, ks, vs = _ragged_case(device, dtype, quant,
+                                                    seed)
+    kw = dict(k_scales=ks, v_scales=vs)
+
+    def kernel():
+        return rp.ragged_paged_attention(q, kp, vp, table, ql, kl, **kw)
+
+    o = kernel()
+    want = rp.ragged_paged_reference(q, kp, vp, table, ql, kl, **kw)
+    err = _check_o(f"ragged {quant or ''}", o, want, dtype)
+    assert (o[0] == 0).all() and (o[2, :, 37:] == 0).all(), \
+        "idle slots and padding rows must give zeros"
+    key = _dtype_key(dtype)
+    print(f"ragged_paged {key} pool={quant or key} q_lens="
+          f"{list(RAGGED_Q_LENS)} kv_lens={list(RAGGED_KV_LENS)} "
+          f"max_abs_err={err:.3e} (tolerance {O_TOL[key]})", flush=True)
+    if not timing:
+        return err
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: rp.ragged_paged_reference(
+        q, kp, vp, table, ql, kl, **kw), iters=5)
+    slots, n_q, qt, d = q.shape
+    n_kv, page, width = kp.shape[1], kp.shape[2], table.shape[1]
+    idx = table.long()
+    kd = kp[idx].movedim(2, 1).reshape(slots, n_kv, width * page, d)
+    vd = vp[idx].movedim(2, 1).reshape(slots, n_kv, width * page, d)
+    t = torch.arange(qt, device=device)
+    qp = (kl - ql).long()[:, None] + t[None, :]
+    real = t[None, :] < ql[:, None]
+    col = torch.arange(width * page, device=device)
+    mask = (col[None, None, :] <= qp[:, :, None]) & real[:, :, None]
+    mask[:, :, 0] |= ~real  # padding rows see one column (no NaN rows)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
+    pairs = n_q * sum(q_len * (kv - q_len) + q_len * (q_len + 1) // 2
+                      for q_len, kv in zip(RAGGED_Q_LENS, RAGGED_KV_LENS))
+    live = sum(RAGGED_KV_LENS)
+    token_bytes = kp.element_size() * d + (4 if ks is not None else 0)
+    n_bytes = (2 * live * n_kv * token_bytes
+               + q.element_size() * 2 * q.numel()
+               + 4 * (table.numel() + 2 * slots))
+    bms, by = bound_ms(n_bytes, 4 * pairs * d)
+    return dict(name="ragged_paged", route="cuda",
+                source="burst_attn_tpu_torch/csrc/ragged_paged.cu",
+                replaces="burst_attn_tpu/ops/ragged_paged.py:57",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def check_ragged_partials(device, seed=2):
+    """emit_partials with a page-aligned ctx_lo against the plain
+    partials: the same -inf rows, fp32 acc / m / l within rounding."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(device, torch.float32,
+                                                  None, seed)
+    lo = torch.tensor([0, 1024, 0, 512, 1024, 0, 256, 1408],
+                      dtype=torch.int32, device=device)
+    got = rp.ragged_paged_attention(q, kp, vp, table, ql, kl, ctx_lo=lo,
+                                    emit_partials=True)
+    want = rp.ragged_paged_partials_reference(q, kp, vp, table, ql, kl,
+                                              ctx_lo=lo)
+    errs = []
+    for a, b, what in zip(got, want, ("acc", "m", "l")):
+        assert torch.equal(torch.isinf(a), torch.isinf(b)), what
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(a[fin], b[fin], atol=1e-4, rtol=1e-5,
+                                   msg=lambda m: f"partials {what}: {m}")
+        errs.append(_max_err(a[fin], b[fin]))
+    print(f"ragged_paged partials ctx_lo={lo.tolist()}: max_abs_err "
+          f"acc {errs[0]:.3e} m {errs[1]:.3e} l {errs[2]:.3e} "
+          f"(tolerance atol 1e-4 rtol 1e-5)", flush=True)
+
+
+def check_ragged_decode_rows(device, dtype, quant=None, seed=3):
+    """A QT=1 batch through the ragged kernel is bitwise the paged decode
+    kernel's output on the same pool."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    lengths = (0, 1, 128, 2112, 2048, 1000, 129, 1536)
+    n_kv, group, d = 4, 4, 128
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(len(lengths), n_kv, group, d, generator=g,
+                    device=device).to(dtype)
+    kp, vp, ks, vs = _pool(g, device, dtype, quant, N_PAGES, n_kv, PAGE, d)
+    table = _table(seed, lengths, N_PAGES, PAGE, MAX_PAGES, device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    dec = pa.paged_decode_attention(q, kp, vp, table, lens, k_scales=ks,
+                                    v_scales=vs)
+    rag = rp.ragged_paged_attention(
+        q.reshape(len(lengths), n_kv * group, 1, d), kp, vp, table,
+        (lens > 0).to(torch.int32), lens, k_scales=ks, v_scales=vs)
+    assert torch.equal(rag.reshape(dec.shape), dec), \
+        f"QT=1 ragged rows differ from paged decode ({dtype}, {quant})"
+    print(f"ragged_paged QT=1 {_dtype_key(dtype)} pool={quant or 'same'}: "
+          "torch.equal to paged_decode", flush=True)
+
+
 @contextlib.contextmanager
 def plain_attention():
-    """Route the serving path's attention through the plain versions: the
-    bf16 noise-floor control.  The kernel wrappers launch for every CUDA
-    tensor by design, so only patching the two call sites can do this."""
+    """Route both engines' attention through the plain versions: the
+    noise-floor control.  The kernel wrappers launch for every CUDA tensor
+    by design, so only patching the call sites can do this."""
     from unittest import mock
 
     import burst_attn_tpu_torch.models.paged_decode as pd
-    from burst_attn_tpu_torch.ops import paged_attention as pa, tile
+    import burst_attn_tpu_torch.serving.model as sm
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+    from burst_attn_tpu_torch.ops import tile
 
-    def decode(q, kp, vp, table, lengths):
-        return pa.paged_decode_reference(q, kp, vp, table, lengths)
+    def decode(q, kp, vp, table, lengths, k_scales=None, v_scales=None):
+        return pa.paged_decode_reference(q, kp, vp, table, lengths,
+                                         k_scales=k_scales, v_scales=v_scales)
 
     def prompt(q, k, v):
         return tile.single_device_attention(q, k, v, causal=True)
 
+    def ragged(q, kp, vp, table, q_lens, kv_lens, **kw):
+        return rp.ragged_paged_reference(q, kp, vp, table, q_lens, kv_lens,
+                                         **kw)
+
     with mock.patch.object(pd, "paged_decode_attention", decode), \
-            mock.patch.object(pd, "_flash_prompt_attention", prompt):
+            mock.patch.object(pd, "_flash_prompt_attention", prompt), \
+            mock.patch.object(sm, "ragged_paged_attention", ragged), \
+            mock.patch.object(sm, "ragged_paged_attention_grouped",
+                              _plain_grouped):
         yield
 
 
-def serve(cfg, device, *, n_requests=N_REQUESTS, slots=SLOTS,
-          n_pages=N_PAGES, page=PAGE, max_pages=MAX_PAGES, len_lo=100,
-          len_hi=2048, new_lo=32, new_hi=64, seed=0, timing=True):
-    """Drive the ServeEngine through run() with the launch counters set to
-    0 just before and read just after; check budgets, pool drain and the
-    teacher-forced agreement with the dense plain forward; then (`timing`)
-    time a prefill and steady decode steps.  Returns a dict of results."""
-    import numpy as np
+def _plain_grouped(q, kp, vp, table, q_lens, kv_lens, *, group_id,
+                   shared_table, shared_lens, **kw):
+    """The grouped launch's value with plain attention (the grouping only
+    reorders the sums)."""
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    return rp.ragged_paged_reference(q, kp, vp, table, q_lens, kv_lens, **kw)
+
+
+_PARAMS = {}
+
+
+def model(dtype, device):
+    """(cfg, params) at the serving width, random weights from seed 0;
+    made once per dtype (numpy init of 0.62 B parameters takes seconds)."""
     import torch
 
-    from burst_attn_tpu_torch.models.serve import ServeEngine
-    from burst_attn_tpu_torch.models.transformer import forward, init_params
-    from burst_attn_tpu_torch.ops import flash, paged_attention as pa
+    from burst_attn_tpu_torch.models.transformer import (
+        ModelConfig, init_params,
+    )
 
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=seed, device=device)
-    init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed + 1)
+    cfg = ModelConfig(**SERVE_DIMS, dtype=dtype, batch_axis=None,
+                      head_axis=None)
+    if torch.float32 not in _PARAMS:
+        _PARAMS[torch.float32] = init_params(
+            ModelConfig(**SERVE_DIMS, dtype=torch.float32, batch_axis=None,
+                        head_axis=None), seed=0, device=device)
+    if dtype not in _PARAMS:
+        # init_params draws fp32 numbers and casts the matrices: the same
+        # cast of the fp32 model gives the same weights; norms stay fp32
+        def cast(w):
+            return w.to(dtype) if w.dim() > 1 else w
+
+        src = _PARAMS[torch.float32]
+        _PARAMS[dtype] = {k: cast(v) if torch.is_tensor(v) else
+                          [{n: cast(w) for n, w in lay.items()} for lay in v]
+                          for k, v in src.items()}
+    return cfg, _PARAMS[dtype]
+
+
+def requests(cfg, seed=1, n_requests=N_REQUESTS, len_lo=100, len_hi=2048,
+             new_lo=32, new_hi=64):
+    """The 12 seeded requests: (prompts, budgets)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
     lens = [len_lo, len_hi] + list(rng.integers(len_lo, len_hi + 1,
                                                 n_requests - 2))
-    budgets = list(rng.integers(new_lo, new_hi + 1, n_requests))
+    budgets = [int(n) for n in rng.integers(new_lo, new_hi + 1, n_requests)]
     prompts = [rng.integers(1, cfg.vocab, size=int(t), dtype=np.int32)
                for t in lens]
-    eng = ServeEngine(params, cfg, slots=slots, n_pages=n_pages, page=page,
-                      max_pages_per_seq=max_pages, eos_id=None, device=device)
-    rids = [eng.submit(p, int(n)) for p, n in zip(prompts, budgets)]
+    return prompts, budgets
 
-    flash.flash_fwd.launches = 0
-    pa.paged_decode_attention.launches = 0
+
+def drive(eng, prompts, budgets, counters):
+    """Submit, run() with the launch counters of `counters` (kernel
+    wrappers) set to 0 just before and read just after; check budgets and
+    the pool drain.  Returns (tokens by request in submit order, launches,
+    seconds)."""
+    rids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+    for f in counters:
+        f.launches = 0
     t0 = time.perf_counter()
     out = eng.run()
     run_s = time.perf_counter() - t0
-    launches = {"flash_fwd": flash.flash_fwd.launches,
-                "paged_decode": pa.paged_decode_attention.launches}
+    launches = {f.__name__: f.launches for f in counters}
+    toks = [out[r] for r in rids]
+    for t, n in zip(toks, budgets):
+        assert len(t) == n, f"{len(t)} of {n} tokens"
+        assert all(0 <= x < eng.cfg.vocab for x in t)
+    return toks, launches, run_s
 
-    for rid, n in zip(rids, budgets):
-        toks = out[rid]
-        assert len(toks) == n, f"request {rid}: {len(toks)} of {n} tokens"
-        assert all(0 <= t < cfg.vocab for t in toks)
-    assert eng.pool.available == n_pages - 1, "pool did not drain"
-    n_generated = int(sum(budgets))
+
+def agreement(cfg, params, prompts, toks, device):
+    """Teacher-force each request's prompt + generated tokens through the
+    dense plain forward: (agreeing tokens, total, [(index, reference
+    logit gap)] per disagreement)."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models.transformer import forward
 
     agree = total = 0
-    gaps = []  # (token index, reference logit gap) per disagreement
-    for rid, p in zip(rids, prompts):
-        full = np.concatenate([p, np.asarray(out[rid][:-1], np.int32)])
+    gaps = []
+    for p, out in zip(prompts, toks):
+        full = np.concatenate([p, np.asarray(out[:-1], np.int32)])
         tok = torch.from_numpy(full.astype(np.int64)).to(device)[None]
         pos = torch.arange(tok.shape[1], device=device)[None]
         with torch.no_grad():
             logits = forward(params, tok, pos, cfg)
         assert torch.isfinite(logits).all()
         lg = logits[0, len(p) - 1:]
-        got = torch.as_tensor(out[rid], device=device)
+        got = torch.as_tensor(out, device=device)
         pred = lg.argmax(-1)
         miss = (pred != got).nonzero()[:, 0]
-        agree += len(out[rid]) - len(miss)
-        total += len(out[rid])
-        # how close each disagreement is to a tie, in reference logits
+        agree += len(out) - len(miss)
+        total += len(out)
         for i in miss.tolist():
             gaps.append((i, float(lg[i, pred[i]] - lg[i, got[i]])))
         del logits, lg
+    return agree, total, gaps
 
-    res = dict(launches=launches, n_requests=n_requests,
-               n_generated=n_generated, agree=agree, total=total, gaps=gaps,
-               run_s=run_s, init_s=init_s, run_tok_s=n_generated / run_s,
-               min_decode_steps=-(-(n_generated - n_requests) // slots))
-    if not timing:
-        return res
-    # steady-state timing: one full-length prefill; then decode steps with
-    # every slot live at ~len_hi context
+
+def near_tie_flips(cfg, params, prompts, toks, want, device):
+    """Where two runs' greedy streams part (first differing token of each
+    request), the dense forward's logit gap between the two choices:
+    [(request, index, gap)]."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models.transformer import forward
+
+    flips = []
+    for r, (p, a, b) in enumerate(zip(prompts, toks, want)):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        full = np.concatenate([p, np.asarray(a[:i], np.int32)])
+        tok = torch.from_numpy(full.astype(np.int64)).to(device)[None]
+        pos = torch.arange(tok.shape[1], device=device)[None]
+        with torch.no_grad():
+            lg = forward(params, tok, pos, cfg)[0, -1]
+        flips.append((r, i, abs(float(lg[a[i]] - lg[b[i]]))))
+    return flips
+
+
+def check_agreement(what, res, bf16):
+    agree, total, gaps = res
+    worst = max((g for _, g in gaps), default=0.0)
+    print(f"{what}: teacher-forced agreement with the dense forward "
+          f"{agree}/{total} = {agree / total:.4f}, largest reference logit "
+          f"gap at a disagreement {worst:.4f}", flush=True)
+    if bf16:
+        assert agree / total >= MIN_AGREE_BF16, what
+        assert worst <= TIE_GAP, (what, gaps)
+    else:
+        assert agree == total, (what, gaps)
+
+
+def serve_engine_phase(device):
+    """The ServeEngine runs: bf16 (launch counts), plain-attention
+    control, fp32; then a timed prefill and decode steps."""
+    import torch
+
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.ops import flash, paged_attention as pa
+
+    counters = (flash.flash_fwd, pa.paged_decode_attention)
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, device=device)
+    res = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        cfg, params = model(dtype, device)
+        prompts, budgets = requests(cfg)
+        eng = ServeEngine(params, cfg, **kw)
+        toks, launches, run_s = drive(eng, prompts, budgets, counters)
+        assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+        n_gen = sum(budgets)
+        min_steps = -(-(n_gen - N_REQUESTS) // SLOTS)
+        assert launches["flash_fwd"] == cfg.n_layers * N_REQUESTS, launches
+        assert launches["paged_decode_attention"] % cfg.n_layers == 0
+        assert launches["paged_decode_attention"] >= cfg.n_layers * min_steps
+        print(f"ServeEngine {name}: {N_REQUESTS} requests, {n_gen} tokens "
+              f"in {run_s:.2f} s ({n_gen / run_s:.1f} tok/s), launches "
+              f"{launches}", flush=True)
+        check_agreement(f"ServeEngine {name}", agreement(
+            cfg, params, prompts, toks, device), name == "bf16")
+        res[name] = dict(toks=toks, launches=launches, run_s=run_s,
+                         n_gen=n_gen, eng=eng, prompts=prompts)
+        if name == "bf16":
+            with plain_attention():
+                ctrl, cl, _ = drive(ServeEngine(params, cfg, **kw), prompts,
+                                    budgets, counters)
+            assert sum(cl.values()) == 0, cl
+            a, t, _ = agreement(cfg, params, prompts, ctrl, device)
+            print(f"ServeEngine control, bf16 with plain attention: "
+                  f"{a}/{t}", flush=True)
+            res["control"] = (a, t)
+
+    # steady-state timing (bf16): one full-length prefill; then decode
+    # steps with every slot live at ~2K context
+    eng, prompts = res["bf16"]["eng"], res["bf16"]["prompts"]
     long_prompt = prompts[1]
-    sync = torch.cuda.synchronize
-    times = []
-    for _ in range(3):
-        eng.submit(long_prompt, 1)
-        sync()
-        t0 = time.perf_counter()
-        eng.step()  # admits (one prefill) and retires at once: budget 1
-        sync()
-        times.append((time.perf_counter() - t0) * 1e3)
-    prefill_ms = sorted(times)[1]  # median of 3
 
     def one_prefill():
         eng.submit(long_prompt, 1)
-        eng.step()
+        eng.step()  # admits (one prefill) and retires at once: budget 1
 
-    prof_prefill = device_breakdown(one_prefill, 2)
-    for _ in range(slots):
-        eng.submit(long_prompt[: len_hi - new_hi], new_hi)
+    res["prefill_ms"] = host_ms(one_prefill)
+    res["prof_prefill"] = device_breakdown(one_prefill, 2)
+    for _ in range(SLOTS):
+        eng.submit(long_prompt[:2048 - 64], 64)
     eng.step()  # admits every slot
-    n_steps = new_hi // 2
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        eng.step()
-    sync()
-    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    prof_step = device_breakdown(eng.step, 4)
+    n_steps = 32
+    res["decode_step_ms"] = host_ms(lambda: [eng.step()
+                                             for _ in range(n_steps)],
+                                    repeats=1) / n_steps
+    res["prof_step"] = device_breakdown(eng.step, 4)
     eng.drain()
-    res.update(prefill_ms=prefill_ms, prefill_len=len(long_prompt),
-               decode_step_ms=step_ms, decode_tok_s=slots * 1e3 / step_ms,
-               prof_prefill=prof_prefill, prof_step=prof_step)
     return res
+
+
+def ragged_engine_phase(device, serve_res):
+    """RaggedServeEngine runs at the serving width: bf16 (launch counts,
+    agreement), plain-attention control, fp32 (exact vs the dense forward
+    and the fp32 ServeEngine), int8/fp8 pools vs plain attention, the
+    prefix-cache wave, and the timings."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    counters = (rp.ragged_paged_attention,)
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, chunk=CHUNK, device=device)
+    res = {}
+
+    def run(dtype, **extra):
+        cfg, params = model(dtype, device)
+        prompts, budgets = requests(cfg)
+        eng = RaggedServeEngine(params, cfg, **kw, **extra)
+        toks, launches, run_s = drive(eng, prompts, budgets, counters)
+        assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+        ticks = sum(v for k, v in eng.stats.items()
+                    if k.startswith("serve.ragged_batch_launches"))
+        fallbacks = sum(v for k, v in eng.stats.items()
+                        if k.startswith("burst.fused_fallback"))
+        return cfg, params, prompts, eng, toks, launches, run_s, ticks, \
+            fallbacks
+
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        cfg, params, prompts, eng, toks, launches, run_s, ticks, fb = run(
+            dtype)
+        n = launches["ragged_paged_attention"]
+        print(f"RaggedServeEngine {name}: {N_REQUESTS} requests, "
+              f"{sum(map(len, toks))} tokens in {run_s:.2f} s, {ticks} "
+              f"launch ticks, ragged launches {n}, dense fallbacks {fb}, "
+              f"stats {dict(eng.stats)}", flush=True)
+        assert fb == 0 and n == cfg.n_layers * ticks > 0, (fb, n, ticks)
+        check_agreement(f"RaggedServeEngine {name}", agreement(
+            cfg, params, prompts, toks, device), name == "bf16")
+        res[name] = dict(toks=toks, launches=n, run_s=run_s, ticks=ticks,
+                         eng=eng, prompts=prompts)
+    assert res["fp32"]["toks"] == serve_res["fp32"]["toks"], \
+        "fp32 ragged engine tokens differ from the fp32 ServeEngine's"
+    print("RaggedServeEngine fp32 tokens equal the fp32 ServeEngine's",
+          flush=True)
+    with plain_attention():
+        cfg, params, prompts, _, ctrl, cl, _, _, _ = run(torch.bfloat16)
+    assert sum(cl.values()) == 0, cl
+    a, t, _ = agreement(cfg, params, prompts, ctrl, device)
+    print(f"RaggedServeEngine control, bf16 with plain attention: {a}/{t}",
+          flush=True)
+    res["control"] = (a, t)
+
+    # quantized pools: the fp32 model through the kernel vs plain attention
+    res["quant"] = {}
+    for q in ("int8", "fp8"):
+        cfg, params, prompts, _, toks, launches, _, ticks, _ = run(
+            torch.float32, quantize=q)
+        assert launches["ragged_paged_attention"] == cfg.n_layers * ticks
+        with plain_attention():
+            want = run(torch.float32, quantize=q)[4]
+        flips = near_tie_flips(cfg, params, prompts, toks, want, device)
+        same = sum(a == b for a, b in zip(toks, want))
+        print(f"RaggedServeEngine fp32 model, {q} pool: kernel vs plain "
+              f"attention {same}/{N_REQUESTS} streams identical; flips "
+              f"(request, token, dense-forward logit gap) {flips}",
+              flush=True)
+        assert all(g <= TIE_GAP for _, _, g in flips), flips
+        res["quant"][q] = (same, flips)
+    cfg, params, prompts, _, toks, _, _, _, _ = run(torch.bfloat16,
+                                                    quantize="int8")
+    a, t, _ = agreement(cfg, params, prompts, toks, device)
+    print(f"RaggedServeEngine bf16 model, int8 pool: teacher-forced "
+          f"agreement with the dense forward {a}/{t} = {a / t:.4f}",
+          flush=True)
+    res["bf16_int8_agree"] = (a, t)
+    res["prefix"] = prefix_wave(device)
+    res.update(ragged_timings(device))
+    return res
+
+
+def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
+                template_len=1024, budget=24):
+    """fp32: a warm request registers a 1024-token template; then 8
+    requests on it (tails of 0-300 tokens, one the exact template) run
+    with the cache on and off.  Tokens must be equal; the counters must
+    read what the admission arithmetic says; the grouped launch must run;
+    drain + evict must return every page."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    cfg, params = model(torch.float32, device)
+    rng = np.random.default_rng(7)
+    tmpl = rng.integers(1, cfg.vocab, size=template_len, dtype=np.int32)
+    prompts = [np.concatenate([tmpl, rng.integers(1, cfg.vocab, size=t,
+                                                  dtype=np.int32)])
+               for t in tails]
+    out = {}
+    for cache in (False, True):
+        eng = RaggedServeEngine(params, cfg, slots=SLOTS, n_pages=N_PAGES,
+                                page=PAGE, max_pages_per_seq=MAX_PAGES,
+                                chunk=CHUNK, prefix_cache=cache,
+                                device=device)
+        eng.submit(tmpl, 2)
+        eng.run()
+        stats0 = dict(eng.stats)
+        rids = [eng.submit(p, budget) for p in prompts]
+        res = eng.run()
+        out[cache] = [res[r] for r in rids]
+        stats = {k: v - stats0.get(k, 0) for k, v in eng.stats.items()}
+    n_pre = template_len // PAGE
+    want = {"serve.prefix_hits": len(tails),
+            # a full-prompt hit resumes at T-1
+            "serve.prefill_tokens_skipped": sum(
+                n_pre * PAGE - (t == 0) for t in tails),
+            # ... and its re-absorbed token privatizes the last shared page
+            "serve.cow_copies": sum(t == 0 for t in tails)}
+    print(f"prefix wave (fp32, template {template_len}, tails {list(tails)})"
+          f": stats {stats}", flush=True)
+    assert out[True] == out[False], "prefix-cache tokens differ from cache-off"
+    for k, v in want.items():
+        assert stats.get(k, 0) == v, (k, stats.get(k), v)
+    assert stats.get("serve.grouped_launches", 0) > 0, stats
+    eng.drain()
+    eng.cache.evict(N_PAGES)
+    assert eng.pool.in_use == 0 and eng.pool.logical_refs == 0
+    print("prefix wave: tokens equal the cache-off run; after drain and "
+          "evict in_use 0, logical_refs 0", flush=True)
+    return stats
+
+
+def ragged_timings(device):
+    """bf16 RaggedServeEngine: TTFT of one 2048-token prompt (16 chunks),
+    a decode tick with 8 live slots at ~2K context, and a mixed tick (one
+    128-token chunk + 7 decodes), with profiler breakdowns."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    cfg, params = model(torch.bfloat16, device)
+    eng = RaggedServeEngine(params, cfg, slots=SLOTS, n_pages=N_PAGES,
+                            page=PAGE, max_pages_per_seq=MAX_PAGES,
+                            chunk=CHUNK, device=device)
+    long_prompt = np.random.default_rng(9).integers(
+        1, cfg.vocab, size=2048, dtype=np.int32)
+
+    def ttft():
+        eng.submit(long_prompt, 1)
+        eng.run()
+
+    out = dict(ttft_ms=host_ms(ttft), ttft_ticks=2048 // CHUNK)
+    # 7 slots decoding at ~2K context, then an 8th arriving with a long
+    # prompt: its 16 chunks are mixed ticks
+    for _ in range(SLOTS - 1):
+        eng.submit(long_prompt[:2048 - 96], 96)
+    while any(r is None or r.n_prefilled < len(r.prompt)
+              for r in eng.slots[:SLOTS - 1]):
+        eng.step()
+    eng.submit(long_prompt, 4)
+    eng.step()  # admits it: the first mixed tick
+    out["mixed_tick_ms"] = host_ms(eng.step, repeats=5)
+    out["prof_mixed"] = device_breakdown(eng.step, 4)
+    while eng.slots[SLOTS - 1] is not None:
+        eng.step()
+    eng.submit(long_prompt[:2048 - 96], 64)
+    eng.step()  # admits it
+    while any(r.n_prefilled < len(r.prompt) for r in eng.slots):
+        eng.step()
+    assert eng.live == SLOTS
+    n_steps = 16
+    out["decode_tick_ms"] = host_ms(
+        lambda: [eng.step() for _ in range(n_steps)], repeats=1) / n_steps
+    out["prof_decode"] = device_breakdown(eng.step, 4)
+    eng.drain()
+    return out
 
 
 def main() -> int:
@@ -407,9 +897,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     # imported only now: run alone, outside a checkout, this raises
-    from burst_attn_tpu_torch.models.transformer import ModelConfig
     from burst_attn_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -424,64 +914,62 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    check_flash(device, dtype=torch.float32, timing=False)
-    check_paged_decode(device, dtype=torch.float32, timing=False)
-    kernels = [check_flash(device), check_paged_decode(device)]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    check_flash(device, dtype=fp32, timing=False)
+    check_paged_decode(device, dtype=fp32, timing=False)
+    quant_ms = {q: check_paged_decode(device, dtype=dt, quant=q)[1]
+                for q, dt in (("int8", fp32), ("fp8", bf16))}
+    for dt, q in ((fp32, None), (fp32, "int8"), (bf16, "int8"),
+                  (bf16, "fp8")):
+        check_ragged(device, dt, q)
+    check_ragged_partials(device)
+    for dt, q in ((bf16, None), (fp32, None), (bf16, "int8")):
+        check_ragged_decode_rows(device, dt, q)
+    kernels = [check_flash(device), check_paged_decode(device),
+               check_ragged(device, bf16, timing=True)]
 
-    cfg = ModelConfig(**SERVE_DIMS, dtype=torch.bfloat16, batch_axis=None,
-                      head_axis=None)
-    res = serve(cfg, device)
-    n_layers = cfg.n_layers
-    launches = res["launches"]
-    print(f"serve: {res['n_requests']} requests, {res['n_generated']} tokens "
-          f"in {res['run_s']:.2f} s ({res['run_tok_s']:.1f} tok/s), "
-          f"launches {launches}, params init {res['init_s']:.1f} s",
+    serve_res = serve_engine_phase(device)
+    print(f"ServeEngine prefill {len(serve_res['bf16']['prompts'][1])} "
+          f"tokens: {serve_res['prefill_ms']:.2f} ms; decode step "
+          f"({SLOTS} slots): {serve_res['decode_step_ms']:.2f} ms = "
+          f"{SLOTS * 1e3 / serve_res['decode_step_ms']:.1f} tok/s",
           flush=True)
-    assert launches["flash_fwd"] == n_layers * res["n_requests"], launches
-    assert launches["paged_decode"] % n_layers == 0, launches
-    assert launches["paged_decode"] >= n_layers * res["min_decode_steps"], \
-        launches
-    rate = res["agree"] / res["total"]
-    worst_gap = max((g for _, g in res["gaps"]), default=0.0)
-    print(f"bf16 teacher-forced agreement with the dense forward: "
-          f"{res['agree']}/{res['total']} = {rate:.4f}, largest reference "
-          f"logit gap at a disagreement {worst_gap:.4f}", flush=True)
-    assert rate >= MIN_AGREE_BF16, rate
-    assert worst_gap <= TIE_GAP, res["gaps"]
-    with plain_attention():
-        ctrl = serve(cfg, device, timing=False)
-    assert sum(ctrl["launches"].values()) == 0, ctrl["launches"]
-    print(f"control, same bf16 engine with plain attention: "
-          f"{ctrl['agree']}/{ctrl['total']}", flush=True)
-    cfg32 = ModelConfig(**SERVE_DIMS, dtype=torch.float32, batch_axis=None,
-                        head_axis=None)
-    res32 = serve(cfg32, device, timing=False)
-    print(f"fp32 teacher-forced agreement: {res32['agree']}/{res32['total']}",
-          flush=True)
-    assert res32["agree"] == res32["total"], res32["gaps"]
-    assert res32["launches"]["flash_fwd"] == cfg32.n_layers * N_REQUESTS
-    print(f"prefill {res['prefill_len']} tokens: {res['prefill_ms']:.2f} ms; "
-          f"decode step ({SLOTS} slots): {res['decode_step_ms']:.2f} ms = "
-          f"{res['decode_tok_s']:.1f} tok/s", flush=True)
+    print_profile("ServeEngine prefill", serve_res["prof_prefill"])
+    print_profile("ServeEngine decode step", serve_res["prof_step"])
 
-    for what in ("prefill", "step"):
-        wall, dev, top = res[f"prof_{what}"]
-        print(f"profile {what}: wall {wall:.2f} ms, device {dev:.2f} ms "
-              f"(busy {dev / wall:.2f}); top kernels (ms): "
-              + "; ".join(f"{k} {t:.3f}" for k, t in top), flush=True)
+    rag = ragged_engine_phase(device, serve_res)
+    print(f"RaggedServeEngine TTFT, one 2048-token prompt "
+          f"({rag['ttft_ticks']} chunks): {rag['ttft_ms']:.2f} ms; decode "
+          f"tick ({SLOTS} slots at ~2K): {rag['decode_tick_ms']:.2f} ms = "
+          f"{SLOTS * 1e3 / rag['decode_tick_ms']:.1f} tok/s; mixed tick "
+          f"(one {CHUNK}-token chunk + {SLOTS - 1} decodes): "
+          f"{rag['mixed_tick_ms']:.2f} ms", flush=True)
+    print_profile("RaggedServeEngine mixed tick", rag["prof_mixed"])
+    print_profile("RaggedServeEngine decode tick", rag["prof_decode"])
 
+    launches = {"flash_fwd": serve_res["bf16"]["launches"]["flash_fwd"],
+                "paged_decode": serve_res["bf16"]["launches"][
+                    "paged_decode_attention"],
+                "ragged_paged": rag["bf16"]["launches"]}
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels],
-                      "card": card,
-                      "serve": {k: res[k] for k in (
-                          "prefill_ms", "prefill_len", "decode_step_ms",
-                          "decode_tok_s", "run_s", "run_tok_s",
-                          "n_generated", "agree", "total")},
-                      "fp32_agree": [res32["agree"], res32["total"]],
-                      "control_agree": [ctrl["agree"], ctrl["total"]]}))
+    print(json.dumps({
+        "kernels": [{k: r[k] for k in keys} for r in kernels],
+        "card": card,
+        "paged_decode_quant_ms": quant_ms,
+        "serve": {"prefill_ms": serve_res["prefill_ms"],
+                  "decode_step_ms": serve_res["decode_step_ms"],
+                  "run_s": serve_res["bf16"]["run_s"],
+                  "n_generated": serve_res["bf16"]["n_gen"],
+                  "control_agree": serve_res["control"]},
+        "ragged": {k: rag[k] for k in ("ttft_ms", "decode_tick_ms",
+                                       "mixed_tick_ms", "control",
+                                       "bf16_int8_agree", "prefix")}
+        | {"run_s": rag["bf16"]["run_s"], "ticks": rag["bf16"]["ticks"],
+           "quant_identical": {q: v[0] for q, v in rag["quant"].items()}},
+        "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,10 @@ import torch
 
 from burst_attn_tpu_torch.models.serve import ServeEngine
 from burst_attn_tpu_torch.models.transformer import ModelConfig, init_params
-from burst_attn_tpu_torch.ops import flash, masks, paged_attention, tile
+from burst_attn_tpu_torch.ops import (
+    flash, masks, paged_attention, ragged_paged, tile,
+)
+from burst_attn_tpu_torch.serving import RaggedServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -138,4 +141,141 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
         else:
             assert min(moved) > 0
         assert eng.pool.available == 11
+    assert out["cpu"] == out[str(dev)]
+
+
+def _pool(g, dev, dtype, quant, n_pages, n_kv, page, d):
+    """k/v pools in `dtype`, or quantized to `quant` with their scales."""
+    k, v = (torch.randn(n_pages, n_kv, page, d, generator=g, device=dev)
+            for _ in range(2))
+    if quant is None:
+        return k.to(dtype), v.to(dtype), None, None
+    qdt = paged_attention.QUANT_DTYPES[quant][0]
+    (k8, ks), (v8, vs) = (paged_attention.quantize_tokens(x, dtype=qdt)
+                          for x in (k, v))
+    return k8, v8, ks, vs
+
+
+def _ragged_case(dev, dtype, quant=None, seed=3):
+    """A mixed batch over 6 slots: idle, decode, a short first chunk, a
+    chunk ending exactly on a page edge, a long chunk, a decode just past
+    a page edge."""
+    page, n_kv, group, d, width, n_pages, qt = 128, 2, 4, 128, 5, 40, 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q_lens = [0, 1, 37, qt, qt, 1]
+    kv_lens = [0, 300, 37, 2 * page, 600, page + 1]
+    q = _rand(g, dev, dtype, len(q_lens), n_kv * group, qt, d)
+    kp, vp, ks, vs = _pool(g, dev, dtype, quant, n_pages, n_kv, page, d)
+    perm = np.random.default_rng(seed).permutation(n_pages - 1) + 1
+    table = torch.from_numpy(perm[: len(q_lens) * width].reshape(
+        len(q_lens), width).astype(np.int32)).to(dev)
+    lens = [torch.tensor(x, dtype=torch.int32, device=dev)
+            for x in (q_lens, kv_lens)]
+    return q, kp, vp, table, *lens, ks, vs
+
+
+@pytest.mark.parametrize("dtype,quant", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.float32, "int8"), (torch.bfloat16, "fp8")])
+def test_ragged_kernel_matches_plain(dev, dtype, quant):
+    q, kp, vp, table, ql, kl, ks, vs = _ragged_case(dev, dtype, quant)
+    before = ragged_paged.ragged_paged_attention.launches
+    o = ragged_paged.ragged_paged_attention(q, kp, vp, table, ql, kl,
+                                            k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert ragged_paged.ragged_paged_attention.launches == before + 1
+    want = ragged_paged.ragged_paged_reference(q, kp, vp, table, ql, kl,
+                                               k_scales=ks, v_scales=vs)
+    torch.testing.assert_close(o, want, **TOL[dtype])
+    assert (o[0] == 0).all() and (o[2, :, 37:] == 0).all()  # idle, padding
+
+
+def test_ragged_partials_match_plain(dev):
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(dev, torch.float32)
+    lo = torch.tensor([0, 256, 0, 128, 384, 128], dtype=torch.int32,
+                      device=dev)
+    got = ragged_paged.ragged_paged_attention(
+        q, kp, vp, table, ql, kl, ctx_lo=lo, emit_partials=True)
+    want = ragged_paged.ragged_paged_partials_reference(
+        q, kp, vp, table, ql, kl, ctx_lo=lo)
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isinf(a), torch.isinf(b))
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(a[fin], b[fin], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,quant", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, "int8")])
+def test_ragged_decode_rows_equal_paged_decode(dev, dtype, quant):
+    """A QT == 1 batch through the ragged kernel is bitwise the paged
+    decode kernel's output (one shared online-softmax update)."""
+    page, n_kv, group, d, width, n_pages = 128, 2, 4, 128, 4, 24
+    g = torch.Generator(device=dev).manual_seed(5)
+    lengths = [0, 1, 64, page, page + 1, 3 * page + 5, 4 * page]
+    b = len(lengths)
+    q = _rand(g, dev, dtype, b, n_kv, group, d)
+    kp, vp, ks, vs = _pool(g, dev, dtype, quant, n_pages, n_kv, page, d)
+    perm = np.random.default_rng(5).permutation(n_pages - 1) + 1
+    table = torch.from_numpy(np.resize(perm, (b, width)).astype(
+        np.int32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    dec = paged_attention.paged_decode_attention(q, kp, vp, table, lens,
+                                                 k_scales=ks, v_scales=vs)
+    rag = ragged_paged.ragged_paged_attention(
+        q.reshape(b, n_kv * group, 1, d), kp, vp, table,
+        (lens > 0).to(torch.int32), lens, k_scales=ks, v_scales=vs)
+    assert torch.equal(rag.reshape(b, n_kv, group, d), dec)
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, "int8"),
+                                         (torch.bfloat16, "fp8")])
+def test_paged_kernel_quantized_matches_plain(dev, dtype, quant):
+    page, n_kv, group, d, width, n_pages = 128, 2, 4, 128, 4, 32
+    g = torch.Generator(device=dev).manual_seed(6)
+    lengths = [0, 1, 37, page, 3 * page + 5, 4 * page]
+    q = _rand(g, dev, dtype, len(lengths), n_kv, group, d)
+    kp, vp, ks, vs = _pool(g, dev, dtype, quant, n_pages, n_kv, page, d)
+    perm = np.random.default_rng(6).permutation(n_pages - 1) + 1
+    table = torch.from_numpy(perm[: len(lengths) * width].reshape(
+        len(lengths), width).astype(np.int32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    o = paged_attention.paged_decode_attention(q, kp, vp, table, lens,
+                                               k_scales=ks, v_scales=vs)
+    want = paged_attention.paged_decode_reference(q, kp, vp, table, lens,
+                                                  k_scales=ks, v_scales=vs)
+    torch.testing.assert_close(o, want, **TOL[dtype])
+    assert (o[0] == 0).all()
+
+
+@pytest.mark.parametrize("kw", [{}, {"prefix_cache": True},
+                                {"quantize": "int8"}])
+def test_ragged_engine_on_the_card_matches_the_cpu_engine(dev, kw):
+    """fp32 model: the ragged engine through the kernel is token-exact
+    with the plain CPU engine on the same weights."""
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=8,
+                      n_kv_heads=2, d_head=128, d_ff=512, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(4)
+    tmpl = rng.integers(1, cfg.vocab, size=256)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (9, 130, 300)]
+    prompts += [np.concatenate([tmpl, rng.integers(1, cfg.vocab, size=t)])
+                for t in (0, 40)]
+    out = {}
+    for where in ("cpu", dev):
+        p = {k: (v.to(where) if torch.is_tensor(v) else
+                 [{n: w.to(where) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        eng = RaggedServeEngine(p, cfg, slots=3, n_pages=24,
+                                max_pages_per_seq=4, chunk=64, device=where,
+                                **kw)
+        eng.submit(prompts[3], 2)
+        eng.run()  # registers the template when the cache is on
+        for pr in prompts:
+            eng.submit(pr, 7)
+        before = ragged_paged.ragged_paged_attention.launches
+        out[str(where)] = eng.run()
+        moved = ragged_paged.ragged_paged_attention.launches - before
+        assert (moved == 0) if str(where) == "cpu" else (moved > 0)
+        assert eng.stats["burst.fused_fallback{reason=head-dim,pass=serve}"] \
+            == 0
     assert out["cpu"] == out[str(dev)]

@@ -13,7 +13,10 @@ import torch
 from burst_attn_tpu_torch.models.paged_decode import init_paged_state
 from burst_attn_tpu_torch.models.serve import ServeEngine
 from burst_attn_tpu_torch.models.transformer import ModelConfig, init_params
-from burst_attn_tpu_torch.ops import flash, masks, paged_attention, tile
+from burst_attn_tpu_torch.ops import (
+    flash, masks, paged_attention, ragged_paged, tile,
+)
+from burst_attn_tpu_torch.serving import RaggedServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -52,6 +55,8 @@ def test_entry_points_default_to_the_card():
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(params, cfg, slots=1, n_pages=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RaggedServeEngine(params, cfg, slots=1, n_pages=2)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -60,8 +65,9 @@ def test_cpu_tensors_take_the_plain_versions():
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 4, 40, 32, generator=g, device="cpu")
     k = torch.randn(1, 2, 40, 32, generator=g, device="cpu")
-    before = (flash.flash_fwd.launches,
-              paged_attention.paged_decode_attention.launches)
+    counters = (flash.flash_fwd, paged_attention.paged_decode_attention,
+                ragged_paged.ragged_paged_attention)
+    before = [f.launches for f in counters]
     spec = masks.round_spec(0, 0, 40, 40, True, "contig")
     got = flash.flash_fwd(q, k, k, None, None, None, 0.5, spec)
     want = tile.tile_fwd(q, k, k, *tile.init_state(1, 4, 40, 32), 0.5, spec)
@@ -77,8 +83,14 @@ def test_cpu_tensors_take_the_plain_versions():
                                                lengths),
         paged_attention.paged_decode_reference(qd, pages, pages, table,
                                                lengths))
-    assert (flash.flash_fwd.launches,
-            paged_attention.paged_decode_attention.launches) == before
+    qr = qd.reshape(2, 4, 1, 32)
+    q_lens = (lengths > 0).to(torch.int32)
+    assert torch.equal(
+        ragged_paged.ragged_paged_attention(qr, pages, pages, table, q_lens,
+                                            lengths),
+        ragged_paged.ragged_paged_reference(qr, pages, pages, table, q_lens,
+                                            lengths))
+    assert [f.launches for f in counters] == before
 
     meta = q.to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -88,6 +100,10 @@ def test_cpu_tensors_take_the_plain_versions():
         paged_attention.paged_decode_attention(
             qd.to("meta"), pages.to("meta"), pages.to("meta"),
             table.to("meta"), lengths.to("meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ragged_paged.ragged_paged_attention(
+            qr.to("meta"), pages.to("meta"), pages.to("meta"),
+            table.to("meta"), q_lens.to("meta"), lengths.to("meta"))
 
 
 def test_chip_smoke_refuses_without_the_card(tmp_path):

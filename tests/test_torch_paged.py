@@ -61,12 +61,40 @@ def test_quantize_tokens_matches_jax(name):
                                   np.asarray(jq).astype(np.float32))
 
 
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+def test_quantized_paged_decode_matches_jax(name):
+    """int8 / fp8 pools with per-token scales: the port's plain version
+    against the JAX kernel (interpret mode; it rescales score and
+    probability columns) and the JAX oracle (dequantizes first)."""
+    page = 128
+    q, kp, vp, table = _pool(2, slots=4, n_pages=16, n_kv=2, page=page, d=32,
+                             width=3, group=4)
+    lengths = np.asarray([0, 37, page + 1, 3 * page], np.int32)
+    jdt = jpa.QUANT_DTYPES[name][0]
+    k8, ks = jpa.quantize_tokens(jnp.asarray(kp), dtype=jdt)
+    v8, vs = jpa.quantize_tokens(jnp.asarray(vp), dtype=jdt)
+    tdt = pa.QUANT_DTYPES[name][0]
+    tk8, tks = pa.quantize_tokens(torch.from_numpy(kp), dtype=tdt)
+    tv8, tvs = pa.quantize_tokens(torch.from_numpy(vp), dtype=tdt)
+    got = pa.paged_decode_attention(
+        torch.from_numpy(q), tk8, tv8, torch.from_numpy(table),
+        torch.from_numpy(lengths), k_scales=tks, v_scales=tvs)
+    args = (jnp.asarray(q), k8, v8, jnp.asarray(table), jnp.asarray(lengths))
+    want = jpa.paged_decode_attention(*args, k_scales=ks, v_scales=vs)
+    want_ref = jpa.paged_decode_reference(*args, k_scales=ks, v_scales=vs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), atol=ATOL,
+                               rtol=0)
+    # the JAX kernel rounds p * scale to bf16 before P.V
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-2)
+    assert (got[0] == 0).all()
+
+
 def test_unported_options_raise():
     q, kp, vp, table = map(torch.from_numpy, _pool(
         1, slots=1, n_pages=4, n_kv=1, page=128, d=32, width=1, group=1))
     lengths = torch.ones(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         pa.paged_decode_attention(q, kp, vp, table, lengths, window=8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="together"):
         pa.paged_decode_attention(q, kp, vp, table, lengths,
-                                  k_scales=lengths, v_scales=lengths)
+                                  k_scales=lengths)

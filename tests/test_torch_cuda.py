@@ -156,13 +156,13 @@ def _pool(g, dev, dtype, quant, n_pages, n_kv, page, d):
     return k8, v8, ks, vs
 
 
-def _ragged_case(dev, dtype, quant=None, seed=3):
+def _ragged_case(dev, dtype, quant=None, seed=3, group=4, qt=64):
     """A mixed batch over 6 slots: idle, decode, a short first chunk, a
     chunk ending exactly on a page edge, a long chunk, a decode just past
     a page edge."""
-    page, n_kv, group, d, width, n_pages, qt = 128, 2, 4, 128, 5, 40, 64
+    page, n_kv, d, width, n_pages = 128, 2, 128, 5, 40
     g = torch.Generator(device=dev).manual_seed(seed)
-    q_lens = [0, 1, 37, qt, qt, 1]
+    q_lens = [0, 1, min(37, qt), qt, qt, 1]
     kv_lens = [0, 300, 37, 2 * page, 600, page + 1]
     q = _rand(g, dev, dtype, len(q_lens), n_kv * group, qt, d)
     kp, vp, ks, vs = _pool(g, dev, dtype, quant, n_pages, n_kv, page, d)
@@ -174,11 +174,14 @@ def _ragged_case(dev, dtype, quant=None, seed=3):
     return q, kp, vp, table, *lens, ks, vs
 
 
-@pytest.mark.parametrize("dtype,quant", [
-    (torch.float32, None), (torch.bfloat16, None),
-    (torch.float32, "int8"), (torch.bfloat16, "fp8")])
-def test_ragged_kernel_matches_plain(dev, dtype, quant):
-    q, kp, vp, table, ql, kl, ks, vs = _ragged_case(dev, dtype, quant)
+@pytest.mark.parametrize("dtype,quant,group,qt", [
+    (torch.float32, None, 4, 64), (torch.bfloat16, None, 4, 64),
+    (torch.float32, "int8", 4, 64), (torch.bfloat16, "fp8", 4, 64),
+    # 2 tokens x 8 heads: a multi-token block of the 16-row instance
+    (torch.float32, None, 8, 2)])
+def test_ragged_kernel_matches_plain(dev, dtype, quant, group, qt):
+    q, kp, vp, table, ql, kl, ks, vs = _ragged_case(dev, dtype, quant,
+                                                    group=group, qt=qt)
     before = ragged_paged.ragged_paged_attention.launches
     o = ragged_paged.ragged_paged_attention(q, kp, vp, table, ql, kl,
                                             k_scales=ks, v_scales=vs)
@@ -187,7 +190,7 @@ def test_ragged_kernel_matches_plain(dev, dtype, quant):
     want = ragged_paged.ragged_paged_reference(q, kp, vp, table, ql, kl,
                                                k_scales=ks, v_scales=vs)
     torch.testing.assert_close(o, want, **TOL[dtype])
-    assert (o[0] == 0).all() and (o[2, :, 37:] == 0).all()  # idle, padding
+    assert (o[0] == 0).all() and (o[2, :, int(ql[2]):] == 0).all()
 
 
 def test_ragged_partials_match_plain(dev):

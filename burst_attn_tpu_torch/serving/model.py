@@ -29,29 +29,11 @@ from ..models.paged_decode import PagedState, PagePool, _write_tokens
 from ..models.transformer import (
     ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
 )
-from ..ops.paged_attention import gather_pages, pool_bytes
+from ..ops.paged_attention import pool_bytes
 from ..ops.ragged_paged import (
     ragged_paged_attention, ragged_paged_attention_grouped,
+    ragged_paged_reference,
 )
-
-
-def _dense_ragged_attention(q, kp, vp, ks, vs, table, pos, real,
-                            cfg: ModelConfig):
-    """The dense route: gather each slot's pages (including the
-    just-scattered new tokens) and run masked softmax with the per-row
-    causal band the ragged kernel enforces.  q [S, Nq, QT, D]."""
-    slots, n_q, qt, d = q.shape
-    group = n_q // cfg.n_kv_heads
-    kc = gather_pages(kp, ks, table).float()      # [S, Nkv, W*page, D]
-    vc = gather_pages(vp, vs, table).float()
-    qg = q.reshape(slots, cfg.n_kv_heads, group, qt, d).float()
-    s = torch.einsum("bngtd,bnjd->bngtj", qg, kc) * cfg.d_head**-0.5
-    col = torch.arange(kc.shape[2], device=q.device)[None, None, :]
-    visible = ((col <= pos[:, :, None]) & real[:, :, None])[:, None, None]
-    s = s.masked_fill(~visible, float("-inf"))
-    p = torch.where(visible, torch.softmax(s, dim=-1), 0.0)  # masked -> 0
-    o = torch.einsum("bngtj,bnjd->bngtd", p, vc)
-    return o.reshape(slots, n_q, qt, d).to(q.dtype)
 
 
 def ragged_model_step(params, tokens, q_lens, state: PagedState,
@@ -122,9 +104,9 @@ def ragged_model_step(params, tokens, q_lens, state: PagedState,
                 q, kp, vp, state.page_table, q_lens, kv_lens,
                 group_id=group_id, shared_table=shared_table,
                 shared_lens=shared_lens, k_scales=ks, v_scales=vs)
-        else:
-            o = _dense_ragged_attention(q, kp, vp, ks, vs, state.page_table,
-                                        pos, real, cfg)
+        else:  # the kernel's plain version: gathers every slot's pages
+            o = ragged_paged_reference(q, kp, vp, state.page_table, q_lens,
+                                       kv_lens, k_scales=ks, v_scales=vs)
         x = x + _attn_out(p, o)
         x = x + _mlp(p, x)
     x = _rms_norm(x, params["final_norm"])

@@ -17,9 +17,9 @@ Phases (any failure exits non-zero; nothing is caught):
   4. the ServeEngine at the serving benchmark's width (vocab 32768,
      d_model 2048, 8 layers, 16/4 heads, d_ff 8192, random weights from a
      seed): 12 requests over 8 slots in bf16 and fp32, plus a bf16 run
-     with plain attention (the noise floor), launch counters read around
-     each run, greedy tokens teacher-forced through the dense plain
-     forward;
+     with plain attention (the noise floor), the fp32 model on an int8
+     pool against plain attention, launch counters read around each run,
+     greedy tokens teacher-forced through the dense plain forward;
   5. the RaggedServeEngine at the same width (chunk 128): the same 12
      requests in bf16, fp32 (token-exact with the dense forward and with
      the fp32 ServeEngine) and with plain attention; a prefix-cache wave
@@ -328,10 +328,14 @@ def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
             < lens[:, None])[:, None, None, :]
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    # what the function must move: the K/V of the live positions, q of the
+    # non-empty slots (an empty slot's zeros need no q), every output row,
+    # the table entries of the live pages, the lengths
     live = int(sum(lengths))
     esz = q.element_size()
-    n_bytes = (esz * (2 * live * n_kv * d + 2 * q.numel())
-               + 4 * (table.numel() + slots))
+    q_bytes = esz * n_kv * group * d * sum(ln > 0 for ln in lengths)
+    n_bytes = (esz * (2 * live * n_kv * d + q.numel()) + q_bytes
+               + 4 * (sum(-(-ln // page) for ln in lengths) + slots))
     bms, by = bound_ms(n_bytes, 4 * live * n_kv * group * d)
     return dict(name="paged_decode", route="cuda",
                 source="burst_attn_tpu_torch/csrc/paged_decode.cu",
@@ -409,11 +413,17 @@ def check_ragged(device, dtype, quant=None, seed=1, timing=False):
         q, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
     pairs = n_q * sum(q_len * (kv - q_len) + q_len * (q_len + 1) // 2
                       for q_len, kv in zip(RAGGED_Q_LENS, RAGGED_KV_LENS))
+    # what the function must move: the K/V of the live positions once per
+    # (slot, kv head), q of the real tokens only (padding rows and idle
+    # slots give zeros without it), every output row, the table entries of
+    # the live pages, q_lens and kv_lens
     live = sum(RAGGED_KV_LENS)
     token_bytes = kp.element_size() * d + (4 if ks is not None else 0)
     n_bytes = (2 * live * n_kv * token_bytes
-               + q.element_size() * 2 * q.numel()
-               + 4 * (table.numel() + 2 * slots))
+               + q.element_size() * n_q * d * sum(RAGGED_Q_LENS)
+               + q.element_size() * q.numel()
+               + 4 * (sum(-(-kv // page) for kv in RAGGED_KV_LENS)
+                      + 2 * slots))
     bms, by = bound_ms(n_bytes, 4 * pairs * d)
     return dict(name="ragged_paged", route="cuda",
                 source="burst_attn_tpu_torch/csrc/ragged_paged.cu",
@@ -649,7 +659,8 @@ def check_agreement(what, res, bf16):
 
 def serve_engine_phase(device):
     """The ServeEngine runs: bf16 (launch counts), plain-attention
-    control, fp32; then a timed prefill and decode steps."""
+    control, fp32, the fp32 model on an int8 pool vs plain attention; then
+    a timed prefill and decode steps."""
     import torch
 
     from burst_attn_tpu_torch.models.serve import ServeEngine
@@ -686,6 +697,28 @@ def serve_engine_phase(device):
             print(f"ServeEngine control, bf16 with plain attention: "
                   f"{a}/{t}", flush=True)
             res["control"] = (a, t)
+
+    # the fp32 model on an int8 pool: the decode kernel's quantized branch
+    # through the engine, held to the same engine with plain attention
+    cfg, params = model(torch.float32, device)
+    prompts, budgets = requests(cfg)
+    runs = []
+    for plain in (False, True):
+        with plain_attention() if plain else contextlib.nullcontext():
+            eng = ServeEngine(params, cfg, quantize="int8", **kw)
+            runs.append(drive(eng, prompts, budgets, counters))
+        assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+    (toks, launches, _), (want, cl, _) = runs
+    assert sum(cl.values()) == 0, cl
+    assert launches["flash_fwd"] == cfg.n_layers * N_REQUESTS, launches
+    assert launches["paged_decode_attention"] >= cfg.n_layers * min_steps
+    flips = near_tie_flips(cfg, params, prompts, toks, want, device)
+    same = sum(a == b for a, b in zip(toks, want))
+    print(f"ServeEngine fp32 model, int8 pool: launches {launches}; kernel "
+          f"vs plain attention {same}/{N_REQUESTS} streams identical; flips "
+          f"(request, token, dense-forward logit gap) {flips}", flush=True)
+    assert all(g <= TIE_GAP for _, _, g in flips), flips
+    res["quant"] = (same, flips)
 
     # steady-state timing (bf16): one full-length prefill; then decode
     # steps with every slot live at ~2K context
@@ -963,7 +996,8 @@ def main() -> int:
                   "decode_step_ms": serve_res["decode_step_ms"],
                   "run_s": serve_res["bf16"]["run_s"],
                   "n_generated": serve_res["bf16"]["n_gen"],
-                  "control_agree": serve_res["control"]},
+                  "control_agree": serve_res["control"],
+                  "int8_identical": serve_res["quant"][0]},
         "ragged": {k: rag[k] for k in ("ttft_ms", "decode_tick_ms",
                                        "mixed_tick_ms", "control",
                                        "bf16_int8_agree", "prefix")}

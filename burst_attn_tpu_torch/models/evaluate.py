@@ -1,0 +1,72 @@
+"""Held-out evaluation: mean next-token cross entropy / perplexity over a
+token file, with the training forward and no optimizer (port of
+burst_attn_tpu/models/evaluate.py)."""
+
+import math
+
+import torch
+
+from ..data import DataLoader
+from ..device import resolve_device
+from .train import _loss_parts, batch_from_host
+from .transformer import ModelConfig
+
+
+def make_eval_step(cfg: ModelConfig, mesh=None):
+    """(params, batch) -> (nll sum, valid-token count), without autograd:
+    the caller adds sum and count across batches, so the eval loss is the
+    same token-weighted objective as the train loss."""
+
+    def step(params, batch):
+        with torch.no_grad():
+            nll_sum, _ = _loss_parts(params, batch["tokens"],
+                                     batch["positions"], batch["labels"],
+                                     cfg, mesh)
+        return nll_sum, (batch["labels"] >= 0).sum()
+
+    return step
+
+
+class Evaluator:
+    """Reusable held-out eval: the (sequential, unshuffled) loader stays
+    open across rounds and each call rewinds it, so every eval sees the
+    same batches."""
+
+    def __init__(self, cfg: ModelConfig, mesh, data_path, *, batch: int,
+                 seq_len: int, max_batches: int = 32, packed_eos_id=None,
+                 device=None):
+        if packed_eos_id is not None:
+            raise NotImplementedError("packed-document eval is not ported "
+                                      "yet")
+        self._step = make_eval_step(cfg, mesh)
+        self._cfg, self._mesh = cfg, mesh
+        self._device = resolve_device(device)
+        self._loader = DataLoader(data_path, batch, seq_len, shuffle=False)
+        self._n = min(max_batches,
+                      max(1, self._loader.windows_per_epoch // batch))
+
+    def __call__(self, params) -> dict:
+        self._loader.seek(0)
+        nll_total, n_total = 0.0, 0
+        for _ in range(self._n):
+            x, y = self._loader.next()
+            nll, n = self._step(params, batch_from_host(
+                x, y, self._cfg, self._mesh, device=self._device))
+            nll_total += float(nll)
+            n_total += int(n)
+        loss = nll_total / max(n_total, 1)
+        return {"eval_loss": loss, "ppl": math.exp(min(loss, 50.0))}
+
+    def close(self):
+        self._loader.close()
+
+
+def evaluate(params, cfg: ModelConfig, mesh, data_path, *, batch: int,
+             seq_len: int, max_batches: int = 32, device=None):
+    """One-shot convenience wrapper around Evaluator."""
+    ev = Evaluator(cfg, mesh, data_path, batch=batch, seq_len=seq_len,
+                   max_batches=max_batches, device=device)
+    try:
+        return ev(params)
+    finally:
+        ev.close()

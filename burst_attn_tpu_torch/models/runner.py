@@ -1,0 +1,205 @@
+"""End-to-end training runner + CLI on one device (port of
+burst_attn_tpu/models/runner.py).
+
+Ties together the native data loader (data/loader.py), the train step
+(models/train.py), checkpoints (utils/checkpoint.py), step timing
+(utils/profiling.py) and held-out eval (models/evaluate.py).  Resume is
+exact: the checkpoint step repositions the deterministic loader with
+`seek(step)`, so the token stream continues as if the run never stopped.
+
+CLI (the card by default; `--device cpu` runs the plain versions):
+    python -m burst_attn_tpu_torch.models.runner --data tokens.batd \\
+        --steps 100 --d-model 2048 --n-layers 16 --n-heads 16 --seq-len 8192
+
+Only `--mesh sp=1` is ported (one device); the ring, dp and tp, MoE
+experts, pipeline microbatches, packed documents and multi-host start
+come with later slices.  The JAX runner's `--probe-tri-bwd` is a TPU
+compile probe and has no counterpart here.
+"""
+
+import argparse
+import json
+from dataclasses import dataclass
+from typing import Optional
+
+from ..data import DataLoader
+from ..device import resolve_device
+from ..utils import log_helper
+from ..utils.checkpoint import Checkpointer
+from ..utils.profiling import StepTimer
+from .train import (
+    TrainConfig, _world, init_train_state, make_mesh, make_train_step,
+    prefetch_batches,
+)
+from .transformer import ModelConfig
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """One training run: data, duration, checkpointing cadence."""
+
+    data_path: str
+    steps: int
+    batch: int
+    seq_len: int
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 500
+    ckpt_keep: int = 3  # checkpoints kept in ckpt_dir (newest first)
+    log_every: int = 10
+    seed: int = 0
+    loader_threads: int = 2
+    eval_data_path: Optional[str] = None
+    eval_every: int = 500
+    eval_batches: int = 16
+    packed_eos_id: Optional[int] = None  # packed documents: not ported yet
+
+
+def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
+        device=None):
+    """Train for run.steps, checkpointing and resuming as configured, on
+    `device` (default: the card).  Returns (state, history), history a
+    list of {step, loss, grad_norm, step_s} and eval rows."""
+    log = log_helper.get_logger("burst_attn_tpu_torch.runner")
+    primary = log_helper.is_primary()
+    dev = resolve_device(device)
+    _world(cfg, mesh)
+    if run.packed_eos_id is not None:
+        raise NotImplementedError("packed-document training is not ported "
+                                  "yet")
+    ckpt = None
+    state, start_step = None, 0
+    if run.ckpt_dir:
+        ckpt = Checkpointer(run.ckpt_dir, max_to_keep=run.ckpt_keep)
+        state, restored = ckpt.restore_latest(cfg, tcfg, mesh, device=dev)
+        if restored is not None:
+            start_step = restored
+            if primary:
+                log.info("resumed from step %d", start_step)
+    if state is None:
+        state = init_train_state(run.seed, cfg, tcfg, mesh, device=dev)
+
+    step_fn = make_train_step(cfg, tcfg, mesh, device=dev)
+    timer = StepTimer()
+    history = []
+
+    evaluator = None
+    if run.eval_data_path:
+        from .evaluate import Evaluator
+
+        evaluator = Evaluator(cfg, mesh, run.eval_data_path, batch=run.batch,
+                              seq_len=run.seq_len,
+                              max_batches=run.eval_batches, device=dev)
+
+    def maybe_eval(step):
+        if evaluator is None:
+            return
+        if (step + 1) % run.eval_every and step + 1 != run.steps:
+            return
+        metrics = evaluator(state[0])
+        row = {"step": step + 1,
+               **{k: round(v, 4) for k, v in metrics.items()}}
+        history.append(row)
+        if primary:
+            log.info("%s", json.dumps(row))
+
+    try:
+        with DataLoader(run.data_path, run.batch, run.seq_len,
+                        seed=run.seed, num_threads=run.loader_threads) as dl:
+            if start_step:
+                dl.seek(start_step)
+            batches = prefetch_batches(dl, cfg, mesh, device=dev)
+            for step in range(start_step, run.steps):
+                batch = next(batches)
+                with timer as t:
+                    state, metrics = step_fn(state, batch)
+                    t.watch(metrics["loss"])
+                if (step + 1) % run.log_every == 0 or step + 1 == run.steps:
+                    row = {"step": step + 1,
+                           "loss": float(metrics["loss"]),
+                           "grad_norm": float(metrics["grad_norm"]),
+                           "step_s": timer.times[-1]}
+                    history.append(row)
+                    if primary:
+                        log.info("%s", json.dumps(row))
+                maybe_eval(step)
+                if ckpt and ((step + 1) % run.ckpt_every == 0
+                             or step + 1 == run.steps):
+                    ckpt.save(step + 1, state)
+    finally:
+        if ckpt:
+            ckpt.close()
+        if evaluator is not None:
+            evaluator.close()
+    s = timer.summary()
+    if s["steps"] and primary:
+        log.info("done: %d steps, mean %.3fs/step", s["steps"], s["mean_s"])
+    return state, history
+
+
+def _parse_mesh(spec: str) -> dict:
+    """"sp=1" -> {"sp": 1} (order preserved)."""
+    out = {}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        if not size:
+            raise ValueError(f"bad mesh spec {spec!r}; want e.g. sp=1")
+        out[name.strip()] = int(size)
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description="Train the LM on a token file, on one device.")
+    p.add_argument("--data", required=True,
+                   help="BATD token file (data.write_token_file)")
+    p.add_argument("--steps", type=int, required=True)
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--seq-len", type=int, default=4096)
+    p.add_argument("--mesh", default="sp=1",
+                   help="axis sizes; only sp=1 (one device) is ported")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default) or cpu")
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--ckpt-every", type=int, default=500)
+    p.add_argument("--ckpt-keep", type=int, default=3)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--eval-data", default=None,
+                   help="held-out BATD token file (perplexity eval)")
+    p.add_argument("--eval-every", type=int, default=500)
+    p.add_argument("--eval-batches", type=int, default=16)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--vocab", type=int, default=32768)
+    p.add_argument("--d-model", type=int, default=1024)
+    p.add_argument("--n-layers", type=int, default=8)
+    p.add_argument("--n-heads", type=int, default=8)
+    p.add_argument("--n-kv-heads", type=int, default=None)
+    p.add_argument("--d-ff", type=int, default=None)
+    p.add_argument("--layout", default="zigzag")
+    p.add_argument("--no-remat", action="store_true")
+    args = p.parse_args(argv)
+
+    mesh = make_mesh(_parse_mesh(args.mesh))  # raises unless all sizes 1
+    cfg = ModelConfig(
+        batch_axis=None, head_axis=None, vocab=args.vocab,
+        d_model=args.d_model, n_layers=args.n_layers, n_heads=args.n_heads,
+        n_kv_heads=args.n_kv_heads or args.n_heads,
+        d_head=args.d_model // args.n_heads,
+        d_ff=args.d_ff or 4 * args.d_model, layout=args.layout,
+        remat=not args.no_remat,
+    )
+    tcfg = TrainConfig(lr=args.lr, grad_accum=args.grad_accum)
+    run = RunConfig(
+        data_path=args.data, steps=args.steps, batch=args.batch,
+        seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
+        log_every=args.log_every, seed=args.seed,
+        eval_data_path=args.eval_data, eval_every=args.eval_every,
+        eval_batches=args.eval_batches,
+    )
+    fit(cfg, tcfg, run, mesh, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,262 @@
+"""Training step for the LM on one device (port of
+burst_attn_tpu/models/train.py, the single-device path).
+
+`make_train_step` returns step((params, optimizer), batch) -> (state,
+metrics): the next-token cross entropy through `forward_with_aux` (flash
+attention forward and backward kernels on the card), AdamW with global
+norm clipping as optax's `chain(clip_by_global_norm, adamw)`, and
+`grad_accum` microbatches normalized by the global valid-label count.
+The state is updated in place (PyTorch has no donation; the returned
+state is the same objects).
+
+Loss convention: `tokens` and `labels` arrive in layout order with
+`labels` already shifted (the loader's targets); `positions` carries the
+true positions for rotary.  On one device every layout is the identity.
+
+Not ported yet: the mesh (dp, sp ring, tp), packed documents
+(`packed_fields*`, `make_packed_batch`, `packed_eos_id`), ring telemetry
+(`collect_devstats`), MoE and the pipeline path.  The TPU-only
+tri-backward compile probe (`probe_model_tri_bwd`) has no counterpart:
+a CUDA kernel either builds or the run stops.
+"""
+
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..parallel import layouts
+from .transformer import (
+    ModelConfig, check_mesh, forward_with_aux, init_params, param_leaves,
+)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    moe_aux_weight: float = 0.01  # weight of the MoE load-balancing loss
+    grad_accum: int = 1  # microbatches per optimizer step
+    collect_devstats: bool = False  # ring telemetry: not ported yet
+
+
+def make_mesh(axis_sizes: dict, devices=None) -> dict:
+    """The axis sizes of a run, as {"sp": 1}-style names to sizes.  One
+    device is ported: every axis must have size 1 (the dp/tp axes and the
+    sequence ring come with later slices)."""
+    del devices
+    sizes = {str(k): int(v) for k, v in dict(axis_sizes).items()}
+    check_mesh(sizes)
+    return sizes
+
+
+def _world(cfg: ModelConfig, mesh) -> int:
+    """Ring size over cfg.seq_axes: 1 (the only size ported)."""
+    del cfg
+    check_mesh(mesh)
+    return 1
+
+
+def _optimizer(params, tcfg: TrainConfig) -> torch.optim.AdamW:
+    """AdamW over every parameter in one group, as optax's unmasked adamw
+    (eps 1e-8; moments in the parameters' dtype).  Clipping is done by
+    the step, before this optimizer runs."""
+    return torch.optim.AdamW(list(param_leaves(params)), lr=tcfg.lr,
+                             betas=(tcfg.b1, tcfg.b2), eps=1e-8,
+                             weight_decay=tcfg.weight_decay)
+
+
+def init_train_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig,
+                     mesh=None, *, device=None):
+    """(params, optimizer): random parameters from a numpy seed on
+    `device` (default: the card), each requiring grad."""
+    _world(cfg, mesh)
+    params = init_params(cfg, seed, device=device)
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    return params, _optimizer(params, tcfg)
+
+
+def _loss_parts(params, tokens, positions, labels, cfg: ModelConfig,
+                mesh=None, segment_ids=None, collect_stats=False):
+    """(sum of the masked next-token nll, MoE aux): the linear pieces of
+    the objective.  labels < 0 are masked out."""
+    if collect_stats:
+        raise NotImplementedError("ring telemetry is not ported yet")
+    logits, aux = forward_with_aux(params, tokens, positions, cfg, mesh,
+                                   segment_ids=segment_ids)
+    target = torch.where(labels >= 0, labels, -100).long()
+    nll_sum = F.cross_entropy(logits.flatten(0, 1), target.flatten(),
+                              ignore_index=-100, reduction="sum")
+    return nll_sum, aux
+
+
+def loss_fn(params, tokens, positions, labels, cfg: ModelConfig, mesh=None,
+            moe_aux_weight: float = 0.0, segment_ids=None):
+    """Mean next-token cross entropy (fp32) + weighted MoE aux loss."""
+    nll_sum, aux = _loss_parts(params, tokens, positions, labels, cfg, mesh,
+                               segment_ids=segment_ids)
+    ce = nll_sum / (labels >= 0).sum().clamp(min=1)
+    return ce + moe_aux_weight * aux
+
+
+def _global_norm(grads) -> torch.Tensor:
+    """fp32 l2 norm over every gradient (optax.global_norm)."""
+    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def _clip_(grads, norm: torch.Tensor, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g / norm * max_norm when
+    norm >= max_norm, else g unchanged.  (torch's clip_grad_norm_ divides
+    by norm + 1e-6, which is not the same function.)"""
+    clip = norm >= max_norm
+    for g in grads:
+        g.copy_(torch.where(clip, g / norm.to(g.dtype) * max_norm, g))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
+                    device=None):
+    """Returns step((params, optimizer), batch) -> (state, metrics).
+
+    batch = dict(tokens, positions, labels), each [B, S] int on the step's
+    device (batch_from_host / make_batch).  metrics = {"loss", "grad_norm"}
+    as 0-d fp32 tensors (no host sync); grad_norm is the norm before
+    clipping.  `device` defaults to the card and raises without one unless
+    "cpu" is asked for."""
+    dev = resolve_device(device)
+    _world(cfg, mesh)
+    if tcfg.collect_devstats:
+        raise NotImplementedError("collect_devstats (ring telemetry) is not "
+                                  "ported yet")
+    aux_w = tcfg.moe_aux_weight if cfg.n_experts else 0.0
+    accum = tcfg.grad_accum
+
+    def step(state, batch):
+        params, opt = state
+        leaves = list(param_leaves(params))
+        if leaves[0].device != dev:
+            raise ValueError(f"parameters are on {leaves[0].device}, the "
+                             f"step on {dev}")
+        tokens, positions, labels = (batch[k] for k in
+                                     ("tokens", "positions", "labels"))
+        opt.zero_grad(set_to_none=True)
+        if accum == 1:
+            loss = loss_fn(params, tokens, positions, labels, cfg, mesh,
+                           moe_aux_weight=aux_w)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            b0 = tokens.shape[0]
+            if b0 % accum:
+                raise ValueError(f"batch {b0} not divisible by grad_accum "
+                                 f"{accum}")
+            # microbatches, normalized by the GLOBAL valid count (known
+            # from the labels alone), so uneven masking gives exactly the
+            # full-batch objective; the aux term rides each microbatch
+            # with weight v_total / accum
+            v_total = (labels >= 0).sum().clamp(min=1).float()
+            mb = b0 // accum
+            s_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(accum):
+                sl = slice(i * mb, (i + 1) * mb)
+                nll_sum, aux = _loss_parts(params, tokens[sl], positions[sl],
+                                           labels[sl], cfg, mesh)
+                s = nll_sum + aux_w * aux * (v_total / accum)
+                s.backward()
+                s_sum += s.detach()
+            loss = s_sum / v_total
+        for t in leaves:
+            if t.grad is None:  # a parameter the loss does not reach
+                t.grad = torch.zeros_like(t)
+            elif accum > 1:
+                t.grad.div_(v_total)
+        grads = [t.grad for t in leaves]
+        gnorm = _global_norm(grads)
+        _clip_(grads, gnorm, tcfg.grad_clip)
+        opt.step()
+        return (params, opt), {"loss": loss, "grad_norm": gnorm}
+
+    return step
+
+
+def train_step(state, batch, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
+               *, device=None):
+    """Convenience one-shot of make_train_step."""
+    return make_train_step(cfg, tcfg, mesh, device=device)(state, batch)
+
+
+def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
+                    packed_eos_id=None, *, device=None):
+    """A host batch (data.DataLoader's inputs/targets [B, S] int32 numpy,
+    natural order) as the layout-ordered batch dict `make_train_step`
+    consumes, on `device` (default: the card).  Labels were shifted by the
+    loader; here they only get the layout permutation (the identity on one
+    device)."""
+    if packed_eos_id is not None:
+        raise NotImplementedError("packed-document training is not ported "
+                                  "yet")
+    dev = resolve_device(device)
+    tokens, labels = np.asarray(tokens), np.asarray(labels)
+    b, s = tokens.shape
+    perm = layouts.seq_permutation(cfg.layout, s, _world(cfg, mesh))
+
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=np.int64)).to(dev)
+
+    return {"tokens": put(tokens[:, perm]),
+            "positions": put(np.broadcast_to(perm[None, :], (b, s))),
+            "labels": put(labels[:, perm])}
+
+
+def prefetch_batches(dl, cfg: ModelConfig, mesh=None, depth: int = 2,
+                     packed_eos_id=None, *, device=None):
+    """Generator keeping `depth` device batches ahead of the consumer (the
+    loader's worker threads fill the host windows meanwhile).  `dl` is a
+    data.DataLoader or any (inputs, targets) iterator."""
+    q = deque()
+    it = iter(dl)
+
+    def mk(x, y):
+        return batch_from_host(x, y, cfg, mesh, packed_eos_id, device=device)
+
+    try:
+        for _ in range(depth):
+            q.append(mk(*next(it)))
+    except StopIteration:
+        pass  # source shorter than depth
+    else:
+        for x, y in it:
+            q.append(mk(x, y))
+            yield q.popleft()
+    while q:  # finite iterator: drain what is already in flight
+        yield q.popleft()
+
+
+def make_batch(seed: int, cfg: ModelConfig, mesh=None, batch: int = 1,
+               seq: int = 128, *, device=None):
+    """Synthetic LM batch from a numpy seed: uniform random tokens, labels
+    shifted by one with -1 at the end, in layout order on `device`."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, size=(batch, seq), dtype=np.int32)
+    labels = np.concatenate(
+        [tokens[:, 1:], np.full((batch, 1), -1, np.int32)], axis=1)
+    return batch_from_host(tokens, labels, cfg, mesh, device=device)
+
+
+def packed_fields(tokens, eos_id: int):
+    raise NotImplementedError("packed-document training is not ported yet")
+
+
+def packed_fields_np(tokens, eos_id: int):
+    raise NotImplementedError("packed-document training is not ported yet")
+
+
+def make_packed_batch(seed: int, cfg: ModelConfig, mesh=None,
+                      batch: int = 1, seq: int = 128, eos_id: int = 0):
+    raise NotImplementedError("packed-document training is not ported yet")

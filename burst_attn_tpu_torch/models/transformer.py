@@ -1,5 +1,11 @@
 """Decoder-only transformer LM (port of burst_attn_tpu/models/transformer.py,
-the single-device dense parts the serving path uses).
+the single-device dense parts).
+
+Two forwards: `forward_with_aux` is the training forward (attention
+through the differentiable flash kernels, `torch.utils.checkpoint` per
+block when `cfg.remat` is set); `forward` is the dense plain reference
+(attention through the plain tile) that the serving checks teacher-force
+against.
 
 Parameters are a plain dictionary with the JAX pytree's names and shapes:
 {"embed" [V, d], "layers": [{"attn_norm", "wq" [d, N, H], "wk"/"wv"
@@ -18,8 +24,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..ops.flash import flash_attention
 from ..ops.tile import single_device_attention
 
 
@@ -132,6 +140,23 @@ def params_from_jax(tree, device=None) -> Params:
     return conv(tree)
 
 
+LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+              "w_up", "w_down")
+
+
+def param_leaves(params: Params):
+    """Every tensor of a parameter dictionary in one fixed order (embed,
+    each layer's LAYER_KEYS, final_norm, lm_head), whatever the
+    dictionaries' insertion order: the optimizer's and checkpoints'
+    order."""
+    yield params["embed"]
+    for layer in params["layers"]:
+        for k in LAYER_KEYS:
+            yield layer[k]
+    yield params["final_norm"]
+    yield params["lm_head"]
+
+
 def _rms_norm(x, scale, eps=1e-6):
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
@@ -181,11 +206,57 @@ def _logits(x, lm_head):
     return x.float() @ lm_head.float().t()
 
 
+def _block(x, p, positions, cfg: ModelConfig):
+    """One decoder block of the training forward: attention through the
+    flash kernels (autograd `flash_attention`), then the SwiGLU MLP."""
+    q, k, v = _qkv_proj(p, x, positions, cfg)
+    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=cfg.causal)
+    x = x + _attn_out(p, o)
+    return x + _mlp(p, x)
+
+
+def check_mesh(mesh) -> None:
+    """Raise unless `mesh` (axis name -> size, or None) is one device:
+    the sequence ring, dp and tp come with later slices."""
+    if mesh is not None and any(int(n) != 1 for n in dict(mesh).values()):
+        raise NotImplementedError(
+            f"mesh {dict(mesh)}: only one device (every axis of size 1) is "
+            "ported; the sequence ring, dp and tp come with later slices")
+
+
+def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
+                     mesh=None, segment_ids=None, collect_stats=False):
+    """Training forward on one device: tokens, positions [B, S] int (layout
+    order; with one device every layout is the natural order) -> (fp32
+    logits [B, S, vocab], MoE aux loss = 0).  Attention runs the flash
+    kernels and is differentiable; with `cfg.remat` each block goes
+    through torch.utils.checkpoint (non-reentrant), the counterpart of
+    jax.checkpoint: its activations are recomputed in the backward.
+    `mesh` names axis sizes, all 1 on one device; packed documents
+    (`segment_ids`) and ring telemetry (`collect_stats`) come with later
+    slices."""
+    if segment_ids is not None:
+        raise NotImplementedError("packed-document training (segment_ids) "
+                                  "is not ported yet")
+    if collect_stats:
+        raise NotImplementedError("ring telemetry is not ported yet")
+    check_mesh(mesh)
+    x = params["embed"][tokens].to(cfg.dtype)
+    for p in params["layers"]:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_block, x, p, positions, cfg, use_reentrant=False)
+        else:
+            x = _block(x, p, positions, cfg)
+    logits = _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def forward(params: Params, tokens, positions, cfg: ModelConfig):
     """Dense single-device forward: tokens, positions [B, S] int -> fp32
     logits [B, S, vocab].  Causal attention through the plain tile
-    (single_device_attention), no kernels: the serving path's plain
-    reference."""
+    (single_device_attention), no kernels: the plain reference the serving
+    checks teacher-force against."""
     x = params["embed"][tokens].to(cfg.dtype)
     for p in params["layers"]:
         q, k, v = _qkv_proj(p, x, positions, cfg)

@@ -42,6 +42,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # stream
         "flash_fwd_launch": [P] * 9 + [I] * 7 + [F] + [I] * 6 + [P],
     },
+    "flash_bwd": {
+        # dO q k v delta lse dq dk dv counters, B N Nk Sq Skv D dtype,
+        # scale, q_lo q_hi kv_hi causal offset, stream (one list for all
+        # three entry points)
+        f"flash_bwd_{route}_launch": [P] * 10 + [I] * 7 + [F] + [I] * 5 + [P]
+        for route in ("fused", "dq", "dkdv")
+    },
     "paged_decode": {
         # q k_pages v_pages k_scales v_scales table lengths out,
         # B Nkv G D page width dtype kv_dtype, scale, stream

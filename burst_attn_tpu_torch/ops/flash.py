@@ -1,20 +1,23 @@
-"""Flash-attention forward (port of burst_attn_tpu/ops/pallas_flash.py,
-forward only).
+"""Flash attention, forward and backward (port of
+burst_attn_tpu/ops/pallas_flash.py).
 
 `flash_fwd` is one online-softmax round with the same contract as
-ops/tile.py:tile_fwd; `flash_attention` is the single-device forward the
-serving prefill calls.  For CUDA tensors the wrapper launches the
-hand-written kernel in csrc/flash_fwd.cu (or raises); for CPU tensors it
-runs the plain version, `tile_fwd`/`finalize`.  The TPU kernel's grid
+ops/tile.py:tile_fwd; `flash_bwd` is one backward round with the contract
+of ops/tile.py:tile_bwd; `flash_attention` is single-device attention as
+an autograd function (one `flash_fwd` forward, one `flash_bwd` backward),
+which the serving prefill and the training forward call.  For CUDA
+tensors the wrappers launch the hand-written kernels in csrc/flash_fwd.cu
+and csrc/flash_bwd.cu (or raise); for CPU tensors they run the plain
+versions, `tile_fwd`/`finalize` and `tile_bwd`.  The TPU kernels' grid
 tricks (triangular and band grids, block tuning) have no counterpart: on
-Hopper each CTA loops over kv tiles up to its causal diagonal.
+Hopper each CTA loops over the tiles up to its causal diagonal.
 """
 
 import torch
 
 from . import _build
 from .masks import MaskSpec, round_spec
-from .tile import finalize, init_state, tile_fwd
+from .tile import finalize, init_state, tile_bwd, tile_fwd
 
 # dtype codes shared with csrc/common.cuh
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,6 +36,11 @@ def _check_kernel_operand(name, t, device, dtype=None, shape=None):
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _ptr(t):
+    """A tensor's device address for a ctypes argument; None for NULL."""
+    return None if t is None else t.data_ptr()
 
 
 def flash_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, *, window=None,
@@ -103,11 +111,10 @@ def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, emit_o):
         return m_out, lse_out, out
     lib = _build.load("flash_fwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         err = lib.flash_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(m), ptr(lse),
-            ptr(acc), m_out.data_ptr(), lse_out.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), _ptr(lse),
+            _ptr(acc), m_out.data_ptr(), lse_out.data_ptr(), out.data_ptr(),
             b, n, n_kv, s_q, s_kv, d, KERNEL_DTYPES[q.dtype], float(scale),
             int(spec.q_lo), int(spec.q_hi), int(spec.kv_hi),
             int(spec.causal), int(spec.offset), int(emit_o), stream)
@@ -116,12 +123,122 @@ def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, emit_o):
     return m_out, lse_out, out
 
 
-def flash_attention(q, k, v, scale=None, causal=False):
-    """Single-device flash attention, forward only: q,k,v [B,N,S,D] ->
-    o [B,N,S,D] in q's dtype.  One `flash_fwd` with an empty carry and the
-    fused finalize (no gradient in this slice)."""
+BWD_ROUTES = ("fused", "dq", "dkdv")
+BWD_TILE_Q = 64  # q rows per tile in csrc/flash_bwd.cu (BQ)
+
+
+def flash_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, *, fused=None,
+              triangular=False, window=None, segments=None):
+    """One backward round; same contract as ops/tile.py:tile_bwd: returns
+    (dq [B,N,Sq,D], dk [B,Nk,Skv,D], dv [B,Nk,Skv,D]) in float32.
+
+    delta = sum(o * do, -1) [B,N,Sq] f32 (computed by the caller); lse is
+    the FINAL log-sum-exp [B,N,Sq] f32.  A CUDA tensor launches
+    csrc/flash_bwd.cu (bf16 or fp32, D = 128, contiguous): `fused=False`
+    the split pair (dq kernel, then dk/dv kernel), anything else the fused
+    kernel, which is deterministic like the TPU's.  `triangular` is the
+    TPU's wrapped-diagonal grid; here every causal CTA already starts at
+    the diagonal, so it changes nothing.  A CPU tensor runs tile_bwd.
+    `window`/`segments` are not ported yet."""
+    del triangular
+    if window is not None or segments is not None:
+        raise NotImplementedError("window/segments are not ported yet")
+    b, n, s_q, d = q.shape
+    n_kv, s_kv = k.shape[1], k.shape[2]
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"do {tuple(do.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if tuple(k.shape) != (b, n_kv, s_kv, d) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if n % n_kv:
+        raise ValueError(f"GQA needs Nq % Nk == 0, got {n} % {n_kv}")
+    if q.device.type == "cpu":
+        return tile_bwd(do, q, k, v, delta, lse, scale, spec)
+    return _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec,
+                           split=fused is False)
+
+
+flash_bwd.launches = dict.fromkeys(BWD_ROUTES, 0)
+
+
+def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_bwd runs on cuda or cpu tensors, got {dev}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"flash_bwd kernel takes {list(KERNEL_DTYPES)}, got "
+                         f"{q.dtype}")
+    b, n, s_q, d = q.shape
+    n_kv, s_kv = k.shape[1], k.shape[2]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_bwd kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    for name, t in (("do", do), ("q", q), ("k", k), ("v", v)):
+        _check_kernel_operand(name, t, dev, q.dtype)
+    _check_kernel_operand("delta", delta, dev, torch.float32, (b, n, s_q))
+    _check_kernel_operand("lse", lse, dev, torch.float32, (b, n, s_q))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dk = torch.empty(k.shape, **f32)
+    dv = torch.empty(k.shape, **f32)
+    if split:
+        dq = torch.empty(q.shape, **f32)
+        counters = None
+    else:  # the ordered dq fold adds into zeros, counted per q tile
+        dq = torch.zeros(q.shape, **f32)
+        counters = torch.zeros((b, n, -(-s_q // BWD_TILE_Q)),
+                               dtype=torch.int32, device=dev)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = _build.load("flash_bwd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (b, n, n_kv, s_q, s_kv, d, KERNEL_DTYPES[q.dtype], float(scale),
+            int(spec.q_lo), int(spec.q_hi), int(spec.kv_hi),
+            int(spec.causal), int(spec.offset), stream)
+    routes = ("dq", "dkdv") if split else ("fused",)
+    with torch.cuda.device(dev):
+        for route in routes:
+            err = getattr(lib, f"flash_bwd_{route}_launch")(
+                do.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                delta.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _ptr(counters), *args)
+            _build.check(err, f"flash_bwd {route}")
+            flash_bwd.launches[route] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o = softmax(q k^T * scale) v with the saved (q, k, v, o, lse) and
+    the flash backward (pallas_flash.py's custom_vjp, l.2052-2123)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, fused):
+        spec = round_spec(0, 0, q.shape[2], k.shape[2], causal, "contig")
+        _, lse, o = flash_fwd(q, k, v, None, None, None, scale, spec,
+                              emit_o=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.spec, ctx.fused = scale, spec, fused
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = (o.float() * do.float()).sum(-1)
+        dq, dk, dv = flash_bwd(do.contiguous(), q, k, v, delta, lse,
+                               ctx.scale, ctx.spec, fused=ctx.fused,
+                               triangular=bool(ctx.spec.causal))
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
+def flash_attention(q, k, v, scale=None, causal=False, *, fused=None):
+    """Single-device flash attention: q [B,N,S,D], k, v [B,Nk,S,D] ->
+    o [B,N,S,D] in q's dtype, differentiable.  The forward is one
+    `flash_fwd` with an empty carry and the fused finalize (it keeps lse);
+    the backward computes delta = sum(o * do) in fp32 and runs one
+    `flash_bwd` (`fused` as there: False takes the split pair), then casts
+    the gradients to the inputs' dtypes.  Under `torch.no_grad()`
+    (serving) only the forward runs."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    spec = round_spec(0, 0, q.shape[2], k.shape[2], causal, "contig")
-    _, _, o = flash_fwd(q, k, v, None, None, None, scale, spec, emit_o=True)
-    return o
+    return _FlashAttention.apply(q, k, v, scale, causal, fused)

@@ -3,9 +3,9 @@ burst_attn_tpu/ops/tile.py).
 
 One round of FlashAttention-style attention: given carry state (m =
 running row max, lse = running log-sum-exp, acc = unnormalized output
-accumulator), fold in the contribution of one KV block.  This is the
-plain version behind the flash kernel (ops/flash.py) and the numerics
-oracle the kernel is held to.
+accumulator), fold in the contribution of one KV block; `tile_bwd` is the
+matching backward round.  These are the plain versions behind the flash
+kernels (ops/flash.py) and the numerics oracles the kernels are held to.
 
 Conventions (the JAX package's, kept at the public surface):
   q, k, v : [B, N, S, D]
@@ -73,6 +73,37 @@ def finalize(m, lse, acc, dtype):
     """Normalize the accumulator: o = acc * exp(m - lse)."""
     o_scale = torch.where(torch.isneginf(lse), 0.0, torch.exp(m - lse))
     return (acc * o_scale[..., None]).to(dtype)
+
+
+def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec):
+    """One backward round; returns this round's (dq, dk, dv) in float32.
+    The plain version behind the flash backward kernels (ops/flash.py).
+
+    delta = sum(o * do, -1) [B, N, S] float32 (precomputed once); lse is
+    the FINAL log-sum-exp of the query rows, so p = exp(s - lse) is the
+    true softmax probability.  Masked entries, and rows whose lse is -inf
+    (fully masked), contribute exact zeros.  GQA sums dk/dv over each
+    kv head's group of query heads."""
+    n_q, n_kv = q.shape[1], k.shape[1]
+    s_q, s_kv = q.shape[2], k.shape[2]
+    q32, do32 = q.float(), do.float()
+    kx = _expand_kv(k, n_q).float()
+    vx = _expand_kv(v, n_q).float()
+    mask = dense_mask(spec, s_q, s_kv, device=q.device) & ~torch.isneginf(
+        lse)[..., None]
+
+    s = torch.einsum("bnid,bnjd->bnij", q32, kx) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.einsum("bnij,bnid->bnjd", p, do32)
+    dp = torch.einsum("bnid,bnjd->bnij", do32, vx)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bnij,bnjd->bnid", ds, kx)
+    dk = torch.einsum("bnij,bnid->bnjd", ds, q32)
+    if n_kv != n_q:
+        g = n_q // n_kv
+        dk = dk.reshape(dk.shape[0], n_kv, g, s_kv, -1).sum(dim=2)
+        dv = dv.reshape(dv.shape[0], n_kv, g, s_kv, -1).sum(dim=2)
+    return dq, dk, dv
 
 
 def single_device_attention(q, k, v, scale=None, causal=False):

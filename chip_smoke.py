@@ -13,7 +13,14 @@ Phases (any failure exits non-zero; nothing is caught):
      fp32, int8 and fp8 pools; the ragged kernel on a mixed prefill +
      decode batch (fp32, bf16, int8, fp8 pools), its split-k partials
      with a page-aligned ctx_lo, and its QT=1 rows bitwise against paged
-     decode;
+     decode; the flash backward's fused kernel and split dq + dk/dv pair
+     against tile_bwd (fp32 and bf16, MHA and GQA, causal, non-causal,
+     ragged S; the fused kernel bitwise repeatable), autograd through
+     flash_attention against autograd through the plain tile; at the
+     train step's shape (B1 N16/16 S8192 D128 bf16 causal) the forward
+     against tile_fwd/finalize, the three backward kernels against
+     tile_bwd (the fused one bitwise repeatable), and their times beside
+     tile_bwd's and SDPA's backward;
   4. the ServeEngine at the serving benchmark's width (vocab 32768,
      d_model 2048, 8 layers, 16/4 heads, d_ff 8192, random weights from a
      seed): 12 requests over 8 slots in bf16 and fp32, plus a bf16 run
@@ -27,7 +34,17 @@ Phases (any failure exits non-zero; nothing is caught):
      values as expected, the pool empty after drain and evict); int8 and
      fp8 pools against plain attention; TTFT of a 2048-token prompt, a
      decode tick and a mixed tick, with a profiler breakdown;
-  6. a `kernels` JSON line, then the result line
+  6. training at the training benchmark's width and depth
+     (benchmarks/train_smoke.py: vocab 32768, d_model 2048, 16 layers,
+     16/16 heads, d_ff 8192, bf16, remat; 1.21 B parameters from a seed)
+     at B=1, S=8192: make_train_step on one batch, launch counters read
+     around the timed steps (2 x 16 flash_fwd and 16 fused flash_bwd per
+     step), loss finite and falling, step ms, tokens/s, MFU, a profiled
+     step, and two steps through the split backward; one step's loss and
+     gradients at fp32 (2 layers, S=2048) against plain attention;
+     runner.fit on a seeded token file (2 layers, S=2048) with an eval,
+     then a checkpoint and a resumed run that repeats its losses;
+  7. a `train` JSON line, a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -36,6 +53,7 @@ non-zero and prints no result.
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -75,6 +93,34 @@ ACC_RTOL = 1e-4     # raw fp32 accumulator, relative to its largest entry
 # the dense forward.
 MIN_AGREE_BF16 = 0.95
 TIE_GAP = 0.1
+
+# Backward kernels vs tile_bwd: both compute in fp32 from the same inputs
+# (bf16 inputs widen exactly) and differ only in summation order and
+# exp2-vs-exp, so each of dq, dk, dv must agree to fp32 rounding relative
+# to its largest entry: max-abs error <= BWD_RTOL * max|ref| + BWD_ATOL.
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
+# the training benchmark's model (benchmarks/train_smoke.py defaults: MHA,
+# remat, bf16, one device); its sequence is cut from 32768 to 8192, where
+# a step of the first SIMT kernels takes ~1 s instead of ~15-20 s
+TRAIN_DIMS = dict(vocab=32768, d_model=2048, n_layers=16, n_heads=16,
+                  n_kv_heads=16, d_head=128, d_ff=8192)
+TRAIN_SEQ = 8192
+TRAIN_STEPS = 3  # timed, after one warm-up step
+# One step's loss and gradients, kernels vs plain attention, fp32 at full
+# width: the attention outputs differ by fp32 rounding (~1e-7 relative)
+# and every later op is the same on both sides, so the loss must agree to
+# LOSS_RTOL and each gradient to GRAD_RTOL of its largest entry; a skipped
+# tile or a wrong scale moves them by >1e-2.
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
+# Resumed vs uninterrupted fit losses: the embedding's backward sums with
+# CUDA atomics, whose order changes the bf16 gradients' last bits from run
+# to run, so steps after the checkpoint agree closely but not bitwise.
+RESUME_RTOL = 1e-3
+# The bf16 training run vs the same run with plain attention: the two
+# round attention outputs and gradients to bf16 at different points, so
+# the first loss (the forward) and the second (after one update) agree to
+# bf16 rounding, not bitwise; later steps drift apart as rounding grows.
+CONTROL_RTOL = 1e-2
 
 
 def card_line() -> str:
@@ -126,8 +172,12 @@ def bound_ms(n_bytes, n_flops):
 def device_breakdown(fn, n_calls, top=6):
     """Profile `n_calls` calls of `fn` with torch.profiler: returns (wall
     ms per call, device ms per call, [(kernel name, device ms per call)]
-    of the `top` kernels by self device time)."""
+    of the `top` kernels by device time).  Only the device's own events
+    (kernels, copies, fills) are summed: a CPU op's row repeats the device
+    time of the kernels it launched, and a user annotation's device row
+    (`Optimizer.step#AdamW.step`) spans kernels counted already."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -138,7 +188,9 @@ def device_breakdown(fn, n_calls, top=6):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_calls
     rows = [(e.key, e.self_device_time_total / 1e3 / n_calls)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     return wall, sum(t for _, t in rows), [(k[:60], t) for k, t in rows[:top]]
 
@@ -217,7 +269,8 @@ def check_flash(device, b=1, n=16, n_kv=4, s=2048, d=128, dtype=None,
             e = _max_err(got, want)
             assert e <= STATS_ATOL[key], f"flash {name}: {what} err {e}"
         assert torch.isfinite(lse).all()  # every row sees >= 1 column
-        print(f"flash_fwd {key} {name}: S={sl} max_abs_err={err:.3e} "
+        print(f"flash_fwd {key} {name}: N{n}/{n_kv} S={sl} "
+              f"max_abs_err={err:.3e} "
               f"(tolerance {O_TOL[key]})", flush=True)
     if not timing:
         return worst
@@ -484,6 +537,198 @@ def check_ragged_decode_rows(device, dtype, quant=None, seed=3):
         f"QT=1 ragged rows differ from paged decode ({dtype}, {quant})"
     print(f"ragged_paged QT=1 {_dtype_key(dtype)} pool={quant or 'same'}: "
           "torch.equal to paged_decode", flush=True)
+
+
+def _bwd_inputs(device, dtype, n, n_kv, s, causal, seed, b=1, d=128):
+    """(do, q, k, v, delta, lse, scale, spec) of one backward round:
+    random q, k, v, do; lse and o from the forward kernel; delta =
+    sum(o * do) in fp32, as flash_attention's backward computes it."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import flash, masks
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn(b, n, s, d, generator=g, device=device).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, n_kv, s, d, generator=g, device=device).to(dtype)
+            for _ in range(2))
+    spec = masks.round_spec(0, 0, s, s, causal, "contig")
+    scale = d**-0.5
+    _, lse, o = flash.flash_fwd(q, k, v, None, None, None, scale, spec,
+                                emit_o=True)
+    delta = (o.float() * do.float()).sum(-1)
+    return do, q, k, v, delta, lse, scale, spec
+
+
+def _bwd_errs(got, want, what):
+    """Assert (dq, dk, dv) match the plain ones within BWD_RTOL/BWD_ATOL;
+    returns the three max-abs errors."""
+    errs = []
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        err = _max_err(a, b)
+        tol = BWD_RTOL * float(b.abs().max()) + BWD_ATOL
+        assert err <= tol, f"{what} {name}: max-abs err {err:.3e} > {tol:.3e}"
+        errs.append(err)
+    return errs
+
+
+# (name, heads, kv heads, S, causal, routes): fused (None) and split (False)
+BWD_CASES = (("MHA causal", 16, 16, 2048, True, (None, False)),
+             ("GQA causal", 16, 4, 2048, True, (None, False)),
+             ("GQA non-causal", 16, 4, 2048, False, (None,)),
+             ("GQA causal ragged", 16, 4, 2000, True, (None, False)))
+
+
+def check_flash_bwd(device, dtype, seed=4):
+    """flash_bwd's fused kernel and split pair against tile_bwd on the card
+    at D=128, B=1 (BWD_CASES); the fused kernel runs twice and must be
+    bitwise equal.  Returns the largest errors {"fused": [dq, dk, dv],
+    "split": [dq, dk, dv]}."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import flash, tile
+
+    key = _dtype_key(dtype)
+    worst = {"fused": [0.0] * 3, "split": [0.0] * 3}
+    for i, (name, n, n_kv, s, causal, routes) in enumerate(BWD_CASES):
+        args = _bwd_inputs(device, dtype, n, n_kv, s, causal, seed + i)
+        want = tile.tile_bwd(*args)
+        for fused in routes:
+            route = "split" if fused is False else "fused"
+            got = flash.flash_bwd(*args, fused=fused)
+            errs = _bwd_errs(got, want, f"flash_bwd {key} {name} {route}")
+            worst[route] = [max(a, b) for a, b in zip(worst[route], errs)]
+            if route == "fused":
+                again = flash.flash_bwd(*args, fused=fused)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                    f"flash_bwd {key} {name}: fused kernel not bitwise " \
+                    "repeatable"
+            print(f"flash_bwd {key} {name} N{n}/{n_kv} S={s} {route}: "
+                  f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+                  f"{errs[2]:.3e} (tolerance {BWD_RTOL} max|ref| + "
+                  f"{BWD_ATOL})" + ("; bitwise repeatable"
+                                    if route == "fused" else ""),
+                  flush=True)
+        del want, got
+    return worst
+
+
+def check_flash_autograd(device, n=16, n_kv=4, s=2048, d=128, seed=9):
+    """Gradients through the autograd flash_attention (forward kernel,
+    fused backward kernel) against autograd through tile_fwd + finalize,
+    fp32, causal GQA."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import flash, tile
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(heads):
+        return torch.randn(1, heads, s, d, generator=g, device=device)
+
+    q = rand(n).requires_grad_()
+    k, v = rand(n_kv).requires_grad_(), rand(n_kv).requires_grad_()
+    w = rand(n)
+    got = torch.autograd.grad(
+        (flash.flash_attention(q, k, v, causal=True) * w).sum(), (q, k, v))
+    want = torch.autograd.grad(
+        (tile.single_device_attention(q, k, v, causal=True) * w).sum(),
+        (q, k, v))
+    errs = _bwd_errs(got, want, "flash_attention autograd")
+    print(f"flash_attention autograd fp32 N{n}/{n_kv} S={s} causal: "
+          f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+          f"against autograd through tile_fwd + finalize", flush=True)
+    return max(errs)
+
+
+def time_flash_bwd(device, worst, dtype=None):
+    """The backward kernels at the training shape (B1 N16 Nk16 S8192 D128
+    bf16 causal), where the train step launches them: the fused kernel
+    (twice: bitwise equal) and the split pair held against tile_bwd (~25 GB
+    transient, freed before returning) as check_flash_bwd holds them; then
+    their times (each split kernel's device time from the profiler), the
+    plain tile_bwd's, and the backward of SDPA (a yardstick only, never
+    used by the port).  Folds the errors into `worst`; returns the
+    kernels-line records of flash_bwd_fused, flash_bwd_dq and
+    flash_bwd_dkdv, and the split pair's ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash, tile
+
+    dtype = dtype or torch.bfloat16
+    key = _dtype_key(dtype)
+    n, n_kv, s = TRAIN_DIMS["n_heads"], TRAIN_DIMS["n_kv_heads"], TRAIN_SEQ
+    args = _bwd_inputs(device, dtype, n, n_kv, s, True, seed=11)
+    do, q, k, v, delta, lse, _, _ = args
+    want = tile.tile_bwd(*args)
+    torch.cuda.empty_cache()
+    for fused in (None, False):
+        route = "split" if fused is False else "fused"
+        got = flash.flash_bwd(*args, fused=fused)
+        errs = _bwd_errs(got, want, f"flash_bwd {key} train shape {route}")
+        worst[route] = [max(a, b) for a, b in zip(worst[route], errs)]
+        if route == "fused":
+            again = flash.flash_bwd(*args)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                "flash_bwd at the train shape: fused kernel not bitwise " \
+                "repeatable"
+            del again
+        print(f"flash_bwd {key} train shape N{n}/{n_kv} S={s} {route}: "
+              f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+              f"{errs[2]:.3e} (tolerance {BWD_RTOL} max|ref| + {BWD_ATOL})"
+              + ("; bitwise repeatable" if route == "fused" else ""),
+              flush=True)
+        del got
+    del want
+    fused_ms = time_ms(lambda: flash.flash_bwd(*args), iters=5, warmup=1)
+    split_ms = time_ms(lambda: flash.flash_bwd(*args, fused=False), iters=3,
+                       warmup=1)
+    _, _, top = device_breakdown(lambda: flash.flash_bwd(*args, fused=False),
+                                 3, top=4)
+    dq_ms = sum(t for name, t in top if "flash_bwd_dq_kernel" in name)
+    dkdv_ms = sum(t for name, t in top if "flash_bwd_kv_kernel" in name)
+    assert dq_ms > 0 and dkdv_ms > 0, f"split kernels not profiled: {top}"
+    plain_ms = time_ms(lambda: tile.tile_bwd(*args), iters=2, warmup=1)
+    torch.cuda.empty_cache()  # tile_bwd's transient
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), do,
+                                                 retain_graph=True),
+                     iters=5, warmup=1)
+    del o, qr, kr, vr
+    print(f"flash_bwd at B1 N{n}/{n_kv} S={s} D128 {_dtype_key(dtype)} "
+          f"causal: fused {fused_ms:.3f} ms, split pair {split_ms:.3f} ms "
+          f"(dq {dq_ms:.3f} + dk/dv {dkdv_ms:.3f} by the profiler), plain "
+          f"tile_bwd {plain_ms:.3f} ms, SDPA backward {lib_ms:.3f} ms",
+          flush=True)
+
+    # what each function must move and compute: do, q, k, v, delta, lse
+    # read once, its fp32 gradients written once; the causal pairs' matmuls
+    # (S = QK^T and dP = dO V^T for each; dQ = dS K for dq; dV = P^T dO and
+    # dK = dS^T Q for dk/dv)
+    pairs = s * (s + 1) // 2
+    esz = q.element_size()
+    reads = esz * 2 * (q.numel() + k.numel()) + 4 * 2 * delta.numel()
+    flops_per_matmul = 2 * pairs * n * q.shape[-1]
+    recs = []
+    for name, ms, err, written, matmuls, lib, replaces in (
+            ("flash_bwd_fused", fused_ms, max(worst["fused"]),
+             q.numel() + 2 * k.numel(), 5, lib_ms,
+             "burst_attn_tpu/ops/pallas_flash.py:1379 (_bwd_fused_tri_kernel)"
+             ", burst_attn_tpu/ops/pallas_flash.py:1127 (_bwd_fused_kernel)"),
+            ("flash_bwd_dq", dq_ms, worst["split"][0], q.numel(), 3, None,
+             "burst_attn_tpu/ops/pallas_flash.py:865 (_dq_kernel)"),
+            ("flash_bwd_dkdv", dkdv_ms, max(worst["split"][1:]),
+             2 * k.numel(), 4, None,
+             "burst_attn_tpu/ops/pallas_flash.py:945 (_dkdv_kernel)")):
+        bms, by = bound_ms(reads + 4 * written, matmuls * flops_per_matmul)
+        recs.append(dict(name=name, route="cuda",
+                         source="burst_attn_tpu_torch/csrc/flash_bwd.cu",
+                         replaces=replaces, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib))
+    return recs, split_ms
 
 
 @contextlib.contextmanager
@@ -923,6 +1168,300 @@ def ragged_timings(device):
     return out
 
 
+def _reset_counts():
+    from burst_attn_tpu_torch.ops import flash
+
+    flash.flash_fwd.launches = 0
+    for route in flash.BWD_ROUTES:
+        flash.flash_bwd.launches[route] = 0
+
+
+def _counts():
+    """The attention kernels' launch counters: flash_fwd and flash_bwd by
+    route (fused, dq, dkdv)."""
+    from burst_attn_tpu_torch.ops import flash
+
+    return {"flash_fwd": flash.flash_fwd.launches, **flash.flash_bwd.launches}
+
+
+def _train_model(n_layers, dtype):
+    import torch
+
+    from burst_attn_tpu_torch.models.transformer import ModelConfig
+
+    return ModelConfig(**{**TRAIN_DIMS, "n_layers": n_layers}, dtype=dtype,
+                       batch_axis=None, head_axis=None, remat=True)
+
+
+def train_phase(device):
+    """make_train_step at the training benchmark's width and depth (bf16,
+    remat, B=1, S=TRAIN_SEQ, weights from numpy seed 0) on one fixed batch:
+    a warm-up and TRAIN_STEPS timed steps with the fused backward (launch
+    counters read around the timed steps; the loss must be finite and
+    fall), a profiled step, then two steps through the split backward.
+    Last, the control: the same model from the same seed with plain
+    attention takes the same first 1 + TRAIN_STEPS steps; its first two
+    losses (the forward; one update) must match within CONTROL_RTOL."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import param_leaves
+
+    cfg = _train_model(TRAIN_DIMS["n_layers"], torch.bfloat16)
+    tcfg = train.TrainConfig()
+    t0 = time.perf_counter()
+    state = [train.init_train_state(0, cfg, tcfg, device=device)]
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in param_leaves(state[0][0]))
+    batch = train.make_batch(1, cfg, batch=1, seq=TRAIN_SEQ, device=device)
+
+    def run(step, n_steps):
+        """(losses, grad norms, host ms per step, launches)"""
+        _reset_counts()
+        losses, norms, times = [], [], []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = step(state[0], batch)  # the state is updated in place
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return losses, norms, times, _counts()
+
+    n_layers = cfg.n_layers
+    step = train.make_train_step(cfg, tcfg, device=device)
+    warm = run(step, 1)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, launches = run(step, TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_fwd": 2 * n_layers * TRAIN_STEPS,
+            "fused": n_layers * TRAIN_STEPS, "dq": 0, "dkdv": 0}
+    assert launches == want, (launches, want)
+    losses = warm[0] + losses
+    assert all(map(math.isfinite, losses + warm[1] + norms)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+
+    step_ms = statistics.median(times)
+    d_head = TRAIN_DIMS["d_head"]
+    # benchmarks/train_smoke.py's model FLOPs: 6 per parameter and token,
+    # plus attention (scores + pv = 4 S^2 N D per layer forward, halved
+    # causal, x3.5 forward + backward)
+    attn_flops = (n_layers * 3.5 * 4 * TRAIN_SEQ * TRAIN_SEQ
+                  * TRAIN_DIMS["n_heads"] * d_head / 2)
+    flops = 6.0 * n_params * TRAIN_SEQ + attn_flops
+    res = dict(n_params=n_params, seq=TRAIN_SEQ, init_s=init_s,
+               losses=losses, grad_norms=warm[1] + norms, step_ms=step_ms,
+               step_ms_all=times,
+               tokens_per_s=TRAIN_SEQ / (step_ms / 1e3),
+               model_tflops_per_s=flops / (step_ms / 1e3) / 1e12,
+               mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+               launches_per_step={k: v // TRAIN_STEPS
+                                  for k, v in launches.items()},
+               peak_gb=peak_gb)
+    res["launches"] = launches
+    res["prof"] = device_breakdown(lambda: step(state[0], batch), 1, top=8)
+
+    with split_train_backward():
+        s_losses, _, s_times, s_launches = run(step, 2)
+    want = {"flash_fwd": 2 * 2 * n_layers, "fused": 0, "dq": 2 * n_layers,
+            "dkdv": 2 * n_layers}
+    assert s_launches == want, (s_launches, want)
+    assert all(map(math.isfinite, s_losses)), s_losses
+    res.update(split_step_ms=s_times[-1], split_losses=s_losses,
+               split_launches=s_launches)
+
+    state[0] = None  # the kernel run's parameters and optimizer
+    torch.cuda.empty_cache()
+    state[0] = train.init_train_state(0, cfg, tcfg, device=device)
+    with plain_train_attention():
+        c_losses, _, c_times, c_launches = run(step, 1 + TRAIN_STEPS)
+    assert sum(c_launches.values()) == 0, c_launches
+    state[0] = None
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses, c_losses)]
+    assert max(diffs[:2]) <= CONTROL_RTOL, (losses, c_losses)
+    res.update(control_losses=c_losses, control_step_ms=c_times[-1])
+    print(f"train step ({n_params / 1e9:.3f} B parameters, bf16, remat, B=1 "
+          f"S={TRAIN_SEQ}): {step_ms:.1f} ms (median of {TRAIN_STEPS}: "
+          f"{[round(t, 1) for t in times]}), {res['tokens_per_s']:.0f} "
+          f"tokens/s, {res['model_tflops_per_s']:.1f} model TFLOP/s, MFU "
+          f"{res['mfu']:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; "
+          f"losses {[round(x, 4) for x in losses]}; launches per step "
+          f"{res['launches_per_step']}; peak {peak_gb:.1f} GB; init "
+          f"{init_s:.1f} s", flush=True)
+    print(f"train step, split backward: {s_times[-1]:.1f} ms; losses "
+          f"{[round(x, 4) for x in s_losses]}; launches over 2 steps "
+          f"{s_launches}", flush=True)
+    print(f"train step, control with plain attention from the same seed: "
+          f"{c_times[-1]:.1f} ms; losses {[round(x, 4) for x in c_losses]} "
+          f"(kernels {[round(x, 4) for x in losses]}; rel diffs "
+          f"{[float(f'{d:.2e}') for d in diffs]})", flush=True)
+    return res
+
+
+@contextlib.contextmanager
+def plain_train_attention():
+    """Route the training forward's attention through the plain tile
+    (autograd differentiates it): the reference for the kernel route."""
+    from unittest import mock
+
+    import burst_attn_tpu_torch.models.transformer as tr
+    from burst_attn_tpu_torch.ops import tile
+
+    def plain(q, k, v, scale=None, causal=False):
+        return tile.single_device_attention(q, k, v, scale, causal)
+
+    with mock.patch.object(tr, "flash_attention", plain):
+        yield
+
+
+@contextlib.contextmanager
+def split_train_backward():
+    """Route the training forward's attention backward through the split
+    dq + dk/dv kernels (flash_attention's fused=False) instead of the
+    fused kernel the model takes."""
+    import functools
+    from unittest import mock
+
+    import burst_attn_tpu_torch.models.transformer as tr
+    from burst_attn_tpu_torch.ops import flash
+
+    with mock.patch.object(tr, "flash_attention", functools.partial(
+            flash.flash_attention, fused=False)):
+        yield
+
+
+def train_parity(device, n_layers=2, seq=2048):
+    """One step's loss and gradients at full width, fp32: the kernel route
+    (flash forward, remat recompute, fused backward) against the same
+    model with plain attention, within LOSS_RTOL and GRAD_RTOL."""
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import (
+        LAYER_KEYS, init_params, param_leaves,
+    )
+
+    cfg = _train_model(n_layers, torch.float32)
+    params = init_params(cfg, seed=0, device=device)
+    leaves = list(param_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    batch = train.make_batch(2, cfg, batch=1, seq=seq, device=device)
+
+    def loss_grads():
+        loss = train.loss_fn(params, batch["tokens"], batch["positions"],
+                             batch["labels"], cfg)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    _reset_counts()
+    loss_k, grads_k = loss_grads()
+    launches = _counts()
+    want = {"flash_fwd": 2 * n_layers, "fused": n_layers, "dq": 0, "dkdv": 0}
+    assert launches == want, (launches, want)
+    with plain_train_attention():
+        loss_p, grads_p = loss_grads()
+    assert _counts() == launches, "the plain route launched a kernel"
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    assert loss_err <= LOSS_RTOL, (loss_k, loss_p)
+    names = ["embed"] + [f"layers.{i}.{k}" for i in range(n_layers)
+                         for k in LAYER_KEYS] + ["final_norm", "lm_head"]
+    worst = (0.0, "")
+    for name, a, b in zip(names, grads_k, grads_p):
+        ref = float(b.abs().max())
+        err = _max_err(a, b)
+        assert err <= GRAD_RTOL * ref + 1e-12, \
+            f"gradient {name}: max-abs err {err:.3e} of max {ref:.3e}"
+        worst = max(worst, (err / max(ref, 1e-30), name))
+    print(f"train parity fp32 ({n_layers} layers at full width, S={seq}): "
+          f"loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), rel err "
+          f"{loss_err:.2e}; worst gradient error {worst[0]:.2e} of its "
+          f"largest entry ({worst[1]}); launches {launches}", flush=True)
+    return dict(loss_rel_err=loss_err, grad_rel_err=worst[0],
+                grad_worst=worst[1])
+
+
+def runner_phase(device, n_layers=2, seq=2048, steps=4):
+    """runner.fit at full width with `n_layers` layers on a seeded random
+    token file (bf16, B=1): an uninterrupted run with an eval at the end;
+    then a run that checkpoints at steps/2 (max_to_keep=1) and a second
+    run resuming from that checkpoint to `steps`, whose losses must match
+    the uninterrupted run's within RESUME_RTOL.  The files live in a
+    temporary directory under the checkout's build/, deleted at the end."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.data import write_token_file
+    from burst_attn_tpu_torch.models import runner, train
+    from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
+
+    cfg = _train_model(n_layers, torch.bfloat16)
+    tcfg = train.TrainConfig()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    half = steps // 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_",
+                                     dir=build) as tmp:
+        rng = np.random.default_rng(5)
+        data, held = (os.path.join(tmp, f) for f in ("train.batd",
+                                                     "eval.batd"))
+        write_token_file(data, rng.integers(0, cfg.vocab,
+                                            size=16 * (seq + 1)))
+        write_token_file(held, rng.integers(0, cfg.vocab,
+                                            size=4 * (seq + 1)))
+        kw = dict(data_path=data, batch=1, seq_len=seq, log_every=1,
+                  eval_data_path=held, eval_every=steps, eval_batches=2)
+        ck = os.path.join(tmp, "ckpt")
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, full = runner.fit(cfg, tcfg, runner.RunConfig(steps=steps, **kw),
+                             device=device)
+        fit_s = time.perf_counter() - t0
+        launches = _counts()
+        ckw = dict(ckpt_dir=ck, ckpt_every=half, ckpt_keep=1, **kw)
+        runner.fit(cfg, tcfg, runner.RunConfig(steps=half, **ckw),
+                   device=device)
+        assert Checkpointer(ck).steps() == [half], Checkpointer(ck).steps()
+        _, resumed = runner.fit(cfg, tcfg,
+                                runner.RunConfig(steps=steps, **ckw),
+                                device=device)
+        assert Checkpointer(ck).steps() == [steps], Checkpointer(ck).steps()
+    assert not os.path.exists(tmp)
+
+    # the uninterrupted run: fused backward per train step, one forward per
+    # layer for each eval batch (no grad, so no recompute)
+    assert launches["fused"] == n_layers * steps, launches
+    assert launches["dq"] == launches["dkdv"] == 0, launches
+    n_eval = launches["flash_fwd"] - 2 * n_layers * steps
+    assert n_eval > 0 and n_eval % n_layers == 0, launches
+    loss_a = {r["step"]: r["loss"] for r in full if "loss" in r}
+    loss_b = {r["step"]: r["loss"] for r in resumed if "loss" in r}
+    evals = [r["eval_loss"] for r in full if "eval_loss" in r]
+    assert sorted(loss_a) == list(range(1, steps + 1)), full
+    assert sorted(loss_b) == list(range(half + 1, steps + 1)), resumed
+    assert len(evals) == 1 and math.isfinite(evals[0]), full
+    assert all(map(math.isfinite, loss_a.values()))
+    diff = max(abs(loss_b[s] - loss_a[s]) / abs(loss_a[s]) for s in loss_b)
+    assert diff <= RESUME_RTOL, (loss_a, loss_b)
+    print(f"runner.fit ({n_layers} layers at full width, bf16, S={seq}): "
+          f"{steps} steps in {fit_s:.1f} s, losses "
+          f"{[round(loss_a[s], 4) for s in sorted(loss_a)]}, eval loss "
+          f"{evals[0]:.4f}, launches {launches}; resumed from the step-"
+          f"{half} checkpoint: losses "
+          f"{[round(loss_b[s], 4) for s in sorted(loss_b)]}, largest rel "
+          f"diff {diff:.2e} (bitwise: {diff == 0})", flush=True)
+    return dict(losses=[loss_a[s] for s in sorted(loss_a)],
+                resumed_losses=[loss_b[s] for s in sorted(loss_b)],
+                resume_rel_diff=diff, eval_loss=evals[0], fit_s=fit_s,
+                launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -960,6 +1499,21 @@ def main() -> int:
         check_ragged_decode_rows(device, dt, q)
     kernels = [check_flash(device), check_paged_decode(device),
                check_ragged(device, bf16, timing=True)]
+    bwd_worst = {"fused": [0.0] * 3, "split": [0.0] * 3}
+    for dt in (fp32, bf16):
+        for route, errs in check_flash_bwd(device, dt).items():
+            bwd_worst[route] = [max(a, b)
+                                for a, b in zip(bwd_worst[route], errs)]
+    autograd_err = check_flash_autograd(device)
+    # the forward kernel at the train step's shape (B1 N16/16 S8192 bf16)
+    fwd_err = check_flash(device, n=TRAIN_DIMS["n_heads"],
+                          n_kv=TRAIN_DIMS["n_kv_heads"], s=TRAIN_SEQ,
+                          timing=False)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], fwd_err)
+    torch.cuda.empty_cache()  # the plain tile's transient
+    bwd_recs, split_ms = time_flash_bwd(device, bwd_worst)
+    kernels += bwd_recs
+    torch.cuda.empty_cache()
 
     serve_res = serve_engine_phase(device)
     print(f"ServeEngine prefill {len(serve_res['bf16']['prompts'][1])} "
@@ -980,14 +1534,35 @@ def main() -> int:
     print_profile("RaggedServeEngine mixed tick", rag["prof_mixed"])
     print_profile("RaggedServeEngine decode tick", rag["prof_decode"])
 
+    _PARAMS.clear()  # the serving models' weights
+    torch.cuda.empty_cache()
+    tr = train_phase(device)
+    print_profile("train step", tr["prof"])
+    parity = train_parity(device)
+    fit_res = runner_phase(device)
+
     launches = {"flash_fwd": serve_res["bf16"]["launches"]["flash_fwd"],
                 "paged_decode": serve_res["bf16"]["launches"][
                     "paged_decode_attention"],
-                "ragged_paged": rag["bf16"]["launches"]}
+                "ragged_paged": rag["bf16"]["launches"],
+                "flash_bwd_fused": tr["launches"]["fused"],
+                "flash_bwd_dq": tr["split_launches"]["dq"],
+                "flash_bwd_dkdv": tr["split_launches"]["dkdv"]}
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    wall, dev, _ = tr["prof"]
+    print(json.dumps({"train": {
+        k: tr[k] for k in ("n_params", "seq", "step_ms", "step_ms_all",
+                           "tokens_per_s", "model_tflops_per_s", "mfu",
+                           "losses", "grad_norms", "launches_per_step",
+                           "peak_gb", "split_step_ms", "split_losses",
+                           "control_losses", "control_step_ms")}
+        | {"profiled_step_ms": wall, "device_ms": dev, "busy": dev / wall,
+           "bwd_split_pair_ms": split_ms,
+           "autograd_max_abs_err": autograd_err,
+           "parity": parity, "fit": fit_res}, "card": card}))
     print(json.dumps({
         "kernels": [{k: r[k] for k in keys} for r in kernels],
         "card": card,

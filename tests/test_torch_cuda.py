@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from burst_attn_tpu_torch.models import train
 from burst_attn_tpu_torch.models.serve import ServeEngine
-from burst_attn_tpu_torch.models.transformer import ModelConfig, init_params
+from burst_attn_tpu_torch.models.transformer import (
+    ModelConfig, init_params, param_leaves,
+)
 from burst_attn_tpu_torch.ops import (
     flash, masks, paged_attention, ragged_paged, tile,
 )
@@ -250,6 +253,106 @@ def test_paged_kernel_quantized_matches_plain(dev, dtype, quant):
     assert (o[0] == 0).all()
 
 
+# kernel vs plain backward: both compute in fp32 from the same inputs and
+# differ only in summation order (and exp2 vs exp), so the error is
+# rounding relative to the largest gradient entry
+def _bwd_close(got, want, what):
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        err = float((a - b).abs().max())
+        tol = 1e-4 * float(b.abs().max()) + 1e-6
+        assert err <= tol, f"{what} {name}: max-abs err {err} > {tol}"
+
+
+def _bwd_case(dev, dtype, b, n, n_kv, s_q, s_kv, causal, seed=7, d=128):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (_rand(g, dev, dtype, b, n, s_q, d) for _ in range(2))
+    k, v = (_rand(g, dev, dtype, b, n_kv, s_kv, d) for _ in range(2))
+    spec = masks.round_spec(0, 0, s_q, s_kv, causal, "contig")
+    _, lse, o = flash.flash_fwd(q, k, v, None, None, None, d**-0.5, spec,
+                                emit_o=True)
+    delta = (o.float() * do.float()).sum(-1)
+    return (do, q, k, v, delta, lse, d**-0.5, spec)
+
+
+BWD_CASES = [
+    (1, 4, 4, 256, 256, True),     # MHA causal
+    (2, 8, 2, 200, 200, True),     # GQA causal, ragged edge
+    (1, 8, 2, 192, 192, False),    # GQA non-causal
+    (1, 4, 1, 96, 333, False),     # cross lengths, group 4
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,n_kv,s_q,s_kv,causal", BWD_CASES)
+@pytest.mark.parametrize("fused", [None, False])
+def test_flash_bwd_kernels_match_plain(dev, dtype, b, n, n_kv, s_q, s_kv,
+                                       causal, fused):
+    args = _bwd_case(dev, dtype, b, n, n_kv, s_q, s_kv, causal)
+    before = dict(flash.flash_bwd.launches)
+    got = flash.flash_bwd(*args, fused=fused)
+    torch.cuda.synchronize()
+    moved = {r: flash.flash_bwd.launches[r] - before[r]
+             for r in flash.BWD_ROUTES}
+    assert moved == ({"fused": 0, "dq": 1, "dkdv": 1} if fused is False
+                     else {"fused": 1, "dq": 0, "dkdv": 0})
+    _bwd_close(got, tile.tile_bwd(*args), f"{dtype} fused={fused}")
+
+
+def test_flash_bwd_masked_rows_give_zeros(dev):
+    """A contig future round (q_hi = 0) and rows with lse = -inf: every
+    gradient is exactly zero on both routes."""
+    do, q, k, v, delta, lse, scale, _ = _bwd_case(dev, torch.float32, 1, 4,
+                                                  2, 128, 128, True)
+    spec = masks.round_spec(0, 1, 128, 128, True, "contig")
+    for fused in (None, False):
+        for a in flash.flash_bwd(do, q, k, v, delta, lse, scale, spec,
+                                 fused=fused):
+            assert (a == 0).all()
+        dead = torch.full_like(lse, float("-inf"))
+        for a in flash.flash_bwd(do, q, k, v, delta, dead, scale,
+                                 masks.full_spec(128, 128), fused=fused):
+            assert (a == 0).all()
+
+
+@pytest.mark.parametrize("n,n_kv", [(4, 4), (8, 2)])
+def test_flash_bwd_fused_is_deterministic(dev, n, n_kv):
+    args = _bwd_case(dev, torch.bfloat16, 1, n, n_kv, 1000, 1000, True)
+    first = flash.flash_bwd(*args)
+    for _ in range(3):
+        again = flash.flash_bwd(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_bwd_fused_at_the_train_smoke_length(dev):
+    """The fused kernel at the runner's longest shape (benchmarks/
+    train_smoke.py: B1 N16 S32768 D128 bf16 causal; 8192 CTAs whose ordered
+    dq fold relies on in-order dispatch): it finishes, two launches are
+    bitwise equal, and it agrees with the split pair (no fold).  Each of
+    tile_bwd's fp32 score matrices would take 69 GB at this shape, so the
+    split pair is the reference."""
+    args = _bwd_case(dev, torch.bfloat16, 1, 16, 16, 32768, 32768, True)
+    first = flash.flash_bwd(*args)
+    again = flash.flash_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    _bwd_close(first, flash.flash_bwd(*args, fused=False), "S=32768")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_autograd_matches_plain(dev, causal):
+    """Gradients through the autograd flash_attention (kernels) equal
+    autograd through tile_fwd + finalize, fp32."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = _rand(g, dev, torch.float32, 2, 8, 300, 128).requires_grad_()
+    k = _rand(g, dev, torch.float32, 2, 2, 300, 128).requires_grad_()
+    v = _rand(g, dev, torch.float32, 2, 2, 300, 128).requires_grad_()
+    w = _rand(g, dev, torch.float32, 2, 8, 300, 128)
+    got = torch.autograd.grad((flash.flash_attention(q, k, v, causal=causal)
+                               * w).sum(), (q, k, v))
+    o = tile.single_device_attention(q, k, v, causal=causal)
+    want = torch.autograd.grad((o * w).sum(), (q, k, v))
+    _bwd_close(got, want, f"autograd causal={causal}")
+
+
 @pytest.mark.parametrize("kw", [{}, {"prefix_cache": True},
                                 {"quantize": "int8"}])
 def test_ragged_engine_on_the_card_matches_the_cpu_engine(dev, kw):
@@ -282,3 +385,46 @@ def test_ragged_engine_on_the_card_matches_the_cpu_engine(dev, kw):
         assert eng.stats["burst.fused_fallback{reason=head-dim,pass=serve}"] \
             == 0
     assert out["cpu"] == out[str(dev)]
+
+
+@pytest.mark.parametrize("n_heads,n_kv", [(2, 2), (4, 2)])
+def test_train_step_on_the_card_matches_the_cpu(dev, n_heads, n_kv):
+    """Two fp32 train steps (remat on) through the kernels equal the same
+    steps with the plain versions on the CPU, same weights and batch: the
+    forward runs twice per layer (remat) and the fused backward once.
+    Loss and grad_norm of both steps agree to fp32 summation order, and so
+    does every clipped gradient of the first step, relative to its largest
+    entry.  Parameters are not compared: AdamW's first update is +-lr for
+    any gradient above eps, so an entry whose gradient is near zero takes
+    either sign from rounding alone."""
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=n_heads,
+                      n_kv_heads=n_kv, d_head=128, d_ff=512,
+                      dtype=torch.float32, batch_axis=None, head_axis=None)
+    tcfg = train.TrainConfig(lr=1e-3)
+    out = {}
+    for where in ("cpu", dev):
+        state = train.init_train_state(0, cfg, tcfg, device=where)
+        step = train.make_train_step(cfg, tcfg, device=where)
+        batch = train.make_batch(1, cfg, batch=2, seq=200, device=where)
+        fwd0, bwd0 = flash.flash_fwd.launches, dict(flash.flash_bwd.launches)
+        metrics = []
+        for i in range(2):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                grads = [t.grad.detach().cpu().clone()
+                         for t in param_leaves(state[0])]
+        moved = (flash.flash_fwd.launches - fwd0,
+                 {r: flash.flash_bwd.launches[r] - bwd0[r]
+                  for r in flash.BWD_ROUTES})
+        want = (0, dict.fromkeys(flash.BWD_ROUTES, 0)) if where == "cpu" \
+            else (2 * 2 * cfg.n_layers, {"fused": 2 * cfg.n_layers, "dq": 0,
+                                         "dkdv": 0})
+        assert moved == want, moved
+        out[str(where)] = metrics, grads
+    (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    assert mg[1][0] < mg[0][0]
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(
+            a, b, atol=1e-4 * float(b.abs().max()) + 1e-12, rtol=0)

@@ -1,0 +1,123 @@
+"""Port parity: burst_attn_tpu_torch.ops.flash backward (plain tile_bwd on
+the CPU) against the JAX package's Pallas flash backward kernels in
+interpret mode, on the same numpy inputs, f32.  Each JAX route is pinned:
+the wrapped-diagonal fused kernel (triangular, group 1), the rectangular
+fused kernel (GQA, causal and not), and the split dq + dk/dv pair.
+Tolerance rtol = atol = 1e-4, as tests/test_pallas.py::test_bwd_matches_tile
+holds the JAX kernels to its tile.
+
+The rectangular fused kernel's dq accumulates in place through output
+aliasing, which interpret mode does not model (tests/test_fused_bwd.py runs
+it on a TPU only; interpreted, its dq is off by O(1)), so for that route dq
+is held to the JAX tile_bwd and dk, dv to the kernel."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from burst_attn_tpu.ops import masks as jmasks
+from burst_attn_tpu.ops import pallas_flash as jflash
+from burst_attn_tpu.ops import tile as jtile
+from burst_attn_tpu_torch.ops import flash, masks, tile
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+D = 32
+
+
+def _inputs(seed, b, n, n_kv, s_q, s_kv, causal):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((b, n, s_q, D), dtype=np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, n_kv, s_kv, D), dtype=np.float32)
+            for _ in range(2))
+    spec = masks.round_spec(0, 0, s_q, s_kv, causal, "contig")
+    jspec = jmasks.MaskSpec(*(jnp.int32(x) for x in spec))
+    st = jtile.init_state(b, n, s_q, D)
+    m, lse, acc = jtile.tile_fwd(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), *st, D**-0.5, jspec)
+    o = jtile.finalize(m, lse, acc, jnp.float32)
+    delta = np.asarray(jnp.sum(o * do, axis=-1))
+    return (do, q, k, v, delta, np.array(lse)), spec, jspec
+
+
+# (n, n_kv, s_q, s_kv, causal, JAX route kwargs)
+CASES = [
+    (4, 4, 128, 128, True, dict(triangular=True)),   # _bwd_fused_tri_kernel
+    (4, 2, 128, 128, True, dict(fused=True)),        # _bwd_fused_kernel
+    (4, 2, 128, 128, False, dict(fused=True)),
+    (4, 2, 100, 100, True, dict(fused=False)),       # _dq + _dkdv kernels
+    (4, 1, 96, 160, False, dict(fused=False)),
+]
+
+
+@pytest.mark.parametrize("n,n_kv,s_q,s_kv,causal,route", CASES)
+def test_flash_bwd_matches_jax_kernels(n, n_kv, s_q, s_kv, causal, route):
+    args, spec, jspec = _inputs(0, 1, n, n_kv, s_q, s_kv, causal)
+    before = dict(flash.flash_bwd.launches)
+    got = flash.flash_bwd(*map(torch.from_numpy, args), D**-0.5, spec,
+                          fused=route.get("fused"),
+                          triangular=route.get("triangular", False))
+    assert flash.flash_bwd.launches == before  # the CPU launches nothing
+    want = jflash.flash_bwd(*map(jnp.asarray, args), D**-0.5, jspec,
+                            block_q=32, block_kv=32, interpret=True, **route)
+    want_tile = jtile.tile_bwd(*map(jnp.asarray, args), D**-0.5, jspec)
+    if route.get("fused"):  # interpret mode cannot run this kernel's dq
+        want = (want_tile[0], *want[1:])
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+    for g, w in zip(tile.tile_bwd(*map(torch.from_numpy, args), D**-0.5,
+                                  spec), want_tile):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("n_kv,causal", [(4, True), (2, True), (2, False)])
+def test_flash_attention_grads_match_jax_vjp(n_kv, causal):
+    rng = np.random.default_rng(4)
+    q, w = (rng.standard_normal((2, 4, 96, D), dtype=np.float32)
+            for _ in range(2))
+    k, v = (rng.standard_normal((2, n_kv, 96, D), dtype=np.float32)
+            for _ in range(2))
+    o, vjp = jax.vjp(
+        lambda a, b, c: jflash.flash_attention(a, b, c, None, causal,
+                                               block_q=32, block_kv=32),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(w))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    ot = flash.flash_attention(qt, kt, vt, causal=causal)
+    got = torch.autograd.grad(ot, (qt, kt, vt), torch.from_numpy(w))
+    np.testing.assert_allclose(ot.detach().numpy(), np.asarray(o),
+                               atol=1e-5, rtol=0)
+    for g, x, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), err_msg=name,
+                                   **TOL)
+
+
+def test_flash_attention_bf16_grads_keep_input_dtypes():
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 40, D, generator=g).bfloat16()
+               .requires_grad_() for _ in range(3))
+    flash.flash_attention(q, k, v, causal=True).float().sum().backward()
+    assert all(t.grad.dtype == torch.bfloat16 for t in (q, k, v))
+    with torch.no_grad():  # the serving call: forward only
+        o = flash.flash_attention(q, k, v, causal=True)
+    assert o.grad_fn is None and o.dtype == torch.bfloat16
+
+
+def test_flash_bwd_unported_options_and_bad_shapes_raise():
+    x = torch.zeros(1, 2, 8, D)
+    lse = torch.zeros(1, 2, 8)
+    spec = masks.full_spec(8, 8)
+    with pytest.raises(NotImplementedError):
+        flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec, window=4)
+    with pytest.raises(NotImplementedError):
+        flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec, segments=(lse, lse))
+    with pytest.raises(ValueError, match="do"):
+        flash.flash_bwd(x[:, :1], x, x, x, lse, lse, 1.0, spec)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        m = x.to("meta")
+        flash.flash_bwd(m, m, m, m, lse.to("meta"), lse.to("meta"), 1.0,
+                        spec)

@@ -7,9 +7,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from burst_attn_tpu_torch.models import runner, train
 from burst_attn_tpu_torch.models.paged_decode import init_paged_state
 from burst_attn_tpu_torch.models.serve import ServeEngine
 from burst_attn_tpu_torch.models.transformer import ModelConfig, init_params
@@ -59,6 +61,29 @@ def test_entry_points_default_to_the_card():
         RaggedServeEngine(params, cfg, slots=1, n_pages=2)
 
 
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """make_train_step, init_train_state, batch_from_host and fit raise
+    without a card unless device="cpu" is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA behaviour")
+    cfg = ModelConfig(vocab=16, d_model=8, n_layers=1, n_heads=1,
+                      n_kv_heads=1, d_head=8, d_ff=8, dtype=torch.float32)
+    tcfg = train.TrainConfig()
+    x = np.zeros((1, 4), np.int32)
+    for call in (lambda: train.make_train_step(cfg, tcfg),
+                 lambda: train.init_train_state(0, cfg, tcfg),
+                 lambda: train.batch_from_host(x, x, cfg),
+                 lambda: runner.fit(cfg, tcfg, runner.RunConfig(
+                     data_path=str(tmp_path / "none"), steps=1, batch=1,
+                     seq_len=4))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    state = train.init_train_state(0, cfg, tcfg, device="cpu")
+    _, metrics = train.make_train_step(cfg, tcfg, device="cpu")(
+        state, train.batch_from_host(x, x, cfg, device="cpu"))
+    assert torch.isfinite(metrics["loss"])
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """CPU tensors run the plain version and launch nothing; a tensor on
     any other non-CUDA device raises instead of falling back."""
@@ -91,11 +116,21 @@ def test_cpu_tensors_take_the_plain_versions():
         ragged_paged.ragged_paged_reference(qr, pages, pages, table, q_lens,
                                             lengths))
     assert [f.launches for f in counters] == before
+    bwd_before = dict(flash.flash_bwd.launches)
+    delta = torch.zeros(1, 4, 40)
+    got = flash.flash_bwd(q, q, k, k, delta, want[1], 0.5, spec)
+    for a, b in zip(got, tile.tile_bwd(q, q, k, k, delta, want[1], 0.5,
+                                       spec)):
+        assert torch.equal(a, b)
+    assert flash.flash_bwd.launches == bwd_before
 
     meta = q.to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash.flash_fwd(meta, k.to("meta"), k.to("meta"), None, None, None,
                         0.5, spec)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash.flash_bwd(meta, meta, k.to("meta"), k.to("meta"),
+                        delta.to("meta"), delta.to("meta"), 0.5, spec)
     with pytest.raises(ValueError, match="cuda or cpu"):
         paged_attention.paged_decode_attention(
             qd.to("meta"), pages.to("meta"), pages.to("meta"),

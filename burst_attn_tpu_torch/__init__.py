@@ -10,6 +10,32 @@ This package imports `torch`, never `jax`, and nothing of
 `burst_attn_tpu`.  Entry points default to `device="cuda"` and raise when
 no CUDA device is present unless the caller passes `device="cpu"`.
 
-Ported so far: the `ServeEngine` serving path (models/serve.py) with the
-flash-forward prefill kernel and the paged-decode kernel.
+Ported so far: the serving engines (models/serve.py, serving/engine.py),
+the single-device trainer (models/train.py, models/runner.py), the ring
+attention forward (`burst_attn` over a mesh whose ring positions share
+one device; the scan ring over the flash kernel, or the fused ring
+kernel) and the long-context handoff (serving/handoff.py).
+
+Public API (reference parity):
+    burst_attn              -- global-tensor ring attention (forward)
+    burst_attn_func         -- reference-style alias (zigzag layout)
+    burst_attn_func_striped -- reference-style alias (striped layout)
+    BurstConfig             -- static configuration
+    layouts                 -- sequence layouts (to_layout / from_layout)
 """
+
+from .parallel import layouts
+from .parallel.burst import (
+    BurstConfig,
+    burst_attn,
+    burst_attn_func,
+    burst_attn_func_striped,
+)
+
+__all__ = [
+    "BurstConfig",
+    "burst_attn",
+    "burst_attn_func",
+    "burst_attn_func_striped",
+    "layouts",
+]

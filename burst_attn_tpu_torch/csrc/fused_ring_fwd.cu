@@ -1,0 +1,406 @@
+// Fused ring forward: the whole R-round ring attention forward of W ring
+// positions in ONE launch, driven by a compiled ring program.
+//
+// Replaces: burst_attn_tpu/ops/fused_ring.py `_fused_fwd_kernel` (l.401,
+// called by `fused_ring_fwd`), the Pallas TPU kernel that walks a
+// (round, batch, head, q-block) grid on one core, rotates K/V between
+// chips with remote DMAs into slot banks guarded by send / recv / credit
+// semaphores, and merges every round's online softmax.
+//
+// Contract: per position p, q [B,N,S,D] and its local k/v [B,Nk,S,D] in
+// layout order (stacked [W,...]; GQA: head h reads kv head h / (N/Nk));
+// a per-position op table sched [W][R+1][NCOL] int32 (rows 0..R-1: the
+// five mask scalars and the program's op columns of
+// burst_attn_tpu_torch/parallel/schedule.py plus the need counts below;
+// row R: neighbour positions); a table of the positions' slot-bank base
+// addresses and flag words.  Outputs o [W,B,N,S,D] in q's dtype and lse
+// [W,B,N,S] fp32 (natural log; -inf and o = 0 for rows that see nothing).
+//
+// Design (Hopper, one card holding every position):
+//  * Cooperative persistent grid: G CTAs per position, all co-resident
+//    (cudaLaunchCooperativeKernel refuses a grid that is not), so a CTA
+//    that spins on another position's progress never holds an SM the
+//    awaited CTA needs.  CTA j of position p owns the items (b, h, 64-row
+//    q tile) j, j+G, ... and walks the R rounds; every item of a round
+//    reads that round's consume slot.
+//  * Rotation follows the table.  At a round's start each CTA copies its
+//    1/G share of every send (the chunk's K and V, src slot -> the
+//    neighbour's dst slot, through L2), then publishes it: __syncthreads,
+//    __threadfence, atomicAdd on the receiver's per-(bank, slot) arrival
+//    counter.  A consumer's thread 0 spins with ld.acquire.gpu until the
+//    counter reaches need * G (the counters are cumulative; need counts
+//    the slot's versions, the local copy-in being version 0).  Slot data
+//    is read with ld.global.cg: another CTA rewrites it during the kernel
+//    and an SM's L1 could hold a stale line.
+//  * Credits: per-(position, bank, slot) counters.  When the last of a
+//    position's G CTAs finishes a round (a per-(position, round) done
+//    counter: a position's CTAs need not be in the same round), it grants
+//    the slot the GRANT column names; a sender whose TAKE flag
+//    is set waits until the receiver's grants on the dst slot reach its
+//    TAKE need before overwriting it.  Every wait traps after 60 s of
+//    %globaltimer: a schedule fault ends the launch with an error, it
+//    does not hang the card.
+//  * State: when a position has no more items than CTAs (RESIDENT), each
+//    CTA keeps its one tile's (m, l, acc) in registers and its Q tile in
+//    shared memory across all R rounds.  Otherwise the state of a CTA's
+//    several tiles does not fit on chip (at B1 N32 S_local 8192 one
+//    position's fp32 state is 134 MB against the card's ~60 MB of
+//    registers and shared memory), and it goes to an fp32 scratch between
+//    rounds: 2 * 130 * 4 bytes per row and round against 2 * S * D flops
+//    per row and round, well under 1% of the kernel's time.
+//  * Each round's tile math is kernel 1's (flash_tile.cuh): 64-row K/V
+//    tiles staged as fp32 in shared memory, masked per element by the
+//    table's five scalars, dead tiles skipped by the loop bounds.
+//
+// What bounds it on an H100: tensor FLOPs (the causal pairs attended:
+// 4 * D flops each), e.g. ~35 TFLOP at B1 N32 S65536 D128 against ~2 GB
+// of q/k/v/o and slot copies.  This first version computes in fp32 on the
+// CUDA cores like kernel 1 (no tensor cores, no TMA), so it is about as
+// far from that bound as kernel 1 is.
+
+#include "flash_tile.cuh"
+
+namespace {
+
+using namespace bat;
+using flash::BQ;
+using flash::NT;
+using flash::RPT;
+
+// op-table columns (parallel/schedule.py) and the kernel's own need
+// columns (ops/fused_ring.py, KERNEL_COLS); tests/test_torch_ring.py
+// holds these numbers to those two modules
+constexpr int kConsumeBank = 5, kConsumeSlot = 6, kSrcBank0 = 9;
+constexpr int kArriveNeed = 19;
+// per send channel ch (0 or 1)
+__device__ __forceinline__ int col_send(int ch) { return ch ? 14 : 8; }
+__device__ __forceinline__ int col_src_slot(int ch) { return ch ? 15 : 10; }
+__device__ __forceinline__ int col_dst_slot(int ch) { return ch ? 16 : 11; }
+__device__ __forceinline__ int col_grant(int ch) { return ch ? 17 : 12; }
+__device__ __forceinline__ int col_take(int ch) { return ch ? 18 : 13; }
+__device__ __forceinline__ int col_src_need(int ch) { return ch ? 21 : 20; }
+__device__ __forceinline__ int col_take_need(int ch) { return ch ? 23 : 22; }
+__device__ __forceinline__ int meta_dst(int ch) { return ch ? 3 : 1; }
+constexpr unsigned long long kTimeoutNs = 60ull * 1000 * 1000 * 1000;
+
+struct Params {
+  const void* q;          // [W,B,N,S,D]
+  const void* k_in;       // [W,B,Nk,S,D]
+  const void* v_in;
+  const long long* ptrs;  // [W][2*NB+1]: k bank bases, v bank bases, flags
+  const int* sched;       // [W][R+1][NCOL]
+  float* st_m;            // [W,B,N,S] base-2 m (scratch, not RESIDENT)
+  float* st_l;            // [W,B,N,S] linear l
+  float* st_acc;          // [W,B,N,S,D]
+  void* o;                // [W,B,N,S,D]
+  float* lse;             // [W,B,N,S]
+  int W, B, N, Nk, S, R, NB, MS, G, ncol;
+  int copy_in[2];         // bank * 16 + slot + 1, or 0
+  float scale_log2;
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// thread 0 only: spin until *p >= need (acquire), trapping on timeout
+__device__ void wait_ge(const int* p, int need) {
+  if (ld_acquire(p) >= need) return;
+  const unsigned long long t0 = global_ns();
+  for (unsigned n = 1;; ++n) {
+    __nanosleep(128);
+    if (ld_acquire(p) >= need) return;
+    if ((n & 1023u) == 0 && global_ns() - t0 > kTimeoutNs) __trap();
+  }
+}
+
+// after every thread's stores: make them visible, then count them
+__device__ __forceinline__ void publish(int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1);
+  }
+}
+
+// share j of G of a byte copy (16-byte units, through L2)
+__device__ __forceinline__ void copy_share(const void* src, void* dst,
+                                           size_t bytes, int j, int G) {
+  const size_t n16 = bytes / 16;
+  const size_t lo = n16 * j / G, hi = n16 * (j + 1) / G;
+  const uint4* s = static_cast<const uint4*>(src);
+  uint4* d = static_cast<uint4*>(dst);
+  for (size_t i = lo + threadIdx.x; i < hi; i += NT)
+    __stcg(d + i, __ldcg(s + i));
+}
+
+struct Flags {  // one position's counters: arrive, free [NB][MS], done [R]
+  int* base;
+  int NB, MS;
+  __device__ int* arrive(int bank, int slot) const {
+    return base + bank * MS + slot;
+  }
+  __device__ int* free_(int bank, int slot) const {
+    return base + NB * MS + bank * MS + slot;
+  }
+  __device__ int* done(int round) const {
+    return base + 2 * NB * MS + round;
+  }
+};
+
+template <typename T, int D, bool RESIDENT>
+__global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
+  constexpr int DC = flash::Rows<D>::DC;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + BQ * D;
+  float* sV = sK + flash::BKV * (D + 4);
+
+  const int pos = blockIdx.x / p.G, j = blockIdx.x % p.G;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int S = p.S, N = p.N, Nk = p.Nk;
+  const int* tab = p.sched + (size_t)pos * (p.R + 1) * p.ncol;
+  const int* meta = tab + (size_t)p.R * p.ncol;
+  const int np = 2 * p.NB + 1;
+  const size_t chunk = (size_t)p.B * Nk * S * D;  // elements of K (or V)
+  const size_t bytes = chunk * sizeof(T);
+  const Flags fl{reinterpret_cast<int*>(p.ptrs[(size_t)pos * np + 2 * p.NB]),
+                 p.NB, p.MS};
+  auto kslot = [&](int who, int bank, int slot) {
+    return reinterpret_cast<T*>(p.ptrs[(size_t)who * np + bank]) +
+           (size_t)slot * chunk;
+  };
+  auto vslot = [&](int who, int bank, int slot) {
+    return reinterpret_cast<T*>(p.ptrs[(size_t)who * np + p.NB + bank]) +
+           (size_t)slot * chunk;
+  };
+
+  // the local chunk into its program-designated slot(s): version 0
+  const T* k_in = static_cast<const T*>(p.k_in) + (size_t)pos * chunk;
+  const T* v_in = static_cast<const T*>(p.v_in) + (size_t)pos * chunk;
+  for (int c = 0; c < 2; ++c) {
+    if (p.copy_in[c] == 0) continue;
+    const int cb = (p.copy_in[c] - 1) / 16, cs = (p.copy_in[c] - 1) % 16;
+    copy_share(k_in, kslot(pos, cb, cs), bytes, j, p.G);
+    copy_share(v_in, vslot(pos, cb, cs), bytes, j, p.G);
+    publish(fl.arrive(cb, cs));
+  }
+
+  const int nqt = (S + BQ - 1) / BQ;
+  const int n_items = p.B * N * nqt;
+  const T* q = static_cast<const T*>(p.q) + (size_t)pos * p.B * N * S * D;
+  const size_t row_base = (size_t)pos * p.B * N * S;  // state / lse rows
+  flash::Rows<D> st;
+
+  for (int r = 0; r < p.R; ++r) {
+    const int* row = tab + (size_t)r * p.ncol;
+    const int cb = row[kConsumeBank], cs = row[kConsumeSlot];
+
+    // ---- sends: this CTA's share of each channel's copy ----
+    for (int ch = 0; ch < 2; ++ch) {
+      if (!row[col_send(ch)]) continue;
+      const int sb = ch == 0 ? row[kSrcBank0] : 1;
+      const int ss = row[col_src_slot(ch)], ds = row[col_dst_slot(ch)];
+      const int dst = meta[meta_dst(ch)];
+      const Flags dfl{
+          reinterpret_cast<int*>(p.ptrs[(size_t)dst * np + 2 * p.NB]), p.NB,
+          p.MS};
+      if (threadIdx.x == 0) {
+        wait_ge(fl.arrive(sb, ss), row[col_src_need(ch)] * p.G);
+        // the dst slot is being reused: its readers must have granted it
+        if (row[col_take(ch)])
+          wait_ge(dfl.free_(ch, ds), row[col_take_need(ch)]);
+        __threadfence();
+      }
+      __syncthreads();
+      copy_share(kslot(pos, sb, ss), kslot(dst, ch, ds), bytes, j, p.G);
+      copy_share(vslot(pos, sb, ss), vslot(dst, ch, ds), bytes, j, p.G);
+      publish(dfl.arrive(ch, ds));
+    }
+
+    // ---- this round's chunk must have landed ----
+    if (threadIdx.x == 0) {
+      wait_ge(fl.arrive(cb, cs), row[kArriveNeed] * p.G);
+      __threadfence();
+    }
+    __syncthreads();
+
+    const T* kc = kslot(pos, cb, cs);
+    const T* vc = vslot(pos, cb, cs);
+    for (int it = j; it < n_items; it += p.G) {
+      const int qt = it % nqt, h = (it / nqt) % N, b = it / (nqt * N);
+      const int q0 = qt * BQ;
+      const size_t bh = (size_t)b * N + h;
+      const size_t bhk = (size_t)b * Nk + h / (N / Nk);
+      if (!RESIDENT || r == 0) {
+        __syncthreads();  // the previous item's readers of sQ are done
+        load_rows<T, D, BQ, NT>(q + bh * S * D, q0, S, sQ, D, p.scale_log2);
+      }
+      if (r == 0 || !RESIDENT) st.init();
+      if (r > 0 && !RESIDENT) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int qr = q0 + ty * RPT + i;
+          if (qr >= S) continue;
+          const size_t at = row_base + bh * S + qr;
+          st.m[i] = p.st_m[at];
+          st.l[i] = p.st_l[at];
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            const float4 a = *reinterpret_cast<const float4*>(
+                p.st_acc + at * D + c * 64 + tx * 4);
+            st.acc[i][4 * c] = a.x; st.acc[i][4 * c + 1] = a.y;
+            st.acc[i][4 * c + 2] = a.z; st.acc[i][4 * c + 3] = a.w;
+          }
+        }
+      }
+
+      flash::fold<T, D, true>(st, sQ, sK, sV, kc + bhk * S * D,
+                              vc + bhk * S * D, S, q0, S, row[0], row[1],
+                              row[2], row[3], row[4]);
+
+      const bool last = r == p.R - 1;
+      if (!last && RESIDENT) continue;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int qr = q0 + ty * RPT + i;
+        if (qr >= S) continue;
+        const size_t at = row_base + bh * S + qr;
+        if (last) {  // fused finalize: o = acc / l, lse in natural log
+          const float inv = (st.l[i] > 0.f) ? 1.f / st.l[i] : 0.f;
+          if (tx == 0)
+            p.lse[at] = (st.l[i] > 0.f) ? st.m[i] * kLn2 + logf(st.l[i])
+                                        : neg_inf();
+          T* o = static_cast<T*>(p.o) + at * D;
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              store(o + c * 64 + tx * 4 + e, st.acc[i][4 * c + e] * inv);
+        } else {
+          if (tx == 0) {
+            p.st_m[at] = st.m[i];
+            p.st_l[at] = st.l[i];
+          }
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+            *reinterpret_cast<float4*>(p.st_acc + at * D + c * 64 + tx * 4) =
+                make_float4(st.acc[i][4 * c], st.acc[i][4 * c + 1],
+                            st.acc[i][4 * c + 2], st.acc[i][4 * c + 3]);
+        }
+      }
+    }
+
+    // ---- round done: the position's last CTA grants the freed slots ----
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(fl.done(r), 1) == p.G - 1) {
+        __threadfence();
+        for (int b = 0; b < p.NB && b < 2; ++b)
+          if (row[col_grant(b)] > 0)
+            atomicAdd(fl.free_(b, row[col_grant(b)] - 1), 1);
+      }
+    }
+  }
+}
+
+template <typename T, int D, bool RESIDENT>
+cudaError_t setup(int* max_blocks) {
+  static bool smem_set = false;
+  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT>;
+  const size_t smem = flash::smem_bytes<D>();
+  cudaError_t e = allow_smem(kernel, smem, &smem_set);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  *max_blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <typename T, int D, bool RESIDENT>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  int max_blocks = 0;
+  cudaError_t e = setup<T, D, RESIDENT>(&max_blocks);
+  if (e != cudaSuccess) return e;
+  if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
+  Params args = p;
+  void* argv[] = {&args};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(fused_ring_fwd_kernel<T, D, RESIDENT>),
+      dim3(p.W * p.G), dim3(NT), argv, flash::smem_bytes<D>(), stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch(int dtype, int resident, const Params& p,
+                     cudaStream_t st) {
+  if (dtype == kBFloat16)
+    return resident ? launch<__nv_bfloat16, D, true>(p, st)
+                    : launch<__nv_bfloat16, D, false>(p, st);
+  if (dtype == kFloat32)
+    return resident ? launch<float, D, true>(p, st)
+                    : launch<float, D, false>(p, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// How many CTAs the card keeps resident at once for this kernel (both
+// state modes have the same footprint up to registers; the smaller wins).
+extern "C" int fused_ring_fwd_capacity(int D, int dtype, int* max_blocks) {
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  int a = 0, b = 0;
+  cudaError_t e;
+  if (dtype == kBFloat16) {
+    if ((e = setup<__nv_bfloat16, 128, true>(&a)) != cudaSuccess) return e;
+    if ((e = setup<__nv_bfloat16, 128, false>(&b)) != cudaSuccess) return e;
+  } else if (dtype == kFloat32) {
+    if ((e = setup<float, 128, true>(&a)) != cudaSuccess) return e;
+    if ((e = setup<float, 128, false>(&b)) != cudaSuccess) return e;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  *max_blocks = a < b ? a : b;
+  return 0;
+}
+
+extern "C" int fused_ring_fwd_launch(
+    const void* q, const void* k_in, const void* v_in, const void* ptrs,
+    const void* sched, void* st_m, void* st_l, void* st_acc, void* o,
+    void* lse, int W, int B, int N, int Nk, int S, int D, int R, int NB,
+    int MS, int G, int ncol, int copy_in0, int copy_in1, int dtype,
+    int resident, float scale, void* stream) {
+  if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1)
+    return (int)cudaErrorInvalidValue;
+  Params p{q,
+           k_in,
+           v_in,
+           static_cast<const long long*>(ptrs),
+           static_cast<const int*>(sched),
+           static_cast<float*>(st_m),
+           static_cast<float*>(st_l),
+           static_cast<float*>(st_acc),
+           o,
+           static_cast<float*>(lse),
+           W, B, N, Nk, S, R, NB, MS, G, ncol,
+           {copy_in0, copy_in1},
+           scale * kLog2e};
+  return (int)dispatch<128>(dtype, resident, p,
+                            static_cast<cudaStream_t>(stream));
+}

@@ -42,8 +42,10 @@ class ModelConfig:
     d_ff: int = 2816
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    # attention / parallelism (kept so both packages take the same
-    # configurations; the ring fields take effect in a later slice)
+    # attention / parallelism (both packages take the same
+    # configurations): layout, attn_backend and seq_axes drive the ring
+    # prefill of serving/handoff.py; training still runs on one device
+    # (check_mesh) until the ring backward is ported
     causal: bool = True
     attn_strategy: str = "burst"
     layout: str = "zigzag"

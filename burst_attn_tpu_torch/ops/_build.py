@@ -54,6 +54,14 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # B Nkv G D page width dtype kv_dtype, scale, stream
         "paged_decode_launch": [P] * 8 + [I] * 8 + [F] + [P],
     },
+    "fused_ring_fwd": {
+        # D dtype, &max_blocks
+        "fused_ring_fwd_capacity": [I, I, ctypes.POINTER(I)],
+        # q k_in v_in ptrs sched st_m st_l st_acc o lse,
+        # W B N Nk S D R NB MS G ncol copy_in0 copy_in1 dtype resident,
+        # scale, stream
+        "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [F] + [P],
+    },
     "ragged_paged": {
         # q k_pages v_pages k_scales v_scales table q_lens kv_lens ctx_lo
         # out acc m l, S Nkv G QT D page width dtype kv_dtype, scale, stream

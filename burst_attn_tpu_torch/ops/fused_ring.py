@@ -1,0 +1,450 @@
+"""Fused ring forward (port of burst_attn_tpu/ops/fused_ring.py): the
+whole R-round forward ring of W ring positions in ONE kernel launch.
+
+The kernel holds no schedule logic of its own: it interprets a compiled
+`RingProgram` (parallel/schedule.py), delivered per position as an int32
+op table whose rows say which (bank, slot) compute consumes, whether its
+arrival must be awaited, which channels send (src bank/slot -> the
+neighbour's dst slot), and the per-slot capacity credits.  One kernel
+body runs every topology the compiler emits (uni, bidi, double).
+
+`fused_ring_fwd` takes the positions' shards stacked, q [W,B,N,S,D] and
+k, v [W,B,Nk,S,D] in layout order, and returns (o [W,B,N,S,D] in q's
+dtype, lse [W,B,N,S] fp32).  A CUDA tensor launches csrc/fused_ring_fwd.cu
+(bf16 or fp32, D = 128; every position on the one card, with the slot
+banks in device memory and the rotation done by the kernel's own copies);
+a CPU tensor runs `fused_ring_reference`, the plain version, which walks
+the same program on the host and checks its deliveries and credits.
+
+Not ported yet: wire_dtype, packed segments, window and collect_stats
+(they raise in parallel/burst.py), the backward kernel.
+"""
+
+import ctypes
+import functools
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
+from .masks import MaskSpec, live_round_prefix, round_spec
+from .tile import finalize, init_state, tile_fwd
+from .tuning import FUSED_BLOCK_KV, FUSED_BLOCK_Q, fused_smem_bytes, \
+    resolve_fused
+from ..parallel import schedule as sched_ir
+from ..parallel.ring import ring_coords, ring_roles
+
+# the kernel's own per-round columns after the program's FWD_COLS: how
+# many versions a slot must have received (the local copy-in is version
+# 0) before the round's consume / each channel's send source may be read,
+# and how many grants the dst slot must have had before a TAKE send
+ARRIVE_NEED = sched_ir.FWD_COLS
+SRC_NEED = (ARRIVE_NEED + 1, ARRIVE_NEED + 2)
+TAKE_NEED = (ARRIVE_NEED + 3, ARRIVE_NEED + 4)
+KERNEL_COLS = ARRIVE_NEED + 5
+
+_SEND = (sched_ir.SEND0, sched_ir.SEND1)
+_SRC_SLOT = (sched_ir.SRC_SLOT0, sched_ir.SRC_SLOT1)
+_DST_SLOT = (sched_ir.DST_SLOT0, sched_ir.DST_SLOT1)
+_TAKE = (sched_ir.TAKE0, sched_ir.TAKE1)
+_GRANT = (sched_ir.GRANT0, sched_ir.GRANT1)
+_META_DST = (sched_ir.META_CH0_DST, sched_ir.META_CH1_DST)
+
+
+def resolve_topology(cfg, n_intra: int, n_inter: int = 1):
+    """(topology, n_inter, n_intra) the fused kernel runs for cfg: a real
+    inter axis (or cfg.fused_seq_factor on a flat ring) selects the
+    double ring; `fused_topology="bidi"` opts a flat ring of >= 3 into the
+    counter-rotating schedule; default is uni."""
+    if cfg.fused_seq_factor is not None:
+        f_i, f_s = cfg.fused_seq_factor
+        if n_inter > 1:
+            raise ValueError("fused_seq_factor is for flat ring axes; this "
+                             "config already has an inter axis")
+        if f_i * f_s != n_intra:
+            raise ValueError(
+                f"fused_seq_factor {cfg.fused_seq_factor} does not tile the "
+                f"ring axis ({n_intra} positions)")
+        return ("double", f_i, f_s) if f_i > 1 else ("uni", 1, n_intra)
+    if n_inter > 1:
+        return "double", n_inter, n_intra
+    topo = cfg.fused_topology
+    if topo in ("auto", "uni", "double"):
+        # double without an inter axis or a factor: nothing to nest
+        return "uni", 1, n_intra
+    if topo == "bidi":
+        return ("bidi" if n_intra >= 3 else "uni"), 1, n_intra
+    raise ValueError(f"unknown fused_topology {topo!r}")
+
+
+def occupancy_r_live(cfg, world: int, s) -> Optional[int]:
+    """Live-round prefix to truncate the program to, or None for a dense
+    program: contig causal rings whose packed segments are bounded by
+    cfg.max_segment_len have the closed-form live set {0..r_live-1}."""
+    if s is None or cfg.max_segment_len is None:
+        return None
+    r_live = live_round_prefix(cfg.layout, s, world, causal=cfg.causal,
+                               max_segment_len=cfg.max_segment_len)
+    return None if r_live >= world else r_live
+
+
+def _resolve(cfg):
+    return resolve_fused(cfg.fused_block_q, cfg.fused_block_kv,
+                         cfg.fused_kv_slots,
+                         block_q_bwd=cfg.fused_block_q_bwd,
+                         block_kv_bwd=cfg.fused_block_kv_bwd,
+                         bwd_slots=cfg.fused_bwd_slots,
+                         ccw_slots=cfg.fused_ccw_slots,
+                         bwd_ccw_slots=cfg.fused_bwd_ccw_slots,
+                         wire_dtype=cfg.wire_dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _compile_for(cfg, topology: str, n_inter: int, n_intra: int,
+                 pass_: str = "fwd", s=None):
+    rf = _resolve(cfg)
+    r_live = occupancy_r_live(cfg, n_inter * n_intra, s)
+    if pass_ == "fwd":
+        return sched_ir.compile_fwd(topology, n_intra, n_inter,
+                                    slots=rf.kv_slots, slots1=rf.ccw_slots,
+                                    r_live=r_live)
+    return sched_ir.compile_bwd(topology, n_intra, n_inter,
+                                slots=rf.bwd_slots, slots1=rf.bwd_ccw_slots,
+                                dq_slots=rf.bwd_slots, r_live=r_live)
+
+
+def supported(cfg, q_shape, k_shape, has_segments: bool = False, *,
+              world: int, n_inter: int = 1, pass_: str = "fwd",
+              dtype=None, device=None) -> Optional[str]:
+    """None if the fused ring can run this config, else the reason (the
+    JAX package's reason prefixes; the TPU's VMEM plan is this card's
+    shared-memory plan).  Shapes are PER POSITION; `world` is the ring
+    axis size (the intra size of a double ring), `n_inter` the inter axis
+    size.  With `device` cuda the kernel's own limits apply (bf16 / fp32,
+    head dim 128); the plain version on the CPU takes any."""
+    if pass_ != "fwd":
+        raise NotImplementedError("the fused ring backward is not ported "
+                                  "yet")
+    if has_segments:
+        raise NotImplementedError("packed segments are not ported yet")
+    b, n, s, d = q_shape
+    if k_shape[2] != s:
+        return "cross-attention shard lengths"
+    if world * n_inter < 2:
+        return "world < 2 (nothing to rotate)"
+    try:
+        topology, t_inter, t_intra = resolve_topology(cfg, world, n_inter)
+    except ValueError as e:
+        return f"topology config invalid: {e}"
+    try:
+        _compile_for(cfg, topology, t_inter, t_intra, pass_, s=s)
+    except sched_ir.ScheduleError as e:
+        return f"schedule compiler declined: {e}"
+    rf = _resolve(cfg)
+    if device is not None and torch.device(device).type == "cuda":
+        if d not in KERNEL_HEAD_DIMS:
+            return f"head dim {d}: the kernel takes {KERNEL_HEAD_DIMS}"
+        if dtype not in KERNEL_DTYPES:
+            return f"dtype {dtype}: the kernel takes {list(KERNEL_DTYPES)}"
+    if (rf.block_q, rf.block_kv) != (FUSED_BLOCK_Q, FUSED_BLOCK_KV):
+        return (f"shared-memory plan: the kernel's tiles are "
+                f"{FUSED_BLOCK_Q} x {FUSED_BLOCK_KV} rows, got "
+                f"{rf.block_q} x {rf.block_kv}")
+    smem = fused_smem_bytes(rf.block_q, rf.block_kv, d)
+    if smem > rf.smem_budget:
+        return (f"shared-memory plan {smem} bytes exceeds the fused budget "
+                f"{rf.smem_budget}")
+    return None
+
+
+def kernel_statics(prog):
+    """The compiled program's static structure: which banks are consumed,
+    which channels send (and from which src banks), where credits flow."""
+    rows = prog.rows
+    R = prog.n_rounds
+    consume_banks = tuple(sorted({rows["consume_bank"][r] for r in range(R)}))
+    ch_active = tuple(ch for ch in range(prog.n_banks)
+                      if any(rows[f"send{ch}"][r] for r in range(R)))
+    src_banks0 = tuple(sorted({rows["src_bank0"][r] for r in range(R)
+                               if rows["send0"][r]})) or (0,)
+    grant_banks = tuple(b for b in range(prog.n_banks)
+                        if any(rows[f"grant{b}"][r] for r in range(R)))
+    take_chs = tuple(ch for ch in ch_active
+                     if any(rows[f"take{ch}"][r] for r in range(R)))
+    return dict(consume_banks=consume_banks, ch_active=ch_active,
+                src_banks0=src_banks0, grant_banks=grant_banks,
+                take_chs=take_chs)
+
+
+def build_sched_table(cfg, prog, s_q: int, s_kv: int, position: int, *,
+                      swap_roles: bool = False):
+    """The [R + 1, FWD_COLS|BWD_COLS] int32 table of one ring position:
+    per round the mask-spec scalars (the partition the round holds comes
+    from the program's rotation applied to the position's ring
+    coordinates) beside the program's op columns, then the META row of
+    neighbour positions (ring_roles).  `swap_roles` builds backward
+    specs (the rotating payload is the q side).  Returns (table, specs)."""
+    inter_rank, intra_rank = ring_coords(position, prog.n_inter,
+                                         prog.n_intra)
+    table = prog.to_table()
+    specs = []
+    for r in range(prog.n_rounds):
+        part_r = sched_ir.partition_for_round(prog, r, inter_rank,
+                                              intra_rank)
+        if swap_roles:
+            sp = round_spec(part_r, position, s_q, s_kv, cfg.causal,
+                            cfg.layout)
+        else:
+            sp = round_spec(position, part_r, s_q, s_kv, cfg.causal,
+                            cfg.layout)
+        specs.append(sp)
+        table[r, :5] = sp
+    roles = ring_roles(position, prog.n_inter, prog.n_intra,
+                       prog.home_offsets)
+    dirs = prog.channels
+    meta = [roles["me"], roles[f"{dirs[0]}_dst"], roles[f"{dirs[0]}_src"]]
+    if len(dirs) > 1:
+        meta += [roles[f"{dirs[1]}_dst"], roles[f"{dirs[1]}_src"]]
+    else:
+        meta += [0, 0]
+    meta += [roles.get(f"home{j}", 0) for j in range(2)]
+    meta_row = np.zeros((1, table.shape[1]), np.int32)
+    meta_row[0, :len(meta)] = meta
+    return np.concatenate([table, meta_row]).astype(np.int32), specs
+
+
+def kernel_table(prog, table: np.ndarray) -> np.ndarray:
+    """One position's table with the kernel's need columns appended
+    ([R + 1, KERNEL_COLS]).  A slot's versions: its copy-in, then one per
+    remote write; a write at round t is awaited by reads at rounds > t."""
+    rows, R = prog.rows, prog.n_rounds
+    writes = {}  # (bank, slot) -> rounds of the remote writes into it
+    for r in range(R):
+        for ch in range(2):
+            if rows[f"send{ch}"][r]:
+                writes.setdefault((ch, rows[f"dst_slot{ch}"][r]), []).append(r)
+
+    def versions(bank, slot, r):
+        return (int((bank, slot) in prog.copy_in)
+                + sum(t < r for t in writes.get((bank, slot), ())))
+
+    out = np.zeros((R + 1, KERNEL_COLS), np.int32)
+    out[:, :table.shape[1]] = table
+    takes = {}
+    for r in range(R):
+        out[r, ARRIVE_NEED] = versions(rows["consume_bank"][r],
+                                       rows["consume_slot"][r], r)
+        for ch in range(2):
+            if not rows[f"send{ch}"][r]:
+                continue
+            src_bank = rows["src_bank0"][r] if ch == 0 else 1
+            out[r, SRC_NEED[ch]] = versions(src_bank, rows[f"src_slot{ch}"][r],
+                                            r)
+            if rows[f"take{ch}"][r]:
+                key = (ch, rows[f"dst_slot{ch}"][r])
+                takes[key] = takes.get(key, 0) + 1
+                out[r, TAKE_NEED[ch]] = takes[key]
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def ring_plan(cfg, n_inter: int, n_intra: int, s: int):
+    """(program, per-position op tables, stacked kernel tables [W, R + 1,
+    KERNEL_COLS]) of the forward ring for cfg on W = n_inter * n_intra
+    positions of s rows each.  They depend on nothing else, so they are
+    built once per (cfg, ring, s) and kept read-only."""
+    topology, t_inter, t_intra = resolve_topology(cfg, n_intra, n_inter)
+    prog = _compile_for(cfg, topology, t_inter, t_intra, "fwd", s=s)
+    tables = tuple(build_sched_table(cfg, prog, s, s, p)[0]
+                   for p in range(n_inter * n_intra))
+    sched = np.stack([kernel_table(prog, t) for t in tables])
+    for t in tables + (sched,):
+        t.flags.writeable = False
+    return prog, tables, sched
+
+
+@functools.lru_cache(maxsize=64)
+def _sched_on(cfg, n_inter: int, n_intra: int, s: int, device):
+    """ring_plan's kernel tables on `device`, copied there once."""
+    return torch.from_numpy(ring_plan(cfg, n_inter, n_intra, s)[2].copy()
+                            ).to(device)
+
+
+def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int):
+    """Forward burst attention of all W = n_inter * n_intra ring positions
+    through the fused ring: q [W,B,N,S,D], k/v [W,B,Nk,S,D] (position p's
+    shard at index p, layout order) -> (o [W,B,N,S,D] in q.dtype, lse
+    [W,B,N,S] f32).  Callers check `supported` first.  A CUDA tensor
+    launches the kernel; a CPU tensor runs fused_ring_reference."""
+    w, b, n, s, d = q.shape
+    if w != n_inter * n_intra:
+        raise ValueError(f"{w} stacked shards for a {n_inter}x{n_intra} "
+                         "ring")
+    if k.shape[:2] != (w, b) or k.shape[3:] != (s, d) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if n % k.shape[2]:
+        raise ValueError(f"GQA needs Nq % Nk == 0, got {n} % {k.shape[2]}")
+    prog, tables, _ = ring_plan(cfg, n_inter, n_intra, s)
+    scale = cfg.scale if cfg.scale is not None else d ** -0.5
+    if q.device.type == "cpu":
+        return fused_ring_reference(q, k, v, prog, tables, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_ring_fwd runs on cuda or cpu tensors, got "
+                         f"{q.device}")
+    return _fused_ring_fwd_cuda(q, k, v, prog,
+                                _sched_on(cfg, n_inter, n_intra, s, q.device),
+                                scale)
+
+
+fused_ring_fwd.launches = 0
+
+
+class _Slot:
+    """One version of a slot in the plain version's banks."""
+
+    def __init__(self, k, v, part, remote):
+        self.k, self.v, self.part = k, v, part
+        self.remote = remote  # written by a neighbour's send, not copy-in
+        self.reads = 0        # consumes and send-source reads
+        self.consumed = False
+
+
+def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale):
+    """Plain version of the fused kernel: walks the compiled program on
+    the host with every position's slot banks as tensors, in the kernel's
+    order per round (sends at the round's start, then each position's
+    consume, then the grants), and computes each round with tile_fwd
+    under the table's mask scalars, finalize at the end.  It asserts what
+    the kernel relies on: each consume finds the partition the rotation
+    says and an arrival exactly when RECV is set, a send reuses a slot only
+    with a granted credit after its last version was read, and every
+    credit granted is taken.  Same contract as fused_ring_fwd."""
+    w = q.shape[0]
+    n_rounds = prog.n_rounds
+    st = kernel_statics(prog)
+    banks = [[[None] * prog.slots[bk] for bk in range(prog.n_banks)]
+             for _ in range(w)]
+    credits = [[[0] * prog.slots[bk] for bk in range(prog.n_banks)]
+               for _ in range(w)]
+    for p in range(w):
+        for cb, cs in prog.copy_in:
+            banks[p][cb][cs] = _Slot(k[p].clone(), v[p].clone(), p, False)
+    state = [init_state(*q.shape[1:], device=q.device) for _ in range(w)]
+    for r in range(n_rounds):
+        for p in range(w):
+            row, meta = tables[p][r], tables[p][n_rounds]
+            for ch in range(2):
+                if not row[_SEND[ch]]:
+                    continue
+                assert ch in st["ch_active"]
+                src_bank = row[sched_ir.SRC_BANK0] if ch == 0 else 1
+                src = banks[p][src_bank][row[_SRC_SLOT[ch]]]
+                assert src is not None, (p, r, "send from an empty slot")
+                src.reads += 1
+                dst, ds = int(meta[_META_DST[ch]]), int(row[_DST_SLOT[ch]])
+                old = banks[dst][ch][ds]
+                if old is None:
+                    assert not row[_TAKE[ch]], (p, r, "take on a fresh slot")
+                else:
+                    assert row[_TAKE[ch]], (p, r, "slot reused without a take")
+                    assert credits[dst][ch][ds] > 0, (
+                        p, r, f"take of slot {ch}/{ds} before its grant")
+                    assert old.reads > 0, (p, r, "overwrite before read")
+                    credits[dst][ch][ds] -= 1
+                banks[dst][ch][ds] = _Slot(src.k.clone(), src.v.clone(),
+                                           src.part, True)
+        for p in range(w):
+            row = tables[p][r]
+            cb = int(row[sched_ir.CONSUME_BANK])
+            slot = banks[p][cb][int(row[sched_ir.CONSUME_SLOT])]
+            ii, si = ring_coords(p, prog.n_inter, prog.n_intra)
+            want = sched_ir.partition_for_round(prog, r, ii, si)
+            assert slot is not None and slot.part == want, (
+                p, r, "wrong partition delivered")
+            assert bool(row[sched_ir.RECV]) == (slot.remote
+                                                and not slot.consumed), (
+                p, r, "arrival and RECV disagree")
+            slot.reads += 1
+            slot.consumed = True
+            spec = MaskSpec(*(int(x) for x in row[:5]))
+            state[p] = tile_fwd(q[p], slot.k, slot.v, *state[p], scale, spec)
+        for p in range(w):
+            row = tables[p][r]
+            for bk in range(prog.n_banks):
+                if row[_GRANT[bk]]:
+                    credits[p][bk][int(row[_GRANT[bk]]) - 1] += 1
+    assert not any(c for pos in credits for bank in pos for c in bank), (
+        "credits granted but never taken")
+    o = torch.stack([finalize(*state[p], q.dtype) for p in range(w)])
+    lse = torch.stack([state[p][1] for p in range(w)])
+    return o, lse
+
+
+def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale):
+    dev = q.device
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"fused_ring_fwd kernel takes "
+                         f"{list(KERNEL_DTYPES)}, got {q.dtype}")
+    w, b, n, s, d = q.shape
+    n_kv = k.shape[2]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"fused_ring_fwd kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_operand(name, t, dev, q.dtype)
+    lib = _build.load("fused_ring_fwd")
+    code = KERNEL_DTYPES[q.dtype]
+    cap = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _build.check(lib.fused_ring_fwd_capacity(d, code, ctypes.byref(cap)),
+                     "fused_ring_fwd capacity")
+    n_items = b * n * -(-s // FUSED_BLOCK_Q)
+    per_pos = cap.value // w
+    if per_pos < 1:
+        raise RuntimeError(f"the card keeps {cap.value} fused-ring CTAs "
+                           f"resident, fewer than the {w} positions")
+    ctas = min(per_pos, n_items)
+    resident = n_items <= per_pos
+    n_banks, max_slots = prog.n_banks, max(prog.slots)
+    kbanks = [torch.empty((w, prog.slots[bk], b, n_kv, s, d), dtype=q.dtype,
+                          device=dev) for bk in range(n_banks)]
+    vbanks = [torch.empty_like(t) for t in kbanks]
+    # per position: arrival and credit counters per (bank, slot), then
+    # one done counter per round
+    flags = torch.zeros((w, 2 * n_banks * max_slots + prog.n_rounds),
+                        dtype=torch.int32, device=dev)
+    item = q.element_size()
+    ptrs = torch.tensor(
+        [[t.data_ptr() + p * t.stride(0) * item for t in kbanks + vbanks]
+         + [flags.data_ptr() + p * flags.stride(0) * 4] for p in range(w)],
+        dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    if resident:
+        st_m = st_l = st_acc = None
+    else:
+        f32 = dict(dtype=torch.float32, device=dev)
+        st_m = torch.empty((w, b, n, s), **f32)
+        st_l = torch.empty((w, b, n, s), **f32)
+        st_acc = torch.empty((w, b, n, s, d), **f32)
+    o = torch.empty_like(q)
+    lse = torch.empty((w, b, n, s), dtype=torch.float32, device=dev)
+    copy_in = [bk * 16 + sl + 1 for bk, sl in prog.copy_in] + [0, 0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.fused_ring_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptrs.data_ptr(),
+            sched.data_ptr(), _ptr(st_m), _ptr(st_l), _ptr(st_acc),
+            o.data_ptr(), lse.data_ptr(), w, b, n, n_kv, s, d,
+            prog.n_rounds, n_banks, max_slots, ctas, KERNEL_COLS,
+            copy_in[0], copy_in[1], code, int(resident), float(scale),
+            stream)
+    _build.check(err, "fused_ring_fwd")
+    fused_ring_fwd.launches += 1
+    return o, lse
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+

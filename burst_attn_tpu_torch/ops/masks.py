@@ -8,14 +8,29 @@ One uniform attention tile is parameterized by five scalars:
     causal     : 1 if a causal constraint applies
     offset     : col j visible from row i  iff  j <= i + offset
 
-The scalars are host ints here: the CUDA kernel takes them by value, so
-a spec never costs a device-to-host read.  Only what the flash forward
-consumes is ported so far: `MaskSpec`, `full_spec`, `round_spec` for the
-contig layout, and the dense oracle `dense_mask`.
+The scalars are host ints here: the CUDA kernels take them by value, so
+a spec never costs a device-to-host read.
+
+The three layouts' causal rounds (rank p of a W ring; s local tokens):
+
+  * zigzag (p holds global chunks p and 2W-1-p):  kv_part == q_part ->
+    plain causal; kv_part < q_part -> every q row x the first kv half;
+    kv_part > q_part -> the second q half x every kv column.
+  * striped (p holds tokens p, p+W, ...):  col j visible from row i iff
+    j <= i (kv_part <= q_part) or j <= i - 1 (otherwise).
+  * contig:  kv_part < q_part -> full, == -> causal, > -> nothing.
+
+Besides the specs: `spec_live` (does a round attend anything),
+`spec_pair_count` (attended pairs, the O(s) closed form of the dense
+mask's sum), and the occupancy tables the schedule compiler truncates
+rings with (`live_delta_table`, `live_round_prefix`).  `window` is not
+ported yet and raises; `max_segment_len` (a promise about packed
+segment lengths) is.
 """
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -33,19 +48,115 @@ def full_spec(s_q: int, s_kv: int) -> MaskSpec:
     return MaskSpec(0, int(s_q), int(s_kv), 0, 0)
 
 
+LAYOUTS = ("contig", "zigzag", "striped")
+
+
+def _no_window(window):
+    if window is not None:
+        raise NotImplementedError("window attention is not ported yet")
+
+
 def round_spec(q_part: int, kv_part: int, s_q: int, s_kv: int, causal: bool,
-               layout: str) -> MaskSpec:
-    """Mask spec for one ring round of the contig layout: kv_part < q_part
-    -> full, == -> causal, > -> fully masked.  The zigzag/striped layouts
-    belong to the ring slice and raise here."""
-    if layout != "contig":
-        raise NotImplementedError(
-            f"layout {layout!r} is not ported yet; only 'contig'")
+               layout: str, window=None) -> MaskSpec:
+    """Mask spec for one ring round: q_part / kv_part are the global
+    partition ids of the query and key/value chunks, s_q / s_kv the local
+    lengths (see the module docstring for each layout's cases)."""
+    _no_window(window)
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected one of "
+                         f"{LAYOUTS}")
     if not causal:
         return full_spec(s_q, s_kv)
-    q_part, kv_part = int(q_part), int(kv_part)
-    q_hi = 0 if kv_part > q_part else int(s_q)
-    return MaskSpec(0, q_hi, int(s_kv), int(q_part == kv_part), 0)
+    q_part, kv_part, s_q, s_kv = int(q_part), int(kv_part), int(s_q), int(s_kv)
+    if layout == "zigzag":
+        if s_q % 2 or s_kv % 2:
+            raise ValueError("zigzag needs even local sequence lengths")
+        q_lo = s_q // 2 if kv_part > q_part else 0
+        kv_hi = s_kv // 2 if kv_part < q_part else s_kv
+        return MaskSpec(q_lo, s_q, kv_hi, int(q_part == kv_part), 0)
+    if layout == "striped":
+        return MaskSpec(0, s_q, s_kv, 1, 0 if kv_part <= q_part else -1)
+    q_hi = 0 if kv_part > q_part else s_q
+    return MaskSpec(0, q_hi, s_kv, int(q_part == kv_part), 0)
+
+
+def spec_live(spec: MaskSpec, window=None) -> bool:
+    """Does ANY (row, col) of this round's tile attend?  False for a
+    contig causal ring's future rounds (q_hi == 0): the ring skips their
+    kernel launch altogether."""
+    _no_window(window)
+    live = spec.q_hi > spec.q_lo and spec.kv_hi > 0
+    # causal: some row must see col 0 (the earliest col of the chunk)
+    return bool(live and (not spec.causal
+                          or spec.q_hi - 1 + spec.offset >= 0))
+
+
+def spec_pair_count(spec: MaskSpec, s_q: int, s_kv: int, window=None) -> int:
+    """Number of attending (row, col) pairs of one round's tile: each row
+    in [q_lo, q_hi) sees the clamped column range [0, min(kv_hi - 1,
+    i + offset)] (causal) or [0, kv_hi) — the sum of dense_mask without
+    materializing it."""
+    _no_window(window)
+    rows = np.arange(int(s_q), dtype=np.int64)
+    in_row = (rows >= spec.q_lo) & (rows < spec.q_hi)
+    hi = (np.minimum(spec.kv_hi - 1, rows + spec.offset) if spec.causal
+          else np.full_like(rows, spec.kv_hi - 1))
+    n = np.clip(hi + 1, 0, int(s_kv))
+    return int(np.sum(np.where(in_row, n, 0)))
+
+
+def _host_round_pairs(layout: str, q_part: int, kv_part: int, s: int,
+                      causal: bool, window=None) -> int:
+    """Attended pairs of the round (q_part, kv_part) at equal local
+    lengths `s`: spec_pair_count(round_spec(...)), the form the occupancy
+    tables sweep."""
+    return spec_pair_count(
+        round_spec(q_part, kv_part, s, s, causal, layout, window=window),
+        s, s)
+
+
+def live_delta_table(layout: str, s: int, world: int, *, causal: bool,
+                     window=None, max_segment_len=None):
+    """Per-ring-offset occupancy: `live[delta]` is True iff ANY position's
+    round at ring offset `delta` (q_part - kv_part = delta mod world)
+    attends at least one pair.  The schedule compiler drops every op of an
+    offset that is False everywhere.
+
+    `max_segment_len` (contig only) adds the packed-segment reach bound:
+    chunks `delta` apart hold tokens at least (delta-1)*s + 1 positions
+    apart, so offsets past the bound cannot share a segment.  It is a
+    promise about the ids the caller feeds, not checked per batch;
+    zigzag/striped interleave token ranges per shard and ignore it.
+    Offset 0 (the self round) is always live."""
+    _no_window(window)
+    if world < 1:
+        raise ValueError(f"need world >= 1, got {world}")
+    live = [True]
+    for delta in range(1, world):
+        alive = (not causal) or any(
+            _host_round_pairs(layout, p, (p - delta) % world, s, True) > 0
+            for p in range(world))
+        if alive and max_segment_len is not None and layout == "contig":
+            # without causality the kv chunk also sits (world - delta)
+            # chunks ahead on wrapping positions: a prefix+suffix band,
+            # which live_round_prefix refuses to truncate
+            dist = (delta - 1) * s + 1
+            if not causal:
+                dist = min(dist, (world - delta - 1) * s + 1)
+            alive = dist <= max_segment_len - 1
+        live.append(bool(alive))
+    return tuple(live)
+
+
+def live_round_prefix(layout: str, s: int, world: int, *, causal: bool,
+                      window=None, max_segment_len=None) -> int:
+    """K + 1 when the live offsets are exactly the prefix {0..K}, else
+    `world` (no truncation): the `r_live` the schedule compiler and the
+    scan ring's round truncation share."""
+    live = live_delta_table(layout, s, world, causal=causal, window=window,
+                            max_segment_len=max_segment_len)
+    k = max(i for i, alive in enumerate(live) if alive)
+    return k + 1 if all(live[:k + 1]) else world
 
 
 def dense_mask(spec: MaskSpec, s_q: int, s_kv: int, device=None

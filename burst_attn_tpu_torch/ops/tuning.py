@@ -1,0 +1,65 @@
+"""Fused ring kernel defaults for the H100 (the port's counterpart of the
+fused rows of burst_attn_tpu/ops/tuning.py, whose per-TPU-generation
+table does not apply to this card).
+
+csrc/fused_ring_fwd.cu computes 64 query rows against 64-row K/V tiles
+staged as fp32 in shared memory: Q, K (rows padded by 4 floats) and V
+take 4 * (64*128 + 64*132 + 64*128) = 99,328 bytes at D = 128, so two
+CTAs fit an SM's 227 KB.  Two KV slots per bank (double buffering) is
+the default, as on the TPU.
+"""
+
+from typing import NamedTuple, Optional
+
+# shared memory a block may use on an H100 (232,448 bytes)
+SMEM_BUDGET = 227 * 1024
+FUSED_BLOCK_Q = 64    # the kernel's q tile (csrc/fused_ring_fwd.cu BQ)
+FUSED_BLOCK_KV = 64   # its kv tile (BKV)
+FUSED_KV_SLOTS = 2
+FUSED_CCW_SLOTS = 2   # second bank: bidi ccw / double inter prefetch
+
+
+class ResolvedFused(NamedTuple):
+    """resolve_fused() result (the JAX package's field names)."""
+
+    block_q: int
+    block_kv: int
+    kv_slots: int
+    smem_budget: int
+    block_q_bwd: int
+    block_kv_bwd: int
+    bwd_slots: int
+    ccw_slots: int
+    bwd_ccw_slots: int
+    wire_dtype: Optional[str] = None
+
+
+def fused_smem_bytes(block_q: int, block_kv: int, d: int) -> int:
+    """Shared memory of one fused-ring CTA: fp32 Q, padded K and V tiles."""
+    return 4 * (block_q * d + block_kv * (d + 4) + block_kv * d)
+
+
+def resolve_fused(block_q=None, block_kv=None, kv_slots=None,
+                  block_q_bwd=None, block_kv_bwd=None, bwd_slots=None,
+                  ccw_slots=None, bwd_ccw_slots=None,
+                  wire_dtype=None) -> ResolvedFused:
+    """Fill the fused ring kernel's knobs from this card's defaults.  Slot
+    counts below 2 cannot double-buffer and are rejected; the backward
+    blocks never default larger than the forward ones.  `wire_dtype` is
+    not ported yet and raises."""
+    if wire_dtype is not None:
+        raise NotImplementedError("wire_dtype is not ported yet")
+    bq = FUSED_BLOCK_Q if block_q is None else int(block_q)
+    bkv = FUSED_BLOCK_KV if block_kv is None else int(block_kv)
+    slots = FUSED_KV_SLOTS if kv_slots is None else int(kv_slots)
+    bqb = bq if block_q_bwd is None else int(block_q_bwd)
+    bkvb = bkv if block_kv_bwd is None else int(block_kv_bwd)
+    bslots = FUSED_KV_SLOTS if bwd_slots is None else int(bwd_slots)
+    cslots = FUSED_CCW_SLOTS if ccw_slots is None else int(ccw_slots)
+    bcslots = FUSED_CCW_SLOTS if bwd_ccw_slots is None else int(bwd_ccw_slots)
+    for name, n in (("kv_slots", slots), ("bwd_slots", bslots),
+                    ("ccw_slots", cslots), ("bwd_ccw_slots", bcslots)):
+        if n < 2:
+            raise ValueError(f"fused ring needs {name} >= 2, got {n}")
+    return ResolvedFused(bq, bkv, slots, SMEM_BUDGET, bqb, bkvb, bslots,
+                         cslots, bcslots, None)

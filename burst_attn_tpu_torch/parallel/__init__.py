@@ -1,2 +1,2 @@
-"""Sequence parallelism of the port: so far the layout index math the
-single-device trainer uses (the ring comes with a later slice)."""
+"""Sequence parallelism of the port: layouts, the ring schedule IR and
+its arithmetic, the one-device mesh, and burst (ring) attention."""

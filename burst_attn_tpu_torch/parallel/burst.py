@@ -1,0 +1,424 @@
+"""Burst (ring) attention, the forward pass (port of
+burst_attn_tpu/parallel/burst.py).
+
+W ring positions share one device (parallel/mesh.py): the global
+[B, N, S, D] tensors, in layout order, are sharded along S into W
+positions (partition id = inter_rank * n_intra + intra_rank), and every
+position runs the same per-position program:
+
+  * the scan ring (`_fwd_impl`): round 0 peeled with an empty carry, then
+    one online-softmax round per ring round through the tile backend
+    (kernel 1, csrc/flash_fwd.cu, for "auto" / "pallas" on a CUDA tensor;
+    the plain tile for "jnp"), the KV payload rotated between the rounds
+    by copies between the positions' buffers (mesh.ppermute); the double
+    ring prefetches the next cycle's base over the inter axis one full
+    intra cycle early;
+  * the fused ring (`backend="fused_ring"`): the whole ring of every
+    position in one launch of kernel 8 (ops/fused_ring.py).  A config the
+    fused kernel declines takes the scan ring, with the reason logged and
+    counted (`burst.fused_fallback`).
+
+Causal load balancing uses the per-round mask scalars of ops/masks.py.
+The JAX package's zigzag 3-way case split (full q x first kv half, second
+q half x full kv, causal self round) and striped triangular rounds exist
+there to pick TPU grids; their three specs are exactly round_spec's, and
+the CUDA kernels' loop bounds skip the dead tiles of each, so here every
+round runs kernel 1 on the whole contiguous shard under round_spec
+(no slicing copies).  Contig causal rings skip dead rounds outright
+(spec_live) and, with max_segment_len, truncate to the live prefix.
+
+Counters: `STATS` holds burst.dispatch{path,backend,tile},
+burst.fused_fallback{reason,pass}, burst.ring_rounds and
+burst.ring_hops{axis} under the JAX package's names.
+
+Not ported yet (they raise NotImplementedError): the ring backward
+(gradients through burst_attn) and the fields that configure it, kernel
+1's tile sizes (block_q, block_kv), window, segment_ids, wire_dtype,
+collect_stats, and meshes with data or tensor parallel axes of size > 1.
+"""
+
+import collections
+import logging
+from dataclasses import dataclass, fields
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops import fused_ring
+from ..ops.flash import flash_fwd
+from ..ops.masks import LAYOUTS, live_round_prefix, round_spec, spec_live
+from ..ops.tile import finalize, init_state, tile_fwd
+from .mesh import as_mesh, ppermute, shard, unshard
+from .ring import partition_at_round, ring_coords, ring_round_counts
+
+logger = logging.getLogger("burst_attn_tpu_torch")
+
+BACKENDS = ("auto", "jnp", "pallas", "fused_ring")
+
+# dispatch counters, keyed "name{label=value,...}" like the ragged
+# engine's stats (the obs registry is not ported yet)
+STATS = collections.Counter()
+
+
+def _count(name: str, n: int = 1, **labels) -> None:
+    if labels:
+        name += "{" + ",".join(f"{k}={v}" for k, v in labels.items()) + "}"
+    STATS[name] += n
+
+
+@dataclass(frozen=True)
+class BurstConfig:
+    """Static configuration of burst attention: the JAX BurstConfig's
+    fields, so both packages take the same configurations.  A field the
+    port does not honour yet raises NotImplementedError on any value but
+    its default (_UNPORTED): kernel 1's tile sizes are fixed, and the
+    backward's fields wait for the ring backward.  `case_split` takes
+    both values: the zigzag split only picks TPU grids, and here every
+    round runs round_spec's uniform spec with the dead tiles skipped by
+    the kernel's loop bounds, which is what either value computes."""
+
+    causal: bool = False
+    layout: str = "zigzag"  # "zigzag" | "striped" | "contig"
+    scale: Optional[float] = None  # default 1/sqrt(head_dim)
+    intra_axis: str = "sp"
+    inter_axis: Optional[str] = None  # set for the hierarchical double ring
+    backend: str = "jnp"  # "auto" | "jnp" | "pallas" | "fused_ring"
+    optimize_bwd_comm: bool = True
+    block_q: Optional[int] = None
+    block_kv: Optional[int] = None
+    block_q_bwd: Optional[int] = None
+    block_kv_bwd: Optional[int] = None
+    deterministic: bool = True
+    window: Optional[int] = None
+    # a PROMISE that no packed segment spans more than this many tokens:
+    # contig causal single rings truncate to the rounds it can reach
+    max_segment_len: Optional[int] = None
+    wire_dtype: Optional[str] = None
+    fused_kv_slots: Optional[int] = None
+    fused_block_q: Optional[int] = None
+    fused_block_kv: Optional[int] = None
+    fused_bwd_slots: Optional[int] = None
+    fused_block_q_bwd: Optional[int] = None
+    fused_block_kv_bwd: Optional[int] = None
+    fused_topology: str = "auto"  # "auto" | "uni" | "bidi" | "double"
+    fused_seq_factor: Optional[Tuple[int, int]] = None  # (n_inter, n_intra)
+    fused_ccw_slots: Optional[int] = None
+    fused_bwd_ccw_slots: Optional[int] = None
+    mesh_axes: Optional[Tuple[Tuple[str, int], ...]] = None
+    case_split: bool = True
+
+    def __post_init__(self):
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {self.layout!r}; expected one "
+                             f"of {LAYOUTS}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{self.backend!r}")
+        if self.window is not None:
+            raise NotImplementedError("window attention is not ported yet")
+        for name, why in _UNPORTED.items():
+            if getattr(self, name) != _DEFAULTS[name]:
+                raise NotImplementedError(
+                    f"BurstConfig.{name}={getattr(self, name)!r}: {why}")
+        if self.max_segment_len is not None and self.max_segment_len < 1:
+            raise ValueError(
+                f"max_segment_len must be >= 1, got {self.max_segment_len}")
+        if self.wire_dtype not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"wire_dtype must be None, 'int8' or 'fp8', got "
+                f"{self.wire_dtype!r}")
+        if self.wire_dtype is not None:
+            raise NotImplementedError("wire_dtype is not ported yet")
+        if self.fused_topology not in ("auto", "uni", "bidi", "double"):
+            raise ValueError(
+                f"fused_topology must be auto|uni|bidi|double, got "
+                f"{self.fused_topology!r}")
+        if self.fused_seq_factor is not None:
+            f = tuple(self.fused_seq_factor)
+            if len(f) != 2 or any(x < 1 for x in f):
+                raise ValueError(
+                    f"fused_seq_factor must be (n_inter, n_intra) positive "
+                    f"ints, got {self.fused_seq_factor!r}")
+            object.__setattr__(self, "fused_seq_factor", f)
+        if self.mesh_axes is not None:
+            object.__setattr__(self, "mesh_axes",
+                               tuple((str(a), int(sz))
+                                     for a, sz in self.mesh_axes))
+
+
+_TILES_FIXED = ("the flash kernel's tiles are fixed (ops/tuning.py); "
+                "leave it None")
+_BWD = "it configures the ring backward, which is not ported yet"
+# fields the port does not honour yet -> why; each raises on a value other
+# than its default
+_UNPORTED = dict(
+    block_q=_TILES_FIXED, block_kv=_TILES_FIXED, block_q_bwd=_BWD,
+    block_kv_bwd=_BWD, optimize_bwd_comm=_BWD, deterministic=_BWD,
+    fused_bwd_slots=_BWD, fused_block_q_bwd=_BWD, fused_block_kv_bwd=_BWD,
+    fused_bwd_ccw_slots=_BWD)
+_DEFAULTS = {f.name: f.default for f in fields(BurstConfig)}
+
+
+# ---------------------------------------------------------------------------
+# tile dispatch
+
+
+def _tile_backend(cfg) -> str:
+    """Per-round tile backend: "jnp" is the plain tile; "auto", "pallas"
+    and the scan-ring rounds of a "fused_ring" config take flash_fwd
+    (kernel 1 on a CUDA tensor, its plain version on a CPU tensor)."""
+    return "jnp" if cfg.backend == "jnp" else "pallas"
+
+
+def _tile_fwd(cfg, q, k, v, m, lse, acc, scale, spec):
+    if _tile_backend(cfg) == "pallas":
+        return flash_fwd(q, k, v, m, lse, acc, scale, spec)
+    if m is None:
+        m, lse, acc = init_state(*q.shape, device=q.device)
+    return tile_fwd(q, k, v, m, lse, acc, scale, spec)
+
+
+def _r_live(cfg, s, s_kv, n_inter, n_intra):
+    """Live-round count of a truncatable SINGLE contig causal ring (the
+    max_segment_len reach bound gives a live-round prefix,
+    masks.live_round_prefix); n_intra = no truncation."""
+    if (cfg.max_segment_len is not None and cfg.layout == "contig"
+            and cfg.causal and n_inter == 1 and n_intra > 1 and s_kv == s):
+        return live_round_prefix("contig", s, n_intra, causal=True,
+                                 max_segment_len=cfg.max_segment_len)
+    return n_intra
+
+
+# ---------------------------------------------------------------------------
+# counters
+
+# (reason-string prefix -> bounded label) for burst.fused_fallback
+_FALLBACK_LABELS = (
+    ("cross-attention", "cross-attn"),
+    ("world < 2", "world-lt-2"),
+    ("topology config invalid", "topology-invalid"),
+    ("schedule compiler declined", "schedule-compiler"),
+    ("shared-memory plan", "smem-budget"),
+    ("head dim", "head-dim"),
+    ("dtype", "dtype"),
+)
+
+
+def _fallback_label(reason: str) -> str:
+    for prefix, label in _FALLBACK_LABELS:
+        if reason.startswith(prefix):
+            return label
+    return "other"
+
+
+def _note_dispatch(cfg, reason, s, s_kv, n_inter, n_intra) -> None:
+    """Count one ring dispatch: the path it took (fused kernel or scan
+    ring), a declined fused config's reason, and the schedule's rounds
+    and KV hops per axis (ring_round_counts)."""
+    path = "fused" if cfg.backend == "fused_ring" and reason is None \
+        else "scan"
+    _count("burst.dispatch", path=path, backend=cfg.backend,
+           tile=_tile_backend(cfg))
+    if reason is not None:
+        _count("burst.fused_fallback", reason=_fallback_label(reason),
+               **{"pass": "fwd"})
+    rounds, intra_hops, inter_hops = ring_round_counts(
+        n_inter, n_intra, _r_live(cfg, s, s_kv, n_inter, n_intra))
+    _count("burst.ring_rounds", rounds)
+    if intra_hops:
+        _count("burst.ring_hops", intra_hops, axis="intra")
+    if inter_hops:
+        _count("burst.ring_hops", inter_hops, axis="inter")
+
+
+# ---------------------------------------------------------------------------
+# forward
+
+
+def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int):
+    """Ring forward of every position: q [W,B,N,S,D], k/v [W,B,Nk,Skv,D]
+    stacked shards (position p at index p) -> (o [W,B,N,S,D] in q.dtype,
+    lse [W,B,N,S] f32)."""
+    world = n_inter * n_intra
+    b, n, s, d = q.shape[1:]
+    s_kv = k.shape[3]
+    reason = None
+    if cfg.backend == "fused_ring":
+        reason = fused_ring.supported(cfg, q.shape[1:], k.shape[1:],
+                                      world=n_intra, n_inter=n_inter,
+                                      dtype=q.dtype, device=q.device)
+        if reason is not None:
+            logger.info("fused_ring backend falling back to the scan ring: "
+                        "%s", reason)
+    _note_dispatch(cfg, reason, s, s_kv, n_inter, n_intra)
+    if cfg.backend == "fused_ring" and reason is None:
+        return fused_ring.fused_ring_fwd(q, k, v, cfg, n_inter, n_intra)
+
+    scale = cfg.scale if cfg.scale is not None else d ** -0.5
+    coords = [ring_coords(p, n_inter, n_intra) for p in range(world)]
+
+    def compute(p, st, kv_c, r):
+        kv_part = partition_at_round(r, *coords[p], n_inter, n_intra)
+        spec = round_spec(p, kv_part, s, s_kv, cfg.causal, cfg.layout)
+        if cfg.layout == "contig" and cfg.causal and not spec_live(spec):
+            return st  # a future round: nothing attends, skip the launch
+        return _tile_fwd(cfg, q[p], kv_c[0], kv_c[1], *st, scale, spec)
+
+    def compute_all(states, kv, r):
+        return [compute(p, states[p], kv[p], r) for p in range(world)]
+
+    r_live = _r_live(cfg, s, s_kv, n_inter, n_intra)
+    kv = [(k[p], v[p]) for p in range(world)]
+    kv_base = kv
+    # round 0 is always the self round: a statically empty carry
+    state = [_tile_fwd(cfg, q[p], k[p], v[p], None, None, None, scale,
+                       round_spec(p, p, s, s_kv, cfg.causal, cfg.layout))
+             for p in range(world)]
+    for c in range(n_inter):
+        if c < n_inter - 1:
+            # prefetch the next cycle's base one full intra cycle early
+            kv_base_next = ppermute(kv_base, "inter", n_inter, n_intra)
+        start = 1 if c == 0 else 0  # cycle 0's round 0 was peeled above
+        if not (c == 0 and r_live == 1):
+            if c == 0:
+                kv = ppermute(kv, "intra", n_inter, n_intra)
+            for s_idx in range(start, r_live - 1):
+                kv_next = ppermute(kv, "intra", n_inter, n_intra)
+                state = compute_all(state, kv, c * n_intra + s_idx)
+                kv = kv_next
+            # last round of the cycle: no intra send
+            state = compute_all(state, kv, c * n_intra + r_live - 1)
+        if c < n_inter - 1:
+            kv = kv_base = kv_base_next
+    o = torch.stack([finalize(*st, q.dtype) for st in state])
+    lse = torch.stack([st[1] for st in state])
+    return o, lse
+
+
+# ---------------------------------------------------------------------------
+# global-tensor entry points
+
+
+def burst_attn(
+    q,
+    k,
+    v,
+    *,
+    mesh,
+    seq_axes=("sp",),
+    causal: bool = False,
+    layout: str = "zigzag",
+    scale: Optional[float] = None,
+    backend: str = "auto",
+    optimize_bwd_comm: bool = True,
+    block_q: Optional[int] = None,
+    block_kv: Optional[int] = None,
+    block_q_bwd: Optional[int] = None,
+    block_kv_bwd: Optional[int] = None,
+    batch_axes=None,
+    head_axes=None,
+    case_split: bool = True,
+    window: Optional[int] = None,
+    segment_ids=None,
+    max_segment_len: Optional[int] = None,
+    fused_kv_slots: Optional[int] = None,
+    fused_block_q: Optional[int] = None,
+    fused_block_kv: Optional[int] = None,
+    fused_bwd_slots: Optional[int] = None,
+    fused_block_q_bwd: Optional[int] = None,
+    fused_block_kv_bwd: Optional[int] = None,
+    fused_topology: str = "auto",
+    fused_seq_factor: Optional[Tuple[int, int]] = None,
+    fused_ccw_slots: Optional[int] = None,
+    fused_bwd_ccw_slots: Optional[int] = None,
+    wire_dtype: Optional[str] = None,
+    collect_stats: bool = False,
+):
+    """Burst attention on global tensors q [B, N, S, D], k, v [B, Nk, Skv,
+    D] (GQA when Nk < N); S must already be in layout order
+    (parallel/layouts.to_layout) for causal runs.  Returns o [B, N, S, D]
+    in q's dtype.
+
+    mesh: {axis: size} or a parallel.mesh.Mesh; its ring positions share
+    the tensors' device.  seq_axes: ("sp",) for a single ring or
+    ("inter", "intra") for the hierarchical double ring.  backend: "auto"
+    / "pallas" (kernel 1 per round on a CUDA tensor), "jnp" (the plain
+    tile), "fused_ring" (kernel 8, the whole ring in one launch).  Skv !=
+    S is cross-attention, non-causal only.
+
+    Forward only: with grad enabled and an input that requires grad it
+    raises, as do window, segment_ids, wire_dtype, collect_stats, and
+    the tile-size and backward options away from their defaults
+    (BurstConfig)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "gradients through burst_attn need the ring backward, which is "
+            "not ported yet (the next slice of the port); call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+    if segment_ids is not None:
+        raise NotImplementedError("segment_ids are not ported yet")
+    if collect_stats:
+        raise NotImplementedError("collect_stats is not ported yet")
+    if isinstance(seq_axes, str):
+        seq_axes = (seq_axes,)
+    if len(seq_axes) == 1:
+        inter_axis, intra_axis = None, seq_axes[0]
+    elif len(seq_axes) == 2:
+        inter_axis, intra_axis = seq_axes
+    else:
+        raise ValueError(f"seq_axes must have 1 or 2 names, got {seq_axes}")
+    if q.shape[2] != k.shape[2] and causal:
+        raise ValueError(
+            f"cross-attention (s_q {q.shape[2]} != s_kv {k.shape[2]}) "
+            "supports non-causal attention only")
+    m = as_mesh(mesh, q.device)
+    n_inter, n_intra = m.ring(seq_axes)
+    cfg = BurstConfig(
+        causal=causal, layout=layout, scale=scale, intra_axis=intra_axis,
+        inter_axis=inter_axis, backend=backend,
+        optimize_bwd_comm=optimize_bwd_comm, block_q=block_q,
+        block_kv=block_kv, block_q_bwd=block_q_bwd,
+        block_kv_bwd=block_kv_bwd, case_split=case_split, window=window,
+        max_segment_len=max_segment_len, fused_kv_slots=fused_kv_slots,
+        fused_block_q=fused_block_q, fused_block_kv=fused_block_kv,
+        fused_bwd_slots=fused_bwd_slots,
+        fused_block_q_bwd=fused_block_q_bwd,
+        fused_block_kv_bwd=fused_block_kv_bwd,
+        fused_topology=fused_topology, fused_seq_factor=fused_seq_factor,
+        fused_ccw_slots=fused_ccw_slots,
+        fused_bwd_ccw_slots=fused_bwd_ccw_slots, wire_dtype=wire_dtype,
+        mesh_axes=tuple(m.shape.items()))
+    world = n_inter * n_intra
+    o, _ = _fwd_impl(shard(q, world), shard(k, world), shard(v, world), cfg,
+                     n_inter, n_intra)
+    return unshard(o)
+
+
+def _check_deterministic(deterministic: bool) -> None:
+    if not deterministic:
+        raise NotImplementedError(f"deterministic=False: {_BWD}")
+
+
+def burst_attn_func(q, k, v, softmax_scale=None, flash: str = "auto",
+                    causal: bool = False, optimize_bwd_comm: bool = True,
+                    deterministic: bool = True, *, mesh, seq_axes=("sp",)):
+    """Reference-style entry point: the zigzag-half causal layout.
+    `flash` selects the backend ("auto" | "pallas" | "jnp" |
+    "fused_ring"); `deterministic` and `optimize_bwd_comm` configure
+    the backward and raise on a value other than their default."""
+    _check_deterministic(deterministic)
+    return burst_attn(q, k, v, mesh=mesh, seq_axes=seq_axes, causal=causal,
+                      layout="zigzag", scale=softmax_scale, backend=flash,
+                      optimize_bwd_comm=optimize_bwd_comm)
+
+
+def burst_attn_func_striped(q, k, v, softmax_scale=None, flash: str = "auto",
+                            causal: bool = False,
+                            optimize_bwd_comm: bool = True,
+                            deterministic: bool = True, *, mesh,
+                            seq_axes=("sp",)):
+    """Reference-style entry point: the striped causal layout."""
+    _check_deterministic(deterministic)
+    return burst_attn(q, k, v, mesh=mesh, seq_axes=seq_axes, causal=causal,
+                      layout="striped", scale=softmax_scale, backend=flash,
+                      optimize_bwd_comm=optimize_bwd_comm)

@@ -10,11 +10,18 @@ pool, one engine.
     admission, chunked prefill interleaved with in-flight decode, prefix
     cache with copy-on-write pages, int8/fp8 pools.
 
-Not ported yet: the handoff, the checkpoint layer, the pipelined engine
-and speculative serving.
+  * `serving.handoff` — the long-context handoff: a ring-sharded
+    prefill (`burst_attn`) lands its K/V directly in pool pages, then
+    sequence-parallel paged decode (`handoff_generate`,
+    `ring_prefill_to_pages`).
+
+Not ported yet: the checkpoint layer, the pipelined engine and
+speculative serving.
 """
 
 from .engine import RaggedServeEngine
+from .handoff import handoff_generate, ring_prefill_to_pages
 from .model import ragged_model_step
 
-__all__ = ["RaggedServeEngine", "ragged_model_step"]
+__all__ = ["RaggedServeEngine", "handoff_generate", "ragged_model_step",
+           "ring_prefill_to_pages"]

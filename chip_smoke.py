@@ -44,7 +44,35 @@ Phases (any failure exits non-zero; nothing is caught):
      gradients at fp32 (2 layers, S=2048) against plain attention;
      runner.fit on a seeded token file (2 layers, S=2048) with an eval,
      then a checkpoint and a resumed run that repeats its losses;
-  7. a `train` JSON line, a `kernels` JSON line, then the result line
+  7. (run after phase 3) the ring forward: the fused ring kernel
+     (kernel 8) against its plain
+     version over W = 2, 3, 4, 8 ring positions on the card (uni, bidi,
+     double 2x2 and 2x4; 2 and 3 slots; causal zigzag, striped, contig
+     and non-causal; GQA; fp32 and bf16; local S 256-1024; two launches
+     torch.equal) and 20 launches at W=8 on two slots bitwise equal; then
+     burst_attn at bench.py's headline shape (B1 N32 S65536 D128 bf16,
+     causal zigzag, mesh {"sp": 8}): the fused ring against the scan ring
+     over kernel 1 (1 fused launch, 64 flash launches, no fallback),
+     kernel 8 against its plain version there, with its time, the scan
+     route's, the plain version's and SDPA's on the natural-order
+     sequence;
+  8. the long-context handoff at the serving width (after phase 5):
+     first its ring kernels at the shapes it gives them (sp=4, N16/4,
+     S_local 8192, bf16, causal zigzag; seeded tensors): kernel 8 against
+     its plain version, and kernel 1 in each scan-ring round of one
+     position against tile_fwd; then a
+     32768-token prompt over sp=4 prefilled through kernel 8 and, as the
+     control, the scan ring, 32 greedy decode steps through
+     dist_paged_decode_step (8 kernel-8 launches, no fallback; bf16: the
+     fused stream teacher-forced through the scan route >= 95% with near
+     ties only, each route's prefill argmax at all 32768 prompt positions
+     against a dense single-device forward >= 95% with near ties only,
+     and each route's stream against that forward with near ties only);
+     fp32 at 4096 tokens
+     token-exact across the routes, with the dense plain forward and
+     with paged_decode_step (kernel 6) on the handed-off slot; page
+     counts and a rejected request; prefill (TTFT) and decode times;
+  9. a `train` JSON line, a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -889,14 +917,15 @@ def near_tie_flips(cfg, params, prompts, toks, want, device):
     return flips
 
 
-def check_agreement(what, res, bf16):
+def check_agreement(what, res, bf16, against="the dense forward",
+                    min_agree=MIN_AGREE_BF16):
     agree, total, gaps = res
     worst = max((g for _, g in gaps), default=0.0)
-    print(f"{what}: teacher-forced agreement with the dense forward "
+    print(f"{what}: teacher-forced agreement with {against} "
           f"{agree}/{total} = {agree / total:.4f}, largest reference logit "
           f"gap at a disagreement {worst:.4f}", flush=True)
     if bf16:
-        assert agree / total >= MIN_AGREE_BF16, what
+        assert agree / total >= min_agree, what
         assert worst <= TIE_GAP, (what, gaps)
     else:
         assert agree == total, (what, gaps)
@@ -1462,6 +1491,553 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4):
                 launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the ring forward: kernel 8 (the fused ring) and burst_attn
+
+# kernel 8 against its plain version: (positions, layout, causal, heads,
+# kv heads, local S, dtype, knobs); "two_axis" = an ("inter", "intra")
+# mesh, fused_seq_factor = the double ring factored onto a flat axis
+FUSED_CASES = (
+    (2, "zigzag", True, 4, 2, 256, "fp32", {}),
+    (3, "striped", True, 4, 1, 256, "bf16", dict(fused_kv_slots=3)),
+    (3, "contig", True, 4, 2, 512, "fp32", dict(fused_topology="bidi")),
+    (4, "zigzag", True, 8, 2, 512, "bf16", {}),
+    (4, "striped", True, 4, 4, 256, "fp32", dict(fused_kv_slots=3)),
+    (4, "contig", True, 4, 1, 1024, "bf16", {}),
+    (4, "zigzag", False, 4, 2, 256, "fp32", dict(fused_topology="bidi")),
+    (8, "zigzag", True, 4, 2, 256, "bf16",
+     dict(fused_topology="bidi", fused_kv_slots=3, fused_ccw_slots=3)),
+    (4, "zigzag", True, 4, 2, 256, "fp32", dict(two_axis=(2, 2))),
+    (4, "striped", True, 8, 2, 512, "bf16",
+     dict(two_axis=(2, 2), fused_kv_slots=3)),
+    (8, "zigzag", True, 4, 2, 256, "bf16", dict(fused_seq_factor=(2, 4))),
+    (8, "contig", True, 4, 1, 512, "fp32", dict(two_axis=(2, 4))),
+    # more q tiles than resident CTAs: the state goes through scratch
+    (8, "zigzag", True, 16, 4, 1024, "bf16", {}),
+    (8, "striped", False, 8, 2, 512, "fp32", {}),
+)
+REPEATS_W8 = 20  # launches at W=8 on two slots, all bitwise equal
+# the op at bench.py's headline shape and world (its fused leg's ring)
+RING_B, RING_N, RING_S, RING_W = 1, 32, 65536, 8
+# the handoff at the serving width: prompt over sp=4, greedy decode steps
+HANDOFF_PROMPT, HANDOFF_SP, HANDOFF_STEPS = 32768, 4, 32
+HANDOFF_PROMPT_FP32 = 4096
+
+
+def _fused_setup(device, w, layout, causal, n, n_kv, s, key, knobs, seed):
+    """(cfg, (n_inter, n_intra), (q, k, v) stacked per position, program,
+    tables) of one kernel-8 case."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring
+    from burst_attn_tpu_torch.parallel import burst
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[key]
+    knobs = dict(knobs)
+    n_inter, n_intra = knobs.pop("two_axis", (1, w))
+    axes = ("inter", "intra") if n_inter > 1 else ("sp",)
+    cfg = burst.BurstConfig(causal=causal, layout=layout,
+                            backend="fused_ring", intra_axis=axes[-1],
+                            inter_axis=axes[0] if n_inter > 1 else None,
+                            **knobs)
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(w, 1, n, s, 128, generator=g, device=device).to(dtype)
+    k, v = (torch.randn(w, 1, n_kv, s, 128, generator=g,
+                        device=device).to(dtype) for _ in range(2))
+    reason = fused_ring.supported(cfg, q.shape[1:], k.shape[1:],
+                                  world=n_intra, n_inter=n_inter,
+                                  dtype=dtype, device=device)
+    assert reason is None, reason
+    topo = fused_ring.resolve_topology(cfg, n_intra, n_inter)
+    prog = fused_ring._compile_for(cfg, *topo, s=s)
+    tables = [fused_ring.build_sched_table(cfg, prog, s, s, p)[0]
+              for p in range(w)]
+    return cfg, (n_inter, n_intra), (q, k, v), prog, tables
+
+
+def check_fused_ring(device):
+    """Kernel 8 against fused_ring_reference over FUSED_CASES (two launches
+    torch.equal, outputs within O_TOL, lse within STATS_ATOL), then
+    REPEATS_W8 launches at W=8 on two slots (each slot rewritten four
+    times a launch), all bitwise equal.  Returns the largest o error."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring
+
+    worst = 0.0
+    for i, (w, layout, causal, n, n_kv, s, key, knobs) in enumerate(
+            FUSED_CASES):
+        cfg, ring, qkv, prog, tables = _fused_setup(
+            device, w, layout, causal, n, n_kv, s, key, knobs, seed=i)
+        o, lse = fused_ring.fused_ring_fwd(*qkv, cfg, *ring)
+        o2, lse2 = fused_ring.fused_ring_fwd(*qkv, cfg, *ring)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), "repeat"
+        po, plse = fused_ring.fused_ring_reference(*qkv, prog, tables,
+                                                   128 ** -0.5)
+        what = (f"fused_ring_fwd {key} W={w} {prog.topology} {layout} "
+                f"causal={causal} N{n}/{n_kv} S_local={s} slots="
+                f"{list(prog.slots)}")
+        err = _check_o(what, o, po, qkv[0].dtype)
+        lse_err = _max_err(lse, plse)
+        assert lse_err <= STATS_ATOL[key], (what, lse_err)
+        worst = max(worst, err)
+        print(f"{what}: max_abs_err={err:.3e} lse {lse_err:.3e}, two "
+              f"launches equal", flush=True)
+    cfg, ring, qkv, _, _ = _fused_setup(device, 8, "zigzag", True, 8, 2, 512,
+                                        "bf16", {}, seed=99)
+    first = fused_ring.fused_ring_fwd(*qkv, cfg, *ring)
+    for _ in range(REPEATS_W8 - 1):
+        again = fused_ring.fused_ring_fwd(*qkv, cfg, *ring)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+    print(f"fused_ring_fwd W=8 slots=2: {REPEATS_W8} launches bitwise equal",
+          flush=True)
+    return worst
+
+
+def ring_op_phase(device):
+    """burst_attn at bench.py's headline shape (B1 N32 S65536 D128 bf16,
+    causal zigzag) over mesh {"sp": 8}: the fused ring against the scan
+    ring over kernel 1 (bf16 tolerance), the launch counters of each
+    route, kernel 8 against its plain version at this shape, and the
+    times of kernel 8, the scan route, the plain version and SDPA on the
+    natural-order sequence (a yardstick).  Returns kernel 8's record for
+    the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash, fused_ring, masks
+    from burst_attn_tpu_torch.parallel import burst, layouts, mesh
+
+    b, n, s, w, d = RING_B, RING_N, RING_S, RING_W, 128
+    g = torch.Generator(device=device).manual_seed(7)
+    nat = [torch.randn(b, n, s, d, generator=g, device=device).to(
+        torch.bfloat16) for _ in range(3)]
+    q, k, v = (layouts.to_layout(t, "zigzag", w, 2) for t in nat)
+    kw = dict(mesh={"sp": w}, causal=True, layout="zigzag")
+
+    burst.STATS.clear()
+    flash.flash_fwd.launches = fused_ring.fused_ring_fwd.launches = 0
+    with torch.no_grad():
+        fused = burst.burst_attn(q, k, v, backend="fused_ring", **kw)
+    torch.cuda.synchronize()
+    fused_launches = (fused_ring.fused_ring_fwd.launches,
+                      flash.flash_fwd.launches)
+    with torch.no_grad():
+        scan = burst.burst_attn(q, k, v, backend="auto", **kw)
+    torch.cuda.synchronize()
+    scan_launches = flash.flash_fwd.launches
+    assert fused_launches == (1, 0), fused_launches
+    # zigzag skips no round: every position runs all W rounds
+    assert scan_launches == w * w, scan_launches
+    assert not any(key.startswith("burst.fused_fallback")
+                   for key in burst.STATS), dict(burst.STATS)
+    scan_err = _check_o("burst_attn fused vs scan", fused, scan,
+                        torch.bfloat16)
+    assert torch.isfinite(fused).all()
+
+    cfg = burst.BurstConfig(backend="fused_ring", **{
+        k_: v_ for k_, v_ in kw.items() if k_ != "mesh"})
+    qs, ks, vs = (mesh.shard(t, w) for t in (q, k, v))
+    del scan
+    o, lse = fused_ring.fused_ring_fwd(qs, ks, vs, cfg, 1, w)
+    assert torch.equal(o, mesh.shard(fused, w))
+    prog = fused_ring._compile_for(cfg, "uni", 1, w, s=s // w)
+    tables = [fused_ring.build_sched_table(cfg, prog, s // w, s // w, p)
+              for p in range(w)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    po, plse = fused_ring.fused_ring_reference(qs, ks, vs, prog,
+                                               [t[0] for t in tables],
+                                               d ** -0.5)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _check_o("fused_ring_fwd at the headline shape", o, po,
+                   torch.bfloat16)
+    assert _max_err(lse, plse) <= STATS_ATOL["bf16"]
+    del po, plse
+    torch.cuda.empty_cache()
+
+    ms = time_ms(lambda: fused_ring.fused_ring_fwd(qs, ks, vs, cfg, 1, w),
+                 iters=3, warmup=1)
+    with torch.no_grad():
+        scan_ms = time_ms(lambda: burst.burst_attn(q, k, v, backend="auto",
+                                                   **kw), iters=3, warmup=1)
+        fused_op_ms = time_ms(lambda: burst.burst_attn(
+            q, k, v, backend="fused_ring", **kw), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *nat, is_causal=True), iters=5, warmup=2)
+    # what the ring must do: the causal pairs this layout's rounds attend
+    # (4 * D flops each: q.k and p.v), and the bytes of q, k, v read once,
+    # o (bf16) and lse (fp32) written once, and every slot copy of the
+    # program (the copy-in and each send: a K and a V chunk, read and
+    # written)
+    pairs = sum(masks.spec_pair_count(sp, s // w, s // w)
+                for _, specs in tables for sp in specs)
+    chunk = 2 * b * n * (s // w) * d * 2  # K and V of one position, bf16
+    copies = w * (sum(prog.rows["send0"]) + sum(prog.rows["send1"])
+                  + len(prog.copy_in))
+    n_bytes = 2 * (4 * b * n * s * d) + 4 * b * n * s + 2 * copies * chunk
+    bms, by = bound_ms(n_bytes, 4 * d * b * n * pairs)
+    print(f"burst_attn at B{b} N{n} S{s} D{d} bf16 causal zigzag, mesh "
+          f"{{'sp': {w}}}: fused ring {fused_op_ms:.2f} ms (kernel 8 "
+          f"{ms:.2f} ms, 1 launch), scan ring over kernel 1 {scan_ms:.2f} ms "
+          f"({scan_launches} launches), fused vs scan max_abs_err "
+          f"{scan_err:.3e}; plain version {plain_ms:.0f} ms (kernel vs plain "
+          f"{err:.3e}); SDPA on the natural-order sequence {lib_ms:.2f} ms; "
+          f"bound {bms:.3f} ms ({by}); {pairs * b * n / 1e9:.3f} G causal "
+          f"pairs", flush=True)
+    return dict(name="fused_ring_fwd", route="cuda",
+                source="burst_attn_tpu_torch/csrc/fused_ring_fwd.cu",
+                replaces="burst_attn_tpu/ops/fused_ring.py:401",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, op_ms=fused_op_ms,
+                scan_ms=scan_ms, scan_launches=scan_launches,
+                fused_vs_scan_err=scan_err)
+
+
+def _handoff_cfg(dtype, backend):
+    from burst_attn_tpu_torch.models.transformer import ModelConfig
+
+    return ModelConfig(**SERVE_DIMS, dtype=dtype, batch_axis=None,
+                       head_axis=None, layout="zigzag", attn_backend=backend,
+                       seq_axes=("sp",))
+
+
+def _handoff_state(cfg, prompt_len, device):
+    from burst_attn_tpu_torch.models.paged_decode import init_paged_state
+
+    width = -(-(prompt_len + HANDOFF_STEPS) // PAGE)
+    n_pages = -(-(width + 1) // HANDOFF_SP) * HANDOFF_SP  # + the sink
+    return init_paged_state(cfg, slots=2, n_pages=n_pages, page=PAGE,
+                            max_pages_per_seq=width, device=device)
+
+
+def _kernel_counters():
+    from burst_attn_tpu_torch.ops import flash, fused_ring, paged_attention
+
+    return (flash.flash_fwd, fused_ring.fused_ring_fwd,
+            paged_attention.paged_decode_attention)
+
+
+def _stream_check(what, cfg, params, prompt, toks, device, bf16):
+    """Greedy tokens teacher-forced through a dense single-device
+    forward: fp32 through the plain `forward`, token-exact; bf16 (whose
+    plain forward would materialize S x S scores) through forward_with_aux
+    (kernel 1 over the whole sequence, no ring), every disagreement a
+    near tie.  The bf16 stream's agreement rate is reported but not held
+    to MIN_AGREE_BF16: at the ~3.5% near-tie flip rate measured over 575
+    tokens, 32 tokens show 2 flips about one run in three, so the rate
+    says nothing here; a fault shows as an O(1) gap.  The >=
+    MIN_AGREE_BF16 rule holds the ring prefill at every prompt position
+    against this same dense forward (_prefill_check), and the fused
+    stream against the scan route (_forced_agreement).  Returns the dense
+    forward's fp32 logits at the prompt positions [len(prompt), vocab]."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models.transformer import (
+        forward, forward_with_aux,
+    )
+
+    full = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])
+    tok = torch.from_numpy(full.astype(np.int64)).to(device)[None]
+    pos = torch.arange(tok.shape[1], device=device)[None]
+    with torch.no_grad():
+        full = (forward_with_aux(params, tok, pos, cfg)[0] if bf16
+                else forward(params, tok, pos, cfg))[0]
+    lg = full[len(prompt) - 1:]
+    got = torch.as_tensor(toks, device=device)
+    pred = lg.argmax(-1)
+    miss = (pred != got).nonzero()[:, 0].tolist()
+    gaps = [(i, float(lg[i, pred[i]] - lg[i, got[i]])) for i in miss]
+    check_agreement(what, (len(toks) - len(miss), len(toks), gaps), bf16,
+                    min_agree=0.0)
+    return full[:len(prompt)]
+
+
+def _prefill_check(what, cfg, params, prompt, dense, mesh):
+    """The ring prefill's next-token argmax at EVERY prompt position
+    (serving.handoff's ring forward, all positions' logits) against the
+    dense forward's `dense` [len(prompt), vocab]: >= MIN_AGREE_BF16 and
+    every disagreement a near tie.  Over HANDOFF_PROMPT positions the
+    rate means something, where a 32-token stream's does not."""
+    import torch
+
+    from burst_attn_tpu_torch.models.transformer import _logits, _rms_norm
+    from burst_attn_tpu_torch.parallel import layouts
+    from burst_attn_tpu_torch.serving import handoff
+
+    with torch.no_grad():
+        x, perm = handoff._ring_forward(params, prompt, cfg, mesh)
+        # layout position inv_perm[i] holds natural token i
+        nat = torch.from_numpy(layouts.inverse_permutation(perm)).to(
+            x.device)
+        x = x[0, nat]
+        got = torch.cat([
+            _logits(_rms_norm(x[i:i + 4096], params["final_norm"]),
+                    params["lm_head"]).argmax(-1)
+            for i in range(0, x.shape[0], 4096)])
+    pred = dense.argmax(-1)
+    miss = (pred != got).nonzero()[:, 0]
+    gaps = (dense[miss, pred[miss]] - dense[miss, got[miss]]).tolist()
+    check_agreement(what, (len(got) - len(miss), len(got),
+                           list(zip(miss.tolist(), gaps))), True)
+
+
+def _forced_agreement(cfg, params, prompt, toks, mesh, device):
+    """Teacher-force `cfg`'s route on a token stream: its ring prefill
+    then one dist_paged_decode_step per token of `toks`; (agreeing
+    tokens, total, [(index, logit gap)] per disagreement) of its argmax
+    against the stream."""
+    import torch
+
+    from burst_attn_tpu_torch.models import paged_decode as pd
+    from burst_attn_tpu_torch.models.dist_decode import (
+        dist_paged_decode_step,
+    )
+    from burst_attn_tpu_torch.serving import ring_prefill_to_pages
+
+    st, pool = _handoff_state(cfg, len(prompt), device)
+    with torch.no_grad():
+        lg, st = ring_prefill_to_pages(params, prompt, st, pool, 0, cfg,
+                                       mesh)
+        pd.provision_capacity(st, pool, 0, len(toks))
+        rows = [lg]
+        feed = torch.zeros(2, dtype=torch.long, device=device)
+        for t in toks[:-1]:
+            feed[0] = t
+            lg, st = dist_paged_decode_step(params, feed, st, cfg, mesh)
+            rows.append(lg[0])
+    gaps = []
+    for i, (row, t) in enumerate(zip(rows, toks)):
+        p = int(row.argmax())
+        if p != t:
+            gaps.append((i, float(row[p] - row[t])))
+    return len(toks) - len(gaps), len(toks), gaps
+
+
+def check_handoff_kernels(device):
+    """The ring kernels at the shapes the handoff prefill gives them
+    (HANDOFF_SP positions, B1, N16/Nk4, S_local = HANDOFF_PROMPT /
+    HANDOFF_SP, bf16, causal zigzag) on seeded tensors: kernel 8 against
+    fused_ring_reference (two launches torch.equal, o within O_TOL, lse
+    within STATS_ATOL); then kernel 1 in each scan-ring round of position
+    1, whose rounds hold all three zigzag specs (the causal self round,
+    the first kv half, the second q half), against tile_fwd on the same
+    carry-in (m, lse within STATS_ATOL, acc within ACC_RTOL), and the
+    last round's finalize within O_TOL.  Returns the largest o errors
+    (kernel 8, kernel 1)."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import flash, fused_ring, masks, tile
+    from burst_attn_tpu_torch.parallel import ring
+
+    w, s, d = HANDOFF_SP, HANDOFF_PROMPT // HANDOFF_SP, 128
+    n, n_kv = SERVE_DIMS["n_heads"], SERVE_DIMS["n_kv_heads"]
+    bf16, scale = torch.bfloat16, d ** -0.5
+    cfg, topo, (q, k, v), prog, tables = _fused_setup(
+        device, w, "zigzag", True, n, n_kv, s, "bf16", {}, seed=21)
+    o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, *topo)
+    o2, lse2 = fused_ring.fused_ring_fwd(q, k, v, cfg, *topo)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), "repeat"
+    del o2, lse2
+    po, plse = fused_ring.fused_ring_reference(q, k, v, prog, tables, scale)
+    what = (f"fused_ring_fwd at the handoff's shape: bf16 W={w} zigzag "
+            f"causal N{n}/{n_kv} S_local={s}")
+    k8_err = _check_o(what, o, po, bf16)
+    lse_err = _max_err(lse, plse)
+    assert lse_err <= STATS_ATOL["bf16"], (what, lse_err)
+    print(f"{what}: max_abs_err={k8_err:.3e} lse {lse_err:.3e}, two "
+          f"launches equal", flush=True)
+    del o, lse, po, plse
+    torch.cuda.empty_cache()
+
+    p = 1
+    coords = ring.ring_coords(p, 1, w)
+    st = tile.init_state(1, n, s, d, device=device)
+    errs = []
+    for r in range(w):
+        part = ring.partition_at_round(r, *coords, 1, w)
+        spec = masks.round_spec(p, part, s, s, True, "zigzag")
+        carry = (None, None, None) if r == 0 else st
+        got = flash.flash_fwd(q[p], k[part], v[part], *carry, scale, spec)
+        st = tile.tile_fwd(q[p], k[part], v[part], *st, scale, spec)
+        for a, b_, name in zip(got[:2], st[:2], ("m", "lse")):
+            e = _max_err(a, b_)
+            assert e <= STATS_ATOL["bf16"], (r, spec, name, e)
+        acc_err = _max_err(got[2], st[2])
+        acc_max = float(st[2].abs().max())
+        assert acc_err <= ACC_RTOL * acc_max, (r, spec, "acc", acc_err)
+        errs.append(f"round {r} kv {part} {tuple(spec)}: acc "
+                    f"{acc_err / acc_max:.1e} of max")
+    k1_err = _check_o("flash_fwd scan round finalize",
+                      tile.finalize(*got, bf16), tile.finalize(*st, bf16),
+                      bf16)
+    print(f"flash_fwd in the scan ring's rounds of position {p} at the "
+          f"handoff's shape (bf16 N{n}/{n_kv} S_local={s}, spec = q_lo, "
+          f"q_hi, kv_hi, causal, offset): {'; '.join(errs)}; finalize "
+          f"max_abs_err={k1_err:.3e}", flush=True)
+    del q, k, v, st, got
+    torch.cuda.empty_cache()
+    return k8_err, k1_err
+
+
+def handoff_phase(device):
+    """serving.handoff at the serving benchmark's width: a
+    HANDOFF_PROMPT-token prompt over sp=4 (zigzag), prefilled through
+    kernel 8 (attn_backend="fused_ring") and, as the control, the scan
+    ring over kernel 1 ("auto"), then HANDOFF_STEPS greedy tokens through
+    dist_paged_decode_step; the same in fp32 at HANDOFF_PROMPT_FP32
+    tokens, token-exact across the routes, with the dense forward and
+    with the single-host paged_decode_step (kernel 6) on the handed-off
+    slot; the pool's page counts around each run and a rejected request.
+    Returns the timings, agreements and the fused run's launches."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models import paged_decode as pd
+    from burst_attn_tpu_torch.models.dist_decode import (
+        dist_paged_decode_step,
+    )
+    from burst_attn_tpu_torch.parallel import burst
+    from burst_attn_tpu_torch.parallel.mesh import Mesh
+    from burst_attn_tpu_torch.serving import (
+        handoff_generate, ring_prefill_to_pages,
+    )
+
+    mesh = Mesh({"sp": HANDOFF_SP}, device=device)
+    rng = np.random.default_rng(13)
+    res = {}
+    for key, dtype, plen in (("bf16", torch.bfloat16, HANDOFF_PROMPT),
+                             ("fp32", torch.float32, HANDOFF_PROMPT_FP32)):
+        prompt = rng.integers(1, SERVE_DIMS["vocab"], plen).astype(np.int32)
+        toks = {}
+        for backend in ("fused_ring", "auto"):
+            cfg, params = model(dtype, device)
+            cfg = _handoff_cfg(dtype, backend)
+            st, pool = _handoff_state(cfg, plen, device)
+            free0 = pool.available
+            counters = _kernel_counters()
+            burst.STATS.clear()
+            for f in counters:
+                f.launches = 0
+            with torch.no_grad():
+                out, st = handoff_generate(params, prompt, st, pool, cfg,
+                                           mesh, steps=HANDOFF_STEPS)
+            torch.cuda.synchronize()
+            launches = {f.__name__: f.launches for f in counters}
+            stats = dict(burst.STATS)
+            n_layers = SERVE_DIMS["n_layers"]
+            want = ({"flash_fwd": 0, "fused_ring_fwd": n_layers} if
+                    backend == "fused_ring" else
+                    {"flash_fwd": n_layers * HANDOFF_SP * HANDOFF_SP,
+                     "fused_ring_fwd": 0})
+            assert {k_: launches[k_] for k_ in want} == want, launches
+            assert launches["paged_decode_attention"] == 0, launches
+            assert not any(k_.startswith("burst.fused_fallback")
+                           for k_ in stats), stats
+            need = -(-(plen + HANDOFF_STEPS) // PAGE)
+            assert pool.available == free0 - need, (pool.available, free0)
+            assert all(0 <= t < cfg.vocab for t in out)
+            toks[backend] = out
+            if key == "bf16":
+                res[f"launches_{backend}"] = launches
+            # a request the pool cannot hold is refused and leaks nothing
+            try:
+                ring_prefill_to_pages(params, np.tile(prompt, 2), st, pool,
+                                      1, cfg, mesh)
+                raise AssertionError("an oversized handoff was admitted")
+            except (RuntimeError, ValueError):
+                pass
+            assert pool.available == free0 - need
+            pd.retire_slot(st, pool, 0)
+            assert pool.available == free0
+            if key == "bf16":
+                # the prefill alone (TTFT less one sampling), then decode
+                def prefill():
+                    pd.retire_slot(st, pool, 0)
+                    with torch.no_grad():
+                        ring_prefill_to_pages(params, prompt, st, pool, 0,
+                                              cfg, mesh)
+                res[f"prefill_ms_{backend}"] = host_ms(prefill)
+                res[f"prof_prefill_{backend}"] = device_breakdown(prefill, 1)
+                pd.provision_capacity(st, pool, 0, HANDOFF_STEPS)
+                feed = torch.zeros(2, dtype=torch.long, device=device)
+                feed[0] = out[0]
+
+                def step():
+                    with torch.no_grad():
+                        dist_paged_decode_step(params, feed, st, cfg, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HANDOFF_STEPS - 5):
+                    step()
+                torch.cuda.synchronize()
+                res[f"decode_ms_{backend}"] = (
+                    (time.perf_counter() - t0) * 1e3 / (HANDOFF_STEPS - 5))
+                res[f"prof_decode_{backend}"] = device_breakdown(step, 4)
+                pd.retire_slot(st, pool, 0)
+            del st, pool
+        for b in toks:
+            params = model(dtype, device)[1]
+            dense = _stream_check(
+                f"handoff {key} {b} ({plen}-token prompt, sp={HANDOFF_SP})",
+                _handoff_cfg(dtype, "auto"), params, prompt, toks[b], device,
+                key == "bf16")
+            if key == "bf16":
+                _prefill_check(f"handoff bf16 {b} prefill at every prompt "
+                               f"position", _handoff_cfg(dtype, b), params,
+                               prompt, dense, mesh)
+            del dense
+        a, c = toks["fused_ring"], toks["auto"]
+        same = sum(x == y for x, y in zip(a, c))
+        if key == "fp32":
+            assert a == c, (a, c)
+        else:
+            # the scan route teacher-forced on the fused route's stream
+            forced = _forced_agreement(_handoff_cfg(dtype, "auto"),
+                                       model(dtype, device)[1], prompt, a,
+                                       mesh, device)
+            check_agreement("handoff bf16 fused stream", forced, True,
+                            against="the scan route")
+            res["bf16_forced_agree"] = forced[0]
+        res[f"{key}_routes_equal"] = same
+        print(f"handoff {key}: fused and scan routes' free-running streams "
+              f"agree on {same}/{HANDOFF_STEPS} tokens", flush=True)
+        if key == "fp32":
+            # the handed-off slot on one host: paged_decode_step (kernel 6)
+            cfg = _handoff_cfg(dtype, "fused_ring")
+            params = model(dtype, device)[1]
+            st, pool = _handoff_state(cfg, plen, device)
+            with torch.no_grad():
+                last, st = ring_prefill_to_pages(params, prompt, st, pool, 0,
+                                                 cfg, mesh)
+            pd.provision_capacity(st, pool, 0, HANDOFF_STEPS)
+            one = [int(last.argmax())]
+            feed = torch.zeros(2, dtype=torch.long, device=device)
+            paged0 = _kernel_counters()[2].launches
+            for _ in range(HANDOFF_STEPS - 1):
+                feed[0] = one[-1]
+                with torch.no_grad():
+                    lg, st = pd.paged_decode_step(params, feed, st, cfg)
+                one.append(int(lg[0].argmax()))
+            assert _kernel_counters()[2].launches - paged0 == \
+                SERVE_DIMS["n_layers"] * (HANDOFF_STEPS - 1)
+            assert one == toks["fused_ring"], (one, toks["fused_ring"])
+            print("handoff fp32: the handed-off slot decoded by "
+                  "paged_decode_step (kernel 6) gives the same tokens",
+                  flush=True)
+    print(f"handoff prefill ({HANDOFF_PROMPT} tokens, bf16, sp="
+          f"{HANDOFF_SP}): fused ring {res['prefill_ms_fused_ring']:.1f} ms, "
+          f"scan ring {res['prefill_ms_auto']:.1f} ms; decode step "
+          f"(dist_paged_decode_step): {res['decode_ms_fused_ring']:.2f} / "
+          f"{res['decode_ms_auto']:.2f} ms", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1514,6 +2090,11 @@ def main() -> int:
     bwd_recs, split_ms = time_flash_bwd(device, bwd_worst)
     kernels += bwd_recs
     torch.cuda.empty_cache()
+    fused_err = check_fused_ring(device)
+    ring_rec = ring_op_phase(device)
+    ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], fused_err)
+    kernels.append(ring_rec)
+    torch.cuda.empty_cache()
 
     serve_res = serve_engine_phase(device)
     print(f"ServeEngine prefill {len(serve_res['bf16']['prompts'][1])} "
@@ -1533,6 +2114,14 @@ def main() -> int:
           f"{rag['mixed_tick_ms']:.2f} ms", flush=True)
     print_profile("RaggedServeEngine mixed tick", rag["prof_mixed"])
     print_profile("RaggedServeEngine decode tick", rag["prof_decode"])
+    k8_err, k1_err = check_handoff_kernels(device)
+    ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
+    hand = handoff_phase(device)
+    print_profile("handoff prefill, fused ring",
+                  hand["prof_prefill_fused_ring"])
+    print_profile("handoff prefill, scan ring", hand["prof_prefill_auto"])
+    print_profile("handoff decode step", hand["prof_decode_fused_ring"])
 
     _PARAMS.clear()  # the serving models' weights
     torch.cuda.empty_cache()
@@ -1547,7 +2136,9 @@ def main() -> int:
                 "ragged_paged": rag["bf16"]["launches"],
                 "flash_bwd_fused": tr["launches"]["fused"],
                 "flash_bwd_dq": tr["split_launches"]["dq"],
-                "flash_bwd_dkdv": tr["split_launches"]["dkdv"]}
+                "flash_bwd_dkdv": tr["split_launches"]["dkdv"],
+                "fused_ring_fwd": hand["launches_fused_ring"][
+                    "fused_ring_fwd"]}
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1578,6 +2169,11 @@ def main() -> int:
                                        "bf16_int8_agree", "prefix")}
         | {"run_s": rag["bf16"]["run_s"], "ticks": rag["bf16"]["ticks"],
            "quant_identical": {q: v[0] for q, v in rag["quant"].items()}},
+        "ring": {k: ring_rec[k] for k in ("op_ms", "scan_ms",
+                                          "scan_launches",
+                                          "fused_vs_scan_err")},
+        "handoff": {k: v for k, v in hand.items()
+                    if not k.startswith("prof_")},
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

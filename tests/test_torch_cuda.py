@@ -16,8 +16,9 @@ from burst_attn_tpu_torch.models.transformer import (
     ModelConfig, init_params, param_leaves,
 )
 from burst_attn_tpu_torch.ops import (
-    flash, masks, paged_attention, ragged_paged, tile,
+    flash, fused_ring, masks, paged_attention, ragged_paged, tile,
 )
+from burst_attn_tpu_torch.parallel import burst, layouts
 from burst_attn_tpu_torch.serving import RaggedServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -428,3 +429,102 @@ def test_train_step_on_the_card_matches_the_cpu(dev, n_heads, n_kv):
     for a, b in zip(gg, gc):
         torch.testing.assert_close(
             a, b, atol=1e-4 * float(b.abs().max()) + 1e-12, rtol=0)
+
+
+# -- the fused ring forward (kernel 8) ---------------------------------------
+
+# (positions, layout, causal, heads, kv heads, local S, dtype, knobs)
+FUSED_CASES = [
+    (2, "zigzag", True, 4, 2, 256, torch.float32, {}),
+    (4, "zigzag", True, 4, 2, 256, torch.bfloat16, {}),
+    (4, "striped", True, 4, 4, 256, torch.float32, dict(fused_kv_slots=3)),
+    (4, "contig", True, 4, 1, 512, torch.bfloat16, {}),
+    (3, "zigzag", False, 4, 2, 256, torch.float32,
+     dict(fused_topology="bidi")),
+    (5, "striped", True, 4, 2, 256, torch.bfloat16,
+     dict(fused_topology="bidi", fused_ccw_slots=3)),
+    (4, "zigzag", True, 4, 2, 256, torch.float32, dict(two_axis=(2, 2))),
+    (8, "zigzag", True, 4, 2, 256, torch.bfloat16,
+     dict(fused_seq_factor=(2, 4))),
+    # more q tiles than resident CTAs: the state goes through scratch
+    (8, "zigzag", True, 16, 4, 1024, torch.bfloat16, {}),
+    (4, "striped", False, 32, 8, 1024, torch.float32, {}),
+]
+
+
+def _fused_case(dev, w, layout, causal, n, n_kv, s, dtype, knobs, seed=0):
+    knobs = dict(knobs)
+    n_inter, n_intra = knobs.pop("two_axis", (1, w))
+    axes = ("inter", "intra") if n_inter > 1 else ("sp",)
+    cfg = burst.BurstConfig(causal=causal, layout=layout,
+                            backend="fused_ring", intra_axis=axes[-1],
+                            inter_axis=axes[0] if n_inter > 1 else None,
+                            **knobs)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = _rand(g, dev, dtype, w, 1, n, s, 128)
+    k, v = (_rand(g, dev, dtype, w, 1, n_kv, s, 128) for _ in range(2))
+    assert fused_ring.supported(cfg, q.shape[1:], k.shape[1:], world=n_intra,
+                                n_inter=n_inter, dtype=dtype,
+                                device=dev) is None
+    topo = fused_ring.resolve_topology(cfg, n_intra, n_inter)
+    prog = fused_ring._compile_for(cfg, *topo, s=s)
+    tables = [fused_ring.build_sched_table(cfg, prog, s, s, p)[0]
+              for p in range(w)]
+    return cfg, (n_inter, n_intra), (q, k, v), prog, tables
+
+
+@pytest.mark.parametrize("w,layout,causal,n,n_kv,s,dtype,knobs",
+                         FUSED_CASES)
+def test_fused_ring_kernel_matches_plain(dev, w, layout, causal, n, n_kv, s,
+                                         dtype, knobs):
+    cfg, ring, qkv, prog, tables = _fused_case(dev, w, layout, causal, n,
+                                               n_kv, s, dtype, knobs)
+    before = fused_ring.fused_ring_fwd.launches
+    o, lse = fused_ring.fused_ring_fwd(*qkv, cfg, *ring)
+    o2, lse2 = fused_ring.fused_ring_fwd(*qkv, cfg, *ring)
+    torch.cuda.synchronize()
+    assert fused_ring.fused_ring_fwd.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = fused_ring.fused_ring_reference(*qkv, prog, tables,
+                                               128 ** -0.5)
+    torch.testing.assert_close(o, ro, **TOL[dtype])
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+
+
+def test_fused_ring_kernel_reuses_slots_without_a_race(dev):
+    """W=8 on two slots: every slot is rewritten four times a launch; 20
+    launches must agree bit for bit."""
+    cfg, ring, qkv, _, _ = _fused_case(dev, 8, "zigzag", True, 8, 2, 512,
+                                       torch.bfloat16, {}, seed=3)
+    first = fused_ring.fused_ring_fwd(*qkv, cfg, *ring)
+    for _ in range(19):
+        again = fused_ring.fused_ring_fwd(*qkv, cfg, *ring)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("layout", ["zigzag", "striped", "contig"])
+def test_burst_attn_fused_matches_scan(dev, layout):
+    """burst_attn through kernel 8 against the scan ring over kernel 1
+    (bf16, GQA, sp=4): one fused launch, no fallback; the scan ring
+    launches kernel 1 once per live round of each position."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = _rand(g, dev, torch.bfloat16, 1, 8, 2048, 128)
+    k, v = (_rand(g, dev, torch.bfloat16, 1, 2, 2048, 128) for _ in range(2))
+    q, k, v = (layouts.to_layout(t, layout, 4, 2) for t in (q, k, v))
+    burst.STATS.clear()
+    f0, k0 = flash.flash_fwd.launches, fused_ring.fused_ring_fwd.launches
+    fused = burst.burst_attn(q, k, v, mesh={"sp": 4}, causal=True,
+                             layout=layout, backend="fused_ring")
+    assert (flash.flash_fwd.launches - f0,
+            fused_ring.fused_ring_fwd.launches - k0) == (0, 1)
+    scan = burst.burst_attn(q, k, v, mesh={"sp": 4}, causal=True,
+                            layout=layout, backend="auto")
+    live = 10 if layout == "contig" else 16  # contig skips future rounds
+    assert flash.flash_fwd.launches - f0 == live
+    assert not any(key.startswith("burst.fused_fallback")
+                   for key in burst.STATS)
+    torch.testing.assert_close(fused, scan, **TOL[torch.bfloat16])
+    plain = burst.burst_attn(q.float(), k.float(), v.float(), mesh={"sp": 4},
+                             causal=True, layout=layout, backend="jnp")
+    torch.testing.assert_close(fused.float(), plain, atol=2e-3, rtol=1.6e-2)

@@ -137,6 +137,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         flash.flash_fwd(q, q, q, None, None, None, 1.0, spec, window=4)
     with pytest.raises(NotImplementedError):
-        masks.round_spec(0, 0, 8, 8, True, "zigzag")
+        masks.round_spec(0, 0, 8, 8, True, "contig", window=4)
     with pytest.raises(ValueError):
         flash.flash_fwd(q, q, q, torch.zeros(1, 2, 8), None, None, 1.0, spec)

@@ -16,8 +16,10 @@ from burst_attn_tpu_torch.models.paged_decode import init_paged_state
 from burst_attn_tpu_torch.models.serve import ServeEngine
 from burst_attn_tpu_torch.models.transformer import ModelConfig, init_params
 from burst_attn_tpu_torch.ops import (
-    flash, masks, paged_attention, ragged_paged, tile,
+    flash, fused_ring, masks, paged_attention, ragged_paged, tile,
 )
+from burst_attn_tpu_torch.parallel import burst, schedule
+from burst_attn_tpu_torch.parallel.mesh import Mesh
 from burst_attn_tpu_torch.serving import RaggedServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,6 +33,10 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "burst_attn_tpu"))
+ring = ["parallel.mesh", "parallel.ring", "parallel.schedule",
+        "parallel.burst", "ops.fused_ring", "ops.tuning",
+        "models.dist_decode", "serving.handoff"]
+bad += [m for m in ring if pkg.__name__ + "." + m not in names]
 print(len(names), bad)
 """
 
@@ -59,6 +65,11 @@ def test_entry_points_default_to_the_card():
         ServeEngine(params, cfg, slots=1, n_pages=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RaggedServeEngine(params, cfg, slots=1, n_pages=2)
+    # the ring's mesh (burst_attn and the handoff take it) is on the card
+    # unless asked for the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Mesh({"sp": 2})
+    assert Mesh({"sp": 2}, device="cpu").device == torch.device("cpu")
 
 
 def test_training_entry_points_default_to_the_card(tmp_path):
@@ -123,6 +134,23 @@ def test_cpu_tensors_take_the_plain_versions():
                                        spec)):
         assert torch.equal(a, b)
     assert flash.flash_bwd.launches == bwd_before
+
+    # the fused ring: the plain version walks the same program
+    qs = torch.randn(2, 1, 2, 16, 32, generator=g)
+    cfg = burst.BurstConfig(causal=True, layout="zigzag")
+    before_fused = fused_ring.fused_ring_fwd.launches
+    got = fused_ring.fused_ring_fwd(qs, qs, qs, cfg, 1, 2)
+    prog = schedule.compile_fwd("uni", 2)
+    tables = [fused_ring.build_sched_table(cfg, prog, 16, 16, p)[0]
+              for p in range(2)]
+    want = fused_ring.fused_ring_reference(qs, qs, qs, prog, tables,
+                                           32 ** -0.5)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert fused_ring.fused_ring_fwd.launches == before_fused
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_ring.fused_ring_fwd(qs.to("meta"), qs.to("meta"),
+                                  qs.to("meta"), cfg, 1, 2)
 
     meta = q.to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):

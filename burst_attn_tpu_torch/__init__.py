@@ -11,13 +11,14 @@ This package imports `torch`, never `jax`, and nothing of
 no CUDA device is present unless the caller passes `device="cpu"`.
 
 Ported so far: the serving engines (models/serve.py, serving/engine.py),
-the single-device trainer (models/train.py, models/runner.py), the ring
-attention forward (`burst_attn` over a mesh whose ring positions share
-one device; the scan ring over the flash kernel, or the fused ring
-kernel) and the long-context handoff (serving/handoff.py).
+the trainer on one device or a sequence ring (models/train.py,
+models/runner.py), ring attention forward and backward (`burst_attn`
+over a mesh whose ring positions share one device; the scan ring over
+the flash kernels, or the fused ring kernels) and the long-context
+handoff (serving/handoff.py).
 
 Public API (reference parity):
-    burst_attn              -- global-tensor ring attention (forward)
+    burst_attn              -- global-tensor ring attention (autograd)
     burst_attn_func         -- reference-style alias (zigzag layout)
     burst_attn_func_striped -- reference-style alias (striped layout)
     BurstConfig             -- static configuration

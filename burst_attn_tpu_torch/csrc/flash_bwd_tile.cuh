@@ -1,0 +1,234 @@
+// The flash backward's tiles and tile math, shared by flash_bwd.cu (one
+// backward round: the split dq and dk/dv kernels and the fused kernel) and
+// fused_ring_bwd.cu (every round of the backward ring).  Both run THIS
+// code, so a ring round of the fused ring backward does the same
+// arithmetic as the flash backward on the same tiles.
+//
+// Per (q tile i, kv tile j) step, with P = exp2(S*scale*log2e - lse*log2e):
+//   S = Q K^T, dP = dO V^T, dS = P * (dP - delta),
+//   dV += P^T dO, dK += dS^T Q, dQ += dS K;
+// the scale of dS is applied by the callers, once.
+#pragma once
+
+#include "common.cuh"
+#include "ring_sync.cuh"
+
+namespace bat {
+namespace bwd {
+
+constexpr int BQ = 64;         // q rows per tile
+constexpr int BKV = 64;        // kv rows per tile
+constexpr int NT = 256;        // threads per CTA
+constexpr int LDP = BKV + 4;   // row stride of the P and dS tiles
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // sK, sV, sQ, sdO [64][D+4]; sP, sdS [64][LDP]; lse2, delta [BQ]
+  return sizeof(float) * (4 * 64 * (D + 4) + 2 * 64 * LDP + 2 * BQ);
+}
+
+struct Mask {
+  int q_lo, q_hi, kv_hi, causal, offset, Sq, Skv;
+
+  __device__ __forceinline__ bool row_ok(int row) const {
+    return row >= q_lo && row < q_hi && row < Sq;
+  }
+  __device__ __forceinline__ bool col_ok(int row, int col) const {
+    return col < kv_hi && col < Skv && (!causal || col <= row + offset);
+  }
+};
+
+// The shared-memory tiles of one CTA.
+template <int D>
+struct Tiles {
+  static constexpr int LD = D + 4;  // padded: conflict-free float4 row reads
+  float *k, *v, *q, *dO, *p, *ds, *lse2, *delta;
+
+  __device__ __forceinline__ explicit Tiles(float* base) {
+    k = base;
+    v = k + 64 * LD;
+    q = v + 64 * LD;
+    dO = q + 64 * LD;
+    p = dO + 64 * LD;
+    ds = p + 64 * LDP;
+    lse2 = ds + 64 * LDP;
+    delta = lse2 + BQ;
+  }
+};
+
+// Rows [r0, r0 + BQ) of one head's lse (as base 2) and delta; rows past
+// Sq read lse = -inf (they contribute nothing) and delta = 0.
+__device__ __forceinline__ void load_row_stats(const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               int r0, int Sq, float* sL,
+                                               float* sD) {
+  for (int r = threadIdx.x; r < BQ; r += NT) {
+    const int row = r0 + r;
+    const float l = row < Sq ? lse[row] : neg_inf();
+    sL[r] = (l == neg_inf()) ? neg_inf() : l * kLog2e;
+    sD[r] = row < Sq ? delta[row] : 0.f;
+  }
+}
+
+// S = Q K^T and dP = dO V^T for one (q tile, kv tile) pair, then
+// P = exp2(S * scale_log2 - lse2) under the mask and dS = P * (dP - delta),
+// written to t.p (if WRITE_P) and t.ds [BQ][LDP].  Thread (ty = tid / 16,
+// tx = tid % 16) owns rows ty + 16 r and columns tx + 16 c.
+template <int D, bool WRITE_P>
+__device__ __forceinline__ void scores(const Tiles<D>& t, float scale_log2,
+                                       int i0, int j0, const Mask& mk) {
+  constexpr int LD = Tiles<D>::LD;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 kk[4], vv[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      kk[c] = *reinterpret_cast<const float4*>(t.k + (tx + 16 * c) * LD + d);
+      vv[c] = *reinterpret_cast<const float4*>(t.v + (tx + 16 * c) * LD + d);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 qq =
+          *reinterpret_cast<const float4*>(t.q + (ty + 16 * r) * LD + d);
+      const float4 oo =
+          *reinterpret_cast<const float4*>(t.dO + (ty + 16 * r) * LD + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[r][c] += dot4(qq, kk[c]);
+        dp[r][c] += dot4(oo, vv[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int rl = ty + 16 * r, row = i0 + rl;
+    const float l2 = t.lse2[rl], dl = t.delta[rl];
+    const bool row_ok = mk.row_ok(row) && l2 != neg_inf();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int cl = tx + 16 * c;
+      const float p = (row_ok && mk.col_ok(row, j0 + cl))
+                          ? exp2f(s[r][c] * scale_log2 - l2)
+                          : 0.f;
+      if (WRITE_P) t.p[rl * LDP + cl] = p;
+      t.ds[rl * LDP + cl] = p * (dp[r][c] - dl);
+    }
+  }
+}
+
+// dV += P^T dO and dK += dS^T Q over one q tile.  Thread (w = tid / 32,
+// lane) owns kv rows 8w .. 8w+7 and columns 4 lane .. 4 lane + 3.
+template <int D>
+__device__ __forceinline__ void accum_kv(const Tiles<D>& t, float dk[8][4],
+                                         float dv[8][4]) {
+  constexpr int LD = Tiles<D>::LD;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+#pragma unroll 2
+  for (int i = 0; i < BQ; ++i) {
+    const float4 qq = *reinterpret_cast<const float4*>(t.q + i * LD + 4 * lane);
+    const float4 oo =
+        *reinterpret_cast<const float4*>(t.dO + i * LD + 4 * lane);
+    float p[8], ds[8];
+    *reinterpret_cast<float4*>(p) =
+        *reinterpret_cast<const float4*>(t.p + i * LDP + 8 * w);
+    *reinterpret_cast<float4*>(p + 4) =
+        *reinterpret_cast<const float4*>(t.p + i * LDP + 8 * w + 4);
+    *reinterpret_cast<float4*>(ds) =
+        *reinterpret_cast<const float4*>(t.ds + i * LDP + 8 * w);
+    *reinterpret_cast<float4*>(ds + 4) =
+        *reinterpret_cast<const float4*>(t.ds + i * LDP + 8 * w + 4);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      dv[r][0] += p[r] * oo.x; dv[r][1] += p[r] * oo.y;
+      dv[r][2] += p[r] * oo.z; dv[r][3] += p[r] * oo.w;
+      dk[r][0] += ds[r] * qq.x; dk[r][1] += ds[r] * qq.y;
+      dk[r][2] += ds[r] * qq.z; dk[r][3] += ds[r] * qq.w;
+    }
+  }
+}
+
+// dQ += dS K over one kv tile.  Thread (w, lane) owns q rows 8w .. 8w+7
+// and columns 4 lane .. 4 lane + 3.
+template <int D>
+__device__ __forceinline__ void accum_q(const Tiles<D>& t, float dq[8][4]) {
+  constexpr int LD = Tiles<D>::LD;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+#pragma unroll 2
+  for (int j = 0; j < BKV; j += 4) {
+    float4 kk[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      kk[u] = *reinterpret_cast<const float4*>(t.k + (j + u) * LD + 4 * lane);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float4 ds =
+          *reinterpret_cast<const float4*>(t.ds + (8 * w + r) * LDP + j);
+      dq[r][0] += ds.x * kk[0].x + ds.y * kk[1].x + ds.z * kk[2].x +
+                  ds.w * kk[3].x;
+      dq[r][1] += ds.x * kk[0].y + ds.y * kk[1].y + ds.z * kk[2].y +
+                  ds.w * kk[3].y;
+      dq[r][2] += ds.x * kk[0].z + ds.y * kk[1].z + ds.z * kk[2].z +
+                  ds.w * kk[3].z;
+      dq[r][3] += ds.x * kk[0].w + ds.y * kk[1].w + ds.z * kk[2].w +
+                  ds.w * kk[3].w;
+    }
+  }
+}
+
+// Write an 8x4-per-thread fp32 block (rows r0 + 8w + r < S of a row-major
+// [S, D] matrix), times `mul`.
+template <int D>
+__device__ __forceinline__ void store_block(float* __restrict__ dst, int r0,
+                                            int S, const float acc[8][4],
+                                            float mul) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = r0 + 8 * w + r;
+    if (row < S)
+      *reinterpret_cast<float4*>(dst + (size_t)row * D + 4 * lane) =
+          make_float4(acc[r][0] * mul, acc[r][1] * mul, acc[r][2] * mul,
+                      acc[r][3] * mul);
+  }
+}
+
+
+// Fold this CTA's dq partial (times scale) into q tile i0 of one head's dq
+// [S, D] as kv tile j of the tile's contributors, which fold in increasing
+// j: wait until `*counter` reaches j, add (or, seeding, write) through L2,
+// fence, count.  The wait traps after ring_sync's timeout.
+template <int D>
+__device__ __forceinline__ void fold_dq(float* __restrict__ dq, int* counter,
+                                        int j, int i0, int S,
+                                        const float part[8][4], float scale,
+                                        bool seed) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    wait_ge(counter, j);
+    __threadfence();
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = i0 + 8 * w + r;
+    if (row < S) {
+      float4* p = reinterpret_cast<float4*>(dq + (size_t)row * D + 4 * lane);
+      float4 a = seed ? make_float4(0.f, 0.f, 0.f, 0.f) : __ldcg(p);
+      a.x += part[r][0] * scale; a.y += part[r][1] * scale;
+      a.z += part[r][2] * scale; a.w += part[r][3] * scale;
+      __stcg(p, a);
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(counter, 1);
+}
+
+}  // namespace bwd
+}  // namespace bat

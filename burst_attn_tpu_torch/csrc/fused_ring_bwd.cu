@@ -1,0 +1,582 @@
+// Fused ring backward: the whole R-round ring attention backward of W ring
+// positions in ONE launch, driven by a compiled backward ring program.
+//
+// Replaces: burst_attn_tpu/ops/fused_ring_bwd.py `_fused_bwd_kernel`
+// (l.168, called by `fused_ring_bwd`), the Pallas TPU kernel that walks a
+// (round, batch, head, q-block) grid on one core with K/V resident in
+// VMEM, rotates the q-side bundle between chips with remote DMAs into slot
+// banks, and streams each dq block onward one hop behind its bundle.
+//
+// Contract: per position p, the local k, v [B,Nk,S,D] (resident; GQA: q
+// head h reads kv head h / (N/Nk)) and the local bundle (first, dO, q,
+// lse): first is delta = sum(o*dO, -1) [B,N,S] fp32, or o [B,N,S,D] itself
+// (OPT = 0: delta recomputed per tile from the rotated o and dO), dO and q
+// [B,N,S,D], lse [B,N,S] fp32 (the forward's final lse, natural log);
+// stacked [W,...].  A per-position op table sched [W][R+1][NCOL] int32
+// (rows 0..R-1: the five mask scalars with q/kv roles swapped, the
+// program's op columns of burst_attn_tpu_torch/parallel/schedule.py and
+// the need counts of ops/fused_ring.py; row R: neighbour positions), a
+// table of each position's bundle banks, dq banks, home outputs and flag
+// words, and zeroed fold counters [W][R][B*N*nqt].  Outputs fp32 dk, dv
+// [W,B,Nk,S,D] and, written by the positions that finish each partial,
+// one fp32 dq per home bank [W,B,N,S,D] (bidi: two, summed by the caller).
+//
+// Per round and per (kv tile, q tile) pair the mask leaves live, with
+// P = exp2(S*scale*log2e - lse*log2e) from the FINAL lse (no online
+// softmax): dV += P^T dO, dS = P*(dP - delta), dK += dS^T Q, dQ += dS K;
+// the scale of dS is applied once to dK and per partial to dQ.
+//
+// Design (Hopper, one card holding every position):
+//  * Cooperative persistent grid, G CTAs per position, all co-resident.
+//    An item is (b, kv head, 64-row kv tile); its CTA loops over the GQA
+//    group's q heads, so dk and dv never race.  RESIDENT (no more items
+//    than CTAs): CTA j owns item j and keeps its dk, dv in registers
+//    across all R rounds.  Otherwise the CTAs take a round's items in
+//    increasing order from a per-(position, round) counter, so a CTA that
+//    drew light items (a causal round's kv tiles differ in work by up to
+//    the number of q tiles) takes more of them; dk, dv then go to the fp32
+//    outputs between rounds, read back through L2 since another SM may
+//    hold the item next round.  The tile math is the flash backward's
+//    (flash_bwd_tile.cuh).
+//  * Each round has three phases.  S: every CTA copies its 1/G share of
+//    each bundle send (four operands, src slot -> the neighbour's dst
+//    slot) and counts it on the receiver's per-(bank, slot) arrival
+//    counter, after the source's arrivals and the dst slot's credit.  A:
+//    after the bundle (and, DQ_RECV, the arriving dq partial) has landed,
+//    the items' compute; each (kv tile, q tile) dq partial is added into
+//    the round's dq slot in increasing kv-tile order behind a per-(round,
+//    q tile) fold counter (the kv tiles that see a q tile are always a
+//    prefix, so tile j waits for the count j): deterministic, two launches
+//    are bitwise equal.  A seeding round (no arrival) writes where it
+//    would add.  The last CTA of the position to finish A grants the
+//    bundle credits.  B: once every CTA of the position finished A, each
+//    copies its share of the dq slot's q tiles (plus, DQI_RECV, the held
+//    inter partial) to the send's target: the next position's dq slot
+//    (RING), a dqi slot one inter step on (BOUNDARY) or the owner's home
+//    output (HOME, FINAL), and counts the arrival; the last CTA to finish
+//    B grants the dq credits.
+//  * No deadlock: every wait at round r depends only on events of earlier
+//    rounds or earlier phases of round r, except the fold waits, which
+//    depend on smaller items of the same phase; items are taken in
+//    increasing order and every CTA is resident, so the least unfinished
+//    (round, phase, item) can always proceed.
+//  * The counters are per round (done of A, done of B, folds) or count
+//    versions cumulatively (arrivals, credits), so no wait can mistake one
+//    round's progress for another's.  Sync primitives: ring_sync.cuh.
+//
+// What bounds it on an H100: tensor FLOPs (10 * D per attended pair:
+// S, dP, dV, dK, dQ), e.g. ~88 TFLOP at B1 N32 S65536 D128 causal against
+// ~10 GB of bundle, dq and dk/dv traffic.  This first version computes in
+// fp32 on the CUDA cores like the flash backward (no tensor cores, no
+// TMA), so it is about as far from that bound as flash_bwd_fused is.
+
+#include "flash_bwd_tile.cuh"
+#include "ring_sync.cuh"
+
+namespace {
+
+using namespace bat;
+using namespace bat::bwd;
+
+// op-table columns (parallel/schedule.py) and the kernel's own need
+// columns (ops/fused_ring.py, BWD_KERNEL_COLS); tests/test_torch_ring_bwd.py
+// holds these numbers to those two modules
+constexpr int kConsumeBank = 5, kConsumeSlot = 6, kSrcBank0 = 9;
+constexpr int kDqBank = 19, kDqRecv = 20, kDqSlot = 21, kDqSend = 22;
+constexpr int kDqDstSlot = 23, kDqiRecv = 28, kDqiSlot = 29;
+constexpr int kDqiDstSlot = 30;
+constexpr int kArriveNeed = 31, kDqArriveNeed = 36, kDqiArriveNeed = 37;
+constexpr int kDqTakeNeed = 38;
+constexpr int kMetaCh1Dst = 3, kMetaHome0 = 5, kMetaHome1 = 6;
+constexpr int kDqRing = 1, kDqHome = 2, kDqBoundary = 3, kDqFinal = 4;
+// per send channel ch (0 or 1) and per dq bank b (0 or 1)
+__device__ __forceinline__ int col_send(int ch) { return ch ? 14 : 8; }
+__device__ __forceinline__ int col_src_slot(int ch) { return ch ? 15 : 10; }
+__device__ __forceinline__ int col_dst_slot(int ch) { return ch ? 16 : 11; }
+__device__ __forceinline__ int col_grant(int ch) { return ch ? 17 : 12; }
+__device__ __forceinline__ int col_take(int ch) { return ch ? 18 : 13; }
+__device__ __forceinline__ int col_src_need(int ch) { return ch ? 33 : 32; }
+__device__ __forceinline__ int col_take_need(int ch) { return ch ? 35 : 34; }
+__device__ __forceinline__ int meta_dst(int ch) { return ch ? 3 : 1; }
+__device__ __forceinline__ int col_dq_grant(int b) { return b ? 26 : 24; }
+__device__ __forceinline__ int col_dq_take(int b) { return b ? 27 : 25; }
+
+// the address table of one position (ops/fused_ring_bwd.py _N_PTRS): the
+// four bundle operands of bank b at 4b + op, the dq banks, the homes, the
+// flags
+constexpr int kNPtr = 13, kDqPtr = 8, kHomePtr = 10, kFlagsPtr = 12;
+
+struct Params {
+  const void* first;      // [W,B,N,S] fp32 (OPT) or [W,B,N,S,D] T
+  const void* dO;         // [W,B,N,S,D]
+  const void* q;
+  const float* lse;       // [W,B,N,S]
+  const void* k;          // [W,B,Nk,S,D]
+  const void* v;
+  const long long* ptrs;  // [W][kNPtr]
+  const int* sched;       // [W][R+1][NCOL]
+  int* folds;             // [W][R][B*N*nqt], zeroed
+  float* dk;              // [W,B,Nk,S,D]
+  float* dv;
+  int W, B, N, Nk, S, R, NB, MS, MDQ, G, ncol;
+  int copy_in[2];         // bank * 16 + slot + 1, or 0
+  int resident, opt;
+  float scale;
+};
+
+// one position's counters: bundle arrive, free [NB][MS]; dq arrive, free
+// [2][MDQ]; done of phase A [R], done of phase B [R], items taken [R]
+struct Flags {
+  int* base;
+  int NB, MS, MDQ, R;
+  __device__ int* arrive(int bank, int slot) const {
+    return base + bank * MS + slot;
+  }
+  __device__ int* free_(int bank, int slot) const {
+    return base + NB * MS + bank * MS + slot;
+  }
+  __device__ int* dq_arrive(int bank, int slot) const {
+    return base + 2 * NB * MS + bank * MDQ + slot;
+  }
+  __device__ int* dq_free(int bank, int slot) const {
+    return base + 2 * NB * MS + 2 * MDQ + bank * MDQ + slot;
+  }
+  __device__ int* done_a(int round) const {
+    return base + 2 * NB * MS + 4 * MDQ + round;
+  }
+  __device__ int* done_b(int round) const {
+    return base + 2 * NB * MS + 4 * MDQ + R + round;
+  }
+  __device__ int* taken(int round) const {
+    return base + 2 * NB * MS + 4 * MDQ + 2 * R + round;
+  }
+};
+
+// 4 consecutive elements through L2 -> fp32
+__device__ __forceinline__ void load4_cg(const float* p, float* o) {
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+}
+__device__ __forceinline__ void load4_cg(const __nv_bfloat16* p, float* o) {
+  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+// load_rows (common.cuh) through L2: rows [r0, r0 + ROWS) of a row-major
+// [S, D] slot into shared memory as fp32, row stride ld; rows past S zero
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows_l2(const T* src, int r0, int S,
+                                             float* dst, int ld) {
+  constexpr int kChunks = D / 4;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += NT) {
+    const int r = c / kChunks, col = (c % kChunks) * 4;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < S) load4_cg(src + (size_t)(r0 + r) * D + col, v);
+    *reinterpret_cast<float4*>(dst + r * ld + col) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The q tile's row statistics through L2: lse (as base 2; -inf past S) and
+// delta, read from the bundle (OPT) or computed from its o rows and the dO
+// tile already in shared memory.  Ends with __syncthreads.
+template <typename T, int D>
+__device__ __forceinline__ void load_stats(const Tiles<D>& t,
+                                           const float* lse,
+                                           const void* first, int i0, int S,
+                                           bool opt) {
+  for (int r = threadIdx.x; r < BQ; r += NT) {
+    const int row = i0 + r;
+    const float l = row < S ? __ldcg(lse + row) : neg_inf();
+    t.lse2[r] = (l == neg_inf()) ? neg_inf() : l * kLog2e;
+    if (opt)
+      t.delta[r] = row < S ? __ldcg(static_cast<const float*>(first) + row)
+                           : 0.f;
+  }
+  if (!opt) {
+    // warp w sums rows w, w + 8, ...: lane owns columns 4 lane .. +3
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    const T* o = static_cast<const T*>(first);
+    for (int r = w; r < BQ; r += NT / 32) {
+      const int row = i0 + r;
+      float acc = 0.f;
+      if (row < S) {
+        float ov[4];
+        load4_cg(o + (size_t)row * D + 4 * lane, ov);
+        const float4 g = *reinterpret_cast<const float4*>(
+            t.dO + r * Tiles<D>::LD + 4 * lane);
+        acc = ov[0] * g.x + ov[1] * g.y + ov[2] * g.z + ov[3] * g.w;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) t.delta[r] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+// An 8x4-per-thread fp32 block of rows r0 + 8w + r < S, as store_block
+// writes it, through L2.
+template <int D>
+__device__ __forceinline__ void load_block(const float* src, int r0, int S,
+                                           float acc[8][4]) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = r0 + 8 * w + r;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < S)
+      a = __ldcg(reinterpret_cast<const float4*>(src + (size_t)row * D +
+                                                 4 * lane));
+    acc[r][0] = a.x; acc[r][1] = a.y; acc[r][2] = a.z; acc[r][3] = a.w;
+  }
+}
+
+// The next item of the round for this CTA: its own one when RESIDENT,
+// else the next untaken one of the position (thread 0 takes it, the CTA
+// reads it after a barrier); n_items when none is left.
+__device__ __forceinline__ int next_item(int* taken, int* slot, int j,
+                                         bool first, bool resident,
+                                         int n_items) {
+  if (resident) return first ? j : n_items;
+  __syncthreads();  // every thread has read the previous item
+  if (threadIdx.x == 0) *slot = atomicAdd(taken, 1);
+  __syncthreads();
+  return min(*slot, n_items);
+}
+
+// How many kv tiles attend q tile [i0, i0 + BQ) under the mask: they are
+// the prefix 0 .. count-1 (the kv-tile loop's q range below is exactly
+// the tiles each kv tile sees).
+__device__ __forceinline__ int kv_tiles_seen(const Mask& mk, int i0) {
+  const int r_lo = max(i0, mk.q_lo);
+  const int r_hi = min(min(i0 + BQ, mk.q_hi), mk.Sq);
+  if (r_lo >= r_hi) return 0;
+  int c_end = min(mk.kv_hi, mk.Skv);
+  if (mk.causal) c_end = min(c_end, r_hi + mk.offset);
+  return c_end > 0 ? (c_end + BKV - 1) / BKV : 0;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
+  static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
+  constexpr int LD = Tiles<D>::LD;
+  extern __shared__ float4 smem4[];
+  __shared__ int item_slot;
+  const Tiles<D> t(reinterpret_cast<float*>(smem4));
+
+  const int pos = blockIdx.x / p.G, j = blockIdx.x % p.G;
+  const int S = p.S, N = p.N, Nk = p.Nk, group = N / Nk;
+  const int nqt = (S + BQ - 1) / BQ, nkt = (S + BKV - 1) / BKV;
+  const int n_items = p.B * Nk * nkt, n_units = p.B * N * nqt;
+  const int* tab = p.sched + (size_t)pos * (p.R + 1) * p.ncol;
+  const int* meta = tab + (size_t)p.R * p.ncol;
+  const size_t rows = (size_t)p.B * N * S;  // q-side rows of one position
+  // bytes of one slot of each bundle operand: first, dO, q, lse
+  const size_t op_bytes[4] = {p.opt ? rows * 4 : rows * D * sizeof(T),
+                              rows * D * sizeof(T), rows * D * sizeof(T),
+                              rows * 4};
+  const char* local[4] = {
+      static_cast<const char*>(p.first) + pos * op_bytes[0],
+      static_cast<const char*>(p.dO) + pos * op_bytes[1],
+      static_cast<const char*>(p.q) + pos * op_bytes[2],
+      reinterpret_cast<const char*>(p.lse) + pos * op_bytes[3]};
+  auto ptr = [&](int who, int i) { return p.ptrs[(size_t)who * kNPtr + i]; };
+  auto flags = [&](int who) {
+    return Flags{reinterpret_cast<int*>(ptr(who, kFlagsPtr)), p.NB, p.MS,
+                 p.MDQ, p.R};
+  };
+  auto op_slot = [&](int who, int bank, int op, int slot) {
+    return reinterpret_cast<char*>(ptr(who, 4 * bank + op)) +
+           (size_t)slot * op_bytes[op];
+  };
+  auto dq_slot = [&](int who, int bank, int slot) {
+    return reinterpret_cast<float*>(ptr(who, kDqPtr + bank)) +
+           (size_t)slot * rows * D;
+  };
+  const Flags fl = flags(pos);
+
+  // the local bundle into its program-designated slot(s): version 0
+  for (int c = 0; c < 2; ++c) {
+    if (p.copy_in[c] == 0) continue;
+    const int cb = (p.copy_in[c] - 1) / 16, cs = (p.copy_in[c] - 1) % 16;
+    for (int op = 0; op < 4; ++op)
+      copy_share<NT>(local[op], op_slot(pos, cb, op, cs), op_bytes[op], j,
+                     p.G);
+    publish(fl.arrive(cb, cs));
+  }
+
+  const size_t kv_base = (size_t)pos * p.B * Nk * S * D;
+  const T* kp = static_cast<const T*>(p.k) + kv_base;
+  const T* vp = static_cast<const T*>(p.v) + kv_base;
+  const float scale_log2 = p.scale * kLog2e;
+  float dka[8][4], dva[8][4];
+
+  for (int r = 0; r < p.R; ++r) {
+    const int* row = tab + (size_t)r * p.ncol;
+    const int cb = row[kConsumeBank], cs = row[kConsumeSlot];
+    const int dqb = row[kDqBank], dqs = row[kDqSlot];
+    const bool recv = row[kDqRecv] != 0;
+
+    // ---- S: this CTA's share of each bundle send ----
+    for (int ch = 0; ch < 2; ++ch) {
+      if (!row[col_send(ch)]) continue;
+      const int sb = ch == 0 ? row[kSrcBank0] : 1;
+      const int ss = row[col_src_slot(ch)], ds = row[col_dst_slot(ch)];
+      const int dst = meta[meta_dst(ch)];
+      const Flags dfl = flags(dst);
+      if (threadIdx.x == 0) {
+        wait_ge(fl.arrive(sb, ss), row[col_src_need(ch)] * p.G);
+        // the dst slot is being reused: its readers must have granted it
+        if (row[col_take(ch)])
+          wait_ge(dfl.free_(ch, ds), row[col_take_need(ch)]);
+        __threadfence();
+      }
+      __syncthreads();
+      for (int op = 0; op < 4; ++op)
+        copy_share<NT>(op_slot(pos, sb, op, ss), op_slot(dst, ch, op, ds),
+                       op_bytes[op], j, p.G);
+      publish(dfl.arrive(ch, ds));
+    }
+
+    // ---- A: the round's bundle (and arriving dq partial) must have
+    // landed; a seeding round waits for the previous round's sends, which
+    // may still read the slot it overwrites ----
+    if (threadIdx.x == 0) {
+      wait_ge(fl.arrive(cb, cs), row[kArriveNeed] * p.G);
+      if (recv)
+        wait_ge(fl.dq_arrive(dqb, dqs), row[kDqArriveNeed] * p.G);
+      else if (r > 0)
+        wait_ge(fl.done_b(r - 1), p.G);
+      __threadfence();
+    }
+    __syncthreads();
+
+    const char* first_c = op_slot(pos, cb, 0, cs);
+    const T* do_c = reinterpret_cast<const T*>(op_slot(pos, cb, 1, cs));
+    const T* q_c = reinterpret_cast<const T*>(op_slot(pos, cb, 2, cs));
+    const float* lse_c = reinterpret_cast<const float*>(
+        op_slot(pos, cb, 3, cs));
+    float* dq_c = dq_slot(pos, dqb, dqs);
+    int* folds = p.folds + ((size_t)pos * p.R + r) * n_units;
+    const Mask mk{row[0], row[1], row[2], row[3], row[4], S, S};
+    const bool last = r == p.R - 1;
+
+    const bool resident = p.resident != 0;
+    for (int it = next_item(fl.taken(r), &item_slot, j, true, resident,
+                            n_items);
+         it < n_items; it = next_item(fl.taken(r), &item_slot, j, false,
+                                      resident, n_items)) {
+      const int jt = it % nkt, hk = (it / nkt) % Nk, b = it / (nkt * Nk);
+      const int j0 = jt * BKV;
+      const size_t bhk = (size_t)b * Nk + hk;
+      __syncthreads();  // the previous item's readers of sK, sV are done
+      load_rows<T, D, BKV, NT>(kp + bhk * S * D, j0, S, t.k, LD, 1.f);
+      load_rows<T, D, BKV, NT>(vp + bhk * S * D, j0, S, t.v, LD, 1.f);
+      float* dk_out = p.dk + kv_base + bhk * S * D;
+      float* dv_out = p.dv + kv_base + bhk * S * D;
+      if (!resident && r > 0) {
+        load_block<D>(dk_out, j0, S, dka);
+        load_block<D>(dv_out, j0, S, dva);
+      } else if (r == 0 || !resident) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+      }
+
+      // q rows that can see some column of this tile: [i_lo, i_hi)
+      int i_lo = max(mk.q_lo, 0), i_hi = min(mk.q_hi, S);
+      if (mk.causal) i_lo = max(i_lo, j0 - mk.offset);
+      if (j0 >= min(mk.kv_hi, S)) i_hi = i_lo;
+      const int t_lo = i_lo / BQ;
+      const int t_hi = (i_hi > i_lo) ? (i_hi + BQ - 1) / BQ : t_lo;
+
+      for (int g = 0; g < group; ++g) {
+        const size_t bh = (size_t)b * N + hk * group + g;
+        for (int qt = t_hi - 1; qt >= t_lo; --qt) {
+          const int i0 = qt * BQ;
+          __syncthreads();  // the previous step's readers of sQ .. sdS
+          load_rows_l2<T, D, BQ>(q_c + bh * S * D, i0, S, t.q, LD);
+          load_rows_l2<T, D, BQ>(do_c + bh * S * D, i0, S, t.dO, LD);
+          __syncthreads();
+          const char* f = first_c + (p.opt ? bh * S * 4
+                                           : bh * S * D * sizeof(T));
+          load_stats<T, D>(t, lse_c + bh * S, f, i0, S, p.opt != 0);
+          scores<D, true>(t, scale_log2, i0, j0, mk);
+          __syncthreads();
+          accum_kv<D>(t, dka, dva);
+          float part[8][4];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+          accum_q<D>(t, part);
+          fold_dq<D>(dq_c + bh * S * D, folds + bh * nqt + qt, jt, i0, S,
+                     part, p.scale, !recv && jt == 0);
+        }
+      }
+      if (!resident || last) {
+        store_block<D>(dk_out, j0, S, dka, last ? p.scale : 1.f);
+        store_block<D>(dv_out, j0, S, dva, 1.f);
+      }
+    }
+
+    // ---- A done: the position's last CTA grants the bundle slots ----
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(fl.done_a(r), 1) == p.G - 1) {
+        __threadfence();
+        for (int bk = 0; bk < p.NB && bk < 2; ++bk)
+          if (row[col_grant(bk)] > 0)
+            atomicAdd(fl.free_(bk, row[col_grant(bk)] - 1), 1);
+      }
+    }
+
+    // ---- B: once every CTA of the position finished A (its dq folds,
+    // and the dk, dv an item's next CTA reads), this CTA's share of the
+    // dq send ----
+    if (threadIdx.x == 0) {
+      wait_ge(fl.done_a(r), p.G);
+      __threadfence();
+    }
+    __syncthreads();
+    const int kind = row[kDqSend];
+    const bool home = kind == kDqHome || kind == kDqFinal;
+    if (kind == kDqRing || kind == kDqBoundary || home) {
+      const bool dqi = row[kDqiRecv] != 0;
+      const int sbank = kind == kDqBoundary ? 1 : (kind == kDqFinal ? 0 : dqb);
+      const int dslot = kind == kDqBoundary ? row[kDqiDstSlot]
+                                            : row[kDqDstSlot];
+      const int dst = kind == kDqBoundary ? meta[kMetaCh1Dst]
+                      : home ? meta[sbank ? kMetaHome1 : kMetaHome0]
+                             : meta[meta_dst(sbank)];
+      const Flags dfl = flags(dst);
+      float* out = home ? reinterpret_cast<float*>(ptr(dst, kHomePtr + sbank))
+                        : dq_slot(dst, sbank, dslot);
+      const float* held = dqi ? dq_slot(pos, 1, row[kDqiSlot]) : nullptr;
+      if (threadIdx.x == 0) {
+        if (!home && row[col_dq_take(sbank)])
+          wait_ge(dfl.dq_free(sbank, dslot), row[kDqTakeNeed]);
+        if (dqi)
+          wait_ge(fl.dq_arrive(1, row[kDqiSlot]), row[kDqiArriveNeed] * p.G);
+        __threadfence();
+      }
+      __syncthreads();
+      constexpr int kVec = D / 4;  // float4 per row
+      for (int u = j; u < n_units; u += p.G) {
+        const int qt = u % nqt, i0 = qt * BQ;
+        const size_t base = ((size_t)(u / nqt) * S + i0) * D;
+        // a q tile no kv tile saw this round holds only its arrival, or
+        // nothing on a seeding round
+        const bool zero = !recv && kv_tiles_seen(mk, i0) == 0;
+        const int n_rows = min(BQ, S - i0);
+        for (int e = threadIdx.x; e < n_rows * kVec; e += NT) {
+          const size_t at = base / 4 + e;
+          float4 a = zero ? make_float4(0.f, 0.f, 0.f, 0.f)
+                          : __ldcg(reinterpret_cast<const float4*>(dq_c) + at);
+          if (dqi) {
+            const float4 h =
+                __ldcg(reinterpret_cast<const float4*>(held) + at);
+            a.x += h.x; a.y += h.y; a.z += h.z; a.w += h.w;
+          }
+          __stcg(reinterpret_cast<float4*>(out) + at, a);
+        }
+      }
+      if (home)
+        __syncthreads();
+      else
+        publish(dfl.dq_arrive(sbank, dslot));
+    }
+
+    // ---- B done: the position's last CTA grants the dq slots ----
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(fl.done_b(r), 1) == p.G - 1) {
+        __threadfence();
+        for (int bk = 0; bk < 2; ++bk)
+          if (row[col_dq_grant(bk)] > 0)
+            atomicAdd(fl.dq_free(bk, row[col_dq_grant(bk)] - 1), 1);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t setup(int* max_blocks) {
+  static bool smem_set = false;
+  auto kernel = fused_ring_bwd_kernel<T, D>;
+  const size_t smem = smem_bytes<D>();
+  cudaError_t e = allow_smem(kernel, smem, &smem_set);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  *max_blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  int max_blocks = 0;
+  cudaError_t e = setup<T, D>(&max_blocks);
+  if (e != cudaSuccess) return e;
+  if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
+  Params args = p;
+  void* argv[] = {&args};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(fused_ring_bwd_kernel<T, D>), dim3(p.W * p.G),
+      dim3(NT), argv, smem_bytes<D>(), stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// How many CTAs the card keeps resident at once for this kernel.
+extern "C" int fused_ring_bwd_capacity(int D, int dtype, int* max_blocks) {
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  if (dtype == kBFloat16)
+    return (int)setup<__nv_bfloat16, 128>(max_blocks);
+  if (dtype == kFloat32) return (int)setup<float, 128>(max_blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int fused_ring_bwd_launch(
+    const void* first, const void* dO, const void* q, const void* lse,
+    const void* k, const void* v, const void* ptrs, const void* sched,
+    void* folds, void* dk, void* dv, int W, int B, int N, int Nk, int S,
+    int D, int R, int NB, int MS, int MDQ, int G, int ncol, int copy_in0,
+    int copy_in1, int dtype, int resident, int opt, float scale,
+    void* stream) {
+  if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || MDQ < 1)
+    return (int)cudaErrorInvalidValue;
+  Params p{first,
+           dO,
+           q,
+           static_cast<const float*>(lse),
+           k,
+           v,
+           static_cast<const long long*>(ptrs),
+           static_cast<const int*>(sched),
+           static_cast<int*>(folds),
+           static_cast<float*>(dk),
+           static_cast<float*>(dv),
+           W, B, N, Nk, S, R, NB, MS, MDQ, G, ncol,
+           {copy_in0, copy_in1},
+           resident, opt,
+           scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) return (int)launch<__nv_bfloat16, 128>(p, st);
+  if (dtype == kFloat32) return (int)launch<float, 128>(p, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -59,6 +59,7 @@
 // far from that bound as kernel 1 is.
 
 #include "flash_tile.cuh"
+#include "ring_sync.cuh"
 
 namespace {
 
@@ -81,8 +82,6 @@ __device__ __forceinline__ int col_take(int ch) { return ch ? 18 : 13; }
 __device__ __forceinline__ int col_src_need(int ch) { return ch ? 21 : 20; }
 __device__ __forceinline__ int col_take_need(int ch) { return ch ? 23 : 22; }
 __device__ __forceinline__ int meta_dst(int ch) { return ch ? 3 : 1; }
-constexpr unsigned long long kTimeoutNs = 60ull * 1000 * 1000 * 1000;
-
 struct Params {
   const void* q;          // [W,B,N,S,D]
   const void* k_in;       // [W,B,Nk,S,D]
@@ -98,50 +97,6 @@ struct Params {
   int copy_in[2];         // bank * 16 + slot + 1, or 0
   float scale_log2;
 };
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// thread 0 only: spin until *p >= need (acquire), trapping on timeout
-__device__ void wait_ge(const int* p, int need) {
-  if (ld_acquire(p) >= need) return;
-  const unsigned long long t0 = global_ns();
-  for (unsigned n = 1;; ++n) {
-    __nanosleep(128);
-    if (ld_acquire(p) >= need) return;
-    if ((n & 1023u) == 0 && global_ns() - t0 > kTimeoutNs) __trap();
-  }
-}
-
-// after every thread's stores: make them visible, then count them
-__device__ __forceinline__ void publish(int* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1);
-  }
-}
-
-// share j of G of a byte copy (16-byte units, through L2)
-__device__ __forceinline__ void copy_share(const void* src, void* dst,
-                                           size_t bytes, int j, int G) {
-  const size_t n16 = bytes / 16;
-  const size_t lo = n16 * j / G, hi = n16 * (j + 1) / G;
-  const uint4* s = static_cast<const uint4*>(src);
-  uint4* d = static_cast<uint4*>(dst);
-  for (size_t i = lo + threadIdx.x; i < hi; i += NT)
-    __stcg(d + i, __ldcg(s + i));
-}
 
 struct Flags {  // one position's counters: arrive, free [NB][MS], done [R]
   int* base;
@@ -190,8 +145,8 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   for (int c = 0; c < 2; ++c) {
     if (p.copy_in[c] == 0) continue;
     const int cb = (p.copy_in[c] - 1) / 16, cs = (p.copy_in[c] - 1) % 16;
-    copy_share(k_in, kslot(pos, cb, cs), bytes, j, p.G);
-    copy_share(v_in, vslot(pos, cb, cs), bytes, j, p.G);
+    copy_share<NT>(k_in, kslot(pos, cb, cs), bytes, j, p.G);
+    copy_share<NT>(v_in, vslot(pos, cb, cs), bytes, j, p.G);
     publish(fl.arrive(cb, cs));
   }
 
@@ -222,8 +177,8 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
         __threadfence();
       }
       __syncthreads();
-      copy_share(kslot(pos, sb, ss), kslot(dst, ch, ds), bytes, j, p.G);
-      copy_share(vslot(pos, sb, ss), vslot(dst, ch, ds), bytes, j, p.G);
+      copy_share<NT>(kslot(pos, sb, ss), kslot(dst, ch, ds), bytes, j, p.G);
+      copy_share<NT>(vslot(pos, sb, ss), vslot(dst, ch, ds), bytes, j, p.G);
       publish(dfl.arrive(ch, ds));
     }
 

@@ -1,5 +1,6 @@
-"""End-to-end training runner + CLI on one device (port of
-burst_attn_tpu/models/runner.py).
+"""End-to-end training runner + CLI (port of
+burst_attn_tpu/models/runner.py), on one device or a sequence ring whose
+positions share it.
 
 Ties together the native data loader (data/loader.py), the train step
 (models/train.py), checkpoints (utils/checkpoint.py), step timing
@@ -11,10 +12,11 @@ CLI (the card by default; `--device cpu` runs the plain versions):
     python -m burst_attn_tpu_torch.models.runner --data tokens.batd \\
         --steps 100 --d-model 2048 --n-layers 16 --n-heads 16 --seq-len 8192
 
-Only `--mesh sp=1` is ported (one device); the ring, dp and tp, MoE
-experts, pipeline microbatches, packed documents and multi-host start
-come with later slices.  The JAX runner's `--probe-tri-bwd` is a TPU
-compile probe and has no counterpart here.
+`--mesh sp=4` trains on a ring of 4 positions (`--mesh inter=2,intra=2`
+on the double ring); dp and tp, MoE experts, pipeline microbatches,
+packed documents and multi-host start come with later slices.  The JAX
+runner's `--probe-tri-bwd` is a TPU compile probe and has no counterpart
+here.
 """
 
 import argparse
@@ -137,26 +139,29 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
 
 
 def _parse_mesh(spec: str) -> dict:
-    """"sp=1" -> {"sp": 1} (order preserved)."""
+    """"sp=4" -> {"sp": 4}; "dp=1,sp=2" -> {"dp": 1, "sp": 2} (order
+    preserved)."""
     out = {}
     for part in spec.split(","):
         name, _, size = part.partition("=")
         if not size:
-            raise ValueError(f"bad mesh spec {spec!r}; want e.g. sp=1")
+            raise ValueError(f"bad mesh spec {spec!r}; want e.g. sp=4")
         out[name.strip()] = int(size)
     return out
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="Train the LM on a token file, on one device.")
+        description="Train the LM on a token file, on one device or a "
+                    "sequence ring.")
     p.add_argument("--data", required=True,
                    help="BATD token file (data.write_token_file)")
     p.add_argument("--steps", type=int, required=True)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--seq-len", type=int, default=4096)
     p.add_argument("--mesh", default="sp=1",
-                   help="axis sizes; only sp=1 (one device) is ported")
+                   help="axis sizes, e.g. sp=4 or inter=2,intra=2 (the "
+                        "sequence ring; dp and tp are not ported)")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--ckpt-dir", default=None)
@@ -180,8 +185,17 @@ def main(argv=None):
     p.add_argument("--no-remat", action="store_true")
     args = p.parse_args(argv)
 
-    mesh = make_mesh(_parse_mesh(args.mesh))  # raises unless all sizes 1
+    mesh_axes = _parse_mesh(args.mesh)
+    # a double-ring mesh (inter, intra) maps straight onto seq_axes; any
+    # other mesh uses a (possibly trivial) "sp" ring
+    if "inter" in mesh_axes and "intra" in mesh_axes:
+        seq_axes = ("inter", "intra")
+    else:
+        seq_axes = ("sp",)
+        mesh_axes.setdefault("sp", 1)
+    mesh = make_mesh(mesh_axes)  # raises on dp or tp > 1
     cfg = ModelConfig(
+        seq_axes=seq_axes,
         batch_axis=None, head_axis=None, vocab=args.vocab,
         d_model=args.d_model, n_layers=args.n_layers, n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads or args.n_heads,

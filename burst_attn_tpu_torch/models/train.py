@@ -1,5 +1,5 @@
-"""Training step for the LM on one device (port of
-burst_attn_tpu/models/train.py, the single-device path).
+"""Training step for the LM (port of burst_attn_tpu/models/train.py): on
+one device, or on a sequence ring whose positions share the device.
 
 `make_train_step` returns step((params, optimizer), batch) -> (state,
 metrics): the next-token cross entropy through `forward_with_aux` (flash
@@ -11,10 +11,14 @@ state is the same objects).
 
 Loss convention: `tokens` and `labels` arrive in layout order with
 `labels` already shifted (the loader's targets); `positions` carries the
-true positions for rotary.  On one device every layout is the identity.
+true positions for rotary.  On one position every layout is the
+identity; on a ring of W positions (`mesh={"sp": W}`, or {"inter": a,
+"intra": b} with cfg.seq_axes = ("inter", "intra")) the batch is permuted
+into cfg.layout's order at that world and attention runs the ring
+forward and backward (parallel/burst.py).
 
-Not ported yet: the mesh (dp, sp ring, tp), packed documents
-(`packed_fields*`, `make_packed_batch`, `packed_eos_id`), ring telemetry
+Not ported yet: dp and tp axes, packed documents (`packed_fields*`,
+`make_packed_batch`, `packed_eos_id`), ring telemetry
 (`collect_devstats`), MoE and the pipeline path.  The TPU-only
 tri-backward compile probe (`probe_model_tri_bwd`) has no counterpart:
 a CUDA kernel either builds or the run stops.
@@ -31,6 +35,7 @@ from ..device import resolve_device
 from ..parallel import layouts
 from .transformer import (
     ModelConfig, check_mesh, forward_with_aux, init_params, param_leaves,
+    ring_world,
 )
 
 
@@ -47,20 +52,20 @@ class TrainConfig:
 
 
 def make_mesh(axis_sizes: dict, devices=None) -> dict:
-    """The axis sizes of a run, as {"sp": 1}-style names to sizes.  One
-    device is ported: every axis must have size 1 (the dp/tp axes and the
-    sequence ring come with later slices)."""
+    """The axis sizes of a run, as {"sp": 4}-style names to sizes (order
+    kept).  The sequence axes ("sp", or "inter" and "intra" for the
+    double ring) take any size, their positions sharing one device; the
+    other axes must have size 1 (dp and tp come with later slices)."""
     del devices
     sizes = {str(k): int(v) for k, v in dict(axis_sizes).items()}
-    check_mesh(sizes)
+    check_mesh(sizes, tuple(a for a in ("sp", "inter", "intra")
+                            if a in sizes))
     return sizes
 
 
 def _world(cfg: ModelConfig, mesh) -> int:
-    """Ring size over cfg.seq_axes: 1 (the only size ported)."""
-    del cfg
-    check_mesh(mesh)
-    return 1
+    """Ring size over cfg.seq_axes of `mesh`."""
+    return ring_world(cfg, mesh)
 
 
 def _optimizer(params, tcfg: TrainConfig) -> torch.optim.AdamW:
@@ -196,8 +201,8 @@ def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
     """A host batch (data.DataLoader's inputs/targets [B, S] int32 numpy,
     natural order) as the layout-ordered batch dict `make_train_step`
     consumes, on `device` (default: the card).  Labels were shifted by the
-    loader; here they only get the layout permutation (the identity on one
-    device)."""
+    loader; here they only get the layout permutation at the mesh's ring
+    world (the identity on one position)."""
     if packed_eos_id is not None:
         raise NotImplementedError("packed-document training is not ported "
                                   "yet")

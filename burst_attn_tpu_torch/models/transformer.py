@@ -1,11 +1,12 @@
 """Decoder-only transformer LM (port of burst_attn_tpu/models/transformer.py,
-the single-device dense parts).
+the dense parts).
 
 Two forwards: `forward_with_aux` is the training forward (attention
-through the differentiable flash kernels, `torch.utils.checkpoint` per
-block when `cfg.remat` is set); `forward` is the dense plain reference
-(attention through the plain tile) that the serving checks teacher-force
-against.
+through the differentiable flash kernels on one device, or through the
+differentiable ring `burst_attn` when the mesh's sequence axes hold more
+than one position; `torch.utils.checkpoint` per block when `cfg.remat` is
+set); `forward` is the dense plain reference (attention through the plain
+tile) that the serving checks teacher-force against.
 
 Parameters are a plain dictionary with the JAX pytree's names and shapes:
 {"embed" [V, d], "layers": [{"attn_norm", "wq" [d, N, H], "wk"/"wv"
@@ -29,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.flash import flash_attention
 from ..ops.tile import single_device_attention
+from ..parallel.burst import burst_attn
 
 
 @dataclass(frozen=True)
@@ -44,8 +46,9 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     # attention / parallelism (both packages take the same
     # configurations): layout, attn_backend and seq_axes drive the ring
-    # prefill of serving/handoff.py; training still runs on one device
-    # (check_mesh) until the ring backward is ported
+    # prefill of serving/handoff.py and the training forward's ring
+    # (burst_attn) when the mesh's sequence axes hold more than one
+    # position; dp, tp, ep and pp stay at size 1 (check_mesh)
     causal: bool = True
     attn_strategy: str = "burst"
     layout: str = "zigzag"
@@ -208,48 +211,79 @@ def _logits(x, lm_head):
     return x.float() @ lm_head.float().t()
 
 
-def _block(x, p, positions, cfg: ModelConfig):
-    """One decoder block of the training forward: attention through the
-    flash kernels (autograd `flash_attention`), then the SwiGLU MLP."""
+def _block(x, p, positions, cfg: ModelConfig, mesh=None):
+    """One decoder block of the training forward: attention, then the
+    SwiGLU MLP.  Attention runs the flash kernels (autograd
+    `flash_attention`) on one device, or the ring (autograd `burst_attn`
+    over cfg.seq_axes, its layout and backend) when the mesh's sequence
+    axes hold more than one position, as the JAX model's `_attention`
+    does."""
     q, k, v = _qkv_proj(p, x, positions, cfg)
-    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=cfg.causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if ring_world(cfg, mesh) > 1:
+        o = burst_attn(q, k, v, mesh=dict(mesh), seq_axes=cfg.seq_axes,
+                       causal=cfg.causal, layout=cfg.layout,
+                       backend=cfg.attn_backend)
+    else:
+        o = flash_attention(q, k, v, causal=cfg.causal)
     x = x + _attn_out(p, o)
     return x + _mlp(p, x)
 
 
-def check_mesh(mesh) -> None:
-    """Raise unless `mesh` (axis name -> size, or None) is one device:
-    the sequence ring, dp and tp come with later slices."""
-    if mesh is not None and any(int(n) != 1 for n in dict(mesh).values()):
+def check_mesh(mesh, seq_axes=("sp",)) -> None:
+    """Raise unless `mesh` (axis name -> size, or None) is a sequence
+    ring: its sequence axes (`seq_axes`, cfg.seq_axes) take any size, and
+    every other axis (dp, tp, ep, pp) must have size 1: data and tensor
+    parallelism, experts and the pipeline are ROADMAP A2 (the multi-card
+    ring A1)."""
+    if mesh is None:
+        return
+    other = {a: int(n) for a, n in dict(mesh).items()
+             if a not in tuple(seq_axes) and int(n) != 1}
+    if other:
         raise NotImplementedError(
-            f"mesh {dict(mesh)}: only one device (every axis of size 1) is "
-            "ported; the sequence ring, dp and tp come with later slices")
+            f"mesh axes {other} besides the sequence axes {tuple(seq_axes)}:"
+            " only the sequence ring is ported (data and tensor parallelism,"
+            " experts and the pipeline are ROADMAP A2)")
+
+
+def ring_world(cfg: ModelConfig, mesh) -> int:
+    """Ring positions over cfg.seq_axes of `mesh` (1 without a mesh),
+    after check_mesh."""
+    check_mesh(mesh, cfg.seq_axes)
+    if mesh is None:
+        return 1
+    n = 1
+    for a in cfg.seq_axes:
+        n *= int(dict(mesh).get(a, 1))
+    return n
 
 
 def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
                      mesh=None, segment_ids=None, collect_stats=False):
-    """Training forward on one device: tokens, positions [B, S] int (layout
-    order; with one device every layout is the natural order) -> (fp32
-    logits [B, S, vocab], MoE aux loss = 0).  Attention runs the flash
-    kernels and is differentiable; with `cfg.remat` each block goes
-    through torch.utils.checkpoint (non-reentrant), the counterpart of
-    jax.checkpoint: its activations are recomputed in the backward.
-    `mesh` names axis sizes, all 1 on one device; packed documents
-    (`segment_ids`) and ring telemetry (`collect_stats`) come with later
-    slices."""
+    """Training forward: tokens, positions [B, S] int (layout order over
+    the mesh's ring; with one position every layout is the natural order)
+    -> (fp32 logits [B, S, vocab], MoE aux loss = 0).  Attention is
+    differentiable: the flash kernels on one position, burst_attn on a
+    ring; with `cfg.remat` each block goes through torch.utils.checkpoint
+    (non-reentrant), the counterpart of jax.checkpoint: its activations
+    are recomputed in the backward.  `mesh` names axis sizes ({"sp": W}
+    or {"inter": a, "intra": b} with cfg.seq_axes to match; the ring
+    positions share the tokens' device); packed documents (`segment_ids`)
+    and ring telemetry (`collect_stats`) come with later slices."""
     if segment_ids is not None:
         raise NotImplementedError("packed-document training (segment_ids) "
                                   "is not ported yet")
     if collect_stats:
         raise NotImplementedError("ring telemetry is not ported yet")
-    check_mesh(mesh)
+    ring_world(cfg, mesh)
     x = params["embed"][tokens].to(cfg.dtype)
     for p in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_block, x, p, positions, cfg, use_reentrant=False)
+            x = checkpoint(_block, x, p, positions, cfg, mesh,
+                           use_reentrant=False)
         else:
-            x = _block(x, p, positions, cfg)
+            x = _block(x, p, positions, cfg, mesh)
     logits = _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -62,6 +62,14 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # scale, stream
         "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [F] + [P],
     },
+    "fused_ring_bwd": {
+        # D dtype, &max_blocks
+        "fused_ring_bwd_capacity": [I, I, ctypes.POINTER(I)],
+        # first dO q lse k v ptrs sched folds dk dv,
+        # W B N Nk S D R NB MS MDQ G ncol copy_in0 copy_in1 dtype resident
+        # opt, scale, stream
+        "fused_ring_bwd_launch": [P] * 11 + [I] * 17 + [F] + [P],
+    },
     "ragged_paged": {
         # q k_pages v_pages k_scales v_scales table q_lens kv_lens ctx_lo
         # out acc m l, S Nkv G QT D page width dtype kv_dtype, scale, stream

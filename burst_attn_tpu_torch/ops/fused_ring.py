@@ -1,12 +1,16 @@
 """Fused ring forward (port of burst_attn_tpu/ops/fused_ring.py): the
-whole R-round forward ring of W ring positions in ONE kernel launch.
+whole R-round forward ring of W ring positions in ONE kernel launch, and
+the program tables both fused ring kernels read.
 
-The kernel holds no schedule logic of its own: it interprets a compiled
-`RingProgram` (parallel/schedule.py), delivered per position as an int32
-op table whose rows say which (bank, slot) compute consumes, whether its
-arrival must be awaited, which channels send (src bank/slot -> the
-neighbour's dst slot), and the per-slot capacity credits.  One kernel
-body runs every topology the compiler emits (uni, bidi, double).
+The kernels hold no schedule logic of their own: they interpret a
+compiled `RingProgram` (parallel/schedule.py), delivered per position as
+an int32 op table whose rows say which (bank, slot) compute consumes,
+whether its arrival must be awaited, which channels send (src bank/slot
+-> the neighbour's dst slot), and the per-slot capacity credits.  One
+kernel body runs every topology the compiler emits (uni, bidi, double).
+`ring_plan(..., pass_="bwd")` builds the backward program's tables (the
+q-side bundle rotates, the mask scalars swap roles, and the dq streams
+add their own need columns) for ops/fused_ring_bwd.py.
 
 `fused_ring_fwd` takes the positions' shards stacked, q [W,B,N,S,D] and
 k, v [W,B,Nk,S,D] in layout order, and returns (o [W,B,N,S,D] in q's
@@ -17,7 +21,7 @@ a CPU tensor runs `fused_ring_reference`, the plain version, which walks
 the same program on the host and checks its deliveries and credits.
 
 Not ported yet: wire_dtype, packed segments, window and collect_stats
-(they raise in parallel/burst.py), the backward kernel.
+(they raise in parallel/burst.py).
 """
 
 import ctypes
@@ -31,8 +35,10 @@ from . import _build
 from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
 from .masks import MaskSpec, live_round_prefix, round_spec
 from .tile import finalize, init_state, tile_fwd
-from .tuning import FUSED_BLOCK_KV, FUSED_BLOCK_Q, fused_smem_bytes, \
-    resolve_fused
+from .tuning import (
+    FUSED_BLOCK_KV, FUSED_BLOCK_KV_BWD, FUSED_BLOCK_Q, FUSED_BLOCK_Q_BWD,
+    fused_bwd_smem_bytes, fused_smem_bytes, resolve_fused,
+)
 from ..parallel import schedule as sched_ir
 from ..parallel.ring import ring_coords, ring_roles
 
@@ -44,6 +50,18 @@ ARRIVE_NEED = sched_ir.FWD_COLS
 SRC_NEED = (ARRIVE_NEED + 1, ARRIVE_NEED + 2)
 TAKE_NEED = (ARRIVE_NEED + 3, ARRIVE_NEED + 4)
 KERNEL_COLS = ARRIVE_NEED + 5
+# the backward kernel's columns after the program's BWD_COLS: the same
+# five for the bundle, then the dq streams' needs: the versions the dq
+# slot consumed this round (DQ_RECV) and the held inter slot (DQI_RECV)
+# must have received, and how many grants the dst slot of this round's dq
+# send must have had when the send takes a credit
+BWD_ARRIVE_NEED = sched_ir.BWD_COLS
+BWD_SRC_NEED = (BWD_ARRIVE_NEED + 1, BWD_ARRIVE_NEED + 2)
+BWD_TAKE_NEED = (BWD_ARRIVE_NEED + 3, BWD_ARRIVE_NEED + 4)
+DQ_ARRIVE_NEED = BWD_ARRIVE_NEED + 5
+DQI_ARRIVE_NEED = BWD_ARRIVE_NEED + 6
+DQ_TAKE_NEED = BWD_ARRIVE_NEED + 7
+BWD_KERNEL_COLS = BWD_ARRIVE_NEED + 8
 
 _SEND = (sched_ir.SEND0, sched_ir.SEND1)
 _SRC_SLOT = (sched_ir.SRC_SLOT0, sched_ir.SRC_SLOT1)
@@ -120,13 +138,15 @@ def supported(cfg, q_shape, k_shape, has_segments: bool = False, *,
               dtype=None, device=None) -> Optional[str]:
     """None if the fused ring can run this config, else the reason (the
     JAX package's reason prefixes; the TPU's VMEM plan is this card's
-    shared-memory plan).  Shapes are PER POSITION; `world` is the ring
-    axis size (the intra size of a double ring), `n_inter` the inter axis
-    size.  With `device` cuda the kernel's own limits apply (bf16 / fp32,
-    head dim 128); the plain version on the CPU takes any."""
-    if pass_ != "fwd":
-        raise NotImplementedError("the fused ring backward is not ported "
-                                  "yet")
+    shared-memory plan).  `pass_` ("fwd" | "bwd") selects which kernel's
+    gate: the backward compiles its own program (a truncated one needs
+    r_live >= 2) and has its own tiles.  Shapes are PER POSITION; `world`
+    is the ring axis size (the intra size of a double ring), `n_inter`
+    the inter axis size.  With `device` cuda the kernel's own limits
+    apply (bf16 / fp32, head dim 128); the plain version on the CPU takes
+    any."""
+    if pass_ not in ("fwd", "bwd"):
+        raise ValueError(f"pass_ must be 'fwd' or 'bwd', got {pass_!r}")
     if has_segments:
         raise NotImplementedError("packed segments are not ported yet")
     b, n, s, d = q_shape
@@ -148,11 +168,17 @@ def supported(cfg, q_shape, k_shape, has_segments: bool = False, *,
             return f"head dim {d}: the kernel takes {KERNEL_HEAD_DIMS}"
         if dtype not in KERNEL_DTYPES:
             return f"dtype {dtype}: the kernel takes {list(KERNEL_DTYPES)}"
-    if (rf.block_q, rf.block_kv) != (FUSED_BLOCK_Q, FUSED_BLOCK_KV):
-        return (f"shared-memory plan: the kernel's tiles are "
-                f"{FUSED_BLOCK_Q} x {FUSED_BLOCK_KV} rows, got "
-                f"{rf.block_q} x {rf.block_kv}")
-    smem = fused_smem_bytes(rf.block_q, rf.block_kv, d)
+    if pass_ == "fwd":
+        tiles = (rf.block_q, rf.block_kv)
+        fixed = (FUSED_BLOCK_Q, FUSED_BLOCK_KV)
+        smem = fused_smem_bytes(*tiles, d)
+    else:
+        tiles = (rf.block_q_bwd, rf.block_kv_bwd)
+        fixed = (FUSED_BLOCK_Q_BWD, FUSED_BLOCK_KV_BWD)
+        smem = fused_bwd_smem_bytes(*tiles, d)
+    if tiles != fixed:
+        return (f"shared-memory plan: the {pass_} kernel's tiles are "
+                f"{fixed[0]} x {fixed[1]} rows, got {tiles[0]} x {tiles[1]}")
     if smem > rf.smem_budget:
         return (f"shared-memory plan {smem} bytes exceeds the fused budget "
                 f"{rf.smem_budget}")
@@ -216,10 +242,15 @@ def build_sched_table(cfg, prog, s_q: int, s_kv: int, position: int, *,
 
 
 def kernel_table(prog, table: np.ndarray) -> np.ndarray:
-    """One position's table with the kernel's need columns appended
-    ([R + 1, KERNEL_COLS]).  A slot's versions: its copy-in, then one per
-    remote write; a write at round t is awaited by reads at rounds > t."""
+    """One position's table with the kernel's need columns appended after
+    the program's own ([R + 1, KERNEL_COLS] forward, [R + 1,
+    BWD_KERNEL_COLS] backward, whose dq columns kernel_table_bwd fills).
+    A slot's versions: its copy-in, then one per remote write; a write at
+    round t is awaited by reads at rounds > t."""
     rows, R = prog.rows, prog.n_rounds
+    base = table.shape[1]
+    arrive_need, src_need, take_need = base, (base + 1, base + 2), \
+        (base + 3, base + 4)
     writes = {}  # (bank, slot) -> rounds of the remote writes into it
     for r in range(R):
         for ch in range(2):
@@ -230,46 +261,100 @@ def kernel_table(prog, table: np.ndarray) -> np.ndarray:
         return (int((bank, slot) in prog.copy_in)
                 + sum(t < r for t in writes.get((bank, slot), ())))
 
-    out = np.zeros((R + 1, KERNEL_COLS), np.int32)
-    out[:, :table.shape[1]] = table
+    ncol = BWD_KERNEL_COLS if prog.kind == "bwd" else KERNEL_COLS
+    out = np.zeros((R + 1, ncol), np.int32)
+    out[:, :base] = table
     takes = {}
     for r in range(R):
-        out[r, ARRIVE_NEED] = versions(rows["consume_bank"][r],
+        out[r, arrive_need] = versions(rows["consume_bank"][r],
                                        rows["consume_slot"][r], r)
         for ch in range(2):
             if not rows[f"send{ch}"][r]:
                 continue
             src_bank = rows["src_bank0"][r] if ch == 0 else 1
-            out[r, SRC_NEED[ch]] = versions(src_bank, rows[f"src_slot{ch}"][r],
+            out[r, src_need[ch]] = versions(src_bank, rows[f"src_slot{ch}"][r],
                                             r)
             if rows[f"take{ch}"][r]:
                 key = (ch, rows[f"dst_slot{ch}"][r])
                 takes[key] = takes.get(key, 0) + 1
-                out[r, TAKE_NEED[ch]] = takes[key]
+                out[r, take_need[ch]] = takes[key]
+    return out
+
+
+def dq_send_target(row):
+    """(kind, bank, dst slot, meta column of the receiver) of the dq send
+    of one backward table row.  The banks of the dq streams: each ring
+    direction owns one (uni: 0; bidi: cw 0, ccw 1), and the double ring's
+    held inter partials (its dqi slots) are bank 1.  RING hops to the
+    bank's direction neighbour, BOUNDARY one inter step into a dqi slot,
+    HOME and FINAL to the owner's home output of the bank (dst slot -1)."""
+    kind, bank = int(row[sched_ir.DQ_SEND]), int(row[sched_ir.DQ_BANK])
+    if kind == sched_ir.DQ_RING:
+        return kind, bank, int(row[sched_ir.DQ_DST_SLOT]), _META_DST[bank]
+    if kind == sched_ir.DQ_BOUNDARY:
+        return (kind, 1, int(row[sched_ir.DQI_DST_SLOT]),
+                sched_ir.META_CH1_DST)
+    if kind in (sched_ir.DQ_HOME, sched_ir.DQ_FINAL):
+        b = 0 if kind == sched_ir.DQ_FINAL else bank
+        return kind, b, -1, (sched_ir.META_HOME0, sched_ir.META_HOME1)[b]
+    return kind, bank, -1, -1
+
+
+def kernel_table_bwd(prog, table: np.ndarray) -> np.ndarray:
+    """One position's backward table ([R + 1, BWD_KERNEL_COLS]) with the
+    kernel's need columns: the bundle's (kernel_table) and the dq
+    streams'.  A dq slot's versions are the remote writes into it (no
+    copy-in); a write at round t is awaited by a consume at a round > t.
+    The take need counts the takes of the send's dst slot so far."""
+    out = kernel_table(prog, table)
+    rows, R = prog.rows, prog.n_rounds
+    writes = {}  # (dq bank, slot) -> rounds of the remote writes into it
+    for r in range(R):
+        kind, bank, slot, _ = dq_send_target(table[r])
+        if slot >= 0:
+            writes.setdefault((bank, slot), []).append(r)
+    takes = {}
+    for r in range(R):
+        if rows["dq_recv"][r]:
+            out[r, DQ_ARRIVE_NEED] = sum(
+                t < r for t in writes.get((rows["dq_bank"][r],
+                                           rows["dq_slot"][r]), ()))
+        if rows["dqi_recv"][r]:
+            out[r, DQI_ARRIVE_NEED] = sum(
+                t < r for t in writes.get((1, rows["dqi_slot"][r]), ()))
+        kind, bank, slot, _ = dq_send_target(table[r])
+        if slot >= 0 and rows[f"dq_take{bank}"][r]:
+            takes[(bank, slot)] = takes.get((bank, slot), 0) + 1
+            out[r, DQ_TAKE_NEED] = takes[(bank, slot)]
     return out
 
 
 @functools.lru_cache(maxsize=64)
-def ring_plan(cfg, n_inter: int, n_intra: int, s: int):
+def ring_plan(cfg, n_inter: int, n_intra: int, s: int, pass_: str = "fwd"):
     """(program, per-position op tables, stacked kernel tables [W, R + 1,
-    KERNEL_COLS]) of the forward ring for cfg on W = n_inter * n_intra
-    positions of s rows each.  They depend on nothing else, so they are
-    built once per (cfg, ring, s) and kept read-only."""
+    KERNEL_COLS | BWD_KERNEL_COLS]) of the forward ring, or with pass_
+    "bwd" of the backward ring (its tables built with swapped roles: the
+    q-side bundle rotates past the resident K/V), for cfg on W = n_inter *
+    n_intra positions of s rows each.  They depend on nothing else, so
+    they are built once per (cfg, ring, s, pass) and kept read-only."""
     topology, t_inter, t_intra = resolve_topology(cfg, n_intra, n_inter)
-    prog = _compile_for(cfg, topology, t_inter, t_intra, "fwd", s=s)
-    tables = tuple(build_sched_table(cfg, prog, s, s, p)[0]
+    prog = _compile_for(cfg, topology, t_inter, t_intra, pass_, s=s)
+    bwd = pass_ == "bwd"
+    tables = tuple(build_sched_table(cfg, prog, s, s, p, swap_roles=bwd)[0]
                    for p in range(n_inter * n_intra))
-    sched = np.stack([kernel_table(prog, t) for t in tables])
+    to_kernel = kernel_table_bwd if bwd else kernel_table
+    sched = np.stack([to_kernel(prog, t) for t in tables])
     for t in tables + (sched,):
         t.flags.writeable = False
     return prog, tables, sched
 
 
 @functools.lru_cache(maxsize=64)
-def _sched_on(cfg, n_inter: int, n_intra: int, s: int, device):
+def _sched_on(cfg, n_inter: int, n_intra: int, s: int, device,
+              pass_: str = "fwd"):
     """ring_plan's kernel tables on `device`, copied there once."""
-    return torch.from_numpy(ring_plan(cfg, n_inter, n_intra, s)[2].copy()
-                            ).to(device)
+    return torch.from_numpy(
+        ring_plan(cfg, n_inter, n_intra, s, pass_)[2].copy()).to(device)
 
 
 def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int):
@@ -287,16 +372,16 @@ def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int):
                          f"match q {tuple(q.shape)}")
     if n % k.shape[2]:
         raise ValueError(f"GQA needs Nq % Nk == 0, got {n} % {k.shape[2]}")
-    prog, tables, _ = ring_plan(cfg, n_inter, n_intra, s)
+    prog, tables, _ = ring_plan(cfg, n_inter, n_intra, s, "fwd")
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
     if q.device.type == "cpu":
         return fused_ring_reference(q, k, v, prog, tables, scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_ring_fwd runs on cuda or cpu tensors, got "
                          f"{q.device}")
-    return _fused_ring_fwd_cuda(q, k, v, prog,
-                                _sched_on(cfg, n_inter, n_intra, s, q.device),
-                                scale)
+    return _fused_ring_fwd_cuda(
+        q, k, v, prog, _sched_on(cfg, n_inter, n_intra, s, q.device, "fwd"),
+        scale)
 
 
 fused_ring_fwd.launches = 0

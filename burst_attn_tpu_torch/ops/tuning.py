@@ -5,8 +5,12 @@ table does not apply to this card).
 csrc/fused_ring_fwd.cu computes 64 query rows against 64-row K/V tiles
 staged as fp32 in shared memory: Q, K (rows padded by 4 floats) and V
 take 4 * (64*128 + 64*132 + 64*128) = 99,328 bytes at D = 128, so two
-CTAs fit an SM's 227 KB.  Two KV slots per bank (double buffering) is
-the default, as on the TPU.
+CTAs fit an SM's 227 KB.  csrc/fused_ring_bwd.cu runs the flash
+backward's tiles (csrc/flash_bwd_tile.cuh): K, V, Q and dO tiles of 64
+rows padded by 4 floats, the P and dS tiles [64][68] and two row vectors,
+4 * (4*64*132 + 2*64*68 + 2*64) = 170,496 bytes at D = 128, one CTA per
+SM.  Two slots per bank (double buffering) is the default for both
+passes, as on the TPU.
 """
 
 from typing import NamedTuple, Optional
@@ -17,6 +21,8 @@ FUSED_BLOCK_Q = 64    # the kernel's q tile (csrc/fused_ring_fwd.cu BQ)
 FUSED_BLOCK_KV = 64   # its kv tile (BKV)
 FUSED_KV_SLOTS = 2
 FUSED_CCW_SLOTS = 2   # second bank: bidi ccw / double inter prefetch
+FUSED_BLOCK_Q_BWD = 64   # the backward kernel's q tile (flash_bwd_tile BQ)
+FUSED_BLOCK_KV_BWD = 64  # its kv tile (BKV)
 
 
 class ResolvedFused(NamedTuple):
@@ -39,21 +45,30 @@ def fused_smem_bytes(block_q: int, block_kv: int, d: int) -> int:
     return 4 * (block_q * d + block_kv * (d + 4) + block_kv * d)
 
 
+def fused_bwd_smem_bytes(block_q: int, block_kv: int, d: int) -> int:
+    """Shared memory of one fused-ring backward CTA: fp32 K, V, Q, dO
+    tiles padded by 4 floats, the P and dS tiles and the rows' lse and
+    delta."""
+    return 4 * (2 * block_kv * (d + 4) + 2 * block_q * (d + 4)
+                + 2 * block_q * (block_kv + 4) + 2 * block_q)
+
+
 def resolve_fused(block_q=None, block_kv=None, kv_slots=None,
                   block_q_bwd=None, block_kv_bwd=None, bwd_slots=None,
                   ccw_slots=None, bwd_ccw_slots=None,
                   wire_dtype=None) -> ResolvedFused:
-    """Fill the fused ring kernel's knobs from this card's defaults.  Slot
-    counts below 2 cannot double-buffer and are rejected; the backward
-    blocks never default larger than the forward ones.  `wire_dtype` is
-    not ported yet and raises."""
+    """Fill the fused ring kernels' knobs from this card's defaults: the
+    forward's tiles and slots, and the backward's (its tiles default to
+    the backward kernel's 64 x 64, its slots to two per bank).  Slot
+    counts below 2 cannot double-buffer and are rejected.  `wire_dtype`
+    is not ported yet and raises."""
     if wire_dtype is not None:
         raise NotImplementedError("wire_dtype is not ported yet")
     bq = FUSED_BLOCK_Q if block_q is None else int(block_q)
     bkv = FUSED_BLOCK_KV if block_kv is None else int(block_kv)
     slots = FUSED_KV_SLOTS if kv_slots is None else int(kv_slots)
-    bqb = bq if block_q_bwd is None else int(block_q_bwd)
-    bkvb = bkv if block_kv_bwd is None else int(block_kv_bwd)
+    bqb = FUSED_BLOCK_Q_BWD if block_q_bwd is None else int(block_q_bwd)
+    bkvb = FUSED_BLOCK_KV_BWD if block_kv_bwd is None else int(block_kv_bwd)
     bslots = FUSED_KV_SLOTS if bwd_slots is None else int(bwd_slots)
     cslots = FUSED_CCW_SLOTS if ccw_slots is None else int(ccw_slots)
     bcslots = FUSED_CCW_SLOTS if bwd_ccw_slots is None else int(bwd_ccw_slots)

@@ -1,4 +1,4 @@
-"""Burst (ring) attention, the forward pass (port of
+"""Burst (ring) attention, forward and backward (port of
 burst_attn_tpu/parallel/burst.py).
 
 W ring positions share one device (parallel/mesh.py): the global
@@ -18,23 +18,35 @@ position runs the same per-position program:
     fused kernel declines takes the scan ring, with the reason logged and
     counted (`burst.fused_fallback`).
 
+The backward (`_bwd_impl`, the one backward dispatch point, behind the
+autograd Function of `burst_attn`) is the communication-optimized one:
+K and V stay resident, the q-side bundle (delta, do, q, lse) -- or (o,
+do, q, lse) without `optimize_bwd_comm` -- rotates like the forward's
+KV, and dq rides an accumulating ring one hop behind it, returned home
+by the final hops.  Its scan ring runs the flash backward kernels per
+round (kernels 2/3, csrc/flash_bwd.cu; the plain tile_bwd for "jnp" or on
+a CPU tensor); with `backend="fused_ring"` the whole backward ring is one
+launch of kernel 9 (ops/fused_ring_bwd.py) when the backward gate admits
+the config.
+
 Causal load balancing uses the per-round mask scalars of ops/masks.py.
 The JAX package's zigzag 3-way case split (full q x first kv half, second
 q half x full kv, causal self round) and striped triangular rounds exist
 there to pick TPU grids; their three specs are exactly round_spec's, and
 the CUDA kernels' loop bounds skip the dead tiles of each, so here every
-round runs kernel 1 on the whole contiguous shard under round_spec
+round runs its kernel on the whole contiguous shard under round_spec
 (no slicing copies).  Contig causal rings skip dead rounds outright
 (spec_live) and, with max_segment_len, truncate to the live prefix.
 
 Counters: `STATS` holds burst.dispatch{path,backend,tile},
 burst.fused_fallback{reason,pass}, burst.ring_rounds and
-burst.ring_hops{axis} under the JAX package's names.
+burst.ring_hops{axis} under the JAX package's names, for each forward
+and each backward dispatch.
 
-Not ported yet (they raise NotImplementedError): the ring backward
-(gradients through burst_attn) and the fields that configure it, kernel
-1's tile sizes (block_q, block_kv), window, segment_ids, wire_dtype,
-collect_stats, and meshes with data or tensor parallel axes of size > 1.
+Not ported yet (they raise NotImplementedError): the tile sizes of the
+flash kernels (block_q, block_kv and the backward's), window,
+segment_ids, wire_dtype, collect_stats, and meshes with data or tensor
+parallel axes of size > 1.
 """
 
 import collections
@@ -44,10 +56,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops import fused_ring
-from ..ops.flash import flash_fwd
+from ..ops import fused_ring, fused_ring_bwd
+from ..ops.flash import flash_bwd, flash_fwd
 from ..ops.masks import LAYOUTS, live_round_prefix, round_spec, spec_live
-from ..ops.tile import finalize, init_state, tile_fwd
+from ..ops.tile import finalize, init_state, tile_bwd, tile_fwd
 from .mesh import as_mesh, ppermute, shard, unshard
 from .ring import partition_at_round, ring_coords, ring_round_counts
 
@@ -70,12 +82,14 @@ def _count(name: str, n: int = 1, **labels) -> None:
 class BurstConfig:
     """Static configuration of burst attention: the JAX BurstConfig's
     fields, so both packages take the same configurations.  A field the
-    port does not honour yet raises NotImplementedError on any value but
-    its default (_UNPORTED): kernel 1's tile sizes are fixed, and the
-    backward's fields wait for the ring backward.  `case_split` takes
-    both values: the zigzag split only picks TPU grids, and here every
-    round runs round_spec's uniform spec with the dead tiles skipped by
-    the kernel's loop bounds, which is what either value computes."""
+    port does not honour raises NotImplementedError on any value but its
+    default (_UNPORTED): the flash kernels' tile sizes are fixed.
+    `case_split` takes both values: the zigzag split only picks TPU
+    grids, and here every round runs round_spec's uniform spec with the
+    dead tiles skipped by the kernel's loop bounds, which is what either
+    value computes.  `deterministic` takes both values and changes
+    nothing, as in the JAX package: both backward routes of the port are
+    deterministic (the dq folds run in a fixed order)."""
 
     causal: bool = False
     layout: str = "zigzag"  # "zigzag" | "striped" | "contig"
@@ -146,16 +160,14 @@ class BurstConfig:
                                      for a, sz in self.mesh_axes))
 
 
-_TILES_FIXED = ("the flash kernel's tiles are fixed (ops/tuning.py); "
+_TILES_FIXED = ("the flash kernels' tiles are fixed (ops/tuning.py); "
                 "leave it None")
-_BWD = "it configures the ring backward, which is not ported yet"
-# fields the port does not honour yet -> why; each raises on a value other
+# fields the port does not honour -> why; each raises on a value other
 # than its default
 _UNPORTED = dict(
-    block_q=_TILES_FIXED, block_kv=_TILES_FIXED, block_q_bwd=_BWD,
-    block_kv_bwd=_BWD, optimize_bwd_comm=_BWD, deterministic=_BWD,
-    fused_bwd_slots=_BWD, fused_block_q_bwd=_BWD, fused_block_kv_bwd=_BWD,
-    fused_bwd_ccw_slots=_BWD)
+    block_q=_TILES_FIXED, block_kv=_TILES_FIXED, block_q_bwd=_TILES_FIXED,
+    block_kv_bwd=_TILES_FIXED, fused_block_q_bwd=_TILES_FIXED,
+    fused_block_kv_bwd=_TILES_FIXED)
 _DEFAULTS = {f.name: f.default for f in fields(BurstConfig)}
 
 
@@ -176,6 +188,14 @@ def _tile_fwd(cfg, q, k, v, m, lse, acc, scale, spec):
     if m is None:
         m, lse, acc = init_state(*q.shape, device=q.device)
     return tile_fwd(q, k, v, m, lse, acc, scale, spec)
+
+
+def _tile_bwd(cfg, do, q, k, v, delta, lse, scale, spec):
+    """One backward round: flash_bwd (the fused kernel on a CUDA tensor,
+    tile_bwd on a CPU tensor) or, for "jnp", the plain tile."""
+    if _tile_backend(cfg) == "pallas":
+        return flash_bwd(do, q, k, v, delta, lse, scale, spec)
+    return tile_bwd(do, q, k, v, delta, lse, scale, spec)
 
 
 def _r_live(cfg, s, s_kv, n_inter, n_intra):
@@ -211,17 +231,19 @@ def _fallback_label(reason: str) -> str:
     return "other"
 
 
-def _note_dispatch(cfg, reason, s, s_kv, n_inter, n_intra) -> None:
-    """Count one ring dispatch: the path it took (fused kernel or scan
-    ring), a declined fused config's reason, and the schedule's rounds
-    and KV hops per axis (ring_round_counts)."""
+def _note_dispatch(cfg, reason, s, s_kv, n_inter, n_intra,
+                   pass_: str = "fwd") -> None:
+    """Count one ring dispatch of pass_ ("fwd" | "bwd"): the path it took
+    (fused kernel or scan ring), a declined fused config's reason, and the
+    schedule's rounds and payload hops per axis (ring_round_counts; the
+    backward's bundle moves as the forward's KV does)."""
     path = "fused" if cfg.backend == "fused_ring" and reason is None \
         else "scan"
     _count("burst.dispatch", path=path, backend=cfg.backend,
            tile=_tile_backend(cfg))
     if reason is not None:
         _count("burst.fused_fallback", reason=_fallback_label(reason),
-               **{"pass": "fwd"})
+               **{"pass": pass_})
     rounds, intra_hops, inter_hops = ring_round_counts(
         n_inter, n_intra, _r_live(cfg, s, s_kv, n_inter, n_intra))
     _count("burst.ring_rounds", rounds)
@@ -229,6 +251,24 @@ def _note_dispatch(cfg, reason, s, s_kv, n_inter, n_intra) -> None:
         _count("burst.ring_hops", intra_hops, axis="intra")
     if inter_hops:
         _count("burst.ring_hops", inter_hops, axis="inter")
+
+
+def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str):
+    """The fused gate's reason for declining pass_ (None: the fused kernel
+    runs; also None for a scan backend), logged and counted with the
+    dispatch."""
+    reason = None
+    if cfg.backend == "fused_ring":
+        reason = fused_ring.supported(cfg, q.shape[1:], k.shape[1:],
+                                      world=n_intra, n_inter=n_inter,
+                                      pass_=pass_, dtype=q.dtype,
+                                      device=q.device)
+        if reason is not None:
+            logger.info("fused_ring %s falling back to the scan ring: %s",
+                        "backend" if pass_ == "fwd" else "backward", reason)
+    _note_dispatch(cfg, reason, q.shape[3], k.shape[3], n_inter, n_intra,
+                   pass_)
+    return reason
 
 
 # ---------------------------------------------------------------------------
@@ -242,15 +282,7 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int):
     world = n_inter * n_intra
     b, n, s, d = q.shape[1:]
     s_kv = k.shape[3]
-    reason = None
-    if cfg.backend == "fused_ring":
-        reason = fused_ring.supported(cfg, q.shape[1:], k.shape[1:],
-                                      world=n_intra, n_inter=n_inter,
-                                      dtype=q.dtype, device=q.device)
-        if reason is not None:
-            logger.info("fused_ring backend falling back to the scan ring: "
-                        "%s", reason)
-    _note_dispatch(cfg, reason, s, s_kv, n_inter, n_intra)
+    reason = _dispatch(cfg, q, k, n_inter, n_intra, "fwd")
     if cfg.backend == "fused_ring" and reason is None:
         return fused_ring.fused_ring_fwd(q, k, v, cfg, n_inter, n_intra)
 
@@ -293,6 +325,153 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int):
     o = torch.stack([finalize(*st, q.dtype) for st in state])
     lse = torch.stack([st[1] for st in state])
     return o, lse
+
+
+# ---------------------------------------------------------------------------
+# backward
+
+
+def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
+              n_intra: int):
+    """Communication-optimized ring backward of every position (stacked
+    shards as _fwd_impl's; o, do [W,B,N,S,D], lse [W,B,N,S] f32 the
+    forward's) -> fp32 (dq, dk, dv) stacked.
+
+    K, V stay resident; the q-side payload (delta|o, do, q, lse) rotates
+    like KV did in forward; dq rides a concurrent accumulating ring and is
+    returned home by the final hops.  The ONE backward dispatch point:
+    with backend="fused_ring" both rotating streams run inside kernel 9
+    (ops/fused_ring_bwd.py) when the backward gate admits the config;
+    declined configs fall through to the scan ring below."""
+    reason = _dispatch(cfg, q, k, n_inter, n_intra, "bwd")
+    if cfg.backend == "fused_ring" and reason is None:
+        return fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg,
+                                             n_inter, n_intra)
+
+    world = n_inter * n_intra
+    b, n, s, d = q.shape[1:]
+    s_kv = k.shape[3]
+    scale = cfg.scale if cfg.scale is not None else d ** -0.5
+    coords = [ring_coords(p, n_inter, n_intra) for p in range(world)]
+    # optimize_bwd_comm: the ring payload (delta, not o) shrinks by a
+    # factor of head_dim
+    first = (o.float() * do.float()).sum(-1) if cfg.optimize_bwd_comm else o
+    payload = [(first[p], do[p], q[p], lse[p]) for p in range(world)]
+
+    def compute(p, pay, r):
+        """(dq, dk, dv) of position p's round r: the rotated q side
+        against the resident k/v (roles flip against the forward)."""
+        first_r, do_r, q_r, lse_r = pay
+        delta_r = first_r if cfg.optimize_bwd_comm else (
+            first_r.float() * do_r.float()).sum(-1)
+        q_part = partition_at_round(r, *coords[p], n_inter, n_intra)
+        spec = round_spec(q_part, p, s, s_kv, cfg.causal, cfg.layout)
+        if cfg.layout == "contig" and cfg.causal and not spec_live(spec):
+            return None  # a dead round: exact zeros, no launch
+        return _tile_bwd(cfg, do_r, q_r, k[p], v[p], delta_r, lse_r, scale,
+                         spec)
+
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, **f32)
+    dv = torch.zeros(v.shape, **f32)
+    dq_intra = [torch.zeros(q.shape[1:], **f32) for _ in range(world)]
+    dq_inter = [torch.zeros(q.shape[1:], **f32) for _ in range(world)]
+
+    def fold(dq_acc, pays, r):
+        """Every position's round r: dk, dv accumulate in place; returns
+        the dq accumulators with this round's contributions added."""
+        out = []
+        for p in range(world):
+            got = compute(p, pays[p], r)
+            if got is None:
+                out.append(dq_acc[p])
+                continue
+            dk[p] += got[1]
+            dv[p] += got[2]
+            out.append(dq_acc[p] + got[0])
+        return out
+
+    def hop(dqs, axis, hops=1):
+        return [t for (t,) in ppermute([(x,) for x in dqs], axis, n_inter,
+                                       n_intra, hops)]
+
+    # Static round truncation, bwd roles: with the q side rotating, round
+    # r's q part is me - r, so a truncated contig ring's LIVE rounds are
+    # round 0 plus a tail of r_live - 1 rounds at the end of the schedule;
+    # the payload jumps the dead middle in ONE rotation.  Round 0's dq (the
+    # own chunk's gradient) does not ride along at all: it is held out in
+    # dq_home and folded in after the ring's return-home hop.
+    r_live = _r_live(cfg, s, s_kv, n_inter, n_intra)
+    truncated = r_live < n_intra
+    dq_home = None
+    pay_base = payload
+    for c in range(n_inter):
+        if c < n_inter - 1:
+            # prefetch the next cycle's base one full intra cycle early
+            pay_base_next = ppermute(pay_base, "inter", n_inter, n_intra)
+        if c > 0:
+            # cycle boundary: fold the intra accumulator into the inter
+            # ring's running sum, hop it, and restart the intra ring
+            dq_inter = hop([a + b_ for a, b_ in zip(dq_inter, dq_intra)],
+                           "inter")
+            dq_intra = [torch.zeros_like(x) for x in dq_intra]
+        # first round of the cycle: no dq rotation
+        if truncated:
+            dq_home = fold([torch.zeros_like(x) for x in dq_intra], payload,
+                           c * n_intra)
+        else:
+            dq_intra = fold(dq_intra, payload, c * n_intra)
+        if r_live > 1:
+            # start == 1 without truncation: the jump is a single hop
+            start = n_intra - (r_live - 1)
+            payload = ppermute(payload, "intra", n_inter, n_intra, start)
+            for s_idx in range(start, n_intra - 1):
+                pay_next = ppermute(payload, "intra", n_inter, n_intra)
+                # dq leaves with the payload it accumulated for; the
+                # arriving dq belongs to the payload held this round
+                dq_intra = fold(hop(dq_intra, "intra"), payload,
+                                c * n_intra + s_idx)
+                payload = pay_next
+            # last round of the cycle: rotate dq but not the payload
+            dq_intra = fold(hop(dq_intra, "intra"), payload,
+                            c * n_intra + n_intra - 1)
+        if c < n_inter - 1:
+            payload = pay_base = pay_base_next
+    # final return-home hops: fold, one inter hop, one intra hop; then the
+    # held-out round-0 dq (truncated rings only: it never travelled)
+    dq = [a + b_ for a, b_ in zip(dq_inter, dq_intra)]
+    if n_inter > 1:
+        dq = hop(dq, "inter")
+    if r_live > 1:
+        dq = hop(dq, "intra")
+    if dq_home is not None:
+        dq = [a + b_ for a, b_ in zip(dq, dq_home)]
+    return torch.stack(dq), dk, dv
+
+
+class _BurstAttn(torch.autograd.Function):
+    """o = burst_attn(q, k, v) on global tensors with the saved stacked
+    (q, k, v, o, lse) and the ring backward (the JAX package's custom_vjp,
+    _vjp_fwd / _vjp_bwd)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg, n_inter, n_intra):
+        world = n_inter * n_intra
+        qs, ks, vs = (shard(t, world) for t in (q, k, v))
+        o, lse = _fwd_impl(qs, ks, vs, cfg, n_inter, n_intra)
+        ctx.save_for_backward(qs, ks, vs, o, lse)
+        ctx.cfg, ctx.ring = cfg, (n_inter, n_intra)
+        return unshard(o)
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, ks, vs, o, lse = ctx.saved_tensors
+        n_inter, n_intra = ctx.ring
+        dq, dk, dv = _bwd_impl(qs, ks, vs, o, lse,
+                               shard(do.to(qs.dtype), n_inter * n_intra),
+                               ctx.cfg, n_inter, n_intra)
+        return (unshard(dq).to(qs.dtype), unshard(dk).to(ks.dtype),
+                unshard(dv).to(vs.dtype), None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -346,15 +525,12 @@ def burst_attn(
     tile), "fused_ring" (kernel 8, the whole ring in one launch).  Skv !=
     S is cross-attention, non-causal only.
 
-    Forward only: with grad enabled and an input that requires grad it
-    raises, as do window, segment_ids, wire_dtype, collect_stats, and
-    the tile-size and backward options away from their defaults
+    Differentiable: with grad enabled and an input that requires grad,
+    the backward runs the ring backward (`_bwd_impl`: the scan ring over
+    the flash backward kernels, or kernel 9 for "fused_ring") and returns
+    gradients in the inputs' dtypes.  window, segment_ids, wire_dtype,
+    collect_stats and the tile sizes away from their defaults raise
     (BurstConfig)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "gradients through burst_attn need the ring backward, which is "
-            "not ported yet (the next slice of the port); call it under "
-            "torch.no_grad() or on tensors that do not require grad")
     if segment_ids is not None:
         raise NotImplementedError("segment_ids are not ported yet")
     if collect_stats:
@@ -389,14 +565,11 @@ def burst_attn(
         fused_bwd_ccw_slots=fused_bwd_ccw_slots, wire_dtype=wire_dtype,
         mesh_axes=tuple(m.shape.items()))
     world = n_inter * n_intra
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _BurstAttn.apply(q, k, v, cfg, n_inter, n_intra)
     o, _ = _fwd_impl(shard(q, world), shard(k, world), shard(v, world), cfg,
                      n_inter, n_intra)
     return unshard(o)
-
-
-def _check_deterministic(deterministic: bool) -> None:
-    if not deterministic:
-        raise NotImplementedError(f"deterministic=False: {_BWD}")
 
 
 def burst_attn_func(q, k, v, softmax_scale=None, flash: str = "auto",
@@ -404,9 +577,10 @@ def burst_attn_func(q, k, v, softmax_scale=None, flash: str = "auto",
                     deterministic: bool = True, *, mesh, seq_axes=("sp",)):
     """Reference-style entry point: the zigzag-half causal layout.
     `flash` selects the backend ("auto" | "pallas" | "jnp" |
-    "fused_ring"); `deterministic` and `optimize_bwd_comm` configure
-    the backward and raise on a value other than their default."""
-    _check_deterministic(deterministic)
+    "fused_ring"); `optimize_bwd_comm` picks the backward's payload;
+    `deterministic` is accepted for parity: both backward routes are
+    deterministic."""
+    del deterministic
     return burst_attn(q, k, v, mesh=mesh, seq_axes=seq_axes, causal=causal,
                       layout="zigzag", scale=softmax_scale, backend=flash,
                       optimize_bwd_comm=optimize_bwd_comm)
@@ -418,7 +592,7 @@ def burst_attn_func_striped(q, k, v, softmax_scale=None, flash: str = "auto",
                             deterministic: bool = True, *, mesh,
                             seq_axes=("sp",)):
     """Reference-style entry point: the striped causal layout."""
-    _check_deterministic(deterministic)
+    del deterministic
     return burst_attn(q, k, v, mesh=mesh, seq_axes=seq_axes, causal=causal,
                       layout="striped", scale=softmax_scale, backend=flash,
                       optimize_bwd_comm=optimize_bwd_comm)

@@ -9,9 +9,9 @@ recv / credit ops per stream, emitted once by `compile_fwd` /
     stream of rotations the scan ring issues (`parallel/ring.
     ring_round_counts` reports its hop totals);
   * `RingProgram.to_table()` packs it into the int32 op table the fused
-    ring kernel (csrc/fused_ring_fwd.cu, through ops/fused_ring.py) and
-    its plain version interpret: the kernel holds no schedule logic of
-    its own.
+    ring kernels (csrc/fused_ring_fwd.cu and csrc/fused_ring_bwd.cu,
+    through ops/fused_ring.py and ops/fused_ring_bwd.py) and their plain
+    versions interpret: the kernels hold no schedule logic of their own.
 
 Topologies:
 
@@ -34,8 +34,10 @@ per-slot capacity credits (grant / take) that make slot reuse safe,
 assigned here from the write/read order and checked (grant strictly
 before take) at compile time.
 
-Backward programs add the dq ring plan (the ring backward is a later
-slice; its compiler is here so that both passes share one IR).
+Backward programs add the dq ring plan (its columns DQ_* and DQI_*):
+the q-side bundle moves as the forward's KV, and the dq partials ride
+one hop behind it (parallel/burst._bwd_impl's scan ring realizes the
+same movement with rotations).
 """
 
 from dataclasses import dataclass, field

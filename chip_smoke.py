@@ -43,7 +43,14 @@ Phases (any failure exits non-zero; nothing is caught):
      step, and two steps through the split backward; one step's loss and
      gradients at fp32 (2 layers, S=2048) against plain attention;
      runner.fit on a seeded token file (2 layers, S=2048) with an eval,
-     then a checkpoint and a resumed run that repeats its losses;
+     then a checkpoint and a resumed run that repeats its losses; then
+     the same model, seed and batch on a ring, mesh {"sp": 4} zigzag,
+     through the fused route (kernels 8 and 9: exactly 32 + 16 launches a
+     step) and the scan route (512 flash_fwd + 256 flash_bwd), no
+     fallback, losses falling and the first two within CONTROL_RTOL of
+     the single-device run, step ms, tokens/s, MFU and a profile each;
+     fp32 ring parity against the single-device kernels on both routes;
+     runner.fit on mesh {"sp": 4} (`--mesh sp=4`) with a resume;
   7. (run after phase 3) the ring forward: the fused ring kernel
      (kernel 8) against its plain
      version over W = 2, 3, 4, 8 ring positions on the card (uni, bidi,
@@ -55,7 +62,16 @@ Phases (any failure exits non-zero; nothing is caught):
      over kernel 1 (1 fused launch, 64 flash launches, no fallback),
      kernel 8 against its plain version there, with its time, the scan
      route's, the plain version's and SDPA's on the natural-order
-     sequence;
+     sequence; then the ring backward: kernel 9 against its plain version
+     over W = 2-8 (uni, bidi, double 2x2 and 2x4, the truncated contig
+     program; 2 and 3 slots; causal zigzag, striped, contig and
+     non-causal; both optimize_bwd_comm payloads; GQA; fp32 and bf16;
+     resident and not; two launches torch.equal) and 20 launches at W=8
+     bitwise; burst_attn forward + backward at the headline shape, fused
+     (one launch each of kernels 8 and 9) against scan (64 + 64), no
+     fallback, gradients within bf16 tolerance, kernel 9 against its
+     plain version there (by head chunks), the times of kernel 9, both
+     routes and SDPA's backward;
   8. the long-context handoff at the serving width (after phase 5):
      first its ring kernels at the shapes it gives them (sp=4, N16/4,
      S_local 8192, bf16, causal zigzag; seeded tensors): kernel 8 against
@@ -72,6 +88,7 @@ Phases (any failure exits non-zero; nothing is caught):
      token-exact across the routes, with the dense plain forward and
      with paged_decode_step (kernel 6) on the handed-off slot; page
      counts and a rejected request; prefill (TTFT) and decode times;
+     kernel 9 against its plain version at the handoff's op shape;
   9. a `train` JSON line, a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
@@ -1198,28 +1215,73 @@ def ragged_timings(device):
 
 
 def _reset_counts():
-    from burst_attn_tpu_torch.ops import flash
+    from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
 
     flash.flash_fwd.launches = 0
     for route in flash.BWD_ROUTES:
         flash.flash_bwd.launches[route] = 0
+    fused_ring.fused_ring_fwd.launches = 0
+    fused_ring_bwd.fused_ring_bwd.launches = 0
 
 
 def _counts():
-    """The attention kernels' launch counters: flash_fwd and flash_bwd by
-    route (fused, dq, dkdv)."""
-    from burst_attn_tpu_torch.ops import flash
+    """The training path's attention kernels' launch counters: flash_fwd,
+    flash_bwd by route (fused, dq, dkdv), the fused ring's forward and
+    backward."""
+    from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
 
-    return {"flash_fwd": flash.flash_fwd.launches, **flash.flash_bwd.launches}
+    return {"flash_fwd": flash.flash_fwd.launches, **flash.flash_bwd.launches,
+            "fused_ring_fwd": fused_ring.fused_ring_fwd.launches,
+            "fused_ring_bwd": fused_ring_bwd.fused_ring_bwd.launches}
 
 
-def _train_model(n_layers, dtype):
+def _launches(**nonzero):
+    """A _counts() dict: the named counts, every other one 0."""
+    return {k: nonzero.get(k, 0) for k in ("flash_fwd", "fused", "dq",
+                                           "dkdv", "fused_ring_fwd",
+                                           "fused_ring_bwd")}
+
+
+def _train_model(n_layers, dtype, **kw):
     import torch
 
     from burst_attn_tpu_torch.models.transformer import ModelConfig
 
     return ModelConfig(**{**TRAIN_DIMS, "n_layers": n_layers}, dtype=dtype,
-                       batch_axis=None, head_axis=None, remat=True)
+                       batch_axis=None, head_axis=None, remat=True, **kw)
+
+
+_SEED_PARAMS = {}
+
+
+def _seed_state(cfg, tcfg, device):
+    """(params, optimizer) equal to train.init_train_state(0, cfg, tcfg):
+    the random init (~25 s for the 1.21 B model, numpy on the host) runs
+    once per model shape and dtype, and every later call copies it."""
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import param_leaves
+
+    key = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab, cfg.dtype)
+    if key not in _SEED_PARAMS:
+        params, opt = train.init_train_state(0, cfg, tcfg, device=device)
+        _SEED_PARAMS[key] = [t.detach().clone() for t in
+                             param_leaves(params)]
+        return params, opt
+    params = _params_like(_SEED_PARAMS[key], cfg)
+    return params, train._optimizer(params, tcfg)
+
+
+def _params_like(leaves, cfg):
+    """A parameter dictionary (param_leaves order) holding copies of
+    `leaves`, each requiring grad."""
+    from burst_attn_tpu_torch.models.transformer import LAYER_KEYS
+
+    it = iter(t.clone().requires_grad_(True) for t in leaves)
+    embed = next(it)
+    layers = [{k: next(it) for k in LAYER_KEYS} for _ in range(cfg.n_layers)]
+    return {"embed": embed, "layers": layers, "final_norm": next(it),
+            "lm_head": next(it)}
 
 
 def train_phase(device):
@@ -1241,7 +1303,7 @@ def train_phase(device):
     cfg = _train_model(TRAIN_DIMS["n_layers"], torch.bfloat16)
     tcfg = train.TrainConfig()
     t0 = time.perf_counter()
-    state = [train.init_train_state(0, cfg, tcfg, device=device)]
+    state = [_seed_state(cfg, tcfg, device)]
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in param_leaves(state[0][0]))
     batch = train.make_batch(1, cfg, batch=1, seq=TRAIN_SEQ, device=device)
@@ -1266,8 +1328,8 @@ def train_phase(device):
     torch.cuda.reset_peak_memory_stats()
     losses, norms, times, launches = run(step, TRAIN_STEPS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"flash_fwd": 2 * n_layers * TRAIN_STEPS,
-            "fused": n_layers * TRAIN_STEPS, "dq": 0, "dkdv": 0}
+    want = _launches(flash_fwd=2 * n_layers * TRAIN_STEPS,
+                     fused=n_layers * TRAIN_STEPS)
     assert launches == want, (launches, want)
     losses = warm[0] + losses
     assert all(map(math.isfinite, losses + warm[1] + norms)), losses
@@ -1295,8 +1357,8 @@ def train_phase(device):
 
     with split_train_backward():
         s_losses, _, s_times, s_launches = run(step, 2)
-    want = {"flash_fwd": 2 * 2 * n_layers, "fused": 0, "dq": 2 * n_layers,
-            "dkdv": 2 * n_layers}
+    want = _launches(flash_fwd=2 * 2 * n_layers, dq=2 * n_layers,
+                     dkdv=2 * n_layers)
     assert s_launches == want, (s_launches, want)
     assert all(map(math.isfinite, s_losses)), s_losses
     res.update(split_step_ms=s_times[-1], split_losses=s_losses,
@@ -1304,7 +1366,7 @@ def train_phase(device):
 
     state[0] = None  # the kernel run's parameters and optimizer
     torch.cuda.empty_cache()
-    state[0] = train.init_train_state(0, cfg, tcfg, device=device)
+    state[0] = _seed_state(cfg, tcfg, device)
     with plain_train_attention():
         c_losses, _, c_times, c_launches = run(step, 1 + TRAIN_STEPS)
     assert sum(c_launches.values()) == 0, c_launches
@@ -1388,7 +1450,7 @@ def train_parity(device, n_layers=2, seq=2048):
     _reset_counts()
     loss_k, grads_k = loss_grads()
     launches = _counts()
-    want = {"flash_fwd": 2 * n_layers, "fused": n_layers, "dq": 0, "dkdv": 0}
+    want = _launches(flash_fwd=2 * n_layers, fused=n_layers)
     assert launches == want, (launches, want)
     with plain_train_attention():
         loss_p, grads_p = loss_grads()
@@ -1412,13 +1474,15 @@ def train_parity(device, n_layers=2, seq=2048):
                 grad_worst=worst[1])
 
 
-def runner_phase(device, n_layers=2, seq=2048, steps=4):
+def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None):
     """runner.fit at full width with `n_layers` layers on a seeded random
     token file (bf16, B=1): an uninterrupted run with an eval at the end;
     then a run that checkpoints at steps/2 (max_to_keep=1) and a second
     run resuming from that checkpoint to `steps`, whose losses must match
-    the uninterrupted run's within RESUME_RTOL.  The files live in a
-    temporary directory under the checkout's build/, deleted at the end."""
+    the uninterrupted run's within RESUME_RTOL.  On one device, or with
+    `mesh` (e.g. {"sp": 4}, as `--mesh sp=4` gives it) on the ring through
+    the fused ring kernels.  The files live in a temporary directory under
+    the checkout's build/, deleted at the end."""
     import os
     import tempfile
     from pathlib import Path
@@ -1430,7 +1494,9 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4):
     from burst_attn_tpu_torch.models import runner, train
     from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
 
-    cfg = _train_model(n_layers, torch.bfloat16)
+    ring = mesh is not None
+    cfg = _train_model(n_layers, torch.bfloat16,
+                       **(dict(attn_backend="fused_ring") if ring else {}))
     tcfg = train.TrainConfig()
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
@@ -1450,25 +1516,27 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4):
         _reset_counts()
         t0 = time.perf_counter()
         _, full = runner.fit(cfg, tcfg, runner.RunConfig(steps=steps, **kw),
-                             device=device)
+                             mesh, device=device)
         fit_s = time.perf_counter() - t0
         launches = _counts()
         ckw = dict(ckpt_dir=ck, ckpt_every=half, ckpt_keep=1, **kw)
-        runner.fit(cfg, tcfg, runner.RunConfig(steps=half, **ckw),
+        runner.fit(cfg, tcfg, runner.RunConfig(steps=half, **ckw), mesh,
                    device=device)
         assert Checkpointer(ck).steps() == [half], Checkpointer(ck).steps()
         _, resumed = runner.fit(cfg, tcfg,
-                                runner.RunConfig(steps=steps, **ckw),
+                                runner.RunConfig(steps=steps, **ckw), mesh,
                                 device=device)
         assert Checkpointer(ck).steps() == [steps], Checkpointer(ck).steps()
     assert not os.path.exists(tmp)
 
-    # the uninterrupted run: fused backward per train step, one forward per
-    # layer for each eval batch (no grad, so no recompute)
-    assert launches["fused"] == n_layers * steps, launches
-    assert launches["dq"] == launches["dkdv"] == 0, launches
-    n_eval = launches["flash_fwd"] - 2 * n_layers * steps
+    # the uninterrupted run: one backward per layer and train step, one
+    # forward per layer for each eval batch (no grad, so no recompute)
+    fwd, bwd = (("fused_ring_fwd", "fused_ring_bwd") if ring
+                else ("flash_fwd", "fused"))
+    n_eval = launches[fwd] - 2 * n_layers * steps
     assert n_eval > 0 and n_eval % n_layers == 0, launches
+    assert launches == _launches(**{fwd: launches[fwd],
+                                    bwd: n_layers * steps}), launches
     loss_a = {r["step"]: r["loss"] for r in full if "loss" in r}
     loss_b = {r["step"]: r["loss"] for r in resumed if "loss" in r}
     evals = [r["eval_loss"] for r in full if "eval_loss" in r]
@@ -1478,7 +1546,8 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4):
     assert all(map(math.isfinite, loss_a.values()))
     diff = max(abs(loss_b[s] - loss_a[s]) / abs(loss_a[s]) for s in loss_b)
     assert diff <= RESUME_RTOL, (loss_a, loss_b)
-    print(f"runner.fit ({n_layers} layers at full width, bf16, S={seq}): "
+    print(f"runner.fit ({n_layers} layers at full width, bf16, S={seq}"
+          f"{f', mesh {mesh}, fused ring' if ring else ''}): "
           f"{steps} steps in {fit_s:.1f} s, losses "
           f"{[round(loss_a[s], 4) for s in sorted(loss_a)]}, eval loss "
           f"{evals[0]:.4f}, launches {launches}; resumed from the step-"
@@ -2038,6 +2107,464 @@ def handoff_phase(device):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the ring backward: kernel 9 (the fused ring backward), burst_attn's
+# gradients and training on the ring
+
+# kernel 9 against its plain version: (positions, layout, causal, heads,
+# kv heads, local S, dtype, knobs), as FUSED_CASES
+FUSED_BWD_CASES = (
+    # one kv tile per CTA: dk, dv stay in registers across the rounds
+    (2, "zigzag", True, 2, 1, 256, "fp32", {}),
+    (3, "striped", True, 4, 1, 256, "bf16", dict(fused_bwd_slots=3)),
+    (3, "contig", True, 4, 2, 512, "fp32", dict(fused_topology="bidi")),
+    (4, "zigzag", True, 8, 2, 2048, "bf16", dict(optimize_bwd_comm=False)),
+    (4, "striped", True, 4, 4, 256, "fp32",
+     dict(fused_bwd_slots=3, optimize_bwd_comm=False)),
+    (4, "contig", True, 4, 1, 512, "bf16", {}),
+    # a truncated contig program: 3 live rounds of 4
+    (4, "contig", True, 4, 2, 256, "fp32", dict(max_segment_len=300)),
+    (4, "zigzag", False, 4, 2, 256, "fp32", dict(fused_topology="bidi")),
+    (5, "zigzag", True, 4, 2, 256, "bf16",
+     dict(fused_topology="bidi", fused_bwd_slots=3, fused_bwd_ccw_slots=3)),
+    (4, "zigzag", True, 4, 2, 256, "fp32", dict(two_axis=(2, 2))),
+    (4, "striped", True, 8, 2, 512, "bf16",
+     dict(two_axis=(2, 2), fused_bwd_slots=3, optimize_bwd_comm=False)),
+    (8, "zigzag", True, 4, 2, 256, "bf16", dict(fused_seq_factor=(2, 4))),
+    (8, "contig", True, 4, 1, 512, "fp32", dict(two_axis=(2, 4))),
+    # more kv tiles than resident CTAs: dk, dv go through the outputs
+    (8, "zigzag", True, 16, 4, 1024, "bf16", {}),
+    (8, "striped", False, 8, 2, 512, "fp32",
+     dict(fused_topology="bidi", fused_bwd_slots=3)),
+)
+# the ring training cell: train_smoke's model at B1 S8192 over sp=4
+RING_TRAIN_SP = 4
+# bf16 gradients of two routes: each rounds its fp32 gradient to bf16 once
+# (two ulps apart at most, 2 * 2^-7 relative), with an absolute floor for
+# entries near zero relative to the largest one
+GRAD_BF16_RTOL, GRAD_BF16_FLOOR = 1.6e-2, 1e-3
+
+
+def _fused_bwd_setup(device, case, seed):
+    """(cfg, ring, (q, k, v, o, lse, do) stacked, bwd program, tables) of
+    one kernel-9 case: o and lse from kernel 8."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring
+
+    w, layout, causal, n, n_kv, s, key, knobs = case
+    cfg, ring, (q, k, v), _, _ = _fused_setup(device, w, layout, causal, n,
+                                              n_kv, s, key, knobs, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1000)
+    do = torch.randn(q.shape, generator=g, device=device).to(q.dtype)
+    reason = fused_ring.supported(cfg, q.shape[1:], k.shape[1:],
+                                  world=ring[1], n_inter=ring[0],
+                                  pass_="bwd", dtype=q.dtype, device=device)
+    assert reason is None, reason
+    o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring)
+    prog, tables, _ = fused_ring.ring_plan(cfg, *ring, s, "bwd")
+    return cfg, ring, (q, k, v, o, lse, do), prog, tables
+
+
+def _resident(w, b, n_kv, s):
+    """Whether kernel 9 keeps dk, dv in registers: no more (b, kv head, kv
+    tile) items than CTAs per position (one CTA per SM)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return b * n_kv * -(-s // 64) <= sms // w
+
+
+def check_fused_ring_bwd(device):
+    """Kernel 9 against fused_ring_bwd_reference over FUSED_BWD_CASES (two
+    launches torch.equal; dq, dk, dv within BWD_RTOL of their largest
+    entry + BWD_ATOL), then REPEATS_W8 launches at W=8 on two slots (each
+    bundle and dq slot rewritten several times a launch), all bitwise
+    equal.  Returns the largest error."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring_bwd
+
+    worst = 0.0
+    for i, case in enumerate(FUSED_BWD_CASES):
+        cfg, ring, args, prog, tables = _fused_bwd_setup(device, case,
+                                                         seed=40 + i)
+        got = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+        again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), "repeat"
+        del again
+        want = fused_ring_bwd.fused_ring_bwd_reference(
+            *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm)
+        w, layout, causal, n, n_kv, s, key, knobs = case
+        what = (f"fused_ring_bwd {key} W={w} {prog.topology} {layout} "
+                f"causal={causal} N{n}/{n_kv} S_local={s} slots="
+                f"{list(prog.slots)} dq slots {list(prog.dq_slots)} "
+                f"rounds {prog.n_rounds} optimize_bwd_comm="
+                f"{cfg.optimize_bwd_comm} resident="
+                f"{_resident(w, 1, n_kv, s)}")
+        errs = _bwd_errs(got, want, what)
+        worst = max([worst] + errs)
+        print(f"{what}: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+              f"{errs[2]:.3e}, two launches equal", flush=True)
+        del got, want, args
+    cfg, ring, args, _, _ = _fused_bwd_setup(
+        device, (8, "zigzag", True, 8, 2, 512, "bf16", {}), seed=99)
+    first = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+    for _ in range(REPEATS_W8 - 1):
+        again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    print(f"fused_ring_bwd W=8 slots=2: {REPEATS_W8} launches bitwise equal",
+          flush=True)
+    return worst
+
+
+def _check_grads_bf16(what, got, want):
+    """bf16 gradients of two routes within GRAD_BF16_RTOL, with an absolute
+    floor of GRAD_BF16_FLOOR times the largest entry; returns the largest
+    max-abs error."""
+    import torch
+
+    errs = []
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        floor = GRAD_BF16_FLOOR * float(b.float().abs().max())
+        torch.testing.assert_close(a, b, rtol=GRAD_BF16_RTOL, atol=floor,
+                                   msg=lambda m: f"{what} {name}: {m}")
+        errs.append(_max_err(a, b))
+    return max(errs)
+
+
+def _bwd_bound(tables, prog, b, n, n_kv, s, d, esz, opt=True):
+    """(bound ms, bound_by, attended pairs) of one kernel-9 launch: the
+    pairs the table's swapped-role specs attend (10 * D flops each: S, dP,
+    dV, dK and dQ); the bytes of q, do, k, v and the bundle's delta and
+    lse read once, of dq, dk, dv (fp32) written once, and of every copy
+    the program makes: each bundle copy-in and send, each dq hop (read and
+    written)."""
+    from burst_attn_tpu_torch.ops import masks
+    from burst_attn_tpu_torch.parallel import schedule as sched_ir
+
+    w = len(tables)
+    pairs = sum(masks.spec_pair_count(masks.MaskSpec(*map(int, t[r, :5])),
+                                      s, s)
+                for t in tables for r in range(prog.n_rounds)) * b * n
+    q_bytes = b * n * s * d * esz
+    kv_bytes = 2 * b * n_kv * s * d * esz
+    stats = 4 * b * n * s
+    bundle = 2 * q_bytes + (stats if opt else q_bytes) + stats
+    copies = w * (sum(prog.rows["send0"]) + sum(prog.rows["send1"])
+                  + len(prog.copy_in))
+    dq_slot = 4 * b * n * s * d
+    dq_hops = w * sum(1 for r in range(prog.n_rounds)
+                      if prog.rows["dq_send"][r] != sched_ir.DQ_NONE)
+    n_bytes = (w * (2 * q_bytes + kv_bytes + 2 * stats)
+               + w * (dq_slot + 4 * 2 * b * n_kv * s * d)
+               + 2 * copies * bundle + 2 * dq_hops * dq_slot)
+    bms, by = bound_ms(n_bytes, 10 * d * pairs)
+    return bms, by, pairs
+
+
+def ring_bwd_op_phase(device):
+    """burst_attn forward + backward at bench.py's headline shape (B1 N32
+    S65536 D128 bf16, causal zigzag, mesh {"sp": 8}): the fused route
+    (kernels 8 and 9, one launch each) against the scan route (kernel 1
+    and the fused flash backward per round: 64 launches each), no
+    fallback, gradients within the bf16 tolerance; kernel 9 called alone
+    gives the fused route's gradients bit for bit and is held against its
+    plain version run by head chunks (8 of 32 heads at a time: all 32
+    would hold ~4 x 8.6 GB of fp32 scores per round); the times of kernel
+    9, of both routes' forward + backward, of the plain version, and of
+    SDPA's backward and forward + backward on the natural-order sequence
+    (the yardstick).  Returns kernel 9's record for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
+    from burst_attn_tpu_torch.parallel import burst, layouts, mesh
+
+    b, n, s, w, d = RING_B, RING_N, RING_S, RING_W, 128
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(17)
+    nat = [torch.randn(b, n, s, d, generator=g, device=device).to(bf16)
+           for _ in range(4)]
+    q, k, v, do = (layouts.to_layout(t, "zigzag", w, 2) for t in nat)
+    kw = dict(mesh={"sp": w}, causal=True, layout="zigzag")
+
+    def grads(backend):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = burst.burst_attn(*leaves, backend=backend, **kw)
+        return torch.autograd.grad(o, leaves, do)
+
+    burst.STATS.clear()
+    _reset_counts()
+    fused = grads("fused_ring")
+    torch.cuda.synchronize()
+    fused_launches = _counts()
+    _reset_counts()
+    scan = grads("auto")
+    torch.cuda.synchronize()
+    scan_launches = _counts()
+    assert fused_launches == _launches(fused_ring_fwd=1, fused_ring_bwd=1), \
+        fused_launches
+    # zigzag skips no round: every position runs all W rounds, both passes
+    assert scan_launches == _launches(flash_fwd=w * w, fused=w * w), \
+        scan_launches
+    assert not any(key.startswith("burst.fused_fallback")
+                   for key in burst.STATS), dict(burst.STATS)
+    assert all(torch.isfinite(x).all() for x in fused)
+    scan_err = _check_grads_bf16("burst_attn gradients fused vs scan",
+                                 fused, scan)
+    del scan
+
+    cfg = burst.BurstConfig(backend="fused_ring", causal=True,
+                            layout="zigzag")
+    qs, ks, vs, dos = (mesh.shard(t, w) for t in (q, k, v, do))
+    o, lse = fused_ring.fused_ring_fwd(qs, ks, vs, cfg, 1, w)
+    kg = fused_ring_bwd.fused_ring_bwd(qs, ks, vs, o, lse, dos, cfg, 1, w)
+    for a, x in zip(kg, fused):
+        assert torch.equal(mesh.unshard(a).to(bf16), x), \
+            "kernel 9 alone differs from burst_attn's fused gradients"
+    del fused
+    prog, tables, _ = fused_ring.ring_plan(cfg, 1, w, s // w, "bwd")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = fused_ring_bwd.fused_ring_bwd_reference(
+        qs, ks, vs, o, lse, dos, prog, tables, d ** -0.5, head_chunk=8)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = _bwd_errs(kg, want, "fused_ring_bwd at the headline shape")
+    del want, kg
+    torch.cuda.empty_cache()
+
+    ms = time_ms(lambda: fused_ring_bwd.fused_ring_bwd(
+        qs, ks, vs, o, lse, dos, cfg, 1, w), iters=2, warmup=0)
+    fused_op_ms = time_ms(lambda: grads("fused_ring"), iters=1, warmup=0)
+    scan_op_ms = time_ms(lambda: grads("auto"), iters=1, warmup=0)
+    del o, lse
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in nat[:3])
+    lib_fb_ms = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=True),
+        (qr, kr, vr), nat[3]), iters=3, warmup=1)
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qr, kr, vr), nat[3], retain_graph=True), iters=3, warmup=1)
+    del out, qr, kr, vr
+    bms, by, pairs = _bwd_bound(tables, prog, b, n, n, s // w, d, 2)
+    print(f"burst_attn forward + backward at B{b} N{n} S{s} D{d} bf16 causal "
+          f"zigzag, mesh {{'sp': {w}}}: fused ring {fused_op_ms:.2f} ms "
+          f"(kernel 9 {ms:.2f} ms, 1 launch), scan ring {scan_op_ms:.2f} ms "
+          f"({scan_launches['flash_fwd']} flash_fwd + "
+          f"{scan_launches['fused']} flash_bwd launches), fused vs scan "
+          f"gradients max_abs_err {scan_err:.3e}; plain version by head "
+          f"chunks {plain_ms:.0f} ms (kernel 9 vs plain dq {errs[0]:.3e} dk "
+          f"{errs[1]:.3e} dv {errs[2]:.3e}); SDPA on the natural-order "
+          f"sequence: backward {lib_ms:.2f} ms, forward + backward "
+          f"{lib_fb_ms:.2f} ms; kernel 9 bound {bms:.3f} ms ({by}); "
+          f"{pairs / 1e9:.3f} G causal pairs", flush=True)
+    return dict(name="fused_ring_bwd", route="cuda",
+                source="burst_attn_tpu_torch/csrc/fused_ring_bwd.cu",
+                replaces="burst_attn_tpu/ops/fused_ring_bwd.py:168",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                op_ms=fused_op_ms, scan_op_ms=scan_op_ms,
+                library_fwd_bwd_ms=lib_fb_ms,
+                fused_vs_scan_grad_err=scan_err)
+
+
+def check_ring_kernels_at(device, what, w, n, n_kv, s, seed, fwd=True,
+                          head_chunk=None):
+    """Kernel 9 (and, with `fwd`, kernel 8) at one op shape of the main
+    path: W = w positions, B1, N{n}/Nk{n_kv}, S_local = s, bf16, causal
+    zigzag, default knobs, on seeded tensors (o and lse from kernel 8).
+    Each kernel launched twice, torch.equal; kernel 8's o within O_TOL and
+    lse within STATS_ATOL of fused_ring_reference; kernel 9's dq, dk, dv
+    within BWD_RTOL/BWD_ATOL of fused_ring_bwd_reference (by head chunks
+    of `head_chunk` heads).  Returns the largest errors (kernel 8's o or
+    0.0 without `fwd`, kernel 9's)."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd
+
+    cfg, ring, args, prog, tables = _fused_bwd_setup(
+        device, (w, "zigzag", True, n, n_kv, s, "bf16", {}), seed=seed)
+    what = f"{what}: bf16 W={w} zigzag causal N{n}/{n_kv} S_local={s}"
+    k8_err = 0.0
+    if fwd:
+        q, k, v, o, lse, _ = args
+        o2, lse2 = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), "repeat"
+        del o2, lse2
+        fprog, ftables, _ = fused_ring.ring_plan(cfg, *ring, s, "fwd")
+        po, plse = fused_ring.fused_ring_reference(q, k, v, fprog, ftables,
+                                                   128 ** -0.5)
+        k8_err = _check_o(f"fused_ring_fwd at {what}", o, po,
+                          torch.bfloat16)
+        lse_err = _max_err(lse, plse)
+        assert lse_err <= STATS_ATOL["bf16"], (what, lse_err)
+        del po, plse
+        print(f"fused_ring_fwd at {what}: max_abs_err={k8_err:.3e} lse "
+              f"{lse_err:.3e}, two launches equal", flush=True)
+    got = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+    again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "repeat"
+    del again
+    t0 = time.perf_counter()
+    want = fused_ring_bwd.fused_ring_bwd_reference(
+        *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm,
+        head_chunk=head_chunk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = _bwd_errs(got, want, f"fused_ring_bwd at {what}")
+    del got, want, args
+    torch.cuda.empty_cache()
+    print(f"fused_ring_bwd at {what} (optimize_bwd_comm="
+          f"{cfg.optimize_bwd_comm}, resident={_resident(w, 1, n_kv, s)}): "
+          f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
+          f"two launches equal; plain version {plain_ms:.0f} ms", flush=True)
+    return k8_err, max(errs)
+
+
+def ring_train_phase(device, single):
+    """make_train_step on the ring: train_smoke's model (bf16, remat, the
+    seed-0 weights of phase 6) at B=1, S=TRAIN_SEQ over mesh {"sp":
+    RING_TRAIN_SP} (zigzag: S_local 2048) on phase 6's batch, for the
+    fused route (attn_backend="fused_ring": kernel 8 twice and kernel 9
+    once per layer and step) and the scan route ("auto": kernel 1 and the
+    fused flash backward per round), each a warm-up and TRAIN_STEPS timed
+    steps: exact launch counts per step, no fallback, losses finite and
+    falling, the first two within CONTROL_RTOL of phase 6's single-device
+    run (`single`: train_phase's result); step ms, tokens/s, MFU and a
+    profiled step per route."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.parallel import burst
+
+    w = RING_TRAIN_SP
+    mesh = {"sp": w}
+    n_layers = TRAIN_DIMS["n_layers"]
+    tcfg = train.TrainConfig()
+    out = {}
+    for backend in ("fused_ring", "auto"):
+        cfg = _train_model(n_layers, torch.bfloat16, attn_backend=backend)
+        state = [_seed_state(cfg, tcfg, device)]
+        batch = train.make_batch(1, cfg, mesh, batch=1, seq=TRAIN_SEQ,
+                                 device=device)
+        step = train.make_train_step(cfg, tcfg, mesh, device=device)
+        burst.STATS.clear()
+        losses, times = [], []
+        for i in range(1 + TRAIN_STEPS):
+            if i == 1:
+                _reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = step(state[0], batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        launches = _counts()
+        per_step = ({"fused_ring_fwd": 2 * n_layers,
+                     "fused_ring_bwd": n_layers} if backend == "fused_ring"
+                    else {"flash_fwd": 2 * n_layers * w * w,
+                          "fused": n_layers * w * w})
+        want = _launches(**{k: v * TRAIN_STEPS for k, v in per_step.items()})
+        assert launches == want, (backend, launches, want)
+        assert not any(key.startswith("burst.fused_fallback")
+                       for key in burst.STATS), dict(burst.STATS)
+        assert all(map(math.isfinite, losses)), losses
+        assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+        diffs = [abs(a - b_) / abs(b_)
+                 for a, b_ in zip(losses, single["losses"])]
+        assert max(diffs[:2]) <= CONTROL_RTOL, (backend, losses,
+                                                single["losses"])
+        step_ms = statistics.median(times[1:])
+        n_params = single["n_params"]
+        attn_flops = (n_layers * 3.5 * 4 * TRAIN_SEQ * TRAIN_SEQ
+                      * TRAIN_DIMS["n_heads"] * TRAIN_DIMS["d_head"] / 2)
+        flops = 6.0 * n_params * TRAIN_SEQ + attn_flops
+        prof = device_breakdown(lambda: step(state[0], batch), 1, top=8)
+        out[backend] = dict(
+            step_ms=step_ms, step_ms_all=times[1:], losses=losses,
+            tokens_per_s=TRAIN_SEQ / (step_ms / 1e3),
+            mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+            launches=launches,
+            launches_per_step={k: v // TRAIN_STEPS
+                               for k, v in launches.items() if v},
+            rel_diff_vs_single=diffs[:2], prof=prof)
+        print(f"ring train step ({backend}, mesh {mesh}, zigzag, bf16, B=1 "
+              f"S={TRAIN_SEQ}): {step_ms:.1f} ms (median of {TRAIN_STEPS}: "
+              f"{[round(t_, 1) for t_ in times[1:]]}), "
+              f"{out[backend]['tokens_per_s']:.0f} tokens/s, MFU "
+              f"{out[backend]['mfu']:.4f}; losses "
+              f"{[round(x, 4) for x in losses]} (single device "
+              f"{[round(x, 4) for x in single['losses']]}, rel diffs "
+              f"{[float(f'{x:.2e}') for x in diffs]}); launches per step "
+              f"{out[backend]['launches_per_step']}", flush=True)
+        print_profile(f"ring train step, {backend}", prof)
+        state[0] = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def ring_train_parity(device, n_layers=2, seq=2048):
+    """One step's loss and gradients at full width, fp32, on the ring
+    (mesh {"sp": RING_TRAIN_SP}, zigzag) through the fused route and the
+    scan route, each against the single-device kernels on the same
+    weights and batch: loss within LOSS_RTOL, every gradient within
+    GRAD_RTOL of its largest entry."""
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import (
+        LAYER_KEYS, init_params, param_leaves,
+    )
+
+    mesh = {"sp": RING_TRAIN_SP}
+    base = _train_model(n_layers, torch.float32)
+    params = init_params(base, seed=0, device=device)
+    leaves = list(param_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def loss_grads(cfg, m):
+        batch = train.make_batch(2, cfg, m, batch=1, seq=seq, device=device)
+        loss = train.loss_fn(params, batch["tokens"], batch["positions"],
+                             batch["labels"], cfg, m)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    loss_1, grads_1 = loss_grads(base, None)
+    names = ["embed"] + [f"layers.{i}.{k}" for i in range(n_layers)
+                         for k in LAYER_KEYS] + ["final_norm", "lm_head"]
+    res = {}
+    for backend in ("fused_ring", "auto"):
+        cfg = _train_model(n_layers, torch.float32, attn_backend=backend)
+        _reset_counts()
+        loss_r, grads_r = loss_grads(cfg, mesh)
+        launches = _counts()
+        loss_err = abs(loss_r - loss_1) / abs(loss_1)
+        assert loss_err <= LOSS_RTOL, (backend, loss_r, loss_1)
+        worst = (0.0, "")
+        for name, a, b_ in zip(names, grads_r, grads_1):
+            ref = float(b_.abs().max())
+            err = _max_err(a, b_)
+            assert err <= GRAD_RTOL * ref + 1e-12, \
+                f"{backend} gradient {name}: max-abs err {err:.3e} of max " \
+                f"{ref:.3e}"
+            worst = max(worst, (err / max(ref, 1e-30), name))
+        print(f"ring train parity fp32 ({backend}, mesh {mesh}, {n_layers} "
+              f"layers at full width, S={seq}): loss {loss_r:.6f} (ring) vs "
+              f"{loss_1:.6f} (one device), rel err {loss_err:.2e}; worst "
+              f"gradient error {worst[0]:.2e} of its largest entry "
+              f"({worst[1]}); launches {launches}", flush=True)
+        res[backend] = dict(loss_rel_err=loss_err, grad_rel_err=worst[0],
+                            grad_worst=worst[1])
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2095,6 +2622,12 @@ def main() -> int:
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], fused_err)
     kernels.append(ring_rec)
     torch.cuda.empty_cache()
+    fused_bwd_err = check_fused_ring_bwd(device)
+    ring_bwd_rec = ring_bwd_op_phase(device)
+    ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"],
+                                      fused_bwd_err)
+    kernels.append(ring_bwd_rec)
+    torch.cuda.empty_cache()
 
     serve_res = serve_engine_phase(device)
     print(f"ServeEngine prefill {len(serve_res['bf16']['prompts'][1])} "
@@ -2117,6 +2650,13 @@ def main() -> int:
     k8_err, k1_err = check_handoff_kernels(device)
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
+    # kernel 9 at the handoff's op shape (kernel 8 was held there above)
+    _, k9_err = check_ring_kernels_at(
+        device, "the handoff's op shape", HANDOFF_SP,
+        SERVE_DIMS["n_heads"], SERVE_DIMS["n_kv_heads"],
+        HANDOFF_PROMPT // HANDOFF_SP, seed=23, fwd=False,
+        head_chunk=SERVE_DIMS["n_heads"] // SERVE_DIMS["n_kv_heads"])
+    ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"], k9_err)
     hand = handoff_phase(device)
     print_profile("handoff prefill, fused ring",
                   hand["prof_prefill_fused_ring"])
@@ -2127,8 +2667,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     tr = train_phase(device)
     print_profile("train step", tr["prof"])
+    # kernels 8 and 9 at the shape the ring train step gives them
+    k8_err, k9_err = check_ring_kernels_at(
+        device, "the ring train step's shape", RING_TRAIN_SP,
+        TRAIN_DIMS["n_heads"], TRAIN_DIMS["n_kv_heads"],
+        TRAIN_SEQ // RING_TRAIN_SP, seed=29)
+    ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
+    ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"], k9_err)
+    ring_tr = ring_train_phase(device, tr)
+    _SEED_PARAMS.clear()  # the training model's seed-0 weights
+    torch.cuda.empty_cache()
     parity = train_parity(device)
+    ring_parity = ring_train_parity(device)
     fit_res = runner_phase(device)
+    ring_fit = runner_phase(device, mesh={"sp": RING_TRAIN_SP})
 
     launches = {"flash_fwd": serve_res["bf16"]["launches"]["flash_fwd"],
                 "paged_decode": serve_res["bf16"]["launches"][
@@ -2138,7 +2690,9 @@ def main() -> int:
                 "flash_bwd_dq": tr["split_launches"]["dq"],
                 "flash_bwd_dkdv": tr["split_launches"]["dkdv"],
                 "fused_ring_fwd": hand["launches_fused_ring"][
-                    "fused_ring_fwd"]}
+                    "fused_ring_fwd"],
+                "fused_ring_bwd": ring_tr["fused_ring"]["launches"][
+                    "fused_ring_bwd"]}
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2153,7 +2707,14 @@ def main() -> int:
         | {"profiled_step_ms": wall, "device_ms": dev, "busy": dev / wall,
            "bwd_split_pair_ms": split_ms,
            "autograd_max_abs_err": autograd_err,
-           "parity": parity, "fit": fit_res}, "card": card}))
+           "parity": parity, "fit": fit_res,
+           "ring": {"mesh": {"sp": RING_TRAIN_SP},
+                    **{route: {k: v for k, v in r.items() if k != "prof"}
+                       | {"profiled_step_ms": r["prof"][0],
+                          "device_ms": r["prof"][1]}
+                       for route, r in ring_tr.items()},
+                    "parity": ring_parity, "fit": ring_fit}},
+        "card": card}))
     print(json.dumps({
         "kernels": [{k: r[k] for k in keys} for r in kernels],
         "card": card,
@@ -2172,6 +2733,9 @@ def main() -> int:
         "ring": {k: ring_rec[k] for k in ("op_ms", "scan_ms",
                                           "scan_launches",
                                           "fused_vs_scan_err")},
+        "ring_bwd": {k: ring_bwd_rec[k] for k in (
+            "op_ms", "scan_op_ms", "library_fwd_bwd_ms",
+            "fused_vs_scan_grad_err")},
         "handoff": {k: v for k, v in hand.items()
                     if not k.startswith("prof_")},
         "seconds": time.perf_counter() - t_start}))

@@ -16,9 +16,10 @@ from burst_attn_tpu_torch.models.transformer import (
     ModelConfig, init_params, param_leaves,
 )
 from burst_attn_tpu_torch.ops import (
-    flash, fused_ring, masks, paged_attention, ragged_paged, tile,
+    flash, fused_ring, fused_ring_bwd, masks, paged_attention, ragged_paged,
+    tile,
 )
-from burst_attn_tpu_torch.parallel import burst, layouts
+from burst_attn_tpu_torch.parallel import burst, layouts, mesh
 from burst_attn_tpu_torch.serving import RaggedServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -528,3 +529,178 @@ def test_burst_attn_fused_matches_scan(dev, layout):
     plain = burst.burst_attn(q.float(), k.float(), v.float(), mesh={"sp": 4},
                              causal=True, layout=layout, backend="jnp")
     torch.testing.assert_close(fused.float(), plain, atol=2e-3, rtol=1.6e-2)
+
+
+# -- the fused ring backward (kernel 9) ---------------------------------------
+
+# (positions, layout, causal, heads, kv heads, local S, dtype, knobs)
+FUSED_BWD_CASES = [
+    # one kv tile per CTA: dk, dv stay in registers across the rounds
+    (2, "zigzag", True, 2, 1, 256, torch.float32, {}),
+    (4, "striped", True, 4, 2, 256, torch.bfloat16,
+     dict(fused_bwd_slots=3, optimize_bwd_comm=False)),
+    (5, "zigzag", True, 4, 2, 256, torch.float32,
+     dict(fused_topology="bidi")),
+    (4, "zigzag", True, 4, 2, 256, torch.bfloat16, dict(two_axis=(2, 2))),
+    # a truncated contig program: 3 live rounds of 4
+    (4, "contig", True, 4, 2, 256, torch.float32, dict(max_segment_len=300)),
+    (3, "zigzag", False, 4, 4, 256, torch.float32, {}),
+    # ragged tiles: S_local 200 is no multiple of the 64-row tiles
+    (3, "zigzag", True, 4, 2, 200, torch.float32, {}),
+    (2, "contig", True, 8, 2, 200, torch.bfloat16,
+     dict(optimize_bwd_comm=False)),
+    # more kv tiles than resident CTAs: dk, dv go through the outputs
+    (8, "zigzag", True, 16, 4, 1024, torch.bfloat16, {}),
+]
+
+
+def _ring_bwd_case(dev, w, layout, causal, n, n_kv, s, dtype, knobs, seed=0):
+    """(cfg, ring, (q, k, v, o, lse, do) stacked, bwd program, tables): o
+    and lse from kernel 8."""
+    cfg, ring, (q, k, v), _, _ = _fused_case(dev, w, layout, causal, n,
+                                             n_kv, s, dtype, knobs, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    do = _rand(g, dev, dtype, *q.shape)
+    assert fused_ring.supported(cfg, q.shape[1:], k.shape[1:], world=ring[1],
+                                n_inter=ring[0], pass_="bwd", dtype=dtype,
+                                device=dev) is None
+    o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring)
+    prog, tables, _ = fused_ring.ring_plan(cfg, *ring, s, "bwd")
+    return cfg, ring, (q, k, v, o, lse, do), prog, tables
+
+
+def _close_to_max(got, want, rtol=1e-4):
+    """Each of got within rtol of the largest entry of its want: fp32
+    gradients differing in summation order (chip_smoke's BWD_RTOL)."""
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a, b, atol=rtol * float(b.abs().max()) + 1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("w,layout,causal,n,n_kv,s,dtype,knobs",
+                         FUSED_BWD_CASES)
+def test_fused_ring_bwd_kernel_matches_plain(dev, w, layout, causal, n, n_kv,
+                                             s, dtype, knobs):
+    cfg, ring, args, prog, tables = _ring_bwd_case(
+        dev, w, layout, causal, n, n_kv, s, dtype, knobs)
+    before = fused_ring_bwd.fused_ring_bwd.launches
+    got = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+    again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+    torch.cuda.synchronize()
+    assert fused_ring_bwd.fused_ring_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fused_ring_bwd.fused_ring_bwd_reference(
+        *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm)
+    _close_to_max(got, want)
+
+
+def test_fused_ring_bwd_kernel_is_bitwise_repeatable(dev):
+    """W=8 on two slots: every bundle and dq slot is rewritten several
+    times a launch; 20 launches must agree bit for bit."""
+    cfg, ring, args, _, _ = _ring_bwd_case(dev, 8, "zigzag", True, 8, 2,
+                                           512, torch.bfloat16, {}, seed=3)
+    first = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+    for _ in range(19):
+        again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("layout", ["zigzag", "striped", "contig"])
+def test_burst_attn_gradients_fused_match_scan(dev, layout):
+    """burst_attn's gradients through kernels 8 and 9 (one launch each)
+    against the scan ring over the flash kernels (bf16, GQA, sp=4), no
+    fallback; both against the plain ring on the same bf16 tensors, whose
+    forward rounds o to bf16 as kernel 8 does.  That rounding moves delta
+    = sum(o * do) and so the gradients, which is why an fp32 ring is not
+    the reference here: the fp32 plain ring's backward run from kernel 8's
+    bf16-rounded o holds kernel 9 to fp32 summation order, and the line
+    printed says how far the fp32 ring's own o moves the gradients."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = [_rand(g, dev, torch.bfloat16, 1, h, 2048, 128) for h in (8, 2, 2)]
+    do = _rand(g, dev, torch.bfloat16, 1, 8, 2048, 128)
+    x = [layouts.to_layout(t, layout, 4, 2) for t in x]
+    do = layouts.to_layout(do, layout, 4, 2)
+    kw = dict(mesh={"sp": 4}, causal=True, layout=layout)
+
+    def grads(backend):
+        leaves = [t.detach().requires_grad_() for t in x]
+        o = burst.burst_attn(*leaves, backend=backend, **kw)
+        return torch.autograd.grad(o, leaves, do)
+
+    burst.STATS.clear()
+    counts = lambda: (fused_ring.fused_ring_fwd.launches,  # noqa: E731
+                      fused_ring_bwd.fused_ring_bwd.launches,
+                      flash.flash_fwd.launches,
+                      flash.flash_bwd.launches["fused"])
+    c0 = counts()
+    fused = grads("fused_ring")
+    c1 = counts()
+    scan = grads("auto")
+    c2 = counts()
+    live = 10 if layout == "contig" else 16  # contig skips future rounds
+    assert [b - a for a, b in zip(c0, c1)] == [1, 1, 0, 0]
+    assert [b - a for a, b in zip(c1, c2)] == [0, 0, live, live]
+    assert not any(key.startswith("burst.fused_fallback")
+                   for key in burst.STATS)
+    plain = grads("jnp")
+    for a, b, c in zip(fused, scan, plain):
+        tol = dict(atol=1e-3 * float(c.float().abs().max()), rtol=1.6e-2)
+        torch.testing.assert_close(a, b, **tol)
+        torch.testing.assert_close(a, c, **tol)
+
+    cfg = burst.BurstConfig(backend="fused_ring", causal=True, layout=layout)
+    qs, ks, vs, dos = (mesh.shard(t, 4) for t in (*x, do))
+    o, lse = fused_ring.fused_ring_fwd(qs, ks, vs, cfg, 1, 4)
+    k9 = fused_ring_bwd.fused_ring_bwd(qs, ks, vs, o, lse, dos, cfg, 1, 4)
+    f32 = [t.float() for t in (qs, ks, vs)]
+    fprog, ftables, _ = fused_ring.ring_plan(cfg, 1, 4, 512, "fwd")
+    o32, lse32 = fused_ring.fused_ring_reference(*f32, fprog, ftables,
+                                                 128 ** -0.5)
+    prog, tables, _ = fused_ring.ring_plan(cfg, 1, 4, 512, "bwd")
+    from_bf16_o = fused_ring_bwd.fused_ring_bwd_reference(
+        *f32, o.float(), lse, dos.float(), prog, tables, 128 ** -0.5)
+    from_fp32_o = fused_ring_bwd.fused_ring_bwd_reference(
+        *f32, o32, lse32, dos.float(), prog, tables, 128 ** -0.5)
+    _close_to_max(k9, from_bf16_o)
+    for name, a, b, c in zip(("dq", "dk", "dv"), k9, from_bf16_o,
+                             from_fp32_o):
+        print(f"{layout} {name}: kernel 9 vs the fp32 ring from fp32 o "
+              f"{float((a - c).abs().max()):.3e}, the fp32 ring from bf16 o "
+              f"vs from fp32 o {float((b - c).abs().max()):.3e} (max "
+              f"{float(c.abs().max()):.3e})")
+
+
+def test_ring_train_step_on_the_card_matches_the_cpu(dev):
+    """Two fp32 train steps on a ring of 4 positions (mesh {"sp": 4},
+    zigzag, the fused ring: kernel 8 twice per layer with remat, kernel 9
+    once) equal the same steps with the plain versions on the CPU, as
+    test_train_step_on_the_card_matches_the_cpu holds one position."""
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_head=128, d_ff=512,
+                      dtype=torch.float32, batch_axis=None, head_axis=None,
+                      attn_backend="fused_ring")
+    mesh = {"sp": 4}
+    tcfg = train.TrainConfig(lr=1e-3)
+    out = {}
+    for where in ("cpu", dev):
+        state = train.init_train_state(0, cfg, tcfg, mesh, device=where)
+        step = train.make_train_step(cfg, tcfg, mesh, device=where)
+        batch = train.make_batch(1, cfg, mesh, batch=2, seq=512,
+                                 device=where)
+        k0 = (fused_ring.fused_ring_fwd.launches,
+              fused_ring_bwd.fused_ring_bwd.launches)
+        metrics = []
+        for i in range(2):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                grads = [t.grad.detach().cpu().clone()
+                         for t in param_leaves(state[0])]
+        moved = (fused_ring.fused_ring_fwd.launches - k0[0],
+                 fused_ring_bwd.fused_ring_bwd.launches - k0[1])
+        assert moved == ((0, 0) if where == "cpu"
+                         else (2 * 2 * cfg.n_layers, 2 * cfg.n_layers))
+        out[str(where)] = metrics, grads
+    (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    _close_to_max(gg, gc)

@@ -371,10 +371,17 @@ def test_burst_attn_declines_and_rejects():
         == 1
     with pytest.raises(ValueError, match="cross-attention"):
         burst_attn(q, kx, kx, mesh={"sp": 2}, causal=True, layout="contig")
-    with pytest.raises(NotImplementedError, match="ring backward"):
-        burst_attn(q.requires_grad_(), q, q, mesh={"sp": 2}, causal=True)
-    q = q.detach()
-    with torch.no_grad():  # no grad asked for: the forward runs
+    # under grad the ring backward runs: a contig ring's gradient is
+    # one-position attention's
+    x = q.clone().requires_grad_()
+    burst_attn(x, x, x, mesh={"sp": 2}, causal=True,
+               layout="contig").sum().backward()
+    y = q.clone().requires_grad_()
+    burst_attn(y, y, y, mesh={"sp": 1}, causal=True,
+               layout="contig").sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(), atol=ATOL,
+                               rtol=0)
+    with torch.no_grad():  # no grad asked for: the forward alone runs
         burst_attn(q.clone().requires_grad_(), q, q, mesh={"sp": 2})
     for kw in (dict(window=8), dict(segment_ids=torch.zeros(1, 32)),
                dict(wire_dtype="int8"), dict(collect_stats=True)):
@@ -389,13 +396,13 @@ def test_burst_attn_declines_and_rejects():
 
 @pytest.mark.parametrize("kw", [
     dict(block_q=64), dict(block_kv=64), dict(block_q_bwd=64),
-    dict(block_kv_bwd=64), dict(optimize_bwd_comm=False),
-    dict(fused_bwd_slots=3), dict(fused_block_q_bwd=64),
-    dict(fused_block_kv_bwd=64), dict(fused_bwd_ccw_slots=3),
+    dict(block_kv_bwd=64), dict(fused_block_q_bwd=64),
+    dict(fused_block_kv_bwd=64),
 ])
 def test_unhonoured_options_raise(kw):
-    """An option the port does not honour yet raises on a value other
-    than its default instead of being ignored; its default runs."""
+    """An option the port does not honour (the flash kernels' fixed tile
+    sizes) raises on a value other than its default instead of being
+    ignored; its default runs."""
     q = torch.randn(1, 2, 32, 16)
     (name, _), = kw.items()
     with pytest.raises(NotImplementedError, match=name):
@@ -404,14 +411,48 @@ def test_unhonoured_options_raise(kw):
     burst_attn(q, q, q, mesh={"sp": 2}, causal=True, **{name: default})
 
 
+@pytest.mark.parametrize("kw", [
+    dict(optimize_bwd_comm=False), dict(fused_bwd_slots=3),
+    dict(fused_bwd_ccw_slots=3, fused_topology="bidi"),
+])
+def test_backward_options_are_honoured(kw):
+    """The ring backward's options: the other payload, more slots for
+    the fused backward's bundle (and its ccw bank) give the gradients of
+    the defaults, through the fused backward's program with those
+    slots."""
+    (name, value), = list(kw.items())[:1]
+    q = torch.randn(1, 2, 48, 16)
+    grads = []
+    for opts in ({}, kw):
+        x = q.clone().requires_grad_()
+        burst_attn(x, x, x, mesh={"sp": 3}, causal=True,
+                   backend="fused_ring", **opts).sum().backward()
+        grads.append(x.grad)
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(),
+                               atol=ATOL, rtol=0)
+    cfg = burst.BurstConfig(causal=True, backend="fused_ring", **kw)
+    prog = fused_ring.ring_plan(cfg, 1, 3, 16, "bwd")[0]
+    if name == "fused_bwd_slots":
+        assert prog.slots == (3,)
+    if name == "fused_bwd_ccw_slots":
+        assert prog.topology == "bidi" and prog.slots[1] == 2  # 1 ccw hop
+    assert getattr(cfg, name) == value
+
+
 def test_reference_entry_points_check_their_options():
-    """burst_attn_func(_striped) raise on deterministic=False (a backward
-    option); case_split takes both values, which compute the same
+    """burst_attn_func(_striped) accept deterministic=False as the JAX
+    package does (both backward routes are deterministic: the gradients
+    are the same); case_split takes both values, which compute the same
     rounds here."""
     q = torch.randn(1, 2, 32, 16)
     for f in (burst.burst_attn_func, burst.burst_attn_func_striped):
-        with pytest.raises(NotImplementedError, match="deterministic"):
-            f(q, q, q, causal=True, deterministic=False, mesh={"sp": 2})
+        grads = []
+        for det in (True, False):
+            x = q.clone().requires_grad_()
+            f(x, x, x, causal=True, deterministic=det,
+              mesh={"sp": 2}).sum().backward()
+            grads.append(x.grad)
+        assert torch.equal(grads[0], grads[1])
     split = burst_attn(q, q, q, mesh={"sp": 2}, causal=True, case_split=True)
     whole = burst_attn(q, q, q, mesh={"sp": 2}, causal=True, case_split=False)
     assert torch.equal(split, whole)

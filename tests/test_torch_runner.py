@@ -20,6 +20,7 @@ from burst_attn_tpu_torch.models.evaluate import Evaluator
 from burst_attn_tpu_torch.models.transformer import (
     ModelConfig, param_leaves, params_from_jax,
 )
+from burst_attn_tpu_torch.parallel import burst
 from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
 
 DIMS = dict(vocab=512, d_model=64, n_layers=1, n_heads=4, n_kv_heads=2,
@@ -125,6 +126,36 @@ def test_evaluator_matches_jax(data_path):
                                rtol=1e-5)
 
 
+def test_fit_on_a_ring_matches_one_position(data_path, tmp_path):
+    """`--mesh sp=2`: the CLI trains and checkpoints on a ring of two
+    positions, and fit on that ring (with its eval) gives one position's
+    losses and eval loss on the same token stream."""
+    argv = ["--data", data_path, "--steps", "1", "--batch", "1",
+            "--seq-len", "64", "--vocab", "512", "--d-model", "64",
+            "--n-layers", "1", "--n-heads", "4", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path / "c"), "--mesh", "sp=2"]
+    runner.main(argv)
+    assert Checkpointer(str(tmp_path / "c")).steps() == [1]
+    run = runner.RunConfig(data_path=data_path, steps=2, batch=2,
+                           seq_len=128, log_every=1, eval_data_path=data_path,
+                           eval_every=2, eval_batches=2)
+    tcfg = train.TrainConfig(lr=1e-3)
+    hist = {}
+    burst.STATS.clear()
+    for mesh in (None, train.make_mesh({"sp": 2})):
+        _, hist[mesh is None] = runner.fit(_cfg(), tcfg, run, mesh,
+                                           device="cpu")
+    # the ring run's attention: a forward and a backward dispatch per
+    # train step, a forward per eval batch
+    assert burst.STATS["burst.dispatch{path=scan,backend=auto,"
+                       "tile=pallas}"] == 2 * 2 + 2
+    for key in ("loss", "eval_loss"):
+        got = [h[key] for h in hist[False] if key in h]
+        want = [h[key] for h in hist[True] if key in h]
+        assert len(got) == len(want) > 0
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 def test_cli_trains_on_the_cpu_and_refuses_a_ring(data_path, tmp_path):
     argv = ["--data", data_path, "--steps", "1", "--batch", "1",
             "--seq-len", "64", "--vocab", "512", "--d-model", "64",
@@ -132,8 +163,10 @@ def test_cli_trains_on_the_cpu_and_refuses_a_ring(data_path, tmp_path):
             "--ckpt-dir", str(tmp_path / "c")]
     runner.main(argv)
     assert Checkpointer(str(tmp_path / "c")).steps() == [1]
-    with pytest.raises(NotImplementedError, match="one device"):
-        runner.main(argv + ["--mesh", "sp=2"])
+    # the sequence ring trains (test_fit_on_a_ring_matches_one_position);
+    # a data-parallel axis is refused
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        runner.main(argv + ["--mesh", "dp=2,sp=2"])
     assert runner._parse_mesh("dp=1,sp=1") == {"dp": 1, "sp": 1}
     with pytest.raises(ValueError):
         runner._parse_mesh("sp1")

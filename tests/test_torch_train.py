@@ -213,9 +213,45 @@ def test_layouts_match_jax(layout, world):
                               np.arange(s))
 
 
+def test_ring_train_steps_match_jax_and_one_position(setup):
+    """Two train steps on a ring of 4 positions (mesh {"sp": 4}, zigzag:
+    attention through the ring forward and backward) against the JAX
+    train step on a 4-device CPU mesh, and against the port's own step on
+    one position from the same weights and batch."""
+    _, tcfg, params_np, x, y = setup
+    jmesh = jtrain.make_mesh({"sp": 4}, devices=jax.devices()[:4])
+    jstep = jtrain.make_train_step(_jcfg(), tcfg, jmesh)
+    jstate = (jax.tree.map(jnp.asarray, params_np),
+              jtrain._optimizer(tcfg).init(
+                  jax.tree.map(jnp.asarray, params_np)))
+    jb = _jbatch(x, y, _jcfg(), jmesh)
+    out = {}
+    for mesh in ({"sp": 4}, None):
+        step = train.make_train_step(_cfg(), tcfg, mesh, device="cpu")
+        state = _state(params_np, tcfg)
+        b = train.batch_from_host(x, y, _cfg(), mesh, device="cpu")
+        out[mesh is None] = [step(state, b)[1] for _ in range(2)], state
+    for _ in range(2):
+        jstate, jm = jstep(jstate, jb)
+    (ring_m, ring_state), (one_m, one_state) = out[False], out[True]
+    for other in (jm, one_m[1]):
+        np.testing.assert_allclose(float(ring_m[1]["loss"]),
+                                   float(other["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(ring_m[1]["grad_norm"]),
+                                   float(other["grad_norm"]), rtol=1e-5)
+    # the rings sum each gradient in another order than one position (and
+    # than each other): the module docstring's 1e-4 where orders meet
+    for p, w, o in zip(param_leaves(ring_state[0]), _jleaves(jstate[0]),
+                       param_leaves(one_state[0])):
+        np.testing.assert_allclose(p.detach().numpy(), w, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(p.detach().numpy(), o.detach().numpy(),
+                                   rtol=0, atol=1e-4)
+
+
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        train.make_mesh({"dp": 2, "sp": 1})
+    for sizes in ({"dp": 2, "sp": 1}, {"sp": 4, "tp": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+            train.make_mesh(sizes)
     with pytest.raises(NotImplementedError):
         train.make_train_step(_cfg(), jtrain.TrainConfig(
             collect_devstats=True), device="cpu")
@@ -225,3 +261,4 @@ def test_unported_paths_raise():
         train.batch_from_host(np.zeros((1, 4)), np.zeros((1, 4)), _cfg(),
                               packed_eos_id=0, device="cpu")
     assert train.make_mesh({"sp": 1}) == {"sp": 1}
+    assert train.make_mesh({"dp": 1, "sp": 4}) == {"dp": 1, "sp": 4}

@@ -50,14 +50,29 @@
 // adds its partial (L2 loads and stores), fences, and increments it.  The
 // kv tiles that see q tile i are always the prefix 0..J-1 (the q loop's
 // start is non-decreasing in j), so j is the right count to wait for.  The
-// kv tile index is blockIdx.x, and blocks are dispatched in increasing
-// linear index, so tile j-1 is resident or finished whenever tile j waits:
-// no deadlock (should that order ever fail, the wait traps after
-// ring_sync.cuh's timeout rather than hang the card).  Each CTA walks its
+// CUDA model does not promise that blocks start in increasing blockIdx,
+// so a CTA does not take its kv tile from blockIdx: thread 0 takes a
+// ticket with one atomicAdd on the word after the counters (zeroed with
+// them), and the ticket decodes to (kv tile j, kv head, batch), j fastest.
+// Tickets follow start order, so the CTA of tile j-1 holds a smaller
+// ticket and has already started when tile j waits on it: it owns an SM
+// and cannot be starved by its waiter, and by induction from tile 0 (which
+// never waits) no wait deadlocks, whatever the dispatch order and however
+// few CTAs are resident (the wait still traps after ring_sync.cuh's
+// timeout rather than hang the card).  The fold order is unchanged: tile j
+// still waits for the count j.  The ticket is decoded in unsigned
+// arithmetic and its ranges are asserted with __builtin_assume: a decoded
+// index of unknown sign and range made the kernel ~4% slower (28.9 against
+// 27.8 ms at B1 N16 S8192 bf16 causal; NVIDIA H100 80GB HBM3, 700.00 W;
+// tools/kernel_ab.py), and so did blockIdx.x plus a ticket-derived zero,
+// while the atomic alone cost 0.1%.  Which instructions carry the cost
+// was not found: every build's loops hold the same FFMA and LDS counts,
+// and the slow blockIdx build has fewer integer instructions in its q loop
+// than the parent and the parent's 202 registers.  Each CTA walks its
 // q tiles from the last down, so every kv tile reaches tile i at the same
-// position in its loop and waits only for the previous tile's add, not for
-// its whole sweep.  fold_dq (flash_bwd_tile.cuh) is the fused ring
-// backward's fold too.
+// position in its loop and waits only for the previous tile's add, not
+// for its whole sweep.
+// fold_dq (flash_bwd_tile.cuh) is the fused ring backward's fold too.
 
 #include "flash_bwd_tile.cuh"
 
@@ -126,10 +141,27 @@ flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   extern __shared__ float4 smem4[];
   const Tiles<D> t(reinterpret_cast<float*>(smem4));
-  const int b = blockIdx.z, hk = blockIdx.y, jt = blockIdx.x;
-  const int j0 = jt * BKV, G = N / Nk;
   const int Sq = mk.Sq, Skv = mk.Skv;
   const int nqb = (Sq + BQ - 1) / BQ;
+  // the split route has no waits and takes its tile from blockIdx; the
+  // fused route decodes a start-order ticket (the word after the fold
+  // counters), kv tile fastest, so a CTA waiting on tile j-1 of its head
+  // waits on a smaller ticket: a CTA that has started and holds an SM
+  int b = blockIdx.z, hk = blockIdx.y, jt = blockIdx.x;
+  if constexpr (FUSED) {
+    const unsigned nkt = gridDim.x;
+    const unsigned tk =
+        (unsigned)take_ticket(counters + (size_t)gridDim.z * N * nqb);
+    jt = (int)(tk % nkt);
+    hk = (int)((tk / nkt) % (unsigned)Nk);
+    b = (int)(tk / (nkt * (unsigned)Nk));
+    // the ranges blockIdx would give: without them the fused kernel ran
+    // ~4% slower (see the note at the top)
+    __builtin_assume(jt >= 0 && jt < (int)gridDim.x);
+    __builtin_assume(hk >= 0 && hk < Nk);
+    __builtin_assume(b >= 0 && b < (int)gridDim.z);
+  }
+  const int j0 = jt * BKV, G = N / Nk;
   const size_t bhk = (size_t)b * Nk + hk;
 
   load_rows<T, D, BKV, NT>(k + bhk * Skv * D, j0, Skv, t.k, Tiles<D>::LD,
@@ -254,7 +286,8 @@ int dispatch(int route, const void* dO, const void* q, const void* k,
 
 // Three entry points with one argument list: the split pair reads only
 // the outputs it writes (dq; dk and dv); the fused kernel needs a zeroed
-// dq and zeroed counters [B, N, ceil(Sq / 64)] int32.
+// dq and zeroed counters [B, N, ceil(Sq / 64)] int32 plus one ticket word
+// after them.
 #define BWD_ARGS                                                            \
   const void *dO, const void *q, const void *k, const void *v,              \
       const void *delta, const void *lse, void *dq, void *dk, void *dv,     \

@@ -199,6 +199,17 @@ __device__ __forceinline__ void store_block(float* __restrict__ dst, int r0,
 }
 
 
+// The CTA's ticket: one atomicAdd on `*ticket` by thread 0, shared with the
+// block.  Tickets are handed out in the order CTAs START, whatever order
+// the hardware dispatches them in, so a CTA holding ticket t knows that
+// every ticket below t belongs to a CTA that is already resident or done.
+__device__ __forceinline__ int take_ticket(int* ticket) {
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(ticket, 1);
+  __syncthreads();
+  return s_ticket;
+}
+
 // Fold this CTA's dq partial (times scale) into q tile i0 of one head's dq
 // [S, D] as kv tile j of the tile's contributors, which fold in increasing
 // j: wait until `*counter` reaches j, add (or, seeding, write) through L2,

@@ -9,7 +9,9 @@
 // f32 + acc [B,N,Sq,D] f32 (all null = statically empty carry).  Outputs m
 // and lse in the natural-log domain and either the raw f32 accumulator or,
 // with EMIT, the normalized output o = acc / l in q's dtype.  The five mask
-// scalars (q_lo, q_hi, kv_hi, causal, offset) arrive by value.
+// scalars (q_lo, q_hi, kv_hi, causal, offset) and the sliding window
+// (window <= 0: none; else row r sees columns above r + offset - window)
+// arrive by value.
 //
 // What bounds it on an H100: tensor FLOPs — causal prefill at S=2048,
 // N=16, D=128 is ~17 GFLOP per call against ~8 MB of traffic, far above the
@@ -19,9 +21,11 @@
 // the design does about the bound: one CTA per (b, h, 64-row q tile) keeps
 // Q resident in shared memory and streams 64-row K/V tiles, so device
 // memory is read ~once per q tile; the kv loop stops at the causal
-// diagonal (and at kv_hi), so dead tiles cost nothing — the CUDA
-// counterpart of the TPU kernel's triangular grid.  Ragged lengths are
-// masked in-kernel (no padding to a tile multiple).  wgmma/TMA come later.
+// diagonal (and at kv_hi), and with a window starts at the band's first
+// tile, so dead tiles cost nothing — the CUDA counterpart of the TPU
+// kernel's triangular and band grids: a windowed prefill costs
+// O(S * window), not O(S^2).  Ragged lengths are masked in-kernel (no
+// padding to a tile multiple).  wgmma/TMA come later.
 //
 // Softmax runs in base 2 (q pre-scaled by scale*log2e, exp2f), like the TPU
 // kernel; m and lse are converted back to natural log at the end.
@@ -35,7 +39,7 @@ using flash::BQ;
 using flash::NT;
 using flash::RPT;
 
-template <typename T, bool EMIT, int D>
+template <typename T, bool EMIT, int D, bool WIN>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ m_in,
@@ -43,7 +47,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ acc_in, float* __restrict__ m_out,
                  float* __restrict__ lse_out, void* __restrict__ out_raw,
                  int N, int Nk, int Sq, int Skv, float scale_log2, int q_lo,
-                 int q_hi, int kv_hi, int causal, int offset) {
+                 int q_hi, int kv_hi, int causal, int offset, int window) {
   constexpr int DC = flash::Rows<D>::DC;
   using OutT = typename std::conditional<EMIT, T, float>::type;
 
@@ -81,9 +85,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  flash::fold<T, D, false>(st, sQ, sK, sV, k + bhk * Skv * D,
+  flash::fold<T, D, false, WIN>(st, sQ, sK, sV, k + bhk * Skv * D,
                            v + bhk * Skv * D, Skv, q0, Sq, q_lo, q_hi, kv_hi,
-                           causal, offset);
+                           causal, offset, window);
 
   OutT* out = reinterpret_cast<OutT*>(out_raw);
 #pragma unroll
@@ -107,24 +111,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool EMIT, int D>
+template <typename T, bool EMIT, int D, bool WIN>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* m_in, const void* lse_in, const void* acc_in,
                    void* m_out, void* lse_out, void* out, int B, int N, int Nk,
                    int Sq, int Skv, float scale, int q_lo, int q_hi,
-                   int kv_hi, int causal, int offset, cudaStream_t stream) {
+                   int kv_hi, int causal, int offset, int window,
+                   cudaStream_t stream) {
   static bool smem_set = false;
   const size_t smem = flash::smem_bytes<D>();
   cudaError_t e =
-      allow_smem(flash_fwd_kernel<T, EMIT, D>, smem, &smem_set);
+      allow_smem(flash_fwd_kernel<T, EMIT, D, WIN>, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, N, B);
-  flash_fwd_kernel<T, EMIT, D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, EMIT, D, WIN><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(m_in),
       static_cast<const float*>(lse_in), static_cast<const float*>(acc_in),
       static_cast<float*>(m_out), static_cast<float*>(lse_out), out, N, Nk,
-      Sq, Skv, scale * kLog2e, q_lo, q_hi, kv_hi, causal, offset);
+      Sq, Skv, scale * kLog2e, q_lo, q_hi, kv_hi, causal, offset, window);
   return cudaGetLastError();
 }
 
@@ -134,14 +139,17 @@ cudaError_t dispatch_emit(int emit_o, const void* q, const void* k,
                           const void* acc_in, void* m_out, void* lse_out,
                           void* out, int B, int N, int Nk, int Sq, int Skv,
                           float scale, int q_lo, int q_hi, int kv_hi,
-                          int causal, int offset, cudaStream_t stream) {
+                          int causal, int offset, int window,
+                          cudaStream_t stream) {
+#define FWD_ARGS                                                            \
+  q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, B, N, Nk, Sq, Skv,    \
+      scale, q_lo, q_hi, kv_hi, causal, offset, window, stream
   if (emit_o)
-    return launch<T, true, D>(q, k, v, m_in, lse_in, acc_in, m_out, lse_out,
-                              out, B, N, Nk, Sq, Skv, scale, q_lo, q_hi,
-                              kv_hi, causal, offset, stream);
-  return launch<T, false, D>(q, k, v, m_in, lse_in, acc_in, m_out, lse_out,
-                             out, B, N, Nk, Sq, Skv, scale, q_lo, q_hi,
-                             kv_hi, causal, offset, stream);
+    return window > 0 ? launch<T, true, D, true>(FWD_ARGS)
+                      : launch<T, true, D, false>(FWD_ARGS);
+  return window > 0 ? launch<T, false, D, true>(FWD_ARGS)
+                    : launch<T, false, D, false>(FWD_ARGS);
+#undef FWD_ARGS
 }
 
 template <int D>
@@ -151,15 +159,15 @@ cudaError_t dispatch_dtype(int dtype, int emit_o, const void* q,
                            void* m_out, void* lse_out, void* out, int B,
                            int N, int Nk, int Sq, int Skv, float scale,
                            int q_lo, int q_hi, int kv_hi, int causal,
-                           int offset, cudaStream_t stream) {
+                           int offset, int window, cudaStream_t stream) {
   if (dtype == kBFloat16)
     return dispatch_emit<__nv_bfloat16, D>(
         emit_o, q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, B, N, Nk,
-        Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset, stream);
+        Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset, window, stream);
   if (dtype == kFloat32)
     return dispatch_emit<float, D>(
         emit_o, q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, B, N, Nk,
-        Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset, stream);
+        Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset, window, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -171,14 +179,14 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* lse_out, void* out, int B, int N,
                                 int Nk, int Sq, int Skv, int D, int dtype,
                                 float scale, int q_lo, int q_hi, int kv_hi,
-                                int causal, int offset, int emit_o,
-                                void* stream) {
+                                int causal, int offset, int window,
+                                int emit_o, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N % Nk != 0) return (int)cudaErrorInvalidValue;
   if (D == 128)
     return (int)dispatch_dtype<128>(dtype, emit_o, q, k, v, m_in, lse_in,
                                     acc_in, m_out, lse_out, out, B, N, Nk, Sq,
                                     Skv, scale, q_lo, q_hi, kv_hi, causal,
-                                    offset, st);
+                                    offset, window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -90,15 +90,22 @@ struct Rows {
 // row 0 — into the state of q rows q0 .. q0+BQ-1, whose pre-scaled values
 // are in sQ.  Tiles past the last visible column (no active row, kv_hi,
 // the causal diagonal of the tile's last row) are skipped; every element
-// is masked by (q_lo, q_hi, kv_hi, causal, offset).  CG reads K/V through
-// L2 only.  All threads take part; on return sK/sV may be refilled after
-// a __syncthreads().
-template <typename T, int D, bool CG>
+// is masked by (q_lo, q_hi, kv_hi, causal, offset).  WIN adds the
+// sliding-window band `window` (the fused ring passes none yet): row r
+// sees only columns above r + offset - window, and the loop starts at the
+// tile holding the first active row's lowest column, so tiles below the
+// band are never loaded and a CTA's cost follows the window, not the
+// sequence (the TPU kernel's band grid, pallas_flash.py fwd_band_nb, as a
+// loop bound).  WIN is a template flag so that the unwindowed instance
+// compiles to the same code as before the band existed.  CG reads K/V
+// through L2 only.  All threads take part; on return sK/sV may be
+// refilled after a __syncthreads().
+template <typename T, int D, bool CG, bool WIN = false>
 __device__ __forceinline__ void fold(Rows<D>& st, const float* sQ, float* sK,
                                      float* sV, const T* kb, const T* vb,
                                      int Skv, int q0, int Sq, int q_lo,
                                      int q_hi, int kv_hi, int causal,
-                                     int offset) {
+                                     int offset, int window = 0) {
   constexpr int LDK = D + 4;  // padded: conflict-free float4 row reads
   constexpr int LDP = BKV + 1;
   constexpr int DC = Rows<D>::DC;
@@ -116,8 +123,11 @@ __device__ __forceinline__ void fold(Rows<D>& st, const float* sQ, float* sK,
     c_end = min(kv_hi, Skv);
     if (causal) c_end = min(c_end, r_hi + offset);
   }
+  // the band's lowest column over the tile's rows is the first row's
+  const int c_begin =
+      WIN ? max(0, r_lo + offset - window + 1) / BKV * BKV : 0;
 
-  for (int j0 = 0; j0 < c_end; j0 += BKV) {
+  for (int j0 = c_begin; j0 < c_end; j0 += BKV) {
     __syncthreads();  // the previous tile's P/V readers are done
     if constexpr (CG) {
       load_rows_cg<T, D, BKV>(kb, j0, Skv, sK, LDK);
@@ -157,7 +167,8 @@ __device__ __forceinline__ void fold(Rows<D>& st, const float* sQ, float* sK,
       for (int c = 0; c < CPT; ++c) {
         const int col = j0 + tx + 16 * c;
         const bool ok = row_ok && col < kv_hi && col < Skv &&
-                        (!causal || col <= row + offset);
+                        (!causal || col <= row + offset) &&
+                        (!WIN || col > row + offset - window);
         s[i][c] = ok ? s[i][c] : neg_inf();
         mx = fmaxf(mx, s[i][c]);
       }

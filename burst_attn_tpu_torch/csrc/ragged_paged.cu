@@ -6,18 +6,19 @@
 // (slot, kv-head, q-block, page-slot) with the page tables, lengths and
 // context bounds delivered by scalar prefetch.  Full-precision pools and
 // int8 / fp8 e4m3 pools with per-token fp32 scales; the split-k hooks
-// (ctx_lo, emit_partials) of the grouped shared-prefix front end.  No
-// window.
+// (ctx_lo, emit_partials) of the grouped shared-prefix front end; the
+// sliding window.
 //
 // Contract: q [S,Nq,QT,D] bf16/fp32; k/v pages [P,Nkv,page,D] in q's dtype
 // or 1 B/elem with scales [P,Nkv,page] fp32; page_table [S,width], q_lens
 // [S], kv_lens [S] (including this launch's tokens) and optional ctx_lo [S],
 // all int32.  Query token t of slot s sits at kv_lens[s] - q_lens[s] + t
 // and sees the positions at or below it, except whole pages below
-// ctx_lo[s].  Output [S,Nq,QT,D] in q's dtype, or (emit_partials) the
-// unnormalised fp32 accumulator [S,Nq,QT,D] with the base-2 running max m
-// and sum l [S,Nq,QT]; rows at or past q_lens[s] (and idle slots) give
-// zeros, or acc 0 / m -inf / l 0.
+// ctx_lo[s] and, with window > 0, the positions below its band (a token
+// at position qp sees qp - window + 1 .. qp).  Output [S,Nq,QT,D] in q's
+// dtype, or (emit_partials) the unnormalised fp32 accumulator [S,Nq,QT,D]
+// with the base-2 running max m and sum l [S,Nq,QT]; rows at or past
+// q_lens[s] (and idle slots) give zeros, or acc 0 / m -inf / l 0.
 //
 // What bounds it on an H100: for a decode-heavy batch, device-memory bytes
 // (each live K/V row read once per slot and kv head); for a batch of long
@@ -26,13 +27,15 @@
 // (slot, kv head, block of bq query tokens), the G query heads of the kv
 // head folded into the block's rows (bq * G <= 64), so GQA shares every
 // loaded chunk; a block of at most 16 rows (a decode batch) runs an
-// instance sized for 16, as the decode kernel is.  Each CTA reads its own page ids from the table and loops
-// only over the pages from ctx_lo//page up to its last query token's
-// position: pages above the causal edge are never loaded, so cost follows
-// each slot's length, and an idle slot or an all-padding block writes its
-// zeros and exits.  K/V go through shared memory in 64-token chunks, and
-// the online softmax (fp32, base 2, q pre-scaled by scale*log2e) is the
-// update the decode kernel runs (common.cuh PagedRows), so a QT == 1 batch
+// instance sized for 16, as the decode kernel is.  Each CTA reads its own
+// page ids from the table and loops only over the pages from the larger of
+// ctx_lo//page and its first query token's window band up to its last
+// query token's position, skipping the 64-token chunks wholly below that
+// band: pages above the causal edge or below the window are never loaded,
+// so cost follows each slot's length (or window), and an idle slot or an
+// all-padding block writes its zeros and exits.  K/V go through shared
+// memory in 64-token chunks, and the online softmax (fp32, base 2, q
+// pre-scaled by scale*log2e) is the update the decode kernel runs (common.cuh PagedRows), so a QT == 1 batch
 // is bit-identical to paged_decode.cu.  The TPU kernel's sublane padding,
 // group folding copies and clamped dead-page fetches have no counterpart.
 // Not yet done: tensor cores (wgmma) for the prefill rows, TMA, and a
@@ -60,7 +63,7 @@ constexpr size_t smem_bytes() {
                           3 * ROWS + 2 * CH);
 }
 
-template <typename T, typename KV, int D, int ROWS, bool QUANT>
+template <typename T, typename KV, int D, int ROWS, bool QUANT, bool WIN>
 __global__ void __launch_bounds__(NT)
 ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
               const KV* __restrict__ vp, const float* __restrict__ ks,
@@ -69,7 +72,7 @@ ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
               const int* __restrict__ ctx_lo, T* __restrict__ out,
               float* __restrict__ acc_out, float* __restrict__ m_out,
               float* __restrict__ l_out, int Nkv, int G, int QT, int page,
-              int width, int bq, float scale_log2) {
+              int width, int bq, int window, float scale_log2) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sK = sQ + ROWS * D;
@@ -122,15 +125,23 @@ ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const int p_max = q_start + min(q_len, t0q + bq) - 1;
   const int lo = ctx_lo != nullptr ? ctx_lo[s] : 0;
   const int p_end = min(p_max / page, width - 1);
+  // the band of the block's first token starts lowest: every row's band
+  // lies at or above it (the same start as the decode kernel's for QT=1);
+  // WIN is a template flag so that the unwindowed instance compiles to the
+  // same code as before the band existed
+  const int band_lo = WIN ? q_start + t0q - window + 1 : 0;
 
   PagedRows<ROWS> st;
   st.init();
-  for (int p = max(lo, 0) / page; p <= p_end; ++p) {
+  for (int p = WIN ? max(max(lo, 0) / page, max(band_lo, 0) / page)
+                   : max(lo, 0) / page;
+       p <= p_end; ++p) {
     const int pid = table[(size_t)s * width + p];
     const size_t head0 = ((size_t)pid * Nkv + h) * page;  // token row
     for (int c0 = 0; c0 < page; c0 += CH) {
       const int t0 = p * page + c0;  // position of the chunk's first token
       if (t0 > p_max) break;
+      if (WIN && t0 + CH <= band_lo) continue;  // below every row's band
       __syncthreads();  // the previous chunk's readers are done
       load_paged_chunk<KV, D, QUANT>(kp, vp, ks, vs, head0 + c0, sK, sV,
                                      sKs, sVs);
@@ -138,7 +149,8 @@ ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       st.template chunk<D, QUANT>(
           sQ, sK, sV, sKs, sVs, sS, sA, rows, [&](int r, int t) {
             const int tq = t0q + r / G;
-            return tq < q_len && t0 + t <= q_start + tq;
+            return tq < q_len && t0 + t <= q_start + tq &&
+                   (!WIN || t0 + t > q_start + tq - window);
           });
     }
   }
@@ -170,19 +182,19 @@ ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 struct Args {
   const void *q, *kp, *vp, *ks, *vs, *table, *q_lens, *kv_lens, *ctx_lo;
   void *out, *acc, *m, *l;
-  int S, Nkv, G, QT, page, width;
+  int S, Nkv, G, QT, page, width, window;
   float scale;
 };
 
-template <typename T, typename KV, int D, int ROWS, bool QUANT>
-cudaError_t launch_rows(const Args& a, int bq, cudaStream_t stream) {
+template <typename T, typename KV, int D, int ROWS, bool QUANT, bool WIN>
+cudaError_t launch_rows_win(const Args& a, int bq, cudaStream_t stream) {
   static bool smem_set = false;
   const size_t smem = smem_bytes<D, ROWS>();
   cudaError_t e =
-      allow_smem(ragged_kernel<T, KV, D, ROWS, QUANT>, smem, &smem_set);
+      allow_smem(ragged_kernel<T, KV, D, ROWS, QUANT, WIN>, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.QT + bq - 1) / bq, a.Nkv, a.S);
-  ragged_kernel<T, KV, D, ROWS, QUANT><<<grid, NT, smem, stream>>>(
+  ragged_kernel<T, KV, D, ROWS, QUANT, WIN><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
       static_cast<const KV*>(a.vp), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.table),
@@ -190,8 +202,15 @@ cudaError_t launch_rows(const Args& a, int bq, cudaStream_t stream) {
       static_cast<const int*>(a.ctx_lo), static_cast<T*>(a.out),
       static_cast<float*>(a.acc), static_cast<float*>(a.m),
       static_cast<float*>(a.l), a.Nkv, a.G, a.QT, a.page, a.width, bq,
-      a.scale * kLog2e);
+      a.window, a.scale * kLog2e);
   return cudaGetLastError();
+}
+
+template <typename T, typename KV, int D, int ROWS, bool QUANT>
+cudaError_t launch_rows(const Args& a, int bq, cudaStream_t stream) {
+  if (a.window > 0)
+    return launch_rows_win<T, KV, D, ROWS, QUANT, true>(a, bq, stream);
+  return launch_rows_win<T, KV, D, ROWS, QUANT, false>(a, bq, stream);
 }
 
 template <typename T, typename KV, int D, bool QUANT>
@@ -221,16 +240,18 @@ extern "C" int ragged_paged_launch(
     const void* k_scales, const void* v_scales, const void* table,
     const void* q_lens, const void* kv_lens, const void* ctx_lo, void* out,
     void* acc, void* m, void* l, int S, int Nkv, int G, int QT, int D,
-    int page, int width, int dtype, int kv_dtype, float scale, void* stream) {
+    int page, int width, int window, int dtype, int kv_dtype, float scale,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || G > MAXR || page % CH != 0 || D != 128 || QT < 1)
     return (int)cudaErrorInvalidValue;
   if ((out == nullptr) == (acc == nullptr) ||
       (acc != nullptr && (m == nullptr || l == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Args a{q,       k_pages, v_pages, k_scales, v_scales, table, q_lens,
-               kv_lens, ctx_lo,  out,     acc,      m,        l,     S,
-               Nkv,     G,       QT,      page,     width,    scale};
+  const Args a{q,     k_pages, v_pages, k_scales, v_scales, table,
+               q_lens, kv_lens, ctx_lo,  out,      acc,      m,
+               l,      S,       Nkv,     G,        QT,       page,
+               width,  window,  scale};
   if (dtype == kBFloat16)
     return (int)dispatch_pool<__nv_bfloat16, 128>(kv_dtype, dtype, a, st);
   if (dtype == kFloat32)

@@ -1,23 +1,168 @@
-"""Sampling and prompt attention for inference (port of the parts of
-burst_attn_tpu/models/decode.py the serving path uses)."""
+"""Autoregressive inference with a dense KV cache, sampling, and the
+prompt attention the serving paths share (port of
+burst_attn_tpu/models/decode.py).
 
-from typing import Optional
+  * The cache is a pair of preallocated [B, Nkv, max_seq, D] buffers per
+    layer; each forward writes its tokens' K/V at the current length IN
+    PLACE (the JAX function returns a new cache; here the same buffers are
+    returned, so call sites keep the JAX shape `logits, cache = ...`).
+  * `prefill` absorbs a prompt in one pass through the flash kernel (a
+    CUDA tensor) or the plain tile (a CPU one); later tokens attend the
+    cache in plain torch with the grouped query axis, as the JAX path does
+    outside its kernels.  A sliding `cfg.window` bands both.
+  * `generate` is a Python loop over single-token forwards (JAX's
+    lax.scan); greedy or sampled through `sample_logits`.
+
+Speculative serving on this path is not ported yet.
+"""
+
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops.flash import flash_attention
 from ..ops.tile import single_device_attention
+from .transformer import (
+    ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
+)
 
 
-def _flash_prompt_attention(q, k, v):
+class LayerCache(NamedTuple):
+    k: torch.Tensor  # [B, Nkv, max_seq, D]
+    v: torch.Tensor  # [B, Nkv, max_seq, D]
+
+
+class Cache(NamedTuple):
+    layers: Tuple[LayerCache, ...]
+    length: int  # valid cache positions (a host int: no device read)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None) -> Cache:
+    """Zeroed [batch, Nkv, max_seq, D] K/V buffers per layer in cfg.dtype,
+    length 0."""
+    dev = resolve_device(device)
+    shape = (batch, cfg.n_kv_heads, max_seq, cfg.d_head)
+    layers = tuple(
+        LayerCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   torch.zeros(shape, dtype=cfg.dtype, device=dev))
+        for _ in range(cfg.n_layers))
+    return Cache(layers, 0)
+
+
+def _flash_prompt_attention(q, k, v, window=None):
     """Causal self-attention over a fresh prompt, q [B, N, T, D], k/v
-    [B, Nkv, T, D] -> o [B, N, T, D].  A CUDA tensor takes the flash
-    kernel, which masks the ragged tail itself (no padding to a tile
-    multiple); a CPU tensor takes the plain single_device_attention."""
+    [B, Nkv, T, D] -> o [B, N, T, D]; `window` bands it.  A CUDA tensor
+    takes the flash kernel, which masks the ragged tail itself (no padding
+    to a tile multiple) and skips the tiles below the band; a CPU tensor
+    takes the plain single_device_attention."""
     if q.device.type == "cuda":
         return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), None, True)
-    return single_device_attention(q, k, v, causal=True)
+                               v.contiguous(), None, True, window=window)
+    return single_device_attention(q, k, v, causal=True, window=window)
+
+
+def _cached_attention(p, x, positions, lc: LayerCache, cache_len: int,
+                      cfg: ModelConfig, fresh: bool = False):
+    """Attend the T new tokens against cache positions [0, cache_len + T),
+    writing their K/V at cache_len IN PLACE; returns the block's attention
+    output [B, T, d].  `fresh` marks an empty cache: the prompt attends
+    only to itself, through the flash path."""
+    t = x.shape[1]
+    q, k, v = _qkv_proj(p, x, positions, cfg)
+    lc.k[:, :, cache_len:cache_len + t] = k.to(lc.k.dtype)
+    lc.v[:, :, cache_len:cache_len + t] = v.to(lc.v.dtype)
+    if fresh:
+        o = _flash_prompt_attention(q, k.to(lc.k.dtype), v.to(lc.v.dtype),
+                                    window=cfg.window)
+    else:
+        # GQA via a grouped query axis: the cache is never repeated
+        group = cfg.n_heads // cfg.n_kv_heads
+        b = q.shape[0]
+        qg = q.reshape(b, cfg.n_kv_heads, group, t, cfg.d_head)
+        s = torch.einsum("bngih,bnjh->bngij", qg.float(),
+                         lc.k.float()) * (cfg.d_head ** -0.5)
+        rows = torch.arange(t, device=x.device)[:, None]
+        cols = torch.arange(lc.k.shape[2], device=x.device)[None, :]
+        visible = cols <= cache_len + rows
+        if cfg.window is not None:
+            # the query at position cache_len + row sees its last `window`
+            visible = visible & (cols > cache_len + rows - cfg.window)
+        s = s.masked_fill(~visible, float("-inf"))
+        prob = torch.softmax(s, dim=-1).to(lc.v.dtype)
+        o = torch.einsum("bngij,bnjh->bngih", prob, lc.v)
+        o = o.reshape(b, cfg.n_heads, t, cfg.d_head)
+    return _attn_out(p, o)
+
+
+def _forward_cached_impl(params, tokens, positions, cache: Cache,
+                         cfg: ModelConfig, *, fresh: bool):
+    """`fresh` asserts the cache is EMPTY (only `prefill` passes it): the
+    prompt then takes the O(T)-memory flash path, which ignores cache
+    contents."""
+    x = params["embed"][tokens].to(cfg.dtype)
+    for p, lc in zip(params["layers"], cache.layers):
+        x = x + _cached_attention(p, x, positions, lc, cache.length, cfg,
+                                  fresh=fresh)
+        x = x + _mlp(p, x)
+    logits = _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])
+    return logits, Cache(cache.layers, cache.length + tokens.shape[1])
+
+
+def forward_cached(params, tokens, positions, cache: Cache,
+                   cfg: ModelConfig):
+    """One cached forward over T new tokens: tokens, positions [B, T] int
+    (natural order) -> (fp32 logits [B, T, vocab], the cache with length
+    += T; its buffers were written in place)."""
+    if cache.length + tokens.shape[1] > cache.layers[0].k.shape[2]:
+        raise ValueError(f"{tokens.shape[1]} tokens at length "
+                         f"{cache.length} exceed max_seq "
+                         f"{cache.layers[0].k.shape[2]}")
+    return _forward_cached_impl(params, tokens, positions, cache, cfg,
+                                fresh=False)
+
+
+def prefill(params, tokens, cfg: ModelConfig, max_seq: int):
+    """Absorb a [B, T] prompt in one pass into a fresh cache on the
+    tokens' device.  Returns (fp32 logits [B, T, vocab], cache)."""
+    b, t = tokens.shape
+    if t > max_seq:
+        raise ValueError(f"prompt length {t} exceeds max_seq {max_seq}")
+    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
+    return _forward_cached_impl(params, tokens, positions, cache, cfg,
+                                fresh=True)
+
+
+def generate(params, prompt, cfg: ModelConfig, *, steps: int, max_seq: int,
+             temperature: float = 0.0, top_k=None, top_p=None,
+             rng: Optional[torch.Generator] = None):
+    """Greedy (temperature=0) or sampled generation: prompt [B, T] int on
+    the params' device -> [B, steps] int64 tokens.  The first token comes
+    from the prefill's last logits, each later one from a single-token
+    cached forward (JAX's scan body); sampled draws come from `rng`."""
+    prompt = torch.as_tensor(prompt, device=params["embed"].device).long()
+    b = prompt.shape[0]
+    if prompt.shape[1] + steps > max_seq:
+        raise ValueError("prompt + steps exceeds max_seq")
+    if steps < 1:
+        return prompt.new_zeros((b, 0))
+
+    def pick(logits_last):
+        return sample_logits(logits_last, rng, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+
+    with torch.no_grad():
+        logits, cache = prefill(params, prompt, cfg, max_seq)
+        toks = [pick(logits[:, -1])]
+        for _ in range(steps - 1):
+            positions = torch.full((b, 1), cache.length,
+                                   device=prompt.device)
+            logits, cache = forward_cached(params, toks[-1][:, None],
+                                           positions, cache, cfg)
+            toks.append(pick(logits[:, -1]))
+    return torch.stack(toks, dim=1)
 
 
 def sample_logits(logits, generator: Optional[torch.Generator] = None, *,

@@ -11,7 +11,8 @@ ops/paged_attention.py.
   * `paged_prefill` absorbs a prompt into freshly acquired pages (flash
     attention over the contiguous prompt, then a scatter of the rope'd K/V
     into the pages); `paged_decode_step` appends one token per live slot
-    and attends through the paged kernel.
+    and attends through the paged kernel.  A windowed model (cfg.window)
+    bands both; the pages keep every token, as in the JAX package.
 
 In-place updates: the JAX functions donate the state and return a new
 one.  Here the pools, table and lengths are updated IN PLACE (index_put_ /
@@ -390,7 +391,7 @@ def _prefill(params, tokens, state: PagedState, ids, slot, cfg):
         q, k, v = _qkv_proj(p, x, pos, cfg)
         # the prompt attends its own full-precision K/V; only the pool
         # stores the (possibly quantized) copies
-        o = _flash_prompt_attention(q, k, v)
+        o = _flash_prompt_attention(q, k, v, window=cfg.window)
         pad = (0, 0, 0, t_pad - t)
         _scatter_pages(state.k_pages[li], F.pad(k, pad), page_ids,
                        state.k_scales[li] if quant else None)
@@ -451,7 +452,8 @@ def paged_decode_step(params, tokens, state: PagedState, cfg: ModelConfig,
         _write_tokens(vp, vs, page_id, offset, v[:, :, 0])
         qg = q.reshape(slots, cfg.n_kv_heads, group, cfg.d_head).contiguous()
         o = paged_decode_attention(qg, kp, vp, state.page_table, new_lengths,
-                                   k_scales=ks, v_scales=vs)
+                                   k_scales=ks, v_scales=vs,
+                                   window=cfg.window)
         o = o.reshape(slots, cfg.n_heads, 1, cfg.d_head)
         x = x + _attn_out(p, o)
         x = x + _mlp(p, x)

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.flash import flash_attention
+from ..ops.masks import check_window
 from ..ops.tile import single_device_attention
 from ..parallel.burst import burst_attn
 
@@ -53,6 +54,8 @@ class ModelConfig:
     attn_strategy: str = "burst"
     layout: str = "zigzag"
     attn_backend: str = "auto"
+    # sliding-window causal attention (tokens each query may see, itself
+    # included); needs layout="contig" and causal, as in the JAX package
     window: Optional[int] = None
     seq_axes: Tuple[str, ...] = ("sp",)
     batch_axis: Optional[str] = "dp"
@@ -72,8 +75,7 @@ class ModelConfig:
             raise NotImplementedError("MoE layers are not ported yet")
         if self.pp_axis is not None:
             raise NotImplementedError("pipeline parallelism is not ported yet")
-        if self.window is not None:
-            raise NotImplementedError("window attention is not ported yet")
+        check_window(self.window, self.layout, self.causal)
         if self.attn_strategy != "burst":
             raise NotImplementedError(
                 f"attn_strategy {self.attn_strategy!r} is not ported yet")
@@ -223,9 +225,9 @@ def _block(x, p, positions, cfg: ModelConfig, mesh=None):
     if ring_world(cfg, mesh) > 1:
         o = burst_attn(q, k, v, mesh=dict(mesh), seq_axes=cfg.seq_axes,
                        causal=cfg.causal, layout=cfg.layout,
-                       backend=cfg.attn_backend)
+                       backend=cfg.attn_backend, window=cfg.window)
     else:
-        o = flash_attention(q, k, v, causal=cfg.causal)
+        o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
     x = x + _attn_out(p, o)
     return x + _mlp(p, x)
 
@@ -290,12 +292,13 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
 
 def forward(params: Params, tokens, positions, cfg: ModelConfig):
     """Dense single-device forward: tokens, positions [B, S] int -> fp32
-    logits [B, S, vocab].  Causal attention through the plain tile
-    (single_device_attention), no kernels: the plain reference the serving
-    checks teacher-force against."""
+    logits [B, S, vocab].  Causal attention (banded by cfg.window) through
+    the plain tile (single_device_attention), no kernels: the plain
+    reference the serving checks teacher-force against."""
     x = params["embed"][tokens].to(cfg.dtype)
     for p in params["layers"]:
         q, k, v = _qkv_proj(p, x, positions, cfg)
-        x = x + _attn_out(p, single_device_attention(q, k, v, causal=True))
+        x = x + _attn_out(p, single_device_attention(q, k, v, causal=True,
+                                                     window=cfg.window))
         x = x + _mlp(p, x)
     return _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])

@@ -38,9 +38,9 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_fwd": {
         # q k v m_in lse_in acc_in m_out lse_out out,
-        # B N Nk Sq Skv D dtype, scale, q_lo q_hi kv_hi causal offset emit_o,
-        # stream
-        "flash_fwd_launch": [P] * 9 + [I] * 7 + [F] + [I] * 6 + [P],
+        # B N Nk Sq Skv D dtype, scale, q_lo q_hi kv_hi causal offset window
+        # emit_o, stream
+        "flash_fwd_launch": [P] * 9 + [I] * 7 + [F] + [I] * 7 + [P],
     },
     "flash_bwd": {
         # dO q k v delta lse dq dk dv counters, B N Nk Sq Skv D dtype,
@@ -51,8 +51,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "paged_decode": {
         # q k_pages v_pages k_scales v_scales table lengths out,
-        # B Nkv G D page width dtype kv_dtype, scale, stream
-        "paged_decode_launch": [P] * 8 + [I] * 8 + [F] + [P],
+        # B Nkv G D page width window dtype kv_dtype, scale, stream
+        "paged_decode_launch": [P] * 8 + [I] * 9 + [F] + [P],
     },
     "fused_ring_fwd": {
         # D dtype, &max_blocks
@@ -72,8 +72,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "ragged_paged": {
         # q k_pages v_pages k_scales v_scales table q_lens kv_lens ctx_lo
-        # out acc m l, S Nkv G QT D page width dtype kv_dtype, scale, stream
-        "ragged_paged_launch": [P] * 13 + [I] * 9 + [F] + [P],
+        # out acc m l, S Nkv G QT D page width window dtype kv_dtype, scale,
+        # stream
+        "ragged_paged_launch": [P] * 13 + [I] * 10 + [F] + [P],
+    },
+    "step_probe": {
+        # q pool out sums, bq bkv d n_pool steps matmul n_cta, stream
+        "step_probe_launch": [P] * 4 + [I] * 7 + [P],
     },
 }
 

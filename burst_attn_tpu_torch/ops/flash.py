@@ -10,7 +10,9 @@ tensors the wrappers launch the hand-written kernels in csrc/flash_fwd.cu
 and csrc/flash_bwd.cu (or raise); for CPU tensors they run the plain
 versions, `tile_fwd`/`finalize` and `tile_bwd`.  The TPU kernels' grid
 tricks (triangular and band grids, block tuning) have no counterpart: on
-Hopper each CTA loops over the tiles up to its causal diagonal.
+Hopper each CTA loops over the tiles from the first its window band meets
+up to its causal diagonal.  The forward takes a sliding `window`; the
+backward's band (kernels 2-5) comes with the windowed-training slice.
 """
 
 import torch
@@ -57,9 +59,13 @@ def flash_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, *, window=None,
     acc [B,N,S,D] f32; lse in the natural-log domain.  `spec` holds host
     ints.  A CUDA tensor launches csrc/flash_fwd.cu (bf16 or fp32, D = 128,
     contiguous); a CPU tensor runs tile_fwd.
-    `window`/`segments` are not ported yet."""
-    if window is not None or segments is not None:
-        raise NotImplementedError("window/segments are not ported yet")
+    `window` (>= 1) keeps each row's last `window` visible columns: cols >
+    row + offset - window (masks.dense_mask).  `segments` is not ported
+    yet."""
+    if segments is not None:
+        raise NotImplementedError("segments are not ported yet")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     carry = m is not None
     if not (lse is None) == (acc is None) == (not carry):
         raise ValueError("m, lse, acc must be all None (empty carry) or "
@@ -74,17 +80,19 @@ def flash_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, *, window=None,
     if q.device.type == "cpu":
         if not carry:
             m, lse, acc = init_state(b, n, s_q, d, device=q.device)
-        m, lse, acc = tile_fwd(q, k, v, m, lse, acc, scale, spec)
+        m, lse, acc = tile_fwd(q, k, v, m, lse, acc, scale, spec,
+                               window=window)
         if emit_o:
             return m, lse, finalize(m, lse, acc, q.dtype)
         return m, lse, acc
-    return _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, emit_o)
+    return _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window,
+                           emit_o)
 
 
 flash_fwd.launches = 0
 
 
-def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, emit_o):
+def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window, emit_o):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu tensors, got {dev}")
@@ -117,7 +125,8 @@ def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, emit_o):
             _ptr(acc), m_out.data_ptr(), lse_out.data_ptr(), out.data_ptr(),
             b, n, n_kv, s_q, s_kv, d, KERNEL_DTYPES[q.dtype], float(scale),
             int(spec.q_lo), int(spec.q_hi), int(spec.kv_hi),
-            int(spec.causal), int(spec.offset), int(emit_o), stream)
+            int(spec.causal), int(spec.offset),
+            0 if window is None else int(window), int(emit_o), stream)
     _build.check(err, "flash_fwd")
     flash_fwd.launches += 1
     return m_out, lse_out, out
@@ -139,10 +148,14 @@ def flash_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, *, fused=None,
     kernel, which is deterministic like the TPU's.  `triangular` is the
     TPU's wrapped-diagonal grid; here every causal CTA already starts at
     the diagonal, so it changes nothing.  A CPU tensor runs tile_bwd.
-    `window`/`segments` are not ported yet."""
+    `window` and `segments` are not ported yet."""
     del triangular
-    if window is not None or segments is not None:
-        raise NotImplementedError("window/segments are not ported yet")
+    if window is not None:
+        raise NotImplementedError(
+            "the windowed flash backward is not ported yet: the band in "
+            "kernels 2-5 comes with the windowed-training slice")
+    if segments is not None:
+        raise NotImplementedError("segments are not ported yet")
     b, n, s_q, d = q.shape
     n_kv, s_kv = k.shape[1], k.shape[2]
     if tuple(do.shape) != tuple(q.shape):
@@ -184,9 +197,10 @@ def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split):
     if split:
         dq = torch.empty(q.shape, **f32)
         counters = None
-    else:  # the ordered dq fold adds into zeros, counted per q tile
+    else:  # the ordered dq fold adds into zeros, counted per q tile;
+        # the last word is the CTAs' start-order ticket
         dq = torch.zeros(q.shape, **f32)
-        counters = torch.zeros((b, n, -(-s_q // BWD_TILE_Q)),
+        counters = torch.zeros(b * n * -(-s_q // BWD_TILE_Q) + 1,
                                dtype=torch.int32, device=dev)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -212,12 +226,13 @@ class _FlashAttention(torch.autograd.Function):
     the flash backward (pallas_flash.py's custom_vjp, l.2052-2123)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, fused):
+    def forward(ctx, q, k, v, scale, causal, fused, window):
         spec = round_spec(0, 0, q.shape[2], k.shape[2], causal, "contig")
         _, lse, o = flash_fwd(q, k, v, None, None, None, scale, spec,
-                              emit_o=True)
+                              window=window, emit_o=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.spec, ctx.fused = scale, spec, fused
+        ctx.window = window
         return o
 
     @staticmethod
@@ -226,19 +241,25 @@ class _FlashAttention(torch.autograd.Function):
         delta = (o.float() * do.float()).sum(-1)
         dq, dk, dv = flash_bwd(do.contiguous(), q, k, v, delta, lse,
                                ctx.scale, ctx.spec, fused=ctx.fused,
-                               triangular=bool(ctx.spec.causal))
+                               triangular=bool(ctx.spec.causal),
+                               window=ctx.window)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None)
+                None, None)
 
 
-def flash_attention(q, k, v, scale=None, causal=False, *, fused=None):
+def flash_attention(q, k, v, scale=None, causal=False, *, fused=None,
+                    window=None):
     """Single-device flash attention: q [B,N,S,D], k, v [B,Nk,S,D] ->
     o [B,N,S,D] in q's dtype, differentiable.  The forward is one
     `flash_fwd` with an empty carry and the fused finalize (it keeps lse);
     the backward computes delta = sum(o * do) in fp32 and runs one
     `flash_bwd` (`fused` as there: False takes the split pair), then casts
     the gradients to the inputs' dtypes.  Under `torch.no_grad()`
-    (serving) only the forward runs."""
+    (serving) only the forward runs.  `window` (causal only) is the
+    sliding-window band of the forward; its backward raises until the
+    windowed-training slice."""
+    if window is not None and not causal:
+        raise ValueError("window attention requires causal=True")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, scale, causal, fused)
+    return _FlashAttention.apply(q, k, v, scale, causal, fused, window)

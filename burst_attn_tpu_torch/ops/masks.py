@@ -23,9 +23,15 @@ The three layouts' causal rounds (rank p of a W ring; s local tokens):
 Besides the specs: `spec_live` (does a round attend anything),
 `spec_pair_count` (attended pairs, the O(s) closed form of the dense
 mask's sum), and the occupancy tables the schedule compiler truncates
-rings with (`live_delta_table`, `live_round_prefix`).  `window` is not
-ported yet and raises; `max_segment_len` (a promise about packed
-segment lengths) is.
+rings with (`live_delta_table`, `live_round_prefix`).
+
+`window` (sliding-window causal attention: the query at position p sees
+positions p - window + 1 .. p) is ported for one device: `dense_mask`,
+`spec_live` and `spec_pair_count` take it, and so do the kernels behind
+them.  The ring helpers (`round_spec`, `live_delta_table`,
+`live_round_prefix`) still raise for it: the windowed contig ring and its
+truncated programs are the windowed-training slice.  `max_segment_len`
+(a promise about packed segment lengths) is ported.
 """
 
 from typing import NamedTuple
@@ -51,17 +57,39 @@ def full_spec(s_q: int, s_kv: int) -> MaskSpec:
 LAYOUTS = ("contig", "zigzag", "striped")
 
 
-def _no_window(window):
+def _no_ring_window(window):
     if window is not None:
-        raise NotImplementedError("window attention is not ported yet")
+        raise NotImplementedError(
+            "window attention on a ring (round_spec, the live-round tables) "
+            "is not ported yet: it comes with the windowed-training slice "
+            "(backward band in kernels 2-5, r_live in kernels 8-9)")
+
+
+def check_window(window, layout="contig", causal=True) -> None:
+    """The JAX package's window checks (burst_attn_tpu/parallel/burst.py
+    BurstConfig): a window needs layout="contig", causal=True and
+    window >= 1.  None passes."""
+    if window is None:
+        return
+    if layout != "contig":
+        raise ValueError(
+            "window attention requires layout='contig' (the zigzag/striped "
+            "load-balancing permutations break the band structure); got "
+            f"layout={layout!r}")
+    if not causal:
+        raise ValueError("window attention requires causal=True")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
 
 
 def round_spec(q_part: int, kv_part: int, s_q: int, s_kv: int, causal: bool,
                layout: str, window=None) -> MaskSpec:
     """Mask spec for one ring round: q_part / kv_part are the global
     partition ids of the query and key/value chunks, s_q / s_kv the local
-    lengths (see the module docstring for each layout's cases)."""
-    _no_window(window)
+    lengths (see the module docstring for each layout's cases).  A
+    one-device caller with a window takes the (0, 0) contig causal spec
+    and passes the window beside it."""
+    _no_ring_window(window)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected one of "
                          f"{LAYOUTS}")
@@ -83,25 +111,29 @@ def round_spec(q_part: int, kv_part: int, s_q: int, s_kv: int, causal: bool,
 def spec_live(spec: MaskSpec, window=None) -> bool:
     """Does ANY (row, col) of this round's tile attend?  False for a
     contig causal ring's future rounds (q_hi == 0): the ring skips their
-    kernel launch altogether."""
-    _no_window(window)
+    kernel launch altogether.  With a window, also False when the band's
+    lowest column (row q_lo's) lies past the last kv column."""
     live = spec.q_hi > spec.q_lo and spec.kv_hi > 0
     # causal: some row must see col 0 (the earliest col of the chunk)
-    return bool(live and (not spec.causal
-                          or spec.q_hi - 1 + spec.offset >= 0))
+    live = live and (not spec.causal or spec.q_hi - 1 + spec.offset >= 0)
+    if window is not None:
+        live = live and spec.q_lo + spec.offset - window + 1 <= spec.kv_hi - 1
+    return bool(live)
 
 
 def spec_pair_count(spec: MaskSpec, s_q: int, s_kv: int, window=None) -> int:
     """Number of attending (row, col) pairs of one round's tile: each row
-    in [q_lo, q_hi) sees the clamped column range [0, min(kv_hi - 1,
-    i + offset)] (causal) or [0, kv_hi) — the sum of dense_mask without
-    materializing it."""
-    _no_window(window)
+    in [q_lo, q_hi) sees the clamped column range [max(0, i + offset -
+    window + 1), min(kv_hi - 1, i + offset)] (causal, the window band) or
+    [0, kv_hi) — the sum of dense_mask without materializing it."""
     rows = np.arange(int(s_q), dtype=np.int64)
     in_row = (rows >= spec.q_lo) & (rows < spec.q_hi)
     hi = (np.minimum(spec.kv_hi - 1, rows + spec.offset) if spec.causal
           else np.full_like(rows, spec.kv_hi - 1))
-    n = np.clip(hi + 1, 0, int(s_kv))
+    lo = np.zeros_like(rows)
+    if window is not None and spec.causal:
+        lo = np.maximum(lo, rows + spec.offset - window + 1)
+    n = np.clip(hi - lo + 1, 0, int(s_kv))
     return int(np.sum(np.where(in_row, n, 0)))
 
 
@@ -128,7 +160,7 @@ def live_delta_table(layout: str, s: int, world: int, *, causal: bool,
     promise about the ids the caller feeds, not checked per batch;
     zigzag/striped interleave token ranges per shard and ignore it.
     Offset 0 (the self round) is always live."""
-    _no_window(window)
+    _no_ring_window(window)
     if world < 1:
         raise ValueError(f"need world >= 1, got {world}")
     live = [True]
@@ -159,14 +191,17 @@ def live_round_prefix(layout: str, s: int, world: int, *, causal: bool,
     return k + 1 if all(live[:k + 1]) else world
 
 
-def dense_mask(spec: MaskSpec, s_q: int, s_kv: int, device=None
-               ) -> torch.Tensor:
+def dense_mask(spec: MaskSpec, s_q: int, s_kv: int, device=None,
+               window=None) -> torch.Tensor:
     """Materialize the [s_q, s_kv] boolean mask (True = attend): the
     oracle the plain tile uses; the kernel computes the same predicate
-    per element."""
+    per element.  `window` keeps only the last `window` visible columns
+    of each row's causal range: cols > rows + offset - window."""
     rows = torch.arange(s_q, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(s_kv, dtype=torch.int64, device=device)[None, :]
     m = (rows >= spec.q_lo) & (rows < spec.q_hi) & (cols < spec.kv_hi)
     if spec.causal:
         m = m & (cols <= rows + spec.offset)
+    if window is not None:
+        m = m & (cols > rows + spec.offset - window)
     return m

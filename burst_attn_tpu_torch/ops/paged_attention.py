@@ -14,7 +14,9 @@ padding of G to 8 sublanes is a TPU tiling artefact and is not carried
 over.  Pools are in q's dtype, or 1 B/elem (int8 / fp8 e4m3fn) with
 per-token fp32 scales from `quantize_tokens`: the kernel dequantizes as a
 column rescale of the scores and of the probabilities, as the TPU kernel
-does; the plain version dequantizes the whole pool first.
+does; the plain version dequantizes the whole pool first.  A sliding
+`window` limits the new token to the positions at or above max(len -
+window, 0); the kernel starts its page walk there.
 """
 
 import torch
@@ -94,11 +96,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     lengths    [B] int32         live tokens per sequence (0 = empty)
     k_scales / v_scales  [P, Nkv, page] fp32 per-token dequant scales of a
                                  quantized pool: both or neither
+    window     int >= 1 or None  sliding window: the new token (at position
+                                 len - 1) sees positions >= len - window
 
-    Returns [B, Nkv, G, D] in q's dtype; empty sequences give zeros.
-    `window` is not ported yet."""
-    if window is not None:
-        raise NotImplementedError("window is not ported yet")
+    Returns [B, Nkv, G, D] in q's dtype; empty sequences give zeros."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be given together")
     if scale is None:
@@ -106,9 +109,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pages, v_pages, page_table,
                                       lengths, scale=scale,
-                                      k_scales=k_scales, v_scales=v_scales)
+                                      k_scales=k_scales, v_scales=v_scales,
+                                      window=window)
     return _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths,
-                              k_scales, v_scales, scale)
+                              k_scales, v_scales, scale, window)
 
 
 paged_decode_attention.launches = 0
@@ -144,7 +148,7 @@ def data_ptr(t):
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, k_scales,
-                       v_scales, scale):
+                       v_scales, scale, window):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu "
@@ -176,17 +180,20 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, k_scales,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             data_ptr(k_scales), data_ptr(v_scales), page_table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), b, n_kv, g, d, page, width,
-            KERNEL_DTYPES[q.dtype], kv_code, float(scale), stream)
+            0 if window is None else int(window), KERNEL_DTYPES[q.dtype],
+            kv_code, float(scale), stream)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
 
 def paged_decode_reference(q, k_pages, v_pages, page_table, lengths,
-                           scale=None, k_scales=None, v_scales=None):
+                           scale=None, k_scales=None, v_scales=None,
+                           window=None):
     """Plain version of the kernel: gathers each sequence's pages into a
     contiguous cache (dequantized first for a quantized pool) and runs
-    dense masked attention in fp32.  O(B·S·page) memory."""
+    dense masked attention in fp32, positions below max(len - window, 0)
+    masked with a window.  O(B·S·page) memory."""
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
@@ -194,7 +201,10 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, lengths,
     v = gather_pages(v_pages, v_scales, page_table)
     s = torch.einsum("bngd,bnjd->bngj", q.float(), k.float()) * scale
     pos = torch.arange(k.shape[2], device=q.device)[None, :]
-    valid = (pos < lengths[:, None])[:, None, None, :]
+    valid = pos < lengths[:, None]
+    if window is not None:
+        valid &= pos >= (lengths[:, None] - window).clamp(min=0)
+    valid = valid[:, None, None, :]
     s = s.masked_fill(~valid, float("-inf"))
     p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)  # all-masked -> 0
     return torch.einsum("bngj,bnjd->bngd", p, v.float()).to(q.dtype)

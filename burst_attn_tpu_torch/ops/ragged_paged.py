@@ -4,7 +4,8 @@ launch for a mixed prefill+decode token batch against the paged KV pool.
 Each slot brings its own query token count `q_lens[s]` (0 = idle, 1 =
 decode, up to the chunk width = prefill); query token t of slot s sits at
 absolute position `kv_lens[s] - q_lens[s] + t` and sees the pool positions
-at or below it.  `ragged_paged_attention` launches the hand-written kernel
+at or below it (with a sliding `window`, only its last `window` of
+them).  `ragged_paged_attention` launches the hand-written kernel
 in csrc/ragged_paged.cu for CUDA tensors (or raises) and runs the plain
 version for CPU tensors.  A pure-decode batch (QT == 1) through the kernel
 is bitwise `paged_decode_attention` on the same pool: both kernels run one
@@ -93,14 +94,16 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_lens, kv_lens,
                                  scales of a quantized pool, both or neither
     ctx_lo     [S] int32         page-aligned lower context bound: whole
                                  pages below it are excluded
+    window     int >= 1 or None  sliding window: the token at position qp
+                                 sees qp - window + 1 .. qp
     emit_partials                return the unnormalized split-k partial
                                  (acc [S,Nq,QT,D], m [S,Nq,QT,1],
                                  l [S,Nq,QT,1], fp32, base-2 softmax
                                  domain) instead of the output
 
-    Returns [S, Nq, QT, D] in q's dtype.  `window` is not ported yet."""
-    if window is not None:
-        raise NotImplementedError("window is not ported yet")
+    Returns [S, Nq, QT, D] in q's dtype."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be given together")
     if q.shape[1] % k_pages.shape[1]:
@@ -112,19 +115,20 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, q_lens, kv_lens,
         acc, m, l = ragged_paged_partials_reference(
             q, k_pages, v_pages, page_table, q_lens, kv_lens,
             k_scales=k_scales, v_scales=v_scales, scale=scale,
-            ctx_lo=ctx_lo)
+            ctx_lo=ctx_lo, window=window)
         if emit_partials:
             return acc, m, l
         return _normalize(acc, l, q.dtype)
     return _ragged_cuda(q, k_pages, v_pages, page_table, q_lens, kv_lens,
-                        k_scales, v_scales, scale, ctx_lo, emit_partials)
+                        k_scales, v_scales, scale, ctx_lo, emit_partials,
+                        window)
 
 
 ragged_paged_attention.launches = 0
 
 
 def _ragged_cuda(q, k_pages, v_pages, page_table, q_lens, kv_lens, k_scales,
-                 v_scales, scale, ctx_lo, emit_partials):
+                 v_scales, scale, ctx_lo, emit_partials, window):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu "
@@ -162,7 +166,8 @@ def _ragged_cuda(q, k_pages, v_pages, page_table, q_lens, kv_lens, k_scales,
             data_ptr(k_scales), data_ptr(v_scales), page_table.data_ptr(),
             q_lens.data_ptr(), kv_lens.data_ptr(), data_ptr(ctx_lo),
             data_ptr(out), data_ptr(acc), data_ptr(m), data_ptr(l),
-            s, n_kv, n_q // n_kv, qt, d, page, width, KERNEL_DTYPES[q.dtype],
+            s, n_kv, n_q // n_kv, qt, d, page, width,
+            0 if window is None else int(window), KERNEL_DTYPES[q.dtype],
             kv_code, float(scale), stream)
     _build.check(err, "ragged_paged_attention")
     ragged_paged_attention.launches += 1
@@ -174,14 +179,17 @@ def _normalize(acc, l, dtype):
     return (acc / torch.where(l > 0, l, 1.0)).to(dtype)
 
 
-def _visible(q_lens, kv_lens, qt, n_pos, page, ctx_lo=None):
+def _visible(q_lens, kv_lens, qt, n_pos, page, ctx_lo=None, window=None):
     """[S, QT, n_pos] bool: query token t of slot s sees pool position j.
-    Padding rows (t >= q_lens) see nothing; ctx_lo drops whole pages."""
+    Padding rows (t >= q_lens) see nothing; ctx_lo drops whole pages; a
+    window drops the positions below each token's band."""
     dev = q_lens.device
     t = torch.arange(qt, device=dev)
     col = torch.arange(n_pos, device=dev)
     qp = (kv_lens - q_lens).long()[:, None] + t[None, :]       # [S, QT]
     valid = col[None, None, :] <= qp[:, :, None]
+    if window is not None:
+        valid &= col[None, None, :] > qp[:, :, None] - window
     valid &= (t[None, :] < q_lens[:, None])[:, :, None]
     if ctx_lo is not None:
         lo = (ctx_lo.long() // page) * page
@@ -191,7 +199,8 @@ def _visible(q_lens, kv_lens, qt, n_pos, page, ctx_lo=None):
 
 def ragged_paged_partials_reference(q, k_pages, v_pages, page_table, q_lens,
                                     kv_lens, *, k_scales=None,
-                                    v_scales=None, scale=None, ctx_lo=None):
+                                    v_scales=None, scale=None, ctx_lo=None,
+                                    window=None):
     """Plain version of the kernel's split-k partials: dequantizes the
     gathered pages, then a masked base-2 softmax in fp32 without the final
     division.  Returns (acc [S,Nq,QT,D], m [S,Nq,QT,1], l [S,Nq,QT,1]);
@@ -206,8 +215,8 @@ def ragged_paged_partials_reference(q, k_pages, v_pages, page_table, q_lens,
     v = gather_pages(v_pages, v_scales, page_table).float()
     qg = q.reshape(s, n_kv, group, qt, d).float()
     sc = torch.einsum("bngtd,bnjd->bngtj", qg, k) * (scale * LOG2E)
-    valid = _visible(q_lens, kv_lens, qt, k.shape[2], page,
-                     ctx_lo)[:, None, None]                  # [S,1,1,QT,T]
+    valid = _visible(q_lens, kv_lens, qt, k.shape[2], page, ctx_lo,
+                     window)[:, None, None]                  # [S,1,1,QT,T]
     sc = sc.masked_fill(~valid, float("-inf"))
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp2(sc - torch.where(
@@ -220,13 +229,13 @@ def ragged_paged_partials_reference(q, k_pages, v_pages, page_table, q_lens,
 
 def ragged_paged_reference(q, k_pages, v_pages, page_table, q_lens, kv_lens,
                            *, k_scales=None, v_scales=None, scale=None,
-                           ctx_lo=None):
+                           ctx_lo=None, window=None):
     """Plain version of the kernel: dense-gathers every slot's pages and
-    runs the masked softmax with the per-row causal band.  Padding rows
-    (t >= q_lens) and idle slots give zeros."""
+    runs the masked softmax with the per-row causal (and window) band.
+    Padding rows (t >= q_lens) and idle slots give zeros."""
     acc, _, l = ragged_paged_partials_reference(
         q, k_pages, v_pages, page_table, q_lens, kv_lens, k_scales=k_scales,
-        v_scales=v_scales, scale=scale, ctx_lo=ctx_lo)
+        v_scales=v_scales, scale=scale, ctx_lo=ctx_lo, window=window)
     return _normalize(acc, l, q.dtype)
 
 
@@ -245,7 +254,10 @@ def ragged_paged_attention_grouped(
 
     Every member's shared pages are a prefix of its own page table, and
     causal masking is per query row, so a query inside the shared band
-    sees exactly the positions at or below its own.  The private band is
+    sees exactly the positions at or below its own.  A window masks both
+    bands per row; a shared prefix wholly below a row's band leaves that
+    row's shared partial empty (m = -inf, l = 0), which the merge adds as
+    nothing.  The private band is
     the kernel with `ctx_lo` at the shared boundary and emit_partials; the
     shared band and the merge are plain torch in the kernel's base-2
     domain, with the -inf guards of the kernel's alpha rule.  Returns
@@ -284,10 +296,15 @@ def ragged_paged_attention_grouped(
     col = torch.arange(n_sh * page, device=q.device)
     valid = col[None, None, :] <= qp[:, :, None]
     valid &= col[None, None, :] < lens[:, None, None]
+    if window is not None:
+        valid &= col[None, None, :] > qp[:, :, None] - window
     valid = valid[:, None, None]
     sc = torch.where(valid, sc, float("-inf"))
     m_s = sc.amax(dim=-1, keepdim=True)                       # [S,Nkv,G,QT,1]
-    p = torch.where(valid, torch.exp2(sc - m_s), 0.0)
+    # a row with no shared column keeps m = -inf; subtract 0 there so no
+    # -inf - -inf NaN is ever formed
+    p = torch.where(valid, torch.exp2(sc - torch.where(
+        torch.isfinite(m_s), m_s, 0.0)), 0.0)
     l_s = p.sum(dim=-1, keepdim=True)
     if quant:
         p = p * flat(v_scales)[:, :, None, None, :]

@@ -44,12 +44,13 @@ def _expand_kv(x, n_q_heads):
     return x.repeat_interleave(n_q_heads // n_kv, dim=1)
 
 
-def tile_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec):
-    """One online-softmax round; returns updated (m, lse, acc)."""
+def tile_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, window=None):
+    """One online-softmax round; returns updated (m, lse, acc).
+    `window`: the sliding-window lower bound (masks.dense_mask)."""
     s_q, s_kv = q.shape[2], k.shape[2]
     k = _expand_kv(k, q.shape[1])
     v = _expand_kv(v, q.shape[1])
-    mask = dense_mask(spec, s_q, s_kv, device=q.device)
+    mask = dense_mask(spec, s_q, s_kv, device=q.device, window=window)
 
     s = torch.einsum("bnid,bnjd->bnij", q.float(), k.float()) * scale
     s = s.masked_fill(~mask, NEG_INF)
@@ -106,13 +107,17 @@ def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec):
     return dq, dk, dv
 
 
-def single_device_attention(q, k, v, scale=None, causal=False):
+def single_device_attention(q, k, v, scale=None, causal=False,
+                            window=None):
     """Full attention on one device via the plain tile (a one-round
-    "ring").  GQA is expanded inside the tile."""
+    "ring").  GQA is expanded inside the tile.  `window` (causal only)
+    limits each query to its last `window` positions."""
+    if window is not None and not causal:
+        raise ValueError("window attention requires causal=True")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, n, s, d = q.shape
     spec = round_spec(0, 0, s, k.shape[2], causal, "contig")
     m, lse, acc = init_state(b, n, s, d, device=q.device)
-    m, lse, acc = tile_fwd(q, k, v, m, lse, acc, scale, spec)
+    m, lse, acc = tile_fwd(q, k, v, m, lse, acc, scale, spec, window=window)
     return finalize(m, lse, acc, q.dtype)

@@ -58,7 +58,9 @@ import torch
 
 from ..ops import fused_ring, fused_ring_bwd
 from ..ops.flash import flash_bwd, flash_fwd
-from ..ops.masks import LAYOUTS, live_round_prefix, round_spec, spec_live
+from ..ops.masks import (
+    LAYOUTS, check_window, live_round_prefix, round_spec, spec_live,
+)
 from ..ops.tile import finalize, init_state, tile_bwd, tile_fwd
 from .mesh import as_mesh, ppermute, shard, unshard
 from .ring import partition_at_round, ring_coords, ring_round_counts
@@ -129,7 +131,11 @@ class BurstConfig:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{self.backend!r}")
         if self.window is not None:
-            raise NotImplementedError("window attention is not ported yet")
+            check_window(self.window, self.layout, self.causal)
+            raise NotImplementedError(
+                "window attention on the ring is not ported yet: the "
+                "windowed contig ring comes with the windowed-training slice "
+                "(backward band in kernels 2-5, r_live in kernels 8-9)")
         for name, why in _UNPORTED.items():
             if getattr(self, name) != _DEFAULTS[name]:
                 raise NotImplementedError(

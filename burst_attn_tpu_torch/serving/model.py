@@ -10,7 +10,7 @@ admission, retirement and chunking change no shape.
 `attn` selects the attention: "ragged" is the one-launch kernel
 (ops/ragged_paged.py); "grouped" its shared-prefix front end; "dense" the
 gather-based route the engine takes when `ragged_supported` declines the
-shape — same math, O(slots·max_ctx) memory.
+shape — same math, O(slots·max_ctx) memory.  Each takes cfg.window.
 
 In place: the JAX step donates the state and returns a new one; here the
 pools, scale banks and lengths are updated IN PLACE and the same state is
@@ -98,15 +98,18 @@ def ragged_model_step(params, tokens, q_lens, state: PagedState,
         _write_tokens(vp, vs, pids, offs, v.transpose(1, 2))
         if attn == "ragged":
             o = ragged_paged_attention(q, kp, vp, state.page_table, q_lens,
-                                       kv_lens, k_scales=ks, v_scales=vs)
+                                       kv_lens, k_scales=ks, v_scales=vs,
+                                       window=cfg.window)
         elif attn == "grouped":
             o = ragged_paged_attention_grouped(
                 q, kp, vp, state.page_table, q_lens, kv_lens,
                 group_id=group_id, shared_table=shared_table,
-                shared_lens=shared_lens, k_scales=ks, v_scales=vs)
+                shared_lens=shared_lens, k_scales=ks, v_scales=vs,
+                window=cfg.window)
         else:  # the kernel's plain version: gathers every slot's pages
             o = ragged_paged_reference(q, kp, vp, state.page_table, q_lens,
-                                       kv_lens, k_scales=ks, v_scales=vs)
+                                       kv_lens, k_scales=ks, v_scales=vs,
+                                       window=cfg.window)
         x = x + _attn_out(p, o)
         x = x + _mlp(p, x)
     x = _rms_norm(x, params["final_norm"])

@@ -15,7 +15,7 @@ Phases (any failure exits non-zero; nothing is caught):
      with a page-aligned ctx_lo, and its QT=1 rows bitwise against paged
      decode; the flash backward's fused kernel and split dq + dk/dv pair
      against tile_bwd (fp32 and bf16, MHA and GQA, causal, non-causal,
-     ragged S; the fused kernel bitwise repeatable), autograd through
+     ragged S; the fused kernel 20 launches bitwise equal), autograd through
      flash_attention against autograd through the plain tile; at the
      train step's shape (B1 N16/16 S8192 D128 bf16 causal) the forward
      against tile_fwd/finalize, the three backward kernels against
@@ -89,7 +89,27 @@ Phases (any failure exits non-zero; nothing is caught):
      with paged_decode_step (kernel 6) on the handed-off slot; page
      counts and a rejected request; prefill (TTFT) and decode times;
      kernel 9 against its plain version at the handoff's op shape;
-  9. a `train` JSON line, a `kernels` JSON line, then the result line
+  9. (run after phase 3) sliding-window serving and kernel 10: kernel 1
+     with windows 1, 100, 1024 and 4096 (>= S: bitwise the unwindowed
+     kernel) at B1 N16/4 S2048 bf16, offset 0 and -1 with a ragged
+     kv_hi; kernel 6 with windows 64, 1024, 3000 on bf16, int8 and fp8
+     pools (its QT=1 ragged rows bitwise); kernel 7 with windows 64 and
+     1024 on the mixed batch and the grouped shared-prefix launch (a
+     prefix wholly below the band adds nothing, no NaN); each two launches
+     torch.equal, timed beside its plain version, SDPA with the band and
+     its bound; kernel 10 (the step-overhead probe) against its plain
+     version at bq 2048 (bkv 128-4096, 8 and 512 steps, with and without
+     the product, fetch checksums equal), then bench.step_probe's sweep
+     (bkv 256-4096 x steps 512-8192, both variants) and its least-squares
+     fit; (after phase 5) the serving model with window 1024 (layout
+     contig): both engines in fp32 (token-exact with the dense windowed
+     forward and with each other) and bf16 (>= 95%, near ties only),
+     launch counts around each run, `generate` on a 2048-token prompt
+     (token-exact, fp32), an int8 pool through the ragged engine against
+     plain attention, the last-position logits with and without the
+     window (equal within the window, apart beyond it), and both engines'
+     decode ticks beside the unwindowed ones;
+ 10. a `train` JSON line, a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -144,6 +164,10 @@ TIE_GAP = 0.1
 # exp2-vs-exp, so each of dq, dk, dv must agree to fp32 rounding relative
 # to its largest entry: max-abs error <= BWD_RTOL * max|ref| + BWD_ATOL.
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
+# launches of the fused backward on each check case, all bitwise equal:
+# its CTAs take their kv tile from a start-order ticket, and the dq fold
+# order must not depend on the dispatch order
+FUSED_BWD_REPEATS = 20
 # the training benchmark's model (benchmarks/train_smoke.py defaults: MHA,
 # remat, bf16, one device); its sequence is cut from 32768 to 8192, where
 # a step of the first SIMT kernels takes ~1 s instead of ~15-20 s
@@ -643,15 +667,18 @@ def check_flash_bwd(device, dtype, seed=4):
             got = flash.flash_bwd(*args, fused=fused)
             errs = _bwd_errs(got, want, f"flash_bwd {key} {name} {route}")
             worst[route] = [max(a, b) for a, b in zip(worst[route], errs)]
-            if route == "fused":
-                again = flash.flash_bwd(*args, fused=fused)
-                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
-                    f"flash_bwd {key} {name}: fused kernel not bitwise " \
-                    "repeatable"
+            if route == "fused":  # the ticketed, ordered dq fold
+                for _ in range(FUSED_BWD_REPEATS - 1):
+                    again = flash.flash_bwd(*args, fused=fused)
+                    assert all(torch.equal(a, b)
+                               for a, b in zip(got, again)), \
+                        f"flash_bwd {key} {name}: fused kernel not bitwise " \
+                        "repeatable"
             print(f"flash_bwd {key} {name} N{n}/{n_kv} S={s} {route}: "
                   f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
                   f"{errs[2]:.3e} (tolerance {BWD_RTOL} max|ref| + "
-                  f"{BWD_ATOL})" + ("; bitwise repeatable"
+                  f"{BWD_ATOL})" + (f"; {FUSED_BWD_REPEATS} launches "
+                                    "bitwise equal"
                                     if route == "fused" else ""),
                   flush=True)
         del want, got
@@ -789,12 +816,15 @@ def plain_attention():
     from burst_attn_tpu_torch.ops import ragged_paged as rp
     from burst_attn_tpu_torch.ops import tile
 
-    def decode(q, kp, vp, table, lengths, k_scales=None, v_scales=None):
+    def decode(q, kp, vp, table, lengths, k_scales=None, v_scales=None,
+               window=None):
         return pa.paged_decode_reference(q, kp, vp, table, lengths,
-                                         k_scales=k_scales, v_scales=v_scales)
+                                         k_scales=k_scales, v_scales=v_scales,
+                                         window=window)
 
-    def prompt(q, k, v):
-        return tile.single_device_attention(q, k, v, causal=True)
+    def prompt(q, k, v, window=None):
+        return tile.single_device_attention(q, k, v, causal=True,
+                                            window=window)
 
     def ragged(q, kp, vp, table, q_lens, kv_lens, **kw):
         return rp.ragged_paged_reference(q, kp, vp, table, q_lens, kv_lens,
@@ -1401,8 +1431,9 @@ def plain_train_attention():
     import burst_attn_tpu_torch.models.transformer as tr
     from burst_attn_tpu_torch.ops import tile
 
-    def plain(q, k, v, scale=None, causal=False):
-        return tile.single_device_attention(q, k, v, scale, causal)
+    def plain(q, k, v, scale=None, causal=False, window=None):
+        return tile.single_device_attention(q, k, v, scale, causal,
+                                            window=window)
 
     with mock.patch.object(tr, "flash_attention", plain):
         yield
@@ -2565,6 +2596,602 @@ def ring_train_parity(device, n_layers=2, seq=2048):
     return res
 
 
+# ---------------------------------------------------------------------------
+# sliding-window serving: kernels 1, 6 and 7 with a window and the windowed
+# serving model; kernel 10, the step-overhead probe
+
+# the serving model's window: half the longest prompt, so bands both inside
+# a prompt and at its edge are exercised
+WINDOW = 1024
+FLASH_WINDOWS = (1, 100, 1024, 4096)  # 4096 >= S: no band left
+DECODE_WINDOWS = (64, 1024, 3000)
+RAGGED_WINDOWS = (64, 1024)
+# kernel 10 against its plain version: (bkv, steps), with and without the
+# product, at bq 2048 (steps past 512 wrap the pool, n_pool = 512, as the
+# sweep's cells and the kernels line's do); then
+# benchmarks/step_probe.py's default sweep
+PROBE_BQ = 2048
+PROBE_CHECKS = ((128, 8), (128, 512), (256, 8), (256, 512), (4096, 8),
+                (4096, 512), (1024, 2048), (2048, 8192))
+PROBE_KV_BLOCKS = (256, 1024, 2048, 4096)
+PROBE_STEPS = (512, 2048, 8192)
+PROBE_ROW_CELL = (1024, 2048)  # the kernels line's cell (bkv, steps)
+# the product adds `steps` fp32 per-step products into each entry:
+# rounding relative to the largest entry (the plain version sums in fp64)
+PROBE_RTOL = 1e-5
+# last-position logits, windowed vs unwindowed model (fp32): a prompt no
+# longer than the window gives the same band, so the same bits; a longer
+# one loses its first positions and moves the logits by far more
+WINDOW_SAME_ATOL, WINDOW_DIFF_MIN = 1e-5, 1e-3
+
+
+def wmodel(dtype, device):
+    """The serving model (same weights) with the sliding window WINDOW."""
+    import dataclasses
+
+    cfg, params = model(dtype, device)
+    return dataclasses.replace(cfg, window=WINDOW, layout="contig"), params
+
+
+def _check_stats(what, got, want):
+    """lse or m of a kernel against its plain version: the same -inf rows
+    (a row whose band is empty), finite entries within STATS_ATOL."""
+    import torch
+
+    assert torch.equal(torch.isinf(got), torch.isinf(want)), what
+    fin = torch.isfinite(want)
+    e = _max_err(got[fin], want[fin])
+    assert e <= STATS_ATOL["fp32"], f"{what}: err {e}"
+
+
+def check_flash_window(device, b=1, n=16, n_kv=4, s=2048, d=128):
+    """Kernel 1 with a window against tile_fwd/finalize at the serving
+    prefill's shape (bf16): windows 1, 100, 1024 and 4096 (>= S, bitwise
+    the unwindowed kernel), offset 0 with every column and offset -1 with
+    a ragged kv_hi; two launches torch.equal.  Returns the kernels-line
+    record (times at WINDOW, offset 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash, masks, tile
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(31)
+    q = torch.randn(b, n, s, d, generator=g, device=device).to(bf16)
+    k, v = (torch.randn(b, n_kv, s, d, generator=g, device=device).to(bf16)
+            for _ in range(2))
+    scale = d**-0.5
+    worst = 0.0
+    for window in FLASH_WINDOWS:
+        for offset, kv_hi in ((0, s), (-1, s - 37)):
+            spec = masks.MaskSpec(0, s, kv_hi, 1, offset)
+
+            def kernel(w=window):
+                return flash.flash_fwd(q, k, v, None, None, None, scale,
+                                       spec, window=w, emit_o=True)
+
+            m, lse, o = kernel()
+            assert all(torch.equal(a, c) for a, c in zip((m, lse, o),
+                                                         kernel())), \
+                f"flash_fwd window={window}: two launches differ"
+            pm, plse, pacc = tile.tile_fwd(
+                q, k, v, *tile.init_state(b, n, s, d, device=device), scale,
+                spec, window=window)
+            what = f"flash_fwd window={window} offset={offset} kv_hi={kv_hi}"
+            err = _check_o(what, o, tile.finalize(pm, plse, pacc, bf16),
+                           bf16)
+            _check_stats(what + " lse", lse, plse)
+            same = ""
+            if window >= s:
+                full = kernel(None)
+                assert all(torch.equal(a, c) for a, c in zip((m, lse, o),
+                                                             full)), what
+                same = "; torch.equal to the unwindowed kernel"
+            worst = max(worst, err)
+            print(f"{what}: N{n}/{n_kv} S={s} bf16, window used {window}, "
+                  f"max_abs_err={err:.3e} (tolerance {O_TOL['bf16']}); two "
+                  f"launches torch.equal{same}", flush=True)
+            del pm, plse, pacc
+
+    spec = masks.MaskSpec(0, s, s, 1, 0)
+    ms = time_ms(lambda: flash.flash_attention(q, k, v, None, True,
+                                               window=WINDOW))
+
+    def plain():
+        st = tile.tile_fwd(q, k, v, *tile.init_state(b, n, s, d,
+                                                     device=device),
+                           scale, spec, window=WINDOW)
+        return tile.finalize(*st, bf16)
+
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    band = masks.dense_mask(spec, s, s, device=device, window=WINDOW)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=band, enable_gqa=True))
+    pairs = b * masks.spec_pair_count(spec, s, s, window=WINDOW)
+    esz = q.element_size()
+    n_bytes = esz * (q.numel() * 2 + k.numel() * 2) + 4 * 2 * b * n * s
+    bms, by = bound_ms(n_bytes, 4 * pairs * n * d)
+    print(f"flash_fwd[window={WINDOW}] B{b} N{n}/{n_kv} S={s} bf16: "
+          f"{ms:.4f} ms (plain {plain_ms:.4f}, SDPA with the band mask "
+          f"{lib_ms:.4f}, bound {bms:.4f} by {by})", flush=True)
+    return dict(name="flash_fwd[window]", route="cuda",
+                source="burst_attn_tpu_torch/csrc/flash_fwd.cu",
+                replaces="burst_attn_tpu/ops/pallas_flash.py:419",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def _gather_band(kp, vp, table, lo, n_band):
+    """Each slot's K/V positions lo .. lo + n_band - 1 gathered from the
+    pool into [slots, Nkv, n_band, D] (positions past the table clamp):
+    the library yardstick's input."""
+    import torch
+
+    slots, width = table.shape
+    page = kp.shape[2]
+    pos = (lo.long()[:, None] + torch.arange(n_band, device=kp.device)
+           ).clamp(max=width * page - 1)                      # [S, n_band]
+    pid = table.long().gather(1, pos // page)                 # [S, n_band]
+    off = pos % page
+
+    def one(pool):
+        g = pool[pid, :, off]                                 # [S, n, Nkv, D]
+        return g.movedim(2, 1).contiguous()
+
+    return one(kp), one(vp), pos
+
+
+def check_paged_decode_window(device, n_kv=4, group=4, d=128,
+                              lengths=(0, 1, 128, 2112, 2048, 1000, 129,
+                                       1536)):
+    """Kernel 6 with a window on the slice-1 decode case: windows 64, 1024
+    and 3000 on bf16, int8 and fp8 pools against paged_decode_reference;
+    two launches torch.equal, and the ragged kernel's QT=1 rows bitwise
+    equal.  Returns the kernels-line record (bf16 pool, WINDOW)."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    bf16 = torch.bfloat16
+    slots = len(lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    table = _table(0, lengths, N_PAGES, PAGE, MAX_PAGES, device)
+    worst = 0.0
+    for quant in (None, "int8", "fp8"):
+        g = torch.Generator(device=device).manual_seed(41)
+        q = torch.randn(slots, n_kv, group, d, generator=g,
+                        device=device).to(bf16)
+        kp, vp, ks, vs = _pool(g, device, bf16, quant, N_PAGES, n_kv, PAGE,
+                               d)
+        for window in DECODE_WINDOWS:
+            kw = dict(k_scales=ks, v_scales=vs, window=window)
+            o = pa.paged_decode_attention(q, kp, vp, table, lens, **kw)
+            assert torch.equal(o, pa.paged_decode_attention(
+                q, kp, vp, table, lens, **kw)), "two launches differ"
+            want = pa.paged_decode_reference(q, kp, vp, table, lens, **kw)
+            what = f"paged_decode bf16 pool={quant or 'bf16'} window={window}"
+            err = _check_o(what, o, want, bf16)
+            rag = rp.ragged_paged_attention(
+                q.reshape(slots, n_kv * group, 1, d), kp, vp, table,
+                (lens > 0).to(torch.int32), lens, **kw)
+            assert torch.equal(rag.reshape(o.shape), o), what + " ragged"
+            worst = max(worst, err)
+            print(f"{what}: window used {window}, lengths {list(lengths)}, "
+                  f"max_abs_err={err:.3e} (tolerance {O_TOL['bf16']}); two "
+                  "launches torch.equal; ragged QT=1 rows torch.equal",
+                  flush=True)
+
+    g = torch.Generator(device=device).manual_seed(41)
+    q = torch.randn(slots, n_kv, group, d, generator=g, device=device).to(bf16)
+    kp, vp, _, _ = _pool(g, device, bf16, None, N_PAGES, n_kv, PAGE, d)
+    kw = dict(window=WINDOW)
+    ms = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table, lens,
+                                                   **kw))
+    plain_ms = time_ms(lambda: pa.paged_decode_reference(
+        q, kp, vp, table, lens, **kw), iters=5)
+    lo = (lens - WINDOW).clamp(min=0)
+    kd, vd, pos = _gather_band(kp, vp, table, lo, WINDOW)
+    mask = pos < lens[:, None]
+    mask[:, 0] = True  # an empty slot's row attends one column (no NaN)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q.reshape(slots, n_kv * group, 1, d), kd, vd,
+        attn_mask=mask[:, None, None], enable_gqa=True))
+    # what the function must move: the K/V of each slot's band, q of the
+    # non-empty slots, every output row, the table entries of the band's
+    # pages, the lengths
+    band = [min(ln, WINDOW) for ln in lengths]
+    pages = sum(((ln - 1) // PAGE - max(ln - WINDOW, 0) // PAGE + 1)
+                for ln in lengths if ln)
+    esz = q.element_size()
+    n_bytes = (esz * 2 * sum(band) * n_kv * d
+               + esz * n_kv * group * d * (sum(ln > 0 for ln in lengths)
+                                           + slots)
+               + 4 * (pages + slots))
+    bms, by = bound_ms(n_bytes, 4 * sum(band) * n_kv * group * d)
+    print(f"paged_decode[window={WINDOW}] bf16 {slots} slots: {ms:.4f} ms "
+          f"(plain {plain_ms:.4f}, SDPA on the gathered band {lib_ms:.4f}, "
+          f"bound {bms:.5f} by {by})", flush=True)
+    return dict(name="paged_decode[window]", route="cuda",
+                source="burst_attn_tpu_torch/csrc/paged_decode.cu",
+                replaces="burst_attn_tpu/ops/paged_attention.py:56",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def check_ragged_window(device):
+    """Kernel 7 with a window on the mixed batch (q_lens 0/1/37/128):
+    windows 64 and 1024, fp32, bf16 and an int8 pool, against
+    ragged_paged_reference, two launches torch.equal; the grouped
+    shared-prefix launch with a window (at 64 the shared page lies wholly
+    below some rows' bands), no NaN.  Returns the kernels-line record
+    (bf16, WINDOW)."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    worst = 0.0
+    for dtype, quant in ((torch.float32, None), (torch.bfloat16, None),
+                         (torch.bfloat16, "int8")):
+        q, kp, vp, table, ql, kl, ks, vs = _ragged_case(device, dtype, quant,
+                                                        seed=43)
+        key = _dtype_key(dtype)
+        for window in RAGGED_WINDOWS:
+            kw = dict(k_scales=ks, v_scales=vs, window=window)
+            o = rp.ragged_paged_attention(q, kp, vp, table, ql, kl, **kw)
+            assert torch.equal(o, rp.ragged_paged_attention(
+                q, kp, vp, table, ql, kl, **kw)), "two launches differ"
+            want = rp.ragged_paged_reference(q, kp, vp, table, ql, kl, **kw)
+            what = f"ragged_paged {key} pool={quant or key} window={window}"
+            err = _check_o(what, o, want, dtype)
+            worst = max(worst, err)
+            print(f"{what}: window used {window}, q_lens "
+                  f"{list(RAGGED_Q_LENS)} kv_lens {list(RAGGED_KV_LENS)}, "
+                  f"max_abs_err={err:.3e} (tolerance {O_TOL[key]}); two "
+                  "launches torch.equal", flush=True)
+
+    # the grouped launch: slots 3 and 4 (128-token chunks at 896 and 1920)
+    # share their first page
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(device, torch.float32,
+                                                  None, seed=44)
+    table[4, 0] = table[3, 0]
+    grp = dict(group_id=torch.tensor([0, 0, 0, 1, 1, 0, 0, 0],
+                                     dtype=torch.int32, device=device),
+               shared_table=torch.stack([torch.zeros_like(table[3, :1]),
+                                         table[3, :1]]),
+               shared_lens=torch.tensor([0, PAGE], dtype=torch.int32,
+                                        device=device))
+    for window in RAGGED_WINDOWS:
+        got = rp.ragged_paged_attention_grouped(q, kp, vp, table, ql, kl,
+                                                window=window, **grp)
+        assert not torch.isnan(got).any(), "grouped window: NaN"
+        want = rp.ragged_paged_reference(q, kp, vp, table, ql, kl,
+                                         window=window)
+        err = _check_o(f"ragged grouped window={window}", got, want,
+                       torch.float32)
+        print(f"ragged_paged grouped fp32 window={window}: one shared page "
+              f"for slots 3-4, max_abs_err={err:.3e}, no NaN", flush=True)
+
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(device, torch.bfloat16,
+                                                  None, seed=43)
+    kw = dict(window=WINDOW)
+    ms = time_ms(lambda: rp.ragged_paged_attention(q, kp, vp, table, ql, kl,
+                                                   **kw))
+    plain_ms = time_ms(lambda: rp.ragged_paged_reference(
+        q, kp, vp, table, ql, kl, **kw), iters=5)
+    slots, n_q, qt, d = q.shape
+    n_kv = kp.shape[1]
+    # SDPA over each slot's band: positions from its first token's band
+    # start, WINDOW + CHUNK of them, masked per row
+    lo = (kl - ql - WINDOW + 1).clamp(min=0)
+    n_band = WINDOW + CHUNK
+    kd, vd, pos = _gather_band(kp, vp, table, lo, n_band)
+    t = torch.arange(qt, device=device)
+    qp = (kl - ql).long()[:, None] + t[None, :]
+    real = t[None, :] < ql[:, None]
+    mask = ((pos[:, None, :] <= qp[:, :, None])
+            & (pos[:, None, :] > qp[:, :, None] - WINDOW) & real[:, :, None])
+    mask[:, :, 0] |= ~real  # padding rows see one column (no NaN rows)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
+    # pairs: each real token sees min(WINDOW, its position + 1) positions;
+    # bytes: the K/V of each slot's band once per kv head, q of the real
+    # tokens, every output row, the band's table entries, q_lens, kv_lens
+    pairs = n_q * sum(min(WINDOW, kv - q_len + i + 1)
+                      for q_len, kv in zip(RAGGED_Q_LENS, RAGGED_KV_LENS)
+                      for i in range(q_len))
+    spans = [(max(kv - q_len - WINDOW + 1, 0), kv)
+             for q_len, kv in zip(RAGGED_Q_LENS, RAGGED_KV_LENS) if q_len]
+    live = sum(hi - lo_ for lo_, hi in spans)
+    pages = sum((hi - 1) // PAGE - lo_ // PAGE + 1 for lo_, hi in spans)
+    esz = q.element_size()
+    n_bytes = (2 * live * n_kv * esz * d
+               + esz * n_q * d * sum(RAGGED_Q_LENS) + esz * q.numel()
+               + 4 * (pages + 2 * slots))
+    bms, by = bound_ms(n_bytes, 4 * pairs * d)
+    print(f"ragged_paged[window={WINDOW}] bf16 mixed batch: {ms:.4f} ms "
+          f"(plain {plain_ms:.4f}, SDPA on the gathered band {lib_ms:.4f}, "
+          f"bound {bms:.5f} by {by})", flush=True)
+    return dict(name="ragged_paged[window]", route="cuda",
+                source="burst_attn_tpu_torch/csrc/ragged_paged.cu",
+                replaces="burst_attn_tpu/ops/ragged_paged.py:57",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def check_step_probe(device, d=128):
+    """Kernel 10 against its plain version at bq 2048, d 128: each
+    PROBE_CHECKS cell with and without the product, the output within
+    PROBE_RTOL of its largest entry (exactly zero without the product),
+    the fetch checksums equal, two launches torch.equal.  Returns the
+    kernels-line record at PROBE_ROW_CELL with the product."""
+    import torch
+
+    from burst_attn_tpu_torch.bench import step_probe as sp
+
+    def inputs(bkv, steps):
+        g = torch.Generator(device=device).manual_seed(bkv + steps)
+        q = torch.randn(1, PROBE_BQ, d, generator=g, device=device).bfloat16()
+        pool = torch.randn(min(steps, 512), bkv, d, generator=g,
+                           device=device).bfloat16()
+        return q, pool
+
+    worst = 0.0
+    for bkv, steps in PROBE_CHECKS:
+        q, pool = inputs(bkv, steps)
+        for matmul in (True, False):
+            out, sums = sp.step_probe(q, pool, steps, matmul)
+            again = sp.step_probe(q, pool, steps, matmul)
+            assert torch.equal(out, again[0]) and torch.equal(sums, again[1])
+            want, want_sums = sp.step_probe_reference(q, pool, steps, matmul)
+            top = float(want.abs().max())
+            err = _max_err(out, want)
+            assert err <= PROBE_RTOL * top, (bkv, steps, matmul, err, top)
+            assert torch.equal(sums, want_sums), "fetch checksums differ"
+            worst = max(worst, err / max(top, 1e-30))
+            print(f"step_probe bq={PROBE_BQ} bkv={bkv} steps={steps} "
+                  f"matmul={matmul}: max_abs_err {err:.3e} of largest "
+                  f"{top:.3e} (tolerance {PROBE_RTOL} of it); "
+                  f"{sums.numel()} fetch checksums equal; two launches "
+                  "torch.equal", flush=True)
+    bkv, steps = PROBE_ROW_CELL
+    q, pool = inputs(bkv, steps)
+    ms = time_ms(lambda: sp.step_probe(q, pool, steps), iters=5, warmup=2)
+    plain_ms = time_ms(lambda: sp.step_probe_reference(q, pool, steps),
+                       iters=3, warmup=1)
+    # what the outputs need: q and the pool read once (the checksums need
+    # every word), the out and sums written once; the product as the plain
+    # version takes it, the count-weighted pool sum (n_pool * w * d
+    # multiply-adds) and one [bq, d] x [d, w] product
+    w = min(128, bkv)
+    n_bytes = 2 * (q.numel() + pool.numel()) + 4 * PROBE_BQ * 128 + 4 * (
+        PROBE_BQ // 16)
+    bms, by = bound_ms(n_bytes, 2 * pool.shape[0] * w * d
+                       + 2 * PROBE_BQ * w * d)
+    # the work the probe prescribes, `steps` block fetches and products,
+    # as a yardstick apart from the bound
+    work_ms, _ = bound_ms(steps * 2 * bkv * d,
+                          steps * 2 * PROBE_BQ * w * d)
+    print(f"step_probe bkv={bkv} steps={steps} matmul: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, bound {bms:.4f} by {by}, the prescribed per-step "
+          f"work {work_ms:.4f}; library: none, no single PyTorch call "
+          "streams `steps` distinct blocks)", flush=True)
+    return dict(name="step_probe", route="cuda",
+                source="burst_attn_tpu_torch/csrc/step_probe.cu",
+                replaces="benchmarks/step_probe.py:63",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, probe_work_ms=work_ms,
+                library="none: no single PyTorch call streams `steps` "
+                        "distinct blocks through one product")
+
+
+def probe_phase(device, card):
+    """The probe's main path: bench.step_probe's sweep (the JAX probe's
+    default cells: bkv 256-4096 x steps 512-8192, with and without the
+    product) with its launch counter read around it, each row printed,
+    then the least-squares fit and its residuals."""
+    from burst_attn_tpu_torch.bench import step_probe as sp
+
+    sp.step_probe.launches = 0
+    rows = sp.sweep(PROBE_BQ, 128, PROBE_KV_BLOCKS, PROBE_STEPS,
+                    (True, False), device, card,
+                    record=lambda r: print("step_probe row " + json.dumps(r),
+                                           flush=True))
+    launches = sp.step_probe.launches
+    fit = sp.fit(rows)
+    assert len(fit["residuals_us"]) == len(rows)
+    print(f"step_probe fit: t_fixed {fit['t_fixed_us']:.4f} us per "
+          f"iteration, {fit['gb_per_s']} GB/s, {fit['tflop_per_s']} "
+          f"TFLOP/s; residuals (us) "
+          + ", ".join(f"{x:.4f}" for x in fit["residuals_us"])
+          + f"; {launches} launches", flush=True)
+    return dict(rows=rows, fit=fit, launches=launches)
+
+
+def window_bites(device, prompts):
+    """fp32, through paged_prefill (the ServeEngine's admission path,
+    kernel 1): each prompt's last-position logits with the window against
+    the same model without it.  Returns [(length, max-abs difference)]."""
+    import torch
+
+    from burst_attn_tpu_torch.models import paged_decode as pd
+
+    cfg_w, params = wmodel(torch.float32, device)
+    cfg_n, _ = model(torch.float32, device)
+    out = []
+    for p in prompts:
+        logits = []
+        for cfg in (cfg_w, cfg_n):
+            st, pool = pd.init_paged_state(
+                cfg, slots=1, n_pages=MAX_PAGES + 1, page=PAGE,
+                max_pages_per_seq=MAX_PAGES, device=device)
+            with torch.no_grad():
+                lg, _ = pd.paged_prefill(params, p, st, pool, 0, cfg)
+            logits.append(lg)
+        diff = _max_err(*logits)
+        out.append((len(p), diff))
+        if len(p) <= WINDOW:
+            assert diff <= WINDOW_SAME_ATOL, (len(p), diff)
+        else:
+            assert diff > WINDOW_DIFF_MIN, (len(p), diff)
+    print(f"window bites (fp32 paged_prefill, window {WINDOW} vs none): "
+          f"(prompt length, last-position logits max-abs difference) "
+          f"{[(n, float(f'{x:.3e}')) for n, x in out]}; <= {WINDOW} tokens "
+          f"within {WINDOW_SAME_ATOL}, longer ones beyond {WINDOW_DIFF_MIN}",
+          flush=True)
+    return out
+
+
+def decode_ticks(device, n_steps=16):
+    """bf16 decode tick with every slot live at ~2K context, unwindowed
+    and windowed, for each engine, timed in turns (none, window, window,
+    none) on engines filled once.  Returns {engine: {"none": ms,
+    "window": ms}}."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    prompt = np.random.default_rng(9).integers(1, SERVE_DIMS["vocab"],
+                                               size=2048 - 96,
+                                               dtype=np.int32)
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, device=device)
+    res = {}
+    for name, engine, extra in (("ServeEngine", ServeEngine, {}),
+                                ("RaggedServeEngine", RaggedServeEngine,
+                                 {"chunk": CHUNK})):
+        engs = {}
+        for tag, (cfg, params) in (("none", model(torch.bfloat16, device)),
+                                   ("window", wmodel(torch.bfloat16,
+                                                     device))):
+            eng = engine(params, cfg, **kw, **extra)
+            for _ in range(SLOTS):
+                eng.submit(prompt, 96)
+            while eng.pending or any(
+                    r is None or getattr(r, "n_prefilled", len(r.prompt))
+                    < len(r.prompt) for r in eng.slots):
+                eng.step()
+            assert eng.live == SLOTS
+            engs[tag] = eng
+        times = {"none": [], "window": []}
+        for tag in ("none", "window", "window", "none"):
+            eng = engs[tag]
+            times[tag].append(host_ms(lambda: [eng.step()
+                                               for _ in range(n_steps)],
+                                      repeats=1) / n_steps)
+        for eng in engs.values():
+            eng.drain()
+        res[name] = {t: sum(v) / len(v) for t, v in times.items()}
+        print(f"{name} bf16 decode tick ({SLOTS} slots at ~2K context): "
+              f"unwindowed {res[name]['none']:.3f} ms, window {WINDOW} "
+              f"{res[name]['window']:.3f} ms (each the mean of two turns)",
+              flush=True)
+    return res
+
+
+def window_serve_phase(device):
+    """The serving model with window=1024, layout contig, at full width and
+    depth: the 12 requests through the ServeEngine and the
+    RaggedServeEngine in fp32 (token-exact with the dense windowed forward
+    and with each other) and bf16 (>= 95%, near ties only), launch counts
+    around each run; the dense `generate` on the 2048-token prompt
+    (token-exact in fp32); an int8 pool through the ragged engine against
+    plain attention; the window's effect on the last-position logits; the
+    decode tick beside the unwindowed one."""
+    import torch
+
+    from burst_attn_tpu_torch.models.decode import generate
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.ops import flash
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, device=device)
+    engines = (("ServeEngine", ServeEngine, {},
+                (flash.flash_fwd, pa.paged_decode_attention)),
+               ("RaggedServeEngine", RaggedServeEngine, {"chunk": CHUNK},
+                (rp.ragged_paged_attention, flash.flash_fwd)))
+    res = {"window": WINDOW}
+    for key, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg, params = wmodel(dtype, device)
+        prompts, budgets = requests(cfg)
+        streams = {}
+        for name, engine, extra, counters in engines:
+            eng = engine(params, cfg, **kw, **extra)
+            toks, launches, run_s = drive(eng, prompts, budgets, counters)
+            assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+            if name == "ServeEngine":
+                assert launches["flash_fwd"] == cfg.n_layers * N_REQUESTS
+                assert launches["paged_decode_attention"] > 0
+            else:
+                ticks = sum(v for k, v in eng.stats.items()
+                            if k.startswith("serve.ragged_batch_launches"))
+                fb = sum(v for k, v in eng.stats.items()
+                         if k.startswith("burst.fused_fallback"))
+                assert fb == 0 and launches["ragged_paged_attention"] == \
+                    cfg.n_layers * ticks > 0, (launches, ticks, fb)
+                assert launches["flash_fwd"] == 0, launches
+            print(f"{name} {key} window {WINDOW}: {N_REQUESTS} requests, "
+                  f"{sum(budgets)} tokens in {run_s:.2f} s, launches "
+                  f"{launches}", flush=True)
+            check_agreement(f"{name} {key} window {WINDOW}", agreement(
+                cfg, params, prompts, toks, device), key == "bf16",
+                against=f"the dense forward with window {WINDOW}")
+            streams[name] = toks
+            res[f"{name}_{key}_launches"] = launches
+        if key == "fp32":
+            assert streams["ServeEngine"] == streams["RaggedServeEngine"], \
+                "windowed fp32 engines' tokens differ"
+            print(f"window {WINDOW} fp32: the two engines' tokens are equal",
+                  flush=True)
+            res["fp32_prompts"] = prompts
+
+    # the dense-cache generate on the 2048-token prompt (fp32)
+    cfg, params = wmodel(torch.float32, device)
+    prompt = res["fp32_prompts"][1]
+    flash.flash_fwd.launches = 0
+    toks = generate(params, torch.from_numpy(prompt.astype("int64"))[None],
+                    cfg, steps=32, max_seq=len(prompt) + 32)[0].tolist()
+    gen_launches = flash.flash_fwd.launches
+    assert gen_launches == cfg.n_layers, gen_launches
+    print(f"generate fp32 window {WINDOW}: {len(prompt)}-token prompt, 32 "
+          f"tokens, flash_fwd launches {gen_launches}", flush=True)
+    check_agreement(f"generate fp32 window {WINDOW}", agreement(
+        cfg, params, [prompt], [toks], device), False,
+        against=f"the dense forward with window {WINDOW}")
+    res["generate_launches"] = gen_launches
+
+    # an int8 pool through the ragged engine (fp32 model) vs plain attention
+    prompts, budgets = requests(cfg)
+    runs = []
+    for plain in (False, True):
+        with plain_attention() if plain else contextlib.nullcontext():
+            eng = RaggedServeEngine(params, cfg, quantize="int8",
+                                    chunk=CHUNK, **kw)
+            runs.append(drive(eng, prompts, budgets,
+                              (rp.ragged_paged_attention,)))
+    (toks, launches, _), (want, cl, _) = runs
+    assert sum(cl.values()) == 0 and launches["ragged_paged_attention"] > 0
+    flips = near_tie_flips(cfg, params, prompts, toks, want, device)
+    same = sum(a == b for a, b in zip(toks, want))
+    print(f"RaggedServeEngine fp32 window {WINDOW}, int8 pool: launches "
+          f"{launches}; kernel vs plain attention {same}/{N_REQUESTS} "
+          f"streams identical; flips (request, token, dense-forward logit "
+          f"gap) {flips}", flush=True)
+    assert all(g <= TIE_GAP for _, _, g in flips), flips
+    res["int8"] = (same, flips)
+
+    res["bites"] = window_bites(device, prompts)
+    res["decode_tick_ms"] = decode_ticks(device)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2602,6 +3229,12 @@ def main() -> int:
         check_ragged_decode_rows(device, dt, q)
     kernels = [check_flash(device), check_paged_decode(device),
                check_ragged(device, bf16, timing=True)]
+    # sliding-window kernels 1, 6, 7 and kernel 10 (the step probe)
+    window_recs = [check_flash_window(device),
+                   check_paged_decode_window(device),
+                   check_ragged_window(device), check_step_probe(device)]
+    torch.cuda.empty_cache()
+    probe = probe_phase(device, card)
     bwd_worst = {"fused": [0.0] * 3, "split": [0.0] * 3}
     for dt in (fp32, bf16):
         for route, errs in check_flash_bwd(device, dt).items():
@@ -2647,6 +3280,7 @@ def main() -> int:
           f"{rag['mixed_tick_ms']:.2f} ms", flush=True)
     print_profile("RaggedServeEngine mixed tick", rag["prof_mixed"])
     print_profile("RaggedServeEngine decode tick", rag["prof_decode"])
+    wserve = window_serve_phase(device)
     k8_err, k1_err = check_handoff_kernels(device)
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
@@ -2692,7 +3326,17 @@ def main() -> int:
                 "fused_ring_fwd": hand["launches_fused_ring"][
                     "fused_ring_fwd"],
                 "fused_ring_bwd": ring_tr["fused_ring"]["launches"][
-                    "fused_ring_bwd"]}
+                    "fused_ring_bwd"],
+                # the windowed serve phase's bf16 runs, the probe's sweep
+                "flash_fwd[window]": wserve["ServeEngine_bf16_launches"][
+                    "flash_fwd"],
+                "paged_decode[window]": wserve["ServeEngine_bf16_launches"][
+                    "paged_decode_attention"],
+                "ragged_paged[window]": wserve[
+                    "RaggedServeEngine_bf16_launches"][
+                    "ragged_paged_attention"],
+                "step_probe": probe["launches"]}
+    kernels += window_recs
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2716,8 +3360,13 @@ def main() -> int:
                     "parity": ring_parity, "fit": ring_fit}},
         "card": card}))
     print(json.dumps({
-        "kernels": [{k: r[k] for k in keys} for r in kernels],
+        "kernels": [{k: r[k] for k in keys}
+                    | ({"library": r["library"]} if "library" in r else {})
+                    for r in kernels],
         "card": card,
+        "window_serve": {k: v for k, v in wserve.items()
+                         if k != "fp32_prompts"},
+        "step_probe_fit": probe["fit"],
         "paged_decode_quant_ms": quant_ms,
         "serve": {"prefill_ms": serve_res["prefill_ms"],
                   "decode_step_ms": serve_res["decode_step_ms"],

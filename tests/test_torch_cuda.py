@@ -318,9 +318,12 @@ def test_flash_bwd_masked_rows_give_zeros(dev):
 
 @pytest.mark.parametrize("n,n_kv", [(4, 4), (8, 2)])
 def test_flash_bwd_fused_is_deterministic(dev, n, n_kv):
+    """20 launches bitwise equal: the CTAs take their kv tiles from
+    start-order tickets, and the dq fold order does not depend on the
+    dispatch order."""
     args = _bwd_case(dev, torch.bfloat16, 1, n, n_kv, 1000, 1000, True)
     first = flash.flash_bwd(*args)
-    for _ in range(3):
+    for _ in range(19):
         again = flash.flash_bwd(*args)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
@@ -328,7 +331,7 @@ def test_flash_bwd_fused_is_deterministic(dev, n, n_kv):
 def test_flash_bwd_fused_at_the_train_smoke_length(dev):
     """The fused kernel at the runner's longest shape (benchmarks/
     train_smoke.py: B1 N16 S32768 D128 bf16 causal; 8192 CTAs whose ordered
-    dq fold relies on in-order dispatch): it finishes, two launches are
+    dq fold takes its order from their tickets): it finishes, two launches are
     bitwise equal, and it agrees with the split pair (no fold).  Each of
     tile_bwd's fp32 score matrices would take 69 GB at this shape, so the
     split pair is the reference."""
@@ -704,3 +707,144 @@ def test_ring_train_step_on_the_card_matches_the_cpu(dev):
     (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
     np.testing.assert_allclose(mg, mc, rtol=1e-5)
     _close_to_max(gg, gc)
+
+
+# ---------------------------------------------------------------------------
+# sliding-window serving: kernels 1, 6 and 7 with a window; kernel 10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window,offset", [
+    (300, 1, 0), (300, 100, 0), (333, 64, -1), (256, 4096, 0)])
+def test_flash_kernel_window_matches_plain(dev, dtype, s, window, offset):
+    n, n_kv, d = 8, 2, 128
+    g = torch.Generator(device=dev).manual_seed(s + window)
+    q = _rand(g, dev, dtype, 1, n, s, d)
+    k, v = (_rand(g, dev, dtype, 1, n_kv, s, d) for _ in range(2))
+    spec = masks.MaskSpec(0, s, s - 7, 1, offset)  # a ragged kv_hi too
+    m, lse, o = flash.flash_fwd(q, k, v, None, None, None, d**-0.5, spec,
+                                window=window, emit_o=True)
+    again = flash.flash_fwd(q, k, v, None, None, None, d**-0.5, spec,
+                            window=window, emit_o=True)
+    assert all(torch.equal(a, b) for a, b in zip((m, lse, o), again))
+    st = tile.tile_fwd(q, k, v, *tile.init_state(1, n, s, d, device=dev),
+                       d**-0.5, spec, window=window)
+    torch.testing.assert_close(o, tile.finalize(*st, dtype), **TOL[dtype])
+    torch.testing.assert_close(lse, st[1], atol=1e-4, rtol=0)
+    if window >= s:  # no band left: bitwise the unwindowed kernel
+        full = flash.flash_fwd(q, k, v, None, None, None, d**-0.5, spec,
+                               emit_o=True)
+        assert all(torch.equal(a, b) for a, b in zip((m, lse, o), full))
+
+
+@pytest.mark.parametrize("dtype,quant", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.float32, "int8"),
+    (torch.bfloat16, "fp8")])
+@pytest.mark.parametrize("window", [1, 64, 300])
+def test_paged_kernel_window_matches_plain(dev, dtype, quant, window):
+    page, n_kv, group, d, width, n_pages = 128, 2, 4, 128, 4, 32
+    g = torch.Generator(device=dev).manual_seed(window)
+    lengths = [0, 1, 37, page, 3 * page + 5, 4 * page]
+    q = _rand(g, dev, dtype, len(lengths), n_kv, group, d)
+    kp, vp, ks, vs = _pool(g, dev, dtype, quant, n_pages, n_kv, page, d)
+    perm = np.random.default_rng(window).permutation(n_pages - 1) + 1
+    table = torch.from_numpy(perm[: len(lengths) * width].reshape(
+        len(lengths), width).astype(np.int32)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(k_scales=ks, v_scales=vs, window=window)
+    o = paged_attention.paged_decode_attention(q, kp, vp, table, lens, **kw)
+    want = paged_attention.paged_decode_reference(q, kp, vp, table, lens,
+                                                  **kw)
+    torch.testing.assert_close(o, want, **TOL[dtype])
+    # QT == 1 through the ragged kernel: bitwise the decode kernel's rows
+    b = len(lengths)
+    rag = ragged_paged.ragged_paged_attention(
+        q.reshape(b, n_kv * group, 1, d), kp, vp, table,
+        (lens > 0).to(torch.int32), lens, **kw)
+    assert torch.equal(rag.reshape(o.shape), o)
+
+
+@pytest.mark.parametrize("dtype,quant", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, "int8")])
+@pytest.mark.parametrize("window", [1, 50, 200])
+def test_ragged_kernel_window_matches_plain(dev, dtype, quant, window):
+    q, kp, vp, table, ql, kl, ks, vs = _ragged_case(dev, dtype, quant)
+    kw = dict(k_scales=ks, v_scales=vs, window=window)
+    o = ragged_paged.ragged_paged_attention(q, kp, vp, table, ql, kl, **kw)
+    again = ragged_paged.ragged_paged_attention(q, kp, vp, table, ql, kl,
+                                                **kw)
+    assert torch.equal(o, again)
+    want = ragged_paged.ragged_paged_reference(q, kp, vp, table, ql, kl,
+                                               **kw)
+    torch.testing.assert_close(o, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("window,kv1", [(100, 128 + 64), (16, 400)])
+def test_ragged_grouped_window_matches_plain(dev, window, kv1):
+    """A two-slot prefix group; with kv1 = 400 and window 16 the shared
+    page lies wholly below every row's band."""
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(dev, torch.float32)
+    table[2, 0] = table[1, 0]
+    ql[1:3] = torch.tensor([1, 37], device=dev, dtype=torch.int32)
+    kl[1:3] = torch.tensor([kv1, kv1 - 5], device=dev, dtype=torch.int32)
+    grp = dict(group_id=torch.tensor([0, 1, 1, 0, 0, 0], dtype=torch.int32,
+                                     device=dev),
+               shared_table=torch.stack([torch.zeros_like(table[1, :1]),
+                                         table[1, :1]]),
+               shared_lens=torch.tensor([0, 128], dtype=torch.int32,
+                                        device=dev))
+    got = ragged_paged.ragged_paged_attention_grouped(
+        q, kp, vp, table, ql, kl, window=window, **grp)
+    assert not torch.isnan(got).any()
+    want = ragged_paged.ragged_paged_reference(q, kp, vp, table, ql, kl,
+                                               window=window)
+    # padding rows (t >= q_lens) are the caller's to drop, as in JAX
+    real = torch.arange(q.shape[2], device=dev)[None, :] < ql[:, None]
+    torch.testing.assert_close(got * real[:, None, :, None], want,
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("bkv,steps", [(32, 12), (128, 8), (256, 9),
+                                       (1024, 5), (40, 700), (1024, 600)])
+@pytest.mark.parametrize("matmul", [True, False])
+def test_step_probe_kernel_matches_plain(dev, bkv, steps, matmul):
+    from burst_attn_tpu_torch.bench import step_probe as sp
+
+    g = torch.Generator(device=dev).manual_seed(bkv)
+    q = _rand(g, dev, torch.bfloat16, 1, 200, 128)
+    pool = _rand(g, dev, torch.bfloat16, min(steps, 512), bkv, 128)
+    before = sp.step_probe.launches
+    out, sums = sp.step_probe(q, pool, steps, matmul)
+    again = sp.step_probe(q, pool, steps, matmul)
+    torch.cuda.synchronize()
+    assert sp.step_probe.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(sums, again[1])
+    want, want_sums = sp.step_probe_reference(q, pool, steps, matmul)
+    top = float(want.abs().max())
+    assert float((out - want).abs().max()) <= 1e-5 * top
+    assert torch.equal(sums, want_sums)
+
+
+def test_serve_engines_window_match_the_cpu(dev):
+    """A windowed fp32 model: both engines on the card produce the CPU
+    engine's tokens (prompts inside and past the window)."""
+    cfg = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_head=128, d_ff=256,
+                      dtype=torch.float32, window=64, layout="contig")
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 256, size=t, dtype=np.int32)
+               for t in (20, 100, 250)]
+    kw = dict(slots=2, n_pages=12, page=128, max_pages_per_seq=3)
+    outs = []
+    for engine, extra in ((ServeEngine, {}),
+                          (RaggedServeEngine, {"chunk": 64})):
+        for d in ("cpu", dev):
+            p = {k: (v.to(d) if torch.is_tensor(v) else
+                     [{n: w.to(d) for n, w in lay.items()} for lay in v])
+                 for k, v in params.items()}
+            eng = engine(p, cfg, device=d, **kw, **extra)
+            rids = [eng.submit(x, 8) for x in prompts]
+            res = eng.run()
+            outs.append([res[r] for r in rids])
+    assert all(o == outs[0] for o in outs[1:])

@@ -135,8 +135,12 @@ def test_unported_options_raise():
     q = torch.zeros(1, 2, 8, 32)
     spec = masks.full_spec(8, 8)
     with pytest.raises(NotImplementedError):
-        flash.flash_fwd(q, q, q, None, None, None, 1.0, spec, window=4)
-    with pytest.raises(NotImplementedError):
+        flash.flash_fwd(q, q, q, None, None, None, 1.0, spec,
+                        segments=(q, q))
+    with pytest.raises(ValueError, match="window"):
+        flash.flash_fwd(q, q, q, None, None, None, 1.0, spec, window=0)
+    # one device takes a window; the ring's spec helpers still raise
+    with pytest.raises(NotImplementedError, match="windowed-training"):
         masks.round_spec(0, 0, 8, 8, True, "contig", window=4)
     with pytest.raises(ValueError):
         flash.flash_fwd(q, q, q, torch.zeros(1, 2, 8), None, None, 1.0, spec)

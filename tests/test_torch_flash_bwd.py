@@ -9,7 +9,14 @@ holds the JAX kernels to its tile.
 The rectangular fused kernel's dq accumulates in place through output
 aliasing, which interpret mode does not model (tests/test_fused_bwd.py runs
 it on a TPU only; interpreted, its dq is off by O(1)), so for that route dq
-is held to the JAX tile_bwd and dk, dv to the kernel."""
+is held to the JAX tile_bwd and dk, dv to the kernel.
+
+The fused kernel's dq fold is also simulated here: its CTAs take their kv
+tile from a start-order ticket, so no dispatch order can deadlock the
+ordered fold, while tiles taken from block ids can."""
+
+import collections
+import random
 
 import jax
 import jax.numpy as jnp
@@ -121,3 +128,87 @@ def test_flash_bwd_unported_options_and_bad_shapes_raise():
         m = x.to("meta")
         flash.flash_bwd(m, m, m, m, lse.to("meta"), lse.to("meta"), 1.0,
                         spec)
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel's dq fold order (csrc/flash_bwd.cu): a CPU simulation of
+# its CTAs under an arbitrary dispatch order, with fewer resident slots
+# than CTAs
+
+
+def _simulate_fused_dq_fold(start_order, resident, nkt, heads, tickets,
+                            seed):
+    """Run the fused kernel's fold protocol on `heads` heads of `nkt` kv
+    tiles (square causal: kv tile j sees q tiles j..nkt-1 and walks them
+    from the last down; at q tile i it waits until the tile's counter
+    reads j, adds its partial, counts).  CTAs start in `start_order` (block
+    ids) as `resident` slots free up and advance in a random interleaving.
+    A CTA works on the tile its ticket (the count of CTAs started before
+    it) decodes to, kv tile fastest, or, with tickets=False, on the tile
+    of its block id.  Returns the folds per (head, q tile) in the order
+    they landed, or None on a deadlock (every resident CTA waiting)."""
+    rng = random.Random(seed)
+    counters = collections.Counter()
+    folds = collections.defaultdict(list)
+    started = set()
+    pending = list(start_order)
+    running = []  # [head, kv tile, next q tile]
+    while pending or running:
+        while len(running) < resident and pending:
+            block = pending.pop(0)
+            t = len(started) if tickets else block
+            head, j = divmod(t, nkt)
+            started.add((head, j))
+            running.append([head, j, nkt - 1])
+        ready = [c for c in running if counters[c[0], c[2]] >= c[1]]
+        for head, j, _ in running:
+            if tickets and j > 0:  # a wait is on a CTA that has started
+                assert (head, j - 1) in started
+        if not ready:
+            return None
+        c = rng.choice(ready)
+        head, j, i = c
+        folds[head, i].append(j)
+        counters[head, i] += 1
+        if i == j:
+            running.remove(c)
+        else:
+            c[2] -= 1
+    return folds
+
+
+@pytest.mark.parametrize("nkt,heads", [(4, 3), (7, 2)])
+def test_fused_dq_fold_tickets_never_deadlock(nkt, heads):
+    n = nkt * heads
+    rng = random.Random(nkt)
+    for seed in range(60):
+        order = list(range(n))
+        rng.shuffle(order)
+        resident = rng.randint(1, n - 1)
+        folds = _simulate_fused_dq_fold(order, resident, nkt, heads, True,
+                                        seed)
+        assert folds is not None, (order, resident)
+        # every q tile received each kv tile's partial once, in increasing
+        # kv tile order: the fold order that makes two launches bitwise equal
+        assert dict(folds) == {(h, i): list(range(i + 1))
+                               for h in range(heads) for i in range(nkt)}
+
+
+def test_fused_dq_fold_block_ids_can_deadlock():
+    """Without tickets, a dispatch order the CUDA model allows (here the
+    highest block id first, one resident slot) leaves kv tile j waiting on
+    tile j-1, which never gets an SM; random orders hit it too."""
+    nkt, heads = 4, 2
+    n = nkt * heads
+    assert _simulate_fused_dq_fold(list(range(n))[::-1], 1, nkt, heads,
+                                   False, 0) is None
+    assert _simulate_fused_dq_fold(list(range(n))[::-1], 1, nkt, heads,
+                                   True, 0) is not None
+    rng = random.Random(1)
+    stuck = 0
+    for seed in range(40):
+        order = list(range(n))
+        rng.shuffle(order)
+        stuck += _simulate_fused_dq_fold(order, 2, nkt, heads, False,
+                                         seed) is None
+    assert stuck > 0

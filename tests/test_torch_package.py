@@ -36,7 +36,8 @@ bad = sorted(m for m in sys.modules
 ring = ["parallel.mesh", "parallel.ring", "parallel.schedule",
         "parallel.burst", "ops.fused_ring", "ops.tuning",
         "models.dist_decode", "serving.handoff"]
-bad += [m for m in ring if pkg.__name__ + "." + m not in names]
+bench = ["bench", "bench.step_probe"]
+bad += [m for m in ring + bench if pkg.__name__ + "." + m not in names]
 print(len(names), bad)
 """
 

@@ -93,8 +93,8 @@ def test_unported_options_raise():
     q, kp, vp, table = map(torch.from_numpy, _pool(
         1, slots=1, n_pages=4, n_kv=1, page=128, d=32, width=1, group=1))
     lengths = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        pa.paged_decode_attention(q, kp, vp, table, lengths, window=8)
+    with pytest.raises(ValueError, match="window"):
+        pa.paged_decode_attention(q, kp, vp, table, lengths, window=0)
     with pytest.raises(ValueError, match="together"):
         pa.paged_decode_attention(q, kp, vp, table, lengths,
                                   k_scales=lengths)

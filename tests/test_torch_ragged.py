@@ -227,5 +227,7 @@ def test_all_idle_batch_and_unported_window():
     assert out.shape == args["q"].shape and (out == 0).all()
     acc, m, l = rp.ragged_paged_attention(**args, emit_partials=True)
     assert (acc == 0).all() and torch.isneginf(m).all() and (l == 0).all()
-    with pytest.raises(NotImplementedError):
-        rp.ragged_paged_attention(**args, window=16)
+    out = rp.ragged_paged_attention(**args, window=16)
+    assert (out == 0).all()
+    with pytest.raises(ValueError, match="window"):
+        rp.ragged_paged_attention(**args, window=0)

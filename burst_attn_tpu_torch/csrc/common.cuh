@@ -26,6 +26,12 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -90,153 +96,6 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src, int r0,
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-// ---------------------------------------------------------------------------
-// The paged kernels' shared online-softmax update (paged_decode.cu and
-// ragged_paged.cu).  A decode row of the ragged kernel is bit-identical to
-// the decode kernel's row because both run THIS code on the same 64-token
-// chunks in the same order: the same fmaf chain for each score, the same
-// shuffle trees for the row max and sum, the same alpha rule and the same
-// fmaf per output column.  Per-row arithmetic does not depend on how many
-// rows a block holds (MAXR), so the row count is a template parameter.
-
-constexpr int kPagedChunk = 64;   // tokens per shared-memory chunk
-constexpr int kPagedThreads = 128;
-
-__device__ __forceinline__ float dot4_fma(float s, float4 a, float4 b) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
-}
-
-// Online-softmax state of one block's rows: warp w owns rows w, w + NW, ...
-// (m and l replicated across its lanes); thread d < D owns output column d
-// of every row.
-template <int MAXR>
-struct PagedRows {
-  static constexpr int NW = kPagedThreads / 32;
-  float m[MAXR / NW], l[MAXR / NW];
-  float acc[MAXR];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int i = 0; i < MAXR / NW; ++i) {
-      m[i] = neg_inf();
-      l[i] = 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
-  }
-
-  // One chunk: scores of `rows` query rows (sQ [rows][D], pre-scaled by
-  // scale*log2e) against the chunk's keys (sK [CH][D+4]), masked by
-  // valid(row, token), then the base-2 online softmax and P.V into acc.
-  // Quantized pools pass their per-token scales (sKs, sVs [CH]): the
-  // dequantization is a column rescale of the scores and of p, as in the
-  // TPU kernels.  sS [MAXR][CH] and sA [MAXR] are scratch.  All threads
-  // of the block call it; it synchronises internally and on return the
-  // chunk's shared buffers may be refilled after one __syncthreads().
-  template <int D, bool QUANT, typename Valid>
-  __device__ __forceinline__ void chunk(const float* __restrict__ sQ,
-                                        const float* __restrict__ sK,
-                                        const float* __restrict__ sV,
-                                        const float* __restrict__ sKs,
-                                        const float* __restrict__ sVs,
-                                        float* __restrict__ sS,
-                                        float* __restrict__ sA, int rows,
-                                        Valid valid) {
-    constexpr int CH = kPagedChunk, NT = kPagedThreads, LDK = D + 4;
-    static_assert(CH == 64, "two scores per lane in the row reductions");
-    static_assert(D <= NT, "one output column per thread");
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    {  // scores: thread (t, r0) computes rows r0, r0 + NT/CH, ...
-      const int t = tid % CH;
-      for (int r = tid / CH; r < rows; r += NT / CH) {
-        float s = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; d += 4)
-          s = dot4_fma(s, *reinterpret_cast<const float4*>(sQ + r * D + d),
-                       *reinterpret_cast<const float4*>(sK + t * LDK + d));
-        if constexpr (QUANT) s *= sKs[t];
-        sS[r * CH + t] = valid(r, t) ? s : neg_inf();
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < MAXR / NW; ++i) {
-      const int r = warp + NW * i;
-      if (r >= rows) break;  // warp-uniform
-      const float s0 = sS[r * CH + lane], s1 = sS[r * CH + lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = (m[i] >= m_new) ? 1.f : exp2f(m[i] - m_new);
-      const float p0 = (s0 == neg_inf()) ? 0.f : exp2f(s0 - m_new);
-      const float p1 = (s1 == neg_inf()) ? 0.f : exp2f(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      m[i] = m_new;
-      l[i] = fmaf(l[i], alpha, sum);
-      sS[r * CH + lane] = QUANT ? p0 * sVs[lane] : p0;
-      sS[r * CH + lane + 32] = QUANT ? p1 * sVs[lane + 32] : p1;
-      if (lane == 0) sA[r] = alpha;
-    }
-    __syncthreads();
-
-    if (tid < D) {
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r)
-        if (r < rows) acc[r] *= sA[r];
-#pragma unroll 4
-      for (int j = 0; j < CH; ++j) {
-        const float vv = sV[j * D + tid];
-#pragma unroll
-        for (int r = 0; r < MAXR; ++r)
-          if (r < rows) acc[r] = fmaf(sS[r * CH + j], vv, acc[r]);
-      }
-    }
-  }
-
-  // Park each row's (m, l) in shared memory for the epilogue (call, then
-  // __syncthreads(), then read sM/sL[row]).
-  __device__ __forceinline__ void park(float* sM, float* sL, int rows) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (lane != 0) return;
-#pragma unroll
-    for (int i = 0; i < MAXR / NW; ++i) {
-      const int r = warp + NW * i;
-      if (r < rows) {
-        sM[r] = m[i];
-        sL[r] = l[i];
-      }
-    }
-  }
-};
-
-// Load one chunk of a page (CH tokens of one kv head: rows row0.. of the
-// pool seen as [P*Nkv*page, D]) into sK/sV as fp32, and the chunk's scales
-// (ks/vs seen as [P*Nkv*page]) for quantized pools.
-template <typename KV, int D, bool QUANT>
-__device__ __forceinline__ void load_paged_chunk(
-    const KV* __restrict__ kp, const KV* __restrict__ vp,
-    const float* __restrict__ ks, const float* __restrict__ vs, size_t row0,
-    float* sK, float* sV, float* sKs, float* sVs) {
-  constexpr int CH = kPagedChunk, NT = kPagedThreads;
-  load_rows<KV, D, CH, NT>(kp + row0 * D, 0, CH, sK, D + 4, 1.f);
-  load_rows<KV, D, CH, NT>(vp + row0 * D, 0, CH, sV, D, 1.f);
-  if constexpr (QUANT) {
-    if (threadIdx.x < CH) {
-      sKs[threadIdx.x] = ks[row0 + threadIdx.x];
-      sVs[threadIdx.x] = vs[row0 + threadIdx.x];
-    }
-  }
 }
 
 // Set a kernel's dynamic shared memory limit once per instantiation.

@@ -1,0 +1,238 @@
+// Tensor-core attention tile for Hopper (sm_90a), built on mma.sync:
+// cp.async staging, ldmatrix fragment loads and one warp's online-softmax
+// step over a 64-token K/V chunk.  Included, not built alone.
+//
+// A warp owns 16 query rows.  S = Q.K^T and O += P.V run on
+// mma.sync.m16n8k16 with bf16 inputs and fp32 accumulation; Q's A
+// fragments are re-read from shared memory each k-step (held for the whole
+// walk they cost 32 registers a thread, and the kernel spilled), P is
+// rebuilt from the S accumulators as the A fragments of the P.V product
+// (the FlashAttention register layout), so nothing of S or P touches
+// shared memory.  K and V
+// chunks sit in shared memory as bf16 rows of kTileLd elements (the 16-byte
+// pad makes the eight rows an ldmatrix reads fall on distinct banks); V is
+// read with ldmatrix.trans.  The softmax is base 2: the caller hands each
+// score's factor (scale * log2(e), times a per-token dequantization scale
+// for a 1-byte pool) and a visibility test, and the -inf guards keep a
+// fully masked row at m = -inf, l = 0, O = 0.  Nothing here depends on the
+// paged layout: the ragged kernel uses it today, the flash kernels can.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace bat {
+
+constexpr int kTileChunk = 64;   // K/V tokens per chunk
+constexpr int kTileD = 128;      // head dim
+constexpr int kTileLd = kTileD + 8;  // bf16 row stride in shared memory
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous global -> shared copy (L2 only: the chunks stream)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy `rows` rows of RB bytes each (contiguous in global memory) into
+// shared rows LDB bytes apart; every thread of the NT-thread block issues
+// its share of 16-byte pieces.
+template <int RB, int LDB, int NT>
+__device__ __forceinline__ void cp_rows(char* dst, const char* src,
+                                        int rows) {
+  constexpr int P = RB / 16;
+  for (int i = threadIdx.x; i < rows * P; i += NT) {
+    const int r = i / P, c = i % P;
+    cp_async16(dst + r * LDB + c * 16, src + (size_t)r * RB + c * 16);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a.b, one m16n8k16 product: bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) as two bf16 pairs whose sum carries ~16 significant bits: hi the
+// rounded values, lo the rounded residuals
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// One warp's 16 query rows through a K/V walk.  Lane (g = lane / 4,
+// c = lane % 4) holds rows g and g + 8 of the warp's tile: columns
+// 8n + 2c, 8n + 2c + 1 of O's n-tile n (o[n][0..1] row g, o[n][2..3] row
+// g + 8), and a partial row sum l over its own columns (reduced across the
+// quad by finish()).  m is the row's running max, base 2, quad-uniform.
+struct WarpTile {
+  const __nv_bfloat16* q;  // the lane's ldmatrix row of the Q tile
+  float o[kTileD / 8][4];
+  float m[2], l[2];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int n = 0; n < kTileD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    m[0] = m[1] = neg_inf();
+    l[0] = l[1] = 0.f;
+  }
+
+  // Q rows [0, 16) of the warp's tile: bf16 rows kTileLd apart in shared
+  // memory, resident for the whole walk
+  __device__ __forceinline__ void set_q(const __nv_bfloat16* sQ) {
+    const int lane = threadIdx.x % 32;
+    q = sQ + ((lane % 8) + 8 * ((lane / 8) % 2)) * kTileLd + 8 * (lane / 16);
+  }
+
+  // One chunk of NTOK tokens (a multiple of 16; bf16 rows kTileLd apart).
+  // factor(col) is the score factor of token col (fp32), visible(half,
+  // col) whether row g (half 0) or g + 8 (half 1) sees it, pscale(col) the
+  // factor applied to p before the P.V product (the value dequantization
+  // scale, 1 for a full-precision pool).  P.V takes p as two bf16 terms
+  // (rounded p, then its rounded residual) against the same V fragments:
+  // p rounded once to bf16 moved outputs of rows that see few positions
+  // by up to 2.5e-3 on the card, past the bf16 output tolerance, and the
+  // second product adds half again the tensor-core work a chunk, no extra
+  // shared-memory reads.  l sums the unrounded p.
+  template <int NTOK, typename Factor, typename Visible, typename PScale>
+  __device__ __forceinline__ void step(const __nv_bfloat16* sK,
+                                       const __nv_bfloat16* sV, Factor factor,
+                                       Visible visible, PScale pscale) {
+    static_assert(NTOK % 16 == 0, "whole k-steps of P.V");
+    constexpr int NS = NTOK / 8;  // score n-tiles
+    const int lane = threadIdx.x % 32, c = lane % 4, mi = lane / 8,
+              r8 = lane % 8;
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kTileD / 16; ++kk) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, q + 16 * kk);
+#pragma unroll
+      for (int jj = 0; jj < NS / 2; ++jj) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, sK + (16 * jj + 8 * (mi / 2) + r8) * kTileLd +
+                            16 * kk + 8 * (mi % 2));
+        mma_bf16(s[2 * jj], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * jj + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    float mx[2][2] = {{neg_inf(), neg_inf()}, {neg_inf(), neg_inf()}};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * c + (e & 1), half = e / 2;
+        const float x = s[j][e] * factor(col);
+        s[j][e] = visible(half, col) ? x : neg_inf();
+        mx[half][j % 2] = fmaxf(mx[half][j % 2], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = fmaxf(mx[h][0], mx[h][1]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[h], x);
+      alpha[h] = (m[h] >= m_new) ? 1.f : exp2f(m[h] - m_new);
+      m[h] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e / 2;
+        const float p =
+            (s[j][e] == neg_inf()) ? 0.f : exp2f(s[j][e] - m[half]);
+        sum[half] += p;
+        s[j][e] = p * pscale(8 * j + 2 * c + (e & 1));
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = fmaf(l[h], alpha[h], sum[h]);
+#pragma unroll
+    for (int n = 0; n < kTileD / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+#pragma unroll
+    for (int kt = 0; kt < NTOK / 16; ++kt) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kt][0], s[2 * kt][1], ph[0], pl[0]);
+      split_bf16(s[2 * kt][2], s[2 * kt][3], ph[1], pl[1]);
+      split_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dd = 0; dd < kTileD / 16; ++dd) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, sV + (16 * kt + 8 * (mi % 2) + r8) * kTileLd +
+                                  16 * dd + 8 * (mi / 2));
+        mma_bf16(o[2 * dd], ph, vb[0], vb[1]);
+        mma_bf16(o[2 * dd + 1], ph, vb[2], vb[3]);
+        mma_bf16(o[2 * dd], pl, vb[0], vb[1]);
+        mma_bf16(o[2 * dd + 1], pl, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // Reduce each row's sum across its quad; after this l[h] is the row's.
+  __device__ __forceinline__ void finish() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+  }
+};
+
+}  // namespace bat

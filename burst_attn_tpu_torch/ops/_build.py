@@ -49,11 +49,6 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         f"flash_bwd_{route}_launch": [P] * 10 + [I] * 7 + [F] + [I] * 5 + [P]
         for route in ("fused", "dq", "dkdv")
     },
-    "paged_decode": {
-        # q k_pages v_pages k_scales v_scales table lengths out,
-        # B Nkv G D page width window dtype kv_dtype, scale, stream
-        "paged_decode_launch": [P] * 8 + [I] * 9 + [F] + [P],
-    },
     "fused_ring_fwd": {
         # D dtype, &max_blocks
         "fused_ring_fwd_capacity": [I, I, ctypes.POINTER(I)],
@@ -72,9 +67,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "ragged_paged": {
         # q k_pages v_pages k_scales v_scales table q_lens kv_lens ctx_lo
-        # out acc m l, S Nkv G QT D page width window dtype kv_dtype, scale,
-        # stream
-        "ragged_paged_launch": [P] * 13 + [I] * 10 + [F] + [P],
+        # out acc m l ws counters trace, S Nkv G QT D page width window
+        # ppd nsd ppf nsf n_ws dtype kv_dtype, scale, stream
+        "ragged_paged_launch": [P] * 16 + [I] * 15 + [F] + [P],
     },
     "step_probe": {
         # q pool out sums, bq bkv d n_pool steps matmul n_cta, stream

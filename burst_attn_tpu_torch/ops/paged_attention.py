@@ -6,23 +6,34 @@ sequence owns a row of the page table.  One decode step attends each
 sequence's single new query against its own pages only, so cost follows
 the live length, not max_seq.
 
-`paged_decode_attention` launches the hand-written kernel in
-csrc/paged_decode.cu for CUDA tensors (or raises) and runs the plain
-`paged_decode_reference` for CPU tensors.  GQA folds the query-head group
-into the kernel's rows: q arrives [B, Nkv, G, D].  The TPU kernel's
-padding of G to 8 sublanes is a TPU tiling artefact and is not carried
-over.  Pools are in q's dtype, or 1 B/elem (int8 / fp8 e4m3fn) with
-per-token fp32 scales from `quantize_tokens`: the kernel dequantizes as a
-column rescale of the scores and of the probabilities, as the TPU kernel
-does; the plain version dequantizes the whole pool first.  A sliding
-`window` limits the new token to the positions at or above max(len -
-window, 0); the kernel starts its page walk there.
+`paged_decode_attention` runs the plain `paged_decode_reference` for CPU
+tensors.  For CUDA tensors it launches the ragged kernel
+(csrc/ragged_paged.cu) as its QT == 1 instance, or raises: that kernel
+replaces the TPU's `_decode_kernel` too.  q [B, Nkv, G, D] (GQA folds the
+query-head group into the kernel's rows) is viewed as [B, Nkv*G, 1, D],
+each live sequence one query token at position lengths - 1 (q_lens =
+lengths > 0, kv_lens = lengths).  On an H100 a decode step is bound by
+bytes (each live token's K and V rows read once per kv head; the
+operations, 4 a byte at G = 4, are nothing): the kernel's decode path cuts
+each sequence's pages into splits of 256 positions so that a small batch
+still fills the card's 132 SMs, streams each split's 64-token chunks
+through shared memory with cp.async (bf16 q on tensor cores, each of four
+warps on 16 tokens of a chunk; fp32 q in SIMT fp32), and merges the
+splits' partials in a fixed order (two launches are bitwise equal).  Left
+for later: TMA and a producer warp, fp8 tensor-core products for 1-byte
+pools.  The TPU
+kernel's padding of G to 8 sublanes is a TPU tiling artefact and is not
+carried over.  Pools are in q's dtype, or 1 B/elem (int8 / fp8 e4m3fn)
+with per-token fp32 scales from `quantize_tokens`: the kernel dequantizes
+as a column rescale of the scores and of the probabilities, as the TPU
+kernel does; the plain version dequantizes the whole pool first.  A
+sliding `window` limits the new token to the positions at or above
+max(len - window, 0); the kernel starts its page walk there.
 """
 
 import torch
 
-from . import _build
-from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
+from .flash import KERNEL_DTYPES, _check_kernel_operand
 
 # 1 B/elem pool storage dtypes and the full-range absmax each scale maps
 # onto: int8 rounds into [-127, 127]; fp8 e4m3fn casts into +-448.
@@ -30,7 +41,6 @@ QUANT_DTYPES = {
     "int8": (torch.int8, 127.0),
     "fp8": (torch.float8_e4m3fn, 448.0),
 }
-KERNEL_MAX_GROUP = 16  # query rows per kv head (csrc/paged_decode.cu MAXG)
 KERNEL_PAGE_MULTIPLE = 64  # tokens per shared-memory chunk (common.cuh)
 # quantized pool dtype codes of the kernels (csrc/common.cuh)
 KERNEL_POOL_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
@@ -149,42 +159,18 @@ def data_ptr(t):
 
 def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, k_scales,
                        v_scales, scale, window):
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"paged_decode_attention runs on cuda or cpu "
-                         f"tensors, got {dev}")
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"paged_decode kernel takes {list(KERNEL_DTYPES)}, "
-                         f"got {q.dtype}")
+    from . import ragged_paged  # it imports this module
+
     b, n_kv, g, d = q.shape
-    page = k_pages.shape[2]
-    width = page_table.shape[1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_decode kernel takes head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
-    if not 1 <= g <= KERNEL_MAX_GROUP:
-        raise ValueError(f"paged_decode kernel takes 1..{KERNEL_MAX_GROUP} "
-                         f"query rows per kv head, got {g}")
-    _check_kernel_operand("q", q, dev, q.dtype)
-    kv_code = check_pool_operands(q, k_pages, v_pages, k_scales, v_scales)
-    _check_kernel_operand("page_table", page_table, dev, torch.int32,
-                          (b, width))
-    _check_kernel_operand("lengths", lengths, dev, torch.int32, (b,))
-    out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
-    lib = _build.load("paged_decode")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.paged_decode_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            data_ptr(k_scales), data_ptr(v_scales), page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, n_kv, g, d, page, width,
-            0 if window is None else int(window), KERNEL_DTYPES[q.dtype],
-            kv_code, float(scale), stream)
-    _build.check(err, "paged_decode_attention")
+    _check_kernel_operand("q", q, q.device, q.dtype)  # before the view
+    # the ragged kernel's QT=1 instance: q_lens None = one token per
+    # sequence whose length is > 0; launch checks the rest
+    out = ragged_paged.launch(q.view(b, n_kv * g, 1, d), k_pages, v_pages,
+                              page_table, None, lengths, k_scales, v_scales,
+                              scale, None, False, window,
+                              "paged_decode_attention")
     paged_decode_attention.launches += 1
-    return out
+    return out.reshape(q.shape)
 
 
 def paged_decode_reference(q, k_pages, v_pages, page_table, lengths,

@@ -9,11 +9,16 @@ Phases (any failure exits non-zero; nothing is caught):
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes, with its time, the plain version's time, one
      PyTorch library call's time (a yardstick only, never used by the
-     port) and its roofline bound: flash forward; paged decode on bf16,
-     fp32, int8 and fp8 pools; the ragged kernel on a mixed prefill +
-     decode batch (fp32, bf16, int8, fp8 pools), its split-k partials
-     with a page-aligned ctx_lo, and its QT=1 rows bitwise against paged
-     decode; the flash backward's fused kernel and split dq + dk/dv pair
+     port) and its roofline bound: flash forward; paged decode (the
+     ragged kernel's QT=1 instance) on bf16, fp32, int8 and fp8 pools;
+     the ragged kernel on a mixed prefill + decode batch (fp32, bf16,
+     int8, fp8 pools), its split-k partials with a page-aligned ctx_lo
+     (fp32 and bf16), and its QT=1 rows bitwise against paged decode; both
+     at G = 1, 4, 16 and 64; paged decode at up to 16384 positions (32
+     splits); every one of these two launches torch.equal; the paged
+     kernels' `ms`, like every row's, times eager calls, and their
+     `graph_ms` (SDPA's `library_graph_ms`) the device alone through a
+     CUDA graph, since their eager calls time the host; the flash backward's fused kernel and split dq + dk/dv pair
      against tile_bwd (fp32 and bf16, MHA and GQA, causal, non-causal,
      ragged S; the fused kernel 20 launches bitwise equal), autograd through
      flash_attention against autograd through the plain tile; at the
@@ -93,8 +98,10 @@ Phases (any failure exits non-zero; nothing is caught):
      with windows 1, 100, 1024 and 4096 (>= S: bitwise the unwindowed
      kernel) at B1 N16/4 S2048 bf16, offset 0 and -1 with a ragged
      kv_hi; kernel 6 with windows 64, 1024, 3000 on bf16, int8 and fp8
-     pools (its QT=1 ragged rows bitwise); kernel 7 with windows 64 and
-     1024 on the mixed batch and the grouped shared-prefix launch (a
+     pools (its QT=1 ragged rows bitwise; 3000, above every length,
+     bitwise the unwindowed kernel); kernel 7 with windows 64, 1024 and
+     4096 (bitwise the unwindowed kernel) on the mixed batch and the
+     grouped shared-prefix launch (a
      prefix wholly below the band adds nothing, no NaN); each two launches
      torch.equal, timed beside its plain version, SDPA with the band and
      its bound; kernel 10 (the step-overhead probe) against its plain
@@ -216,6 +223,28 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """Mean device milliseconds per call of `fn` with the host out of the
+    way: `calls` calls captured into one CUDA graph, replayed `replays`
+    times between CUDA events.  The paged kernels run for microseconds,
+    less than their wrappers take on the host, so time_ms around eager
+    calls times the host: their rows and SDPA's beside them report this
+    as `graph_ms` / `library_graph_ms` beside `ms`."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, iters=replays, warmup=2) / calls
 
 
 def host_ms(fn, repeats=3):
@@ -423,6 +452,7 @@ def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
                                          k_scales=ks, v_scales=vs)
 
     o = kernel()
+    assert torch.equal(o, kernel()), "paged_decode: two launches differ"
     want = pa.paged_decode_reference(q, kp, vp, table, lens, k_scales=ks,
                                      v_scales=vs)
     err = _check_o(f"paged_decode {quant or ''}", o, want, dtype)
@@ -430,15 +460,17 @@ def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
         assert ln or (o[i] == 0).all(), "an empty slot must give zeros"
     key = _dtype_key(dtype)
     print(f"paged_decode {key} pool={quant or key} lengths={list(lengths)} "
-          f"max_abs_err={err:.3e} (tolerance {O_TOL[key]})", flush=True)
+          f"max_abs_err={err:.3e} (tolerance {O_TOL[key]}); two launches "
+          "torch.equal", flush=True)
     if quant is not None and timing:
-        ms = time_ms(kernel)
+        ms = graph_ms(kernel)
         print(f"paged_decode {key} pool={quant}: {ms:.4f} ms", flush=True)
         return err, ms
     if not timing:
         return err
 
     ms = time_ms(kernel)
+    dev_ms = graph_ms(kernel)
     plain_ms = time_ms(
         lambda: pa.paged_decode_reference(q, kp, vp, table, lens), iters=5)
     # the library yardstick: SDPA over the cache gathered to dense
@@ -448,8 +480,11 @@ def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
     qd = q.reshape(slots, n_kv * group, 1, d)
     mask = (torch.arange(width * page, device=device)[None, :]
             < lens[:, None])[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    def lib():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_ms, lib_dev_ms = time_ms(lib), graph_ms(lib)
     # what the function must move: the K/V of the live positions, q of the
     # non-empty slots (an empty slot's zeros need no q), every output row,
     # the table entries of the live pages, the lengths
@@ -459,11 +494,16 @@ def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
     n_bytes = (esz * (2 * live * n_kv * d + q.numel()) + q_bytes
                + 4 * (sum(-(-ln // page) for ln in lengths) + slots))
     bms, by = bound_ms(n_bytes, 4 * live * n_kv * group * d)
+    print(f"paged_decode bf16 {slots} slots: {ms:.4f} ms a call timing "
+          f"eager calls ({dev_ms:.4f} on the device, CUDA graph), plain "
+          f"{plain_ms:.4f}, SDPA on the gathered cache {lib_ms:.4f} "
+          f"({lib_dev_ms:.4f}), bound {bms:.5f} by {by}", flush=True)
     return dict(name="paged_decode", route="cuda",
-                source="burst_attn_tpu_torch/csrc/paged_decode.cu",
+                source="burst_attn_tpu_torch/csrc/ragged_paged.cu",
                 replaces="burst_attn_tpu/ops/paged_attention.py:56",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, graph_ms=dev_ms,
+                library_graph_ms=lib_dev_ms)
 
 
 # the ragged kernel's check batch at the serving shapes: idle, decode at
@@ -507,6 +547,7 @@ def check_ragged(device, dtype, quant=None, seed=1, timing=False):
         return rp.ragged_paged_attention(q, kp, vp, table, ql, kl, **kw)
 
     o = kernel()
+    assert torch.equal(o, kernel()), "ragged_paged: two launches differ"
     want = rp.ragged_paged_reference(q, kp, vp, table, ql, kl, **kw)
     err = _check_o(f"ragged {quant or ''}", o, want, dtype)
     assert (o[0] == 0).all() and (o[2, :, 37:] == 0).all(), \
@@ -514,10 +555,12 @@ def check_ragged(device, dtype, quant=None, seed=1, timing=False):
     key = _dtype_key(dtype)
     print(f"ragged_paged {key} pool={quant or key} q_lens="
           f"{list(RAGGED_Q_LENS)} kv_lens={list(RAGGED_KV_LENS)} "
-          f"max_abs_err={err:.3e} (tolerance {O_TOL[key]})", flush=True)
+          f"max_abs_err={err:.3e} (tolerance {O_TOL[key]}); two launches "
+          "torch.equal", flush=True)
     if not timing:
         return err
     ms = time_ms(kernel)
+    dev_ms = graph_ms(kernel)
     plain_ms = time_ms(lambda: rp.ragged_paged_reference(
         q, kp, vp, table, ql, kl, **kw), iters=5)
     slots, n_q, qt, d = q.shape
@@ -531,8 +574,12 @@ def check_ragged(device, dtype, quant=None, seed=1, timing=False):
     col = torch.arange(width * page, device=device)
     mask = (col[None, None, :] <= qp[:, :, None]) & real[:, :, None]
     mask[:, :, 0] |= ~real  # padding rows see one column (no NaN rows)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
+    def lib():
+        return F.scaled_dot_product_attention(q, kd, vd,
+                                              attn_mask=mask[:, None],
+                                              enable_gqa=True)
+
+    lib_ms, lib_dev_ms = time_ms(lib), graph_ms(lib)
     pairs = n_q * sum(q_len * (kv - q_len) + q_len * (q_len + 1) // 2
                       for q_len, kv in zip(RAGGED_Q_LENS, RAGGED_KV_LENS))
     # what the function must move: the K/V of the live positions once per
@@ -547,38 +594,60 @@ def check_ragged(device, dtype, quant=None, seed=1, timing=False):
                + 4 * (sum(-(-kv // page) for kv in RAGGED_KV_LENS)
                       + 2 * slots))
     bms, by = bound_ms(n_bytes, 4 * pairs * d)
+    print(f"ragged_paged bf16 mixed batch: {ms:.4f} ms a call timing eager "
+          f"calls ({dev_ms:.4f} on the device, CUDA graph), plain "
+          f"{plain_ms:.4f}, SDPA {lib_ms:.4f} ({lib_dev_ms:.4f}), bound "
+          f"{bms:.5f} by {by}", flush=True)
     return dict(name="ragged_paged", route="cuda",
                 source="burst_attn_tpu_torch/csrc/ragged_paged.cu",
                 replaces="burst_attn_tpu/ops/ragged_paged.py:57",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, graph_ms=dev_ms,
+                library_graph_ms=lib_dev_ms)
 
 
-def check_ragged_partials(device, seed=2):
+def check_ragged_partials(device, dtype, seed=2):
     """emit_partials with a page-aligned ctx_lo against the plain
-    partials: the same -inf rows, fp32 acc / m / l within rounding."""
+    partials: the same -inf rows, acc / m / l within rounding (fp32:
+    ACC_RTOL-scale; bf16 q: the tensor-core tile's bf16 p, O_TOL's rtol on
+    acc and l, STATS_ATOL on m); two launches torch.equal."""
     import torch
 
     from burst_attn_tpu_torch.ops import ragged_paged as rp
 
-    q, kp, vp, table, ql, kl, _, _ = _ragged_case(device, torch.float32,
-                                                  None, seed)
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(device, dtype, None, seed)
     lo = torch.tensor([0, 1024, 0, 512, 1024, 0, 256, 1408],
                       dtype=torch.int32, device=device)
     got = rp.ragged_paged_attention(q, kp, vp, table, ql, kl, ctx_lo=lo,
                                     emit_partials=True)
+    again = rp.ragged_paged_attention(q, kp, vp, table, ql, kl, ctx_lo=lo,
+                                      emit_partials=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "partials: two launches differ"
     want = rp.ragged_paged_partials_reference(q, kp, vp, table, ql, kl,
                                               ctx_lo=lo)
+    key = _dtype_key(dtype)
     errs = []
     for a, b, what in zip(got, want, ("acc", "m", "l")):
         assert torch.equal(torch.isinf(a), torch.isinf(b)), what
         fin = torch.isfinite(b)
-        torch.testing.assert_close(a[fin], b[fin], atol=1e-4, rtol=1e-5,
-                                   msg=lambda m: f"partials {what}: {m}")
         errs.append(_max_err(a[fin], b[fin]))
-    print(f"ragged_paged partials ctx_lo={lo.tolist()}: max_abs_err "
+        if key == "fp32":
+            torch.testing.assert_close(a[fin], b[fin], atol=1e-4, rtol=1e-5,
+                                       msg=lambda m: f"partials {what}: {m}")
+        elif what == "acc":  # the raw accumulator, to its largest entry
+            assert errs[-1] <= ACC_RTOL * float(b.abs().max()), (what, errs)
+        elif what == "m":
+            assert errs[-1] <= STATS_ATOL[key], (what, errs)
+        else:
+            torch.testing.assert_close(a[fin], b[fin], atol=0.0,
+                                       rtol=ACC_RTOL)
+    tol = ("atol 1e-4 rtol 1e-5" if key == "fp32" else
+           f"acc {ACC_RTOL} of its largest entry, m {STATS_ATOL[key]}, "
+           f"l rtol {ACC_RTOL}")
+    print(f"ragged_paged partials {key} ctx_lo={lo.tolist()}: max_abs_err "
           f"acc {errs[0]:.3e} m {errs[1]:.3e} l {errs[2]:.3e} "
-          f"(tolerance atol 1e-4 rtol 1e-5)", flush=True)
+          f"(tolerance {tol}); two launches torch.equal", flush=True)
 
 
 def check_ragged_decode_rows(device, dtype, quant=None, seed=3):
@@ -606,6 +675,113 @@ def check_ragged_decode_rows(device, dtype, quant=None, seed=3):
         f"QT=1 ragged rows differ from paged decode ({dtype}, {quant})"
     print(f"ragged_paged QT=1 {_dtype_key(dtype)} pool={quant or 'same'}: "
           "torch.equal to paged_decode", flush=True)
+
+
+GROUPS = (1, 4, 16, 64)  # query heads a kv head (Nq 64 over 64 / G)
+
+
+def check_ragged_groups(device):
+    """Both paths of csrc/ragged_paged.cu at G = 1, 4, 16 and 64 query
+    heads a kv head: the mixed batch through ragged_paged_attention (at G
+    64 each block is one token of 64 rows, so its decode slots take the
+    prefill tile) and a one-token-a-slot batch at the same lengths through
+    paged_decode_attention, bf16 and fp32, against the plain versions at
+    O_TOL, two launches torch.equal each."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    worst = 0.0
+    for group in GROUPS:
+        n_kv = 64 // group
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, table, ql, kl, _, _ = _ragged_case(
+                device, dtype, None, seed=50 + group, n_kv=n_kv, group=group)
+            o = rp.ragged_paged_attention(q, kp, vp, table, ql, kl)
+            assert torch.equal(o, rp.ragged_paged_attention(
+                q, kp, vp, table, ql, kl)), f"ragged G={group} repeat"
+            err = _check_o(f"ragged G={group}", o, rp.ragged_paged_reference(
+                q, kp, vp, table, ql, kl), dtype)
+            qd = q[:, :, 0].reshape(len(RAGGED_Q_LENS), n_kv, group,
+                                    q.shape[-1]).contiguous()
+            od = pa.paged_decode_attention(qd, kp, vp, table, kl)
+            assert torch.equal(od, pa.paged_decode_attention(
+                qd, kp, vp, table, kl)), f"paged_decode G={group} repeat"
+            errd = _check_o(f"paged_decode G={group}", od,
+                            pa.paged_decode_reference(qd, kp, vp, table, kl),
+                            dtype)
+            worst = max(worst, err, errd)
+            print(f"ragged_paged / paged_decode {_dtype_key(dtype)} G={group} "
+                  f"(Nkv {n_kv}): max_abs_err {err:.3e} / {errd:.3e} "
+                  f"(tolerance {O_TOL[_dtype_key(dtype)]}); two launches "
+                  "torch.equal", flush=True)
+        del q, kp, vp
+        torch.cuda.empty_cache()
+    return worst
+
+
+# a decode batch long enough for many splits: a 128-page table is cut into
+# 32 splits of 512 positions
+LONG_LENGTHS = (16384, 16000, 12345, 8192, 4097, 1, 0, 2112)
+LONG_WIDTH = 128
+
+
+def check_decode_long(device, n_kv=4, group=4, d=128):
+    """Kernel 6 on 8 slots of up to 16384 positions (32 splits merged in
+    split order), bf16 and fp32 pools and bf16 q on an int8 pool, against
+    paged_decode_reference at O_TOL, two launches torch.equal; the bf16
+    batch's device time beside SDPA's on the gathered cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+
+    n_pages = sum(-(-ln // PAGE) for ln in LONG_LENGTHS) + 1
+    table = _table(7, LONG_LENGTHS, n_pages, PAGE, LONG_WIDTH, device)
+    lens = torch.tensor(LONG_LENGTHS, dtype=torch.int32, device=device)
+    slots = len(LONG_LENGTHS)
+    worst = 0.0
+    for dtype, quant in ((torch.bfloat16, None), (torch.float32, None),
+                         (torch.bfloat16, "int8")):
+        g = torch.Generator(device=device).manual_seed(61)
+        q = torch.randn(slots, n_kv, group, d, generator=g,
+                        device=device).to(dtype)
+        kp, vp, ks, vs = _pool(g, device, dtype, quant, n_pages, n_kv, PAGE,
+                               d)
+        kw = dict(k_scales=ks, v_scales=vs)
+        o = pa.paged_decode_attention(q, kp, vp, table, lens, **kw)
+        assert torch.equal(o, pa.paged_decode_attention(
+            q, kp, vp, table, lens, **kw)), "long decode: two launches differ"
+        what = f"paged_decode {_dtype_key(dtype)} pool={quant or 'same'} long"
+        err = _check_o(what, o, pa.paged_decode_reference(
+            q, kp, vp, table, lens, **kw), dtype)
+        assert (o[6] == 0).all(), "an empty slot must give zeros"
+        worst = max(worst, err)
+        print(f"{what}: lengths {list(LONG_LENGTHS)} (table {LONG_WIDTH} "
+              f"pages), max_abs_err={err:.3e} (tolerance "
+              f"{O_TOL[_dtype_key(dtype)]}); two launches torch.equal",
+              flush=True)
+        if dtype == torch.bfloat16 and quant is None:
+            ms = graph_ms(lambda: pa.paged_decode_attention(
+                q, kp, vp, table, lens))
+            idx = table.long()
+            kd = kp[idx].movedim(2, 1).reshape(slots, n_kv, -1, d)
+            vd = vp[idx].movedim(2, 1).reshape(slots, n_kv, -1, d)
+            mask = (torch.arange(kd.shape[2], device=device)[None, :]
+                    < lens[:, None])
+            mask[:, 0] = True  # an empty slot's row attends one column
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                q.reshape(slots, n_kv * group, 1, d), kd, vd,
+                attn_mask=mask[:, None, None], enable_gqa=True))
+            n_bytes = 2 * 2 * sum(LONG_LENGTHS) * n_kv * d
+            print(f"paged_decode bf16 long batch: {ms:.4f} ms a call on the "
+                  f"device (CUDA graph), SDPA on the gathered cache "
+                  f"{lib_ms:.4f}, K/V bytes bound "
+                  f"{bound_ms(n_bytes, 0)[0]:.5f}", flush=True)
+            del kd, vd
+        del kp, vp
+    return worst
 
 
 def _bwd_inputs(device, dtype, n, n_kv, s, causal, seed, b=1, d=128):
@@ -2606,6 +2782,7 @@ WINDOW = 1024
 FLASH_WINDOWS = (1, 100, 1024, 4096)  # 4096 >= S: no band left
 DECODE_WINDOWS = (64, 1024, 3000)
 RAGGED_WINDOWS = (64, 1024)
+WIDE_WINDOW = 4096  # above every length of the ragged check batch
 # kernel 10 against its plain version: (bkv, steps), with and without the
 # product, at bq 2048 (steps past 512 wrap the pool, n_pool = 512, as the
 # sweep's cells and the kernels line's do); then
@@ -2777,27 +2954,37 @@ def check_paged_decode_window(device, n_kv=4, group=4, d=128,
                 q.reshape(slots, n_kv * group, 1, d), kp, vp, table,
                 (lens > 0).to(torch.int32), lens, **kw)
             assert torch.equal(rag.reshape(o.shape), o), what + " ragged"
+            if window >= max(lengths):  # no band left: the unwindowed code
+                assert torch.equal(o, pa.paged_decode_attention(
+                    q, kp, vp, table, lens, k_scales=ks, v_scales=vs)), what
             worst = max(worst, err)
             print(f"{what}: window used {window}, lengths {list(lengths)}, "
                   f"max_abs_err={err:.3e} (tolerance {O_TOL['bf16']}); two "
-                  "launches torch.equal; ragged QT=1 rows torch.equal",
-                  flush=True)
+                  "launches torch.equal; ragged QT=1 rows torch.equal"
+                  + ("; torch.equal to the unwindowed kernel"
+                     if window >= max(lengths) else ""), flush=True)
 
     g = torch.Generator(device=device).manual_seed(41)
     q = torch.randn(slots, n_kv, group, d, generator=g, device=device).to(bf16)
     kp, vp, _, _ = _pool(g, device, bf16, None, N_PAGES, n_kv, PAGE, d)
     kw = dict(window=WINDOW)
-    ms = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table, lens,
-                                                   **kw))
+
+    def kernel():
+        return pa.paged_decode_attention(q, kp, vp, table, lens, **kw)
+
+    ms, dev_ms = time_ms(kernel), graph_ms(kernel)
     plain_ms = time_ms(lambda: pa.paged_decode_reference(
         q, kp, vp, table, lens, **kw), iters=5)
     lo = (lens - WINDOW).clamp(min=0)
     kd, vd, pos = _gather_band(kp, vp, table, lo, WINDOW)
     mask = pos < lens[:, None]
     mask[:, 0] = True  # an empty slot's row attends one column (no NaN)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q.reshape(slots, n_kv * group, 1, d), kd, vd,
-        attn_mask=mask[:, None, None], enable_gqa=True))
+    def lib():
+        return F.scaled_dot_product_attention(
+            q.reshape(slots, n_kv * group, 1, d), kd, vd,
+            attn_mask=mask[:, None, None], enable_gqa=True)
+
+    lib_ms, lib_dev_ms = time_ms(lib), graph_ms(lib)
     # what the function must move: the K/V of each slot's band, q of the
     # non-empty slots, every output row, the table entries of the band's
     # pages, the lengths
@@ -2811,13 +2998,15 @@ def check_paged_decode_window(device, n_kv=4, group=4, d=128,
                + 4 * (pages + slots))
     bms, by = bound_ms(n_bytes, 4 * sum(band) * n_kv * group * d)
     print(f"paged_decode[window={WINDOW}] bf16 {slots} slots: {ms:.4f} ms "
-          f"(plain {plain_ms:.4f}, SDPA on the gathered band {lib_ms:.4f}, "
-          f"bound {bms:.5f} by {by})", flush=True)
+          f"timing eager calls ({dev_ms:.4f} on the device, CUDA graph; "
+          f"plain {plain_ms:.4f}, SDPA on the gathered band {lib_ms:.4f} "
+          f"({lib_dev_ms:.4f}), bound {bms:.5f} by {by})", flush=True)
     return dict(name="paged_decode[window]", route="cuda",
-                source="burst_attn_tpu_torch/csrc/paged_decode.cu",
+                source="burst_attn_tpu_torch/csrc/ragged_paged.cu",
                 replaces="burst_attn_tpu/ops/paged_attention.py:56",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, graph_ms=dev_ms,
+                library_graph_ms=lib_dev_ms)
 
 
 def check_ragged_window(device):
@@ -2838,7 +3027,7 @@ def check_ragged_window(device):
         q, kp, vp, table, ql, kl, ks, vs = _ragged_case(device, dtype, quant,
                                                         seed=43)
         key = _dtype_key(dtype)
-        for window in RAGGED_WINDOWS:
+        for window in RAGGED_WINDOWS + (WIDE_WINDOW,):
             kw = dict(k_scales=ks, v_scales=vs, window=window)
             o = rp.ragged_paged_attention(q, kp, vp, table, ql, kl, **kw)
             assert torch.equal(o, rp.ragged_paged_attention(
@@ -2846,11 +3035,16 @@ def check_ragged_window(device):
             want = rp.ragged_paged_reference(q, kp, vp, table, ql, kl, **kw)
             what = f"ragged_paged {key} pool={quant or key} window={window}"
             err = _check_o(what, o, want, dtype)
+            if window == WIDE_WINDOW:  # above every length: no band left
+                assert torch.equal(o, rp.ragged_paged_attention(
+                    q, kp, vp, table, ql, kl, k_scales=ks, v_scales=vs)), what
             worst = max(worst, err)
             print(f"{what}: window used {window}, q_lens "
                   f"{list(RAGGED_Q_LENS)} kv_lens {list(RAGGED_KV_LENS)}, "
                   f"max_abs_err={err:.3e} (tolerance {O_TOL[key]}); two "
-                  "launches torch.equal", flush=True)
+                  "launches torch.equal"
+                  + ("; torch.equal to the unwindowed kernel"
+                     if window == WIDE_WINDOW else ""), flush=True)
 
     # the grouped launch: slots 3 and 4 (128-token chunks at 896 and 1920)
     # share their first page
@@ -2877,8 +3071,11 @@ def check_ragged_window(device):
     q, kp, vp, table, ql, kl, _, _ = _ragged_case(device, torch.bfloat16,
                                                   None, seed=43)
     kw = dict(window=WINDOW)
-    ms = time_ms(lambda: rp.ragged_paged_attention(q, kp, vp, table, ql, kl,
-                                                   **kw))
+
+    def kernel():
+        return rp.ragged_paged_attention(q, kp, vp, table, ql, kl, **kw)
+
+    ms, dev_ms = time_ms(kernel), graph_ms(kernel)
     plain_ms = time_ms(lambda: rp.ragged_paged_reference(
         q, kp, vp, table, ql, kl, **kw), iters=5)
     slots, n_q, qt, d = q.shape
@@ -2894,8 +3091,12 @@ def check_ragged_window(device):
     mask = ((pos[:, None, :] <= qp[:, :, None])
             & (pos[:, None, :] > qp[:, :, None] - WINDOW) & real[:, :, None])
     mask[:, :, 0] |= ~real  # padding rows see one column (no NaN rows)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
+    def lib():
+        return F.scaled_dot_product_attention(q, kd, vd,
+                                              attn_mask=mask[:, None],
+                                              enable_gqa=True)
+
+    lib_ms, lib_dev_ms = time_ms(lib), graph_ms(lib)
     # pairs: each real token sees min(WINDOW, its position + 1) positions;
     # bytes: the K/V of each slot's band once per kv head, q of the real
     # tokens, every output row, the band's table entries, q_lens, kv_lens
@@ -2912,13 +3113,15 @@ def check_ragged_window(device):
                + 4 * (pages + 2 * slots))
     bms, by = bound_ms(n_bytes, 4 * pairs * d)
     print(f"ragged_paged[window={WINDOW}] bf16 mixed batch: {ms:.4f} ms "
-          f"(plain {plain_ms:.4f}, SDPA on the gathered band {lib_ms:.4f}, "
-          f"bound {bms:.5f} by {by})", flush=True)
+          f"timing eager calls ({dev_ms:.4f} on the device, CUDA graph; "
+          f"plain {plain_ms:.4f}, SDPA on the gathered band {lib_ms:.4f} "
+          f"({lib_dev_ms:.4f}), bound {bms:.5f} by {by})", flush=True)
     return dict(name="ragged_paged[window]", route="cuda",
                 source="burst_attn_tpu_torch/csrc/ragged_paged.cu",
                 replaces="burst_attn_tpu/ops/ragged_paged.py:57",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, graph_ms=dev_ms,
+                library_graph_ms=lib_dev_ms)
 
 
 def check_step_probe(device, d=128):
@@ -3224,11 +3427,18 @@ def main() -> int:
     for dt, q in ((fp32, None), (fp32, "int8"), (bf16, "int8"),
                   (bf16, "fp8")):
         check_ragged(device, dt, q)
-    check_ragged_partials(device)
+    for dt in (fp32, bf16):
+        check_ragged_partials(device, dt)
     for dt, q in ((bf16, None), (fp32, None), (bf16, "int8")):
         check_ragged_decode_rows(device, dt, q)
+    group_err = check_ragged_groups(device)
+    long_err = check_decode_long(device)
+    torch.cuda.empty_cache()
     kernels = [check_flash(device), check_paged_decode(device),
                check_ragged(device, bf16, timing=True)]
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], long_err,
+                                    group_err)
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], group_err)
     # sliding-window kernels 1, 6, 7 and kernel 10 (the step probe)
     window_recs = [check_flash_window(device),
                    check_paged_decode_window(device),
@@ -3361,13 +3571,14 @@ def main() -> int:
         "card": card}))
     print(json.dumps({
         "kernels": [{k: r[k] for k in keys}
-                    | ({"library": r["library"]} if "library" in r else {})
+                    | {k: r[k] for k in ("library", "graph_ms",
+                                         "library_graph_ms") if k in r}
                     for r in kernels],
         "card": card,
         "window_serve": {k: v for k, v in wserve.items()
                          if k != "fp32_prompts"},
         "step_probe_fit": probe["fit"],
-        "paged_decode_quant_ms": quant_ms,
+        "paged_decode_quant_graph_ms": quant_ms,
         "serve": {"prefill_ms": serve_res["prefill_ms"],
                   "decode_step_ms": serve_res["decode_step_ms"],
                   "run_s": serve_res["bf16"]["run_s"],

@@ -198,18 +198,34 @@ def test_ragged_kernel_matches_plain(dev, dtype, quant, group, qt):
     assert (o[0] == 0).all() and (o[2, :, int(ql[2]):] == 0).all()
 
 
-def test_ragged_partials_match_plain(dev):
-    q, kp, vp, table, ql, kl, _, _ = _ragged_case(dev, torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_partials_match_plain(dev, dtype):
+    """emit_partials with a page-aligned ctx_lo: the same -inf rows; fp32
+    to rounding, bf16 q (the tile's p as two bf16 terms) acc to 1e-4 of
+    its largest entry, m to 1e-3, l to 1e-4 relative; two launches
+    torch.equal."""
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(dev, dtype)
     lo = torch.tensor([0, 256, 0, 128, 384, 128], dtype=torch.int32,
                       device=dev)
     got = ragged_paged.ragged_paged_attention(
         q, kp, vp, table, ql, kl, ctx_lo=lo, emit_partials=True)
+    again = ragged_paged.ragged_paged_attention(
+        q, kp, vp, table, ql, kl, ctx_lo=lo, emit_partials=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = ragged_paged.ragged_paged_partials_reference(
         q, kp, vp, table, ql, kl, ctx_lo=lo)
-    for a, b in zip(got, want):
+    for a, b, what in zip(got, want, ("acc", "m", "l")):
         assert torch.equal(torch.isinf(a), torch.isinf(b))
         fin = torch.isfinite(b)
-        torch.testing.assert_close(a[fin], b[fin], atol=1e-4, rtol=1e-5)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a[fin], b[fin], atol=1e-4, rtol=1e-5)
+        elif what == "acc":
+            err = float((a[fin] - b[fin]).abs().max())
+            assert err <= 1e-4 * float(b.abs().max())
+        elif what == "m":
+            torch.testing.assert_close(a[fin], b[fin], atol=1e-3, rtol=0)
+        else:
+            torch.testing.assert_close(a[fin], b[fin], atol=0, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype,quant", [
@@ -233,6 +249,161 @@ def test_ragged_decode_rows_equal_paged_decode(dev, dtype, quant):
         q.reshape(b, n_kv * group, 1, d), kp, vp, table,
         (lens > 0).to(torch.int32), lens, k_scales=ks, v_scales=vs)
     assert torch.equal(rag.reshape(b, n_kv, group, d), dec)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 4, 16, 64])
+def test_ragged_kernel_groups_match_plain(dev, dtype, group):
+    """Both paths at G query heads a kv head (at G = 64 a one-token block
+    has 64 rows and takes the prefill tile, QT = 1 included): the mixed
+    batch and a one-token-a-slot decode batch, against the plain versions,
+    two launches torch.equal."""
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(dev, dtype, group=group)
+    o = ragged_paged.ragged_paged_attention(q, kp, vp, table, ql, kl)
+    assert torch.equal(o, ragged_paged.ragged_paged_attention(
+        q, kp, vp, table, ql, kl))
+    torch.testing.assert_close(o, ragged_paged.ragged_paged_reference(
+        q, kp, vp, table, ql, kl), **TOL[dtype])
+    b, n_q, _, d = q.shape
+    qd = q[:, :, 0].reshape(b, n_q // group, group, d).contiguous()
+    od = paged_attention.paged_decode_attention(qd, kp, vp, table, kl)
+    assert torch.equal(od, paged_attention.paged_decode_attention(
+        qd, kp, vp, table, kl))
+    torch.testing.assert_close(od, paged_attention.paged_decode_reference(
+        qd, kp, vp, table, kl), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,quant", [
+    (torch.bfloat16, None), (torch.float32, None), (torch.bfloat16, "fp8")])
+def test_paged_kernel_long_context_splits(dev, dtype, quant):
+    """Up to 16384 positions on a 128-page table: 32 splits a slot, merged
+    in split order (two launches torch.equal), against the plain version;
+    the empty slot gives zeros."""
+    page, n_kv, group, d, width = 128, 2, 4, 128, 128
+    lengths = [16384, 9000, 0, 1, 4097]
+    n_pages = sum(-(-n // page) for n in lengths) + 1
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = _rand(g, dev, dtype, len(lengths), n_kv, group, d)
+    kp, vp, ks, vs = _pool(g, dev, dtype, quant, n_pages, n_kv, page, d)
+    perm = list(np.random.default_rng(12).permutation(n_pages - 1) + 1)
+    table = np.zeros((len(lengths), width), np.int32)
+    for i, n in enumerate(lengths):
+        for c in range(-(-n // page)):
+            table[i, c] = perm.pop()
+    table = torch.from_numpy(table).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(k_scales=ks, v_scales=vs)
+    o = paged_attention.paged_decode_attention(q, kp, vp, table, lens, **kw)
+    assert torch.equal(o, paged_attention.paged_decode_attention(
+        q, kp, vp, table, lens, **kw))
+    torch.testing.assert_close(o, paged_attention.paged_decode_reference(
+        q, kp, vp, table, lens, **kw), **TOL[dtype])
+    assert (o[2] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_wide_window_is_unwindowed(dev, dtype):
+    """A window at or above every length walks the unwindowed chunks with
+    the unwindowed code: bitwise equal, prefill and decode rows alike."""
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(dev, dtype)
+    o = ragged_paged.ragged_paged_attention(q, kp, vp, table, ql, kl,
+                                            window=1000)
+    assert torch.equal(o, ragged_paged.ragged_paged_attention(
+        q, kp, vp, table, ql, kl))
+
+
+def _traced(q, kp, vp, table, ql, kl, **kw):
+    """One launch with the kernel's CTA records: (output, records)."""
+    s, n_q, qt, d = q.shape
+    n_kv, page = kp.shape[1], kp.shape[2]
+    width = table.shape[1]
+    trace = torch.zeros(ragged_paged.trace_shape(
+        s, n_kv, qt, n_q // n_kv, width, page), dtype=torch.int64,
+        device=q.device)
+    o = ragged_paged.launch(q, kp, vp, table, ql, kl, None, None, d**-0.5,
+                            kw.get("ctx_lo"), False, kw.get("window"),
+                            "ragged_paged_attention", trace=trace)
+    return o, ragged_paged.read_trace(trace.cpu(), qt, n_q // n_kv, width,
+                                      page)
+
+
+@pytest.mark.parametrize("case", ["mixed", "window64", "window1024", "ctx_lo",
+                                  "decode16k"])
+def test_ragged_grid_matches_cta_plan(dev, case):
+    """The host mirror `cta_plan` lists exactly the CTAs the kernel ran,
+    by kind, slot, tokens and chunks, for every kv head; every other CTA
+    of the grid exits before any math; the output is the plain one."""
+    kw = {}
+    if case == "decode16k":
+        page, n_kv, group, d, width = 128, 2, 4, 128, 128
+        lengths = [16384, 9000, 0, 1, 4097]
+        g = torch.Generator(device=dev).manual_seed(13)
+        q = _rand(g, dev, torch.bfloat16, len(lengths), n_kv * group, 1, d)
+        kp, vp, _, _ = _pool(g, dev, torch.bfloat16, None, 8, n_kv, page, d)
+        table = torch.from_numpy(np.random.default_rng(13).integers(
+            1, 8, size=(len(lengths), width)).astype(np.int32)).to(dev)
+        kl = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        ql = (kl > 0).to(torch.int32)
+    else:
+        q, kp, vp, table, ql, kl, _, _ = _ragged_case(dev, torch.bfloat16)
+        if case.startswith("window"):
+            kw["window"] = int(case[len("window"):])
+        if case == "ctx_lo":
+            kw["ctx_lo"] = torch.tensor([0, 256, 0, 128, 384, 128],
+                                        dtype=torch.int32, device=dev)
+    o, recs = _traced(q, kp, vp, table, ql, kl, **kw)
+    n_q, qt = q.shape[1], q.shape[2]
+    n_kv, page = kp.shape[1], kp.shape[2]
+    plan = ragged_paged.cta_plan(
+        ql.tolist(), kl.tolist(), qt, n_q // n_kv, page, table.shape[1],
+        ctx_lo=None if "ctx_lo" not in kw else kw["ctx_lo"].tolist(),
+        window=kw.get("window"), n_kv=n_kv)
+    ch = paged_attention.KERNEL_PAGE_MULTIPLE
+    for h in range(n_kv):
+        ran = sorted((r["kind"], r["slot"], r["t0q"], r["a"] * ch,
+                      r["e"] * ch + ch - 1) for r in recs
+                     if r["head"] == h and r["kind"] != "exit")
+        assert ran == sorted((k, s, t0, lo, hi)
+                             for k, s, t0, _, lo, hi in plan), h
+    assert sum(r["kind"] != "exit" for r in recs) == n_kv * len(plan)
+    assert all(r["t1_ns"] >= r["t0_ns"] > 0 for r in recs)
+    torch.testing.assert_close(o, ragged_paged.ragged_paged_reference(
+        q, kp, vp, table, ql, kl, **kw), **TOL[torch.bfloat16])
+
+
+def test_ragged_scratch_is_bounded_at_many_slots(dev):
+    """256 slots at the serving engine's defaults (chunk 128, page 128, 64
+    pages a sequence, 16 query heads on 4 kv heads): the split partials'
+    scratch stays within SPLIT_CTAS's bound (17 MB here, where one
+    partial slot per possible (block, split) would be 8.7 GB), the peak
+    allocation of a launch is its output plus that scratch, and the first
+    slots agree with the plain version run on them alone."""
+    s, n_kv, group, qt, d, page, width = 256, 4, 4, 128, 128, 128, 64
+    g = torch.Generator(device=dev).manual_seed(14)
+    rng = np.random.default_rng(14)
+    kl = torch.from_numpy(rng.integers(1, width * page, size=s).astype(
+        np.int32)).to(dev)
+    ql = torch.from_numpy(np.where(rng.random(s) < 0.5, 1, qt).astype(
+        np.int32)).to(dev)
+    kl = torch.maximum(kl, ql)
+    q = _rand(g, dev, torch.bfloat16, s, n_kv * group, qt, d)
+    kp, vp, _, _ = _pool(g, dev, torch.bfloat16, None, 33, n_kv, page, d)
+    table = torch.from_numpy(rng.integers(1, 33, size=(s, width)).astype(
+        np.int32)).to(dev)
+    ragged_paged.ragged_paged_attention(q, kp, vp, table, ql, kl)  # counters
+    n_ws = ragged_paged.scratch_floats(s, n_kv, qt, group, d, width, page)
+    bound = (2 * ragged_paged.SPLIT_CTAS * (16 + 64) * (d + 2))
+    assert 0 < n_ws <= bound and 4 * n_ws < 20e6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    o = ragged_paged.ragged_paged_attention(q, kp, vp, table, ql, kl)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak <= o.numel() * o.element_size() + 4 * n_ws + (1 << 20)
+    n = 6
+    torch.testing.assert_close(o[:n], ragged_paged.ragged_paged_reference(
+        q[:n], kp, vp, table[:n], ql[:n], kl[:n]), **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, "int8"),

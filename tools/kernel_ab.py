@@ -6,13 +6,30 @@ A/B of two commits in one call.
 imports `burst_attn_tpu_torch` from the checkout at PATH (its kernels
 build into PATH/build/kernels), times kernel 1 (causal, B1 N16/4 S2048
 and B1 N16 S8192, bf16), the fused backward (kernels 2-3, B1 N16 S8192
-bf16 causal), kernel 6 (8 slots, lengths 0-2112, bf16 and int8 pools)
-and kernel 7 (the mixed q_lens 0/1/37/128 batch, bf16) with CUDA events
-on seeded inputs (`--parts` picks among fwd, bwd, decode and ragged), and
-prints one line `AB {json}` with the card.  Run it
-from a parent and a change in turns (parent, change, change, parent):
-times of two calls may come from two cards.  It uses only arguments that
-every port checkout since the ring backward takes.
+bf16 causal), kernel 6 (8 slots, lengths 0-2112, bf16 and int8 pools,
+and bf16 with window 1024) and kernel 7 (the mixed q_lens 0/1/37/128
+batch, bf16, plain and with window 1024) with CUDA events on seeded
+inputs, and prints one line `AB {json}` with the card.  Kernels 6 and 7
+run for microseconds, less than their wrappers take on the host, so
+their `*_ms` are device times per call from a CUDA graph of 20 calls
+replayed between CUDA events, and `*_eager_ms` times eager calls (host
+included).  `micro` times kernel 7 on single-block cases (bf16, G 1,
+one kv head, d 128, page 128; device time per call, as above): one
+64-row block against 1 or 8 chunks of 64 positions alone on the card,
+264 and 528 such blocks at once, one decode slot of 512 positions (2
+splits) and of 64, one 64-row block at 2048 positions (4 splits
+merged).  `grid` (a checkout whose kernel 7 records its CTAs) times
+the traced launch of the mixed batch, plain and with window 1024, and
+reports its grid: CTAs, those that ran each tile and those that exited
+at once, their %globaltimer spans (median, max) and SM cycles a chunk,
+the launch's span; beside it torch.profiler's device time of kernel 7
+and of SDPA on the gathered band (the smoke's windowed yardstick), per
+kernel.  `--parts` picks among fwd, bwd, decode, ragged, micro and
+grid.  Run it from a parent and a change in turns (parent, change,
+change, parent): times of two calls may come from two cards.  It uses
+only arguments that every port checkout since the sliding window takes, and builds only the kernel sources that the
+checkout's `_build.SIGNATURES` lists (paged decode has its own source in
+a checkout before it became the ragged kernel's QT=1 instance).
 """
 
 import argparse
@@ -41,8 +58,11 @@ def main(argv=None) -> int:
     parts = set(args.parts.split(","))
     _build.build_all(list(dict.fromkeys(name for part, name in (
         ("fwd", "flash_fwd"), ("bwd", "flash_fwd"), ("bwd", "flash_bwd"),
-        ("decode", "paged_decode"), ("ragged", "ragged_paged"))
-        if part in parts)))  # each once: build_all starts one nvcc a name
+        ("decode", "paged_decode"), ("decode", "ragged_paged"),
+        ("ragged", "ragged_paged"), ("micro", "ragged_paged"),
+        ("grid", "ragged_paged"))
+        if part in parts and name in _build.SIGNATURES)))
+    # (each once: build_all starts one nvcc a name)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -58,6 +78,20 @@ def main(argv=None) -> int:
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
+
+    def g_ms(fn, replays=10, calls=20):
+        # `calls` calls in one CUDA graph, replayed between events
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        return t_ms(graph.replay, replays) / calls
 
     def r(*shape):
         return torch.randn(*shape, generator=g, device=dev).bfloat16()
@@ -99,22 +133,132 @@ def main(argv=None) -> int:
     if "decode" in parts:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         qd = r(8, 4, 4, 128)
-        out["decode_bf16_ms"] = t_ms(lambda: pa.paged_decode_attention(
-            qd, kp, vp, table, lens), 100)
+        def dec():
+            return pa.paged_decode_attention(qd, kp, vp, table, lens)
+
+        out["decode_bf16_ms"] = g_ms(dec)
+        out["decode_bf16_eager_ms"] = t_ms(dec, 100)
+        out["decode_bf16_w1024_ms"] = g_ms(
+            lambda: pa.paged_decode_attention(qd, kp, vp, table, lens,
+                                              window=1024))
         (k8, ks), (v8, vs) = (pa.quantize_tokens(x.float(), dtype=torch.int8)
                               for x in (kp, vp))
-        out["decode_int8_ms"] = t_ms(lambda: pa.paged_decode_attention(
-            qd, k8, v8, table, lens, k_scales=ks, v_scales=vs), 100)
+        out["decode_int8_ms"] = g_ms(lambda: pa.paged_decode_attention(
+            qd, k8, v8, table, lens, k_scales=ks, v_scales=vs))
+    ql = torch.tensor((0, 1, 37, 128, 128, 1, 128, 37), dtype=torch.int32,
+                      device=dev)
+    kl = torch.tensor((0, 2112, 37, 1024, 2048, 1, 700, 1500),
+                      dtype=torch.int32, device=dev)
+    qr = r(8, 16, 128, 128)
     if "ragged" in parts:
-        ql = torch.tensor((0, 1, 37, 128, 128, 1, 128, 37), dtype=torch.int32,
-                          device=dev)
-        kl = torch.tensor((0, 2112, 37, 1024, 2048, 1, 700, 1500),
-                          dtype=torch.int32, device=dev)
-        qr = r(8, 16, 128, 128)
-        out["ragged_bf16_ms"] = t_ms(lambda: rp.ragged_paged_attention(
-            qr, kp, vp, table, ql, kl), 40)
+        def rag():
+            return rp.ragged_paged_attention(qr, kp, vp, table, ql, kl)
+
+        out["ragged_bf16_ms"] = g_ms(rag)
+        out["ragged_bf16_eager_ms"] = t_ms(rag, 40)
+        out["ragged_bf16_w1024_ms"] = g_ms(
+            lambda: rp.ragged_paged_attention(qr, kp, vp, table, ql, kl,
+                                              window=1024))
+    if "micro" in parts:
+        def block_case(n_slots, group, qt, kv, q_len=None, page=128):
+            g = torch.Generator(device=dev).manual_seed(3)
+            width = -(-kv // page)
+            pool = [torch.randn(n_slots * width + 1, 1, page, 128,
+                                generator=g, device=dev).bfloat16()
+                    for _ in range(2)]
+            tab = (torch.arange(n_slots * width, dtype=torch.int32,
+                                device=dev) + 1).reshape(n_slots, width)
+            q = torch.randn(n_slots, group, qt, 128, generator=g,
+                            device=dev).bfloat16()
+            qls, kls = (torch.full((n_slots,), x, dtype=torch.int32,
+                                   device=dev) for x in (q_len or qt, kv))
+            return lambda: rp.ragged_paged_attention(q, *pool, tab, qls, kls)
+
+        for name, case in (("1blk_1ch", (1, 1, 64, 64)),
+                           ("1blk_8ch", (1, 1, 64, 512)),
+                           ("264blk_8ch", (264, 1, 64, 512)),
+                           ("528blk_8ch", (528, 1, 64, 512)),
+                           ("dec_512", (1, 4, 1, 512)),
+                           ("dec_64", (1, 4, 1, 64)),
+                           ("1blk_2048", (1, 1, 64, 2048))):
+            out[f"micro_{name}_ms"] = g_ms(block_case(*case))
+    if "grid" in parts:
+        out.update(grid(torch, rp, g_ms, qr, kp, vp, table, ql, kl))
     print("AB " + json.dumps(out), flush=True)
     return 0
+
+
+def grid(torch, rp, g_ms, q, kp, vp, table, ql, kl, window=1024):
+    """The `grid` part: kernel 7's traced grid on the mixed batch, plain
+    and windowed (with the traced launch's device time), and the
+    profiler's per-kernel device times of kernel 7 and of SDPA on the
+    gathered band (windowed)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    s, n_q, qt, d = q.shape
+    n_kv, page, width = kp.shape[1], kp.shape[2], table.shape[1]
+    group = n_q // n_kv
+    res = {}
+    for tag, win in (("ragged", None), ("ragged_w1024", window)):
+        trace = torch.zeros(rp.trace_shape(s, n_kv, qt, group, width, page),
+                            dtype=torch.int64, device=q.device)
+        def traced():
+            return rp.launch(q, kp, vp, table, ql, kl, None, None, d**-0.5,
+                             None, False, win, "grid", trace=trace)
+
+        traced_ms = g_ms(traced)  # the last launch's records stay
+        torch.cuda.synchronize()
+        recs = rp.read_trace(trace.cpu(), qt, group, width, page)
+        t0 = min(r["t0_ns"] for r in recs)
+        live = [r for r in recs if r["kind"] != "exit"]
+        dead = [r for r in recs if r["kind"] == "exit"]
+
+        def med(xs):
+            xs = sorted(xs)
+            return xs[len(xs) // 2] if xs else None
+
+        span = [r["t1_ns"] - r["t0_ns"] for r in live]
+        chunks = [r["e"] - r["a"] + 1 for r in live]
+        res[tag + "_grid"] = dict(
+            traced_ms=traced_ms, ctas=len(recs), exit=len(dead),
+            decode=sum(r["kind"] == "decode" for r in live),
+            prefill=sum(r["kind"] == "prefill" for r in live),
+            live_ns_median=med(span), live_ns_max=max(span),
+            exit_ns_median=med([r["t1_ns"] - r["t0_ns"] for r in dead]),
+            chunks_max=max(chunks), chunks_sum=sum(chunks),
+            cycles_a_chunk=sum(r["cycles"] for r in live) / sum(chunks),
+            last_start_ns=max(r["t0_ns"] for r in live) - t0,
+            span_ns=max(r["t1_ns"] for r in recs) - t0)
+    # SDPA on each slot's band, as chip_smoke.py's windowed yardstick
+    lo = (kl - ql - window + 1).clamp(min=0)
+    pos = (lo.long()[:, None] + torch.arange(window + qt, device=q.device)
+           ).clamp(max=width * page - 1)
+    pid = table.long().gather(1, pos // page)
+    kd, vd = (x[pid, :, pos % page].movedim(2, 1).contiguous()
+              for x in (kp, vp))
+    t = torch.arange(qt, device=q.device)
+    qp = (kl - ql).long()[:, None] + t[None, :]
+    real = t[None, :] < ql[:, None]
+    mask = ((pos[:, None, :] <= qp[:, :, None])
+            & (pos[:, None, :] > qp[:, :, None] - window) & real[:, :, None])
+    mask[:, :, 0] |= ~real
+    calls = (("ragged_w1024", lambda: rp.ragged_paged_attention(
+        q, kp, vp, table, ql, kl, window=window)),
+             ("sdpa_w1024", lambda: F.scaled_dot_product_attention(
+                 q, kd, vd, attn_mask=mask[:, None], enable_gqa=True)))
+    for tag, fn in calls:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        res[tag + "_profile_ms"] = {
+            e.key[:80]: e.self_device_time_total / 1e3 / 20
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+    return res
 
 
 if __name__ == "__main__":

@@ -72,7 +72,8 @@
 // q tiles from the last down, so every kv tile reaches tile i at the same
 // position in its loop and waits only for the previous tile's add, not
 // for its whole sweep.
-// fold_dq (flash_bwd_tile.cuh) is the fused ring backward's fold too.
+// fold_dq (flash_bwd_tile.cuh) is the fused ring backward's fold too (its
+// fp32 instance; the bf16 one folds mma fragments, mma_bwd_tile.cuh).
 
 #include "flash_bwd_tile.cuh"
 

@@ -1,9 +1,10 @@
-// The flash forward's online-softmax tile, shared by flash_fwd.cu (one
-// round with a carry) and fused_ring_fwd.cu (every round of a ring): one
-// CTA of NT threads holds BQ query rows' (m, l, acc) in registers and
-// folds 64-row K/V tiles into them under the five mask scalars.  Both
-// kernels run THIS code, so a ring round of the fused kernel does the
-// same arithmetic as kernel 1 on the same tile.
+// The flash forward's online-softmax tile, SIMT fp32, shared by
+// flash_fwd.cu (one round with a carry) and the fp32 instance of
+// fused_ring_fwd.cu (every round of a ring): one CTA of NT threads holds
+// BQ query rows' (m, l, acc) in registers and folds 64-row K/V tiles into
+// them under the five mask scalars, so an fp32 ring round of the fused
+// kernel does kernel 1's arithmetic on the same tile.  The fused kernel's
+// bf16 instance runs mma_tile.cuh's tensor-core WarpTile instead.
 //
 // Thread layout: 16 (tx, columns) x 8 (ty, rows); thread (tx, ty) owns
 // rows ty*RPT .. ty*RPT+RPT-1, score columns tx + 16c, and output columns

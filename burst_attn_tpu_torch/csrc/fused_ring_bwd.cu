@@ -36,8 +36,20 @@
 //    drew light items (a causal round's kv tiles differ in work by up to
 //    the number of q tiles) takes more of them; dk, dv then go to the fp32
 //    outputs between rounds, read back through L2 since another SM may
-//    hold the item next round.  The tile math is the flash backward's
-//    (flash_bwd_tile.cuh).
+//    hold the item next round.
+//  * The tile (bf16): mma_bwd_tile.cuh, eight warps on mma.sync m16n8k16.
+//    K and V of the item go to shared memory once, as bf16, by cp.async
+//    (L2 only); dK, dV stay in accumulator fragments (a warp: 16 kv rows x
+//    64 columns of each).  Q and dO of the next live q tile are copied
+//    from the rotated bundle slot by cp.async.cg into the second of two
+//    stages while the current tile's products run (.cg reads through L2:
+//    another CTA rewrites the slot during the launch), and its lse and
+//    delta are loaded into registers then (OPT = 0 recomputes delta from
+//    the rotated o and the staged dO).  P and dS are rebuilt in registers
+//    from the S^T, dP^T accumulators and enter their products as two bf16
+//    terms, so the gradients hold the fp32 tolerance of the plain version.
+//    The fp32 instance runs the flash backward's SIMT tile
+//    (flash_bwd_tile.cuh), fp32 in shared memory, as before.
 //  * Each round has three phases.  S: every CTA copies its 1/G share of
 //    each bundle send (four operands, src slot -> the neighbour's dst
 //    slot) and counts it on the receiver's per-(bank, slot) arrival
@@ -66,11 +78,21 @@
 //
 // What bounds it on an H100: tensor FLOPs (10 * D per attended pair:
 // S, dP, dV, dK, dQ), e.g. ~88 TFLOP at B1 N32 S65536 D128 causal against
-// ~10 GB of bundle, dq and dk/dv traffic.  This first version computes in
-// fp32 on the CUDA cores like the flash backward (no tensor cores, no
-// TMA), so it is about as far from that bound as flash_bwd_fused is.
+// ~10 GB of bundle, dq and dk/dv traffic.  The bf16 tile issues 16 * D
+// flops a pair (the two-term P and dS double the three products they
+// feed) on mma.sync, below wgmma's rate; what the dq folds' waits and the
+// ring's phase waits cost, a traced launch measures (TRACE, a template
+// flag: per CTA its %globaltimer span, the ns its thread 0 waited on fold
+// counters and on the ring's counters, its items and steps, and the
+// clock64 cycles of each part of a step).  Measured so, the dq fold (32 KB
+// of fp32 reductions at L2 and a fenced count a step) is the largest
+// part of a step, the elementwise P/dS work next; the waits are ~5-6%.
+// A TMA producer warp feeding wgmma is the next step.
+
+#include <type_traits>
 
 #include "flash_bwd_tile.cuh"
+#include "mma_bwd_tile.cuh"
 #include "ring_sync.cuh"
 
 namespace {
@@ -122,7 +144,19 @@ struct Params {
   int copy_in[2];         // bank * 16 + slot + 1, or 0
   int resident, opt;
   float scale;
+  long long* trace;       // [W*G][kTraceCols] (TRACE instances)
 };
+
+constexpr int kTraceCols = 16;
+
+// bf16 runs the tensor-core tile, fp32 the SIMT one
+template <typename T>
+constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+
+template <typename T, int D>
+constexpr size_t smem_size() {
+  return kMma<T> ? mbwd::Smem::bytes() : smem_bytes<D>();
+}
 
 // one position's counters: bundle arrive, free [NB][MS]; dq arrive, free
 // [2][MDQ]; done of phase A [R], done of phase B [R], items taken [R]
@@ -235,17 +269,30 @@ __device__ __forceinline__ void load_block(const float* src, int r0, int S,
   }
 }
 
-// The next item of the round for this CTA: its own one when RESIDENT,
-// else the next untaken one of the position (thread 0 takes it, the CTA
-// reads it after a barrier); n_items when none is left.
-__device__ __forceinline__ int next_item(int* taken, int* slot, int j,
-                                         bool first, bool resident,
-                                         int n_items) {
-  if (resident) return first ? j : n_items;
-  __syncthreads();  // every thread has read the previous item
-  if (threadIdx.x == 0) *slot = atomicAdd(taken, 1);
-  __syncthreads();
-  return min(*slot, n_items);
+// delta = sum(o * dO, -1) of the staged q tile for OPT = 0: o rows from
+// the rotated bundle (through L2), dO from shared memory; rows past S get
+// 0.  Warp w sums rows w, w + 8, ...: lane owns columns 4 lane .. +3.
+__device__ __forceinline__ void mma_delta(const mbwd::Smem& sm, int st,
+                                          const __nv_bfloat16* o, int i0,
+                                          int S) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  for (int r = w; r < BQ; r += NT / 32) {
+    const int row = i0 + r;
+    float acc = 0.f;
+    if (row < S) {
+      float ov[4];
+      load4_cg(o + (size_t)row * 128 + 4 * lane, ov);
+      const uint2 u = *reinterpret_cast<const uint2*>(
+          sm.dO(st) + r * mbwd::LD + 4 * lane);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+      acc = ov[0] * a.x + ov[1] * a.y + ov[2] * b.x + ov[3] * b.y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) sm.delta[r] = acc;
+  }
 }
 
 // How many kv tiles attend q tile [i0, i0 + BQ) under the mask: they are
@@ -260,13 +307,32 @@ __device__ __forceinline__ int kv_tiles_seen(const Mask& mk, int i0) {
   return c_end > 0 ? (c_end + BKV - 1) / BKV : 0;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TRACE>
 __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
+  static_assert(mbwd::NT == NT && mbwd::BQ == BQ && mbwd::BKV == BKV,
+                "both tiles share the CTA shape");
+  constexpr bool MMA = kMma<T>;
   constexpr int LD = Tiles<D>::LD;
   extern __shared__ float4 smem4[];
   __shared__ int item_slot;
-  const Tiles<D> t(reinterpret_cast<float*>(smem4));
+  const Tiles<D> t(reinterpret_cast<float*>(smem4));          // fp32
+  const mbwd::Smem sm(reinterpret_cast<char*>(smem4));        // bf16
+
+  // TRACE: thread 0's waits and counts (written at the end)
+  unsigned long long t_start = 0;
+  long long fold_ns = 0, phase_ns = 0, n_it = 0, n_steps = 0;
+  long long cyc[8] = {};  // clock64 cycles by part of a step
+  if (TRACE && threadIdx.x == 0) t_start = global_ns();
+  auto wait_on = [&](const int* c, int need) {
+    if (TRACE) {
+      const unsigned long long t0 = global_ns();
+      wait_ge(c, need);
+      phase_ns += (long long)(global_ns() - t0);
+    } else {
+      wait_ge(c, need);
+    }
+  };
 
   const int pos = blockIdx.x / p.G, j = blockIdx.x % p.G;
   const int S = p.S, N = p.N, Nk = p.Nk, group = N / Nk;
@@ -303,6 +369,7 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   for (int c = 0; c < 2; ++c) {
     if (p.copy_in[c] == 0) continue;
     const int cb = (p.copy_in[c] - 1) / 16, cs = (p.copy_in[c] - 1) % 16;
+#pragma unroll
     for (int op = 0; op < 4; ++op)
       copy_share<NT>(local[op], op_slot(pos, cb, op, cs), op_bytes[op], j,
                      p.G);
@@ -313,7 +380,8 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   const T* kp = static_cast<const T*>(p.k) + kv_base;
   const T* vp = static_cast<const T*>(p.v) + kv_base;
   const float scale_log2 = p.scale * kLog2e;
-  float dka[8][4], dva[8][4];
+  float dka[8][4], dva[8][4];  // fp32 tile: dk, dv of the item
+  mbwd::KvAcc acc;             // bf16 tile: the same, as fragments
 
   for (int r = 0; r < p.R; ++r) {
     const int* row = tab + (size_t)r * p.ncol;
@@ -329,13 +397,14 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
       const int dst = meta[meta_dst(ch)];
       const Flags dfl = flags(dst);
       if (threadIdx.x == 0) {
-        wait_ge(fl.arrive(sb, ss), row[col_src_need(ch)] * p.G);
+        wait_on(fl.arrive(sb, ss), row[col_src_need(ch)] * p.G);
         // the dst slot is being reused: its readers must have granted it
         if (row[col_take(ch)])
-          wait_ge(dfl.free_(ch, ds), row[col_take_need(ch)]);
+          wait_on(dfl.free_(ch, ds), row[col_take_need(ch)]);
         __threadfence();
       }
       __syncthreads();
+#pragma unroll
       for (int op = 0; op < 4; ++op)
         copy_share<NT>(op_slot(pos, sb, op, ss), op_slot(dst, ch, op, ds),
                        op_bytes[op], j, p.G);
@@ -346,11 +415,11 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
     // landed; a seeding round waits for the previous round's sends, which
     // may still read the slot it overwrites ----
     if (threadIdx.x == 0) {
-      wait_ge(fl.arrive(cb, cs), row[kArriveNeed] * p.G);
+      wait_on(fl.arrive(cb, cs), row[kArriveNeed] * p.G);
       if (recv)
-        wait_ge(fl.dq_arrive(dqb, dqs), row[kDqArriveNeed] * p.G);
+        wait_on(fl.dq_arrive(dqb, dqs), row[kDqArriveNeed] * p.G);
       else if (r > 0)
-        wait_ge(fl.done_b(r - 1), p.G);
+        wait_on(fl.done_b(r - 1), p.G);
       __threadfence();
     }
     __syncthreads();
@@ -373,20 +442,9 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
       const int jt = it % nkt, hk = (it / nkt) % Nk, b = it / (nkt * Nk);
       const int j0 = jt * BKV;
       const size_t bhk = (size_t)b * Nk + hk;
-      __syncthreads();  // the previous item's readers of sK, sV are done
-      load_rows<T, D, BKV, NT>(kp + bhk * S * D, j0, S, t.k, LD, 1.f);
-      load_rows<T, D, BKV, NT>(vp + bhk * S * D, j0, S, t.v, LD, 1.f);
       float* dk_out = p.dk + kv_base + bhk * S * D;
       float* dv_out = p.dv + kv_base + bhk * S * D;
-      if (!resident && r > 0) {
-        load_block<D>(dk_out, j0, S, dka);
-        load_block<D>(dv_out, j0, S, dva);
-      } else if (r == 0 || !resident) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-      }
+      if (TRACE && threadIdx.x == 0) ++n_it;
 
       // q rows that can see some column of this tile: [i_lo, i_hi)
       int i_lo = max(mk.q_lo, 0), i_hi = min(mk.q_hi, S);
@@ -395,33 +453,122 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
       const int t_lo = i_lo / BQ;
       const int t_hi = (i_hi > i_lo) ? (i_hi + BQ - 1) / BQ : t_lo;
 
-      for (int g = 0; g < group; ++g) {
-        const size_t bh = (size_t)b * N + hk * group + g;
-        for (int qt = t_hi - 1; qt >= t_lo; --qt) {
-          const int i0 = qt * BQ;
-          __syncthreads();  // the previous step's readers of sQ .. sdS
-          load_rows_l2<T, D, BQ>(q_c + bh * S * D, i0, S, t.q, LD);
-          load_rows_l2<T, D, BQ>(do_c + bh * S * D, i0, S, t.dO, LD);
+      if constexpr (MMA) {
+        // the item's steps: (q head g, q tile qt) for g ascending and qt
+        // from t_hi - 1 down; Q, dO of step s + 1 land in stage (s + 1) % 2
+        // while step s runs, its lse and delta in registers
+        const int nt = t_hi - t_lo, n_st = group * nt;
+        const float* f32_first = reinterpret_cast<const float*>(first_c);
+        float lse_next = neg_inf(), delta_next = 0.f;
+        auto issue = [&](int s, int st) {
+          const int qt = t_hi - 1 - s % nt, i0 = qt * BQ;
+          const size_t bh = (size_t)b * N + hk * group + s / nt;
+          const int valid = min(BQ, S - i0);
+          cp_tile<BQ, NT>(sm.q(st), q_c + (bh * S + i0) * D, valid);
+          cp_tile<BQ, NT>(sm.dO(st), do_c + (bh * S + i0) * D, valid);
+          const int rr = threadIdx.x % BQ;
+          if (threadIdx.x < BQ)
+            lse_next = rr < valid ? __ldcg(lse_c + bh * S + i0 + rr)
+                                  : neg_inf();
+          else if (threadIdx.x < 2 * BQ && p.opt)
+            delta_next = rr < valid ? __ldcg(f32_first + bh * S + i0 + rr)
+                                    : 0.f;
+        };
+        if (n_st > 0) {
+          cp_tile<BKV, NT>(sm.k, kp + (bhk * S + j0) * D, min(BKV, S - j0));
+          cp_tile<BKV, NT>(sm.v, vp + (bhk * S + j0) * D, min(BKV, S - j0));
+          issue(0, 0);
+        }
+        cp_async_commit();
+        if (!resident && r > 0) {
+          mbwd::load_frag(dk_out, j0, S, acc.dk);
+          mbwd::load_frag(dv_out, j0, S, acc.dv);
+        } else if (r == 0 || !resident) {
+          acc.zero();
+        }
+        const bool tr = TRACE && threadIdx.x == 0;
+        for (int s = 0; s < n_st; ++s) {
+          const int st = s & 1, qt = t_hi - 1 - s % nt, i0 = qt * BQ;
+          const size_t bh = (size_t)b * N + hk * group + s / nt;
+          const long long c0 = tr ? clock64() : 0;
+          cp_async_wait<0>();  // step s's tiles have landed
+          if (threadIdx.x < BQ)  // +inf: the row sees nothing (P = 0)
+            sm.lse2[threadIdx.x] =
+                (lse_next == neg_inf()) ? CUDART_INF_F : lse_next * kLog2e;
+          else if (threadIdx.x < 2 * BQ && p.opt)
+            sm.delta[threadIdx.x - BQ] = delta_next;
           __syncthreads();
-          const char* f = first_c + (p.opt ? bh * S * 4
-                                           : bh * S * D * sizeof(T));
-          load_stats<T, D>(t, lse_c + bh * S, f, i0, S, p.opt != 0);
-          scores<D, true>(t, scale_log2, i0, j0, mk);
-          __syncthreads();
-          accum_kv<D>(t, dka, dva);
+          if (!p.opt) {
+            mma_delta(sm, st,
+                      reinterpret_cast<const __nv_bfloat16*>(first_c) +
+                          bh * S * D,
+                      i0, S);
+            __syncthreads();
+          }
+          if (s + 1 < n_st) issue(s + 1, st ^ 1);
+          cp_async_commit();
           float part[8][4];
+          if (tr) cyc[0] += clock64() - c0;
+          mbwd::step(sm, st, acc, mk, i0, j0, scale_log2, part,
+                     tr ? cyc + 1 : nullptr);
+          const long long c1 = tr ? clock64() : 0;
+          mbwd::fold_add(dq_c + bh * S * D, folds + bh * nqt + qt, jt, i0, S,
+                         part, p.scale, !recv && jt == 0,
+                         tr ? &fold_ns : nullptr);
+          const long long c2 = tr ? clock64() : 0;
+          mbwd::fold_count(folds + bh * nqt + qt);
+          if (tr) {
+            cyc[6] += c2 - c1;
+            cyc[7] += clock64() - c2;
+            ++n_steps;
+          }
+        }
+        cp_async_wait<0>();
+        if (!resident || last) {
+          mbwd::store_frag(dk_out, j0, S, acc.dk, last ? p.scale : 1.f);
+          mbwd::store_frag(dv_out, j0, S, acc.dv, 1.f);
+        }
+      } else {
+        __syncthreads();  // the previous item's readers of sK, sV are done
+        load_rows<T, D, BKV, NT>(kp + bhk * S * D, j0, S, t.k, LD, 1.f);
+        load_rows<T, D, BKV, NT>(vp + bhk * S * D, j0, S, t.v, LD, 1.f);
+        if (!resident && r > 0) {
+          load_block<D>(dk_out, j0, S, dka);
+          load_block<D>(dv_out, j0, S, dva);
+        } else if (r == 0 || !resident) {
 #pragma unroll
           for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
-          accum_q<D>(t, part);
-          fold_dq<D>(dq_c + bh * S * D, folds + bh * nqt + qt, jt, i0, S,
-                     part, p.scale, !recv && jt == 0);
+            for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
         }
-      }
-      if (!resident || last) {
-        store_block<D>(dk_out, j0, S, dka, last ? p.scale : 1.f);
-        store_block<D>(dv_out, j0, S, dva, 1.f);
+        for (int g = 0; g < group; ++g) {
+          const size_t bh = (size_t)b * N + hk * group + g;
+          for (int qt = t_hi - 1; qt >= t_lo; --qt) {
+            const int i0 = qt * BQ;
+            __syncthreads();  // the previous step's readers of sQ .. sdS
+            load_rows_l2<T, D, BQ>(q_c + bh * S * D, i0, S, t.q, LD);
+            load_rows_l2<T, D, BQ>(do_c + bh * S * D, i0, S, t.dO, LD);
+            __syncthreads();
+            const char* f = first_c + (p.opt ? bh * S * 4
+                                             : bh * S * D * sizeof(T));
+            load_stats<T, D>(t, lse_c + bh * S, f, i0, S, p.opt != 0);
+            scores<D, true>(t, scale_log2, i0, j0, mk);
+            __syncthreads();
+            accum_kv<D>(t, dka, dva);
+            float part[8][4];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+            accum_q<D>(t, part);
+            fold_dq<D>(dq_c + bh * S * D, folds + bh * nqt + qt, jt, i0, S,
+                       part, p.scale, !recv && jt == 0);
+          }
+        }
+        if (!resident || last) {
+          store_block<D>(dk_out, j0, S, dka, last ? p.scale : 1.f);
+          store_block<D>(dv_out, j0, S, dva, 1.f);
+        }
       }
     }
 
@@ -441,7 +588,7 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
     // and the dk, dv an item's next CTA reads), this CTA's share of the
     // dq send ----
     if (threadIdx.x == 0) {
-      wait_ge(fl.done_a(r), p.G);
+      wait_on(fl.done_a(r), p.G);
       __threadfence();
     }
     __syncthreads();
@@ -461,9 +608,9 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
       const float* held = dqi ? dq_slot(pos, 1, row[kDqiSlot]) : nullptr;
       if (threadIdx.x == 0) {
         if (!home && row[col_dq_take(sbank)])
-          wait_ge(dfl.dq_free(sbank, dslot), row[kDqTakeNeed]);
+          wait_on(dfl.dq_free(sbank, dslot), row[kDqTakeNeed]);
         if (dqi)
-          wait_ge(fl.dq_arrive(1, row[kDqiSlot]), row[kDqiArriveNeed] * p.G);
+          wait_on(fl.dq_arrive(1, row[kDqiSlot]), row[kDqiArriveNeed] * p.G);
         __threadfence();
       }
       __syncthreads();
@@ -505,13 +652,28 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
       }
     }
   }
+
+  if (TRACE && threadIdx.x == 0) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    long long* rec = p.trace + (size_t)blockIdx.x * kTraceCols;
+    rec[0] = (long long)t_start;
+    rec[1] = (long long)global_ns();
+    rec[2] = fold_ns;
+    rec[3] = phase_ns;
+    rec[4] = n_it;
+    rec[5] = n_steps;
+    rec[6] = smid;
+    rec[7] = pos;
+    for (int i = 0; i < 8; ++i) rec[8 + i] = cyc[i];
+  }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TRACE>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_bwd_kernel<T, D>;
-  const size_t smem = smem_bytes<D>();
+  auto kernel = fused_ring_bwd_kernel<T, D, TRACE>;
+  const size_t smem = smem_size<T, D>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
@@ -525,19 +687,34 @@ cudaError_t setup(int* max_blocks) {
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool TRACE>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D>(&max_blocks);
+  cudaError_t e = setup<T, D, TRACE>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_ring_bwd_kernel<T, D>), dim3(p.W * p.G),
-      dim3(NT), argv, smem_bytes<D>(), stream);
+      reinterpret_cast<void*>(fused_ring_bwd_kernel<T, D, TRACE>),
+      dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <typename T, int D, bool TRACE>
+cudaError_t attrs(int* out) {
+  int max_blocks = 0;
+  cudaError_t e = setup<T, D, TRACE>(&max_blocks);  // sets the smem limit
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, fused_ring_bwd_kernel<T, D, TRACE>);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem_size<T, D>();
+  out[3] = max_blocks;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -546,19 +723,30 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" int fused_ring_bwd_capacity(int D, int dtype, int* max_blocks) {
   if (D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
-    return (int)setup<__nv_bfloat16, 128>(max_blocks);
-  if (dtype == kFloat32) return (int)setup<float, 128>(max_blocks);
+    return (int)setup<__nv_bfloat16, 128, false>(max_blocks);
+  if (dtype == kFloat32) return (int)setup<float, 128, false>(max_blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One instance's registers a thread, local (spill) bytes a thread, dynamic
+// shared memory and resident CTAs on the card: out[0..3].
+extern "C" int fused_ring_bwd_attrs(int dtype, int trace, int* out) {
+  if (dtype == kBFloat16)
+    return (int)(trace ? attrs<__nv_bfloat16, 128, true>(out)
+                       : attrs<__nv_bfloat16, 128, false>(out));
+  if (dtype == kFloat32 && !trace) return (int)attrs<float, 128, false>(out);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int fused_ring_bwd_launch(
     const void* first, const void* dO, const void* q, const void* lse,
     const void* k, const void* v, const void* ptrs, const void* sched,
-    void* folds, void* dk, void* dv, int W, int B, int N, int Nk, int S,
-    int D, int R, int NB, int MS, int MDQ, int G, int ncol, int copy_in0,
-    int copy_in1, int dtype, int resident, int opt, float scale,
-    void* stream) {
-  if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || MDQ < 1)
+    void* folds, void* dk, void* dv, void* trace, int W, int B, int N,
+    int Nk, int S, int D, int R, int NB, int MS, int MDQ, int G, int ncol,
+    int copy_in0, int copy_in1, int dtype, int resident, int opt,
+    float scale, void* stream) {
+  if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || MDQ < 1 ||
+      (trace != nullptr && dtype != kBFloat16))
     return (int)cudaErrorInvalidValue;
   Params p{first,
            dO,
@@ -574,9 +762,12 @@ extern "C" int fused_ring_bwd_launch(
            W, B, N, Nk, S, R, NB, MS, MDQ, G, ncol,
            {copy_in0, copy_in1},
            resident, opt,
-           scale};
+           scale,
+           static_cast<long long*>(trace)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) return (int)launch<__nv_bfloat16, 128>(p, st);
-  if (dtype == kFloat32) return (int)launch<float, 128>(p, st);
+  if (dtype == kBFloat16)
+    return (int)(trace ? launch<__nv_bfloat16, 128, true>(p, st)
+                       : launch<__nv_bfloat16, 128, false>(p, st));
+  if (dtype == kFloat32) return (int)launch<float, 128, false>(p, st);
   return (int)cudaErrorInvalidValue;
 }

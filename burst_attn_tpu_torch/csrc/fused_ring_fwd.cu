@@ -20,9 +20,21 @@
 //  * Cooperative persistent grid: G CTAs per position, all co-resident
 //    (cudaLaunchCooperativeKernel refuses a grid that is not), so a CTA
 //    that spins on another position's progress never holds an SM the
-//    awaited CTA needs.  CTA j of position p owns the items (b, h, 64-row
-//    q tile) j, j+G, ... and walks the R rounds; every item of a round
-//    reads that round's consume slot.
+//    awaited CTA needs.  An item is (b, h, 64-row q tile); every item of
+//    a round reads that round's consume slot.  RESIDENT: CTA j owns item
+//    j for all R rounds.  Otherwise the CTAs take a round's items in
+//    increasing order from a per-(position, round) counter (a causal
+//    round's q tiles differ in work by up to the number of kv tiles, and
+//    a fixed deal left the CTAs of the light ones idle), so round r+1's
+//    item x may go to a CTA while another is still folding x in round r:
+//    each item has a version word, counted (after a fence) when its
+//    round's state is written, and the round r+1 taker waits until it
+//    reads r+1 before it reads the state.  A per-item wait, not a wait on
+//    the round's done counter: an item's round-r fold is normally long
+//    finished when its round r+1 turn comes (both rounds deal in the same
+//    order), so nobody waits for the round's slowest CTA.  The wait cannot
+//    deadlock: a CTA leaves round r only when all of its items are taken,
+//    and their holders are resident and wait on nothing of round r+1.
 //  * Rotation follows the table.  At a round's start each CTA copies its
 //    1/G share of every send (the chunk's K and V, src slot -> the
 //    neighbour's dst slot, through L2), then publishes it: __syncthreads,
@@ -47,19 +59,37 @@
 //    position's fp32 state is 134 MB against the card's ~60 MB of
 //    registers and shared memory), and it goes to an fp32 scratch between
 //    rounds: 2 * 130 * 4 bytes per row and round against 2 * S * D flops
-//    per row and round, well under 1% of the kernel's time.
-//  * Each round's tile math is kernel 1's (flash_tile.cuh): 64-row K/V
-//    tiles staged as fp32 in shared memory, masked per element by the
-//    table's five scalars, dead tiles skipped by the loop bounds.
+//    per row and round, well under 1% of the kernel's time.  The scratch
+//    moves through L2 (ld.global.cg / st.global.cg): the next round's
+//    holder of an item may sit on another SM.
+//  * The tile (bf16): mma_tile.cuh's WarpTile, four warps x 16 q rows on
+//    mma.sync m16n8k16 (S = Q K^T, O += P V, P as two bf16 terms), the Q
+//    tile in shared memory as bf16, 64-token K/V chunks of the consume
+//    slot double-buffered by cp.async.cg (L2 only), a chunk's copy landing
+//    while the previous chunk's products run; (o fragments, m, l) stay in
+//    registers across the rounds when RESIDENT.  Dead chunks are skipped
+//    by the loop bounds of flash::fold, masked columns by the table's five
+//    scalars.  The fp32 instance runs kernel 1's SIMT tile (flash_tile.cuh:
+//    fp32 in shared memory), so a ring round of it does kernel 1's
+//    arithmetic.  FUSED_FWD_TILE_SIMT=1 at build time puts the bf16
+//    instance on that tile too (for an A/B of the tile alone; off by
+//    default).
 //
 // What bounds it on an H100: tensor FLOPs (the causal pairs attended:
 // 4 * D flops each), e.g. ~35 TFLOP at B1 N32 S65536 D128 against ~2 GB
-// of q/k/v/o and slot copies.  This first version computes in fp32 on the
-// CUDA cores like kernel 1 (no tensor cores, no TMA), so it is about as
-// far from that bound as kernel 1 is.
+// of q/k/v/o and slot copies.  The bf16 tile issues 6 * D a pair (P V
+// twice) on mma.sync, below wgmma's rate; a TMA producer warp feeding
+// wgmma is the next step.
+
+#include <type_traits>
 
 #include "flash_tile.cuh"
+#include "mma_tile.cuh"
 #include "ring_sync.cuh"
+
+#ifndef FUSED_FWD_TILE_SIMT
+#define FUSED_FWD_TILE_SIMT 0
+#endif
 
 namespace {
 
@@ -98,9 +128,11 @@ struct Params {
   float scale_log2;
 };
 
-struct Flags {  // one position's counters: arrive, free [NB][MS], done [R]
+// one position's counters: arrive, free [NB][MS]; done [R], items taken
+// [R]; per item the rounds whose state is written (not RESIDENT)
+struct Flags {
   int* base;
-  int NB, MS;
+  int NB, MS, R;
   __device__ int* arrive(int bank, int slot) const {
     return base + bank * MS + slot;
   }
@@ -110,15 +142,146 @@ struct Flags {  // one position's counters: arrive, free [NB][MS], done [R]
   __device__ int* done(int round) const {
     return base + 2 * NB * MS + round;
   }
+  __device__ int* taken(int round) const {
+    return base + 2 * NB * MS + R + round;
+  }
+  __device__ int* version(int item) const {
+    return base + 2 * NB * MS + 2 * R + item;
+  }
 };
+
+// bf16 runs the tensor-core tile (unless built with FUSED_FWD_TILE_SIMT)
+template <typename T>
+constexpr bool kMma =
+    std::is_same<T, __nv_bfloat16>::value && !FUSED_FWD_TILE_SIMT;
+
+// shared memory of the tensor-core tile: the Q tile, two stages of K, V
+constexpr size_t kMmaSmem = sizeof(__nv_bfloat16) * 5 * 64 * kTileLd;
+
+template <typename T, int D>
+constexpr size_t smem_size() {
+  return kMma<T> ? kMmaSmem : flash::smem_bytes<D>();
+}
+
+// One q tile's WarpTile state through the fp32 scratch (through L2): the
+// warp's rows q0 + 16 w + g (+ 8), m (base 2), l (the quad's sum, kept by
+// lane c = 0), the lane's o columns.
+__device__ __forceinline__ void mma_load(WarpTile& wt, const float* st_m,
+                                         const float* st_l,
+                                         const float* st_acc, size_t row0,
+                                         int q0, int S) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int g = lane / 4, c = lane % 4;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qr = q0 + 16 * w + g + 8 * hf;
+    if (qr >= S) continue;
+    const size_t at = row0 + qr;
+    wt.m[hf] = __ldcg(st_m + at);
+    wt.l[hf] = c == 0 ? __ldcg(st_l + at) : 0.f;
+#pragma unroll
+    for (int n = 0; n < kTileD / 8; ++n) {
+      const float2 a = __ldcg(reinterpret_cast<const float2*>(
+          st_acc + at * kTileD + 8 * n + 2 * c));
+      wt.o[n][2 * hf] = a.x;
+      wt.o[n][2 * hf + 1] = a.y;
+    }
+  }
+}
+// the same out, after wt.finish()
+__device__ __forceinline__ void mma_store(const WarpTile& wt, float* st_m,
+                                          float* st_l, float* st_acc,
+                                          size_t row0, int q0, int S) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int g = lane / 4, c = lane % 4;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qr = q0 + 16 * w + g + 8 * hf;
+    if (qr >= S) continue;
+    const size_t at = row0 + qr;
+    if (c == 0) {
+      __stcg(st_m + at, wt.m[hf]);
+      __stcg(st_l + at, wt.l[hf]);
+    }
+#pragma unroll
+    for (int n = 0; n < kTileD / 8; ++n)
+      __stcg(reinterpret_cast<float2*>(st_acc + at * kTileD + 8 * n + 2 * c),
+             make_float2(wt.o[n][2 * hf], wt.o[n][2 * hf + 1]));
+  }
+}
+
+// Fold the K/V rows [0, S) of one (batch, kv head) of the consume slot
+// (kb, vb: row 0) into the warps' state of q rows q0 .. q0+63, whose bf16
+// values are in sQ, under the table's mask: 64-token chunks through two
+// stages (the chunk range is flash::fold's: none when no row is active,
+// causal rows stop at their diagonal).  The caller has committed a
+// cp.async group holding whatever the Q tile still needs; all threads
+// take part; on return nothing is in flight.
+__device__ __forceinline__ void mma_fold(WarpTile& wt, __nv_bfloat16* sQ,
+                                         __nv_bfloat16* sKV,
+                                         const __nv_bfloat16* kb,
+                                         const __nv_bfloat16* vb, int S,
+                                         int q0, float scale_log2, int q_lo,
+                                         int q_hi, int kv_hi, int causal,
+                                         int offset) {
+  constexpr int TILE = 64 * kTileLd;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
+  const int r_lo = max(q0, q_lo), r_hi = min(min(q0 + BQ, q_hi), S);
+  int c_end = 0;
+  if (r_lo < r_hi) {
+    c_end = min(kv_hi, S);
+    if (causal) c_end = min(c_end, r_hi + offset);
+  }
+  const int n = c_end > 0 ? (c_end + 63) / 64 : 0;
+  // the last column each of the lane's rows sees (-1: none), and the
+  // warp's largest: a chunk past it leaves the warp's state as it is
+  int hi[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qr = q0 + 16 * w + g + 8 * hf;
+    const bool ok = qr >= q_lo && qr < q_hi && qr < S;
+    int h_ = min(kv_hi, S) - 1;
+    if (causal) h_ = min(h_, qr + offset);
+    hi[hf] = ok ? h_ : -1;
+  }
+  const int w_hi = __reduce_max_sync(0xffffffffu, max(hi[0], hi[1]));
+  auto issue = [&](int i) {
+    __nv_bfloat16* st = sKV + (i & 1) * 2 * TILE;
+    const int valid = min(64, S - 64 * i);
+    cp_tile<64, NT>(st, kb + (size_t)64 * i * kTileD, valid);
+    cp_tile<64, NT>(st + TILE, vb + (size_t)64 * i * kTileD, valid);
+  };
+  if (n > 0) issue(0);
+  cp_async_commit();
+  wt.set_q(sQ + 16 * w * kTileLd);
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();  // chunk i (and Q) has landed
+    __syncthreads();     // ... for every thread; chunk i - 1 is done with
+    if (i + 1 < n) issue(i + 1);
+    cp_async_commit();
+    const int j0 = 64 * i;
+    if (j0 > w_hi) continue;
+    const __nv_bfloat16* sK = sKV + (i & 1) * 2 * TILE;
+    wt.step<64>(
+        sK, sK + TILE, [&](int) { return scale_log2; },
+        [&](int hf, int col) { return j0 + col <= hi[hf]; },
+        [&](int) { return 1.f; });
+  }
+  cp_async_wait<0>();
+}
 
 template <typename T, int D, bool RESIDENT>
 __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
+  constexpr bool MMA = kMma<T>;
   constexpr int DC = flash::Rows<D>::DC;
   extern __shared__ float4 smem4[];
+  __shared__ int item_slot;
+  // fp32 tile: sQ, sK, sV as fp32; bf16 tile: the Q tile, then the stages
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sK = sQ + BQ * D;
   float* sV = sK + flash::BKV * (D + 4);
+  __nv_bfloat16* mQ = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* mKV = mQ + BQ * kTileLd;
 
   const int pos = blockIdx.x / p.G, j = blockIdx.x % p.G;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -129,7 +292,7 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   const size_t chunk = (size_t)p.B * Nk * S * D;  // elements of K (or V)
   const size_t bytes = chunk * sizeof(T);
   const Flags fl{reinterpret_cast<int*>(p.ptrs[(size_t)pos * np + 2 * p.NB]),
-                 p.NB, p.MS};
+                 p.NB, p.MS, p.R};
   auto kslot = [&](int who, int bank, int slot) {
     return reinterpret_cast<T*>(p.ptrs[(size_t)who * np + bank]) +
            (size_t)slot * chunk;
@@ -154,7 +317,8 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   const int n_items = p.B * N * nqt;
   const T* q = static_cast<const T*>(p.q) + (size_t)pos * p.B * N * S * D;
   const size_t row_base = (size_t)pos * p.B * N * S;  // state / lse rows
-  flash::Rows<D> st;
+  flash::Rows<D> st;  // fp32 tile
+  WarpTile wt;        // bf16 tile
 
   for (int r = 0; r < p.R; ++r) {
     const int* row = tab + (size_t)r * p.ncol;
@@ -168,7 +332,7 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
       const int dst = meta[meta_dst(ch)];
       const Flags dfl{
           reinterpret_cast<int*>(p.ptrs[(size_t)dst * np + 2 * p.NB]), p.NB,
-          p.MS};
+          p.MS, p.R};
       if (threadIdx.x == 0) {
         wait_ge(fl.arrive(sb, ss), row[col_src_need(ch)] * p.G);
         // the dst slot is being reused: its readers must have granted it
@@ -191,68 +355,118 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
 
     const T* kc = kslot(pos, cb, cs);
     const T* vc = vslot(pos, cb, cs);
-    for (int it = j; it < n_items; it += p.G) {
+    const bool last = r == p.R - 1;
+    for (int it = next_item(fl.taken(r), &item_slot, j, true, RESIDENT,
+                            n_items);
+         it < n_items; it = next_item(fl.taken(r), &item_slot, j, false,
+                                      RESIDENT, n_items)) {
       const int qt = it % nqt, h = (it / nqt) % N, b = it / (nqt * N);
       const int q0 = qt * BQ;
       const size_t bh = (size_t)b * N + h;
       const size_t bhk = (size_t)b * Nk + h / (N / Nk);
-      if (!RESIDENT || r == 0) {
-        __syncthreads();  // the previous item's readers of sQ are done
-        load_rows<T, D, BQ, NT>(q + bh * S * D, q0, S, sQ, D, p.scale_log2);
+      const size_t at0 = row_base + bh * S;  // state / lse row of q row 0
+      if (!RESIDENT && r > 0) {  // the item's round r - 1 state is written
+        if (threadIdx.x == 0) {
+          wait_ge(fl.version(it), r);
+          __threadfence();
+        }
+        __syncthreads();
       }
-      if (r == 0 || !RESIDENT) st.init();
-      if (r > 0 && !RESIDENT) {
+      if constexpr (MMA) {
+        __syncthreads();  // the previous item's readers of the tiles
+        if (!RESIDENT || r == 0)
+          cp_tile<BQ, NT>(mQ, q + (bh * S + q0) * D, min(BQ, S - q0));
+        if (r == 0 || !RESIDENT) wt.init();
+        if (r > 0 && !RESIDENT)
+          mma_load(wt, p.st_m, p.st_l, p.st_acc, at0, q0, S);
+        mma_fold(wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S, q0,
+                 p.scale_log2, row[0], row[1],
+                 row[2], row[3], row[4]);
+        if (!last && RESIDENT) continue;
+        wt.finish();
+        if (!last) {
+          mma_store(wt, p.st_m, p.st_l, p.st_acc, at0, q0, S);
+        } else {  // o = acc / l, lse in natural log
+          const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+          const int g = lane / 4, c = lane % 4;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int qr = q0 + 16 * w + g + 8 * hf;
+            if (qr >= S) continue;
+            const size_t at = at0 + qr;
+            const float l = wt.l[hf];
+            const float inv = (l > 0.f) ? 1.f / l : 0.f;
+            if (c == 0)
+              p.lse[at] = (l > 0.f) ? wt.m[hf] * kLn2 + logf(l) : neg_inf();
+            T* o = static_cast<T*>(p.o) + at * D;
+#pragma unroll
+            for (int nn = 0; nn < D / 8; ++nn)
+              *reinterpret_cast<uint32_t*>(o + 8 * nn + 2 * c) =
+                  pack_bf16(wt.o[nn][2 * hf] * inv,
+                            wt.o[nn][2 * hf + 1] * inv);
+          }
+        }
+      } else {
+        if (!RESIDENT || r == 0) {
+          __syncthreads();  // the previous item's readers of sQ are done
+          load_rows<T, D, BQ, NT>(q + bh * S * D, q0, S, sQ, D, p.scale_log2);
+        }
+        if (r == 0 || !RESIDENT) st.init();
+        if (r > 0 && !RESIDENT) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const int qr = q0 + ty * RPT + i;
+            if (qr >= S) continue;
+            const size_t at = at0 + qr;
+            st.m[i] = __ldcg(p.st_m + at);
+            st.l[i] = __ldcg(p.st_l + at);
+#pragma unroll
+            for (int c = 0; c < DC; ++c) {
+              const float4 a = __ldcg(reinterpret_cast<const float4*>(
+                  p.st_acc + at * D + c * 64 + tx * 4));
+              st.acc[i][4 * c] = a.x; st.acc[i][4 * c + 1] = a.y;
+              st.acc[i][4 * c + 2] = a.z; st.acc[i][4 * c + 3] = a.w;
+            }
+          }
+        }
+
+        flash::fold<T, D, true>(st, sQ, sK, sV, kc + bhk * S * D,
+                                vc + bhk * S * D, S, q0, S, row[0], row[1],
+                                row[2], row[3], row[4]);
+
+        if (!last && RESIDENT) continue;
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const int qr = q0 + ty * RPT + i;
           if (qr >= S) continue;
-          const size_t at = row_base + bh * S + qr;
-          st.m[i] = p.st_m[at];
-          st.l[i] = p.st_l[at];
+          const size_t at = at0 + qr;
+          if (last) {  // fused finalize: o = acc / l, lse in natural log
+            const float inv = (st.l[i] > 0.f) ? 1.f / st.l[i] : 0.f;
+            if (tx == 0)
+              p.lse[at] = (st.l[i] > 0.f) ? st.m[i] * kLn2 + logf(st.l[i])
+                                          : neg_inf();
+            T* o = static_cast<T*>(p.o) + at * D;
 #pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            const float4 a = *reinterpret_cast<const float4*>(
-                p.st_acc + at * D + c * 64 + tx * 4);
-            st.acc[i][4 * c] = a.x; st.acc[i][4 * c + 1] = a.y;
-            st.acc[i][4 * c + 2] = a.z; st.acc[i][4 * c + 3] = a.w;
+            for (int c = 0; c < DC; ++c)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                store(o + c * 64 + tx * 4 + e, st.acc[i][4 * c + e] * inv);
+          } else {
+            if (tx == 0) {
+              __stcg(p.st_m + at, st.m[i]);
+              __stcg(p.st_l + at, st.l[i]);
+            }
+#pragma unroll
+            for (int c = 0; c < DC; ++c)
+              __stcg(reinterpret_cast<float4*>(p.st_acc + at * D + c * 64 +
+                                               tx * 4),
+                     make_float4(st.acc[i][4 * c], st.acc[i][4 * c + 1],
+                                 st.acc[i][4 * c + 2], st.acc[i][4 * c + 3]));
           }
         }
       }
-
-      flash::fold<T, D, true>(st, sQ, sK, sV, kc + bhk * S * D,
-                              vc + bhk * S * D, S, q0, S, row[0], row[1],
-                              row[2], row[3], row[4]);
-
-      const bool last = r == p.R - 1;
-      if (!last && RESIDENT) continue;
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int qr = q0 + ty * RPT + i;
-        if (qr >= S) continue;
-        const size_t at = row_base + bh * S + qr;
-        if (last) {  // fused finalize: o = acc / l, lse in natural log
-          const float inv = (st.l[i] > 0.f) ? 1.f / st.l[i] : 0.f;
-          if (tx == 0)
-            p.lse[at] = (st.l[i] > 0.f) ? st.m[i] * kLn2 + logf(st.l[i])
-                                        : neg_inf();
-          T* o = static_cast<T*>(p.o) + at * D;
-#pragma unroll
-          for (int c = 0; c < DC; ++c)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              store(o + c * 64 + tx * 4 + e, st.acc[i][4 * c + e] * inv);
-        } else {
-          if (tx == 0) {
-            p.st_m[at] = st.m[i];
-            p.st_l[at] = st.l[i];
-          }
-#pragma unroll
-          for (int c = 0; c < DC; ++c)
-            *reinterpret_cast<float4*>(p.st_acc + at * D + c * 64 + tx * 4) =
-                make_float4(st.acc[i][4 * c], st.acc[i][4 * c + 1],
-                            st.acc[i][4 * c + 2], st.acc[i][4 * c + 3]);
-        }
-      }
+      // the item's round-r state is written: its round r + 1 taker may go
+      if (!RESIDENT && !last) publish(fl.version(it));
     }
 
     // ---- round done: the position's last CTA grants the freed slots ----
@@ -273,7 +487,7 @@ template <typename T, int D, bool RESIDENT>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
   auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT>;
-  const size_t smem = flash::smem_bytes<D>();
+  const size_t smem = smem_size<T, D>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
@@ -297,9 +511,24 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(fused_ring_fwd_kernel<T, D, RESIDENT>),
-      dim3(p.W * p.G), dim3(NT), argv, flash::smem_bytes<D>(), stream);
+      dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <typename T, int D, bool RESIDENT>
+cudaError_t attrs(int* out) {
+  int max_blocks = 0;
+  cudaError_t e = setup<T, D, RESIDENT>(&max_blocks);  // the smem limit
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, fused_ring_fwd_kernel<T, D, RESIDENT>);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem_size<T, D>();
+  out[3] = max_blocks;
+  return cudaSuccess;
 }
 
 template <int D>
@@ -315,6 +544,18 @@ cudaError_t dispatch(int dtype, int resident, const Params& p,
 }
 
 }  // namespace
+
+// One instance's registers a thread, local (spill) bytes a thread, dynamic
+// shared memory and resident CTAs on the card: out[0..3].
+extern "C" int fused_ring_fwd_attrs(int dtype, int resident, int* out) {
+  if (dtype == kBFloat16)
+    return (int)(resident ? attrs<__nv_bfloat16, 128, true>(out)
+                          : attrs<__nv_bfloat16, 128, false>(out));
+  if (dtype == kFloat32)
+    return (int)(resident ? attrs<float, 128, true>(out)
+                          : attrs<float, 128, false>(out));
+  return (int)cudaErrorInvalidValue;
+}
 
 // How many CTAs the card keeps resident at once for this kernel (both
 // state modes have the same footprint up to registers; the smaller wins).

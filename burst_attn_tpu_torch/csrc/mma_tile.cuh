@@ -15,7 +15,8 @@
 // score's factor (scale * log2(e), times a per-token dequantization scale
 // for a 1-byte pool) and a visibility test, and the -inf guards keep a
 // fully masked row at m = -inf, l = 0, O = 0.  Nothing here depends on the
-// paged layout: the ragged kernel uses it today, the flash kernels can.
+// paged layout: the ragged kernel and the fused ring forward's bf16
+// instance use it, the flash kernels can.
 
 #pragma once
 
@@ -59,6 +60,24 @@ __device__ __forceinline__ void cp_rows(char* dst, const char* src,
   for (int i = threadIdx.x; i < rows * P; i += NT) {
     const int r = i / P, c = i % P;
     cp_async16(dst + r * LDB + c * 16, src + (size_t)r * RB + c * 16);
+  }
+}
+
+// ROWS rows of kTileD bf16 (kTileD apart in global memory) into shared
+// rows kTileLd apart: rows [0, valid) by cp.async, the rest zeroed (a
+// padding row must hold finite values: P = 0 times garbage can be NaN)
+template <int ROWS, int NT>
+__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* src,
+                                        int valid) {
+  constexpr int P = kTileD / 8;  // 16-byte pieces a row
+  for (int i = threadIdx.x; i < ROWS * P; i += NT) {
+    const int r = i / P, c = (i % P) * 8;
+    if (r < valid)
+      cp_async16(dst + r * kTileLd + c, src + (size_t)r * kTileD + c);
+    else
+      *reinterpret_cast<uint4*>(dst + r * kTileLd + c) =
+          make_uint4(0, 0, 0, 0);
   }
 }
 

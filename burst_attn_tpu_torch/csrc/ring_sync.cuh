@@ -47,6 +47,21 @@ __device__ __forceinline__ void publish(int* counter) {
   }
 }
 
+// The next item of a round for this CTA of a position: its own one (j)
+// when RESIDENT, else the next untaken one of the position's counter
+// `taken` (thread 0 takes it, the CTA reads it after a barrier), so that
+// items go out in increasing order to whichever CTA is free; n_items when
+// none is left.  `slot` is a __shared__ int of the CTA.
+__device__ __forceinline__ int next_item(int* taken, int* slot, int j,
+                                         bool first, bool resident,
+                                         int n_items) {
+  if (resident) return first ? j : n_items;
+  __syncthreads();  // every thread has read the previous item
+  if (threadIdx.x == 0) *slot = atomicAdd(taken, 1);
+  __syncthreads();
+  return min(*slot, n_items);
+}
+
 // share j of G of a byte copy (16-byte units, through L2), by a CTA of NTH
 // threads
 template <int NTH>

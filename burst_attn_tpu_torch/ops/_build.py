@@ -56,14 +56,18 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # W B N Nk S D R NB MS G ncol copy_in0 copy_in1 dtype resident,
         # scale, stream
         "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [F] + [P],
+        # dtype resident, int out[4]
+        "fused_ring_fwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "fused_ring_bwd": {
         # D dtype, &max_blocks
         "fused_ring_bwd_capacity": [I, I, ctypes.POINTER(I)],
-        # first dO q lse k v ptrs sched folds dk dv,
+        # first dO q lse k v ptrs sched folds dk dv trace,
         # W B N Nk S D R NB MS MDQ G ncol copy_in0 copy_in1 dtype resident
         # opt, scale, stream
-        "fused_ring_bwd_launch": [P] * 11 + [I] * 17 + [F] + [P],
+        "fused_ring_bwd_launch": [P] * 12 + [I] * 17 + [F] + [P],
+        # dtype traced, int out[4]
+        "fused_ring_bwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "ragged_paged": {
         # q k_pages v_pages k_scales v_scales table q_lens kv_lens ctx_lo

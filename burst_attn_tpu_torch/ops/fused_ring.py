@@ -497,9 +497,11 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale):
     kbanks = [torch.empty((w, prog.slots[bk], b, n_kv, s, d), dtype=q.dtype,
                           device=dev) for bk in range(n_banks)]
     vbanks = [torch.empty_like(t) for t in kbanks]
-    # per position: arrival and credit counters per (bank, slot), then
-    # one done counter per round
-    flags = torch.zeros((w, 2 * n_banks * max_slots + prog.n_rounds),
+    # per position: arrival and credit counters per (bank, slot), per
+    # round a done counter and the items taken, then (items dealt from the
+    # counters) each item's count of rounds whose state is written
+    flags = torch.zeros((w, 2 * n_banks * max_slots + 2 * prog.n_rounds
+                         + (0 if resident else n_items)),
                         dtype=torch.int32, device=dev)
     item = q.element_size()
     ptrs = torch.tensor(
@@ -532,4 +534,31 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def kernel_attrs(lib_name: str, instances):
+    """Registers a thread, local (spill) bytes a thread, dynamic shared
+    memory and resident CTAs on the current card of each instance of a
+    fused ring kernel (`lib_name` "fused_ring_fwd" | "fused_ring_bwd"):
+    [{"instance": ..., "regs": ..., "local_bytes": ..., "smem": ...,
+    "ctas": ...}], from cudaFuncGetAttributes.  `instances` maps a label to
+    the C entry point's (dtype code, flag) arguments."""
+    lib = _build.load(lib_name)
+    fn = getattr(lib, f"{lib_name}_attrs")
+    out = []
+    for label, (code, flag) in instances.items():
+        vals = (ctypes.c_int * 4)()
+        _build.check(fn(code, flag, vals), f"{lib_name} attrs {label}")
+        out.append(dict(instance=label, regs=vals[0], local_bytes=vals[1],
+                        smem=vals[2], ctas=vals[3]))
+    return out
+
+
+def fwd_attrs():
+    """kernel_attrs of kernel 8's four instances (dtype x state mode)."""
+    return kernel_attrs("fused_ring_fwd", {
+        f"{name}{'' if res else ' scratch'}": (code, int(res))
+        for name, code in (("bf16", KERNEL_DTYPES[torch.bfloat16]),
+                           ("fp32", KERNEL_DTYPES[torch.float32]))
+        for res in (True, False)})
 

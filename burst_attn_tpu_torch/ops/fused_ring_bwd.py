@@ -39,7 +39,8 @@ from . import _build
 from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
 from .fused_ring import (
     _DST_SLOT, _GRANT, _META_DST, _SEND, _SRC_SLOT, _TAKE,
-    BWD_KERNEL_COLS, dq_send_target, kernel_statics, ring_plan, _sched_on,
+    BWD_KERNEL_COLS, dq_send_target, kernel_attrs, kernel_statics,
+    ring_plan, _sched_on,
 )
 from .masks import MaskSpec
 from .tile import tile_bwd
@@ -51,6 +52,17 @@ from ..parallel.ring import ring_coords
 # operands of each of two banks, the two dq banks, the two home outputs,
 # the flag words (csrc/fused_ring_bwd.cu kNPtr)
 _N_PTRS = 13
+# a traced launch's record per CTA (csrc/fused_ring_bwd.cu kTraceCols):
+# %globaltimer at its start and end, ns its thread 0 waited on dq fold
+# counters and on the ring's counters, its items and (q tile, kv tile)
+# steps, its SM, its ring position, then the clock64 cycles of the steps'
+# parts: the tiles' landing and the row statistics, S^T and dP^T with
+# their exchange, P and dS as fragments, dV and dK, the dS^T store, dQ,
+# the fold's wait and reductions, its count (barrier, fence, atomic)
+TRACE_COLS = ("t0_ns", "t1_ns", "fold_wait_ns", "phase_wait_ns", "items",
+              "steps", "sm", "position", "cyc_land", "cyc_s_dp", "cyc_p_ds",
+              "cyc_dkdv", "cyc_ds_store", "cyc_dq", "cyc_fold",
+              "cyc_publish")
 
 
 def bwd_statics(prog):
@@ -77,14 +89,19 @@ def dq_bank_slots(prog):
 
 
 def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
-                   head_chunk: Optional[int] = None):
+                   head_chunk: Optional[int] = None,
+                   trace: Optional[torch.Tensor] = None):
     """Backward burst attention of all W = n_inter * n_intra ring positions
     through the fused ring: q, o, do [W,B,N,S,D], k, v [W,B,Nk,S,D], lse
     [W,B,N,S] fp32 (position p's shard at index p, layout order) -> fp32
     (dq [W,B,N,S,D], dk, dv [W,B,Nk,S,D]).  Callers check
     `fused_ring.supported(..., pass_="bwd")` first.  A CUDA tensor
     launches the kernel; a CPU tensor runs fused_ring_bwd_reference
-    (`head_chunk` bounds its score tensors there)."""
+    (`head_chunk` bounds its score tensors there).  `trace` (bf16 on the
+    card only): a zeroed int64 tensor [rows, len(TRACE_COLS)] with a row
+    for each CTA of the launch (W * CTAs a position; the card's SM count
+    is enough), which the traced instance of the kernel fills
+    (`read_trace`)."""
     w, b, n, s, d = q.shape
     if w != n_inter * n_intra:
         raise ValueError(f"{w} stacked shards for a {n_inter}x{n_intra} "
@@ -112,7 +129,7 @@ def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
     return _fused_ring_bwd_cuda(
         q, k, v, o, lse, do, prog,
         _sched_on(cfg, n_inter, n_intra, s, q.device, "bwd"), scale,
-        cfg.optimize_bwd_comm)
+        cfg.optimize_bwd_comm, trace)
 
 
 fused_ring_bwd.launches = 0
@@ -310,7 +327,23 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
     return torch.stack(dq), dk, dv
 
 
-def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm):
+def read_trace(trace):
+    """The records of a traced launch (rows the kernel wrote), as dicts
+    of TRACE_COLS."""
+    rows = trace.cpu().tolist()
+    return [dict(zip(TRACE_COLS, r)) for r in rows if r[1] > 0]
+
+
+def bwd_attrs():
+    """kernel_attrs of kernel 9's instances: bf16 (and traced), fp32."""
+    return kernel_attrs("fused_ring_bwd", {
+        "bf16": (KERNEL_DTYPES[torch.bfloat16], 0),
+        "bf16 traced": (KERNEL_DTYPES[torch.bfloat16], 1),
+        "fp32": (KERNEL_DTYPES[torch.float32], 0)})
+
+
+def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
+                         trace=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_bwd kernel takes "
@@ -336,6 +369,15 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm):
                            f"resident, fewer than the {w} positions")
     ctas = min(per_pos, n_items)
     resident = n_items <= per_pos
+    if trace is not None:
+        if q.dtype != torch.bfloat16:
+            raise ValueError("a traced fused_ring_bwd launch is bf16 only")
+        if (trace.dtype != torch.int64 or trace.device != dev
+                or trace.dim() != 2 or trace.shape[0] < w * ctas
+                or trace.shape[1] != len(TRACE_COLS)
+                or not trace.is_contiguous()):
+            raise ValueError(f"trace must be a contiguous int64 tensor "
+                             f"[>= {w * ctas}, {len(TRACE_COLS)}] on {dev}")
     # the bundle's first operand: delta [.., S] fp32 (optimize_bwd_comm)
     # or o itself, delta then recomputed per tile
     first = (o.float() * do.float()).sum(-1) if opt_comm else o
@@ -388,7 +430,8 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm):
         err = lib.fused_ring_bwd_launch(
             first.data_ptr(), do.data_ptr(), q.data_ptr(), lse.data_ptr(),
             k.data_ptr(), v.data_ptr(), ptrs.data_ptr(), sched.data_ptr(),
-            folds.data_ptr(), dk.data_ptr(), dv.data_ptr(), w, b, n, n_kv, s,
+            folds.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if trace is None else trace.data_ptr(), w, b, n, n_kv, s,
             d, prog.n_rounds, prog.n_banks, max_slots, max_dq, ctas,
             BWD_KERNEL_COLS, copy_in[0], copy_in[1], code, int(resident),
             int(opt_comm), float(scale), stream)

@@ -2,15 +2,18 @@
 fused rows of burst_attn_tpu/ops/tuning.py, whose per-TPU-generation
 table does not apply to this card).
 
-csrc/fused_ring_fwd.cu computes 64 query rows against 64-row K/V tiles
-staged as fp32 in shared memory: Q, K (rows padded by 4 floats) and V
-take 4 * (64*128 + 64*132 + 64*128) = 99,328 bytes at D = 128, so two
-CTAs fit an SM's 227 KB.  csrc/fused_ring_bwd.cu runs the flash
+csrc/fused_ring_fwd.cu computes 64 query rows against 64-row K/V tiles.
+Its fp32 instance stages them as fp32 in shared memory: Q, K (rows padded
+by 4 floats) and V take 4 * (64*128 + 64*132 + 64*128) = 99,328 bytes at
+D = 128, so two CTAs fit an SM's 227 KB; its bf16 instance (tensor
+cores) stages the Q tile and two stages of K, V as bf16 rows of 136,
+87,040 bytes.  csrc/fused_ring_bwd.cu's fp32 instance runs the flash
 backward's tiles (csrc/flash_bwd_tile.cuh): K, V, Q and dO tiles of 64
 rows padded by 4 floats, the P and dS tiles [64][68] and two row vectors,
 4 * (4*64*132 + 2*64*68 + 2*64) = 170,496 bytes at D = 128, one CTA per
-SM.  Two slots per bank (double buffering) is the default for both
-passes, as on the TPU.
+SM; its bf16 instance (csrc/mma_bwd_tile.cuh) 156,160 bytes, one CTA per
+SM.  The gates below price the larger, fp32 plan.  Two slots per bank
+(double buffering) is the default for both passes, as on the TPU.
 """
 
 from typing import NamedTuple, Optional

@@ -5,7 +5,9 @@ GPU: the quickest proof that the port still builds and serves on the card.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
+  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
+     and print each instance of kernels 8 and 9 with its registers, local
+     (spill) bytes, shared memory and resident CTAs;
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes, with its time, the plain version's time, one
      PyTorch library call's time (a yardstick only, never used by the
@@ -55,6 +57,11 @@ Phases (any failure exits non-zero; nothing is caught):
      fallback, losses falling and the first two within CONTROL_RTOL of
      the single-device run, step ms, tokens/s, MFU and a profile each;
      fp32 ring parity against the single-device kernels on both routes;
+     before the ring step, kernels 8 and 9 held against their plain
+     versions at the shape it gives them, with each one's ms a launch and
+     a traced kernel-9 launch (bitwise the untraced one) that gives the
+     share of its CTAs' time spent waiting on dq fold counters and on
+     the ring's counters;
      runner.fit on mesh {"sp": 4} (`--mesh sp=4`) with a resume;
   7. (run after phase 3) the ring forward: the fused ring kernel
      (kernel 8) against its plain
@@ -2579,15 +2586,19 @@ def ring_bwd_op_phase(device):
 
 
 def check_ring_kernels_at(device, what, w, n, n_kv, s, seed, fwd=True,
-                          head_chunk=None):
+                          head_chunk=None, timing=False):
     """Kernel 9 (and, with `fwd`, kernel 8) at one op shape of the main
     path: W = w positions, B1, N{n}/Nk{n_kv}, S_local = s, bf16, causal
     zigzag, default knobs, on seeded tensors (o and lse from kernel 8).
     Each kernel launched twice, torch.equal; kernel 8's o within O_TOL and
     lse within STATS_ATOL of fused_ring_reference; kernel 9's dq, dk, dv
     within BWD_RTOL/BWD_ATOL of fused_ring_bwd_reference (by head chunks
-    of `head_chunk` heads).  Returns the largest errors (kernel 8's o or
-    0.0 without `fwd`, kernel 9's)."""
+    of `head_chunk` heads).  With `timing`: each kernel's ms a launch
+    (CUDA events), and one traced kernel-9 launch (bitwise the untraced
+    one) whose CTA records give the share of their span spent waiting on
+    dq fold counters and on the ring's counters.  Returns the largest
+    errors (kernel 8's o or 0.0 without `fwd`, kernel 9's) and the timing
+    dict (empty without `timing`)."""
     import torch
 
     from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd
@@ -2617,6 +2628,38 @@ def check_ring_kernels_at(device, what, w, n, n_kv, s, seed, fwd=True,
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again)), "repeat"
     del again
+    timed = {}
+    if timing:
+        q, k, v = args[:3]
+        if fwd:
+            timed["k8_ms"] = time_ms(
+                lambda: fused_ring.fused_ring_fwd(q, k, v, cfg, *ring),
+                iters=10, warmup=2)
+        timed["k9_ms"] = time_ms(
+            lambda: fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring),
+            iters=10, warmup=2)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        trace = torch.zeros((sms, len(fused_ring_bwd.TRACE_COLS)),
+                            dtype=torch.int64, device=device)
+        traced = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring,
+                                               trace=trace)
+        assert all(torch.equal(a, b) for a, b in zip(traced, got)), \
+            "traced kernel 9 differs"
+        del traced
+        recs = fused_ring_bwd.read_trace(trace)
+        span = [r["t1_ns"] - r["t0_ns"] for r in recs]
+        timed["k9_fold_wait_share"] = sum(
+            r["fold_wait_ns"] for r in recs) / sum(span)
+        timed["k9_phase_wait_share"] = sum(
+            r["phase_wait_ns"] for r in recs) / sum(span)
+        timed["k9_ctas"] = len(recs)
+        print(f"kernels 8 and 9 at {what}: kernel 8 "
+              f"{timed.get('k8_ms', float('nan')):.3f} ms, kernel 9 "
+              f"{timed['k9_ms']:.3f} ms a launch (mean of 10); a traced "
+              f"kernel-9 launch: {len(recs)} CTAs spend "
+              f"{timed['k9_fold_wait_share']:.4f} of their time waiting on "
+              f"dq fold counters and {timed['k9_phase_wait_share']:.4f} on "
+              f"the ring's counters", flush=True)
     t0 = time.perf_counter()
     want = fused_ring_bwd.fused_ring_bwd_reference(
         *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm,
@@ -2630,7 +2673,7 @@ def check_ring_kernels_at(device, what, w, n, n_kv, s, seed, fwd=True,
           f"{cfg.optimize_bwd_comm}, resident={_resident(w, 1, n_kv, s)}): "
           f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
           f"two launches equal; plain version {plain_ms:.0f} ms", flush=True)
-    return k8_err, max(errs)
+    return k8_err, max(errs), timed
 
 
 def ring_train_phase(device, single):
@@ -3416,6 +3459,17 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd
+
+    # kernels 8 and 9 per instance (cudaFuncGetAttributes)
+    ring_attrs = {"fused_ring_fwd": fused_ring.fwd_attrs(),
+                  "fused_ring_bwd": fused_ring_bwd.bwd_attrs()}
+    for name, rows in ring_attrs.items():
+        for a in rows:
+            print(f"{name} {a['instance']}: {a['regs']} registers, "
+                  f"{a['local_bytes']} local (spill) bytes a thread, "
+                  f"{a['smem']} B of shared memory, {a['ctas']} CTAs "
+                  f"resident", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3462,11 +3516,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused_err = check_fused_ring(device)
     ring_rec = ring_op_phase(device)
+    ring_rec["attrs"] = ring_attrs["fused_ring_fwd"]
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], fused_err)
     kernels.append(ring_rec)
     torch.cuda.empty_cache()
     fused_bwd_err = check_fused_ring_bwd(device)
     ring_bwd_rec = ring_bwd_op_phase(device)
+    ring_bwd_rec["attrs"] = ring_attrs["fused_ring_bwd"]
     ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"],
                                       fused_bwd_err)
     kernels.append(ring_bwd_rec)
@@ -3495,7 +3551,7 @@ def main() -> int:
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
     # kernel 9 at the handoff's op shape (kernel 8 was held there above)
-    _, k9_err = check_ring_kernels_at(
+    _, k9_err, _ = check_ring_kernels_at(
         device, "the handoff's op shape", HANDOFF_SP,
         SERVE_DIMS["n_heads"], SERVE_DIMS["n_kv_heads"],
         HANDOFF_PROMPT // HANDOFF_SP, seed=23, fwd=False,
@@ -3512,10 +3568,15 @@ def main() -> int:
     tr = train_phase(device)
     print_profile("train step", tr["prof"])
     # kernels 8 and 9 at the shape the ring train step gives them
-    k8_err, k9_err = check_ring_kernels_at(
+    k8_err, k9_err, step_shape = check_ring_kernels_at(
         device, "the ring train step's shape", RING_TRAIN_SP,
         TRAIN_DIMS["n_heads"], TRAIN_DIMS["n_kv_heads"],
-        TRAIN_SEQ // RING_TRAIN_SP, seed=29)
+        TRAIN_SEQ // RING_TRAIN_SP, seed=29, timing=True)
+    ring_rec["ring_step_ms"] = step_shape["k8_ms"]
+    ring_bwd_rec["ring_step_ms"] = step_shape["k9_ms"]
+    ring_bwd_rec["ring_step_trace"] = {
+        k: step_shape[k] for k in ("k9_fold_wait_share",
+                                   "k9_phase_wait_share", "k9_ctas")}
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
     ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"], k9_err)
     ring_tr = ring_train_phase(device, tr)
@@ -3533,7 +3594,9 @@ def main() -> int:
                 "flash_bwd_fused": tr["launches"]["fused"],
                 "flash_bwd_dq": tr["split_launches"]["dq"],
                 "flash_bwd_dkdv": tr["split_launches"]["dkdv"],
+                # the handoff's prefill and the ring train step's
                 "fused_ring_fwd": hand["launches_fused_ring"][
+                    "fused_ring_fwd"] + ring_tr["fused_ring"]["launches"][
                     "fused_ring_fwd"],
                 "fused_ring_bwd": ring_tr["fused_ring"]["launches"][
                     "fused_ring_bwd"],
@@ -3572,7 +3635,9 @@ def main() -> int:
     print(json.dumps({
         "kernels": [{k: r[k] for k in keys}
                     | {k: r[k] for k in ("library", "graph_ms",
-                                         "library_graph_ms") if k in r}
+                                         "library_graph_ms", "ring_step_ms",
+                                         "ring_step_trace", "attrs")
+                       if k in r}
                     for r in kernels],
         "card": card,
         "window_serve": {k: v for k, v in wserve.items()

@@ -844,6 +844,89 @@ def test_burst_attn_gradients_fused_match_scan(dev, layout):
               f"{float(c.abs().max()):.3e})")
 
 
+# Kernels 8 and 9 together (o and lse of kernel 8 feed kernel 9): a GQA
+# group of 4, ragged S_local (no multiple of the 64-row tiles), and W=8
+# with more items than CTAs a position (the counter deal and the scratch
+# hand-over between rounds), in bf16 (the tensor-core tiles) and fp32 (the
+# SIMT tiles); each launch twice more, bitwise equal.
+RING_PAIR_CASES = [
+    (4, "zigzag", True, 16, 4, 512, torch.bfloat16, {}),
+    (3, "zigzag", True, 8, 2, 200, torch.bfloat16, {}),
+    (3, "striped", True, 8, 2, 333, torch.float32, {}),
+    (8, "zigzag", True, 32, 8, 1024, torch.bfloat16, {}),
+    (8, "contig", True, 32, 8, 520, torch.bfloat16,
+     dict(optimize_bwd_comm=False)),
+    (4, "zigzag", True, 32, 8, 1024, torch.float32, {}),
+]
+
+
+@pytest.mark.parametrize("w,layout,causal,n,n_kv,s,dtype,knobs",
+                         RING_PAIR_CASES)
+def test_fused_ring_kernels_hold_their_plain_versions(dev, w, layout, causal,
+                                                      n, n_kv, s, dtype,
+                                                      knobs):
+    cfg, ring, args, prog, tables = _ring_bwd_case(
+        dev, w, layout, causal, n, n_kv, s, dtype, knobs, seed=11)
+    q, k, v, o, lse, _ = args
+    fprog, ftables, _ = fused_ring.ring_plan(cfg, *ring, s, "fwd")
+    ro, rlse = fused_ring.fused_ring_reference(q, k, v, fprog, ftables,
+                                               128 ** -0.5)
+    torch.testing.assert_close(o, ro, **TOL[dtype])
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    got = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+    want = fused_ring_bwd.fused_ring_bwd_reference(
+        *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm)
+    _close_to_max(got, want)
+    for _ in range(2):
+        again = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+        again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("n,n_kv,s", [(8, 2, 512), (32, 8, 1024)])
+def test_fused_ring_bwd_trace_records_every_cta(dev, n, n_kv, s):
+    """A traced launch (bf16) gives the untraced gradients bit for bit and
+    one record per CTA: its span holds its waits, and the position's CTAs
+    took every item of every round once."""
+    cfg, ring, args, _, _ = _ring_bwd_case(
+        dev, 4, "zigzag", True, n, n_kv, s, torch.bfloat16, {}, seed=12)
+    plain = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    trace = torch.zeros((sms, len(fused_ring_bwd.TRACE_COLS)),
+                        dtype=torch.int64, device=dev)
+    traced = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, trace=trace)
+    assert all(torch.equal(a, b) for a, b in zip(traced, plain))
+    recs = fused_ring_bwd.read_trace(trace)
+    per_pos = len(recs) // 4
+    assert len(recs) == 4 * per_pos and per_pos >= 1
+    items = n_kv * -(-s // 64)
+    for pos in range(4):
+        mine = [r for r in recs if r["position"] == pos]
+        assert len(mine) == per_pos
+        # 4 rounds, each dealing every item once (resident or not)
+        assert sum(r["items"] for r in mine) == 4 * items
+    for r in recs:
+        assert 0 <= r["fold_wait_ns"] + r["phase_wait_ns"] <= \
+            r["t1_ns"] - r["t0_ns"]
+
+
+def test_fused_ring_kernel_attributes(dev):
+    """cudaFuncGetAttributes of every instance of kernels 8 and 9: the
+    register counts fit the launch (255 at most a thread) and the bf16
+    tiles keep the shared-memory footprint the launch sizing assumes."""
+    fwd, bwd = fused_ring.fwd_attrs(), fused_ring_bwd.bwd_attrs()
+    assert [a["instance"] for a in fwd] == ["bf16", "bf16 scratch", "fp32",
+                                            "fp32 scratch"]
+    assert [a["instance"] for a in bwd] == ["bf16", "bf16 traced", "fp32"]
+    for a in fwd + bwd:
+        assert 0 < a["regs"] <= 255 and a["ctas"] >= 1, a
+        print(a)
+    assert fwd[0]["smem"] == 2 * 5 * 64 * 136
+    assert bwd[0]["smem"] == 2 * (6 * 64 * 136 + 2 * 64 * 72) + 16 * 2048 \
+        + 4 * 128
+
+
 def test_ring_train_step_on_the_card_matches_the_cpu(dev):
     """Two fp32 train steps on a ring of 4 positions (mesh {"sp": 4},
     zigzag, the fused ring: kernel 8 twice per layer with remat, kernel 9

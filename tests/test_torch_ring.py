@@ -168,20 +168,62 @@ def test_kernel_reads_the_table_columns_of_the_schedule():
     assert fused_ring.KERNEL_COLS == max(fused_ring.TAKE_NEED) + 1
 
 
-def _simulate_kernel(prog, tables, seed, ctas=2):
+def _simulate_kernel(prog, tables, seed, ctas=2, items=0, wait=True):
     """Run the fused kernel's protocol with `ctas` CTAs per position, each
     an independent stream of steps, in a random interleaving: the copy-in
     share; per round each send (wait the source's arrivals, wait the dst
     slot's grants, write this CTA's share, count it), the consume (wait
-    the arrivals, read every share), then the round's done count, whose
-    last CTA grants.  Fails on a deadlock, a consume that finds any share
-    of a wrong partition, or a share overwritten before every CTA of the
-    receiver read its version."""
+    the arrivals, read every share), the round's `items` q tiles, then the
+    round's done count, whose last CTA grants.  Items: with no more items
+    than CTAs (RESIDENT) CTA j folds item j every round; else each CTA
+    takes the round's items in increasing order from the position's
+    per-round counter, one take a step, and folds each as two steps (read
+    the state, then write it and count the item's version); a round r > 0
+    fold waits until the item's version reads r (`wait=False` drops that
+    wait: the mutated protocol).  Fails on a deadlock, a consume that finds
+    any share of a wrong partition, a share overwritten before every CTA
+    of the receiver read its version, a fold that reads an item's state
+    before its previous round's fold wrote it, or an item not folded
+    exactly once a round."""
     world, n_rounds = len(tables), prog.n_rounds
     ktab = [fused_ring.kernel_table(prog, t) for t in tables]
     shares = {}   # (pos, bank, slot) -> per share [partition, version]
     reads = {}    # (pos, bank, slot, version) -> consumes by the CTAs
     arrive, free, done = {}, {}, {}
+    resident = items <= ctas
+    taken, version, folded, reading = {}, {}, {}, {}
+
+    def deal(p, j, r):
+        """The CTA's items of round r: the steps that take and fold them."""
+        cell = {}
+        while True:
+            if resident:
+                it = j if not cell else items
+                cell["it"] = it
+            else:
+                yield None, lambda: cell.__setitem__("it", take(p, r))
+            it = cell["it"]
+            if it >= items:
+                return
+            gate = (None if resident or r == 0 or not wait else
+                    (lambda it=it: version.get((p, it), 0) >= r))
+            yield gate, lambda it=it: fold_read(p, r, it)
+            yield None, lambda it=it: fold_write(p, r, it)
+
+    def take(p, r):
+        it = taken.get((p, r), 0)
+        taken[(p, r)] = it + 1
+        return min(it, items)
+
+    def fold_read(p, r, it):
+        assert folded.get((p, it), 0) == r, \
+            "item state read before its previous round's fold wrote it"
+        reading[(p, it)] = r
+
+    def fold_write(p, r, it):
+        assert reading.pop((p, it)) == r
+        folded[(p, it)] = r + 1
+        version[(p, it)] = r + 1
 
     def steps(p, j):
         for cb, cs in prog.copy_in:
@@ -210,6 +252,8 @@ def _simulate_kernel(prog, tables, seed, ctas=2):
             yield (lambda cb=cb, cs=cs, need=need:
                    arrive.get((p, cb, cs), 0) >= need), \
                 (lambda cb=cb, cs=cs, want=want: consume(p, cb, cs, want))
+            if items:
+                yield from deal(p, j, r)
             yield None, lambda r=r, row=row: finish(p, r, row)
 
     def write(p, j, b, s, part):
@@ -248,6 +292,10 @@ def _simulate_kernel(prog, tables, seed, ctas=2):
         i = rng.choice(ready)
         pending[i][1]()
         pending[i] = next(gens[i], None)
+    if items:
+        assert folded == {(p, it): n_rounds for p in range(world)
+                          for it in range(items)}, "an item not folded " \
+            "exactly once a round"
 
 
 @pytest.mark.parametrize("topology,n_inter,n_intra", PROGRAMS)
@@ -262,6 +310,39 @@ def test_kernel_protocol_delivers_under_any_interleaving(topology, n_inter,
                   for p in range(n_inter * n_intra)]
         for seed in range(20):
             _simulate_kernel(prog, tables, seed)
+
+
+@pytest.mark.parametrize("topology,n_inter,n_intra", PROGRAMS)
+def test_kernel_counter_deal_folds_each_item_once_a_round(topology, n_inter,
+                                                          n_intra):
+    """Kernel 8's items through the protocol: RESIDENT (2 items, 3 CTAs) and
+    dealt from the per-(position, round) counter (7 items, 3 CTAs), in
+    random interleavings: every item folded once a round, never before its
+    previous round's fold wrote its state."""
+    cfg = burst.BurstConfig(causal=True, layout="zigzag")
+    prog = schedule.compile_fwd(topology, n_intra, n_inter, slots=2,
+                                slots1=2)
+    tables = [fused_ring.build_sched_table(cfg, prog, 8, 8, p)[0]
+              for p in range(n_inter * n_intra)]
+    for items in (2, 7):
+        for seed in range(6):
+            _simulate_kernel(prog, tables, seed, ctas=3, items=items)
+
+
+def test_counter_deal_simulation_catches_a_missing_version_wait():
+    """Without the wait on the item's version, a CTA that left round r can
+    take item x of round r + 1 while another CTA still folds x in round
+    r: some interleaving reads the state before it is written."""
+    cfg = burst.BurstConfig(causal=True, layout="zigzag")
+    prog = schedule.compile_fwd("uni", 4, slots=2)
+    tables = [fused_ring.build_sched_table(cfg, prog, 8, 8, p)[0]
+              for p in range(4)]
+    for seed in range(20):  # the protocol as built holds
+        _simulate_kernel(prog, tables, seed, ctas=3, items=7)
+    with pytest.raises(AssertionError, match="before its previous round"):
+        for seed in range(200):
+            _simulate_kernel(prog, tables, seed, ctas=3, items=7,
+                             wait=False)
 
 
 def test_plain_version_catches_a_faulty_program():

@@ -23,7 +23,7 @@ from jax.sharding import Mesh as JMesh
 
 import burst_attn_tpu as jbat
 from burst_attn_tpu_torch import burst_attn
-from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd
+from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd, masks, tile
 from burst_attn_tpu_torch.parallel import burst, mesh, ring, schedule
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -433,6 +433,60 @@ def test_bwd_protocol_simulation_catches_a_mutated_program():
         t[0, schedule.DQ_DST_SLOT] = 0
     with pytest.raises(AssertionError):
         _simulate_bwd_kernel(prog, wrong, 0)
+
+
+# -- the tensor-core tile's rounding ---------------------------------------
+
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-6  # chip_smoke.py's kernel-9 tolerance
+
+
+def _bf16_terms(x, terms):
+    """x as the tile feeds it to a bf16 product: one rounding, or two bf16
+    terms (the rounded value, then its rounded residual: split_bf16)."""
+    hi = x.bfloat16().float()
+    return [hi] if terms == 1 else [hi, (x - hi).bfloat16().float()]
+
+
+@pytest.mark.parametrize("terms", [2, 1])
+def test_two_bf16_terms_keep_the_fp32_tolerance(terms):
+    """Kernel 9's bf16 tile (csrc/mma_bwd_tile.cuh) computes P and dS in
+    fp32 and feeds them to the dV, dK and dQ products as bf16 terms with
+    fp32 accumulation; Q, K, V and dO are bf16 and exact.  Emulated in
+    plain torch on the CPU (N2 S256 D128, causal), two terms keep dq, dk,
+    dv within BWD_RTOL of their largest entry + BWD_ATOL of the fp32
+    backward from the same bf16 inputs (the tolerance that holds the
+    kernel to its plain version on the card); one rounding does not."""
+    rng = np.random.default_rng(8)
+    n, s, d = 2, 256, 128
+    q, k, v, do = (torch.from_numpy(
+        rng.standard_normal((1, n, s, d), np.float32)).bfloat16().float()
+        for _ in range(4))
+    scale = d ** -0.5
+    causal = torch.ones(s, s, dtype=torch.bool).tril()
+    sc = torch.einsum("bnid,bnjd->bnij", q, k) * scale
+    sc = sc.masked_fill(~causal, float("-inf"))
+    lse = torch.logsumexp(sc, -1)
+    o = torch.einsum("bnij,bnjd->bnid", torch.exp(sc - lse[..., None]), v)
+    delta = (o.bfloat16().float() * do).sum(-1)
+    spec = masks.round_spec(0, 0, s, s, True, "contig")
+    want = tile.tile_bwd(do, q, k, v, delta, lse, scale, spec)
+
+    p = torch.exp(sc - lse[..., None])  # 0 where masked
+    dp = torch.einsum("bnid,bnjd->bnij", do, v)
+    ds = p * (dp - delta[..., None])
+    dv = sum(torch.einsum("bnij,bnid->bnjd", t, do)
+             for t in _bf16_terms(p, terms))
+    dk = sum(torch.einsum("bnij,bnid->bnjd", t, q)
+             for t in _bf16_terms(ds, terms)) * scale
+    dq = sum(torch.einsum("bnij,bnjd->bnid", t, k)
+             for t in _bf16_terms(ds, terms)) * scale
+    errs = [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip((dq, dk, dv), want)]
+    held = all(float((a - b).abs().max()) <= BWD_RTOL * float(b.abs().max())
+               + BWD_ATOL for a, b in zip((dq, dk, dv), want))
+    print(f"{terms} bf16 term(s): dq, dk, dv off by {errs} of their "
+          f"largest entry")
+    assert held == (terms == 2), errs
 
 
 # -- the kernel reads the schedule's columns -------------------------------

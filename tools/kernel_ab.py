@@ -24,10 +24,22 @@ reports its grid: CTAs, those that ran each tile and those that exited
 at once, their %globaltimer spans (median, max) and SM cycles a chunk,
 the launch's span; beside it torch.profiler's device time of kernel 7
 and of SDPA on the gathered band (the smoke's windowed yardstick), per
-kernel.  `--parts` picks among fwd, bwd, decode, ragged, micro and
-grid.  Run it from a parent and a change in turns (parent, change,
-change, parent): times of two calls may come from two cards.  It uses
-only arguments that every port checkout since the sliding window takes, and builds only the kernel sources that the
+kernel.  `ring` times the fused ring kernels 8 and 9 (bf16, causal
+zigzag) at bench.py's headline (B1 N32 S65536 D128, sp=8) and at the
+ring train step's shape (train_smoke's model, B1 N16 S8192 over sp=4),
+one eager launch at a time, kernel 9 on kernel 8's o and lse.  `trace`
+(a checkout whose kernel 9 records its CTAs) times a traced kernel-9
+launch at both shapes and reports, over the CTAs, the share of their
+span spent waiting on dq fold counters and on the ring's counters, with
+each kernel's registers and spill bytes (cudaFuncGetAttributes).
+`--parts` picks among fwd, bwd, decode, ragged, micro, grid, ring and
+trace.  `--fwd-tile simt` builds kernel 8's bf16 instance on the SIMT
+tile (FUSED_FWD_TILE_SIMT=1, a checkout that has the switch).  Run it
+from a parent
+and a change in turns (parent, change, change, parent): times of two
+calls may come from two cards.  It uses only arguments that every port
+checkout since the sliding window takes, and builds only the kernel
+sources that the
 checkout's `_build.SIGNATURES` lists (paged decode has its own source in
 a checkout before it became the ragged kernel's QT=1 instance).
 """
@@ -43,6 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", required=True)
     ap.add_argument("--tag", required=True)
     ap.add_argument("--parts", default="fwd,bwd,decode,ragged")
+    ap.add_argument("--fwd-tile", choices=("default", "simt"),
+                    default="default")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     import numpy as np
@@ -56,11 +70,15 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     parts = set(args.parts.split(","))
+    if args.fwd_tile == "simt":
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DFUSED_FWD_TILE_SIMT=1",)
     _build.build_all(list(dict.fromkeys(name for part, name in (
         ("fwd", "flash_fwd"), ("bwd", "flash_fwd"), ("bwd", "flash_bwd"),
         ("decode", "paged_decode"), ("decode", "ragged_paged"),
         ("ragged", "ragged_paged"), ("micro", "ragged_paged"),
-        ("grid", "ragged_paged"))
+        ("grid", "ragged_paged"), ("ring", "fused_ring_fwd"),
+        ("ring", "fused_ring_bwd"), ("trace", "fused_ring_fwd"),
+        ("trace", "fused_ring_bwd"))
         if part in parts and name in _build.SIGNATURES)))
     # (each once: build_all starts one nvcc a name)
     dev = torch.device("cuda")
@@ -100,7 +118,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    out = {"tag": args.tag, "card": card}
+    out = {"tag": args.tag, "card": card, "fwd_tile": args.fwd_tile}
+    if parts & {"ring", "trace"}:
+        out.update(ring(torch, dev, t_ms, parts))
     if "fwd" in parts:
         g = torch.Generator(device=dev).manual_seed(0)
         q, k, v = r(1, 16, 2048, 128), r(1, 4, 2048, 128), r(1, 4, 2048, 128)
@@ -186,6 +206,65 @@ def main(argv=None) -> int:
         out.update(grid(torch, rp, g_ms, qr, kp, vp, table, ql, kl))
     print("AB " + json.dumps(out), flush=True)
     return 0
+
+
+# (tag, positions, heads, local S): bench.py's headline over sp=8, the ring
+# train step (train_smoke's 16 heads, S 8192) over sp=4
+RING_SHAPES = (("headline", 8, 32, 8192), ("ring_step", 4, 16, 2048))
+
+
+def ring(torch, dev, t_ms, parts):
+    """The `ring` and `trace` parts: kernels 8 and 9 at RING_SHAPES."""
+    from burst_attn_tpu_torch.ops import fused_ring
+    from burst_attn_tpu_torch.ops import fused_ring_bwd as frb
+    from burst_attn_tpu_torch.parallel import burst
+
+    cfg = burst.BurstConfig(backend="fused_ring", causal=True,
+                            layout="zigzag")
+    res = {}
+    for tag, w, n, s in RING_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(5)
+        q, k, v, do = (torch.randn(w, 1, n, s, 128, generator=g,
+                                   device=dev).bfloat16() for _ in range(4))
+        o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, 1, w)
+        heavy = tag == "headline"
+        if "ring" in parts:
+            res[f"k8_{tag}_ms"] = t_ms(
+                lambda: fused_ring.fused_ring_fwd(q, k, v, cfg, 1, w),
+                3 if heavy else 20, 1)
+            res[f"k9_{tag}_ms"] = t_ms(
+                lambda: frb.fused_ring_bwd(q, k, v, o, lse, do, cfg, 1, w),
+                2 if heavy else 10, 1)
+        if "trace" in parts:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            trace = torch.zeros((sms, len(frb.TRACE_COLS)),
+                                dtype=torch.int64, device=dev)
+            res[f"k9_{tag}_traced_ms"] = t_ms(
+                lambda: frb.fused_ring_bwd(q, k, v, o, lse, do, cfg, 1, w,
+                                           trace=trace), 1 if heavy else 5, 1)
+            recs = frb.read_trace(trace)  # the last launch's records
+            span = [r["t1_ns"] - r["t0_ns"] for r in recs]
+            fold = [r["fold_wait_ns"] / sp for r, sp in zip(recs, span)]
+            phase = [r["phase_wait_ns"] / sp for r, sp in zip(recs, span)]
+            res[f"k9_{tag}_trace"] = dict(
+                ctas=len(recs), span_ns_max=max(span),
+                span_ns_min=min(span),
+                fold_wait_share_mean=sum(fold) / len(fold),
+                fold_wait_share_max=max(fold),
+                phase_wait_share_mean=sum(phase) / len(phase),
+                phase_wait_share_max=max(phase),
+                steps=sum(r["steps"] for r in recs),
+                items=sum(r["items"] for r in recs),
+                # clock64 cycles a step by part, averaged over the steps
+                cycles_a_step={
+                    c[4:]: sum(r[c] for r in recs) / max(
+                        1, sum(r["steps"] for r in recs))
+                    for c in frb.TRACE_COLS if c.startswith("cyc_")})
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    if "trace" in parts:
+        res["attrs"] = fused_ring.fwd_attrs() + frb.bwd_attrs()
+    return res
 
 
 def grid(torch, rp, g_ms, q, kp, vp, table, ql, kl, window=1024):

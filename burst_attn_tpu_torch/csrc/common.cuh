@@ -108,4 +108,28 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
   return e;
 }
 
+// One kernel's registers a thread, local (spill) bytes a thread, dynamic
+// shared memory and resident CTAs on the card (nt threads a CTA, `smem`
+// bytes, the limit set by allow_smem first): out[0..3].
+template <typename K>
+cudaError_t kernel_attrs(K kernel, int nt, size_t smem, int* out) {
+  bool set = false;  // (a launch's own flag stays as it is)
+  cudaError_t e = allow_smem(kernel, smem, &set);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  if ((e = cudaFuncGetAttributes(&a, kernel)) != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = per_sm * sms;
+  return cudaSuccess;
+}
+
 }  // namespace bat

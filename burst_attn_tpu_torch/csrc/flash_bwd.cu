@@ -23,16 +23,28 @@
 //
 // What bounds it on an H100: tensor FLOPs.  The causal training shape
 // (S = 8192, 16 heads, D = 128) is ~0.69 TFLOP of five matmuls against
-// ~0.1 GB of traffic.  This first version does NOT reach that bound: it is
-// SIMT fp32 on the CUDA cores (no tensor cores, no TMA), exact to the plain
-// version's fp32 math up to summation order.  What the design does about
-// the bound: every operand tile is read from device memory once per step
-// into shared memory as fp32, each thread keeps a 4x4 block of S and dP
-// (or an 8x4 block of dK, dV, dQ) in registers, and causal loops start at
-// the diagonal so dead tiles cost nothing (the CUDA counterpart of the TPU
-// kernel's triangular grid).
+// ~0.1 GB of traffic.  Causal loops start at the diagonal so dead tiles
+// cost nothing (the CUDA counterpart of the TPU kernel's triangular grid).
+// Two tiles:
+//  * the fused kernel's bf16 instance (kernels 2-3 on the train step and
+//    every scan-ring round) runs on the tensor cores, on the tile of the
+//    fused ring backward's bf16 instance (mma_bwd_tile.cuh: eight warps on
+//    mma.sync m16n8k16, K and V of the CTA's kv tile in shared memory as
+//    bf16, dK and dV in accumulator fragments, Q and dO of the next q
+//    tile landing by cp.async.cg in a second stage while this step's
+//    products run, P and dS rebuilt in registers and fed to their
+//    products as two bf16 terms, so the gradients hold the fp32 plain
+//    version's tolerance; ~156 KB of shared memory, one CTA an SM).  It
+//    issues 16 * D flops an attended pair on mma.sync, below wgmma's
+//    rate; a TMA producer warp feeding wgmma is the next step.
+//  * the fp32 instances and the split pair (kernels 4-5) are still the
+//    first version: SIMT fp32 on the CUDA cores (no tensor cores, no
+//    TMA), exact to the plain version's fp32 math up to summation order.
+//    Every operand tile is read from device memory once per step into
+//    shared memory as fp32, and each thread keeps a 4x4 block of S and dP
+//    (or an 8x4 block of dK, dV, dQ) in registers.
 //
-// Kernels (256 threads; ~170 KB of dynamic shared memory, one CTA per SM):
+// Kernels (256 threads, one CTA per SM):
 //   flash_bwd_dq    one CTA per (b, q head, 64-row q tile); Q, dO resident;
 //                   loops over the kv tiles it can see; writes dq once.
 //   flash_bwd_dkdv  one CTA per (b, kv head, 64-row kv tile); K, V
@@ -40,7 +52,8 @@
 //                   tiles that can see tile j; the GQA sum happens in the
 //                   CTA (no atomics); writes dk, dv once.
 //   flash_bwd_fused the dkdv kernel that also folds dS K into an fp32 dq
-//                   buffer (zeroed by the caller).
+//                   buffer (zeroed by the caller): SIMT for fp32,
+//                   flash_bwd_fused_mma for bf16.
 //
 // Determinism of the fused kernel (the TPU kernels sum dq in grid order on
 // one core; two launches here are bitwise equal too): dq tile i receives
@@ -72,10 +85,14 @@
 // q tiles from the last down, so every kv tile reaches tile i at the same
 // position in its loop and waits only for the previous tile's add, not
 // for its whole sweep.
-// fold_dq (flash_bwd_tile.cuh) is the fused ring backward's fold too (its
-// fp32 instance; the bf16 one folds mma fragments, mma_bwd_tile.cuh).
+// The bf16 instance keeps the ticket, the walk and the fold order, and
+// folds its dq fragments with mma_bwd_tile.cuh's fold_add and fold_count
+// (reductions at L2 behind the same per-q-tile counters); fold_dq
+// (flash_bwd_tile.cuh) folds the fp32 instance's.  Both folds are the
+// fused ring backward's too.
 
 #include "flash_bwd_tile.cuh"
+#include "mma_bwd_tile.cuh"
 
 namespace {
 
@@ -216,7 +233,99 @@ flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
   store_block<D>(dv + bhk * Skv * D, j0, Skv, dva, 1.f);
 }
 
+// The fused kernel's bf16 instance on the tensor cores (mma_bwd_tile.cuh).
+// The ticket, the q-tile walk (the group's q heads in turn, each from its
+// last tile down) and the fold order are the SIMT kernel's; a step's Q and
+// dO land in stage (s + 1) % 2 while step s runs, their lse (base 2, +inf
+// for a row that sees nothing or lies past Sq: P = 0 with no test) and
+// delta in registers until the step's tiles have landed.
+__global__ void __launch_bounds__(mbwd::NT, 1)
+flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
+                           const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const float* __restrict__ delta,
+                           const float* __restrict__ lse,
+                           float* __restrict__ dq, float* __restrict__ dk,
+                           float* __restrict__ dv, int* __restrict__ counters,
+                           int N, int Nk, float scale, Mask mk) {
+  constexpr int D = kTileD, MQ = mbwd::BQ, MKV = mbwd::BKV;
+  extern __shared__ float4 smem4[];
+  const mbwd::Smem sm(reinterpret_cast<char*>(smem4));
+  const int Sq = mk.Sq, Skv = mk.Skv;
+  const int nqb = (Sq + MQ - 1) / MQ;
+  const unsigned nkt = gridDim.x;
+  const unsigned tk =
+      (unsigned)take_ticket(counters + (size_t)gridDim.z * N * nqb);
+  const int jt = (int)(tk % nkt);
+  const int hk = (int)((tk / nkt) % (unsigned)Nk);
+  const int b = (int)(tk / (nkt * (unsigned)Nk));
+  __builtin_assume(jt >= 0 && jt < (int)gridDim.x);
+  __builtin_assume(hk >= 0 && hk < Nk);
+  __builtin_assume(b >= 0 && b < (int)gridDim.z);
+  const int j0 = jt * MKV, G = N / Nk;
+  const size_t bhk = (size_t)b * Nk + hk;
+
+  // q rows that can see some column of this tile: [i_lo, i_hi)
+  int i_lo = max(mk.q_lo, 0), i_hi = min(mk.q_hi, Sq);
+  if (mk.causal) i_lo = max(i_lo, j0 - mk.offset);
+  if (j0 >= min(mk.kv_hi, Skv)) i_hi = i_lo;
+  const int t_lo = i_lo / MQ;
+  const int t_hi = (i_hi > i_lo) ? (i_hi + MQ - 1) / MQ : t_lo;
+  const int nt = t_hi - t_lo, n_st = G * nt;
+
+  float lse_next = neg_inf(), delta_next = 0.f;
+  auto issue = [&](int s, int st) {  // step s: q head s / nt, tile from top
+    const int i0 = (t_hi - 1 - s % nt) * MQ;
+    const size_t bh = (size_t)b * N + (size_t)hk * G + s / nt;
+    const int valid = min(MQ, Sq - i0);
+    cp_tile<MQ, mbwd::NT>(sm.q(st), q + (bh * Sq + i0) * D, valid);
+    cp_tile<MQ, mbwd::NT>(sm.dO(st), dO + (bh * Sq + i0) * D, valid);
+    const int rr = threadIdx.x % MQ;
+    if (threadIdx.x < MQ)
+      lse_next = rr < valid ? lse[bh * Sq + i0 + rr] : neg_inf();
+    else if (threadIdx.x < 2 * MQ)
+      delta_next = rr < valid ? delta[bh * Sq + i0 + rr] : 0.f;
+  };
+  mbwd::KvAcc acc;
+  acc.zero();
+  if (n_st > 0) {
+    const int valid = min(MKV, Skv - j0);
+    cp_tile<MKV, mbwd::NT>(sm.k, k + (bhk * Skv + j0) * D, valid);
+    cp_tile<MKV, mbwd::NT>(sm.v, v + (bhk * Skv + j0) * D, valid);
+    issue(0, 0);
+  }
+  cp_async_commit();
+  const float scale_log2 = scale * kLog2e;
+  for (int s = 0; s < n_st; ++s) {
+    const int st = s & 1, qt = t_hi - 1 - s % nt, i0 = qt * MQ;
+    const size_t bh = (size_t)b * N + (size_t)hk * G + s / nt;
+    cp_async_wait<0>();  // step s's tiles have landed
+    if (threadIdx.x < MQ)
+      sm.lse2[threadIdx.x] =
+          (lse_next == neg_inf()) ? CUDART_INF_F : lse_next * kLog2e;
+    else if (threadIdx.x < 2 * MQ)
+      sm.delta[threadIdx.x - MQ] = delta_next;
+    __syncthreads();
+    if (s + 1 < n_st) issue(s + 1, st ^ 1);
+    cp_async_commit();
+    float part[8][4];
+    mbwd::step(sm, st, acc, mk, i0, j0, scale_log2, part);
+    int* counter = counters + bh * nqb + qt;
+    mbwd::fold_add(dq + bh * Sq * D, counter, jt, i0, Sq, part, scale, false,
+                   nullptr);
+    mbwd::fold_count(counter);
+  }
+  cp_async_wait<0>();
+  mbwd::store_frag(dk + bhk * Skv * D, j0, Skv, acc.dk, scale);
+  mbwd::store_frag(dv + bhk * Skv * D, j0, Skv, acc.dv, 1.f);
+}
+
 enum Route { kFused = 0, kDq = 1, kDkdv = 2 };
+
+// bf16's fused route runs on the tensor cores; the rest on the SIMT tile
+template <typename T>
+constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
 template <typename T, int D>
 cudaError_t launch(int route, const void* dO, const void* q, const void* k,
@@ -244,12 +353,22 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
   const dim3 grid((Skv + BKV - 1) / BKV, Nk, B);
   if (route == kFused) {
     static bool set = false;
-    e = allow_smem(flash_bwd_kv_kernel<T, D, true>, smem, &set);
-    if (e != cudaSuccess) return e;
-    flash_bwd_kv_kernel<T, D, true><<<grid, NT, smem, stream>>>(
-        o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
-        static_cast<float*>(dk), static_cast<float*>(dv),
-        static_cast<int*>(counters), N, Nk, scale, mk);
+    if constexpr (kMma<T>) {
+      const size_t msmem = mbwd::Smem::bytes();
+      e = allow_smem(flash_bwd_fused_mma_kernel, msmem, &set);
+      if (e != cudaSuccess) return e;
+      flash_bwd_fused_mma_kernel<<<grid, mbwd::NT, msmem, stream>>>(
+          o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
+          static_cast<float*>(dk), static_cast<float*>(dv),
+          static_cast<int*>(counters), N, Nk, scale, mk);
+    } else {
+      e = allow_smem(flash_bwd_kv_kernel<T, D, true>, smem, &set);
+      if (e != cudaSuccess) return e;
+      flash_bwd_kv_kernel<T, D, true><<<grid, NT, smem, stream>>>(
+          o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
+          static_cast<float*>(dk), static_cast<float*>(dv),
+          static_cast<int*>(counters), N, Nk, scale, mk);
+    }
     return cudaGetLastError();
   }
   if (route == kDkdv) {
@@ -283,7 +402,32 @@ int dispatch(int route, const void* dO, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
+// The attributes (common.cuh kernel_attrs) of one route's kernel
+template <typename T>
+cudaError_t attrs_of(int route, int* out) {
+  const size_t smem = smem_bytes<128>();
+  if (route == kFused) {
+    if constexpr (kMma<T>)
+      return kernel_attrs(flash_bwd_fused_mma_kernel, mbwd::NT,
+                          mbwd::Smem::bytes(), out);
+    else
+      return kernel_attrs(flash_bwd_kv_kernel<T, 128, true>, NT, smem, out);
+  }
+  if (route == kDq)
+    return kernel_attrs(flash_bwd_dq_kernel<T, 128>, NT, smem, out);
+  if (route == kDkdv)
+    return kernel_attrs(flash_bwd_kv_kernel<T, 128, false>, NT, smem, out);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The attributes of `route`'s kernel (0 fused, 1 dq, 2 dk/dv) for `dtype`.
+extern "C" int flash_bwd_attrs(int dtype, int route, int* out) {
+  if (dtype == kBFloat16) return (int)attrs_of<__nv_bfloat16>(route, out);
+  if (dtype == kFloat32) return (int)attrs_of<float>(route, out);
+  return (int)cudaErrorInvalidValue;
+}
 
 // Three entry points with one argument list: the split pair reads only
 // the outputs it writes (dq; dk and dv); the fused kernel needs a zeroed

@@ -15,22 +15,35 @@
 //
 // What bounds it on an H100: tensor FLOPs — causal prefill at S=2048,
 // N=16, D=128 is ~17 GFLOP per call against ~8 MB of traffic, far above the
-// card's ~295 FLOP/byte ridge.  This first version does NOT reach that
-// bound: it computes in fp32 on the CUDA cores (no tensor cores, no TMA),
-// which keeps it simple and exact to the plain version's fp32 math.  What
-// the design does about the bound: one CTA per (b, h, 64-row q tile) keeps
+// card's ~295 FLOP/byte ridge.  One CTA per (b, h, 64-row q tile) keeps
 // Q resident in shared memory and streams 64-row K/V tiles, so device
 // memory is read ~once per q tile; the kv loop stops at the causal
 // diagonal (and at kv_hi), and with a window starts at the band's first
 // tile, so dead tiles cost nothing — the CUDA counterpart of the TPU
 // kernel's triangular and band grids: a windowed prefill costs
 // O(S * window), not O(S^2).  Ragged lengths are masked in-kernel (no
-// padding to a tile multiple).  wgmma/TMA come later.
+// padding to a tile multiple).  Two instances by q's dtype:
+//  * bf16 (the serving prefill, the train step, every scan-ring round):
+//    the tensor cores, as kernel 8's bf16 instance runs them —
+//    mma_tile.cuh's WarpTile, four warps x 16 q rows on mma.sync
+//    m16n8k16 (S = Q K^T, O += P V with P as two bf16 terms, fp32
+//    accumulators), the Q tile in shared memory as bf16, 64-token K/V
+//    chunks in two stages by cp.async.cg (mma_fold, shared with kernel 8;
+//    the window band is its WIN template flag), ~87 KB of shared memory,
+//    two CTAs an SM.  It issues 6 * D flops an attended pair (P V twice)
+//    on mma.sync, below wgmma's rate; a TMA producer warp feeding wgmma is
+//    the next step.
+//  * fp32: the first version's SIMT tile (flash_tile.cuh, fp32 on the
+//    CUDA cores, no tensor cores), exact to the plain version's fp32 math
+//    up to summation order; the fp32 parity checks rest on it.
 //
-// Softmax runs in base 2 (q pre-scaled by scale*log2e, exp2f), like the TPU
-// kernel; m and lse are converted back to natural log at the end.
+// Softmax runs in base 2 (scores times scale*log2e, exp2f), like the TPU
+// kernel; m and lse are converted back to natural log at the end.  The
+// carry-in arrives in natural log and converts on the way in: m -> m *
+// log2e, l = exp(lse - m) (0 where m = -inf).
 
 #include "flash_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -111,6 +124,108 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 instance on the tensor cores: warp w holds q rows q0 + 16 w ..
+// (lane (g, c) rows g and g + 8, O columns 8n + 2c, 2c + 1; WarpTile).
+constexpr size_t kMmaSmem = sizeof(__nv_bfloat16) * 5 * 64 * kTileLd;
+
+template <bool EMIT, bool WIN>
+__global__ void __launch_bounds__(NT)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const float* __restrict__ m_in,
+                     const float* __restrict__ lse_in,
+                     const float* __restrict__ acc_in,
+                     float* __restrict__ m_out, float* __restrict__ lse_out,
+                     void* __restrict__ out_raw, int N, int Nk, int Sq,
+                     int Skv, float scale_log2, int q_lo, int q_hi,
+                     int kv_hi, int causal, int offset, int window) {
+  constexpr int D = kTileD;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* sKV = sQ + BQ * kTileLd;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int g = lane / 4, c = lane % 4;
+  const int b = blockIdx.z, h = blockIdx.y;
+  // the longest q tiles first: a causal tile's chunks grow with its index,
+  // and the last CTAs to start were the longest ones (0.1916 -> 0.1671 ms
+  // at B1 N16/4 S2048, 2.068 -> 1.750 at B1 N16 S8192, causal;
+  // tools/kernel_ab.py, NVIDIA H100 80GB HBM3, 700.00 W)
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const size_t bh = (size_t)b * N + h;
+  const size_t bhk = (size_t)b * Nk + h / (N / Nk);
+
+  cp_tile<BQ, NT>(sQ, q + (bh * Sq + q0) * D, min(BQ, Sq - q0));
+  WarpTile wt;
+  wt.init();
+  if (acc_in != nullptr) {  // the carry, into the base-2 domain
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int qr = q0 + 16 * w + g + 8 * hf;
+      if (qr >= Sq) continue;
+      const size_t at = bh * Sq + qr;
+      const float mi = m_in[at];
+      wt.m[hf] = mi * kLog2e;
+      // the quad's sum is kept by lane c = 0 (finish() adds the quad)
+      wt.l[hf] = (c == 0 && mi != neg_inf()) ? expf(lse_in[at] - mi) : 0.f;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float2 a =
+            *reinterpret_cast<const float2*>(acc_in + at * D + 8 * n + 2 * c);
+        wt.o[n][2 * hf] = a.x;
+        wt.o[n][2 * hf + 1] = a.y;
+      }
+    }
+  }
+  mma_fold<WIN>(wt, sQ, sKV, k + bhk * Skv * D, v + bhk * Skv * D, Sq, Skv,
+                q0, scale_log2, q_lo, q_hi, kv_hi, causal, offset, window);
+  wt.finish();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qr = q0 + 16 * w + g + 8 * hf;
+    if (qr >= Sq) continue;
+    const size_t at = bh * Sq + qr;
+    const float l = wt.l[hf];
+    const float mn = wt.m[hf] * kLn2;  // back to the natural-log domain
+    if (c == 0) {
+      m_out[at] = mn;
+      lse_out[at] = (l > 0.f) ? mn + logf(l) : neg_inf();
+    }
+    if constexpr (EMIT) {  // o = acc / l (empty rows give 0, not NaN)
+      const float inv = (l > 0.f) ? 1.f / l : 0.f;
+      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out_raw) + at * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * c) =
+            pack_bf16(wt.o[n][2 * hf] * inv, wt.o[n][2 * hf + 1] * inv);
+    } else {
+      float* o = static_cast<float*>(out_raw) + at * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(o + 8 * n + 2 * c) =
+            make_float2(wt.o[n][2 * hf], wt.o[n][2 * hf + 1]);
+    }
+  }
+}
+
+// bf16 on the tensor cores, fp32 on the SIMT tile
+template <typename T>
+constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+
+template <typename T, bool EMIT, int D, bool WIN>
+auto kernel_of() {
+  if constexpr (kMma<T>)
+    return flash_fwd_mma_kernel<EMIT, WIN>;
+  else
+    return flash_fwd_kernel<T, EMIT, D, WIN>;
+}
+
+template <typename T, int D>
+constexpr size_t smem_of() {
+  return kMma<T> ? kMmaSmem : flash::smem_bytes<D>();
+}
+
 template <typename T, bool EMIT, int D, bool WIN>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* m_in, const void* lse_in, const void* acc_in,
@@ -119,18 +234,36 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int kv_hi, int causal, int offset, int window,
                    cudaStream_t stream) {
   static bool smem_set = false;
-  const size_t smem = flash::smem_bytes<D>();
-  cudaError_t e =
-      allow_smem(flash_fwd_kernel<T, EMIT, D, WIN>, smem, &smem_set);
+  const size_t smem = smem_of<T, D>();
+  const auto kernel = kernel_of<T, EMIT, D, WIN>();
+  cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, N, B);
-  flash_fwd_kernel<T, EMIT, D, WIN><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(m_in),
       static_cast<const float*>(lse_in), static_cast<const float*>(acc_in),
       static_cast<float*>(m_out), static_cast<float*>(lse_out), out, N, Nk,
       Sq, Skv, scale * kLog2e, q_lo, q_hi, kv_hi, causal, offset, window);
   return cudaGetLastError();
+}
+
+// The attributes (common.cuh kernel_attrs) of one instance
+template <typename T, bool EMIT, bool WIN>
+cudaError_t attrs(int* out) {
+  return kernel_attrs(kernel_of<T, EMIT, 128, WIN>(), NT, smem_of<T, 128>(),
+                      out);
+}
+
+template <typename T>
+cudaError_t attrs_of(int flag, int* out) {
+  switch (flag) {  // bit 0: emit_o, bit 1: a window
+    case 0: return attrs<T, false, false>(out);
+    case 1: return attrs<T, true, false>(out);
+    case 2: return attrs<T, false, true>(out);
+    case 3: return attrs<T, true, true>(out);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
@@ -172,6 +305,14 @@ cudaError_t dispatch_dtype(int dtype, int emit_o, const void* q,
 }
 
 }  // namespace
+
+// The attributes of the instance for `dtype` and `flag` (bit 0: emit_o,
+// bit 1: a window): registers, local bytes, shared memory, resident CTAs.
+extern "C" int flash_fwd_attrs(int dtype, int flag, int* out) {
+  if (dtype == kBFloat16) return (int)attrs_of<__nv_bfloat16>(flag, out);
+  if (dtype == kFloat32) return (int)attrs_of<float>(flag, out);
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* m_in, const void* lse_in,

@@ -3,8 +3,8 @@
 // fused_ring_fwd.cu (every round of a ring): one CTA of NT threads holds
 // BQ query rows' (m, l, acc) in registers and folds 64-row K/V tiles into
 // them under the five mask scalars, so an fp32 ring round of the fused
-// kernel does kernel 1's arithmetic on the same tile.  The fused kernel's
-// bf16 instance runs mma_tile.cuh's tensor-core WarpTile instead.
+// kernel does kernel 1's arithmetic on the same tile.  Both kernels' bf16
+// instances run mma_tile.cuh's tensor-core WarpTile (mma_fold) instead.
 //
 // Thread layout: 16 (tx, columns) x 8 (ty, rows); thread (tx, ty) owns
 // rows ty*RPT .. ty*RPT+RPT-1, score columns tx + 16c, and output columns

@@ -66,10 +66,11 @@
 //    mma.sync m16n8k16 (S = Q K^T, O += P V, P as two bf16 terms), the Q
 //    tile in shared memory as bf16, 64-token K/V chunks of the consume
 //    slot double-buffered by cp.async.cg (L2 only), a chunk's copy landing
-//    while the previous chunk's products run; (o fragments, m, l) stay in
-//    registers across the rounds when RESIDENT.  Dead chunks are skipped
-//    by the loop bounds of flash::fold, masked columns by the table's five
-//    scalars.  The fp32 instance runs kernel 1's SIMT tile (flash_tile.cuh:
+//    while the previous chunk's products run (mma_tile.cuh's mma_fold,
+//    the chunk loop kernel 1's bf16 instance runs too, here without the
+//    window band); (o fragments, m, l) stay in registers across the
+//    rounds when RESIDENT.  Dead chunks are skipped by the loop bounds of
+//    flash::fold, masked columns by the table's five scalars.  The fp32 instance runs kernel 1's SIMT tile (flash_tile.cuh:
 //    fp32 in shared memory), so a ring round of it does kernel 1's
 //    arithmetic.  FUSED_FWD_TILE_SIMT=1 at build time puts the bf16
 //    instance on that tile too (for an A/B of the tile alone; off by
@@ -210,66 +211,6 @@ __device__ __forceinline__ void mma_store(const WarpTile& wt, float* st_m,
   }
 }
 
-// Fold the K/V rows [0, S) of one (batch, kv head) of the consume slot
-// (kb, vb: row 0) into the warps' state of q rows q0 .. q0+63, whose bf16
-// values are in sQ, under the table's mask: 64-token chunks through two
-// stages (the chunk range is flash::fold's: none when no row is active,
-// causal rows stop at their diagonal).  The caller has committed a
-// cp.async group holding whatever the Q tile still needs; all threads
-// take part; on return nothing is in flight.
-__device__ __forceinline__ void mma_fold(WarpTile& wt, __nv_bfloat16* sQ,
-                                         __nv_bfloat16* sKV,
-                                         const __nv_bfloat16* kb,
-                                         const __nv_bfloat16* vb, int S,
-                                         int q0, float scale_log2, int q_lo,
-                                         int q_hi, int kv_hi, int causal,
-                                         int offset) {
-  constexpr int TILE = 64 * kTileLd;
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
-  const int r_lo = max(q0, q_lo), r_hi = min(min(q0 + BQ, q_hi), S);
-  int c_end = 0;
-  if (r_lo < r_hi) {
-    c_end = min(kv_hi, S);
-    if (causal) c_end = min(c_end, r_hi + offset);
-  }
-  const int n = c_end > 0 ? (c_end + 63) / 64 : 0;
-  // the last column each of the lane's rows sees (-1: none), and the
-  // warp's largest: a chunk past it leaves the warp's state as it is
-  int hi[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int qr = q0 + 16 * w + g + 8 * hf;
-    const bool ok = qr >= q_lo && qr < q_hi && qr < S;
-    int h_ = min(kv_hi, S) - 1;
-    if (causal) h_ = min(h_, qr + offset);
-    hi[hf] = ok ? h_ : -1;
-  }
-  const int w_hi = __reduce_max_sync(0xffffffffu, max(hi[0], hi[1]));
-  auto issue = [&](int i) {
-    __nv_bfloat16* st = sKV + (i & 1) * 2 * TILE;
-    const int valid = min(64, S - 64 * i);
-    cp_tile<64, NT>(st, kb + (size_t)64 * i * kTileD, valid);
-    cp_tile<64, NT>(st + TILE, vb + (size_t)64 * i * kTileD, valid);
-  };
-  if (n > 0) issue(0);
-  cp_async_commit();
-  wt.set_q(sQ + 16 * w * kTileLd);
-  for (int i = 0; i < n; ++i) {
-    cp_async_wait<0>();  // chunk i (and Q) has landed
-    __syncthreads();     // ... for every thread; chunk i - 1 is done with
-    if (i + 1 < n) issue(i + 1);
-    cp_async_commit();
-    const int j0 = 64 * i;
-    if (j0 > w_hi) continue;
-    const __nv_bfloat16* sK = sKV + (i & 1) * 2 * TILE;
-    wt.step<64>(
-        sK, sK + TILE, [&](int) { return scale_log2; },
-        [&](int hf, int col) { return j0 + col <= hi[hf]; },
-        [&](int) { return 1.f; });
-  }
-  cp_async_wait<0>();
-}
-
 template <typename T, int D, bool RESIDENT>
 __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   constexpr bool MMA = kMma<T>;
@@ -379,9 +320,9 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
         if (r == 0 || !RESIDENT) wt.init();
         if (r > 0 && !RESIDENT)
           mma_load(wt, p.st_m, p.st_l, p.st_acc, at0, q0, S);
-        mma_fold(wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S, q0,
-                 p.scale_log2, row[0], row[1],
-                 row[2], row[3], row[4]);
+        mma_fold<false>(wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S,
+                        S, q0, p.scale_log2, row[0], row[1], row[2], row[3],
+                        row[4], 0);
         if (!last && RESIDENT) continue;
         wt.finish();
         if (!last) {

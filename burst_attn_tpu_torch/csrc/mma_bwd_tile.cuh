@@ -3,8 +3,9 @@
 // m16n8k16 bf16 product, split_bf16): one CTA of eight warps holds a
 // 64-row K/V tile and its fp32 dK, dV, and takes 64-row Q/dO tiles past
 // it, one (q tile, kv tile) step at a time.  Included, not built alone;
-// the fused ring backward (fused_ring_bwd.cu) runs it for bf16, and
-// nothing in it depends on the ring, so the flash backward can.
+// nothing in it depends on the ring: the bf16 instances of the fused ring
+// backward (fused_ring_bwd.cu, kernel 9) and of the flash backward's fused
+// kernel (flash_bwd.cu, kernels 2-3) run it.
 //
 // A step, with P = exp2(S*scale*log2e - lse2) under the mask and
 // dS = P*(dP - delta) (the scale of dS is applied by the caller, once):

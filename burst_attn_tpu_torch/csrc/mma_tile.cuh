@@ -15,12 +15,15 @@
 // score's factor (scale * log2(e), times a per-token dequantization scale
 // for a 1-byte pool) and a visibility test, and the -inf guards keep a
 // fully masked row at m = -inf, l = 0, O = 0.  Nothing here depends on the
-// paged layout: the ragged kernel and the fused ring forward's bf16
-// instance use it, the flash kernels can.
+// paged layout: the ragged kernel (kernel 7, and kernel 6 as its QT=1
+// instance) steps WarpTile over its pages; the flash forward's and the
+// fused ring forward's bf16 instances (kernels 1 and 8) walk their K/V
+// rows through mma_fold below.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -253,5 +256,88 @@ struct WarpTile {
     }
   }
 };
+
+
+// Fold the K/V rows [0, Skv) of one (batch, kv head) (kb, vb: row 0, bf16
+// rows kTileD apart) into four warps' WarpTile state of q rows q0 ..
+// q0 + 63 (warp w: rows 16 w ..), whose bf16 values are in sQ (rows
+// kTileLd apart), under the five mask scalars (q_lo, q_hi, kv_hi, causal,
+// offset) and, with WIN, the sliding-window band: row r sees only columns
+// above r + offset - window.  64-token chunks go through two stages of
+// sKV (K then V a stage, 4 * 64 * kTileLd elements in all) by cp.async.cg,
+// a chunk's copy landing while the previous chunk's products run.  The
+// chunk range is flash::fold's (flash_tile.cuh): none when no row is
+// active, up to the last active row's causal diagonal and kv_hi, and with
+// WIN from the chunk that holds the first active row's lowest column, so
+// chunks below the band are never loaded (a windowed prefill costs
+// O(S * window)).  A warp skips a chunk wholly past its rows' last
+// visible column (and, WIN, wholly below their band).  WIN is a template
+// flag: a runtime test slowed paged decode 0.341 -> 0.488 ms, and the
+// instance without it is the code kernel 8 ran before the band existed.
+// Rows and columns past Sq, Skv are staged as zeros and masked.  The
+// caller has issued, and not committed, the Q tile's copies; all 128
+// threads take part; on return nothing is in flight.
+template <bool WIN>
+__device__ __forceinline__ void mma_fold(
+    WarpTile& wt, const __nv_bfloat16* sQ, __nv_bfloat16* sKV,
+    const __nv_bfloat16* kb, const __nv_bfloat16* vb, int Sq, int Skv,
+    int q0, float scale_log2, int q_lo, int q_hi, int kv_hi, int causal,
+    int offset, int window) {
+  constexpr int BQ = 64, NT = 128, TILE = 64 * kTileLd;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
+  const int r_lo = max(q0, q_lo), r_hi = min(min(q0 + BQ, q_hi), Sq);
+  int c_end = 0;
+  if (r_lo < r_hi) {
+    c_end = min(kv_hi, Skv);
+    if (causal) c_end = min(c_end, r_hi + offset);
+  }
+  // the band's lowest column over the tile's rows is the first row's
+  const int i_begin =
+      WIN ? max(0, r_lo + offset - window + 1) / kTileChunk : 0;
+  const int n = c_end > 0 ? (c_end + kTileChunk - 1) / kTileChunk : 0;
+  // the columns each of the lane's rows sees, [lo, hi] (hi = -1: none),
+  // and the warp's extremes: a chunk outside them leaves the warp's state
+  // as it is
+  int hi[2], lo[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qr = q0 + 16 * w + g + 8 * hf;
+    const bool ok = qr >= q_lo && qr < q_hi && qr < Sq;
+    int h_ = min(kv_hi, Skv) - 1;
+    if (causal) h_ = min(h_, qr + offset);
+    hi[hf] = ok ? h_ : -1;
+    lo[hf] = WIN ? (ok ? qr + offset - window + 1 : INT_MAX) : 0;
+  }
+  const int w_hi = __reduce_max_sync(0xffffffffu, max(hi[0], hi[1]));
+  const int w_lo =
+      WIN ? __reduce_min_sync(0xffffffffu, min(lo[0], lo[1])) : 0;
+  auto issue = [&](int i) {
+    __nv_bfloat16* st = sKV + (i & 1) * 2 * TILE;
+    const int valid = min(kTileChunk, Skv - kTileChunk * i);
+    cp_tile<kTileChunk, NT>(st, kb + (size_t)kTileChunk * i * kTileD, valid);
+    cp_tile<kTileChunk, NT>(st + TILE, vb + (size_t)kTileChunk * i * kTileD,
+                            valid);
+  };
+  if (i_begin < n) issue(i_begin);
+  cp_async_commit();
+  wt.set_q(sQ + 16 * w * kTileLd);
+  for (int i = i_begin; i < n; ++i) {
+    cp_async_wait<0>();  // chunk i (and Q) has landed
+    __syncthreads();     // ... for every thread; chunk i - 1 is done with
+    if (i + 1 < n) issue(i + 1);
+    cp_async_commit();
+    const int j0 = kTileChunk * i;
+    if (j0 > w_hi) continue;
+    if (WIN && j0 + kTileChunk - 1 < w_lo) continue;
+    const __nv_bfloat16* sK = sKV + (i & 1) * 2 * TILE;
+    wt.step<kTileChunk>(
+        sK, sK + TILE, [&](int) { return scale_log2; },
+        [&](int hf, int col) {
+          return j0 + col <= hi[hf] && (!WIN || j0 + col >= lo[hf]);
+        },
+        [&](int) { return 1.f; });
+  }
+  cp_async_wait<0>();
+}
 
 }  // namespace bat

@@ -41,13 +41,17 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # B N Nk Sq Skv D dtype, scale, q_lo q_hi kv_hi causal offset window
         # emit_o, stream
         "flash_fwd_launch": [P] * 9 + [I] * 7 + [F] + [I] * 7 + [P],
+        # dtype flag (bit 0 emit_o, bit 1 window), int out[4]
+        "flash_fwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "flash_bwd": {
         # dO q k v delta lse dq dk dv counters, B N Nk Sq Skv D dtype,
         # scale, q_lo q_hi kv_hi causal offset, stream (one list for all
         # three entry points)
-        f"flash_bwd_{route}_launch": [P] * 10 + [I] * 7 + [F] + [I] * 5 + [P]
-        for route in ("fused", "dq", "dkdv")
+        **{f"flash_bwd_{route}_launch": [P] * 10 + [I] * 7 + [F] + [I] * 5
+           + [P] for route in ("fused", "dq", "dkdv")},
+        # dtype route (0 fused, 1 dq, 2 dkdv), int out[4]
+        "flash_bwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "fused_ring_fwd": {
         # D dtype, &max_blocks
@@ -162,6 +166,25 @@ def load(name: str) -> ctypes.CDLL:
         f.restype = ctypes.c_int
     _LIBS[name] = lib
     return lib
+
+
+def kernel_attrs(lib_name: str, instances):
+    """Registers a thread, local (spill) bytes a thread, dynamic shared
+    memory and resident CTAs on the current card of each instance of a
+    kernel library's kernel, from cudaFuncGetAttributes through the
+    library's `<lib_name>_attrs(code, flag, int out[4])` entry point:
+    [{"instance": ..., "regs": ..., "local_bytes": ..., "smem": ...,
+    "ctas": ...}].  `instances` maps a label to the entry point's (dtype
+    code, flag) arguments."""
+    lib = load(lib_name)
+    fn = getattr(lib, f"{lib_name}_attrs")
+    out = []
+    for label, (code, flag) in instances.items():
+        vals = (ctypes.c_int * 4)()
+        check(fn(code, flag, vals), f"{lib_name} attrs {label}")
+        out.append(dict(instance=label, regs=vals[0], local_bytes=vals[1],
+                        smem=vals[2], ctas=vals[3]))
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -7,8 +7,10 @@ of ops/tile.py:tile_bwd; `flash_attention` is single-device attention as
 an autograd function (one `flash_fwd` forward, one `flash_bwd` backward),
 which the serving prefill and the training forward call.  For CUDA
 tensors the wrappers launch the hand-written kernels in csrc/flash_fwd.cu
-and csrc/flash_bwd.cu (or raise); for CPU tensors they run the plain
-versions, `tile_fwd`/`finalize` and `tile_bwd`.  The TPU kernels' grid
+and csrc/flash_bwd.cu (or raise): bf16 q runs the forward and the fused
+backward on the tensor cores, fp32 q and the split backward pair the
+SIMT fp32 tiles.  For CPU tensors they run the plain versions,
+`tile_fwd`/`finalize` and `tile_bwd`.  The TPU kernels' grid
 tricks (triangular and band grids, block tuning) have no counterpart: on
 Hopper each CTA loops over the tiles from the first its window band meets
 up to its causal diagonal.  The forward takes a sliding `window`; the
@@ -219,6 +221,25 @@ def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split):
             _build.check(err, f"flash_bwd {route}")
             flash_bwd.launches[route] += 1
     return dq, dk, dv
+
+
+def fwd_attrs():
+    """_build.kernel_attrs of kernel 1's instances: bf16 (tensor cores;
+    with the fused finalize, the raw accumulator, a window), fp32 (SIMT)."""
+    bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
+    return _build.kernel_attrs("flash_fwd", {  # flag: emit_o + 2 * window
+        "bf16": (bf16, 1), "bf16 acc": (bf16, 0), "bf16 window": (bf16, 3),
+        "fp32": (fp32, 1)})
+
+
+def bwd_attrs():
+    """_build.kernel_attrs of the backward's kernels: the fused kernel
+    (kernels 2-3; bf16 on the tensor cores, fp32 SIMT) and the split pair
+    (kernels 4-5, SIMT) in bf16."""
+    bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
+    return _build.kernel_attrs("flash_bwd", {  # flag: the route's index
+        "bf16 fused": (bf16, 0), "fp32 fused": (fp32, 0),
+        "bf16 dq": (bf16, 1), "bf16 dkdv": (bf16, 2)})
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -536,27 +536,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def kernel_attrs(lib_name: str, instances):
-    """Registers a thread, local (spill) bytes a thread, dynamic shared
-    memory and resident CTAs on the current card of each instance of a
-    fused ring kernel (`lib_name` "fused_ring_fwd" | "fused_ring_bwd"):
-    [{"instance": ..., "regs": ..., "local_bytes": ..., "smem": ...,
-    "ctas": ...}], from cudaFuncGetAttributes.  `instances` maps a label to
-    the C entry point's (dtype code, flag) arguments."""
-    lib = _build.load(lib_name)
-    fn = getattr(lib, f"{lib_name}_attrs")
-    out = []
-    for label, (code, flag) in instances.items():
-        vals = (ctypes.c_int * 4)()
-        _build.check(fn(code, flag, vals), f"{lib_name} attrs {label}")
-        out.append(dict(instance=label, regs=vals[0], local_bytes=vals[1],
-                        smem=vals[2], ctas=vals[3]))
-    return out
-
-
 def fwd_attrs():
-    """kernel_attrs of kernel 8's four instances (dtype x state mode)."""
-    return kernel_attrs("fused_ring_fwd", {
+    """_build.kernel_attrs of kernel 8's four instances (dtype x state
+    mode)."""
+    return _build.kernel_attrs("fused_ring_fwd", {
         f"{name}{'' if res else ' scratch'}": (code, int(res))
         for name, code in (("bf16", KERNEL_DTYPES[torch.bfloat16]),
                            ("fp32", KERNEL_DTYPES[torch.float32]))

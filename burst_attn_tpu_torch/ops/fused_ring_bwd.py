@@ -39,7 +39,7 @@ from . import _build
 from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
 from .fused_ring import (
     _DST_SLOT, _GRANT, _META_DST, _SEND, _SRC_SLOT, _TAKE,
-    BWD_KERNEL_COLS, dq_send_target, kernel_attrs, kernel_statics,
+    BWD_KERNEL_COLS, dq_send_target, kernel_statics,
     ring_plan, _sched_on,
 )
 from .masks import MaskSpec
@@ -335,8 +335,9 @@ def read_trace(trace):
 
 
 def bwd_attrs():
-    """kernel_attrs of kernel 9's instances: bf16 (and traced), fp32."""
-    return kernel_attrs("fused_ring_bwd", {
+    """_build.kernel_attrs of kernel 9's instances: bf16 (and traced),
+    fp32."""
+    return _build.kernel_attrs("fused_ring_bwd", {
         "bf16": (KERNEL_DTYPES[torch.bfloat16], 0),
         "bf16 traced": (KERNEL_DTYPES[torch.bfloat16], 1),
         "fp32": (KERNEL_DTYPES[torch.float32], 0)})

@@ -6,8 +6,10 @@ GPU: the quickest proof that the port still builds and serves on the card.
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
-     and print each instance of kernels 8 and 9 with its registers, local
-     (spill) bytes, shared memory and resident CTAs;
+     and print each instance of kernels 1-5, 8 and 9 with its registers,
+     local (spill) bytes, shared memory and resident CTAs (the bf16
+     instances of kernels 1-3, 8 and 9 run on mma.sync tensor-core tiles,
+     the fp32 ones and the split pair, kernels 4-5, on the SIMT tiles);
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes, with its time, the plain version's time, one
      PyTorch library call's time (a yardstick only, never used by the
@@ -25,9 +27,10 @@ Phases (any failure exits non-zero; nothing is caught):
      ragged S; the fused kernel 20 launches bitwise equal), autograd through
      flash_attention against autograd through the plain tile; at the
      train step's shape (B1 N16/16 S8192 D128 bf16 causal) the forward
-     against tile_fwd/finalize, the three backward kernels against
-     tile_bwd (the fused one bitwise repeatable), and their times beside
-     tile_bwd's and SDPA's backward;
+     against tile_fwd/finalize, with its time, bound and SDPA's time
+     there, the three backward kernels against tile_bwd (the fused one
+     bitwise repeatable), and their times beside tile_bwd's and SDPA's
+     backward;
   4. the ServeEngine at the serving benchmark's width (vocab 32768,
      d_model 2048, 8 layers, 16/4 heads, d_ff 8192, random weights from a
      seed): 12 requests over 8 slots in bf16 and fp32, plus a bf16 run
@@ -401,6 +404,34 @@ def check_flash(device, b=1, n=16, n_kv=4, s=2048, d=128, dtype=None,
                 replaces="burst_attn_tpu/ops/pallas_flash.py:419",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
+
+
+def time_flash_train(device):
+    """Kernel 1 at the train step's shape (B1 N16/16 S8192 D128 bf16
+    causal), where a step launches it 32 times (forward and remat): its
+    time through flash_attention, its bound and SDPA's time, as a dict
+    for kernel 1's record."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash
+
+    n, s, d = TRAIN_DIMS["n_heads"], TRAIN_SEQ, TRAIN_DIMS["d_head"]
+    g = torch.Generator(device=device).manual_seed(12)
+    q, k, v = (torch.randn(1, n, s, d, generator=g, device=device).to(
+        torch.bfloat16) for _ in range(3))
+    ms = time_ms(lambda: flash.flash_attention(q, k, v, None, True),
+                 iters=10, warmup=2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=10, warmup=2)
+    pairs = s * (s + 1) // 2
+    n_bytes = q.element_size() * 4 * q.numel() + 4 * 2 * n * s
+    bms, by = bound_ms(n_bytes, 4 * pairs * n * d)
+    print(f"flash_fwd at the train shape B1 N{n}/{n} S={s} D{d} bf16 "
+          f"causal: {ms:.4f} ms (SDPA {lib_ms:.4f}, bound {bms:.4f} by "
+          f"{by})", flush=True)
+    return dict(shape=f"B1 N{n}/{n} S{s} D{d} bf16 causal", ms=ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
 def _pool(g, device, dtype, quant, n_pages, n_kv, page, d):
@@ -3459,12 +3490,14 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd
+    from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
 
-    # kernels 8 and 9 per instance (cudaFuncGetAttributes)
-    ring_attrs = {"fused_ring_fwd": fused_ring.fwd_attrs(),
+    # kernels 1-5, 8 and 9 per instance (cudaFuncGetAttributes)
+    attrs_by_lib = {"flash_fwd": flash.fwd_attrs(),
+                  "flash_bwd": flash.bwd_attrs(),
+                  "fused_ring_fwd": fused_ring.fwd_attrs(),
                   "fused_ring_bwd": fused_ring_bwd.bwd_attrs()}
-    for name, rows in ring_attrs.items():
+    for name, rows in attrs_by_lib.items():
         for a in rows:
             print(f"{name} {a['instance']}: {a['regs']} registers, "
                   f"{a['local_bytes']} local (spill) bytes a thread, "
@@ -3511,18 +3544,28 @@ def main() -> int:
                           timing=False)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], fwd_err)
     torch.cuda.empty_cache()  # the plain tile's transient
+    kernels[0]["train_shape"] = time_flash_train(device)
     bwd_recs, split_ms = time_flash_bwd(device, bwd_worst)
     kernels += bwd_recs
+    # each record's instances (kernel 1's serving and train rows share them)
+    by_label = {a["instance"]: a for rows in (attrs_by_lib["flash_fwd"],
+                                              attrs_by_lib["flash_bwd"])
+                for a in rows}
+    for rec, labels in zip([kernels[0], window_recs[0], *bwd_recs],
+                           (("bf16", "bf16 acc", "fp32"), ("bf16 window",),
+                            ("bf16 fused", "fp32 fused"), ("bf16 dq",),
+                            ("bf16 dkdv",))):
+        rec["attrs"] = [by_label[x] for x in labels]
     torch.cuda.empty_cache()
     fused_err = check_fused_ring(device)
     ring_rec = ring_op_phase(device)
-    ring_rec["attrs"] = ring_attrs["fused_ring_fwd"]
+    ring_rec["attrs"] = attrs_by_lib["fused_ring_fwd"]
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], fused_err)
     kernels.append(ring_rec)
     torch.cuda.empty_cache()
     fused_bwd_err = check_fused_ring_bwd(device)
     ring_bwd_rec = ring_bwd_op_phase(device)
-    ring_bwd_rec["attrs"] = ring_attrs["fused_ring_bwd"]
+    ring_bwd_rec["attrs"] = attrs_by_lib["fused_ring_bwd"]
     ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"],
                                       fused_bwd_err)
     kernels.append(ring_bwd_rec)
@@ -3636,7 +3679,8 @@ def main() -> int:
         "kernels": [{k: r[k] for k in keys}
                     | {k: r[k] for k in ("library", "graph_ms",
                                          "library_graph_ms", "ring_step_ms",
-                                         "ring_step_trace", "attrs")
+                                         "ring_step_trace", "train_shape",
+                                         "attrs")
                        if k in r}
                     for r in kernels],
         "card": card,

@@ -6,6 +6,8 @@ which that machine need not have):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -527,6 +529,174 @@ def test_flash_attention_autograd_matches_plain(dev, causal):
     o = tile.single_device_attention(q, k, v, causal=causal)
     want = torch.autograd.grad((o * w).sum(), (q, k, v))
     _bwd_close(got, want, f"autograd causal={causal}")
+
+
+# ---------------------------------------------------------------------------
+# kernels 1-3's bf16 instances on the tensor cores (csrc/flash_fwd.cu's and
+# csrc/flash_bwd.cu's fused kernel's mma.sync tiles)
+
+# chip_smoke.py's kernel-1 tolerances: m, lse (fp32 from bf16 inputs) and
+# the raw fp32 accumulator relative to its largest entry
+STATS_ATOL_BF16, ACC_RTOL = 1e-3, 1e-4
+S_RING = 512  # a scan-ring round's local length
+
+
+def _fwd_pair(dev, n, n_kv, s_q, s_kv, spec, carry, window=None,
+              emit_o=True, seed=20):
+    """(kernel, plain) (m, lse, acc-or-o) of one bf16 round, the carry (a
+    first round's state over other keys) from the plain tile."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    q = _rand(g, dev, bf16, 1, n, s_q, 128)
+    k, v, k0, v0 = (_rand(g, dev, bf16, 1, n_kv, s_kv, 128)
+                    for _ in range(4))
+    st = tile.init_state(1, n, s_q, 128, device=dev)
+    if carry:
+        st = tile.tile_fwd(q, k0, v0, *st, 128**-0.5,
+                           masks.full_spec(s_q, s_kv))
+    before = flash.flash_fwd.launches
+    got = flash.flash_fwd(q, k, v, *(st if carry else (None,) * 3),
+                          128**-0.5, spec, window=window, emit_o=emit_o)
+    torch.cuda.synchronize()
+    assert flash.flash_fwd.launches == before + 1
+    want = tile.tile_fwd(q, k, v, *st, 128**-0.5, spec, window=window)
+    if emit_o:
+        want = (*want[:2], tile.finalize(*want, bf16))
+    return got, want
+
+
+def _fwd_close(got, want, emit_o, what):
+    (m, lse, x), (wm, wlse, wx) = got, want
+    assert torch.equal(torch.isinf(lse), torch.isinf(wlse)), what
+    fin = torch.isfinite(wlse)
+    if fin.any():
+        assert float((lse - wlse)[fin].abs().max()) <= STATS_ATOL_BF16, what
+        assert float((m - wm)[fin].abs().max()) <= STATS_ATOL_BF16, what
+    if emit_o:
+        assert x.dtype == torch.bfloat16
+        torch.testing.assert_close(x, wx, **TOL[torch.bfloat16], msg=what)
+        assert (x[~fin] == 0).all(), what  # empty rows: 0, not NaN
+    else:
+        err = float((x - wx).abs().max())
+        assert err <= ACC_RTOL * float(wx.abs().max()), (what, err)
+
+
+# (name, heads, kv heads, s_q, s_kv, spec, carry): causal, ragged S,
+# non-causal with a carry, G = 1, 4 and 16, cross lengths, and the scan
+# ring's masked rounds at its local length with a carry (zigzag: the
+# diagonal, kv < q (the first kv half), kv > q (the second q half);
+# striped kv > q: offset -1; contig's future round: every row empty)
+def _ring_spec(q_part, kv_part, layout):
+    return masks.round_spec(q_part, kv_part, S_RING, S_RING, True, layout)
+
+
+FWD_BF16_CASES = [
+    ("causal", 16, 4, 2048, 2048, masks.MaskSpec(0, 2048, 2048, 1, 0),
+     False),
+    ("ragged", 16, 4, 1000, 1000, masks.MaskSpec(0, 1000, 1000, 1, 0),
+     False),
+    ("carry non-causal", 16, 4, 1024, 1024, masks.full_spec(1024, 1024),
+     True),
+    ("G1", 4, 4, 333, 333, masks.MaskSpec(0, 333, 333, 1, 0), False),
+    ("G4", 8, 2, 333, 333, masks.MaskSpec(0, 333, 333, 1, 0), False),
+    ("G16", 16, 1, 333, 333, masks.MaskSpec(0, 333, 333, 1, 0), False),
+    ("cross", 4, 1, 96, 333, masks.full_spec(96, 333), True),
+    ("zigzag diagonal", 16, 4, S_RING, S_RING, _ring_spec(1, 1, "zigzag"),
+     True),
+    ("zigzag kv < q", 16, 4, S_RING, S_RING, _ring_spec(3, 1, "zigzag"),
+     True),
+    ("zigzag kv > q", 16, 4, S_RING, S_RING, _ring_spec(1, 3, "zigzag"),
+     True),
+    ("striped kv > q", 16, 4, S_RING, S_RING, _ring_spec(0, 1, "striped"),
+     True),
+    ("q_lo q_hi kv_hi offset", 8, 2, 300, 300,
+     masks.MaskSpec(37, 250, 290, 1, 5), True),
+    ("contig future", 8, 2, 256, 256, masks.MaskSpec(0, 0, 256, 1, 0),
+     False),
+]
+
+
+@pytest.mark.parametrize("emit_o", [True, False])
+@pytest.mark.parametrize("name,n,n_kv,s_q,s_kv,spec,carry", FWD_BF16_CASES)
+def test_flash_kernel_bf16_matches_plain(dev, name, n, n_kv, s_q, s_kv, spec,
+                                         carry, emit_o):
+    got, want = _fwd_pair(dev, n, n_kv, s_q, s_kv, spec, carry,
+                          emit_o=emit_o)
+    _fwd_close(got, want, emit_o, name)
+
+
+@pytest.mark.parametrize("offset,kv_hi,carry", [(0, 2048, False),
+                                                (-1, 2011, True)])
+def test_flash_kernel_bf16_window_1024(dev, offset, kv_hi, carry):
+    """Window 1024 at the serving prefill's length; window >= S is bitwise
+    the unwindowed kernel."""
+    spec = masks.MaskSpec(0, 2048, kv_hi, 1, offset)
+    got, want = _fwd_pair(dev, 16, 4, 2048, 2048, spec, carry, window=1024)
+    _fwd_close(got, want, True, f"window 1024 offset {offset}")
+    wide, _ = _fwd_pair(dev, 16, 4, 2048, 2048, spec, carry, window=2048)
+    full, _ = _fwd_pair(dev, 16, 4, 2048, 2048, spec, carry)
+    assert all(torch.equal(a, b) for a, b in zip(wide, full))
+
+
+@pytest.mark.parametrize("b,n,n_kv,s_q,s_kv,causal", BWD_CASES)
+def test_flash_bwd_fused_bf16_is_bitwise_repeatable(dev, b, n, n_kv, s_q,
+                                                    s_kv, causal):
+    """The bf16 fused kernel (tensor cores) against tile_bwd on every
+    BWD_CASES shape, and 20 launches bitwise equal."""
+    args = _bwd_case(dev, torch.bfloat16, b, n, n_kv, s_q, s_kv, causal,
+                     seed=13)
+    first = flash.flash_bwd(*args)
+    _bwd_close(first, tile.tile_bwd(*args), "bf16 fused")
+    for _ in range(19):
+        again = flash.flash_bwd(*args)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+@pytest.mark.parametrize("spec", [
+    masks.MaskSpec(0, 0, 256, 1, 0),          # contig future round
+    masks.MaskSpec(128, 256, 256, 0, 0),      # zigzag kv > q
+    masks.MaskSpec(0, 256, 128, 0, 0),        # zigzag kv < q
+    masks.MaskSpec(0, 256, 256, 1, -1),       # striped kv > q
+    masks.MaskSpec(37, 250, 200, 1, 5),
+])
+def test_flash_bwd_fused_bf16_masked_rounds(dev, spec):
+    """The bf16 fused kernel under the scan ring's masks (and a mask with
+    every scalar set) against tile_bwd; rows with lse = -inf give exact
+    zeros."""
+    do, q, k, v, _, _, scale, _ = _bwd_case(dev, torch.bfloat16, 1, 8, 2,
+                                            256, 256, True, seed=14)
+    _, lse, o = flash.flash_fwd(q, k, v, None, None, None, scale, spec,
+                                emit_o=True)
+    delta = (o.float() * do.float()).sum(-1)
+    args = (do, q, k, v, delta, lse, scale, spec)
+    got = flash.flash_bwd(*args)
+    _bwd_close(got, tile.tile_bwd(*args), f"bf16 fused {spec}")
+    dead = torch.isneginf(lse)
+    assert (got[0][dead] == 0).all()
+    if not (~dead).any():
+        assert all((a == 0).all() for a in got)
+    zero = flash.flash_bwd(do, q, k, v, delta, torch.full_like(lse, -math.inf),
+                           scale, masks.full_spec(256, 256))
+    assert all((a == 0).all() for a in zero)
+
+
+def test_flash_kernel_attributes(dev):
+    """cudaFuncGetAttributes of kernels 1-5's instances: registers fit the
+    launch, the bf16 tiles keep the shared memory their launches size,
+    kernel 1's bf16 instances keep two CTAs an SM."""
+    fwd, bwd = flash.fwd_attrs(), flash.bwd_attrs()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert [a["instance"] for a in fwd] == ["bf16", "bf16 acc",
+                                            "bf16 window", "fp32"]
+    assert [a["instance"] for a in bwd] == ["bf16 fused", "fp32 fused",
+                                            "bf16 dq", "bf16 dkdv"]
+    for a in fwd + bwd:
+        assert 0 < a["regs"] <= 255 and a["ctas"] >= sms, a
+        print(a)
+    for a in fwd[:3]:
+        assert a["smem"] == 2 * 5 * 64 * 136 and a["ctas"] == 2 * sms, a
+    assert bwd[0]["smem"] == 2 * (6 * 64 * 136 + 2 * 64 * 72) + 16 * 2048 \
+        + 4 * 128
 
 
 @pytest.mark.parametrize("kw", [{}, {"prefix_cache": True},

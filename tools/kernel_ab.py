@@ -4,9 +4,10 @@ A/B of two commits in one call.
     python tools/kernel_ab.py --root PATH --tag NAME [--parts fwd,bwd,...]
 
 imports `burst_attn_tpu_torch` from the checkout at PATH (its kernels
-build into PATH/build/kernels), times kernel 1 (causal, B1 N16/4 S2048
-and B1 N16 S8192, bf16), the fused backward (kernels 2-3, B1 N16 S8192
-bf16 causal), kernel 6 (8 slots, lengths 0-2112, bf16 and int8 pools,
+build into PATH/build/kernels), times kernel 1 (causal, B1 N16/4 S2048,
+plain and with window 1024, and B1 N16 S8192, bf16), the fused backward
+(kernels 2-3) and the split pair (kernels 4-5, each kernel's device time
+from the profiler) at B1 N16 S8192 bf16 causal, kernel 6 (8 slots, lengths 0-2112, bf16 and int8 pools,
 and bf16 with window 1024) and kernel 7 (the mixed q_lens 0/1/37/128
 batch, bf16, plain and with window 1024) with CUDA events on seeded
 inputs, and prints one line `AB {json}` with the card.  Kernels 6 and 7
@@ -32,8 +33,9 @@ one eager launch at a time, kernel 9 on kernel 8's o and lse.  `trace`
 launch at both shapes and reports, over the CTAs, the share of their
 span spent waiting on dq fold counters and on the ring's counters, with
 each kernel's registers and spill bytes (cudaFuncGetAttributes).
-`--parts` picks among fwd, bwd, decode, ragged, micro, grid, ring and
-trace.  `--fwd-tile simt` builds kernel 8's bf16 instance on the SIMT
+`fwd` and `bwd` also report kernels 1-5's registers and spill bytes
+where the checkout has `flash.fwd_attrs`.  `--parts` picks among fwd,
+bwd, decode, ragged, micro, grid, ring and trace.  `--fwd-tile simt` builds kernel 8's bf16 instance on the SIMT
 tile (FUSED_FWD_TILE_SIMT=1, a checkout that has the switch).  Run it
 from a parent
 and a change in turns (parent, change, change, parent): times of two
@@ -126,6 +128,8 @@ def main(argv=None) -> int:
         q, k, v = r(1, 16, 2048, 128), r(1, 4, 2048, 128), r(1, 4, 2048, 128)
         out["fwd_s2048_ms"] = t_ms(lambda: flash.flash_attention(
             q, k, v, None, True), 40)
+        out["fwd_s2048_w1024_ms"] = t_ms(lambda: flash.flash_attention(
+            q, k, v, None, True, window=1024), 40)
         q, k, v = (r(1, 16, 8192, 128) for _ in range(3))
         out["fwd_s8192_ms"] = t_ms(lambda: flash.flash_attention(
             q, k, v, None, True), 10)
@@ -139,7 +143,12 @@ def main(argv=None) -> int:
         delta = (o.float() * do.float()).sum(-1)
         out["bwd_fused_s8192_ms"] = t_ms(lambda: flash.flash_bwd(
             do, q, k, v, delta, lse, 128**-0.5, spec), 6, 1)
+        out["bwd_split_s8192_ms"] = split_ms(
+            torch, lambda: flash.flash_bwd(do, q, k, v, delta, lse,
+                                           128**-0.5, spec, fused=False))
         del q, k, v, o, do, delta, lse
+    if parts & {"fwd", "bwd"} and hasattr(flash, "fwd_attrs"):
+        out["flash_attrs"] = flash.fwd_attrs() + flash.bwd_attrs()
 
     g = torch.Generator(device=dev).manual_seed(2)
     lengths = (0, 1, 128, 2112, 2048, 1000, 129, 1536)
@@ -206,6 +215,26 @@ def main(argv=None) -> int:
         out.update(grid(torch, rp, g_ms, qr, kp, vp, table, ql, kl))
     print("AB " + json.dumps(out), flush=True)
     return 0
+
+
+def split_ms(torch, fn, calls=3):
+    """Device ms a call of the split pair's dq and dk/dv kernels, from the
+    profiler (as chip_smoke.py's time_flash_bwd reads them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    res = {"dq": 0.0, "dkdv": 0.0}
+    for e in prof.key_averages():
+        for part, name in (("dq", "flash_bwd_dq_kernel"),
+                           ("dkdv", "flash_bwd_kv_kernel")):
+            if name in e.key:
+                res[part] += e.self_device_time_total / 1e3 / calls
+    return res
 
 
 # (tag, positions, heads, local S): bench.py's headline over sp=8, the ring

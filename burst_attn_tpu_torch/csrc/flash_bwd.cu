@@ -25,9 +25,9 @@
 // (S = 8192, 16 heads, D = 128) is ~0.69 TFLOP of five matmuls against
 // ~0.1 GB of traffic.  Causal loops start at the diagonal so dead tiles
 // cost nothing (the CUDA counterpart of the TPU kernel's triangular grid).
-// Two tiles:
+// The bf16 instances run on the tensor cores, the fp32 ones on SIMT:
 //  * the fused kernel's bf16 instance (kernels 2-3 on the train step and
-//    every scan-ring round) runs on the tensor cores, on the tile of the
+//    every scan-ring round) runs on the tile of the
 //    fused ring backward's bf16 instance (mma_bwd_tile.cuh: eight warps on
 //    mma.sync m16n8k16, K and V of the CTA's kv tile in shared memory as
 //    bf16, dK and dV in accumulator fragments, Q and dO of the next q
@@ -37,20 +37,26 @@
 //    version's tolerance; ~156 KB of shared memory, one CTA an SM).  It
 //    issues 16 * D flops an attended pair on mma.sync, below wgmma's
 //    rate; a TMA producer warp feeding wgmma is the next step.
-//  * the fp32 instances and the split pair (kernels 4-5) are still the
-//    first version: SIMT fp32 on the CUDA cores (no tensor cores, no
-//    TMA), exact to the plain version's fp32 math up to summation order.
+//  * the split pair's bf16 instances (kernels 4-5): dq on the forward's
+//    tile (mma_tile.cuh, four warps of 16 q rows, K and V streamed in two
+//    cp.async stages, 4 products a pair-tile, ~104 KB, two CTAs an SM:
+//    flash_bwd_dq_mma), dk/dv on the fused kernel's tile without parts
+//    3-4 and the fold (6 products a step: flash_bwd_dkdv_mma); both feed
+//    P and dS as two bf16 terms, so they hold the same tolerance.
+//  * the fp32 instances are the first version: SIMT fp32 on the CUDA
+//    cores (no tensor cores, no TMA), exact to the plain version's fp32
+//    math up to summation order; the fp32 parity checks rest on them.
 //    Every operand tile is read from device memory once per step into
 //    shared memory as fp32, and each thread keeps a 4x4 block of S and dP
 //    (or an 8x4 block of dK, dV, dQ) in registers.
 //
-// Kernels (256 threads, one CTA per SM):
+// Kernels (no atomics in the split pair: two launches are bitwise equal):
 //   flash_bwd_dq    one CTA per (b, q head, 64-row q tile); Q, dO resident;
 //                   loops over the kv tiles it can see; writes dq once.
 //   flash_bwd_dkdv  one CTA per (b, kv head, 64-row kv tile); K, V
 //                   resident; loops over the group's q heads and the q
 //                   tiles that can see tile j; the GQA sum happens in the
-//                   CTA (no atomics); writes dk, dv once.
+//                   CTA; writes dk, dv once.
 //   flash_bwd_fused the dkdv kernel that also folds dS K into an fp32 dq
 //                   buffer (zeroed by the caller): SIMT for fp32,
 //                   flash_bwd_fused_mma for bf16.
@@ -321,9 +327,269 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
   mbwd::store_frag(dv + bhk * Skv * D, j0, Skv, acc.dv, 1.f);
 }
 
+// The split pair's dq kernel (kernel 4), bf16 instance, on the forward's
+// tensor-core tile (mma_tile.cuh): dq is the forward with two score
+// products and K in V's place.  One CTA of four warps per (b, q head,
+// 64-row q tile), the longest causal tiles first (as kernel 1); warp w
+// holds q rows 16 w .. (lane (g, c): rows g and g + 8, dQ columns
+// 8n + 2c, 2c + 1), Q and dO resident in shared memory, K and V streamed
+// in 64-token chunks through two cp.async stages (mma_fold's walk, with
+// no window band).  A chunk, per warp:
+//   S = Q K^T, dP = dO V^T       (m16n8k16 bf16, fp32 accumulators)
+//   P = exp2(S*scale*log2e - lse2), from the final lse (no running max),
+//   0 outside the mask; dS = P * (dP - delta), in fp32 registers;
+//   dQ += dS K                   (dS from the accumulators as the A
+//                                 operand, as two bf16 terms, exactly as
+//                                 the forward feeds P to P.V)
+// 4 products a pair-tile (8 * D flops a pair) against the forward's 3.
+// dS K goes to fresh fragments four n-tiles at a time and is added to dQ
+// by fp32 adds (the tensor cores' accumulation is not round-to-nearest:
+// mma_bwd_tile.cuh).  The scale is applied once, at the store.  A row
+// that sees nothing, or lies past Sq, has lse2 = +inf and its last
+// visible column -1: P = 0, exact zeros.  Two CTAs an SM (shared memory
+// allows no third), and the launch bounds say so: without the 2, ptxas
+// held the kernel to 168 registers and spilled 16 B, and it ran 2.00-2.02
+// ms against 1.78-1.80 at B1 N16 S8192 causal, bitwise the same dq
+// (tools/kernel_ab.py --parts bounds; NVIDIA H100 80GB HBM3, 700.00 W).
+constexpr int kDqNT = 128;
+constexpr size_t kDqSmem = sizeof(__nv_bfloat16) * 6 * 64 * kTileLd;
+
+__global__ void __launch_bounds__(kDqNT, 2)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
+                        const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ lse, float* __restrict__ dq,
+                        int N, int Nk, float scale, Mask mk) {
+  constexpr int D = kTileD, LD = kTileLd, CH = kTileChunk, MQ = 64;
+  constexpr int TILE = 64 * LD;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* sdO = sQ + TILE;
+  __nv_bfloat16* sKV = sdO + TILE;  // stage i: K, then V
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int g = lane / 4, c = lane % 4, mi = lane / 8, r8 = lane % 8;
+  const int Sq = mk.Sq, Skv = mk.Skv;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MQ;
+  const size_t bh = (size_t)b * N + h;
+  const size_t bhk = (size_t)b * Nk + h / (N / Nk);
+
+  const int valid_q = min(MQ, Sq - q0);
+  cp_tile<MQ, kDqNT>(sQ, q + (bh * Sq + q0) * D, valid_q);
+  cp_tile<MQ, kDqNT>(sdO, dO + (bh * Sq + q0) * D, valid_q);
+  // the lane's rows: lse (base 2), delta, last visible column
+  float lse2[2], dl[2];
+  int hi[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qr = q0 + 16 * w + g + 8 * hf;
+    const float l = qr < Sq ? lse[bh * Sq + qr] : neg_inf();
+    lse2[hf] = (l == neg_inf()) ? CUDART_INF_F : l * kLog2e;
+    dl[hf] = qr < Sq ? delta[bh * Sq + qr] : 0.f;
+    int h_ = min(mk.kv_hi, Skv) - 1;
+    if (mk.causal) h_ = min(h_, qr + mk.offset);
+    hi[hf] = mk.row_ok(qr) ? h_ : -1;
+  }
+  const int w_hi = __reduce_max_sync(0xffffffffu, max(hi[0], hi[1]));
+  // the chunks: up to the last active row's causal diagonal and kv_hi
+  const int r_lo = max(q0, mk.q_lo), r_hi = min(min(q0 + MQ, mk.q_hi), Sq);
+  int c_end = 0;
+  if (r_lo < r_hi) {
+    c_end = min(mk.kv_hi, Skv);
+    if (mk.causal) c_end = min(c_end, r_hi + mk.offset);
+  }
+  const int n = c_end > 0 ? (c_end + CH - 1) / CH : 0;
+  auto issue = [&](int i) {
+    __nv_bfloat16* st = sKV + (i & 1) * 2 * TILE;
+    const int valid = min(CH, Skv - CH * i);
+    cp_tile<CH, kDqNT>(st, k + (bhk * Skv + (size_t)CH * i) * D, valid);
+    cp_tile<CH, kDqNT>(st + TILE, v + (bhk * Skv + (size_t)CH * i) * D,
+                       valid);
+  };
+  if (n > 0) issue(0);
+  cp_async_commit();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
+  // the lane's ldmatrix rows of Q and dO (WarpTile::set_q)
+  const int arow = (16 * w + r8 + 8 * (mi % 2)) * LD + 8 * (mi / 2);
+  const float scale_log2 = scale * kLog2e;
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();  // chunk i (and Q, dO) has landed
+    __syncthreads();     // ... for every thread; chunk i - 1 is done with
+    if (i + 1 < n) issue(i + 1);
+    cp_async_commit();
+    const int j0 = CH * i;
+    if (j0 > w_hi) continue;
+    const __nv_bfloat16* sK = sKV + (i & 1) * 2 * TILE;
+    const __nv_bfloat16* sV = sK + TILE;
+
+    float s[CH / 8][4], dp[CH / 8][4];
+#pragma unroll
+    for (int j = 0; j < CH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      ldmatrix_x4(qa, sQ + arow + 16 * kk);
+      ldmatrix_x4(oa, sdO + arow + 16 * kk);
+#pragma unroll
+      for (int jj = 0; jj < CH / 16; ++jj) {
+        const int boff = (16 * jj + 8 * (mi / 2) + r8) * LD + 16 * kk +
+                         8 * (mi % 2);
+        uint32_t b4[4];
+        ldmatrix_x4(b4, sK + boff);
+        mma_bf16(s[2 * jj], qa, b4[0], b4[1]);
+        mma_bf16(s[2 * jj + 1], qa, b4[2], b4[3]);
+        ldmatrix_x4(b4, sV + boff);
+        mma_bf16(dp[2 * jj], oa, b4[0], b4[1]);
+        mma_bf16(dp[2 * jj + 1], oa, b4[2], b4[3]);
+      }
+    }
+    // dS as the A fragments of dS K, hi and lo terms per k-step kt
+    uint32_t ah[CH / 16][4], al[CH / 16][4];
+#pragma unroll
+    for (int j = 0; j < CH / 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e / 2, col = j0 + 8 * j + 2 * c + (e & 1);
+        const float p =
+            col <= hi[hf]
+                ? mbwd::ex2_approx(fmaf(s[j][e], scale_log2, -lse2[hf]))
+                : 0.f;
+        ds[e] = p * (dp[j][e] - dl[hf]);
+      }
+      const int kt = j / 2, r0 = 2 * (j % 2);
+      split_bf16(ds[0], ds[1], ah[kt][r0], al[kt][r0]);
+      split_bf16(ds[2], ds[3], ah[kt][r0 + 1], al[kt][r0 + 1]);
+    }
+    // dQ += dS K, four n-tiles of columns at a time into fresh fragments
+#pragma unroll
+    for (int d4 = 0; d4 < D / 32; ++d4) {
+      float t[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[u][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < CH / 16; ++kt) {
+#pragma unroll
+        for (int dh = 0; dh < 2; ++dh) {
+          uint32_t b4[4];
+          ldmatrix_x4_trans(b4, sK + (16 * kt + 8 * (mi % 2) + r8) * LD +
+                                    32 * d4 + 16 * dh + 8 * (mi / 2));
+          mma_bf16(t[2 * dh], ah[kt], b4[0], b4[1]);
+          mma_bf16(t[2 * dh + 1], ah[kt], b4[2], b4[3]);
+          mma_bf16(t[2 * dh], al[kt], b4[0], b4[1]);
+          mma_bf16(t[2 * dh + 1], al[kt], b4[2], b4[3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * d4 + u][e] += t[u][e];
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qr = q0 + 16 * w + g + 8 * hf;
+    if (qr >= Sq) continue;
+    float* o = dq + (bh * Sq + qr) * D;
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+      *reinterpret_cast<float2*>(o + 8 * nn + 2 * c) =
+          make_float2(acc[nn][2 * hf] * scale, acc[nn][2 * hf + 1] * scale);
+  }
+}
+
+// The split pair's dk/dv kernel (kernel 5), bf16 instance, on the fused
+// kernel's tile (mma_bwd_tile.cuh) without the fold: parts 1-2 of a step
+// (step_kv: S^T, dP^T and their exchange, P and dS as two bf16 terms,
+// dV += P^T dO, dK += dS^T Q), 6 products a step against the fused
+// kernel's 8, no dS^T tile, no dQ, no counters.  Nothing waits, so the
+// kv tile comes from blockIdx; the q-tile walk (the group's q heads in
+// turn, each from its last tile down) and the two Q/dO stages are the
+// fused kernel's, and dk, dv are written once (the GQA sum in the CTA).
+__global__ void __launch_bounds__(mbwd::NT, 1)
+flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
+                          const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const float* __restrict__ delta,
+                          const float* __restrict__ lse,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int N, int Nk, float scale, Mask mk) {
+  constexpr int D = kTileD, MQ = mbwd::BQ, MKV = mbwd::BKV;
+  extern __shared__ float4 smem4[];
+  const mbwd::Smem sm(reinterpret_cast<char*>(smem4));
+  const int Sq = mk.Sq, Skv = mk.Skv;
+  const int b = blockIdx.z, hk = blockIdx.y, j0 = blockIdx.x * MKV;
+  const int G = N / Nk;
+  const size_t bhk = (size_t)b * Nk + hk;
+
+  // q rows that can see some column of this tile: [i_lo, i_hi)
+  int i_lo = max(mk.q_lo, 0), i_hi = min(mk.q_hi, Sq);
+  if (mk.causal) i_lo = max(i_lo, j0 - mk.offset);
+  if (j0 >= min(mk.kv_hi, Skv)) i_hi = i_lo;
+  const int t_lo = i_lo / MQ;
+  const int t_hi = (i_hi > i_lo) ? (i_hi + MQ - 1) / MQ : t_lo;
+  const int nt = t_hi - t_lo, n_st = G * nt;
+
+  float lse_next = neg_inf(), delta_next = 0.f;
+  auto issue = [&](int s, int st) {  // step s: q head s / nt, tile from top
+    const int i0 = (t_hi - 1 - s % nt) * MQ;
+    const size_t bh = (size_t)b * N + (size_t)hk * G + s / nt;
+    const int valid = min(MQ, Sq - i0);
+    cp_tile<MQ, mbwd::NT>(sm.q(st), q + (bh * Sq + i0) * D, valid);
+    cp_tile<MQ, mbwd::NT>(sm.dO(st), dO + (bh * Sq + i0) * D, valid);
+    const int rr = threadIdx.x % MQ;
+    if (threadIdx.x < MQ)
+      lse_next = rr < valid ? lse[bh * Sq + i0 + rr] : neg_inf();
+    else if (threadIdx.x < 2 * MQ)
+      delta_next = rr < valid ? delta[bh * Sq + i0 + rr] : 0.f;
+  };
+  mbwd::KvAcc acc;
+  acc.zero();
+  if (n_st > 0) {
+    const int valid = min(MKV, Skv - j0);
+    cp_tile<MKV, mbwd::NT>(sm.k, k + (bhk * Skv + j0) * D, valid);
+    cp_tile<MKV, mbwd::NT>(sm.v, v + (bhk * Skv + j0) * D, valid);
+    issue(0, 0);
+  }
+  cp_async_commit();
+  const float scale_log2 = scale * kLog2e;
+  for (int s = 0; s < n_st; ++s) {
+    const int st = s & 1, i0 = (t_hi - 1 - s % nt) * MQ;
+    cp_async_wait<0>();  // step s's tiles have landed
+    __syncthreads();     // ... for every thread; step s - 1 is done with
+                         // the other stage, lse2, delta and the exchange
+    if (threadIdx.x < MQ)
+      sm.lse2[threadIdx.x] =
+          (lse_next == neg_inf()) ? CUDART_INF_F : lse_next * kLog2e;
+    else if (threadIdx.x < 2 * MQ)
+      sm.delta[threadIdx.x - MQ] = delta_next;
+    if (s + 1 < n_st) issue(s + 1, st ^ 1);
+    cp_async_commit();
+    // (part 1's barrier publishes lse2 and delta before they are read)
+    mbwd::step_kv(sm, st, acc, mk, i0, j0, scale_log2);
+  }
+  cp_async_wait<0>();
+  mbwd::store_frag(dk + bhk * Skv * D, j0, Skv, acc.dk, scale);
+  mbwd::store_frag(dv + bhk * Skv * D, j0, Skv, acc.dv, 1.f);
+}
+
 enum Route { kFused = 0, kDq = 1, kDkdv = 2 };
 
-// bf16's fused route runs on the tensor cores; the rest on the SIMT tile
+// bf16 runs on the tensor cores, fp32 on the SIMT tile
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
@@ -343,11 +609,18 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
   cudaError_t e;
   if (route == kDq) {
     static bool set = false;
-    e = allow_smem(flash_bwd_dq_kernel<T, D>, smem, &set);
-    if (e != cudaSuccess) return e;
     const dim3 grid((Sq + BQ - 1) / BQ, N, B);
-    flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-        o_, q_, k_, v_, de, ls, static_cast<float*>(dq), N, Nk, scale, mk);
+    if constexpr (kMma<T>) {
+      e = allow_smem(flash_bwd_dq_mma_kernel, kDqSmem, &set);
+      if (e != cudaSuccess) return e;
+      flash_bwd_dq_mma_kernel<<<grid, kDqNT, kDqSmem, stream>>>(
+          o_, q_, k_, v_, de, ls, static_cast<float*>(dq), N, Nk, scale, mk);
+    } else {
+      e = allow_smem(flash_bwd_dq_kernel<T, D>, smem, &set);
+      if (e != cudaSuccess) return e;
+      flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+          o_, q_, k_, v_, de, ls, static_cast<float*>(dq), N, Nk, scale, mk);
+    }
     return cudaGetLastError();
   }
   const dim3 grid((Skv + BKV - 1) / BKV, Nk, B);
@@ -373,11 +646,20 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
   }
   if (route == kDkdv) {
     static bool set = false;
-    e = allow_smem(flash_bwd_kv_kernel<T, D, false>, smem, &set);
-    if (e != cudaSuccess) return e;
-    flash_bwd_kv_kernel<T, D, false><<<grid, NT, smem, stream>>>(
-        o_, q_, k_, v_, de, ls, nullptr, static_cast<float*>(dk),
-        static_cast<float*>(dv), nullptr, N, Nk, scale, mk);
+    if constexpr (kMma<T>) {
+      const size_t msmem = mbwd::Smem::bytes();
+      e = allow_smem(flash_bwd_dkdv_mma_kernel, msmem, &set);
+      if (e != cudaSuccess) return e;
+      flash_bwd_dkdv_mma_kernel<<<grid, mbwd::NT, msmem, stream>>>(
+          o_, q_, k_, v_, de, ls, static_cast<float*>(dk),
+          static_cast<float*>(dv), N, Nk, scale, mk);
+    } else {
+      e = allow_smem(flash_bwd_kv_kernel<T, D, false>, smem, &set);
+      if (e != cudaSuccess) return e;
+      flash_bwd_kv_kernel<T, D, false><<<grid, NT, smem, stream>>>(
+          o_, q_, k_, v_, de, ls, nullptr, static_cast<float*>(dk),
+          static_cast<float*>(dv), nullptr, N, Nk, scale, mk);
+    }
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
@@ -413,10 +695,19 @@ cudaError_t attrs_of(int route, int* out) {
     else
       return kernel_attrs(flash_bwd_kv_kernel<T, 128, true>, NT, smem, out);
   }
-  if (route == kDq)
-    return kernel_attrs(flash_bwd_dq_kernel<T, 128>, NT, smem, out);
-  if (route == kDkdv)
-    return kernel_attrs(flash_bwd_kv_kernel<T, 128, false>, NT, smem, out);
+  if (route == kDq) {
+    if constexpr (kMma<T>)
+      return kernel_attrs(flash_bwd_dq_mma_kernel, kDqNT, kDqSmem, out);
+    else
+      return kernel_attrs(flash_bwd_dq_kernel<T, 128>, NT, smem, out);
+  }
+  if (route == kDkdv) {
+    if constexpr (kMma<T>)
+      return kernel_attrs(flash_bwd_dkdv_mma_kernel, mbwd::NT,
+                          mbwd::Smem::bytes(), out);
+    else
+      return kernel_attrs(flash_bwd_kv_kernel<T, 128, false>, NT, smem, out);
+  }
   return cudaErrorInvalidValue;
 }
 

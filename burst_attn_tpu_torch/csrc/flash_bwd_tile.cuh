@@ -2,9 +2,9 @@
 // flash_bwd.cu (one backward round: the split dq and dk/dv kernels and the
 // fused kernel) and the fp32 instance of fused_ring_bwd.cu (every round of
 // the backward ring), so an fp32 ring round of the fused ring backward
-// does the flash backward's arithmetic on the same tiles; the split pair
-// runs it in bf16 too.  The bf16 instances of both fused kernels run
-// mma_bwd_tile.cuh's tensor-core tile.
+// does the flash backward's arithmetic on the same tiles.  The bf16
+// instances (both fused kernels, the split pair) run on tensor-core tiles
+// (mma_bwd_tile.cuh, mma_tile.cuh).
 //
 // Per (q tile i, kv tile j) step, with P = exp2(S*scale*log2e - lse*log2e):
 //   S = Q K^T, dP = dO V^T, dS = P * (dP - delta),

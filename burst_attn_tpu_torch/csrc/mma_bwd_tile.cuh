@@ -5,7 +5,8 @@
 // it, one (q tile, kv tile) step at a time.  Included, not built alone;
 // nothing in it depends on the ring: the bf16 instances of the fused ring
 // backward (fused_ring_bwd.cu, kernel 9) and of the flash backward's fused
-// kernel (flash_bwd.cu, kernels 2-3) run it.
+// kernel (flash_bwd.cu, kernels 2-3) run it, and the split pair's dk/dv
+// kernel (flash_bwd.cu, kernel 5) runs its parts 1-2 (step<false>).
 //
 // A step, with P = exp2(S*scale*log2e - lse2) under the mask and
 // dS = P*(dP - delta) (the scale of dS is applied by the caller, once):
@@ -154,7 +155,11 @@ __device__ __forceinline__ void store_frag(float* dst, int r0, int S,
 // __syncthreads().  With `cyc` (a tracing thread), adds the clock64
 // cycles of S^T/dP^T and the exchange (cyc[0]), of P and dS as fragments
 // (cyc[1]), of dV and dK (cyc[2]), of the dS^T store (cyc[3]) and of dQ
-// (cyc[4]).
+// (cyc[4]).  DQ = false stops after part 2 (no dS^T store, no dQ: `dq`
+// is left as it is); lse2 and delta are first read after part 1's
+// barrier, so a caller may write them after its own barrier that ends
+// the previous step.
+template <bool DQ = true>
 __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
                                      const bwd::Mask& mk, int i0, int j0,
                                      float scale_log2, float (&dq)[8][4],
@@ -287,6 +292,7 @@ __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
   }
 
   lap(2);
+  if constexpr (!DQ) return;
   // ---- 3. dS^T to shared memory: warps 0-3 the hi terms, 4-7 the lo.
   // A register reg of k-step kt holds rows g + 8 (reg % 2), columns
   // 16 kt + 8 (reg / 2) + 2c, 2c + 1 ----
@@ -329,6 +335,15 @@ __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
     }
   }
   lap(4);
+}
+
+// Parts 1-2 of a step alone: dK, dV accumulate into acc (the split pair's
+// dk/dv kernel: 6 products a step, no dS^T tile, no dQ)
+__device__ __forceinline__ void step_kv(const Smem& sm, int st, KvAcc& acc,
+                                        const bwd::Mask& mk, int i0, int j0,
+                                        float scale_log2) {
+  float unused[8][4];
+  step<false>(sm, st, acc, mk, i0, j0, scale_log2, unused);
 }
 
 // Fold this CTA's dq partial (fragments of step(), times scale) into q

@@ -7,9 +7,9 @@ of ops/tile.py:tile_bwd; `flash_attention` is single-device attention as
 an autograd function (one `flash_fwd` forward, one `flash_bwd` backward),
 which the serving prefill and the training forward call.  For CUDA
 tensors the wrappers launch the hand-written kernels in csrc/flash_fwd.cu
-and csrc/flash_bwd.cu (or raise): bf16 q runs the forward and the fused
-backward on the tensor cores, fp32 q and the split backward pair the
-SIMT fp32 tiles.  For CPU tensors they run the plain versions,
+and csrc/flash_bwd.cu (or raise): bf16 q runs the forward and both
+backward routes (fused, split) on the tensor cores, fp32 q the SIMT fp32
+tiles.  For CPU tensors they run the plain versions,
 `tile_fwd`/`finalize` and `tile_bwd`.  The TPU kernels' grid
 tricks (triangular and band grids, block tuning) have no counterpart: on
 Hopper each CTA loops over the tiles from the first its window band meets
@@ -146,8 +146,11 @@ def flash_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, *, fused=None,
     delta = sum(o * do, -1) [B,N,Sq] f32 (computed by the caller); lse is
     the FINAL log-sum-exp [B,N,Sq] f32.  A CUDA tensor launches
     csrc/flash_bwd.cu (bf16 or fp32, D = 128, contiguous): `fused=False`
-    the split pair (dq kernel, then dk/dv kernel), anything else the fused
-    kernel, which is deterministic like the TPU's.  `triangular` is the
+    the split pair (dq kernel, then dk/dv kernel; no atomics), anything
+    else the fused kernel; both are deterministic like the TPU's.  The
+    JAX package picks the split pair itself for short sweeps (it takes
+    the fused kernel only when `bwd_band_nbq(...) * group >= 4`,
+    pallas_flash.py); the port takes it only when asked.  `triangular` is the
     TPU's wrapped-diagonal grid; here every causal CTA already starts at
     the diagonal, so it changes nothing.  A CPU tensor runs tile_bwd.
     `window` and `segments` are not ported yet."""
@@ -235,7 +238,7 @@ def fwd_attrs():
 def bwd_attrs():
     """_build.kernel_attrs of the backward's kernels: the fused kernel
     (kernels 2-3; bf16 on the tensor cores, fp32 SIMT) and the split pair
-    (kernels 4-5, SIMT) in bf16."""
+    (kernels 4-5) in bf16, on the tensor cores."""
     bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
     return _build.kernel_attrs("flash_bwd", {  # flag: the route's index
         "bf16 fused": (bf16, 0), "fp32 fused": (fp32, 0),

@@ -8,8 +8,8 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
      and print each instance of kernels 1-5, 8 and 9 with its registers,
      local (spill) bytes, shared memory and resident CTAs (the bf16
-     instances of kernels 1-3, 8 and 9 run on mma.sync tensor-core tiles,
-     the fp32 ones and the split pair, kernels 4-5, on the SIMT tiles);
+     instances of kernels 1-5, 8 and 9 run on mma.sync tensor-core tiles,
+     the fp32 ones on the SIMT tiles);
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes, with its time, the plain version's time, one
      PyTorch library call's time (a yardstick only, never used by the
@@ -22,15 +22,18 @@ Phases (any failure exits non-zero; nothing is caught):
      splits); every one of these two launches torch.equal; the paged
      kernels' `ms`, like every row's, times eager calls, and their
      `graph_ms` (SDPA's `library_graph_ms`) the device alone through a
-     CUDA graph, since their eager calls time the host; the flash backward's fused kernel and split dq + dk/dv pair
-     against tile_bwd (fp32 and bf16, MHA and GQA, causal, non-causal,
-     ragged S; the fused kernel 20 launches bitwise equal), autograd through
+     CUDA graph, since their eager calls time the host; the flash
+     backward's fused kernel and split dq + dk/dv pair against tile_bwd
+     (fp32 and bf16, MHA and GQA, causal, non-causal, ragged S; the fused
+     kernel 20 launches bitwise equal, the split pair 2), autograd through
      flash_attention against autograd through the plain tile; at the
      train step's shape (B1 N16/16 S8192 D128 bf16 causal) the forward
      against tile_fwd/finalize, with its time, bound and SDPA's time
-     there, the three backward kernels against tile_bwd (the fused one
+     there, the three backward kernels against tile_bwd (each route
      bitwise repeatable), and their times beside tile_bwd's and SDPA's
-     backward;
+     backward; the fused route against the split pair at the train shape
+     and at a scan-ring round's (B1 N16 S2048 MHA, causal and a full
+     non-causal round);
   4. the ServeEngine at the serving benchmark's width (vocab 32768,
      d_model 2048, 8 layers, 16/4 heads, d_ff 8192, random weights from a
      seed): 12 requests over 8 slots in bf16 and fp32, plus a bf16 run
@@ -183,8 +186,10 @@ TIE_GAP = 0.1
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
 # launches of the fused backward on each check case, all bitwise equal:
 # its CTAs take their kv tile from a start-order ticket, and the dq fold
-# order must not depend on the dispatch order
+# order must not depend on the dispatch order; the split pair sums without
+# atomics, and its second launch must be bitwise equal too
 FUSED_BWD_REPEATS = 20
+SPLIT_BWD_REPEATS = 2
 # the training benchmark's model (benchmarks/train_smoke.py defaults: MHA,
 # remat, bf16, one device); its sequence is cut from 32768 to 8192, where
 # a step of the first SIMT kernels takes ~1 s instead of ~15-20 s
@@ -864,9 +869,10 @@ BWD_CASES = (("MHA causal", 16, 16, 2048, True, (None, False)),
 
 def check_flash_bwd(device, dtype, seed=4):
     """flash_bwd's fused kernel and split pair against tile_bwd on the card
-    at D=128, B=1 (BWD_CASES); the fused kernel runs twice and must be
-    bitwise equal.  Returns the largest errors {"fused": [dq, dk, dv],
-    "split": [dq, dk, dv]}."""
+    at D=128, B=1 (BWD_CASES); the fused kernel runs FUSED_BWD_REPEATS
+    times, the split pair SPLIT_BWD_REPEATS, each route bitwise equal.
+    Returns the largest errors {"fused": [dq, dk, dv], "split": [dq, dk,
+    dv]}."""
     import torch
 
     from burst_attn_tpu_torch.ops import flash, tile
@@ -881,19 +887,19 @@ def check_flash_bwd(device, dtype, seed=4):
             got = flash.flash_bwd(*args, fused=fused)
             errs = _bwd_errs(got, want, f"flash_bwd {key} {name} {route}")
             worst[route] = [max(a, b) for a, b in zip(worst[route], errs)]
-            if route == "fused":  # the ticketed, ordered dq fold
-                for _ in range(FUSED_BWD_REPEATS - 1):
-                    again = flash.flash_bwd(*args, fused=fused)
-                    assert all(torch.equal(a, b)
-                               for a, b in zip(got, again)), \
-                        f"flash_bwd {key} {name}: fused kernel not bitwise " \
-                        "repeatable"
+            # the fused route's ticketed, ordered dq fold; the split pair's
+            # atomic-free sums
+            repeats = (FUSED_BWD_REPEATS if route == "fused"
+                       else SPLIT_BWD_REPEATS)
+            for _ in range(repeats - 1):
+                again = flash.flash_bwd(*args, fused=fused)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                    f"flash_bwd {key} {name}: {route} route not bitwise " \
+                    "repeatable"
             print(f"flash_bwd {key} {name} N{n}/{n_kv} S={s} {route}: "
                   f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
                   f"{errs[2]:.3e} (tolerance {BWD_RTOL} max|ref| + "
-                  f"{BWD_ATOL})" + (f"; {FUSED_BWD_REPEATS} launches "
-                                    "bitwise equal"
-                                    if route == "fused" else ""),
+                  f"{BWD_ATOL}); {repeats} launches bitwise equal",
                   flush=True)
         del want, got
     return worst
@@ -930,12 +936,14 @@ def check_flash_autograd(device, n=16, n_kv=4, s=2048, d=128, seed=9):
 def time_flash_bwd(device, worst, dtype=None):
     """The backward kernels at the training shape (B1 N16 Nk16 S8192 D128
     bf16 causal), where the train step launches them: the fused kernel
-    (twice: bitwise equal) and the split pair held against tile_bwd (~25 GB
-    transient, freed before returning) as check_flash_bwd holds them; then
-    their times (each split kernel's device time from the profiler), the
-    plain tile_bwd's, and the backward of SDPA (a yardstick only, never
-    used by the port).  Folds the errors into `worst`; returns the
-    kernels-line records of flash_bwd_fused, flash_bwd_dq and
+    and the split pair held against tile_bwd (~25 GB transient, freed
+    before returning) as check_flash_bwd holds them, each route twice and
+    bitwise equal; then their times (each split kernel's device time from
+    the profiler, by the bf16 instances' names), the plain tile_bwd's, and
+    the backward of SDPA (a yardstick only, never used by the port); then
+    the two routes at a scan-ring round's shape (bwd_routes).  Folds the
+    errors into `worst`; returns the kernels-line records of
+    flash_bwd_fused (with the routes' times), flash_bwd_dq and
     flash_bwd_dkdv, and the split pair's ms."""
     import torch
     import torch.nn.functional as F
@@ -954,17 +962,15 @@ def time_flash_bwd(device, worst, dtype=None):
         got = flash.flash_bwd(*args, fused=fused)
         errs = _bwd_errs(got, want, f"flash_bwd {key} train shape {route}")
         worst[route] = [max(a, b) for a, b in zip(worst[route], errs)]
-        if route == "fused":
-            again = flash.flash_bwd(*args)
-            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
-                "flash_bwd at the train shape: fused kernel not bitwise " \
-                "repeatable"
-            del again
+        again = flash.flash_bwd(*args, fused=fused)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"flash_bwd at the train shape: {route} route not bitwise " \
+            "repeatable"
+        del again
         print(f"flash_bwd {key} train shape N{n}/{n_kv} S={s} {route}: "
               f"max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
               f"{errs[2]:.3e} (tolerance {BWD_RTOL} max|ref| + {BWD_ATOL})"
-              + ("; bitwise repeatable" if route == "fused" else ""),
-              flush=True)
+              "; bitwise repeatable", flush=True)
         del got
     del want
     fused_ms = time_ms(lambda: flash.flash_bwd(*args), iters=5, warmup=1)
@@ -972,8 +978,9 @@ def time_flash_bwd(device, worst, dtype=None):
                        warmup=1)
     _, _, top = device_breakdown(lambda: flash.flash_bwd(*args, fused=False),
                                  3, top=4)
-    dq_ms = sum(t for name, t in top if "flash_bwd_dq_kernel" in name)
-    dkdv_ms = sum(t for name, t in top if "flash_bwd_kv_kernel" in name)
+    dq_ms = sum(t for name, t in top if "flash_bwd_dq_mma_kernel" in name)
+    dkdv_ms = sum(t for name, t in top
+                  if "flash_bwd_dkdv_mma_kernel" in name)
     assert dq_ms > 0 and dkdv_ms > 0, f"split kernels not profiled: {top}"
     plain_ms = time_ms(lambda: tile.tile_bwd(*args), iters=2, warmup=1)
     torch.cuda.empty_cache()  # tile_bwd's transient
@@ -1014,7 +1021,48 @@ def time_flash_bwd(device, worst, dtype=None):
                          replaces=replaces, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=lib))
+    del args, do, q, k, v, delta, lse
+    torch.cuda.empty_cache()
+    recs[0]["routes"] = bwd_routes(device, dtype, {"fused": fused_ms,
+                                                   "split": split_ms})
     return recs, split_ms
+
+
+# a scan-ring round of the ring train step (train_smoke's 16 heads, S 8192
+# over sp=4: S_local 2048, MHA): causal (the diagonal round) and full (a
+# round below it)
+ROUND_SEQ = TRAIN_SEQ // 4
+
+
+def bwd_routes(device, dtype, train):
+    """The fused route against the split pair at a scan-ring round's shape
+    (B1 N16 S2048 MHA D128, causal and full), CUDA events, fused, split,
+    split, fused in turns, beside `train` (the routes' ms at the train
+    shape).  The JAX package takes the split pair for short sweeps by
+    itself (pallas_flash.py:1879-1881: fused when bwd_band_nbq(...) *
+    group >= 4); the port takes it only on fused=False.  Prints one line;
+    returns {shape: {"fused": ms, "split": ms}}."""
+    from burst_attn_tpu_torch.ops import flash
+
+    n = TRAIN_DIMS["n_heads"]
+    res = {"train_causal": train}
+    for tag, causal in (("round_causal", True), ("round_full", False)):
+        args = _bwd_inputs(device, dtype, n, n, ROUND_SEQ, causal, seed=13)
+        t = {"fused": [], "split": []}
+        for route in ("fused", "split", "split", "fused"):
+            t[route].append(time_ms(lambda: flash.flash_bwd(
+                *args, fused=None if route == "fused" else False), iters=20))
+        res[tag] = {r: sum(x) / len(x) for r, x in t.items()}
+    print(f"flash_bwd routes, fused / split ms: B1 N{n} S{TRAIN_SEQ} "
+          f"causal {train['fused']:.4f} / {train['split']:.4f}; rounds "
+          f"(means of 2 x 20 calls, f s s f) B1 N{n} S{ROUND_SEQ} "
+          f"{_dtype_key(dtype)} causal "
+          f"{res['round_causal']['fused']:.4f} / "
+          f"{res['round_causal']['split']:.4f}, full round "
+          f"{res['round_full']['fused']:.4f} / "
+          f"{res['round_full']['split']:.4f}; the port takes the fused "
+          "route unless fused=False", flush=True)
+    return res
 
 
 @contextlib.contextmanager
@@ -3680,7 +3728,7 @@ def main() -> int:
                     | {k: r[k] for k in ("library", "graph_ms",
                                          "library_graph_ms", "ring_step_ms",
                                          "ring_step_trace", "train_shape",
-                                         "attrs")
+                                         "routes", "attrs")
                        if k in r}
                     for r in kernels],
         "card": card,

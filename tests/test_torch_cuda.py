@@ -471,6 +471,58 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, b, n, n_kv, s_q, s_kv,
     assert moved == ({"fused": 0, "dq": 1, "dkdv": 1} if fused is False
                      else {"fused": 1, "dq": 0, "dkdv": 0})
     _bwd_close(got, tile.tile_bwd(*args), f"{dtype} fused={fused}")
+    # no atomics in either route's sums: a second launch is bitwise equal
+    again = flash.flash_bwd(*args, fused=fused)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the split pair's bf16 instances on rounds that use every MaskSpec field:
+# (s_q, s_kv, n, n_kv, (q_lo, q_hi, kv_hi, causal, offset))
+SPLIT_ROUNDS = [
+    (300, 260, 4, 2, (37, 250, 200, 1, -1)),  # cross lengths, ragged round
+    (256, 256, 4, 4, (0, 256, 128, 0, 0)),    # zigzag: the first kv half
+    (256, 256, 4, 4, (128, 256, 256, 0, 0)),  # zigzag: the second q half
+    (256, 512, 8, 2, (0, 256, 512, 1, 256)),  # a positive offset
+]
+
+
+@pytest.mark.parametrize("s_q,s_kv,n,n_kv,spec", SPLIT_ROUNDS)
+def test_flash_bwd_split_bf16_rounds_match_plain(dev, s_q, s_kv, n, n_kv,
+                                                 spec):
+    """Kernels 4-5 on the tensor cores against tile_bwd at the kernels'
+    bar, two launches bitwise equal, and exact zeros for the rows outside
+    [q_lo, q_hi) and the columns past kv_hi."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, do = (_rand(g, dev, torch.bfloat16, 1, n, s_q, 128) for _ in range(2))
+    k, v = (_rand(g, dev, torch.bfloat16, 1, n_kv, s_kv, 128)
+            for _ in range(2))
+    spec = masks.MaskSpec(*spec)
+    _, lse, o = flash.flash_fwd(q, k, v, None, None, None, 128**-0.5, spec,
+                                emit_o=True)
+    args = (do, q, k, v, (o.float() * do.float()).sum(-1), lse, 128**-0.5,
+            spec)
+    got = flash.flash_bwd(*args, fused=False)
+    again = flash.flash_bwd(*args, fused=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_close(got, tile.tile_bwd(*args), f"split bf16 {spec}")
+    dq, dk, dv = got
+    assert (dq[:, :, :spec.q_lo] == 0).all() and \
+        (dq[:, :, spec.q_hi:] == 0).all()
+    assert (dk[:, :, spec.kv_hi:] == 0).all() and \
+        (dv[:, :, spec.kv_hi:] == 0).all()
+
+
+def test_flash_bwd_split_bf16_dead_rows_give_zeros(dev):
+    """The bf16 split pair on a contig future round (q_hi = 0) and on rows
+    whose lse is -inf: every gradient exactly zero."""
+    do, q, k, v, delta, lse, scale, _ = _bwd_case(dev, torch.bfloat16, 1, 4,
+                                                  2, 128, 128, True)
+    future = masks.round_spec(0, 1, 128, 128, True, "contig")
+    dead = torch.full_like(lse, float("-inf"))
+    for lse_, spec in ((lse, future), (dead, masks.full_spec(128, 128))):
+        for a in flash.flash_bwd(do, q, k, v, delta, lse_, scale, spec,
+                                 fused=False):
+            assert (a == 0).all()
 
 
 def test_flash_bwd_masked_rows_give_zeros(dev):
@@ -680,10 +732,23 @@ def test_flash_bwd_fused_bf16_masked_rounds(dev, spec):
     assert all((a == 0).all() for a in zero)
 
 
+# (registers, local bytes) a thread of the fused backward tiles' instances
+# as built before the split pair moved onto the tensor cores (commit
+# e0c6a62, this toolkit): the split pair shares their tile, and their code
+# must not move with it
+FUSED_TILE_ATTRS = {"flash_bwd": {"bf16 fused": (255, 8),
+                                  "fp32 fused": (208, 0)},
+                    "fused_ring_bwd": {"bf16": (255, 32),
+                                       "bf16 traced": (255, 128),
+                                       "fp32": (255, 16)}}
+
+
 def test_flash_kernel_attributes(dev):
     """cudaFuncGetAttributes of kernels 1-5's instances: registers fit the
     launch, the bf16 tiles keep the shared memory their launches size,
-    kernel 1's bf16 instances keep two CTAs an SM."""
+    kernel 1's bf16 instances and kernel 4's keep two CTAs an SM, the
+    split pair spills nothing, and the fused tiles' instances (kernels 2-3
+    and 9) keep the registers and local bytes they had."""
     fwd, bwd = flash.fwd_attrs(), flash.bwd_attrs()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert [a["instance"] for a in fwd] == ["bf16", "bf16 acc",
@@ -695,8 +760,16 @@ def test_flash_kernel_attributes(dev):
         print(a)
     for a in fwd[:3]:
         assert a["smem"] == 2 * 5 * 64 * 136 and a["ctas"] == 2 * sms, a
-    assert bwd[0]["smem"] == 2 * (6 * 64 * 136 + 2 * 64 * 72) + 16 * 2048 \
-        + 4 * 128
+    tile_smem = 2 * (6 * 64 * 136 + 2 * 64 * 72) + 16 * 2048 + 4 * 128
+    assert bwd[0]["smem"] == tile_smem
+    dq, dkdv = bwd[2:]
+    assert dq["smem"] == 2 * 6 * 64 * 136 and dq["ctas"] == 2 * sms, dq
+    assert dkdv["smem"] == tile_smem, dkdv
+    assert dq["local_bytes"] == 0 and dkdv["local_bytes"] == 0, bwd[2:]
+    now = {"flash_bwd": bwd, "fused_ring_bwd": fused_ring_bwd.bwd_attrs()}
+    for lib, want in FUSED_TILE_ATTRS.items():
+        got = {a["instance"]: (a["regs"], a["local_bytes"]) for a in now[lib]}
+        assert {k: got[k] for k in want} == want, (lib, got)
 
 
 @pytest.mark.parametrize("kw", [{}, {"prefix_cache": True},

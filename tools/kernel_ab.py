@@ -7,7 +7,9 @@ imports `burst_attn_tpu_torch` from the checkout at PATH (its kernels
 build into PATH/build/kernels), times kernel 1 (causal, B1 N16/4 S2048,
 plain and with window 1024, and B1 N16 S8192, bf16), the fused backward
 (kernels 2-3) and the split pair (kernels 4-5, each kernel's device time
-from the profiler) at B1 N16 S8192 bf16 causal, kernel 6 (8 slots, lengths 0-2112, bf16 and int8 pools,
+from the profiler) at B1 N16 S8192 bf16 causal and at a scan-ring round's
+shape (B1 N16 S2048, causal and full), kernel 6 (8 slots, lengths 0-2112,
+bf16 and int8 pools,
 and bf16 with window 1024) and kernel 7 (the mixed q_lens 0/1/37/128
 batch, bf16, plain and with window 1024) with CUDA events on seeded
 inputs, and prints one line `AB {json}` with the card.  Kernels 6 and 7
@@ -34,8 +36,19 @@ launch at both shapes and reports, over the CTAs, the share of their
 span spent waiting on dq fold counters and on the ring's counters, with
 each kernel's registers and spill bytes (cudaFuncGetAttributes).
 `fwd` and `bwd` also report kernels 1-5's registers and spill bytes
-where the checkout has `flash.fwd_attrs`.  `--parts` picks among fwd,
-bwd, decode, ragged, micro, grid, ring and trace.  `--fwd-tile simt` builds kernel 8's bf16 instance on the SIMT
+where the checkout has `flash.fwd_attrs`.  `sass` builds every kernel
+library of the checkout and reports a digest of each kernel's SASS
+(`cuobjdump -sass`, the source's anonymous-namespace tag taken out of the
+names): equal digests in the parent's and the change's lines mean the
+kernel's code did not move.  `split_step` times chip_smoke.py's train
+step through the split backward (train_smoke's model, B1 S8192 bf16,
+seed-0 weights; the checkout's chip_smoke.py supplies the model, so a
+parent unpacked for it needs that file beside its package).  `bounds`
+builds kernel 4's bf16 instance twice from the checkout's csrc/, as it
+is and with its launch bounds' minimum of two CTAs an SM taken out,
+and reports each build's registers and spill (ptxas) and time.
+`--parts` picks among fwd, bwd, decode, ragged, micro, grid, ring,
+trace, sass, split_step and bounds.  `--fwd-tile simt` builds kernel 8's bf16 instance on the SIMT
 tile (FUSED_FWD_TILE_SIMT=1, a checkout that has the switch).  Run it
 from a parent
 and a change in turns (parent, change, change, parent): times of two
@@ -80,7 +93,9 @@ def main(argv=None) -> int:
         ("ragged", "ragged_paged"), ("micro", "ragged_paged"),
         ("grid", "ragged_paged"), ("ring", "fused_ring_fwd"),
         ("ring", "fused_ring_bwd"), ("trace", "fused_ring_fwd"),
-        ("trace", "fused_ring_bwd"))
+        ("trace", "fused_ring_bwd"), ("split_step", "flash_fwd"),
+        ("split_step", "flash_bwd"), ("bounds", "flash_fwd"),
+        *(("sass", name) for name in _build.SIGNATURES))
         if part in parts and name in _build.SIGNATURES)))
     # (each once: build_all starts one nvcc a name)
     dev = torch.device("cuda")
@@ -134,19 +149,24 @@ def main(argv=None) -> int:
         out["fwd_s8192_ms"] = t_ms(lambda: flash.flash_attention(
             q, k, v, None, True), 10)
     if "bwd" in parts:
-        g = torch.Generator(device=dev).manual_seed(1)
-        q, k, v = (r(1, 16, 8192, 128) for _ in range(3))
-        spec = masks.round_spec(0, 0, 8192, 8192, True, "contig")
-        _, lse, o = flash.flash_fwd(q, k, v, None, None, None, 128**-0.5,
-                                    spec, emit_o=True)
-        do = r(1, 16, 8192, 128)
-        delta = (o.float() * do.float()).sum(-1)
-        out["bwd_fused_s8192_ms"] = t_ms(lambda: flash.flash_bwd(
-            do, q, k, v, delta, lse, 128**-0.5, spec), 6, 1)
-        out["bwd_split_s8192_ms"] = split_ms(
-            torch, lambda: flash.flash_bwd(do, q, k, v, delta, lse,
-                                           128**-0.5, spec, fused=False))
-        del q, k, v, o, do, delta, lse
+        # (tag, S, causal, timed calls): the train shape, a scan-ring round
+        for tag, s, causal, iters in (("s8192", 8192, True, 6),
+                                      ("s2048", 2048, True, 40),
+                                      ("s2048_full", 2048, False, 40)):
+            g = torch.Generator(device=dev).manual_seed(1)
+            q, k, v = (r(1, 16, s, 128) for _ in range(3))
+            spec = (masks.round_spec(0, 0, s, s, True, "contig") if causal
+                    else masks.full_spec(s, s))
+            _, lse, o = flash.flash_fwd(q, k, v, None, None, None,
+                                        128**-0.5, spec, emit_o=True)
+            do = r(1, 16, s, 128)
+            delta = (o.float() * do.float()).sum(-1)
+            out[f"bwd_fused_{tag}_ms"] = t_ms(lambda: flash.flash_bwd(
+                do, q, k, v, delta, lse, 128**-0.5, spec), iters, 1)
+            out[f"bwd_split_{tag}_ms"] = split_ms(
+                torch, lambda: flash.flash_bwd(do, q, k, v, delta, lse,
+                                               128**-0.5, spec, fused=False))
+            del q, k, v, o, do, delta, lse
     if parts & {"fwd", "bwd"} and hasattr(flash, "fwd_attrs"):
         out["flash_attrs"] = flash.fwd_attrs() + flash.bwd_attrs()
 
@@ -213,13 +233,143 @@ def main(argv=None) -> int:
             out[f"micro_{name}_ms"] = g_ms(block_case(*case))
     if "grid" in parts:
         out.update(grid(torch, rp, g_ms, qr, kp, vp, table, ql, kl))
+    if "sass" in parts:
+        out["sass"] = sass_digests(_build)
+    if "split_step" in parts:
+        out.update(split_step(torch, dev))
+    if "bounds" in parts:
+        out["dq_bounds"] = dq_bounds(torch, dev, _build, flash, masks, r)
     print("AB " + json.dumps(out), flush=True)
     return 0
 
 
+def sass_digests(_build):
+    """{library: {kernel: digest}}: a sha256 of each kernel's SASS in the
+    checkout's built libraries (cuobjdump -sass, instruction lines only),
+    the anonymous-namespace tag in its name (it follows the source file's
+    contents) taken out."""
+    import hashlib
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = {}
+    for name in _build.SIGNATURES:
+        sass = subprocess.run([tool, "-sass", str(_build._target(name)[1])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs, cur = {}, None
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                cur = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                             m.group(1))
+                funcs[cur] = hashlib.sha256()
+            elif cur is not None and line.strip():
+                funcs[cur].update(line.strip().encode())
+        res[name] = {f: h.hexdigest()[:16] for f, h in funcs.items()}
+    return res
+
+
+def split_step(torch, dev, steps=3):
+    """The `split_step` part: chip_smoke.py's split-backward train step,
+    one warm-up then `steps` timed steps (host clock, synchronized)."""
+    import statistics
+    import time
+
+    import chip_smoke as cs
+    from burst_attn_tpu_torch.models import train
+
+    cfg = cs._train_model(cs.TRAIN_DIMS["n_layers"], torch.bfloat16)
+    tcfg = train.TrainConfig()
+    state = cs._seed_state(cfg, tcfg, dev)
+    batch = train.make_batch(1, cfg, batch=1, seq=cs.TRAIN_SEQ, device=dev)
+    step = train.make_train_step(cfg, tcfg, device=dev)
+    times = []
+    with cs.split_train_backward():
+        for _ in range(1 + steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {"split_step_ms": statistics.median(times[1:]),
+            "split_step_ms_all": times[1:]}
+
+
+def dq_bounds(torch, dev, _build, flash, masks, r):
+    """The `bounds` part: kernel 4's bf16 instance (flash_bwd_dq_mma_kernel)
+    built from a copy of the checkout's csrc/ with and without the
+    minimum of two CTAs an SM in its launch bounds; each build's ptxas
+    registers and spill line and its device ms at B1 N16 S8192 bf16
+    causal (profiler, as split_ms), in turns two, none, none, two.  Both
+    builds compute the same sums: their dq must be bitwise equal."""
+    import ctypes
+    import shutil
+
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    bound = "__launch_bounds__(kDqNT, 2)"
+    if src.count(bound) != 1:
+        raise RuntimeError("the checkout's dq kernel has no two-CTA bound")
+    q, k, v, do = (r(1, 16, 8192, 128) for _ in range(4))
+    spec = masks.round_spec(0, 0, 8192, 8192, True, "contig")
+    _, lse, o = flash.flash_fwd(q, k, v, None, None, None, 128**-0.5, spec,
+                                emit_o=True)
+    args = (do, q, k, v, (o.float() * do.float()).sum(-1), lse, 128**-0.5,
+            spec)
+    work = _build.BUILD_DIR.parent / "dq_bounds"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(_build.CSRC, work)
+    built = _build._LIBS.pop("flash_bwd", None)
+    res, libs, outs = {}, {}, []
+    try:
+        for tag, text in (("two_ctas", bound), ("none", "__launch_bounds__"
+                                                        "(kDqNT)")):
+            (work / "flash_bwd.cu").write_text(src.replace(bound, text))
+            so = work / f"flash_bwd_{tag}.so"
+            log = subprocess.run(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                 str(so), str(work / "flash_bwd.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, check=True).stdout
+            lines = log.splitlines()
+            at = next(i for i, ln in enumerate(lines)
+                      if "Compiling entry" in ln and "dq_mma_kernel" in ln)
+            libs[tag] = ctypes.CDLL(str(so))
+            for fn, argtypes in _build.SIGNATURES["flash_bwd"].items():
+                getattr(libs[tag], fn).argtypes = list(argtypes)
+                getattr(libs[tag], fn).restype = ctypes.c_int
+            res[tag] = {"ptxas": [ln.split(":", 1)[-1].strip()
+                                  for ln in lines[at + 1:at + 4]
+                                  if "spill" in ln or "registers" in ln],
+                        "dq_ms": []}
+            _build._LIBS["flash_bwd"] = libs[tag]
+            outs.append(flash.flash_bwd(*args, fused=False)[0])
+        for tag in ("two_ctas", "none", "none", "two_ctas"):
+            _build._LIBS["flash_bwd"] = libs[tag]
+            res[tag]["dq_ms"].append(split_ms(torch, lambda: flash.flash_bwd(
+                *args, fused=False))["dq"])
+    finally:
+        _build._LIBS.pop("flash_bwd", None)
+        if built is not None:
+            _build._LIBS["flash_bwd"] = built
+    res["bitwise_equal"] = bool(torch.equal(*outs))
+    return res
+
+
+# the split pair's kernel names in every checkout: the SIMT kernels
+# (flash_bwd_dq_kernel, flash_bwd_kv_kernel) and the tensor-core bf16
+# instances (flash_bwd_dq_mma_kernel, flash_bwd_dkdv_mma_kernel)
+SPLIT_KERNELS = {"dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_mma_kernel"),
+                 "dkdv": ("flash_bwd_kv_kernel",
+                          "flash_bwd_dkdv_mma_kernel")}
+
+
 def split_ms(torch, fn, calls=3):
-    """Device ms a call of the split pair's dq and dk/dv kernels, from the
-    profiler (as chip_smoke.py's time_flash_bwd reads them)."""
+    """Device ms a launch of the split pair's dq and dk/dv kernels, from
+    the profiler (as chip_smoke.py's time_flash_bwd reads them), by either
+    generation's kernel names, over the launches the profiler recorded (a
+    later profiler session of a process has dropped some); raises if
+    either reads 0."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -228,12 +378,15 @@ def split_ms(torch, fn, calls=3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    res = {"dq": 0.0, "dkdv": 0.0}
+    total = {"dq": [0.0, 0], "dkdv": [0.0, 0]}
     for e in prof.key_averages():
-        for part, name in (("dq", "flash_bwd_dq_kernel"),
-                           ("dkdv", "flash_bwd_kv_kernel")):
-            if name in e.key:
-                res[part] += e.self_device_time_total / 1e3 / calls
+        for part, names in SPLIT_KERNELS.items():
+            if any(name in e.key for name in names):
+                total[part][0] += e.self_device_time_total / 1e3
+                total[part][1] += e.count
+    res = {part: t / n if n else 0.0 for part, (t, n) in total.items()}
+    if not (res["dq"] > 0 and res["dkdv"] > 0):
+        raise RuntimeError(f"split kernels not profiled: {res}")
     return res
 
 

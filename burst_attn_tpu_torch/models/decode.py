@@ -180,7 +180,13 @@ def sample_logits(logits, generator: Optional[torch.Generator] = None, *,
 
     nan_sentinel=True makes rows containing NaN sample -1: the paged
     decode step poisons a slot's logits with NaN when a live slot was
-    stepped without capacity, and the engine raises on the sentinel."""
+    stepped without capacity, and the engine raises on the sentinel.
+
+    The draw is torch.multinomial's own one-sample algorithm written out
+    (argmax of p / q, q ~ Exp(1) from `generator`): the same tokens from
+    the same generator state, without multinomial's host-side checks of
+    p, so a sampled tick never waits on the device and can be captured
+    in a CUDA graph."""
     bad = torch.isnan(logits).any(dim=-1) if nan_sentinel else None
     if temperature <= 0.0:
         tok = torch.argmax(logits, dim=-1)
@@ -201,6 +207,20 @@ def sample_logits(logits, generator: Optional[torch.Generator] = None, *,
         thresh = torch.where(keep, sorted_desc, float("inf")).amin(
             dim=-1, keepdim=True)
         logits = logits.masked_fill(logits < thresh, float("-inf"))
-    tok = torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                            generator=generator)[:, 0]
+    probs = torch.softmax(logits, dim=-1)
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    tok = torch.argmax(probs / noise, dim=-1)
     return tok if bad is None else torch.where(bad, -1, tok)
+
+
+def skip_draws(generator, shape, n: int, device) -> None:
+    """Advance `generator` past n of sample_logits' draws for [B, V]
+    logits of `shape` (temperature > 0), sampling nothing: the same noise
+    draws, discarded.  The pipelined engine rewinds a fused launch cut at
+    an EOS this way: restore the state from before the launch, then skip
+    the ticks it keeps."""
+    if generator is None:
+        return
+    for _ in range(n):
+        torch.empty(shape, dtype=torch.float32, device=device).exponential_(
+            1, generator=generator)

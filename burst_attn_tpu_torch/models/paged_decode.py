@@ -13,6 +13,11 @@ ops/paged_attention.py.
     into the pages); `paged_decode_step` appends one token per live slot
     and attends through the paged kernel.  A windowed model (cfg.window)
     bands both; the pages keep every token, as in the JAX package.
+  * `paged_prefill(cache=)` reuses the full prompt pages a `PrefixCache`
+    holds: only the suffix is computed, attending the gathered (and, on a
+    1-byte pool, dequantized) cached context plus itself through ONE
+    offset mask on the flash kernel (`_suffix_attention`), and the
+    prompt's full pages are registered for later requests.
 
 In-place updates: the JAX functions donate the state and return a new
 one.  Here the pools, table and lengths are updated IN PLACE (index_put_ /
@@ -32,9 +37,8 @@ never copied without its scales.  `PrefixCache` is the content-hashed
 index of full prompt pages the ragged engine shares through the pool's
 refcounts.
 
-Not ported yet: paged_multi_step, the suffix prefill (so `paged_prefill`
-takes no cache), PrefixCache.to_meta/from_meta and tensor-parallel
-meshes.
+Not ported yet: paged_multi_step, PrefixCache.to_meta/from_meta and
+tensor-parallel meshes.
 """
 
 import hashlib
@@ -47,8 +51,11 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops.flash import flash_fwd
+from ..ops.masks import MaskSpec
 from ..ops.paged_attention import (
-    QUANT_DTYPES, paged_decode_attention, pool_bytes, quantize_tokens,
+    QUANT_DTYPES, gather_pages, paged_decode_attention, pool_bytes,
+    quantize_tokens,
 )
 from .decode import _flash_prompt_attention
 from .transformer import (
@@ -346,16 +353,39 @@ def _write_tokens(pages, scales, page_id, offset, rows):
     scales[page_id, :, offset] = s
 
 
+def _suffix_attention(q, k, v, t_pre, q_hi, kv_hi, window=None):
+    """Causal attention of suffix queries (absolute positions t_pre..)
+    over the full [cached prefix + suffix] context: one offset MaskSpec —
+    col j visible from suffix row i iff j <= i + t_pre — on the flash
+    kernel (kernel 1) for a CUDA tensor, its plain version (tile_fwd) for
+    a CPU one.  q [B, N, T, D] and k, v [B, Nkv, S, D] may carry padded
+    tail rows and columns: q_hi and kv_hi keep them invisible, and a pad
+    row's output is 0.  Returns o [B, N, T, D] in q's dtype."""
+    spec = MaskSpec(0, int(q_hi), int(kv_hi), 1, int(t_pre))
+    _, _, o = flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                        None, None, None, q.shape[-1] ** -0.5, spec,
+                        window=window, emit_o=True)
+    return o
+
+
 def paged_prefill(params, tokens, state: PagedState, pool: PagePool,
-                  slot: int, cfg: ModelConfig, mesh=None, cache=None):
+                  slot: int, cfg: ModelConfig, mesh=None,
+                  cache: Optional[PrefixCache] = None):
     """Absorb one prompt [T] into batch slot `slot`: acquires ceil(T/page)
     pages, runs the prompt pass (flash attention + paged K/V scatter) and
     writes the slot's table row, all IN PLACE on `state`.  Returns
     (last-token logits [vocab] fp32, state).  On a failure the acquired
-    pages are released before re-raising."""
-    if mesh is not None or cache is not None:
-        raise NotImplementedError(
-            "tensor-parallel meshes and the prefix cache are not ported yet")
+    pages are released before re-raising.
+
+    `cache` (PrefixCache): the full pages whose token prefix is cached
+    are REUSED — their K/V is never recomputed; the suffix runs a shorter
+    prefill that attends the cached context through an offset mask
+    (_suffix_attention) — and the prompt's own full pages are registered
+    (the whole chain, hits included).  At least one suffix token always
+    stays: its logits are the caller's.  On a failure the lookup's
+    references are released with the acquired pages."""
+    if mesh is not None:
+        raise NotImplementedError("tensor-parallel meshes are not ported yet")
     dev = state.lengths.device
     tokens = torch.as_tensor(tokens, device=dev).reshape(-1).long()
     t = tokens.numel()
@@ -369,13 +399,79 @@ def paged_prefill(params, tokens, state: PagedState, pool: PagePool,
     if length != 0:
         raise RuntimeError(f"slot {slot} is still live (len {length}); "
                            "retire_slot first or its pages leak")
+    hashes: List[bytes] = []
+    if cache is not None:
+        hashes = PrefixCache.chain(tokens.cpu().numpy(), page,
+                                   dtype=pool.dtype)
+        hits = cache.lookup(hashes[:(t - 1) // page])
+        if hits:
+            t_pre = len(hits) * page
+            ids: List[int] = []
+            try:
+                # inside the try: an exhausted pool must release the
+                # lookup's references too
+                ids = pool.acquire(-(-(t - t_pre) // page))
+                logits = _prefill_suffix(params, tokens[t_pre:], state, hits,
+                                         ids, slot, cfg)
+            except Exception:
+                pool.release(ids + hits)  # hits carry the lookup's refs
+                raise
+            n_full = t // page
+            cache.insert(hashes[:n_full], hits + ids[:n_full - len(hits)])
+            return logits, state
     ids = pool.acquire(n_need)
     try:
         logits = _prefill(params, tokens, state, ids, slot, cfg)
     except Exception:
         pool.release(ids)
         raise
+    if cache is not None:
+        cache.insert(hashes[:t // page], ids[:t // page])
     return logits, state
+
+
+def _prefill_suffix(params, suffix, state: PagedState, ctx_ids, suf_ids,
+                    slot, cfg):
+    """Prefill of a prompt whose first t_pre = len(ctx_ids) * page tokens'
+    K/V already sit in cached pages: q/k/v for the SUFFIX only (padded to
+    whole pages), attention over the gathered context + suffix through
+    one offset mask, the suffix K/V scattered into suf_ids, and the slot's
+    table row pointed at [ctx_ids | suf_ids].  Returns the last prompt
+    token's logits [vocab] fp32."""
+    t_suf = suffix.numel()
+    dev = suffix.device
+    page = state.k_pages[0].shape[2]
+    t_pre = len(ctx_ids) * page
+    t_pad = len(suf_ids) * page
+    toks = F.pad(suffix, (0, t_pad - t_suf))[None]
+    pos = t_pre + torch.arange(t_pad, device=dev)[None]
+    ctx = torch.tensor(ctx_ids, dtype=torch.long, device=dev)
+    page_ids = torch.tensor(suf_ids, dtype=torch.long, device=dev)
+    x = params["embed"][toks].to(cfg.dtype)
+    quant = state.k_scales is not None
+    for li, p in enumerate(params["layers"]):
+        ks = state.k_scales[li] if quant else None
+        vs = state.v_scales[li] if quant else None
+        q, k, v = _qkv_proj(p, x, pos, cfg)
+        # the context dequantized through the pool's gather; the padded
+        # suffix rows and columns stay invisible (q_hi, kv_hi)
+        kc = gather_pages(state.k_pages[li], ks, ctx)[None].to(cfg.dtype)
+        vc = gather_pages(state.v_pages[li], vs, ctx)[None].to(cfg.dtype)
+        o = _suffix_attention(q, torch.cat([kc, k.to(cfg.dtype)], dim=2),
+                              torch.cat([vc, v.to(cfg.dtype)], dim=2),
+                              t_pre, q_hi=t_suf, kv_hi=t_pre + t_suf,
+                              window=cfg.window)
+        _scatter_pages(state.k_pages[li], k, page_ids, ks)
+        _scatter_pages(state.v_pages[li], v, page_ids, vs)
+        x = x + _attn_out(p, o)
+        x = x + _mlp(p, x)
+    x = _rms_norm(x[:, t_suf - 1:t_suf], params["final_norm"])
+    logits = _logits(x, params["lm_head"])[0, 0]
+    state.page_table[slot] = 0
+    state.page_table[slot, :len(ctx_ids) + len(suf_ids)] = torch.cat(
+        [ctx, page_ids]).to(torch.int32)
+    state.lengths[slot] = t_pre + t_suf
+    return logits
 
 
 def _prefill(params, tokens, state: PagedState, ids, slot, cfg):

@@ -21,9 +21,16 @@ token fetch per step.
 `quantize=True | "int8" | "fp8"` stores the pool at 1 B/elem with
 per-token scales (models/paged_decode.py).
 
-Not ported yet: speculative serving (`draft_params`), the prefix cache
-(it needs the suffix prefill), the write-ahead journal, tensor-parallel
-meshes, and the obs metrics and request tracing.
+`prefix_cache=True` keeps a content-hashed `PrefixCache` of full prompt
+pages: admission reuses the cached pages of a prompt's longest cached
+prefix and prefills only the suffix (`paged_prefill(cache=)`: kernel 1
+on an offset mask over the cached context), and registers the prompt's
+full pages.  Cached pages outlive their requests (the cache holds one
+reference each); under pool pressure admission evicts the least recently
+used ones that no live request shares.
+
+Not ported yet: speculative serving (`draft_params`), the write-ahead
+journal, tensor-parallel meshes, and the obs metrics and request tracing.
 """
 
 from dataclasses import dataclass, field
@@ -39,8 +46,8 @@ from ..admission import (
 from ..device import resolve_device
 from .decode import sample_logits
 from .paged_decode import (
-    init_paged_state, paged_decode_step, paged_prefill, provision_capacity,
-    retire_slot,
+    PrefixCache, init_paged_state, paged_decode_step, paged_prefill,
+    provision_capacity, retire_slot,
 )
 from .transformer import ModelConfig
 
@@ -69,10 +76,6 @@ class ServeEngine:
                  journal=None, device=None):
         if draft_params is not None or draft_cfg is not None:
             raise NotImplementedError("speculative serving is not ported yet")
-        if prefix_cache:
-            raise NotImplementedError(
-                "the ServeEngine prefix cache (suffix prefill) is not ported "
-                "yet; RaggedServeEngine has one")
         if journal is not None:
             raise NotImplementedError("the token journal is not ported yet")
         if mesh is not None:
@@ -97,6 +100,7 @@ class ServeEngine:
             cfg, slots=slots, n_pages=n_pages, page=page,
             max_pages_per_seq=max_pages_per_seq, quantize=quantize,
             device=self.device)
+        self.cache = PrefixCache(self.pool) if prefix_cache else None
         self.slots: List[Optional[_Request]] = [None] * slots
         self._next_tok = np.zeros((slots,), np.int64)
         self._queue: List[_Request] = []
@@ -197,7 +201,8 @@ class ServeEngine:
         its request BACK at the queue head (generated tokens reset; under
         greedy decoding the prefill re-samples the identical first token).
         Returns the requeued rids in their new queue order.  The engine
-        stays usable — run() after drain() serves everything."""
+        stays usable — run() after drain() serves everything.  The prefix
+        cache keeps its pages."""
         inflight = [req for req in self.slots if req is not None]
         for slot, req in enumerate(self.slots):
             if req is not None:
@@ -223,12 +228,18 @@ class ServeEngine:
             if occupant is not None or not self._queue:
                 continue
             req = self._queue[0]
-            if self._pages_for(len(req.prompt), req.max_new_tokens) \
-                    > self.pool.available:
+            need = self._pages_for(len(req.prompt), req.max_new_tokens)
+            if need > self.pool.available and self.cache is not None:
+                # cached pages no live request shares free up here (LRU);
+                # the estimate is cache-blind, so this can evict prefixes
+                # the request would have reused: correct, conservative
+                self.cache.evict(need - self.pool.available)
+            if need > self.pool.available:
                 break
             try:
                 logits, _ = paged_prefill(self.params, req.prompt, self.state,
-                                          self.pool, slot, self.cfg)
+                                          self.pool, slot, self.cfg,
+                                          cache=self.cache)
                 provision_capacity(self.state, self.pool, slot,
                                    req.max_new_tokens)
             except Exception:

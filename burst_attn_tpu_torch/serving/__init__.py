@@ -15,13 +15,12 @@ pool, one engine.
     sequence-parallel paged decode (`handoff_generate`,
     `ring_prefill_to_pages`).
 
-Not ported yet: the checkpoint layer, the pipelined engine and
-speculative serving.
+Not ported yet: the checkpoint layer and speculative serving.
 """
 
 from .engine import RaggedServeEngine
 from .handoff import handoff_generate, ring_prefill_to_pages
-from .model import ragged_model_step
+from .model import multi_step_decode, pipelined_tick, ragged_model_step
 
-__all__ = ["RaggedServeEngine", "handoff_generate", "ragged_model_step",
-           "ring_prefill_to_pages"]
+__all__ = ["RaggedServeEngine", "handoff_generate", "multi_step_decode",
+           "pipelined_tick", "ragged_model_step", "ring_prefill_to_pages"]

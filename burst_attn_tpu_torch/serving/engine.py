@@ -25,6 +25,23 @@ same launch that decodes:
     barrier first; ticks where >= 2 live slots share pinned pages run the
     grouped launch (`group_attn`).
   * `quantize=True | "int8" | "fp8"` stores the pool at 1 B/elem.
+  * Pipelined (`pipeline=True`): each tick dispatches the NEXT launch
+    before it reads the previous one back, so the host's scheduling of
+    tick N+1 overlaps the device's work on tick N; delivery lags one tick.
+    When no admission or retirement can land at the unread launch's
+    readback, the next launch is dispatched speculatively on its still
+    on-device choices; an EOS the readback finds retires a stream the
+    speculation assumed live, and the speculative launch is discarded
+    (lengths and generator rolled back).  `multi_step=K` fuses up to K
+    pure-decode ticks into one launch: on the card one replay of a CUDA
+    graph of K ticks (`model.DecodeGraphs`), cut at its first EOS by the
+    readback.  Streams are token-exact with the synchronous engine, greedy
+    and sampled: every launch is the synchronous tick's computation, and
+    a rollback restores the generator to where the synchronous engine's
+    draws leave it.  The dispatch waits on nothing the device runs: host
+    values go up through pinned memory, the choices come down into pinned
+    memory behind an event, and lengths and table rows are read from host
+    mirrors.
 
 Kernel routing: `ragged_supported` probes each launch width once, on shape
 alone; a declined shape takes the dense route and counts one
@@ -34,11 +51,13 @@ raises.
 Metrics: the JAX engine's obs instruments are not ported; `stats` keeps
 the counts under the JAX counter names (`serve.ragged_batch_launches`
 by kind, `serve.prefix_hits`, `serve.cow_copies`,
-`serve.prefill_tokens_skipped`, `burst.fused_fallback`), plus
-`serve.grouped_launches`, the ticks that took the grouped launch.
+`serve.prefill_tokens_skipped`, `burst.fused_fallback`,
+`serve.multi_step_launches{k=K}`, `serve.pipeline_reconciles{cause=
+eos-retire|scan-eos}`), plus `serve.grouped_launches`, the ticks that
+took the grouped launch.  `graphs.captures` and `graphs.replays` count
+the K-tick CUDA graphs.
 
-Not ported yet: speculative decoding (`draft_params`), the journal,
-`pipeline=True` and `multi_step > 1`.
+Not ported yet: speculative decoding (`draft_params`) and the journal.
 """
 
 from collections import Counter
@@ -53,12 +72,14 @@ from ..admission import (
     SubmitResult,
 )
 from ..device import resolve_device
-from ..models.decode import sample_logits
+from ..models.decode import skip_draws
 from ..models.paged_decode import PrefixCache, init_paged_state
 from ..models.transformer import ModelConfig
 from ..ops.ragged_paged import ragged_supported
-from .model import assign_pages, cow_pages, free_slot, free_slots, \
-    ragged_model_step
+from .model import (
+    DecodeGraphs, assign_pages, cow_pages, free_slot, free_slots,
+    multi_step_decode, pipelined_tick, upload,
+)
 
 # reason-string prefix -> bounded counter label (probe reasons embed
 # shapes, which would explode label cardinality verbatim)
@@ -90,6 +111,39 @@ class _Request:
     hashes: Optional[List[bytes]] = None  # full-page prefix chain, memoized
 
 
+@dataclass
+class _Pending:
+    """A launch whose sampled choices are still on the device: what the
+    deferred readback needs to replay the synchronous engine's post-sample
+    accounting one tick late."""
+    choices: torch.Tensor        # [k, slots] int64, on the device
+    host: Optional[torch.Tensor]  # pinned [k, slots], filled behind `event`
+    event: Optional[torch.cuda.Event]
+    k: int                       # fused decode depth (1 = one tick)
+    q_lens: np.ndarray           # [slots] tokens a tick
+    advance: np.ndarray          # [slots] length advance (q_lens * k)
+    prefill_advance: np.ndarray  # [slots] prompt tokens consumed (k == 1)
+    tok_delta: np.ndarray        # [slots] tokens the readback appends if no
+    #                              EOS fires inside the launch
+    rng_before: Optional[torch.Tensor]  # generator state before the launch
+    table_rows: Dict[int, np.ndarray]   # slot -> table row at dispatch, for
+    #                              prefix registration at readback
+
+    @property
+    def feed_next(self) -> torch.Tensor:
+        """The last tick's choices: the next launch's tokens."""
+        return self.choices[-1]
+
+
+def _readback_choices(p: _Pending) -> np.ndarray:
+    """THE pipeline sync point: wait for an in-flight launch's sampled
+    choices and return them [k, slots] on the host."""
+    if p.event is None:
+        return p.choices.numpy()
+    p.event.synchronize()
+    return p.host.numpy()
+
+
 class RaggedServeEngine:
     """Host-side continuous-batching loop over ragged_model_step.  Not
     thread-safe; drive it from one thread.  `params` must live on `device`
@@ -114,10 +168,12 @@ class RaggedServeEngine:
             raise NotImplementedError("the token journal is not ported yet")
         if multi_step < 1:
             raise ValueError(f"multi_step must be >= 1, got {multi_step}")
-        if pipeline or multi_step > 1:
-            raise NotImplementedError(
-                "the pipelined engine (pipeline=True, multi_step > 1) is not "
-                "ported yet")
+        if multi_step > 1 and not pipeline:
+            raise ValueError("multi_step > 1 requires pipeline=True")
+        self.pipeline = bool(pipeline)
+        self.multi_step = int(multi_step)
+        self._pending: Optional[_Pending] = None
+        self._flushed_done: List[Tuple[int, List[int]]] = []
         self.device = resolve_device(device)
         # logits accumulate in fp32: upcast lm_head once, not per tick
         self.params = dict(params, lm_head=params["lm_head"].float())
@@ -150,10 +206,19 @@ class RaggedServeEngine:
         self._shared: Dict[int, Tuple[int, ...]] = {}
         self.slots: List[Optional[_Request]] = [None] * slots
         self._next_tok = np.zeros((slots,), np.int32)
+        # host mirrors of the device lengths (as every dispatched launch
+        # leaves them) and page table: the dispatch path reads these, never
+        # the device
+        self._lengths = np.zeros((slots,), np.int64)
+        self._table = np.zeros((slots, max_pages_per_seq), np.int32)
         self._queue: List[_Request] = []
         self._next_id = 0
         self._finished: Dict[int, List[int]] = {}
         self.stats: Counter = Counter()
+        # the K-tick decode graphs (the card only; the CPU runs K ticks)
+        self.graphs = (DecodeGraphs(self.params, self.state, cfg, self._rng)
+                       if self.device.type == "cuda" and self.multi_step > 1
+                       else None)
 
     # -- client surface ----------------------------------------------------
 
@@ -248,10 +313,13 @@ class RaggedServeEngine:
         its request BACK at the queue head (reset to un-prefilled; greedy
         decode regenerates the identical tokens on re-admission).  Returns
         the requeued rids in their new queue order.  The engine stays
-        usable — run() after drain() serves everything."""
+        usable — run() after drain() serves everything.  A pipelined engine
+        first flushes its in-flight launch (its finishers retire and come
+        back from the next step())."""
+        self.flush_pipeline()
         inflight = [req for req in self.slots if req is not None]
         live_slots = [s for s, req in enumerate(self.slots) if req is not None]
-        free_slots(self.state, self.pool, live_slots)
+        self._free(live_slots)
         self.slots = [None] * len(self.slots)
         self._shared.clear()
         inflight.sort(key=lambda r: r.rid)
@@ -296,15 +364,23 @@ class RaggedServeEngine:
                                            dtype=self.pool.dtype)
         return req.hashes
 
-    def _register_prefix(self, slot: int, req: _Request) -> None:
-        """Register a just-prefilled prompt's full pages.  Runs after the
-        prompt-completing chunk, so the ids are the post-CoW ones."""
+    def _register_prefix(self, slot: int, req: _Request,
+                         row: np.ndarray) -> None:
+        """Register a just-prefilled prompt's full pages.  `row` is the
+        slot's table row as the prompt-completing launch saw it, after its
+        CoW barrier (captured at dispatch: a later launch's CoW cannot shift
+        the registered ids)."""
         if self.cache is None:
             return
         hashes = self._hashes(req)
         if hashes:
-            row = self.state.page_table[slot, :len(hashes)].tolist()
-            self.cache.insert(hashes, row)
+            self.cache.insert(hashes, [int(x) for x in row[:len(hashes)]])
+
+    def _free(self, slots: List[int]) -> None:
+        """free_slots and the host mirrors with it."""
+        free_slots(self.state, self.pool, slots)
+        self._table[slots] = 0
+        self._lengths[slots] = 0
 
     def _admit(self) -> None:
         """Reserve queued requests' full page lifetime into free slots
@@ -337,11 +413,13 @@ class RaggedServeEngine:
             ids = self.pool.acquire(need)
             try:
                 assign_pages(self.state, slot, hits + ids)
+                self._table[slot, :len(hits) + len(ids)] = hits + ids
                 if hits:
                     t_pre = len(hits) * self.page
                     t_resume = (t_pre if t_pre < len(req.prompt)
                                 else len(req.prompt) - 1)
                     self.state.lengths[slot] = t_resume
+                    self._lengths[slot] = t_resume
                     req.n_prefilled = t_resume
                     self._shared[slot] = tuple(hits)
                     self._count("serve.prefix_hits")
@@ -352,6 +430,8 @@ class RaggedServeEngine:
                 req.n_prefilled = 0
                 self._shared.pop(slot, None)
                 free_slot(self.state, self.pool, slot)
+                self._table[slot] = 0
+                self._lengths[slot] = 0
                 raise
             self._queue.pop(0)
             self.slots[slot] = req
@@ -360,16 +440,21 @@ class RaggedServeEngine:
         """Privatize every page the imminent launch will scatter into while
         the allocator holds it at refcount > 1, and trim the slot's
         pinned-prefix key past the first privatized column.  Skipped
-        entirely unless the pool holds a shared page."""
+        entirely unless the pool holds a shared page.  Reads lengths and
+        rows from the host mirrors."""
         if not self.pool.has_shared:
             return
         for slot, req in enumerate(self.slots):
             if req is None or not q_lens[slot]:
                 continue
             _, copies = cow_pages(self.state, self.pool, slot,
-                                  int(q_lens[slot]), cache=self.cache)
+                                  int(q_lens[slot]), cache=self.cache,
+                                  length=int(self._lengths[slot]),
+                                  row=self._table[slot])
             if not copies:
                 continue
+            for col, _, new in copies:
+                self._table[slot, col] = new
             self._count("serve.cow_copies", len(copies))
             shared = self._shared.get(slot)
             if shared:
@@ -408,14 +493,8 @@ class RaggedServeEngine:
             lens[g] = len(key) * self.page
             for s in members:
                 gid[s] = g
-        return tuple(torch.from_numpy(a).to(self.device)
+        return tuple(upload(a, torch.int32, self.device)
                      for a in (gid, table, lens))
-
-    def _sample(self, logits) -> np.ndarray:
-        return sample_logits(
-            logits, self._rng, temperature=self.temperature,
-            top_k=self.top_k, top_p=self.top_p,
-            nan_sentinel=True).cpu().numpy()
 
     def _retire_finished(self) -> List[Tuple[int, List[int]]]:
         done = []
@@ -432,24 +511,139 @@ class RaggedServeEngine:
                 self._finished[req.rid] = req.tokens
                 done.append((req.rid, req.tokens))
         # one batched table edit for the whole wave
-        free_slots(self.state, self.pool, retiring)
+        self._free(retiring)
         return done
 
     def step(self) -> List[Tuple[int, List[int]]]:
         """One engine tick: retire -> admit -> ONE ragged launch moving
-        every active slot (prefill chunks + decode singles together).
-        Returns requests that finished THIS tick."""
+        every active slot (prefill chunks + decode singles together) ->
+        its readback.  Returns requests that finished THIS tick.  A
+        pipelined engine (pipeline=True) returns the requests its PREVIOUS
+        launch finished: see _pipelined_step."""
+        if self.pipeline:
+            return self._pipelined_step()
         done = self._retire_finished()
         self._admit()
         if self.live == 0:
             return done
+        self._readback(self._launch_deferred())
+        done += self._retire_finished()
+        return done
 
+    # -- pipelined engine --------------------------------------------------
+    #
+    # Under pipeline=True one launch stays in flight: each tick dispatches
+    # the NEXT launch (speculatively, when no admission or retirement can
+    # land at the unread launch's readback) BEFORE it waits for the
+    # previous one, whose readback replays the synchronous engine's
+    # accounting one tick late.  The synchronous tick is the same dispatch
+    # followed at once by its readback.
+
+    def _spec_plan(self) -> Optional[int]:
+        """Fused decode depth k for a speculative launch on top of the
+        unread pending launch, or None when the synchronous engine could
+        admit or retire at the pending readback (EOS is the one event this
+        cannot predict: the reconcile in _pipelined_step handles it)."""
+        p = self._pending
+        if self._queue and any(r is None for r in self.slots):
+            return None                  # admission would land next tick
+        any_live = False
+        k = self.multi_step
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            any_live = True
+            if req.n_prefilled + int(p.prefill_advance[slot]) \
+                    < len(req.prompt):
+                return None              # still mid-prefill after pending
+            remaining = req.max_new_tokens \
+                - (len(req.tokens) + int(p.tok_delta[slot]))
+            if remaining < 1:
+                return None              # budget retire at pending readback
+            k = min(k, remaining)
+        if not any_live:
+            return None
+        if self._shared and self.group_attn:
+            # shared-prefix ticks follow the synchronous engine's per-tick
+            # grouped-launch decision; never fuse across them
+            k = 1
+        return k
+
+    def _dispatch_deferred(self, *, feed, q_lens, qt, k, prefill_advance,
+                           tok_delta, kind) -> _Pending:
+        """Shared dispatch of both launch flavours: CoW-protect the window,
+        route the kernel, launch, and start the choices' copy to pinned
+        host memory, WITHOUT waiting for any of it.  `feed` is the
+        [slots, qt] token grid for k == 1 or the [slots] next-token feed
+        of a fused k-tick launch (host numpy or a device tensor still in
+        flight)."""
+        self._cow_barrier(q_lens * k)
+        # the post-CoW table row of each slot this launch completes the
+        # prompt of: prefix registration at readback must see the table as
+        # the synchronous engine would, before a later launch's CoW
+        table_rows: Dict[int, np.ndarray] = {}
+        if self.cache is not None:
+            for slot, req in enumerate(self.slots):
+                if req is not None and prefill_advance[slot] and \
+                        req.n_prefilled + int(prefill_advance[slot]) \
+                        == len(req.prompt):
+                    table_rows[slot] = self._table[slot].copy()
+        attn = self._attn_for(qt)
+        sampled = self.temperature > 0
+        rng_before = self._rng.get_state() if sampled else None
+        if not torch.is_tensor(feed):
+            feed = upload(feed, torch.long, self.device)
+        q_lens_dev = upload(q_lens, torch.int32, self.device)
+        sampling = dict(temperature=self.temperature, top_k=self.top_k,
+                        top_p=self.top_p)
+        if k > 1:
+            choices, _, _ = multi_step_decode(
+                self.params, feed, q_lens_dev, self.state, self._rng,
+                self.cfg, k=k, attn=attn, graphs=self.graphs, **sampling)
+            self._count("serve.multi_step_launches", k=k)
+        else:
+            groups = (self._build_groups()
+                      if self.group_attn and self._shared
+                      and attn == "ragged" else None)
+            grouped = {}
+            if groups is not None:
+                attn = "grouped"
+                grouped = dict(zip(("group_id", "shared_table",
+                                    "shared_lens"), groups))
+                self._count("serve.grouped_launches")
+            choice, _ = pipelined_tick(
+                self.params, feed, q_lens_dev, self.state, self._rng,
+                self.cfg, attn=attn, **sampling, **grouped)
+            choices = choice[None]
+        self._count("serve.ragged_batch_launches", kind=kind)
+        advance = (q_lens * k).astype(np.int64)
+        self._lengths += advance
+        host = event = None
+        if choices.is_cuda:
+            host = torch.empty(choices.shape, dtype=choices.dtype,
+                               pin_memory=True)
+            host.copy_(choices, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return _Pending(
+            choices=choices, host=host, event=event, k=k, q_lens=q_lens,
+            advance=advance, prefill_advance=prefill_advance,
+            tok_delta=tok_delta, rng_before=rng_before,
+            table_rows=table_rows)
+
+    def _launch_deferred(self) -> _Pending:
+        """The synchronous tick's batch build — prefill chunks + decode
+        singles from the fully accounted host state — as one launch, fused
+        to multi_step depth when every live slot is pure-decode and no
+        admission or retirement can land inside the window."""
         prefilling = [s for s, r in enumerate(self.slots)
                       if r is not None and r.n_prefilled < len(r.prompt)]
         qt = self.chunk if prefilling else 1
         slots = len(self.slots)
         toks = np.zeros((slots, qt), np.int32)
         q_lens = np.zeros((slots,), np.int32)
+        prefill_advance = np.zeros((slots,), np.int32)
+        tok_delta = np.zeros((slots,), np.int32)
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -457,49 +651,171 @@ class RaggedServeEngine:
                 seg = req.prompt[req.n_prefilled:req.n_prefilled + qt]
                 toks[slot, :len(seg)] = seg
                 q_lens[slot] = len(seg)
+                prefill_advance[slot] = len(seg)
+                if req.n_prefilled + len(seg) == len(req.prompt):
+                    tok_delta[slot] = 1
             else:
                 toks[slot, 0] = self._next_tok[slot]
                 q_lens[slot] = 1
-        self._cow_barrier(q_lens)
-        attn = self._attn_for(qt)
-        groups = (self._build_groups()
-                  if self.group_attn and self._shared and attn == "ragged"
-                  else None)
-        toks_dev = torch.from_numpy(toks).to(self.device)
-        q_lens_dev = torch.from_numpy(q_lens).to(self.device)
-        if groups is not None:
-            gid, gtable, glens = groups
-            logits, _ = ragged_model_step(
-                self.params, toks_dev, q_lens_dev, self.state, self.cfg,
-                attn="grouped", group_id=gid, shared_table=gtable,
-                shared_lens=glens)
-        else:
-            logits, _ = ragged_model_step(
-                self.params, toks_dev, q_lens_dev, self.state, self.cfg,
-                attn=attn)
-        choice = self._sample(logits)
+                tok_delta[slot] = 1
+        k = 1
+        if not prefilling and self.multi_step > 1 \
+                and not (self._shared and self.group_attn) \
+                and not (self._queue
+                         and any(r is None for r in self.slots)):
+            k = self.multi_step
+            for req in self.slots:
+                if req is not None:
+                    k = min(k, req.max_new_tokens - len(req.tokens))
+            k = max(1, k)
+        if k > 1:
+            tok_delta = q_lens * k
         kind = ("mixed" if prefilling and len(prefilling) < self.live
                 else "prefill" if prefilling else "decode")
-        self._count("serve.ragged_batch_launches", kind=kind)
-        if groups is not None:
-            self._count("serve.grouped_launches")
+        return self._dispatch_deferred(
+            feed=(toks if k == 1 else toks[:, 0]), q_lens=q_lens, qt=qt,
+            k=k, prefill_advance=prefill_advance, tok_delta=tok_delta,
+            kind=kind)
 
-        for slot, req in enumerate(self.slots):
-            if req is None:
-                continue
-            if choice[slot] < 0:  # sample_logits NaN-poison sentinel
-                raise RuntimeError(
-                    f"slot {slot} (rid {req.rid}) logits are NaN-poisoned: "
-                    "a live slot was stepped without assigned pages")
-            if req.n_prefilled < len(req.prompt):
-                req.n_prefilled += int(q_lens[slot])
-                if req.n_prefilled < len(req.prompt):
+    def _launch_speculative(self, k: int) -> _Pending:
+        """Launch the next k decode ticks on top of the UNREAD pending
+        launch, its last on-device choice row as their tokens: nothing
+        read back between the two launches."""
+        p = self._pending
+        slots = len(self.slots)
+        q_lens = np.asarray([1 if r is not None else 0
+                             for r in self.slots], np.int32)
+        feed = p.feed_next
+        return self._dispatch_deferred(
+            feed=(feed[:, None] if k == 1 else feed), q_lens=q_lens, qt=1,
+            k=k, prefill_advance=np.zeros((slots,), np.int32),
+            tok_delta=q_lens * k, kind="decode")
+
+    def _rollback_lengths(self, undo: np.ndarray) -> None:
+        """Take `undo` [slots] tokens off the device lengths IN PLACE (the
+        decode graphs hold their address) and off the mirror; the K/V
+        scattered past the new lengths is overwritten before it is read."""
+        self.state.lengths.sub_(upload(undo, torch.int32, self.device))
+        self._lengths -= undo
+
+    def _readback(self, p: _Pending) -> Tuple[int, bool, bool]:
+        """Deferred host half of launch `p`: wait for its sampled choices
+        (the pipeline's sync point) and replay the synchronous engine's
+        post-sample accounting.  A fused launch is cut at its FIRST EOS
+        tick — tokens past it are schedule the synchronous engine never
+        produces — by rolling the lengths back and rewinding the generator
+        to the state before the launch plus the draws of the kept ticks.
+        Returns (tokens added, diverged, truncated); `diverged` means the
+        readback produced an event (EOS, budget retire, truncation) that
+        invalidates any launch speculated on top of this one."""
+        choices = _readback_choices(p)
+        slots = len(self.slots)
+        keep = p.k
+        if p.k > 1 and self.eos_id is not None:
+            for j in range(p.k):
+                if any(self.slots[s] is not None and p.q_lens[s]
+                       and choices[j, s] == self.eos_id
+                       for s in range(slots)):
+                    keep = j + 1
+                    break
+        added = 0
+        nan_at = None
+        for j in range(keep):
+            row = choices[j]
+            for slot, req in enumerate(self.slots):
+                if req is None or not p.q_lens[slot]:
                     continue
-                # the chunk completed the prompt: its last-token logits ARE
-                # the first-token distribution
-                self._register_prefix(slot, req)
-            tok = int(choice[slot])
-            req.tokens.append(tok)
-            self._next_tok[slot] = tok
-        done += self._retire_finished()
+                if row[slot] < 0:  # sample_logits NaN-poison sentinel
+                    nan_at = (slot, req.rid)
+                    break
+                if j == 0 and p.prefill_advance[slot]:
+                    req.n_prefilled += int(p.prefill_advance[slot])
+                    if req.n_prefilled < len(req.prompt):
+                        continue
+                    # the chunk completed the prompt: its last-token logits
+                    # ARE the first-token distribution
+                    self._register_prefix(slot, req, p.table_rows.get(slot))
+                tok = int(row[slot])
+                req.tokens.append(tok)
+                self._next_tok[slot] = tok
+                added += 1
+            if nan_at is not None:
+                break
+        truncated = keep < p.k
+        if truncated:
+            self._rollback_lengths(np.where(p.q_lens > 0, p.k - keep, 0))
+            if p.rng_before is not None:
+                self._rng.set_state(p.rng_before)
+                skip_draws(self._rng, (slots, self.cfg.vocab), keep,
+                           self.device)
+            self._count("serve.pipeline_reconciles", cause="scan-eos")
+        if nan_at is not None:
+            slot, rid = nan_at
+            raise RuntimeError(
+                f"slot {slot} (rid {rid}) logits are NaN-poisoned: a live "
+                "slot was stepped without assigned pages")
+        eos = self.eos_id is not None and any(
+            req is not None and req.tokens
+            and req.tokens[-1] == self.eos_id for req in self.slots)
+        budget = any(
+            req is not None and len(req.tokens) >= req.max_new_tokens
+            for req in self.slots)
+        return added, (eos or budget or truncated), truncated
+
+    def _pipelined_step(self) -> List[Tuple[int, List[int]]]:
+        """One pipelined tick: dispatch the next launch (speculatively if
+        safe), THEN wait for the previous one — its results are what this
+        call returns, so delivery lags one tick.  When the readback retires
+        a stream the speculation assumed live, the speculative launch is
+        rolled back (lengths and generator) and the tick falls back to the
+        synchronous retire/admit/launch sequence, so the schedule is always
+        the synchronous engine's."""
+        done = self._flushed_done
+        self._flushed_done = []
+        p = self._pending
+        if p is None:
+            # pipeline (re)fill: the synchronous tick's head, one deferred
+            # launch, nothing to read back yet
+            done += self._retire_finished()
+            self._admit()
+            if self.live:
+                self._pending = self._launch_deferred()
+            return done
+        k_spec = self._spec_plan()
+        spec = self._launch_speculative(k_spec) if k_spec else None
+        self._pending = None
+        _, diverged, truncated = self._readback(p)
+        if spec is not None and diverged:
+            # reconcile: discard the speculative launch (its K/V sits past
+            # the logical lengths and is overwritten before it is read)
+            self._rollback_lengths(spec.advance)
+            if spec.rng_before is not None and not truncated:
+                # (a truncation already rewound the generator)
+                self._rng.set_state(spec.rng_before)
+            self._count("serve.pipeline_reconciles", cause="eos-retire")
+            spec = None
+        if spec is not None:
+            # the speculation was right: the launch in flight IS the next
+            # tick
+            self._pending = spec
+        else:
+            done += self._retire_finished()
+            self._admit()
+            if self.live:
+                self._pending = self._launch_deferred()
+        return done
+
+    def flush_pipeline(self) -> List[Tuple[int, List[int]]]:
+        """Quiesce the pipeline: wait for any in-flight launch, run its
+        deferred accounting and retire its finishers.  They are also
+        queued onto the next step()'s return, so a loop polling step()
+        loses no completion.  A no-op with nothing in flight (and on a
+        synchronous engine).  drain() calls it first."""
+        p = self._pending
+        if p is None:
+            return []
+        self._pending = None
+        self._readback(p)
+        done = self._retire_finished()
+        self._flushed_done.extend(done)
         return done

@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; nothing is caught):
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes, with its time, the plain version's time, one
      PyTorch library call's time (a yardstick only, never used by the
-     port) and its roofline bound: flash forward; paged decode (the
+     port) and its roofline bound: flash forward, and on the prefix
+     cache's suffix mask (t_suf queries padded to the page after t_pre
+     cached keys, causal at offset t_pre; bf16 and fp32; timed beside
+     SDPA with the same offset mask); paged decode (the
      ragged kernel's QT=1 instance) on bf16, fp32, int8 and fp8 pools;
      the ragged kernel on a mixed prefill + decode batch (fp32, bf16,
      int8, fp8 pools), its split-k partials with a page-aligned ctx_lo
@@ -39,14 +42,27 @@ Phases (any failure exits non-zero; nothing is caught):
      seed): 12 requests over 8 slots in bf16 and fp32, plus a bf16 run
      with plain attention (the noise floor), the fp32 model on an int8
      pool against plain attention, launch counters read around each run,
-     greedy tokens teacher-forced through the dense plain forward;
+     greedy tokens teacher-forced through the dense plain forward; the
+     prefix cache (`prefix_cache=True`, fp32): a 1024-token template,
+     8 requests on it, tokens equal to cache off, every prefill a suffix
+     prefill through kernel 1 (launches counted), the cache's pages and
+     the pool as the arithmetic says; bf16 TTFT of a 2048-token prompt
+     with its first 1024 tokens cached and uncached, profiled;
   5. the RaggedServeEngine at the same width (chunk 128): the same 12
      requests in bf16, fp32 (token-exact with the dense forward and with
      the fp32 ServeEngine) and with plain attention; a prefix-cache wave
      on a 1024-token template (tokens equal to the cache-off run, counter
      values as expected, the pool empty after drain and evict); int8 and
      fp8 pools against plain attention; TTFT of a 2048-token prompt, a
-     decode tick and a mixed tick, with a profiler breakdown;
+     decode tick and a mixed tick, with a profiler breakdown; then the
+     pipelined engine (`pipeline=True`) at K=1 and K=4 (`multi_step`,
+     one CUDA graph replay a fused launch): fp32 token-exact with the
+     synchronous engine, bf16 equal or flipped at near ties, sampled
+     (temperature 0.8, top-k 8) token-exact from the same seed, an EOS
+     workload (reconciles), the prefix wave; kernel 7 launched once a
+     layer for every tick the device ran; the decode tick at ~2K
+     context, synchronous, K=1 and K=4 in turns, with busy shares and
+     the graphs' captures and replays;
   6. training at the training benchmark's width and depth
      (benchmarks/train_smoke.py: vocab 32768, d_model 2048, 16 layers,
      16/16 heads, d_ff 8192, bf16, remat; 1.21 B parameters from a seed)
@@ -1402,18 +1418,19 @@ def ragged_engine_phase(device, serve_res):
           f"agreement with the dense forward {a}/{t} = {a / t:.4f}",
           flush=True)
     res["bf16_int8_agree"] = (a, t)
-    res["prefix"] = prefix_wave(device)
+    res["prefix"], res["prefix_toks"] = prefix_wave(device)
     res.update(ragged_timings(device))
     return res
 
 
 def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
-                template_len=1024, budget=24):
+                template_len=1024, budget=24, **engine_kw):
     """fp32: a warm request registers a 1024-token template; then 8
     requests on it (tails of 0-300 tokens, one the exact template) run
     with the cache on and off.  Tokens must be equal; the counters must
     read what the admission arithmetic says; the grouped launch must run;
-    drain + evict must return every page."""
+    drain + evict must return every page.  `engine_kw` (pipeline=True,
+    multi_step=K) goes to both engines.  Returns (stats, tokens)."""
     import numpy as np
     import torch
 
@@ -1430,7 +1447,7 @@ def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
         eng = RaggedServeEngine(params, cfg, slots=SLOTS, n_pages=N_PAGES,
                                 page=PAGE, max_pages_per_seq=MAX_PAGES,
                                 chunk=CHUNK, prefix_cache=cache,
-                                device=device)
+                                device=device, **engine_kw)
         eng.submit(tmpl, 2)
         eng.run()
         stats0 = dict(eng.stats)
@@ -1445,8 +1462,8 @@ def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
                 n_pre * PAGE - (t == 0) for t in tails),
             # ... and its re-absorbed token privatizes the last shared page
             "serve.cow_copies": sum(t == 0 for t in tails)}
-    print(f"prefix wave (fp32, template {template_len}, tails {list(tails)})"
-          f": stats {stats}", flush=True)
+    print(f"prefix wave (fp32, template {template_len}, tails {list(tails)}"
+          f", {engine_kw or 'synchronous'}): stats {stats}", flush=True)
     assert out[True] == out[False], "prefix-cache tokens differ from cache-off"
     for k, v in want.items():
         assert stats.get(k, 0) == v, (k, stats.get(k), v)
@@ -1456,7 +1473,7 @@ def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
     assert eng.pool.in_use == 0 and eng.pool.logical_refs == 0
     print("prefix wave: tokens equal the cache-off run; after drain and "
           "evict in_use 0, logical_refs 0", flush=True)
-    return stats
+    return stats, out[True]
 
 
 def ragged_timings(device):
@@ -1504,6 +1521,382 @@ def ragged_timings(device):
     out["prof_decode"] = device_breakdown(eng.step, 4)
     eng.drain()
     return out
+
+
+K_PIPE = 4  # the pipelined engine's fused decode depth (multi_step)
+
+
+def _device_ticks(eng):
+    """The ticks the device ran for an engine's launches: one a launch, K
+    a fused K-tick launch, plus the K-tick warm-ups of its decode graphs'
+    captures.  Kernel 7 launches once a layer a tick."""
+    ticks = 0
+    for key, n in eng.stats.items():
+        if key.startswith("serve.ragged_batch_launches"):
+            ticks += n
+        elif key.startswith("serve.multi_step_launches{k="):
+            ticks += (int(key[len("serve.multi_step_launches{k="):-1])
+                      - 1) * n
+    return ticks + (eng.graphs.warmup_ticks if eng.graphs else 0)
+
+
+def pipelined_phase(device, rag):
+    """The pipelined RaggedServeEngine (pipeline=True) at K=1 and K=4 on
+    the 12 requests: fp32 token-exact with the synchronous engine (itself
+    exact with the dense forward), bf16 equal to it or flipped at near
+    ties only; sampled (temperature 0.8, top-k 8) token-exact with the
+    synchronous engine from the same generator seed; an EOS workload
+    (fused launches cut at an EOS, speculation reconciled); the prefix
+    wave.  Every run drains the pool and launches kernel 7 once a layer
+    for every tick the device ran; graph captures and replays counted."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    counters = (rp.ragged_paged_attention,)
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, chunk=CHUNK, device=device)
+    res = {}
+
+    def engine(dtype, ms, pipeline=True, seed=None, **extra):
+        cfg, params = model(dtype, device)
+        if seed is not None:
+            extra["rng"] = torch.Generator(device=device).manual_seed(seed)
+        return cfg, params, RaggedServeEngine(
+            params, cfg, **kw, pipeline=pipeline, multi_step=ms, **extra)
+
+    def check_run(eng, cfg, launches):
+        assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+        assert eng._pending is None
+        n = launches["ragged_paged_attention"]
+        assert n == cfg.n_layers * _device_ticks(eng) > 0, \
+            (n, dict(eng.stats))
+        return n
+
+    def graphs(eng):
+        g = eng.graphs
+        return (g.captures, g.replays) if g is not None else (0, 0)
+
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        want = rag[name]["toks"]
+        for ms in (1, K_PIPE):
+            cfg, params, eng = engine(dtype, ms)
+            prompts, budgets = requests(cfg)
+            toks, launches, run_s = drive(eng, prompts, budgets, counters)
+            n = check_run(eng, cfg, launches)
+            flips = near_tie_flips(cfg, params, prompts, toks, want, device)
+            same = sum(a == b for a, b in zip(toks, want))
+            caps, reps = graphs(eng)
+            print(f"pipelined RaggedServeEngine {name} K={ms}: "
+                  f"{N_REQUESTS} requests, {sum(map(len, toks))} tokens in "
+                  f"{run_s:.2f} s, ragged launches {n}, graph captures "
+                  f"{caps}, replays {reps}, stats {dict(eng.stats)}; "
+                  f"{same}/{N_REQUESTS} streams equal the synchronous "
+                  f"engine's; flips (request, token, dense-forward logit "
+                  f"gap) {flips}", flush=True)
+            if name == "fp32":
+                assert toks == want, "fp32 pipelined tokens differ"
+            assert all(g <= TIE_GAP for _, _, g in flips), flips
+            if ms > 1:
+                assert eng.stats[f"serve.multi_step_launches{{k={ms}}}"] > 0
+                assert caps > 0 and reps > 0, (caps, reps)
+            res[f"{name}_k{ms}"] = dict(same=same, flips=flips, run_s=run_s,
+                                        launches=n, captures=caps,
+                                        replays=reps)
+
+    # sampled: the same generator seed through the three engines
+    streams = {}
+    for ms, pipe in ((1, False), (1, True), (K_PIPE, True)):
+        cfg, params, eng = engine(torch.float32, ms, pipeline=pipe, seed=11,
+                                  temperature=0.8, top_k=8)
+        prompts, budgets = requests(cfg)
+        toks, launches, _ = drive(eng, prompts, budgets, counters)
+        check_run(eng, cfg, launches)
+        streams[(ms, pipe)] = toks
+    same = [sum(a == b for a, b in zip(streams[k], streams[(1, False)]))
+            for k in ((1, True), (K_PIPE, True))]
+    print(f"pipelined RaggedServeEngine fp32 sampled (temperature 0.8, "
+          f"top-k 8, seed 11): K=1 {same[0]}/{N_REQUESTS}, K={K_PIPE} "
+          f"{same[1]}/{N_REQUESTS} streams equal the synchronous engine's",
+          flush=True)
+    assert same == [N_REQUESTS, N_REQUESTS], same
+    res["sampled_same"] = same
+
+    # EOS: 8 short requests, so every launch after their prefill is pure
+    # decode; the EOS token first appears at or after a stream's 8th token
+    cfg, params = model(torch.float32, device)
+    prompts, _ = requests(cfg)
+    prompts = [p[:256] for p in prompts[:SLOTS]]
+    budgets = [32] * SLOTS
+
+    def eos_run(ms, pipe, eos_id):
+        _, _, eng = engine(torch.float32, ms, pipeline=pipe, eos_id=eos_id)
+        rids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+        for f in counters:
+            f.launches = 0
+        out = eng.run()
+        check_run(eng, cfg, {"ragged_paged_attention":
+                             rp.ragged_paged_attention.launches})
+        return [out[r] for r in rids], eng
+
+    free, _ = eos_run(1, False, None)
+    eos = next(t for s in free for t in s[8:]
+               if all(t not in x[:8] for x in free))
+    outs = {}
+    for ms, pipe in ((1, False), (K_PIPE, True)):
+        outs[pipe], eng = eos_run(ms, pipe, eos)
+    rec = sum(v for k, v in eng.stats.items()
+              if k.startswith("serve.pipeline_reconciles"))
+    cut = sum(len(t) < n for t, n in zip(outs[True], budgets))
+    print(f"pipelined RaggedServeEngine fp32 EOS {eos}: {cut} of {SLOTS} "
+          f"streams end at it; K={K_PIPE} stats {dict(eng.stats)}",
+          flush=True)
+    assert outs[True] == outs[False], "EOS streams differ"
+    assert cut > 0 and rec > 0, (cut, rec)
+    assert eng.stats[f"serve.multi_step_launches{{k={K_PIPE}}}"] > 0
+    res["eos"] = dict(cut=cut, reconciles=rec)
+
+    stats, toks = prefix_wave(device, pipeline=True, multi_step=K_PIPE)
+    assert toks == rag["prefix_toks"], "pipelined prefix wave tokens differ"
+    print("pipelined prefix wave: tokens equal the synchronous wave's",
+          flush=True)
+    res["prefix"] = stats
+    res["launches"] = res[f"bf16_k{K_PIPE}"]["launches"]
+    return res
+
+
+def pipelined_ticks(device, n_steps=16):
+    """bf16 decode ticks with every slot live at ~2K context through the
+    synchronous engine and the pipelined one at K=1 and K=4, each filled
+    once, timed in turns (sync, K=1, K=4, K=4, K=1, sync): ms a tick =
+    wall / ticks advanced; then a profiled window each (busy share), and
+    the K=4 engine's graph captures and replays."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    cfg, params = model(torch.bfloat16, device)
+    prompt = np.random.default_rng(9).integers(1, cfg.vocab, size=2048 - 256,
+                                               dtype=np.int32)
+    engs = {}
+    for name, extra in (("sync", {}), ("k1", dict(pipeline=True)),
+                        ("k4", dict(pipeline=True, multi_step=K_PIPE))):
+        eng = RaggedServeEngine(params, cfg, slots=SLOTS, n_pages=N_PAGES,
+                                page=PAGE, max_pages_per_seq=MAX_PAGES,
+                                chunk=CHUNK, device=device, **extra)
+        for _ in range(SLOTS):
+            eng.submit(prompt, 256)
+        while eng.pending or any(r is None or r.n_prefilled < len(r.prompt)
+                                 for r in eng.slots):
+            eng.step()
+        for _ in range(2):  # the first fused launches (K=4: its capture)
+            eng.step()
+        engs[name] = eng
+
+    def tick_ms(eng):
+        before = sum(len(r.tokens) for r in eng.slots)
+        ms = host_ms(lambda: [eng.step() for _ in range(n_steps)], repeats=1)
+        return ms * SLOTS / (sum(len(r.tokens) for r in eng.slots) - before)
+
+    times = {k: [] for k in engs}
+    for name in ("sync", "k1", "k4", "k4", "k1", "sync"):
+        times[name].append(tick_ms(engs[name]))
+    out = {"tick_ms": {k: sum(v) / len(v) for k, v in times.items()},
+           "tick_ms_turns": times}
+    for name, eng in engs.items():
+        before = sum(len(r.tokens) for r in eng.slots)
+        wall, dev, top = device_breakdown(eng.step, 4)
+        ticks = (sum(len(r.tokens) for r in eng.slots) - before) / SLOTS
+        out[f"prof_{name}"] = (wall, dev, top)
+        out[f"busy_{name}"] = dev / wall
+        out[f"ticks_profiled_{name}"] = ticks
+        assert eng.live == SLOTS
+    g = engs["k4"].graphs
+    out["k4_graphs"] = {"captures": g.captures, "replays": g.replays}
+    assert g.captures > 0 and g.replays > 0
+    for eng in engs.values():
+        eng.drain()
+        assert eng.pool.available == N_PAGES - 1
+    return out
+
+
+def serve_prefix_phase(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
+                       template_len=1024, budget=24):
+    """ServeEngine(prefix_cache=True) at the serving width.  fp32: a warm
+    request registers a 1024-token template, then 8 requests on it (tails
+    0-300, one the exact template) with the cache on and off: tokens
+    equal; every request's prefill takes the suffix path (kernel 1 on the
+    offset mask, counted: a launch a layer), the tokens skipped, the
+    cache's pages and the pool as the arithmetic says; drain keeps the
+    cache, evict empties the pool.  bf16: TTFT of a 2048-token prompt
+    whose first 1024 tokens are cached, against the same shape uncached
+    (a fresh tail each repeat, median of 3)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import burst_attn_tpu_torch.models.paged_decode as pd
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.ops import flash
+
+    suffix = dict(calls=0, launches=0, t_pre=0)
+    real = pd._suffix_attention
+
+    def counted(q, k, v, t_pre, q_hi, kv_hi, window=None):
+        before = flash.flash_fwd.launches
+        o = real(q, k, v, t_pre, q_hi, kv_hi, window=window)
+        suffix["launches"] += flash.flash_fwd.launches - before
+        suffix["calls"] += 1
+        suffix["t_pre"] += t_pre
+        return o
+
+    cfg, params = model(torch.float32, device)
+    rng = np.random.default_rng(7)
+    tmpl = rng.integers(1, cfg.vocab, size=template_len, dtype=np.int32)
+    prompts = [np.concatenate([tmpl, rng.integers(1, cfg.vocab, size=t,
+                                                  dtype=np.int32)])
+               for t in tails]
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, device=device)
+    out, res = {}, {}
+    for cache in (False, True):
+        eng = ServeEngine(params, cfg, prefix_cache=cache, **kw)
+        eng.submit(tmpl, 2)
+        eng.run()
+        rids = [eng.submit(p, budget) for p in prompts]
+        flash.flash_fwd.launches = 0
+        suffix.update(calls=0, launches=0, t_pre=0)
+        with mock.patch.object(pd, "_suffix_attention", counted):
+            got = eng.run()
+        out[cache] = [got[r] for r in rids]
+        assert flash.flash_fwd.launches == cfg.n_layers * len(tails)
+        res[cache] = dict(suffix)
+    n_pre = template_len // PAGE
+    skipped = sum((n_pre - (t == 0)) * PAGE for t in tails)
+    n_cached = n_pre + sum((template_len + t) // PAGE - n_pre for t in tails)
+    print(f"ServeEngine prefix wave (fp32, template {template_len}, tails "
+          f"{list(tails)}): suffix prefills {res[True]}, cache "
+          f"{len(eng.cache)} pages, pool in use {eng.pool.in_use}",
+          flush=True)
+    assert out[True] == out[False], "prefix-cache tokens differ from off"
+    assert res[False]["calls"] == 0
+    assert res[True] == dict(calls=cfg.n_layers * len(tails),
+                             launches=cfg.n_layers * len(tails),
+                             t_pre=cfg.n_layers * skipped), res[True]
+    assert len(eng.cache) == n_cached, (len(eng.cache), n_cached)
+    assert eng.pool.in_use == eng.pool.logical_refs == n_cached
+    eng.drain()
+    assert len(eng.cache) == n_cached
+    eng.cache.evict(N_PAGES)
+    assert eng.pool.in_use == 0 and eng.pool.logical_refs == 0
+    print("ServeEngine prefix wave: tokens equal the cache-off run; after "
+          "retirement only the cache holds pages; after evict in_use 0",
+          flush=True)
+
+    # TTFT, bf16: a 2048-token prompt on a cached 1024-token template
+    cfg, params = model(torch.bfloat16, device)
+    rng = np.random.default_rng(13)
+    tmpl = rng.integers(1, cfg.vocab, size=1024, dtype=np.int32)
+    ttft, busy = {}, {}
+    for cache in (False, True):
+        eng = ServeEngine(params, cfg, prefix_cache=cache, **kw)
+        eng.submit(tmpl, 1)
+        eng.step()  # registers the template (cache on)
+
+        def one():  # a fresh tail each time: only the template is cached
+            eng.submit(np.concatenate([tmpl, rng.integers(
+                1, cfg.vocab, size=1024, dtype=np.int32)]), 1)
+            eng.step()  # admits (one prefill) and retires: budget 1
+
+        what = "cached" if cache else "uncached"
+        ttft[what] = host_ms(one)
+        prof = device_breakdown(one, 2)
+        busy[what] = prof[1] / prof[0]
+        print_profile(f"ServeEngine TTFT, template {what}", prof)
+    print(f"ServeEngine TTFT, a 2048-token prompt (bf16): template of 1024 "
+          f"cached {ttft['cached']:.2f} ms, uncached {ttft['uncached']:.2f} "
+          f"ms (median of 3)", flush=True)
+    return dict(suffix_launches=res[True]["launches"], cached_pages=n_cached,
+                ttft_ms=ttft, ttft_busy=busy)
+
+
+SUFFIX_SHAPES = ((1024, 1024), (896, 128), (1024, 300), (1920, 17))
+
+
+def check_flash_suffix(device, n=16, n_kv=4, d=128):
+    """Kernel 1 on the suffix prefill's offset mask (t_suf queries padded
+    to the page after t_pre cached keys, causal at offset t_pre) against
+    tile_fwd/finalize, bf16 and fp32, at the prefix wave's shapes and the
+    TTFT's (1024 after 1024); the record times the latter in bf16 beside
+    SDPA with the same offset mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash, masks, tile
+
+    g = torch.Generator(device=device).manual_seed(31)
+    scale = d**-0.5
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        key = _dtype_key(dtype)
+        for t_pre, t_suf in SUFFIX_SHAPES:
+            t_pad = -(-t_suf // PAGE) * PAGE
+            q = torch.randn(1, n, t_pad, d, generator=g,
+                            device=device).to(dtype)
+            k, v = (torch.randn(1, n_kv, t_pre + t_pad, d, generator=g,
+                                device=device).to(dtype) for _ in range(2))
+            spec = masks.MaskSpec(0, t_suf, t_pre + t_suf, 1, t_pre)
+            m, lse, o = flash.flash_fwd(q, k, v, None, None, None, scale,
+                                        spec, emit_o=True)
+            st = tile.tile_fwd(q, k, v, *tile.init_state(1, n, t_pad, d,
+                                                         device=device),
+                               scale, spec)
+            err = _check_o(f"flash_fwd[suffix] {key} t_pre {t_pre} t_suf "
+                           f"{t_suf}", o, tile.finalize(*st, dtype), dtype)
+            assert not o[:, :, t_suf:].any()  # pad rows give 0
+            fin = torch.isfinite(st[1])
+            assert torch.equal(torch.isfinite(lse), fin)
+            assert _max_err(lse[fin], st[1][fin]) <= STATS_ATOL[key]
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            print(f"flash_fwd[suffix] {key} t_pre {t_pre} t_suf {t_suf} "
+                  f"(padded to {t_pad}): max_abs_err={err:.3e}", flush=True)
+    t_pre = t_suf = 1024
+    q = torch.randn(1, n, t_suf, d, generator=g,
+                    device=device).to(torch.bfloat16)
+    k, v = (torch.randn(1, n_kv, t_pre + t_suf, d, generator=g,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    spec = masks.MaskSpec(0, t_suf, t_pre + t_suf, 1, t_pre)
+    ms = time_ms(lambda: flash.flash_fwd(q, k, v, None, None, None, scale,
+                                         spec, emit_o=True))
+
+    def plain():
+        st = tile.tile_fwd(q, k, v, *tile.init_state(1, n, t_suf, d,
+                                                     device=device),
+                           scale, spec)
+        return tile.finalize(*st, q.dtype)
+
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    rows = torch.arange(t_suf, device=device)[:, None]
+    cols = torch.arange(t_pre + t_suf, device=device)[None, :]
+    mask = cols <= rows + t_pre
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    pairs = int(mask.sum())
+    n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) \
+        + 4 * 2 * n * t_suf
+    bms, by = bound_ms(n_bytes, 4 * pairs * n * d)
+    print(f"flash_fwd[suffix] bf16 N{n}/{n_kv} t_pre {t_pre} t_suf {t_suf}: "
+          f"{ms:.4f} ms, plain {plain_ms:.3f}, SDPA (offset mask) "
+          f"{lib_ms:.4f}, bound {bms:.4f} ({by})", flush=True)
+    return dict(name="flash_fwd[suffix]", route="cuda",
+                source="burst_attn_tpu_torch/csrc/flash_fwd.cu",
+                replaces="burst_attn_tpu/ops/pallas_flash.py:419",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
 
 
 def _reset_counts():
@@ -3574,6 +3967,8 @@ def main() -> int:
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], long_err,
                                     group_err)
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], group_err)
+    # kernel 1 on the prefix cache's suffix mask
+    suffix_rec = check_flash_suffix(device)
     # sliding-window kernels 1, 6, 7 and kernel 10 (the step probe)
     window_recs = [check_flash_window(device),
                    check_paged_decode_window(device),
@@ -3627,6 +4022,7 @@ def main() -> int:
           flush=True)
     print_profile("ServeEngine prefill", serve_res["prof_prefill"])
     print_profile("ServeEngine decode step", serve_res["prof_step"])
+    sprefix = serve_prefix_phase(device)
 
     rag = ragged_engine_phase(device, serve_res)
     print(f"RaggedServeEngine TTFT, one 2048-token prompt "
@@ -3637,6 +4033,21 @@ def main() -> int:
           f"{rag['mixed_tick_ms']:.2f} ms", flush=True)
     print_profile("RaggedServeEngine mixed tick", rag["prof_mixed"])
     print_profile("RaggedServeEngine decode tick", rag["prof_decode"])
+    pipe = pipelined_phase(device, rag)
+    pticks = pipelined_ticks(device)
+    tm = pticks["tick_ms"]
+    print(f"pipelined decode tick ({SLOTS} slots at ~2K, bf16), ms a tick "
+          f"(mean of two turns): synchronous {tm['sync']:.3f}, K=1 "
+          f"{tm['k1']:.3f}, K={K_PIPE} {tm['k4']:.3f}; busy synchronous "
+          f"{pticks['busy_sync']:.3f}, K=1 {pticks['busy_k1']:.3f}, "
+          f"K={K_PIPE} {pticks['busy_k4']:.3f}; K={K_PIPE} graph captures "
+          f"{pticks['k4_graphs']['captures']}, replays "
+          f"{pticks['k4_graphs']['replays']}", flush=True)
+    for name, what in (("sync", "synchronous"), ("k1", "K=1"),
+                       ("k4", f"K={K_PIPE}")):
+        print_profile(f"pipelined decode step, {what} "
+                      f"({pticks[f'ticks_profiled_{name}']:.0f} ticks in 4 "
+                      f"steps)", pticks[f"prof_{name}"])
     wserve = window_serve_phase(device)
     k8_err, k1_err = check_handoff_kernels(device)
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
@@ -3699,8 +4110,12 @@ def main() -> int:
                 "ragged_paged[window]": wserve[
                     "RaggedServeEngine_bf16_launches"][
                     "ragged_paged_attention"],
-                "step_probe": probe["launches"]}
-    kernels += window_recs
+                "step_probe": probe["launches"],
+                # the ServeEngine prefix wave's suffix prefills
+                "flash_fwd[suffix]": sprefix["suffix_launches"]}
+    kernels += window_recs + [suffix_rec]
+    kernels[2]["pipelined_launches"] = pipe["launches"]
+    assert pipe["launches"] > 0
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3728,7 +4143,8 @@ def main() -> int:
                     | {k: r[k] for k in ("library", "graph_ms",
                                          "library_graph_ms", "ring_step_ms",
                                          "ring_step_trace", "train_shape",
-                                         "routes", "attrs")
+                                         "routes", "attrs",
+                                         "pipelined_launches")
                        if k in r}
                     for r in kernels],
         "card": card,
@@ -3747,6 +4163,9 @@ def main() -> int:
                                        "bf16_int8_agree", "prefix")}
         | {"run_s": rag["bf16"]["run_s"], "ticks": rag["bf16"]["ticks"],
            "quant_identical": {q: v[0] for q, v in rag["quant"].items()}},
+        "pipelined": {k: v for k, v in pipe.items() if k != "launches"}
+        | {k: v for k, v in pticks.items() if not k.startswith("prof_")},
+        "serve_prefix": sprefix,
         "ring": {k: ring_rec[k] for k in ("op_ms", "scan_ms",
                                           "scan_launches",
                                           "fused_vs_scan_err")},

@@ -690,6 +690,47 @@ def test_flash_kernel_bf16_window_1024(dev, offset, kv_hi, carry):
     assert all(torch.equal(a, b) for a, b in zip(wide, full))
 
 
+# the prefix cache's suffix prefill: t_suf queries (padded to the 128-token
+# page) after t_pre cached keys, causal at offset t_pre, GQA 16/4
+SUFFIX_SPECS = [(t_pre, t_suf) for t_pre in (128, 1024, 1920)
+                for t_suf in (1, 17, 128, 300)]
+
+
+def _suffix_close(dev, dtype, t_pre, t_suf, window=None):
+    t_pad = -(-t_suf // 128) * 128
+    spec = masks.MaskSpec(0, t_suf, t_pre + t_suf, 1, t_pre)
+    what = f"suffix t_pre {t_pre} t_suf {t_suf} window {window} {dtype}"
+    if dtype == torch.bfloat16:
+        got, want = _fwd_pair(dev, 16, 4, t_pad, t_pre + t_pad, spec, False,
+                              window=window)
+        _fwd_close(got, want, True, what)
+    else:
+        g = torch.Generator(device=dev).manual_seed(t_pre + t_suf)
+        q = _rand(g, dev, dtype, 1, 16, t_pad, 128)
+        k, v = (_rand(g, dev, dtype, 1, 4, t_pre + t_pad, 128)
+                for _ in range(2))
+        got = flash.flash_fwd(q, k, v, None, None, None, 128**-0.5, spec,
+                              window=window, emit_o=True)
+        st = tile.tile_fwd(q, k, v, *tile.init_state(1, 16, t_pad, 128,
+                                                     device=dev),
+                           128**-0.5, spec, window=window)
+        want = (*st[:2], tile.finalize(*st, dtype))
+        assert torch.equal(torch.isinf(got[1]), torch.isinf(want[1])), what
+        torch.testing.assert_close(got[2], want[2], **TOL[dtype], msg=what)
+    assert not got[2][:, :, t_suf:].any(), what  # pad rows give 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_pre,t_suf", SUFFIX_SPECS)
+def test_flash_kernel_suffix_specs_match_plain(dev, dtype, t_pre, t_suf):
+    _suffix_close(dev, dtype, t_pre, t_suf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_suffix_spec_with_window(dev, dtype):
+    _suffix_close(dev, dtype, 1024, 300, window=256)
+
+
 @pytest.mark.parametrize("b,n,n_kv,s_q,s_kv,causal", BWD_CASES)
 def test_flash_bwd_fused_bf16_is_bitwise_repeatable(dev, b, n, n_kv, s_q,
                                                     s_kv, causal):
@@ -773,7 +814,12 @@ def test_flash_kernel_attributes(dev):
 
 
 @pytest.mark.parametrize("kw", [{}, {"prefix_cache": True},
-                                {"quantize": "int8"}])
+                                {"quantize": "int8"},
+                                {"pipeline": True, "multi_step": 4},
+                                {"prefix_cache": True, "pipeline": True,
+                                 "multi_step": 4},
+                                {"quantize": "fp8", "pipeline": True,
+                                 "multi_step": 4}])
 def test_ragged_engine_on_the_card_matches_the_cpu_engine(dev, kw):
     """fp32 model: the ragged engine through the kernel is token-exact
     with the plain CPU engine on the same weights."""
@@ -804,6 +850,142 @@ def test_ragged_engine_on_the_card_matches_the_cpu_engine(dev, kw):
         assert eng.stats["burst.fused_fallback{reason=head-dim,pass=serve}"] \
             == 0
     assert out["cpu"] == out[str(dev)]
+
+
+def _serving_model(dev, dtype=torch.float32):
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=8,
+                      n_kv_heads=2, d_head=128, d_ff=512, dtype=dtype)
+    return cfg, init_params(cfg, seed=0, device=dev)
+
+
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_k": 16}],
+                         ids=["greedy", "sampled"])
+def test_multi_step_graph_replay_matches_eager_ticks(dev, sampling):
+    """multi_step_decode's CUDA graph replay against K eager ticks from
+    the same state: equal choices, lengths and generator state, twice
+    (the second replay reuses the capture); a replay counts K launches a
+    layer of kernel 7, the capture none."""
+    from burst_attn_tpu_torch.models import paged_decode as pd
+    from burst_attn_tpu_torch.serving import model as sm
+
+    cfg, params = _serving_model(dev)
+    st, _ = pd.init_paged_state(cfg, slots=3, n_pages=8, page=128,
+                                max_pages_per_seq=3, device=dev)
+    for slot, row in ((0, [1, 2, 3]), (1, [4, 5, 6])):
+        sm.assign_pages(st, slot, row)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab, (3, 100), generator=g).to(dev)
+    q_lens = torch.tensor([100, 37, 0], dtype=torch.int32, device=dev)
+    logits, _ = sm.ragged_model_step(params, toks, q_lens, st, cfg)
+    first = logits.argmax(-1)
+    live = torch.tensor([1, 1, 0], dtype=torch.int32, device=dev)
+    lengths = st.lengths.clone()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    s0 = gen.get_state()
+    k = 4
+    feed, rows = first, []
+    for _ in range(k):
+        feed, _ = sm.pipelined_tick(params, feed[:, None], live, st, gen,
+                                    cfg, **sampling)
+        rows.append(feed)
+    eager, eager_len, eager_gen = (torch.stack(rows), st.lengths.clone(),
+                                   gen.get_state())
+    graphs = sm.DecodeGraphs(params, st, cfg, gen)
+    per_replay = k * cfg.n_layers
+    for turn in range(2):
+        st.lengths.copy_(lengths)
+        gen.set_state(s0)
+        before = ragged_paged.ragged_paged_attention.launches
+        choices, _, _ = sm.multi_step_decode(params, first, live, st, gen,
+                                             cfg, k=k, graphs=graphs,
+                                             **sampling)
+        torch.cuda.synchronize()
+        assert torch.equal(choices, eager), turn
+        assert torch.equal(st.lengths, eager_len), turn
+        assert torch.equal(gen.get_state(), eager_gen), turn
+        # the first call's capture warm-up launched k ticks at q_len 0
+        moved = ragged_paged.ragged_paged_attention.launches - before
+        assert moved == per_replay * (2 if turn == 0 else 1), (turn, moved)
+    assert graphs.captures == 1 and graphs.replays == 2
+
+
+class _SyncChecked(RaggedServeEngine):
+    """A pipelined engine whose speculative dispatches run under
+    torch.cuda.set_sync_debug_mode("error") once `checking` is set: any
+    host sync in them raises."""
+    checking = False
+    checked = 0
+
+    def _launch_speculative(self, k):
+        if not self.checking:
+            return super()._launch_speculative(k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p = super()._launch_speculative(k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        self.checked += 1
+        return p
+
+
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_k": 16}],
+                         ids=["greedy", "sampled"])
+def test_speculative_dispatch_never_syncs(dev, sampling):
+    """A pipelined K=4 engine serves a workload twice (the first run
+    captures every graph it needs, since a capture synchronizes); in the
+    second every speculative dispatch runs under sync-debug "error".
+    Both runs equal the synchronous engine's from the same seed."""
+    cfg, params = _serving_model(dev)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (40, 130, 77)]
+    kw = dict(slots=3, n_pages=16, max_pages_per_seq=4, chunk=64,
+              device=dev, **sampling)
+
+    def serve(eng):
+        rids = [eng.submit(p, 14) for p in prompts]
+        out = eng.run()
+        return [out[r] for r in rids]
+
+    eng = _SyncChecked(params, cfg, pipeline=True, multi_step=4,
+                       rng=torch.Generator(device=dev).manual_seed(5), **kw)
+    ref = RaggedServeEngine(params, cfg,
+                            rng=torch.Generator(device=dev).manual_seed(5),
+                            **kw)
+    assert serve(eng) == serve(ref)
+    captures = eng.graphs.captures
+    eng.checking = True
+    assert serve(eng) == serve(ref)
+    assert eng.checked > 0 and eng.graphs.captures == captures
+    assert eng.stats["serve.multi_step_launches{k=4}"] > 0
+
+
+def test_prefix_cache_serve_engine_on_the_card_matches_the_cpu_engine(dev):
+    """fp32 ServeEngine(prefix_cache=True): the suffix prefill through
+    kernel 1's offset mask gives the plain CPU engine's tokens, and the
+    cache-off engine's."""
+    cfg, params = _serving_model("cpu")
+    rng = np.random.default_rng(8)
+    tmpl = rng.integers(1, cfg.vocab, size=256)
+    prompts = [np.concatenate([tmpl, rng.integers(1, cfg.vocab, size=t)])
+               for t in (1, 40, 100)] + [tmpl]
+    out = {}
+    for where, cache in (("cpu", True), (dev, True), (dev, False)):
+        p = {k: (v.to(where) if torch.is_tensor(v) else
+                 [{n: w.to(where) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        eng = ServeEngine(p, cfg, slots=2, n_pages=16, max_pages_per_seq=4,
+                          prefix_cache=cache, device=where)
+        for pr in prompts:
+            eng.submit(pr, 6)
+        before = flash.flash_fwd.launches
+        out[(str(where), cache)] = eng.run()
+        moved = flash.flash_fwd.launches - before
+        assert (moved == 0) if str(where) == "cpu" else \
+            (moved == cfg.n_layers * len(prompts))
+        if cache:
+            assert len(eng.cache) == 2
+    assert out[("cpu", True)] == out[(str(dev), True)] == \
+        out[(str(dev), False)]
 
 
 @pytest.mark.parametrize("n_heads,n_kv", [(2, 2), (4, 2)])

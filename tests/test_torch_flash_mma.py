@@ -163,7 +163,14 @@ RANGE_SWEEP = [
     (512, 512, 37, 400, 500, 1, 0, 200),
     (256, 256, 0, 256, 249, 1, 0, 4096),
     (1000, 1000, 0, 1000, 963, 1, -1, 1024),
-]
+] + [
+    # the prefix cache's suffix prefill: t_suf queries padded to a page
+    # (128), after t_pre cached keys; causal at offset t_pre, rows past
+    # q_hi = t_suf and keys past kv_hi = t_pre + t_suf masked
+    (-(-t_suf // 128) * 128, t_pre + -(-t_suf // 128) * 128, 0, t_suf,
+     t_pre + t_suf, 1, t_pre, None)
+    for t_pre in (128, 1024, 1920) for t_suf in (1, 17, 128, 300)
+] + [(384, 1408, 0, 300, 1324, 1, 1024, 256)]  # ... and with a window
 
 
 @pytest.mark.parametrize("s_q,s_kv,q_lo,q_hi,kv_hi,causal,offset,window",
@@ -251,6 +258,7 @@ NUMERICS_CASES = [
     ("carry causal", (0, 256, 256, 1, 0), None, True),
     ("window", (0, 256, 249, 1, 0), 100, False),
     ("window carry offset -1", (0, 256, 256, 1, -1), 70, True),
+    ("suffix offset", (0, 37, 165, 1, 128), None, False),
 ]
 
 

@@ -301,16 +301,21 @@ def test_serve_engine_quantized_matches_jax(model, quant):
 
 
 def test_unported_options_raise(model):
+    """Draft models and the journal still raise; multi_step > 1 without
+    pipeline is a ValueError, as in JAX; the pipelined engine and the
+    ServeEngine prefix cache construct."""
     _, _, cfg, params = model
     kw = dict(slots=1, n_pages=4, device="cpu")
-    for bad in (dict(draft_params=params, draft_cfg=cfg), dict(journal=1),
-                dict(pipeline=True), dict(multi_step=2)):
+    for bad in (dict(draft_params=params, draft_cfg=cfg), dict(journal=1)):
         with pytest.raises(NotImplementedError):
             RaggedServeEngine(params, cfg, **kw, **bad)
-    with pytest.raises(ValueError):
-        RaggedServeEngine(params, cfg, **kw, multi_step=0)
-    with pytest.raises(NotImplementedError):
-        ServeEngine(params, cfg, **kw, prefix_cache=True)
+    for bad in (dict(multi_step=0), dict(multi_step=2),
+                dict(pipeline=True, multi_step=0)):
+        with pytest.raises(ValueError):
+            RaggedServeEngine(params, cfg, **kw, **bad)
+    assert RaggedServeEngine(params, cfg, **kw, pipeline=True,
+                             multi_step=2).pipeline
+    assert ServeEngine(params, cfg, **kw, prefix_cache=True).cache is not None
     with pytest.raises(ValueError, match="quantize"):
         pd.init_paged_state(cfg, slots=1, n_pages=2, quantize="int4",
                             device="cpu")

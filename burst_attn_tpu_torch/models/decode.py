@@ -12,8 +12,9 @@ burst_attn_tpu/models/decode.py).
     outside its kernels.  A sliding `cfg.window` bands both.
   * `generate` is a Python loop over single-token forwards (JAX's
     lax.scan); greedy or sampled through `sample_logits`.
-
-Speculative serving on this path is not ported yet.
+  * models/speculative.py decodes speculatively over this cache: its
+    verify is one multi-token `forward_cached`, its rollback a shorter
+    `Cache.length`.
 """
 
 from typing import NamedTuple, Optional, Tuple

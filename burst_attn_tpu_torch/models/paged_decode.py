@@ -18,6 +18,10 @@ ops/paged_attention.py.
     1-byte pool, dequantized) cached context plus itself through ONE
     offset mask on the flash kernel (`_suffix_attention`), and the
     prompt's full pages are registered for later requests.
+  * `ragged_model_step` advances every slot by its own token count in
+    one pass (the ragged kernel; serving/model.py's engine step);
+    `paged_multi_step` is that step at T tokens for every live slot
+    (speculative verification) and `rollback_tokens` un-appends them.
 
 In-place updates: the JAX functions donate the state and return a new
 one.  Here the pools, table and lengths are updated IN PLACE (index_put_ /
@@ -37,8 +41,8 @@ never copied without its scales.  `PrefixCache` is the content-hashed
 index of full prompt pages the ragged engine shares through the pool's
 refcounts.
 
-Not ported yet: paged_multi_step, PrefixCache.to_meta/from_meta and
-tensor-parallel meshes.
+Not ported yet: PrefixCache.to_meta/from_meta and tensor-parallel
+meshes.
 """
 
 import hashlib
@@ -56,6 +60,10 @@ from ..ops.masks import MaskSpec
 from ..ops.paged_attention import (
     QUANT_DTYPES, gather_pages, paged_decode_attention, pool_bytes,
     quantize_tokens,
+)
+from ..ops.ragged_paged import (
+    ragged_paged_attention, ragged_paged_attention_grouped,
+    ragged_paged_reference,
 )
 from .decode import _flash_prompt_attention
 from .transformer import (
@@ -558,6 +566,136 @@ def paged_decode_step(params, tokens, state: PagedState, cfg: ModelConfig,
     logits = logits.masked_fill(boundary_unassigned[:, None], float("nan"))
     state.lengths.copy_(new_lengths)
     return logits, state
+
+
+def ragged_model_step(params, tokens, q_lens, state: PagedState,
+                      cfg: ModelConfig, attn: str = "ragged",
+                      all_logits: bool = False, group_id=None,
+                      shared_table=None, shared_lens=None):
+    """Advance every active slot by its own token count in ONE pass, IN
+    PLACE on `state`.
+
+    tokens  [slots, QT] int — slot s consumes tokens[s, :q_lens[s]] (the
+            rest is padding; idle slots pass q_lens == 0)
+    q_lens  [slots] int32 — tokens this launch per slot; each slot's pages
+            for positions lengths .. lengths+q_lens-1 must be assigned
+
+    attn == "grouped" routes the shared-prefix launch: (group_id [slots],
+    shared_table [G, n_sh], shared_lens [G]) assign each slot to a prefix
+    group whose pinned pages are scored once and merged with the slot's
+    private band.
+
+    Returns (logits, state with lengths += q_lens):
+      all_logits=False: [slots, vocab] fp32 at each slot's LAST consumed
+        token — the next-token distribution a scheduler samples from.
+      all_logits=True:  [slots, QT, vocab] fp32.
+    No host sync."""
+    if attn not in ("ragged", "dense", "grouped"):
+        raise ValueError(
+            f"attn must be 'ragged', 'dense' or 'grouped', got {attn!r}")
+    if attn == "grouped" and (group_id is None or shared_table is None
+                              or shared_lens is None):
+        raise ValueError("attn='grouped' needs group_id, shared_table "
+                         "and shared_lens")
+    dev = state.lengths.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    q_lens = torch.as_tensor(q_lens, device=dev).to(torch.int32)
+    slots, qt = tokens.shape
+    page = state.k_pages[0].shape[2]
+    width = state.page_table.shape[1]
+    quant = state.k_scales is not None
+    live = q_lens > 0
+    base = torch.where(live, state.lengths, 0)
+    t_ix = torch.arange(qt, device=dev)[None, :]
+    real = (t_ix < q_lens[:, None]) & live[:, None]          # [slots, QT]
+    pos = base.long()[:, None] + t_ix                         # absolute
+    pids = state.page_table.gather(1, (pos // page).clamp(max=width - 1))
+    # a live slot's REAL token mapping to the sink page means its page was
+    # never assigned: poison its logits
+    boundary_unassigned = (real & (pids == 0)).any(dim=1)
+    # padding/idle tokens scatter into the reserved sink page 0 (the only
+    # place where the scatter has duplicate indices)
+    pids = torch.where(real, pids, 0).long()
+    offs = pos % page
+    kv_lens = (base + q_lens).to(torch.int32)
+
+    x = params["embed"][tokens].to(cfg.dtype)                 # [S, QT, dm]
+    for li, p in enumerate(params["layers"]):
+        kp, vp = state.k_pages[li], state.v_pages[li]
+        q, k, v = _qkv_proj(p, x, pos, cfg)
+        # scatter the new K/V FIRST so attention reads a complete pool
+        ks = state.k_scales[li] if quant else None
+        vs = state.v_scales[li] if quant else None
+        _write_tokens(kp, ks, pids, offs, k.transpose(1, 2))  # [S,QT,Nkv,D]
+        _write_tokens(vp, vs, pids, offs, v.transpose(1, 2))
+        if attn == "ragged":
+            o = ragged_paged_attention(q, kp, vp, state.page_table, q_lens,
+                                       kv_lens, k_scales=ks, v_scales=vs,
+                                       window=cfg.window)
+        elif attn == "grouped":
+            o = ragged_paged_attention_grouped(
+                q, kp, vp, state.page_table, q_lens, kv_lens,
+                group_id=group_id, shared_table=shared_table,
+                shared_lens=shared_lens, k_scales=ks, v_scales=vs,
+                window=cfg.window)
+        else:  # the kernel's plain version: gathers every slot's pages
+            o = ragged_paged_reference(q, kp, vp, state.page_table, q_lens,
+                                       kv_lens, k_scales=ks, v_scales=vs,
+                                       window=cfg.window)
+        x = x + _attn_out(p, o)
+        x = x + _mlp(p, x)
+    x = _rms_norm(x, params["final_norm"])
+    if all_logits:
+        logits = _logits(x, params["lm_head"])
+        logits = logits.masked_fill(boundary_unassigned[:, None, None],
+                                    float("nan"))
+    else:
+        last = (q_lens.long() - 1).clamp(0, qt - 1)
+        x_last = x.gather(1, last[:, None, None].expand(-1, 1, x.shape[-1]))
+        logits = _logits(x_last, params["lm_head"])[:, 0]
+        logits = logits.masked_fill(boundary_unassigned[:, None],
+                                    float("nan"))
+    state.lengths.add_(torch.where(live, q_lens, 0))
+    return logits, state
+
+
+def paged_multi_step(params, tokens, state: PagedState, cfg: ModelConfig):
+    """Append T tokens to EVERY live slot in one pass, IN PLACE
+    (speculative verification): tokens [slots, T] -> ([slots, T, vocab]
+    fp32 logits, state with lengths += T for live slots).
+
+    The new tokens' K/V scatter into the pool first; then each live slot's
+    T queries attend its pages causally: ragged_model_step at q_len T for
+    every live slot, so a CUDA state takes the ragged kernel and a CPU
+    state its plain version (the JAX function's dense gather).  Capacity
+    for all T tokens must be provisioned: a live slot mapping any of them
+    to page 0 gets NaN logits.  Dead slots scatter nothing and give
+    logits the caller ignores.  Rollback is `rollback_tokens`, or a
+    lengths decrement: entries past lengths are invisible, and on a
+    quantized pool so are their stale scales."""
+    dev = state.lengths.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    q_lens = torch.where(state.lengths > 0, tokens.shape[1], 0).to(
+        torch.int32)
+    return ragged_model_step(params, tokens, q_lens, state, cfg,
+                             attn="ragged", all_logits=True)
+
+
+def rollback_tokens(state: PagedState, slot: int, n: int) -> PagedState:
+    """Host-side: un-append the last n tokens of `slot` (speculative
+    rejection), IN PLACE.  Pure lengths bookkeeping: entries past lengths
+    are invisible and the next append overwrites them; pages stay
+    assigned.  The JAX package's guard, kept for its callers: the engines
+    do not use it (they roll back every slot with one lengths
+    subtraction, and this reads the device)."""
+    length = int(state.lengths[slot])
+    if n < 0 or n >= length:
+        # n == length would zero the slot while its table row still owns
+        # pages: retire_slot returns early on length 0 and the pages leak
+        raise ValueError(f"cannot roll back {n} of {length} tokens "
+                         "(at least one must remain; retire_slot frees)")
+    state.lengths[slot] = length - n
+    return state
 
 
 def ensure_capacity(state: PagedState, pool: PagePool, slot: int

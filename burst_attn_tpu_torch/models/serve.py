@@ -29,8 +29,17 @@ full pages.  Cached pages outlive their requests (the cache holds one
 reference each); under pool pressure admission evicts the least recently
 used ones that no live request shares.
 
-Not ported yet: speculative serving (`draft_params`), the write-ahead
-journal, tensor-parallel meshes, and the obs metrics and request tracing.
+Speculative serving (`draft_params`, `draft_cfg`, `spec_k`): a draft
+model with its own paged state, mirroring the target's slot geometry,
+proposes spec_k tokens a slot a tick (k single paged steps, kernel 6 on
+the card); ONE `paged_multi_step` scores every slot's k+1 positions
+(kernel 7 at QT = k+1 on the card); each slot keeps its matching prefix
+plus one target token, and both states roll back with one lengths
+decrement.  Greedy only; every request's tokens equal the plain engine's.
+`acceptance_rate` = spec_accepted / spec_proposed.
+
+Not ported yet: the write-ahead journal, tensor-parallel meshes, and the
+obs metrics and request tracing.
 """
 
 from dataclasses import dataclass, field
@@ -46,9 +55,10 @@ from ..admission import (
 from ..device import resolve_device
 from .decode import sample_logits
 from .paged_decode import (
-    PrefixCache, init_paged_state, paged_decode_step, paged_prefill,
-    provision_capacity, retire_slot,
+    PrefixCache, init_paged_state, paged_decode_step, paged_multi_step,
+    paged_prefill, provision_capacity, retire_slot,
 )
+from .spec_round import Draft, SpecCounters
 from .transformer import ModelConfig
 
 
@@ -60,7 +70,7 @@ class _Request:
     tokens: List[int] = field(default_factory=list)  # generated so far
 
 
-class ServeEngine:
+class ServeEngine(SpecCounters):
     """Host-side continuous-batching loop.  Not thread-safe; drive it from
     one thread.  `params` must live on `device` (default: the card)."""
 
@@ -70,12 +80,10 @@ class ServeEngine:
                  temperature: float = 0.0, top_k=None, top_p=None,
                  rng: Optional[torch.Generator] = None,
                  prefix_cache: bool = False, draft_params=None,
-                 draft_cfg: Optional[ModelConfig] = None,
+                 draft_cfg: Optional[ModelConfig] = None, spec_k: int = 4,
                  max_queue: Optional[int] = None,
                  admission: Optional[AdmissionPolicy] = None,
                  journal=None, device=None):
-        if draft_params is not None or draft_cfg is not None:
-            raise NotImplementedError("speculative serving is not ported yet")
         if journal is not None:
             raise NotImplementedError("the token journal is not ported yet")
         if mesh is not None:
@@ -101,6 +109,13 @@ class ServeEngine:
             max_pages_per_seq=max_pages_per_seq, quantize=quantize,
             device=self.device)
         self.cache = PrefixCache(self.pool) if prefix_cache else None
+        # speculative serving: a DRAFT model with its own paged state whose
+        # slot geometry and pool dtype mirror the target's; greedy only
+        self.draft = None if draft_params is None else Draft(
+            self.params, params, draft_params, cfg, draft_cfg,
+            temperature=temperature, spec_k=spec_k, slots=slots,
+            n_pages=n_pages, page=page, max_pages_per_seq=max_pages_per_seq,
+            quantize=quantize, device=self.device)
         self.slots: List[Optional[_Request]] = [None] * slots
         self._next_tok = np.zeros((slots,), np.int64)
         self._queue: List[_Request] = []
@@ -206,7 +221,7 @@ class ServeEngine:
         inflight = [req for req in self.slots if req is not None]
         for slot, req in enumerate(self.slots):
             if req is not None:
-                retire_slot(self.state, self.pool, slot)
+                self._retire_slot(slot)
                 self.slots[slot] = None
         inflight.sort(key=lambda r: r.rid)
         for req in reversed(inflight):
@@ -216,8 +231,18 @@ class ServeEngine:
 
     # -- engine ------------------------------------------------------------
 
+    def _slack(self) -> int:
+        return self.draft.slack if self.draft is not None else 0
+
     def _pages_for(self, prompt_len: int, max_new: int) -> int:
-        return -(-(prompt_len + max_new) // self.page)
+        return -(-(prompt_len + max_new + self._slack()) // self.page)
+
+    def _retire_slot(self, slot: int) -> None:
+        """retire_slot on the target state and, in draft mode, the
+        draft's."""
+        retire_slot(self.state, self.pool, slot)
+        if self.draft is not None:
+            self.draft.retire(slot)
 
     def _admit(self) -> None:
         """Move queued requests into free slots while the pool can cover
@@ -236,20 +261,29 @@ class ServeEngine:
                 self.cache.evict(need - self.pool.available)
             if need > self.pool.available:
                 break
+            if self.draft is not None and need > self.draft.pool.available:
+                # the draft pool duplicates pages the target may share
+                # through the prefix cache: check it before the target
+                # prefill, not halfway through admission
+                break
             try:
                 logits, _ = paged_prefill(self.params, req.prompt, self.state,
                                           self.pool, slot, self.cfg,
                                           cache=self.cache)
                 provision_capacity(self.state, self.pool, slot,
-                                   req.max_new_tokens)
+                                   req.max_new_tokens + self._slack())
+                if self.draft is not None:
+                    self.draft.prefill(req.prompt, slot, req.max_new_tokens)
             except Exception:
-                # paged_prefill releases its own pages on failure; a
-                # provision failure leaves prefill's pages in the table
-                retire_slot(self.state, self.pool, slot)
+                # paged_prefill releases its own pages on failure; pages an
+                # earlier call of this block committed to a table row (the
+                # target prefill before a draft-side raise, a prefill before
+                # a provision failure) are released here, in both pools
+                self._retire_slot(slot)
                 raise
             tok = self._sample(logits[None, :])[0]
             if tok < 0:  # sample_logits NaN-poison sentinel
-                retire_slot(self.state, self.pool, slot)
+                self._retire_slot(slot)
                 raise RuntimeError(f"slot {slot} (rid {req.rid}) prefill "
                                    "logits are NaN-poisoned")
             # dequeue only once prefill + provision + sample succeeded: a
@@ -273,15 +307,16 @@ class ServeEngine:
             hit_eos = (self.eos_id is not None and req.tokens
                        and req.tokens[-1] == self.eos_id)
             if hit_eos or len(req.tokens) >= req.max_new_tokens:
-                retire_slot(self.state, self.pool, slot)
+                self._retire_slot(slot)
                 self.slots[slot] = None
                 self._finished[req.rid] = req.tokens
                 done.append((req.rid, req.tokens))
         return done
 
     def step(self) -> List[Tuple[int, List[int]]]:
-        """One engine tick: retire -> admit -> one decode step for every
-        live slot.  Returns requests that finished THIS tick.
+        """One engine tick: retire -> admit -> one decode advance for every
+        live slot (a single token, or a whole speculative round in draft
+        mode).  Returns requests that finished THIS tick.
 
         Admit and retire alternate until stable: a freshly admitted request
         can already be complete (max_new_tokens == 1, or the
@@ -295,6 +330,9 @@ class ServeEngine:
             if self.pending == before:
                 break
         if self.live == 0:
+            return done
+        if self.draft is not None:
+            self._spec_round()
             return done
         logits, _ = paged_decode_step(
             self.params, torch.from_numpy(self._next_tok).to(self.device),
@@ -310,3 +348,18 @@ class ServeEngine:
             req.tokens.append(int(toks[slot]))
             self._next_tok[slot] = int(toks[slot])
         return done
+
+    def _spec_round(self) -> None:
+        """One speculative round for EVERY live slot: the draft's spec_k
+        proposals and its catch-up (Draft.propose), the target scoring
+        all k+1 positions in ONE paged_multi_step, the acceptance on the
+        host (Draft.accept, which rolls the draft back), then the target's
+        lengths down by what was not kept, one subtraction."""
+        first = torch.from_numpy(self._next_tok).to(self.device)
+        d_toks, bad = self.draft.propose(first)
+        lg_t, _ = paged_multi_step(
+            self.params, torch.cat([first[:, None], d_toks], dim=1),
+            self.state, self.cfg)
+        undo = self.draft.accept(self.slots, d_toks, lg_t, bad, self.eos_id,
+                                 self._next_tok)
+        self.state.lengths.sub_(torch.from_numpy(undo).to(self.device))

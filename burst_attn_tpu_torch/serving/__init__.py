@@ -8,14 +8,16 @@ pool, one engine.
     each slot's new K/V into its pages and attends through that kernel.
   * `serving.engine.RaggedServeEngine` — continuous batching: per-step
     admission, chunked prefill interleaved with in-flight decode, prefix
-    cache with copy-on-write pages, int8/fp8 pools.
+    cache with copy-on-write pages, int8/fp8 pools, and speculative
+    decoding as a scheduler policy (`draft_params`: k draft proposals a
+    slot, one verify launch at QT = k+1).
 
   * `serving.handoff` — the long-context handoff: a ring-sharded
     prefill (`burst_attn`) lands its K/V directly in pool pages, then
     sequence-parallel paged decode (`handoff_generate`,
     `ring_prefill_to_pages`).
 
-Not ported yet: the checkpoint layer and speculative serving.
+Not ported yet: the checkpoint layer.
 """
 
 from .engine import RaggedServeEngine

@@ -25,6 +25,16 @@ same launch that decodes:
     barrier first; ticks where >= 2 live slots share pinned pages run the
     grouped launch (`group_attn`).
   * `quantize=True | "int8" | "fp8"` stores the pool at 1 B/elem.
+  * Speculative decoding (`draft_params`, `draft_cfg`, `spec_k`) is a
+    scheduler policy: when a draft model is attached and no slot is
+    mid-prefill, the tick is a speculative round (k draft proposals a slot
+    through single paged steps on the draft's own state, ONE all-logits
+    verify at QT = k+1, per-slot prefix acceptance, one lengths rollback a
+    state).  Ticks with a slot mid-prefill chunk as usual and keep the
+    draft in step with one catch-up launch for the decoding slots.  The
+    draft prefills its whole prompt at admission.  Greedy only; streams
+    are token-exact with the plain engine.  `pipeline=True` with a draft
+    serves through these synchronous rounds.
   * Pipelined (`pipeline=True`): each tick dispatches the NEXT launch
     before it reads the previous one back, so the host's scheduling of
     tick N+1 overlaps the device's work on tick N; delivery lags one tick.
@@ -53,11 +63,14 @@ the counts under the JAX counter names (`serve.ragged_batch_launches`
 by kind, `serve.prefix_hits`, `serve.cow_copies`,
 `serve.prefill_tokens_skipped`, `burst.fused_fallback`,
 `serve.multi_step_launches{k=K}`, `serve.pipeline_reconciles{cause=
-eos-retire|scan-eos}`), plus `serve.grouped_launches`, the ticks that
-took the grouped launch.  `graphs.captures` and `graphs.replays` count
-the K-tick CUDA graphs.
+eos-retire|scan-eos}`, `serve.ragged_batch_launches{kind=spec-verify}`),
+plus `serve.grouped_launches`, the ticks that took the grouped launch,
+and `serve.draft_catchup_launches`, the draft's catch-up launches of
+mixed ticks.  `spec_rounds`, `spec_proposed`, `spec_accepted` and
+`acceptance_rate` count the speculative rounds.  `graphs.captures` and
+`graphs.replays` count the K-tick CUDA graphs.
 
-Not ported yet: speculative decoding (`draft_params`) and the journal.
+Not ported yet: the journal.
 """
 
 from collections import Counter
@@ -74,11 +87,12 @@ from ..admission import (
 from ..device import resolve_device
 from ..models.decode import skip_draws
 from ..models.paged_decode import PrefixCache, init_paged_state
+from ..models.spec_round import Draft, SpecCounters
 from ..models.transformer import ModelConfig
 from ..ops.ragged_paged import ragged_supported
 from .model import (
     DecodeGraphs, assign_pages, cow_pages, free_slot, free_slots,
-    multi_step_decode, pipelined_tick, upload,
+    multi_step_decode, pipelined_tick, ragged_model_step, upload,
 )
 
 # reason-string prefix -> bounded counter label (probe reasons embed
@@ -144,7 +158,7 @@ def _readback_choices(p: _Pending) -> np.ndarray:
     return p.host.numpy()
 
 
-class RaggedServeEngine:
+class RaggedServeEngine(SpecCounters):
     """Host-side continuous-batching loop over ragged_model_step.  Not
     thread-safe; drive it from one thread.  `params` must live on `device`
     (default: the card)."""
@@ -161,9 +175,6 @@ class RaggedServeEngine:
                  prefix_cache: bool = False, group_attn: bool = True,
                  journal=None, pipeline: bool = False, multi_step: int = 1,
                  device=None):
-        if draft_params is not None or draft_cfg is not None:
-            raise NotImplementedError(
-                "speculative serving (draft_params) is not ported yet")
         if journal is not None:
             raise NotImplementedError("the token journal is not ported yet")
         if multi_step < 1:
@@ -204,6 +215,14 @@ class RaggedServeEngine:
         # of attn="grouped"; trimmed when the CoW barrier privatizes a
         # boundary page, dropped at retire/drain
         self._shared: Dict[int, Tuple[int, ...]] = {}
+        # speculative decoding: a draft model with its own paged state (slot
+        # geometry and pool dtype as the target's; no host mirror: its
+        # lengths are read only at admission)
+        self.draft = None if draft_params is None else Draft(
+            self.params, params, draft_params, cfg, draft_cfg,
+            temperature=temperature, spec_k=spec_k, slots=slots,
+            n_pages=n_pages, page=page, max_pages_per_seq=max_pages_per_seq,
+            quantize=quantize, device=self.device)
         self.slots: List[Optional[_Request]] = [None] * slots
         self._next_tok = np.zeros((slots,), np.int32)
         # host mirrors of the device lengths (as every dispatched launch
@@ -215,10 +234,11 @@ class RaggedServeEngine:
         self._next_id = 0
         self._finished: Dict[int, List[int]] = {}
         self.stats: Counter = Counter()
-        # the K-tick decode graphs (the card only; the CPU runs K ticks)
+        # the K-tick decode graphs (the card only; the CPU runs K ticks; a
+        # draft engine never takes the pipelined path)
         self.graphs = (DecodeGraphs(self.params, self.state, cfg, self._rng)
                        if self.device.type == "cuda" and self.multi_step > 1
-                       else None)
+                       and self.draft is None else None)
 
     # -- client surface ----------------------------------------------------
 
@@ -337,8 +357,11 @@ class RaggedServeEngine:
                 + "}"
         self.stats[name] += n
 
+    def _slack(self) -> int:
+        return self.draft.slack if self.draft is not None else 0
+
     def _pages_for(self, prompt_len: int, max_new: int) -> int:
-        return -(-(prompt_len + max_new) // self.page)
+        return -(-(prompt_len + max_new + self._slack()) // self.page)
 
     def _attn_for(self, qt: int) -> str:
         """Attention route for a launch width, probed once per width on
@@ -377,10 +400,14 @@ class RaggedServeEngine:
             self.cache.insert(hashes, [int(x) for x in row[:len(hashes)]])
 
     def _free(self, slots: List[int]) -> None:
-        """free_slots and the host mirrors with it."""
+        """free_slots and the host mirrors with it; in draft mode the
+        draft's slots retire too."""
         free_slots(self.state, self.pool, slots)
         self._table[slots] = 0
         self._lengths[slots] = 0
+        if self.draft is not None:
+            for slot in slots:
+                self.draft.retire(slot)
 
     def _admit(self) -> None:
         """Reserve queued requests' full page lifetime into free slots
@@ -406,7 +433,11 @@ class RaggedServeEngine:
                 if short > 0:
                     self.cache.evict(short)
                 need -= len(hits)
-            if need > self.pool.available:
+            if need > self.pool.available or (
+                    self.draft is not None
+                    and need + len(hits) > self.draft.pool.available):
+                # the draft pool holds the whole prompt privately: check it
+                # before any page moves
                 if hits:
                     self.pool.release(hits)
                 break
@@ -424,14 +455,21 @@ class RaggedServeEngine:
                     self._shared[slot] = tuple(hits)
                     self._count("serve.prefix_hits")
                     self._count("serve.prefill_tokens_skipped", t_resume)
+                if self.draft is not None:
+                    # the draft prefills its WHOLE prompt now; per-tick
+                    # catch-ups then keep it on the target's stream
+                    self.draft.prefill(req.prompt, slot, req.max_new_tokens)
             except Exception:
                 # free_slot releases hits and ids together (the lookup's
-                # pin and the acquire both belong to the row)
+                # pin and the acquire both belong to the row); the draft's
+                # prefill pages, if it got that far, go back too
                 req.n_prefilled = 0
                 self._shared.pop(slot, None)
                 free_slot(self.state, self.pool, slot)
                 self._table[slot] = 0
                 self._lengths[slot] = 0
+                if self.draft is not None:
+                    self.draft.retire(slot)
                 raise
             self._queue.pop(0)
             self.slots[slot] = req
@@ -520,13 +558,19 @@ class RaggedServeEngine:
         its readback.  Returns requests that finished THIS tick.  A
         pipelined engine (pipeline=True) returns the requests its PREVIOUS
         launch finished: see _pipelined_step."""
-        if self.pipeline:
+        if self.pipeline and self.draft is None:
             return self._pipelined_step()
         done = self._retire_finished()
         self._admit()
         if self.live == 0:
             return done
-        self._readback(self._launch_deferred())
+        if self.draft is None:
+            self._readback(self._launch_deferred())
+        elif all(r is None or r.n_prefilled == len(r.prompt)
+                 for r in self.slots):
+            self._spec_round()
+        else:
+            self._mixed_draft_tick()
         done += self._retire_finished()
         return done
 
@@ -819,3 +863,50 @@ class RaggedServeEngine:
         done = self._retire_finished()
         self._flushed_done.extend(done)
         return done
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _mixed_draft_tick(self) -> None:
+        """A draft engine's tick with a slot mid-prefill: the plain chunked
+        tick, then one ragged launch on the draft state feeding each
+        DECODING slot the token the target just consumed (a slot still
+        mid-prefill already holds its whole prompt in the draft state and
+        must not step)."""
+        decoding = np.asarray([r is not None
+                               and r.n_prefilled == len(r.prompt)
+                               for r in self.slots])
+        dtoks = np.where(decoding, self._next_tok, 0)
+        self._readback(self._launch_deferred())
+        if decoding.any():
+            d = self.draft
+            ragged_model_step(
+                d.params, upload(dtoks[:, None], torch.long, self.device),
+                upload(decoding.astype(np.int32), torch.int32, self.device),
+                d.state, d.cfg, attn="ragged")
+            self._count("serve.draft_catchup_launches")
+
+    def _spec_round(self) -> None:
+        """One speculative round for every live slot (none mid-prefill):
+        the copy-on-write barrier for the k+1 positions the verify writes
+        into the target pool (the draft pool is never shared: its prefill
+        acquires privately), the draft's proposals and catch-up
+        (Draft.propose), ONE all-logits ragged verify of [last |
+        proposals] at QT = k+1 on the target, the acceptance on the host
+        (Draft.accept, which rolls the draft back), then the target's
+        rollback through _rollback_lengths, which keeps the host mirror
+        exact."""
+        k = self.spec_k
+        q_lens = np.asarray([k + 1 if r is not None else 0
+                             for r in self.slots], np.int32)
+        self._cow_barrier(q_lens)
+        first = upload(self._next_tok, torch.long, self.device)
+        d_toks, bad = self.draft.propose(first)
+        lg_t, _ = ragged_model_step(
+            self.params, torch.cat([first[:, None], d_toks], dim=1),
+            upload(q_lens, torch.int32, self.device), self.state, self.cfg,
+            attn=self._attn_for(k + 1), all_logits=True)
+        self._lengths += q_lens
+        self._count("serve.ragged_batch_launches", kind="spec-verify")
+        undo = self.draft.accept(self.slots, d_toks, lg_t, bad, self.eos_id,
+                                 self._next_tok)
+        self._rollback_lengths(undo)

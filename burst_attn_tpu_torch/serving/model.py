@@ -1,7 +1,9 @@
 """The model step behind RaggedServeEngine (port of
 burst_attn_tpu/serving/model.py): scatter each slot's new tokens' K/V into
 its pool pages, attend the whole ragged batch in one kernel launch per
-layer, return next-token logits.
+layer, return next-token logits.  `ragged_model_step` itself lives in
+models/paged_decode.py, beside the paged steps it generalizes (its
+`paged_multi_step` is one call of it), and is exported here.
 
 One function serves every engine tick shape: per-slot `q_lens` is a
 tensor (0 = idle slot, 1 = decode, up to the chunk width = prefill), so
@@ -35,16 +37,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..models.decode import sample_logits
-from ..models.paged_decode import PagedState, PagePool, _write_tokens
-from ..models.transformer import (
-    ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
-)
+from ..models.paged_decode import PagePool, PagedState, ragged_model_step
+from ..models.transformer import ModelConfig
 from ..ops import ragged_paged as _rp
 from ..ops.paged_attention import pool_bytes
-from ..ops.ragged_paged import (
-    ragged_paged_attention, ragged_paged_attention_grouped,
-    ragged_paged_reference,
-)
 
 
 def upload(values, dtype, device):
@@ -56,97 +52,6 @@ def upload(values, dtype, device):
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
-
-
-def ragged_model_step(params, tokens, q_lens, state: PagedState,
-                      cfg: ModelConfig, attn: str = "ragged",
-                      all_logits: bool = False, group_id=None,
-                      shared_table=None, shared_lens=None):
-    """Advance every active slot by its own token count in ONE pass, IN
-    PLACE on `state`.
-
-    tokens  [slots, QT] int — slot s consumes tokens[s, :q_lens[s]] (the
-            rest is padding; idle slots pass q_lens == 0)
-    q_lens  [slots] int32 — tokens this launch per slot; each slot's pages
-            for positions lengths .. lengths+q_lens-1 must be assigned
-
-    attn == "grouped" routes the shared-prefix launch: (group_id [slots],
-    shared_table [G, n_sh], shared_lens [G]) assign each slot to a prefix
-    group whose pinned pages are scored once and merged with the slot's
-    private band.
-
-    Returns (logits, state with lengths += q_lens):
-      all_logits=False: [slots, vocab] fp32 at each slot's LAST consumed
-        token — the next-token distribution a scheduler samples from.
-      all_logits=True:  [slots, QT, vocab] fp32.
-    No host sync."""
-    if attn not in ("ragged", "dense", "grouped"):
-        raise ValueError(
-            f"attn must be 'ragged', 'dense' or 'grouped', got {attn!r}")
-    if attn == "grouped" and (group_id is None or shared_table is None
-                              or shared_lens is None):
-        raise ValueError("attn='grouped' needs group_id, shared_table "
-                         "and shared_lens")
-    dev = state.lengths.device
-    tokens = torch.as_tensor(tokens, device=dev).long()
-    q_lens = torch.as_tensor(q_lens, device=dev).to(torch.int32)
-    slots, qt = tokens.shape
-    page = state.k_pages[0].shape[2]
-    width = state.page_table.shape[1]
-    quant = state.k_scales is not None
-    live = q_lens > 0
-    base = torch.where(live, state.lengths, 0)
-    t_ix = torch.arange(qt, device=dev)[None, :]
-    real = (t_ix < q_lens[:, None]) & live[:, None]          # [slots, QT]
-    pos = base.long()[:, None] + t_ix                         # absolute
-    pids = state.page_table.gather(1, (pos // page).clamp(max=width - 1))
-    # a live slot's REAL token mapping to the sink page means its page was
-    # never assigned: poison its logits
-    boundary_unassigned = (real & (pids == 0)).any(dim=1)
-    # padding/idle tokens scatter into the reserved sink page 0 (the only
-    # place where the scatter has duplicate indices)
-    pids = torch.where(real, pids, 0).long()
-    offs = pos % page
-    kv_lens = (base + q_lens).to(torch.int32)
-
-    x = params["embed"][tokens].to(cfg.dtype)                 # [S, QT, dm]
-    for li, p in enumerate(params["layers"]):
-        kp, vp = state.k_pages[li], state.v_pages[li]
-        q, k, v = _qkv_proj(p, x, pos, cfg)
-        # scatter the new K/V FIRST so attention reads a complete pool
-        ks = state.k_scales[li] if quant else None
-        vs = state.v_scales[li] if quant else None
-        _write_tokens(kp, ks, pids, offs, k.transpose(1, 2))  # [S,QT,Nkv,D]
-        _write_tokens(vp, vs, pids, offs, v.transpose(1, 2))
-        if attn == "ragged":
-            o = ragged_paged_attention(q, kp, vp, state.page_table, q_lens,
-                                       kv_lens, k_scales=ks, v_scales=vs,
-                                       window=cfg.window)
-        elif attn == "grouped":
-            o = ragged_paged_attention_grouped(
-                q, kp, vp, state.page_table, q_lens, kv_lens,
-                group_id=group_id, shared_table=shared_table,
-                shared_lens=shared_lens, k_scales=ks, v_scales=vs,
-                window=cfg.window)
-        else:  # the kernel's plain version: gathers every slot's pages
-            o = ragged_paged_reference(q, kp, vp, state.page_table, q_lens,
-                                       kv_lens, k_scales=ks, v_scales=vs,
-                                       window=cfg.window)
-        x = x + _attn_out(p, o)
-        x = x + _mlp(p, x)
-    x = _rms_norm(x, params["final_norm"])
-    if all_logits:
-        logits = _logits(x, params["lm_head"])
-        logits = logits.masked_fill(boundary_unassigned[:, None, None],
-                                    float("nan"))
-    else:
-        last = (q_lens.long() - 1).clamp(0, qt - 1)
-        x_last = x.gather(1, last[:, None, None].expand(-1, 1, x.shape[-1]))
-        logits = _logits(x_last, params["lm_head"])[:, 0]
-        logits = logits.masked_fill(boundary_unassigned[:, None],
-                                    float("nan"))
-    state.lengths.add_(torch.where(live, q_lens, 0))
-    return logits, state
 
 
 def pipelined_tick(params, tokens, q_lens, state: PagedState, rng,

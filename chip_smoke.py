@@ -62,7 +62,22 @@ Phases (any failure exits non-zero; nothing is caught):
      workload (reconciles), the prefix wave; kernel 7 launched once a
      layer for every tick the device ran; the decode tick at ~2K
      context, synchronous, K=1 and K=4 in turns, with busy shares and
-     the graphs' captures and replays;
+     the graphs' captures and replays; then speculative serving (k=4;
+     drafts: the model itself and its first 2 layers, the early exit of
+     serve_bench.py --spec-layers 2): kernel 7 at the verify width (QT 2
+     and 5 in all 8 slots at ~2K context) against its plain version on
+     bf16, fp32, int8 and fp8 pools, timed beside SDPA with the same
+     causal mask; `speculative_generate` on the longest prompt (fp32
+     self-draft token-exact with `generate`, every proposal accepted;
+     bf16 early exit equal or parted at a near tie; fp32 sampled
+     self-draft accepting >= 99%); both engines' draft modes on the 12
+     requests (fp32 self-draft token-exact with the plain fp32 engine at
+     acceptance 1, bf16 early exit held to the teacher-forced bar, an
+     int8 pool against the plain int8 engine; the ragged engine also
+     pipelined and on the prefix wave), every plain paged attention
+     refused, launches of kernels 1, 6 and 7 exactly as the rounds say,
+     both pools drained; tokens/s of a plain tick, a self-draft round and
+     an early-exit round (bf16, 8 slots at ~2K) with busy shares;
   6. training at the training benchmark's width and depth
      (benchmarks/train_smoke.py: vocab 32768, d_model 2048, 16 layers,
      16/16 heads, d_ff 8192, bf16, remat; 1.21 B parameters from a seed)
@@ -574,17 +589,18 @@ RAGGED_KV_LENS = (0, 2112, 37, 1024, 2048, 1, 700, 1500)
 
 
 def _ragged_case(device, dtype, quant, seed, n_kv=4, group=4, d=128,
-                 page=PAGE, n_pages=N_PAGES, width=MAX_PAGES):
+                 page=PAGE, n_pages=N_PAGES, width=MAX_PAGES,
+                 q_lens=RAGGED_Q_LENS, kv_lens=RAGGED_KV_LENS, qt=CHUNK):
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
-    slots = len(RAGGED_Q_LENS)
-    q = torch.randn(slots, n_kv * group, CHUNK, d, generator=g,
+    slots = len(q_lens)
+    q = torch.randn(slots, n_kv * group, qt, d, generator=g,
                     device=device).to(dtype)
     kp, vp, ks, vs = _pool(g, device, dtype, quant, n_pages, n_kv, page, d)
-    table = _table(seed, RAGGED_KV_LENS, n_pages, page, width, device)
+    table = _table(seed, kv_lens, n_pages, page, width, device)
     ql, kl = (torch.tensor(x, dtype=torch.int32, device=device)
-              for x in (RAGGED_Q_LENS, RAGGED_KV_LENS))
+              for x in (q_lens, kv_lens))
     return q, kp, vp, table, ql, kl, ks, vs
 
 
@@ -1089,7 +1105,6 @@ def plain_attention():
     from unittest import mock
 
     import burst_attn_tpu_torch.models.paged_decode as pd
-    import burst_attn_tpu_torch.serving.model as sm
     from burst_attn_tpu_torch.ops import paged_attention as pa
     from burst_attn_tpu_torch.ops import ragged_paged as rp
     from burst_attn_tpu_torch.ops import tile
@@ -1110,8 +1125,8 @@ def plain_attention():
 
     with mock.patch.object(pd, "paged_decode_attention", decode), \
             mock.patch.object(pd, "_flash_prompt_attention", prompt), \
-            mock.patch.object(sm, "ragged_paged_attention", ragged), \
-            mock.patch.object(sm, "ragged_paged_attention_grouped",
+            mock.patch.object(pd, "ragged_paged_attention", ragged), \
+            mock.patch.object(pd, "ragged_paged_attention_grouped",
                               _plain_grouped):
         yield
 
@@ -1318,6 +1333,7 @@ def serve_engine_phase(device):
           f"(request, token, dense-forward logit gap) {flips}", flush=True)
     assert all(g <= TIE_GAP for _, _, g in flips), flips
     res["quant"] = (same, flips)
+    res["quant_toks"] = toks  # the speculative phase's int8 reference
 
     # steady-state timing (bf16): one full-length prefill; then decode
     # steps with every slot live at ~2K context
@@ -1411,6 +1427,7 @@ def ragged_engine_phase(device, serve_res):
               flush=True)
         assert all(g <= TIE_GAP for _, _, g in flips), flips
         res["quant"][q] = (same, flips)
+        res[f"quant_toks_{q}"] = toks
     cfg, params, prompts, _, toks, _, _, _, _ = run(torch.bfloat16,
                                                     quantize="int8")
     a, t, _ = agreement(cfg, params, prompts, toks, device)
@@ -1462,8 +1479,10 @@ def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
                 n_pre * PAGE - (t == 0) for t in tails),
             # ... and its re-absorbed token privatizes the last shared page
             "serve.cow_copies": sum(t == 0 for t in tails)}
+    knobs = {k: v for k, v in engine_kw.items()
+             if not k.startswith("draft_")}
     print(f"prefix wave (fp32, template {template_len}, tails {list(tails)}"
-          f", {engine_kw or 'synchronous'}): stats {stats}", flush=True)
+          f", {knobs or 'synchronous'}): stats {stats}", flush=True)
     assert out[True] == out[False], "prefix-cache tokens differ from cache-off"
     for k, v in want.items():
         assert stats.get(k, 0) == v, (k, stats.get(k), v)
@@ -1471,6 +1490,8 @@ def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
     eng.drain()
     eng.cache.evict(N_PAGES)
     assert eng.pool.in_use == 0 and eng.pool.logical_refs == 0
+    if eng.draft is not None:  # the draft's pool holds no shared page
+        assert eng.draft.pool.available == N_PAGES - 1
     print("prefix wave: tokens equal the cache-off run; after drain and "
           "evict in_use 0, logical_refs 0", flush=True)
     return stats, out[True]
@@ -3910,6 +3931,420 @@ def window_serve_phase(device):
     return res
 
 
+# ---------------------------------------------------------------------------
+# speculative serving: speculative_generate on the dense cache, the
+# ServeEngine's draft mode (paged_multi_step) and the RaggedServeEngine's
+# draft rounds (the verify on kernel 7 at QT = k+1)
+
+SPEC_K = 4  # proposals a round (serve_bench.py --spec-k's default)
+# the early-exit draft: the target's first 2 of 8 layers, weights shared
+# (serve_bench.py --spec-layers 2)
+SPEC_EXIT_LAYERS = 2
+SPEC_STEPS = 64  # speculative_generate's tokens on the longest prompt
+# kernel 7 at the verify width: 8 slots decoding at the serving run's
+# context lengths, every one with k+1 query tokens
+VERIFY_KV_LENS = (2117, 2053, 1797, 1500, 1029, 700, 305, 5)
+
+
+def spec_drafts(dtype, device):
+    """(cfg, params, {"self": (params, cfg), "exit": (params, cfg)}): the
+    serving model and its two drafts, the model itself and its first
+    SPEC_EXIT_LAYERS layers over the same weights."""
+    import dataclasses
+
+    cfg, params = model(dtype, device)
+    exit_cfg = dataclasses.replace(cfg, n_layers=SPEC_EXIT_LAYERS)
+    exit_params = dict(params, layers=params["layers"][:SPEC_EXIT_LAYERS])
+    return cfg, params, {"self": (params, cfg),
+                         "exit": (exit_params, exit_cfg)}
+
+
+@contextlib.contextmanager
+def no_plain_attention():
+    """Make every plain attention of the paged paths raise: a speculative
+    run on the card must attend through kernels 6 and 7 only."""
+    from unittest import mock
+
+    import burst_attn_tpu_torch.models.paged_decode as pd
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    def refuse(*a, **kw):
+        raise AssertionError("a speculative path called a plain attention")
+
+    with mock.patch.object(pd, "ragged_paged_reference", refuse), \
+            mock.patch.object(rp, "ragged_paged_reference", refuse), \
+            mock.patch.object(rp, "ragged_paged_partials_reference",
+                              refuse), \
+            mock.patch.object(pa, "paged_decode_reference", refuse):
+        yield
+
+
+def check_ragged_verify(device):
+    """Kernel 7 at the verify width (QT = 2 and k+1 in every live slot)
+    against its plain version on bf16, fp32, int8 and fp8 pools, two
+    launches torch.equal; then the kernels-line entry at QT = k+1, bf16:
+    eager and CUDA-graph times, the plain version's, SDPA's with the same
+    causal mask on the gathered cache, and the bound by bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    worst = 0.0
+    for qt in (2, SPEC_K + 1):
+        for dt, quant in ((bf16, None), (fp32, None), (fp32, "int8"),
+                          (bf16, "fp8")):
+            q, kp, vp, table, ql, kl, ks, vs = _ragged_case(
+                device, dt, quant, seed=31 + qt, q_lens=(qt,) * SLOTS,
+                kv_lens=VERIFY_KV_LENS, qt=qt)
+            kw = dict(k_scales=ks, v_scales=vs)
+            o = rp.ragged_paged_attention(q, kp, vp, table, ql, kl, **kw)
+            assert torch.equal(o, rp.ragged_paged_attention(
+                q, kp, vp, table, ql, kl, **kw)), \
+                "ragged_paged at the verify width: two launches differ"
+            want = rp.ragged_paged_reference(q, kp, vp, table, ql, kl, **kw)
+            err = _check_o(f"ragged verify QT={qt} {quant or ''}", o, want,
+                           dt)
+            worst = max(worst, err)
+            print(f"ragged_paged verify QT={qt} {_dtype_key(dt)} pool="
+                  f"{quant or _dtype_key(dt)} kv_lens="
+                  f"{list(VERIFY_KV_LENS)} max_abs_err={err:.3e} (tolerance "
+                  f"{O_TOL[_dtype_key(dt)]}); two launches torch.equal",
+                  flush=True)
+    qt = SPEC_K + 1
+    q, kp, vp, table, ql, kl, _, _ = _ragged_case(
+        device, bf16, None, seed=37, q_lens=(qt,) * SLOTS,
+        kv_lens=VERIFY_KV_LENS, qt=qt)
+
+    def kernel():
+        return rp.ragged_paged_attention(q, kp, vp, table, ql, kl)
+
+    ms, dev_ms = time_ms(kernel), graph_ms(kernel)
+    plain_ms = time_ms(lambda: rp.ragged_paged_reference(
+        q, kp, vp, table, ql, kl), iters=5)
+    slots, n_q, _, d = q.shape
+    n_kv, page, width = kp.shape[1], kp.shape[2], table.shape[1]
+    idx = table.long()
+    kd = kp[idx].movedim(2, 1).reshape(slots, n_kv, width * page, d)
+    vd = vp[idx].movedim(2, 1).reshape(slots, n_kv, width * page, d)
+    qp = (kl - ql).long()[:, None] + torch.arange(qt, device=device)[None]
+    col = torch.arange(width * page, device=device)
+    mask = col[None, None, :] <= qp[:, :, None]
+
+    def lib():
+        return F.scaled_dot_product_attention(q, kd, vd,
+                                              attn_mask=mask[:, None],
+                                              enable_gqa=True)
+
+    lib_ms, lib_dev_ms = time_ms(lib), graph_ms(lib)
+    pairs = n_q * sum(qt * (kv - qt) + qt * (qt + 1) // 2
+                      for kv in VERIFY_KV_LENS)
+    # what the function must move: the live positions' K and V once per
+    # (slot, kv head), q and o, the live pages' table entries, the lengths
+    live = sum(VERIFY_KV_LENS)
+    n_bytes = (2 * live * n_kv * d * kp.element_size()
+               + 2 * q.element_size() * q.numel()
+               + 4 * (sum(-(-kv // page) for kv in VERIFY_KV_LENS)
+                      + 2 * slots))
+    bms, by = bound_ms(n_bytes, 4 * pairs * d)
+    print(f"ragged_paged verify (QT={qt}, {SLOTS} slots to "
+          f"{max(VERIFY_KV_LENS)} positions, Nkv4 G4 D128 bf16): {ms:.4f} ms "
+          f"a call timing eager calls ({dev_ms:.4f} on the device, CUDA "
+          f"graph), plain {plain_ms:.4f}, SDPA {lib_ms:.4f} "
+          f"({lib_dev_ms:.4f}), bound {bms:.5f} by {by}", flush=True)
+    return worst, dict(shape=f"{SLOTS} slots x QT {qt}, kv to "
+                       f"{max(VERIFY_KV_LENS)}, Nkv4 G4 D128 bf16",
+                       ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                       library_graph_ms=lib_dev_ms)
+
+
+def spec_generate_phase(device, prompts):
+    """speculative_generate at B=1 on the longest of the 12 prompts, 64
+    tokens: fp32 self-draft token-exact with generate() (every proposal
+    accepted, ceil(63 / 5) target passes), bf16 early-exit equal to
+    generate() or parted at a near tie, fp32 sampled self-draft (T 0.8)
+    accepting >= 99%; both prompts through kernel 1; wall ms of generate
+    and of each draft in bf16."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models import speculative_generate
+    from burst_attn_tpu_torch.models.decode import generate
+    from burst_attn_tpu_torch.ops import flash
+
+    prompt = max(prompts, key=len)
+    max_seq = len(prompt) + SPEC_STEPS + SPEC_K + 1
+    tok = torch.from_numpy(prompt.astype(np.int64)).to(device)[None]
+    kw = dict(steps=SPEC_STEPS, k=SPEC_K, max_seq=max_seq,
+              return_stats=True)
+    out = {}
+    passes = -(-(SPEC_STEPS - 1) // (SPEC_K + 1))
+    cfg, params, drafts = spec_drafts(torch.float32, device)
+    want = generate(params, tok, cfg, steps=SPEC_STEPS,
+                    max_seq=max_seq)[0].tolist()
+    flash.flash_fwd.launches = 0
+    got, st = speculative_generate(params, params, tok, cfg, cfg, **kw)
+    assert flash.flash_fwd.launches == 2 * cfg.n_layers, \
+        flash.flash_fwd.launches
+    assert got.tolist() == want, "fp32 self-draft tokens differ"
+    assert st.accepted == st.proposed and st.target_passes == passes, st
+    rng = torch.Generator(device=device).manual_seed(5)
+    _, sst = speculative_generate(params, params, tok, cfg, cfg, rng=rng,
+                                  temperature=0.8, **kw)
+    out["fp32_self"] = dict(st._asdict())
+    out["fp32_sampled_self"] = dict(sst._asdict())
+    assert sst.accepted >= 0.99 * sst.proposed, sst
+    print(f"speculative_generate fp32 self-draft ({len(prompt)}-token prompt"
+          f", {SPEC_STEPS} tokens, k={SPEC_K}): tokens equal generate(), "
+          f"{st}; sampled (T 0.8): {sst}, acceptance "
+          f"{sst.accepted / sst.proposed:.4f}", flush=True)
+
+    cfg, params, drafts = spec_drafts(torch.bfloat16, device)
+    runs = {"generate": lambda: generate(params, tok, cfg, steps=SPEC_STEPS,
+                                         max_seq=max_seq)[0].tolist()}
+    for name, (dp, dc) in drafts.items():
+        runs[name] = (lambda dp=dp, dc=dc: speculative_generate(
+            params, dp, tok, cfg, dc, **kw))
+    toks = {}
+    for name, fn in runs.items():
+        res = fn()
+        toks[name] = res if name == "generate" else res[0].tolist()
+        if name != "generate":
+            out[f"bf16_{name}"] = dict(res[1]._asdict())
+        out[f"bf16_{name}_ms"] = host_ms(fn, repeats=1)
+    for name in drafts:
+        flips = near_tie_flips(cfg, params, [prompt], [toks[name]],
+                               [toks["generate"]], device)
+        assert all(g <= TIE_GAP for _, _, g in flips), (name, flips)
+        out[f"bf16_{name}_flips"] = flips
+    ex = out["bf16_exit"]
+    print(f"speculative_generate bf16 ({card_line()}): generate "
+          f"{out['bf16_generate_ms']:.1f} ms, self-draft "
+          f"{out['bf16_self_ms']:.1f} ms ({out['bf16_self']['target_passes']}"
+          f" target passes), early-exit {SPEC_EXIT_LAYERS}-layer draft "
+          f"{out['bf16_exit_ms']:.1f} ms (acceptance "
+          f"{ex['accepted'] / ex['proposed']:.4f}, {ex['target_passes']} "
+          f"target passes); flips against generate() (request, token, "
+          f"dense-forward logit gap): self {out['bf16_self_flips']}, exit "
+          f"{out['bf16_exit_flips']}", flush=True)
+    return out
+
+
+def _spec_run(eng_cls, dtype, device, draft, quantize=False, **extra):
+    """The 12 requests through a draft engine with every plain paged
+    attention refused; the launch counters of kernels 1, 6, 7 set to 0
+    just before the run and read just after, and kernel 7's counter read
+    around every speculative round: launches["spec_verify"] is the sum of
+    those deltas, the verify launches the wrapper counted.  Returns (cfg,
+    params, prompts, engine, tokens, launches)."""
+    from burst_attn_tpu_torch.ops import flash, paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    cfg, params, drafts = spec_drafts(dtype, device)
+    dp, dc = drafts[draft]
+    prompts, budgets = requests(cfg)
+    eng = eng_cls(params, cfg, slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+                  max_pages_per_seq=MAX_PAGES, quantize=quantize,
+                  draft_params=dp, draft_cfg=dc, spec_k=SPEC_K,
+                  device=device, **extra)
+    verify = [0]
+    spec_round = eng._spec_round
+
+    def counted_round():
+        before = rp.ragged_paged_attention.launches
+        spec_round()
+        verify[0] += rp.ragged_paged_attention.launches - before
+
+    eng._spec_round = counted_round
+    with no_plain_attention():
+        toks, launches, run_s = drive(
+            eng, prompts, budgets, (flash.flash_fwd, pa.paged_decode_attention,
+                                    rp.ragged_paged_attention))
+    launches["spec_verify"] = verify[0]
+    assert eng.pool.available == eng.draft.pool.available == N_PAGES - 1, \
+        "a pool did not drain"
+    assert eng.spec_rounds > 0
+    rounds, n_draft = eng.spec_rounds, dc.n_layers
+    n_tgt = cfg.n_layers
+    # one kernel-7 verify a target layer a round, and no other launch of
+    # kernel 7 inside a round
+    assert launches["spec_verify"] == n_tgt * rounds, (launches, rounds)
+    # the draft's k proposals and its catch-up: kernel 6 once a layer each
+    assert launches["paged_decode_attention"] == \
+        n_draft * (SPEC_K + 1) * rounds, (launches, rounds)
+    pool = f" {quantize} pool" if quantize else ""
+    print(f"{eng_cls.__name__} {_dtype_key(dtype)}{pool} {draft}-draft: "
+          f"{N_REQUESTS} requests, "
+          f"{sum(map(len, toks))} tokens in {run_s:.2f} s, {rounds} rounds, "
+          f"acceptance {eng.acceptance_rate:.4f}, launches {launches}",
+          flush=True)
+    if eng_cls.__name__ == "ServeEngine":
+        assert launches["flash_fwd"] == (n_tgt + n_draft) * N_REQUESTS
+        assert launches["ragged_paged_attention"] == n_tgt * rounds
+    else:
+        st = eng.stats
+        assert not any(k.startswith("burst.fused_fallback") for k in st), st
+        ticks = sum(v for k, v in st.items()
+                    if k.startswith("serve.ragged_batch_launches"))
+        assert st["serve.ragged_batch_launches{kind=spec-verify}"] == rounds
+        assert launches["flash_fwd"] == n_draft * N_REQUESTS
+        assert launches["ragged_paged_attention"] == n_tgt * ticks \
+            + n_draft * st["serve.draft_catchup_launches"], (launches, st)
+        assert eng.graphs is None
+    return cfg, params, prompts, eng, toks, launches
+
+
+def spec_engines_phase(device, serve_res, rag):
+    """Both engines' draft modes on the 12 requests: fp32 self-draft
+    token-exact with the plain fp32 engine (every proposal accepted),
+    bf16 early-exit draft held to the teacher-forced bar, fp32 self-draft
+    on an int8 pool against the plain int8 engine (equal, or a flip at a
+    near tie); the RaggedServeEngine also pipelined (delegated: the same
+    tokens, no graph) and on the prefix-cache wave.  Launch counts and
+    drained pools in every run (_spec_run)."""
+    import torch
+
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    fp32, bf16 = torch.float32, torch.bfloat16
+    res = {}
+    for eng_cls, plain, extra in (
+            (ServeEngine, serve_res, {}),
+            (RaggedServeEngine, rag, {"chunk": CHUNK})):
+        name = eng_cls.__name__
+        _, _, _, eng, toks, launches = _spec_run(eng_cls, fp32, device,
+                                                 "self", **extra)
+        assert toks == plain["fp32"]["toks"], f"{name} fp32 self-draft"
+        assert eng.acceptance_rate == 1.0, eng.acceptance_rate
+        rec = {"fp32_self_rounds": eng.spec_rounds, "fp32_self": launches}
+        cfg, params, prompts, eng, toks, launches = _spec_run(
+            eng_cls, bf16, device, "exit", **extra)
+        check_agreement(f"{name} bf16 early-exit draft", agreement(
+            cfg, params, prompts, toks, device), True)
+        rec.update(bf16_exit=launches, bf16_exit_rounds=eng.spec_rounds,
+                   bf16_exit_acceptance=eng.acceptance_rate)
+        want = (rag["quant_toks_int8"] if eng_cls is RaggedServeEngine
+                else serve_res["quant_toks"])
+        cfg, params, prompts, _, toks, _ = _spec_run(
+            eng_cls, fp32, device, "self", quantize="int8", **extra)
+        flips = near_tie_flips(cfg, params, prompts, toks, want, device)
+        same = sum(a == b for a, b in zip(toks, want))
+        print(f"{name} fp32 int8 pool self-draft: {same}/{N_REQUESTS} "
+              f"streams equal the plain int8 engine's; flips (request, "
+              f"token, dense-forward logit gap) {flips}", flush=True)
+        assert all(g <= TIE_GAP for _, _, g in flips), flips
+        rec["int8_same"] = same
+        res[name] = rec
+    _, _, _, eng, toks, _ = _spec_run(RaggedServeEngine, fp32, device, "self",
+                                      chunk=CHUNK, pipeline=True,
+                                      multi_step=K_PIPE)
+    assert toks == rag["fp32"]["toks"] and eng._pending is None
+    print("RaggedServeEngine fp32 self-draft, pipeline=True multi_step="
+          f"{K_PIPE}: tokens equal the synchronous engine's, no graph",
+          flush=True)
+    cfg, params, drafts = spec_drafts(fp32, device)
+    dp, dc = drafts["self"]
+    with no_plain_attention():
+        stats, toks = prefix_wave(device, draft_params=dp, draft_cfg=dc,
+                                  spec_k=SPEC_K)
+    assert toks == rag["prefix_toks"], "self-draft prefix wave tokens differ"
+    print("self-draft prefix wave: tokens equal the plain wave's; both "
+          "pools drained", flush=True)
+    res["prefix"] = stats
+    return res
+
+
+def spec_timings(device, n_rounds=8):
+    """bf16, 8 slots decoding at ~2K context, both engines: tokens/s of
+    the plain synchronous tick, of a self-draft round (the ceiling:
+    acceptance 1) and of an early-exit round (the honest number for random
+    weights), timed in turns (plain, self, exit, exit, self, plain; tokens
+    added over the wall of n_rounds steps); then one profiled step each:
+    device ms and busy share."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    cfg, params, drafts = spec_drafts(torch.bfloat16, device)
+    prompt = np.random.default_rng(9).integers(1, cfg.vocab, size=2048 - 256,
+                                               dtype=np.int32)
+    out = {}
+    for eng_cls, extra in ((ServeEngine, {}),
+                           (RaggedServeEngine, {"chunk": CHUNK})):
+        engs = {}
+        for name in ("plain", "self", "exit"):
+            spec = {} if name == "plain" else dict(
+                draft_params=drafts[name][0], draft_cfg=drafts[name][1],
+                spec_k=SPEC_K)
+            eng = eng_cls(params, cfg, slots=SLOTS, n_pages=N_PAGES,
+                          page=PAGE, max_pages_per_seq=MAX_PAGES,
+                          device=device, **extra, **spec)
+            for _ in range(SLOTS):
+                eng.submit(prompt, 256)
+            while eng.pending or any(
+                    r is None or len(r.tokens) < 2 for r in eng.slots):
+                eng.step()
+            engs[name] = eng
+
+        def tok_s(eng):
+            before = sum(len(r.tokens) for r in eng.slots)
+            ms = host_ms(lambda: [eng.step() for _ in range(n_rounds)],
+                         repeats=1)
+            return (sum(len(r.tokens) for r in eng.slots) - before) \
+                / ms * 1e3
+
+        turns = {k: [] for k in engs}
+        for name in ("plain", "self", "exit", "exit", "self", "plain"):
+            turns[name].append(tok_s(engs[name]))
+        rec = {"tok_s": {k: sum(v) / len(v) for k, v in turns.items()},
+               "tok_s_turns": turns}
+        for name, eng in engs.items():
+            wall, dev, top = device_breakdown(eng.step, 1)
+            rec[f"{name}_step"] = dict(wall_ms=wall, device_ms=dev,
+                                       busy=dev / wall)
+            if name != "plain":
+                rec[f"{name}_acceptance"] = eng.acceptance_rate
+            print_profile(f"{eng_cls.__name__} {name} "
+                          f"{'round' if name != 'plain' else 'tick'} "
+                          f"(bf16, {SLOTS} slots at ~2K)", (wall, dev, top))
+            assert eng.live == SLOTS
+            eng.drain()
+            assert eng.pool.available == N_PAGES - 1
+        t = rec["tok_s"]
+        print(f"{eng_cls.__name__} speculative (bf16, {SLOTS} slots at ~2K, "
+              f"k={SPEC_K}; {card_line()}): tokens/s plain tick "
+              f"{t['plain']:.1f}, self-draft round {t['self']:.1f} "
+              f"(acceptance {rec['self_acceptance']:.4f}), early-exit "
+              f"{SPEC_EXIT_LAYERS}-layer round {t['exit']:.1f} (acceptance "
+              f"{rec['exit_acceptance']:.4f}); busy plain "
+              f"{rec['plain_step']['busy']:.3f}, self "
+              f"{rec['self_step']['busy']:.3f}, exit "
+              f"{rec['exit_step']['busy']:.3f}", flush=True)
+        out[eng_cls.__name__] = rec
+    return out
+
+
+def speculative_phase(device, serve_res, rag):
+    """The speculative phase (after the pipelined one): kernel 7 at the
+    verify width, speculative_generate, both engines' draft modes, the
+    timings.  Returns (kernel 7's verify record, the phase's results)."""
+    t0 = time.perf_counter()
+    err, verify = check_ragged_verify(device)
+    res = {"generate": spec_generate_phase(device, serve_res["fp32"][
+        "prompts"])}
+    res["engines"] = spec_engines_phase(device, serve_res, rag)
+    res["timings"] = spec_timings(device)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"speculative phase: {res['seconds']:.1f} s", flush=True)
+    return err, verify, res
+
+
 def main() -> int:
     import torch
 
@@ -4048,6 +4483,7 @@ def main() -> int:
         print_profile(f"pipelined decode step, {what} "
                       f"({pticks[f'ticks_profiled_{name}']:.0f} ticks in 4 "
                       f"steps)", pticks[f"prof_{name}"])
+    verify_err, verify_rec, spec = speculative_phase(device, serve_res, rag)
     wserve = window_serve_phase(device)
     k8_err, k1_err = check_handoff_kernels(device)
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
@@ -4116,8 +4552,24 @@ def main() -> int:
     kernels += window_recs + [suffix_rec]
     kernels[2]["pipelined_launches"] = pipe["launches"]
     assert pipe["launches"] > 0
+    # the speculative phase's bf16 early-exit runs of both engines
+    spec_launches = {
+        name: sum(spec["engines"][e]["bf16_exit"][fn]
+                  for e in ("ServeEngine", "RaggedServeEngine"))
+        for name, fn in (("flash_fwd", "flash_fwd"),
+                         ("paged_decode", "paged_decode_attention"),
+                         ("ragged_paged", "ragged_paged_attention"))}
+    for name, n in spec_launches.items():
+        assert n > 0, spec_launches
+        launches[name] += n
+    kernels[2]["spec_verify"] = verify_rec | {"launches": sum(
+        spec["engines"][e]["bf16_exit"]["spec_verify"]
+        for e in ("ServeEngine", "RaggedServeEngine"))}
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], verify_err)
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
+        if rec["name"] in spec_launches:
+            rec["speculative_launches"] = spec_launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     wall, dev, _ = tr["prof"]
@@ -4144,7 +4596,8 @@ def main() -> int:
                                          "library_graph_ms", "ring_step_ms",
                                          "ring_step_trace", "train_shape",
                                          "routes", "attrs",
-                                         "pipelined_launches")
+                                         "pipelined_launches", "spec_verify",
+                                         "speculative_launches")
                        if k in r}
                     for r in kernels],
         "card": card,
@@ -4166,6 +4619,7 @@ def main() -> int:
         "pipelined": {k: v for k, v in pipe.items() if k != "launches"}
         | {k: v for k, v in pticks.items() if not k.startswith("prof_")},
         "serve_prefix": sprefix,
+        "speculative": spec,
         "ring": {k: ring_rec[k] for k in ("op_ms", "scan_ms",
                                           "scan_launches",
                                           "fused_vs_scan_err")},

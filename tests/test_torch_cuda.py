@@ -1527,3 +1527,120 @@ def test_serve_engines_window_match_the_cpu(dev):
             res = eng.run()
             outs.append([res[r] for r in rids])
     assert all(o == outs[0] for o in outs[1:])
+
+
+def _verify_case(dev, dtype, quant, k, seed=12, group=4):
+    """A speculative verify batch: k+1 query tokens in every live slot
+    (an idle slot, a fresh sequence, a verify ending on a page edge, one
+    crossing it, two long contexts)."""
+    page, n_kv, d, width, n_pages = 128, 2, 128, 5, 40
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qt = k + 1
+    kv_lens = [0, qt, 2 * page, 2 * page + 2, 600, 5 * page]
+    q_lens = [0 if kv == 0 else qt for kv in kv_lens]
+    q = _rand(g, dev, dtype, len(q_lens), n_kv * group, qt, d)
+    kp, vp, ks, vs = _pool(g, dev, dtype, quant, n_pages, n_kv, page, d)
+    perm = np.random.default_rng(seed).permutation(n_pages - 1) + 1
+    table = torch.from_numpy(perm[: len(q_lens) * width].reshape(
+        len(q_lens), width).astype(np.int32)).to(dev)
+    lens = [torch.tensor(x, dtype=torch.int32, device=dev)
+            for x in (q_lens, kv_lens)]
+    return q, kp, vp, table, *lens, ks, vs
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("dtype,quant", [
+    (torch.bfloat16, None), (torch.float32, None), (torch.float32, "int8"),
+    (torch.bfloat16, "fp8")])
+def test_ragged_kernel_at_the_verify_width(dev, dtype, quant, k):
+    """Kernel 7 at QT = k+1 in every live slot (a speculative verify)
+    against its plain version; two launches are equal."""
+    q, kp, vp, table, ql, kl, ks, vs = _verify_case(dev, dtype, quant, k)
+
+    def kernel():
+        return ragged_paged.ragged_paged_attention(
+            q, kp, vp, table, ql, kl, k_scales=ks, v_scales=vs)
+
+    o = kernel()
+    assert torch.equal(o, kernel())
+    want = ragged_paged.ragged_paged_reference(q, kp, vp, table, ql, kl,
+                                               k_scales=ks, v_scales=vs)
+    torch.testing.assert_close(o, want, **TOL[dtype])
+    assert (o[0] == 0).all()
+
+
+@pytest.mark.parametrize("quant", [False, "int8"])
+def test_paged_multi_step_on_the_card_matches_the_cpu(dev, quant):
+    """paged_multi_step through kernel 7 against its plain CPU version on
+    the same weights and pool: live slots' logits within fp32 rounding,
+    the unprovisioned slot NaN on both, equal lengths; one kernel-7
+    launch a layer."""
+    from burst_attn_tpu_torch.models import paged_decode as pd
+
+    cfg, params = _serving_model("cpu")
+    rng = np.random.default_rng(13)
+    toks = rng.integers(1, cfg.vocab, size=(4, 5))
+    out = {}
+    for where in ("cpu", dev):
+        p = {k: (v.to(where) if torch.is_tensor(v) else
+                 [{n: w.to(where) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        st, pool = pd.init_paged_state(cfg, slots=4, n_pages=12, page=128,
+                                       max_pages_per_seq=3, quantize=quant,
+                                       device=where)
+        for slot, t in ((0, 200), (1, 128), (3, 37)):
+            pd.paged_prefill(p, np.random.default_rng(slot).integers(
+                1, cfg.vocab, size=t), st, pool, slot, cfg)
+        for slot in (0, 3):
+            pd.provision_capacity(st, pool, slot, 5)
+        before = ragged_paged.ragged_paged_attention.launches
+        lg, _ = pd.paged_multi_step(p, toks, st, cfg)
+        moved = ragged_paged.ragged_paged_attention.launches - before
+        assert moved == (0 if where == "cpu" else cfg.n_layers)
+        out[str(where)] = (lg.cpu(), st.lengths.cpu())
+    (lc, nc), (lg, ng) = out["cpu"], out[str(dev)]
+    assert torch.equal(nc, ng) and nc.tolist() == [205, 133, 0, 42]
+    assert torch.isnan(lg[1]).all() and torch.isnan(lc[1]).all()
+    for slot in (0, 3):
+        torch.testing.assert_close(lg[slot], lc[slot], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("engine,extra", [
+    (ServeEngine, {}), (RaggedServeEngine, {"chunk": 64}),
+    (RaggedServeEngine, {"chunk": 64, "prefix_cache": True})])
+def test_self_draft_engines_on_the_card_match_the_plain_engines(
+        dev, engine, extra):
+    """fp32 self-draft engines on the card: token-exact with the plain
+    engine, every proposal accepted, the verify through kernel 7 and the
+    draft's steps through kernel 6, both pools drained."""
+    cfg, params = _serving_model(dev)
+    rng = np.random.default_rng(14)
+    tmpl = rng.integers(1, cfg.vocab, size=256)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (9, 130, 300)]
+    prompts += [np.concatenate([tmpl, rng.integers(1, cfg.vocab, size=t)])
+                for t in (0, 40)]
+    kw = dict(slots=3, n_pages=32, max_pages_per_seq=4, device=dev, **extra)
+    out = []
+    for draft in (False, True):
+        spec = dict(draft_params=params, draft_cfg=cfg, spec_k=4) \
+            if draft else {}
+        eng = engine(params, cfg, **kw, **spec)
+        counts = (paged_attention.paged_decode_attention,
+                  ragged_paged.ragged_paged_attention)
+        before = [f.launches for f in counts]
+        rids = [eng.submit(pr, 9) for pr in prompts]
+        res = eng.run()
+        moved = [f.launches - b for f, b in zip(counts, before)]
+        out.append([res[r] for r in rids])
+        if eng.cache is not None:
+            eng.cache.evict(32)  # the cached template pages
+        assert eng.pool.available == 31
+        if draft:
+            assert eng.draft.pool.available == 31
+            assert eng.spec_rounds > 0 and eng.acceptance_rate == 1.0
+            assert moved[0] == cfg.n_layers * (4 + 1) * eng.spec_rounds
+            assert moved[1] >= cfg.n_layers * eng.spec_rounds
+            if engine is RaggedServeEngine:
+                assert not any(k.startswith("burst.fused_fallback")
+                               for k in eng.stats)
+    assert out[0] == out[1]

@@ -301,14 +301,39 @@ def test_serve_engine_quantized_matches_jax(model, quant):
 
 
 def test_unported_options_raise(model):
-    """Draft models and the journal still raise; multi_step > 1 without
+    """The journal still raises; a draft model is validated as the JAX
+    engines validate it (ValueError for a draft without its config,
+    sampling, a vocabulary mismatch, spec_k < 1); multi_step > 1 without
     pipeline is a ValueError, as in JAX; the pipelined engine and the
     ServeEngine prefix cache construct."""
-    _, _, cfg, params = model
+    jcfg, jparams, cfg, params = model
     kw = dict(slots=1, n_pages=4, device="cpu")
-    for bad in (dict(draft_params=params, draft_cfg=cfg), dict(journal=1)):
-        with pytest.raises(NotImplementedError):
-            RaggedServeEngine(params, cfg, **kw, **bad)
+    with pytest.raises(NotImplementedError):
+        RaggedServeEngine(params, cfg, **kw, journal=1)
+    other = dict(DIMS, vocab=DIMS["vocab"] + 1)
+    bad_drafts = (
+        ({}, dict(draft_params=params), "needs draft_cfg"),
+        ({}, dict(draft_params=params, draft_cfg=cfg, temperature=0.5),
+         "temperature == 0"),
+        (other, dict(draft_params=params), "share a vocabulary"),
+        ({}, dict(draft_params=params, draft_cfg=cfg, spec_k=0),
+         "spec_k must be >= 1"))
+    for dims, bad, msg in bad_drafts:
+        if dims:
+            bad = dict(bad, draft_cfg=ModelConfig(
+                **dims, dtype=torch.float32, batch_axis=None,
+                head_axis=None))
+        jbad = dict(bad, draft_params=jparams)
+        if "draft_cfg" in bad:
+            jbad["draft_cfg"] = JModelConfig(
+                **(dims or DIMS), dtype=jnp.float32, attn_backend="jnp",
+                remat=False, batch_axis=None, head_axis=None)
+        for eng_cls, jeng_cls in ((RaggedServeEngine, JRaggedServeEngine),
+                                  (ServeEngine, JServeEngine)):
+            with pytest.raises(ValueError, match=msg):
+                eng_cls(params, cfg, **kw, **bad)
+            with pytest.raises(ValueError, match=msg):
+                jeng_cls(jparams, jcfg, slots=1, n_pages=4, **jbad)
     for bad in (dict(multi_step=0), dict(multi_step=2),
                 dict(pipeline=True, multi_step=0)):
         with pytest.raises(ValueError):

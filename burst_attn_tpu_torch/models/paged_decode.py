@@ -39,10 +39,10 @@ Quantized pools (`init_paged_state(quantize="int8" | "fp8")`) store
 quantizes into both, every read dequantizes through both, and a page is
 never copied without its scales.  `PrefixCache` is the content-hashed
 index of full prompt pages the ragged engine shares through the pool's
-refcounts.
+refcounts; `to_meta` / `from_meta` carry it through an engine snapshot
+(serving/checkpoint.py).
 
-Not ported yet: PrefixCache.to_meta/from_meta and tensor-parallel
-meshes.
+Not ported yet: tensor-parallel meshes.
 """
 
 import hashlib
@@ -274,6 +274,38 @@ class PrefixCache:
         guarantee — a parent pinned behind a live child counts)."""
         return sum(1 for pid in self._pages.values()
                    if self._pool.refcount(pid) == 1)
+
+    def to_meta(self) -> List[List[str]]:
+        """JSON-able snapshot of the index: [hash_hex, page_id, parent_hex]
+        per entry in LRU order (least recent first), as the JAX package
+        writes it.  Pool refcounts are NOT included: the pool serializes
+        its own `_refs` wholesale (serving/checkpoint._pool_meta), and this
+        index's references are part of that total."""
+        return [[h.hex(), str(self._pages[h]),
+                 (self._parent[h] or b"").hex()]
+                for h in self._lru]
+
+    @classmethod
+    def from_meta(cls, pool: PagePool, meta) -> "PrefixCache":
+        """Rebuild an index captured by to_meta against an already-restored
+        pool.  Does NOT call pool.share: the restored refcounts already
+        include this index's references, and bumping them again would leak
+        every cached page."""
+        cache = cls(pool)
+        for h_hex, pid, parent_hex in meta:
+            h = bytes.fromhex(h_hex)
+            parent = bytes.fromhex(parent_hex) or None
+            pid = int(pid)
+            if pool.refcount(pid) < 1:
+                raise ValueError(
+                    f"prefix-cache meta references free page {pid}")
+            cache._pages[h] = pid
+            cache._lru[h] = None
+            cache._parent[h] = parent
+            cache._nkids.setdefault(h, 0)
+            if parent is not None:
+                cache._nkids[parent] = cache._nkids.get(parent, 0) + 1
+        return cache
 
     def evict(self, n: int) -> int:
         """Free up to n pages by dropping entries, least recently used
@@ -685,9 +717,11 @@ def rollback_tokens(state: PagedState, slot: int, n: int) -> PagedState:
     """Host-side: un-append the last n tokens of `slot` (speculative
     rejection), IN PLACE.  Pure lengths bookkeeping: entries past lengths
     are invisible and the next append overwrites them; pages stay
-    assigned.  The JAX package's guard, kept for its callers: the engines
-    do not use it (they roll back every slot with one lengths
-    subtraction, and this reads the device)."""
+    assigned.  The JAX package's single-slot guard, kept for direct
+    callers of paged_multi_step.  Neither engine calls it: ServeEngine
+    and RaggedServeEngine roll every slot back at once with one lengths
+    subtraction (the ragged engine through `_rollback_lengths`, which
+    keeps its host mirror), and this function reads the device."""
     length = int(state.lengths[slot])
     if n < 0 or n >= length:
         # n == length would zero the slot while its table row still owns

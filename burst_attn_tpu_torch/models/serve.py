@@ -38,8 +38,16 @@ plus one target token, and both states roll back with one lengths
 decrement.  Greedy only; every request's tokens equal the plain engine's.
 `acceptance_rate` = spec_accepted / spec_proposed.
 
-Not ported yet: the write-ahead journal, tensor-parallel meshes, and the
-obs metrics and request tracing.
+`journal=` (serving/checkpoint.TokenJournal): the write-ahead token
+journal.  Each emitted token is appended as it lands (the prefill-sampled
+first token, every decode step's, a speculative round's kept tokens),
+`done` at retirement and `reset` for each request drain() requeues; step()
+fsyncs the tick's records once and runs the delivery barrier BEFORE it
+returns, so every token a caller has seen is durable.  Snapshots and
+recovery: serving/checkpoint.py.
+
+Not ported yet: tensor-parallel meshes, and the obs metrics and request
+tracing.
 """
 
 from dataclasses import dataclass, field
@@ -84,8 +92,6 @@ class ServeEngine(SpecCounters):
                  max_queue: Optional[int] = None,
                  admission: Optional[AdmissionPolicy] = None,
                  journal=None, device=None):
-        if journal is not None:
-            raise NotImplementedError("the token journal is not ported yet")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving is not ported yet")
@@ -100,6 +106,9 @@ class ServeEngine(SpecCounters):
         self.admission = admission
         self.temperature = temperature
         self.top_k, self.top_p = top_k, top_p
+        # the write-ahead TokenJournal (serving/checkpoint.py): token, done
+        # and reset records, fsynced once per step() before results return
+        self.journal = journal
         if rng is None:
             rng = torch.Generator(device=self.device)
             rng.manual_seed(0)
@@ -227,6 +236,10 @@ class ServeEngine(SpecCounters):
         for req in reversed(inflight):
             req.tokens = []
             self._queue.insert(0, req)
+            if self.journal is not None:
+                self.journal.reset(req.rid)
+        if self.journal is not None:
+            self.journal.sync()
         return [r.rid for r in inflight]
 
     # -- engine ------------------------------------------------------------
@@ -290,6 +303,8 @@ class ServeEngine(SpecCounters):
             # failure above leaves the request at the queue head
             self._queue.pop(0)
             req.tokens.append(int(tok))
+            if self.journal is not None:
+                self.journal.tokens(req.rid, [int(tok)])
             self.slots[slot] = req
             self._next_tok[slot] = int(tok)
 
@@ -311,9 +326,24 @@ class ServeEngine(SpecCounters):
                 self.slots[slot] = None
                 self._finished[req.rid] = req.tokens
                 done.append((req.rid, req.tokens))
+                if self.journal is not None:
+                    self.journal.done(req.rid)
         return done
 
     def step(self) -> List[Tuple[int, List[int]]]:
+        """One engine tick (see _step).  With a journal attached this is
+        also the durability barrier: the tick's journal records are
+        fsynced BEFORE its results are returned, then the journal's
+        delivery check runs for every stream leaving the engine, so any
+        token a caller has seen survives a crash (write-ahead)."""
+        done = self._step()
+        if self.journal is not None:
+            self.journal.sync()
+            for rid, toks in done:
+                self.journal.delivered(rid, len(toks))
+        return done
+
+    def _step(self) -> List[Tuple[int, List[int]]]:
         """One engine tick: retire -> admit -> one decode advance for every
         live slot (a single token, or a whole speculative round in draft
         mode).  Returns requests that finished THIS tick.
@@ -346,6 +376,8 @@ class ServeEngine(SpecCounters):
                     f"slot {slot} (rid {req.rid}) logits are NaN-poisoned: "
                     "a live slot was stepped without provisioned capacity")
             req.tokens.append(int(toks[slot]))
+            if self.journal is not None:
+                self.journal.tokens(req.rid, [int(toks[slot])])
             self._next_tok[slot] = int(toks[slot])
         return done
 
@@ -361,5 +393,5 @@ class ServeEngine(SpecCounters):
             self.params, torch.cat([first[:, None], d_toks], dim=1),
             self.state, self.cfg)
         undo = self.draft.accept(self.slots, d_toks, lg_t, bad, self.eos_id,
-                                 self._next_tok)
+                                 self._next_tok, self.journal)
         self.state.lengths.sub_(torch.from_numpy(undo).to(self.device))

@@ -100,7 +100,7 @@ class Draft:
         return torch.stack(toks, dim=1), bad
 
     def accept(self, slots, d_toks, logits, bad, eos_id: Optional[int],
-               next_tok: np.ndarray) -> np.ndarray:
+               next_tok: np.ndarray, journal=None) -> np.ndarray:
         """The host half of a round: ONE read of the proposals d_toks
         [slots, k], the target's choices (argmax of the verify logits
         [slots, k+1, vocab]) and the NaN flags (`bad` or NaN verify
@@ -109,7 +109,8 @@ class Draft:
         trimmed to its budget and its first EOS; next_tok[s] becomes its
         last kept token.  The draft's lengths go down by what was not kept
         (a live slot keeps >= 1 token); returns those counts, [slots], for
-        the target's rollback."""
+        the target's rollback.  `journal` (a TokenJournal or None) gets each
+        request's kept tokens as they are appended, in slot order."""
         k = self.k
         bad = bad | torch.isnan(logits).any(dim=2).any(dim=1)
         host = torch.cat([d_toks, torch.argmax(logits, dim=-1),
@@ -134,6 +135,8 @@ class Draft:
             if eos_id is not None and eos_id in new:
                 new = new[:new.index(eos_id) + 1]
             req.tokens += new
+            if journal is not None:
+                journal.tokens(req.rid, new)
             next_tok[slot] = new[-1]
             undo[slot] = k + 1 - len(new)
         self.rounds += 1

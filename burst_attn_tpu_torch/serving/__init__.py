@@ -11,18 +11,51 @@ pool, one engine.
     cache with copy-on-write pages, int8/fp8 pools, and speculative
     decoding as a scheduler policy (`draft_params`: k draft proposals a
     slot, one verify launch at QT = k+1).
-
   * `serving.handoff` — the long-context handoff: a ring-sharded
     prefill (`burst_attn`) lands its K/V directly in pool pages, then
     sequence-parallel paged decode (`handoff_generate`,
-    `ring_prefill_to_pages`).
-
-Not ported yet: the checkpoint layer.
+    `ring_prefill_to_pages`; `handoff_decode` is the resumable, journaled
+    decode).
+  * `serving.checkpoint` — crash consistency: atomic engine and paged
+    snapshots, the write-ahead token journal, and resume-not-replay
+    recovery (`recover_engine`, `run_recovered`) for both engines and the
+    bare handoff state.
 """
 
+from .checkpoint import (
+    RecoveryInfo, TokenJournal, journal_tokens_by_ext, journal_view,
+    load_paged_snapshot, load_snapshot, read_journal, recover_engine,
+    restore_into, rewrite_journal, run_recovered, save_paged_snapshot,
+    save_snapshot, trim_complete,
+)
 from .engine import RaggedServeEngine
-from .handoff import handoff_generate, ring_prefill_to_pages
+from .handoff import (
+    check_handoff_preconditions, handoff_decode, handoff_generate,
+    ring_prefill_to_pages,
+)
 from .model import multi_step_decode, pipelined_tick, ragged_model_step
 
-__all__ = ["RaggedServeEngine", "handoff_generate", "multi_step_decode",
-           "pipelined_tick", "ragged_model_step", "ring_prefill_to_pages"]
+__all__ = [
+    "RaggedServeEngine",
+    "RecoveryInfo",
+    "TokenJournal",
+    "check_handoff_preconditions",
+    "handoff_decode",
+    "handoff_generate",
+    "journal_tokens_by_ext",
+    "journal_view",
+    "load_paged_snapshot",
+    "load_snapshot",
+    "multi_step_decode",
+    "pipelined_tick",
+    "ragged_model_step",
+    "read_journal",
+    "recover_engine",
+    "restore_into",
+    "rewrite_journal",
+    "ring_prefill_to_pages",
+    "run_recovered",
+    "save_paged_snapshot",
+    "save_snapshot",
+    "trim_complete",
+]

@@ -70,7 +70,15 @@ mixed ticks.  `spec_rounds`, `spec_proposed`, `spec_accepted` and
 `acceptance_rate` count the speculative rounds.  `graphs.captures` and
 `graphs.replays` count the K-tick CUDA graphs.
 
-Not ported yet: the journal.
+Journal (`journal=`, a serving/checkpoint.TokenJournal): every token is
+appended where the host accounts it (the synchronous readback, the
+pipelined engine's deferred readback, a speculative round's kept tokens),
+`done` at retirement, `reset` for each request drain() requeues.  Each
+step() fsyncs its records once and then runs the delivery barrier for
+the streams it returns (`_journal_barrier`), so a token is durable before
+any caller sees it; on the pipelined path delivery lags one tick and
+durability does not.  Snapshots (`save_snapshot` flushes the pipeline
+first) and recovery: serving/checkpoint.py.
 """
 
 from collections import Counter
@@ -175,8 +183,6 @@ class RaggedServeEngine(SpecCounters):
                  prefix_cache: bool = False, group_attn: bool = True,
                  journal=None, pipeline: bool = False, multi_step: int = 1,
                  device=None):
-        if journal is not None:
-            raise NotImplementedError("the token journal is not ported yet")
         if multi_step < 1:
             raise ValueError(f"multi_step must be >= 1, got {multi_step}")
         if multi_step > 1 and not pipeline:
@@ -198,6 +204,9 @@ class RaggedServeEngine(SpecCounters):
         self.admission = admission
         self.temperature = temperature
         self.top_k, self.top_p = top_k, top_p
+        # the write-ahead TokenJournal (serving/checkpoint.py): token, done
+        # and reset records, fsynced once per step() before results return
+        self.journal = journal
         if rng is None:
             rng = torch.Generator(device=self.device)
             rng.manual_seed(0)
@@ -347,6 +356,10 @@ class RaggedServeEngine(SpecCounters):
             req.tokens = []
             req.n_prefilled = 0
             self._queue.insert(0, req)
+            if self.journal is not None:
+                self.journal.reset(req.rid)
+        if self.journal is not None:
+            self.journal.sync()
         return [r.rid for r in inflight]
 
     # -- engine ------------------------------------------------------------
@@ -548,18 +561,41 @@ class RaggedServeEngine(SpecCounters):
                 self._shared.pop(slot, None)
                 self._finished[req.rid] = req.tokens
                 done.append((req.rid, req.tokens))
+                if self.journal is not None:
+                    self.journal.done(req.rid)
         # one batched table edit for the whole wave
         self._free(retiring)
         return done
 
+    def _journal_barrier(self, done: List[Tuple[int, List[int]]]) -> None:
+        """Durability, then delivery: fsync the tick's journal records,
+        then run the journal machine's deliver transition for every stream
+        leaving the engine (it raises DurabilityViolation if a returned
+        token is not durable yet)."""
+        if self.journal is None:
+            return
+        self.journal.sync()
+        for rid, toks in done:
+            self.journal.delivered(rid, len(toks))
+
     def step(self) -> List[Tuple[int, List[int]]]:
-        """One engine tick: retire -> admit -> ONE ragged launch moving
-        every active slot (prefill chunks + decode singles together) ->
-        its readback.  Returns requests that finished THIS tick.  A
-        pipelined engine (pipeline=True) returns the requests its PREVIOUS
-        launch finished: see _pipelined_step."""
+        """One engine tick (see _step; _pipelined_step when pipeline=True
+        and no draft is attached).  With a journal attached this is also
+        the durability barrier: the tick's records are fsynced BEFORE its
+        results are returned.  On the pipelined path the fsync still comes
+        before delivery, so delivery lags one step behind generation."""
         if self.pipeline and self.draft is None:
             return self._pipelined_step()
+        done = self._step()
+        self._journal_barrier(done)
+        return done
+
+    def _step(self) -> List[Tuple[int, List[int]]]:
+        """One synchronous tick: retire -> admit -> ONE ragged launch
+        moving every active slot (prefill chunks + decode singles
+        together) -> its readback (or a speculative round, or a mixed tick
+        with the draft's catch-up).  Returns requests that finished THIS
+        tick."""
         done = self._retire_finished()
         self._admit()
         if self.live == 0:
@@ -781,6 +817,8 @@ class RaggedServeEngine(SpecCounters):
                     self._register_prefix(slot, req, p.table_rows.get(slot))
                 tok = int(row[slot])
                 req.tokens.append(tok)
+                if self.journal is not None:
+                    self.journal.tokens(req.rid, [tok])
                 self._next_tok[slot] = tok
                 added += 1
             if nan_at is not None:
@@ -813,7 +851,8 @@ class RaggedServeEngine(SpecCounters):
         a stream the speculation assumed live, the speculative launch is
         rolled back (lengths and generator) and the tick falls back to the
         synchronous retire/admit/launch sequence, so the schedule is always
-        the synchronous engine's."""
+        the synchronous engine's.  The readback journals the tokens it
+        accounts; the journal barrier runs before this returns."""
         done = self._flushed_done
         self._flushed_done = []
         p = self._pending
@@ -824,6 +863,7 @@ class RaggedServeEngine(SpecCounters):
             self._admit()
             if self.live:
                 self._pending = self._launch_deferred()
+            self._journal_barrier(done)
             return done
         k_spec = self._spec_plan()
         spec = self._launch_speculative(k_spec) if k_spec else None
@@ -847,6 +887,7 @@ class RaggedServeEngine(SpecCounters):
             self._admit()
             if self.live:
                 self._pending = self._launch_deferred()
+        self._journal_barrier(done)
         return done
 
     def flush_pipeline(self) -> List[Tuple[int, List[int]]]:
@@ -854,13 +895,15 @@ class RaggedServeEngine(SpecCounters):
         deferred accounting and retire its finishers.  They are also
         queued onto the next step()'s return, so a loop polling step()
         loses no completion.  A no-op with nothing in flight (and on a
-        synchronous engine).  drain() calls it first."""
+        synchronous engine).  drain() and serving.checkpoint.snapshot call
+        it first.  The finishers pass the journal barrier here."""
         p = self._pending
         if p is None:
             return []
         self._pending = None
         self._readback(p)
         done = self._retire_finished()
+        self._journal_barrier(done)
         self._flushed_done.extend(done)
         return done
 
@@ -908,5 +951,5 @@ class RaggedServeEngine(SpecCounters):
         self._lengths += q_lens
         self._count("serve.ragged_batch_launches", kind="spec-verify")
         undo = self.draft.accept(self.slots, d_toks, lg_t, bad, self.eos_id,
-                                 self._next_tok)
+                                 self._next_tok, self.journal)
         self._rollback_lengths(undo)

@@ -10,15 +10,17 @@ sequence-parallel paged decode.
      ring's layout-order activations into pool pages, with no re-layout
      copy: page p holds layout positions [p*page, (p+1)*page);
   3. DECODE: models/dist_decode.dist_paged_decode_step shards the pool's
-     pages over the same ring positions and LSE-merges their partials.
+     pages over the same ring positions and LSE-merges their partials;
+     `handoff_decode` runs it in restartable greedy strides, journaling
+     each token before the next step (crash consistency: a killed decode
+     resumes from its last durable token, or from a paged snapshot,
+     instead of re-running the ring prefill).
 
 Skipping the re-layout is correct because decode attends EVERY cached
 position and full-visibility attention is permutation-invariant; that
 needs cfg.window=None.  The pool is the single-host engines' PagedState /
 PagePool, so a handed-off slot can also be decoded by paged_decode_step.
 The ring's positions share one device (parallel/mesh.py).
-
-Not ported yet: `handoff_decode` (resumable decode with a journal).
 """
 
 import numpy as np
@@ -187,4 +189,40 @@ def handoff_generate(params, prompt, state: PagedState, pool: PagePool,
         logits, state = dist_paged_decode_step(params, feed, state, cfg,
                                                mesh)
         out.append(pick(logits[slot]))
+    return out, state
+
+
+def handoff_decode(params, state: PagedState, cfg: ModelConfig, mesh, *,
+                   slot: int, last_token: int, n_steps: int, journal=None,
+                   rid: int = 0):
+    """Resumable greedy decode on an already-provisioned handoff slot:
+    `n_steps` sequence-parallel paged steps (dist_paged_decode_step)
+    continuing from `last_token`, the newest token already in the stream
+    (prefill-sampled or journal-recovered).  Returns ([n_steps] tokens,
+    state).
+
+    The caller owns the split: after `ring_prefill_to_pages` +
+    `provision_capacity`, or after `serving.checkpoint.load_paged_snapshot`
+    rebuilt the state, decode proceeds in strides, and with a `journal`
+    (a TokenJournal) each emitted token is appended under `rid` and
+    fsynced before the next step (write-ahead), so a killed decode resumes
+    from its last durable token.  Greedy only: a resumed stream must be
+    the continuation the dead decode would have produced.  A step whose
+    logits are NaN (the slot stepped past its provisioned pages)
+    raises."""
+    feed = torch.zeros(state.lengths.shape[0], dtype=torch.long)
+    cur = int(last_token)
+    out = []
+    for i in range(n_steps):
+        feed[slot] = cur
+        logits, state = dist_paged_decode_step(params, feed, state, cfg, mesh)
+        cur = int(sample_logits(logits[slot][None, :], nan_sentinel=True)[0])
+        if cur < 0:
+            raise RuntimeError(
+                f"handoff decode step {i} logits are NaN-poisoned: slot "
+                f"{slot} stepped without provisioned capacity")
+        out.append(cur)
+        if journal is not None:
+            journal.tokens(rid, [cur])
+            journal.sync()
     return out, state

@@ -77,7 +77,21 @@ Phases (any failure exits non-zero; nothing is caught):
      pipelined and on the prefix wave), every plain paged attention
      refused, launches of kernels 1, 6 and 7 exactly as the rounds say,
      both pools drained; tokens/s of a plain tick, a self-draft round and
-     an early-exit round (bf16, 8 slots at ~2K) with busy shares;
+     an early-exit round (bf16, 8 slots at ~2K) with busy shares; then
+     crash-consistent serving (serving/checkpoint.py), fp32 and bf16: the
+     12 requests through the ServeEngine, the synchronous and the
+     pipelined (K=4) RaggedServeEngine, and the ragged prefix wave, a
+     snapshot mid-run (MB, save ms), a fresh engine restored from it (load
+     and restore ms; the pipelined target's decode graph captured before
+     the restore, none after) finishing token-exact with the uninterrupted
+     run; the two synchronous engines journaled (TokenJournal), killed
+     after the snapshot with the journal's last line torn, recovered with
+     recover_engine from snapshot + journal (token-exact; replayed tokens
+     below the replay-from-scratch count) and from the journal alone (fp32
+     token-exact; bf16 at the teacher-forced bar, partings near ties);
+     launches of kernels 1, 6, 7 held to each run's admissions and ticks;
+     the bf16 decode tick (8 slots at ~2K), synchronous and K=4, with and
+     without the journal, and its fsyncs (one a step);
   6. training at the training benchmark's width and depth
      (benchmarks/train_smoke.py: vocab 32768, d_model 2048, 16 layers,
      16/16 heads, d_ff 8192, bf16, remat; 1.21 B parameters from a seed)
@@ -137,7 +151,12 @@ Phases (any failure exits non-zero; nothing is caught):
      token-exact across the routes, with the dense plain forward and
      with paged_decode_step (kernel 6) on the handed-off slot; page
      counts and a rejected request; prefill (TTFT) and decode times;
-     kernel 9 against its plain version at the handoff's op shape;
+     kernel 9 against its plain version at the handoff's op shape; the
+     handoff's crash consistency (bf16, fused route): half the decode
+     through handoff_decode with a journal, a paged snapshot saved,
+     loaded and decoded on, and a journal-only recovery after a kill (a
+     second prefill, the lag re-decoded), both equal to the uninterrupted
+     stream, kernel 8 once a layer a prefill;
   9. (run after phase 3) sliding-window serving and kernel 10: kernel 1
      with windows 1, 100, 1024 and 4096 (>= S: bitwise the unwindowed
      kernel) at B1 N16/4 S2048 bf16, offset 0 and -1 with a ragged
@@ -1440,7 +1459,21 @@ def ragged_engine_phase(device, serve_res):
     return res
 
 
-def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
+PREFIX_TAILS = (0, 17, 90, 128, 129, 200, 255, 300)
+
+
+def prefix_prompts(cfg, tails=PREFIX_TAILS, template_len=1024):
+    """The prefix wave's seeded template and its prompts (the template
+    plus each tail; tail 0 is the exact template)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    tmpl = rng.integers(1, cfg.vocab, size=template_len, dtype=np.int32)
+    return tmpl, [np.concatenate([tmpl, rng.integers(
+        1, cfg.vocab, size=t, dtype=np.int32)]) for t in tails]
+
+
+def prefix_wave(device, tails=PREFIX_TAILS,
                 template_len=1024, budget=24, **engine_kw):
     """fp32: a warm request registers a 1024-token template; then 8
     requests on it (tails of 0-300 tokens, one the exact template) run
@@ -1448,17 +1481,12 @@ def prefix_wave(device, tails=(0, 17, 90, 128, 129, 200, 255, 300),
     read what the admission arithmetic says; the grouped launch must run;
     drain + evict must return every page.  `engine_kw` (pipeline=True,
     multi_step=K) goes to both engines.  Returns (stats, tokens)."""
-    import numpy as np
     import torch
 
     from burst_attn_tpu_torch.serving import RaggedServeEngine
 
     cfg, params = model(torch.float32, device)
-    rng = np.random.default_rng(7)
-    tmpl = rng.integers(1, cfg.vocab, size=template_len, dtype=np.int32)
-    prompts = [np.concatenate([tmpl, rng.integers(1, cfg.vocab, size=t,
-                                                  dtype=np.int32)])
-               for t in tails]
+    tmpl, prompts = prefix_prompts(cfg, tails, template_len)
     out = {}
     for cache in (False, True):
         eng = RaggedServeEngine(params, cfg, slots=SLOTS, n_pages=N_PAGES,
@@ -2661,6 +2689,100 @@ def check_handoff_kernels(device):
     return k8_err, k1_err
 
 
+def handoff_checkpoint(device, mesh, prompt, want):
+    """The handoff's crash consistency at the serving width (bf16, the
+    fused route): a ring prefill (kernel 8), then half the decode steps
+    through handoff_decode with a TokenJournal (each token appended and
+    fsynced before the next step); save_paged_snapshot, drop the state,
+    load_paged_snapshot and decode the rest from the last token: the
+    stream must equal the uninterrupted handoff_generate's (`want`).
+    Then the kill with only the journal left: a second ring prefill, the
+    journal's lag re-decoded (equal to the journal), the rest decoded:
+    the same stream.  Kernel 8 launches once a layer a prefill and no
+    other attention kernel runs (the decode step is plain torch).
+    Returns (record, launches)."""
+    import os
+
+    import torch
+
+    from burst_attn_tpu_torch.models import paged_decode as pd
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+    from burst_attn_tpu_torch.serving import (
+        TokenJournal, handoff_decode, journal_tokens_by_ext,
+        load_paged_snapshot, ring_prefill_to_pages, save_paged_snapshot,
+    )
+
+    cfg = _handoff_cfg(torch.bfloat16, "fused_ring")
+    params = model(torch.bfloat16, device)[1]
+    d = _ckpt_dir()
+    jpath, snap = str(d / "handoff.jsonl"), str(d / "handoff.npz")
+    counters = _kernel_counters() + (rp.ragged_paged_attention,)
+    half = HANDOFF_STEPS // 2
+
+    def prefilled():
+        st, pool = _handoff_state(cfg, len(prompt), device)
+        last, st = ring_prefill_to_pages(params, prompt, st, pool, 0, cfg,
+                                         mesh)
+        pd.provision_capacity(st, pool, 0, HANDOFF_STEPS)
+        return int(last.argmax()), st, pool
+
+    def decode(st, last, n, journal=None):
+        return handoff_decode(params, st, cfg, mesh, slot=0, last_token=last,
+                              n_steps=n, journal=journal, rid=0)
+
+    for f in counters:
+        f.launches = 0
+    rec = {}
+    with torch.no_grad():
+        journal = TokenJournal(jpath, truncate=True)
+        first, st, pool = prefilled()
+        journal.submit(0, 0, prompt, HANDOFF_STEPS)
+        journal.tokens(0, [first])
+        journal.sync()
+        out, st = decode(st, first, half - 1, journal)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_paged_snapshot(snap, st, pool, extra={"stream": [first] + out})
+        rec["save_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["mb"] = os.path.getsize(snap) / 1e6
+        avail = pool.available
+        del st, pool                        # the restart reads the disk
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        st, pool, extra = load_paged_snapshot(snap, device=device)
+        torch.cuda.synchronize()
+        rec["load_ms"] = (time.perf_counter() - t0) * 1e3
+        assert pool.available == avail
+        stream = [int(t) for t in extra["stream"]]
+        rest, st = decode(st, stream[-1], HANDOFF_STEPS - len(stream))
+        assert stream + rest == want, "restarted handoff stream differs"
+        del st, pool
+        journal.close()
+        # the kill: the journal alone survives
+        jt = journal_tokens_by_ext(jpath)[0]
+        assert jt == want[:half], (jt, want[:half])
+        first2, st, pool = prefilled()
+        assert first2 == jt[0]
+        lag, st = decode(st, jt[0], len(jt) - 1)
+        assert lag == jt[1:], "re-decoded lag differs from the journal"
+        rest2, st = decode(st, jt[-1], HANDOFF_STEPS - len(jt))
+        assert jt + rest2 == want, "journal-recovered handoff stream differs"
+        del st, pool
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counters}
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches["fused_ring_fwd"] = 2 * cfg.n_layers
+    assert launches == want_launches, launches
+    print(f"handoff checkpoint (bf16 fused, {len(prompt)} tokens, sp="
+          f"{HANDOFF_SP}): {half} tokens journaled (one fsync each), paged "
+          f"snapshot {rec['mb']:.1f} MB saved in {rec['save_ms']:.1f} ms, "
+          f"loaded in {rec['load_ms']:.1f} ms; the restarted stream and the "
+          f"journal-only recovery (a second prefill, {len(jt) - 1} tokens "
+          f"re-decoded equal to the journal) both equal the uninterrupted "
+          f"{HANDOFF_STEPS} tokens; launches {launches}", flush=True)
+    return rec, launches
+
+
 def handoff_phase(device):
     """serving.handoff at the serving benchmark's width: a
     HANDOFF_PROMPT-token prompt over sp=4 (zigzag), prefilled through
@@ -2780,6 +2902,8 @@ def handoff_phase(device):
             check_agreement("handoff bf16 fused stream", forced, True,
                             against="the scan route")
             res["bf16_forced_agree"] = forced[0]
+            res["checkpoint"], res["launches_checkpoint"] = \
+                handoff_checkpoint(device, mesh, prompt, a)
         res[f"{key}_routes_equal"] = same
         print(f"handoff {key}: fused and scan routes' free-running streams "
               f"agree on {same}/{HANDOFF_STEPS} tokens", flush=True)
@@ -4345,6 +4469,391 @@ def speculative_phase(device, serve_res, rag):
     return err, verify, res
 
 
+# ---------------------------------------------------------------------------
+# crash-consistent serving: engine snapshots, the write-ahead journal,
+# recovery (serving/checkpoint.py)
+
+# Ticks before the snapshot and before the kill of the 12 requests.  No
+# request can finish before tick 32 (every budget is >= 32 tokens and a
+# request gains at most one a tick), so at the kill every request is still
+# in flight or queued: a recovery from the snapshot re-runs the original's
+# ticks exactly (the same launch shapes on the same bytes, so bf16 must be
+# token-exact too), re-decoding the journal's lag past the snapshot.
+CKPT_SNAP_TICK, CKPT_KILL_TICK = 12, 28
+CKPT_PREFIX_TICK = 3  # the prefix wave's snapshot: pinned pages in flight
+
+
+def _ckpt_dir():
+    """Snapshots and journals go under the checkout's build/ (ignored by
+    git), nowhere else."""
+    import pathlib
+
+    d = pathlib.Path(__file__).resolve().parent / "build" / "ckpt"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _ckpt_engine(kind, dtype, device):
+    """The serving cell's engine of `kind`: "ServeEngine", "ragged" (the
+    synchronous RaggedServeEngine), "pipelined" (K_PIPE) or "prefix"
+    (the ragged engine with prefix_cache=True)."""
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    cfg, params = model(dtype, device)
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, device=device)
+    if kind == "ServeEngine":
+        return ServeEngine(params, cfg, **kw)
+    extra = {"pipelined": dict(pipeline=True, multi_step=K_PIPE),
+             "prefix": dict(prefix_cache=True)}.get(kind, {})
+    return RaggedServeEngine(params, cfg, chunk=CHUNK, **kw, **extra)
+
+
+def _ckpt_traffic(kind, cfg):
+    """(warm-up requests, prompts, budgets): the 12 seeded requests; the
+    prefix wave (prefix_wave's template and tails) after a warm request
+    that registers the template."""
+    if kind != "prefix":
+        return [], *requests(cfg)
+    tmpl, prompts = prefix_prompts(cfg)
+    return [(tmpl, 2)], prompts, [24] * len(prompts)
+
+
+def _total_tokens(eng):
+    return (sum(len(r.tokens) for r in eng.slots if r is not None)
+            + sum(len(t) for t in eng._finished.values()))
+
+
+def _counted(eng, run):
+    """Call `run()` (eng.run, or run_recovered on eng) with the launch
+    counters of kernels 1, 6 and 7 set to 0 just before and read just
+    after, and hold them to what the run's admissions and ticks imply.
+    ServeEngine: kernel 1 once a layer an admission (every queued request
+    is admitted once), kernel 6 once a layer a decode step (a step whose
+    new tokens outnumber its admissions: an admission samples one token,
+    a decode step one a live slot); RaggedServeEngine: kernel 7 once a
+    layer a tick the device ran.  Returns (run's result, launches)."""
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.ops import flash, paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+
+    counters = (flash.flash_fwd, pa.paged_decode_attention,
+                rp.ragged_paged_attention)
+    n_layers = eng.cfg.n_layers
+    legacy = isinstance(eng, ServeEngine)
+    decodes = [0]
+    if legacy:
+        admissions = len(eng._queue)
+        real = eng.step
+
+        def step():
+            q0, t0 = len(eng._queue), _total_tokens(eng)
+            done = real()
+            if _total_tokens(eng) - t0 > q0 - len(eng._queue):
+                decodes[0] += 1
+            return done
+
+        eng.step = step
+    else:
+        ticks0 = _device_ticks(eng)
+    for f in counters:
+        f.launches = 0
+    out = run()
+    launches = {f.__name__: f.launches for f in counters}
+    if legacy:
+        del eng.step
+        want = {"flash_fwd": n_layers * admissions,
+                "paged_decode_attention": n_layers * decodes[0],
+                "ragged_paged_attention": 0}
+    else:
+        want = {"flash_fwd": 0, "paged_decode_attention": 0,
+                "ragged_paged_attention": n_layers * (_device_ticks(eng)
+                                                      - ticks0)}
+    assert launches == want, (launches, want)
+    return out, launches
+
+
+def _tear(path):
+    """A kill mid-append: the journal's last line cut in half.  Returns
+    the torn copy's path."""
+    data = open(path, "rb").read()
+    start = data.rstrip(b"\n").rfind(b"\n") + 1
+    last = data[start:].rstrip(b"\n")
+    torn = str(path) + ".torn"
+    with open(torn, "wb") as f:
+        f.write(data[:start] + last[:len(last) // 2])
+    return torn
+
+
+def checkpoint_run(kind, dtype, device):
+    """One engine kind in one dtype at the serving width.  The traffic
+    runs with a TokenJournal attached (the synchronous engines) to
+    CKPT_SNAP_TICK (CKPT_PREFIX_TICK for the prefix wave), where
+    save_snapshot runs (size, ms); the journal's state at CKPT_KILL_TICK
+    is kept as the kill's; the engine then runs to the end: the
+    uninterrupted streams.  A fresh engine of the same spec (the
+    pipelined one warmed first, so its K-tick graph exists before the
+    restore) loads and restores the snapshot (ms; graph captures must not
+    grow) and finishes: token-exact, both dtypes.  The synchronous
+    engines then recover from the torn journal with the snapshot
+    (token-exact, both dtypes; replayed < baseline) and without it (fp32
+    token-exact; bf16 at the teacher-forced bar, every parting from the
+    uninterrupted stream a near tie).  Launches of kernels 1, 6, 7 held
+    to each run's admissions and ticks."""
+    import os
+    import shutil
+
+    import torch
+
+    from burst_attn_tpu_torch.serving import checkpoint as ckpt
+
+    d = _ckpt_dir()
+    key = _dtype_key(dtype)
+    what = f"checkpoint {kind} {key}"
+    cfg, params = model(dtype, device)
+    warm, prompts, budgets = _ckpt_traffic(kind, cfg)
+    journaled = kind in ("ServeEngine", "ragged")
+    snap_tick = CKPT_PREFIX_TICK if kind == "prefix" else CKPT_SNAP_TICK
+    snap, jpath = str(d / "snap.npz"), str(d / "journal.jsonl")
+    eng = _ckpt_engine(kind, dtype, device)
+    for p, n in warm:
+        eng.submit(p, n)
+    eng.run()
+    journal = ckpt.TokenJournal(jpath, truncate=True) if journaled else None
+    eng.journal = journal
+    rids = []
+    for p, n in zip(prompts, budgets):
+        rids.append(eng.submit(p, n))
+        if journal is not None:
+            journal.submit(rids[-1], rids[-1], p, n)
+    if journal is not None:
+        journal.sync()
+    delivered = {}
+    res = {}
+    for tick in range(CKPT_KILL_TICK if journaled else snap_tick):
+        for rid, toks in eng.step():
+            delivered[rid] = list(toks)
+        if tick + 1 == snap_tick:
+            assert eng.live > 0, "nothing in flight at the snapshot"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save_snapshot(eng, snap)
+            res["save_ms"] = (time.perf_counter() - t0) * 1e3
+            res["mb"] = os.path.getsize(snap) / 1e6
+    if journaled:
+        shutil.copyfile(jpath, jpath + ".kill")
+    out = eng.run()
+    expect = {r: out[r] for r in rids}
+    del eng
+    if journal is not None:
+        journal.close()
+
+    target = _ckpt_engine(kind, dtype, device)
+    captures = 0
+    if kind == "pipelined":
+        target.submit(prompts[0][:256], 2 * K_PIPE)
+        target.run()
+        captures = target.graphs.captures
+        assert captures > 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore_into(target, ckpt.load_snapshot(snap))
+    torch.cuda.synchronize()
+    res["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    if kind == "pipelined":
+        assert target.graphs.captures == captures, "the restore captured"
+    if kind != "ServeEngine":
+        import numpy as np
+
+        assert np.array_equal(target._lengths,
+                              target.state.lengths.cpu().numpy())
+        assert np.array_equal(target._table,
+                              target.state.page_table.cpu().numpy())
+    got, launches = _counted(target, target.run)
+    assert {r: got[r] for r in rids} == expect, f"{what}: restored streams"
+    res["launches"] = {"roundtrip": launches}
+    if target.cache is not None:
+        target.cache.evict(N_PAGES)
+    assert target.pool.available == N_PAGES - 1, "pool did not drain"
+    del target
+    print(f"{what}: snapshot at tick {snap_tick} of {len(rids)} requests, "
+          f"{res['mb']:.1f} MB, save {res['save_ms']:.1f} ms, load and "
+          f"restore {res['restore_ms']:.1f} ms; the restored engine's "
+          f"{len(rids)} streams equal the uninterrupted run's; launches "
+          f"{launches}", flush=True)
+    if not journaled:
+        return res
+
+    torn = _tear(jpath + ".kill")
+    assert ckpt.journal_view(torn).n_skipped == 1
+    for use_snap in (True, False):
+        eng = _ckpt_engine(kind, dtype, device)
+        info = ckpt.recover_engine(eng, snap if use_snap else None, torn)
+        assert info.n_skipped == 1 and info.from_snapshot == use_snap
+        assert not info.done, "a request finished before the kill"
+        run, launches = _counted(eng, lambda: ckpt.run_recovered(eng, info))
+        assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+        del eng
+        full = dict(delivered)
+        full.update(run)
+        toks = [full[r] for r in rids]
+        how = "snapshot + journal" if use_snap else "journal only"
+        same = sum(full[r] == expect[r] for r in rids)
+        print(f"{what} recovery ({how}, kill at tick {CKPT_KILL_TICK}, "
+              f"torn last line): replayed {info.total_replayed} of a "
+              f"replay-from-scratch {info.baseline_replay}, resumed "
+              f"{info.total_resumed}, {len(info.done)} complete in the "
+              f"journal; {same}/{len(rids)} streams equal the uninterrupted "
+              f"run's; launches {launches}", flush=True)
+        rec = dict(replayed=info.total_replayed,
+                   baseline=info.baseline_replay,
+                   resumed=info.total_resumed, same=same, launches=launches)
+        if use_snap:
+            assert info.total_replayed < info.baseline_replay, rec
+            assert same == len(rids), f"{what}: snapshot recovery differs"
+        elif key == "fp32":
+            assert same == len(rids), f"{what}: journal recovery differs"
+        else:
+            # the resumed streams re-prefill prompt + prefix, which the
+            # original decoded: bf16 rounding may part them at near ties
+            check_agreement(f"{what} journal-resumed", agreement(
+                cfg, params, prompts, toks, device), True)
+            flips = near_tie_flips(cfg, params, prompts, toks,
+                                   [expect[r] for r in rids], device)
+            assert all(g <= TIE_GAP for _, _, g in flips), flips
+            rec["flips"] = flips
+        res["snapshot_recovery" if use_snap else "journal_recovery"] = rec
+    return res
+
+
+def journal_ticks(device, n_steps=16):
+    """bf16 decode ticks with every slot live at ~2K context through the
+    synchronous ragged engine and the pipelined one (K_PIPE), each with
+    and without a TokenJournal, timed in turns (off, on, on, off): ms a
+    tick = wall / ticks advanced, and the fsyncs the journal made in the
+    timed steps with their mean ms (os.fsync counted and timed on the
+    host clock)."""
+    import os
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+    from burst_attn_tpu_torch.serving import checkpoint as ckpt
+
+    cfg, params = model(torch.bfloat16, device)
+    prompt = np.random.default_rng(9).integers(1, cfg.vocab, size=2048 - 256,
+                                               dtype=np.int32)
+    d = _ckpt_dir()
+    engs = {}
+    for name, extra in (("sync", {}),
+                        ("k4", dict(pipeline=True, multi_step=K_PIPE))):
+        for on in (False, True):
+            journal = (ckpt.TokenJournal(str(d / f"ticks_{name}.jsonl"),
+                                         truncate=True) if on else None)
+            eng = RaggedServeEngine(params, cfg, slots=SLOTS,
+                                    n_pages=N_PAGES, page=PAGE,
+                                    max_pages_per_seq=MAX_PAGES, chunk=CHUNK,
+                                    journal=journal, device=device, **extra)
+            for _ in range(SLOTS):
+                rid = eng.submit(prompt, 256)
+                if journal is not None:
+                    journal.submit(rid, rid, prompt, 256)
+            while eng.pending or any(r is None or r.n_prefilled
+                                     < len(r.prompt) for r in eng.slots):
+                eng.step()
+            for _ in range(2):
+                eng.step()
+            engs[(name, on)] = eng
+    fsyncs = {k: 0 for k in engs}
+    fsync_s = {k: 0.0 for k in engs}
+    steps = {k: 0 for k in engs}
+    real_fsync = os.fsync
+
+    def tick_ms(k):
+        eng = engs[k]
+
+        def counting(fd):
+            t0 = time.perf_counter()
+            real_fsync(fd)
+            fsync_s[k] += time.perf_counter() - t0
+            fsyncs[k] += 1
+
+        before = sum(len(r.tokens) for r in eng.slots)
+        with mock.patch.object(os, "fsync", counting):
+            ms = host_ms(lambda: [eng.step() for _ in range(n_steps)],
+                         repeats=1)
+        steps[k] += n_steps
+        return ms * SLOTS / (sum(len(r.tokens) for r in eng.slots) - before)
+
+    times = {k: [] for k in engs}
+    for name in ("sync", "k4"):
+        for on in (False, True, True, False):
+            times[(name, on)].append(tick_ms((name, on)))
+    out = {}
+    for (name, on), t in times.items():
+        tag = f"{name}_{'journal' if on else 'plain'}"
+        n = fsyncs[(name, on)]
+        out[tag] = dict(tick_ms=sum(t) / len(t), turns=t, fsyncs=n,
+                        steps=steps[(name, on)],
+                        fsync_ms=fsync_s[(name, on)] * 1e3 / n if n else 0.0)
+        assert (fsyncs[(name, on)] == steps[(name, on)]) if on else \
+            fsyncs[(name, on)] == 0, (tag, fsyncs, steps)
+        assert engs[(name, on)].live == SLOTS
+    for eng in engs.values():
+        eng.drain()
+        assert eng.pool.available == N_PAGES - 1
+        if eng.journal is not None:
+            eng.journal.close()
+    return out
+
+
+def checkpoint_phase(device):
+    """The checkpoint phase (after the speculative one): snapshot round
+    trips of four engines (ServeEngine, the synchronous and the pipelined
+    RaggedServeEngine, the ragged prefix wave) and the two synchronous
+    engines' crash recoveries, in fp32 and bf16; then the journal's cost
+    on the ragged decode tick, synchronous and pipelined.  Returns its
+    results, with the bf16 runs' launches of kernels 1, 6 and 7 summed
+    under "launches"."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = {}
+    launches = {"flash_fwd": 0, "paged_decode_attention": 0,
+                "ragged_paged_attention": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("ServeEngine", "ragged", "pipelined", "prefix"):
+            r = checkpoint_run(kind, dtype, device)
+            res[f"{kind}_{_dtype_key(dtype)}"] = r
+            if dtype is torch.bfloat16:
+                runs = [r["launches"]["roundtrip"]] + [
+                    r[k]["launches"] for k in ("snapshot_recovery",
+                                               "journal_recovery") if k in r]
+                for run in runs:
+                    for name, n in run.items():
+                        launches[name] += n
+    torch.cuda.empty_cache()
+    res["ticks"] = jt = journal_ticks(device)
+    print("journal cost, bf16 decode tick (8 slots at ~2K), ms a tick "
+          "(mean of two turns) without / with a TokenJournal: synchronous "
+          f"{jt['sync_plain']['tick_ms']:.3f} / "
+          f"{jt['sync_journal']['tick_ms']:.3f}, K={K_PIPE} "
+          f"{jt['k4_plain']['tick_ms']:.3f} / "
+          f"{jt['k4_journal']['tick_ms']:.3f}; fsyncs "
+          f"{jt['sync_journal']['fsyncs']} in "
+          f"{jt['sync_journal']['steps']} steps "
+          f"({jt['sync_journal']['fsync_ms']:.3f} ms each), "
+          f"{jt['k4_journal']['fsyncs']} in {jt['k4_journal']['steps']} "
+          f"({jt['k4_journal']['fsync_ms']:.3f} ms each)", flush=True)
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"checkpoint phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4484,6 +4993,7 @@ def main() -> int:
                       f"({pticks[f'ticks_profiled_{name}']:.0f} ticks in 4 "
                       f"steps)", pticks[f"prof_{name}"])
     verify_err, verify_rec, spec = speculative_phase(device, serve_res, rag)
+    ckpt_res = checkpoint_phase(device)
     wserve = window_serve_phase(device)
     k8_err, k1_err = check_handoff_kernels(device)
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
@@ -4566,10 +5076,22 @@ def main() -> int:
         spec["engines"][e]["bf16_exit"]["spec_verify"]
         for e in ("ServeEngine", "RaggedServeEngine"))}
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], verify_err)
+    # the checkpoint phase's bf16 restored and recovered runs, and the
+    # handoff's two checkpointed prefills
+    ckpt_launches = {
+        "flash_fwd": ckpt_res["launches"]["flash_fwd"],
+        "paged_decode": ckpt_res["launches"]["paged_decode_attention"],
+        "ragged_paged": ckpt_res["launches"]["ragged_paged_attention"],
+        "fused_ring_fwd": hand["launches_checkpoint"]["fused_ring_fwd"]}
+    for name, n in ckpt_launches.items():
+        assert n > 0, ckpt_launches
+        launches[name] += n
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in spec_launches:
             rec["speculative_launches"] = spec_launches[rec["name"]]
+        if rec["name"] in ckpt_launches:
+            rec["checkpoint_launches"] = ckpt_launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     wall, dev, _ = tr["prof"]
@@ -4597,7 +5119,8 @@ def main() -> int:
                                          "ring_step_trace", "train_shape",
                                          "routes", "attrs",
                                          "pipelined_launches", "spec_verify",
-                                         "speculative_launches")
+                                         "speculative_launches",
+                                         "checkpoint_launches")
                        if k in r}
                     for r in kernels],
         "card": card,
@@ -4620,6 +5143,7 @@ def main() -> int:
         | {k: v for k, v in pticks.items() if not k.startswith("prof_")},
         "serve_prefix": sprefix,
         "speculative": spec,
+        "checkpoint": ckpt_res,
         "ring": {k: ring_rec[k] for k in ("op_ms", "scan_ms",
                                           "scan_launches",
                                           "fused_vs_scan_err")},

@@ -1644,3 +1644,130 @@ def test_self_draft_engines_on_the_card_match_the_plain_engines(
                 assert not any(k.startswith("burst.fused_fallback")
                                for k in eng.stats)
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("engine,extra", [
+    (ServeEngine, {}), (RaggedServeEngine, {"chunk": 64}),
+    (RaggedServeEngine, {"chunk": 64, "prefix_cache": True})])
+def test_snapshot_roundtrip_on_the_card_is_token_exact(dev, tmp_path, dtype,
+                                                       engine, extra):
+    """A mid-run snapshot restored into a fresh engine on the card
+    finishes token-exact with the uninterrupted run, in fp32 and bf16:
+    the same kernels run on the same bytes.  The ragged engine's host
+    mirrors equal the restored device state."""
+    from burst_attn_tpu_torch.serving import checkpoint as ckpt
+
+    cfg, params = _serving_model(dev, dtype)
+    rng = np.random.default_rng(21)
+    tmpl = rng.integers(1, cfg.vocab, size=256)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (9, 130, 300)]
+    prompts += [np.concatenate([tmpl, rng.integers(1, cfg.vocab, size=t)])
+                for t in (0, 40)]
+
+    def make():
+        return engine(params, cfg, slots=3, n_pages=32, max_pages_per_seq=4,
+                      device=dev, **extra)
+
+    eng = make()
+    for p in prompts:
+        eng.submit(p, 12)
+    for _ in range(3):
+        eng.step()
+    path = str(tmp_path / "snap.npz")
+    ckpt.save_snapshot(eng, path)
+    expect = eng.run()
+    eng2 = make()
+    ckpt.restore_into(eng2, ckpt.load_snapshot(path))
+    if engine is RaggedServeEngine:
+        assert np.array_equal(eng2._lengths, eng2.state.lengths.cpu().numpy())
+        assert np.array_equal(eng2._table,
+                              eng2.state.page_table.cpu().numpy())
+    assert eng2.run() == expect
+    if eng2.cache is not None:
+        eng2.cache.evict(32)
+    assert eng2.pool.available == 31
+
+
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_k": 16}],
+                         ids=["greedy", "sampled"])
+def test_snapshot_into_a_pipelined_engine_keeps_its_graphs(dev, tmp_path,
+                                                           sampling):
+    """A pipelined K=4 engine restored in the middle of a run finishes
+    token-exact with the uninterrupted run and with the synchronous
+    engine.  The restore target captured its K=4 decode graph BEFORE the
+    restore, and the restore writes into the tensors and the generator
+    that graph is bound to, so its replays afterwards read the restored
+    state (sampled: the CUDA generator's state, set on the registered
+    generator).  The restore captures nothing."""
+    from burst_attn_tpu_torch.serving import checkpoint as ckpt
+
+    cfg, params = _serving_model(dev)
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (40, 130, 77)]
+
+    def make(**pipe):
+        return RaggedServeEngine(
+            params, cfg, slots=3, n_pages=16, max_pages_per_seq=4, chunk=64,
+            device=dev, rng=torch.Generator(device=dev).manual_seed(5),
+            **pipe, **sampling)
+
+    target = make(pipeline=True, multi_step=4)
+    target.submit(prompts[0], 10)           # warm: captures the K=4 graph
+    target.run()
+    captures = target.graphs.captures
+    assert captures > 0
+    eng = make(pipeline=True, multi_step=4)
+    for p in prompts:
+        eng.submit(p, 14)
+    for _ in range(3):
+        eng.step()
+    path = str(tmp_path / "snap.npz")
+    ckpt.save_snapshot(eng, path)
+    expect = eng.run()
+    replays = target.graphs.replays
+    ckpt.restore_into(target, ckpt.load_snapshot(path))
+    assert target.graphs.captures == captures
+    assert target.run() == expect
+    assert target.graphs.replays > replays
+    sync = make()
+    for p in prompts:
+        sync.submit(p, 14)
+    assert sync.run() == expect
+
+
+def test_pipelined_engine_fsyncs_before_it_delivers(dev, tmp_path):
+    """The pipelined K=4 engine on the card with a journal: a clean run
+    is the proof that every delivered token was fsynced first (the
+    journal machine raises otherwise), and the journal's fold equals the
+    streams.  With a journal whose sync does nothing, the first delivery
+    raises DurabilityViolation."""
+    from burst_attn_tpu_torch.protocols.journal import DurabilityViolation
+    from burst_attn_tpu_torch.serving import checkpoint as ckpt
+
+    cfg, params = _serving_model(dev)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (40, 130, 77)]
+    kw = dict(slots=3, n_pages=16, max_pages_per_seq=4, chunk=64,
+              pipeline=True, multi_step=4, device=dev)
+    path = str(tmp_path / "j.jsonl")
+    journal = ckpt.TokenJournal(path, truncate=True)
+    eng = RaggedServeEngine(params, cfg, journal=journal, **kw)
+    for p in prompts:
+        journal.submit(eng.submit(p, 14), 0, p, 14)
+    res = eng.run()
+    view = ckpt.journal_view(path)
+    assert view.tokens == res and view.done == set(res)
+    assert eng.graphs.replays > 0
+
+    class NoSync(ckpt.TokenJournal):
+        def sync(self):
+            pass
+
+    eng = RaggedServeEngine(params, cfg,
+                            journal=NoSync(str(tmp_path / "k.jsonl"),
+                                           truncate=True), **kw)
+    for p in prompts:
+        eng.submit(p, 14)
+    with pytest.raises(DurabilityViolation):
+        eng.run()

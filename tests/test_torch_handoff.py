@@ -1,7 +1,11 @@
 """Port parity for the long-context handoff: ring prefill into pool pages
 (burst_attn over sp=4) and sequence-parallel paged decode against the JAX
 package's, on the same weights (params_from_jax), fp32 on the CPU.  The
-JAX side runs its scan ring (attn_backend="jnp") on the CPU mesh."""
+JAX side runs its scan ring (attn_backend="jnp") on the CPU mesh.  Then
+the JAX package's handoff fault cases (tests/test_handoff_faults.py) on
+the port: a kill recovered from the journal alone, a restart from a bare
+paged snapshot, and restartable decode strides, each token-exact with
+the JAX handoff's stream."""
 
 import copy
 
@@ -24,8 +28,10 @@ from burst_attn_tpu_torch.models.transformer import ModelConfig, \
     params_from_jax
 from burst_attn_tpu_torch.parallel import burst
 from burst_attn_tpu_torch.parallel.mesh import Mesh
-from burst_attn_tpu_torch.serving import handoff_generate, \
-    ring_prefill_to_pages
+from burst_attn_tpu_torch.serving import (
+    TokenJournal, handoff_decode, handoff_generate, journal_tokens_by_ext,
+    load_paged_snapshot, ring_prefill_to_pages, save_paged_snapshot,
+)
 from burst_attn_tpu_torch.serving.handoff import check_handoff_preconditions
 
 DIMS = dict(vocab=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -215,3 +221,93 @@ def test_handoff_rejections_mutate_nothing(ref):
     assert pool.available == avail1 and int(st.lengths[1]) == 0
     with pytest.raises(ValueError, match="window"):
         ModelConfig(**DIMS, window=64)  # zigzag: the JAX check refuses
+
+
+def _prefilled(ref, cfg):
+    """Fresh pool, ring prefill into slot 0, STEPS of capacity
+    provisioned: (first greedy token, state, pool)."""
+    st, pool = _fresh(cfg)
+    last, st = ring_prefill_to_pages(ref["params"], ref["prompt"], st, pool,
+                                     0, cfg, {"sp": 4})
+    st = pd.provision_capacity(st, pool, 0, STEPS)
+    return int(last.argmax()), st, pool
+
+
+def test_handoff_kill_journal_only_recovery_token_exact(ref, tmp_path):
+    """A kill mid-decode with only the write-ahead journal surviving: the
+    replacement re-runs the ring prefill, re-decodes EXACTLY the journal
+    lag (equal to the journaled tokens), then continues the stream,
+    token-exact with the JAX handoff's."""
+    cfg = _cfg("auto")
+    jpath = str(tmp_path / "journal.jsonl")
+    journal = TokenJournal(jpath, truncate=True)
+    first, st, _ = _prefilled(ref, cfg)
+    journal.submit(0, 0, [int(t) for t in ref["prompt"]], STEPS)
+    journal.tokens(0, [first])
+    journal.sync()
+    dead_out, st = handoff_decode(ref["params"], st, cfg, {"sp": 4}, slot=0,
+                                  last_token=first, n_steps=2,
+                                  journal=journal, rid=0)
+    del st, journal                         # the "SIGKILL": state is gone
+    jt = journal_tokens_by_ext(jpath)[0]
+    assert jt == [first] + dead_out == ref["tokens"][:3]
+
+    first2, st, _ = _prefilled(ref, cfg)
+    assert first2 == jt[0]                  # the prefill is deterministic
+    lag, st = handoff_decode(ref["params"], st, cfg, {"sp": 4}, slot=0,
+                             last_token=jt[0], n_steps=len(jt) - 1)
+    assert lag == jt[1:]                    # re-decoded lag == journal
+    rest, st = handoff_decode(ref["params"], st, cfg, {"sp": 4}, slot=0,
+                              last_token=jt[-1], n_steps=STEPS - len(jt))
+    assert jt + rest == ref["tokens"]
+
+
+@pytest.mark.parametrize("quant", [False, "int8"])
+def test_handoff_restart_paged_snapshot_roundtrip_token_exact(ref, tmp_path,
+                                                              quant):
+    """A restart's recovery: snapshot the bare PagedState + pool
+    mid-decode, rebuild BOTH from disk, and continue: no re-prefill, no
+    re-decode, the stream equal to the uninterrupted one."""
+    cfg = _cfg("auto")
+    st, pool = pd.init_paged_state(cfg, slots=2, n_pages=N_PAGES, page=PAGE,
+                                   max_pages_per_seq=6, quantize=quant,
+                                   device="cpu")
+    last, st = ring_prefill_to_pages(ref["params"], ref["prompt"], st, pool,
+                                     0, cfg, {"sp": 4})
+    st = pd.provision_capacity(st, pool, 0, STEPS)
+    first = int(last.argmax())
+    out, st = handoff_decode(ref["params"], st, cfg, {"sp": 4}, slot=0,
+                             last_token=first, n_steps=1)
+    path = str(tmp_path / "handoff.npz")
+    save_paged_snapshot(path, st, pool, extra={"stream": [first] + out})
+    rest0, _ = handoff_decode(ref["params"], st, cfg, {"sp": 4}, slot=0,
+                              last_token=out[-1], n_steps=STEPS - 2)
+    avail = pool.available
+    del st, pool                            # the replacement reads the disk
+
+    st, pool, extra = load_paged_snapshot(path, device="cpu")
+    assert pool.available == avail and pool.dtype == (quant or None)
+    stream = [int(t) for t in extra["stream"]]
+    rest, st = handoff_decode(ref["params"], st, cfg, {"sp": 4}, slot=0,
+                              last_token=stream[-1],
+                              n_steps=STEPS - len(stream))
+    assert rest == rest0
+    if not quant:
+        assert stream + rest == ref["tokens"]
+
+
+def test_handoff_stall_restartable_strides_token_exact(ref):
+    """Decode strides are restartable (the state is explicit): any split
+    of the decode gives the same stream; a slot stepped past its
+    provisioned pages raises instead of writing into the sink."""
+    cfg = _cfg("auto")
+    first, st, _ = _prefilled(ref, cfg)
+    out = [first]
+    for stride in (1, STEPS - 2):
+        toks, st = handoff_decode(ref["params"], st, cfg, {"sp": 4}, slot=0,
+                                  last_token=out[-1], n_steps=stride)
+        out.extend(toks)
+    assert out == ref["tokens"]
+    with pytest.raises(RuntimeError, match="NaN"):
+        handoff_decode(ref["params"], st, cfg, {"sp": 4}, slot=0,
+                       last_token=out[-1], n_steps=PAGE)

@@ -301,15 +301,17 @@ def test_serve_engine_quantized_matches_jax(model, quant):
 
 
 def test_unported_options_raise(model):
-    """The journal still raises; a draft model is validated as the JAX
-    engines validate it (ValueError for a draft without its config,
-    sampling, a vocabulary mismatch, spec_k < 1); multi_step > 1 without
-    pipeline is a ValueError, as in JAX; the pipelined engine and the
-    ServeEngine prefix cache construct."""
+    """Both engines take a journal (ported: they keep it as `journal`;
+    tests/test_torch_checkpoint.py drives it); a draft model is validated
+    as the JAX engines validate it (ValueError for a draft without its
+    config, sampling, a vocabulary mismatch, spec_k < 1); multi_step > 1
+    without pipeline is a ValueError, as in JAX; the pipelined engine and
+    the ServeEngine prefix cache construct."""
     jcfg, jparams, cfg, params = model
     kw = dict(slots=1, n_pages=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        RaggedServeEngine(params, cfg, **kw, journal=1)
+    journal = object()
+    for eng_cls in (RaggedServeEngine, ServeEngine):
+        assert eng_cls(params, cfg, **kw, journal=journal).journal is journal
     other = dict(DIMS, vocab=DIMS["vocab"] + 1)
     bad_drafts = (
         ({}, dict(draft_params=params), "needs draft_cfg"),

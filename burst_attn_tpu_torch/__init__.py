@@ -14,8 +14,11 @@ Ported so far: the serving engines (models/serve.py, serving/engine.py),
 the trainer on one device or a sequence ring (models/train.py,
 models/runner.py), ring attention forward and backward (`burst_attn`
 over a mesh whose ring positions share one device; the scan ring over
-the flash kernels, or the fused ring kernels) and the long-context
-handoff (serving/handoff.py).
+the flash kernels, or the fused ring kernels), the long-context handoff
+(serving/handoff.py), the dense-shard distributed decode
+(models/dist_decode.py) and the observability package (`obs`: metrics,
+spans, request traces, ring telemetry, the `python -m
+burst_attn_tpu_torch.obs` report).
 
 Public API (reference parity):
     burst_attn              -- global-tensor ring attention (autograd)
@@ -23,8 +26,10 @@ Public API (reference parity):
     burst_attn_func_striped -- reference-style alias (striped layout)
     BurstConfig             -- static configuration
     layouts                 -- sequence layouts (to_layout / from_layout)
+    obs                     -- metrics registry, spans, traces, DevStats
 """
 
+from . import obs
 from .parallel import layouts
 from .parallel.burst import (
     BurstConfig,
@@ -39,4 +44,5 @@ __all__ = [
     "burst_attn_func",
     "burst_attn_func_striped",
     "layouts",
+    "obs",
 ]

@@ -88,6 +88,13 @@
 // of fp32 reductions at L2 and a fenced count a step) is the largest
 // part of a step, the elementwise P/dS work next; the waits are ~5-6%.
 // A TMA producer warp feeding wgmma is the next step.
+//
+// Slot use (STATS, a compile-time flag: the JAX kernel's collect_stats
+// bundle tally): when a position's round-r bundle has landed, thread 0 of
+// the position's CTA 0 adds one to that position's slot_use[bank][slot]
+// (int32 [W][2][kMaxSlots], zeroed by the host): one plain increment in
+// global memory with no barrier of its own, as each word has one writer.
+// The stats-off instances compile to the code without it.
 
 #include <type_traits>
 
@@ -109,6 +116,8 @@ constexpr int kDqDstSlot = 23, kDqiRecv = 28, kDqiSlot = 29;
 constexpr int kDqiDstSlot = 30;
 constexpr int kArriveNeed = 31, kDqArriveNeed = 36, kDqiArriveNeed = 37;
 constexpr int kDqTakeNeed = 38;
+// width of a position's slot_use row per bank (obs/devstats.py MAX_SLOTS)
+constexpr int kMaxSlots = 8;
 constexpr int kMetaCh1Dst = 3, kMetaHome0 = 5, kMetaHome1 = 6;
 constexpr int kDqRing = 1, kDqHome = 2, kDqBoundary = 3, kDqFinal = 4;
 // per send channel ch (0 or 1) and per dq bank b (0 or 1)
@@ -145,6 +154,7 @@ struct Params {
   int resident, opt;
   float scale;
   long long* trace;       // [W*G][kTraceCols] (TRACE instances)
+  int* slot_use;          // [W][2][kMaxSlots] consumes (STATS instances)
 };
 
 constexpr int kTraceCols = 16;
@@ -307,7 +317,7 @@ __device__ __forceinline__ int kv_tiles_seen(const Mask& mk, int i0) {
   return c_end > 0 ? (c_end + BKV - 1) / BKV : 0;
 }
 
-template <typename T, int D, bool TRACE>
+template <typename T, int D, bool TRACE, bool STATS>
 __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   static_assert(mbwd::NT == NT && mbwd::BQ == BQ && mbwd::BKV == BKV,
@@ -416,6 +426,9 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
     // may still read the slot it overwrites ----
     if (threadIdx.x == 0) {
       wait_on(fl.arrive(cb, cs), row[kArriveNeed] * p.G);
+      if constexpr (STATS) {
+        if (j == 0) p.slot_use[((size_t)pos * 2 + cb) * kMaxSlots + cs] += 1;
+      }
       if (recv)
         wait_on(fl.dq_arrive(dqb, dqs), row[kDqArriveNeed] * p.G);
       else if (r > 0)
@@ -669,10 +682,10 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, bool TRACE>
+template <typename T, int D, bool TRACE, bool STATS = false>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_bwd_kernel<T, D, TRACE>;
+  auto kernel = fused_ring_bwd_kernel<T, D, TRACE, STATS>;
   const size_t smem = smem_size<T, D>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
@@ -687,28 +700,28 @@ cudaError_t setup(int* max_blocks) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool TRACE>
+template <typename T, int D, bool TRACE, bool STATS>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, TRACE>(&max_blocks);
+  cudaError_t e = setup<T, D, TRACE, STATS>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_ring_bwd_kernel<T, D, TRACE>),
+      reinterpret_cast<void*>(fused_ring_bwd_kernel<T, D, TRACE, STATS>),
       dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool TRACE>
+template <typename T, int D, bool TRACE, bool STATS>
 cudaError_t attrs(int* out) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, TRACE>(&max_blocks);  // sets the smem limit
+  cudaError_t e = setup<T, D, TRACE, STATS>(&max_blocks);  // smem limit
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, fused_ring_bwd_kernel<T, D, TRACE>);
+  e = cudaFuncGetAttributes(&a, fused_ring_bwd_kernel<T, D, TRACE, STATS>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -729,12 +742,18 @@ extern "C" int fused_ring_bwd_capacity(int D, int dtype, int* max_blocks) {
 }
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
-// shared memory and resident CTAs on the card: out[0..3].
-extern "C" int fused_ring_bwd_attrs(int dtype, int trace, int* out) {
+// shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
+// TRACE (bf16 only), bit 1 STATS (not with TRACE).
+extern "C" int fused_ring_bwd_attrs(int dtype, int flags, int* out) {
+  const int trace = flags & 1, stats = (flags >> 1) & 1;
+  if (trace && stats) return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
-    return (int)(trace ? attrs<__nv_bfloat16, 128, true>(out)
-                       : attrs<__nv_bfloat16, 128, false>(out));
-  if (dtype == kFloat32 && !trace) return (int)attrs<float, 128, false>(out);
+    return (int)(trace   ? attrs<__nv_bfloat16, 128, true, false>(out)
+                 : stats ? attrs<__nv_bfloat16, 128, false, true>(out)
+                         : attrs<__nv_bfloat16, 128, false, false>(out));
+  if (dtype == kFloat32 && !trace)
+    return (int)(stats ? attrs<float, 128, false, true>(out)
+                       : attrs<float, 128, false, false>(out));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -744,9 +763,9 @@ extern "C" int fused_ring_bwd_launch(
     void* folds, void* dk, void* dv, void* trace, int W, int B, int N,
     int Nk, int S, int D, int R, int NB, int MS, int MDQ, int G, int ncol,
     int copy_in0, int copy_in1, int dtype, int resident, int opt,
-    float scale, void* stream) {
+    void* slot_use, float scale, void* stream) {
   if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || MDQ < 1 ||
-      (trace != nullptr && dtype != kBFloat16))
+      (trace != nullptr && (dtype != kBFloat16 || slot_use != nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p{first,
            dO,
@@ -763,11 +782,16 @@ extern "C" int fused_ring_bwd_launch(
            {copy_in0, copy_in1},
            resident, opt,
            scale,
-           static_cast<long long*>(trace)};
+           static_cast<long long*>(trace),
+           static_cast<int*>(slot_use)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool stats = slot_use != nullptr;
   if (dtype == kBFloat16)
-    return (int)(trace ? launch<__nv_bfloat16, 128, true>(p, st)
-                       : launch<__nv_bfloat16, 128, false>(p, st));
-  if (dtype == kFloat32) return (int)launch<float, 128, false>(p, st);
+    return (int)(trace   ? launch<__nv_bfloat16, 128, true, false>(p, st)
+                 : stats ? launch<__nv_bfloat16, 128, false, true>(p, st)
+                         : launch<__nv_bfloat16, 128, false, false>(p, st));
+  if (dtype == kFloat32)
+    return (int)(stats ? launch<float, 128, false, true>(p, st)
+                       : launch<float, 128, false, false>(p, st));
   return (int)cudaErrorInvalidValue;
 }

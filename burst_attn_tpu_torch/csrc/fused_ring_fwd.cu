@@ -81,6 +81,13 @@
 // of q/k/v/o and slot copies.  The bf16 tile issues 6 * D a pair (P V
 // twice) on mma.sync, below wgmma's rate; a TMA producer warp feeding
 // wgmma is the next step.
+//
+// Slot use (STATS, a compile-time flag: the JAX kernel's collect_stats slot
+// tally): when a position's round-r consume slot has landed, thread 0 of
+// the position's CTA 0 adds one to that position's slot_use[bank][slot]
+// (int32 [W][2][kMaxSlots], zeroed by the host): one plain increment in
+// global memory with no barrier of its own, as each word has one writer.
+// The stats-off instances compile to the code without it.
 
 #include <type_traits>
 
@@ -104,6 +111,8 @@ using flash::RPT;
 // holds these numbers to those two modules
 constexpr int kConsumeBank = 5, kConsumeSlot = 6, kSrcBank0 = 9;
 constexpr int kArriveNeed = 19;
+// width of a position's slot_use row per bank (obs/devstats.py MAX_SLOTS)
+constexpr int kMaxSlots = 8;
 // per send channel ch (0 or 1)
 __device__ __forceinline__ int col_send(int ch) { return ch ? 14 : 8; }
 __device__ __forceinline__ int col_src_slot(int ch) { return ch ? 15 : 10; }
@@ -127,6 +136,7 @@ struct Params {
   int W, B, N, Nk, S, R, NB, MS, G, ncol;
   int copy_in[2];         // bank * 16 + slot + 1, or 0
   float scale_log2;
+  int* slot_use;          // [W][2][kMaxSlots] consumes (STATS instances)
 };
 
 // one position's counters: arrive, free [NB][MS]; done [R], items taken
@@ -211,7 +221,7 @@ __device__ __forceinline__ void mma_store(const WarpTile& wt, float* st_m,
   }
 }
 
-template <typename T, int D, bool RESIDENT>
+template <typename T, int D, bool RESIDENT, bool STATS>
 __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   constexpr bool MMA = kMma<T>;
   constexpr int DC = flash::Rows<D>::DC;
@@ -291,6 +301,9 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
     if (threadIdx.x == 0) {
       wait_ge(fl.arrive(cb, cs), row[kArriveNeed] * p.G);
       __threadfence();
+      if constexpr (STATS) {
+        if (j == 0) p.slot_use[((size_t)pos * 2 + cb) * kMaxSlots + cs] += 1;
+      }
     }
     __syncthreads();
 
@@ -424,10 +437,10 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, bool RESIDENT>
+template <typename T, int D, bool RESIDENT, bool STATS = false>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT>;
+  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT, STATS>;
   const size_t smem = smem_size<T, D>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
@@ -442,28 +455,29 @@ cudaError_t setup(int* max_blocks) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool RESIDENT>
+template <typename T, int D, bool RESIDENT, bool STATS>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, RESIDENT>(&max_blocks);
+  cudaError_t e = setup<T, D, RESIDENT, STATS>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_ring_fwd_kernel<T, D, RESIDENT>),
+      reinterpret_cast<void*>(fused_ring_fwd_kernel<T, D, RESIDENT, STATS>),
       dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool RESIDENT>
+template <typename T, int D, bool RESIDENT, bool STATS>
 cudaError_t attrs(int* out) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, RESIDENT>(&max_blocks);  // the smem limit
+  cudaError_t e = setup<T, D, RESIDENT, STATS>(&max_blocks);  // smem limit
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, fused_ring_fwd_kernel<T, D, RESIDENT>);
+  e = cudaFuncGetAttributes(&a,
+                            fused_ring_fwd_kernel<T, D, RESIDENT, STATS>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -472,29 +486,44 @@ cudaError_t attrs(int* out) {
   return cudaSuccess;
 }
 
+template <typename T, int D, bool STATS>
+cudaError_t dispatch_state(int resident, const Params& p, cudaStream_t st) {
+  return resident ? launch<T, D, true, STATS>(p, st)
+                  : launch<T, D, false, STATS>(p, st);
+}
+
 template <int D>
 cudaError_t dispatch(int dtype, int resident, const Params& p,
                      cudaStream_t st) {
+  const bool stats = p.slot_use != nullptr;
   if (dtype == kBFloat16)
-    return resident ? launch<__nv_bfloat16, D, true>(p, st)
-                    : launch<__nv_bfloat16, D, false>(p, st);
+    return stats ? dispatch_state<__nv_bfloat16, D, true>(resident, p, st)
+                 : dispatch_state<__nv_bfloat16, D, false>(resident, p, st);
   if (dtype == kFloat32)
-    return resident ? launch<float, D, true>(p, st)
-                    : launch<float, D, false>(p, st);
+    return stats ? dispatch_state<float, D, true>(resident, p, st)
+                 : dispatch_state<float, D, false>(resident, p, st);
   return cudaErrorInvalidValue;
+}
+
+template <typename T, bool RESIDENT>
+cudaError_t attrs_of(int stats, int* out) {
+  return stats ? attrs<T, 128, RESIDENT, true>(out)
+               : attrs<T, 128, RESIDENT, false>(out);
 }
 
 }  // namespace
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
-// shared memory and resident CTAs on the card: out[0..3].
-extern "C" int fused_ring_fwd_attrs(int dtype, int resident, int* out) {
+// shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
+// RESIDENT, bit 1 STATS.
+extern "C" int fused_ring_fwd_attrs(int dtype, int flags, int* out) {
+  const int resident = flags & 1, stats = (flags >> 1) & 1;
   if (dtype == kBFloat16)
-    return (int)(resident ? attrs<__nv_bfloat16, 128, true>(out)
-                          : attrs<__nv_bfloat16, 128, false>(out));
+    return (int)(resident ? attrs_of<__nv_bfloat16, true>(stats, out)
+                          : attrs_of<__nv_bfloat16, false>(stats, out));
   if (dtype == kFloat32)
-    return (int)(resident ? attrs<float, 128, true>(out)
-                          : attrs<float, 128, false>(out));
+    return (int)(resident ? attrs_of<float, true>(stats, out)
+                          : attrs_of<float, false>(stats, out));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -522,7 +551,7 @@ extern "C" int fused_ring_fwd_launch(
     const void* sched, void* st_m, void* st_l, void* st_acc, void* o,
     void* lse, int W, int B, int N, int Nk, int S, int D, int R, int NB,
     int MS, int G, int ncol, int copy_in0, int copy_in1, int dtype,
-    int resident, float scale, void* stream) {
+    int resident, void* slot_use, float scale, void* stream) {
   if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1)
     return (int)cudaErrorInvalidValue;
   Params p{q,
@@ -537,7 +566,8 @@ extern "C" int fused_ring_fwd_launch(
            static_cast<float*>(lse),
            W, B, N, Nk, S, R, NB, MS, G, ncol,
            {copy_in0, copy_in1},
-           scale * kLog2e};
+           scale * kLog2e,
+           static_cast<int*>(slot_use)};
   return (int)dispatch<128>(dtype, resident, p,
                             static_cast<cudaStream_t>(stream));
 }

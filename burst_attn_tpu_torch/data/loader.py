@@ -14,7 +14,6 @@ repository's git-ignored `build/native/`, keyed by a hash of the source
 
 import ctypes
 import hashlib
-import logging
 import os
 import subprocess
 import threading
@@ -23,7 +22,9 @@ from typing import Tuple
 
 import numpy as np
 
-_logger = logging.getLogger(__name__)
+from ..obs.logs import get_logger, safe_warn
+
+_logger = get_logger("burst_attn_tpu_torch.data")
 
 _MAGIC = 0x44544142  # "BATD"
 _HEADER = 16
@@ -168,5 +169,7 @@ class DataLoader:
         try:
             self.close()
         except Exception as e:  # noqa: BLE001 — __del__ must not raise
-            _logger.warning("DataLoader.__del__: close failed (%s: %s)",
-                            type(e).__name__, e)
+            # interpreter teardown: even logging can fail here, so route
+            # through safe_warn (failed emissions are kept, not lost)
+            safe_warn(_logger, "DataLoader.__del__: close failed (%s: %s)",
+                      type(e).__name__, e)

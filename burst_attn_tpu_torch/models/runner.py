@@ -21,14 +21,16 @@ here.
 
 import argparse
 import json
+import os
 from dataclasses import dataclass
 from typing import Optional
 
+from .. import obs
 from ..data import DataLoader
 from ..device import resolve_device
+from ..obs import StepTimer
 from ..utils import log_helper
 from ..utils.checkpoint import Checkpointer
-from ..utils.profiling import StepTimer
 from .train import (
     TrainConfig, _world, init_train_state, make_mesh, make_train_step,
     prefetch_batches,
@@ -54,13 +56,18 @@ class RunConfig:
     eval_every: int = 500
     eval_batches: int = 16
     packed_eos_id: Optional[int] = None  # packed documents: not ported yet
+    # where the run's obs state is exported at the end (JSONL, read by
+    # `python -m burst_attn_tpu_torch.obs`); None: BURST_OBS_EXPORT, if set
+    obs_export: Optional[str] = None
 
 
 def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
         device=None):
     """Train for run.steps, checkpointing and resuming as configured, on
     `device` (default: the card).  Returns (state, history), history a
-    list of {step, loss, grad_norm, step_s} and eval rows."""
+    list of {step, loss, grad_norm, step_s} and eval rows.  Each eval is
+    the span `train.eval`; at the end the obs state goes to run.obs_export
+    (or the BURST_OBS_EXPORT path) as a JSONL export."""
     log = log_helper.get_logger("burst_attn_tpu_torch.runner")
     primary = log_helper.is_primary()
     dev = resolve_device(device)
@@ -97,7 +104,8 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
             return
         if (step + 1) % run.eval_every and step + 1 != run.steps:
             return
-        metrics = evaluator(state[0])
+        with obs.span("train.eval", step=step + 1):
+            metrics = evaluator(state[0])
         row = {"step": step + 1,
                **{k: round(v, 4) for k, v in metrics.items()}}
         history.append(row)
@@ -135,6 +143,14 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
     s = timer.summary()
     if s["steps"] and primary:
         log.info("done: %d steps, mean %.3fs/step", s["steps"], s["mean_s"])
+    export_path = run.obs_export or os.environ.get("BURST_OBS_EXPORT")
+    if export_path:
+        parent = os.path.dirname(export_path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        obs.export_jsonl(export_path)
+        if primary:
+            log.info("obs export written to %s", export_path)
     return state, history
 
 
@@ -183,6 +199,10 @@ def main(argv=None):
     p.add_argument("--d-ff", type=int, default=None)
     p.add_argument("--layout", default="zigzag")
     p.add_argument("--no-remat", action="store_true")
+    p.add_argument("--obs-export", default=None,
+                   help="JSONL the run's obs state is appended to at the "
+                        "end, e.g. results/obs.jsonl (default: the "
+                        "BURST_OBS_EXPORT path, if set)")
     args = p.parse_args(argv)
 
     mesh_axes = _parse_mesh(args.mesh)
@@ -210,7 +230,7 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
         log_every=args.log_every, seed=args.seed,
         eval_data_path=args.eval_data, eval_every=args.eval_every,
-        eval_batches=args.eval_batches,
+        eval_batches=args.eval_batches, obs_export=args.obs_export,
     )
     fit(cfg, tcfg, run, mesh, device=args.device)
 

@@ -46,10 +46,19 @@ fsyncs the tick's records once and runs the delivery barrier BEFORE it
 returns, so every token a caller has seen is durable.  Snapshots and
 recovery: serving/checkpoint.py.
 
-Not ported yet: tensor-parallel meshes, and the obs metrics and request
-tracing.
+Metrics: the JAX engine's obs instruments under their names (the
+serve.* family serving/engine.py also reports through: requests
+submitted / rejected / admitted / retired, engine steps, tokens, queue /
+slot / pool gauges, TTFT and token-latency histograms, host_gap_fraction,
+spec_acceptance_rate); `run()` is the span `serve.run`, and with request
+tracing on (`obs.trace.enable()`) each request records serve.queued,
+serve.prefill, the serve.first_token marker, serve.decode and its
+serve.request root.
+
+Not ported yet: tensor-parallel meshes.
 """
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -60,7 +69,9 @@ from ..admission import (
     AdmissionPolicy, InvalidRequest, LoadShed, RejectReason, SubmitRejected,
     SubmitResult,
 )
+from .. import obs
 from ..device import resolve_device
+from ..obs import trace as tracing
 from .decode import sample_logits
 from .paged_decode import (
     PrefixCache, init_paged_state, paged_decode_step, paged_multi_step,
@@ -69,6 +80,27 @@ from .paged_decode import (
 from .spec_round import Draft, SpecCounters
 from .transformer import ModelConfig
 
+# the JAX ServeEngine's instruments (serving/engine.py shares the names)
+_M_SUBMITTED = obs.counter("serve.requests_submitted")
+_M_REJECTED = obs.counter("serve.requests_rejected",
+                          "submissions refused up front, by reason")
+_M_ADMITTED = obs.counter("serve.requests_admitted")
+_M_RETIRED = obs.counter("serve.requests_retired",
+                         "finished requests, by cause (eos | budget)")
+_M_STEPS = obs.counter("serve.engine_steps")
+_M_TOKENS = obs.counter("serve.tokens_generated")
+_M_QUEUE = obs.gauge("serve.queue_depth")
+_M_LIVE = obs.gauge("serve.live_slots")
+_M_POOL = obs.gauge("serve.page_pool_occupancy",
+                    "fraction of usable pool pages currently held")
+_M_SPEC_RATE = obs.gauge("serve.spec_acceptance_rate")
+_M_TTFT = obs.histogram("serve.ttft_s")
+_M_TOK_LAT = obs.histogram("serve.token_latency_s")
+# host time a tick spent outside its device window (prefill + sample,
+# decode step + sample), as a fraction of tick wall time (cumulative)
+_M_HOST_GAP = obs.gauge("serve.host_gap_fraction",
+                        "host gap seconds / launch-tick wall seconds")
+
 
 @dataclass
 class _Request:
@@ -76,6 +108,7 @@ class _Request:
     prompt: np.ndarray          # [T] int32
     max_new_tokens: int
     tokens: List[int] = field(default_factory=list)  # generated so far
+    t_submit: float = 0.0       # perf_counter at submit (TTFT anchor)
 
 
 class ServeEngine(SpecCounters):
@@ -130,8 +163,13 @@ class ServeEngine(SpecCounters):
         self._queue: List[_Request] = []
         self._next_id = 0
         self._finished: Dict[int, List[int]] = {}
+        self._host_gap_s = self._launch_wall_s = self._tick_dev_s = 0.0
 
     # -- client surface ----------------------------------------------------
+
+    def _reject(self, exc_cls, reason: RejectReason, message: str):
+        _M_REJECTED.inc(reason=reason.value)
+        raise exc_cls(reason, message)
 
     def _occupancy(self) -> float:
         """Fraction of usable pool pages held (page 0 is the sink)."""
@@ -149,34 +187,35 @@ class ServeEngine(SpecCounters):
         exhaustion before the policy's hysteresis sheds."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if tokens.size == 0:
-            raise InvalidRequest(RejectReason.EMPTY_PROMPT, "empty prompt")
+            self._reject(InvalidRequest, RejectReason.EMPTY_PROMPT,
+                         "empty prompt")
         if max_new_tokens < 1:
-            raise InvalidRequest(
-                RejectReason.BAD_BUDGET,
+            self._reject(
+                InvalidRequest, RejectReason.BAD_BUDGET,
                 f"max_new_tokens must be >= 1, got {max_new_tokens} "
                 "(prefill always samples one)")
         need = self._pages_for(tokens.size, max_new_tokens)
         width = self.state.page_table.shape[1]
         if need > width:
-            raise InvalidRequest(
-                RejectReason.TABLE_WIDTH,
+            self._reject(
+                InvalidRequest, RejectReason.TABLE_WIDTH,
                 f"request needs {need} pages > max_pages_per_seq {width}")
         if need > self.pool.n_pages - 1:  # page 0 is the reserved sink
             # a permanently unservable request would deadlock the FIFO
-            raise InvalidRequest(
-                RejectReason.POOL_SIZE,
+            self._reject(
+                InvalidRequest, RejectReason.POOL_SIZE,
                 f"request needs {need} pages but the pool only has "
                 f"{self.pool.n_pages - 1} usable pages total")
         if self.max_queue is not None:
             if self._queue and need > self.pool.available:
-                raise LoadShed(
-                    RejectReason.POOL_EXHAUSTED,
+                self._reject(
+                    LoadShed, RejectReason.POOL_EXHAUSTED,
                     f"load shed (pool-exhausted): request needs {need} "
                     f"pages, {self.pool.available} free, "
                     f"{len(self._queue)} already waiting")
             if len(self._queue) >= self.max_queue:
-                raise LoadShed(
-                    RejectReason.QUEUE_FULL,
+                self._reject(
+                    LoadShed, RejectReason.QUEUE_FULL,
                     f"load shed (queue-full): {len(self._queue)} waiting "
                     f">= max_queue {self.max_queue}")
         if self.admission is not None:
@@ -184,13 +223,19 @@ class ServeEngine(SpecCounters):
             reason = self.admission.decide(queue_depth=len(self._queue),
                                            pool_occupancy=occ)
             if reason is not None:
-                raise LoadShed(reason,
-                               f"load shed ({reason}): admission policy — "
-                               f"queue_depth={len(self._queue)}, "
-                               f"pool_occupancy={occ:.3f}")
+                self._reject(LoadShed, reason,
+                             f"load shed ({reason}): admission policy — "
+                             f"queue_depth={len(self._queue)}, "
+                             f"pool_occupancy={occ:.3f}")
         rid = self._next_id
         self._next_id += 1
-        self._queue.append(_Request(rid, tokens, max_new_tokens))
+        req = _Request(rid, tokens, max_new_tokens,
+                       t_submit=time.perf_counter())
+        # an attribute, not a field: snapshots never see the trace context
+        req._tc = tracing.start_request(rid)
+        self._queue.append(req)
+        _M_SUBMITTED.inc()
+        _M_QUEUE.set(len(self._queue))
         return rid
 
     def try_submit(self, tokens, max_new_tokens: int) -> SubmitResult:
@@ -214,10 +259,11 @@ class ServeEngine(SpecCounters):
 
     def run(self, max_steps: int = 100_000) -> Dict[int, List[int]]:
         """Drive step() until every submitted request finishes."""
-        for _ in range(max_steps):
-            if not self._queue and self.live == 0:
-                return self.results()
-            self.step()
+        with obs.span("serve.run"):
+            for _ in range(max_steps):
+                if not self._queue and self.live == 0:
+                    return self.results()
+                self.step()
         raise RuntimeError(f"run() exceeded {max_steps} steps")
 
     def drain(self) -> List[int]:
@@ -240,6 +286,9 @@ class ServeEngine(SpecCounters):
                 self.journal.reset(req.rid)
         if self.journal is not None:
             self.journal.sync()
+        _M_QUEUE.set(len(self._queue))
+        _M_LIVE.set(0)
+        _M_POOL.set(self._occupancy())
         return [r.rid for r in inflight]
 
     # -- engine ------------------------------------------------------------
@@ -279,6 +328,7 @@ class ServeEngine(SpecCounters):
                 # through the prefix cache: check it before the target
                 # prefill, not halfway through admission
                 break
+            t_adm = time.perf_counter()  # queued ends / prefill starts here
             try:
                 logits, _ = paged_prefill(self.params, req.prompt, self.state,
                                           self.pool, slot, self.cfg,
@@ -307,6 +357,24 @@ class ServeEngine(SpecCounters):
                 self.journal.tokens(req.rid, [int(tok)])
             self.slots[slot] = req
             self._next_tok[slot] = int(tok)
+            now = time.perf_counter()
+            # the prefill and its sample wait on the device: the tick's
+            # device window
+            self._tick_dev_s += now - t_adm
+            _M_ADMITTED.inc()
+            _M_TOKENS.inc()  # the prefill-sampled first token
+            _M_TTFT.observe(now - req.t_submit)
+            _M_QUEUE.set(len(self._queue))
+            tc = getattr(req, "_tc", None)
+            if tc is not None:
+                # contiguous phases on one clock: the breakdown sums to TTFT
+                req._t_first = now
+                tracing.record_span(tc, "serve.queued", req.t_submit, t_adm)
+                tracing.record_span(tc, "serve.prefill", t_adm, now)
+                tracing.marker(tc, "serve.first_token", now)
+                tracing.note_ttft(tc, now - req.t_submit)
+                tracing.publish_breakdown({"queued": t_adm - req.t_submit,
+                                           "prefill": now - t_adm})
 
     def _sample(self, logits) -> np.ndarray:
         return sample_logits(
@@ -328,7 +396,41 @@ class ServeEngine(SpecCounters):
                 done.append((req.rid, req.tokens))
                 if self.journal is not None:
                     self.journal.done(req.rid)
+                _M_RETIRED.inc(cause="eos" if hit_eos else "budget")
+                tc = getattr(req, "_tc", None)
+                if tc is not None:
+                    now = time.perf_counter()
+                    tracing.record_span(
+                        tc, "serve.decode",
+                        getattr(req, "_t_first", req.t_submit), now,
+                        tokens=len(req.tokens))
+                    tracing.record_span(tc, "serve.request", req.t_submit,
+                                        now, root=True, rid=req.rid)
         return done
+
+    def _note_tick(self, dt: float, added: int,
+                   dev_s: Optional[float] = None) -> None:
+        """Per-tick obs update: queue / slot / pool gauges, the tick and
+        its tokens, and the amortized per-token latency (live streams
+        advance together: each stream's tokens arrived dt / (added / live)
+        apart).  `dev_s` is the tick's device window; the rest of dt feeds
+        serve.host_gap_fraction."""
+        if dev_s is not None:
+            self._host_gap_s += max(0.0, dt - dev_s)
+            self._launch_wall_s += dt
+            if self._launch_wall_s > 0:
+                _M_HOST_GAP.set(self._host_gap_s / self._launch_wall_s)
+        _M_STEPS.inc()
+        _M_QUEUE.set(len(self._queue))
+        live = self.live
+        _M_LIVE.set(live)
+        _M_POOL.set(self._occupancy())
+        if added:
+            _M_TOKENS.inc(added)
+            _M_TOK_LAT.observe(dt * live / added)
+        rate = self.acceptance_rate
+        if rate is not None:
+            _M_SPEC_RATE.set(rate)
 
     def step(self) -> List[Tuple[int, List[int]]]:
         """One engine tick (see _step).  With a journal attached this is
@@ -352,6 +454,8 @@ class ServeEngine(SpecCounters):
         can already be complete (max_new_tokens == 1, or the
         prefill-sampled token IS eos) and must retire — freeing its slot —
         WITHOUT a decode step, or it would get a token past its budget."""
+        t0 = time.perf_counter()
+        self._tick_dev_s = 0.0  # _admit credits its prefill windows here
         done = self._retire_finished()
         while True:
             before = self.pending
@@ -360,14 +464,23 @@ class ServeEngine(SpecCounters):
             if self.pending == before:
                 break
         if self.live == 0:
+            self._note_tick(time.perf_counter() - t0, 0,
+                            self._tick_dev_s or None)
             return done
+        td0 = time.perf_counter()
         if self.draft is not None:
-            self._spec_round()
+            added = self._spec_round()
+            # the round's launches are back to back: its device window
+            self._tick_dev_s += time.perf_counter() - td0
+            self._note_tick(time.perf_counter() - t0, added,
+                            self._tick_dev_s)
             return done
         logits, _ = paged_decode_step(
             self.params, torch.from_numpy(self._next_tok).to(self.device),
             self.state, self.cfg)
-        toks = self._sample(logits)
+        toks = self._sample(logits)  # waits on the device: the window ends
+        self._tick_dev_s += time.perf_counter() - td0
+        added = 0
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -379,19 +492,25 @@ class ServeEngine(SpecCounters):
             if self.journal is not None:
                 self.journal.tokens(req.rid, [int(toks[slot])])
             self._next_tok[slot] = int(toks[slot])
+            added += 1
+        self._note_tick(time.perf_counter() - t0, added, self._tick_dev_s)
         return done
 
-    def _spec_round(self) -> None:
+    def _spec_round(self) -> int:
         """One speculative round for EVERY live slot: the draft's spec_k
         proposals and its catch-up (Draft.propose), the target scoring
         all k+1 positions in ONE paged_multi_step, the acceptance on the
         host (Draft.accept, which rolls the draft back), then the target's
-        lengths down by what was not kept, one subtraction."""
+        lengths down by what was not kept, one subtraction.  Returns the
+        tokens kept."""
         first = torch.from_numpy(self._next_tok).to(self.device)
         d_toks, bad = self.draft.propose(first)
         lg_t, _ = paged_multi_step(
             self.params, torch.cat([first[:, None], d_toks], dim=1),
             self.state, self.cfg)
+        n_before = sum(len(r.tokens) for r in self.slots if r is not None)
         undo = self.draft.accept(self.slots, d_toks, lg_t, bad, self.eos_id,
                                  self._next_tok, self.journal)
         self.state.lengths.sub_(torch.from_numpy(undo).to(self.device))
+        return sum(len(r.tokens) for r in self.slots
+                   if r is not None) - n_before

@@ -17,13 +17,22 @@ identity; on a ring of W positions (`mesh={"sp": W}`, or {"inter": a,
 into cfg.layout's order at that world and attention runs the ring
 forward and backward (parallel/burst.py).
 
+Metrics (the JAX trainer's instruments): `train.steps`,
+`train.step_interval_s` (dispatch to dispatch: the step returns without
+waiting on the card), `train.tokens_per_s` and `train.events{kind}`.
+`TrainConfig(collect_devstats=True)` (a ring, grad_accum 1) takes the
+ring telemetry of every layer through the step and publishes it
+(`labels={"source": "train"}`) after the dispatch is timed: the one
+read-back it costs; the loss and gradients are bitwise those of
+collect_devstats=False.
+
 Not ported yet: dp and tp axes, packed documents (`packed_fields*`,
-`make_packed_batch`, `packed_eos_id`), ring telemetry
-(`collect_devstats`), MoE and the pipeline path.  The TPU-only
-tri-backward compile probe (`probe_model_tri_bwd`) has no counterpart:
-a CUDA kernel either builds or the run stops.
+`make_packed_batch`, `packed_eos_id`), MoE and the pipeline path.  The
+TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
+counterpart: a CUDA kernel either builds or the run stops.
 """
 
+import time
 from collections import deque
 from dataclasses import dataclass
 
@@ -31,12 +40,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..device import resolve_device
 from ..parallel import layouts
 from .transformer import (
     ModelConfig, check_mesh, forward_with_aux, init_params, param_leaves,
     ring_world,
 )
+
+logger = obs.get_logger(__name__)
+
+# train-loop metrics, updated by the step's host code after the dispatch
+# (never inside a captured graph); step time is dispatch to dispatch
+_M_STEPS = obs.counter("train.steps")
+_M_EVENTS = obs.counter(
+    "train.events", "exceptional train-loop events by kind (probe_failure; "
+                    "loss-scale kinds reserved for a mixed-precision scaler)")
+_M_STEP_S = obs.histogram("train.step_interval_s")
+_M_TPS = obs.gauge("train.tokens_per_s")
 
 
 @dataclass(frozen=True)
@@ -48,7 +69,8 @@ class TrainConfig:
     grad_clip: float = 1.0
     moe_aux_weight: float = 0.01  # weight of the MoE load-balancing loss
     grad_accum: int = 1  # microbatches per optimizer step
-    collect_devstats: bool = False  # ring telemetry: not ported yet
+    # publish the ring telemetry (obs.devstats) of every step
+    collect_devstats: bool = False
 
 
 def make_mesh(axis_sizes: dict, devices=None) -> dict:
@@ -91,24 +113,29 @@ def init_train_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig,
 def _loss_parts(params, tokens, positions, labels, cfg: ModelConfig,
                 mesh=None, segment_ids=None, collect_stats=False):
     """(sum of the masked next-token nll, MoE aux): the linear pieces of
-    the objective.  labels < 0 are masked out."""
-    if collect_stats:
-        raise NotImplementedError("ring telemetry is not ported yet")
-    logits, aux = forward_with_aux(params, tokens, positions, cfg, mesh,
-                                   segment_ids=segment_ids)
+    the objective.  labels < 0 are masked out.  `collect_stats` appends the
+    ring telemetry (forward_with_aux)."""
+    out = forward_with_aux(params, tokens, positions, cfg, mesh,
+                           segment_ids=segment_ids,
+                           collect_stats=collect_stats)
+    logits, aux = out[:2]
     target = torch.where(labels >= 0, labels, -100).long()
     nll_sum = F.cross_entropy(logits.flatten(0, 1), target.flatten(),
                               ignore_index=-100, reduction="sum")
-    return nll_sum, aux
+    return (nll_sum, aux) + tuple(out[2:])
 
 
 def loss_fn(params, tokens, positions, labels, cfg: ModelConfig, mesh=None,
-            moe_aux_weight: float = 0.0, segment_ids=None):
-    """Mean next-token cross entropy (fp32) + weighted MoE aux loss."""
-    nll_sum, aux = _loss_parts(params, tokens, positions, labels, cfg, mesh,
-                               segment_ids=segment_ids)
+            moe_aux_weight: float = 0.0, segment_ids=None,
+            collect_stats=False):
+    """Mean next-token cross entropy (fp32) + weighted MoE aux loss; with
+    `collect_stats`, (loss, DevStats)."""
+    out = _loss_parts(params, tokens, positions, labels, cfg, mesh,
+                      segment_ids=segment_ids, collect_stats=collect_stats)
+    nll_sum, aux = out[:2]
     ce = nll_sum / (labels >= 0).sum().clamp(min=1)
-    return ce + moe_aux_weight * aux
+    loss = ce + moe_aux_weight * aux
+    return (loss, out[2]) if collect_stats else loss
 
 
 def _global_norm(grads) -> torch.Tensor:
@@ -133,14 +160,41 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
     device (batch_from_host / make_batch).  metrics = {"loss", "grad_norm"}
     as 0-d fp32 tensors (no host sync); grad_norm is the norm before
     clipping.  `device` defaults to the card and raises without one unless
-    "cpu" is asked for."""
+    "cpu" is asked for.  Each call counts train.steps and, from the second
+    call, the dispatch interval; with tcfg.collect_devstats the step's
+    DevStats is published after that (metrics never carry it)."""
     dev = resolve_device(device)
     _world(cfg, mesh)
-    if tcfg.collect_devstats:
-        raise NotImplementedError("collect_devstats (ring telemetry) is not "
-                                  "ported yet")
+    collect = tcfg.collect_devstats
+    if collect and tcfg.grad_accum != 1:
+        raise ValueError(
+            "collect_devstats supports grad_accum=1 only (per-microbatch "
+            "stats would need a merge across the microbatches)")
     aux_w = tcfg.moe_aux_weight if cfg.n_experts else 0.0
     accum = tcfg.grad_accum
+    last_dispatch = []  # [t_prev] once the first step has gone out
+
+    def guarded_step(state, batch):
+        out, stats = step(state, batch)
+        now = time.perf_counter()
+        _M_STEPS.inc()
+        if last_dispatch:
+            dt = now - last_dispatch[0]
+            _M_STEP_S.observe(dt)
+            if dt > 0:
+                _M_TPS.set(batch["tokens"].numel() / dt)
+        last_dispatch[:] = [now]
+        if stats is not None:
+            # after the interval is measured: publish reads the stats back
+            # (the one sync the knob costs); telemetry never fails a step
+            try:
+                stats.publish(labels={"source": "train"})
+            except Exception as e:  # noqa: BLE001
+                _M_EVENTS.inc(kind="devstats_publish_failure")
+                logger.warning("devstats publish failed (%s: %s); step "
+                               "continues without telemetry",
+                               type(e).__name__, e)
+        return out
 
     def step(state, batch):
         params, opt = state
@@ -151,9 +205,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         tokens, positions, labels = (batch[k] for k in
                                      ("tokens", "positions", "labels"))
         opt.zero_grad(set_to_none=True)
+        stats = None
         if accum == 1:
             loss = loss_fn(params, tokens, positions, labels, cfg, mesh,
-                           moe_aux_weight=aux_w)
+                           moe_aux_weight=aux_w, collect_stats=collect)
+            if collect:
+                loss, stats = loss
             loss.backward()
             loss = loss.detach()
         else:
@@ -185,9 +242,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         gnorm = _global_norm(grads)
         _clip_(grads, gnorm, tcfg.grad_clip)
         opt.step()
-        return (params, opt), {"loss": loss, "grad_norm": gnorm}
+        return ((params, opt), {"loss": loss, "grad_norm": gnorm}), stats
 
-    return step
+    return guarded_step
 
 
 def train_step(state, batch, cfg: ModelConfig, tcfg: TrainConfig, mesh=None,

@@ -213,19 +213,24 @@ def _logits(x, lm_head):
     return x.float() @ lm_head.float().t()
 
 
-def _block(x, p, positions, cfg: ModelConfig, mesh=None):
+def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None):
     """One decoder block of the training forward: attention, then the
     SwiGLU MLP.  Attention runs the flash kernels (autograd
     `flash_attention`) on one device, or the ring (autograd `burst_attn`
     over cfg.seq_axes, its layout and backend) when the mesh's sequence
     axes hold more than one position, as the JAX model's `_attention`
-    does."""
+    does.  `stats_out`: None, or a list the ring's DevStats is appended to
+    (collect_stats: the output is the same)."""
     q, k, v = _qkv_proj(p, x, positions, cfg)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if ring_world(cfg, mesh) > 1:
         o = burst_attn(q, k, v, mesh=dict(mesh), seq_axes=cfg.seq_axes,
                        causal=cfg.causal, layout=cfg.layout,
-                       backend=cfg.attn_backend, window=cfg.window)
+                       backend=cfg.attn_backend, window=cfg.window,
+                       collect_stats=stats_out is not None)
+        if stats_out is not None:
+            o, st = o
+            stats_out.append(st)
     else:
         o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
     x = x + _attn_out(p, o)
@@ -272,22 +277,42 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     are recomputed in the backward.  `mesh` names axis sizes ({"sp": W}
     or {"inter": a, "intra": b} with cfg.seq_axes to match; the ring
     positions share the tokens' device); packed documents (`segment_ids`)
-    and ring telemetry (`collect_stats`) come with later slices."""
+    come with a later slice.
+
+    `collect_stats` (a ring only): also return the ring telemetry of
+    every layer folded with obs.devstats.merge (counts add, extrema max /
+    min) as a third element, `(logits, aux, DevStats)`; logits and
+    gradients are bitwise those of collect_stats=False (a remat block's
+    recompute in the backward adds no stats of its own to the result)."""
     if segment_ids is not None:
         raise NotImplementedError("packed-document training (segment_ids) "
                                   "is not ported yet")
-    if collect_stats:
-        raise NotImplementedError("ring telemetry is not ported yet")
+    if collect_stats and ring_world(cfg, mesh) < 2:
+        raise ValueError("collect_stats needs a ring: the mesh's sequence "
+                         f"axes {tuple(cfg.seq_axes)} hold one position")
     ring_world(cfg, mesh)
     x = params["embed"][tokens].to(cfg.dtype)
+    sinks = []
     for p in params["layers"]:
+        sink = [] if collect_stats else None
+        sinks.append(sink)
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_block, x, p, positions, cfg, mesh,
+            x = checkpoint(_block, x, p, positions, cfg, mesh, sink,
                            use_reentrant=False)
         else:
-            x = _block(x, p, positions, cfg, mesh)
+            x = _block(x, p, positions, cfg, mesh, sink)
     logits = _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not collect_stats:
+        return logits, aux
+    from ..obs import devstats
+
+    # each layer's first entry is its forward's (a remat recompute in the
+    # backward appends later ones)
+    stats = sinks[0][0]
+    for sink in sinks[1:]:
+        stats = devstats.merge(stats, sink[0])
+    return logits, aux, stats
 
 
 def forward(params: Params, tokens, positions, cfg: ModelConfig):

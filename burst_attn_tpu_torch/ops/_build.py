@@ -58,9 +58,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "fused_ring_fwd_capacity": [I, I, ctypes.POINTER(I)],
         # q k_in v_in ptrs sched st_m st_l st_acc o lse,
         # W B N Nk S D R NB MS G ncol copy_in0 copy_in1 dtype resident,
-        # scale, stream
-        "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [F] + [P],
-        # dtype resident, int out[4]
+        # slot_use (NULL: the stats-off instance), scale, stream
+        "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [P, F, P],
+        # dtype flags (bit 0 resident, bit 1 stats), int out[4]
         "fused_ring_fwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "fused_ring_bwd": {
@@ -68,9 +68,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "fused_ring_bwd_capacity": [I, I, ctypes.POINTER(I)],
         # first dO q lse k v ptrs sched folds dk dv trace,
         # W B N Nk S D R NB MS MDQ G ncol copy_in0 copy_in1 dtype resident
-        # opt, scale, stream
-        "fused_ring_bwd_launch": [P] * 12 + [I] * 17 + [F] + [P],
-        # dtype traced, int out[4]
+        # opt, slot_use (NULL: the stats-off instance), scale, stream
+        "fused_ring_bwd_launch": [P] * 12 + [I] * 17 + [P, F, P],
+        # dtype flags (bit 0 traced, bit 1 stats), int out[4]
         "fused_ring_bwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "ragged_paged": {

@@ -20,8 +20,14 @@ banks in device memory and the rotation done by the kernel's own copies);
 a CPU tensor runs `fused_ring_reference`, the plain version, which walks
 the same program on the host and checks its deliveries and credits.
 
-Not ported yet: wire_dtype, packed segments, window and collect_stats
-(they raise in parallel/burst.py).
+`fused_ring_fwd(..., collect_stats=True)` also returns the per-position
+DevStats (obs/devstats.py): the kernel's STATS instance counts each
+round's consume per (bank, slot) in device memory (the plain version
+counts the same walk), and the occupancy comes from the table's mask
+scalars, as in the JAX package.
+
+Not ported yet: wire_dtype, packed segments and window (they raise in
+parallel/burst.py).
 """
 
 import ctypes
@@ -33,12 +39,15 @@ import torch
 
 from . import _build
 from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
-from .masks import MaskSpec, live_round_prefix, round_spec
+from .masks import (
+    MaskSpec, live_round_prefix, round_spec, spec_live, spec_pair_count,
+)
 from .tile import finalize, init_state, tile_fwd
 from .tuning import (
     FUSED_BLOCK_KV, FUSED_BLOCK_KV_BWD, FUSED_BLOCK_Q, FUSED_BLOCK_Q_BWD,
     fused_bwd_smem_bytes, fused_smem_bytes, resolve_fused,
 )
+from ..obs.devstats import MAX_SLOTS
 from ..parallel import schedule as sched_ir
 from ..parallel.ring import ring_coords, ring_roles
 
@@ -357,12 +366,16 @@ def _sched_on(cfg, n_inter: int, n_intra: int, s: int, device,
         ring_plan(cfg, n_inter, n_intra, s, pass_)[2].copy()).to(device)
 
 
-def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int):
+def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int, *,
+                   collect_stats: bool = False):
     """Forward burst attention of all W = n_inter * n_intra ring positions
     through the fused ring: q [W,B,N,S,D], k/v [W,B,Nk,S,D] (position p's
     shard at index p, layout order) -> (o [W,B,N,S,D] in q.dtype, lse
-    [W,B,N,S] f32).  Callers check `supported` first.  A CUDA tensor
-    launches the kernel; a CPU tensor runs fused_ring_reference."""
+    [W,B,N,S] f32), plus the ring's DevStats (leading axis W) when
+    `collect_stats`: o and lse are bitwise those of the stats-off call.
+    Callers check `supported` first.  A CUDA tensor launches the kernel
+    (its STATS instance when collecting); a CPU tensor runs
+    fused_ring_reference."""
     w, b, n, s, d = q.shape
     if w != n_inter * n_intra:
         raise ValueError(f"{w} stacked shards for a {n_inter}x{n_intra} "
@@ -374,14 +387,63 @@ def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int):
         raise ValueError(f"GQA needs Nq % Nk == 0, got {n} % {k.shape[2]}")
     prog, tables, _ = ring_plan(cfg, n_inter, n_intra, s, "fwd")
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        return fused_ring_reference(q, k, v, prog, tables, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_ring_fwd runs on cuda or cpu tensors, got "
                          f"{q.device}")
-    return _fused_ring_fwd_cuda(
-        q, k, v, prog, _sched_on(cfg, n_inter, n_intra, s, q.device, "fwd"),
-        scale)
+    slot_use = _slot_counters(prog, w, q.device) if collect_stats else None
+    if q.device.type == "cpu":
+        o, lse = fused_ring_reference(q, k, v, prog, tables, scale,
+                                      slot_use=slot_use)
+    else:
+        o, lse = _fused_ring_fwd_cuda(
+            q, k, v, prog,
+            _sched_on(cfg, n_inter, n_intra, s, q.device, "fwd"), scale,
+            slot_use=slot_use)
+    if not collect_stats:
+        return o, lse
+    return o, lse, _fused_stats(cfg, n_inter, n_intra, prog, o, lse,
+                                slot_use, s, d)
+
+
+def _slot_counters(prog, w: int, device):
+    """Zeroed [W, 2, MAX_SLOTS] int32 slot counters of a STATS launch."""
+    if max(prog.slots) > MAX_SLOTS:
+        raise ValueError(f"collect_stats counts at most {MAX_SLOTS} slots a "
+                         f"bank, the program has {max(prog.slots)}")
+    return torch.zeros((w, 2, MAX_SLOTS), dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _occupancy(cfg, n_inter: int, n_intra: int, s: int):
+    """(live rounds, attended pairs) of each position's forward program:
+    host numbers from the tables' per-round mask scalars, made once per
+    (cfg, ring, s) like the plan itself."""
+    prog, tables, _ = ring_plan(cfg, n_inter, n_intra, s, "fwd")
+    live, pairs = [], []
+    for table in tables:
+        specs = [MaskSpec(*(int(x) for x in table[r, :5]))
+                 for r in range(prog.n_rounds)]
+        live.append(sum(spec_live(sp) for sp in specs))
+        pairs.append(sum(spec_pair_count(sp, s, s) for sp in specs))
+    return tuple(live), tuple(pairs)
+
+
+def _fused_stats(cfg, n_inter: int, n_intra: int, prog, o, lse, slot_use,
+                 s: int, d: int):
+    """The fused forward's DevStats (the JAX package's
+    fused_ring_fwd(collect_stats=True)): occupancy and liveness from the
+    tables' per-round mask scalars, every scheduled round executed in the
+    kernel, m never leaves it (-inf), the kernel's slot counters."""
+    from ..obs import devstats
+
+    live, pairs = _occupancy(cfg, n_inter, n_intra, s)
+    n_rounds = prog.n_rounds
+    return devstats.ring_stats_all(
+        rounds=n_rounds, rounds_live=live, attn_pairs=pairs,
+        total_pairs=float(n_rounds) * s * s, head_dim=d, m=None, lse=lse,
+        acc=o, fused_rounds=n_rounds, rounds_elided=prog.world - n_rounds,
+        slot_use=slot_use[:, 0],
+        slot_use_ccw=slot_use[:, 1] if prog.n_banks > 1 else None)
 
 
 fused_ring_fwd.launches = 0
@@ -397,7 +459,8 @@ class _Slot:
         self.consumed = False
 
 
-def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale):
+def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
+                         slot_use=None):
     """Plain version of the fused kernel: walks the compiled program on
     the host with every position's slot banks as tensors, in the kernel's
     order per round (sends at the round's start, then each position's
@@ -406,7 +469,9 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale):
     the kernel relies on: each consume finds the partition the rotation
     says and an arrival exactly when RECV is set, a send reuses a slot only
     with a granted credit after its last version was read, and every
-    credit granted is taken.  Same contract as fused_ring_fwd."""
+    credit granted is taken.  Same contract as fused_ring_fwd; a
+    `slot_use` [W, 2, MAX_SLOTS] int32 tensor counts each round's consume
+    per (position, bank, slot), as the kernel's STATS instance does."""
     w = q.shape[0]
     n_rounds = prog.n_rounds
     st = kernel_statics(prog)
@@ -454,6 +519,8 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale):
                 p, r, "arrival and RECV disagree")
             slot.reads += 1
             slot.consumed = True
+            if slot_use is not None:
+                slot_use[p, cb, int(row[sched_ir.CONSUME_SLOT])] += 1
             spec = MaskSpec(*(int(x) for x in row[:5]))
             state[p] = tile_fwd(q[p], slot.k, slot.v, *state[p], scale, spec)
         for p in range(w):
@@ -468,7 +535,7 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale):
     return o, lse
 
 
-def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale):
+def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_fwd kernel takes "
@@ -525,8 +592,8 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale):
             sched.data_ptr(), _ptr(st_m), _ptr(st_l), _ptr(st_acc),
             o.data_ptr(), lse.data_ptr(), w, b, n, n_kv, s, d,
             prog.n_rounds, n_banks, max_slots, ctas, KERNEL_COLS,
-            copy_in[0], copy_in[1], code, int(resident), float(scale),
-            stream)
+            copy_in[0], copy_in[1], code, int(resident), _ptr(slot_use),
+            float(scale), stream)
     _build.check(err, "fused_ring_fwd")
     fused_ring_fwd.launches += 1
     return o, lse
@@ -536,11 +603,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_attrs():
+def fwd_attrs(stats: bool = False):
     """_build.kernel_attrs of kernel 8's four instances (dtype x state
-    mode)."""
+    mode), or with `stats` of the four STATS instances (labels end in
+    " stats")."""
     return _build.kernel_attrs("fused_ring_fwd", {
-        f"{name}{'' if res else ' scratch'}": (code, int(res))
+        f"{name}{'' if res else ' scratch'}{' stats' if stats else ''}":
+            (code, int(res) | (2 if stats else 0))
         for name, code in (("bf16", KERNEL_DTYPES[torch.bfloat16]),
                            ("fp32", KERNEL_DTYPES[torch.float32]))
         for res in (True, False)})

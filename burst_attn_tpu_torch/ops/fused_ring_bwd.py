@@ -27,6 +27,9 @@ here as the JAX package sums them outside its kernel.  A CUDA tensor
 launches csrc/fused_ring_bwd.cu; a CPU tensor runs
 `fused_ring_bwd_reference`, the plain version, which walks the same
 program on the host and checks its deliveries and credits.
+`collect_stats=True` adds the bundle slot-consume counters (the kernel's
+STATS instance; DevStats.slot_use_bwd), on the direct call only: the
+autograd path leaves slot_use_bwd at zero, as in the JAX package.
 """
 
 import ctypes
@@ -40,7 +43,7 @@ from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
 from .fused_ring import (
     _DST_SLOT, _GRANT, _META_DST, _SEND, _SRC_SLOT, _TAKE,
     BWD_KERNEL_COLS, dq_send_target, kernel_statics,
-    ring_plan, _sched_on,
+    ring_plan, _sched_on, _slot_counters,
 )
 from .masks import MaskSpec
 from .tile import tile_bwd
@@ -90,7 +93,8 @@ def dq_bank_slots(prog):
 
 def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
                    head_chunk: Optional[int] = None,
-                   trace: Optional[torch.Tensor] = None):
+                   trace: Optional[torch.Tensor] = None,
+                   collect_stats: bool = False):
     """Backward burst attention of all W = n_inter * n_intra ring positions
     through the fused ring: q, o, do [W,B,N,S,D], k, v [W,B,Nk,S,D], lse
     [W,B,N,S] fp32 (position p's shard at index p, layout order) -> fp32
@@ -101,7 +105,10 @@ def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
     card only): a zeroed int64 tensor [rows, len(TRACE_COLS)] with a row
     for each CTA of the launch (W * CTAs a position; the card's SM count
     is enough), which the traced instance of the kernel fills
-    (`read_trace`)."""
+    (`read_trace`).  `collect_stats` also returns the bundle slot-consume
+    counters, int32 [W, 2, MAX_SLOTS] per (position, bank, slot), from the
+    kernel's STATS instance (the plain version counts the same walk); dq,
+    dk, dv are bitwise those of the stats-off call."""
     w, b, n, s, d = q.shape
     if w != n_inter * n_intra:
         raise ValueError(f"{w} stacked shards for a {n_inter}x{n_intra} "
@@ -119,17 +126,21 @@ def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
         raise ValueError(f"GQA needs Nq % Nk == 0, got {n} % {k.shape[2]}")
     prog, tables, _ = ring_plan(cfg, n_inter, n_intra, s, "bwd")
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        return fused_ring_bwd_reference(q, k, v, o, lse, do, prog, tables,
-                                        scale, cfg.optimize_bwd_comm,
-                                        head_chunk=head_chunk)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_ring_bwd runs on cuda or cpu tensors, got "
                          f"{q.device}")
-    return _fused_ring_bwd_cuda(
-        q, k, v, o, lse, do, prog,
-        _sched_on(cfg, n_inter, n_intra, s, q.device, "bwd"), scale,
-        cfg.optimize_bwd_comm, trace)
+    slot_use = _slot_counters(prog, w, q.device) if collect_stats else None
+    if q.device.type == "cpu":
+        out = fused_ring_bwd_reference(q, k, v, o, lse, do, prog, tables,
+                                       scale, cfg.optimize_bwd_comm,
+                                       head_chunk=head_chunk,
+                                       slot_use=slot_use)
+    else:
+        out = _fused_ring_bwd_cuda(
+            q, k, v, o, lse, do, prog,
+            _sched_on(cfg, n_inter, n_intra, s, q.device, "bwd"), scale,
+            cfg.optimize_bwd_comm, trace, slot_use=slot_use)
+    return out + (slot_use,) if collect_stats else out
 
 
 fused_ring_bwd.launches = 0
@@ -174,7 +185,8 @@ def _tile_bwd_chunked(do, q, k, v, delta, lse, scale, spec, head_chunk):
 def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
                              tables: List[np.ndarray], scale,
                              optimize_bwd_comm: bool = True, *,
-                             head_chunk: Optional[int] = None):
+                             head_chunk: Optional[int] = None,
+                             slot_use=None):
     """Plain version of the fused backward kernel: walks the compiled
     backward program on the host with every position's bundle banks, dq
     slots and home outputs, in the kernel's phases per round (bundle sends
@@ -188,7 +200,9 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
     exactly when one waits there, of the held bundle's partition); every
     position's home outputs hold each round's contribution once (R
     distinct positions: all W on a dense program); no credit is left over.
-    Same contract as fused_ring_bwd."""
+    Same contract as fused_ring_bwd; a `slot_use` [W, 2, MAX_SLOTS] int32
+    tensor counts each round's bundle consume per (position, bank, slot),
+    as the kernel's STATS instance does."""
     w, n_rounds = q.shape[0], prog.n_rounds
     st = kernel_statics(prog)
     if optimize_bwd_comm:
@@ -243,6 +257,9 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
                 p, r, "arrival and RECV disagree")
             slot.reads += 1
             slot.consumed = True
+            if slot_use is not None:
+                slot_use[p, int(row[sched_ir.CONSUME_BANK]),
+                         int(row[sched_ir.CONSUME_SLOT])] += 1
             first_r, do_r, q_r, lse_r = slot.ops
             delta_r = first_r if optimize_bwd_comm else (
                 first_r.float() * do_r.float()).sum(-1)
@@ -334,17 +351,19 @@ def read_trace(trace):
     return [dict(zip(TRACE_COLS, r)) for r in rows if r[1] > 0]
 
 
-def bwd_attrs():
+def bwd_attrs(stats: bool = False):
     """_build.kernel_attrs of kernel 9's instances: bf16 (and traced),
-    fp32."""
+    fp32; with `stats` its two STATS instances (bf16 stats, fp32 stats)."""
+    bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
+    if stats:
+        return _build.kernel_attrs("fused_ring_bwd", {
+            "bf16 stats": (bf16, 2), "fp32 stats": (fp32, 2)})
     return _build.kernel_attrs("fused_ring_bwd", {
-        "bf16": (KERNEL_DTYPES[torch.bfloat16], 0),
-        "bf16 traced": (KERNEL_DTYPES[torch.bfloat16], 1),
-        "fp32": (KERNEL_DTYPES[torch.float32], 0)})
+        "bf16": (bf16, 0), "bf16 traced": (bf16, 1), "fp32": (fp32, 0)})
 
 
 def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
-                         trace=None):
+                         trace=None, slot_use=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_bwd kernel takes "
@@ -371,8 +390,9 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
     ctas = min(per_pos, n_items)
     resident = n_items <= per_pos
     if trace is not None:
-        if q.dtype != torch.bfloat16:
-            raise ValueError("a traced fused_ring_bwd launch is bf16 only")
+        if q.dtype != torch.bfloat16 or slot_use is not None:
+            raise ValueError("a traced fused_ring_bwd launch is bf16 only, "
+                             "without collect_stats")
         if (trace.dtype != torch.int64 or trace.device != dev
                 or trace.dim() != 2 or trace.shape[0] < w * ctas
                 or trace.shape[1] != len(TRACE_COLS)
@@ -435,7 +455,8 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
             None if trace is None else trace.data_ptr(), w, b, n, n_kv, s,
             d, prog.n_rounds, prog.n_banks, max_slots, max_dq, ctas,
             BWD_KERNEL_COLS, copy_in[0], copy_in[1], code, int(resident),
-            int(opt_comm), float(scale), stream)
+            int(opt_comm), None if slot_use is None else slot_use.data_ptr(),
+            float(scale), stream)
     _build.check(err, "fused_ring_bwd")
     fused_ring_bwd.launches += 1
     dq = homes[0] if homes[1] is None else homes[0] + homes[1]

@@ -38,30 +38,41 @@ round runs its kernel on the whole contiguous shard under round_spec
 (no slicing copies).  Contig causal rings skip dead rounds outright
 (spec_live) and, with max_segment_len, truncate to the live prefix.
 
-Counters: `STATS` holds burst.dispatch{path,backend,tile},
-burst.fused_fallback{reason,pass}, burst.ring_rounds and
-burst.ring_hops{axis} under the JAX package's names, for each forward
-and each backward dispatch.
+Counters: the obs registry's burst.dispatch{path,backend,tile},
+burst.fused_fallback{reason,pass}, burst.ring_rounds,
+burst.ring_hops{axis} and burst.wire_bytes{pass,dir} (the JAX package's
+instruments and labels), advanced at each forward and each backward
+dispatch: the port runs eagerly, so a count is a call, not a compile.
+
+`collect_stats=True` returns `(o, obs.DevStats)` (leading axis = ring
+position): the scan ring tallies each round's liveness and attended
+pairs from the host mask scalars it already holds and reduces the final
+state on the device (no host synchronization in the round loop); the
+fused route takes kernel 8's in-kernel slot counters.  o and the
+gradients are bitwise those of collect_stats=False.
 
 Not ported yet (they raise NotImplementedError): the tile sizes of the
 flash kernels (block_q, block_kv and the backward's), window,
-segment_ids, wire_dtype, collect_stats, and meshes with data or tensor
-parallel axes of size > 1.
+segment_ids, wire_dtype, and meshes with data or tensor parallel axes of
+size > 1.
 """
 
-import collections
 import logging
 from dataclasses import dataclass, fields
 from typing import Optional, Tuple
 
 import torch
 
+from .. import obs
+from ..obs import devstats
 from ..ops import fused_ring, fused_ring_bwd
 from ..ops.flash import flash_bwd, flash_fwd
 from ..ops.masks import (
     LAYOUTS, check_window, live_round_prefix, round_spec, spec_live,
+    spec_pair_count,
 )
 from ..ops.tile import finalize, init_state, tile_bwd, tile_fwd
+from . import schedule as sched_ir
 from .mesh import as_mesh, ppermute, shard, unshard
 from .ring import partition_at_round, ring_coords, ring_round_counts
 
@@ -69,15 +80,20 @@ logger = logging.getLogger("burst_attn_tpu_torch")
 
 BACKENDS = ("auto", "jnp", "pallas", "fused_ring")
 
-# dispatch counters, keyed "name{label=value,...}" like the ragged
-# engine's stats (the obs registry is not ported yet)
-STATS = collections.Counter()
-
-
-def _count(name: str, n: int = 1, **labels) -> None:
-    if labels:
-        name += "{" + ",".join(f"{k}={v}" for k, v in labels.items()) + "}"
-    STATS[name] += n
+# dispatch instruments (the JAX package's names; host code only, never
+# inside a captured CUDA graph)
+_M_DISPATCH = obs.counter(
+    "burst.dispatch", "ring dispatches by path (fused kernel vs scan ring)")
+_M_FALLBACK = obs.counter(
+    "burst.fused_fallback", "fused_ring dispatches declined, by reason")
+_M_ROUNDS = obs.counter(
+    "burst.ring_rounds", "scheduled ring rounds (incl. the self round)")
+_M_HOPS = obs.counter(
+    "burst.ring_hops", "scheduled KV ring hops, by mesh axis role")
+_M_WIRE = obs.counter(
+    "burst.wire_bytes",
+    "scheduled ring payload bytes per round by pass and stream "
+    "(parallel/schedule.wire_round_bytes)")
 
 
 @dataclass(frozen=True)
@@ -237,26 +253,32 @@ def _fallback_label(reason: str) -> str:
     return "other"
 
 
-def _note_dispatch(cfg, reason, s, s_kv, n_inter, n_intra,
+def _note_dispatch(cfg, reason, q_shape, k_shape, n_inter, n_intra,
                    pass_: str = "fwd") -> None:
     """Count one ring dispatch of pass_ ("fwd" | "bwd"): the path it took
-    (fused kernel or scan ring), a declined fused config's reason, and the
+    (fused kernel or scan ring), a declined fused config's reason, the
     schedule's rounds and payload hops per axis (ring_round_counts; the
-    backward's bundle moves as the forward's KV does)."""
+    backward's bundle moves as the forward's KV does) and the pass's
+    per-round payload bytes (schedule.wire_round_bytes at the JAX
+    package's fp32 width).  Shapes are per position."""
     path = "fused" if cfg.backend == "fused_ring" and reason is None \
         else "scan"
-    _count("burst.dispatch", path=path, backend=cfg.backend,
-           tile=_tile_backend(cfg))
+    _M_DISPATCH.inc(path=path, backend=cfg.backend, tile=_tile_backend(cfg))
     if reason is not None:
-        _count("burst.fused_fallback", reason=_fallback_label(reason),
-               **{"pass": pass_})
+        _M_FALLBACK.inc(reason=_fallback_label(reason), **{"pass": pass_})
+    b, n, s, d = q_shape
     rounds, intra_hops, inter_hops = ring_round_counts(
-        n_inter, n_intra, _r_live(cfg, s, s_kv, n_inter, n_intra))
-    _count("burst.ring_rounds", rounds)
+        n_inter, n_intra, _r_live(cfg, s, k_shape[2], n_inter, n_intra))
+    _M_ROUNDS.inc(rounds)
     if intra_hops:
-        _count("burst.ring_hops", intra_hops, axis="intra")
+        _M_HOPS.inc(intra_hops, axis="intra")
     if inter_hops:
-        _count("burst.ring_hops", inter_hops, axis="inter")
+        _M_HOPS.inc(inter_hops, axis="inter")
+    per_round = sched_ir.wire_round_bytes(
+        pass_, cfg.wire_dtype, b=b, n=n, n_kv=k_shape[1], s=s, d=d,
+        opt_comm=cfg.optimize_bwd_comm)
+    for stream, nbytes in per_round.items():
+        _M_WIRE.inc(nbytes, **{"pass": pass_, "dir": stream})
 
 
 def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str):
@@ -272,8 +294,8 @@ def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str):
         if reason is not None:
             logger.info("fused_ring %s falling back to the scan ring: %s",
                         "backend" if pass_ == "fwd" else "backward", reason)
-    _note_dispatch(cfg, reason, q.shape[3], k.shape[3], n_inter, n_intra,
-                   pass_)
+    _note_dispatch(cfg, reason, tuple(q.shape[1:]), tuple(k.shape[1:]),
+                   n_inter, n_intra, pass_)
     return reason
 
 
@@ -281,23 +303,37 @@ def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str):
 # forward
 
 
-def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int):
+def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
+              collect: bool = False):
     """Ring forward of every position: q [W,B,N,S,D], k/v [W,B,Nk,Skv,D]
     stacked shards (position p at index p) -> (o [W,B,N,S,D] in q.dtype,
-    lse [W,B,N,S] f32)."""
+    lse [W,B,N,S] f32), plus the ring's DevStats (leading axis W) when
+    `collect`.  Every stats step sits behind `if collect` and only reads
+    the ring's state, so o and lse are bitwise the collect=False ones."""
     world = n_inter * n_intra
     b, n, s, d = q.shape[1:]
     s_kv = k.shape[3]
     reason = _dispatch(cfg, q, k, n_inter, n_intra, "fwd")
     if cfg.backend == "fused_ring" and reason is None:
-        return fused_ring.fused_ring_fwd(q, k, v, cfg, n_inter, n_intra)
+        return fused_ring.fused_ring_fwd(q, k, v, cfg, n_inter, n_intra,
+                                         collect_stats=collect)
 
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
     coords = [ring_coords(p, n_inter, n_intra) for p in range(world)]
+    # devstats (collect only): per position [rounds, live rounds, pairs],
+    # host ints from the round's mask scalars (the spec the kernels run)
+    tally = [[0, 0, 0] for _ in range(world)]
+
+    def count(p, spec):
+        if collect:
+            tally[p][0] += 1
+            tally[p][1] += spec_live(spec)
+            tally[p][2] += spec_pair_count(spec, s, s_kv)
 
     def compute(p, st, kv_c, r):
         kv_part = partition_at_round(r, *coords[p], n_inter, n_intra)
         spec = round_spec(p, kv_part, s, s_kv, cfg.causal, cfg.layout)
+        count(p, spec)
         if cfg.layout == "contig" and cfg.causal and not spec_live(spec):
             return st  # a future round: nothing attends, skip the launch
         return _tile_fwd(cfg, q[p], kv_c[0], kv_c[1], *st, scale, spec)
@@ -309,9 +345,12 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int):
     kv = [(k[p], v[p]) for p in range(world)]
     kv_base = kv
     # round 0 is always the self round: a statically empty carry
-    state = [_tile_fwd(cfg, q[p], k[p], v[p], None, None, None, scale,
-                       round_spec(p, p, s, s_kv, cfg.causal, cfg.layout))
+    spec0 = [round_spec(p, p, s, s_kv, cfg.causal, cfg.layout)
              for p in range(world)]
+    for p in range(world):
+        count(p, spec0[p])
+    state = [_tile_fwd(cfg, q[p], k[p], v[p], None, None, None, scale,
+                       spec0[p]) for p in range(world)]
     for c in range(n_inter):
         if c < n_inter - 1:
             # prefetch the next cycle's base one full intra cycle early
@@ -330,7 +369,16 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int):
             kv = kv_base = kv_base_next
     o = torch.stack([finalize(*st, q.dtype) for st in state])
     lse = torch.stack([st[1] for st in state])
-    return o, lse
+    if not collect:
+        return o, lse
+    rounds, live, pairs = (list(col) for col in zip(*tally))
+    stats = devstats.ring_stats_all(
+        rounds=rounds, rounds_live=live, attn_pairs=pairs,
+        total_pairs=[r * s * s_kv for r in rounds], head_dim=d,
+        rounds_elided=[world - r for r in rounds],
+        m=torch.stack([st[0] for st in state]), lse=lse,
+        acc=[st[2] for st in state])
+    return o, lse, stats
 
 
 # ---------------------------------------------------------------------------
@@ -458,13 +506,19 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
 class _BurstAttn(torch.autograd.Function):
     """o = burst_attn(q, k, v) on global tensors with the saved stacked
     (q, k, v, o, lse) and the ring backward (the JAX package's custom_vjp,
-    _vjp_fwd / _vjp_bwd)."""
+    _vjp_fwd / _vjp_bwd).  `stats_out`: None, or a list the forward's
+    DevStats is appended to (telemetry, outside the graph: the backward
+    is the same either way)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cfg, n_inter, n_intra):
+    def forward(ctx, q, k, v, cfg, n_inter, n_intra, stats_out=None):
         world = n_inter * n_intra
         qs, ks, vs = (shard(t, world) for t in (q, k, v))
-        o, lse = _fwd_impl(qs, ks, vs, cfg, n_inter, n_intra)
+        out = _fwd_impl(qs, ks, vs, cfg, n_inter, n_intra,
+                        collect=stats_out is not None)
+        o, lse = out[:2]
+        if stats_out is not None:
+            stats_out.append(out[2])
         ctx.save_for_backward(qs, ks, vs, o, lse)
         ctx.cfg, ctx.ring = cfg, (n_inter, n_intra)
         return unshard(o)
@@ -477,7 +531,7 @@ class _BurstAttn(torch.autograd.Function):
                                shard(do.to(qs.dtype), n_inter * n_intra),
                                ctx.cfg, n_inter, n_intra)
         return (unshard(dq).to(qs.dtype), unshard(dk).to(ks.dtype),
-                unshard(dv).to(vs.dtype), None, None, None)
+                unshard(dv).to(vs.dtype), None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -534,13 +588,13 @@ def burst_attn(
     Differentiable: with grad enabled and an input that requires grad,
     the backward runs the ring backward (`_bwd_impl`: the scan ring over
     the flash backward kernels, or kernel 9 for "fused_ring") and returns
-    gradients in the inputs' dtypes.  window, segment_ids, wire_dtype,
-    collect_stats and the tile sizes away from their defaults raise
-    (BurstConfig)."""
+    gradients in the inputs' dtypes.  collect_stats: return `(o,
+    obs.DevStats)` (leading axis = ring position); publish the stats with
+    `stats.publish()` after the step.  o and the gradients through it are
+    bitwise those of collect_stats=False.  window, segment_ids, wire_dtype
+    and the tile sizes away from their defaults raise (BurstConfig)."""
     if segment_ids is not None:
         raise NotImplementedError("segment_ids are not ported yet")
-    if collect_stats:
-        raise NotImplementedError("collect_stats is not ported yet")
     if isinstance(seq_axes, str):
         seq_axes = (seq_axes,)
     if len(seq_axes) == 1:
@@ -572,10 +626,12 @@ def burst_attn(
         mesh_axes=tuple(m.shape.items()))
     world = n_inter * n_intra
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _BurstAttn.apply(q, k, v, cfg, n_inter, n_intra)
-    o, _ = _fwd_impl(shard(q, world), shard(k, world), shard(v, world), cfg,
-                     n_inter, n_intra)
-    return unshard(o)
+        sink = [] if collect_stats else None
+        o = _BurstAttn.apply(q, k, v, cfg, n_inter, n_intra, sink)
+        return (o, sink[0]) if collect_stats else o
+    out = _fwd_impl(shard(q, world), shard(k, world), shard(v, world), cfg,
+                    n_inter, n_intra, collect=collect_stats)
+    return (unshard(out[0]), out[2]) if collect_stats else unshard(out[0])
 
 
 def burst_attn_func(q, k, v, softmax_scale=None, flash: str = "auto",

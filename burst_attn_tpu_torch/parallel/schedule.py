@@ -758,3 +758,30 @@ def partition_for_round(program: RingProgram, r: int, inter_rank, intra_rank):
 def bank_dirs(program: RingProgram) -> Tuple[str, ...]:
     """Labels of the slot banks, in bank order (cw, ccw or inter)."""
     return program.channels
+
+
+def wire_round_bytes(pass_: str, wire: Optional[str], *, b: int, n: int,
+                     n_kv: int, s: int, d: int, opt_comm: bool = True,
+                     itemsize: int = 4) -> Dict[str, int]:
+    """Per-round per-position payload bytes each rotating stream ships over
+    one ring hop, by stream name (the JAX package's derivation, dense wire
+    only: the port has no wire quantizer):
+
+      fwd  {"kv": ...}                    the k+v chunk
+      bwd  {"bundle": ..., "dq": ...}     the q-side bundle and the
+                                          streamed dq partial
+
+    `itemsize` is the per-element width the count assumes (4, the JAX
+    package's fp32 rows, by default); lse always ships b*n*s fp32.
+    Shapes are per position.  The burst.wire_bytes counters integrate
+    it per dispatch."""
+    if wire is not None:
+        raise NotImplementedError("wire_dtype is not ported yet")
+    if pass_ == "fwd":
+        return {"kv": 2 * b * n_kv * s * d * itemsize}
+    if pass_ != "bwd":
+        raise ValueError(f"pass_ must be 'fwd' or 'bwd', got {pass_!r}")
+    # bundle: (delta | o), do, q; lse fp32
+    first = b * n * s * 4 if opt_comm else b * n * s * d * itemsize
+    bundle = first + 2 * b * n * s * d * itemsize + b * n * s * 4
+    return {"bundle": bundle, "dq": b * n * s * d * 4}

@@ -52,27 +52,45 @@ Unsupported for snapshot, as in the JAX package: engines with a draft
 model attached (`save_snapshot` raises rather than dropping the draft's
 state; such engines still journal).
 
-Counters: the JAX package's obs instruments are not ported; `STATS`
-counts under their names: `serve.recovered_tokens_replayed` (tokens a
-recovery must re-decode), `serve.recovered_tokens_resumed` (tokens
-recovered without re-decoding), `serve.journal_records`,
-`serve.checkpoint_saves`, `serve.journal_reopen_corrupt`.
+Counters: the JAX package's obs instruments, under their names:
+`serve.recovered_tokens_replayed` (tokens a recovery must re-decode),
+`serve.recovered_tokens_resumed` (tokens recovered without re-decoding),
+`serve.journal_records`, `serve.checkpoint_saves`,
+`serve.journal_reopen_corrupt`; warnings go through the obs logger.
 """
 
-import collections
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..protocols import journal as _jp
-from ..utils.log_helper import get_logger
 
-STATS: collections.Counter = collections.Counter()
+M_RECOVERED_REPLAYED = obs.counter(
+    "serve.recovered_tokens_replayed",
+    "previously generated tokens a recovery had to re-decode "
+    "(journal lag past the last snapshot)")
+M_RECOVERED_RESUMED = obs.counter(
+    "serve.recovered_tokens_resumed",
+    "previously generated tokens recovered without re-decoding "
+    "(snapshot state + journaled prefixes)")
+M_JOURNAL_RECORDS = obs.counter(
+    "serve.journal_records", "write-ahead token journal records appended")
+M_SNAPSHOT_SAVES = obs.counter(
+    "serve.checkpoint_saves", "atomic engine snapshots written")
+M_JOURNAL_REOPEN_CORRUPT = obs.counter(
+    "serve.journal_reopen_corrupt",
+    "append-mode journal reopens that found an unreadable file")
+
+
+def _log():
+    return obs.get_logger("burst_attn_tpu_torch.serving.checkpoint")
 
 SNAPSHOT_VERSION = 1
 
@@ -127,8 +145,8 @@ class TokenJournal:
                                          for r, t in view.tokens.items())),
                     durable_done=tuple(sorted(view.done)))
             except ValueError as e:
-                STATS["serve.journal_reopen_corrupt"] += 1
-                get_logger("burst_attn_tpu_torch.serving.checkpoint").warning(
+                M_JOURNAL_REOPEN_CORRUPT.inc()
+                _log().warning(
                     "journal %s unreadable on append-mode reopen (%s); "
                     "delivery tracking restarts empty", path, e)
         self._f = open(path, "w" if truncate else "a", encoding="utf-8")
@@ -142,7 +160,7 @@ class TokenJournal:
                           len(rec.get("toks", ()))))
         self._f.write(json.dumps(rec, separators=(",", ":")) + "\n")
         self._dirty = True
-        STATS["serve.journal_records"] += 1
+        M_JOURNAL_RECORDS.inc()
 
     def submit(self, rid: int, ext: int, prompt, max_new: int) -> None:
         self._append({"record": "submit", "rid": int(rid), "ext": int(ext),
@@ -445,11 +463,13 @@ def _req_from_dict(d: dict, kind: str):
         return _Request(int(d["rid"]), np.asarray(d["prompt"], np.int32),
                         int(d["max_new"]),
                         tokens=[int(t) for t in d["tokens"]],
+                        t_submit=time.perf_counter(),
                         n_prefilled=int(d.get("n_prefilled", 0)))
     from ..models.serve import _Request
 
     return _Request(int(d["rid"]), np.asarray(d["prompt"], np.int32),
-                    int(d["max_new"]), tokens=[int(t) for t in d["tokens"]])
+                    int(d["max_new"]), tokens=[int(t) for t in d["tokens"]],
+                    t_submit=time.perf_counter())
 
 
 def _rng_meta(gen: torch.Generator) -> dict:
@@ -513,7 +533,7 @@ def save_snapshot(engine, path: str, extra: Optional[dict] = None) -> None:
     docstring)."""
     meta, arrays = snapshot(engine, extra)
     _atomic_savez(path, meta, arrays)
-    STATS["serve.checkpoint_saves"] += 1
+    M_SNAPSHOT_SAVES.inc()
 
 
 def restore_into(engine, snap: dict) -> dict:
@@ -617,7 +637,7 @@ def save_paged_snapshot(path: str, state, pool,
             "pool": _pool_meta(pool, state),
             "extra": extra or {}}
     _atomic_savez(path, meta, _paged_arrays(state))
-    STATS["serve.checkpoint_saves"] += 1
+    M_SNAPSHOT_SAVES.inc()
 
 
 def load_paged_snapshot(path: str, device=None):
@@ -715,9 +735,9 @@ def recover_engine(engine, snapshot_path: Optional[str],
         info.replayed[ext] = lag
         info.resumed[ext] = have
         if lag:
-            STATS["serve.recovered_tokens_replayed"] += lag
+            M_RECOVERED_REPLAYED.inc(lag)
         if have:
-            STATS["serve.recovered_tokens_resumed"] += have
+            M_RECOVERED_RESUMED.inc(have)
 
     owned = set()
     # slot residents: a journal-complete request takes its journaled
@@ -733,7 +753,7 @@ def recover_engine(engine, snapshot_path: Optional[str],
             req.tokens = [int(t) for t in fin[len(pre):]]
             info.replayed[ext] = 0
             info.resumed[ext] = len(fin)
-            STATS["serve.recovered_tokens_resumed"] += len(fin)
+            M_RECOVERED_RESUMED.inc(len(fin))
             continue
         account(req, ext, pre, jt)
     # queued residents: journal-complete ones LEAVE the queue (admission
@@ -750,7 +770,7 @@ def recover_engine(engine, snapshot_path: Optional[str],
             info.done[ext] = [int(t) for t in fin]
             info.replayed[ext] = 0
             info.resumed[ext] = len(fin)
-            STATS["serve.recovered_tokens_resumed"] += len(fin)
+            M_RECOVERED_RESUMED.inc(len(fin))
             continue
         account(req, ext, pre, jt)
 
@@ -768,7 +788,7 @@ def recover_engine(engine, snapshot_path: Optional[str],
             # kill landed between the append and the done record)
             info.done[ext] = complete
             info.resumed[ext] = len(complete)
-            STATS["serve.recovered_tokens_resumed"] += len(complete)
+            M_RECOVERED_RESUMED.inc(len(complete))
             continue
         if toks and engine.temperature != 0.0:
             raise ValueError(
@@ -780,7 +800,7 @@ def recover_engine(engine, snapshot_path: Optional[str],
         info.rid_map[new_rid] = ext
         if toks:
             info.resume_prefix[new_rid] = toks
-            STATS["serve.recovered_tokens_resumed"] += len(toks)
+            M_RECOVERED_RESUMED.inc(len(toks))
         info.resumed[ext] = len(toks)
         info.replayed[ext] = 0
 

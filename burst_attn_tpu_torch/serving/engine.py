@@ -58,17 +58,26 @@ alone; a declined shape takes the dense route and counts one
 `burst.fused_fallback{reason=...,pass=serve}`.  A build or launch failure
 raises.
 
-Metrics: the JAX engine's obs instruments are not ported; `stats` keeps
-the counts under the JAX counter names (`serve.ragged_batch_launches`
-by kind, `serve.prefix_hits`, `serve.cow_copies`,
-`serve.prefill_tokens_skipped`, `burst.fused_fallback`,
-`serve.multi_step_launches{k=K}`, `serve.pipeline_reconciles{cause=
-eos-retire|scan-eos}`, `serve.ragged_batch_launches{kind=spec-verify}`),
-plus `serve.grouped_launches`, the ticks that took the grouped launch,
-and `serve.draft_catchup_launches`, the draft's catch-up launches of
-mixed ticks.  `spec_rounds`, `spec_proposed`, `spec_accepted` and
-`acceptance_rate` count the speculative rounds.  `graphs.captures` and
-`graphs.replays` count the K-tick CUDA graphs.
+Metrics: the JAX engine's obs instruments under their names and labels
+(the serve.* catalog of docs/observability.md: requests submitted /
+rejected / admitted / retired, engine steps, tokens, queue / slot / pool
+gauges, TTFT and token-latency histograms, host_gap_fraction, the ragged
+batch, prefix-cache and pipeline families, burst.fused_fallback), plus
+two of the port's own: `serve.grouped_launches` (ticks that took the
+grouped launch) and `serve.draft_catchup_launches` (the draft's catch-up
+launches of mixed ticks).  `run()` is the span `serve.run`; with request
+tracing on (`obs.trace.enable()`), each request records serve.queued,
+serve.prefill, the serve.first_token marker, serve.decode and its
+serve.request root, and its TTFT breakdown.  Counters advance on the host
+where a tick is accounted: the synchronous readback, or the pipelined
+engine's deferred readback, which counts each tick a fused launch kept
+(`serve.engine_steps` and `serve.tokens_generated` of a K-tick run equal
+the synchronous run's); nothing is counted inside a captured CUDA graph.
+`stats` is a read-only view of the registry's counters since the engine
+was built ("name{k=v,...}" -> delta, labels sorted).  `spec_rounds`,
+`spec_proposed`, `spec_accepted` and `acceptance_rate` count the
+speculative rounds.  `graphs.captures` and `graphs.replays` count the
+K-tick CUDA graphs.
 
 Journal (`journal=`, a serving/checkpoint.TokenJournal): every token is
 appended where the host accounts it (the synchronous readback, the
@@ -81,13 +90,15 @@ durability does not.  Snapshots (`save_snapshot` flushes the pipeline
 first) and recovery: serving/checkpoint.py.
 """
 
-from collections import Counter
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
+from ..obs import trace as tracing
 from ..admission import (
     AdmissionPolicy, InvalidRequest, LoadShed, RejectReason, SubmitRejected,
     SubmitResult,
@@ -102,6 +113,76 @@ from .model import (
     DecodeGraphs, assign_pages, cow_pages, free_slot, free_slots,
     multi_step_decode, pipelined_tick, ragged_model_step, upload,
 )
+
+# the JAX engine's instruments (same names as models/serve.py: the registry
+# get-or-creates, so both engines share one serve.* family)
+_M_SUBMITTED = obs.counter("serve.requests_submitted")
+_M_REJECTED = obs.counter("serve.requests_rejected",
+                          "submissions refused up front, by reason")
+_M_ADMITTED = obs.counter("serve.requests_admitted")
+_M_RETIRED = obs.counter("serve.requests_retired",
+                         "finished requests, by cause (eos | budget)")
+_M_STEPS = obs.counter("serve.engine_steps")
+_M_TOKENS = obs.counter("serve.tokens_generated")
+_M_QUEUE = obs.gauge("serve.queue_depth")
+_M_LIVE = obs.gauge("serve.live_slots")
+_M_POOL = obs.gauge("serve.page_pool_occupancy",
+                    "fraction of usable pool pages currently held; also "
+                    "published per pool storage dtype under a {dtype} label")
+_M_SPEC_RATE = obs.gauge("serve.spec_acceptance_rate")
+_M_TTFT = obs.histogram("serve.ttft_s")
+_M_TOK_LAT = obs.histogram("serve.token_latency_s")
+# host time a tick spent outside its device window (dispatch to readback),
+# as a fraction of tick wall time (cumulative); on the pipelined engine
+# host work overlapped with a busy device is not a gap
+_M_HOST_GAP = obs.gauge("serve.host_gap_fraction",
+                        "host gap seconds / launch-tick wall seconds")
+_M_RECONCILE = obs.counter(
+    "serve.pipeline_reconciles",
+    "speculatively scheduled pipelined work discarded, by divergence cause")
+_M_MULTI = obs.counter(
+    "serve.multi_step_launches",
+    "fused multi-step decode launches, by static scan depth {k}")
+_M_RB_LAUNCH = obs.counter("serve.ragged_batch_launches",
+                           "one-kernel ragged launches, by batch kind")
+_M_RB_PREFILL = obs.counter("serve.ragged_batch_prefill_tokens",
+                            "prompt tokens absorbed through ragged launches")
+_M_RB_DECODE = obs.counter("serve.ragged_batch_decode_tokens",
+                           "decode tokens advanced through ragged launches")
+_M_RB_FILL = obs.gauge("serve.ragged_batch_fill",
+                       "real-token fraction of the last launch's [slots, "
+                       "chunk] token grid")
+_M_FALLBACK = obs.counter("burst.fused_fallback")
+_M_PREFIX_HITS = obs.counter("serve.prefix_hits",
+                             "admissions that pinned >= 1 cached prefix page")
+_M_PREFIX_MISSES = obs.counter(
+    "serve.prefix_misses", "cache-enabled admissions finding no cached prefix")
+_M_PAGES_SHARED = obs.counter(
+    "serve.pages_shared", "prefix pages pinned (refcount bumped) at admission")
+_M_COW = obs.counter("serve.cow_copies",
+                     "shared pages privatized by the copy-on-write barrier")
+_M_SKIPPED = obs.counter(
+    "serve.prefill_tokens_skipped",
+    "prompt tokens whose prefill was skipped via cached pages")
+_M_POOL_PHYS = obs.gauge(
+    "serve.page_pool_occupancy_physical",
+    "fraction of usable pool pages physically held (shared pages count "
+    "ONCE — identical to serve.page_pool_occupancy)")
+_M_POOL_LOG = obs.gauge(
+    "serve.page_pool_occupancy_logical",
+    "sum of page refcounts over usable pages — may exceed 1.0; the gap to "
+    "the physical gauge is the pages saved by prefix sharing")
+_M_POOL_BYTES = obs.gauge(
+    "serve.page_pool_bytes",
+    "device bytes physically held by in-use KV pages (k + v + scale banks "
+    "across all layers), by pool storage {dtype}")
+# the port's own: ticks that took the grouped launch, and the draft's
+# catch-up launches of mixed ticks
+_M_GROUPED = obs.counter("serve.grouped_launches",
+                         "ticks that took the grouped shared-prefix launch")
+_M_CATCHUP = obs.counter("serve.draft_catchup_launches",
+                         "draft catch-up launches of mixed ticks")
+
 
 # reason-string prefix -> bounded counter label (probe reasons embed
 # shapes, which would explode label cardinality verbatim)
@@ -131,6 +212,7 @@ class _Request:
     tokens: List[int] = field(default_factory=list)
     n_prefilled: int = 0        # prompt tokens absorbed so far
     hashes: Optional[List[bytes]] = None  # full-page prefix chain, memoized
+    t_submit: float = 0.0       # perf_counter at submit (TTFT anchor)
 
 
 @dataclass
@@ -150,6 +232,7 @@ class _Pending:
     rng_before: Optional[torch.Tensor]  # generator state before the launch
     table_rows: Dict[int, np.ndarray]   # slot -> table row at dispatch, for
     #                              prefix registration at readback
+    t_dispatch: float = 0.0      # perf_counter when the launch was issued
 
     @property
     def feed_next(self) -> torch.Tensor:
@@ -242,7 +325,14 @@ class RaggedServeEngine(SpecCounters):
         self._queue: List[_Request] = []
         self._next_id = 0
         self._finished: Dict[int, List[int]] = {}
-        self.stats: Counter = Counter()
+        self._obs_base = obs.counter_values()
+        self._host_gap_s = self._launch_wall_s = 0.0
+        self._pool_dtype = self.pool.dtype or str(
+            self.state.k_pages[0].dtype).replace("torch.", "")
+        banks = list(self.state.k_pages) + list(self.state.v_pages)
+        if self.state.k_scales is not None:
+            banks += list(self.state.k_scales) + list(self.state.v_scales)
+        self._page_nbytes = sum(a.nbytes // a.shape[0] for a in banks)
         # the K-tick decode graphs (the card only; the CPU runs K ticks; a
         # draft engine never takes the pipelined path)
         self.graphs = (DecodeGraphs(self.params, self.state, cfg, self._rng)
@@ -251,11 +341,35 @@ class RaggedServeEngine(SpecCounters):
 
     # -- client surface ----------------------------------------------------
 
+    @property
+    def stats(self) -> Dict[str, float]:
+        """The registry's counters that moved since this engine was built,
+        {"name{k=v,...}": delta} (a view: the registry is the one store,
+        shared by every engine of the process)."""
+        return obs.counter_deltas(self._obs_base)
+
+    def _reject(self, exc_cls, reason: RejectReason, message: str):
+        _M_REJECTED.inc(reason=reason.value)
+        raise exc_cls(reason, message)
+
     def _occupancy(self) -> float:
         """Fraction of usable pool pages physically held (a shared page
         counts once; page 0 is the sink)."""
         usable = self.pool.n_pages - 1
         return (usable - self.pool.available) / usable if usable else 0.0
+
+    def _set_pool_gauges(self) -> None:
+        """Physical occupancy (a shared page once) on the plain gauge, by
+        pool dtype and as `_physical`; the logical view (sum of refcounts);
+        the bytes the held pages take."""
+        occ = self._occupancy()
+        _M_POOL.set(occ)
+        _M_POOL.set(occ, dtype=self._pool_dtype)
+        _M_POOL_PHYS.set(occ)
+        usable = self.pool.n_pages - 1
+        _M_POOL_LOG.set(self.pool.logical_refs / usable if usable else 0.0)
+        held = usable - self.pool.available if usable else 0
+        _M_POOL_BYTES.set(held * self._page_nbytes, dtype=self._pool_dtype)
 
     def submit(self, tokens, max_new_tokens: int) -> int:
         """Queue a prompt; returns a request id.  Raises InvalidRequest (a
@@ -265,22 +379,23 @@ class RaggedServeEngine(SpecCounters):
         exhaustion before the soft `admission` policy."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if tokens.size == 0:
-            raise InvalidRequest(RejectReason.EMPTY_PROMPT, "empty prompt")
+            self._reject(InvalidRequest, RejectReason.EMPTY_PROMPT,
+                         "empty prompt")
         if max_new_tokens < 1:
-            raise InvalidRequest(RejectReason.BAD_BUDGET,
-                                 f"max_new_tokens must be >= 1, got "
-                                 f"{max_new_tokens}")
+            self._reject(InvalidRequest, RejectReason.BAD_BUDGET,
+                         f"max_new_tokens must be >= 1, got "
+                         f"{max_new_tokens}")
         need = self._pages_for(tokens.size, max_new_tokens)
         width = self.state.page_table.shape[1]
         if need > width:
-            raise InvalidRequest(RejectReason.TABLE_WIDTH,
-                                 f"request needs {need} pages > "
-                                 f"max_pages_per_seq {width}")
+            self._reject(InvalidRequest, RejectReason.TABLE_WIDTH,
+                         f"request needs {need} pages > "
+                         f"max_pages_per_seq {width}")
         if need > self.pool.n_pages - 1:  # page 0 is the reserved sink
-            raise InvalidRequest(RejectReason.POOL_SIZE,
-                                 f"request needs {need} pages but the pool "
-                                 f"only has {self.pool.n_pages - 1} usable "
-                                 "pages total")
+            self._reject(InvalidRequest, RejectReason.POOL_SIZE,
+                         f"request needs {need} pages but the pool "
+                         f"only has {self.pool.n_pages - 1} usable "
+                         "pages total")
         if self.max_queue is not None:
             # pool pressure first; pages the prefix cache could evict on
             # demand count as free here
@@ -288,26 +403,32 @@ class RaggedServeEngine(SpecCounters):
             if self.cache is not None:
                 avail += self.cache.evictable()
             if self._queue and need > avail:
-                raise LoadShed(RejectReason.POOL_EXHAUSTED,
-                               f"load shed (pool-exhausted): request needs "
-                               f"{need} pages, {avail} free or evictable, "
-                               f"{len(self._queue)} already waiting")
+                self._reject(LoadShed, RejectReason.POOL_EXHAUSTED,
+                             f"load shed (pool-exhausted): request needs "
+                             f"{need} pages, {avail} free or evictable, "
+                             f"{len(self._queue)} already waiting")
             if len(self._queue) >= self.max_queue:
-                raise LoadShed(RejectReason.QUEUE_FULL,
-                               f"load shed (queue-full): {len(self._queue)} "
-                               f"waiting >= max_queue {self.max_queue}")
+                self._reject(LoadShed, RejectReason.QUEUE_FULL,
+                             f"load shed (queue-full): {len(self._queue)} "
+                             f"waiting >= max_queue {self.max_queue}")
         if self.admission is not None:
             occ = self._occupancy()
             reason = self.admission.decide(queue_depth=len(self._queue),
                                            pool_occupancy=occ)
             if reason is not None:
-                raise LoadShed(reason,
-                               f"load shed ({reason}): admission policy — "
-                               f"queue_depth={len(self._queue)}, "
-                               f"pool_occupancy={occ:.3f}")
+                self._reject(LoadShed, reason,
+                             f"load shed ({reason}): admission policy — "
+                             f"queue_depth={len(self._queue)}, "
+                             f"pool_occupancy={occ:.3f}")
         rid = self._next_id
         self._next_id += 1
-        self._queue.append(_Request(rid, tokens, max_new_tokens))
+        req = _Request(rid, tokens, max_new_tokens,
+                       t_submit=time.perf_counter())
+        # an attribute, not a field: snapshots never see the trace context
+        req._tc = tracing.start_request(rid)
+        self._queue.append(req)
+        _M_SUBMITTED.inc()
+        _M_QUEUE.set(len(self._queue))
         return rid
 
     def try_submit(self, tokens, max_new_tokens: int) -> SubmitResult:
@@ -331,10 +452,11 @@ class RaggedServeEngine(SpecCounters):
 
     def run(self, max_steps: int = 100_000) -> Dict[int, List[int]]:
         """Drive step() until every submitted request finishes."""
-        for _ in range(max_steps):
-            if not self._queue and self.live == 0:
-                return self.results()
-            self.step()
+        with obs.span("serve.run"):
+            for _ in range(max_steps):
+                if not self._queue and self.live == 0:
+                    return self.results()
+                self.step()
         raise RuntimeError(f"run() exceeded {max_steps} steps")
 
     def drain(self) -> List[int]:
@@ -360,15 +482,12 @@ class RaggedServeEngine(SpecCounters):
                 self.journal.reset(req.rid)
         if self.journal is not None:
             self.journal.sync()
+        _M_QUEUE.set(len(self._queue))
+        _M_LIVE.set(0)
+        self._set_pool_gauges()
         return [r.rid for r in inflight]
 
     # -- engine ------------------------------------------------------------
-
-    def _count(self, name: str, n: int = 1, **labels) -> None:
-        if labels:
-            name += "{" + ",".join(f"{k}={v}" for k, v in labels.items()) \
-                + "}"
-        self.stats[name] += n
 
     def _slack(self) -> int:
         return self.draft.slack if self.draft is not None else 0
@@ -389,8 +508,8 @@ class RaggedServeEngine(SpecCounters):
                 q_tokens=qt, d_head=self.cfg.d_head, page=self.page,
                 dtype=self.cfg.dtype, device=self.device)
             if reason is not None:
-                self._count("burst.fused_fallback",
-                            reason=_fallback_label(reason), **{"pass": "serve"})
+                _M_FALLBACK.inc(reason=_fallback_label(reason),
+                                **{"pass": "serve"})
             self._attn_cache[qt] = "dense" if reason is not None else "ragged"
         return self._attn_cache[qt]
 
@@ -466,8 +585,11 @@ class RaggedServeEngine(SpecCounters):
                     self._lengths[slot] = t_resume
                     req.n_prefilled = t_resume
                     self._shared[slot] = tuple(hits)
-                    self._count("serve.prefix_hits")
-                    self._count("serve.prefill_tokens_skipped", t_resume)
+                    _M_PREFIX_HITS.inc()
+                    _M_PAGES_SHARED.inc(len(hits))
+                    _M_SKIPPED.inc(t_resume)
+                elif self.cache is not None:
+                    _M_PREFIX_MISSES.inc()
                 if self.draft is not None:
                     # the draft prefills its WHOLE prompt now; per-tick
                     # catch-ups then keep it on the target's stream
@@ -486,6 +608,13 @@ class RaggedServeEngine(SpecCounters):
                 raise
             self._queue.pop(0)
             self.slots[slot] = req
+            _M_ADMITTED.inc()
+            _M_QUEUE.set(len(self._queue))
+            tc = getattr(req, "_tc", None)
+            if tc is not None:
+                req._t_admit = time.perf_counter()
+                tracing.record_span(tc, "serve.queued", req.t_submit,
+                                    req._t_admit)
 
     def _cow_barrier(self, q_lens) -> None:
         """Privatize every page the imminent launch will scatter into while
@@ -506,7 +635,7 @@ class RaggedServeEngine(SpecCounters):
                 continue
             for col, _, new in copies:
                 self._table[slot, col] = new
-            self._count("serve.cow_copies", len(copies))
+            _M_COW.inc(len(copies))
             shared = self._shared.get(slot)
             if shared:
                 first = min(col for col, _, _ in copies)
@@ -563,9 +692,54 @@ class RaggedServeEngine(SpecCounters):
                 done.append((req.rid, req.tokens))
                 if self.journal is not None:
                     self.journal.done(req.rid)
+                _M_RETIRED.inc(cause="eos" if hit_eos else "budget")
+                tc = getattr(req, "_tc", None)
+                if tc is not None:
+                    now = time.perf_counter()
+                    tracing.record_span(
+                        tc, "serve.decode",
+                        getattr(req, "_t_first", req.t_submit), now,
+                        tokens=len(req.tokens))
+                    tracing.record_span(tc, "serve.request", req.t_submit,
+                                        now, root=True, rid=req.rid)
         # one batched table edit for the whole wave
         self._free(retiring)
+        if done:
+            _M_LIVE.set(self.live)
+            self._set_pool_gauges()
         return done
+
+    def _note_tick(self, dt: float, added: int,
+                   dev_s: Optional[float] = None) -> None:
+        """Per-step gauges and, when tokens were produced, the amortized
+        per-token latency (live streams advance together: each stream's
+        tokens arrived dt / (added / live) apart).  `dev_s` is the step's
+        device window; the rest of dt feeds serve.host_gap_fraction.  The
+        tick counters (serve.engine_steps, serve.tokens_generated) advance
+        where the ticks are accounted (_account)."""
+        if dev_s is not None:
+            self._host_gap_s += max(0.0, dt - dev_s)
+            self._launch_wall_s += dt
+            if self._launch_wall_s > 0:
+                _M_HOST_GAP.set(self._host_gap_s / self._launch_wall_s)
+        _M_QUEUE.set(len(self._queue))
+        live = self.live
+        _M_LIVE.set(live)
+        self._set_pool_gauges()
+        if added:
+            _M_TOK_LAT.observe(dt * live / added)
+        rate = self.acceptance_rate
+        if rate is not None:
+            _M_SPEC_RATE.set(rate)
+
+    @staticmethod
+    def _account(ticks: int, added: int) -> None:
+        """Count `ticks` model ticks that produced `added` tokens: where the
+        host accounts them (a readback or a speculative round), never
+        inside a captured graph."""
+        _M_STEPS.inc(ticks)
+        if added:
+            _M_TOKENS.inc(added)
 
     def _journal_barrier(self, done: List[Tuple[int, List[int]]]) -> None:
         """Durability, then delivery: fsync the tick's journal records,
@@ -596,17 +770,25 @@ class RaggedServeEngine(SpecCounters):
         together) -> its readback (or a speculative round, or a mixed tick
         with the draft's catch-up).  Returns requests that finished THIS
         tick."""
+        t0 = time.perf_counter()
         done = self._retire_finished()
         self._admit()
         if self.live == 0:
+            self._account(1, 0)
+            self._note_tick(time.perf_counter() - t0, 0)
             return done
+        td0 = time.perf_counter()
         if self.draft is None:
-            self._readback(self._launch_deferred())
+            added = self._readback(self._launch_deferred())[0]
         elif all(r is None or r.n_prefilled == len(r.prompt)
                  for r in self.slots):
-            self._spec_round()
+            added = self._spec_round()
         else:
-            self._mixed_draft_tick()
+            added = self._mixed_draft_tick()
+        # the launch and its readback (which waits on the device) are the
+        # tick's device window
+        t1 = time.perf_counter()
+        self._note_tick(t1 - t0, added, t1 - td0)
         done += self._retire_finished()
         return done
 
@@ -676,11 +858,12 @@ class RaggedServeEngine(SpecCounters):
         q_lens_dev = upload(q_lens, torch.int32, self.device)
         sampling = dict(temperature=self.temperature, top_k=self.top_k,
                         top_p=self.top_p)
+        t_dispatch = time.perf_counter()
         if k > 1:
             choices, _, _ = multi_step_decode(
                 self.params, feed, q_lens_dev, self.state, self._rng,
                 self.cfg, k=k, attn=attn, graphs=self.graphs, **sampling)
-            self._count("serve.multi_step_launches", k=k)
+            _M_MULTI.inc(k=str(k))
         else:
             groups = (self._build_groups()
                       if self.group_attn and self._shared
@@ -690,12 +873,16 @@ class RaggedServeEngine(SpecCounters):
                 attn = "grouped"
                 grouped = dict(zip(("group_id", "shared_table",
                                     "shared_lens"), groups))
-                self._count("serve.grouped_launches")
+                _M_GROUPED.inc()
             choice, _ = pipelined_tick(
                 self.params, feed, q_lens_dev, self.state, self._rng,
                 self.cfg, attn=attn, **sampling, **grouped)
             choices = choice[None]
-        self._count("serve.ragged_batch_launches", kind=kind)
+        _M_RB_LAUNCH.inc(kind=kind)
+        n_prefill = int(prefill_advance.sum())
+        if n_prefill:
+            _M_RB_PREFILL.inc(n_prefill)
+        _M_RB_FILL.set(float(q_lens.sum()) / (len(self.slots) * qt))
         advance = (q_lens * k).astype(np.int64)
         self._lengths += advance
         host = event = None
@@ -709,7 +896,7 @@ class RaggedServeEngine(SpecCounters):
             choices=choices, host=host, event=event, k=k, q_lens=q_lens,
             advance=advance, prefill_advance=prefill_advance,
             tok_delta=tok_delta, rng_before=rng_before,
-            table_rows=table_rows)
+            table_rows=table_rows, t_dispatch=t_dispatch)
 
     def _launch_deferred(self) -> _Pending:
         """The synchronous tick's batch build — prefill chunks + decode
@@ -787,7 +974,10 @@ class RaggedServeEngine(SpecCounters):
         to the state before the launch plus the draws of the kept ticks.
         Returns (tokens added, diverged, truncated); `diverged` means the
         readback produced an event (EOS, budget retire, truncation) that
-        invalidates any launch speculated on top of this one."""
+        invalidates any launch speculated on top of this one.  The ticks
+        kept and their tokens are counted here, where they are accounted
+        (first tokens also observe the TTFT and close the request's
+        prefill span)."""
         choices = _readback_choices(p)
         slots = len(self.slots)
         keep = p.k
@@ -815,6 +1005,9 @@ class RaggedServeEngine(SpecCounters):
                     # the chunk completed the prompt: its last-token logits
                     # ARE the first-token distribution
                     self._register_prefix(slot, req, p.table_rows.get(slot))
+                    self._first_token(req)
+                else:
+                    _M_RB_DECODE.inc()
                 tok = int(row[slot])
                 req.tokens.append(tok)
                 if self.journal is not None:
@@ -823,6 +1016,7 @@ class RaggedServeEngine(SpecCounters):
                 added += 1
             if nan_at is not None:
                 break
+        self._account(keep, added)
         truncated = keep < p.k
         if truncated:
             self._rollback_lengths(np.where(p.q_lens > 0, p.k - keep, 0))
@@ -830,7 +1024,7 @@ class RaggedServeEngine(SpecCounters):
                 self._rng.set_state(p.rng_before)
                 skip_draws(self._rng, (slots, self.cfg.vocab), keep,
                            self.device)
-            self._count("serve.pipeline_reconciles", cause="scan-eos")
+            _M_RECONCILE.inc(cause="scan-eos")
         if nan_at is not None:
             slot, rid = nan_at
             raise RuntimeError(
@@ -844,6 +1038,24 @@ class RaggedServeEngine(SpecCounters):
             for req in self.slots)
         return added, (eos or budget or truncated), truncated
 
+    def _first_token(self, req: _Request) -> None:
+        """A request's first token was just accounted: the TTFT, and with
+        tracing its prefill span, first-token marker and breakdown (queued
+        ends where prefill starts, prefill at the first-token instant: the
+        phases sum to the TTFT)."""
+        now = time.perf_counter()
+        _M_TTFT.observe(now - req.t_submit)
+        tc = getattr(req, "_tc", None)
+        if tc is not None:
+            t_adm = getattr(req, "_t_admit", req.t_submit)
+            req._t_first = now
+            tracing.record_span(tc, "serve.prefill", t_adm, now,
+                                prompt_len=len(req.prompt))
+            tracing.marker(tc, "serve.first_token", now)
+            tracing.note_ttft(tc, now - req.t_submit)
+            tracing.publish_breakdown({"queued": t_adm - req.t_submit,
+                                       "prefill": now - t_adm})
+
     def _pipelined_step(self) -> List[Tuple[int, List[int]]]:
         """One pipelined tick: dispatch the next launch (speculatively if
         safe), THEN wait for the previous one — its results are what this
@@ -853,6 +1065,7 @@ class RaggedServeEngine(SpecCounters):
         synchronous retire/admit/launch sequence, so the schedule is always
         the synchronous engine's.  The readback journals the tokens it
         accounts; the journal barrier runs before this returns."""
+        t0 = time.perf_counter()
         done = self._flushed_done
         self._flushed_done = []
         p = self._pending
@@ -865,10 +1078,14 @@ class RaggedServeEngine(SpecCounters):
                 self._pending = self._launch_deferred()
             self._journal_barrier(done)
             return done
+        # was the pending launch already done when the tick began?  Then
+        # none of the wait below is device time
+        ready0 = p.event is None or p.event.query()
         k_spec = self._spec_plan()
         spec = self._launch_speculative(k_spec) if k_spec else None
         self._pending = None
-        _, diverged, truncated = self._readback(p)
+        added, diverged, truncated = self._readback(p)
+        t_rb = time.perf_counter()
         if spec is not None and diverged:
             # reconcile: discard the speculative launch (its K/V sits past
             # the logical lengths and is overwritten before it is read)
@@ -876,7 +1093,7 @@ class RaggedServeEngine(SpecCounters):
             if spec.rng_before is not None and not truncated:
                 # (a truncation already rewound the generator)
                 self._rng.set_state(spec.rng_before)
-            self._count("serve.pipeline_reconciles", cause="eos-retire")
+            _M_RECONCILE.inc(cause="eos-retire")
             spec = None
         if spec is not None:
             # the speculation was right: the launch in flight IS the next
@@ -887,6 +1104,14 @@ class RaggedServeEngine(SpecCounters):
             self._admit()
             if self.live:
                 self._pending = self._launch_deferred()
+        dt = time.perf_counter() - t0
+        # device window: the pending launch ran from tick start to its
+        # readback unless it was already done; the launch now in flight
+        # runs from its dispatch to tick end
+        dev_s = 0.0 if ready0 else t_rb - t0
+        if self._pending is not None:
+            dev_s += time.perf_counter() - self._pending.t_dispatch
+        self._note_tick(dt, added, min(dev_s, dt))
         self._journal_barrier(done)
         return done
 
@@ -909,7 +1134,7 @@ class RaggedServeEngine(SpecCounters):
 
     # -- speculative decoding ----------------------------------------------
 
-    def _mixed_draft_tick(self) -> None:
+    def _mixed_draft_tick(self) -> int:
         """A draft engine's tick with a slot mid-prefill: the plain chunked
         tick, then one ragged launch on the draft state feeding each
         DECODING slot the token the target just consumed (a slot still
@@ -919,16 +1144,17 @@ class RaggedServeEngine(SpecCounters):
                                and r.n_prefilled == len(r.prompt)
                                for r in self.slots])
         dtoks = np.where(decoding, self._next_tok, 0)
-        self._readback(self._launch_deferred())
+        added = self._readback(self._launch_deferred())[0]
         if decoding.any():
             d = self.draft
             ragged_model_step(
                 d.params, upload(dtoks[:, None], torch.long, self.device),
                 upload(decoding.astype(np.int32), torch.int32, self.device),
                 d.state, d.cfg, attn="ragged")
-            self._count("serve.draft_catchup_launches")
+            _M_CATCHUP.inc()
+        return added
 
-    def _spec_round(self) -> None:
+    def _spec_round(self) -> int:
         """One speculative round for every live slot (none mid-prefill):
         the copy-on-write barrier for the k+1 positions the verify writes
         into the target pool (the draft pool is never shared: its prefill
@@ -937,7 +1163,7 @@ class RaggedServeEngine(SpecCounters):
         proposals] at QT = k+1 on the target, the acceptance on the host
         (Draft.accept, which rolls the draft back), then the target's
         rollback through _rollback_lengths, which keeps the host mirror
-        exact."""
+        exact.  Returns the tokens kept."""
         k = self.spec_k
         q_lens = np.asarray([k + 1 if r is not None else 0
                              for r in self.slots], np.int32)
@@ -949,7 +1175,13 @@ class RaggedServeEngine(SpecCounters):
             upload(q_lens, torch.int32, self.device), self.state, self.cfg,
             attn=self._attn_for(k + 1), all_logits=True)
         self._lengths += q_lens
-        self._count("serve.ragged_batch_launches", kind="spec-verify")
+        _M_RB_LAUNCH.inc(kind="spec-verify")
+        n_before = sum(len(r.tokens) for r in self.slots if r is not None)
         undo = self.draft.accept(self.slots, d_toks, lg_t, bad, self.eos_id,
                                  self._next_tok, self.journal)
         self._rollback_lengths(undo)
+        added = sum(len(r.tokens) for r in self.slots
+                    if r is not None) - n_before
+        _M_RB_DECODE.inc(added)
+        self._account(1, added)
+        return added

@@ -27,16 +27,14 @@ import numpy as np
 import torch
 
 from ..models.decode import sample_logits
-from ..models.dist_decode import dist_paged_decode_step
+from ..models.dist_decode import dist_paged_decode_step, ring_forward
 from ..models.paged_decode import (
     PagedState, PagePool, _scatter_pages, provision_capacity,
 )
 from ..models.transformer import (
-    ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
+    ModelConfig, _logits, _rms_norm,
 )
 from ..parallel import layouts
-from ..parallel.burst import burst_attn
-from ..parallel.mesh import as_mesh
 
 
 def check_handoff_preconditions(state: PagedState, pool: PagePool,
@@ -97,32 +95,12 @@ def ring_prefill_to_pages(params, tokens, state: PagedState, pool: PagePool,
 
 
 def _ring_forward(params, tokens, cfg: ModelConfig, mesh, on_kv=None):
-    """The ring-sharded forward of a [S] prompt: every layer's attention
-    is burst_attn over the ring, K/V and activations stay in layout order
-    end to end.  `on_kv(layer, k, v)` receives each layer's rope'd K/V.
-    Returns (hidden states [1, S, d_model] before the final norm, in
-    layout order; the layout permutation)."""
-    dev = params["embed"].device
-    m = as_mesh(mesh, dev)
-    n_inter, n_intra = m.ring(cfg.seq_axes)
-    s = int(tokens.shape[0])
-    perm = layouts.seq_permutation(cfg.layout, s, n_inter * n_intra)
-    pos = torch.from_numpy(perm).to(dev)[None, :]
-    tokens_l = torch.from_numpy(tokens[perm].astype(np.int64)).to(dev)
-    x = params["embed"][tokens_l[None, :]].to(cfg.dtype)
-    for li, p in enumerate(params["layers"]):
-        q, k, v = _qkv_proj(p, x, pos, cfg)
-        k, v = k.to(cfg.dtype), v.to(cfg.dtype)
-        o = burst_attn(q, k, v, mesh=m, seq_axes=cfg.seq_axes,
-                       causal=cfg.causal, layout=cfg.layout,
-                       backend=cfg.attn_backend, block_q=cfg.block_q,
-                       block_kv=cfg.block_kv, batch_axes=cfg.batch_axis,
-                       head_axes=cfg.head_axis, window=cfg.window)
-        if on_kv is not None:
-            on_kv(li, k, v)
-        x = x + _attn_out(p, o)
-        x = x + _mlp(p, x)
-    return x, perm
+    """models.dist_decode.ring_forward of a [S] prompt (batch 1): returns
+    (hidden states [1, S, d_model] before the final norm, in layout
+    order; the layout permutation)."""
+    tokens = torch.from_numpy(np.asarray(tokens).reshape(1, -1)
+                              .astype(np.int64))
+    return ring_forward(params, tokens, cfg, mesh, on_kv)
 
 
 def _ring_prefill(params, tokens, state: PagedState, ids, slot,

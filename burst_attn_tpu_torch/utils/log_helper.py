@@ -1,21 +1,21 @@
 """Rank-aware logging helpers (port of burst_attn_tpu/utils/log_helper.py).
 
-The port runs one process on one card, so the process is always the
-primary one; the helpers keep the JAX package's call sites."""
+`get_logger` delegates to the obs logger (obs/logs.py), so every record
+is counted in the registry (`log.events{level=...}`).  The port runs one
+process on one card, so the process is always the primary one; the
+helpers keep the JAX package's call sites."""
 
 import logging
+from typing import Optional
 
 
-def get_logger(name: str, level=logging.INFO) -> logging.Logger:
-    """A named logger with one stream handler, configured once."""
-    log = logging.getLogger(name)
-    if not log.handlers:
-        h = logging.StreamHandler()
-        h.setFormatter(logging.Formatter(
-            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
-        log.addHandler(h)
-        log.setLevel(level)
-    return log
+def get_logger(name: str, level=logging.INFO, file: Optional[str] = None):
+    """Per-name logger with stream (and optional file) handlers, configured
+    once; imported lazily so utils stays importable while obs
+    initializes."""
+    from ..obs.logs import get_logger as _obs_get_logger
+
+    return _obs_get_logger(name, level=level, file=file)
 
 
 def is_primary() -> bool:
@@ -26,3 +26,8 @@ def is_primary() -> bool:
 def print_rank0(*args, **kwargs):
     if is_primary():
         print(*args, **kwargs)
+
+
+def log_rank0(logger, msg, level=logging.INFO):
+    if is_primary():
+        logger.log(level, msg)

@@ -112,7 +112,10 @@ Phases (any failure exits non-zero; nothing is caught):
      versions at the shape it gives them, with each one's ms a launch and
      a traced kernel-9 launch (bitwise the untraced one) that gives the
      share of its CTAs' time spent waiting on dq fold counters and on
-     the ring's counters;
+     the ring's counters, and each kernel's STATS instance (collect_stats)
+     bitwise the stats-off one and timed beside it in turns off on on off
+     (their registers and spills, printed after the build, equal the
+     stats-off instances');
      runner.fit on mesh {"sp": 4} (`--mesh sp=4`) with a resume;
   7. (run after phase 3) the ring forward: the fused ring kernel
      (kernel 8) against its plain
@@ -156,7 +159,26 @@ Phases (any failure exits non-zero; nothing is caught):
      through handoff_decode with a journal, a paged snapshot saved,
      loaded and decoded on, and a journal-only recovery after a kill (a
      second prefill, the lag re-decoded), both equal to the uninterrupted
-     stream, kernel 8 once a layer a prefill;
+     stream, kernel 8 once a layer a prefill; then the dense-shard
+     distributed decode (models/dist_decode.py: dist_prefill,
+     dist_decode_step, dist_generate) on the same 32768-token prompt over
+     sp=4, bf16, through kernel 8 and the scan ring (launches exact: 8
+     kernel-8 launches, or 128 kernel-1 rounds; no fallback; the fused
+     stream teacher-forced through the scan route's dist_decode_step at
+     the handoff's bar), prefill and decode-step times (wall; device from
+     the profiler); fp32 at 4096 tokens token-exact across the routes and
+     with handoff_generate's stream; then the ring telemetry:
+     burst_attn(collect_stats=True) at the handoff's op shape on both
+     routes (outputs bitwise those of stats off, kernel 8's slot_use the
+     slot schedule's bincount, equal attn_pairs sums) and kernel 9's
+     direct collect_stats call (bitwise; bundle counts the backward
+     program's); then the obs package on the engines (6 of the 12
+     requests, bf16): the synchronous and the K=4 RaggedServeEngine and
+     the ServeEngine with request tracing on, counters equal to the
+     admission and tick arithmetic (K=4 equal to synchronous), every
+     TTFT breakdown summing to its TTFT, the exported JSONL rendered by
+     `python -m burst_attn_tpu_torch.obs` (--json, --prom, --trace), the
+     instruments' host cost a tick;
   9. (run after phase 3) sliding-window serving and kernel 10: kernel 1
      with windows 1, 100, 1024 and 4096 (>= S: bitwise the unwindowed
      kernel) at B1 N16/4 S2048 bf16, offset 0 and -1 with a ragged
@@ -189,6 +211,7 @@ non-zero and prints no result.
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -203,6 +226,7 @@ SERVE_DIMS = dict(vocab=32768, d_model=2048, n_layers=8, n_heads=16,
 SLOTS, N_PAGES, PAGE, MAX_PAGES = 8, 160, 128, 17
 CHUNK = 128
 N_REQUESTS = 12
+OBS_REQUESTS = 6  # the obs phase's share of the seeded requests
 
 # kernel-vs-plain tolerances, scaled to the values compared.  Both sides
 # compute in fp32 and differ only in summation order and exp2-vs-exp (and,
@@ -367,6 +391,20 @@ def print_profile(what, prof):
 
 def _max_err(a, b):
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _obs_now():
+    """The obs registry's counters now ({"name{k=v,...}": value})."""
+    from burst_attn_tpu_torch import obs
+
+    return obs.counter_values()
+
+
+def _obs_since(before):
+    """The obs counters that moved since `before` (an _obs_now())."""
+    from burst_attn_tpu_torch import obs
+
+    return obs.counter_deltas(before)
 
 
 def _dtype_key(dtype):
@@ -2421,7 +2459,7 @@ def ring_op_phase(device):
     q, k, v = (layouts.to_layout(t, "zigzag", w, 2) for t in nat)
     kw = dict(mesh={"sp": w}, causal=True, layout="zigzag")
 
-    burst.STATS.clear()
+    obs0 = _obs_now()
     flash.flash_fwd.launches = fused_ring.fused_ring_fwd.launches = 0
     with torch.no_grad():
         fused = burst.burst_attn(q, k, v, backend="fused_ring", **kw)
@@ -2436,7 +2474,7 @@ def ring_op_phase(device):
     # zigzag skips no round: every position runs all W rounds
     assert scan_launches == w * w, scan_launches
     assert not any(key.startswith("burst.fused_fallback")
-                   for key in burst.STATS), dict(burst.STATS)
+                   for key in _obs_since(obs0)), dict(_obs_since(obs0))
     scan_err = _check_o("burst_attn fused vs scan", fused, scan,
                         torch.bfloat16)
     assert torch.isfinite(fused).all()
@@ -2812,6 +2850,7 @@ def handoff_phase(device):
     for key, dtype, plen in (("bf16", torch.bfloat16, HANDOFF_PROMPT),
                              ("fp32", torch.float32, HANDOFF_PROMPT_FP32)):
         prompt = rng.integers(1, SERVE_DIMS["vocab"], plen).astype(np.int32)
+        res[f"_{key}_prompt"] = prompt
         toks = {}
         for backend in ("fused_ring", "auto"):
             cfg, params = model(dtype, device)
@@ -2819,7 +2858,7 @@ def handoff_phase(device):
             st, pool = _handoff_state(cfg, plen, device)
             free0 = pool.available
             counters = _kernel_counters()
-            burst.STATS.clear()
+            obs0 = _obs_now()
             for f in counters:
                 f.launches = 0
             with torch.no_grad():
@@ -2827,7 +2866,7 @@ def handoff_phase(device):
                                            mesh, steps=HANDOFF_STEPS)
             torch.cuda.synchronize()
             launches = {f.__name__: f.launches for f in counters}
-            stats = dict(burst.STATS)
+            stats = dict(_obs_since(obs0))
             n_layers = SERVE_DIMS["n_layers"]
             want = ({"flash_fwd": 0, "fused_ring_fwd": n_layers} if
                     backend == "fused_ring" else
@@ -2894,6 +2933,7 @@ def handoff_phase(device):
         same = sum(x == y for x, y in zip(a, c))
         if key == "fp32":
             assert a == c, (a, c)
+            res["_fp32_tokens"] = a
         else:
             # the scan route teacher-forced on the fused route's stream
             forced = _forced_agreement(_handoff_cfg(dtype, "auto"),
@@ -2935,6 +2975,345 @@ def handoff_phase(device):
           f"scan ring {res['prefill_ms_auto']:.1f} ms; decode step "
           f"(dist_paged_decode_step): {res['decode_ms_fused_ring']:.2f} / "
           f"{res['decode_ms_auto']:.2f} ms", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the dense-shard distributed decode, the ring telemetry and obs
+
+
+def _dist_forced_agreement(cfg, params, prompt, toks, mesh, device):
+    """Teacher-force `cfg`'s route of models.dist_decode on a stream: its
+    dist_prefill, then one dist_decode_step per token of `toks`; (agreeing
+    tokens, total, [(index, logit gap)] per disagreement)."""
+    import torch
+
+    from burst_attn_tpu_torch.models.dist_decode import (
+        dist_decode_step, dist_prefill,
+    )
+
+    p = torch.from_numpy(prompt.astype("int64"))[None].to(device)
+    with torch.no_grad():
+        lg, cache = dist_prefill(params, p, cfg, mesh, gen_budget=len(toks))
+        rows = [lg[0]]
+        for i, t in enumerate(toks[:-1]):
+            lg, cache = dist_decode_step(
+                params, torch.tensor([t], device=device), len(prompt) + i,
+                cache, cfg, mesh)
+            rows.append(lg[0])
+    gaps = []
+    for i, (row, t) in enumerate(zip(rows, toks)):
+        p_ = int(row.argmax())
+        if p_ != t:
+            gaps.append((i, float(row[p_] - row[t])))
+    return len(toks) - len(gaps), len(toks), gaps
+
+
+def dist_generate_phase(device, hand):
+    """models.dist_decode (DistCache: dist_prefill, dist_decode_step,
+    dist_generate) at the handoff's shape: a HANDOFF_PROMPT-token prompt
+    over sp=HANDOFF_SP (zigzag) of the serving model, bf16, through
+    kernel 8 ("fused_ring") and the scan ring over kernel 1 ("auto"),
+    HANDOFF_STEPS greedy tokens.  Launches are exact (kernel 8 once a
+    layer, or kernel 1 once a ring round of every position and layer; no
+    fallback); the fused stream meets the handoff's teacher-forced bar
+    against the scan route's dist_decode_step.  Prefill ms and decode ms
+    a step (wall; device from the profiler) per route.  fp32 at
+    HANDOFF_PROMPT_FP32 tokens: both routes token-exact with each other
+    and with handoff_generate's stream, which handoff_phase held to the
+    dense forward."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models.dist_decode import (
+        dist_decode_step, dist_generate, dist_prefill,
+    )
+    from burst_attn_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"sp": HANDOFF_SP}, device=device)
+    n_layers = SERVE_DIMS["n_layers"]
+    res = {}
+    for key, dtype, prompt in (
+            ("bf16", torch.bfloat16, hand["_bf16_prompt"]),
+            ("fp32", torch.float32, hand["_fp32_prompt"])):
+        params = model(dtype, device)[1]
+        p = torch.from_numpy(prompt.astype(np.int64))[None].to(device)
+        toks = {}
+        for backend in ("fused_ring", "auto"):
+            cfg = _handoff_cfg(dtype, backend)
+            counters = _kernel_counters()
+            obs0 = _obs_now()
+            for f in counters:
+                f.launches = 0
+            with torch.no_grad():
+                out = dist_generate(params, p, cfg, mesh,
+                                    steps=HANDOFF_STEPS)
+            torch.cuda.synchronize()
+            launches = {f.__name__: f.launches for f in counters}
+            stats = dict(_obs_since(obs0))
+            want = ({"flash_fwd": 0, "fused_ring_fwd": n_layers,
+                     "paged_decode_attention": 0} if backend == "fused_ring"
+                    else {"flash_fwd": n_layers * HANDOFF_SP * HANDOFF_SP,
+                          "fused_ring_fwd": 0, "paged_decode_attention": 0})
+            assert launches == want, (key, backend, launches)
+            assert not any(k_.startswith("burst.fused_fallback")
+                           for k_ in stats), stats
+            assert out.shape == (1, HANDOFF_STEPS)
+            toks[backend] = [int(t) for t in out[0]]
+            if key == "bf16":
+                res[f"launches_{backend}"] = launches
+
+                def prefill():
+                    with torch.no_grad():
+                        return dist_prefill(params, p, cfg, mesh,
+                                            gen_budget=HANDOFF_STEPS)
+                res[f"prefill_ms_{backend}"] = host_ms(prefill)
+                res[f"prof_prefill_{backend}"] = device_breakdown(prefill, 1)
+                _, cache = prefill()
+                feed = torch.tensor([toks[backend][0]], device=device)
+                n_new = cache.n_new
+
+                def step():
+                    with torch.no_grad():
+                        dist_decode_step(params, feed, len(prompt) + n_new,
+                                         cache._replace(n_new=n_new), cfg,
+                                         mesh)
+                res[f"decode_ms_{backend}"] = host_ms(
+                    lambda: [step() for _ in range(8)]) / 8
+                res[f"prof_decode_{backend}"] = device_breakdown(step, 4)
+                del cache
+        a, c = toks["fused_ring"], toks["auto"]
+        if key == "fp32":
+            # handoff_phase held handoff_generate's fp32 stream to the
+            # dense forward token for token
+            assert a == c, (a, c)
+            assert a == hand["_fp32_tokens"], (a, hand["_fp32_tokens"])
+            print(f"dist_generate fp32 ({len(prompt)}-token prompt): fused "
+                  f"and scan routes token-exact with each other and with "
+                  f"handoff_generate (itself exact with the dense forward)",
+                  flush=True)
+        else:
+            forced = _dist_forced_agreement(_handoff_cfg(dtype, "auto"),
+                                            params, prompt, a, mesh, device)
+            check_agreement("dist_generate bf16 fused stream", forced, True,
+                            against="the scan route's dist_decode_step")
+            res["bf16_forced_agree"] = forced[0]
+            res["bf16_routes_equal"] = sum(x == y for x, y in zip(a, c))
+        torch.cuda.empty_cache()
+    print(f"dist_generate ({HANDOFF_PROMPT} tokens, bf16, sp={HANDOFF_SP}):"
+          f" prefill fused ring {res['prefill_ms_fused_ring']:.1f} ms, scan "
+          f"ring {res['prefill_ms_auto']:.1f} ms; decode step "
+          f"{res['decode_ms_fused_ring']:.2f} / {res['decode_ms_auto']:.2f} "
+          f"ms; device {res['prof_decode_fused_ring'][1]:.2f} ms a step",
+          flush=True)
+    return res
+
+
+def devstats_phase(device):
+    """burst_attn(collect_stats=True) at the handoff's op shape (B1,
+    N16/4, S = HANDOFF_PROMPT over sp=HANDOFF_SP, bf16, causal zigzag):
+    the fused route (kernel 8's STATS instance) and the scan route (kernel
+    1), each bitwise equal to its stats-off call; the fused slot_use
+    replays the slot schedule; the routes' attn_pairs sums are equal (the
+    causal triangle); kernel 9's direct collect_stats call bitwise equal
+    to the stats-off one, its bundle counts the backward program's; the
+    stats published into a fresh registry.  Returns the launches and the
+    published catalog's size."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.obs import devstats
+    from burst_attn_tpu_torch.obs.registry import Registry
+    from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
+    from burst_attn_tpu_torch.ops.tuning import resolve_fused
+    from burst_attn_tpu_torch.parallel import burst, layouts, ring
+    from burst_attn_tpu_torch.parallel.mesh import shard
+
+    w, s = HANDOFF_SP, HANDOFF_PROMPT
+    n, n_kv = SERVE_DIMS["n_heads"], SERVE_DIMS["n_kv_heads"]
+    g = torch.Generator(device=device).manual_seed(37)
+    q, k, v = (layouts.to_layout(
+        torch.randn(1, h, s, 128, generator=g, device=device)
+        .to(torch.bfloat16), "zigzag", w, 2) for h in (n, n_kv, n_kv))
+    kw = dict(mesh={"sp": w}, causal=True, layout="zigzag")
+    res, stats = {}, {}
+    for backend in ("fused_ring", "auto"):
+        with torch.no_grad():
+            plain = burst.burst_attn(q, k, v, backend=backend, **kw)
+            f0, k0 = flash.flash_fwd.launches, \
+                fused_ring.fused_ring_fwd.launches
+            o, st = burst.burst_attn(q, k, v, backend=backend,
+                                     collect_stats=True, **kw)
+        torch.cuda.synchronize()
+        res[f"launches_{backend}"] = (flash.flash_fwd.launches - f0,
+                                      fused_ring.fused_ring_fwd.launches - k0)
+        assert torch.equal(o, plain), f"{backend}: stats changed o"
+        assert res[f"launches_{backend}"] == (
+            (0, 1) if backend == "fused_ring" else (w * w, 0))
+        stats[backend] = st
+        del o, plain
+    fused, scan = stats["fused_ring"], stats["auto"]
+    slots = min(resolve_fused(None, None, None).kv_slots, w)
+    want = np.bincount(ring.fused_slot_schedule(w, slots),
+                       minlength=devstats.MAX_SLOTS)
+    got = fused.slot_use.cpu().numpy()
+    assert (got == want[None]).all(), (got, want)
+    assert (fused.fused_rounds.cpu() == w).all()
+    pairs = (float(fused.attn_pairs.sum()), float(scan.attn_pairs.sum()))
+    assert pairs[0] == pairs[1] == s * (s + 1) // 2, pairs
+    assert not fused.nonfinite_acc.any() and not scan.nonfinite_lse.any()
+    # kernel 9's direct call, on the forward's residuals
+    cfg = burst.BurstConfig(causal=True, layout="zigzag",
+                            backend="fused_ring")
+    qs, ks, vs = (shard(t, w) for t in (q, k, v))
+    o, lse = fused_ring.fused_ring_fwd(qs, ks, vs, cfg, 1, w)
+    do = torch.randn(o.shape, generator=g, device=device).to(o.dtype)
+    b0 = fused_ring_bwd.fused_ring_bwd.launches
+    plain = fused_ring_bwd.fused_ring_bwd(qs, ks, vs, o, lse, do, cfg, 1, w)
+    *grads, slot_use = fused_ring_bwd.fused_ring_bwd(
+        qs, ks, vs, o, lse, do, cfg, 1, w, collect_stats=True)
+    torch.cuda.synchronize()
+    assert fused_ring_bwd.fused_ring_bwd.launches - b0 == 2
+    assert all(torch.equal(a, b) for a, b in zip(plain, grads)), \
+        "kernel 9's stats instance changed dq/dk/dv"
+    prog = fused_ring.ring_plan(cfg, 1, w, s // w, "bwd")[0]
+    want_bwd = np.zeros((2, devstats.MAX_SLOTS), np.int64)
+    for r in range(prog.n_rounds):
+        want_bwd[prog.rows["consume_bank"][r],
+                 prog.rows["consume_slot"][r]] += 1
+    assert (slot_use.cpu().numpy() == want_bwd[None]).all(), slot_use
+    del plain, grads, o, lse, do, qs, ks, vs, q, k, v
+    reg = Registry()
+    for backend, st in stats.items():
+        st.publish(reg, labels={"route": backend})
+    res["published"] = len(reg.snapshot())
+    res["slot_use_fwd"] = got[0].tolist()
+    res["slot_use_bwd"] = slot_use[0, 0].tolist()
+    res["attn_pairs"] = pairs[0]
+    res["flop_imbalance"] = reg.gauge("devstats.flop_imbalance").get(
+        route="auto")
+    print(f"devstats at the handoff's op shape (bf16 W={w} zigzag causal "
+          f"N{n}/{n_kv} S={s}): both routes bitwise equal to stats off; "
+          f"fused slot_use per position {res['slot_use_fwd']} (the "
+          f"schedule's bincount), kernel 9 bundle slot_use "
+          f"{res['slot_use_bwd']}; attn_pairs {pairs[0]:.0f} on both "
+          f"routes; flop imbalance {res['flop_imbalance']:.4f}; "
+          f"{res['published']} registry children published", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _obs_cli(path, *flags):
+    """python -m burst_attn_tpu_torch.obs on `path`: (exit code, stdout)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "burst_attn_tpu_torch.obs", *flags,
+         "--file", path], capture_output=True, text=True, timeout=300)
+    return out.returncode, out.stdout
+
+
+def obs_phase(device, pticks):
+    """The obs package on the serving engines at the serving width
+    (bf16, OBS_REQUESTS of the seeded requests): the RaggedServeEngine
+    synchronous and pipelined at K=K_PIPE, and the ServeEngine with
+    request tracing on.  Each engine's counters equal the admission and
+    tick arithmetic (every request submitted, admitted and retired once;
+    the tokens its budgets add; the K-tick engine's tokens, ticks and
+    retirements equal the synchronous engine's); every traced request's
+    TTFT breakdown sums to its TTFT; the exported JSONL renders through
+    the port's CLI (--json, --prom, --trace).  The per-tick cost of the
+    instruments (the host calls a tick makes) is timed, beside the decode
+    ticks pipelined_ticks timed with them in."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch import obs
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.obs import trace as tracing
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    cfg, params = model(torch.bfloat16, device)
+    prompts, budgets = requests(cfg, n_requests=OBS_REQUESTS)
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, device=device)
+    names = ("serve.requests_submitted", "serve.requests_admitted",
+             "serve.requests_retired{cause=budget}", "serve.tokens_generated",
+             "serve.engine_steps")
+    res, seen = {}, {}
+    path = os.path.join(_ckpt_dir(), "obs_smoke.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    tracing.reset_traces()
+    tracing.enable()
+    try:
+        for name, cls, extra in (
+                ("ragged_sync", RaggedServeEngine, dict(chunk=CHUNK)),
+                ("ragged_k4", RaggedServeEngine,
+                 dict(chunk=CHUNK, pipeline=True, multi_step=K_PIPE)),
+                ("serve", ServeEngine, {})):
+            eng = cls(params, cfg, **kw, **extra)
+            ttft0 = obs.histogram("serve.ttft_s").get()["count"]
+            before = obs.counter_values()
+            toks, _, run_s = drive(eng, prompts, budgets, ())
+            moved = obs.counter_deltas(before)
+            seen[name] = toks
+            counts = [moved[k_] for k_ in names]
+            assert counts[:4] == [OBS_REQUESTS] * 3 + [sum(budgets)], \
+                (name, counts)
+            ticks = sum(v for k_, v in moved.items()
+                        if k_.startswith("serve.ragged_batch_launches"))
+            if name == "ragged_sync":
+                # one launch a tick: the steps are the run's ticks
+                assert counts[4] == ticks, (counts, ticks)
+            res[name] = dict(zip(("submitted", "admitted", "retired",
+                                  "tokens", "steps"), counts))
+            res[name]["launch_ticks"] = ticks
+            assert obs.histogram("serve.ttft_s").get()["count"] - ttft0 \
+                == OBS_REQUESTS
+            res.setdefault("run_s", {})[name] = run_s
+        assert seen["ragged_k4"] == seen["ragged_sync"]
+        for k_ in ("tokens", "steps", "retired"):
+            assert res["ragged_k4"][k_] == res["ragged_sync"][k_], (k_, res)
+        recs = tracing.trace_records()
+        obs.export_jsonl(path)
+    finally:
+        tracing.reset_traces()
+    by = {}
+    for rec in recs:
+        by.setdefault(rec["trace_id"], []).append(rec)
+    assert len(by) == 3 * OBS_REQUESTS, len(by)
+    worst = 0.0
+    for spans in by.values():
+        bd = tracing.ttft_breakdown(spans)
+        worst = max(worst, abs(sum(bd["phases"].values()) - bd["ttft_s"])
+                    / bd["ttft_s"])
+    assert worst <= 1e-9, worst
+    res["breakdown_worst_rel"] = worst
+    for flags, probe in ((("--json",), '"metrics"'),
+                         (("--prom",), "# TYPE burst_serve_tokens_generated"),
+                         (("--trace",), "[complete]")):
+        rc, out = _obs_cli(path, *flags)
+        assert rc == 0 and probe in out, (flags, rc, out[:400])
+    report = json.loads(_obs_cli(path, "--json")[1])
+    res["exported_metrics"] = len(report["metrics"])
+    # the instruments' host cost a tick: what _note_tick and _account do
+    eng = RaggedServeEngine(params, cfg, chunk=CHUNK, **kw)
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng._account(1, SLOTS)
+        eng._note_tick(0.002, SLOTS, 0.001)
+    res["instrument_us_per_tick"] = (time.perf_counter() - t0) * 1e6 / n
+    res["decode_tick_ms"] = dict(pticks["tick_ms"])
+    print(f"obs: engines' counters equal the admission and tick arithmetic "
+          f"({OBS_REQUESTS} requests, {sum(budgets)} tokens; synchronous "
+          f"{res['ragged_sync']['steps']:.0f} steps = K={K_PIPE} "
+          f"{res['ragged_k4']['steps']:.0f}); {len(by)} traced requests, "
+          f"TTFT breakdown worst relative gap {worst:.2e}; export renders "
+          f"through the CLI ({res['exported_metrics']} metric children); "
+          f"instruments {res['instrument_us_per_tick']:.1f} us a tick; "
+          f"decode tick with them in: synchronous "
+          f"{res['decode_tick_ms']['sync']:.3f} ms, K={K_PIPE} "
+          f"{res['decode_tick_ms']['k4']:.3f} ms", flush=True)
     return res
 
 
@@ -3126,7 +3505,7 @@ def ring_bwd_op_phase(device):
         o = burst.burst_attn(*leaves, backend=backend, **kw)
         return torch.autograd.grad(o, leaves, do)
 
-    burst.STATS.clear()
+    obs0 = _obs_now()
     _reset_counts()
     fused = grads("fused_ring")
     torch.cuda.synchronize()
@@ -3141,7 +3520,7 @@ def ring_bwd_op_phase(device):
     assert scan_launches == _launches(flash_fwd=w * w, fused=w * w), \
         scan_launches
     assert not any(key.startswith("burst.fused_fallback")
-                   for key in burst.STATS), dict(burst.STATS)
+                   for key in _obs_since(obs0)), dict(_obs_since(obs0))
     assert all(torch.isfinite(x).all() for x in fused)
     scan_err = _check_grads_bf16("burst_attn gradients fused vs scan",
                                  fused, scan)
@@ -3248,13 +3627,49 @@ def check_ring_kernels_at(device, what, w, n, n_kv, s, seed, fwd=True,
     timed = {}
     if timing:
         q, k, v = args[:3]
+        # the STATS instances beside the stats-off ones, in turns off on
+        # on off, their outputs bitwise the stats-off ones': kernel 8 at
+        # its launch (the wrapper with collect_stats also assembles the
+        # DevStats, timed on its own below), kernel 9 through its wrapper
+        calls = {("k9", False): lambda: fused_ring_bwd.fused_ring_bwd(
+                     *args, cfg, *ring),
+                 ("k9", True): lambda: fused_ring_bwd.fused_ring_bwd(
+                     *args, cfg, *ring, collect_stats=True)}
         if fwd:
+            fprog = fused_ring.ring_plan(cfg, *ring, s, "fwd")[0]
+            sched = fused_ring._sched_on(cfg, *ring, s, q.device, "fwd")
+            slots = fused_ring._slot_counters(fprog, w, q.device)
+            calls[("k8", False)] = lambda: fused_ring._fused_ring_fwd_cuda(
+                q, k, v, fprog, sched, 128 ** -0.5)
+            calls[("k8", True)] = lambda: fused_ring._fused_ring_fwd_cuda(
+                q, k, v, fprog, sched, 128 ** -0.5, slot_use=slots)
+            o_on = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring,
+                                             collect_stats=True)
+            assert torch.equal(o_on[0], o) and torch.equal(o_on[1], lse), \
+                "kernel 8's stats instance changed o / lse"
+            del o_on
             timed["k8_ms"] = time_ms(
                 lambda: fused_ring.fused_ring_fwd(q, k, v, cfg, *ring),
                 iters=10, warmup=2)
-        timed["k9_ms"] = time_ms(
-            lambda: fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring),
-            iters=10, warmup=2)
+            timed["k8_stats_call_ms"] = time_ms(
+                lambda: fused_ring.fused_ring_fwd(q, k, v, cfg, *ring,
+                                                  collect_stats=True),
+                iters=10, warmup=2)
+        g_on = calls[("k9", True)]()
+        assert all(torch.equal(a, b) for a, b in zip(g_on, got)), \
+            "kernel 9's stats instance changed dq / dk / dv"
+        del g_on
+        turns = {key: [] for key in calls}
+        for on in (False, True, True, False):
+            for kern in ("k8", "k9"):
+                if (kern, on) in calls:
+                    turns[(kern, on)].append(time_ms(calls[(kern, on)],
+                                                     iters=10, warmup=2))
+        for (kern, on), ts in turns.items():
+            key = ("k8_launch" if kern == "k8" else kern) + (
+                "_stats" if on else "")
+            timed[f"{key}_ms"] = sum(ts) / len(ts)
+            timed[f"{key}_ms_turns"] = ts
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         trace = torch.zeros((sms, len(fused_ring_bwd.TRACE_COLS)),
                             dtype=torch.int64, device=device)
@@ -3271,8 +3686,14 @@ def check_ring_kernels_at(device, what, w, n, n_kv, s, seed, fwd=True,
             r["phase_wait_ns"] for r in recs) / sum(span)
         timed["k9_ctas"] = len(recs)
         print(f"kernels 8 and 9 at {what}: kernel 8 "
-              f"{timed.get('k8_ms', float('nan')):.3f} ms, kernel 9 "
-              f"{timed['k9_ms']:.3f} ms a launch (mean of 10); a traced "
+              f"{timed.get('k8_ms', float('nan')):.3f} ms (at its launch "
+              f"{timed.get('k8_launch_ms', float('nan')):.3f}, stats "
+              f"instance {timed.get('k8_launch_stats_ms', float('nan')):.3f};"
+              f" collect_stats call with the DevStats "
+              f"{timed.get('k8_stats_call_ms', float('nan')):.3f}), kernel 9 "
+              f"{timed['k9_ms']:.3f} ms (stats instance "
+              f"{timed['k9_stats_ms']:.3f}) a launch (turns off on on off, "
+              f"mean of 10 each); a traced "
               f"kernel-9 launch: {len(recs)} CTAs spend "
               f"{timed['k9_fold_wait_share']:.4f} of their time waiting on "
               f"dq fold counters and {timed['k9_phase_wait_share']:.4f} on "
@@ -3322,7 +3743,7 @@ def ring_train_phase(device, single):
         batch = train.make_batch(1, cfg, mesh, batch=1, seq=TRAIN_SEQ,
                                  device=device)
         step = train.make_train_step(cfg, tcfg, mesh, device=device)
-        burst.STATS.clear()
+        obs0 = _obs_now()
         losses, times = [], []
         for i in range(1 + TRAIN_STEPS):
             if i == 1:
@@ -3341,7 +3762,7 @@ def ring_train_phase(device, single):
         want = _launches(**{k: v * TRAIN_STEPS for k, v in per_step.items()})
         assert launches == want, (backend, launches, want)
         assert not any(key.startswith("burst.fused_fallback")
-                       for key in burst.STATS), dict(burst.STATS)
+                       for key in _obs_since(obs0)), dict(_obs_since(obs0))
         assert all(map(math.isfinite, losses)), losses
         assert losses[-1] < losses[0], f"loss did not fall: {losses}"
         diffs = [abs(a - b_) / abs(b_)
@@ -4882,7 +5303,17 @@ def main() -> int:
                   "flash_bwd": flash.bwd_attrs(),
                   "fused_ring_fwd": fused_ring.fwd_attrs(),
                   "fused_ring_bwd": fused_ring_bwd.bwd_attrs()}
-    for name, rows in attrs_by_lib.items():
+    # the STATS instances of kernels 8 and 9 (collect_stats): registers
+    # and spills equal to the stats-off instances'
+    stats_attrs = {"fused_ring_fwd": fused_ring.fwd_attrs(stats=True),
+                   "fused_ring_bwd": fused_ring_bwd.bwd_attrs(stats=True)}
+    for name, rows in stats_attrs.items():
+        off = {a["instance"]: a for a in attrs_by_lib[name]}
+        for a in rows:
+            b = off[a["instance"][:-len(" stats")]]
+            assert (a["regs"], a["local_bytes"]) == (
+                b["regs"], b["local_bytes"]), (name, a, b)
+    for name, rows in list(attrs_by_lib.items()) + list(stats_attrs.items()):
         for a in rows:
             print(f"{name} {a['instance']}: {a['regs']} registers, "
                   f"{a['local_bytes']} local (spill) bytes a thread, "
@@ -5010,6 +5441,14 @@ def main() -> int:
                   hand["prof_prefill_fused_ring"])
     print_profile("handoff prefill, scan ring", hand["prof_prefill_auto"])
     print_profile("handoff decode step", hand["prof_decode_fused_ring"])
+    dist = dist_generate_phase(device, hand)
+    print_profile("dist_generate prefill, fused ring",
+                  dist["prof_prefill_fused_ring"])
+    print_profile("dist_generate prefill, scan ring",
+                  dist["prof_prefill_auto"])
+    print_profile("dist_generate decode step", dist["prof_decode_fused_ring"])
+    dstats = devstats_phase(device)
+    obs_res = obs_phase(device, pticks)
 
     _PARAMS.clear()  # the serving models' weights
     torch.cuda.empty_cache()
@@ -5022,6 +5461,17 @@ def main() -> int:
         TRAIN_SEQ // RING_TRAIN_SP, seed=29, timing=True)
     ring_rec["ring_step_ms"] = step_shape["k8_ms"]
     ring_bwd_rec["ring_step_ms"] = step_shape["k9_ms"]
+    # the STATS instances: attrs, and their time beside the stats-off time
+    for rec, kern, lib in ((ring_rec, "k8_launch", "fused_ring_fwd"),
+                           (ring_bwd_rec, "k9", "fused_ring_bwd")):
+        rec["stats"] = {
+            "attrs": stats_attrs[lib], "ring_step_ms": step_shape[
+                f"{kern}_stats_ms"],
+            "ring_step_ms_off": step_shape[f"{kern}_ms"],
+            "turns_ms": {"off": step_shape[f"{kern}_ms_turns"],
+                         "on": step_shape[f"{kern}_stats_ms_turns"]}}
+    ring_rec["stats"]["collect_stats_call_ms"] = step_shape[
+        "k8_stats_call_ms"]
     ring_bwd_rec["ring_step_trace"] = {
         k: step_shape[k] for k in ("k9_fold_wait_share",
                                    "k9_phase_wait_share", "k9_ctas")}
@@ -5045,6 +5495,7 @@ def main() -> int:
                 # the handoff's prefill and the ring train step's
                 "fused_ring_fwd": hand["launches_fused_ring"][
                     "fused_ring_fwd"] + ring_tr["fused_ring"]["launches"][
+                    "fused_ring_fwd"] + dist["launches_fused_ring"][
                     "fused_ring_fwd"],
                 "fused_ring_bwd": ring_tr["fused_ring"]["launches"][
                     "fused_ring_bwd"],
@@ -5120,7 +5571,7 @@ def main() -> int:
                                          "routes", "attrs",
                                          "pipelined_launches", "spec_verify",
                                          "speculative_launches",
-                                         "checkpoint_launches")
+                                         "checkpoint_launches", "stats")
                        if k in r}
                     for r in kernels],
         "card": card,
@@ -5151,7 +5602,12 @@ def main() -> int:
             "op_ms", "scan_op_ms", "library_fwd_bwd_ms",
             "fused_vs_scan_grad_err")},
         "handoff": {k: v for k, v in hand.items()
-                    if not k.startswith("prof_")},
+                    if not k.startswith(("prof_", "_"))},
+        "dist_generate": {k: v for k, v in dist.items()
+                          if not k.startswith("prof_")}
+        | {k: v[:2] for k, v in dist.items() if k.startswith("prof_")},
+        "devstats": dstats,
+        "obs": obs_res,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ from burst_attn_tpu.models import init_params as j_init_params
 from burst_attn_tpu.models import paged_decode as jpd
 from burst_attn_tpu.serving import RaggedServeEngine as JRaggedServeEngine
 from burst_attn_tpu.serving import checkpoint as jckpt
+from burst_attn_tpu_torch import obs
 from burst_attn_tpu_torch.models import paged_decode as pd
 from burst_attn_tpu_torch.models.serve import ServeEngine
 from burst_attn_tpu_torch.models.transformer import (
@@ -239,12 +240,12 @@ def test_journal_crash_recovery_resumes_not_replays(model, kind, tmp_path):
                        "resume_prefix": {}})
     del eng, journal                        # the "SIGKILL"
 
-    replayed0 = ckpt.STATS["serve.recovered_tokens_replayed"]
+    replayed0 = obs.counter("serve.recovered_tokens_replayed").get()
     eng = _engine(model, kind)
     info = ckpt.recover_engine(eng, snap, jour)
     assert info.from_snapshot
-    assert ckpt.STATS["serve.recovered_tokens_replayed"] - replayed0 == \
-        info.total_replayed
+    assert obs.counter("serve.recovered_tokens_replayed").get() \
+        - replayed0 == info.total_replayed
     eng.journal = ckpt.rewrite_journal(eng, jour2, info.rid_map,
                                        info.resume_prefix)
     out = dict(delivered)

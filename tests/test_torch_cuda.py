@@ -6,12 +6,14 @@ which that machine need not have):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from burst_attn_tpu_torch import obs
 from burst_attn_tpu_torch.models import train
 from burst_attn_tpu_torch.models.serve import ServeEngine
 from burst_attn_tpu_torch.models.transformer import (
@@ -847,7 +849,7 @@ def test_ragged_engine_on_the_card_matches_the_cpu_engine(dev, kw):
         out[str(where)] = eng.run()
         moved = ragged_paged.ragged_paged_attention.launches - before
         assert (moved == 0) if str(where) == "cpu" else (moved > 0)
-        assert eng.stats["burst.fused_fallback{reason=head-dim,pass=serve}"] \
+        assert eng.stats["burst.fused_fallback{pass=serve,reason=head-dim}"] \
             == 0
     assert out["cpu"] == out[str(dev)]
 
@@ -1112,7 +1114,7 @@ def test_burst_attn_fused_matches_scan(dev, layout):
     q = _rand(g, dev, torch.bfloat16, 1, 8, 2048, 128)
     k, v = (_rand(g, dev, torch.bfloat16, 1, 2, 2048, 128) for _ in range(2))
     q, k, v = (layouts.to_layout(t, layout, 4, 2) for t in (q, k, v))
-    burst.STATS.clear()
+    before = obs.counter_values()
     f0, k0 = flash.flash_fwd.launches, fused_ring.fused_ring_fwd.launches
     fused = burst.burst_attn(q, k, v, mesh={"sp": 4}, causal=True,
                              layout=layout, backend="fused_ring")
@@ -1123,7 +1125,7 @@ def test_burst_attn_fused_matches_scan(dev, layout):
     live = 10 if layout == "contig" else 16  # contig skips future rounds
     assert flash.flash_fwd.launches - f0 == live
     assert not any(key.startswith("burst.fused_fallback")
-                   for key in burst.STATS)
+                   for key in obs.counter_deltas(before))
     torch.testing.assert_close(fused, scan, **TOL[torch.bfloat16])
     plain = burst.burst_attn(q.float(), k.float(), v.float(), mesh={"sp": 4},
                              causal=True, layout=layout, backend="jnp")
@@ -1226,7 +1228,7 @@ def test_burst_attn_gradients_fused_match_scan(dev, layout):
         o = burst.burst_attn(*leaves, backend=backend, **kw)
         return torch.autograd.grad(o, leaves, do)
 
-    burst.STATS.clear()
+    before = obs.counter_values()
     counts = lambda: (fused_ring.fused_ring_fwd.launches,  # noqa: E731
                       fused_ring_bwd.fused_ring_bwd.launches,
                       flash.flash_fwd.launches,
@@ -1240,7 +1242,7 @@ def test_burst_attn_gradients_fused_match_scan(dev, layout):
     assert [b - a for a, b in zip(c0, c1)] == [1, 1, 0, 0]
     assert [b - a for a, b in zip(c1, c2)] == [0, 0, live, live]
     assert not any(key.startswith("burst.fused_fallback")
-                   for key in burst.STATS)
+                   for key in obs.counter_deltas(before))
     plain = grads("jnp")
     for a, b, c in zip(fused, scan, plain):
         tol = dict(atol=1e-3 * float(c.float().abs().max()), rtol=1.6e-2)
@@ -1771,3 +1773,145 @@ def test_pipelined_engine_fsyncs_before_it_delivers(dev, tmp_path):
         eng.submit(p, 14)
     with pytest.raises(DurabilityViolation):
         eng.run()
+
+
+# -- slice 14: ring telemetry, the dense-shard decode, obs on the card ------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("world,s", [(4, 2048), (8, 1024)])
+def test_fused_ring_stats_instances_bitwise(dev, dtype, world, s):
+    """Kernels 8 and 9 with the STATS flag: outputs bitwise those of the
+    stats-off instances, slot counts equal to the plain versions' (which
+    replay the programs), and the stats instances' registers and spills
+    equal the stats-off ones'."""
+    cfg = burst.BurstConfig(causal=True, layout="zigzag",
+                            backend="fused_ring")
+    g = torch.Generator(device=dev).manual_seed(41)
+    q = _rand(g, dev, dtype, world, 1, 8, s, 128)
+    k, v = (_rand(g, dev, dtype, world, 1, 2, s, 128) for _ in range(2))
+    o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, 1, world)
+    o2, lse2, st = fused_ring.fused_ring_fwd(q, k, v, cfg, 1, world,
+                                             collect_stats=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    small = (t[:, :, :1, :256].float().cpu().contiguous()
+             for t in (q, k, v))
+    want = fused_ring.fused_ring_fwd(*small, cfg, 1, world,
+                                     collect_stats=True)[2]
+    assert torch.equal(st.slot_use.cpu(), want.slot_use)
+    assert (st.fused_rounds.cpu() == world).all()
+    do = _rand(g, dev, dtype, world, 1, 8, s, 128)
+    plain = fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, 1, world)
+    *grads, slot_use = fused_ring_bwd.fused_ring_bwd(
+        q, k, v, o, lse, do, cfg, 1, world, collect_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(plain, grads))
+    small = [t[:, :, :1, :256].float().cpu().contiguous()
+             for t in (q, k, v)]
+    o_s, lse_s = fused_ring.fused_ring_fwd(*small, cfg, 1, world)
+    want_bwd = fused_ring_bwd.fused_ring_bwd(
+        *small, o_s, lse_s, torch.ones_like(o_s), cfg, 1, world,
+        collect_stats=True)[3]
+    assert torch.equal(slot_use.cpu(), want_bwd)
+    off = {a["instance"]: a for a in fused_ring.fwd_attrs()}
+    for a in fused_ring.fwd_attrs(stats=True):
+        b = off[a["instance"][:-len(" stats")]]
+        assert (a["regs"], a["local_bytes"]) == (b["regs"], b["local_bytes"])
+    off = {a["instance"]: a for a in fused_ring_bwd.bwd_attrs()}
+    for a in fused_ring_bwd.bwd_attrs(stats=True):
+        b = off[a["instance"][:-len(" stats")]]
+        assert (a["regs"], a["local_bytes"]) == (b["regs"], b["local_bytes"])
+
+
+@pytest.mark.parametrize("backend", ["fused_ring", "auto"])
+def test_dist_generate_on_the_card(dev, backend):
+    """fp32 dist_generate over sp=4 on the card: kernel 8 once a layer
+    (fused) or kernel 1 once a live round of every position (scan), no
+    fallback, tokens equal to the same model's dist_generate on the CPU
+    and to the single-device generate."""
+    from burst_attn_tpu_torch.models.decode import generate
+    from burst_attn_tpu_torch.models.dist_decode import dist_generate
+
+    cfg, params = _serving_model(dev)
+    cfg = dataclasses.replace(cfg, attn_backend=backend, batch_axis=None,
+                              head_axis=None)
+    prompt = torch.from_numpy(np.random.default_rng(31).integers(
+        1, cfg.vocab, size=(1, 1024)))
+    f0, k0 = flash.flash_fwd.launches, fused_ring.fused_ring_fwd.launches
+    before = obs.counter_values()
+    got = dist_generate(params, prompt.to(dev), cfg, {"sp": 4}, steps=8)
+    moved = obs.counter_deltas(before)
+    if backend == "fused_ring":
+        assert (flash.flash_fwd.launches - f0,
+                fused_ring.fused_ring_fwd.launches - k0) == (0, cfg.n_layers)
+    else:
+        assert (flash.flash_fwd.launches - f0,
+                fused_ring.fused_ring_fwd.launches - k0) == (
+                    cfg.n_layers * 16, 0)
+    assert not any(key.startswith("burst.fused_fallback") for key in moved)
+    cpu = {k_: (v.cpu() if torch.is_tensor(v) else
+                [{n: w.cpu() for n, w in lay.items()} for lay in v])
+           for k_, v in params.items()}
+    want = dist_generate(cpu, prompt, cfg, {"sp": 4}, steps=8)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, generate(cpu, prompt, cfg, steps=8,
+                                      max_seq=1024 + 8))
+
+
+def test_pipelined_counters_equal_the_synchronous_engine(dev):
+    """The pipelined K=4 engine counts its ticks where its deferred
+    readback lands (never inside the captured graphs): a K=4 run and the
+    synchronous run of one workload give equal serve.tokens_generated,
+    serve.engine_steps and serve.requests_retired."""
+    cfg, params = _serving_model(dev)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (40, 130, 77, 9)]
+    kw = dict(slots=3, n_pages=16, max_pages_per_seq=4, chunk=64,
+              device=dev)
+    names = ("serve.tokens_generated", "serve.engine_steps",
+             "serve.requests_retired{cause=budget}")
+    seen = {}
+    for extra in ({}, dict(pipeline=True, multi_step=4)):
+        eng = RaggedServeEngine(params, cfg, **kw, **extra)
+        for p in prompts:
+            eng.submit(p, 14)
+        out = eng.run()
+        seen[bool(extra)] = (out, [eng.stats[n] for n in names])
+        if extra:
+            assert eng.graphs.replays > 0
+    assert seen[True] == seen[False]
+    assert seen[False][1][0] == 14 * len(prompts)
+
+
+def test_span_is_a_noop_inside_graph_capture(dev):
+    """obs.span and a trace record entered while a CUDA graph is being
+    captured record nothing (they would run once, at capture); the same
+    span outside the capture records."""
+    from burst_attn_tpu_torch.obs import trace as tracing
+
+    x = torch.zeros(16, device=dev)
+    obs.reset_spans()
+    before = obs.histogram("span.capture.probe").get()["count"]
+    tracing.reset_traces()
+    tracing.enable()
+    try:
+        tc = tracing.start_request(1)
+        graph = torch.cuda.CUDAGraph()
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            x.add_(1)  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(s)
+        with torch.cuda.graph(graph):
+            with obs.span("capture.probe") as sp:
+                assert sp.span_id is None
+                tracing.record_span(tc, "serve.queued", 0.0, 1.0)
+                x.add_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert obs.completed_spans() == []
+        assert obs.histogram("span.capture.probe").get()["count"] == before
+        assert tracing.trace_records() == []
+    finally:
+        tracing.reset_traces()
+    with obs.span("capture.probe"):
+        pass
+    assert [s_.name for s_ in obs.completed_spans()] == ["capture.probe"]

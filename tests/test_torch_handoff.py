@@ -26,7 +26,7 @@ from burst_attn_tpu_torch.models import paged_decode as pd
 from burst_attn_tpu_torch.models.dist_decode import dist_paged_decode_step
 from burst_attn_tpu_torch.models.transformer import ModelConfig, \
     params_from_jax
-from burst_attn_tpu_torch.parallel import burst
+from burst_attn_tpu_torch import obs
 from burst_attn_tpu_torch.parallel.mesh import Mesh
 from burst_attn_tpu_torch.serving import (
     TokenJournal, handoff_decode, handoff_generate, journal_tokens_by_ext,
@@ -96,15 +96,15 @@ def test_handoff_matches_jax(ref, backend):
     cfg = _cfg(backend)
     mesh = Mesh({"sp": 4}, device="cpu")
     st, pool = _fresh(cfg)
-    burst.STATS.clear()
+    before = obs.counter_values()
     last, st = ring_prefill_to_pages(ref["params"], ref["prompt"], st, pool,
                                      0, cfg, mesh)
     np.testing.assert_allclose(last.numpy(), ref["last"], atol=ATOL, rtol=0)
     if backend == "fused_ring":
-        assert burst.STATS["burst.dispatch{path=fused,backend=fused_ring,"
-                           "tile=pallas}"] == DIMS["n_layers"]
-        assert not any(k.startswith("burst.fused_fallback")
-                       for k in burst.STATS)
+        moved = obs.counter_deltas(before)
+        assert moved["burst.dispatch{backend=fused_ring,path=fused,"
+                     "tile=pallas}"] == DIMS["n_layers"]
+        assert not any(k.startswith("burst.fused_fallback") for k in moved)
     st = pd.provision_capacity(st, pool, 0, STEPS)
     step, _ = dist_paged_decode_step(ref["params"], ref["feed"], st, cfg,
                                      {"sp": 4})

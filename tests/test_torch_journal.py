@@ -10,6 +10,7 @@ import pytest
 
 from burst_attn_tpu.protocols import journal as jjp
 from burst_attn_tpu.serving import checkpoint as jckpt
+from burst_attn_tpu_torch import obs
 from burst_attn_tpu_torch.protocols import ProtocolError
 from burst_attn_tpu_torch.protocols import journal as jp
 from burst_attn_tpu_torch.serving import checkpoint as ckpt
@@ -156,9 +157,9 @@ def test_tokenjournal_reopen_of_a_corrupt_file_warns(tmp_path):
     path = str(tmp_path / "bad.jsonl")
     with open(path, "w") as f:
         f.write("garbage\n{\"record\": \"done\", \"rid\": 0}\n")
-    before = ckpt.STATS["serve.journal_reopen_corrupt"]
+    before = obs.counter("serve.journal_reopen_corrupt").get()
     j = ckpt.TokenJournal(path)
-    assert ckpt.STATS["serve.journal_reopen_corrupt"] == before + 1
+    assert obs.counter("serve.journal_reopen_corrupt").get() == before + 1
     j.close()
 
 

@@ -37,7 +37,10 @@ ring = ["parallel.mesh", "parallel.ring", "parallel.schedule",
         "parallel.burst", "ops.fused_ring", "ops.tuning",
         "models.dist_decode", "serving.handoff"]
 bench = ["bench", "bench.step_probe"]
-bad += [m for m in ring + bench if pkg.__name__ + "." + m not in names]
+obs = ["obs", "obs.registry", "obs.logs", "obs.spans", "obs.trace",
+       "obs.aggregate", "obs.__main__", "obs.devstats"]
+bad += [m for m in ring + bench + obs
+        if pkg.__name__ + "." + m not in names]
 print(len(names), bad)
 """
 

@@ -21,7 +21,7 @@ from burst_attn_tpu.ops import masks as jmasks
 from burst_attn_tpu.parallel import burst as jburst
 from burst_attn_tpu.parallel import schedule as jsched
 from burst_attn_tpu.utils.compat import shard_map
-from burst_attn_tpu_torch import burst_attn
+from burst_attn_tpu_torch import burst_attn, obs
 from burst_attn_tpu_torch.ops import fused_ring, masks
 from burst_attn_tpu_torch.parallel import burst, mesh, ring, schedule
 
@@ -393,20 +393,21 @@ def test_burst_attn_matches_jax(layout, causal, n, n_kv, shape, kw):
         q, k, v, mesh=jm, seq_axes=seq_axes, causal=causal, layout=layout,
         backend="jnp", batch_axes=None, head_axes=None))(q, k, v))
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
-    burst.STATS.clear()
+    before = obs.counter_values()
     for backend in ("jnp", "auto", "fused_ring"):
         got = burst_attn(tq, tk, tv, mesh=shape, seq_axes=seq_axes,
                          causal=causal, layout=layout, backend=backend,
                          **(kw if backend == "fused_ring" else {}))
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0,
                                    err_msg=backend)
-    assert burst.STATS["burst.dispatch{path=fused,backend=fused_ring,"
-                       "tile=pallas}"] == 1
-    assert not any(k.startswith("burst.fused_fallback") for k in burst.STATS)
+    moved = obs.counter_deltas(before)
+    assert moved["burst.dispatch{backend=fused_ring,path=fused,"
+                 "tile=pallas}"] == 1
+    assert not any(k.startswith("burst.fused_fallback") for k in moved)
     rounds, intra, inter = ring.ring_round_counts(
         shape.get("inter", 1), shape[seq_axes[-1]])
-    assert burst.STATS["burst.ring_rounds"] == 3 * rounds
-    assert burst.STATS["burst.ring_hops{axis=intra}"] == 3 * intra
+    assert moved["burst.ring_rounds"] == 3 * rounds
+    assert moved["burst.ring_hops{axis=intra}"] == 3 * intra
 
 
 def test_contig_ring_skips_dead_rounds_and_truncates():
@@ -427,29 +428,29 @@ def test_contig_ring_skips_dead_rounds_and_truncates():
         burst.flash_fwd = orig
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=0)
     assert len(calls) == 4 + 3 + 2 + 1  # position p has p + 1 live rounds
-    burst.STATS.clear()
+    before = obs.counter_values()
     burst_attn(q, q, q, mesh={"sp": 4}, causal=True, layout="contig",
                backend="fused_ring", max_segment_len=2)
-    assert burst.STATS["burst.ring_rounds"] == 2
+    assert obs.counter_deltas(before)["burst.ring_rounds"] == 2
 
 
 def test_burst_attn_declines_and_rejects():
     q = torch.randn(1, 2, 32, 16)
-    burst.STATS.clear()
+    before = obs.counter_values()
     # one position: nothing to rotate, the fused config takes the scan ring
     got = burst_attn(q, q, q, mesh={"sp": 1}, causal=True, layout="zigzag",
                      backend="fused_ring")
     want = burst_attn(q, q, q, mesh={"sp": 1}, causal=True,
                       layout="zigzag", backend="jnp")
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
-    assert burst.STATS["burst.fused_fallback{reason=world-lt-2,pass=fwd}"] \
-        == 1
+    assert obs.counter_deltas(before)[
+        "burst.fused_fallback{pass=fwd,reason=world-lt-2}"] == 1
     # cross-attention lengths: the scan ring, non-causal only
     kx = torch.randn(1, 2, 64, 16)
     burst_attn(q, kx, kx, mesh={"sp": 2}, layout="contig",
                backend="fused_ring")
-    assert burst.STATS["burst.fused_fallback{reason=cross-attn,pass=fwd}"] \
-        == 1
+    assert obs.counter_deltas(before)[
+        "burst.fused_fallback{pass=fwd,reason=cross-attn}"] == 1
     with pytest.raises(ValueError, match="cross-attention"):
         burst_attn(q, kx, kx, mesh={"sp": 2}, causal=True, layout="contig")
     # under grad the ring backward runs: a contig ring's gradient is
@@ -465,10 +466,16 @@ def test_burst_attn_declines_and_rejects():
     with torch.no_grad():  # no grad asked for: the forward alone runs
         burst_attn(q.clone().requires_grad_(), q, q, mesh={"sp": 2})
     for kw in (dict(window=8), dict(segment_ids=torch.zeros(1, 32)),
-               dict(wire_dtype="int8"), dict(collect_stats=True)):
+               dict(wire_dtype="int8")):
         with pytest.raises(NotImplementedError):
             burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
                        **kw)
+    # ring telemetry is ported: (o, DevStats), o the plain call's
+    o, st = burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
+                       collect_stats=True)
+    assert torch.equal(o, burst_attn(q, q, q, mesh={"sp": 2}, causal=True,
+                                     layout="contig"))
+    assert st.rounds.tolist() == [2, 2]
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         burst_attn(q, q, q, mesh={"sp": 2, "tp": 2}, head_axes="tp")
     with pytest.raises(ValueError, match="backend"):

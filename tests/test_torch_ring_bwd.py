@@ -22,7 +22,7 @@ import torch
 from jax.sharding import Mesh as JMesh
 
 import burst_attn_tpu as jbat
-from burst_attn_tpu_torch import burst_attn
+from burst_attn_tpu_torch import burst_attn, obs
 from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd, masks, tile
 from burst_attn_tpu_torch.parallel import burst, mesh, ring, schedule
 
@@ -73,7 +73,7 @@ def test_ring_gradients_match_jax(layout, causal, n, n_kv, kv_mul, shape,
 
     want = [np.asarray(x) for x in jax.jit(jax.grad(
         jloss, argnums=(0, 1, 2)))(q, k, v)]
-    burst.STATS.clear()
+    before = obs.counter_values()
     for backend in ("jnp", "fused_ring"):
         tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
         o = burst_attn(tq, tk, tv, mesh=shape, backend=backend, **common)
@@ -82,15 +82,15 @@ def test_ring_gradients_match_jax(layout, causal, n, n_kv, kv_mul, shape,
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             np.testing.assert_allclose(a.numpy(), b, **TOL,
                                        err_msg=f"{backend} {name}")
-    fused = burst.STATS["burst.dispatch{path=fused,backend=fused_ring,"
-                        "tile=pallas}"]
+    moved = obs.counter_deltas(before)
+    fused = moved["burst.dispatch{backend=fused_ring,path=fused,"
+                  "tile=pallas}"]
     if kv_mul == 1:  # forward and backward through the fused ring
-        assert fused == 2, dict(burst.STATS)
-        assert not any(x.startswith("burst.fused_fallback")
-                       for x in burst.STATS)
+        assert fused == 2, dict(moved)
+        assert not any(x.startswith("burst.fused_fallback") for x in moved)
     else:
-        assert burst.STATS["burst.fused_fallback{reason=cross-attn,"
-                           "pass=bwd}"] == 1
+        assert moved["burst.fused_fallback{pass=bwd,"
+                     "reason=cross-attn}"] == 1
 
 
 def test_backward_counts_and_declines():
@@ -99,26 +99,28 @@ def test_backward_counts_and_declines():
     takes the scan ring under the bwd fallback label, with the same
     gradients."""
     q = torch.randn(1, 2, 32, 16)
-    burst.STATS.clear()
+    before = obs.counter_values()
     x = q.clone().requires_grad_()
     burst_attn(x, x, x, mesh={"sp": 4}, causal=True).sum().backward()
     rounds, intra, _ = ring.ring_round_counts(1, 4)
-    assert burst.STATS["burst.dispatch{path=scan,backend=auto,"
-                       "tile=pallas}"] == 2
-    assert burst.STATS["burst.ring_rounds"] == 2 * rounds
-    assert burst.STATS["burst.ring_hops{axis=intra}"] == 2 * intra
+    moved = obs.counter_deltas(before)
+    assert moved["burst.dispatch{backend=auto,path=scan,"
+                 "tile=pallas}"] == 2
+    assert moved["burst.ring_rounds"] == 2 * rounds
+    assert moved["burst.ring_hops{axis=intra}"] == 2 * intra
     grads = {}
     for backend in ("fused_ring", "jnp"):
-        burst.STATS.clear()
+        before = obs.counter_values()
         x = q.clone().requires_grad_()
         burst_attn(x, x, x, mesh={"sp": 4}, causal=True, layout="contig",
                    backend=backend, max_segment_len=1).sum().backward()
         grads[backend] = x.grad
         if backend == "fused_ring":
-            assert burst.STATS["burst.fused_fallback{reason="
-                               "schedule-compiler,pass=bwd}"] == 1
-            assert burst.STATS["burst.dispatch{path=fused,"
-                               "backend=fused_ring,tile=pallas}"] == 1
+            moved = obs.counter_deltas(before)
+            assert moved["burst.fused_fallback{pass=bwd,"
+                         "reason=schedule-compiler}"] == 1
+            assert moved["burst.dispatch{backend=fused_ring,"
+                         "path=fused,tile=pallas}"] == 1
     assert torch.allclose(grads["fused_ring"], grads["jnp"], atol=1e-6)
 
 

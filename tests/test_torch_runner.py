@@ -20,7 +20,7 @@ from burst_attn_tpu_torch.models.evaluate import Evaluator
 from burst_attn_tpu_torch.models.transformer import (
     ModelConfig, param_leaves, params_from_jax,
 )
-from burst_attn_tpu_torch.parallel import burst
+from burst_attn_tpu_torch import obs
 from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
 
 DIMS = dict(vocab=512, d_model=64, n_layers=1, n_heads=4, n_kv_heads=2,
@@ -141,14 +141,14 @@ def test_fit_on_a_ring_matches_one_position(data_path, tmp_path):
                            eval_every=2, eval_batches=2)
     tcfg = train.TrainConfig(lr=1e-3)
     hist = {}
-    burst.STATS.clear()
+    before = obs.counter_values()
     for mesh in (None, train.make_mesh({"sp": 2})):
         _, hist[mesh is None] = runner.fit(_cfg(), tcfg, run, mesh,
                                            device="cpu")
     # the ring run's attention: a forward and a backward dispatch per
     # train step, a forward per eval batch
-    assert burst.STATS["burst.dispatch{path=scan,backend=auto,"
-                       "tile=pallas}"] == 2 * 2 + 2
+    assert obs.counter_deltas(before)[
+        "burst.dispatch{backend=auto,path=scan,tile=pallas}"] == 2 * 2 + 2
     for key in ("loss", "eval_loss"):
         got = [h[key] for h in hist[False] if key in h]
         want = [h[key] for h in hist[True] if key in h]

@@ -252,9 +252,10 @@ def test_unported_paths_raise():
     for sizes in ({"dp": 2, "sp": 1}, {"sp": 4, "tp": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP A2"):
             train.make_mesh(sizes)
-    with pytest.raises(NotImplementedError):
+    # ring telemetry is ported: it takes one microbatch
+    with pytest.raises(ValueError, match="grad_accum"):
         train.make_train_step(_cfg(), jtrain.TrainConfig(
-            collect_devstats=True), device="cpu")
+            collect_devstats=True, grad_accum=2), device="cpu")
     with pytest.raises(NotImplementedError):
         train.packed_fields_np(np.zeros((1, 4), np.int32), 0)
     with pytest.raises(NotImplementedError):

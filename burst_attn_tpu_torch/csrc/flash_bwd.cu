@@ -13,7 +13,13 @@
 // lse [B,N,Sq] fp32 (natural log).  Outputs fp32 dq [B,N,Sq,D] and dk, dv
 // [B,Nk,Skv,D].  The mask scalars (q_lo, q_hi, kv_hi, causal, offset)
 // arrive by value; ragged lengths are masked in-kernel, and rows whose
-// lse is -inf contribute exact zeros.
+// lse is -inf contribute exact zeros.  With SEG (a template flag of every
+// kernel; null id pointers take the instances without it) q_ids [B,Sq]
+// and kv_ids [B,Skv] int32 pack documents into a row: a pair counts only
+// where the ids are equal (pallas_flash.py `_block_mask`).  P and dS are
+// zeroed by that test itself, in full tiles too (a tile is full for the
+// mask scalars, not for the ids); every tile the scalars leave is
+// computed, skipping tiles that share no document is later work.
 //
 // Per (q tile i, kv tile j) step, with P = exp2(S*scale*log2e - lse*log2e):
 //   S = Q K^T, dP = dO V^T, dS = P * (dP - delta),
@@ -105,13 +111,15 @@ namespace {
 using namespace bat;
 using namespace bat::bwd;
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_kernel(const T* __restrict__ dO, const T* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ delta,
                     const float* __restrict__ lse, float* __restrict__ dq,
-                    int N, int Nk, float scale, Mask mk) {
+                    const int* __restrict__ q_ids,
+                    const int* __restrict__ kv_ids, int N, int Nk,
+                    float scale, Mask mk) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   extern __shared__ float4 smem4[];
   const Tiles<D> t(reinterpret_cast<float*>(smem4));
@@ -146,22 +154,26 @@ flash_bwd_dq_kernel(const T* __restrict__ dO, const T* __restrict__ q,
     load_rows<T, D, BKV, NT>(v + bhk * Skv * D, j0, Skv, t.v, Tiles<D>::LD,
                              1.f);
     __syncthreads();
-    scores<D, false>(t, scale_log2, i0, j0, mk);
+    scores<D, false, SEG>(t, scale_log2, i0, j0, mk,
+                          SEG ? q_ids + (size_t)b * Sq : nullptr,
+                          SEG ? kv_ids + (size_t)b * Skv : nullptr);
     __syncthreads();
     accum_q<D>(t, acc);
   }
   store_block<D>(dq + bh * Sq * D, i0, Sq, acc, scale);
 }
 
-template <typename T, int D, bool FUSED>
+template <typename T, int D, bool FUSED, bool SEG>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ delta,
                     const float* __restrict__ lse, float* __restrict__ dq,
                     float* __restrict__ dk, float* __restrict__ dv,
-                    int* __restrict__ counters, int N, int Nk, float scale,
-                    Mask mk) {
+                    int* __restrict__ counters,
+                    const int* __restrict__ q_ids,
+                    const int* __restrict__ kv_ids, int N, int Nk,
+                    float scale, Mask mk) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   extern __shared__ float4 smem4[];
   const Tiles<D> t(reinterpret_cast<float*>(smem4));
@@ -220,7 +232,9 @@ flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
       load_row_stats(lse + bh * Sq, delta + bh * Sq, i0, Sq, t.lse2,
                      t.delta);
       __syncthreads();
-      scores<D, true>(t, scale_log2, i0, j0, mk);
+      scores<D, true, SEG>(t, scale_log2, i0, j0, mk,
+                           SEG ? q_ids + (size_t)b * Sq : nullptr,
+                           SEG ? kv_ids + (size_t)b * Skv : nullptr);
       __syncthreads();
       accum_kv<D>(t, dka, dva);
       if constexpr (FUSED) {
@@ -244,7 +258,10 @@ flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
 // last tile down) and the fold order are the SIMT kernel's; a step's Q and
 // dO land in stage (s + 1) % 2 while step s runs, their lse (base 2, +inf
 // for a row that sees nothing or lies past Sq: P = 0 with no test) and
-// delta in registers until the step's tiles have landed.
+// delta in registers until the step's tiles have landed; SEG: the q
+// rows' ids likewise (sm.qid), the lane's two kv columns' ids in
+// registers for the CTA's life (mbwd::kv_tile_ids).
+template <bool SEG>
 __global__ void __launch_bounds__(mbwd::NT, 1)
 flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                            const __nv_bfloat16* __restrict__ q,
@@ -254,7 +271,9 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                            const float* __restrict__ lse,
                            float* __restrict__ dq, float* __restrict__ dk,
                            float* __restrict__ dv, int* __restrict__ counters,
-                           int N, int Nk, float scale, Mask mk) {
+                           const int* __restrict__ q_ids,
+                           const int* __restrict__ kv_ids, int N, int Nk,
+                           float scale, Mask mk) {
   constexpr int D = kTileD, MQ = mbwd::BQ, MKV = mbwd::BKV;
   extern __shared__ float4 smem4[];
   const mbwd::Smem sm(reinterpret_cast<char*>(smem4));
@@ -281,6 +300,7 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
   const int nt = t_hi - t_lo, n_st = G * nt;
 
   float lse_next = neg_inf(), delta_next = 0.f;
+  int qid_next = -1, kid0 = 0, kid1 = 0;
   auto issue = [&](int s, int st) {  // step s: q head s / nt, tile from top
     const int i0 = (t_hi - 1 - s % nt) * MQ;
     const size_t bh = (size_t)b * N + (size_t)hk * G + s / nt;
@@ -292,6 +312,8 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
       lse_next = rr < valid ? lse[bh * Sq + i0 + rr] : neg_inf();
     else if (threadIdx.x < 2 * MQ)
       delta_next = rr < valid ? delta[bh * Sq + i0 + rr] : 0.f;
+    else if (SEG && threadIdx.x < 3 * MQ)
+      qid_next = rr < valid ? q_ids[(size_t)b * Sq + i0 + rr] : -1;
   };
   mbwd::KvAcc acc;
   acc.zero();
@@ -299,6 +321,8 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
     const int valid = min(MKV, Skv - j0);
     cp_tile<MKV, mbwd::NT>(sm.k, k + (bhk * Skv + j0) * D, valid);
     cp_tile<MKV, mbwd::NT>(sm.v, v + (bhk * Skv + j0) * D, valid);
+    if constexpr (SEG)
+      mbwd::kv_tile_ids(kv_ids + (size_t)b * Skv, j0, Skv, kid0, kid1);
     issue(0, 0);
   }
   cp_async_commit();
@@ -312,11 +336,14 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
           (lse_next == neg_inf()) ? CUDART_INF_F : lse_next * kLog2e;
     else if (threadIdx.x < 2 * MQ)
       sm.delta[threadIdx.x - MQ] = delta_next;
+    else if (SEG && threadIdx.x < 3 * MQ)
+      sm.qid[threadIdx.x - 2 * MQ] = qid_next;
     __syncthreads();
     if (s + 1 < n_st) issue(s + 1, st ^ 1);
     cp_async_commit();
     float part[8][4];
-    mbwd::step(sm, st, acc, mk, i0, j0, scale_log2, part);
+    mbwd::step<true, SEG>(sm, st, acc, mk, i0, j0, scale_log2, part,
+                          nullptr, kid0, kid1);
     int* counter = counters + bh * nqb + qt;
     mbwd::fold_add(dq + bh * Sq * D, counter, jt, i0, Sq, part, scale, false,
                    nullptr);
@@ -351,9 +378,14 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
 // held the kernel to 168 registers and spilled 16 B, and it ran 2.00-2.02
 // ms against 1.78-1.80 at B1 N16 S8192 causal, bitwise the same dq
 // (tools/kernel_ab.py --parts bounds; NVIDIA H100 80GB HBM3, 700.00 W).
+// SEG: the lane's two rows' ids in registers, each chunk's 64 kv ids
+// staged beside its K and V (two stages of 64 int32 after the tiles), as
+// the forward's mma_fold does.
 constexpr int kDqNT = 128;
 constexpr size_t kDqSmem = sizeof(__nv_bfloat16) * 6 * 64 * kTileLd;
+constexpr size_t kDqSegSmem = kDqSmem + sizeof(int) * 2 * kTileChunk;
 
+template <bool SEG>
 __global__ void __launch_bounds__(kDqNT, 2)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                         const __nv_bfloat16* __restrict__ q,
@@ -361,13 +393,16 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                         const __nv_bfloat16* __restrict__ v,
                         const float* __restrict__ delta,
                         const float* __restrict__ lse, float* __restrict__ dq,
-                        int N, int Nk, float scale, Mask mk) {
+                        const int* __restrict__ q_ids,
+                        const int* __restrict__ kv_ids, int N, int Nk,
+                        float scale, Mask mk) {
   constexpr int D = kTileD, LD = kTileLd, CH = kTileChunk, MQ = 64;
   constexpr int TILE = 64 * LD;
   extern __shared__ float4 smem4[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* sdO = sQ + TILE;
   __nv_bfloat16* sKV = sdO + TILE;  // stage i: K, then V
+  int* sIds = reinterpret_cast<int*>(sKV + 4 * TILE);  // (SEG)
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int g = lane / 4, c = lane % 4, mi = lane / 8, r8 = lane % 8;
   const int Sq = mk.Sq, Skv = mk.Skv;
@@ -381,7 +416,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
   cp_tile<MQ, kDqNT>(sdO, dO + (bh * Sq + q0) * D, valid_q);
   // the lane's rows: lse (base 2), delta, last visible column
   float lse2[2], dl[2];
-  int hi[2];
+  int hi[2], qid[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int qr = q0 + 16 * w + g + 8 * hf;
@@ -391,6 +426,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
     int h_ = min(mk.kv_hi, Skv) - 1;
     if (mk.causal) h_ = min(h_, qr + mk.offset);
     hi[hf] = mk.row_ok(qr) ? h_ : -1;
+    qid[hf] = (SEG && qr < Sq) ? q_ids[(size_t)b * Sq + qr] : -1;
   }
   const int w_hi = __reduce_max_sync(0xffffffffu, max(hi[0], hi[1]));
   // the chunks: up to the last active row's causal diagonal and kv_hi
@@ -407,6 +443,11 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
     cp_tile<CH, kDqNT>(st, k + (bhk * Skv + (size_t)CH * i) * D, valid);
     cp_tile<CH, kDqNT>(st + TILE, v + (bhk * Skv + (size_t)CH * i) * D,
                        valid);
+    if constexpr (SEG) {
+      if ((int)threadIdx.x < valid)
+        cp_async4(sIds + (i & 1) * CH + threadIdx.x,
+                  kv_ids + (size_t)b * Skv + CH * i + threadIdx.x);
+    }
   };
   if (n > 0) issue(0);
   cp_async_commit();
@@ -428,6 +469,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
     if (j0 > w_hi) continue;
     const __nv_bfloat16* sK = sKV + (i & 1) * 2 * TILE;
     const __nv_bfloat16* sV = sK + TILE;
+    const int* sid = SEG ? sIds + (i & 1) * CH : nullptr;
 
     float s[CH / 8][4], dp[CH / 8][4];
 #pragma unroll
@@ -461,7 +503,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
       for (int e = 0; e < 4; ++e) {
         const int hf = e / 2, col = j0 + 8 * j + 2 * c + (e & 1);
         const float p =
-            col <= hi[hf]
+            col <= hi[hf] && (!SEG || sid[col - j0] == qid[hf])
                 ? mbwd::ex2_approx(fmaf(s[j][e], scale_log2, -lse2[hf]))
                 : 0.f;
         ds[e] = p * (dp[j][e] - dl[hf]);
@@ -519,6 +561,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
 // kv tile comes from blockIdx; the q-tile walk (the group's q heads in
 // turn, each from its last tile down) and the two Q/dO stages are the
 // fused kernel's, and dk, dv are written once (the GQA sum in the CTA).
+// SEG: the ids as the fused kernel holds them.
+template <bool SEG>
 __global__ void __launch_bounds__(mbwd::NT, 1)
 flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                           const __nv_bfloat16* __restrict__ q,
@@ -527,7 +571,9 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                           const float* __restrict__ delta,
                           const float* __restrict__ lse,
                           float* __restrict__ dk, float* __restrict__ dv,
-                          int N, int Nk, float scale, Mask mk) {
+                          const int* __restrict__ q_ids,
+                          const int* __restrict__ kv_ids, int N, int Nk,
+                          float scale, Mask mk) {
   constexpr int D = kTileD, MQ = mbwd::BQ, MKV = mbwd::BKV;
   extern __shared__ float4 smem4[];
   const mbwd::Smem sm(reinterpret_cast<char*>(smem4));
@@ -545,6 +591,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
   const int nt = t_hi - t_lo, n_st = G * nt;
 
   float lse_next = neg_inf(), delta_next = 0.f;
+  int qid_next = -1, kid0 = 0, kid1 = 0;
   auto issue = [&](int s, int st) {  // step s: q head s / nt, tile from top
     const int i0 = (t_hi - 1 - s % nt) * MQ;
     const size_t bh = (size_t)b * N + (size_t)hk * G + s / nt;
@@ -556,6 +603,8 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
       lse_next = rr < valid ? lse[bh * Sq + i0 + rr] : neg_inf();
     else if (threadIdx.x < 2 * MQ)
       delta_next = rr < valid ? delta[bh * Sq + i0 + rr] : 0.f;
+    else if (SEG && threadIdx.x < 3 * MQ)
+      qid_next = rr < valid ? q_ids[(size_t)b * Sq + i0 + rr] : -1;
   };
   mbwd::KvAcc acc;
   acc.zero();
@@ -563,6 +612,8 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
     const int valid = min(MKV, Skv - j0);
     cp_tile<MKV, mbwd::NT>(sm.k, k + (bhk * Skv + j0) * D, valid);
     cp_tile<MKV, mbwd::NT>(sm.v, v + (bhk * Skv + j0) * D, valid);
+    if constexpr (SEG)
+      mbwd::kv_tile_ids(kv_ids + (size_t)b * Skv, j0, Skv, kid0, kid1);
     issue(0, 0);
   }
   cp_async_commit();
@@ -577,10 +628,12 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
           (lse_next == neg_inf()) ? CUDART_INF_F : lse_next * kLog2e;
     else if (threadIdx.x < 2 * MQ)
       sm.delta[threadIdx.x - MQ] = delta_next;
+    else if (SEG && threadIdx.x < 3 * MQ)
+      sm.qid[threadIdx.x - 2 * MQ] = qid_next;
     if (s + 1 < n_st) issue(s + 1, st ^ 1);
     cp_async_commit();
     // (part 1's barrier publishes lse2 and delta before they are read)
-    mbwd::step_kv(sm, st, acc, mk, i0, j0, scale_log2);
+    mbwd::step_kv<SEG>(sm, st, acc, mk, i0, j0, scale_log2, kid0, kid1);
   }
   cp_async_wait<0>();
   mbwd::store_frag(dk + bhk * Skv * D, j0, Skv, acc.dk, scale);
@@ -593,11 +646,12 @@ enum Route { kFused = 0, kDq = 1, kDkdv = 2 };
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch(int route, const void* dO, const void* q, const void* k,
                    const void* v, const void* delta, const void* lse,
-                   void* dq, void* dk, void* dv, void* counters, int B,
-                   int N, int Nk, int Sq, int Skv, float scale, Mask mk,
+                   void* dq, void* dk, void* dv, void* counters,
+                   const int* q_ids, const int* kv_ids, int B, int N, int Nk,
+                   int Sq, int Skv, float scale, Mask mk,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   const T* o_ = static_cast<const T*>(dO);
@@ -611,15 +665,18 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
     static bool set = false;
     const dim3 grid((Sq + BQ - 1) / BQ, N, B);
     if constexpr (kMma<T>) {
-      e = allow_smem(flash_bwd_dq_mma_kernel, kDqSmem, &set);
+      const size_t dsmem = SEG ? kDqSegSmem : kDqSmem;
+      e = allow_smem(flash_bwd_dq_mma_kernel<SEG>, dsmem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_dq_mma_kernel<<<grid, kDqNT, kDqSmem, stream>>>(
-          o_, q_, k_, v_, de, ls, static_cast<float*>(dq), N, Nk, scale, mk);
+      flash_bwd_dq_mma_kernel<SEG><<<grid, kDqNT, dsmem, stream>>>(
+          o_, q_, k_, v_, de, ls, static_cast<float*>(dq), q_ids, kv_ids, N,
+          Nk, scale, mk);
     } else {
-      e = allow_smem(flash_bwd_dq_kernel<T, D>, smem, &set);
+      e = allow_smem(flash_bwd_dq_kernel<T, D, SEG>, smem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-          o_, q_, k_, v_, de, ls, static_cast<float*>(dq), N, Nk, scale, mk);
+      flash_bwd_dq_kernel<T, D, SEG><<<grid, NT, smem, stream>>>(
+          o_, q_, k_, v_, de, ls, static_cast<float*>(dq), q_ids, kv_ids, N,
+          Nk, scale, mk);
     }
     return cudaGetLastError();
   }
@@ -627,38 +684,38 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
   if (route == kFused) {
     static bool set = false;
     if constexpr (kMma<T>) {
-      const size_t msmem = mbwd::Smem::bytes();
-      e = allow_smem(flash_bwd_fused_mma_kernel, msmem, &set);
+      const size_t msmem = mbwd::Smem::bytes(SEG);
+      e = allow_smem(flash_bwd_fused_mma_kernel<SEG>, msmem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_fused_mma_kernel<<<grid, mbwd::NT, msmem, stream>>>(
+      flash_bwd_fused_mma_kernel<SEG><<<grid, mbwd::NT, msmem, stream>>>(
           o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
           static_cast<float*>(dk), static_cast<float*>(dv),
-          static_cast<int*>(counters), N, Nk, scale, mk);
+          static_cast<int*>(counters), q_ids, kv_ids, N, Nk, scale, mk);
     } else {
-      e = allow_smem(flash_bwd_kv_kernel<T, D, true>, smem, &set);
+      e = allow_smem(flash_bwd_kv_kernel<T, D, true, SEG>, smem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_kv_kernel<T, D, true><<<grid, NT, smem, stream>>>(
+      flash_bwd_kv_kernel<T, D, true, SEG><<<grid, NT, smem, stream>>>(
           o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
           static_cast<float*>(dk), static_cast<float*>(dv),
-          static_cast<int*>(counters), N, Nk, scale, mk);
+          static_cast<int*>(counters), q_ids, kv_ids, N, Nk, scale, mk);
     }
     return cudaGetLastError();
   }
   if (route == kDkdv) {
     static bool set = false;
     if constexpr (kMma<T>) {
-      const size_t msmem = mbwd::Smem::bytes();
-      e = allow_smem(flash_bwd_dkdv_mma_kernel, msmem, &set);
+      const size_t msmem = mbwd::Smem::bytes(SEG);
+      e = allow_smem(flash_bwd_dkdv_mma_kernel<SEG>, msmem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_dkdv_mma_kernel<<<grid, mbwd::NT, msmem, stream>>>(
+      flash_bwd_dkdv_mma_kernel<SEG><<<grid, mbwd::NT, msmem, stream>>>(
           o_, q_, k_, v_, de, ls, static_cast<float*>(dk),
-          static_cast<float*>(dv), N, Nk, scale, mk);
+          static_cast<float*>(dv), q_ids, kv_ids, N, Nk, scale, mk);
     } else {
-      e = allow_smem(flash_bwd_kv_kernel<T, D, false>, smem, &set);
+      e = allow_smem(flash_bwd_kv_kernel<T, D, false, SEG>, smem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_kv_kernel<T, D, false><<<grid, NT, smem, stream>>>(
+      flash_bwd_kv_kernel<T, D, false, SEG><<<grid, NT, smem, stream>>>(
           o_, q_, k_, v_, de, ls, nullptr, static_cast<float*>(dk),
-          static_cast<float*>(dv), nullptr, N, Nk, scale, mk);
+          static_cast<float*>(dv), nullptr, q_ids, kv_ids, N, Nk, scale, mk);
     }
     return cudaGetLastError();
   }
@@ -667,72 +724,90 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
 
 int dispatch(int route, const void* dO, const void* q, const void* k,
              const void* v, const void* delta, const void* lse, void* dq,
-             void* dk, void* dv, void* counters, int B, int N, int Nk,
-             int Sq, int Skv, int D, int dtype, float scale, int q_lo,
-             int q_hi, int kv_hi, int causal, int offset, void* stream) {
+             void* dk, void* dv, void* counters, const void* q_ids,
+             const void* kv_ids, int B, int N, int Nk, int Sq, int Skv,
+             int D, int dtype, float scale, int q_lo, int q_hi, int kv_hi,
+             int causal, int offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Nk <= 0 || N % Nk != 0 || D != 128) return (int)cudaErrorInvalidValue;
+  if (Nk <= 0 || N % Nk != 0 || D != 128 ||
+      (q_ids == nullptr) != (kv_ids == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Mask mk{q_lo, q_hi, kv_hi, causal, offset, Sq, Skv};
+  const int* qi = static_cast<const int*>(q_ids);
+  const int* ki = static_cast<const int*>(kv_ids);
+#define LAUNCH_ARGS                                                         \
+  route, dO, q, k, v, delta, lse, dq, dk, dv, counters, qi, ki, B, N, Nk,  \
+      Sq, Skv, scale, mk, st
   if (dtype == kBFloat16)
-    return (int)launch<__nv_bfloat16, 128>(route, dO, q, k, v, delta, lse,
-                                           dq, dk, dv, counters, B, N, Nk,
-                                           Sq, Skv, scale, mk, st);
+    return (int)(qi ? launch<__nv_bfloat16, 128, true>(LAUNCH_ARGS)
+                    : launch<__nv_bfloat16, 128, false>(LAUNCH_ARGS));
   if (dtype == kFloat32)
-    return (int)launch<float, 128>(route, dO, q, k, v, delta, lse, dq, dk,
-                                   dv, counters, B, N, Nk, Sq, Skv, scale,
-                                   mk, st);
+    return (int)(qi ? launch<float, 128, true>(LAUNCH_ARGS)
+                    : launch<float, 128, false>(LAUNCH_ARGS));
+#undef LAUNCH_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // The attributes (common.cuh kernel_attrs) of one route's kernel
-template <typename T>
+template <typename T, bool SEG>
 cudaError_t attrs_of(int route, int* out) {
   const size_t smem = smem_bytes<128>();
   if (route == kFused) {
     if constexpr (kMma<T>)
-      return kernel_attrs(flash_bwd_fused_mma_kernel, mbwd::NT,
-                          mbwd::Smem::bytes(), out);
+      return kernel_attrs(flash_bwd_fused_mma_kernel<SEG>, mbwd::NT,
+                          mbwd::Smem::bytes(SEG), out);
     else
-      return kernel_attrs(flash_bwd_kv_kernel<T, 128, true>, NT, smem, out);
+      return kernel_attrs(flash_bwd_kv_kernel<T, 128, true, SEG>, NT, smem,
+                          out);
   }
   if (route == kDq) {
     if constexpr (kMma<T>)
-      return kernel_attrs(flash_bwd_dq_mma_kernel, kDqNT, kDqSmem, out);
+      return kernel_attrs(flash_bwd_dq_mma_kernel<SEG>, kDqNT,
+                          SEG ? kDqSegSmem : kDqSmem, out);
     else
-      return kernel_attrs(flash_bwd_dq_kernel<T, 128>, NT, smem, out);
+      return kernel_attrs(flash_bwd_dq_kernel<T, 128, SEG>, NT, smem, out);
   }
   if (route == kDkdv) {
     if constexpr (kMma<T>)
-      return kernel_attrs(flash_bwd_dkdv_mma_kernel, mbwd::NT,
-                          mbwd::Smem::bytes(), out);
+      return kernel_attrs(flash_bwd_dkdv_mma_kernel<SEG>, mbwd::NT,
+                          mbwd::Smem::bytes(SEG), out);
     else
-      return kernel_attrs(flash_bwd_kv_kernel<T, 128, false>, NT, smem, out);
+      return kernel_attrs(flash_bwd_kv_kernel<T, 128, false, SEG>, NT, smem,
+                          out);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The attributes of `route`'s kernel (0 fused, 1 dq, 2 dk/dv) for `dtype`.
-extern "C" int flash_bwd_attrs(int dtype, int route, int* out) {
-  if (dtype == kBFloat16) return (int)attrs_of<__nv_bfloat16>(route, out);
-  if (dtype == kFloat32) return (int)attrs_of<float>(route, out);
+// The attributes of `flag`'s kernel for `dtype`: flag & 3 the route (0
+// fused, 1 dq, 2 dk/dv), bit 2 its SEG instance.
+extern "C" int flash_bwd_attrs(int dtype, int flag, int* out) {
+  const int route = flag & 3;
+  const bool seg = (flag & 4) != 0;
+  if (dtype == kBFloat16)
+    return (int)(seg ? attrs_of<__nv_bfloat16, true>(route, out)
+                     : attrs_of<__nv_bfloat16, false>(route, out));
+  if (dtype == kFloat32)
+    return (int)(seg ? attrs_of<float, true>(route, out)
+                     : attrs_of<float, false>(route, out));
   return (int)cudaErrorInvalidValue;
 }
 
 // Three entry points with one argument list: the split pair reads only
 // the outputs it writes (dq; dk and dv); the fused kernel needs a zeroed
 // dq and zeroed counters [B, N, ceil(Sq / 64)] int32 plus one ticket word
-// after them.
+// after them.  q_ids, kv_ids: both null (no segments) or both [B,Sq],
+// [B,Skv] int32.
 #define BWD_ARGS                                                            \
   const void *dO, const void *q, const void *k, const void *v,              \
       const void *delta, const void *lse, void *dq, void *dk, void *dv,     \
-      void *counters, int B, int N, int Nk, int Sq, int Skv, int D,         \
-      int dtype, float scale, int q_lo, int q_hi, int kv_hi, int causal,    \
-      int offset, void *stream
+      void *counters, const void *q_ids, const void *kv_ids, int B, int N,  \
+      int Nk, int Sq, int Skv, int D, int dtype, float scale, int q_lo,     \
+      int q_hi, int kv_hi, int causal, int offset, void *stream
 #define BWD_PASS                                                            \
-  dO, q, k, v, delta, lse, dq, dk, dv, counters, B, N, Nk, Sq, Skv, D,     \
-      dtype, scale, q_lo, q_hi, kv_hi, causal, offset, stream
+  dO, q, k, v, delta, lse, dq, dk, dv, counters, q_ids, kv_ids, B, N, Nk,  \
+      Sq, Skv, D, dtype, scale, q_lo, q_hi, kv_hi, causal, offset, stream
 
 extern "C" int flash_bwd_fused_launch(BWD_ARGS) {
   return dispatch(kFused, BWD_PASS);

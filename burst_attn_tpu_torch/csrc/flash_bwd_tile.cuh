@@ -75,10 +75,15 @@ __device__ __forceinline__ void load_row_stats(const float* __restrict__ lse,
 // S = Q K^T and dP = dO V^T for one (q tile, kv tile) pair, then
 // P = exp2(S * scale_log2 - lse2) under the mask and dS = P * (dP - delta),
 // written to t.p (if WRITE_P) and t.ds [BQ][LDP].  Thread (ty = tid / 16,
-// tx = tid % 16) owns rows ty + 16 r and columns tx + 16 c.
-template <int D, bool WRITE_P>
+// tx = tid % 16) owns rows ty + 16 r and columns tx + 16 c.  SEG adds the
+// packed-sequence test qs[row] == ks[col] (one batch row's int32 ids):
+// P and dS are zeroed by the test itself, since a row's final lse is
+// finite while it may see nothing of this tile.
+template <int D, bool WRITE_P, bool SEG = false>
 __device__ __forceinline__ void scores(const Tiles<D>& t, float scale_log2,
-                                       int i0, int j0, const Mask& mk) {
+                                       int i0, int j0, const Mask& mk,
+                                       const int* qs = nullptr,
+                                       const int* ks = nullptr) {
   constexpr int LD = Tiles<D>::LD;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float s[4][4], dp[4][4];
@@ -115,7 +120,8 @@ __device__ __forceinline__ void scores(const Tiles<D>& t, float scale_log2,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int cl = tx + 16 * c;
-      const float p = (row_ok && mk.col_ok(row, j0 + cl))
+      const float p = (row_ok && mk.col_ok(row, j0 + cl) &&
+                       (!SEG || __ldg(qs + row) == __ldg(ks + j0 + cl)))
                           ? exp2f(s[r][c] * scale_log2 - l2)
                           : 0.f;
       if (WRITE_P) t.p[rl * LDP + cl] = p;

@@ -11,7 +11,12 @@
 // with EMIT, the normalized output o = acc / l in q's dtype.  The five mask
 // scalars (q_lo, q_hi, kv_hi, causal, offset) and the sliding window
 // (window <= 0: none; else row r sees columns above r + offset - window)
-// arrive by value.
+// arrive by value.  With SEG (a template flag, as WIN; null id pointers
+// take the instances without it) q_ids [B,Sq] and kv_ids [B,Skv] int32
+// pack documents into a row: row r sees column c only where their ids
+// are equal (burst_attn_tpu/ops/pallas_flash.py `_block_mask`'s segment
+// test).  The SEG instances compute every chunk the mask scalars leave
+// and mask by id; skipping chunks that share no document is later work.
 //
 // What bounds it on an H100: tensor FLOPs — causal prefill at S=2048,
 // N=16, D=128 is ~17 GFLOP per call against ~8 MB of traffic, far above the
@@ -52,15 +57,17 @@ using flash::BQ;
 using flash::NT;
 using flash::RPT;
 
-template <typename T, bool EMIT, int D, bool WIN>
+template <typename T, bool EMIT, int D, bool WIN, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ m_in,
                  const float* __restrict__ lse_in,
                  const float* __restrict__ acc_in, float* __restrict__ m_out,
                  float* __restrict__ lse_out, void* __restrict__ out_raw,
-                 int N, int Nk, int Sq, int Skv, float scale_log2, int q_lo,
-                 int q_hi, int kv_hi, int causal, int offset, int window) {
+                 const int* __restrict__ q_ids,
+                 const int* __restrict__ kv_ids, int N, int Nk, int Sq,
+                 int Skv, float scale_log2, int q_lo, int q_hi, int kv_hi,
+                 int causal, int offset, int window) {
   constexpr int DC = flash::Rows<D>::DC;
   using OutT = typename std::conditional<EMIT, T, float>::type;
 
@@ -98,9 +105,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  flash::fold<T, D, false, WIN>(st, sQ, sK, sV, k + bhk * Skv * D,
-                           v + bhk * Skv * D, Skv, q0, Sq, q_lo, q_hi, kv_hi,
-                           causal, offset, window);
+  flash::fold<T, D, false, WIN, SEG>(
+      st, sQ, sK, sV, k + bhk * Skv * D, v + bhk * Skv * D, Skv, q0, Sq,
+      q_lo, q_hi, kv_hi, causal, offset, window,
+      SEG ? q_ids + (size_t)b * Sq : nullptr,
+      SEG ? kv_ids + (size_t)b * Skv : nullptr);
 
   OutT* out = reinterpret_cast<OutT*>(out_raw);
 #pragma unroll
@@ -126,9 +135,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // The bf16 instance on the tensor cores: warp w holds q rows q0 + 16 w ..
 // (lane (g, c) rows g and g + 8, O columns 8n + 2c, 2c + 1; WarpTile).
+// Shared memory: the Q tile, two stages of K and V; SEG adds the stages'
+// kv ids (2 x 64 int32).
 constexpr size_t kMmaSmem = sizeof(__nv_bfloat16) * 5 * 64 * kTileLd;
+constexpr size_t kSegSmem = sizeof(int) * 2 * kTileChunk;
 
-template <bool EMIT, bool WIN>
+template <bool EMIT, bool WIN, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -137,7 +149,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ lse_in,
                      const float* __restrict__ acc_in,
                      float* __restrict__ m_out, float* __restrict__ lse_out,
-                     void* __restrict__ out_raw, int N, int Nk, int Sq,
+                     void* __restrict__ out_raw,
+                     const int* __restrict__ q_ids,
+                     const int* __restrict__ kv_ids, int N, int Nk, int Sq,
                      int Skv, float scale_log2, int q_lo, int q_hi,
                      int kv_hi, int causal, int offset, int window) {
   constexpr int D = kTileD;
@@ -177,8 +191,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  mma_fold<WIN>(wt, sQ, sKV, k + bhk * Skv * D, v + bhk * Skv * D, Sq, Skv,
-                q0, scale_log2, q_lo, q_hi, kv_hi, causal, offset, window);
+  if constexpr (SEG)
+    mma_fold<WIN, true>(wt, sQ, sKV, k + bhk * Skv * D, v + bhk * Skv * D,
+                        Sq, Skv, q0, scale_log2, q_lo, q_hi, kv_hi, causal,
+                        offset, window, q_ids + (size_t)b * Sq,
+                        kv_ids + (size_t)b * Skv,
+                        reinterpret_cast<int*>(sKV + 4 * 64 * kTileLd));
+  else
+    mma_fold<WIN>(wt, sQ, sKV, k + bhk * Skv * D, v + bhk * Skv * D, Sq,
+                  Skv, q0, scale_log2, q_lo, q_hi, kv_hi, causal, offset,
+                  window);
   wt.finish();
 
 #pragma unroll
@@ -213,29 +235,29 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, bool EMIT, int D, bool WIN>
+template <typename T, bool EMIT, int D, bool WIN, bool SEG>
 auto kernel_of() {
   if constexpr (kMma<T>)
-    return flash_fwd_mma_kernel<EMIT, WIN>;
+    return flash_fwd_mma_kernel<EMIT, WIN, SEG>;
   else
-    return flash_fwd_kernel<T, EMIT, D, WIN>;
+    return flash_fwd_kernel<T, EMIT, D, WIN, SEG>;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 constexpr size_t smem_of() {
-  return kMma<T> ? kMmaSmem : flash::smem_bytes<D>();
+  return kMma<T> ? kMmaSmem + (SEG ? kSegSmem : 0) : flash::smem_bytes<D>();
 }
 
-template <typename T, bool EMIT, int D, bool WIN>
+template <typename T, bool EMIT, int D, bool WIN, bool SEG>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* m_in, const void* lse_in, const void* acc_in,
-                   void* m_out, void* lse_out, void* out, int B, int N, int Nk,
-                   int Sq, int Skv, float scale, int q_lo, int q_hi,
-                   int kv_hi, int causal, int offset, int window,
-                   cudaStream_t stream) {
+                   void* m_out, void* lse_out, void* out, const int* q_ids,
+                   const int* kv_ids, int B, int N, int Nk, int Sq, int Skv,
+                   float scale, int q_lo, int q_hi, int kv_hi, int causal,
+                   int offset, int window, cudaStream_t stream) {
   static bool smem_set = false;
-  const size_t smem = smem_of<T, D>();
-  const auto kernel = kernel_of<T, EMIT, D, WIN>();
+  const size_t smem = smem_of<T, D, SEG>();
+  const auto kernel = kernel_of<T, EMIT, D, WIN, SEG>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, N, B);
@@ -243,91 +265,104 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(m_in),
       static_cast<const float*>(lse_in), static_cast<const float*>(acc_in),
-      static_cast<float*>(m_out), static_cast<float*>(lse_out), out, N, Nk,
-      Sq, Skv, scale * kLog2e, q_lo, q_hi, kv_hi, causal, offset, window);
+      static_cast<float*>(m_out), static_cast<float*>(lse_out), out, q_ids,
+      kv_ids, N, Nk, Sq, Skv, scale * kLog2e, q_lo, q_hi, kv_hi, causal,
+      offset, window);
   return cudaGetLastError();
 }
 
 // The attributes (common.cuh kernel_attrs) of one instance
-template <typename T, bool EMIT, bool WIN>
+template <typename T, bool EMIT, bool WIN, bool SEG>
 cudaError_t attrs(int* out) {
-  return kernel_attrs(kernel_of<T, EMIT, 128, WIN>(), NT, smem_of<T, 128>(),
-                      out);
+  return kernel_attrs(kernel_of<T, EMIT, 128, WIN, SEG>(), NT,
+                      smem_of<T, 128, SEG>(), out);
 }
 
-template <typename T>
-cudaError_t attrs_of(int flag, int* out) {
-  switch (flag) {  // bit 0: emit_o, bit 1: a window
-    case 0: return attrs<T, false, false>(out);
-    case 1: return attrs<T, true, false>(out);
-    case 2: return attrs<T, false, true>(out);
-    case 3: return attrs<T, true, true>(out);
+template <typename T, bool SEG>
+cudaError_t attrs_emit(int flag, int* out) {
+  switch (flag & 3) {  // bit 0: emit_o, bit 1: a window
+    case 0: return attrs<T, false, false, SEG>(out);
+    case 1: return attrs<T, true, false, SEG>(out);
+    case 2: return attrs<T, false, true, SEG>(out);
+    case 3: return attrs<T, true, true, SEG>(out);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
+template <typename T>
+cudaError_t attrs_of(int flag, int* out) {  // bit 2: segments
+  return (flag & 4) ? attrs_emit<T, true>(flag, out)
+                    : attrs_emit<T, false>(flag, out);
+}
+
+template <typename T, int D, bool SEG>
 cudaError_t dispatch_emit(int emit_o, const void* q, const void* k,
                           const void* v, const void* m_in, const void* lse_in,
                           const void* acc_in, void* m_out, void* lse_out,
-                          void* out, int B, int N, int Nk, int Sq, int Skv,
-                          float scale, int q_lo, int q_hi, int kv_hi,
-                          int causal, int offset, int window,
-                          cudaStream_t stream) {
+                          void* out, const int* q_ids, const int* kv_ids,
+                          int B, int N, int Nk, int Sq, int Skv, float scale,
+                          int q_lo, int q_hi, int kv_hi, int causal,
+                          int offset, int window, cudaStream_t stream) {
 #define FWD_ARGS                                                            \
-  q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, B, N, Nk, Sq, Skv,    \
-      scale, q_lo, q_hi, kv_hi, causal, offset, window, stream
+  q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, q_ids, kv_ids, B, N,  \
+      Nk, Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset, window, stream
   if (emit_o)
-    return window > 0 ? launch<T, true, D, true>(FWD_ARGS)
-                      : launch<T, true, D, false>(FWD_ARGS);
-  return window > 0 ? launch<T, false, D, true>(FWD_ARGS)
-                    : launch<T, false, D, false>(FWD_ARGS);
+    return window > 0 ? launch<T, true, D, true, SEG>(FWD_ARGS)
+                      : launch<T, true, D, false, SEG>(FWD_ARGS);
+  return window > 0 ? launch<T, false, D, true, SEG>(FWD_ARGS)
+                    : launch<T, false, D, false, SEG>(FWD_ARGS);
 #undef FWD_ARGS
 }
 
-template <int D>
-cudaError_t dispatch_dtype(int dtype, int emit_o, const void* q,
-                           const void* k, const void* v, const void* m_in,
-                           const void* lse_in, const void* acc_in,
-                           void* m_out, void* lse_out, void* out, int B,
-                           int N, int Nk, int Sq, int Skv, float scale,
-                           int q_lo, int q_hi, int kv_hi, int causal,
-                           int offset, int window, cudaStream_t stream) {
-  if (dtype == kBFloat16)
-    return dispatch_emit<__nv_bfloat16, D>(
-        emit_o, q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, B, N, Nk,
-        Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset, window, stream);
-  if (dtype == kFloat32)
-    return dispatch_emit<float, D>(
-        emit_o, q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, B, N, Nk,
-        Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset, window, stream);
-  return cudaErrorInvalidValue;
+template <typename T, int D>
+cudaError_t dispatch_seg(int emit_o, const void* q, const void* k,
+                         const void* v, const void* m_in, const void* lse_in,
+                         const void* acc_in, void* m_out, void* lse_out,
+                         void* out, const int* q_ids, const int* kv_ids,
+                         int B, int N, int Nk, int Sq, int Skv, float scale,
+                         int q_lo, int q_hi, int kv_hi, int causal,
+                         int offset, int window, cudaStream_t stream) {
+#define FWD_ARGS                                                            \
+  emit_o, q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, q_ids,        \
+      kv_ids, B, N, Nk, Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset,  \
+      window, stream
+  if (q_ids != nullptr) return dispatch_emit<T, D, true>(FWD_ARGS);
+  return dispatch_emit<T, D, false>(FWD_ARGS);
+#undef FWD_ARGS
 }
 
 }  // namespace
 
 // The attributes of the instance for `dtype` and `flag` (bit 0: emit_o,
-// bit 1: a window): registers, local bytes, shared memory, resident CTAs.
+// bit 1: a window, bit 2: segments): registers, local bytes, shared
+// memory, resident CTAs.
 extern "C" int flash_fwd_attrs(int dtype, int flag, int* out) {
   if (dtype == kBFloat16) return (int)attrs_of<__nv_bfloat16>(flag, out);
   if (dtype == kFloat32) return (int)attrs_of<float>(flag, out);
   return (int)cudaErrorInvalidValue;
 }
 
+// q_ids, kv_ids: both null (no segments) or both [B,Sq], [B,Skv] int32
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* m_in, const void* lse_in,
                                 const void* acc_in, void* m_out,
-                                void* lse_out, void* out, int B, int N,
-                                int Nk, int Sq, int Skv, int D, int dtype,
+                                void* lse_out, void* out, const void* q_ids,
+                                const void* kv_ids, int B, int N, int Nk,
+                                int Sq, int Skv, int D, int dtype,
                                 float scale, int q_lo, int q_hi, int kv_hi,
                                 int causal, int offset, int window,
                                 int emit_o, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N % Nk != 0) return (int)cudaErrorInvalidValue;
-  if (D == 128)
-    return (int)dispatch_dtype<128>(dtype, emit_o, q, k, v, m_in, lse_in,
-                                    acc_in, m_out, lse_out, out, B, N, Nk, Sq,
-                                    Skv, scale, q_lo, q_hi, kv_hi, causal,
-                                    offset, window, st);
+  if (N % Nk != 0 || D != 128 || (q_ids == nullptr) != (kv_ids == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int* qi = static_cast<const int*>(q_ids);
+  const int* ki = static_cast<const int*>(kv_ids);
+#define FWD_ARGS                                                            \
+  emit_o, q, k, v, m_in, lse_in, acc_in, m_out, lse_out, out, qi, ki, B, N, \
+      Nk, Sq, Skv, scale, q_lo, q_hi, kv_hi, causal, offset, window, st
+  if (dtype == kBFloat16)
+    return (int)dispatch_seg<__nv_bfloat16, 128>(FWD_ARGS);
+  if (dtype == kFloat32) return (int)dispatch_seg<float, 128>(FWD_ARGS);
+#undef FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

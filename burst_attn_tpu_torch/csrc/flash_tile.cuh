@@ -98,15 +98,21 @@ struct Rows {
 // band are never loaded and a CTA's cost follows the window, not the
 // sequence (the TPU kernel's band grid, pallas_flash.py fwd_band_nb, as a
 // loop bound).  WIN is a template flag so that the unwindowed instance
-// compiles to the same code as before the band existed.  CG reads K/V
-// through L2 only.  All threads take part; on return sK/sV may be
-// refilled after a __syncthreads().
-template <typename T, int D, bool CG, bool WIN = false>
+// compiles to the same code as before the band existed; SEG, another,
+// adds the packed-sequence test qs[row] == ks[col] (the ids of one batch
+// row, int32, read through the read-only cache; every tile the bounds
+// leave is computed).  A row that sees no column of a tile keeps its
+// state (m_new = m, alpha = 1, p = 0).  CG reads K/V through L2 only.
+// All threads take part; on return sK/sV may be refilled after a
+// __syncthreads().
+template <typename T, int D, bool CG, bool WIN = false, bool SEG = false>
 __device__ __forceinline__ void fold(Rows<D>& st, const float* sQ, float* sK,
                                      float* sV, const T* kb, const T* vb,
                                      int Skv, int q0, int Sq, int q_lo,
                                      int q_hi, int kv_hi, int causal,
-                                     int offset, int window = 0) {
+                                     int offset, int window = 0,
+                                     const int* qs = nullptr,
+                                     const int* ks = nullptr) {
   constexpr int LDK = D + 4;  // padded: conflict-free float4 row reads
   constexpr int LDP = BKV + 1;
   constexpr int DC = Rows<D>::DC;
@@ -169,7 +175,8 @@ __device__ __forceinline__ void fold(Rows<D>& st, const float* sQ, float* sK,
         const int col = j0 + tx + 16 * c;
         const bool ok = row_ok && col < kv_hi && col < Skv &&
                         (!causal || col <= row + offset) &&
-                        (!WIN || col > row + offset - window);
+                        (!WIN || col > row + offset - window) &&
+                        (!SEG || __ldg(qs + row) == __ldg(ks + col));
         s[i][c] = ok ? s[i][c] : neg_inf();
         mx = fmaxf(mx, s[i][c]);
       }

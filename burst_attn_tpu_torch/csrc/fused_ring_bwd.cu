@@ -95,6 +95,18 @@
 // (int32 [W][2][kMaxSlots], zeroed by the host): one plain increment in
 // global memory with no barrier of its own, as each word has one writer.
 // The stats-off instances compile to the code without it.
+//
+// Packed segments (SEG, a compile-time flag: the JAX kernel's `has_seg`
+// with its gathered side table, swapped to [B, world, S, 1]): every
+// position's ids in one [W,B,S] int32 table.  A round masks the q ids of
+// the bundle's partition (the op table's PART column) against the
+// position's own kv ids: a pair counts only where they are equal, and P
+// and dS are zeroed by that test itself (a row's final lse is finite
+// while it may see nothing of a tile).  The bf16 tile holds the lane's two
+// kv columns' ids in registers for the item and the q tile's ids in
+// shared memory beside lse2 (mma_bwd_tile.cuh step<., true>); the fp32
+// tile reads them through the read-only cache.  No STATS instance with
+// SEG (the autograd path never counts the backward's slots).
 
 #include <type_traits>
 
@@ -115,7 +127,7 @@ constexpr int kDqBank = 19, kDqRecv = 20, kDqSlot = 21, kDqSend = 22;
 constexpr int kDqDstSlot = 23, kDqiRecv = 28, kDqiSlot = 29;
 constexpr int kDqiDstSlot = 30;
 constexpr int kArriveNeed = 31, kDqArriveNeed = 36, kDqiArriveNeed = 37;
-constexpr int kDqTakeNeed = 38;
+constexpr int kDqTakeNeed = 38, kPart = 39;
 // width of a position's slot_use row per bank (obs/devstats.py MAX_SLOTS)
 constexpr int kMaxSlots = 8;
 constexpr int kMetaCh1Dst = 3, kMetaHome0 = 5, kMetaHome1 = 6;
@@ -155,6 +167,7 @@ struct Params {
   float scale;
   long long* trace;       // [W*G][kTraceCols] (TRACE instances)
   int* slot_use;          // [W][2][kMaxSlots] consumes (STATS instances)
+  const int* seg;         // [W,B,S] packed-sequence ids (SEG instances)
 };
 
 constexpr int kTraceCols = 16;
@@ -163,9 +176,9 @@ constexpr int kTraceCols = 16;
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int D>
+template <typename T, int D, bool SEG = false>
 constexpr size_t smem_size() {
-  return kMma<T> ? mbwd::Smem::bytes() : smem_bytes<D>();
+  return kMma<T> ? mbwd::Smem::bytes(SEG) : smem_bytes<D>();
 }
 
 // one position's counters: bundle arrive, free [NB][MS]; dq arrive, free
@@ -317,7 +330,7 @@ __device__ __forceinline__ int kv_tiles_seen(const Mask& mk, int i0) {
   return c_end > 0 ? (c_end + BKV - 1) / BKV : 0;
 }
 
-template <typename T, int D, bool TRACE, bool STATS>
+template <typename T, int D, bool TRACE, bool STATS, bool SEG>
 __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   static_assert(mbwd::NT == NT && mbwd::BQ == BQ && mbwd::BKV == BKV,
@@ -446,6 +459,7 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
     int* folds = p.folds + ((size_t)pos * p.R + r) * n_units;
     const Mask mk{row[0], row[1], row[2], row[3], row[4], S, S};
     const bool last = r == p.R - 1;
+    const int part = SEG ? row[kPart] : 0;  // the bundle's partition
 
     const bool resident = p.resident != 0;
     for (int it = next_item(fl.taken(r), &item_slot, j, true, resident,
@@ -465,6 +479,10 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
       if (j0 >= min(mk.kv_hi, S)) i_hi = i_lo;
       const int t_lo = i_lo / BQ;
       const int t_hi = (i_hi > i_lo) ? (i_hi + BQ - 1) / BQ : t_lo;
+      // SEG: the bundle partition's q ids and the position's kv ids
+      const int* qids =
+          SEG ? p.seg + ((size_t)part * p.B + b) * S : nullptr;
+      const int* kvids = SEG ? p.seg + ((size_t)pos * p.B + b) * S : nullptr;
 
       if constexpr (MMA) {
         // the item's steps: (q head g, q tile qt) for g ascending and qt
@@ -473,6 +491,7 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
         const int nt = t_hi - t_lo, n_st = group * nt;
         const float* f32_first = reinterpret_cast<const float*>(first_c);
         float lse_next = neg_inf(), delta_next = 0.f;
+        int qid_next = -1, kid0 = 0, kid1 = 0;
         auto issue = [&](int s, int st) {
           const int qt = t_hi - 1 - s % nt, i0 = qt * BQ;
           const size_t bh = (size_t)b * N + hk * group + s / nt;
@@ -486,10 +505,13 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
           else if (threadIdx.x < 2 * BQ && p.opt)
             delta_next = rr < valid ? __ldcg(f32_first + bh * S + i0 + rr)
                                     : 0.f;
+          else if (SEG && threadIdx.x >= 2 * BQ && threadIdx.x < 3 * BQ)
+            qid_next = rr < valid ? qids[i0 + rr] : -1;
         };
         if (n_st > 0) {
           cp_tile<BKV, NT>(sm.k, kp + (bhk * S + j0) * D, min(BKV, S - j0));
           cp_tile<BKV, NT>(sm.v, vp + (bhk * S + j0) * D, min(BKV, S - j0));
+          if constexpr (SEG) mbwd::kv_tile_ids(kvids, j0, S, kid0, kid1);
           issue(0, 0);
         }
         cp_async_commit();
@@ -510,6 +532,8 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
                 (lse_next == neg_inf()) ? CUDART_INF_F : lse_next * kLog2e;
           else if (threadIdx.x < 2 * BQ && p.opt)
             sm.delta[threadIdx.x - BQ] = delta_next;
+          else if (SEG && threadIdx.x >= 2 * BQ && threadIdx.x < 3 * BQ)
+            sm.qid[threadIdx.x - 2 * BQ] = qid_next;
           __syncthreads();
           if (!p.opt) {
             mma_delta(sm, st,
@@ -522,8 +546,8 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
           cp_async_commit();
           float part[8][4];
           if (tr) cyc[0] += clock64() - c0;
-          mbwd::step(sm, st, acc, mk, i0, j0, scale_log2, part,
-                     tr ? cyc + 1 : nullptr);
+          mbwd::step<true, SEG>(sm, st, acc, mk, i0, j0, scale_log2, part,
+                                tr ? cyc + 1 : nullptr, kid0, kid1);
           const long long c1 = tr ? clock64() : 0;
           mbwd::fold_add(dq_c + bh * S * D, folds + bh * nqt + qt, jt, i0, S,
                          part, p.scale, !recv && jt == 0,
@@ -565,7 +589,7 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
             const char* f = first_c + (p.opt ? bh * S * 4
                                              : bh * S * D * sizeof(T));
             load_stats<T, D>(t, lse_c + bh * S, f, i0, S, p.opt != 0);
-            scores<D, true>(t, scale_log2, i0, j0, mk);
+            scores<D, true, SEG>(t, scale_log2, i0, j0, mk, qids, kvids);
             __syncthreads();
             accum_kv<D>(t, dka, dva);
             float part[8][4];
@@ -682,11 +706,12 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, bool TRACE, bool STATS = false>
+template <typename T, int D, bool TRACE, bool STATS = false,
+          bool SEG = false>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_bwd_kernel<T, D, TRACE, STATS>;
-  const size_t smem = smem_size<T, D>();
+  auto kernel = fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG>;
+  const size_t smem = smem_size<T, D, SEG>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
@@ -700,72 +725,86 @@ cudaError_t setup(int* max_blocks) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool TRACE, bool STATS>
+template <typename T, int D, bool TRACE, bool STATS, bool SEG = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, TRACE, STATS>(&max_blocks);
+  cudaError_t e = setup<T, D, TRACE, STATS, SEG>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_ring_bwd_kernel<T, D, TRACE, STATS>),
-      dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D>(), stream);
+      reinterpret_cast<void*>(fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG>),
+      dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D, SEG>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool TRACE, bool STATS>
+template <typename T, int D, bool TRACE, bool STATS, bool SEG = false>
 cudaError_t attrs(int* out) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, TRACE, STATS>(&max_blocks);  // smem limit
+  cudaError_t e = setup<T, D, TRACE, STATS, SEG>(&max_blocks);  // smem
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, fused_ring_bwd_kernel<T, D, TRACE, STATS>);
+  e = cudaFuncGetAttributes(&a,
+                            fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)smem_size<T, D>();
+  out[2] = (int)smem_size<T, D, SEG>();
   out[3] = max_blocks;
   return cudaSuccess;
 }
 
 }  // namespace
 
-// How many CTAs the card keeps resident at once for this kernel.
-extern "C" int fused_ring_bwd_capacity(int D, int dtype, int* max_blocks) {
+// How many CTAs the card keeps resident at once for this kernel (its SEG
+// instance when `seg`).
+extern "C" int fused_ring_bwd_capacity(int D, int dtype, int seg,
+                                       int* max_blocks) {
   if (D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
-    return (int)setup<__nv_bfloat16, 128, false>(max_blocks);
-  if (dtype == kFloat32) return (int)setup<float, 128, false>(max_blocks);
+    return (int)(seg ? setup<__nv_bfloat16, 128, false, false, true>(
+                           max_blocks)
+                     : setup<__nv_bfloat16, 128, false>(max_blocks));
+  if (dtype == kFloat32)
+    return (int)(seg ? setup<float, 128, false, false, true>(max_blocks)
+                     : setup<float, 128, false>(max_blocks));
   return (int)cudaErrorInvalidValue;
 }
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
 // shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
-// TRACE (bf16 only), bit 1 STATS (not with TRACE).
+// TRACE (bf16 only), bit 1 STATS (not with TRACE), bit 2 SEG (alone).
 extern "C" int fused_ring_bwd_attrs(int dtype, int flags, int* out) {
-  const int trace = flags & 1, stats = (flags >> 1) & 1;
-  if (trace && stats) return (int)cudaErrorInvalidValue;
+  const int trace = flags & 1, stats = (flags >> 1) & 1,
+            seg = (flags >> 2) & 1;
+  if ((trace && stats) || (seg && (trace || stats)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
     return (int)(trace   ? attrs<__nv_bfloat16, 128, true, false>(out)
                  : stats ? attrs<__nv_bfloat16, 128, false, true>(out)
+                 : seg   ? attrs<__nv_bfloat16, 128, false, false, true>(out)
                          : attrs<__nv_bfloat16, 128, false, false>(out));
   if (dtype == kFloat32 && !trace)
     return (int)(stats ? attrs<float, 128, false, true>(out)
+                 : seg ? attrs<float, 128, false, false, true>(out)
                        : attrs<float, 128, false, false>(out));
   return (int)cudaErrorInvalidValue;
 }
 
+// seg: null, or every position's ids [W,B,S] int32 (the SEG instances:
+// not with trace or slot_use)
 extern "C" int fused_ring_bwd_launch(
     const void* first, const void* dO, const void* q, const void* lse,
     const void* k, const void* v, const void* ptrs, const void* sched,
     void* folds, void* dk, void* dv, void* trace, int W, int B, int N,
     int Nk, int S, int D, int R, int NB, int MS, int MDQ, int G, int ncol,
     int copy_in0, int copy_in1, int dtype, int resident, int opt,
-    void* slot_use, float scale, void* stream) {
+    void* slot_use, const void* seg, float scale, void* stream) {
   if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || MDQ < 1 ||
-      (trace != nullptr && (dtype != kBFloat16 || slot_use != nullptr)))
+      (trace != nullptr && (dtype != kBFloat16 || slot_use != nullptr)) ||
+      (seg != nullptr && (trace != nullptr || slot_use != nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p{first,
            dO,
@@ -783,15 +822,19 @@ extern "C" int fused_ring_bwd_launch(
            resident, opt,
            scale,
            static_cast<long long*>(trace),
-           static_cast<int*>(slot_use)};
+           static_cast<int*>(slot_use),
+           static_cast<const int*>(seg)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool stats = slot_use != nullptr;
   if (dtype == kBFloat16)
-    return (int)(trace   ? launch<__nv_bfloat16, 128, true, false>(p, st)
-                 : stats ? launch<__nv_bfloat16, 128, false, true>(p, st)
-                         : launch<__nv_bfloat16, 128, false, false>(p, st));
+    return (int)(trace ? launch<__nv_bfloat16, 128, true, false>(p, st)
+                 : stats
+                     ? launch<__nv_bfloat16, 128, false, true>(p, st)
+                 : seg ? launch<__nv_bfloat16, 128, false, false, true>(p, st)
+                       : launch<__nv_bfloat16, 128, false, false>(p, st));
   if (dtype == kFloat32)
     return (int)(stats ? launch<float, 128, false, true>(p, st)
+                 : seg ? launch<float, 128, false, false, true>(p, st)
                        : launch<float, 128, false, false>(p, st));
   return (int)cudaErrorInvalidValue;
 }

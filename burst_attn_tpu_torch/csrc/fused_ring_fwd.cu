@@ -88,6 +88,18 @@
 // (int32 [W][2][kMaxSlots], zeroed by the host): one plain increment in
 // global memory with no barrier of its own, as each word has one writer.
 // The stats-off instances compile to the code without it.
+//
+// Packed segments (SEG, another compile-time flag: the JAX kernel's
+// `has_seg` with its gathered side table, burst_attn_tpu/ops/fused_ring.py
+// `gather_seg_table`): every position's ids in one [W,B,S] int32 table
+// (all positions share the card, so nothing is gathered).  Round r of
+// position p masks its own q ids against the ids of the partition it
+// consumes, which the op table's PART column names: row r sees column c
+// only where seg[p][b][r] == seg[part][b][c].  The bf16 tile stages each
+// chunk's kv ids beside K and V (mma_fold<false, true>), the fp32 tile
+// reads them through the read-only cache (flash::fold's SEG).  Every
+// chunk the mask scalars leave is computed; a row that sees nothing of a
+// whole round keeps its state.
 
 #include <type_traits>
 
@@ -110,7 +122,7 @@ using flash::RPT;
 // columns (ops/fused_ring.py, KERNEL_COLS); tests/test_torch_ring.py
 // holds these numbers to those two modules
 constexpr int kConsumeBank = 5, kConsumeSlot = 6, kSrcBank0 = 9;
-constexpr int kArriveNeed = 19;
+constexpr int kArriveNeed = 19, kPart = 24;
 // width of a position's slot_use row per bank (obs/devstats.py MAX_SLOTS)
 constexpr int kMaxSlots = 8;
 // per send channel ch (0 or 1)
@@ -137,6 +149,7 @@ struct Params {
   int copy_in[2];         // bank * 16 + slot + 1, or 0
   float scale_log2;
   int* slot_use;          // [W][2][kMaxSlots] consumes (STATS instances)
+  const int* seg;         // [W,B,S] packed-sequence ids (SEG instances)
 };
 
 // one position's counters: arrive, free [NB][MS]; done [R], items taken
@@ -167,11 +180,13 @@ constexpr bool kMma =
     std::is_same<T, __nv_bfloat16>::value && !FUSED_FWD_TILE_SIMT;
 
 // shared memory of the tensor-core tile: the Q tile, two stages of K, V
+// (SEG: and of their kv ids)
 constexpr size_t kMmaSmem = sizeof(__nv_bfloat16) * 5 * 64 * kTileLd;
+constexpr size_t kSegSmem = sizeof(int) * 2 * kTileChunk;
 
-template <typename T, int D>
+template <typename T, int D, bool SEG = false>
 constexpr size_t smem_size() {
-  return kMma<T> ? kMmaSmem : flash::smem_bytes<D>();
+  return kMma<T> ? kMmaSmem + (SEG ? kSegSmem : 0) : flash::smem_bytes<D>();
 }
 
 // One q tile's WarpTile state through the fp32 scratch (through L2): the
@@ -221,7 +236,7 @@ __device__ __forceinline__ void mma_store(const WarpTile& wt, float* st_m,
   }
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG>
 __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   constexpr bool MMA = kMma<T>;
   constexpr int DC = flash::Rows<D>::DC;
@@ -310,6 +325,7 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
     const T* kc = kslot(pos, cb, cs);
     const T* vc = vslot(pos, cb, cs);
     const bool last = r == p.R - 1;
+    const int part = SEG ? row[kPart] : 0;  // the consumed partition
     for (int it = next_item(fl.taken(r), &item_slot, j, true, RESIDENT,
                             n_items);
          it < n_items; it = next_item(fl.taken(r), &item_slot, j, false,
@@ -319,6 +335,11 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
       const size_t bh = (size_t)b * N + h;
       const size_t bhk = (size_t)b * Nk + h / (N / Nk);
       const size_t at0 = row_base + bh * S;  // state / lse row of q row 0
+      // SEG: the position's q ids and the consumed partition's kv ids
+      const int* qids =
+          SEG ? p.seg + ((size_t)pos * p.B + b) * S : nullptr;
+      const int* kvids =
+          SEG ? p.seg + ((size_t)part * p.B + b) * S : nullptr;
       if (!RESIDENT && r > 0) {  // the item's round r - 1 state is written
         if (threadIdx.x == 0) {
           wait_ge(fl.version(it), r);
@@ -333,9 +354,15 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
         if (r == 0 || !RESIDENT) wt.init();
         if (r > 0 && !RESIDENT)
           mma_load(wt, p.st_m, p.st_l, p.st_acc, at0, q0, S);
-        mma_fold<false>(wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S,
-                        S, q0, p.scale_log2, row[0], row[1], row[2], row[3],
-                        row[4], 0);
+        if constexpr (SEG)
+          mma_fold<false, true>(
+              wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S, S, q0,
+              p.scale_log2, row[0], row[1], row[2], row[3], row[4], 0, qids,
+              kvids, reinterpret_cast<int*>(mKV + 4 * 64 * kTileLd));
+        else
+          mma_fold<false>(wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D,
+                          S, S, q0, p.scale_log2, row[0], row[1], row[2],
+                          row[3], row[4], 0);
         if (!last && RESIDENT) continue;
         wt.finish();
         if (!last) {
@@ -384,9 +411,14 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
           }
         }
 
-        flash::fold<T, D, true>(st, sQ, sK, sV, kc + bhk * S * D,
-                                vc + bhk * S * D, S, q0, S, row[0], row[1],
-                                row[2], row[3], row[4]);
+        if constexpr (SEG)
+          flash::fold<T, D, true, false, true>(
+              st, sQ, sK, sV, kc + bhk * S * D, vc + bhk * S * D, S, q0, S,
+              row[0], row[1], row[2], row[3], row[4], 0, qids, kvids);
+        else
+          flash::fold<T, D, true>(st, sQ, sK, sV, kc + bhk * S * D,
+                                  vc + bhk * S * D, S, q0, S, row[0], row[1],
+                                  row[2], row[3], row[4]);
 
         if (!last && RESIDENT) continue;
 #pragma unroll
@@ -437,11 +469,12 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS = false>
+template <typename T, int D, bool RESIDENT, bool STATS = false,
+          bool SEG = false>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT, STATS>;
-  const size_t smem = smem_size<T, D>();
+  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG>;
+  const size_t smem = smem_size<T, D, SEG>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
@@ -455,103 +488,127 @@ cudaError_t setup(int* max_blocks) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, RESIDENT, STATS>(&max_blocks);
+  cudaError_t e = setup<T, D, RESIDENT, STATS, SEG>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_ring_fwd_kernel<T, D, RESIDENT, STATS>),
-      dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D>(), stream);
+      reinterpret_cast<void*>(
+          fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG>),
+      dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D, SEG>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG>
 cudaError_t attrs(int* out) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, RESIDENT, STATS>(&max_blocks);  // smem limit
+  cudaError_t e =
+      setup<T, D, RESIDENT, STATS, SEG>(&max_blocks);  // smem limit
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a,
-                            fused_ring_fwd_kernel<T, D, RESIDENT, STATS>);
+  e = cudaFuncGetAttributes(
+      &a, fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)smem_size<T, D>();
+  out[2] = (int)smem_size<T, D, SEG>();
   out[3] = max_blocks;
   return cudaSuccess;
 }
 
-template <typename T, int D, bool STATS>
+template <typename T, int D, bool STATS, bool SEG>
 cudaError_t dispatch_state(int resident, const Params& p, cudaStream_t st) {
-  return resident ? launch<T, D, true, STATS>(p, st)
-                  : launch<T, D, false, STATS>(p, st);
+  return resident ? launch<T, D, true, STATS, SEG>(p, st)
+                  : launch<T, D, false, STATS, SEG>(p, st);
+}
+
+template <typename T, int D, bool SEG>
+cudaError_t dispatch_stats(int resident, const Params& p, cudaStream_t st) {
+  return p.slot_use != nullptr
+             ? dispatch_state<T, D, true, SEG>(resident, p, st)
+             : dispatch_state<T, D, false, SEG>(resident, p, st);
 }
 
 template <int D>
 cudaError_t dispatch(int dtype, int resident, const Params& p,
                      cudaStream_t st) {
-  const bool stats = p.slot_use != nullptr;
+  const bool seg = p.seg != nullptr;
   if (dtype == kBFloat16)
-    return stats ? dispatch_state<__nv_bfloat16, D, true>(resident, p, st)
-                 : dispatch_state<__nv_bfloat16, D, false>(resident, p, st);
+    return seg ? dispatch_stats<__nv_bfloat16, D, true>(resident, p, st)
+               : dispatch_stats<__nv_bfloat16, D, false>(resident, p, st);
   if (dtype == kFloat32)
-    return stats ? dispatch_state<float, D, true>(resident, p, st)
-                 : dispatch_state<float, D, false>(resident, p, st);
+    return seg ? dispatch_stats<float, D, true>(resident, p, st)
+               : dispatch_stats<float, D, false>(resident, p, st);
   return cudaErrorInvalidValue;
 }
 
+template <typename T, bool RESIDENT, bool SEG>
+cudaError_t attrs_stats(int stats, int* out) {
+  return stats ? attrs<T, 128, RESIDENT, true, SEG>(out)
+               : attrs<T, 128, RESIDENT, false, SEG>(out);
+}
+
 template <typename T, bool RESIDENT>
-cudaError_t attrs_of(int stats, int* out) {
-  return stats ? attrs<T, 128, RESIDENT, true>(out)
-               : attrs<T, 128, RESIDENT, false>(out);
+cudaError_t attrs_of(int stats, int seg, int* out) {
+  return seg ? attrs_stats<T, RESIDENT, true>(stats, out)
+             : attrs_stats<T, RESIDENT, false>(stats, out);
+}
+
+template <typename T, bool SEG>
+cudaError_t capacity_of(int* max_blocks) {
+  int a = 0, b = 0;
+  cudaError_t e;
+  if ((e = setup<T, 128, true, false, SEG>(&a)) != cudaSuccess) return e;
+  if ((e = setup<T, 128, false, false, SEG>(&b)) != cudaSuccess) return e;
+  *max_blocks = a < b ? a : b;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
 // shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
-// RESIDENT, bit 1 STATS.
+// RESIDENT, bit 1 STATS, bit 2 SEG.
 extern "C" int fused_ring_fwd_attrs(int dtype, int flags, int* out) {
-  const int resident = flags & 1, stats = (flags >> 1) & 1;
+  const int resident = flags & 1, stats = (flags >> 1) & 1,
+            seg = (flags >> 2) & 1;
   if (dtype == kBFloat16)
-    return (int)(resident ? attrs_of<__nv_bfloat16, true>(stats, out)
-                          : attrs_of<__nv_bfloat16, false>(stats, out));
+    return (int)(resident ? attrs_of<__nv_bfloat16, true>(stats, seg, out)
+                          : attrs_of<__nv_bfloat16, false>(stats, seg, out));
   if (dtype == kFloat32)
-    return (int)(resident ? attrs_of<float, true>(stats, out)
-                          : attrs_of<float, false>(stats, out));
+    return (int)(resident ? attrs_of<float, true>(stats, seg, out)
+                          : attrs_of<float, false>(stats, seg, out));
   return (int)cudaErrorInvalidValue;
 }
 
 // How many CTAs the card keeps resident at once for this kernel (both
-// state modes have the same footprint up to registers; the smaller wins).
-extern "C" int fused_ring_fwd_capacity(int D, int dtype, int* max_blocks) {
+// state modes have the same footprint up to registers; the smaller wins),
+// of the SEG instances when `seg`.
+extern "C" int fused_ring_fwd_capacity(int D, int dtype, int seg,
+                                       int* max_blocks) {
   if (D != 128) return (int)cudaErrorInvalidValue;
-  int a = 0, b = 0;
-  cudaError_t e;
-  if (dtype == kBFloat16) {
-    if ((e = setup<__nv_bfloat16, 128, true>(&a)) != cudaSuccess) return e;
-    if ((e = setup<__nv_bfloat16, 128, false>(&b)) != cudaSuccess) return e;
-  } else if (dtype == kFloat32) {
-    if ((e = setup<float, 128, true>(&a)) != cudaSuccess) return e;
-    if ((e = setup<float, 128, false>(&b)) != cudaSuccess) return e;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  *max_blocks = a < b ? a : b;
-  return 0;
+  if (dtype == kBFloat16)
+    return (int)(seg ? capacity_of<__nv_bfloat16, true>(max_blocks)
+                     : capacity_of<__nv_bfloat16, false>(max_blocks));
+  if (dtype == kFloat32)
+    return (int)(seg ? capacity_of<float, true>(max_blocks)
+                     : capacity_of<float, false>(max_blocks));
+  return (int)cudaErrorInvalidValue;
 }
 
+// seg: null, or every position's ids [W,B,S] int32 (the SEG instances)
 extern "C" int fused_ring_fwd_launch(
     const void* q, const void* k_in, const void* v_in, const void* ptrs,
     const void* sched, void* st_m, void* st_l, void* st_acc, void* o,
     void* lse, int W, int B, int N, int Nk, int S, int D, int R, int NB,
     int MS, int G, int ncol, int copy_in0, int copy_in1, int dtype,
-    int resident, void* slot_use, float scale, void* stream) {
+    int resident, void* slot_use, const void* seg, float scale,
+    void* stream) {
   if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1)
     return (int)cudaErrorInvalidValue;
   Params p{q,
@@ -567,7 +624,8 @@ extern "C" int fused_ring_fwd_launch(
            W, B, N, Nk, S, R, NB, MS, G, ncol,
            {copy_in0, copy_in1},
            scale * kLog2e,
-           static_cast<int*>(slot_use)};
+           static_cast<int*>(slot_use),
+           static_cast<const int*>(seg)};
   return (int)dispatch<128>(dtype, resident, p,
                             static_cast<cudaStream_t>(stream));
 }

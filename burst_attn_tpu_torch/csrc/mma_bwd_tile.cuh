@@ -54,15 +54,17 @@ constexpr int TILE = 64 * LD;   // elements of one staged tile
 // The shared memory of one CTA: K, V; Q and dO in two stages (the next
 // step's tiles land while this one's products run); dS^T as hi and lo;
 // the exchange of step 1 (float4 [warp][n-tile][lane]); the q rows' lse
-// (base 2) and delta.
+// (base 2) and delta; with packed segments (`seg`) the q rows' ids.
 struct Smem {
   bf16 *k, *v, *stage, *dsh, *dsl;  // stage: Q of stage 0, 1, then dO's
   float4* x;
   float *lse2, *delta;
+  int* qid;  // (SEG steps only)
 
-  static constexpr size_t bytes() {
+  static constexpr size_t bytes(bool seg = false) {
     return sizeof(bf16) * (6 * TILE + 2 * BKV * LDS) +
-           sizeof(float4) * 8 * 8 * 32 + sizeof(float) * 2 * BQ;
+           sizeof(float4) * 8 * 8 * 32 + sizeof(float) * 2 * BQ +
+           (seg ? sizeof(int) * BQ : 0);
   }
   __device__ __forceinline__ explicit Smem(char* base) {
     bf16* b = reinterpret_cast<bf16*>(base);
@@ -74,6 +76,7 @@ struct Smem {
     x = reinterpret_cast<float4*>(dsl + BKV * LDS);
     lse2 = reinterpret_cast<float*>(x + 8 * 8 * 32);
     delta = lse2 + BQ;
+    qid = reinterpret_cast<int*>(delta + BQ);
   }
   // (computed, not arrays of pointers: indexed by the runtime stage, an
   // array went to local memory)
@@ -158,12 +161,17 @@ __device__ __forceinline__ void store_frag(float* dst, int r0, int S,
 // (cyc[4]).  DQ = false stops after part 2 (no dS^T store, no dQ: `dq`
 // is left as it is); lse2 and delta are first read after part 1's
 // barrier, so a caller may write them after its own barrier that ends
-// the previous step.
-template <bool DQ = true>
+// the previous step.  SEG (packed segments) tests sm.qid[row] (the q
+// tile's ids, in shared memory like lse2) against the lane's two kv
+// columns' ids kid0 (column col0) and kid1 (col0 + 8) on every element,
+// the full tile's included: P, and with it dS, is zeroed by that test,
+// since the final lse of a row that sees nothing of this tile is finite.
+template <bool DQ = true, bool SEG = false>
 __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
                                      const bwd::Mask& mk, int i0, int j0,
                                      float scale_log2, float (&dq)[8][4],
-                                     long long* cyc = nullptr) {
+                                     long long* cyc = nullptr, int kid0 = 0,
+                                     int kid1 = 0) {
   long long t0 = cyc ? clock64() : 0;
   auto lap = [&](int i) {
     if (cyc) {
@@ -236,6 +244,9 @@ __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
       if (!full) {
         const int row = i0 + ql + (e & 1), col = col0 + 8 * (e / 2);
         if (!(mk.row_ok(row) && mk.col_ok(row, col))) p[e] = 0.f;
+      }
+      if constexpr (SEG) {
+        if (sm.qid[ql + (e & 1)] != ((e / 2) ? kid1 : kid0)) p[e] = 0.f;
       }
       ds[e] = p[e] * (dv[e] - ((e & 1) ? dl.y : dl.x));
     }
@@ -339,11 +350,24 @@ __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
 
 // Parts 1-2 of a step alone: dK, dV accumulate into acc (the split pair's
 // dk/dv kernel: 6 products a step, no dS^T tile, no dQ)
+template <bool SEG = false>
 __device__ __forceinline__ void step_kv(const Smem& sm, int st, KvAcc& acc,
                                         const bwd::Mask& mk, int i0, int j0,
-                                        float scale_log2) {
+                                        float scale_log2, int kid0 = 0,
+                                        int kid1 = 0) {
   float unused[8][4];
-  step<false>(sm, st, acc, mk, i0, j0, scale_log2, unused);
+  step<false, SEG>(sm, st, acc, mk, i0, j0, scale_log2, unused, nullptr,
+                   kid0, kid1);
+}
+
+// The ids step<., true> tests against, for the CTA's kv tile j0 of one
+// batch row's kv ids [Skv]: the lane's columns col0 = j0 + 16 (w % 4) +
+// g and col0 + 8 (-1 past Skv: those columns are masked anyway).
+__device__ __forceinline__ void kv_tile_ids(const int* kv_ids, int j0,
+                                            int Skv, int& kid0, int& kid1) {
+  const int col0 = j0 + 16 * ((threadIdx.x / 32) % 4) + (threadIdx.x % 32) / 4;
+  kid0 = col0 < Skv ? kv_ids[col0] : -1;
+  kid1 = col0 + 8 < Skv ? kv_ids[col0 + 8] : -1;
 }
 
 // Fold this CTA's dq partial (fragments of step(), times scale) into q

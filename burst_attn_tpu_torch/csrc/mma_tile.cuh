@@ -47,6 +47,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// 4-byte asynchronous global -> shared copy (through L1): a chunk's
+// packed-sequence ids, staged beside its K and V
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
 // wait until at most N committed groups are still in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -274,15 +281,24 @@ struct WarpTile {
 // visible column (and, WIN, wholly below their band).  WIN is a template
 // flag: a runtime test slowed paged decode 0.341 -> 0.488 ms, and the
 // instance without it is the code kernel 8 ran before the band existed.
-// Rows and columns past Sq, Skv are staged as zeros and masked.  The
-// caller has issued, and not committed, the Q tile's copies; all 128
+// Rows and columns past Sq, Skv are staged as zeros and masked.  SEG
+// (a template flag, as WIN) adds the packed-sequence test: row r sees
+// column c only where q_ids[r] == kv_ids[c] (the ids of one batch row,
+// int32); each lane holds its two rows' ids in registers, and a chunk's
+// 64 kv ids land in sIds (two stages of 64 ints) by cp.async beside its
+// K and V.  It skips no chunk a segment boundary leaves dead: every chunk
+// the bounds above leave is computed and masked by id.  A row may then
+// see no column of a chunk while its state is live: WarpTile::step keeps
+// its m, l and alpha as they are (x = -inf, m_new = m, alpha = 1, p = 0).
+// The caller has issued, and not committed, the Q tile's copies; all 128
 // threads take part; on return nothing is in flight.
-template <bool WIN>
+template <bool WIN, bool SEG = false>
 __device__ __forceinline__ void mma_fold(
     WarpTile& wt, const __nv_bfloat16* sQ, __nv_bfloat16* sKV,
     const __nv_bfloat16* kb, const __nv_bfloat16* vb, int Sq, int Skv,
     int q0, float scale_log2, int q_lo, int q_hi, int kv_hi, int causal,
-    int offset, int window) {
+    int offset, int window, const int* q_ids = nullptr,
+    const int* kv_ids = nullptr, int* sIds = nullptr) {
   constexpr int BQ = 64, NT = 128, TILE = 64 * kTileLd;
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
   const int r_lo = max(q0, q_lo), r_hi = min(min(q0 + BQ, q_hi), Sq);
@@ -298,7 +314,7 @@ __device__ __forceinline__ void mma_fold(
   // the columns each of the lane's rows sees, [lo, hi] (hi = -1: none),
   // and the warp's extremes: a chunk outside them leaves the warp's state
   // as it is
-  int hi[2], lo[2];
+  int hi[2], lo[2], qid[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int qr = q0 + 16 * w + g + 8 * hf;
@@ -307,6 +323,7 @@ __device__ __forceinline__ void mma_fold(
     if (causal) h_ = min(h_, qr + offset);
     hi[hf] = ok ? h_ : -1;
     lo[hf] = WIN ? (ok ? qr + offset - window + 1 : INT_MAX) : 0;
+    qid[hf] = (SEG && ok) ? q_ids[qr] : 0;
   }
   const int w_hi = __reduce_max_sync(0xffffffffu, max(hi[0], hi[1]));
   const int w_lo =
@@ -317,6 +334,11 @@ __device__ __forceinline__ void mma_fold(
     cp_tile<kTileChunk, NT>(st, kb + (size_t)kTileChunk * i * kTileD, valid);
     cp_tile<kTileChunk, NT>(st + TILE, vb + (size_t)kTileChunk * i * kTileD,
                             valid);
+    if constexpr (SEG) {
+      if ((int)threadIdx.x < valid)
+        cp_async4(sIds + (i & 1) * kTileChunk + threadIdx.x,
+                  kv_ids + kTileChunk * i + threadIdx.x);
+    }
   };
   if (i_begin < n) issue(i_begin);
   cp_async_commit();
@@ -330,10 +352,12 @@ __device__ __forceinline__ void mma_fold(
     if (j0 > w_hi) continue;
     if (WIN && j0 + kTileChunk - 1 < w_lo) continue;
     const __nv_bfloat16* sK = sKV + (i & 1) * 2 * TILE;
+    const int* sid = SEG ? sIds + (i & 1) * kTileChunk : nullptr;
     wt.step<kTileChunk>(
         sK, sK + TILE, [&](int) { return scale_log2; },
         [&](int hf, int col) {
-          return j0 + col <= hi[hf] && (!WIN || j0 + col >= lo[hf]);
+          return j0 + col <= hi[hf] && (!WIN || j0 + col >= lo[hf]) &&
+                 (!SEG || sid[col] == qid[hf]);
         },
         [&](int) { return 1.f; });
   }

@@ -15,13 +15,15 @@ from .transformer import ModelConfig
 def make_eval_step(cfg: ModelConfig, mesh=None):
     """(params, batch) -> (nll sum, valid-token count), without autograd:
     the caller adds sum and count across batches, so the eval loss is the
-    same token-weighted objective as the train loss."""
+    same token-weighted objective as the train loss (packed batches
+    included: their `segment_ids` reach the attention)."""
 
     def step(params, batch):
         with torch.no_grad():
             nll_sum, _ = _loss_parts(params, batch["tokens"],
                                      batch["positions"], batch["labels"],
-                                     cfg, mesh)
+                                     cfg, mesh,
+                                     segment_ids=batch.get("segment_ids"))
         return nll_sum, (batch["labels"] >= 0).sum()
 
     return step
@@ -30,16 +32,16 @@ def make_eval_step(cfg: ModelConfig, mesh=None):
 class Evaluator:
     """Reusable held-out eval: the (sequential, unshuffled) loader stays
     open across rounds and each call rewinds it, so every eval sees the
-    same batches."""
+    same batches.  A packed run (`packed_eos_id`) is evaluated packed, or
+    eval_loss would measure another objective (cross-document attention,
+    unmasked boundaries) than the train loss."""
 
     def __init__(self, cfg: ModelConfig, mesh, data_path, *, batch: int,
                  seq_len: int, max_batches: int = 32, packed_eos_id=None,
                  device=None):
-        if packed_eos_id is not None:
-            raise NotImplementedError("packed-document eval is not ported "
-                                      "yet")
         self._step = make_eval_step(cfg, mesh)
         self._cfg, self._mesh = cfg, mesh
+        self._packed_eos_id = packed_eos_id
         self._device = resolve_device(device)
         self._loader = DataLoader(data_path, batch, seq_len, shuffle=False)
         self._n = min(max_batches,
@@ -51,7 +53,8 @@ class Evaluator:
         for _ in range(self._n):
             x, y = self._loader.next()
             nll, n = self._step(params, batch_from_host(
-                x, y, self._cfg, self._mesh, device=self._device))
+                x, y, self._cfg, self._mesh,
+                packed_eos_id=self._packed_eos_id, device=self._device))
             nll_total += float(nll)
             n_total += int(n)
         loss = nll_total / max(n_total, 1)

@@ -13,8 +13,9 @@ CLI (the card by default; `--device cpu` runs the plain versions):
         --steps 100 --d-model 2048 --n-layers 16 --n-heads 16 --seq-len 8192
 
 `--mesh sp=4` trains on a ring of 4 positions (`--mesh inter=2,intra=2`
-on the double ring); dp and tp, MoE experts, pipeline microbatches,
-packed documents and multi-host start come with later slices.  The JAX
+on the double ring); `--packed-eos ID` trains (and evaluates) on
+EOS-delimited packed documents; dp and tp, MoE experts, pipeline
+microbatches and multi-host start come with later slices.  The JAX
 runner's `--probe-tri-bwd` is a TPU compile probe and has no counterpart
 here.
 """
@@ -55,7 +56,9 @@ class RunConfig:
     eval_data_path: Optional[str] = None
     eval_every: int = 500
     eval_batches: int = 16
-    packed_eos_id: Optional[int] = None  # packed documents: not ported yet
+    # packed-document training: EOS token id delimiting documents in the
+    # stream (positions restart, attention isolated per document)
+    packed_eos_id: Optional[int] = None
     # where the run's obs state is exported at the end (JSONL, read by
     # `python -m burst_attn_tpu_torch.obs`); None: BURST_OBS_EXPORT, if set
     obs_export: Optional[str] = None
@@ -72,9 +75,6 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
     primary = log_helper.is_primary()
     dev = resolve_device(device)
     _world(cfg, mesh)
-    if run.packed_eos_id is not None:
-        raise NotImplementedError("packed-document training is not ported "
-                                  "yet")
     ckpt = None
     state, start_step = None, 0
     if run.ckpt_dir:
@@ -97,7 +97,8 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
 
         evaluator = Evaluator(cfg, mesh, run.eval_data_path, batch=run.batch,
                               seq_len=run.seq_len,
-                              max_batches=run.eval_batches, device=dev)
+                              max_batches=run.eval_batches,
+                              packed_eos_id=run.packed_eos_id, device=dev)
 
     def maybe_eval(step):
         if evaluator is None:
@@ -117,7 +118,9 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
                         seed=run.seed, num_threads=run.loader_threads) as dl:
             if start_step:
                 dl.seek(start_step)
-            batches = prefetch_batches(dl, cfg, mesh, device=dev)
+            batches = prefetch_batches(dl, cfg, mesh,
+                                       packed_eos_id=run.packed_eos_id,
+                                       device=dev)
             for step in range(start_step, run.steps):
                 batch = next(batches)
                 with timer as t:
@@ -199,6 +202,10 @@ def main(argv=None):
     p.add_argument("--d-ff", type=int, default=None)
     p.add_argument("--layout", default="zigzag")
     p.add_argument("--no-remat", action="store_true")
+    p.add_argument("--packed-eos", type=int, default=None,
+                   help="EOS token id delimiting packed documents: positions "
+                        "restart per document, loss masks boundaries, and "
+                        "attention never crosses them (segment_ids)")
     p.add_argument("--obs-export", default=None,
                    help="JSONL the run's obs state is appended to at the "
                         "end, e.g. results/obs.jsonl (default: the "
@@ -230,7 +237,8 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
         log_every=args.log_every, seed=args.seed,
         eval_data_path=args.eval_data, eval_every=args.eval_every,
-        eval_batches=args.eval_batches, obs_export=args.obs_export,
+        eval_batches=args.eval_batches, packed_eos_id=args.packed_eos,
+        obs_export=args.obs_export,
     )
     fit(cfg, tcfg, run, mesh, device=args.device)
 

@@ -26,8 +26,14 @@ ring telemetry of every layer through the step and publishes it
 read-back it costs; the loss and gradients are bitwise those of
 collect_devstats=False.
 
-Not ported yet: dp and tp axes, packed documents (`packed_fields*`,
-`make_packed_batch`, `packed_eos_id`), MoE and the pipeline path.  The
+Packed documents: `packed_fields` (torch) / `packed_fields_np` (numpy,
+for the host prefetch path) derive segment ids, per-document positions
+and boundary-masked labels from an EOS-delimited stream;
+`batch_from_host(packed_eos_id=)`, `prefetch_batches(packed_eos_id=)`
+and `make_packed_batch` add `segment_ids` to the batch (layout order),
+and the step passes them to every layer's attention.
+
+Not ported yet: dp and tp axes, MoE and the pipeline path.  The
 TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
 counterpart: a CUDA kernel either builds or the run stops.
 """
@@ -157,7 +163,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
     """Returns step((params, optimizer), batch) -> (state, metrics).
 
     batch = dict(tokens, positions, labels), each [B, S] int on the step's
-    device (batch_from_host / make_batch).  metrics = {"loss", "grad_norm"}
+    device (batch_from_host / make_batch), plus `segment_ids` for packed
+    documents (make_packed_batch, batch_from_host(packed_eos_id=)).  metrics = {"loss", "grad_norm"}
     as 0-d fp32 tensors (no host sync); grad_norm is the norm before
     clipping.  `device` defaults to the card and raises without one unless
     "cpu" is asked for.  Each call counts train.steps and, from the second
@@ -204,11 +211,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                              f"step on {dev}")
         tokens, positions, labels = (batch[k] for k in
                                      ("tokens", "positions", "labels"))
+        seg = batch.get("segment_ids")
         opt.zero_grad(set_to_none=True)
         stats = None
         if accum == 1:
             loss = loss_fn(params, tokens, positions, labels, cfg, mesh,
-                           moe_aux_weight=aux_w, collect_stats=collect)
+                           moe_aux_weight=aux_w, segment_ids=seg,
+                           collect_stats=collect)
             if collect:
                 loss, stats = loss
             loss.backward()
@@ -227,8 +236,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
             s_sum = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(accum):
                 sl = slice(i * mb, (i + 1) * mb)
-                nll_sum, aux = _loss_parts(params, tokens[sl], positions[sl],
-                                           labels[sl], cfg, mesh)
+                nll_sum, aux = _loss_parts(
+                    params, tokens[sl], positions[sl], labels[sl], cfg, mesh,
+                    segment_ids=None if seg is None else seg[sl])
                 s = nll_sum + aux_w * aux * (v_total / accum)
                 s.backward()
                 s_sum += s.detach()
@@ -259,10 +269,12 @@ def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
     natural order) as the layout-ordered batch dict `make_train_step`
     consumes, on `device` (default: the card).  Labels were shifted by the
     loader; here they only get the layout permutation at the mesh's ring
-    world (the identity on one position)."""
-    if packed_eos_id is not None:
-        raise NotImplementedError("packed-document training is not ported "
-                                  "yet")
+    world (the identity on one position).
+
+    `packed_eos_id`: treat the stream as EOS-delimited packed documents:
+    positions restart per document, labels are re-derived with boundary
+    masking (packed_fields_np; the loader's labels are superseded), and
+    `segment_ids` join the batch, all in layout order."""
     dev = resolve_device(device)
     tokens, labels = np.asarray(tokens), np.asarray(labels)
     b, s = tokens.shape
@@ -271,6 +283,13 @@ def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
     def put(a):
         return torch.from_numpy(np.array(a, dtype=np.int64)).to(dev)
 
+    if packed_eos_id is not None:
+        seg, pos_packed, labels_packed = packed_fields_np(tokens,
+                                                          packed_eos_id)
+        return {"tokens": put(tokens[:, perm]),
+                "positions": put(pos_packed[:, perm]),
+                "labels": put(labels_packed[:, perm]),
+                "segment_ids": put(seg[:, perm])}
     return {"tokens": put(tokens[:, perm]),
             "positions": put(np.broadcast_to(perm[None, :], (b, s))),
             "labels": put(labels[:, perm])}
@@ -280,7 +299,8 @@ def prefetch_batches(dl, cfg: ModelConfig, mesh=None, depth: int = 2,
                      packed_eos_id=None, *, device=None):
     """Generator keeping `depth` device batches ahead of the consumer (the
     loader's worker threads fill the host windows meanwhile).  `dl` is a
-    data.DataLoader or any (inputs, targets) iterator."""
+    data.DataLoader or any (inputs, targets) iterator.  `packed_eos_id`:
+    packed documents, see batch_from_host."""
     q = deque()
     it = iter(dl)
 
@@ -312,13 +332,77 @@ def make_batch(seed: int, cfg: ModelConfig, mesh=None, batch: int = 1,
 
 
 def packed_fields(tokens, eos_id: int):
-    raise NotImplementedError("packed-document training is not ported yet")
+    """Packed-training fields of a [B, S] integer token tensor in NATURAL
+    order whose documents are delimited by `eos_id` (the EOS token belongs
+    to the document it ends):
+
+      segment_ids [B, S] int32  document index per token (monotone from 0)
+      positions   [B, S] int64  rotary positions restarting per document
+      labels      [B, S] int64  next-token targets, -1 at document ends
+                                (an EOS never predicts the next
+                                document's first token) and at the last
+                                position
+
+    Permute all three (and the tokens) into the ring's layout order
+    (layouts.to_layout(axis=1)) before a zigzag or striped ring."""
+    tokens = torch.as_tensor(tokens)
+    b, s = tokens.shape
+    is_eos = (tokens == eos_id).to(torch.int32)
+    # token t's segment = number of EOS strictly before t
+    seg = (torch.cumsum(is_eos, dim=1) - is_eos).to(torch.int32)
+    idx = torch.arange(s, device=tokens.device).expand(b, s)
+    is_start = torch.cat([torch.ones((b, 1), dtype=torch.bool,
+                                     device=tokens.device),
+                          seg[:, 1:] != seg[:, :-1]], dim=1)
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    positions = idx - seg_start
+    nxt_same = torch.cat([seg[:, 1:] == seg[:, :-1],
+                          torch.zeros((b, 1), dtype=torch.bool,
+                                      device=tokens.device)], dim=1)
+    labels = torch.where(nxt_same, torch.roll(tokens, -1, dims=1).long(),
+                         -1)
+    return seg, positions, labels
 
 
 def packed_fields_np(tokens, eos_id: int):
-    raise NotImplementedError("packed-document training is not ported yet")
+    """numpy twin of packed_fields for the host prefetch path (the loader
+    thread derives the fields without touching the device): int32
+    (segment_ids, positions, labels)."""
+    tokens = np.asarray(tokens)
+    b, s = tokens.shape
+    is_eos = tokens == eos_id
+    seg = (np.cumsum(is_eos, axis=1) - is_eos).astype(np.int32)
+    idx = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
+    is_start = np.concatenate(
+        [np.ones((b, 1), bool), seg[:, 1:] != seg[:, :-1]], axis=1)
+    seg_start = np.maximum.accumulate(np.where(is_start, idx, 0), axis=1)
+    positions = (idx - seg_start).astype(np.int32)
+    nxt_same = np.concatenate(
+        [seg[:, 1:] == seg[:, :-1], np.zeros((b, 1), bool)], axis=1)
+    labels = np.where(
+        nxt_same, np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1),
+        -1).astype(np.int32)
+    return seg, positions, labels
+
+
+def packed_tokens(seed: int, vocab: int, batch: int, seq: int,
+                  eos_id: int = 0):
+    """A synthetic packed token stream [batch, seq] int32 from a numpy
+    seed, in natural order: uniform tokens (>= 1) with EOS drawn
+    independently at each position with p = 4 / seq (about four
+    documents a row, the JAX package's rate)."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+    eos = rng.random((batch, seq)) < 4.0 / seq
+    return np.where(eos, eos_id, np.maximum(tokens, 1)).astype(np.int32)
 
 
 def make_packed_batch(seed: int, cfg: ModelConfig, mesh=None,
-                      batch: int = 1, seq: int = 128, eos_id: int = 0):
-    raise NotImplementedError("packed-document training is not ported yet")
+                      batch: int = 1, seq: int = 128, eos_id: int = 0, *,
+                      device=None):
+    """Synthetic PACKED LM batch from a numpy seed (packed_tokens): the
+    fields packed_fields derives, everything in layout order on `device`
+    (batch_from_host(packed_eos_id=eos_id))."""
+    tokens = packed_tokens(seed, cfg.vocab, batch, seq, eos_id)
+    return batch_from_host(tokens, tokens, cfg, mesh, packed_eos_id=eos_id,
+                           device=device)

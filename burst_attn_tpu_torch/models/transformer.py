@@ -213,26 +213,30 @@ def _logits(x, lm_head):
     return x.float() @ lm_head.float().t()
 
 
-def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None):
+def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
+           segment_ids=None):
     """One decoder block of the training forward: attention, then the
     SwiGLU MLP.  Attention runs the flash kernels (autograd
     `flash_attention`) on one device, or the ring (autograd `burst_attn`
     over cfg.seq_axes, its layout and backend) when the mesh's sequence
     axes hold more than one position, as the JAX model's `_attention`
-    does.  `stats_out`: None, or a list the ring's DevStats is appended to
-    (collect_stats: the output is the same)."""
+    does; both take the packed-document `segment_ids`.  `stats_out`:
+    None, or a list the ring's DevStats is appended to (collect_stats:
+    the output is the same)."""
     q, k, v = _qkv_proj(p, x, positions, cfg)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if ring_world(cfg, mesh) > 1:
         o = burst_attn(q, k, v, mesh=dict(mesh), seq_axes=cfg.seq_axes,
                        causal=cfg.causal, layout=cfg.layout,
                        backend=cfg.attn_backend, window=cfg.window,
+                       segment_ids=segment_ids,
                        collect_stats=stats_out is not None)
         if stats_out is not None:
             o, st = o
             stats_out.append(st)
     else:
-        o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+        o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                            segment_ids=segment_ids)
     x = x + _attn_out(p, o)
     return x + _mlp(p, x)
 
@@ -276,31 +280,32 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     (non-reentrant), the counterpart of jax.checkpoint: its activations
     are recomputed in the backward.  `mesh` names axis sizes ({"sp": W}
     or {"inter": a, "intra": b} with cfg.seq_axes to match; the ring
-    positions share the tokens' device); packed documents (`segment_ids`)
-    come with a later slice.
+    positions share the tokens' device).  `segment_ids` [B, S] ints in
+    the tokens' order pack documents into a row: every layer's attention
+    stays inside a document (flash_attention / burst_attn(segment_ids=)).
 
     `collect_stats` (a ring only): also return the ring telemetry of
     every layer folded with obs.devstats.merge (counts add, extrema max /
     min) as a third element, `(logits, aux, DevStats)`; logits and
     gradients are bitwise those of collect_stats=False (a remat block's
     recompute in the backward adds no stats of its own to the result)."""
-    if segment_ids is not None:
-        raise NotImplementedError("packed-document training (segment_ids) "
-                                  "is not ported yet")
     if collect_stats and ring_world(cfg, mesh) < 2:
         raise ValueError("collect_stats needs a ring: the mesh's sequence "
                          f"axes {tuple(cfg.seq_axes)} hold one position")
     ring_world(cfg, mesh)
     x = params["embed"][tokens].to(cfg.dtype)
+    if segment_ids is not None:  # once, as the kernels take them
+        segment_ids = segment_ids.to(device=x.device,
+                                     dtype=torch.int32).contiguous()
     sinks = []
     for p in params["layers"]:
         sink = [] if collect_stats else None
         sinks.append(sink)
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(_block, x, p, positions, cfg, mesh, sink,
-                           use_reentrant=False)
+                           segment_ids, use_reentrant=False)
         else:
-            x = _block(x, p, positions, cfg, mesh, sink)
+            x = _block(x, p, positions, cfg, mesh, sink, segment_ids)
     logits = _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_stats:
@@ -315,15 +320,18 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     return logits, aux, stats
 
 
-def forward(params: Params, tokens, positions, cfg: ModelConfig):
+def forward(params: Params, tokens, positions, cfg: ModelConfig,
+            segment_ids=None):
     """Dense single-device forward: tokens, positions [B, S] int -> fp32
-    logits [B, S, vocab].  Causal attention (banded by cfg.window) through
-    the plain tile (single_device_attention), no kernels: the plain
-    reference the serving checks teacher-force against."""
+    logits [B, S, vocab].  Causal attention (banded by cfg.window, kept
+    inside each packed document by `segment_ids`) through the plain tile
+    (single_device_attention), no kernels: the plain reference the
+    serving checks teacher-force against."""
     x = params["embed"][tokens].to(cfg.dtype)
     for p in params["layers"]:
         q, k, v = _qkv_proj(p, x, positions, cfg)
-        x = x + _attn_out(p, single_device_attention(q, k, v, causal=True,
-                                                     window=cfg.window))
+        x = x + _attn_out(p, single_device_attention(
+            q, k, v, causal=True, window=cfg.window,
+            segment_ids=segment_ids))
         x = x + _mlp(p, x)
     return _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])

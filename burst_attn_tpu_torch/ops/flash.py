@@ -15,6 +15,11 @@ tricks (triangular and band grids, block tuning) have no counterpart: on
 Hopper each CTA loops over the tiles from the first its window band meets
 up to its causal diagonal.  The forward takes a sliding `window`; the
 backward's band (kernels 2-5) comes with the windowed-training slice.
+Both directions take packed-sequence `segments` = (q ids [B, Sq], kv ids
+[B, Skv]): a query sees a key only where the ids are equal, on top of
+the causal mask and the window.  On a CUDA tensor the kernels' SEG
+instances (a template flag, as the window's) test the ids in-kernel;
+their no-segment instances are the code they were before.
 """
 
 import torch
@@ -47,6 +52,27 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def seg_operands(segments, b, s_q, s_kv, device):
+    """The (q ids [B, Sq], kv ids [B, Skv]) of `segments` as the kernels
+    take them: int32, contiguous, on `device`; (None, None) without
+    segments.  Raises on a shape that does not match."""
+    if segments is None:
+        return None, None
+    q_ids, kv_ids = segments
+    out = []
+    for name, t, s in (("q ids", q_ids, s_q), ("kv ids", kv_ids, s_kv)):
+        if tuple(t.shape) != (b, s):
+            raise ValueError(f"segment {name} have shape {tuple(t.shape)}, "
+                             f"expected {(b, s)}")
+        if t.is_floating_point() or t.is_complex():
+            raise ValueError(f"segment {name} must be integers, got "
+                             f"{t.dtype}")
+        t = t.to(device=device, dtype=torch.int32).contiguous()
+        _check_kernel_operand(f"segment {name}", t, device, torch.int32)
+        out.append(t)
+    return tuple(out)
+
+
 def flash_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, *, window=None,
               segments=None, emit_o=False):
     """One online-softmax round; same contract as ops/tile.py:tile_fwd:
@@ -62,10 +88,10 @@ def flash_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, *, window=None,
     ints.  A CUDA tensor launches csrc/flash_fwd.cu (bf16 or fp32, D = 128,
     contiguous); a CPU tensor runs tile_fwd.
     `window` (>= 1) keeps each row's last `window` visible columns: cols >
-    row + offset - window (masks.dense_mask).  `segments` is not ported
-    yet."""
-    if segments is not None:
-        raise NotImplementedError("segments are not ported yet")
+    row + offset - window (masks.dense_mask).  `segments` = (q ids [B,
+    Sq], kv ids [B, Skv]) integers: a row sees a column only where the
+    ids are equal (ops/tile.py:_with_segments); the kernel's SEG
+    instance."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     carry = m is not None
@@ -82,19 +108,23 @@ def flash_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, *, window=None,
     if q.device.type == "cpu":
         if not carry:
             m, lse, acc = init_state(b, n, s_q, d, device=q.device)
+        if segments is not None:
+            seg_operands(segments, b, s_q, s_kv, q.device)  # shape checks
         m, lse, acc = tile_fwd(q, k, v, m, lse, acc, scale, spec,
-                               window=window)
+                               window=window, segments=segments)
         if emit_o:
             return m, lse, finalize(m, lse, acc, q.dtype)
         return m, lse, acc
     return _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window,
-                           emit_o)
+                           emit_o, segments)
 
 
 flash_fwd.launches = 0
+flash_fwd.seg_launches = 0  # the launches of the SEG instances
 
 
-def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window, emit_o):
+def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window, emit_o,
+                    segments=None):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu tensors, got {dev}")
@@ -113,6 +143,7 @@ def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window, emit_o):
         _check_kernel_operand("m", m, dev, torch.float32, (b, n, s_q))
         _check_kernel_operand("lse", lse, dev, torch.float32, (b, n, s_q))
         _check_kernel_operand("acc", acc, dev, torch.float32, q.shape)
+    q_ids, kv_ids = seg_operands(segments, b, s_q, s_kv, dev)
     m_out = torch.empty((b, n, s_q), dtype=torch.float32, device=dev)
     lse_out = torch.empty((b, n, s_q), dtype=torch.float32, device=dev)
     out = torch.empty(q.shape, dtype=q.dtype if emit_o else torch.float32,
@@ -125,12 +156,13 @@ def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window, emit_o):
         err = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m), _ptr(lse),
             _ptr(acc), m_out.data_ptr(), lse_out.data_ptr(), out.data_ptr(),
-            b, n, n_kv, s_q, s_kv, d, KERNEL_DTYPES[q.dtype], float(scale),
+            _ptr(q_ids), _ptr(kv_ids), b, n, n_kv, s_q, s_kv, d, KERNEL_DTYPES[q.dtype], float(scale),
             int(spec.q_lo), int(spec.q_hi), int(spec.kv_hi),
             int(spec.causal), int(spec.offset),
             0 if window is None else int(window), int(emit_o), stream)
     _build.check(err, "flash_fwd")
     flash_fwd.launches += 1
+    flash_fwd.seg_launches += q_ids is not None
     return m_out, lse_out, out
 
 
@@ -153,14 +185,13 @@ def flash_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, *, fused=None,
     pallas_flash.py); the port takes it only when asked.  `triangular` is the
     TPU's wrapped-diagonal grid; here every causal CTA already starts at
     the diagonal, so it changes nothing.  A CPU tensor runs tile_bwd.
-    `window` and `segments` are not ported yet."""
+    `segments` = (q ids [B, Sq], kv ids [B, Skv]) as flash_fwd's (the
+    kernels' SEG instances); `window` is not ported yet."""
     del triangular
     if window is not None:
         raise NotImplementedError(
             "the windowed flash backward is not ported yet: the band in "
             "kernels 2-5 comes with the windowed-training slice")
-    if segments is not None:
-        raise NotImplementedError("segments are not ported yet")
     b, n, s_q, d = q.shape
     n_kv, s_kv = k.shape[1], k.shape[2]
     if tuple(do.shape) != tuple(q.shape):
@@ -172,15 +203,20 @@ def flash_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, *, fused=None,
     if n % n_kv:
         raise ValueError(f"GQA needs Nq % Nk == 0, got {n} % {n_kv}")
     if q.device.type == "cpu":
-        return tile_bwd(do, q, k, v, delta, lse, scale, spec)
+        if segments is not None:
+            seg_operands(segments, b, s_q, s_kv, q.device)  # shape checks
+        return tile_bwd(do, q, k, v, delta, lse, scale, spec,
+                        segments=segments)
     return _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec,
-                           split=fused is False)
+                           split=fused is False, segments=segments)
 
 
 flash_bwd.launches = dict.fromkeys(BWD_ROUTES, 0)
+flash_bwd.seg_launches = dict.fromkeys(BWD_ROUTES, 0)  # SEG instances
 
 
-def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split):
+def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split,
+                    segments=None):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_bwd runs on cuda or cpu tensors, got {dev}")
@@ -196,6 +232,7 @@ def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split):
         _check_kernel_operand(name, t, dev, q.dtype)
     _check_kernel_operand("delta", delta, dev, torch.float32, (b, n, s_q))
     _check_kernel_operand("lse", lse, dev, torch.float32, (b, n, s_q))
+    q_ids, kv_ids = seg_operands(segments, b, s_q, s_kv, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dk = torch.empty(k.shape, **f32)
     dv = torch.empty(k.shape, **f32)
@@ -220,29 +257,35 @@ def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split):
             err = getattr(lib, f"flash_bwd_{route}_launch")(
                 do.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 delta.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), _ptr(counters), *args)
+                dk.data_ptr(), dv.data_ptr(), _ptr(counters), _ptr(q_ids),
+                _ptr(kv_ids), *args)
             _build.check(err, f"flash_bwd {route}")
             flash_bwd.launches[route] += 1
+            flash_bwd.seg_launches[route] += q_ids is not None
     return dq, dk, dv
 
 
-def fwd_attrs():
+def fwd_attrs(seg: bool = False):
     """_build.kernel_attrs of kernel 1's instances: bf16 (tensor cores;
-    with the fused finalize, the raw accumulator, a window), fp32 (SIMT)."""
+    with the fused finalize, the raw accumulator, a window), fp32 (SIMT);
+    with `seg` their SEG instances (labels end in " seg")."""
     bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
+    add, tag = (4, " seg") if seg else (0, "")
     return _build.kernel_attrs("flash_fwd", {  # flag: emit_o + 2 * window
-        "bf16": (bf16, 1), "bf16 acc": (bf16, 0), "bf16 window": (bf16, 3),
-        "fp32": (fp32, 1)})
+        f"bf16{tag}": (bf16, 1 + add), f"bf16 acc{tag}": (bf16, add),
+        f"bf16 window{tag}": (bf16, 3 + add), f"fp32{tag}": (fp32, 1 + add)})
 
 
-def bwd_attrs():
+def bwd_attrs(seg: bool = False):
     """_build.kernel_attrs of the backward's kernels: the fused kernel
     (kernels 2-3; bf16 on the tensor cores, fp32 SIMT) and the split pair
-    (kernels 4-5) in bf16, on the tensor cores."""
+    (kernels 4-5) in bf16, on the tensor cores; with `seg` their SEG
+    instances (labels end in " seg")."""
     bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
-    return _build.kernel_attrs("flash_bwd", {  # flag: the route's index
-        "bf16 fused": (bf16, 0), "fp32 fused": (fp32, 0),
-        "bf16 dq": (bf16, 1), "bf16 dkdv": (bf16, 2)})
+    add, tag = (4, " seg") if seg else (0, "")
+    return _build.kernel_attrs("flash_bwd", {  # flag: route + 4 * seg
+        f"bf16 fused{tag}": (bf16, add), f"fp32 fused{tag}": (fp32, add),
+        f"bf16 dq{tag}": (bf16, 1 + add), f"bf16 dkdv{tag}": (bf16, 2 + add)})
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -250,29 +293,31 @@ class _FlashAttention(torch.autograd.Function):
     the flash backward (pallas_flash.py's custom_vjp, l.2052-2123)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, fused, window):
+    def forward(ctx, q, k, v, scale, causal, fused, window, segment_ids):
         spec = round_spec(0, 0, q.shape[2], k.shape[2], causal, "contig")
+        segs = None if segment_ids is None else (segment_ids, segment_ids)
         _, lse, o = flash_fwd(q, k, v, None, None, None, scale, spec,
-                              window=window, emit_o=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+                              window=window, segments=segs, emit_o=True)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
         ctx.scale, ctx.spec, ctx.fused = scale, spec, fused
         ctx.window = window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, segment_ids = ctx.saved_tensors
         delta = (o.float() * do.float()).sum(-1)
+        segs = None if segment_ids is None else (segment_ids, segment_ids)
         dq, dk, dv = flash_bwd(do.contiguous(), q, k, v, delta, lse,
                                ctx.scale, ctx.spec, fused=ctx.fused,
                                triangular=bool(ctx.spec.causal),
-                               window=ctx.window)
+                               window=ctx.window, segments=segs)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
+                None, None, None)
 
 
 def flash_attention(q, k, v, scale=None, causal=False, *, fused=None,
-                    window=None):
+                    window=None, segment_ids=None):
     """Single-device flash attention: q [B,N,S,D], k, v [B,Nk,S,D] ->
     o [B,N,S,D] in q's dtype, differentiable.  The forward is one
     `flash_fwd` with an empty carry and the fused finalize (it keeps lse);
@@ -281,9 +326,20 @@ def flash_attention(q, k, v, scale=None, causal=False, *, fused=None,
     the gradients to the inputs' dtypes.  Under `torch.no_grad()`
     (serving) only the forward runs.  `window` (causal only) is the
     sliding-window band of the forward; its backward raises until the
-    windowed-training slice."""
+    windowed-training slice.  `segment_ids` [B, S] integers pack several
+    documents into one row: attention never crosses a segment boundary
+    (both passes run the kernels' SEG instances on the card; the ids get
+    no gradient)."""
     if window is not None and not causal:
         raise ValueError("window attention requires causal=True")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, scale, causal, fused, window)
+    if segment_ids is not None:
+        if q.shape[2] != k.shape[2]:
+            raise ValueError("segment_ids cover both sides only when "
+                             f"s_q == s_kv, got {q.shape[2]} != "
+                             f"{k.shape[2]}")
+        segment_ids = seg_operands((segment_ids, segment_ids), q.shape[0],
+                                   q.shape[2], k.shape[2], q.device)[0]
+    return _FlashAttention.apply(q, k, v, scale, causal, fused, window,
+                                 segment_ids)

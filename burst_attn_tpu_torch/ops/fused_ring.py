@@ -26,8 +26,14 @@ round's consume per (bank, slot) in device memory (the plain version
 counts the same walk), and the occupancy comes from the table's mask
 scalars, as in the JAX package.
 
-Not ported yet: wire_dtype, packed segments and window (they raise in
-parallel/burst.py).
+Packed segments (`seg=`, the positions' ids stacked [W, B, S] int32 in
+layout order): all positions share the card, so the stacked ids are the
+JAX package's gathered side table (`gather_seg_table`).  Each table row
+carries the partition the round consumes (its PART column, JAX's
+`with_part`); the kernels' SEG instances read that partition's ids for
+the rotating side and the position's own for the resident one.
+
+Not ported yet: wire_dtype and window (they raise in parallel/burst.py).
 """
 
 import ctypes
@@ -58,7 +64,9 @@ from ..parallel.ring import ring_coords, ring_roles
 ARRIVE_NEED = sched_ir.FWD_COLS
 SRC_NEED = (ARRIVE_NEED + 1, ARRIVE_NEED + 2)
 TAKE_NEED = (ARRIVE_NEED + 3, ARRIVE_NEED + 4)
-KERNEL_COLS = ARRIVE_NEED + 5
+# the partition whose chunk the round consumes (the rotating side's ids)
+PART = ARRIVE_NEED + 5
+KERNEL_COLS = ARRIVE_NEED + 6
 # the backward kernel's columns after the program's BWD_COLS: the same
 # five for the bundle, then the dq streams' needs: the versions the dq
 # slot consumed this round (DQ_RECV) and the held inter slot (DQI_RECV)
@@ -70,7 +78,8 @@ BWD_TAKE_NEED = (BWD_ARRIVE_NEED + 3, BWD_ARRIVE_NEED + 4)
 DQ_ARRIVE_NEED = BWD_ARRIVE_NEED + 5
 DQI_ARRIVE_NEED = BWD_ARRIVE_NEED + 6
 DQ_TAKE_NEED = BWD_ARRIVE_NEED + 7
-BWD_KERNEL_COLS = BWD_ARRIVE_NEED + 8
+BWD_PART = BWD_ARRIVE_NEED + 8
+BWD_KERNEL_COLS = BWD_ARRIVE_NEED + 9
 
 _SEND = (sched_ir.SEND0, sched_ir.SEND1)
 _SRC_SLOT = (sched_ir.SRC_SLOT0, sched_ir.SRC_SLOT1)
@@ -153,11 +162,11 @@ def supported(cfg, q_shape, k_shape, has_segments: bool = False, *,
     is the ring axis size (the intra size of a double ring), `n_inter`
     the inter axis size.  With `device` cuda the kernel's own limits
     apply (bf16 / fp32, head dim 128); the plain version on the CPU takes
-    any."""
+    any.  Packed segments (`has_segments`) run on both kernels' SEG
+    instances: they decline nothing."""
+    del has_segments
     if pass_ not in ("fwd", "bwd"):
         raise ValueError(f"pass_ must be 'fwd' or 'bwd', got {pass_!r}")
-    if has_segments:
-        raise NotImplementedError("packed segments are not ported yet")
     b, n, s, d = q_shape
     if k_shape[2] != s:
         return "cross-attention shard lengths"
@@ -255,7 +264,8 @@ def kernel_table(prog, table: np.ndarray) -> np.ndarray:
     the program's own ([R + 1, KERNEL_COLS] forward, [R + 1,
     BWD_KERNEL_COLS] backward, whose dq columns kernel_table_bwd fills).
     A slot's versions: its copy-in, then one per remote write; a write at
-    round t is awaited by reads at rounds > t."""
+    round t is awaited by reads at rounds > t.  The PART column (the
+    consumed partition) is ring_plan's to fill."""
     rows, R = prog.rows, prog.n_rounds
     base = table.shape[1]
     arrive_need, src_need, take_need = base, (base + 1, base + 2), \
@@ -353,6 +363,12 @@ def ring_plan(cfg, n_inter: int, n_intra: int, s: int, pass_: str = "fwd"):
                    for p in range(n_inter * n_intra))
     to_kernel = kernel_table_bwd if bwd else kernel_table
     sched = np.stack([to_kernel(prog, t) for t in tables])
+    part = BWD_PART if bwd else PART
+    for p in range(n_inter * n_intra):
+        coords = ring_coords(p, prog.n_inter, prog.n_intra)
+        sched[p, :prog.n_rounds, part] = [
+            sched_ir.partition_for_round(prog, r, *coords)
+            for r in range(prog.n_rounds)]
     for t in tables + (sched,):
         t.flags.writeable = False
     return prog, tables, sched
@@ -367,15 +383,16 @@ def _sched_on(cfg, n_inter: int, n_intra: int, s: int, device,
 
 
 def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int, *,
-                   collect_stats: bool = False):
+                   collect_stats: bool = False, seg=None):
     """Forward burst attention of all W = n_inter * n_intra ring positions
     through the fused ring: q [W,B,N,S,D], k/v [W,B,Nk,S,D] (position p's
     shard at index p, layout order) -> (o [W,B,N,S,D] in q.dtype, lse
     [W,B,N,S] f32), plus the ring's DevStats (leading axis W) when
     `collect_stats`: o and lse are bitwise those of the stats-off call.
     Callers check `supported` first.  A CUDA tensor launches the kernel
-    (its STATS instance when collecting); a CPU tensor runs
-    fused_ring_reference."""
+    (its STATS instance when collecting; its SEG instance with `seg`, the
+    positions' packed-sequence ids [W,B,S] integers in layout order); a
+    CPU tensor runs fused_ring_reference."""
     w, b, n, s, d = q.shape
     if w != n_inter * n_intra:
         raise ValueError(f"{w} stacked shards for a {n_inter}x{n_intra} "
@@ -385,6 +402,7 @@ def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int, *,
                          f"match q {tuple(q.shape)}")
     if n % k.shape[2]:
         raise ValueError(f"GQA needs Nq % Nk == 0, got {n} % {k.shape[2]}")
+    seg = seg_table(seg, w, b, s, q.device)
     prog, tables, _ = ring_plan(cfg, n_inter, n_intra, s, "fwd")
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
     if q.device.type not in ("cpu", "cuda"):
@@ -393,16 +411,29 @@ def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int, *,
     slot_use = _slot_counters(prog, w, q.device) if collect_stats else None
     if q.device.type == "cpu":
         o, lse = fused_ring_reference(q, k, v, prog, tables, scale,
-                                      slot_use=slot_use)
+                                      slot_use=slot_use, seg=seg)
     else:
         o, lse = _fused_ring_fwd_cuda(
             q, k, v, prog,
             _sched_on(cfg, n_inter, n_intra, s, q.device, "fwd"), scale,
-            slot_use=slot_use)
+            slot_use=slot_use, seg=seg)
     if not collect_stats:
         return o, lse
     return o, lse, _fused_stats(cfg, n_inter, n_intra, prog, o, lse,
                                 slot_use, s, d)
+
+
+def seg_table(seg, w: int, b: int, s: int, device):
+    """The positions' segment ids as both fused kernels take them: one
+    contiguous int32 table [W, B, S] on `device` (None stays None)."""
+    if seg is None:
+        return None
+    if tuple(seg.shape) != (w, b, s):
+        raise ValueError(f"seg has shape {tuple(seg.shape)}, expected "
+                         f"{(w, b, s)}")
+    if seg.is_floating_point() or seg.is_complex():
+        raise ValueError(f"seg must be integers, got {seg.dtype}")
+    return seg.to(device=device, dtype=torch.int32).contiguous()
 
 
 def _slot_counters(prog, w: int, device):
@@ -447,6 +478,7 @@ def _fused_stats(cfg, n_inter: int, n_intra: int, prog, o, lse, slot_use,
 
 
 fused_ring_fwd.launches = 0
+fused_ring_fwd.seg_launches = 0  # the launches of the SEG instances
 
 
 class _Slot:
@@ -460,7 +492,7 @@ class _Slot:
 
 
 def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
-                         slot_use=None):
+                         slot_use=None, seg=None):
     """Plain version of the fused kernel: walks the compiled program on
     the host with every position's slot banks as tensors, in the kernel's
     order per round (sends at the round's start, then each position's
@@ -471,7 +503,9 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
     with a granted credit after its last version was read, and every
     credit granted is taken.  Same contract as fused_ring_fwd; a
     `slot_use` [W, 2, MAX_SLOTS] int32 tensor counts each round's consume
-    per (position, bank, slot), as the kernel's STATS instance does."""
+    per (position, bank, slot), as the kernel's STATS instance does.
+    `seg` [W, B, S]: the positions' segment ids; a round masks by the
+    position's own ids against the consumed partition's."""
     w = q.shape[0]
     n_rounds = prog.n_rounds
     st = kernel_statics(prog)
@@ -522,7 +556,9 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
             if slot_use is not None:
                 slot_use[p, cb, int(row[sched_ir.CONSUME_SLOT])] += 1
             spec = MaskSpec(*(int(x) for x in row[:5]))
-            state[p] = tile_fwd(q[p], slot.k, slot.v, *state[p], scale, spec)
+            segs = None if seg is None else (seg[p], seg[slot.part])
+            state[p] = tile_fwd(q[p], slot.k, slot.v, *state[p], scale, spec,
+                                segments=segs)
         for p in range(w):
             row = tables[p][r]
             for bk in range(prog.n_banks):
@@ -535,7 +571,8 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
     return o, lse
 
 
-def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None):
+def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
+                         seg=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_fwd kernel takes "
@@ -551,8 +588,9 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None):
     code = KERNEL_DTYPES[q.dtype]
     cap = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        _build.check(lib.fused_ring_fwd_capacity(d, code, ctypes.byref(cap)),
-                     "fused_ring_fwd capacity")
+        _build.check(lib.fused_ring_fwd_capacity(
+            d, code, int(seg is not None), ctypes.byref(cap)),
+            "fused_ring_fwd capacity")
     n_items = b * n * -(-s // FUSED_BLOCK_Q)
     per_pos = cap.value // w
     if per_pos < 1:
@@ -593,9 +631,10 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None):
             o.data_ptr(), lse.data_ptr(), w, b, n, n_kv, s, d,
             prog.n_rounds, n_banks, max_slots, ctas, KERNEL_COLS,
             copy_in[0], copy_in[1], code, int(resident), _ptr(slot_use),
-            float(scale), stream)
+            _ptr(seg), float(scale), stream)
     _build.check(err, "fused_ring_fwd")
     fused_ring_fwd.launches += 1
+    fused_ring_fwd.seg_launches += seg is not None
     return o, lse
 
 
@@ -603,13 +642,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_attrs(stats: bool = False):
+def fwd_attrs(stats: bool = False, seg: bool = False):
     """_build.kernel_attrs of kernel 8's four instances (dtype x state
     mode), or with `stats` of the four STATS instances (labels end in
-    " stats")."""
+    " stats"), with `seg` of the SEG instances (" seg" after that)."""
     return _build.kernel_attrs("fused_ring_fwd", {
-        f"{name}{'' if res else ' scratch'}{' stats' if stats else ''}":
-            (code, int(res) | (2 if stats else 0))
+        f"{name}{'' if res else ' scratch'}{' stats' if stats else ''}"
+        f"{' seg' if seg else ''}":
+            (code, int(res) | (2 if stats else 0) | (4 if seg else 0))
         for name, code in (("bf16", KERNEL_DTYPES[torch.bfloat16]),
                            ("fp32", KERNEL_DTYPES[torch.float32]))
         for res in (True, False)})

@@ -30,6 +30,10 @@ program on the host and checks its deliveries and credits.
 `collect_stats=True` adds the bundle slot-consume counters (the kernel's
 STATS instance; DevStats.slot_use_bwd), on the direct call only: the
 autograd path leaves slot_use_bwd at zero, as in the JAX package.
+`seg=` (the positions' packed-sequence ids [W, B, S], as
+fused_ring.fused_ring_fwd's): each round masks the bundle's q ids (the
+table's BWD_PART column names its partition) against the position's own
+kv ids, in the kernel's SEG instance.
 """
 
 import ctypes
@@ -43,7 +47,7 @@ from .flash import KERNEL_DTYPES, KERNEL_HEAD_DIMS, _check_kernel_operand
 from .fused_ring import (
     _DST_SLOT, _GRANT, _META_DST, _SEND, _SRC_SLOT, _TAKE,
     BWD_KERNEL_COLS, dq_send_target, kernel_statics,
-    ring_plan, _sched_on, _slot_counters,
+    ring_plan, seg_table, _sched_on, _slot_counters,
 )
 from .masks import MaskSpec
 from .tile import tile_bwd
@@ -94,7 +98,7 @@ def dq_bank_slots(prog):
 def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
                    head_chunk: Optional[int] = None,
                    trace: Optional[torch.Tensor] = None,
-                   collect_stats: bool = False):
+                   collect_stats: bool = False, seg=None):
     """Backward burst attention of all W = n_inter * n_intra ring positions
     through the fused ring: q, o, do [W,B,N,S,D], k, v [W,B,Nk,S,D], lse
     [W,B,N,S] fp32 (position p's shard at index p, layout order) -> fp32
@@ -108,7 +112,8 @@ def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
     (`read_trace`).  `collect_stats` also returns the bundle slot-consume
     counters, int32 [W, 2, MAX_SLOTS] per (position, bank, slot), from the
     kernel's STATS instance (the plain version counts the same walk); dq,
-    dk, dv are bitwise those of the stats-off call."""
+    dk, dv are bitwise those of the stats-off call.  `seg`: the positions'
+    segment ids [W,B,S] integers (the kernel's SEG instance)."""
     w, b, n, s, d = q.shape
     if w != n_inter * n_intra:
         raise ValueError(f"{w} stacked shards for a {n_inter}x{n_intra} "
@@ -124,6 +129,7 @@ def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
                          f"{tuple(q.shape)}")
     if n % k.shape[2]:
         raise ValueError(f"GQA needs Nq % Nk == 0, got {n} % {k.shape[2]}")
+    seg = seg_table(seg, w, b, s, q.device)
     prog, tables, _ = ring_plan(cfg, n_inter, n_intra, s, "bwd")
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
     if q.device.type not in ("cpu", "cuda"):
@@ -134,16 +140,17 @@ def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
         out = fused_ring_bwd_reference(q, k, v, o, lse, do, prog, tables,
                                        scale, cfg.optimize_bwd_comm,
                                        head_chunk=head_chunk,
-                                       slot_use=slot_use)
+                                       slot_use=slot_use, seg=seg)
     else:
         out = _fused_ring_bwd_cuda(
             q, k, v, o, lse, do, prog,
             _sched_on(cfg, n_inter, n_intra, s, q.device, "bwd"), scale,
-            cfg.optimize_bwd_comm, trace, slot_use=slot_use)
+            cfg.optimize_bwd_comm, trace, slot_use=slot_use, seg=seg)
     return out + (slot_use,) if collect_stats else out
 
 
 fused_ring_bwd.launches = 0
+fused_ring_bwd.seg_launches = 0  # the launches of the SEG instances
 
 
 class _Bundle:
@@ -166,18 +173,20 @@ class _Partial:
         self.done = False     # its last reader finished (sent or merged)
 
 
-def _tile_bwd_chunked(do, q, k, v, delta, lse, scale, spec, head_chunk):
+def _tile_bwd_chunked(do, q, k, v, delta, lse, scale, spec, head_chunk,
+                      segments=None):
     """tile_bwd over chunks of `head_chunk` query heads (a multiple of the
     GQA group), so that no score tensor holds every head at once."""
     n, n_kv = q.shape[1], k.shape[1]
     if head_chunk is None or head_chunk >= n:
-        return tile_bwd(do, q, k, v, delta, lse, scale, spec)
+        return tile_bwd(do, q, k, v, delta, lse, scale, spec,
+                        segments=segments)
     group = n // n_kv
     hc = max(group, head_chunk // group * group)
     parts = [tile_bwd(do[:, h:h + hc], q[:, h:h + hc],
                       k[:, h // group:(h + hc) // group],
                       v[:, h // group:(h + hc) // group], delta[:, h:h + hc],
-                      lse[:, h:h + hc], scale, spec)
+                      lse[:, h:h + hc], scale, spec, segments=segments)
              for h in range(0, n, hc)]
     return tuple(torch.cat(x, dim=1) for x in zip(*parts))
 
@@ -186,7 +195,7 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
                              tables: List[np.ndarray], scale,
                              optimize_bwd_comm: bool = True, *,
                              head_chunk: Optional[int] = None,
-                             slot_use=None):
+                             slot_use=None, seg=None):
     """Plain version of the fused backward kernel: walks the compiled
     backward program on the host with every position's bundle banks, dq
     slots and home outputs, in the kernel's phases per round (bundle sends
@@ -202,7 +211,9 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
     distinct positions: all W on a dense program); no credit is left over.
     Same contract as fused_ring_bwd; a `slot_use` [W, 2, MAX_SLOTS] int32
     tensor counts each round's bundle consume per (position, bank, slot),
-    as the kernel's STATS instance does."""
+    as the kernel's STATS instance does.  `seg` [W, B, S]: the positions'
+    segment ids; a round masks the bundle partition's ids against the
+    position's own."""
     w, n_rounds = q.shape[0], prog.n_rounds
     st = kernel_statics(prog)
     if optimize_bwd_comm:
@@ -264,9 +275,10 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
             delta_r = first_r if optimize_bwd_comm else (
                 first_r.float() * do_r.float()).sum(-1)
             spec = MaskSpec(*(int(x) for x in row[:5]))
+            segs = None if seg is None else (seg[slot.part], seg[p])
             dq_c, dk_c, dv_c = _tile_bwd_chunked(do_r, q_r, k[p], v[p],
                                                  delta_r, lse_r, scale, spec,
-                                                 head_chunk)
+                                                 head_chunk, segs)
             dk[p] += dk_c
             dv[p] += dv_c
             bank, ds = int(row[sched_ir.DQ_BANK]), int(row[sched_ir.DQ_SLOT])
@@ -351,10 +363,14 @@ def read_trace(trace):
     return [dict(zip(TRACE_COLS, r)) for r in rows if r[1] > 0]
 
 
-def bwd_attrs(stats: bool = False):
+def bwd_attrs(stats: bool = False, seg: bool = False):
     """_build.kernel_attrs of kernel 9's instances: bf16 (and traced),
-    fp32; with `stats` its two STATS instances (bf16 stats, fp32 stats)."""
+    fp32; with `stats` its two STATS instances (bf16 stats, fp32 stats);
+    with `seg` its two SEG instances (bf16 seg, fp32 seg)."""
     bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
+    if seg:
+        return _build.kernel_attrs("fused_ring_bwd", {
+            "bf16 seg": (bf16, 4), "fp32 seg": (fp32, 4)})
     if stats:
         return _build.kernel_attrs("fused_ring_bwd", {
             "bf16 stats": (bf16, 2), "fp32 stats": (fp32, 2)})
@@ -363,7 +379,7 @@ def bwd_attrs(stats: bool = False):
 
 
 def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
-                         trace=None, slot_use=None):
+                         trace=None, slot_use=None, seg=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_bwd kernel takes "
@@ -380,8 +396,9 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
     code = KERNEL_DTYPES[q.dtype]
     cap = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        _build.check(lib.fused_ring_bwd_capacity(d, code, ctypes.byref(cap)),
-                     "fused_ring_bwd capacity")
+        _build.check(lib.fused_ring_bwd_capacity(
+            d, code, int(seg is not None), ctypes.byref(cap)),
+            "fused_ring_bwd capacity")
     n_items = b * n_kv * -(-s // FUSED_BLOCK_KV_BWD)
     per_pos = cap.value // w
     if per_pos < 1:
@@ -389,10 +406,14 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
                            f"resident, fewer than the {w} positions")
     ctas = min(per_pos, n_items)
     resident = n_items <= per_pos
+    if seg is not None and slot_use is not None:
+        raise ValueError("the kernel's SEG instances count no slots: "
+                         "collect_stats with seg runs on the CPU only")
     if trace is not None:
-        if q.dtype != torch.bfloat16 or slot_use is not None:
+        if q.dtype != torch.bfloat16 or slot_use is not None or \
+                seg is not None:
             raise ValueError("a traced fused_ring_bwd launch is bf16 only, "
-                             "without collect_stats")
+                             "without collect_stats or seg")
         if (trace.dtype != torch.int64 or trace.device != dev
                 or trace.dim() != 2 or trace.shape[0] < w * ctas
                 or trace.shape[1] != len(TRACE_COLS)
@@ -456,8 +477,9 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
             d, prog.n_rounds, prog.n_banks, max_slots, max_dq, ctas,
             BWD_KERNEL_COLS, copy_in[0], copy_in[1], code, int(resident),
             int(opt_comm), None if slot_use is None else slot_use.data_ptr(),
-            float(scale), stream)
+            None if seg is None else seg.data_ptr(), float(scale), stream)
     _build.check(err, "fused_ring_bwd")
     fused_ring_bwd.launches += 1
+    fused_ring_bwd.seg_launches += seg is not None
     dq = homes[0] if homes[1] is None else homes[0] + homes[1]
     return dq, dk, dv

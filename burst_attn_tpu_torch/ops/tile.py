@@ -44,13 +44,28 @@ def _expand_kv(x, n_q_heads):
     return x.repeat_interleave(n_q_heads // n_kv, dim=1)
 
 
-def tile_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, window=None):
+def _with_segments(mask, segments):
+    """Intersect a [s_q, s_kv] structural mask with the packed-sequence
+    (segment-ids) equality mask.  segments = (q_seg [B, s_q], kv_seg
+    [B, s_kv]) int; tokens attend only within their own segment.  Returns
+    a [B, 1, s_q, s_kv] mask (batch-dependent)."""
+    if segments is None:
+        return mask
+    q_seg, kv_seg = segments
+    return mask[None, None] & (q_seg[:, None, :, None]
+                               == kv_seg[:, None, None, :])
+
+
+def tile_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, window=None,
+             segments=None):
     """One online-softmax round; returns updated (m, lse, acc).
-    `window`: the sliding-window lower bound (masks.dense_mask)."""
+    `window`: the sliding-window lower bound (masks.dense_mask).
+    `segments`: packed-sequence ids, see _with_segments."""
     s_q, s_kv = q.shape[2], k.shape[2]
     k = _expand_kv(k, q.shape[1])
     v = _expand_kv(v, q.shape[1])
-    mask = dense_mask(spec, s_q, s_kv, device=q.device, window=window)
+    mask = _with_segments(
+        dense_mask(spec, s_q, s_kv, device=q.device, window=window), segments)
 
     s = torch.einsum("bnid,bnjd->bnij", q.float(), k.float()) * scale
     s = s.masked_fill(~mask, NEG_INF)
@@ -76,7 +91,7 @@ def finalize(m, lse, acc, dtype):
     return (acc * o_scale[..., None]).to(dtype)
 
 
-def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec):
+def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, segments=None):
     """One backward round; returns this round's (dq, dk, dv) in float32.
     The plain version behind the flash backward kernels (ops/flash.py).
 
@@ -84,14 +99,15 @@ def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec):
     the FINAL log-sum-exp of the query rows, so p = exp(s - lse) is the
     true softmax probability.  Masked entries, and rows whose lse is -inf
     (fully masked), contribute exact zeros.  GQA sums dk/dv over each
-    kv head's group of query heads."""
+    kv head's group of query heads.  `segments`: packed-sequence ids, see
+    _with_segments."""
     n_q, n_kv = q.shape[1], k.shape[1]
     s_q, s_kv = q.shape[2], k.shape[2]
     q32, do32 = q.float(), do.float()
     kx = _expand_kv(k, n_q).float()
     vx = _expand_kv(v, n_q).float()
-    mask = dense_mask(spec, s_q, s_kv, device=q.device) & ~torch.isneginf(
-        lse)[..., None]
+    mask = _with_segments(dense_mask(spec, s_q, s_kv, device=q.device),
+                          segments) & ~torch.isneginf(lse)[..., None]
 
     s = torch.einsum("bnid,bnjd->bnij", q32, kx) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
@@ -108,10 +124,12 @@ def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec):
 
 
 def single_device_attention(q, k, v, scale=None, causal=False,
-                            window=None):
+                            window=None, segment_ids=None):
     """Full attention on one device via the plain tile (a one-round
     "ring").  GQA is expanded inside the tile.  `window` (causal only)
-    limits each query to its last `window` positions."""
+    limits each query to its last `window` positions.  `segment_ids`
+    [B, S] int packs several sequences into one row: attention never
+    crosses a segment boundary."""
     if window is not None and not causal:
         raise ValueError("window attention requires causal=True")
     if scale is None:
@@ -119,5 +137,7 @@ def single_device_attention(q, k, v, scale=None, causal=False,
     b, n, s, d = q.shape
     spec = round_spec(0, 0, s, k.shape[2], causal, "contig")
     m, lse, acc = init_state(b, n, s, d, device=q.device)
-    m, lse, acc = tile_fwd(q, k, v, m, lse, acc, scale, spec, window=window)
+    segs = None if segment_ids is None else (segment_ids, segment_ids)
+    m, lse, acc = tile_fwd(q, k, v, m, lse, acc, scale, spec, window=window,
+                           segments=segs)
     return finalize(m, lse, acc, q.dtype)

@@ -49,12 +49,20 @@ position): the scan ring tallies each round's liveness and attended
 pairs from the host mask scalars it already holds and reduces the final
 state on the device (no host synchronization in the round loop); the
 fused route takes kernel 8's in-kernel slot counters.  o and the
-gradients are bitwise those of collect_stats=False.
+gradients are bitwise those of collect_stats=False.  The tallies come
+from the mask scalars alone: segment occupancy is not counted, as in the
+JAX package.
+
+Packed documents (`segment_ids` [B, S], layout order, sharded like q):
+on the scan ring the kv-side ids ride the forward's KV rotation and the
+q-side ids the backward's bundle, and each round's kernel gets the
+round's (q ids, kv ids) pair (the SEG instances of kernels 1-3); the
+fused ring kernels read every position's ids from one stacked [W, B, S]
+table, the row of the partition a round consumes.
 
 Not ported yet (they raise NotImplementedError): the tile sizes of the
 flash kernels (block_q, block_kv and the backward's), window,
-segment_ids, wire_dtype, and meshes with data or tensor parallel axes of
-size > 1.
+wire_dtype, and meshes with data or tensor parallel axes of size > 1.
 """
 
 import logging
@@ -204,20 +212,22 @@ def _tile_backend(cfg) -> str:
     return "jnp" if cfg.backend == "jnp" else "pallas"
 
 
-def _tile_fwd(cfg, q, k, v, m, lse, acc, scale, spec):
+def _tile_fwd(cfg, q, k, v, m, lse, acc, scale, spec, segments=None):
     if _tile_backend(cfg) == "pallas":
-        return flash_fwd(q, k, v, m, lse, acc, scale, spec)
+        return flash_fwd(q, k, v, m, lse, acc, scale, spec,
+                         segments=segments)
     if m is None:
         m, lse, acc = init_state(*q.shape, device=q.device)
-    return tile_fwd(q, k, v, m, lse, acc, scale, spec)
+    return tile_fwd(q, k, v, m, lse, acc, scale, spec, segments=segments)
 
 
-def _tile_bwd(cfg, do, q, k, v, delta, lse, scale, spec):
+def _tile_bwd(cfg, do, q, k, v, delta, lse, scale, spec, segments=None):
     """One backward round: flash_bwd (the fused kernel on a CUDA tensor,
     tile_bwd on a CPU tensor) or, for "jnp", the plain tile."""
     if _tile_backend(cfg) == "pallas":
-        return flash_bwd(do, q, k, v, delta, lse, scale, spec)
-    return tile_bwd(do, q, k, v, delta, lse, scale, spec)
+        return flash_bwd(do, q, k, v, delta, lse, scale, spec,
+                         segments=segments)
+    return tile_bwd(do, q, k, v, delta, lse, scale, spec, segments=segments)
 
 
 def _r_live(cfg, s, s_kv, n_inter, n_intra):
@@ -304,19 +314,21 @@ def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str):
 
 
 def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
-              collect: bool = False):
+              collect: bool = False, seg=None):
     """Ring forward of every position: q [W,B,N,S,D], k/v [W,B,Nk,Skv,D]
     stacked shards (position p at index p) -> (o [W,B,N,S,D] in q.dtype,
     lse [W,B,N,S] f32), plus the ring's DevStats (leading axis W) when
     `collect`.  Every stats step sits behind `if collect` and only reads
-    the ring's state, so o and lse are bitwise the collect=False ones."""
+    the ring's state, so o and lse are bitwise the collect=False ones.
+    `seg`: the positions' segment ids [W,B,S] int32 (or None); the kv
+    side's ride the KV rotation."""
     world = n_inter * n_intra
     b, n, s, d = q.shape[1:]
     s_kv = k.shape[3]
     reason = _dispatch(cfg, q, k, n_inter, n_intra, "fwd")
     if cfg.backend == "fused_ring" and reason is None:
         return fused_ring.fused_ring_fwd(q, k, v, cfg, n_inter, n_intra,
-                                         collect_stats=collect)
+                                         collect_stats=collect, seg=seg)
 
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
     coords = [ring_coords(p, n_inter, n_intra) for p in range(world)]
@@ -336,13 +348,17 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
         count(p, spec)
         if cfg.layout == "contig" and cfg.causal and not spec_live(spec):
             return st  # a future round: nothing attends, skip the launch
-        return _tile_fwd(cfg, q[p], kv_c[0], kv_c[1], *st, scale, spec)
+        segs = None if seg is None else (seg[p], kv_c[2])
+        return _tile_fwd(cfg, q[p], kv_c[0], kv_c[1], *st, scale, spec,
+                         segs)
 
     def compute_all(states, kv, r):
         return [compute(p, states[p], kv[p], r) for p in range(world)]
 
     r_live = _r_live(cfg, s, s_kv, n_inter, n_intra)
-    kv = [(k[p], v[p]) for p in range(world)]
+    # the KV payload, with the kv side's segment ids riding along
+    kv = [(k[p], v[p]) + (() if seg is None else (seg[p],))
+          for p in range(world)]
     kv_base = kv
     # round 0 is always the self round: a statically empty carry
     spec0 = [round_spec(p, p, s, s_kv, cfg.causal, cfg.layout)
@@ -350,7 +366,8 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
     for p in range(world):
         count(p, spec0[p])
     state = [_tile_fwd(cfg, q[p], k[p], v[p], None, None, None, scale,
-                       spec0[p]) for p in range(world)]
+                       spec0[p], None if seg is None else (seg[p], seg[p]))
+             for p in range(world)]
     for c in range(n_inter):
         if c < n_inter - 1:
             # prefetch the next cycle's base one full intra cycle early
@@ -386,21 +403,22 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
 
 
 def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
-              n_intra: int):
+              n_intra: int, seg=None):
     """Communication-optimized ring backward of every position (stacked
     shards as _fwd_impl's; o, do [W,B,N,S,D], lse [W,B,N,S] f32 the
     forward's) -> fp32 (dq, dk, dv) stacked.
 
     K, V stay resident; the q-side payload (delta|o, do, q, lse) rotates
-    like KV did in forward; dq rides a concurrent accumulating ring and is
-    returned home by the final hops.  The ONE backward dispatch point:
-    with backend="fused_ring" both rotating streams run inside kernel 9
-    (ops/fused_ring_bwd.py) when the backward gate admits the config;
-    declined configs fall through to the scan ring below."""
+    like KV did in forward, the q side's segment ids `seg` [W,B,S] with
+    it (the kv ids stay resident); dq rides a concurrent accumulating
+    ring and is returned home by the final hops.  The ONE backward
+    dispatch point: with backend="fused_ring" both rotating streams run
+    inside kernel 9 (ops/fused_ring_bwd.py) when the backward gate admits
+    the config; declined configs fall through to the scan ring below."""
     reason = _dispatch(cfg, q, k, n_inter, n_intra, "bwd")
     if cfg.backend == "fused_ring" and reason is None:
         return fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg,
-                                             n_inter, n_intra)
+                                             n_inter, n_intra, seg=seg)
 
     world = n_inter * n_intra
     b, n, s, d = q.shape[1:]
@@ -410,20 +428,22 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
     # optimize_bwd_comm: the ring payload (delta, not o) shrinks by a
     # factor of head_dim
     first = (o.float() * do.float()).sum(-1) if cfg.optimize_bwd_comm else o
-    payload = [(first[p], do[p], q[p], lse[p]) for p in range(world)]
+    payload = [(first[p], do[p], q[p], lse[p])
+               + (() if seg is None else (seg[p],)) for p in range(world)]
 
     def compute(p, pay, r):
         """(dq, dk, dv) of position p's round r: the rotated q side
         against the resident k/v (roles flip against the forward)."""
-        first_r, do_r, q_r, lse_r = pay
+        first_r, do_r, q_r, lse_r = pay[:4]
         delta_r = first_r if cfg.optimize_bwd_comm else (
             first_r.float() * do_r.float()).sum(-1)
         q_part = partition_at_round(r, *coords[p], n_inter, n_intra)
         spec = round_spec(q_part, p, s, s_kv, cfg.causal, cfg.layout)
         if cfg.layout == "contig" and cfg.causal and not spec_live(spec):
             return None  # a dead round: exact zeros, no launch
+        segs = None if seg is None else (pay[4], seg[p])
         return _tile_bwd(cfg, do_r, q_r, k[p], v[p], delta_r, lse_r, scale,
-                         spec)
+                         spec, segs)
 
     f32 = dict(dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, **f32)
@@ -511,27 +531,28 @@ class _BurstAttn(torch.autograd.Function):
     is the same either way)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cfg, n_inter, n_intra, stats_out=None):
+    def forward(ctx, q, k, v, cfg, n_inter, n_intra, stats_out=None,
+                seg=None):
         world = n_inter * n_intra
         qs, ks, vs = (shard(t, world) for t in (q, k, v))
         out = _fwd_impl(qs, ks, vs, cfg, n_inter, n_intra,
-                        collect=stats_out is not None)
+                        collect=stats_out is not None, seg=seg)
         o, lse = out[:2]
         if stats_out is not None:
             stats_out.append(out[2])
-        ctx.save_for_backward(qs, ks, vs, o, lse)
+        ctx.save_for_backward(qs, ks, vs, o, lse, seg)
         ctx.cfg, ctx.ring = cfg, (n_inter, n_intra)
         return unshard(o)
 
     @staticmethod
     def backward(ctx, do):
-        qs, ks, vs, o, lse = ctx.saved_tensors
+        qs, ks, vs, o, lse, seg = ctx.saved_tensors
         n_inter, n_intra = ctx.ring
         dq, dk, dv = _bwd_impl(qs, ks, vs, o, lse,
                                shard(do.to(qs.dtype), n_inter * n_intra),
-                               ctx.cfg, n_inter, n_intra)
+                               ctx.cfg, n_inter, n_intra, seg=seg)
         return (unshard(dq).to(qs.dtype), unshard(dk).to(ks.dtype),
-                unshard(dv).to(vs.dtype), None, None, None, None)
+                unshard(dv).to(vs.dtype), None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -591,10 +612,11 @@ def burst_attn(
     gradients in the inputs' dtypes.  collect_stats: return `(o,
     obs.DevStats)` (leading axis = ring position); publish the stats with
     `stats.publish()` after the step.  o and the gradients through it are
-    bitwise those of collect_stats=False.  window, segment_ids, wire_dtype
-    and the tile sizes away from their defaults raise (BurstConfig)."""
-    if segment_ids is not None:
-        raise NotImplementedError("segment_ids are not ported yet")
+    bitwise those of collect_stats=False.  segment_ids: [B, S] integer
+    packed-sequence ids (non-negative, in the same layout order as q;
+    sharded like q): attention never crosses a segment boundary, on both
+    routes and in the backward.  window, wire_dtype and the tile sizes
+    away from their defaults raise (BurstConfig)."""
     if isinstance(seq_axes, str):
         seq_axes = (seq_axes,)
     if len(seq_axes) == 1:
@@ -603,10 +625,10 @@ def burst_attn(
         inter_axis, intra_axis = seq_axes
     else:
         raise ValueError(f"seq_axes must have 1 or 2 names, got {seq_axes}")
-    if q.shape[2] != k.shape[2] and causal:
+    if q.shape[2] != k.shape[2] and (causal or segment_ids is not None):
         raise ValueError(
             f"cross-attention (s_q {q.shape[2]} != s_kv {k.shape[2]}) "
-            "supports non-causal attention only")
+            "supports non-causal attention without segment_ids only")
     m = as_mesh(mesh, q.device)
     n_inter, n_intra = m.ring(seq_axes)
     cfg = BurstConfig(
@@ -625,12 +647,20 @@ def burst_attn(
         fused_bwd_ccw_slots=fused_bwd_ccw_slots, wire_dtype=wire_dtype,
         mesh_axes=tuple(m.shape.items()))
     world = n_inter * n_intra
+    seg = None
+    if segment_ids is not None:
+        if tuple(segment_ids.shape) != (q.shape[0], q.shape[2]):
+            raise ValueError(f"segment_ids have shape "
+                             f"{tuple(segment_ids.shape)}, expected "
+                             f"{(q.shape[0], q.shape[2])}")
+        seg = shard(segment_ids.to(device=q.device, dtype=torch.int32),
+                    world, dim=1)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         sink = [] if collect_stats else None
-        o = _BurstAttn.apply(q, k, v, cfg, n_inter, n_intra, sink)
+        o = _BurstAttn.apply(q, k, v, cfg, n_inter, n_intra, sink, seg)
         return (o, sink[0]) if collect_stats else o
     out = _fwd_impl(shard(q, world), shard(k, world), shard(v, world), cfg,
-                    n_inter, n_intra, collect=collect_stats)
+                    n_inter, n_intra, collect=collect_stats, seg=seg)
     return (unshard(out[0]), out[2]) if collect_stats else unshard(out[0])
 
 

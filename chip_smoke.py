@@ -1989,29 +1989,38 @@ def check_flash_suffix(device, n=16, n_kv=4, d=128):
 def _reset_counts():
     from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
 
-    flash.flash_fwd.launches = 0
+    flash.flash_fwd.launches = flash.flash_fwd.seg_launches = 0
     for route in flash.BWD_ROUTES:
         flash.flash_bwd.launches[route] = 0
-    fused_ring.fused_ring_fwd.launches = 0
-    fused_ring_bwd.fused_ring_bwd.launches = 0
+        flash.flash_bwd.seg_launches[route] = 0
+    for fn in (fused_ring.fused_ring_fwd, fused_ring_bwd.fused_ring_bwd):
+        fn.launches = fn.seg_launches = 0
 
 
 def _counts():
     """The training path's attention kernels' launch counters: flash_fwd,
     flash_bwd by route (fused, dq, dkdv), the fused ring's forward and
-    backward."""
+    backward, and (keys ending in _seg) the launches of their SEG
+    instances among them."""
     from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
 
+    fr, frb = fused_ring.fused_ring_fwd, fused_ring_bwd.fused_ring_bwd
     return {"flash_fwd": flash.flash_fwd.launches, **flash.flash_bwd.launches,
-            "fused_ring_fwd": fused_ring.fused_ring_fwd.launches,
-            "fused_ring_bwd": fused_ring_bwd.fused_ring_bwd.launches}
+            "fused_ring_fwd": fr.launches, "fused_ring_bwd": frb.launches,
+            "flash_fwd_seg": flash.flash_fwd.seg_launches,
+            **{f"{r}_seg": x for r, x in flash.flash_bwd.seg_launches.items()},
+            "fused_ring_fwd_seg": fr.seg_launches,
+            "fused_ring_bwd_seg": frb.seg_launches}
+
+
+_COUNT_KEYS = ("flash_fwd", "fused", "dq", "dkdv", "fused_ring_fwd",
+               "fused_ring_bwd")
 
 
 def _launches(**nonzero):
     """A _counts() dict: the named counts, every other one 0."""
-    return {k: nonzero.get(k, 0) for k in ("flash_fwd", "fused", "dq",
-                                           "dkdv", "fused_ring_fwd",
-                                           "fused_ring_bwd")}
+    return {k: nonzero.get(k, 0)
+            for k in _COUNT_KEYS + tuple(f"{x}_seg" for x in _COUNT_KEYS)}
 
 
 def _train_model(n_layers, dtype, **kw):
@@ -2173,9 +2182,11 @@ def plain_train_attention():
     import burst_attn_tpu_torch.models.transformer as tr
     from burst_attn_tpu_torch.ops import tile
 
-    def plain(q, k, v, scale=None, causal=False, window=None):
+    def plain(q, k, v, scale=None, causal=False, window=None,
+              segment_ids=None):
         return tile.single_device_attention(q, k, v, scale, causal,
-                                            window=window)
+                                            window=window,
+                                            segment_ids=segment_ids)
 
     with mock.patch.object(tr, "flash_attention", plain):
         yield
@@ -2247,15 +2258,19 @@ def train_parity(device, n_layers=2, seq=2048):
                 grad_worst=worst[1])
 
 
-def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None):
+def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
+                 packed_eos_id=None):
     """runner.fit at full width with `n_layers` layers on a seeded random
     token file (bf16, B=1): an uninterrupted run with an eval at the end;
     then a run that checkpoints at steps/2 (max_to_keep=1) and a second
     run resuming from that checkpoint to `steps`, whose losses must match
     the uninterrupted run's within RESUME_RTOL.  On one device, or with
     `mesh` (e.g. {"sp": 4}, as `--mesh sp=4` gives it) on the ring through
-    the fused ring kernels.  The files live in a temporary directory under
-    the checkout's build/, deleted at the end."""
+    the fused ring kernels.  With `packed_eos_id` the token files are
+    EOS-delimited documents (EOS at rate 4 / seq, as make_packed_batch
+    draws it) and the run trains and evaluates packed: every attention
+    launch of the run is a SEG instance's.  The files live in a temporary
+    directory under the checkout's build/, deleted at the end."""
     import os
     import tempfile
     from pathlib import Path
@@ -2279,12 +2294,15 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None):
         rng = np.random.default_rng(5)
         data, held = (os.path.join(tmp, f) for f in ("train.batd",
                                                      "eval.batd"))
-        write_token_file(data, rng.integers(0, cfg.vocab,
-                                            size=16 * (seq + 1)))
-        write_token_file(held, rng.integers(0, cfg.vocab,
-                                            size=4 * (seq + 1)))
+        for path, size in ((data, 16 * (seq + 1)), (held, 4 * (seq + 1))):
+            toks = rng.integers(0, cfg.vocab, size=size)
+            if packed_eos_id is not None:
+                toks = np.where(rng.random(size) < 4.0 / seq, packed_eos_id,
+                                np.maximum(toks, 1))
+            write_token_file(path, toks)
         kw = dict(data_path=data, batch=1, seq_len=seq, log_every=1,
-                  eval_data_path=held, eval_every=steps, eval_batches=2)
+                  eval_data_path=held, eval_every=steps, eval_batches=2,
+                  packed_eos_id=packed_eos_id)
         ck = os.path.join(tmp, "ckpt")
         _reset_counts()
         t0 = time.perf_counter()
@@ -2308,8 +2326,10 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None):
                 else ("flash_fwd", "fused"))
     n_eval = launches[fwd] - 2 * n_layers * steps
     assert n_eval > 0 and n_eval % n_layers == 0, launches
-    assert launches == _launches(**{fwd: launches[fwd],
-                                    bwd: n_layers * steps}), launches
+    want = {fwd: launches[fwd], bwd: n_layers * steps}
+    if packed_eos_id is not None:  # the train steps and the eval, packed
+        want.update({f"{x}_seg": c for x, c in want.items()})
+    assert launches == _launches(**want), launches
     loss_a = {r["step"]: r["loss"] for r in full if "loss" in r}
     loss_b = {r["step"]: r["loss"] for r in resumed if "loss" in r}
     evals = [r["eval_loss"] for r in full if "eval_loss" in r]
@@ -2320,7 +2340,8 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None):
     diff = max(abs(loss_b[s] - loss_a[s]) / abs(loss_a[s]) for s in loss_b)
     assert diff <= RESUME_RTOL, (loss_a, loss_b)
     print(f"runner.fit ({n_layers} layers at full width, bf16, S={seq}"
-          f"{f', mesh {mesh}, fused ring' if ring else ''}): "
+          f"{f', mesh {mesh}, fused ring' if ring else ''}"
+          f"{f', packed_eos_id {packed_eos_id}' if packed_eos_id is not None else ''}): "
           f"{steps} steps in {fit_s:.1f} s, losses "
           f"{[round(loss_a[s], 4) for s in sorted(loss_a)]}, eval loss "
           f"{evals[0]:.4f}, launches {launches}; resumed from the step-"
@@ -3444,20 +3465,23 @@ def _check_grads_bf16(what, got, want):
     return max(errs)
 
 
-def _bwd_bound(tables, prog, b, n, n_kv, s, d, esz, opt=True):
+def _bwd_bound(tables, prog, b, n, n_kv, s, d, esz, opt=True, pairs=None,
+               extra_bytes=0):
     """(bound ms, bound_by, attended pairs) of one kernel-9 launch: the
     pairs the table's swapped-role specs attend (10 * D flops each: S, dP,
-    dV, dK and dQ); the bytes of q, do, k, v and the bundle's delta and
-    lse read once, of dq, dk, dv (fp32) written once, and of every copy
-    the program makes: each bundle copy-in and send, each dq hop (read and
-    written)."""
+    dV, dK and dQ), or `pairs` (those a packed mask leaves); the bytes of
+    q, do, k, v and the bundle's delta and lse read once, of dq, dk, dv
+    (fp32) written once, of every copy the program makes: each bundle
+    copy-in and send, each dq hop (read and written), and `extra_bytes`
+    (the segment ids)."""
     from burst_attn_tpu_torch.ops import masks
     from burst_attn_tpu_torch.parallel import schedule as sched_ir
 
     w = len(tables)
-    pairs = sum(masks.spec_pair_count(masks.MaskSpec(*map(int, t[r, :5])),
-                                      s, s)
-                for t in tables for r in range(prog.n_rounds)) * b * n
+    if pairs is None:
+        pairs = sum(masks.spec_pair_count(
+            masks.MaskSpec(*map(int, t[r, :5])), s, s)
+            for t in tables for r in range(prog.n_rounds)) * b * n
     q_bytes = b * n * s * d * esz
     kv_bytes = 2 * b * n_kv * s * d * esz
     stats = 4 * b * n * s
@@ -3469,7 +3493,7 @@ def _bwd_bound(tables, prog, b, n, n_kv, s, d, esz, opt=True):
                       if prog.rows["dq_send"][r] != sched_ir.DQ_NONE)
     n_bytes = (w * (2 * q_bytes + kv_bytes + 2 * stats)
                + w * (dq_slot + 4 * 2 * b * n_kv * s * d)
-               + 2 * copies * bundle + 2 * dq_hops * dq_slot)
+               + 2 * copies * bundle + 2 * dq_hops * dq_slot + extra_bytes)
     bms, by = bound_ms(n_bytes, 10 * d * pairs)
     return bms, by, pairs
 
@@ -5275,6 +5299,890 @@ def checkpoint_phase(device):
     return res
 
 
+# ---------------------------------------------------------------------------
+# packed documents: the SEG instances of kernels 1-5, 8 and 9 against their
+# plain versions and their times, the packed train step on one device and
+# on the ring, and runner.fit with packed_eos_id
+
+# the instances without SEG keep the registers and local (spill) bytes a
+# thread they had before the SEG flag existed (PERF.md, row by row)
+NO_SEG_ATTRS = {
+    "flash_fwd": {"bf16": (168, 0), "bf16 window": (178, 0)},
+    "flash_bwd": {"bf16 fused": (255, 8), "bf16 dq": (242, 0),
+                  "bf16 dkdv": (242, 0)},
+    "fused_ring_fwd": {"bf16": (174, 0), "bf16 scratch": (176, 0)},
+    "fused_ring_bwd": {"bf16": (255, 32)},
+}
+SEG_DOC_LEN = 512  # the second timed id pattern: documents of 512 tokens
+PACKED_SEED = 1    # make_packed_batch's seed for the packed train steps
+PACKED_STEPS = 2   # timed packed train steps, after a warm-up
+# kernel 1 with segments: (name, heads, kv heads, Sq, Skv, causal, window);
+# cross lengths take ids of their own on each side, some q ids on no kv
+# row (rows that see nothing: lse -inf, o 0)
+SEG_FLASH_CASES = (
+    ("MHA causal", 16, 16, 2048, 2048, True, None),
+    ("GQA causal", 16, 4, 2048, 2048, True, None),
+    ("GQA non-causal", 16, 4, 2048, 2048, False, None),
+    ("cross lengths", 16, 4, 1000, 2048, False, None),
+    ("window 1024", 16, 4, 2048, 2048, True, 1024))
+# kernels 8 and 9 with segments: (positions, layout, causal, heads, kv
+# heads, local S, dtype, knobs, ids: "packed" = eight seeded documents,
+# "docs" = documents of SEG_RING_DOC tokens, within the truncation's
+# promise)
+SEG_RING_DOC = 500
+SEG_RING_CASES = (
+    (4, "zigzag", True, 8, 2, 512, "bf16", {}, "packed"),
+    (4, "striped", True, 8, 2, 512, "fp32", {}, "packed"),
+    (4, "contig", True, 8, 2, 512, "bf16", {}, "packed"),
+    (4, "zigzag", True, 8, 2, 512, "bf16", dict(two_axis=(2, 2)), "packed"),
+    (3, "zigzag", False, 8, 8, 384, "fp32", {}, "packed"),
+    (4, "contig", True, 8, 2, 512, "bf16", dict(max_segment_len=600),
+     "docs"),
+    (4, "contig", True, 8, 2, 512, "fp32", dict(max_segment_len=600),
+     "docs"))
+
+
+def _packed_ids(seed, b, s, n_docs):
+    """[b, s] int32 document ids, monotone from 0: n_docs documents a row
+    at boundaries drawn from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    starts = np.zeros((b, s), np.int32)
+    for i in range(b):
+        starts[i, rng.choice(np.arange(1, s), n_docs - 1, replace=False)] = 1
+    return np.cumsum(starts, axis=1).astype(np.int32)
+
+
+def _seg_patterns(s):
+    """The two id patterns timed at s tokens (natural order, [1, s]
+    int32): the ids of make_packed_batch's seeded stream (EOS at rate
+    4 / s: about four documents) and documents of SEG_DOC_LEN tokens,
+    which put a boundary in most 64-token chunks."""
+    import numpy as np
+
+    from burst_attn_tpu_torch.models import train
+
+    toks = train.packed_tokens(PACKED_SEED, TRAIN_DIMS["vocab"], 1, s)
+    return {"packed": train.packed_fields_np(toks, 0)[0],
+            f"docs{SEG_DOC_LEN}": (np.arange(s)[None] // SEG_DOC_LEN).astype(
+                np.int32)}
+
+
+def _live_pairs(ids, causal=True):
+    """The (query, key) pairs a packed mask leaves over natural-order ids
+    [B, S]: per document of c tokens c (c + 1) / 2 causal (c^2 not), the
+    same pairs whatever implements them or rotates them on a ring."""
+    import numpy as np
+
+    total = 0
+    for row in np.asarray(ids):
+        c = np.unique(row, return_counts=True)[1].astype(np.int64)
+        total += int((c * (c + 1) // 2).sum() if causal else (c * c).sum())
+    return total
+
+
+def _seg_mask(ids, causal=True):
+    """The boolean [B, 1, S, S] mask of SDPA for natural-order ids: causal
+    and the same document."""
+    import torch
+
+    s = ids.shape[1]
+    m = ids[:, None, :, None] == ids[:, None, None, :]
+    if causal:
+        m = m & torch.ones(s, s, dtype=torch.bool, device=ids.device).tril()
+    return m
+
+
+def _stats_close(what, got, want, key):
+    """m / lse within STATS_ATOL (-inf where a row sees nothing, on both
+    sides); returns the largest finite error."""
+    import torch
+
+    torch.testing.assert_close(got, want, atol=STATS_ATOL[key], rtol=0,
+                               msg=lambda m: f"{what}: {m}")
+    fin = torch.isfinite(want)
+    return _max_err(got[fin], want[fin])
+
+
+def check_flash_segments(device):
+    """Kernels 1-5's SEG instances against their plain versions (tile_fwd,
+    tile_bwd with segments) on the card, bf16 and fp32, SEG_FLASH_CASES
+    for the forward (with a carry-in round on the first), the first four
+    for the fused backward and the split pair; each launched twice,
+    torch.equal; one segment covering every row gives bitwise the output
+    of the instances without SEG.  Returns the largest errors {"fwd": o,
+    "fused": (dq, dk, dv), "split": (...)}."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import flash, masks, tile
+
+    worst = {"fwd": 0.0, "fused": [0.0] * 3, "split": [0.0] * 3}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = _dtype_key(dtype)
+        for ci, (name, n, n_kv, s_q, s_kv, causal, window) in enumerate(
+                SEG_FLASH_CASES):
+            g = torch.Generator(device=device).manual_seed(40 + ci)
+            q, do = (torch.randn(1, n, s_q, 128, generator=g,
+                                 device=device).to(dtype) for _ in range(2))
+            k, v = (torch.randn(1, n_kv, s_kv, 128, generator=g,
+                                device=device).to(dtype) for _ in range(2))
+            if s_q == s_kv:
+                ids = torch.from_numpy(_packed_ids(40 + ci, 1, s_q, 8)).to(
+                    device)
+                segs = (ids, ids)
+            else:
+                segs = tuple(torch.from_numpy(_packed_ids(
+                    40 + ci + j, 1, sl, nd)).to(device)
+                    for j, (sl, nd) in enumerate(((s_q, 6), (s_kv, 4))))
+            spec = masks.round_spec(0, 0, s_q, s_kv, causal, "contig")
+            what = f"{key} {name} N{n}/{n_kv} Sq {s_q} Skv {s_kv}"
+            m, lse, o = flash.flash_fwd(q, k, v, None, None, None,
+                                        128**-0.5, spec, window=window,
+                                        segments=segs, emit_o=True)
+            again = flash.flash_fwd(q, k, v, None, None, None, 128**-0.5,
+                                    spec, window=window, segments=segs,
+                                    emit_o=True)
+            assert all(torch.equal(a, b) for a, b in zip((m, lse, o),
+                                                         again)), what
+            st = tile.tile_fwd(q, k, v, *tile.init_state(
+                1, n, s_q, 128, device=device), 128**-0.5, spec,
+                window=window, segments=segs)
+            err = _check_o(f"flash_fwd[seg] {what}", o,
+                           tile.finalize(*st, dtype), dtype)
+            _stats_close(f"flash_fwd[seg] {what} m", m, st[0], key)
+            _stats_close(f"flash_fwd[seg] {what} lse", lse, st[1], key)
+            worst["fwd"] = max(worst["fwd"], err)
+            if ci == 0:  # a carry-in round, and one segment = no segments
+                got = flash.flash_fwd(q, k, v, *st, 128**-0.5, spec,
+                                      segments=segs)
+                want = tile.tile_fwd(q, k, v, *st, 128**-0.5, spec,
+                                     segments=segs)
+                acc_err = _max_err(got[2], want[2])
+                assert acc_err <= ACC_RTOL * float(want[2].abs().max()), \
+                    (what, acc_err)
+                one = torch.zeros_like(segs[0])
+                for emit in (True, False):
+                    a = flash.flash_fwd(q, k, v, None, None, None, 128**-0.5,
+                                        spec, segments=(one, one),
+                                        emit_o=emit)
+                    b = flash.flash_fwd(q, k, v, None, None, None, 128**-0.5,
+                                        spec, emit_o=emit)
+                    assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+                        f"flash_fwd one segment {key} emit_o={emit}"
+            print(f"flash_fwd[seg] {what}"
+                  f"{f' window {window}' if window else ''}: max_abs_err="
+                  f"{err:.3e} (tolerance {O_TOL[key]}), two launches equal"
+                  f"{'; carry-in round and one segment = unsegmented' if ci == 0 else ''}",
+                  flush=True)
+            del st
+            if window is not None:
+                continue
+            delta = (o.float() * do.float()).sum(-1)
+            args = (do, q, k, v, delta, lse, 128**-0.5, spec)
+            want = tile.tile_bwd(*args, segments=segs)
+            for fused in (None, False):
+                route = "split" if fused is False else "fused"
+                got = flash.flash_bwd(*args, fused=fused, segments=segs)
+                again = flash.flash_bwd(*args, fused=fused, segments=segs)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                    (what, route)
+                errs = _bwd_errs(got, want, f"flash_bwd[seg] {what} {route}")
+                worst[route] = [max(a, b) for a, b in zip(worst[route],
+                                                          errs)]
+                if ci == 0:
+                    one = torch.zeros_like(segs[0])
+                    a = flash.flash_bwd(*args, fused=fused,
+                                        segments=(one, one))
+                    b = flash.flash_bwd(*args, fused=fused)
+                    assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+                        f"flash_bwd one segment {key} {route}"
+                print(f"flash_bwd[seg] {what} {route}: max_abs_err dq "
+                      f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, two "
+                      f"launches equal"
+                      f"{'; one segment = unsegmented' if ci == 0 else ''}",
+                      flush=True)
+            del want, got, again, args
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _seg_ring_case(device, case, seed):
+    """(cfg, ring, (q, k, v, o, lse, do) stacked, seg [W, 1, S_local],
+    bwd program, tables) of one SEG_RING_CASES case: o and lse from
+    kernel 8's SEG instance."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring
+    from burst_attn_tpu_torch.parallel import layouts, mesh
+
+    w, layout, causal, n, n_kv, s, key, knobs, pattern = case
+    cfg, ring, args, prog, tables = _fused_bwd_setup(
+        device, (w, layout, causal, n, n_kv, s, key, knobs), seed)
+    ids = (_packed_ids(seed, 1, w * s, 8) if pattern == "packed"
+           else (np.arange(w * s)[None] // SEG_RING_DOC).astype(np.int32))
+    seg = mesh.shard(layouts.to_layout(torch.from_numpy(ids), layout, w,
+                                       axis=1).to(device), w, dim=1)
+    q, k, v, _, _, do = args
+    o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+    return cfg, ring, (q, k, v, o, lse, do), seg, prog, tables
+
+
+def check_ring_segments(device):
+    """Kernels 8 and 9's SEG instances against fused_ring_reference and
+    fused_ring_bwd_reference with the same ids (SEG_RING_CASES: zigzag,
+    striped and contig, the double ring, non-causal, a contig program
+    truncated by max_segment_len whose ids keep the promise, which must
+    also give the untruncated ring's o and gradients); each launched
+    twice, torch.equal; on the first case one segment gives bitwise the
+    instances without SEG.  Returns the largest errors (kernel 8's o,
+    kernel 9's of dq, dk, dv)."""
+    import dataclasses
+
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd
+
+    k8_err, k9_err = 0.0, 0.0
+    for ci, case in enumerate(SEG_RING_CASES):
+        w, layout, causal, n, n_kv, s, key, knobs, pattern = case
+        dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[key]
+        cfg, ring, args, seg, prog, tables = _seg_ring_case(device, case,
+                                                            seed=60 + ci)
+        q, k, v, o, lse, do = args
+        what = (f"{key} W={w} {layout} {'causal' if causal else 'full'} "
+                f"N{n}/{n_kv} S_local {s} {knobs or ''} ids {pattern}")
+        again = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse), what
+        fprog, ftables, _ = fused_ring.ring_plan(cfg, *ring, s, "fwd")
+        po, plse = fused_ring.fused_ring_reference(q, k, v, fprog, ftables,
+                                                   128 ** -0.5, seg=seg)
+        err8 = _check_o(f"fused_ring_fwd[seg] {what}", o, po, dtype)
+        _stats_close(f"fused_ring_fwd[seg] {what} lse", lse, plse, key)
+        got = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, seg=seg)
+        again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, seg=seg)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), what
+        want = fused_ring_bwd.fused_ring_bwd_reference(
+            *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm,
+            seg=seg)
+        errs = _bwd_errs(got, want, f"fused_ring_bwd[seg] {what}")
+        note = ""
+        if ci == 0:
+            one = torch.zeros_like(seg)
+            a = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=one)
+            b = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), what
+            a = fused_ring_bwd.fused_ring_bwd(q, k, v, *b, do, cfg, *ring,
+                                              seg=one)
+            b = fused_ring_bwd.fused_ring_bwd(q, k, v, *b, do, cfg, *ring)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), what
+            note = "; one segment = unsegmented"
+        if cfg.max_segment_len is not None:
+            assert prog.n_rounds < w and fprog.n_rounds < w, what
+            full = dataclasses.replace(cfg, max_segment_len=None)
+            fo, flse = fused_ring.fused_ring_fwd(q, k, v, full, *ring,
+                                                 seg=seg)
+            _check_o(f"truncated vs full {what}", o, fo, dtype)
+            _stats_close(f"truncated vs full {what} lse", lse, flse, key)
+            fgot = fused_ring_bwd.fused_ring_bwd(q, k, v, fo, flse, do, full,
+                                                 *ring, seg=seg)
+            _bwd_errs(got, fgot, f"truncated vs full {what}")
+            note += (f"; {fprog.n_rounds} + {prog.n_rounds} rounds of {w} "
+                     "give the untruncated ring's o and gradients")
+        k8_err, k9_err = max(k8_err, err8), max(k9_err, *errs)
+        print(f"fused_ring[seg] {what}: kernel 8 max_abs_err {err8:.3e}, "
+              f"kernel 9 dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}"
+              f"; two launches equal{note}", flush=True)
+        del args, got, again, want
+    torch.cuda.empty_cache()
+    return k8_err, k9_err
+
+
+def time_flash_segments(device, worst):
+    """Kernels 1-5's SEG instances at the train step's shape (B1 N16/16
+    S8192 D128 bf16 causal), on the two id patterns of _seg_patterns:
+    kernel 1 through flash_attention, the fused backward and the split
+    pair (each split kernel's device time by the profiler); the same
+    calls without segments in the same run; the plain versions (tile_fwd,
+    tile_bwd with segments; packed ids) and SDPA with the boolean mask
+    (causal and the same document), forward and backward.  The kernels
+    are held to the plain versions on the packed ids (the fused and split
+    backward, two launches each bitwise).  Bound: the pairs the ids leave
+    (_live_pairs), the unsegmented rows' bytes plus the ids.  Returns the
+    kernels-line records flash_fwd[seg], flash_bwd_fused[seg],
+    flash_bwd_dq[seg] and flash_bwd_dkdv[seg]."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash, masks, tile
+
+    n, s, d = TRAIN_DIMS["n_heads"], TRAIN_SEQ, TRAIN_DIMS["d_head"]
+    g = torch.Generator(device=device).manual_seed(31)
+    q, k, v, do = (torch.randn(1, n, s, d, generator=g, device=device).to(
+        torch.bfloat16) for _ in range(4))
+    spec = masks.round_spec(0, 0, s, s, True, "contig")
+    esz = q.element_size()
+    t = {}  # (pattern or "none", kernel) -> ms
+    out = {}
+    for pattern, ids_np in [("none", None)] + list(_seg_patterns(s).items()):
+        ids = None if ids_np is None else torch.from_numpy(ids_np).to(device)
+        segs = None if ids is None else (ids, ids)
+        t[pattern, "fwd"] = time_ms(lambda: flash.flash_attention(
+            q, k, v, None, True, segment_ids=ids), iters=10, warmup=2)
+        _, lse, o = flash.flash_fwd(q, k, v, None, None, None, d**-0.5, spec,
+                                    segments=segs, emit_o=True)
+        delta = (o.float() * do.float()).sum(-1)
+        args = (do, q, k, v, delta, lse, d**-0.5, spec)
+        if pattern == "packed":  # the kernels against the plain versions
+            st = tile.tile_fwd(q, k, v, *tile.init_state(1, n, s, d,
+                                                         device=device),
+                               d**-0.5, spec, segments=segs)
+            fwd_err = _check_o("flash_fwd[seg] train shape", o,
+                               tile.finalize(*st, q.dtype), q.dtype)
+            worst["fwd"] = max(worst["fwd"], fwd_err)
+            del st
+            want = tile.tile_bwd(*args, segments=segs)
+            for fused in (None, False):
+                route = "split" if fused is False else "fused"
+                got = flash.flash_bwd(*args, fused=fused, segments=segs)
+                again = flash.flash_bwd(*args, fused=fused, segments=segs)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                    route
+                errs = _bwd_errs(got, want,
+                                 f"flash_bwd[seg] train shape {route}")
+                worst[route] = [max(a, b) for a, b in zip(worst[route],
+                                                          errs)]
+                del got, again
+            del want
+            torch.cuda.empty_cache()
+            t[pattern, "plain_fwd"] = time_ms(lambda: tile.finalize(
+                *tile.tile_fwd(q, k, v, *tile.init_state(
+                    1, n, s, d, device=device), d**-0.5, spec,
+                    segments=segs), q.dtype), iters=2, warmup=1)
+            t[pattern, "plain_bwd"] = time_ms(lambda: tile.tile_bwd(
+                *args, segments=segs), iters=2, warmup=1)
+            torch.cuda.empty_cache()
+        t[pattern, "fused"] = time_ms(lambda: flash.flash_bwd(
+            *args, segments=segs), iters=5, warmup=1)
+        t[pattern, "split"] = time_ms(lambda: flash.flash_bwd(
+            *args, fused=False, segments=segs), iters=3, warmup=1)
+        # each split kernel's ms: the pair's CUDA-event ms split by the
+        # profiler's shares (in this phase the profiler's own per-call
+        # sums came to ~2/3 of the pair's event time)
+        _, _, top = device_breakdown(lambda: flash.flash_bwd(
+            *args, fused=False, segments=segs), 3, top=4)
+        dq_p = sum(x for name, x in top if "flash_bwd_dq_mma_kernel" in name)
+        dkdv_p = sum(x for name, x in top
+                     if "flash_bwd_dkdv_mma_kernel" in name)
+        assert dq_p > 0 and dkdv_p > 0, top
+        t[pattern, "dq"] = t[pattern, "split"] * dq_p / (dq_p + dkdv_p)
+        t[pattern, "dkdv"] = t[pattern, "split"] * dkdv_p / (dq_p + dkdv_p)
+        t[pattern, "profiler"] = (dq_p, dkdv_p)
+        if ids is not None:
+            mask = _seg_mask(ids)
+            t[pattern, "lib_fwd"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask),
+                iters=5, warmup=2)
+            qr, kr, vr = (x.detach().clone().requires_grad_()
+                          for x in (q, k, v))
+            lo = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+            t[pattern, "lib_bwd"] = time_ms(lambda: torch.autograd.grad(
+                lo, (qr, kr, vr), do, retain_graph=True), iters=5, warmup=1)
+            del lo, qr, kr, vr, mask
+            out[pattern] = _live_pairs(ids_np)
+        del args, o, lse, delta
+        torch.cuda.empty_cache()
+    pats = [p for p in out]
+    print(f"SEG kernels at the train shape B1 N{n}/{n} S{s} D{d} bf16 "
+          "causal, ms (no segments / " + " / ".join(
+              f"{p} ({out[p] / (s * (s + 1) // 2):.3f} of the causal pairs)"
+              for p in pats) + "): " + "; ".join(
+              f"{kern} " + " / ".join(f"{t[p, kern]:.4f}"
+                                      for p in ["none"] + pats)
+              for kern in ("fwd", "fused", "split", "dq", "dkdv"))
+          + " (split: the pair's CUDA-event ms, dq and dkdv its shares by "
+          "the profiler, whose own ms were " + " / ".join(
+              f"{t[p, 'profiler'][0]:.4f} + {t[p, 'profiler'][1]:.4f}"
+              for p in ["none"] + pats) + "); SDPA with "
+          "the mask fwd " + " / ".join(f"{t[p, 'lib_fwd']:.4f}" for p in pats)
+          + ", bwd " + " / ".join(f"{t[p, 'lib_bwd']:.4f}" for p in pats)
+          + f"; plain (packed) fwd {t['packed', 'plain_fwd']:.3f}, bwd "
+          f"{t['packed', 'plain_bwd']:.3f}", flush=True)
+    ids_bytes = 4 * 2 * s
+    recs = []
+    for name, kern, lib, src, rep_, reads, written, matmuls, err in (
+            ("flash_fwd[seg]", "fwd", "lib_fwd", "flash_fwd.cu",
+             "burst_attn_tpu/ops/pallas_flash.py:419 (_fwd_kernel, segments)",
+             esz * 3 * q.numel(), esz * q.numel() + 4 * n * s, 2,
+             worst["fwd"]),
+            ("flash_bwd_fused[seg]", "fused", "lib_bwd", "flash_bwd.cu",
+             "burst_attn_tpu/ops/pallas_flash.py:1127 (_bwd_fused_kernel, "
+             "segments)", esz * 4 * q.numel() + 4 * 2 * n * s,
+             4 * 3 * q.numel(), 5, max(worst["fused"])),
+            ("flash_bwd_dq[seg]", "dq", None, "flash_bwd.cu",
+             "burst_attn_tpu/ops/pallas_flash.py:865 (_dq_kernel, segments)",
+             esz * 4 * q.numel() + 4 * 2 * n * s, 4 * q.numel(), 3,
+             worst["split"][0]),
+            ("flash_bwd_dkdv[seg]", "dkdv", None, "flash_bwd.cu",
+             "burst_attn_tpu/ops/pallas_flash.py:945 (_dkdv_kernel, "
+             "segments)", esz * 4 * q.numel() + 4 * 2 * n * s,
+             4 * 2 * q.numel(), 4, max(worst["split"][1:]))):
+        bounds = {p: bound_ms(reads + written + ids_bytes,
+                              matmuls * 2 * out[p] * n * d) for p in pats}
+        plain = t["packed", "plain_fwd" if kern == "fwd" else "plain_bwd"]
+        recs.append(dict(
+            name=name, route="cuda",
+            source=f"burst_attn_tpu_torch/csrc/{src}", replaces=rep_,
+            max_abs_err=err, ms=t["packed", kern], plain_ms=plain,
+            bound_ms=bounds["packed"][0], bound_by=bounds["packed"][1],
+            library_ms=t["packed", lib] if lib else None,
+            seg={"shape": f"B1 N{n}/{n} S{s} D{d} bf16 causal",
+                 "ms_unsegmented": t["none", kern],
+                 **{p: {"ms": t[p, kern], "bound_ms": bounds[p][0],
+                        "bound_by": bounds[p][1], "live_pairs": out[p],
+                        "library_ms": t[p, lib] if lib else None}
+                    for p in pats}}))
+    for rec in recs[2:]:  # the split pair's CUDA-event time, the profiler
+        rec["seg"]["split_pair_ms"] = {p: t[p, "split"]
+                                       for p in ["none"] + pats}
+        rec["seg"]["profiler_ms"] = {p: t[p, "profiler"]
+                                     for p in ["none"] + pats}
+    return recs
+
+
+def time_ring_segments(device, lib):
+    """Kernels 8 and 9's SEG instances at the ring train step's shape (W=4,
+    B1 N16/16 S_local 2048 D128 bf16 causal zigzag) on the two id patterns
+    (in layout order), beside the same launches without segments, each
+    held to its plain version with the packed ids (two launches equal);
+    the plain versions' host-timed walk; `lib`: SDPA with the mask at the
+    same global shape (B1 N16 S8192, natural order: time_flash_segments'
+    {pattern: (fwd ms, bwd ms)}).  Bound: the pairs the ids leave, the
+    unsegmented rows' bytes (ring_op_phase's for kernel 8, _bwd_bound's
+    for kernel 9) plus the ids.  Returns the kernels-line records
+    fused_ring_fwd[seg] and fused_ring_bwd[seg]."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd
+    from burst_attn_tpu_torch.parallel import layouts, mesh
+
+    w, n, s_loc = RING_TRAIN_SP, TRAIN_DIMS["n_heads"], TRAIN_SEQ // \
+        RING_TRAIN_SP
+    d, b = TRAIN_DIMS["d_head"], 1
+    cfg, ring, args, prog, tables = _fused_bwd_setup(
+        device, (w, "zigzag", True, n, n, s_loc, "bf16", {}), seed=33)
+    q, k, v, _, _, do = args
+    fprog = fused_ring.ring_plan(cfg, *ring, s_loc, "fwd")[0]
+    t, pairs, errs = {}, {}, {}
+    for pattern, ids_np in [("none", None)] + list(
+            _seg_patterns(TRAIN_SEQ).items()):
+        seg = None
+        if ids_np is not None:
+            seg = mesh.shard(layouts.to_layout(torch.from_numpy(ids_np),
+                                               "zigzag", w, axis=1).to(device),
+                             w, dim=1)
+            pairs[pattern] = _live_pairs(ids_np)
+        o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+        bargs = (q, k, v, o, lse, do)
+        if pattern == "packed":
+            again = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+            assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+            t0 = time.perf_counter()
+            po, _ = fused_ring.fused_ring_reference(
+                q, k, v, fprog, fused_ring.ring_plan(cfg, *ring, s_loc,
+                                                     "fwd")[1],
+                128 ** -0.5, seg=seg)
+            torch.cuda.synchronize()
+            t["plain_fwd"] = (time.perf_counter() - t0) * 1e3
+            errs["k8"] = _check_o("fused_ring_fwd[seg] ring step shape", o,
+                                  po, torch.bfloat16)
+            del po, again
+            got = fused_ring_bwd.fused_ring_bwd(*bargs, cfg, *ring, seg=seg)
+            again = fused_ring_bwd.fused_ring_bwd(*bargs, cfg, *ring,
+                                                  seg=seg)
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+            t0 = time.perf_counter()
+            want = fused_ring_bwd.fused_ring_bwd_reference(
+                *bargs, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm,
+                seg=seg)
+            torch.cuda.synchronize()
+            t["plain_bwd"] = (time.perf_counter() - t0) * 1e3
+            errs["k9"] = max(_bwd_errs(got, want,
+                                       "fused_ring_bwd[seg] ring step shape"))
+            del got, again, want
+            torch.cuda.empty_cache()
+        t[pattern, "k8"] = time_ms(lambda: fused_ring.fused_ring_fwd(
+            q, k, v, cfg, *ring, seg=seg), iters=10, warmup=2)
+        t[pattern, "k9"] = time_ms(lambda: fused_ring_bwd.fused_ring_bwd(
+            *bargs, cfg, *ring, seg=seg), iters=10, warmup=2)
+        del o, lse, bargs
+    pats = list(pairs)
+    chunk = 2 * b * n * s_loc * d * 2  # K and V of one position, bf16
+    copies = w * (sum(fprog.rows["send0"]) + sum(fprog.rows["send1"])
+                  + len(fprog.copy_in))
+    ids_bytes = 4 * b * TRAIN_SEQ
+    k8_bytes = (2 * (4 * b * n * TRAIN_SEQ * d) + 4 * b * n * TRAIN_SEQ
+                + 2 * copies * chunk + ids_bytes)
+    bounds = {}
+    for p in pats:
+        bounds["k8", p] = bound_ms(k8_bytes, 4 * d * b * n * pairs[p])
+        bounds["k9", p] = _bwd_bound(tables, prog, b, n, n, s_loc, d, 2,
+                                     pairs=pairs[p] * b * n,
+                                     extra_bytes=ids_bytes)[:2]
+    print(f"SEG kernels 8 and 9 at the ring step's shape (W={w} B1 "
+          f"N{n}/{n} S_local {s_loc} bf16 causal zigzag), ms a launch (no "
+          "segments / " + " / ".join(pats) + "): kernel 8 " + " / ".join(
+              f"{t[p, 'k8']:.4f}" for p in ["none"] + pats) + ", kernel 9 "
+          + " / ".join(f"{t[p, 'k9']:.4f}" for p in ["none"] + pats)
+          + f"; plain versions (packed) {t['plain_fwd']:.0f} / "
+          f"{t['plain_bwd']:.0f} ms; max_abs_err {errs}", flush=True)
+    recs = []
+    for name, kern, src, rep_, li in (
+            ("fused_ring_fwd[seg]", "k8", "fused_ring_fwd.cu",
+             "burst_attn_tpu/ops/fused_ring.py:1049 (_fused_fwd_kernel, "
+             "has_seg)", 0),
+            ("fused_ring_bwd[seg]", "k9", "fused_ring_bwd.cu",
+             "burst_attn_tpu/ops/fused_ring_bwd.py:1087 (_fused_bwd_kernel, "
+             "has_seg)", 1)):
+        recs.append(dict(
+            name=name, route="cuda",
+            source=f"burst_attn_tpu_torch/csrc/{src}", replaces=rep_,
+            max_abs_err=errs[kern], ms=t["packed", kern],
+            plain_ms=t["plain_fwd" if kern == "k8" else "plain_bwd"],
+            bound_ms=bounds[kern, "packed"][0],
+            bound_by=bounds[kern, "packed"][1], library_ms=lib["packed"][li],
+            seg={"shape": f"W={w} B1 N{n}/{n} S_local {s_loc} D{d} bf16 "
+                          "causal zigzag (the ring train step's)",
+                 "ms_unsegmented": t["none", kern],
+                 **{p: {"ms": t[p, kern], "bound_ms": bounds[kern, p][0],
+                        "bound_by": bounds[kern, p][1],
+                        "live_pairs": pairs[p],
+                        "library_ms": lib[p][li]} for p in pats}}))
+    del args, q, k, v, do
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _train_run(step, state, batch, n_steps):
+    """(losses, grad norms, host ms per step, launches) of n_steps steps
+    of `step` on `batch`, the launch counters set to 0 before."""
+    import torch
+
+    _reset_counts()
+    losses, norms, times = [], [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state[0], batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, norms, times, _counts()
+
+
+def packed_train_phase(device):
+    """The packed train step: make_train_step on make_packed_batch(
+    PACKED_SEED) at train_smoke's width and depth (bf16, remat, B=1,
+    S=TRAIN_SEQ, the seed-0 weights of the train phase): a warm-up and
+    PACKED_STEPS timed steps, exactly 2 SEG forward launches and one SEG
+    fused backward a layer and step and nothing else, the loss finite and
+    falling; one step through the split backward (the SEG dq and dk/dv
+    kernels); the control from the same seed with plain attention under
+    the same segment mask, whose first two losses must be within
+    CONTROL_RTOL.  Then, fp32 at 2 layers: document isolation (the logits
+    of document B inside a packed row equal B's alone within 1e-5 of the
+    largest logit: fp32 summation order, the packed row's 64-token chunks
+    cut B at other columns than B's own) and
+    one step's loss and gradients, kernels against plain attention,
+    within LOSS_RTOL and GRAD_RTOL."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import (
+        LAYER_KEYS, forward_with_aux, init_params, param_leaves,
+    )
+
+    cfg = _train_model(TRAIN_DIMS["n_layers"], torch.bfloat16)
+    tcfg = train.TrainConfig()
+    n_layers = cfg.n_layers
+    state = [_seed_state(cfg, tcfg, device)]
+    batch = train.make_packed_batch(PACKED_SEED, cfg, batch=1, seq=TRAIN_SEQ,
+                                    device=device)
+    docs = int(batch["segment_ids"].max()) + 1
+    step = train.make_train_step(cfg, tcfg, device=device)
+    warm = _train_run(step, state, batch, 1)
+    losses, norms, times, launches = _train_run(step, state, batch,
+                                                PACKED_STEPS)
+    per = dict(flash_fwd=2 * n_layers * PACKED_STEPS,
+               fused=n_layers * PACKED_STEPS)
+    want = _launches(**per, **{f"{k}_seg": x for k, x in per.items()})
+    assert launches == want, (launches, want)
+    losses = warm[0] + losses
+    assert all(map(math.isfinite, losses + norms)), losses
+    assert losses[-1] < losses[0], f"packed loss did not fall: {losses}"
+    with split_train_backward():
+        s_losses, _, s_times, s_launches = _train_run(step, state, batch, 1)
+    per = dict(flash_fwd=2 * n_layers, dq=n_layers, dkdv=n_layers)
+    want = _launches(**per, **{f"{k}_seg": x for k, x in per.items()})
+    assert s_launches == want, (s_launches, want)
+    assert all(map(math.isfinite, s_losses)), s_losses
+    step_ms = statistics.median(times)
+    res = dict(seq=TRAIN_SEQ, documents=docs, losses=losses, step_ms=step_ms,
+               step_ms_all=times, tokens_per_s=TRAIN_SEQ / (step_ms / 1e3),
+               launches=launches,
+               launches_per_step={k: x // PACKED_STEPS
+                                  for k, x in launches.items() if x},
+               split_launches=s_launches, split_step_ms=s_times[0],
+               prof=device_breakdown(lambda: step(state[0], batch), 1,
+                                     top=8))
+    state[0] = None
+    torch.cuda.empty_cache()
+    state[0] = _seed_state(cfg, tcfg, device)
+    with plain_train_attention():
+        c_losses, _, c_times, c_launches = _train_run(step, state, batch, 2)
+    assert sum(c_launches.values()) == 0, c_launches
+    state[0] = None
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses, c_losses)]
+    assert max(diffs[:2]) <= CONTROL_RTOL, (losses, c_losses)
+    res.update(control_losses=c_losses, control_rel_diffs=diffs[:2],
+               control_step_ms=c_times[-1])
+    print(f"packed train step (bf16, remat, B=1 S={TRAIN_SEQ}, {docs} "
+          f"documents, make_packed_batch seed {PACKED_SEED}): {step_ms:.1f} "
+          f"ms (median of {PACKED_STEPS}: {[round(x, 1) for x in times]}), "
+          f"{res['tokens_per_s']:.0f} tokens/s; losses "
+          f"{[round(x, 4) for x in losses]}; launches per step "
+          f"{res['launches_per_step']}; split backward {s_times[0]:.1f} ms "
+          f"{s_launches}; control with plain attention under the mask "
+          f"{[round(x, 4) for x in c_losses]} (rel diffs "
+          f"{[float(f'{x:.2e}') for x in diffs[:2]]})", flush=True)
+    print_profile("packed train step", res["prof"])
+    res["prof"] = res["prof"][:2]  # wall and device ms for the JSON line
+    torch.cuda.empty_cache()
+
+    # fp32 at 2 layers: document isolation, then loss and gradient parity
+    cfg32 = _train_model(2, torch.float32)
+    params = init_params(cfg32, seed=0, device=device)
+    a, bl = 700, 2048 - 700
+    rng = np.random.default_rng(7)
+    doc_a = rng.integers(1, cfg32.vocab, (1, a))
+    doc_b = rng.integers(1, cfg32.vocab, (1, bl))
+
+    def logits(tokens, lens):
+        seg = np.concatenate([np.full((1, x), i) for i, x in enumerate(lens)],
+                             1)
+        pos = np.concatenate([np.arange(x)[None] for x in lens], 1)
+        with torch.no_grad():
+            return forward_with_aux(
+                params, torch.from_numpy(tokens).to(device),
+                torch.from_numpy(pos).to(device), cfg32,
+                segment_ids=torch.from_numpy(seg).to(device))[0]
+
+    _reset_counts()
+    packed = logits(np.concatenate([doc_a, doc_b], 1), (a, bl))
+    solo = logits(np.concatenate([doc_b, np.zeros((1, a), np.int64)], 1),
+                  (bl, a))
+    iso = _counts()
+    assert iso["flash_fwd"] == iso["flash_fwd_seg"] == 2 * 2, iso
+    iso_err = _max_err(packed[:, a:], solo[:, :bl])
+    iso_ref = float(solo[:, :bl].abs().max())
+    assert iso_err <= 1e-5 * iso_ref, (iso_err, iso_ref)
+    del packed, solo
+    leaves = list(param_leaves(params))
+    for x in leaves:
+        x.requires_grad_(True)
+    pb = train.make_packed_batch(2, cfg32, batch=1, seq=2048, device=device)
+
+    def loss_grads():
+        loss = train.loss_fn(params, pb["tokens"], pb["positions"],
+                             pb["labels"], cfg32,
+                             segment_ids=pb["segment_ids"])
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    _reset_counts()
+    loss_k, grads_k = loss_grads()
+    plaunch = _counts()
+    per = dict(flash_fwd=2 * 2, fused=2)
+    assert plaunch == _launches(**per, **{f"{k}_seg": x
+                                          for k, x in per.items()}), plaunch
+    with plain_train_attention():
+        loss_p, grads_p = loss_grads()
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    assert loss_err <= LOSS_RTOL, (loss_k, loss_p)
+    names = ["embed"] + [f"layers.{i}.{x}" for i in range(2)
+                         for x in LAYER_KEYS] + ["final_norm", "lm_head"]
+    worst = (0.0, "")
+    for name, ga, gb in zip(names, grads_k, grads_p):
+        ref = float(gb.abs().max())
+        err = _max_err(ga, gb)
+        assert err <= GRAD_RTOL * ref + 1e-12, \
+            f"packed gradient {name}: max-abs err {err:.3e} of max {ref:.3e}"
+        worst = max(worst, (err / max(ref, 1e-30), name))
+    res.update(isolation_max_abs_err=iso_err, isolation_max_logit=iso_ref,
+               parity=dict(loss_rel_err=loss_err, grad_rel_err=worst[0],
+                           grad_worst=worst[1]))
+    print(f"packed fp32 at 2 layers, S=2048: document B's logits in a packed"
+          f" row vs alone max_abs_err {iso_err:.3e} (<= 1e-5 x the largest, "
+          f"{iso_ref:.3f}); packed loss "
+          f"{loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), rel err "
+          f"{loss_err:.2e}; worst gradient error {worst[0]:.2e} of its "
+          f"largest entry ({worst[1]}); launches {plaunch}", flush=True)
+    del params, leaves, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return res
+
+
+def packed_ring_train_phase(device, single):
+    """The packed ring train step: make_packed_batch(PACKED_SEED) in
+    zigzag order over mesh {"sp": RING_TRAIN_SP} (bf16, remat, the seed-0
+    weights), the fused route (kernels 8 and 9's SEG instances: 2 and 1
+    launches a layer and step) and the scan route (kernels 1-3's: 2 W^2
+    and W^2), each a warm-up and PACKED_STEPS timed steps: exact launch
+    counts, no fallback, the first two losses within CONTROL_RTOL of the
+    single-device packed run (`single`); fp32 at 2 layers and S=2048 the
+    loss within LOSS_RTOL and every gradient within GRAD_RTOL of one
+    device's.  Then a contig ring (fp32, B1 N8/2 S4096, sp=4, documents of
+    512 tokens) with max_segment_len=1024 on both routes: the output and
+    gradients of the untruncated ring, with fewer burst.ring_rounds."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import (
+        LAYER_KEYS, init_params, param_leaves,
+    )
+    from burst_attn_tpu_torch.parallel import burst
+
+    w = RING_TRAIN_SP
+    mesh = {"sp": w}
+    n_layers = TRAIN_DIMS["n_layers"]
+    tcfg = train.TrainConfig()
+    out = {}
+    for backend in ("fused_ring", "auto"):
+        cfg = _train_model(n_layers, torch.bfloat16, attn_backend=backend)
+        state = [_seed_state(cfg, tcfg, device)]
+        batch = train.make_packed_batch(PACKED_SEED, cfg, mesh, batch=1,
+                                        seq=TRAIN_SEQ, device=device)
+        step = train.make_train_step(cfg, tcfg, mesh, device=device)
+        obs0 = _obs_now()
+        warm = _train_run(step, state, batch, 1)
+        losses, _, times, launches = _train_run(step, state, batch,
+                                                PACKED_STEPS)
+        per = ({"fused_ring_fwd": 2 * n_layers, "fused_ring_bwd": n_layers}
+               if backend == "fused_ring" else
+               {"flash_fwd": 2 * n_layers * w * w, "fused": n_layers * w * w})
+        per = {k: x * PACKED_STEPS for k, x in per.items()}
+        want = _launches(**per, **{f"{k}_seg": x for k, x in per.items()})
+        assert launches == want, (backend, launches, want)
+        assert not any(key.startswith("burst.fused_fallback")
+                       for key in _obs_since(obs0)), dict(_obs_since(obs0))
+        losses = warm[0] + losses
+        assert all(map(math.isfinite, losses)), losses
+        diffs = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                     single["losses"])]
+        assert max(diffs[:2]) <= CONTROL_RTOL, (backend, losses,
+                                                single["losses"])
+        step_ms = statistics.median(times)
+        prof = device_breakdown(lambda: step(state[0], batch), 1, top=8)
+        print_profile(f"packed ring train step, {backend}", prof)
+        out[backend] = dict(step_ms=step_ms, step_ms_all=times,
+                            prof=prof[:2],
+                            losses=losses, rel_diff_vs_single=diffs[:2],
+                            tokens_per_s=TRAIN_SEQ / (step_ms / 1e3),
+                            launches=launches,
+                            launches_per_step={
+                                k: x // PACKED_STEPS
+                                for k, x in launches.items() if x})
+        print(f"packed ring train step ({backend}, mesh {mesh}, zigzag, "
+              f"bf16, B=1 S={TRAIN_SEQ}): {step_ms:.1f} ms (median of "
+              f"{PACKED_STEPS}: {[round(x, 1) for x in times]}); losses "
+              f"{[round(x, 4) for x in losses]} (single device "
+              f"{[round(x, 4) for x in single['losses']]}, rel diffs "
+              f"{[float(f'{x:.2e}') for x in diffs[:2]]}); launches per step "
+              f"{out[backend]['launches_per_step']}", flush=True)
+        state[0] = None
+        torch.cuda.empty_cache()
+
+    # fp32 at 2 layers: the ring's loss and gradients against one device's
+    base = _train_model(2, torch.float32)
+    params = init_params(base, seed=0, device=device)
+    leaves = list(param_leaves(params))
+    for x in leaves:
+        x.requires_grad_(True)
+
+    def loss_grads(cfg, m):
+        pb = train.make_packed_batch(2, cfg, m, batch=1, seq=2048,
+                                     device=device)
+        loss = train.loss_fn(params, pb["tokens"], pb["positions"],
+                             pb["labels"], cfg, m,
+                             segment_ids=pb["segment_ids"])
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    loss_1, grads_1 = loss_grads(base, None)
+    names = ["embed"] + [f"layers.{i}.{x}" for i in range(2)
+                         for x in LAYER_KEYS] + ["final_norm", "lm_head"]
+    parity = {}
+    for backend in ("fused_ring", "auto"):
+        cfg = dataclasses.replace(base, attn_backend=backend)
+        loss_r, grads_r = loss_grads(cfg, mesh)
+        loss_err = abs(loss_r - loss_1) / abs(loss_1)
+        assert loss_err <= LOSS_RTOL, (backend, loss_r, loss_1)
+        worst = (0.0, "")
+        for name, ga, gb in zip(names, grads_r, grads_1):
+            ref = float(gb.abs().max())
+            err = _max_err(ga, gb)
+            assert err <= GRAD_RTOL * ref + 1e-12, \
+                f"packed ring {backend} gradient {name}: {err:.3e} of {ref:.3e}"
+            worst = max(worst, (err / max(ref, 1e-30), name))
+        parity[backend] = dict(loss_rel_err=loss_err, grad_rel_err=worst[0],
+                               grad_worst=worst[1])
+    print(f"packed ring parity fp32 (mesh {mesh}, 2 layers, S=2048) vs one "
+          f"device: {parity}", flush=True)
+    del params, leaves, grads_1
+    torch.cuda.empty_cache()
+
+    # a contig ring truncated by max_segment_len, ids keeping the promise
+    s, n, n_kv, msl = 4096, 8, 2, 1024
+    g = torch.Generator(device=device).manual_seed(35)
+    q, k, v, do = (torch.randn(1, h, s, 128, generator=g, device=device)
+                   for h in (n, n_kv, n_kv, n))
+    ids = torch.from_numpy((np.arange(s)[None] // 512).astype(np.int32)).to(
+        device)
+    trunc = {}
+    for backend in ("fused_ring", "auto"):
+        res = {}
+        for cut in (None, msl):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = _obs_now()
+            o = burst.burst_attn(*xs, mesh=mesh, causal=True, layout="contig",
+                                 backend=backend, segment_ids=ids,
+                                 max_segment_len=cut)
+            (o * do).sum().backward()
+            rounds = _obs_since(before).get("burst.ring_rounds", 0)
+            res[cut] = ([o.detach()] + [x.grad for x in xs], rounds)
+        (full, r_full), (got, r_cut) = res[None], res[msl]
+        assert r_cut < r_full, (backend, r_cut, r_full)
+        o_err = _check_o(f"truncated {backend} ring", got[0], full[0],
+                         torch.float32)
+        errs = _bwd_errs(got[1:], full[1:], f"truncated {backend} ring")
+        trunc[backend] = dict(ring_rounds=r_cut, ring_rounds_full=r_full,
+                              o_err=o_err, grad_errs=errs)
+    print(f"contig ring with max_segment_len={msl} (fp32 B1 N{n}/{n_kv} "
+          f"S{s}, mesh {mesh}, documents of 512): the untruncated ring's o "
+          f"and gradients with fewer rounds: {trunc}", flush=True)
+    out["parity"] = parity
+    out["truncated"] = trunc
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5313,7 +6221,19 @@ def main() -> int:
             b = off[a["instance"][:-len(" stats")]]
             assert (a["regs"], a["local_bytes"]) == (
                 b["regs"], b["local_bytes"]), (name, a, b)
-    for name, rows in list(attrs_by_lib.items()) + list(stats_attrs.items()):
+    # the SEG instances (packed segments); the instances without SEG keep
+    # their registers and spills
+    seg_attrs = {"flash_fwd": flash.fwd_attrs(seg=True),
+                 "flash_bwd": flash.bwd_attrs(seg=True),
+                 "fused_ring_fwd": fused_ring.fwd_attrs(seg=True)
+                 + fused_ring.fwd_attrs(stats=True, seg=True),
+                 "fused_ring_bwd": fused_ring_bwd.bwd_attrs(seg=True)}
+    for name, want in NO_SEG_ATTRS.items():
+        got = {a["instance"]: (a["regs"], a["local_bytes"])
+               for a in attrs_by_lib[name]}
+        assert {k: got[k] for k in want} == want, (name, got, want)
+    for name, rows in (list(attrs_by_lib.items()) + list(stats_attrs.items())
+                       + list(seg_attrs.items())):
         for a in rows:
             print(f"{name} {a['instance']}: {a['regs']} registers, "
                   f"{a['local_bytes']} local (spill) bytes a thread, "
@@ -5387,6 +6307,27 @@ def main() -> int:
     ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"],
                                       fused_bwd_err)
     kernels.append(ring_bwd_rec)
+    torch.cuda.empty_cache()
+    # packed documents: the SEG instances of kernels 1-5, 8 and 9
+    t_seg = time.perf_counter()
+    seg_worst = check_flash_segments(device)
+    seg_k8_err, seg_k9_err = check_ring_segments(device)
+    seg_recs = time_flash_segments(device, seg_worst)
+    seg_lib = {p: (seg_recs[0]["seg"][p]["library_ms"],
+                   seg_recs[1]["seg"][p]["library_ms"])
+               for p in _seg_patterns(TRAIN_SEQ)}
+    seg_recs += time_ring_segments(device, seg_lib)
+    seg_recs[4]["max_abs_err"] = max(seg_recs[4]["max_abs_err"], seg_k8_err)
+    seg_recs[5]["max_abs_err"] = max(seg_recs[5]["max_abs_err"], seg_k9_err)
+    for rec, lib, labels in zip(seg_recs, (
+            "flash_fwd", "flash_bwd", "flash_bwd", "flash_bwd",
+            "fused_ring_fwd", "fused_ring_bwd"), (
+            None, ("bf16 fused seg", "fp32 fused seg"), ("bf16 dq seg",),
+            ("bf16 dkdv seg",), None, None)):
+        rec["attrs"] = [a for a in seg_attrs[lib]
+                        if labels is None or a["instance"] in labels]
+    print(f"packed-segment kernel phases: {time.perf_counter() - t_seg:.1f} "
+          "s", flush=True)
     torch.cuda.empty_cache()
 
     serve_res = serve_engine_phase(device)
@@ -5478,12 +6419,18 @@ def main() -> int:
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
     ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"], k9_err)
     ring_tr = ring_train_phase(device, tr)
+    t_packed = time.perf_counter()
+    ptr = packed_train_phase(device)
+    pring = packed_ring_train_phase(device, ptr)
     _SEED_PARAMS.clear()  # the training model's seed-0 weights
     torch.cuda.empty_cache()
     parity = train_parity(device)
     ring_parity = ring_train_parity(device)
     fit_res = runner_phase(device)
     ring_fit = runner_phase(device, mesh={"sp": RING_TRAIN_SP})
+    pfit = runner_phase(device, packed_eos_id=0)
+    print(f"packed training phases: {time.perf_counter() - t_packed:.1f} s "
+          "(with the phases between them)", flush=True)
 
     launches = {"flash_fwd": serve_res["bf16"]["launches"]["flash_fwd"],
                 "paged_decode": serve_res["bf16"]["launches"][
@@ -5509,8 +6456,26 @@ def main() -> int:
                     "ragged_paged_attention"],
                 "step_probe": probe["launches"],
                 # the ServeEngine prefix wave's suffix prefills
-                "flash_fwd[suffix]": sprefix["suffix_launches"]}
-    kernels += window_recs + [suffix_rec]
+                "flash_fwd[suffix]": sprefix["suffix_launches"],
+                # the packed train step (its split step for kernels 4-5),
+                # the packed ring step's scan route and the packed fit
+                # (kernels 1-3), the packed ring step's fused route
+                # (kernels 8-9): SEG instances only
+                "flash_fwd[seg]": sum(x["flash_fwd_seg"] for x in (
+                    ptr["launches"], pring["auto"]["launches"],
+                    pfit["launches"])),
+                "flash_bwd_fused[seg]": sum(x["fused_seg"] for x in (
+                    ptr["launches"], pring["auto"]["launches"],
+                    pfit["launches"])),
+                "flash_bwd_dq[seg]": ptr["split_launches"]["dq_seg"],
+                "flash_bwd_dkdv[seg]": ptr["split_launches"]["dkdv_seg"],
+                "fused_ring_fwd[seg]": pring["fused_ring"]["launches"][
+                    "fused_ring_fwd_seg"],
+                "fused_ring_bwd[seg]": pring["fused_ring"]["launches"][
+                    "fused_ring_bwd_seg"]}
+    for rec in seg_recs:
+        assert launches[rec["name"]] > 0, (rec["name"], launches)
+    kernels += window_recs + [suffix_rec] + seg_recs
     kernels[2]["pipelined_launches"] = pipe["launches"]
     assert pipe["launches"] > 0
     # the speculative phase's bf16 early-exit runs of both engines
@@ -5561,7 +6526,8 @@ def main() -> int:
                        | {"profiled_step_ms": r["prof"][0],
                           "device_ms": r["prof"][1]}
                        for route, r in ring_tr.items()},
-                    "parity": ring_parity, "fit": ring_fit}},
+                    "parity": ring_parity, "fit": ring_fit},
+           "packed": ptr, "packed_ring": pring, "packed_fit": pfit},
         "card": card}))
     print(json.dumps({
         "kernels": [{k: r[k] for k in keys}
@@ -5571,7 +6537,8 @@ def main() -> int:
                                          "routes", "attrs",
                                          "pipelined_launches", "spec_verify",
                                          "speculative_launches",
-                                         "checkpoint_launches", "stats")
+                                         "checkpoint_launches", "stats",
+                                         "seg")
                        if k in r}
                     for r in kernels],
         "card": card,

@@ -134,9 +134,17 @@ def test_round_spec_contig_matches_jax():
 def test_unported_options_raise():
     q = torch.zeros(1, 2, 8, 32)
     spec = masks.full_spec(8, 8)
-    with pytest.raises(NotImplementedError):
+    # packed segments are ported: one segment is the unsegmented round,
+    # and ids of the wrong shape raise
+    ids = torch.zeros(1, 8, dtype=torch.int32)
+    got = flash.flash_fwd(q + 1, q, q + 2, None, None, None, 1.0, spec,
+                          segments=(ids, ids), emit_o=True)
+    want = flash.flash_fwd(q + 1, q, q + 2, None, None, None, 1.0, spec,
+                           emit_o=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="segment q ids"):
         flash.flash_fwd(q, q, q, None, None, None, 1.0, spec,
-                        segments=(q, q))
+                        segments=(ids[:, :4], ids))
     with pytest.raises(ValueError, match="window"):
         flash.flash_fwd(q, q, q, None, None, None, 1.0, spec, window=0)
     # one device takes a window; the ring's spec helpers still raise

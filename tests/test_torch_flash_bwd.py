@@ -120,8 +120,15 @@ def test_flash_bwd_unported_options_and_bad_shapes_raise():
     spec = masks.full_spec(8, 8)
     with pytest.raises(NotImplementedError):
         flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec, window=4)
-    with pytest.raises(NotImplementedError):
-        flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec, segments=(lse, lse))
+    # packed segments are ported; the ids must be integers of shape [B, S]
+    ids = torch.zeros(1, 8, dtype=torch.int32)
+    got = flash.flash_bwd(x + 1, x, x, x, lse, lse, 1.0, spec,
+                          segments=(ids, ids))
+    want = flash.flash_bwd(x + 1, x, x, x, lse, lse, 1.0, spec)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="integers"):
+        flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec,
+                        segments=(lse[:, 0], lse[:, 0]))
     with pytest.raises(ValueError, match="do"):
         flash.flash_bwd(x[:, :1], x, x, x, lse, lse, 1.0, spec)
     with pytest.raises(ValueError, match="cuda or cpu"):

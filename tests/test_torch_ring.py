@@ -148,9 +148,11 @@ def test_kernel_reads_the_table_columns_of_the_schedule():
     consts = {name: int(val) for name, val in
               re.findall(r"\b(k[A-Z]\w*) = (\d+)", src)}
     assert {k: consts[k] for k in ("kConsumeBank", "kConsumeSlot",
-                                   "kSrcBank0", "kArriveNeed")} == dict(
+                                   "kSrcBank0", "kArriveNeed",
+                                   "kPart")} == dict(
         kConsumeBank=schedule.CONSUME_BANK, kConsumeSlot=schedule.CONSUME_SLOT,
-        kSrcBank0=schedule.SRC_BANK0, kArriveNeed=fused_ring.ARRIVE_NEED)
+        kSrcBank0=schedule.SRC_BANK0, kArriveNeed=fused_ring.ARRIVE_NEED,
+        kPart=fused_ring.PART)
     per_ch = {name: (int(c0), int(c1)) for name, c1, c0 in re.findall(
         r"int (\w+)\(int ch\) \{ return ch \? (\d+) : (\d+); \}", src)}
     assert per_ch == dict(
@@ -165,7 +167,9 @@ def test_kernel_reads_the_table_columns_of_the_schedule():
     # the five mask scalars lead each row (row[0] .. row[4])
     assert schedule.SPEC0 == 0 and schedule.CONSUME_BANK == 5
     assert "row[0], row[1],\n" in src and "row[2], row[3], row[4]);" in src
-    assert fused_ring.KERNEL_COLS == max(fused_ring.TAKE_NEED) + 1
+    # the consumed partition (packed segments) is the last column
+    assert fused_ring.PART == max(fused_ring.TAKE_NEED) + 1
+    assert fused_ring.KERNEL_COLS == fused_ring.PART + 1
 
 
 def _simulate_kernel(prog, tables, seed, ctas=2, items=0, wait=True):
@@ -435,7 +439,10 @@ def test_contig_ring_skips_dead_rounds_and_truncates():
 
 
 def test_burst_attn_declines_and_rejects():
-    q = torch.randn(1, 2, 32, 16)
+    # a generator of its own: drawn from the global one, the inputs (and
+    # the gradient check's fp32 rounding) depended on the test files that
+    # ran before in the same worker
+    q = torch.randn(1, 2, 32, 16, generator=torch.Generator().manual_seed(0))
     before = obs.counter_values()
     # one position: nothing to rotate, the fused config takes the scan ring
     got = burst_attn(q, q, q, mesh={"sp": 1}, causal=True, layout="zigzag",
@@ -465,11 +472,20 @@ def test_burst_attn_declines_and_rejects():
                                rtol=0)
     with torch.no_grad():  # no grad asked for: the forward alone runs
         burst_attn(q.clone().requires_grad_(), q, q, mesh={"sp": 2})
-    for kw in (dict(window=8), dict(segment_ids=torch.zeros(1, 32)),
-               dict(wire_dtype="int8")):
+    for kw in (dict(window=8), dict(wire_dtype="int8")):
         with pytest.raises(NotImplementedError):
             burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
                        **kw)
+    # packed segments are ported: one segment is the unsegmented ring; a
+    # cross-attention ring takes none
+    one = torch.zeros(1, 32, dtype=torch.int32)
+    assert torch.equal(
+        burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
+                   segment_ids=one),
+        burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig"))
+    with pytest.raises(ValueError, match="cross-attention"):
+        burst_attn(q, kx, kx, mesh={"sp": 2}, layout="contig",
+                   segment_ids=one)
     # ring telemetry is ported: (o, DevStats), o the plain call's
     o, st = burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
                        collect_stats=True)

@@ -511,7 +511,7 @@ def test_bwd_kernel_reads_the_table_columns_of_the_schedule():
         kArriveNeed=fused_ring.BWD_ARRIVE_NEED,
         kDqArriveNeed=fused_ring.DQ_ARRIVE_NEED,
         kDqiArriveNeed=fused_ring.DQI_ARRIVE_NEED,
-        kDqTakeNeed=fused_ring.DQ_TAKE_NEED,
+        kDqTakeNeed=fused_ring.DQ_TAKE_NEED, kPart=fused_ring.BWD_PART,
         kMetaCh1Dst=schedule.META_CH1_DST, kMetaHome0=schedule.META_HOME0,
         kMetaHome1=schedule.META_HOME1, kDqRing=schedule.DQ_RING,
         kDqHome=schedule.DQ_HOME, kDqBoundary=schedule.DQ_BOUNDARY,
@@ -531,7 +531,8 @@ def test_bwd_kernel_reads_the_table_columns_of_the_schedule():
         meta_dst=(schedule.META_CH0_DST, schedule.META_CH1_DST),
         col_dq_grant=(schedule.DQ_GRANT0, schedule.DQ_GRANT1),
         col_dq_take=(schedule.DQ_TAKE0, schedule.DQ_TAKE1))
-    assert fused_ring.BWD_KERNEL_COLS == fused_ring.DQ_TAKE_NEED + 1
+    assert fused_ring.BWD_PART == fused_ring.DQ_TAKE_NEED + 1
+    assert fused_ring.BWD_KERNEL_COLS == fused_ring.BWD_PART + 1
     assert "const Mask mk{row[0], row[1], row[2], row[3], row[4], S, S};" \
         in src
 

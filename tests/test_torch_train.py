@@ -256,10 +256,13 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="grad_accum"):
         train.make_train_step(_cfg(), jtrain.TrainConfig(
             collect_devstats=True, grad_accum=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        train.packed_fields_np(np.zeros((1, 4), np.int32), 0)
-    with pytest.raises(NotImplementedError):
-        train.batch_from_host(np.zeros((1, 4)), np.zeros((1, 4)), _cfg(),
-                              packed_eos_id=0, device="cpu")
+    # packed documents are ported: an all-EOS row is four documents of
+    # one token, each without a target
+    seg, pos, lab = train.packed_fields_np(np.zeros((1, 4), np.int32), 0)
+    assert seg.tolist() == [[0, 1, 2, 3]] and pos.tolist() == [[0] * 4]
+    assert lab.tolist() == [[-1] * 4]
+    got = train.batch_from_host(np.zeros((1, 4)), np.zeros((1, 4)), _cfg(),
+                                packed_eos_id=0, device="cpu")
+    assert got["segment_ids"].tolist() == [[0, 1, 2, 3]]
     assert train.make_mesh({"sp": 1}) == {"sp": 1}
     assert train.make_mesh({"dp": 1, "sp": 4}) == {"dp": 1, "sp": 4}

@@ -19,7 +19,19 @@
 // where the ids are equal (pallas_flash.py `_block_mask`).  P and dS are
 // zeroed by that test itself, in full tiles too (a tile is full for the
 // mask scalars, not for the ids); every tile the scalars leave is
-// computed, skipping tiles that share no document is later work.
+// computed, skipping tiles that share no document is later work.  With
+// WIN (another template flag; window 0 takes the instances without it)
+// the mask gains the sliding-window band: row r sees column c only where
+// c > r + offset - window (pallas_flash.py `_block_mask` with `wnd`).
+// Each kv-tile CTA sweeps only the q tiles whose band reaches it, from
+// the diagonal up to the last row with row + offset - window < its last
+// visible column (flash_bwd_tile.cuh kv_tile_rows: the banded fused sweep
+// of `_bwd_fused_kernel`, l.1127, as a loop bound), and each dq CTA the kv
+// chunks from its first row's band start (q_tile_cols); a tile the band
+// cuts tests it per element, a tile inside it does not (the full-tile
+// shortcut of mma_bwd_tile.cuh's step checks the band too).  A window at
+// or above the sequence leaves every range and value as the instance
+// without WIN computes them: the two are bitwise equal.
 //
 // Per (q tile i, kv tile j) step, with P = exp2(S*scale*log2e - lse*log2e):
 //   S = Q K^T, dP = dO V^T, dS = P * (dP - delta),
@@ -71,10 +83,12 @@
 // one core; two launches here are bitwise equal too): dq tile i receives
 // one partial from every kv tile j that sees it, added in increasing j.
 // An int32 counter per (b, q head, q tile), zeroed by the caller, says how
-// many partials have landed; the CTA of kv tile j waits until it reads j,
-// adds its partial (L2 loads and stores), fences, and increments it.  The
-// kv tiles that see q tile i are always the prefix 0..J-1 (the q loop's
-// start is non-decreasing in j), so j is the right count to wait for.  The
+// many partials have landed; the CTA of kv tile j waits until it reads
+// j - J0, adds its partial (L2 loads and stores), fences, and increments
+// it.  The kv tiles that see q tile i are always a contiguous range
+// J0..J-1 (both ends of the q loop are non-decreasing in j; J0 = 0 without
+// a band, with one the tile of the first row's band start), so j - J0 is
+// the right count to wait for.  The
 // CUDA model does not promise that blocks start in increasing blockIdx,
 // so a CTA does not take its kv tile from blockIdx: thread 0 takes a
 // ticket with one atomicAdd on the word after the counters (zeroed with
@@ -111,7 +125,7 @@ namespace {
 using namespace bat;
 using namespace bat::bwd;
 
-template <typename T, int D, bool SEG>
+template <typename T, int D, bool SEG, bool WIN>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_kernel(const T* __restrict__ dO, const T* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
@@ -119,7 +133,7 @@ flash_bwd_dq_kernel(const T* __restrict__ dO, const T* __restrict__ q,
                     const float* __restrict__ lse, float* __restrict__ dq,
                     const int* __restrict__ q_ids,
                     const int* __restrict__ kv_ids, int N, int Nk,
-                    float scale, Mask mk) {
+                    float scale, Mask mk, int window) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   extern __shared__ float4 smem4[];
   const Tiles<D> t(reinterpret_cast<float*>(smem4));
@@ -138,42 +152,44 @@ flash_bwd_dq_kernel(const T* __restrict__ dO, const T* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
 
-  // kv columns this q tile can see (as flash_fwd.cu)
-  const int r_lo = max(i0, mk.q_lo);
-  const int r_hi = min(min(i0 + BQ, mk.q_hi), Sq);
-  int c_end = 0;
-  if (r_lo < r_hi) {
-    c_end = min(mk.kv_hi, Skv);
-    if (mk.causal) c_end = min(c_end, r_hi + mk.offset);
-  }
+  // kv columns this q tile can see (as flash_fwd.cu; WIN: from the band)
+  int c_lo, c_end;
+  q_tile_cols<WIN>(mk, i0, window, c_lo, c_end);
   const float scale_log2 = scale * kLog2e;
-  for (int j0 = 0; j0 < c_end; j0 += BKV) {
+  for (int j0 = c_lo / BKV * BKV; j0 < c_end; j0 += BKV) {
     __syncthreads();  // the previous tile's readers of sK, sV, sdS are done
     load_rows<T, D, BKV, NT>(k + bhk * Skv * D, j0, Skv, t.k, Tiles<D>::LD,
                              1.f);
     load_rows<T, D, BKV, NT>(v + bhk * Skv * D, j0, Skv, t.v, Tiles<D>::LD,
                              1.f);
     __syncthreads();
-    scores<D, false, SEG>(t, scale_log2, i0, j0, mk,
-                          SEG ? q_ids + (size_t)b * Sq : nullptr,
-                          SEG ? kv_ids + (size_t)b * Skv : nullptr);
+    scores<D, false, SEG, WIN>(t, scale_log2, i0, j0, mk,
+                               SEG ? q_ids + (size_t)b * Sq : nullptr,
+                               SEG ? kv_ids + (size_t)b * Skv : nullptr,
+                               window);
     __syncthreads();
     accum_q<D>(t, acc);
   }
   store_block<D>(dq + bh * Sq * D, i0, Sq, acc, scale);
 }
 
-template <typename T, int D, bool FUSED, bool SEG>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
-                    const T* __restrict__ k, const T* __restrict__ v,
-                    const float* __restrict__ delta,
-                    const float* __restrict__ lse, float* __restrict__ dq,
-                    float* __restrict__ dk, float* __restrict__ dv,
-                    int* __restrict__ counters,
-                    const int* __restrict__ q_ids,
-                    const int* __restrict__ kv_ids, int N, int Nk,
-                    float scale, Mask mk) {
+// The SIMT kv-side kernel's body: the split route's dk/dv kernel, or with
+// FUSED the fused kernel.  The instances without WIN run it from
+// flash_bwd_kv_kernel, whose parameters are those it had before the band
+// existed, and take the code they had on every branch without WIN; the
+// WIN instances run it from flash_bwd_kv_win_kernel.  (Built with the
+// window as a Mask field, and then as a parameter of this kernel, the
+// fp32 fused instance took 206 registers against its 208; so built, it
+// takes 208 again.)
+template <typename T, int D, bool FUSED, bool SEG, bool WIN>
+__device__ __forceinline__ void bwd_kv_body(
+    const T* __restrict__ dO, const T* __restrict__ q,
+    const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ delta, const float* __restrict__ lse,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+    int* __restrict__ counters, const int* __restrict__ q_ids,
+    const int* __restrict__ kv_ids, int N, int Nk, float scale, Mask mk,
+    int window) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   extern __shared__ float4 smem4[];
   const Tiles<D> t(reinterpret_cast<float*>(smem4));
@@ -212,10 +228,11 @@ flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
     for (int e = 0; e < 4; ++e) dka[r][e] = dva[r][e] = 0.f;
 
   // q rows that can see some column of this tile: [i_lo, i_hi); causal
-  // rows see column j0 from row j0 - offset on
+  // rows see column j0 from row j0 - offset on, WIN rows up to the band's
   int i_lo = max(mk.q_lo, 0), i_hi = min(mk.q_hi, Sq);
   if (mk.causal) i_lo = max(i_lo, j0 - mk.offset);
   if (j0 >= min(mk.kv_hi, Skv)) i_hi = i_lo;
+  if constexpr (WIN) kv_tile_rows<true>(mk, j0, window, i_lo, i_hi);
   const int t_lo = i_lo / BQ;
   const int t_hi = (i_hi > i_lo) ? (i_hi + BQ - 1) / BQ : t_lo;
 
@@ -232,9 +249,15 @@ flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
       load_row_stats(lse + bh * Sq, delta + bh * Sq, i0, Sq, t.lse2,
                      t.delta);
       __syncthreads();
-      scores<D, true, SEG>(t, scale_log2, i0, j0, mk,
-                           SEG ? q_ids + (size_t)b * Sq : nullptr,
-                           SEG ? kv_ids + (size_t)b * Skv : nullptr);
+      if constexpr (WIN)
+        scores<D, true, SEG, true>(t, scale_log2, i0, j0, mk,
+                                   SEG ? q_ids + (size_t)b * Sq : nullptr,
+                                   SEG ? kv_ids + (size_t)b * Skv : nullptr,
+                                   window);
+      else
+        scores<D, true, SEG>(t, scale_log2, i0, j0, mk,
+                             SEG ? q_ids + (size_t)b * Sq : nullptr,
+                             SEG ? kv_ids + (size_t)b * Skv : nullptr);
       __syncthreads();
       accum_kv<D>(t, dka, dva);
       if constexpr (FUSED) {
@@ -244,13 +267,60 @@ flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
 #pragma unroll
           for (int e = 0; e < 4; ++e) part[r][e] = 0.f;
         accum_q<D>(t, part);
-        fold_dq<D>(dq + bh * Sq * D, counters + bh * nqb + it, jt, i0, Sq,
-                   part, scale, false);
+        // the tile's contributors fold from its first kv tile on
+        if constexpr (WIN)
+          fold_dq<D>(dq + bh * Sq * D, counters + bh * nqb + it,
+                     jt - first_kv_tile<true>(mk, i0, window), i0, Sq, part,
+                     scale, false);
+        else
+          fold_dq<D>(dq + bh * Sq * D, counters + bh * nqb + it, jt, i0, Sq,
+                     part, scale, false);
       }
     }
   }
   store_block<D>(dk + bhk * Skv * D, j0, Skv, dka, scale);
   store_block<D>(dv + bhk * Skv * D, j0, Skv, dva, 1.f);
+}
+
+template <typename T, int D, bool FUSED, bool SEG>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
+                    const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ lse, float* __restrict__ dq,
+                    float* __restrict__ dk, float* __restrict__ dv,
+                    int* __restrict__ counters,
+                    const int* __restrict__ q_ids,
+                    const int* __restrict__ kv_ids, int N, int Nk,
+                    float scale, Mask mk) {
+  bwd_kv_body<T, D, FUSED, SEG, false>(dO, q, k, v, delta, lse, dq, dk, dv,
+                                       counters, q_ids, kv_ids, N, Nk, scale,
+                                       mk, 0);
+}
+
+template <typename T, int D, bool FUSED, bool SEG>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_kv_win_kernel(const T* __restrict__ dO, const T* __restrict__ q,
+                        const T* __restrict__ k, const T* __restrict__ v,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ lse, float* __restrict__ dq,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        int* __restrict__ counters,
+                        const int* __restrict__ q_ids,
+                        const int* __restrict__ kv_ids, int N, int Nk,
+                        float scale, Mask mk, int window) {
+  bwd_kv_body<T, D, FUSED, SEG, true>(dO, q, k, v, delta, lse, dq, dk, dv,
+                                      counters, q_ids, kv_ids, N, Nk, scale,
+                                      mk, window);
+}
+
+// The SIMT kv-side kernel of (FUSED, SEG, WIN) and its launch arguments
+template <typename T, int D, bool FUSED, bool SEG, bool WIN>
+constexpr auto kv_kernel() {
+  if constexpr (WIN)
+    return flash_bwd_kv_win_kernel<T, D, FUSED, SEG>;
+  else
+    return flash_bwd_kv_kernel<T, D, FUSED, SEG>;
 }
 
 // The fused kernel's bf16 instance on the tensor cores (mma_bwd_tile.cuh).
@@ -261,7 +331,7 @@ flash_bwd_kv_kernel(const T* __restrict__ dO, const T* __restrict__ q,
 // delta in registers until the step's tiles have landed; SEG: the q
 // rows' ids likewise (sm.qid), the lane's two kv columns' ids in
 // registers for the CTA's life (mbwd::kv_tile_ids).
-template <bool SEG>
+template <bool SEG, bool WIN>
 __global__ void __launch_bounds__(mbwd::NT, 1)
 flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                            const __nv_bfloat16* __restrict__ q,
@@ -273,7 +343,7 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                            float* __restrict__ dv, int* __restrict__ counters,
                            const int* __restrict__ q_ids,
                            const int* __restrict__ kv_ids, int N, int Nk,
-                           float scale, Mask mk) {
+                           float scale, Mask mk, int window) {
   constexpr int D = kTileD, MQ = mbwd::BQ, MKV = mbwd::BKV;
   extern __shared__ float4 smem4[];
   const mbwd::Smem sm(reinterpret_cast<char*>(smem4));
@@ -292,9 +362,8 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
   const size_t bhk = (size_t)b * Nk + hk;
 
   // q rows that can see some column of this tile: [i_lo, i_hi)
-  int i_lo = max(mk.q_lo, 0), i_hi = min(mk.q_hi, Sq);
-  if (mk.causal) i_lo = max(i_lo, j0 - mk.offset);
-  if (j0 >= min(mk.kv_hi, Skv)) i_hi = i_lo;
+  int i_lo, i_hi;
+  kv_tile_rows<WIN>(mk, j0, window, i_lo, i_hi);
   const int t_lo = i_lo / MQ;
   const int t_hi = (i_hi > i_lo) ? (i_hi + MQ - 1) / MQ : t_lo;
   const int nt = t_hi - t_lo, n_st = G * nt;
@@ -342,11 +411,13 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
     if (s + 1 < n_st) issue(s + 1, st ^ 1);
     cp_async_commit();
     float part[8][4];
-    mbwd::step<true, SEG>(sm, st, acc, mk, i0, j0, scale_log2, part,
-                          nullptr, kid0, kid1);
+    mbwd::step<true, SEG, WIN>(sm, st, acc, mk, i0, j0, scale_log2, part,
+                               nullptr, kid0, kid1, window);
     int* counter = counters + bh * nqb + qt;
-    mbwd::fold_add(dq + bh * Sq * D, counter, jt, i0, Sq, part, scale, false,
-                   nullptr);
+    // the tile's contributors fold from its first kv tile on
+    mbwd::fold_add(dq + bh * Sq * D, counter,
+                   jt - first_kv_tile<WIN>(mk, i0, window), i0, Sq, part,
+                   scale, false, nullptr);
     mbwd::fold_count(counter);
   }
   cp_async_wait<0>();
@@ -360,8 +431,9 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ dO,
 // 64-row q tile), the longest causal tiles first (as kernel 1); warp w
 // holds q rows 16 w .. (lane (g, c): rows g and g + 8, dQ columns
 // 8n + 2c, 2c + 1), Q and dO resident in shared memory, K and V streamed
-// in 64-token chunks through two cp.async stages (mma_fold's walk, with
-// no window band).  A chunk, per warp:
+// in 64-token chunks through two cp.async stages (mma_fold's walk: WIN
+// starts it at the chunk of the first row's band start and skips a chunk
+// wholly below a warp's band).  A chunk, per warp:
 //   S = Q K^T, dP = dO V^T       (m16n8k16 bf16, fp32 accumulators)
 //   P = exp2(S*scale*log2e - lse2), from the final lse (no running max),
 //   0 outside the mask; dS = P * (dP - delta), in fp32 registers;
@@ -385,7 +457,7 @@ constexpr int kDqNT = 128;
 constexpr size_t kDqSmem = sizeof(__nv_bfloat16) * 6 * 64 * kTileLd;
 constexpr size_t kDqSegSmem = kDqSmem + sizeof(int) * 2 * kTileChunk;
 
-template <bool SEG>
+template <bool SEG, bool WIN>
 __global__ void __launch_bounds__(kDqNT, 2)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                         const __nv_bfloat16* __restrict__ q,
@@ -395,7 +467,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                         const float* __restrict__ lse, float* __restrict__ dq,
                         const int* __restrict__ q_ids,
                         const int* __restrict__ kv_ids, int N, int Nk,
-                        float scale, Mask mk) {
+                        float scale, Mask mk, int window) {
   constexpr int D = kTileD, LD = kTileLd, CH = kTileChunk, MQ = 64;
   constexpr int TILE = 64 * LD;
   extern __shared__ float4 smem4[];
@@ -416,7 +488,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
   cp_tile<MQ, kDqNT>(sdO, dO + (bh * Sq + q0) * D, valid_q);
   // the lane's rows: lse (base 2), delta, last visible column
   float lse2[2], dl[2];
-  int hi[2], qid[2];
+  int hi[2], lo[2], qid[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int qr = q0 + 16 * w + g + 8 * hf;
@@ -426,16 +498,18 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
     int h_ = min(mk.kv_hi, Skv) - 1;
     if (mk.causal) h_ = min(h_, qr + mk.offset);
     hi[hf] = mk.row_ok(qr) ? h_ : -1;
+    lo[hf] = WIN ? (mk.row_ok(qr) ? qr + mk.offset - window + 1 : INT_MAX)
+                 : 0;
     qid[hf] = (SEG && qr < Sq) ? q_ids[(size_t)b * Sq + qr] : -1;
   }
   const int w_hi = __reduce_max_sync(0xffffffffu, max(hi[0], hi[1]));
-  // the chunks: up to the last active row's causal diagonal and kv_hi
-  const int r_lo = max(q0, mk.q_lo), r_hi = min(min(q0 + MQ, mk.q_hi), Sq);
-  int c_end = 0;
-  if (r_lo < r_hi) {
-    c_end = min(mk.kv_hi, Skv);
-    if (mk.causal) c_end = min(c_end, r_hi + mk.offset);
-  }
+  const int w_lo =
+      WIN ? __reduce_min_sync(0xffffffffu, min(lo[0], lo[1])) : 0;
+  // the chunks: up to the last active row's causal diagonal and kv_hi,
+  // WIN from the chunk that holds the first active row's band start
+  int c_lo, c_end;
+  q_tile_cols<WIN>(mk, q0, window, c_lo, c_end);
+  const int i_begin = c_lo / CH;
   const int n = c_end > 0 ? (c_end + CH - 1) / CH : 0;
   auto issue = [&](int i) {
     __nv_bfloat16* st = sKV + (i & 1) * 2 * TILE;
@@ -449,7 +523,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                   kv_ids + (size_t)b * Skv + CH * i + threadIdx.x);
     }
   };
-  if (n > 0) issue(0);
+  if (i_begin < n) issue(i_begin);
   cp_async_commit();
 
   float acc[D / 8][4];
@@ -460,13 +534,14 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
   // the lane's ldmatrix rows of Q and dO (WarpTile::set_q)
   const int arow = (16 * w + r8 + 8 * (mi % 2)) * LD + 8 * (mi / 2);
   const float scale_log2 = scale * kLog2e;
-  for (int i = 0; i < n; ++i) {
+  for (int i = i_begin; i < n; ++i) {
     cp_async_wait<0>();  // chunk i (and Q, dO) has landed
     __syncthreads();     // ... for every thread; chunk i - 1 is done with
     if (i + 1 < n) issue(i + 1);
     cp_async_commit();
     const int j0 = CH * i;
     if (j0 > w_hi) continue;
+    if (WIN && j0 + CH - 1 < w_lo) continue;
     const __nv_bfloat16* sK = sKV + (i & 1) * 2 * TILE;
     const __nv_bfloat16* sV = sK + TILE;
     const int* sid = SEG ? sIds + (i & 1) * CH : nullptr;
@@ -503,7 +578,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
       for (int e = 0; e < 4; ++e) {
         const int hf = e / 2, col = j0 + 8 * j + 2 * c + (e & 1);
         const float p =
-            col <= hi[hf] && (!SEG || sid[col - j0] == qid[hf])
+            col <= hi[hf] && (!WIN || col >= lo[hf]) &&
+                    (!SEG || sid[col - j0] == qid[hf])
                 ? mbwd::ex2_approx(fmaf(s[j][e], scale_log2, -lse2[hf]))
                 : 0.f;
         ds[e] = p * (dp[j][e] - dl[hf]);
@@ -562,7 +638,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ dO,
 // turn, each from its last tile down) and the two Q/dO stages are the
 // fused kernel's, and dk, dv are written once (the GQA sum in the CTA).
 // SEG: the ids as the fused kernel holds them.
-template <bool SEG>
+template <bool SEG, bool WIN>
 __global__ void __launch_bounds__(mbwd::NT, 1)
 flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                           const __nv_bfloat16* __restrict__ q,
@@ -573,7 +649,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
                           float* __restrict__ dk, float* __restrict__ dv,
                           const int* __restrict__ q_ids,
                           const int* __restrict__ kv_ids, int N, int Nk,
-                          float scale, Mask mk) {
+                          float scale, Mask mk, int window) {
   constexpr int D = kTileD, MQ = mbwd::BQ, MKV = mbwd::BKV;
   extern __shared__ float4 smem4[];
   const mbwd::Smem sm(reinterpret_cast<char*>(smem4));
@@ -583,9 +659,8 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
   const size_t bhk = (size_t)b * Nk + hk;
 
   // q rows that can see some column of this tile: [i_lo, i_hi)
-  int i_lo = max(mk.q_lo, 0), i_hi = min(mk.q_hi, Sq);
-  if (mk.causal) i_lo = max(i_lo, j0 - mk.offset);
-  if (j0 >= min(mk.kv_hi, Skv)) i_hi = i_lo;
+  int i_lo, i_hi;
+  kv_tile_rows<WIN>(mk, j0, window, i_lo, i_hi);
   const int t_lo = i_lo / MQ;
   const int t_hi = (i_hi > i_lo) ? (i_hi + MQ - 1) / MQ : t_lo;
   const int nt = t_hi - t_lo, n_st = G * nt;
@@ -633,7 +708,8 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ dO,
     if (s + 1 < n_st) issue(s + 1, st ^ 1);
     cp_async_commit();
     // (part 1's barrier publishes lse2 and delta before they are read)
-    mbwd::step_kv<SEG>(sm, st, acc, mk, i0, j0, scale_log2, kid0, kid1);
+    mbwd::step_kv<SEG, WIN>(sm, st, acc, mk, i0, j0, scale_log2, kid0,
+                            kid1, window);
   }
   cp_async_wait<0>();
   mbwd::store_frag(dk + bhk * Skv * D, j0, Skv, acc.dk, scale);
@@ -646,12 +722,12 @@ enum Route { kFused = 0, kDq = 1, kDkdv = 2 };
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int D, bool SEG>
+template <typename T, int D, bool SEG, bool WIN>
 cudaError_t launch(int route, const void* dO, const void* q, const void* k,
                    const void* v, const void* delta, const void* lse,
                    void* dq, void* dk, void* dv, void* counters,
                    const int* q_ids, const int* kv_ids, int B, int N, int Nk,
-                   int Sq, int Skv, float scale, Mask mk,
+                   int Sq, int Skv, float scale, Mask mk, int window,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   const T* o_ = static_cast<const T*>(dO);
@@ -666,17 +742,17 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
     const dim3 grid((Sq + BQ - 1) / BQ, N, B);
     if constexpr (kMma<T>) {
       const size_t dsmem = SEG ? kDqSegSmem : kDqSmem;
-      e = allow_smem(flash_bwd_dq_mma_kernel<SEG>, dsmem, &set);
+      e = allow_smem(flash_bwd_dq_mma_kernel<SEG, WIN>, dsmem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_dq_mma_kernel<SEG><<<grid, kDqNT, dsmem, stream>>>(
+      flash_bwd_dq_mma_kernel<SEG, WIN><<<grid, kDqNT, dsmem, stream>>>(
           o_, q_, k_, v_, de, ls, static_cast<float*>(dq), q_ids, kv_ids, N,
-          Nk, scale, mk);
+          Nk, scale, mk, window);
     } else {
-      e = allow_smem(flash_bwd_dq_kernel<T, D, SEG>, smem, &set);
+      e = allow_smem(flash_bwd_dq_kernel<T, D, SEG, WIN>, smem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_dq_kernel<T, D, SEG><<<grid, NT, smem, stream>>>(
+      flash_bwd_dq_kernel<T, D, SEG, WIN><<<grid, NT, smem, stream>>>(
           o_, q_, k_, v_, de, ls, static_cast<float*>(dq), q_ids, kv_ids, N,
-          Nk, scale, mk);
+          Nk, scale, mk, window);
     }
     return cudaGetLastError();
   }
@@ -685,19 +761,29 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
     static bool set = false;
     if constexpr (kMma<T>) {
       const size_t msmem = mbwd::Smem::bytes(SEG);
-      e = allow_smem(flash_bwd_fused_mma_kernel<SEG>, msmem, &set);
+      e = allow_smem(flash_bwd_fused_mma_kernel<SEG, WIN>, msmem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_fused_mma_kernel<SEG><<<grid, mbwd::NT, msmem, stream>>>(
-          o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
-          static_cast<float*>(dk), static_cast<float*>(dv),
-          static_cast<int*>(counters), q_ids, kv_ids, N, Nk, scale, mk);
+      flash_bwd_fused_mma_kernel<SEG, WIN>
+          <<<grid, mbwd::NT, msmem, stream>>>(
+              o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
+              static_cast<float*>(dk), static_cast<float*>(dv),
+              static_cast<int*>(counters), q_ids, kv_ids, N, Nk, scale, mk,
+              window);
     } else {
-      e = allow_smem(flash_bwd_kv_kernel<T, D, true, SEG>, smem, &set);
+      const auto kern = kv_kernel<T, D, true, SEG, WIN>();
+      e = allow_smem(kern, smem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_kv_kernel<T, D, true, SEG><<<grid, NT, smem, stream>>>(
-          o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
-          static_cast<float*>(dk), static_cast<float*>(dv),
-          static_cast<int*>(counters), q_ids, kv_ids, N, Nk, scale, mk);
+      if constexpr (WIN)
+        kern<<<grid, NT, smem, stream>>>(
+            o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
+            static_cast<float*>(dk), static_cast<float*>(dv),
+            static_cast<int*>(counters), q_ids, kv_ids, N, Nk, scale, mk,
+            window);
+      else
+        kern<<<grid, NT, smem, stream>>>(
+            o_, q_, k_, v_, de, ls, static_cast<float*>(dq),
+            static_cast<float*>(dk), static_cast<float*>(dv),
+            static_cast<int*>(counters), q_ids, kv_ids, N, Nk, scale, mk);
     }
     return cudaGetLastError();
   }
@@ -705,21 +791,48 @@ cudaError_t launch(int route, const void* dO, const void* q, const void* k,
     static bool set = false;
     if constexpr (kMma<T>) {
       const size_t msmem = mbwd::Smem::bytes(SEG);
-      e = allow_smem(flash_bwd_dkdv_mma_kernel<SEG>, msmem, &set);
+      e = allow_smem(flash_bwd_dkdv_mma_kernel<SEG, WIN>, msmem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_dkdv_mma_kernel<SEG><<<grid, mbwd::NT, msmem, stream>>>(
-          o_, q_, k_, v_, de, ls, static_cast<float*>(dk),
-          static_cast<float*>(dv), q_ids, kv_ids, N, Nk, scale, mk);
+      flash_bwd_dkdv_mma_kernel<SEG, WIN>
+          <<<grid, mbwd::NT, msmem, stream>>>(
+              o_, q_, k_, v_, de, ls, static_cast<float*>(dk),
+              static_cast<float*>(dv), q_ids, kv_ids, N, Nk, scale, mk,
+              window);
     } else {
-      e = allow_smem(flash_bwd_kv_kernel<T, D, false, SEG>, smem, &set);
+      const auto kern = kv_kernel<T, D, false, SEG, WIN>();
+      e = allow_smem(kern, smem, &set);
       if (e != cudaSuccess) return e;
-      flash_bwd_kv_kernel<T, D, false, SEG><<<grid, NT, smem, stream>>>(
-          o_, q_, k_, v_, de, ls, nullptr, static_cast<float*>(dk),
-          static_cast<float*>(dv), nullptr, q_ids, kv_ids, N, Nk, scale, mk);
+      if constexpr (WIN)
+        kern<<<grid, NT, smem, stream>>>(
+            o_, q_, k_, v_, de, ls, nullptr, static_cast<float*>(dk),
+            static_cast<float*>(dv), nullptr, q_ids, kv_ids, N, Nk, scale,
+            mk, window);
+      else
+        kern<<<grid, NT, smem, stream>>>(
+            o_, q_, k_, v_, de, ls, nullptr, static_cast<float*>(dk),
+            static_cast<float*>(dv), nullptr, q_ids, kv_ids, N, Nk, scale,
+            mk);
     }
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
+}
+
+template <typename T, bool SEG>
+cudaError_t launch_win(bool win, int route, const void* dO, const void* q,
+                       const void* k, const void* v, const void* delta,
+                       const void* lse, void* dq, void* dk, void* dv,
+                       void* counters, const int* q_ids, const int* kv_ids,
+                       int B, int N, int Nk, int Sq, int Skv, float scale,
+                       Mask mk, int window, cudaStream_t stream) {
+  return win ? launch<T, 128, SEG, true>(route, dO, q, k, v, delta, lse, dq,
+                                         dk, dv, counters, q_ids, kv_ids, B,
+                                         N, Nk, Sq, Skv, scale, mk, window,
+                                         stream)
+             : launch<T, 128, SEG, false>(route, dO, q, k, v, delta, lse, dq,
+                                          dk, dv, counters, q_ids, kv_ids, B,
+                                          N, Nk, Sq, Skv, scale, mk, 0,
+                                          stream);
 }
 
 int dispatch(int route, const void* dO, const void* q, const void* k,
@@ -727,70 +840,78 @@ int dispatch(int route, const void* dO, const void* q, const void* k,
              void* dk, void* dv, void* counters, const void* q_ids,
              const void* kv_ids, int B, int N, int Nk, int Sq, int Skv,
              int D, int dtype, float scale, int q_lo, int q_hi, int kv_hi,
-             int causal, int offset, void* stream) {
+             int causal, int offset, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Nk <= 0 || N % Nk != 0 || D != 128 ||
+  if (Nk <= 0 || N % Nk != 0 || D != 128 || window < 0 ||
       (q_ids == nullptr) != (kv_ids == nullptr))
     return (int)cudaErrorInvalidValue;
   const Mask mk{q_lo, q_hi, kv_hi, causal, offset, Sq, Skv};
   const int* qi = static_cast<const int*>(q_ids);
   const int* ki = static_cast<const int*>(kv_ids);
+  const bool win = window > 0;
 #define LAUNCH_ARGS                                                         \
-  route, dO, q, k, v, delta, lse, dq, dk, dv, counters, qi, ki, B, N, Nk,  \
-      Sq, Skv, scale, mk, st
+  win, route, dO, q, k, v, delta, lse, dq, dk, dv, counters, qi, ki, B, N, \
+      Nk, Sq, Skv, scale, mk, window, st
   if (dtype == kBFloat16)
-    return (int)(qi ? launch<__nv_bfloat16, 128, true>(LAUNCH_ARGS)
-                    : launch<__nv_bfloat16, 128, false>(LAUNCH_ARGS));
+    return (int)(qi ? launch_win<__nv_bfloat16, true>(LAUNCH_ARGS)
+                    : launch_win<__nv_bfloat16, false>(LAUNCH_ARGS));
   if (dtype == kFloat32)
-    return (int)(qi ? launch<float, 128, true>(LAUNCH_ARGS)
-                    : launch<float, 128, false>(LAUNCH_ARGS));
+    return (int)(qi ? launch_win<float, true>(LAUNCH_ARGS)
+                    : launch_win<float, false>(LAUNCH_ARGS));
 #undef LAUNCH_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // The attributes (common.cuh kernel_attrs) of one route's kernel
-template <typename T, bool SEG>
+template <typename T, bool SEG, bool WIN>
 cudaError_t attrs_of(int route, int* out) {
   const size_t smem = smem_bytes<128>();
   if (route == kFused) {
     if constexpr (kMma<T>)
-      return kernel_attrs(flash_bwd_fused_mma_kernel<SEG>, mbwd::NT,
+      return kernel_attrs(flash_bwd_fused_mma_kernel<SEG, WIN>, mbwd::NT,
                           mbwd::Smem::bytes(SEG), out);
     else
-      return kernel_attrs(flash_bwd_kv_kernel<T, 128, true, SEG>, NT, smem,
+      return kernel_attrs(kv_kernel<T, 128, true, SEG, WIN>(), NT, smem,
                           out);
   }
   if (route == kDq) {
     if constexpr (kMma<T>)
-      return kernel_attrs(flash_bwd_dq_mma_kernel<SEG>, kDqNT,
+      return kernel_attrs(flash_bwd_dq_mma_kernel<SEG, WIN>, kDqNT,
                           SEG ? kDqSegSmem : kDqSmem, out);
     else
-      return kernel_attrs(flash_bwd_dq_kernel<T, 128, SEG>, NT, smem, out);
+      return kernel_attrs(flash_bwd_dq_kernel<T, 128, SEG, WIN>, NT, smem,
+                          out);
   }
   if (route == kDkdv) {
     if constexpr (kMma<T>)
-      return kernel_attrs(flash_bwd_dkdv_mma_kernel<SEG>, mbwd::NT,
+      return kernel_attrs(flash_bwd_dkdv_mma_kernel<SEG, WIN>, mbwd::NT,
                           mbwd::Smem::bytes(SEG), out);
     else
-      return kernel_attrs(flash_bwd_kv_kernel<T, 128, false, SEG>, NT, smem,
+      return kernel_attrs(kv_kernel<T, 128, false, SEG, WIN>(), NT, smem,
                           out);
   }
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+cudaError_t attrs_flag(int route, bool seg, bool win, int* out) {
+  if (seg)
+    return win ? attrs_of<T, true, true>(route, out)
+               : attrs_of<T, true, false>(route, out);
+  return win ? attrs_of<T, false, true>(route, out)
+             : attrs_of<T, false, false>(route, out);
+}
+
 }  // namespace
 
 // The attributes of `flag`'s kernel for `dtype`: flag & 3 the route (0
-// fused, 1 dq, 2 dk/dv), bit 2 its SEG instance.
+// fused, 1 dq, 2 dk/dv), bit 2 its SEG instance, bit 3 its WIN instance.
 extern "C" int flash_bwd_attrs(int dtype, int flag, int* out) {
   const int route = flag & 3;
-  const bool seg = (flag & 4) != 0;
+  const bool seg = (flag & 4) != 0, win = (flag & 8) != 0;
   if (dtype == kBFloat16)
-    return (int)(seg ? attrs_of<__nv_bfloat16, true>(route, out)
-                     : attrs_of<__nv_bfloat16, false>(route, out));
-  if (dtype == kFloat32)
-    return (int)(seg ? attrs_of<float, true>(route, out)
-                     : attrs_of<float, false>(route, out));
+    return (int)attrs_flag<__nv_bfloat16>(route, seg, win, out);
+  if (dtype == kFloat32) return (int)attrs_flag<float>(route, seg, win, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -798,16 +919,17 @@ extern "C" int flash_bwd_attrs(int dtype, int flag, int* out) {
 // the outputs it writes (dq; dk and dv); the fused kernel needs a zeroed
 // dq and zeroed counters [B, N, ceil(Sq / 64)] int32 plus one ticket word
 // after them.  q_ids, kv_ids: both null (no segments) or both [B,Sq],
-// [B,Skv] int32.
+// [B,Skv] int32.  window: 0 (none; the instances without WIN) or >= 1.
 #define BWD_ARGS                                                            \
   const void *dO, const void *q, const void *k, const void *v,              \
       const void *delta, const void *lse, void *dq, void *dk, void *dv,     \
       void *counters, const void *q_ids, const void *kv_ids, int B, int N,  \
       int Nk, int Sq, int Skv, int D, int dtype, float scale, int q_lo,     \
-      int q_hi, int kv_hi, int causal, int offset, void *stream
+      int q_hi, int kv_hi, int causal, int offset, int window, void *stream
 #define BWD_PASS                                                            \
   dO, q, k, v, delta, lse, dq, dk, dv, counters, q_ids, kv_ids, B, N, Nk,  \
-      Sq, Skv, D, dtype, scale, q_lo, q_hi, kv_hi, causal, offset, stream
+      Sq, Skv, D, dtype, scale, q_lo, q_hi, kv_hi, causal, offset, window, \
+      stream
 
 extern "C" int flash_bwd_fused_launch(BWD_ARGS) {
   return dispatch(kFused, BWD_PASS);

@@ -29,16 +29,72 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (4 * 64 * (D + 4) + 2 * 64 * LDP + 2 * BQ);
 }
 
+// The five mask scalars and the lengths.  The sliding-window band
+// `window` of the WIN instances travels beside it (a kernel parameter of
+// its own: a wider Mask parameter changed the instances without WIN):
+// row r sees column c only where c > r + offset - window
+// (masks.dense_mask).
 struct Mask {
   int q_lo, q_hi, kv_hi, causal, offset, Sq, Skv;
 
   __device__ __forceinline__ bool row_ok(int row) const {
     return row >= q_lo && row < q_hi && row < Sq;
   }
-  __device__ __forceinline__ bool col_ok(int row, int col) const {
-    return col < kv_hi && col < Skv && (!causal || col <= row + offset);
+  template <bool WIN = false>
+  __device__ __forceinline__ bool col_ok(int row, int col,
+                                         int window = 0) const {
+    return col < kv_hi && col < Skv && (!causal || col <= row + offset) &&
+           (!WIN || col > row + offset - window);
   }
 };
+
+// The q rows [i_lo, i_hi) that see some column of the kv tile [j0, j0 +
+// BKV) (i_hi <= i_lo: none): causal rows from j0 - offset on (the
+// diagonal) and, WIN, rows up to the last whose band still reaches the
+// tile's last visible column (row + offset - window < that column).
+template <bool WIN>
+__device__ __forceinline__ void kv_tile_rows(const Mask& mk, int j0,
+                                             int window, int& i_lo,
+                                             int& i_hi) {
+  i_lo = max(mk.q_lo, 0);
+  i_hi = min(mk.q_hi, mk.Sq);
+  if (mk.causal) i_lo = max(i_lo, j0 - mk.offset);
+  if (j0 >= min(mk.kv_hi, mk.Skv)) i_hi = i_lo;
+  if (WIN)
+    i_hi = min(i_hi, min(j0 + BKV, min(mk.kv_hi, mk.Skv)) + window - 1 -
+                         mk.offset);
+}
+
+// The kv columns [c_lo, c_end) that the rows of q tile [i0, i0 + BQ) can
+// see (c_end <= c_lo: none): up to the last active row's diagonal and
+// kv_hi and, WIN, from the first active row's band start.  The kv tiles
+// that see the q tile are exactly c_lo / BKV .. (c_end - 1) / BKV, the
+// tiles whose kv_tile_rows range meets it: a contiguous range, so the
+// fused kernels' dq folds count a tile's contributors from c_lo / BKV.
+template <bool WIN>
+__device__ __forceinline__ void q_tile_cols(const Mask& mk, int i0,
+                                            int window, int& c_lo,
+                                            int& c_end) {
+  const int r_lo = max(i0, mk.q_lo);
+  const int r_hi = min(min(i0 + BQ, mk.q_hi), mk.Sq);
+  c_end = 0;
+  if (r_lo < r_hi) {
+    c_end = min(mk.kv_hi, mk.Skv);
+    if (mk.causal) c_end = min(c_end, r_hi + mk.offset);
+  }
+  c_lo = WIN ? max(0, r_lo + mk.offset - window + 1) : 0;
+}
+
+// The first kv tile that sees q tile [i0, i0 + BQ): its contributors to
+// a dq fold are counted from it (0 without a band)
+template <bool WIN>
+__device__ __forceinline__ int first_kv_tile(const Mask& mk, int i0,
+                                             int window) {
+  if (!WIN) return 0;
+  int c_lo, c_end;
+  q_tile_cols<true>(mk, i0, window, c_lo, c_end);
+  return c_lo / BKV;
+}
 
 // The shared-memory tiles of one CTA.
 template <int D>
@@ -78,12 +134,15 @@ __device__ __forceinline__ void load_row_stats(const float* __restrict__ lse,
 // tx = tid % 16) owns rows ty + 16 r and columns tx + 16 c.  SEG adds the
 // packed-sequence test qs[row] == ks[col] (one batch row's int32 ids):
 // P and dS are zeroed by the test itself, since a row's final lse is
-// finite while it may see nothing of this tile.
-template <int D, bool WRITE_P, bool SEG = false>
+// finite while it may see nothing of this tile.  WIN adds the band
+// `window` (Mask::col_ok<true>); a row whose band ends before the tile
+// gets P = 0 the same way.
+template <int D, bool WRITE_P, bool SEG = false, bool WIN = false>
 __device__ __forceinline__ void scores(const Tiles<D>& t, float scale_log2,
                                        int i0, int j0, const Mask& mk,
                                        const int* qs = nullptr,
-                                       const int* ks = nullptr) {
+                                       const int* ks = nullptr,
+                                       int window = 0) {
   constexpr int LD = Tiles<D>::LD;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float s[4][4], dp[4][4];
@@ -120,7 +179,7 @@ __device__ __forceinline__ void scores(const Tiles<D>& t, float scale_log2,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int cl = tx + 16 * c;
-      const float p = (row_ok && mk.col_ok(row, j0 + cl) &&
+      const float p = (row_ok && mk.col_ok<WIN>(row, j0 + cl, window) &&
                        (!SEG || __ldg(qs + row) == __ldg(ks + j0 + cl)))
                           ? exp2f(s[r][c] * scale_log2 - l2)
                           : 0.f;

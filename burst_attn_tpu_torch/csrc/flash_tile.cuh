@@ -92,7 +92,8 @@ struct Rows {
 // are in sQ.  Tiles past the last visible column (no active row, kv_hi,
 // the causal diagonal of the tile's last row) are skipped; every element
 // is masked by (q_lo, q_hi, kv_hi, causal, offset).  WIN adds the
-// sliding-window band `window` (the fused ring passes none yet): row r
+// sliding-window band `window` (kernel 1 and the fused ring's WIN
+// instances): row r
 // sees only columns above r + offset - window, and the loop starts at the
 // tile holding the first active row's lowest column, so tiles below the
 // band are never loaded and a CTA's cost follows the window, not the

@@ -107,6 +107,18 @@
 // shared memory beside lse2 (mma_bwd_tile.cuh step<., true>); the fp32
 // tile reads them through the read-only cache.  No STATS instance with
 // SEG (the autograd path never counts the backward's slots).
+//
+// Sliding window (WIN, a compile-time flag: the JAX kernel's static `wnd`
+// band, burst_attn_tpu/ops/fused_ring_bwd.py l.556-573): the table's
+// round r holds the bundle of the partition r positions on, with the
+// offset of masks.round_spec(..., window); an item's q-tile loop runs
+// from the diagonal up to the last q tile whose band reaches the kv tile
+// (flash_bwd_tile.cuh kv_tile_rows<true>) and step<., ., true> tests the
+// band per element.  The kv tiles that see a q tile are then a range
+// J0 .. J-1 that need not start at 0: tile j folds as contributor j - J0,
+// and J0 seeds the slot on a round with no arrival.  The program is the
+// compiler's truncated one (r_live live rounds; ops/fused_ring.py
+// occupancy_r_live).  WIN combines with SEG; not with TRACE or STATS.
 
 #include <type_traits>
 
@@ -168,6 +180,7 @@ struct Params {
   long long* trace;       // [W*G][kTraceCols] (TRACE instances)
   int* slot_use;          // [W][2][kMaxSlots] consumes (STATS instances)
   const int* seg;         // [W,B,S] packed-sequence ids (SEG instances)
+  int window;             // the band (WIN instances; 0 for the others)
 };
 
 constexpr int kTraceCols = 16;
@@ -319,18 +332,19 @@ __device__ __forceinline__ void mma_delta(const mbwd::Smem& sm, int st,
 }
 
 // How many kv tiles attend q tile [i0, i0 + BQ) under the mask: they are
-// the prefix 0 .. count-1 (the kv-tile loop's q range below is exactly
-// the tiles each kv tile sees).
-__device__ __forceinline__ int kv_tiles_seen(const Mask& mk, int i0) {
-  const int r_lo = max(i0, mk.q_lo);
-  const int r_hi = min(min(i0 + BQ, mk.q_hi), mk.Sq);
-  if (r_lo >= r_hi) return 0;
-  int c_end = min(mk.kv_hi, mk.Skv);
-  if (mk.causal) c_end = min(c_end, r_hi + mk.offset);
-  return c_end > 0 ? (c_end + BKV - 1) / BKV : 0;
+// the range first_kv_tile .. first + count - 1 (the kv-tile loop's q
+// range below is exactly the tiles each kv tile sees; flash_bwd_tile.cuh
+// q_tile_cols).
+template <bool WIN>
+__device__ __forceinline__ int kv_tiles_seen(const Mask& mk, int i0,
+                                             int window) {
+  int c_lo, c_end;
+  q_tile_cols<WIN>(mk, i0, window, c_lo, c_end);
+  if (c_end <= c_lo) return 0;
+  return (c_end + BKV - 1) / BKV - c_lo / BKV;
 }
 
-template <typename T, int D, bool TRACE, bool STATS, bool SEG>
+template <typename T, int D, bool TRACE, bool STATS, bool SEG, bool WIN>
 __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   static_assert(mbwd::NT == NT && mbwd::BQ == BQ && mbwd::BKV == BKV,
@@ -458,6 +472,7 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
     float* dq_c = dq_slot(pos, dqb, dqs);
     int* folds = p.folds + ((size_t)pos * p.R + r) * n_units;
     const Mask mk{row[0], row[1], row[2], row[3], row[4], S, S};
+    const int wnd = WIN ? p.window : 0;  // the band (WIN)
     const bool last = r == p.R - 1;
     const int part = SEG ? row[kPart] : 0;  // the bundle's partition
 
@@ -474,9 +489,8 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
       if (TRACE && threadIdx.x == 0) ++n_it;
 
       // q rows that can see some column of this tile: [i_lo, i_hi)
-      int i_lo = max(mk.q_lo, 0), i_hi = min(mk.q_hi, S);
-      if (mk.causal) i_lo = max(i_lo, j0 - mk.offset);
-      if (j0 >= min(mk.kv_hi, S)) i_hi = i_lo;
+      int i_lo, i_hi;
+      kv_tile_rows<WIN>(mk, j0, wnd, i_lo, i_hi);
       const int t_lo = i_lo / BQ;
       const int t_hi = (i_hi > i_lo) ? (i_hi + BQ - 1) / BQ : t_lo;
       // SEG: the bundle partition's q ids and the position's kv ids
@@ -546,11 +560,15 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
           cp_async_commit();
           float part[8][4];
           if (tr) cyc[0] += clock64() - c0;
-          mbwd::step<true, SEG>(sm, st, acc, mk, i0, j0, scale_log2, part,
-                                tr ? cyc + 1 : nullptr, kid0, kid1);
+          mbwd::step<true, SEG, WIN>(sm, st, acc, mk, i0, j0, scale_log2,
+                                     part, tr ? cyc + 1 : nullptr, kid0,
+                                     kid1, wnd);
           const long long c1 = tr ? clock64() : 0;
-          mbwd::fold_add(dq_c + bh * S * D, folds + bh * nqt + qt, jt, i0, S,
-                         part, p.scale, !recv && jt == 0,
+          // the tile's contributors fold from its first kv tile on, which
+          // seeds the slot on a round with no arrival
+          const int jf = jt - first_kv_tile<WIN>(mk, i0, wnd);
+          mbwd::fold_add(dq_c + bh * S * D, folds + bh * nqt + qt, jf, i0, S,
+                         part, p.scale, !recv && jf == 0,
                          tr ? &fold_ns : nullptr);
           const long long c2 = tr ? clock64() : 0;
           mbwd::fold_count(folds + bh * nqt + qt);
@@ -589,7 +607,8 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
             const char* f = first_c + (p.opt ? bh * S * 4
                                              : bh * S * D * sizeof(T));
             load_stats<T, D>(t, lse_c + bh * S, f, i0, S, p.opt != 0);
-            scores<D, true, SEG>(t, scale_log2, i0, j0, mk, qids, kvids);
+            scores<D, true, SEG, WIN>(t, scale_log2, i0, j0, mk, qids,
+                                      kvids, wnd);
             __syncthreads();
             accum_kv<D>(t, dka, dva);
             float part[8][4];
@@ -598,8 +617,9 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
             accum_q<D>(t, part);
-            fold_dq<D>(dq_c + bh * S * D, folds + bh * nqt + qt, jt, i0, S,
-                       part, p.scale, !recv && jt == 0);
+            const int jf = jt - first_kv_tile<WIN>(mk, i0, wnd);
+            fold_dq<D>(dq_c + bh * S * D, folds + bh * nqt + qt, jf, i0, S,
+                       part, p.scale, !recv && jf == 0);
           }
         }
         if (!resident || last) {
@@ -657,7 +677,7 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
         const size_t base = ((size_t)(u / nqt) * S + i0) * D;
         // a q tile no kv tile saw this round holds only its arrival, or
         // nothing on a seeding round
-        const bool zero = !recv && kv_tiles_seen(mk, i0) == 0;
+        const bool zero = !recv && kv_tiles_seen<WIN>(mk, i0, wnd) == 0;
         const int n_rows = min(BQ, S - i0);
         for (int e = threadIdx.x; e < n_rows * kVec; e += NT) {
           const size_t at = base / 4 + e;
@@ -707,10 +727,10 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
 }
 
 template <typename T, int D, bool TRACE, bool STATS = false,
-          bool SEG = false>
+          bool SEG = false, bool WIN = false>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG>;
+  auto kernel = fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN>;
   const size_t smem = smem_size<T, D, SEG>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
@@ -725,29 +745,32 @@ cudaError_t setup(int* max_blocks) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool TRACE, bool STATS, bool SEG = false>
+template <typename T, int D, bool TRACE, bool STATS, bool SEG = false,
+          bool WIN = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, TRACE, STATS, SEG>(&max_blocks);
+  cudaError_t e = setup<T, D, TRACE, STATS, SEG, WIN>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG>),
+      reinterpret_cast<void*>(
+          fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN>),
       dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D, SEG>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool TRACE, bool STATS, bool SEG = false>
+template <typename T, int D, bool TRACE, bool STATS, bool SEG = false,
+          bool WIN = false>
 cudaError_t attrs(int* out) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, TRACE, STATS, SEG>(&max_blocks);  // smem
+  cudaError_t e = setup<T, D, TRACE, STATS, SEG, WIN>(&max_blocks);  // smem
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a,
-                            fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG>);
+  e = cudaFuncGetAttributes(
+      &a, fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -756,55 +779,81 @@ cudaError_t attrs(int* out) {
   return cudaSuccess;
 }
 
+// the instances without TRACE and STATS, by (SEG, WIN)
+template <typename T>
+cudaError_t setup_plain(bool seg, bool win, int* max_blocks) {
+  if (seg)
+    return win ? setup<T, 128, false, false, true, true>(max_blocks)
+               : setup<T, 128, false, false, true, false>(max_blocks);
+  return win ? setup<T, 128, false, false, false, true>(max_blocks)
+             : setup<T, 128, false, false, false, false>(max_blocks);
+}
+template <typename T>
+cudaError_t attrs_plain(bool seg, bool win, int* out) {
+  if (seg)
+    return win ? attrs<T, 128, false, false, true, true>(out)
+               : attrs<T, 128, false, false, true, false>(out);
+  return win ? attrs<T, 128, false, false, false, true>(out)
+             : attrs<T, 128, false, false, false, false>(out);
+}
+template <typename T>
+cudaError_t launch_plain(bool seg, bool win, const Params& p,
+                         cudaStream_t st) {
+  if (seg)
+    return win ? launch<T, 128, false, false, true, true>(p, st)
+               : launch<T, 128, false, false, true, false>(p, st);
+  return win ? launch<T, 128, false, false, false, true>(p, st)
+             : launch<T, 128, false, false, false, false>(p, st);
+}
+
 }  // namespace
 
 // How many CTAs the card keeps resident at once for this kernel (its SEG
-// instance when `seg`).
-extern "C" int fused_ring_bwd_capacity(int D, int dtype, int seg,
+// instance when `seg`, its WIN instance when `win`).
+extern "C" int fused_ring_bwd_capacity(int D, int dtype, int seg, int win,
                                        int* max_blocks) {
   if (D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
-    return (int)(seg ? setup<__nv_bfloat16, 128, false, false, true>(
-                           max_blocks)
-                     : setup<__nv_bfloat16, 128, false>(max_blocks));
-  if (dtype == kFloat32)
-    return (int)(seg ? setup<float, 128, false, false, true>(max_blocks)
-                     : setup<float, 128, false>(max_blocks));
+    return (int)setup_plain<__nv_bfloat16>(seg, win, max_blocks);
+  if (dtype == kFloat32) return (int)setup_plain<float>(seg, win, max_blocks);
   return (int)cudaErrorInvalidValue;
 }
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
 // shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
-// TRACE (bf16 only), bit 1 STATS (not with TRACE), bit 2 SEG (alone).
+// TRACE (bf16 only), bit 1 STATS (not with TRACE), bit 2 SEG, bit 3 WIN
+// (SEG and WIN alone or together, with neither TRACE nor STATS).
 extern "C" int fused_ring_bwd_attrs(int dtype, int flags, int* out) {
   const int trace = flags & 1, stats = (flags >> 1) & 1,
-            seg = (flags >> 2) & 1;
-  if ((trace && stats) || (seg && (trace || stats)))
+            seg = (flags >> 2) & 1, win = (flags >> 3) & 1;
+  if ((trace && stats) || ((seg || win) && (trace || stats)))
     return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
     return (int)(trace   ? attrs<__nv_bfloat16, 128, true, false>(out)
                  : stats ? attrs<__nv_bfloat16, 128, false, true>(out)
-                 : seg   ? attrs<__nv_bfloat16, 128, false, false, true>(out)
-                         : attrs<__nv_bfloat16, 128, false, false>(out));
+                         : attrs_plain<__nv_bfloat16>(seg, win, out));
   if (dtype == kFloat32 && !trace)
     return (int)(stats ? attrs<float, 128, false, true>(out)
-                 : seg ? attrs<float, 128, false, false, true>(out)
-                       : attrs<float, 128, false, false>(out));
+                       : attrs_plain<float>(seg, win, out));
   return (int)cudaErrorInvalidValue;
 }
 
-// seg: null, or every position's ids [W,B,S] int32 (the SEG instances:
-// not with trace or slot_use)
+// seg: null, or every position's ids [W,B,S] int32 (the SEG instances);
+// window: 0, or the band of the WIN instances (>= 1); neither with trace
+// or slot_use
 extern "C" int fused_ring_bwd_launch(
     const void* first, const void* dO, const void* q, const void* lse,
     const void* k, const void* v, const void* ptrs, const void* sched,
     void* folds, void* dk, void* dv, void* trace, int W, int B, int N,
     int Nk, int S, int D, int R, int NB, int MS, int MDQ, int G, int ncol,
     int copy_in0, int copy_in1, int dtype, int resident, int opt,
-    void* slot_use, const void* seg, float scale, void* stream) {
+    void* slot_use, const void* seg, int window, float scale,
+    void* stream) {
+  const bool banded = seg != nullptr || window > 0;
   if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || MDQ < 1 ||
+      window < 0 ||
       (trace != nullptr && (dtype != kBFloat16 || slot_use != nullptr)) ||
-      (seg != nullptr && (trace != nullptr || slot_use != nullptr)))
+      (banded && (trace != nullptr || slot_use != nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p{first,
            dO,
@@ -823,18 +872,17 @@ extern "C" int fused_ring_bwd_launch(
            scale,
            static_cast<long long*>(trace),
            static_cast<int*>(slot_use),
-           static_cast<const int*>(seg)};
+           static_cast<const int*>(seg),
+           window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool stats = slot_use != nullptr;
+  const bool sg = seg != nullptr, win = window > 0;
   if (dtype == kBFloat16)
-    return (int)(trace ? launch<__nv_bfloat16, 128, true, false>(p, st)
-                 : stats
-                     ? launch<__nv_bfloat16, 128, false, true>(p, st)
-                 : seg ? launch<__nv_bfloat16, 128, false, false, true>(p, st)
-                       : launch<__nv_bfloat16, 128, false, false>(p, st));
+    return (int)(trace   ? launch<__nv_bfloat16, 128, true, false>(p, st)
+                 : stats ? launch<__nv_bfloat16, 128, false, true>(p, st)
+                         : launch_plain<__nv_bfloat16>(sg, win, p, st));
   if (dtype == kFloat32)
     return (int)(stats ? launch<float, 128, false, true>(p, st)
-                 : seg ? launch<float, 128, false, false, true>(p, st)
-                       : launch<float, 128, false, false>(p, st));
+                       : launch_plain<float>(sg, win, p, st));
   return (int)cudaErrorInvalidValue;
 }

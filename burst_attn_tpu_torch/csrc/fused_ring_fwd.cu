@@ -67,9 +67,9 @@
 //    tile in shared memory as bf16, 64-token K/V chunks of the consume
 //    slot double-buffered by cp.async.cg (L2 only), a chunk's copy landing
 //    while the previous chunk's products run (mma_tile.cuh's mma_fold,
-//    the chunk loop kernel 1's bf16 instance runs too, here without the
-//    window band); (o fragments, m, l) stay in registers across the
-//    rounds when RESIDENT.  Dead chunks are skipped by the loop bounds of
+//    the chunk loop kernel 1's bf16 instance runs too, with the window
+//    band on the WIN instances); (o fragments, m, l) stay in registers
+//    across the rounds when RESIDENT.  Dead chunks are skipped by the loop bounds of
 //    flash::fold, masked columns by the table's five scalars.  The fp32 instance runs kernel 1's SIMT tile (flash_tile.cuh:
 //    fp32 in shared memory), so a ring round of it does kernel 1's
 //    arithmetic.  FUSED_FWD_TILE_SIMT=1 at build time puts the bf16
@@ -100,6 +100,19 @@
 // reads them through the read-only cache (flash::fold's SEG).  Every
 // chunk the mask scalars leave is computed; a row that sees nothing of a
 // whole round keeps its state.
+//
+// Sliding window (WIN, a compile-time flag: the JAX kernel's static `wnd`
+// band of `_block_has_work` / `_block_full` / `_block_mask`,
+// burst_attn_tpu/ops/fused_ring.py l.714-732): a windowed contig ring's
+// round r holds the chunk r positions back, its table row the offset
+// r * S (masks.round_spec with the window), and the band keeps row i to
+// columns above i + offset - window.  Both tiles start their chunk loop
+// at the chunk of the first row's band start and skip a chunk the band
+// leaves wholly (mma_fold<true>, flash::fold's WIN).  The program itself
+// is truncated to the live rounds {0 .. r_live - 1} by the schedule
+// compiler (ops/fused_ring.py occupancy_r_live): the dead rounds have no
+// send, no consume and no slot traffic at all.  A row whose band ends
+// before a live round's chunk keeps its carried state (or lse -inf).
 
 #include <type_traits>
 
@@ -150,6 +163,7 @@ struct Params {
   float scale_log2;
   int* slot_use;          // [W][2][kMaxSlots] consumes (STATS instances)
   const int* seg;         // [W,B,S] packed-sequence ids (SEG instances)
+  int window;             // the band (WIN instances; 0 for the others)
 };
 
 // one position's counters: arrive, free [NB][MS]; done [R], items taken
@@ -236,7 +250,7 @@ __device__ __forceinline__ void mma_store(const WarpTile& wt, float* st_m,
   }
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS, bool SEG>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN>
 __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   constexpr bool MMA = kMma<T>;
   constexpr int DC = flash::Rows<D>::DC;
@@ -355,14 +369,15 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
         if (r > 0 && !RESIDENT)
           mma_load(wt, p.st_m, p.st_l, p.st_acc, at0, q0, S);
         if constexpr (SEG)
-          mma_fold<false, true>(
+          mma_fold<WIN, true>(
               wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S, S, q0,
-              p.scale_log2, row[0], row[1], row[2], row[3], row[4], 0, qids,
-              kvids, reinterpret_cast<int*>(mKV + 4 * 64 * kTileLd));
+              p.scale_log2, row[0], row[1], row[2], row[3], row[4],
+              WIN ? p.window : 0, qids, kvids,
+              reinterpret_cast<int*>(mKV + 4 * 64 * kTileLd));
         else
-          mma_fold<false>(wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D,
-                          S, S, q0, p.scale_log2, row[0], row[1], row[2],
-                          row[3], row[4], 0);
+          mma_fold<WIN>(wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S,
+                        S, q0, p.scale_log2, row[0], row[1], row[2], row[3],
+                        row[4], WIN ? p.window : 0);
         if (!last && RESIDENT) continue;
         wt.finish();
         if (!last) {
@@ -412,13 +427,15 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
         }
 
         if constexpr (SEG)
-          flash::fold<T, D, true, false, true>(
+          flash::fold<T, D, true, WIN, true>(
               st, sQ, sK, sV, kc + bhk * S * D, vc + bhk * S * D, S, q0, S,
-              row[0], row[1], row[2], row[3], row[4], 0, qids, kvids);
+              row[0], row[1], row[2], row[3], row[4], WIN ? p.window : 0,
+              qids, kvids);
         else
-          flash::fold<T, D, true>(st, sQ, sK, sV, kc + bhk * S * D,
-                                  vc + bhk * S * D, S, q0, S, row[0], row[1],
-                                  row[2], row[3], row[4]);
+          flash::fold<T, D, true, WIN>(st, sQ, sK, sV, kc + bhk * S * D,
+                                       vc + bhk * S * D, S, q0, S, row[0],
+                                       row[1], row[2], row[3], row[4],
+                                       WIN ? p.window : 0);
 
         if (!last && RESIDENT) continue;
 #pragma unroll
@@ -470,10 +487,10 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
 }
 
 template <typename T, int D, bool RESIDENT, bool STATS = false,
-          bool SEG = false>
+          bool SEG = false, bool WIN = false>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG>;
+  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN>;
   const size_t smem = smem_size<T, D, SEG>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
@@ -488,31 +505,31 @@ cudaError_t setup(int* max_blocks) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS, bool SEG>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, RESIDENT, STATS, SEG>(&max_blocks);
+  cudaError_t e = setup<T, D, RESIDENT, STATS, SEG, WIN>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(
-          fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG>),
+          fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN>),
       dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D, SEG>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS, bool SEG>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN>
 cudaError_t attrs(int* out) {
   int max_blocks = 0;
   cudaError_t e =
-      setup<T, D, RESIDENT, STATS, SEG>(&max_blocks);  // smem limit
+      setup<T, D, RESIDENT, STATS, SEG, WIN>(&max_blocks);  // smem limit
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(
-      &a, fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG>);
+      &a, fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -521,95 +538,115 @@ cudaError_t attrs(int* out) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool STATS, bool SEG>
+template <typename T, int D, bool STATS, bool SEG, bool WIN>
 cudaError_t dispatch_state(int resident, const Params& p, cudaStream_t st) {
-  return resident ? launch<T, D, true, STATS, SEG>(p, st)
-                  : launch<T, D, false, STATS, SEG>(p, st);
+  return resident ? launch<T, D, true, STATS, SEG, WIN>(p, st)
+                  : launch<T, D, false, STATS, SEG, WIN>(p, st);
 }
 
-template <typename T, int D, bool SEG>
+template <typename T, int D, bool SEG, bool WIN>
 cudaError_t dispatch_stats(int resident, const Params& p, cudaStream_t st) {
   return p.slot_use != nullptr
-             ? dispatch_state<T, D, true, SEG>(resident, p, st)
-             : dispatch_state<T, D, false, SEG>(resident, p, st);
+             ? dispatch_state<T, D, true, SEG, WIN>(resident, p, st)
+             : dispatch_state<T, D, false, SEG, WIN>(resident, p, st);
+}
+
+template <typename T, int D>
+cudaError_t dispatch_flags(int resident, const Params& p, cudaStream_t st) {
+  const bool seg = p.seg != nullptr, win = p.window > 0;
+  if (seg)
+    return win ? dispatch_stats<T, D, true, true>(resident, p, st)
+               : dispatch_stats<T, D, true, false>(resident, p, st);
+  return win ? dispatch_stats<T, D, false, true>(resident, p, st)
+             : dispatch_stats<T, D, false, false>(resident, p, st);
 }
 
 template <int D>
 cudaError_t dispatch(int dtype, int resident, const Params& p,
                      cudaStream_t st) {
-  const bool seg = p.seg != nullptr;
   if (dtype == kBFloat16)
-    return seg ? dispatch_stats<__nv_bfloat16, D, true>(resident, p, st)
-               : dispatch_stats<__nv_bfloat16, D, false>(resident, p, st);
-  if (dtype == kFloat32)
-    return seg ? dispatch_stats<float, D, true>(resident, p, st)
-               : dispatch_stats<float, D, false>(resident, p, st);
+    return dispatch_flags<__nv_bfloat16, D>(resident, p, st);
+  if (dtype == kFloat32) return dispatch_flags<float, D>(resident, p, st);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, bool RESIDENT, bool SEG>
+template <typename T, bool RESIDENT, bool SEG, bool WIN>
 cudaError_t attrs_stats(int stats, int* out) {
-  return stats ? attrs<T, 128, RESIDENT, true, SEG>(out)
-               : attrs<T, 128, RESIDENT, false, SEG>(out);
+  return stats ? attrs<T, 128, RESIDENT, true, SEG, WIN>(out)
+               : attrs<T, 128, RESIDENT, false, SEG, WIN>(out);
 }
 
 template <typename T, bool RESIDENT>
-cudaError_t attrs_of(int stats, int seg, int* out) {
-  return seg ? attrs_stats<T, RESIDENT, true>(stats, out)
-             : attrs_stats<T, RESIDENT, false>(stats, out);
+cudaError_t attrs_of(int stats, int seg, int win, int* out) {
+  if (seg)
+    return win ? attrs_stats<T, RESIDENT, true, true>(stats, out)
+               : attrs_stats<T, RESIDENT, true, false>(stats, out);
+  return win ? attrs_stats<T, RESIDENT, false, true>(stats, out)
+             : attrs_stats<T, RESIDENT, false, false>(stats, out);
 }
 
-template <typename T, bool SEG>
+template <typename T, bool SEG, bool WIN>
 cudaError_t capacity_of(int* max_blocks) {
   int a = 0, b = 0;
   cudaError_t e;
-  if ((e = setup<T, 128, true, false, SEG>(&a)) != cudaSuccess) return e;
-  if ((e = setup<T, 128, false, false, SEG>(&b)) != cudaSuccess) return e;
+  if ((e = setup<T, 128, true, false, SEG, WIN>(&a)) != cudaSuccess)
+    return e;
+  if ((e = setup<T, 128, false, false, SEG, WIN>(&b)) != cudaSuccess)
+    return e;
   *max_blocks = a < b ? a : b;
   return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t capacity_flags(int seg, int win, int* max_blocks) {
+  if (seg)
+    return win ? capacity_of<T, true, true>(max_blocks)
+               : capacity_of<T, true, false>(max_blocks);
+  return win ? capacity_of<T, false, true>(max_blocks)
+             : capacity_of<T, false, false>(max_blocks);
 }
 
 }  // namespace
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
 // shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
-// RESIDENT, bit 1 STATS, bit 2 SEG.
+// RESIDENT, bit 1 STATS, bit 2 SEG, bit 3 WIN.
 extern "C" int fused_ring_fwd_attrs(int dtype, int flags, int* out) {
   const int resident = flags & 1, stats = (flags >> 1) & 1,
-            seg = (flags >> 2) & 1;
+            seg = (flags >> 2) & 1, win = (flags >> 3) & 1;
   if (dtype == kBFloat16)
-    return (int)(resident ? attrs_of<__nv_bfloat16, true>(stats, seg, out)
-                          : attrs_of<__nv_bfloat16, false>(stats, seg, out));
+    return (int)(resident
+                     ? attrs_of<__nv_bfloat16, true>(stats, seg, win, out)
+                     : attrs_of<__nv_bfloat16, false>(stats, seg, win, out));
   if (dtype == kFloat32)
-    return (int)(resident ? attrs_of<float, true>(stats, seg, out)
-                          : attrs_of<float, false>(stats, seg, out));
+    return (int)(resident ? attrs_of<float, true>(stats, seg, win, out)
+                          : attrs_of<float, false>(stats, seg, win, out));
   return (int)cudaErrorInvalidValue;
 }
 
 // How many CTAs the card keeps resident at once for this kernel (both
 // state modes have the same footprint up to registers; the smaller wins),
-// of the SEG instances when `seg`.
-extern "C" int fused_ring_fwd_capacity(int D, int dtype, int seg,
+// of the SEG instances when `seg`, of the WIN instances when `win`.
+extern "C" int fused_ring_fwd_capacity(int D, int dtype, int seg, int win,
                                        int* max_blocks) {
   if (D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
-    return (int)(seg ? capacity_of<__nv_bfloat16, true>(max_blocks)
-                     : capacity_of<__nv_bfloat16, false>(max_blocks));
+    return (int)capacity_flags<__nv_bfloat16>(seg, win, max_blocks);
   if (dtype == kFloat32)
-    return (int)(seg ? capacity_of<float, true>(max_blocks)
-                     : capacity_of<float, false>(max_blocks));
+    return (int)capacity_flags<float>(seg, win, max_blocks);
   return (int)cudaErrorInvalidValue;
 }
 
-// seg: null, or every position's ids [W,B,S] int32 (the SEG instances)
+// seg: null, or every position's ids [W,B,S] int32 (the SEG instances);
+// window: 0, or the band of the WIN instances (>= 1)
 extern "C" int fused_ring_fwd_launch(
     const void* q, const void* k_in, const void* v_in, const void* ptrs,
     const void* sched, void* st_m, void* st_l, void* st_acc, void* o,
     void* lse, int W, int B, int N, int Nk, int S, int D, int R, int NB,
     int MS, int G, int ncol, int copy_in0, int copy_in1, int dtype,
-    int resident, void* slot_use, const void* seg, float scale,
+    int resident, void* slot_use, const void* seg, int window, float scale,
     void* stream) {
-  if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1)
+  if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   Params p{q,
            k_in,
@@ -625,7 +662,8 @@ extern "C" int fused_ring_fwd_launch(
            {copy_in0, copy_in1},
            scale * kLog2e,
            static_cast<int*>(slot_use),
-           static_cast<const int*>(seg)};
+           static_cast<const int*>(seg),
+           window};
   return (int)dispatch<128>(dtype, resident, p,
                             static_cast<cudaStream_t>(stream));
 }

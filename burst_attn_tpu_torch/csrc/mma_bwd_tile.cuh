@@ -166,12 +166,15 @@ __device__ __forceinline__ void store_frag(float* dst, int r0, int S,
 // columns' ids kid0 (column col0) and kid1 (col0 + 8) on every element,
 // the full tile's included: P, and with it dS, is zeroed by that test,
 // since the final lse of a row that sees nothing of this tile is finite.
-template <bool DQ = true, bool SEG = false>
+// WIN (the sliding-window band `window`) tests the band on every
+// element of a tile the band cuts: the full-tile shortcut also needs the
+// tile's lowest column inside the band of its last row.
+template <bool DQ = true, bool SEG = false, bool WIN = false>
 __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
                                      const bwd::Mask& mk, int i0, int j0,
                                      float scale_log2, float (&dq)[8][4],
                                      long long* cyc = nullptr, int kid0 = 0,
-                                     int kid1 = 0) {
+                                     int kid1 = 0, int window = 0) {
   long long t0 = cyc ? clock64() : 0;
   auto lap = [&](int i) {
     if (cyc) {
@@ -224,7 +227,8 @@ __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
   // mask tests nothing else either. ----
   const bool full = i0 >= mk.q_lo && i0 + BQ <= min(mk.q_hi, mk.Sq) &&
                     j0 + BKV <= min(mk.kv_hi, mk.Skv) &&
-                    (!mk.causal || j0 + BKV - 1 <= i0 + mk.offset);
+                    (!mk.causal || j0 + BKV - 1 <= i0 + mk.offset) &&
+                    (!WIN || j0 > i0 + BQ - 1 + mk.offset - window);
   const int col0 = j0 + 16 * kvg + g;  // kv position of row g
   uint32_t pf[BQ / 16][2][4], sf[BQ / 16][2][4];
 #pragma unroll
@@ -243,7 +247,8 @@ __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
       p[e] = ex2_approx(fmaf(sv[e], scale_log2, -lse));
       if (!full) {
         const int row = i0 + ql + (e & 1), col = col0 + 8 * (e / 2);
-        if (!(mk.row_ok(row) && mk.col_ok(row, col))) p[e] = 0.f;
+        if (!(mk.row_ok(row) && mk.col_ok<WIN>(row, col, window)))
+          p[e] = 0.f;
       }
       if constexpr (SEG) {
         if (sm.qid[ql + (e & 1)] != ((e / 2) ? kid1 : kid0)) p[e] = 0.f;
@@ -350,14 +355,14 @@ __device__ __forceinline__ void step(const Smem& sm, int st, KvAcc& acc,
 
 // Parts 1-2 of a step alone: dK, dV accumulate into acc (the split pair's
 // dk/dv kernel: 6 products a step, no dS^T tile, no dQ)
-template <bool SEG = false>
+template <bool SEG = false, bool WIN = false>
 __device__ __forceinline__ void step_kv(const Smem& sm, int st, KvAcc& acc,
                                         const bwd::Mask& mk, int i0, int j0,
                                         float scale_log2, int kid0 = 0,
-                                        int kid1 = 0) {
+                                        int kid1 = 0, int window = 0) {
   float unused[8][4];
-  step<false, SEG>(sm, st, acc, mk, i0, j0, scale_log2, unused, nullptr,
-                   kid0, kid1);
+  step<false, SEG, WIN>(sm, st, acc, mk, i0, j0, scale_log2, unused,
+                        nullptr, kid0, kid1, window);
 }
 
 // The ids step<., true> tests against, for the CTA's kv tile j0 of one

@@ -91,7 +91,10 @@ def dist_prefill(params, tokens, cfg: ModelConfig, mesh, *, gen_budget: int):
 
     Returns (last_logits [B, vocab] fp32, DistCache).  S must divide by the
     ring's world (as the layout requires); gen_budget sizes the recent-KV
-    buffers.  A ring window raises, as burst_attn does."""
+    buffers.  A `cfg.window` (contig) prefills through the windowed ring
+    (burst_attn(window=): kernel 8's WIN instance, or kernel 1's on the
+    live rounds of the scan ring), and each decode step bands the shards
+    and the recent buffer by global position."""
     with torch.no_grad():
         ks, vs = [], []
         x, perm = ring_forward(params, tokens, cfg, mesh,

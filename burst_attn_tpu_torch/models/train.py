@@ -33,6 +33,14 @@ and boundary-masked labels from an EOS-delimited stream;
 and `make_packed_batch` add `segment_ids` to the batch (layout order),
 and the step passes them to every layer's attention.
 
+A windowed model (`ModelConfig(window=, layout="contig")`) trains on one
+device and on a contig ring like any other: every layer's attention
+takes the band (flash_attention(window=) / burst_attn(window=)).  The
+JAX trainer's tri gate (models/train.py l.242-250: a window takes the
+band path, not the wrapped-diagonal grid) is flash_attention's: its
+backward asks for the triangular route only without a window, and
+ops/flash.py bwd_route applies the band rule otherwise.
+
 Not ported yet: dp and tp axes, MoE and the pipeline path.  The
 TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
 counterpart: a CUDA kernel either builds or the run stops.

@@ -29,7 +29,12 @@ position, in ring-position order); `slot_use*` are [world, MAX_SLOTS]:
   nonfinite_acc  count of non-finite accumulator/output entries
   fused_rounds   rounds executed inside the fused kernel (0 on scan)
   rounds_elided  rounds the occupancy compiler removed from the schedule
-                 (truncated contig rings); never launched
+                 (windowed or segment-bounded contig rings, truncated to
+                 their live prefix); never launched, unlike (rounds -
+                 rounds_live), which ran fully masked.  A windowed contig
+                 ring shows the truncated round count in `rounds` and the
+                 band's pairs in `attn_pairs` (spec_pair_count with the
+                 window)
   slot_use       per-KV-slot consume counts of the fused forward kernel's
                  primary bank (kernel 8's in-kernel counters; zeros on the
                  scan path)

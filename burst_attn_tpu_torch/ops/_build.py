@@ -47,33 +47,36 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "flash_bwd": {
         # dO q k v delta lse dq dk dv counters q_ids kv_ids (NULL: no
         # segments), B N Nk Sq Skv D dtype, scale, q_lo q_hi kv_hi causal
-        # offset, stream (one list for all three entry points)
-        **{f"flash_bwd_{route}_launch": [P] * 12 + [I] * 7 + [F] + [I] * 5
+        # offset window (0: none), stream (one list for all three entry
+        # points)
+        **{f"flash_bwd_{route}_launch": [P] * 12 + [I] * 7 + [F] + [I] * 6
            + [P] for route in ("fused", "dq", "dkdv")},
-        # dtype flag (route: 0 fused, 1 dq, 2 dkdv; + 4 segments),
-        # int out[4]
+        # dtype flag (route: 0 fused, 1 dq, 2 dkdv; + 4 segments, + 8
+        # window), int out[4]
         "flash_bwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "fused_ring_fwd": {
-        # D dtype seg, &max_blocks
-        "fused_ring_fwd_capacity": [I, I, I, ctypes.POINTER(I)],
+        # D dtype seg window, &max_blocks
+        "fused_ring_fwd_capacity": [I, I, I, I, ctypes.POINTER(I)],
         # q k_in v_in ptrs sched st_m st_l st_acc o lse,
         # W B N Nk S D R NB MS G ncol copy_in0 copy_in1 dtype resident,
         # slot_use (NULL: the stats-off instance), seg (NULL: no
-        # segments), scale, stream
-        "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [P, P, F, P],
-        # dtype flags (bit 0 resident, bit 1 stats, bit 2 seg), int out[4]
+        # segments), window (0: none), scale, stream
+        "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [P, P, I, F, P],
+        # dtype flags (bit 0 resident, bit 1 stats, bit 2 seg, bit 3
+        # window), int out[4]
         "fused_ring_fwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "fused_ring_bwd": {
-        # D dtype seg, &max_blocks
-        "fused_ring_bwd_capacity": [I, I, I, ctypes.POINTER(I)],
+        # D dtype seg window, &max_blocks
+        "fused_ring_bwd_capacity": [I, I, I, I, ctypes.POINTER(I)],
         # first dO q lse k v ptrs sched folds dk dv trace,
         # W B N Nk S D R NB MS MDQ G ncol copy_in0 copy_in1 dtype resident
         # opt, slot_use (NULL: the stats-off instance), seg (NULL: no
-        # segments), scale, stream
-        "fused_ring_bwd_launch": [P] * 12 + [I] * 17 + [P, P, F, P],
-        # dtype flags (bit 0 traced, bit 1 stats, bit 2 seg), int out[4]
+        # segments), window (0: none), scale, stream
+        "fused_ring_bwd_launch": [P] * 12 + [I] * 17 + [P, P, I, F, P],
+        # dtype flags (bit 0 traced, bit 1 stats, bit 2 seg, bit 3
+        # window), int out[4]
         "fused_ring_bwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "ragged_paged": {

@@ -13,14 +13,16 @@ tiles.  For CPU tensors they run the plain versions,
 `tile_fwd`/`finalize` and `tile_bwd`.  The TPU kernels' grid
 tricks (triangular and band grids, block tuning) have no counterpart: on
 Hopper each CTA loops over the tiles from the first its window band meets
-up to its causal diagonal.  The forward takes a sliding `window`; the
-backward's band (kernels 2-5) comes with the windowed-training slice.
-Both directions take packed-sequence `segments` = (q ids [B, Sq], kv ids
-[B, Skv]): a query sees a key only where the ids are equal, on top of
-the causal mask and the window.  On a CUDA tensor the kernels' SEG
-instances (a template flag, as the window's) test the ids in-kernel;
-their no-segment instances are the code they were before.
+up to its causal diagonal (the forward's q tiles over kv chunks, the
+backward's kv tiles over the q tiles whose band reaches them).  Both
+directions take a sliding `window` and packed-sequence `segments` = (q
+ids [B, Sq], kv ids [B, Skv]): a query sees a key only where the ids are
+equal, on top of the causal mask and the window.  On a CUDA tensor the
+kernels' WIN and SEG instances (template flags) test the band and the ids
+in-kernel; their instances without them are the code they were before.
 """
+
+import math
 
 import torch
 
@@ -121,6 +123,7 @@ def flash_fwd(q, k, v, m, lse, acc, scale, spec: MaskSpec, *, window=None,
 
 flash_fwd.launches = 0
 flash_fwd.seg_launches = 0  # the launches of the SEG instances
+flash_fwd.win_launches = 0  # the launches of the WIN instances
 
 
 def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window, emit_o,
@@ -163,11 +166,57 @@ def _flash_fwd_cuda(q, k, v, m, lse, acc, scale, spec, window, emit_o,
     _build.check(err, "flash_fwd")
     flash_fwd.launches += 1
     flash_fwd.seg_launches += q_ids is not None
+    flash_fwd.win_launches += window is not None
     return m_out, lse_out, out
 
 
 BWD_ROUTES = ("fused", "dq", "dkdv")
 BWD_TILE_Q = 64  # q rows per tile in csrc/flash_bwd.cu (BQ)
+BWD_TILE_KV = 64  # kv rows per tile in csrc/flash_bwd.cu (BKV)
+
+
+def bwd_band_nb(bq: int, bkv: int, window: int) -> int:
+    """Exact largest number of q tiles (bq rows) whose band can reach one
+    kv tile (bkv rows), over the alignments c0 = j * bkv and the causal
+    offsets 0 / -1 (pallas_flash.py bwd_band_nb, l.367)."""
+    best = 0
+    lcm = bq * bkv // math.gcd(bq, bkv)
+    for c0 in range(0, lcm, bkv):
+        for off in (0, -1):
+            imin = (c0 - off) // bq  # the first causal q row's tile
+            imax = (c0 + bkv - 1 + window - 1 - off) // bq
+            best = max(best, imax - imin + 1)
+    return best
+
+
+def bwd_band_nbq(bq: int, bkv: int, nqb: int, window) -> int:
+    """The q-tile count of one kv tile's backward sweep: nqb without a
+    window, else at most bwd_band_nb (pallas_flash.py l.1590)."""
+    if window is None:
+        return nqb
+    return min(nqb, bwd_band_nb(bq, bkv, window))
+
+
+def bwd_route(q_shape, k_shape, *, fused=None, triangular=False,
+              window=None) -> str:
+    """"fused" or "split": the backward route flash_bwd takes on the card,
+    by the JAX package's dispatch (pallas_flash.py l.1872-1886): an
+    explicit `fused=False` takes the split pair and `fused=True` the fused
+    kernel; otherwise a triangular causal sweep (the wrapped-diagonal
+    grid, `triangular` without a window: here every causal CTA already
+    starts at the diagonal) takes the fused kernel, and anything else the
+    fused kernel only when its sweep is long enough,
+    bwd_band_nbq(64, 64, ceil(Sq / 64), window) * group >= 4, the split
+    pair otherwise.  The JAX rule's interpret-mode term has no
+    counterpart: a CPU tensor runs tile_bwd on either route."""
+    if fused is False:
+        return "split"
+    if fused or (triangular and window is None):
+        return "fused"
+    group = q_shape[1] // k_shape[1]
+    nqb = -(-q_shape[2] // BWD_TILE_Q)
+    nbq = bwd_band_nbq(BWD_TILE_Q, BWD_TILE_KV, nqb, window)
+    return "fused" if nbq * group >= 4 else "split"
 
 
 def flash_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, *, fused=None,
@@ -177,21 +226,16 @@ def flash_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, *, fused=None,
 
     delta = sum(o * do, -1) [B,N,Sq] f32 (computed by the caller); lse is
     the FINAL log-sum-exp [B,N,Sq] f32.  A CUDA tensor launches
-    csrc/flash_bwd.cu (bf16 or fp32, D = 128, contiguous): `fused=False`
-    the split pair (dq kernel, then dk/dv kernel; no atomics), anything
-    else the fused kernel; both are deterministic like the TPU's.  The
-    JAX package picks the split pair itself for short sweeps (it takes
-    the fused kernel only when `bwd_band_nbq(...) * group >= 4`,
-    pallas_flash.py); the port takes it only when asked.  `triangular` is the
-    TPU's wrapped-diagonal grid; here every causal CTA already starts at
-    the diagonal, so it changes nothing.  A CPU tensor runs tile_bwd.
-    `segments` = (q ids [B, Sq], kv ids [B, Skv]) as flash_fwd's (the
-    kernels' SEG instances); `window` is not ported yet."""
-    del triangular
-    if window is not None:
-        raise NotImplementedError(
-            "the windowed flash backward is not ported yet: the band in "
-            "kernels 2-5 comes with the windowed-training slice")
+    csrc/flash_bwd.cu (bf16 or fp32, D = 128, contiguous) on the route
+    `bwd_route` picks from `fused`, `triangular` and the window: the split
+    pair (dq kernel, then dk/dv kernel; no atomics) or the fused kernel;
+    both are deterministic like the TPU's.  A CPU tensor runs tile_bwd.
+    `window` (>= 1) is flash_fwd's band (the kernels' WIN instances: each
+    kv tile sweeps only the q tiles whose band reaches it); `segments` =
+    (q ids [B, Sq], kv ids [B, Skv]) as flash_fwd's (the kernels' SEG
+    instances)."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     b, n, s_q, d = q.shape
     n_kv, s_kv = k.shape[1], k.shape[2]
     if tuple(do.shape) != tuple(q.shape):
@@ -205,18 +249,21 @@ def flash_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, *, fused=None,
     if q.device.type == "cpu":
         if segments is not None:
             seg_operands(segments, b, s_q, s_kv, q.device)  # shape checks
-        return tile_bwd(do, q, k, v, delta, lse, scale, spec,
+        return tile_bwd(do, q, k, v, delta, lse, scale, spec, window=window,
                         segments=segments)
+    split = bwd_route(q.shape, k.shape, fused=fused, triangular=triangular,
+                      window=window) == "split"
     return _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec,
-                           split=fused is False, segments=segments)
+                           split=split, segments=segments, window=window)
 
 
 flash_bwd.launches = dict.fromkeys(BWD_ROUTES, 0)
 flash_bwd.seg_launches = dict.fromkeys(BWD_ROUTES, 0)  # SEG instances
+flash_bwd.win_launches = dict.fromkeys(BWD_ROUTES, 0)  # WIN instances
 
 
 def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split,
-                    segments=None):
+                    segments=None, window=None):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_bwd runs on cuda or cpu tensors, got {dev}")
@@ -250,7 +297,8 @@ def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split,
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (b, n, n_kv, s_q, s_kv, d, KERNEL_DTYPES[q.dtype], float(scale),
             int(spec.q_lo), int(spec.q_hi), int(spec.kv_hi),
-            int(spec.causal), int(spec.offset), stream)
+            int(spec.causal), int(spec.offset),
+            0 if window is None else int(window), stream)
     routes = ("dq", "dkdv") if split else ("fused",)
     with torch.cuda.device(dev):
         for route in routes:
@@ -262,6 +310,7 @@ def _flash_bwd_cuda(do, q, k, v, delta, lse, scale, spec, split,
             _build.check(err, f"flash_bwd {route}")
             flash_bwd.launches[route] += 1
             flash_bwd.seg_launches[route] += q_ids is not None
+            flash_bwd.win_launches[route] += window is not None
     return dq, dk, dv
 
 
@@ -276,14 +325,16 @@ def fwd_attrs(seg: bool = False):
         f"bf16 window{tag}": (bf16, 3 + add), f"fp32{tag}": (fp32, 1 + add)})
 
 
-def bwd_attrs(seg: bool = False):
+def bwd_attrs(seg: bool = False, win: bool = False):
     """_build.kernel_attrs of the backward's kernels: the fused kernel
     (kernels 2-3; bf16 on the tensor cores, fp32 SIMT) and the split pair
     (kernels 4-5) in bf16, on the tensor cores; with `seg` their SEG
-    instances (labels end in " seg")."""
+    instances (labels end in " seg"), with `win` their WIN instances
+    (" win" after that)."""
     bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
-    add, tag = (4, " seg") if seg else (0, "")
-    return _build.kernel_attrs("flash_bwd", {  # flag: route + 4 * seg
+    add = (4 if seg else 0) + (8 if win else 0)
+    tag = (" seg" if seg else "") + (" win" if win else "")
+    return _build.kernel_attrs("flash_bwd", {  # flag: route + 4 seg + 8 win
         f"bf16 fused{tag}": (bf16, add), f"fp32 fused{tag}": (fp32, add),
         f"bf16 dq{tag}": (bf16, 1 + add), f"bf16 dkdv{tag}": (bf16, 2 + add)})
 
@@ -308,9 +359,12 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, segment_ids = ctx.saved_tensors
         delta = (o.float() * do.float()).sum(-1)
         segs = None if segment_ids is None else (segment_ids, segment_ids)
+        # the tri gate (pallas_flash.py l.1873-1878): a window leaves the
+        # wrapped-diagonal grid for the band rule
         dq, dk, dv = flash_bwd(do.contiguous(), q, k, v, delta, lse,
                                ctx.scale, ctx.spec, fused=ctx.fused,
-                               triangular=bool(ctx.spec.causal),
+                               triangular=bool(ctx.spec.causal)
+                               and ctx.window is None,
                                window=ctx.window, segments=segs)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None, None)
@@ -325,8 +379,9 @@ def flash_attention(q, k, v, scale=None, causal=False, *, fused=None,
     `flash_bwd` (`fused` as there: False takes the split pair), then casts
     the gradients to the inputs' dtypes.  Under `torch.no_grad()`
     (serving) only the forward runs.  `window` (causal only) is the
-    sliding-window band of the forward; its backward raises until the
-    windowed-training slice.  `segment_ids` [B, S] integers pack several
+    sliding-window band of both passes (the backward leaves the
+    triangular route for bwd_route's band rule).  `segment_ids` [B, S]
+    integers pack several
     documents into one row: attention never crosses a segment boundary
     (both passes run the kernels' SEG instances on the card; the ids get
     no gradient)."""

@@ -33,7 +33,14 @@ carries the partition the round consumes (its PART column, JAX's
 `with_part`); the kernels' SEG instances read that partition's ids for
 the rotating side and the position's own for the resident one.
 
-Not ported yet: wire_dtype and window (they raise in parallel/burst.py).
+A sliding `cfg.window` (contig causal rings): the tables carry each
+round's offset-form band spec (masks.round_spec with the window), the
+kernels' WIN instances test the band (the JAX kernels' static `wnd`),
+and the schedule compiler truncates the program to the live rounds
+{0 .. r_live - 1} (`occupancy_r_live`): a dead round has no send, no
+consume and no slot traffic.
+
+Not ported yet: wire_dtype (it raises in parallel/burst.py).
 """
 
 import ctypes
@@ -117,11 +124,13 @@ def resolve_topology(cfg, n_intra: int, n_inter: int = 1):
 
 def occupancy_r_live(cfg, world: int, s) -> Optional[int]:
     """Live-round prefix to truncate the program to, or None for a dense
-    program: contig causal rings whose packed segments are bounded by
-    cfg.max_segment_len have the closed-form live set {0..r_live-1}."""
-    if s is None or cfg.max_segment_len is None:
+    program: windowed contig causal rings, and those whose packed segments
+    are bounded by cfg.max_segment_len, have the closed-form live set
+    {0..r_live-1} (masks.live_round_prefix; JAX fused_ring.py l.173)."""
+    if s is None or (cfg.window is None and cfg.max_segment_len is None):
         return None
     r_live = live_round_prefix(cfg.layout, s, world, causal=cfg.causal,
+                               window=cfg.window,
                                max_segment_len=cfg.max_segment_len)
     return None if r_live >= world else r_live
 
@@ -141,7 +150,12 @@ def _resolve(cfg):
 def _compile_for(cfg, topology: str, n_inter: int, n_intra: int,
                  pass_: str = "fwd", s=None):
     rf = _resolve(cfg)
-    r_live = occupancy_r_live(cfg, n_inter * n_intra, s)
+    # a double ring visits its partitions cycle-major: round r's chunk is
+    # not the one r positions back, so a prefix of its rounds is not the
+    # live set, and its program stays dense (as the scan ring keeps double
+    # rings untruncated, parallel/burst.py _r_live)
+    r_live = (None if topology == "double"
+              else occupancy_r_live(cfg, n_inter * n_intra, s))
     if pass_ == "fwd":
         return sched_ir.compile_fwd(topology, n_intra, n_inter,
                                     slots=rf.kv_slots, slots1=rf.ccw_slots,
@@ -239,10 +253,10 @@ def build_sched_table(cfg, prog, s_q: int, s_kv: int, position: int, *,
                                               intra_rank)
         if swap_roles:
             sp = round_spec(part_r, position, s_q, s_kv, cfg.causal,
-                            cfg.layout)
+                            cfg.layout, window=cfg.window)
         else:
             sp = round_spec(position, part_r, s_q, s_kv, cfg.causal,
-                            cfg.layout)
+                            cfg.layout, window=cfg.window)
         specs.append(sp)
         table[r, :5] = sp
     roles = ring_roles(position, prog.n_inter, prog.n_intra,
@@ -411,12 +425,13 @@ def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int, *,
     slot_use = _slot_counters(prog, w, q.device) if collect_stats else None
     if q.device.type == "cpu":
         o, lse = fused_ring_reference(q, k, v, prog, tables, scale,
-                                      slot_use=slot_use, seg=seg)
+                                      slot_use=slot_use, seg=seg,
+                                      window=cfg.window)
     else:
         o, lse = _fused_ring_fwd_cuda(
             q, k, v, prog,
             _sched_on(cfg, n_inter, n_intra, s, q.device, "fwd"), scale,
-            slot_use=slot_use, seg=seg)
+            slot_use=slot_use, seg=seg, window=cfg.window)
     if not collect_stats:
         return o, lse
     return o, lse, _fused_stats(cfg, n_inter, n_intra, prog, o, lse,
@@ -454,8 +469,9 @@ def _occupancy(cfg, n_inter: int, n_intra: int, s: int):
     for table in tables:
         specs = [MaskSpec(*(int(x) for x in table[r, :5]))
                  for r in range(prog.n_rounds)]
-        live.append(sum(spec_live(sp) for sp in specs))
-        pairs.append(sum(spec_pair_count(sp, s, s) for sp in specs))
+        live.append(sum(spec_live(sp, cfg.window) for sp in specs))
+        pairs.append(sum(spec_pair_count(sp, s, s, window=cfg.window)
+                         for sp in specs))
     return tuple(live), tuple(pairs)
 
 
@@ -479,6 +495,7 @@ def _fused_stats(cfg, n_inter: int, n_intra: int, prog, o, lse, slot_use,
 
 fused_ring_fwd.launches = 0
 fused_ring_fwd.seg_launches = 0  # the launches of the SEG instances
+fused_ring_fwd.win_launches = 0  # the launches of the WIN instances
 
 
 class _Slot:
@@ -492,7 +509,7 @@ class _Slot:
 
 
 def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
-                         slot_use=None, seg=None):
+                         slot_use=None, seg=None, window=None):
     """Plain version of the fused kernel: walks the compiled program on
     the host with every position's slot banks as tensors, in the kernel's
     order per round (sends at the round's start, then each position's
@@ -505,7 +522,8 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
     `slot_use` [W, 2, MAX_SLOTS] int32 tensor counts each round's consume
     per (position, bank, slot), as the kernel's STATS instance does.
     `seg` [W, B, S]: the positions' segment ids; a round masks by the
-    position's own ids against the consumed partition's."""
+    position's own ids against the consumed partition's.  `window`: the
+    band every round's tile applies beside the table's scalars."""
     w = q.shape[0]
     n_rounds = prog.n_rounds
     st = kernel_statics(prog)
@@ -558,7 +576,7 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
             spec = MaskSpec(*(int(x) for x in row[:5]))
             segs = None if seg is None else (seg[p], seg[slot.part])
             state[p] = tile_fwd(q[p], slot.k, slot.v, *state[p], scale, spec,
-                                segments=segs)
+                                window=window, segments=segs)
         for p in range(w):
             row = tables[p][r]
             for bk in range(prog.n_banks):
@@ -572,7 +590,7 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
 
 
 def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
-                         seg=None):
+                         seg=None, window=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_fwd kernel takes "
@@ -589,8 +607,8 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
     cap = ctypes.c_int(0)
     with torch.cuda.device(dev):
         _build.check(lib.fused_ring_fwd_capacity(
-            d, code, int(seg is not None), ctypes.byref(cap)),
-            "fused_ring_fwd capacity")
+            d, code, int(seg is not None), int(window is not None),
+            ctypes.byref(cap)), "fused_ring_fwd capacity")
     n_items = b * n * -(-s // FUSED_BLOCK_Q)
     per_pos = cap.value // w
     if per_pos < 1:
@@ -631,10 +649,12 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
             o.data_ptr(), lse.data_ptr(), w, b, n, n_kv, s, d,
             prog.n_rounds, n_banks, max_slots, ctas, KERNEL_COLS,
             copy_in[0], copy_in[1], code, int(resident), _ptr(slot_use),
-            _ptr(seg), float(scale), stream)
+            _ptr(seg), 0 if window is None else int(window), float(scale),
+            stream)
     _build.check(err, "fused_ring_fwd")
     fused_ring_fwd.launches += 1
     fused_ring_fwd.seg_launches += seg is not None
+    fused_ring_fwd.win_launches += window is not None
     return o, lse
 
 
@@ -642,14 +662,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_attrs(stats: bool = False, seg: bool = False):
+def fwd_attrs(stats: bool = False, seg: bool = False, win: bool = False):
     """_build.kernel_attrs of kernel 8's four instances (dtype x state
     mode), or with `stats` of the four STATS instances (labels end in
-    " stats"), with `seg` of the SEG instances (" seg" after that)."""
+    " stats"), with `seg` of the SEG instances (" seg" after that), with
+    `win` of the WIN instances (" win" last)."""
     return _build.kernel_attrs("fused_ring_fwd", {
         f"{name}{'' if res else ' scratch'}{' stats' if stats else ''}"
-        f"{' seg' if seg else ''}":
-            (code, int(res) | (2 if stats else 0) | (4 if seg else 0))
+        f"{' seg' if seg else ''}{' win' if win else ''}":
+            (code, int(res) | (2 if stats else 0) | (4 if seg else 0)
+             | (8 if win else 0))
         for name, code in (("bf16", KERNEL_DTYPES[torch.bfloat16]),
                            ("fp32", KERNEL_DTYPES[torch.float32]))
         for res in (True, False)})

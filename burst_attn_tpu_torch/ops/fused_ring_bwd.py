@@ -33,7 +33,10 @@ autograd path leaves slot_use_bwd at zero, as in the JAX package.
 `seg=` (the positions' packed-sequence ids [W, B, S], as
 fused_ring.fused_ring_fwd's): each round masks the bundle's q ids (the
 table's BWD_PART column names its partition) against the position's own
-kv ids, in the kernel's SEG instance.
+kv ids, in the kernel's SEG instance.  A `cfg.window` runs the kernel's
+WIN instances (alone or with SEG) on the truncated program of the
+windowed ring (ops/fused_ring.py); the STATS instance takes no window
+(`collect_stats` with a window raises on the card, as with seg).
 """
 
 import ctypes
@@ -140,17 +143,20 @@ def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
         out = fused_ring_bwd_reference(q, k, v, o, lse, do, prog, tables,
                                        scale, cfg.optimize_bwd_comm,
                                        head_chunk=head_chunk,
-                                       slot_use=slot_use, seg=seg)
+                                       slot_use=slot_use, seg=seg,
+                                       window=cfg.window)
     else:
         out = _fused_ring_bwd_cuda(
             q, k, v, o, lse, do, prog,
             _sched_on(cfg, n_inter, n_intra, s, q.device, "bwd"), scale,
-            cfg.optimize_bwd_comm, trace, slot_use=slot_use, seg=seg)
+            cfg.optimize_bwd_comm, trace, slot_use=slot_use, seg=seg,
+            window=cfg.window)
     return out + (slot_use,) if collect_stats else out
 
 
 fused_ring_bwd.launches = 0
 fused_ring_bwd.seg_launches = 0  # the launches of the SEG instances
+fused_ring_bwd.win_launches = 0  # the launches of the WIN instances
 
 
 class _Bundle:
@@ -174,19 +180,20 @@ class _Partial:
 
 
 def _tile_bwd_chunked(do, q, k, v, delta, lse, scale, spec, head_chunk,
-                      segments=None):
+                      segments=None, window=None):
     """tile_bwd over chunks of `head_chunk` query heads (a multiple of the
     GQA group), so that no score tensor holds every head at once."""
     n, n_kv = q.shape[1], k.shape[1]
     if head_chunk is None or head_chunk >= n:
-        return tile_bwd(do, q, k, v, delta, lse, scale, spec,
+        return tile_bwd(do, q, k, v, delta, lse, scale, spec, window=window,
                         segments=segments)
     group = n // n_kv
     hc = max(group, head_chunk // group * group)
     parts = [tile_bwd(do[:, h:h + hc], q[:, h:h + hc],
                       k[:, h // group:(h + hc) // group],
                       v[:, h // group:(h + hc) // group], delta[:, h:h + hc],
-                      lse[:, h:h + hc], scale, spec, segments=segments)
+                      lse[:, h:h + hc], scale, spec, window=window,
+                      segments=segments)
              for h in range(0, n, hc)]
     return tuple(torch.cat(x, dim=1) for x in zip(*parts))
 
@@ -195,7 +202,7 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
                              tables: List[np.ndarray], scale,
                              optimize_bwd_comm: bool = True, *,
                              head_chunk: Optional[int] = None,
-                             slot_use=None, seg=None):
+                             slot_use=None, seg=None, window=None):
     """Plain version of the fused backward kernel: walks the compiled
     backward program on the host with every position's bundle banks, dq
     slots and home outputs, in the kernel's phases per round (bundle sends
@@ -213,7 +220,8 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
     tensor counts each round's bundle consume per (position, bank, slot),
     as the kernel's STATS instance does.  `seg` [W, B, S]: the positions'
     segment ids; a round masks the bundle partition's ids against the
-    position's own."""
+    position's own.  `window`: the band every round applies beside the
+    table's scalars."""
     w, n_rounds = q.shape[0], prog.n_rounds
     st = kernel_statics(prog)
     if optimize_bwd_comm:
@@ -278,7 +286,7 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
             segs = None if seg is None else (seg[slot.part], seg[p])
             dq_c, dk_c, dv_c = _tile_bwd_chunked(do_r, q_r, k[p], v[p],
                                                  delta_r, lse_r, scale, spec,
-                                                 head_chunk, segs)
+                                                 head_chunk, segs, window)
             dk[p] += dk_c
             dv[p] += dv_c
             bank, ds = int(row[sched_ir.DQ_BANK]), int(row[sched_ir.DQ_SLOT])
@@ -363,14 +371,17 @@ def read_trace(trace):
     return [dict(zip(TRACE_COLS, r)) for r in rows if r[1] > 0]
 
 
-def bwd_attrs(stats: bool = False, seg: bool = False):
+def bwd_attrs(stats: bool = False, seg: bool = False, win: bool = False):
     """_build.kernel_attrs of kernel 9's instances: bf16 (and traced),
     fp32; with `stats` its two STATS instances (bf16 stats, fp32 stats);
-    with `seg` its two SEG instances (bf16 seg, fp32 seg)."""
+    with `seg` and / or `win` its SEG, WIN or SEG + WIN instances (labels
+    "bf16 seg", "fp32 win", "bf16 seg win", ...)."""
     bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
-    if seg:
+    if seg or win:
+        flag = (4 if seg else 0) | (8 if win else 0)
+        tag = (" seg" if seg else "") + (" win" if win else "")
         return _build.kernel_attrs("fused_ring_bwd", {
-            "bf16 seg": (bf16, 4), "fp32 seg": (fp32, 4)})
+            f"bf16{tag}": (bf16, flag), f"fp32{tag}": (fp32, flag)})
     if stats:
         return _build.kernel_attrs("fused_ring_bwd", {
             "bf16 stats": (bf16, 2), "fp32 stats": (fp32, 2)})
@@ -379,7 +390,7 @@ def bwd_attrs(stats: bool = False, seg: bool = False):
 
 
 def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
-                         trace=None, slot_use=None, seg=None):
+                         trace=None, slot_use=None, seg=None, window=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_bwd kernel takes "
@@ -397,8 +408,8 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
     cap = ctypes.c_int(0)
     with torch.cuda.device(dev):
         _build.check(lib.fused_ring_bwd_capacity(
-            d, code, int(seg is not None), ctypes.byref(cap)),
-            "fused_ring_bwd capacity")
+            d, code, int(seg is not None), int(window is not None),
+            ctypes.byref(cap)), "fused_ring_bwd capacity")
     n_items = b * n_kv * -(-s // FUSED_BLOCK_KV_BWD)
     per_pos = cap.value // w
     if per_pos < 1:
@@ -409,11 +420,15 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
     if seg is not None and slot_use is not None:
         raise ValueError("the kernel's SEG instances count no slots: "
                          "collect_stats with seg runs on the CPU only")
+    if window is not None and slot_use is not None:
+        raise NotImplementedError(
+            "kernel 9 has no STATS + WIN instance: collect_stats on a "
+            "windowed ring's backward runs on the CPU only (ROADMAP B1)")
     if trace is not None:
         if q.dtype != torch.bfloat16 or slot_use is not None or \
-                seg is not None:
+                seg is not None or window is not None:
             raise ValueError("a traced fused_ring_bwd launch is bf16 only, "
-                             "without collect_stats or seg")
+                             "without collect_stats, seg or a window")
         if (trace.dtype != torch.int64 or trace.device != dev
                 or trace.dim() != 2 or trace.shape[0] < w * ctas
                 or trace.shape[1] != len(TRACE_COLS)
@@ -477,9 +492,11 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
             d, prog.n_rounds, prog.n_banks, max_slots, max_dq, ctas,
             BWD_KERNEL_COLS, copy_in[0], copy_in[1], code, int(resident),
             int(opt_comm), None if slot_use is None else slot_use.data_ptr(),
-            None if seg is None else seg.data_ptr(), float(scale), stream)
+            None if seg is None else seg.data_ptr(),
+            0 if window is None else int(window), float(scale), stream)
     _build.check(err, "fused_ring_bwd")
     fused_ring_bwd.launches += 1
     fused_ring_bwd.seg_launches += seg is not None
+    fused_ring_bwd.win_launches += window is not None
     dq = homes[0] if homes[1] is None else homes[0] + homes[1]
     return dq, dk, dv

@@ -26,12 +26,15 @@ mask's sum), and the occupancy tables the schedule compiler truncates
 rings with (`live_delta_table`, `live_round_prefix`).
 
 `window` (sliding-window causal attention: the query at position p sees
-positions p - window + 1 .. p) is ported for one device: `dense_mask`,
-`spec_live` and `spec_pair_count` take it, and so do the kernels behind
-them.  The ring helpers (`round_spec`, `live_delta_table`,
-`live_round_prefix`) still raise for it: the windowed contig ring and its
-truncated programs are the windowed-training slice.  `max_segment_len`
-(a promise about packed segment lengths) is ported.
+positions p - window + 1 .. p): `dense_mask`, `spec_live` and
+`spec_pair_count` take it, and so do the kernels behind them.  On a ring
+(contig layout only) every round is the band j <= i + delta with delta =
+(q_part - kv_part) * s, so `round_spec(..., window=)` returns that
+offset-form causal spec and the window rides beside it; the occupancy
+tables (`live_delta_table`, `live_round_prefix`) take it too and give the
+windowed ring its live-round prefix, min(W, (s + window - 2) // s + 1).
+`max_segment_len` (a promise about packed segment lengths) combines with
+it.
 """
 
 from typing import NamedTuple
@@ -57,14 +60,6 @@ def full_spec(s_q: int, s_kv: int) -> MaskSpec:
 LAYOUTS = ("contig", "zigzag", "striped")
 
 
-def _no_ring_window(window):
-    if window is not None:
-        raise NotImplementedError(
-            "window attention on a ring (round_spec, the live-round tables) "
-            "is not ported yet: it comes with the windowed-training slice "
-            "(backward band in kernels 2-5, r_live in kernels 8-9)")
-
-
 def check_window(window, layout="contig", causal=True) -> None:
     """The JAX package's window checks (burst_attn_tpu/parallel/burst.py
     BurstConfig): a window needs layout="contig", causal=True and
@@ -86,10 +81,24 @@ def round_spec(q_part: int, kv_part: int, s_q: int, s_kv: int, causal: bool,
                layout: str, window=None) -> MaskSpec:
     """Mask spec for one ring round: q_part / kv_part are the global
     partition ids of the query and key/value chunks, s_q / s_kv the local
-    lengths (see the module docstring for each layout's cases).  A
-    one-device caller with a window takes the (0, 0) contig causal spec
-    and passes the window beside it."""
-    _no_ring_window(window)
+    lengths (see the module docstring for each layout's cases).  With a
+    `window` (contig, causal, >= 1 only: the zigzag/striped permutations
+    interleave two token ranges per shard, which one band cannot express)
+    the round is the band j <= i + delta, delta = q_part * s_q - kv_part *
+    s_kv: the offset-form causal spec, with the window passed beside it to
+    the kernels."""
+    if window is not None:
+        if layout != "contig":
+            raise ValueError(
+                f"window attention supports layout='contig' only, got "
+                f"{layout!r} (the zigzag/striped load-balancing permutations "
+                "break the band structure)")
+        if not causal:
+            raise ValueError("window attention requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        delta = int(q_part) * int(s_q) - int(kv_part) * int(s_kv)
+        return MaskSpec(0, int(s_q), int(s_kv), 1, delta)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected one of "
                          f"{LAYOUTS}")
@@ -144,7 +153,7 @@ def _host_round_pairs(layout: str, q_part: int, kv_part: int, s: int,
     tables sweep."""
     return spec_pair_count(
         round_spec(q_part, kv_part, s, s, causal, layout, window=window),
-        s, s)
+        s, s, window=window)
 
 
 def live_delta_table(layout: str, s: int, world: int, *, causal: bool,
@@ -159,14 +168,15 @@ def live_delta_table(layout: str, s: int, world: int, *, causal: bool,
     apart, so offsets past the bound cannot share a segment.  It is a
     promise about the ids the caller feeds, not checked per batch;
     zigzag/striped interleave token ranges per shard and ignore it.
+    `window` (contig causal) kills the offsets its band cannot reach.
     Offset 0 (the self round) is always live."""
-    _no_ring_window(window)
     if world < 1:
         raise ValueError(f"need world >= 1, got {world}")
     live = [True]
     for delta in range(1, world):
         alive = (not causal) or any(
-            _host_round_pairs(layout, p, (p - delta) % world, s, True) > 0
+            _host_round_pairs(layout, p, (p - delta) % world, s, True,
+                              window=window) > 0
             for p in range(world))
         if alive and max_segment_len is not None and layout == "contig":
             # without causality the kv chunk also sits (world - delta)
@@ -184,7 +194,8 @@ def live_round_prefix(layout: str, s: int, world: int, *, causal: bool,
                       window=None, max_segment_len=None) -> int:
     """K + 1 when the live offsets are exactly the prefix {0..K}, else
     `world` (no truncation): the `r_live` the schedule compiler and the
-    scan ring's round truncation share."""
+    scan ring's round truncation share.  Contig windowed rings give the
+    closed form min(world, (s + window - 2) // s + 1)."""
     live = live_delta_table(layout, s, world, causal=causal, window=window,
                             max_segment_len=max_segment_len)
     k = max(i for i, alive in enumerate(live) if alive)

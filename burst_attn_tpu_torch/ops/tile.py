@@ -91,7 +91,8 @@ def finalize(m, lse, acc, dtype):
     return (acc * o_scale[..., None]).to(dtype)
 
 
-def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, segments=None):
+def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, window=None,
+             segments=None):
     """One backward round; returns this round's (dq, dk, dv) in float32.
     The plain version behind the flash backward kernels (ops/flash.py).
 
@@ -99,15 +100,17 @@ def tile_bwd(do, q, k, v, delta, lse, scale, spec: MaskSpec, segments=None):
     the FINAL log-sum-exp of the query rows, so p = exp(s - lse) is the
     true softmax probability.  Masked entries, and rows whose lse is -inf
     (fully masked), contribute exact zeros.  GQA sums dk/dv over each
-    kv head's group of query heads.  `segments`: packed-sequence ids, see
-    _with_segments."""
+    kv head's group of query heads.  `window`: the sliding-window band
+    (masks.dense_mask), as tile_fwd's.  `segments`: packed-sequence ids,
+    see _with_segments."""
     n_q, n_kv = q.shape[1], k.shape[1]
     s_q, s_kv = q.shape[2], k.shape[2]
     q32, do32 = q.float(), do.float()
     kx = _expand_kv(k, n_q).float()
     vx = _expand_kv(v, n_q).float()
-    mask = _with_segments(dense_mask(spec, s_q, s_kv, device=q.device),
-                          segments) & ~torch.isneginf(lse)[..., None]
+    mask = _with_segments(
+        dense_mask(spec, s_q, s_kv, device=q.device, window=window),
+        segments) & ~torch.isneginf(lse)[..., None]
 
     s = torch.einsum("bnid,bnjd->bnij", q32, kx) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)

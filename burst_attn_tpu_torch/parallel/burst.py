@@ -36,7 +36,17 @@ there to pick TPU grids; their three specs are exactly round_spec's, and
 the CUDA kernels' loop bounds skip the dead tiles of each, so here every
 round runs its kernel on the whole contiguous shard under round_spec
 (no slicing copies).  Contig causal rings skip dead rounds outright
-(spec_live) and, with max_segment_len, truncate to the live prefix.
+(spec_live) and, with a window or max_segment_len, truncate to the live
+prefix.
+
+Sliding window (`window`, contig causal rings only, as in the JAX
+package): every round is the band j <= i + delta, delta = (q_part -
+kv_part) * s (masks.round_spec with the window), and each round's kernel
+takes the window beside its spec (kernel 1's and kernels 2-5's WIN
+instances on the scan ring, kernels 8-9's on the fused one).  A round the
+band cannot reach is skipped (spec_live with the window), and a single
+ring runs only its live prefix of r_live = min(W, (s + window - 2) // s +
+1) rounds: no rotation and no launch for the others.
 
 Counters: the obs registry's burst.dispatch{path,backend,tile},
 burst.fused_fallback{reason,pass}, burst.ring_rounds,
@@ -61,8 +71,8 @@ fused ring kernels read every position's ids from one stacked [W, B, S]
 table, the row of the partition a round consumes.
 
 Not ported yet (they raise NotImplementedError): the tile sizes of the
-flash kernels (block_q, block_kv and the backward's), window,
-wire_dtype, and meshes with data or tensor parallel axes of size > 1.
+flash kernels (block_q, block_kv and the backward's), wire_dtype, and
+meshes with data or tensor parallel axes of size > 1.
 """
 
 import logging
@@ -154,12 +164,7 @@ class BurstConfig:
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{self.backend!r}")
-        if self.window is not None:
-            check_window(self.window, self.layout, self.causal)
-            raise NotImplementedError(
-                "window attention on the ring is not ported yet: the "
-                "windowed contig ring comes with the windowed-training slice "
-                "(backward band in kernels 2-5, r_live in kernels 8-9)")
+        check_window(self.window, self.layout, self.causal)
         for name, why in _UNPORTED.items():
             if getattr(self, name) != _DEFAULTS[name]:
                 raise NotImplementedError(
@@ -215,28 +220,35 @@ def _tile_backend(cfg) -> str:
 def _tile_fwd(cfg, q, k, v, m, lse, acc, scale, spec, segments=None):
     if _tile_backend(cfg) == "pallas":
         return flash_fwd(q, k, v, m, lse, acc, scale, spec,
-                         segments=segments)
+                         window=cfg.window, segments=segments)
     if m is None:
         m, lse, acc = init_state(*q.shape, device=q.device)
-    return tile_fwd(q, k, v, m, lse, acc, scale, spec, segments=segments)
+    return tile_fwd(q, k, v, m, lse, acc, scale, spec, window=cfg.window,
+                    segments=segments)
 
 
 def _tile_bwd(cfg, do, q, k, v, delta, lse, scale, spec, segments=None):
-    """One backward round: flash_bwd (the fused kernel on a CUDA tensor,
-    tile_bwd on a CPU tensor) or, for "jnp", the plain tile."""
+    """One backward round: flash_bwd (on a CUDA tensor the route
+    flash.bwd_route picks, tile_bwd on a CPU tensor) or, for "jnp", the
+    plain tile."""
     if _tile_backend(cfg) == "pallas":
         return flash_bwd(do, q, k, v, delta, lse, scale, spec,
-                         segments=segments)
-    return tile_bwd(do, q, k, v, delta, lse, scale, spec, segments=segments)
+                         window=cfg.window, segments=segments)
+    return tile_bwd(do, q, k, v, delta, lse, scale, spec, window=cfg.window,
+                    segments=segments)
 
 
 def _r_live(cfg, s, s_kv, n_inter, n_intra):
     """Live-round count of a truncatable SINGLE contig causal ring (the
-    max_segment_len reach bound gives a live-round prefix,
-    masks.live_round_prefix); n_intra = no truncation."""
-    if (cfg.max_segment_len is not None and cfg.layout == "contig"
-            and cfg.causal and n_inter == 1 and n_intra > 1 and s_kv == s):
+    window band and the max_segment_len reach bound give a live-round
+    prefix, masks.live_round_prefix: windowed rings reproduce the closed
+    form min(W, (s + window - 2) // s + 1)); shared by the forward and the
+    backward; n_intra = no truncation."""
+    if ((cfg.window is not None or cfg.max_segment_len is not None)
+            and cfg.layout == "contig" and cfg.causal and n_inter == 1
+            and n_intra > 1 and s_kv == s):
         return live_round_prefix("contig", s, n_intra, causal=True,
+                                 window=cfg.window,
                                  max_segment_len=cfg.max_segment_len)
     return n_intra
 
@@ -339,15 +351,19 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
     def count(p, spec):
         if collect:
             tally[p][0] += 1
-            tally[p][1] += spec_live(spec)
-            tally[p][2] += spec_pair_count(spec, s, s_kv)
+            tally[p][1] += spec_live(spec, cfg.window)
+            tally[p][2] += spec_pair_count(spec, s, s_kv, window=cfg.window)
 
     def compute(p, st, kv_c, r):
         kv_part = partition_at_round(r, *coords[p], n_inter, n_intra)
-        spec = round_spec(p, kv_part, s, s_kv, cfg.causal, cfg.layout)
+        spec = round_spec(p, kv_part, s, s_kv, cfg.causal, cfg.layout,
+                          window=cfg.window)
         count(p, spec)
-        if cfg.layout == "contig" and cfg.causal and not spec_live(spec):
-            return st  # a future round: nothing attends, skip the launch
+        if (cfg.layout == "contig" and cfg.causal
+                and not spec_live(spec, cfg.window)):
+            # a future round, or one past the band's reach: nothing
+            # attends, skip the launch
+            return st
         segs = None if seg is None else (seg[p], kv_c[2])
         return _tile_fwd(cfg, q[p], kv_c[0], kv_c[1], *st, scale, spec,
                          segs)
@@ -361,8 +377,8 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
           for p in range(world)]
     kv_base = kv
     # round 0 is always the self round: a statically empty carry
-    spec0 = [round_spec(p, p, s, s_kv, cfg.causal, cfg.layout)
-             for p in range(world)]
+    spec0 = [round_spec(p, p, s, s_kv, cfg.causal, cfg.layout,
+                        window=cfg.window) for p in range(world)]
     for p in range(world):
         count(p, spec0[p])
     state = [_tile_fwd(cfg, q[p], k[p], v[p], None, None, None, scale,
@@ -438,8 +454,10 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
         delta_r = first_r if cfg.optimize_bwd_comm else (
             first_r.float() * do_r.float()).sum(-1)
         q_part = partition_at_round(r, *coords[p], n_inter, n_intra)
-        spec = round_spec(q_part, p, s, s_kv, cfg.causal, cfg.layout)
-        if cfg.layout == "contig" and cfg.causal and not spec_live(spec):
+        spec = round_spec(q_part, p, s, s_kv, cfg.causal, cfg.layout,
+                          window=cfg.window)
+        if (cfg.layout == "contig" and cfg.causal
+                and not spec_live(spec, cfg.window)):
             return None  # a dead round: exact zeros, no launch
         segs = None if seg is None else (pay[4], seg[p])
         return _tile_bwd(cfg, do_r, q_r, k[p], v[p], delta_r, lse_r, scale,
@@ -615,8 +633,10 @@ def burst_attn(
     bitwise those of collect_stats=False.  segment_ids: [B, S] integer
     packed-sequence ids (non-negative, in the same layout order as q;
     sharded like q): attention never crosses a segment boundary, on both
-    routes and in the backward.  window, wire_dtype and the tile sizes
-    away from their defaults raise (BurstConfig)."""
+    routes and in the backward.  window: the sliding-window band (contig
+    causal only, >= 1; both routes, both passes, the single ring truncated
+    to its live rounds).  wire_dtype and the tile sizes away from their
+    defaults raise (BurstConfig)."""
     if isinstance(seq_axes, str):
         seq_axes = (seq_axes,)
     if len(seq_axes) == 1:

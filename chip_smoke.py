@@ -38,8 +38,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and at a scan-ring round's (B1 N16 S2048 MHA, causal and a full
      non-causal round);
   4. the ServeEngine at the serving benchmark's width (vocab 32768,
-     d_model 2048, 8 layers, 16/4 heads, d_ff 8192, random weights from a
-     seed): 12 requests over 8 slots in bf16 and fp32, plus a bf16 run
+     d_model 2048, 16/4 heads, d_ff 8192; depth cut from its 8 layers to
+     4, random weights from a seed): 12 requests over 8 slots in bf16 and fp32, plus a bf16 run
      with plain attention (the noise floor), the fp32 model on an int8
      pool against plain attention, launch counters read around each run,
      greedy tokens teacher-forced through the dense plain forward; the
@@ -201,7 +201,24 @@ Phases (any failure exits non-zero; nothing is caught):
      plain attention, the last-position logits with and without the
      window (equal within the window, apart beyond it), and both engines'
      decode ticks beside the unwindowed ones;
- 10. a `train` JSON line, a `kernels` JSON line, then the result line
+ 10. (after the packed segments) windowed training: kernels 2-5's WIN
+     instances against tile_bwd(window=) (bf16 and fp32, both routes,
+     windows 1, 40, 200, 300, GQA, ragged S; window >= S bitwise the
+     instances without WIN; with packed segments), kernels 8-9's on the
+     windowed contig ring's truncated program (r_live rounds, the ring
+     step's shape and a band across two shards, with segments; kernel
+     8's STATS instance reporting the truncation), all two launches
+     torch.equal, and their times at the train shape / the ring step
+     beside the causal launch, the plain versions, SDPA with the band
+     mask and the band's bound; bench/window_bench.py once; the windowed
+     `dist_generate` (window 1024, 32768 tokens over sp=4 bf16 on both
+     routes: the teacher-forced bar, prefill and decode ms; fp32 at 4096
+     token-exact with the dense windowed `generate`); the windowed train
+     step on one card and on a contig ring of 4 (both routes: exact WIN
+     launches, losses against plain attention under the band and one
+     device, fp32 parity at 2 layers); `[t s]` marks give the seconds
+     since the start after each group of phases;
+ 11. a `train` JSON line, a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -220,8 +237,13 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
-# the serving benchmark's model (benchmarks/serve_bench.py defaults)
-SERVE_DIMS = dict(vocab=32768, d_model=2048, n_layers=8, n_heads=16,
+# the serving benchmark's model (benchmarks/serve_bench.py defaults) at
+# its full width; depth cut from 8 layers to 4 so that the smoke, with
+# the windowed-training phases, stays within ~660 s (every serving phase
+# is host-bound with a cost a layer: at 8 layers the smoke took 767 s on
+# an H100 80GB HBM3 at 700 W whose host ran the serving ticks ~50%
+# slower than the fastest host seen)
+SERVE_DIMS = dict(vocab=32768, d_model=2048, n_layers=4, n_heads=16,
                   n_kv_heads=4, d_head=128, d_ff=8192)
 SLOTS, N_PAGES, PAGE, MAX_PAGES = 8, 160, 128, 17
 CHUNK = 128
@@ -916,10 +938,12 @@ def check_decode_long(device, n_kv=4, group=4, d=128):
     return worst
 
 
-def _bwd_inputs(device, dtype, n, n_kv, s, causal, seed, b=1, d=128):
+def _bwd_inputs(device, dtype, n, n_kv, s, causal, seed, b=1, d=128,
+                window=None, segs=None):
     """(do, q, k, v, delta, lse, scale, spec) of one backward round:
-    random q, k, v, do; lse and o from the forward kernel; delta =
-    sum(o * do) in fp32, as flash_attention's backward computes it."""
+    random q, k, v, do; lse and o from the forward kernel (with `window`
+    and `segs`, its WIN / SEG instance); delta = sum(o * do) in fp32, as
+    flash_attention's backward computes it."""
     import torch
 
     from burst_attn_tpu_torch.ops import flash, masks
@@ -932,18 +956,20 @@ def _bwd_inputs(device, dtype, n, n_kv, s, causal, seed, b=1, d=128):
     spec = masks.round_spec(0, 0, s, s, causal, "contig")
     scale = d**-0.5
     _, lse, o = flash.flash_fwd(q, k, v, None, None, None, scale, spec,
-                                emit_o=True)
+                                window=window, segments=segs, emit_o=True)
     delta = (o.float() * do.float()).sum(-1)
     return do, q, k, v, delta, lse, scale, spec
 
 
-def _bwd_errs(got, want, what):
-    """Assert (dq, dk, dv) match the plain ones within BWD_RTOL/BWD_ATOL;
-    returns the three max-abs errors."""
+def _bwd_errs(got, want, what, scale=None):
+    """Assert (dq, dk, dv) match the plain ones within BWD_RTOL of each
+    one's largest entry (or of `scale`) + BWD_ATOL; returns the three
+    max-abs errors."""
     errs = []
     for a, b, name in zip(got, want, ("dq", "dk", "dv")):
         err = _max_err(a, b)
-        tol = BWD_RTOL * float(b.abs().max()) + BWD_ATOL
+        tol = BWD_RTOL * (float(b.abs().max()) if scale is None
+                          else scale) + BWD_ATOL
         assert err <= tol, f"{what} {name}: max-abs err {err:.3e} > {tol:.3e}"
         errs.append(err)
     return errs
@@ -1202,7 +1228,7 @@ _PARAMS = {}
 
 def model(dtype, device):
     """(cfg, params) at the serving width, random weights from seed 0;
-    made once per dtype (numpy init of 0.62 B parameters takes seconds)."""
+    made once per dtype (numpy init of its parameters takes seconds)."""
     import torch
 
     from burst_attn_tpu_torch.models.transformer import (
@@ -1990,27 +2016,33 @@ def _reset_counts():
     from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
 
     flash.flash_fwd.launches = flash.flash_fwd.seg_launches = 0
+    flash.flash_fwd.win_launches = 0
     for route in flash.BWD_ROUTES:
         flash.flash_bwd.launches[route] = 0
         flash.flash_bwd.seg_launches[route] = 0
+        flash.flash_bwd.win_launches[route] = 0
     for fn in (fused_ring.fused_ring_fwd, fused_ring_bwd.fused_ring_bwd):
-        fn.launches = fn.seg_launches = 0
+        fn.launches = fn.seg_launches = fn.win_launches = 0
 
 
 def _counts():
     """The training path's attention kernels' launch counters: flash_fwd,
     flash_bwd by route (fused, dq, dkdv), the fused ring's forward and
-    backward, and (keys ending in _seg) the launches of their SEG
-    instances among them."""
+    backward, and (keys ending in _seg, _win) the launches of their SEG
+    and WIN instances among them."""
     from burst_attn_tpu_torch.ops import flash, fused_ring, fused_ring_bwd
 
     fr, frb = fused_ring.fused_ring_fwd, fused_ring_bwd.fused_ring_bwd
-    return {"flash_fwd": flash.flash_fwd.launches, **flash.flash_bwd.launches,
-            "fused_ring_fwd": fr.launches, "fused_ring_bwd": frb.launches,
-            "flash_fwd_seg": flash.flash_fwd.seg_launches,
-            **{f"{r}_seg": x for r, x in flash.flash_bwd.seg_launches.items()},
-            "fused_ring_fwd_seg": fr.seg_launches,
-            "fused_ring_bwd_seg": frb.seg_launches}
+    out = {"flash_fwd": flash.flash_fwd.launches, **flash.flash_bwd.launches,
+           "fused_ring_fwd": fr.launches, "fused_ring_bwd": frb.launches}
+    for tag in ("seg", "win"):
+        out |= {"flash_fwd_" + tag: getattr(flash.flash_fwd,
+                                            f"{tag}_launches"),
+                **{f"{r}_{tag}": x for r, x in getattr(
+                    flash.flash_bwd, f"{tag}_launches").items()},
+                "fused_ring_fwd_" + tag: getattr(fr, f"{tag}_launches"),
+                "fused_ring_bwd_" + tag: getattr(frb, f"{tag}_launches")}
+    return out
 
 
 _COUNT_KEYS = ("flash_fwd", "fused", "dq", "dkdv", "fused_ring_fwd",
@@ -2020,7 +2052,9 @@ _COUNT_KEYS = ("flash_fwd", "fused", "dq", "dkdv", "fused_ring_fwd",
 def _launches(**nonzero):
     """A _counts() dict: the named counts, every other one 0."""
     return {k: nonzero.get(k, 0)
-            for k in _COUNT_KEYS + tuple(f"{x}_seg" for x in _COUNT_KEYS)}
+            for k in _COUNT_KEYS + tuple(f"{x}_{tag}" for tag in ("seg",
+                                                                   "win")
+                                         for x in _COUNT_KEYS)}
 
 
 def _train_model(n_layers, dtype, **kw):
@@ -4506,7 +4540,7 @@ def window_serve_phase(device):
 # draft rounds (the verify on kernel 7 at QT = k+1)
 
 SPEC_K = 4  # proposals a round (serve_bench.py --spec-k's default)
-# the early-exit draft: the target's first 2 of 8 layers, weights shared
+# the early-exit draft: the target's first 2 of 4 layers, weights shared
 # (serve_bench.py --spec-layers 2)
 SPEC_EXIT_LAYERS = 2
 SPEC_STEPS = 64  # speculative_generate's tokens on the longest prompt
@@ -6183,6 +6217,746 @@ def packed_ring_train_phase(device, single):
     return out
 
 
+# ---------------------------------------------------------------------------
+# windowed training: the WIN instances of kernels 2-5, 8 and 9 against their
+# plain versions and their times, the windowed train step on one device and
+# on the ring (both routes), dist_generate with a window, and
+# bench/window_bench.py
+
+# the training model's band: Mistral-7B's sliding_window / context ratio
+# (4096 of 32K) at TRAIN_SEQ, the serving cell's window
+TRAIN_WINDOW = 1024
+WIN_STEPS = 2  # timed windowed train steps, after a warm-up
+# kernels 2-5 with a window: (name, heads, kv heads, S, window): one
+# column, a band inside one 64-row tile, bands across tiles, a ragged S
+WIN_BWD_CASES = (("MHA window 1", 16, 16, 2048, 1),
+                 ("GQA window 40", 16, 4, 2048, 40),
+                 ("GQA window 300", 16, 4, 2048, 300),
+                 ("GQA ragged S window 200", 8, 2, 1000, 200))
+# kernels 8 and 9 with a window: (positions, heads, kv heads, local S,
+# window, dtype, ids): the ring train step's shape; a band that crosses
+# two shard boundaries (r_live 3 of 4), fp32 too; with packed documents
+WIN_RING_CASES = ((4, 16, 16, 2048, TRAIN_WINDOW, "bf16", False),
+                  (4, 8, 2, 512, 700, "bf16", False),
+                  (4, 8, 2, 512, 700, "fp32", False),
+                  (4, 8, 2, 512, 700, "bf16", True))
+
+
+def _band_mask(s, window, device):
+    """SDPA's boolean [S, S] mask of the causal band (True: attend)."""
+    import torch
+
+    i = torch.arange(s, device=device)
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+
+def check_flash_bwd_window(device):
+    """Kernels 2-5's WIN instances against tile_bwd(window=) on the card,
+    bf16 and fp32, WIN_BWD_CASES on both routes (the fused kernel and the
+    split pair), each launched twice and bitwise equal; a window above S
+    gives bitwise the instances without WIN; WIN + SEG (packed documents
+    under a band of 300).  Returns the largest errors {"fused": (dq, dk,
+    dv), "split": (...)}."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import flash, tile
+
+    worst = {"fused": [0.0] * 3, "split": [0.0] * 3}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = _dtype_key(dtype)
+        for ci, (name, n, n_kv, s, window) in enumerate(WIN_BWD_CASES):
+            args = _bwd_inputs(device, dtype, n, n_kv, s, True,
+                               seed=70 + ci, window=window)
+            want = tile.tile_bwd(*args, window=window)
+            errs = {}
+            for fused in (True, False):
+                route = "fused" if fused else "split"
+                got = flash.flash_bwd(*args, fused=fused, window=window)
+                again = flash.flash_bwd(*args, fused=fused, window=window)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                    (key, name, route)
+                # on the gradients' scale: a one-column band (window 1)
+                # has dq = 0 in exact arithmetic (a row sees itself alone,
+                # dP_ii = delta_i), so its error is that cancellation's
+                errs[route] = _bwd_errs(
+                    got, want, f"flash_bwd[window] {key} {name} {route}",
+                    scale=max(float(x.abs().max()) for x in want))
+                worst[route] = [max(a, b) for a, b in zip(worst[route],
+                                                          errs[route])]
+                del got, again
+            print(f"flash_bwd[window] {key} {name} N{n}/{n_kv} S{s}: "
+                  + "; ".join(f"{r} max_abs_err dq {e[0]:.3e} dk {e[1]:.3e}"
+                              f" dv {e[2]:.3e}" for r, e in errs.items())
+                  + ", two launches equal", flush=True)
+            del args, want
+        # a window above S: no band left, the instances without WIN
+        args = _bwd_inputs(device, dtype, 16, 4, 2048, True, seed=75)
+        for fused in (True, False):
+            a = flash.flash_bwd(*args, fused=fused, window=4096)
+            b = flash.flash_bwd(*args, fused=fused)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), (key, fused)
+        # WIN + SEG
+        ids = torch.from_numpy(_packed_ids(76, 1, 2048, 8)).to(device)
+        segs = (ids, ids)
+        args = _bwd_inputs(device, dtype, 16, 4, 2048, True, seed=76,
+                           window=300, segs=segs)
+        want = tile.tile_bwd(*args, window=300, segments=segs)
+        for fused in (True, False):
+            route = "fused" if fused else "split"
+            got = flash.flash_bwd(*args, fused=fused, window=300,
+                                  segments=segs)
+            again = flash.flash_bwd(*args, fused=fused, window=300,
+                                    segments=segs)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), route
+            errs = _bwd_errs(got, want, f"flash_bwd[window+seg] {key} {route}")
+            worst[route] = [max(x, y) for x, y in zip(worst[route], errs)]
+        print(f"flash_bwd[window] {key}: window 4096 >= S 2048 bitwise the "
+              f"instances without WIN (both routes); window 300 + 8 packed "
+              f"documents within tolerance, two launches equal", flush=True)
+        del args, want, got, again
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_flash_bwd_window(device, worst):
+    """Kernels 2-5's WIN instances at the windowed train step's shape (B1
+    N16/16 S8192 D128 bf16 causal, window TRAIN_WINDOW): held to
+    tile_bwd(window=) on both routes (two launches bitwise), then the
+    fused kernel's and the split pair's ms (each split kernel's share by
+    the profiler), the unwindowed fused kernel's in the same run, the
+    plain tile_bwd's and SDPA's backward with the band as a boolean mask.
+    Bound: the band's pairs (S w - w (w - 1) / 2 a head), 10 D flops each
+    fused (6 D dq, 8 D dk/dv), the rows' bytes read and written once.
+    Returns the kernels-line records flash_bwd_fused[window],
+    flash_bwd_dq[window], flash_bwd_dkdv[window]."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash, tile
+
+    n, s, w = TRAIN_DIMS["n_heads"], TRAIN_SEQ, TRAIN_WINDOW
+    args = _bwd_inputs(device, torch.bfloat16, n, n, s, True, seed=77,
+                       window=w)
+    do, q, k, v, delta, lse, _, _ = args
+    want = tile.tile_bwd(*args, window=w)
+    for fused in (True, False):
+        route = "fused" if fused else "split"
+        got = flash.flash_bwd(*args, fused=fused, window=w)
+        again = flash.flash_bwd(*args, fused=fused, window=w)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), route
+        errs = _bwd_errs(got, want, f"flash_bwd[window] train shape {route}")
+        worst[route] = [max(a, b) for a, b in zip(worst[route], errs)]
+        del got, again
+    del want
+    torch.cuda.empty_cache()
+    route = flash.bwd_route(q.shape, k.shape, window=w, triangular=True)
+    t = {"fused": time_ms(lambda: flash.flash_bwd(*args, fused=True,
+                                                  window=w), iters=5,
+                          warmup=1),
+         "split": time_ms(lambda: flash.flash_bwd(*args, fused=False,
+                                                  window=w), iters=5,
+                          warmup=1),
+         "unwindowed": time_ms(lambda: flash.flash_bwd(*args, fused=True),
+                               iters=3, warmup=1)}
+    _, _, top = device_breakdown(lambda: flash.flash_bwd(
+        *args, fused=False, window=w), 3, top=4)
+    dq_p = sum(x for name, x in top if "flash_bwd_dq_mma_kernel" in name)
+    dkdv_p = sum(x for name, x in top if "flash_bwd_dkdv_mma_kernel" in name)
+    assert dq_p > 0 and dkdv_p > 0, top
+    t["dq"] = t["split"] * dq_p / (dq_p + dkdv_p)
+    t["dkdv"] = t["split"] * dkdv_p / (dq_p + dkdv_p)
+    t["plain"] = time_ms(lambda: tile.tile_bwd(*args, window=w), iters=2,
+                         warmup=1)
+    torch.cuda.empty_cache()
+    mask = _band_mask(s, w, device)
+    t["library_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters=5, warmup=2)
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lo = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+    t["library"] = time_ms(lambda: torch.autograd.grad(
+        lo, (qr, kr, vr), do, retain_graph=True), iters=5, warmup=1)
+    del lo, qr, kr, vr, mask
+    pairs = n * (s * w - w * (w - 1) // 2)
+    print(f"flash_bwd[window] at B1 N{n}/{n} S{s} D128 bf16 window {w} "
+          f"(the route rule picks {route}): fused {t['fused']:.3f} ms, split "
+          f"pair {t['split']:.3f} ms (dq {t['dq']:.3f} + dk/dv "
+          f"{t['dkdv']:.3f} by the profiler's shares), unwindowed fused "
+          f"{t['unwindowed']:.3f} ms; plain tile_bwd {t['plain']:.3f} ms; "
+          f"SDPA backward with the band mask {t['library']:.3f} ms; "
+          f"{pairs / n / (s * (s + 1) // 2):.3f} of the causal pairs",
+          flush=True)
+    esz = q.element_size()
+    reads = esz * 2 * (q.numel() + k.numel()) + 4 * 2 * delta.numel()
+    recs = []
+    for name, kern, err, written, matmuls, lib, rep_ in (
+            ("flash_bwd_fused[window]", "fused", max(worst["fused"]),
+             q.numel() + 2 * k.numel(), 5, t["library"],
+             "burst_attn_tpu/ops/pallas_flash.py:1127 (_bwd_fused_kernel, "
+             "the banded sweep of bwd_band_nbq)"),
+            ("flash_bwd_dq[window]", "dq", worst["split"][0], q.numel(), 3,
+             None, "burst_attn_tpu/ops/pallas_flash.py:865 (_dq_kernel, "
+             "window)"),
+            ("flash_bwd_dkdv[window]", "dkdv", max(worst["split"][1:]),
+             2 * k.numel(), 4, None,
+             "burst_attn_tpu/ops/pallas_flash.py:945 (_dkdv_kernel, "
+             "window)")):
+        bms, by = bound_ms(reads + 4 * written, matmuls * 2 * pairs * 128)
+        recs.append(dict(name=name, route="cuda",
+                         source="burst_attn_tpu_torch/csrc/flash_bwd.cu",
+                         replaces=rep_, max_abs_err=err, ms=t[kern],
+                         plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+                         library_ms=lib,
+                         window={"shape": f"B1 N{n}/{n} S{s} D128 bf16 "
+                                          f"causal window {w}",
+                                 "route_rule": route, "pairs": pairs,
+                                 "ms_unwindowed_fused": t["unwindowed"],
+                                 "library_fwd_ms": t["library_fwd"]}))
+    for rec in recs[1:]:
+        rec["window"]["split_pair_ms"] = t["split"]
+        rec["window"]["profiler_ms"] = (dq_p, dkdv_p)
+    del args, do, q, k, v, delta, lse
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _win_ring_case(device, case, seed):
+    """(cfg, ring, (q, k, v, o, lse, do) stacked, seg or None, bwd
+    program, tables, fwd program) of one WIN_RING_CASES case: o and lse
+    from kernel 8's WIN instance."""
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring
+    from burst_attn_tpu_torch.parallel import mesh
+
+    w, n, n_kv, s, window, key, packed = case
+    cfg, ring, args, prog, tables = _fused_bwd_setup(
+        device, (w, "contig", True, n, n_kv, s, key, dict(window=window)),
+        seed)
+    seg = None
+    if packed:
+        ids = _packed_ids(seed, 1, w * s, 8)
+        seg = mesh.shard(torch.from_numpy(np.ascontiguousarray(ids)).to(
+            device), w, dim=1)
+    q, k, v, _, _, do = args
+    o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+    fprog = fused_ring.ring_plan(cfg, *ring, s, "fwd")[0]
+    return cfg, ring, (q, k, v, o, lse, do), seg, prog, tables, fprog
+
+
+def check_ring_window(device):
+    """Kernels 8 and 9's WIN instances on the windowed contig ring's
+    truncated program (WIN_RING_CASES): r_live = min(W, (S + w - 2) // S
+    + 1) rounds in both programs; against fused_ring_reference and
+    fused_ring_bwd_reference with the window (head chunks of 4 at the
+    ring step's shape), each launched twice and bitwise equal; kernel 8's
+    STATS + WIN instance reports the truncated round count, the elided
+    rounds and the band's pairs, o bitwise the stats-off launch.  Returns
+    the largest errors (kernel 8's o, kernel 9's of dq, dk, dv) and the
+    ring step's r_live."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd, masks
+
+    k8_err, k9_err, step_r_live = 0.0, 0.0, None
+    for ci, case in enumerate(WIN_RING_CASES):
+        w, n, n_kv, s, window, key, packed = case
+        dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[key]
+        cfg, ring, args, seg, prog, tables, fprog = _win_ring_case(
+            device, case, seed=80 + ci)
+        q, k, v, o, lse, do = args
+        r_live = min(w, (s + window - 2) // s + 1)
+        assert fprog.n_rounds == prog.n_rounds == r_live < w, (case, r_live)
+        if ci == 0:
+            step_r_live = r_live
+        what = (f"{key} W={w} N{n}/{n_kv} S_local {s} window {window}"
+                f"{' packed' if packed else ''}")
+        again = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse), what
+        ftables = fused_ring.ring_plan(cfg, *ring, s, "fwd")[1]
+        po, plse = fused_ring.fused_ring_reference(
+            q, k, v, fprog, ftables, 128 ** -0.5, seg=seg, window=window)
+        err8 = _check_o(f"fused_ring_fwd[window] {what}", o, po, dtype)
+        _stats_close(f"fused_ring_fwd[window] {what} lse", lse, plse, key)
+        del po, plse, again
+        got = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, seg=seg)
+        again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, seg=seg)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), what
+        want = fused_ring_bwd.fused_ring_bwd_reference(
+            *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm,
+            seg=seg, window=window, head_chunk=4)
+        errs = _bwd_errs(got, want, f"fused_ring_bwd[window] {what}")
+        note = ""
+        if ci == 0:  # the STATS + WIN instance
+            so, slse, st = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring,
+                                                     collect_stats=True)
+            assert torch.equal(so, o) and torch.equal(slse, lse), what
+            pairs = [sum(masks.spec_pair_count(
+                masks.MaskSpec(*map(int, t[r, :5])), s, s, window)
+                for r in range(fprog.n_rounds)) for t in ftables]
+            assert st.fused_rounds.cpu().tolist() == [r_live] * w
+            assert st.rounds_elided.cpu().tolist() == [w - r_live] * w
+            assert st.attn_pairs.cpu().tolist() == [float(x) for x in pairs]
+            note = (f"; STATS instance: fused_rounds {r_live}, elided "
+                    f"{w - r_live}, attn_pairs {pairs} (the band's)")
+        k8_err, k9_err = max(k8_err, err8), max(k9_err, *errs)
+        print(f"fused_ring[window] {what}: r_live {r_live} of {w} rounds; "
+              f"kernel 8 max_abs_err {err8:.3e}, kernel 9 dq {errs[0]:.3e} "
+              f"dk {errs[1]:.3e} dv {errs[2]:.3e}; two launches equal{note}",
+              flush=True)
+        del args, got, again, want
+        torch.cuda.empty_cache()
+    return k8_err, k9_err, step_r_live
+
+
+def time_ring_window(device, lib, errs):
+    """Kernels 8 and 9's WIN instances at the windowed ring train step's
+    shape (W=4, B1 N16/16 S_local 2048 D128 bf16, window TRAIN_WINDOW:
+    r_live 2 of 4 rounds), beside the unwindowed contig launches in the
+    same run; the plain versions' host-timed walk; `lib`: SDPA with the
+    band mask at the global shape (fwd ms, bwd ms).  Bound: the band's
+    pairs, kernel 8's rows and the truncated program's copies, kernel 9's
+    by _bwd_bound with the band's pairs.  Returns the kernels-line records
+    fused_ring_fwd[window] and fused_ring_bwd[window]."""
+    import dataclasses
+
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd, masks
+
+    case = WIN_RING_CASES[0]
+    w, n, _, s, window, _, _ = case
+    cfg, ring, args, _, prog, tables, fprog = _win_ring_case(device, case,
+                                                             seed=88)
+    q, k, v, o, lse, do = args
+    d, b = 128, 1
+    t = {}
+    t0 = time.perf_counter()
+    fused_ring.fused_ring_reference(
+        q, k, v, fprog, fused_ring.ring_plan(cfg, *ring, s, "fwd")[1],
+        128 ** -0.5, window=window)
+    torch.cuda.synchronize()
+    t["plain_fwd"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fused_ring_bwd.fused_ring_bwd_reference(
+        *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm,
+        window=window, head_chunk=4)
+    torch.cuda.synchronize()
+    t["plain_bwd"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    dense = dataclasses.replace(cfg, window=None)
+    for name, c in (("win", cfg), ("dense", dense)):
+        oo, ll = fused_ring.fused_ring_fwd(q, k, v, c, *ring)
+        t[name, "k8"] = time_ms(lambda: fused_ring.fused_ring_fwd(
+            q, k, v, c, *ring), iters=10, warmup=2)
+        t[name, "k9"] = time_ms(lambda: fused_ring_bwd.fused_ring_bwd(
+            q, k, v, oo, ll, do, c, *ring), iters=10, warmup=2)
+        del oo, ll
+    pairs = b * n * sum(masks.spec_pair_count(
+        masks.MaskSpec(*map(int, tb[r, :5])), s, s, window)
+        for tb in fused_ring.ring_plan(cfg, *ring, s, "fwd")[1]
+        for r in range(fprog.n_rounds))
+    chunk = 2 * b * n * s * d * 2  # K and V of one position, bf16
+    copies = w * (sum(fprog.rows["send0"]) + sum(fprog.rows["send1"])
+                  + len(fprog.copy_in))
+    k8_bytes = (2 * 4 * q.numel() + 4 * lse.numel()
+                + 2 * copies * chunk)  # q, k, v, o bf16; lse; copies
+    b8 = bound_ms(k8_bytes, 4 * d * pairs)
+    b9 = _bwd_bound(tables, prog, b, n, n, s, d, 2, pairs=pairs)[:2]
+    print(f"WIN kernels 8 and 9 at the ring step's shape (W={w} B1 N{n}/{n} "
+          f"S_local {s} bf16, window {window}: {fprog.n_rounds} of {w} "
+          f"rounds), ms a launch: kernel 8 {t['win', 'k8']:.4f} (unwindowed "
+          f"contig {t['dense', 'k8']:.4f}), kernel 9 {t['win', 'k9']:.4f} "
+          f"(unwindowed {t['dense', 'k9']:.4f}); bounds {b8[0]:.4f} / "
+          f"{b9[0]:.4f} ms; plain versions {t['plain_fwd']:.0f} / "
+          f"{t['plain_bwd']:.0f} ms", flush=True)
+    recs = []
+    for name, kern, src, rep_, bnd, li, err in (
+            ("fused_ring_fwd[window]", "k8", "fused_ring_fwd.cu",
+             "burst_attn_tpu/ops/fused_ring.py:1049 (_fused_fwd_kernel, "
+             "wnd, r_live)", b8, 0, errs[0]),
+            ("fused_ring_bwd[window]", "k9", "fused_ring_bwd.cu",
+             "burst_attn_tpu/ops/fused_ring_bwd.py:1087 (_fused_bwd_kernel, "
+             "wnd, r_live)", b9, 1, errs[1])):
+        recs.append(dict(
+            name=name, route="cuda",
+            source=f"burst_attn_tpu_torch/csrc/{src}", replaces=rep_,
+            max_abs_err=err, ms=t["win", kern],
+            plain_ms=t["plain_fwd" if kern == "k8" else "plain_bwd"],
+            bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib[li],
+            window={"shape": f"W={w} B1 N{n}/{n} S_local {s} D{d} bf16 "
+                             f"contig window {window} (the windowed ring "
+                             "train step's)",
+                    "r_live": fprog.n_rounds, "pairs": pairs,
+                    "ms_unwindowed": t["dense", kern]}))
+    del args, q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _win_ring_live(w, s, window):
+    """(forward, backward) launches of kernel 1 / flash_bwd a layer on the
+    windowed single contig scan ring of w positions: the live rounds of
+    its r_live-truncated schedule (round 0 and the next r_live - 1 in the
+    forward; round 0 and the last r_live - 1 in the backward), each
+    position's round live by masks.spec_live with the window."""
+    from burst_attn_tpu_torch.ops import masks
+    from burst_attn_tpu_torch.parallel.ring import partition_at_round
+
+    r_live = masks.live_round_prefix("contig", s, w, causal=True,
+                                     window=window)
+
+    def live(qp, kp):
+        return masks.spec_live(masks.round_spec(qp, kp, s, s, True, "contig",
+                                                window=window), window)
+
+    fwd = sum(live(p, partition_at_round(r, 0, p, 1, w))
+              for p in range(w) for r in range(r_live))
+    bwd_rounds = [0] + list(range(w - (r_live - 1), w))
+    bwd = sum(live(partition_at_round(r, 0, p, 1, w), p)
+              for p in range(w) for r in bwd_rounds)
+    return fwd, bwd, r_live
+
+
+def _win_parity(device, mesh=None, backends=(None,)):
+    """fp32, 2 layers at full width, S 2048, window TRAIN_WINDOW: the loss
+    and gradients of one step against the one-device plain-attention
+    step (mesh None: the kernels on one device; else the ring's routes),
+    within LOSS_RTOL and GRAD_RTOL of the largest entry."""
+    import dataclasses
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import (
+        LAYER_KEYS, init_params, param_leaves,
+    )
+
+    base = _train_model(2, torch.float32, layout="contig",
+                        window=TRAIN_WINDOW)
+    params = init_params(base, seed=0, device=device)
+    leaves = list(param_leaves(params))
+    for x in leaves:
+        x.requires_grad_(True)
+
+    def loss_grads(cfg, m):
+        batch = train.make_batch(2, cfg, m, batch=1, seq=2048, device=device)
+        loss = train.loss_fn(params, batch["tokens"], batch["positions"],
+                             batch["labels"], cfg, m)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    with plain_train_attention():
+        loss_p, grads_p = loss_grads(base, None)
+    names = ["embed"] + [f"layers.{i}.{x}" for i in range(2)
+                         for x in LAYER_KEYS] + ["final_norm", "lm_head"]
+    out = {}
+    for backend in backends:
+        cfg = base if backend is None else dataclasses.replace(
+            base, attn_backend=backend)
+        _reset_counts()
+        loss_k, grads_k = loss_grads(cfg, mesh)
+        launches = _counts()
+        assert sum(launches[k + "_win"] for k in _COUNT_KEYS) > 0, launches
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        assert loss_err <= LOSS_RTOL, (backend, loss_k, loss_p)
+        worst = (0.0, "")
+        for name, ga, gb in zip(names, grads_k, grads_p):
+            ref = float(gb.abs().max())
+            err = _max_err(ga, gb)
+            assert err <= GRAD_RTOL * ref + 1e-12, \
+                f"window {backend} gradient {name}: {err:.3e} of {ref:.3e}"
+            worst = max(worst, (err / max(ref, 1e-30), name))
+        out[backend or "one device"] = dict(
+            loss_rel_err=loss_err, grad_rel_err=worst[0],
+            grad_worst=worst[1])
+    del params, leaves, grads_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_train_phase(device):
+    """The windowed train step on one device: train_smoke's model with
+    window TRAIN_WINDOW (layout contig; bf16, remat, B=1, S=TRAIN_SEQ,
+    the seed-0 weights) on make_batch(1): a warm-up and WIN_STEPS timed
+    steps, exactly 2 WIN forward launches a layer and step (kernel 1) and
+    one WIN backward a layer and step on the route flash.bwd_route picks,
+    nothing else; the loss finite; the control from the same seed with
+    plain attention under the band, whose first two losses must be within
+    CONTROL_RTOL; then fp32 parity at 2 layers (_win_parity)."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.ops import flash
+
+    n_layers = TRAIN_DIMS["n_layers"]
+    cfg = _train_model(n_layers, torch.bfloat16, layout="contig",
+                       window=TRAIN_WINDOW)
+    tcfg = train.TrainConfig()
+    state = [_seed_state(cfg, tcfg, device)]
+    batch = train.make_batch(1, cfg, batch=1, seq=TRAIN_SEQ, device=device)
+    step = train.make_train_step(cfg, tcfg, device=device)
+    warm = _train_run(step, state, batch, 1)
+    losses, norms, times, launches = _train_run(step, state, batch,
+                                                WIN_STEPS)
+    shape = (1, TRAIN_DIMS["n_heads"], TRAIN_SEQ, TRAIN_DIMS["d_head"])
+    route = flash.bwd_route(shape, shape, window=TRAIN_WINDOW,
+                            triangular=True)
+    per = dict(flash_fwd=2 * n_layers * WIN_STEPS)
+    per |= ({"fused": n_layers * WIN_STEPS} if route == "fused" else
+            {"dq": n_layers * WIN_STEPS, "dkdv": n_layers * WIN_STEPS})
+    want = _launches(**per, **{f"{k}_win": x for k, x in per.items()})
+    assert launches == want, (launches, want)
+    losses = warm[0] + losses
+    assert all(map(math.isfinite, losses + norms)), losses
+    # one step through the split pair (the WIN dq and dk/dv kernels)
+    with split_train_backward():
+        s_losses, _, s_times, s_launches = _train_run(step, state, batch, 1)
+    per = dict(flash_fwd=2 * n_layers, dq=n_layers, dkdv=n_layers)
+    want = _launches(**per, **{f"{k}_win": x for k, x in per.items()})
+    assert s_launches == want, (s_launches, want)
+    assert all(map(math.isfinite, s_losses)), s_losses
+    step_ms = statistics.median(times)
+    res = dict(seq=TRAIN_SEQ, window=TRAIN_WINDOW, bwd_route=route,
+               split_launches=s_launches, split_step_ms=s_times[0],
+               losses=losses, step_ms=step_ms, step_ms_all=times,
+               tokens_per_s=TRAIN_SEQ / (step_ms / 1e3), launches=launches,
+               launches_per_step={k: x // WIN_STEPS
+                                  for k, x in launches.items() if x},
+               prof=device_breakdown(lambda: step(state[0], batch), 1,
+                                     top=8))
+    state[0] = None
+    torch.cuda.empty_cache()
+    state[0] = _seed_state(cfg, tcfg, device)
+    with plain_train_attention():
+        c_losses, _, c_times, c_launches = _train_run(step, state, batch, 2)
+    assert sum(c_launches.values()) == 0, c_launches
+    state[0] = None
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses, c_losses)]
+    assert max(diffs[:2]) <= CONTROL_RTOL, (losses, c_losses)
+    res.update(control_losses=c_losses, control_rel_diffs=diffs[:2],
+               control_step_ms=c_times[-1])
+    print(f"windowed train step (window {TRAIN_WINDOW}, bf16, remat, B=1 "
+          f"S={TRAIN_SEQ}): {step_ms:.1f} ms (median of {WIN_STEPS}: "
+          f"{[round(x, 1) for x in times]}), {res['tokens_per_s']:.0f} "
+          f"tokens/s; losses {[round(x, 4) for x in losses]}; launches per "
+          f"step {res['launches_per_step']} (backward route {route}); "
+          f"control with plain attention under the band "
+          f"{[round(x, 4) for x in c_losses]} (rel diffs "
+          f"{[float(f'{x:.2e}') for x in diffs[:2]]})", flush=True)
+    print_profile("windowed train step", res["prof"])
+    res["prof"] = res["prof"][:2]
+    torch.cuda.empty_cache()
+    res["parity"] = _win_parity(device)
+    print(f"windowed train parity fp32 (2 layers, S=2048, window "
+          f"{TRAIN_WINDOW}) vs plain attention: {res['parity']}", flush=True)
+    return res
+
+
+def window_ring_train_phase(device, single):
+    """The windowed ring train step: the model of window_train_phase over
+    mesh {"sp": RING_TRAIN_SP} (contig: S_local 2048, r_live 2 of 4), the
+    fused route (kernels 8 and 9's WIN instances: 2 and 1 launches a layer
+    and step) and the scan route (kernels 1-5's: the live rounds of the
+    truncated schedule, _win_ring_live), each a warm-up and WIN_STEPS
+    timed steps: exact launch counts, no fallback, the first two losses
+    within CONTROL_RTOL of the single-device windowed run (`single`);
+    fp32 at 2 layers the loss and gradients of both routes against one
+    device with plain attention (_win_parity)."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.ops import flash
+
+    w = RING_TRAIN_SP
+    mesh = {"sp": w}
+    n_layers = TRAIN_DIMS["n_layers"]
+    s_loc = TRAIN_SEQ // w
+    n_fwd, n_bwd, r_live = _win_ring_live(w, s_loc, TRAIN_WINDOW)
+    shape = (1, TRAIN_DIMS["n_heads"], s_loc, TRAIN_DIMS["d_head"])
+    route = flash.bwd_route(shape, shape, window=TRAIN_WINDOW)
+    tcfg = train.TrainConfig()
+    out = dict(r_live=r_live, scan_live_rounds=dict(fwd=n_fwd, bwd=n_bwd),
+               scan_bwd_route=route)
+    for backend in ("fused_ring", "auto"):
+        cfg = _train_model(n_layers, torch.bfloat16, attn_backend=backend,
+                           layout="contig", window=TRAIN_WINDOW)
+        state = [_seed_state(cfg, tcfg, device)]
+        batch = train.make_batch(1, cfg, mesh, batch=1, seq=TRAIN_SEQ,
+                                 device=device)
+        step = train.make_train_step(cfg, tcfg, mesh, device=device)
+        obs0 = _obs_now()
+        warm = _train_run(step, state, batch, 1)
+        losses, _, times, launches = _train_run(step, state, batch,
+                                                WIN_STEPS)
+        if backend == "fused_ring":
+            per = {"fused_ring_fwd": 2 * n_layers, "fused_ring_bwd": n_layers}
+        else:
+            per = {"flash_fwd": 2 * n_layers * n_fwd}
+            per |= ({"fused": n_layers * n_bwd} if route == "fused" else
+                    {"dq": n_layers * n_bwd, "dkdv": n_layers * n_bwd})
+        per = {k: x * WIN_STEPS for k, x in per.items()}
+        want = _launches(**per, **{f"{k}_win": x for k, x in per.items()})
+        assert launches == want, (backend, launches, want)
+        assert not any(key.startswith("burst.fused_fallback")
+                       for key in _obs_since(obs0)), dict(_obs_since(obs0))
+        losses = warm[0] + losses
+        assert all(map(math.isfinite, losses)), losses
+        diffs = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                     single["losses"])]
+        assert max(diffs[:2]) <= CONTROL_RTOL, (backend, losses,
+                                                single["losses"])
+        step_ms = statistics.median(times)
+        prof = device_breakdown(lambda: step(state[0], batch), 1, top=8)
+        print_profile(f"windowed ring train step, {backend}", prof)
+        out[backend] = dict(step_ms=step_ms, step_ms_all=times,
+                            prof=prof[:2], losses=losses,
+                            rel_diff_vs_single=diffs[:2], launches=launches,
+                            tokens_per_s=TRAIN_SEQ / (step_ms / 1e3),
+                            launches_per_step={
+                                k: x // WIN_STEPS
+                                for k, x in launches.items() if x})
+        print(f"windowed ring train step ({backend}, mesh {mesh}, contig, "
+              f"window {TRAIN_WINDOW}: r_live {r_live} of {w}, bf16, B=1 "
+              f"S={TRAIN_SEQ}): {step_ms:.1f} ms (median of {WIN_STEPS}: "
+              f"{[round(x, 1) for x in times]}); losses "
+              f"{[round(x, 4) for x in losses]} (single device "
+              f"{[round(x, 4) for x in single['losses']]}, rel diffs "
+              f"{[float(f'{x:.2e}') for x in diffs[:2]]}); launches per step "
+              f"{out[backend]['launches_per_step']}"
+              + (f" = 2 x {n_layers} layers x {n_fwd} live forward rounds "
+                 f"and {n_layers} x {n_bwd} live backward rounds ({route})"
+                 if backend == "auto" else ""), flush=True)
+        state[0] = None
+        torch.cuda.empty_cache()
+    out["parity"] = _win_parity(device, mesh, ("fused_ring", "auto"))
+    print(f"windowed ring parity fp32 (mesh {mesh}, 2 layers, S=2048) vs one "
+          f"device with plain attention: {out['parity']}", flush=True)
+    return out
+
+
+def window_dist_phase(device, hand):
+    """dist_generate with window WINDOW (the serving model, contig) over
+    sp=HANDOFF_SP, both routes (kernel 8's WIN instance once a layer;
+    kernel 1's once a live round of every position and layer), no
+    fallback.  fp32 at HANDOFF_PROMPT_FP32 tokens: both routes token-exact
+    with each other and with the single-device dense windowed `generate`.
+    bf16 at HANDOFF_PROMPT tokens: the fused stream against the scan
+    route's dist_decode_step, teacher-forced (the serving bar); prefill
+    ms and decode ms a step per route."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models.decode import generate
+    from burst_attn_tpu_torch.models.dist_decode import (
+        dist_decode_step, dist_generate, dist_prefill,
+    )
+    from burst_attn_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"sp": HANDOFF_SP}, device=device)
+    n_layers = SERVE_DIMS["n_layers"]
+    res = {}
+    for key, dtype, prompt in (
+            ("fp32", torch.float32, hand["_fp32_prompt"]),
+            ("bf16", torch.bfloat16, hand["_bf16_prompt"])):
+        params = model(dtype, device)[1]
+        p = torch.from_numpy(prompt.astype(np.int64))[None].to(device)
+        n_fwd = _win_ring_live(HANDOFF_SP, len(prompt) // HANDOFF_SP,
+                               WINDOW)[0]
+        toks = {}
+        for backend in ("fused_ring", "auto"):
+            cfg = dataclasses.replace(_handoff_cfg(dtype, backend),
+                                      layout="contig", window=WINDOW)
+            _reset_counts()
+            obs0 = _obs_now()
+            with torch.no_grad():
+                out = dist_generate(params, p, cfg, mesh,
+                                    steps=HANDOFF_STEPS)
+            torch.cuda.synchronize()
+            per = ({"fused_ring_fwd": n_layers} if backend == "fused_ring"
+                   else {"flash_fwd": n_layers * n_fwd})
+            launches = _counts()
+            assert launches == _launches(**per, **{
+                f"{k}_win": x for k, x in per.items()}), (key, launches)
+            assert not any(k_.startswith("burst.fused_fallback")
+                           for k_ in _obs_since(obs0))
+            toks[backend] = [int(t) for t in out[0]]
+            if key == "bf16":
+                res[f"launches_{backend}"] = per
+
+                def prefill():
+                    with torch.no_grad():
+                        return dist_prefill(params, p, cfg, mesh,
+                                            gen_budget=HANDOFF_STEPS)
+                res[f"prefill_ms_{backend}"] = host_ms(prefill)
+                _, cache = prefill()
+                feed = torch.tensor([toks[backend][0]], device=device)
+                n_new = cache.n_new
+
+                def step():
+                    with torch.no_grad():
+                        dist_decode_step(params, feed, len(prompt) + n_new,
+                                         cache._replace(n_new=n_new), cfg,
+                                         mesh)
+                res[f"decode_ms_{backend}"] = host_ms(
+                    lambda: [step() for _ in range(8)]) / 8
+                del cache
+        a, c = toks["fused_ring"], toks["auto"]
+        if key == "fp32":
+            wcfg = dataclasses.replace(_handoff_cfg(dtype, "auto"),
+                                       layout="contig", window=WINDOW)
+            with torch.no_grad():
+                dense = generate(params, p, wcfg, steps=HANDOFF_STEPS,
+                                 max_seq=len(prompt) + HANDOFF_STEPS)
+            dense = [int(t) for t in dense[0]]
+            assert a == c == dense, (a, c, dense)
+            print(f"dist_generate window {WINDOW} fp32 ({len(prompt)}-token "
+                  f"prompt, sp={HANDOFF_SP}): fused and scan routes "
+                  f"token-exact with each other and with the dense windowed "
+                  f"generate; scan forward launches a layer {n_fwd}",
+                  flush=True)
+        else:
+            forced = _dist_forced_agreement(dataclasses.replace(
+                _handoff_cfg(dtype, "auto"), layout="contig", window=WINDOW),
+                params, prompt, a, mesh, device)
+            check_agreement(f"dist_generate window {WINDOW} bf16 fused "
+                            "stream", forced, True,
+                            against="the scan route's dist_decode_step")
+            res["bf16_forced_agree"] = forced[0]
+            res["bf16_routes_equal"] = sum(x == y for x, y in zip(a, c))
+        torch.cuda.empty_cache()
+    print(f"dist_generate window {WINDOW} ({HANDOFF_PROMPT} tokens, bf16, "
+          f"sp={HANDOFF_SP}): prefill fused ring "
+          f"{res['prefill_ms_fused_ring']:.1f} ms, scan ring "
+          f"{res['prefill_ms_auto']:.1f} ms; decode step "
+          f"{res['decode_ms_fused_ring']:.2f} / {res['decode_ms_auto']:.2f} "
+          f"ms", flush=True)
+    return res
+
+
+def window_bench_phase(device):
+    """bench/window_bench.py once at its defaults (kernel 1's forward at
+    S 65536, N32, D128 bf16 over windows 65536, 16384, 4096), its rows
+    printed: the time follows the band."""
+    from burst_attn_tpu_torch.bench import window_bench
+
+    rows = window_bench.run(65536, 32, 128, [65536, 16384, 4096], iters=5)
+    for r in rows:
+        print(f"window_bench: {json.dumps(r)}", flush=True)
+    assert rows[-1]["fwd_ms"] < rows[0]["fwd_ms"], rows
+    return rows
+
+
+def _mark(t_start, what):
+    """Print the seconds since the smoke started, after `what`."""
+    print(f"[{time.perf_counter() - t_start:.1f} s] {what} done", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -6228,12 +7002,25 @@ def main() -> int:
                  "fused_ring_fwd": fused_ring.fwd_attrs(seg=True)
                  + fused_ring.fwd_attrs(stats=True, seg=True),
                  "fused_ring_bwd": fused_ring_bwd.bwd_attrs(seg=True)}
+    # the WIN instances (the window band of kernels 2-5, 8 and 9); the
+    # instances without SEG and WIN keep their registers and spills
+    win_attrs = {"flash_bwd": flash.bwd_attrs(win=True)
+                 + flash.bwd_attrs(seg=True, win=True),
+                 "fused_ring_fwd": fused_ring.fwd_attrs(win=True)
+                 + fused_ring.fwd_attrs(stats=True, win=True)
+                 + fused_ring.fwd_attrs(seg=True, win=True)
+                 + fused_ring.fwd_attrs(stats=True, seg=True, win=True),
+                 "fused_ring_bwd": fused_ring_bwd.bwd_attrs(win=True)
+                 + fused_ring_bwd.bwd_attrs(seg=True, win=True)}
+    for name, rows in win_attrs.items():
+        for a in rows:
+            assert 0 < a["regs"] <= 255 and a["ctas"] >= 1, (name, a)
     for name, want in NO_SEG_ATTRS.items():
         got = {a["instance"]: (a["regs"], a["local_bytes"])
                for a in attrs_by_lib[name]}
         assert {k: got[k] for k in want} == want, (name, got, want)
     for name, rows in (list(attrs_by_lib.items()) + list(stats_attrs.items())
-                       + list(seg_attrs.items())):
+                       + list(seg_attrs.items()) + list(win_attrs.items())):
         for a in rows:
             print(f"{name} {a['instance']}: {a['regs']} registers, "
                   f"{a['local_bytes']} local (spill) bytes a thread, "
@@ -6329,7 +7116,29 @@ def main() -> int:
     print(f"packed-segment kernel phases: {time.perf_counter() - t_seg:.1f} "
           "s", flush=True)
     torch.cuda.empty_cache()
+    # windowed training: the WIN instances of kernels 2-5, 8 and 9
+    t_win = time.perf_counter()
+    win_worst = check_flash_bwd_window(device)
+    win_k8_err, win_k9_err, _ = check_ring_window(device)
+    win_recs = time_flash_bwd_window(device, win_worst)
+    win_recs += time_ring_window(
+        device, (win_recs[0]["window"]["library_fwd_ms"],
+                 win_recs[0]["library_ms"]), (win_k8_err, win_k9_err))
+    for rec, lib, labels in zip(win_recs, (
+            "flash_bwd", "flash_bwd", "flash_bwd", "fused_ring_fwd",
+            "fused_ring_bwd"), (
+            ("bf16 fused win", "fp32 fused win"), ("bf16 dq win",),
+            ("bf16 dkdv win",), None, None)):
+        rec["attrs"] = [a for a in win_attrs[lib]
+                        if (labels is None and " seg" not in a["instance"]
+                            and " stats" not in a["instance"])
+                        or (labels is not None and a["instance"] in labels)]
+    wbench = window_bench_phase(device)
+    print(f"window kernel phases: {time.perf_counter() - t_win:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
 
+    _mark(t_start, "kernel phases")
     serve_res = serve_engine_phase(device)
     print(f"ServeEngine prefill {len(serve_res['bf16']['prompts'][1])} "
           f"tokens: {serve_res['prefill_ms']:.2f} ms; decode step "
@@ -6364,8 +7173,10 @@ def main() -> int:
         print_profile(f"pipelined decode step, {what} "
                       f"({pticks[f'ticks_profiled_{name}']:.0f} ticks in 4 "
                       f"steps)", pticks[f"prof_{name}"])
+    _mark(t_start, "serving phases")
     verify_err, verify_rec, spec = speculative_phase(device, serve_res, rag)
     ckpt_res = checkpoint_phase(device)
+    _mark(t_start, "speculative and checkpoint phases")
     wserve = window_serve_phase(device)
     k8_err, k1_err = check_handoff_kernels(device)
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
@@ -6383,14 +7194,20 @@ def main() -> int:
     print_profile("handoff prefill, scan ring", hand["prof_prefill_auto"])
     print_profile("handoff decode step", hand["prof_decode_fused_ring"])
     dist = dist_generate_phase(device, hand)
+    t_wd = time.perf_counter()
+    wdist = window_dist_phase(device, hand)
+    print(f"windowed dist_generate phase: {time.perf_counter() - t_wd:.1f} s",
+          flush=True)
     print_profile("dist_generate prefill, fused ring",
                   dist["prof_prefill_fused_ring"])
     print_profile("dist_generate prefill, scan ring",
                   dist["prof_prefill_auto"])
     print_profile("dist_generate decode step", dist["prof_decode_fused_ring"])
+    _mark(t_start, "window serving, handoff and dist_generate phases")
     dstats = devstats_phase(device)
     obs_res = obs_phase(device, pticks)
 
+    _mark(t_start, "devstats and obs phases")
     _PARAMS.clear()  # the serving models' weights
     torch.cuda.empty_cache()
     tr = train_phase(device)
@@ -6418,10 +7235,16 @@ def main() -> int:
                                    "k9_phase_wait_share", "k9_ctas")}
     ring_rec["max_abs_err"] = max(ring_rec["max_abs_err"], k8_err)
     ring_bwd_rec["max_abs_err"] = max(ring_bwd_rec["max_abs_err"], k9_err)
+    _mark(t_start, "train phase and ring kernels at the step's shape")
     ring_tr = ring_train_phase(device, tr)
     t_packed = time.perf_counter()
     ptr = packed_train_phase(device)
     pring = packed_ring_train_phase(device, ptr)
+    t_wt = time.perf_counter()
+    wtr = window_train_phase(device)
+    wring = window_ring_train_phase(device, wtr)
+    print(f"windowed training phases: {time.perf_counter() - t_wt:.1f} s",
+          flush=True)
     _SEED_PARAMS.clear()  # the training model's seed-0 weights
     torch.cuda.empty_cache()
     parity = train_parity(device)
@@ -6432,6 +7255,7 @@ def main() -> int:
     print(f"packed training phases: {time.perf_counter() - t_packed:.1f} s "
           "(with the phases between them)", flush=True)
 
+    _mark(t_start, "training phases")
     launches = {"flash_fwd": serve_res["bf16"]["launches"]["flash_fwd"],
                 "paged_decode": serve_res["bf16"]["launches"][
                     "paged_decode_attention"],
@@ -6472,10 +7296,32 @@ def main() -> int:
                 "fused_ring_fwd[seg]": pring["fused_ring"]["launches"][
                     "fused_ring_fwd_seg"],
                 "fused_ring_bwd[seg]": pring["fused_ring"]["launches"][
-                    "fused_ring_bwd_seg"]}
-    for rec in seg_recs:
+                    "fused_ring_bwd_seg"],
+                # the windowed train step (its split step for kernels
+                # 4-5), the windowed ring step's scan route (kernels 1-3)
+                # and fused route (kernels 8-9), the windowed
+                # dist_generate's prefills: WIN instances only
+                "flash_bwd_fused[window]": wtr["launches"]["fused_win"]
+                + wring["auto"]["launches"]["fused_win"],
+                "flash_bwd_dq[window]": wtr["split_launches"]["dq_win"]
+                + wtr["launches"]["dq_win"]
+                + wring["auto"]["launches"]["dq_win"],
+                "flash_bwd_dkdv[window]": wtr["split_launches"]["dkdv_win"]
+                + wtr["launches"]["dkdv_win"]
+                + wring["auto"]["launches"]["dkdv_win"],
+                "fused_ring_fwd[window]": wring["fused_ring"]["launches"][
+                    "fused_ring_fwd_win"]
+                + wdist["launches_fused_ring"]["fused_ring_fwd"],
+                "fused_ring_bwd[window]": wring["fused_ring"]["launches"][
+                    "fused_ring_bwd_win"]}
+    # kernel 1's WIN instance on the training paths too
+    launches["flash_fwd[window]"] += (
+        wtr["launches"]["flash_fwd_win"]
+        + wring["auto"]["launches"]["flash_fwd_win"]
+        + wdist["launches_auto"]["flash_fwd"])
+    for rec in seg_recs + win_recs:
         assert launches[rec["name"]] > 0, (rec["name"], launches)
-    kernels += window_recs + [suffix_rec] + seg_recs
+    kernels += window_recs + [suffix_rec] + seg_recs + win_recs
     kernels[2]["pipelined_launches"] = pipe["launches"]
     assert pipe["launches"] > 0
     # the speculative phase's bf16 early-exit runs of both engines
@@ -6538,7 +7384,7 @@ def main() -> int:
                                          "pipelined_launches", "spec_verify",
                                          "speculative_launches",
                                          "checkpoint_launches", "stats",
-                                         "seg")
+                                         "seg", "window")
                        if k in r}
                     for r in kernels],
         "card": card,
@@ -6575,6 +7421,10 @@ def main() -> int:
         | {k: v[:2] for k, v in dist.items() if k.startswith("prof_")},
         "devstats": dstats,
         "obs": obs_res,
+        "window_train": wtr,
+        "window_ring_train": {k: v for k, v in wring.items()},
+        "window_dist_generate": wdist,
+        "window_bench": wbench,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

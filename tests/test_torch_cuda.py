@@ -433,20 +433,24 @@ def test_paged_kernel_quantized_matches_plain(dev, dtype, quant):
 # kernel vs plain backward: both compute in fp32 from the same inputs and
 # differ only in summation order (and exp2 vs exp), so the error is
 # rounding relative to the largest gradient entry
-def _bwd_close(got, want, what):
+def _bwd_close(got, want, what, scale=None):
     for a, b, name in zip(got, want, ("dq", "dk", "dv")):
         err = float((a - b).abs().max())
-        tol = 1e-4 * float(b.abs().max()) + 1e-6
+        tol = 1e-4 * (float(b.abs().max()) if scale is None else scale) \
+            + 1e-6
         assert err <= tol, f"{what} {name}: max-abs err {err} > {tol}"
 
 
-def _bwd_case(dev, dtype, b, n, n_kv, s_q, s_kv, causal, seed=7, d=128):
+def _bwd_case(dev, dtype, b, n, n_kv, s_q, s_kv, causal, seed=7, d=128,
+              window=None, segs=None):
+    """(do, q, k, v, delta, lse, scale, spec) of one backward round; lse
+    and o from kernel 1 (its WIN / SEG instance with `window`, `segs`)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q, do = (_rand(g, dev, dtype, b, n, s_q, d) for _ in range(2))
     k, v = (_rand(g, dev, dtype, b, n_kv, s_kv, d) for _ in range(2))
     spec = masks.round_spec(0, 0, s_q, s_kv, causal, "contig")
     _, lse, o = flash.flash_fwd(q, k, v, None, None, None, d**-0.5, spec,
-                                emit_o=True)
+                                window=window, segments=segs, emit_o=True)
     delta = (o.float() * do.float()).sum(-1)
     return (do, q, k, v, delta, lse, d**-0.5, spec)
 
@@ -2255,6 +2259,302 @@ def test_packed_train_step_on_the_card_matches_the_cpu(dev, mesh_):
         step = train.make_train_step(cfg, tcfg, mesh_, device=where)
         batch = train.make_packed_batch(3, cfg, mesh_, batch=2, seq=512,
                                         device=where)
+        metrics = []
+        for i in range(2):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                grads = [t.grad.detach().cpu().clone()
+                         for t in param_leaves(state[0])]
+        out[str(where)] = metrics, grads
+    (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    _close_to_max(gg, gc)
+
+
+# -- slice 16: windowed training: the WIN instances of kernels 2-5, 8, 9 --
+
+# (batch, heads, kv heads, S, window): a one-column band, a band inside
+# one 64-row tile, bands crossing tiles (GQA, ragged S), the train step's
+WIN_BWD_CASES = [
+    (1, 4, 4, 256, 1),
+    (2, 8, 2, 200, 40),
+    (1, 8, 2, 1000, 200),
+    (1, 16, 16, 2048, 1024),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,n_kv,s,window", WIN_BWD_CASES)
+@pytest.mark.parametrize("fused", [True, False])
+def test_flash_bwd_kernels_window_match_plain(dev, dtype, b, n, n_kv, s,
+                                              window, fused):
+    """Kernels 2-5's WIN instances against tile_bwd(window=) at the
+    kernels' bar, on the route asked for, counted as WIN launches; two
+    launches bitwise equal."""
+    args = _bwd_case(dev, dtype, b, n, n_kv, s, s, True, seed=61,
+                     window=window)
+    before = (dict(flash.flash_bwd.launches),
+              dict(flash.flash_bwd.win_launches))
+    got = flash.flash_bwd(*args, fused=fused, window=window)
+    again = flash.flash_bwd(*args, fused=fused, window=window)
+    torch.cuda.synchronize()
+    routes = ("fused",) if fused else ("dq", "dkdv")
+    for r in flash.BWD_ROUTES:
+        want_n = 2 if r in routes else 0
+        assert flash.flash_bwd.launches[r] - before[0][r] == want_n
+        assert flash.flash_bwd.win_launches[r] - before[1][r] == want_n
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    # on the gradients' scale: a one-column band (window 1) has dq = 0 in
+    # exact arithmetic (each row sees itself alone, dP_ii = delta_i), so
+    # its error is the rounding of that cancellation, not dq's scale
+    want = tile.tile_bwd(*args, window=window)
+    _bwd_close(got, want, f"{dtype} fused={fused} window {window}",
+               scale=max(float(x.abs().max()) for x in want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_flash_bwd_wide_window_is_the_unwindowed_kernel(dev, dtype, fused):
+    """A window at or above S leaves every range and value as the
+    instance without WIN computes them: bitwise equal."""
+    args = _bwd_case(dev, dtype, 2, 8, 2, 333, 333, True, seed=61)
+    got = flash.flash_bwd(*args, fused=fused, window=333)
+    want = flash.flash_bwd(*args, fused=fused)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_flash_bwd_window_with_segments_match_plain(dev, dtype, fused):
+    """WIN + SEG together (the JAX band grid with segments): against
+    tile_bwd with both, rows that see nothing exact zeros."""
+    ids = _ids(62, dev, 2, 500, 5)
+    segs = (ids, ids)
+    args = _bwd_case(dev, dtype, 2, 8, 2, 500, 500, True, seed=61,
+                     window=96, segs=segs)
+    got = flash.flash_bwd(*args, fused=fused, window=96, segments=segs)
+    again = flash.flash_bwd(*args, fused=fused, window=96, segments=segs)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _bwd_close(got, tile.tile_bwd(*args, window=96, segments=segs),
+               f"{dtype} fused={fused} window + segments")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("q_part,window", [(1, 300), (2, 300), (1, 64),
+                                           (3, 700)])
+def test_flash_bwd_window_ring_rounds_match_plain(dev, dtype, fused, q_part,
+                                                  window):
+    """The windowed contig ring's past rounds (offset q_part * S, the band
+    crossing into earlier shards or ending before this one): rows whose
+    band misses the chunk get exact zeros in dq."""
+    s = 256
+    spec = masks.round_spec(q_part, 0, s, s, True, "contig", window=window)
+    live = masks.spec_live(spec, window)
+    args = _bwd_case(dev, dtype, 1, 8, 2, s, s, True, seed=61)[:7] + (spec,)
+    got = flash.flash_bwd(*args, fused=fused, window=window)
+    _bwd_close(got, tile.tile_bwd(*args, window=window),
+               f"{dtype} fused={fused} round {q_part} window {window}")
+    rows = torch.arange(s, device=dev)
+    blind = rows + spec.offset - window + 1 > s - 1  # band past the chunk
+    assert (got[0][:, :, blind] == 0).all()
+    if not live:
+        assert all((a == 0).all() for a in got)
+
+
+def test_flash_bwd_route_rule(dev):
+    """flash_bwd(fused=None) follows bwd_route: the train step's causal
+    sweep fused, a short windowed sweep on the split pair, a long band
+    fused; counted on the card."""
+    cases = [  # (n, n_kv, s, window, triangular, route)
+        (4, 4, 2048, None, True, "fused"),
+        (1, 1, 256, 64, False, "split"),
+        (8, 2, 256, 64, False, "fused"),
+        (1, 1, 2048, 1024, False, "fused"),
+        (1, 1, 128, None, False, "split"),
+    ]
+    for n, n_kv, s, window, tri, route in cases:
+        args = _bwd_case(dev, torch.bfloat16, 1, n, n_kv, s, s, True,
+                         seed=61, window=window)
+        assert flash.bwd_route(args[1].shape, args[2].shape, window=window,
+                               triangular=tri) == route
+        before = dict(flash.flash_bwd.launches)
+        got = flash.flash_bwd(*args, window=window, triangular=tri)
+        moved = {r: flash.flash_bwd.launches[r] - before[r]
+                 for r in flash.BWD_ROUTES}
+        assert moved == ({"fused": 1, "dq": 0, "dkdv": 0} if route ==
+                         "fused" else {"fused": 0, "dq": 1, "dkdv": 1})
+        _bwd_close(got, tile.tile_bwd(*args, window=window), f"{route}")
+
+
+def test_flash_attention_window_autograd_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(63)
+    q, k, v = (_rand(g, dev, torch.float32, 2, 4, 384, 128)
+               for _ in range(3))
+    grads = []
+    for fn in (lambda a, b, c: flash.flash_attention(a, b, c, causal=True,
+                                                     window=100),
+               lambda a, b, c: tile.single_device_attention(
+                   a, b, c, causal=True, window=100)):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*xs)
+        (o * o).sum().backward()
+        grads.append([o.detach()] + [x.grad for x in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-6)
+
+
+# (positions, heads, kv heads, local S, window, dtype, documents or 0):
+# a band inside one shard, one crossing a shard boundary, one crossing
+# two; the ring step's shape; a band with packed segments
+RING_WIN_CASES = [
+    (4, 4, 2, 256, 100, torch.float32, 0),
+    (4, 4, 2, 256, 300, torch.bfloat16, 0),
+    (8, 4, 4, 128, 300, torch.float32, 0),
+    (4, 16, 16, 2048, 1024, torch.bfloat16, 0),
+    (4, 8, 2, 256, 300, torch.bfloat16, 5),
+    (4, 8, 2, 256, 300, torch.float32, 5),
+]
+
+
+@pytest.mark.parametrize("w,n,n_kv,s,window,dtype,docs", RING_WIN_CASES)
+def test_fused_ring_kernels_window_match_plain(dev, w, n, n_kv, s, window,
+                                               dtype, docs):
+    """Kernels 8 and 9's WIN instances (with SEG when `docs`) on the
+    truncated program of a windowed contig ring: r_live rounds, against
+    the plain versions, two launches bitwise equal, counted as WIN
+    launches."""
+    cfg, ring, args, prog, tables = _ring_bwd_case(
+        dev, w, "contig", True, n, n_kv, s, dtype, dict(window=window))
+    q, k, v, _, _, do = args
+    r_live = min(w, (s + window - 2) // s + 1)
+    fprog, ftables, _ = fused_ring.ring_plan(cfg, *ring, s, "fwd")
+    assert fprog.n_rounds == prog.n_rounds == r_live
+    seg = None
+    if docs:
+        seg = _ring_seg(dev, "contig", w, _packed_ids(64, 1, w * s, docs))
+    before = (fused_ring.fused_ring_fwd.win_launches,
+              fused_ring_bwd.fused_ring_bwd.win_launches)
+    o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+    o2, lse2 = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    small = dict(head_chunk=4) if s > 1024 else {}
+    ro, rlse = fused_ring.fused_ring_reference(q, k, v, fprog, ftables,
+                                               128 ** -0.5, seg=seg,
+                                               window=window)
+    torch.testing.assert_close(o, ro, **TOL[dtype])
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    args = (q, k, v, o, lse, do)
+    got = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, seg=seg)
+    again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, seg=seg)
+    torch.cuda.synchronize()
+    assert (fused_ring.fused_ring_fwd.win_launches - before[0],
+            fused_ring_bwd.fused_ring_bwd.win_launches - before[1]) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fused_ring_bwd.fused_ring_bwd_reference(
+        *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm, seg=seg,
+        window=window, **small)
+    _close_to_max(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ring_stats_instance_with_window(dev, dtype):
+    """Kernel 8's STATS + WIN instance: o and lse bitwise the stats-off
+    WIN launch; the stats report the truncated round count (r_live = 3 of
+    4: a band of 600 over shards of 512 reaches two shards back), the
+    elided round, and the band's pairs."""
+    cfg, ring, (q, k, v), _, _ = _fused_case(
+        dev, 4, "contig", True, 8, 2, 512, dtype, dict(window=600))
+    o, lse = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring)
+    so, slse, st = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring,
+                                             collect_stats=True)
+    assert torch.equal(so, o) and torch.equal(slse, lse)
+    r_live = (512 + 600 - 2) // 512 + 1
+    assert r_live == 3
+    assert (st.fused_rounds.cpu() == r_live).all()
+    assert (st.rounds_elided.cpu() == 4 - r_live).all()
+    pairs = [sum(masks.spec_pair_count(
+        masks.round_spec(p, p - r, 512, 512, True, "contig", window=600),
+        512, 512, window=600) for r in range(r_live) if p - r >= 0)
+        for p in range(4)]
+    assert st.attn_pairs.cpu().tolist() == [float(x) for x in pairs]
+    with pytest.raises(NotImplementedError, match="STATS"):
+        fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, o, cfg, *ring,
+                                      collect_stats=True)
+
+
+@pytest.mark.parametrize("backend", ["fused_ring", "auto"])
+def test_burst_attn_window_matches_one_position(dev, backend):
+    """burst_attn(window=) on a contig ring of 4, fused (kernels 8, 9) and
+    scan (kernels 1-5 a live round), output and gradients against
+    flash_attention(window=) on one position, bf16."""
+    g = torch.Generator(device=dev).manual_seed(65)
+    q, k, v = (_rand(g, dev, torch.bfloat16, 1, 8, 2048, 128)
+               for _ in range(3))
+    outs = []
+    for ring in (True, False):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        if ring:
+            o = burst.burst_attn(*xs, mesh={"sp": 4}, causal=True,
+                                 layout="contig", backend=backend,
+                                 window=700)
+        else:
+            o = flash.flash_attention(*xs, causal=True, window=700)
+        o.float().square().sum().backward()
+        outs.append([o.detach().float()] + [x.grad.float() for x in xs])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-2 * float(
+            b.abs().max()))
+
+
+def test_win_instances_attributes(dev):
+    """Every WIN instance of kernels 2-5, 8 and 9 fits its launch, and the
+    instances without WIN keep their registers and spills
+    (NO_SEG_ATTRS, FUSED_TILE_ATTRS)."""
+    win = {"flash_bwd": flash.bwd_attrs(win=True)
+           + flash.bwd_attrs(seg=True, win=True),
+           "fused_ring_fwd": fused_ring.fwd_attrs(win=True)
+           + fused_ring.fwd_attrs(stats=True, win=True)
+           + fused_ring.fwd_attrs(seg=True, win=True)
+           + fused_ring.fwd_attrs(stats=True, seg=True, win=True),
+           "fused_ring_bwd": fused_ring_bwd.bwd_attrs(win=True)
+           + fused_ring_bwd.bwd_attrs(seg=True, win=True)}
+    for lib, rows in win.items():
+        for a in rows:
+            print(lib, a)
+            assert 0 < a["regs"] <= 255 and a["ctas"] >= 1, (lib, a)
+    now = {"flash_fwd": flash.fwd_attrs(), "flash_bwd": flash.bwd_attrs(),
+           "fused_ring_fwd": fused_ring.fwd_attrs(),
+           "fused_ring_bwd": fused_ring_bwd.bwd_attrs()}
+    for pins in (NO_SEG_ATTRS, FUSED_TILE_ATTRS):
+        for lib, want in pins.items():
+            got = {a["instance"]: (a["regs"], a["local_bytes"])
+                   for a in now[lib]}
+            assert {k: got[k] for k in want} == want, (lib, got)
+
+
+@pytest.mark.parametrize("mesh_,backend", [(None, "auto"),
+                                           ({"sp": 4}, "fused_ring"),
+                                           ({"sp": 4}, "auto")])
+def test_window_train_step_on_the_card_matches_the_cpu(dev, mesh_, backend):
+    """Two fp32 windowed train steps (remat on) through the WIN kernels
+    equal the same steps with the plain versions on the CPU: loss and grad
+    norm to 1e-5, the first step's gradients to 1e-4 of their largest
+    entry; one position (kernels 1-3) and contig rings of 4, fused
+    (kernels 8, 9) and scan."""
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_head=128, d_ff=512,
+                      dtype=torch.float32, batch_axis=None, head_axis=None,
+                      layout="contig", window=200, attn_backend=backend)
+    tcfg = train.TrainConfig(lr=1e-3)
+    out = {}
+    for where in ("cpu", dev):
+        state = train.init_train_state(0, cfg, tcfg, mesh_, device=where)
+        step = train.make_train_step(cfg, tcfg, mesh_, device=where)
+        batch = train.make_batch(3, cfg, mesh_, batch=2, seq=512,
+                                 device=where)
         metrics = []
         for i in range(2):
             state, m = step(state, batch)

@@ -28,7 +28,7 @@ from burst_attn_tpu_torch.models.dist_decode import (
     DistCache, dist_decode_step, dist_generate, dist_prefill,
 )
 from burst_attn_tpu_torch.models.transformer import ModelConfig, \
-    params_from_jax
+    forward, params_from_jax
 from burst_attn_tpu_torch.serving import ring_prefill_to_pages
 
 DIMS = dict(vocab=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -176,12 +176,16 @@ def test_ring_prefill_pages_equal_dist_shards(ref):
 
 
 def test_window_and_moe_raise(ref):
-    """A ring window raises as burst_attn does; MoE layers are not
-    ported (ModelConfig raises)."""
+    """A ring window prefills (the windowed contig ring): its last logits
+    are the dense windowed forward's; MoE layers are not ported
+    (ModelConfig raises)."""
     cfg = _cfg("contig", window=16)
-    with pytest.raises(NotImplementedError, match="window"):
-        dist_prefill(ref["params"], torch.from_numpy(ref["prompt"]), cfg,
-                     {"sp": 4}, gen_budget=2)
+    prompt = torch.from_numpy(ref["prompt"]).long()
+    last, _ = dist_prefill(ref["params"], prompt, cfg, {"sp": 4},
+                           gen_budget=2)
+    pos = torch.arange(S)[None].expand(B, S)
+    want = forward(ref["params"], prompt, pos, cfg)[:, -1]
+    _close(last, want.numpy(), "windowed dist_prefill")
     with pytest.raises(NotImplementedError, match="MoE"):
         dataclasses.replace(_cfg(), n_experts=4)
     with pytest.raises(ValueError, match="steps"):

@@ -147,8 +147,11 @@ def test_unported_options_raise():
                         segments=(ids[:, :4], ids))
     with pytest.raises(ValueError, match="window"):
         flash.flash_fwd(q, q, q, None, None, None, 1.0, spec, window=0)
-    # one device takes a window; the ring's spec helpers still raise
-    with pytest.raises(NotImplementedError, match="windowed-training"):
-        masks.round_spec(0, 0, 8, 8, True, "contig", window=4)
+    # the ring's spec helpers take a window (contig, causal): the round is
+    # the offset-form band; the load-balanced layouts refuse it
+    assert masks.round_spec(2, 1, 8, 8, True, "contig", window=4) == \
+        masks.MaskSpec(0, 8, 8, 1, 8)
+    with pytest.raises(ValueError, match="contig"):
+        masks.round_spec(0, 0, 8, 8, True, "zigzag", window=4)
     with pytest.raises(ValueError):
         flash.flash_fwd(q, q, q, torch.zeros(1, 2, 8), None, None, 1.0, spec)

@@ -118,8 +118,12 @@ def test_flash_bwd_unported_options_and_bad_shapes_raise():
     x = torch.zeros(1, 2, 8, D)
     lse = torch.zeros(1, 2, 8)
     spec = masks.full_spec(8, 8)
-    with pytest.raises(NotImplementedError):
-        flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec, window=4)
+    # a window is ported: on the CPU it is tile_bwd's band
+    got = flash.flash_bwd(x + 1, x, x, x, lse, lse, 1.0, spec, window=4)
+    want = tile.tile_bwd(x + 1, x, x, x, lse, lse, 1.0, spec, window=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="window"):
+        flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec, window=0)
     # packed segments are ported; the ids must be integers of shape [B, S]
     ids = torch.zeros(1, 8, dtype=torch.int32)
     got = flash.flash_bwd(x + 1, x, x, x, lse, lse, 1.0, spec,

@@ -23,9 +23,14 @@ from burst_attn_tpu.parallel import schedule as jsched
 from burst_attn_tpu.utils.compat import shard_map
 from burst_attn_tpu_torch import burst_attn, obs
 from burst_attn_tpu_torch.ops import fused_ring, masks
+from burst_attn_tpu_torch.ops.tile import single_device_attention
 from burst_attn_tpu_torch.parallel import burst, mesh, ring, schedule
 
 ATOL = 1e-5  # fp32; the two rings sum in another order
+# fp32 ring gradients: the tolerance the reference pins for them
+# (tests/test_burst.py); a ring folds dq over its rounds, one position in
+# one sum, so seeds exist whose entries differ by more than ATOL
+GRAD_ATOL = 2e-4
 
 
 def _jmesh(shape):
@@ -166,7 +171,8 @@ def test_kernel_reads_the_table_columns_of_the_schedule():
         meta_dst=(schedule.META_CH0_DST, schedule.META_CH1_DST))
     # the five mask scalars lead each row (row[0] .. row[4])
     assert schedule.SPEC0 == 0 and schedule.CONSUME_BANK == 5
-    assert "row[0], row[1],\n" in src and "row[2], row[3], row[4]);" in src
+    assert len(re.findall(r"row\[0\],\s*row\[1\],\s*row\[2\],\s*row\[3\],"
+                          r"\s*row\[4\],", src)) == 4  # both tiles, +- SEG
     # the consumed partition (packed segments) is the last column
     assert fused_ring.PART == max(fused_ring.TAKE_NEED) + 1
     assert fused_ring.KERNEL_COLS == fused_ring.PART + 1
@@ -468,14 +474,18 @@ def test_burst_attn_declines_and_rejects():
     y = q.clone().requires_grad_()
     burst_attn(y, y, y, mesh={"sp": 1}, causal=True,
                layout="contig").sum().backward()
-    np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(), atol=ATOL,
-                               rtol=0)
+    np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(),
+                               atol=GRAD_ATOL, rtol=0)
     with torch.no_grad():  # no grad asked for: the forward alone runs
         burst_attn(q.clone().requires_grad_(), q, q, mesh={"sp": 2})
-    for kw in (dict(window=8), dict(wire_dtype="int8")):
-        with pytest.raises(NotImplementedError):
-            burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
-                       **kw)
+    # a window runs on the contig ring: one position's banded attention
+    got = burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
+                     window=8)
+    want = single_device_attention(q, q, q, causal=True, window=8)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
+    with pytest.raises(NotImplementedError):
+        burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
+                   wire_dtype="int8")
     # packed segments are ported: one segment is the unsegmented ring; a
     # cross-attention ring takes none
     one = torch.zeros(1, 32, dtype=torch.int32)

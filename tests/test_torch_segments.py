@@ -171,19 +171,23 @@ def test_single_device_attention_segments_matches_jax(causal, window):
 
 
 def test_segments_with_window_forward_matches_jax():
-    """A window composes with the segments in flash_attention's forward
-    (its backward band is the windowed-training slice and raises)."""
-    q, k, v, _, (ids, _) = _inputs(6, 1, 4, 4, 128, 128)
-    got = flash.flash_attention(*_t(q, k, v), causal=True, window=40,
-                                segment_ids=torch.from_numpy(ids))
-    want = jflash.flash_attention(*_j(q, k, v), None, True, 64, 64,
-                                  window=40, segment_ids=jnp.asarray(ids))
-    _close([got], [want])
-    x = torch.from_numpy(q).requires_grad_()
-    o = flash.flash_attention(x, *_t(k, v), causal=True, window=40,
+    """A window composes with the segments in flash_attention's forward,
+    and in its backward (the band of kernels 2-5): the gradients match
+    jax.grad of the JAX flash_attention."""
+    q, k, v, do, (ids, _) = _inputs(6, 1, 4, 4, 128, 128)
+    xs = [t.requires_grad_() for t in _t(q, k, v)]
+    o = flash.flash_attention(*xs, causal=True, window=40,
                               segment_ids=torch.from_numpy(ids))
-    with pytest.raises(NotImplementedError, match="windowed"):
-        o.sum().backward()
+    (o * torch.from_numpy(do)).sum().backward()
+
+    def f(q, k, v):
+        return jflash.flash_attention(q, k, v, None, True, 64, 64,
+                                      window=40,
+                                      segment_ids=jnp.asarray(ids))
+
+    jo, vjp = jax.vjp(f, *_j(q, k, v))
+    _close([o.detach()] + [x.grad for x in xs],
+           [jo] + list(vjp(jnp.asarray(do))))
 
 
 def test_packed_documents_equal_separate_documents():

@@ -6,7 +6,8 @@ decode (tests/test_paged.py's windows: 2e-5), ragged and grouped ragged
 attention (2e-6, tests/test_ragged_paged.py's); then the windowed model
 end to end: the dense-cache `generate` token-exact against JAX's in fp32,
 the paged path and both engines token-exact against it; and the options
-that still refuse a window."""
+that still refuse a window (the training paths run:
+tests/test_torch_window_train.py holds them to the JAX package)."""
 
 import dataclasses
 
@@ -363,18 +364,29 @@ def test_window_config_checks_and_unported_paths(model):
         ModelConfig(**DIMS, window=8, layout="contig", causal=False)
     with pytest.raises(ValueError, match=">= 1"):
         ModelConfig(**DIMS, window=0, layout="contig")
-    x = torch.zeros(1, 2, 8, 16)
+    x = torch.randn(1, 2, 8, 16, generator=torch.Generator().manual_seed(0))
     lse = torch.zeros(1, 2, 8)
     spec = masks.full_spec(8, 8)
-    with pytest.raises(NotImplementedError, match="windowed-training"):
-        flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec, window=4)
+    # the windowed training paths run (ported with the backward band):
+    # the flash backward is tile_bwd's band on the CPU ...
+    got = flash.flash_bwd(x, x, x, x, lse, lse, 1.0, spec, window=4)
+    want = tile.tile_bwd(x, x, x, x, lse, lse, 1.0, spec, window=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # ... flash_attention differentiates through it, as autograd does
+    # through the plain banded attention ...
     q = x.clone().requires_grad_()
-    o = flash.flash_attention(q, x, x, causal=True, window=4)
-    with pytest.raises(NotImplementedError, match="windowed-training"):
-        o.sum().backward()
-    with pytest.raises(NotImplementedError, match="windowed"):
-        burst.burst_attn(x, x, x, mesh={"sp": 2}, causal=True,
-                         layout="contig", window=4)
+    flash.flash_attention(q, x, x, causal=True, window=4).sum().backward()
+    q2 = x.clone().requires_grad_()
+    tile.single_device_attention(q2, x, x, causal=True,
+                                 window=4).sum().backward()
+    np.testing.assert_allclose(q.grad.numpy(), q2.grad.numpy(), atol=1e-5,
+                               rtol=0)
+    # ... and the contig ring takes a window
+    got = burst.burst_attn(x, x, x, mesh={"sp": 2}, causal=True,
+                           layout="contig", window=4)
+    np.testing.assert_allclose(
+        got.numpy(), tile.single_device_attention(
+            x, x, x, causal=True, window=4).numpy(), atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="contig"):
         burst.burst_attn(x, x, x, mesh={"sp": 2}, causal=True,
                          layout="zigzag", window=4)

@@ -106,7 +106,7 @@ def _forward_cached_impl(params, tokens, positions, cache: Cache,
     for p, lc in zip(params["layers"], cache.layers):
         x = x + _cached_attention(p, x, positions, lc, cache.length, cfg,
                                   fresh=fresh)
-        x = x + _mlp(p, x)
+        x = x + _mlp(p, x, cfg, inference=True)[0]
     logits = _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])
     return logits, Cache(cache.layers, cache.length + tokens.shape[1])
 

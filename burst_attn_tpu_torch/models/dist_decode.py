@@ -82,7 +82,7 @@ def ring_forward(params, tokens, cfg: ModelConfig, mesh, on_kv=None):
         if on_kv is not None:
             on_kv(li, k, v)
         x = x + _attn_out(p, o)
-        x = x + _mlp(p, x)
+        x = x + _mlp(p, x, cfg, inference=True)[0]
     return x, perm
 
 
@@ -213,7 +213,7 @@ def dist_decode_step(params, token, position: int, cache: DistCache,
                                 col_lo=rec_lo)
             o = _merge([(m_g, l_g, acc_g), rec]).to(cfg.dtype)
             x = x + _attn_out(p, o)
-            x = x + _mlp(p, x)
+            x = x + _mlp(p, x, cfg, inference=True)[0]
         logits = _logits(_rms_norm(x, params["final_norm"]),
                          params["lm_head"])[:, 0]
     return logits, cache._replace(n_new=n_new + 1)
@@ -325,7 +325,7 @@ def dist_paged_decode_step(params, tokens, state: PagedState,
                  for w in range(world)]
         o = _merge(parts).to(cfg.dtype)         # [slots, N, 1, D]
         x = x + _attn_out(p, o)
-        x = x + _mlp(p, x)
+        x = x + _mlp(p, x, cfg, inference=True)[0]
     logits = _logits(_rms_norm(x, params["final_norm"]),
                      params["lm_head"])[:, 0]
     logits = logits.masked_fill(boundary_unassigned[:, None], float("nan"))

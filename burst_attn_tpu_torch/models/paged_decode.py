@@ -504,7 +504,7 @@ def _prefill_suffix(params, suffix, state: PagedState, ctx_ids, suf_ids,
         _scatter_pages(state.k_pages[li], k, page_ids, ks)
         _scatter_pages(state.v_pages[li], v, page_ids, vs)
         x = x + _attn_out(p, o)
-        x = x + _mlp(p, x)
+        x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x[:, t_suf - 1:t_suf], params["final_norm"])
     logits = _logits(x, params["lm_head"])[0, 0]
     state.page_table[slot] = 0
@@ -534,7 +534,7 @@ def _prefill(params, tokens, state: PagedState, ids, slot, cfg):
         _scatter_pages(state.v_pages[li], F.pad(v, pad), page_ids,
                        state.v_scales[li] if quant else None)
         x = x + _attn_out(p, o)
-        x = x + _mlp(p, x)
+        x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x[:, -1:], params["final_norm"])
     logits = _logits(x, params["lm_head"])[0, 0]
     state.page_table[slot] = 0
@@ -592,7 +592,7 @@ def paged_decode_step(params, tokens, state: PagedState, cfg: ModelConfig,
                                    window=cfg.window)
         o = o.reshape(slots, cfg.n_heads, 1, cfg.d_head)
         x = x + _attn_out(p, o)
-        x = x + _mlp(p, x)
+        x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x, params["final_norm"])
     logits = _logits(x, params["lm_head"])[:, 0]
     logits = logits.masked_fill(boundary_unassigned[:, None], float("nan"))
@@ -675,7 +675,7 @@ def ragged_model_step(params, tokens, q_lens, state: PagedState,
                                        kv_lens, k_scales=ks, v_scales=vs,
                                        window=cfg.window)
         x = x + _attn_out(p, o)
-        x = x + _mlp(p, x)
+        x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x, params["final_norm"])
     if all_logits:
         logits = _logits(x, params["lm_head"])

@@ -14,8 +14,10 @@ CLI (the card by default; `--device cpu` runs the plain versions):
 
 `--mesh sp=4` trains on a ring of 4 positions (`--mesh inter=2,intra=2`
 on the double ring); `--packed-eos ID` trains (and evaluates) on
-EOS-delimited packed documents; dp and tp, MoE experts, pipeline
-microbatches and multi-host start come with later slices.  The JAX
+EOS-delimited packed documents; `--n-experts E` makes every MLP a top-2
+MoE, its expert axis "ep" if the mesh has one, else "dp" (size 1 only:
+experts over cards are ROADMAP A7); dp and tp, pipeline microbatches and
+multi-host start come with later slices.  The JAX
 runner's `--probe-tri-bwd` is a TPU compile probe and has no counterpart
 here.
 """
@@ -36,7 +38,7 @@ from .train import (
     TrainConfig, _world, init_train_state, make_mesh, make_train_step,
     prefetch_batches,
 )
-from .transformer import ModelConfig
+from .transformer import ModelConfig, check_expert_axis
 
 
 @dataclass(frozen=True)
@@ -201,6 +203,8 @@ def main(argv=None):
     p.add_argument("--n-kv-heads", type=int, default=None)
     p.add_argument("--d-ff", type=int, default=None)
     p.add_argument("--layout", default="zigzag")
+    p.add_argument("--n-experts", type=int, default=0,
+                   help="MoE experts per layer (0 = dense MLP)")
     p.add_argument("--no-remat", action="store_true")
     p.add_argument("--packed-eos", type=int, default=None,
                    help="EOS token id delimiting packed documents: positions "
@@ -220,9 +224,14 @@ def main(argv=None):
     else:
         seq_axes = ("sp",)
         mesh_axes.setdefault("sp", 1)
-    mesh = make_mesh(mesh_axes)  # raises on dp or tp > 1
+    # experts shard over "ep" when the mesh has it, else ride "dp" (the
+    # JAX runner's GShard layout); both must have size 1 here
+    expert_axis = None
+    if args.n_experts:
+        expert_axis = "ep" if "ep" in mesh_axes else (
+            "dp" if "dp" in mesh_axes else None)
     cfg = ModelConfig(
-        seq_axes=seq_axes,
+        seq_axes=seq_axes, n_experts=args.n_experts, expert_axis=expert_axis,
         batch_axis=None, head_axis=None, vocab=args.vocab,
         d_model=args.d_model, n_layers=args.n_layers, n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads or args.n_heads,
@@ -230,6 +239,8 @@ def main(argv=None):
         d_ff=args.d_ff or 4 * args.d_model, layout=args.layout,
         remat=not args.no_remat,
     )
+    check_expert_axis(cfg, mesh_axes)  # an expert axis > 1: ROADMAP A7
+    mesh = make_mesh(mesh_axes)  # raises on dp or tp > 1
     tcfg = TrainConfig(lr=args.lr, grad_accum=args.grad_accum)
     run = RunConfig(
         data_path=args.data, steps=args.steps, batch=args.batch,

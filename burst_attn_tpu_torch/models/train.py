@@ -41,7 +41,13 @@ band path, not the wrapped-diagonal grid) is flash_attention's: its
 backward asks for the triangular route only without a window, and
 ops/flash.py bwd_route applies the band rule otherwise.
 
-Not ported yet: dp and tp axes, MoE and the pipeline path.  The
+An MoE model (`ModelConfig(n_experts=E)`) adds `moe_aux_weight * aux`
+to the objective, per microbatch with grad_accum, as the JAX trainer
+does; its routing groups are the ring positions' shards (models/
+transformer.py `_mlp`).  A Ulysses model (`attn_strategy="ulysses"`,
+contig) trains on `{"sp": W}` through parallel/ulysses.py.
+
+Not ported yet: dp and tp axes and the pipeline path.  The
 TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
 counterpart: a CUDA kernel either builds or the run stops.
 """

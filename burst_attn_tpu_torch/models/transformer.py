@@ -1,19 +1,30 @@
-"""Decoder-only transformer LM (port of burst_attn_tpu/models/transformer.py,
-the dense parts).
+"""Decoder-only transformer LM (port of burst_attn_tpu/models/transformer.py;
+the pipeline-parallel path is not ported).
 
 Two forwards: `forward_with_aux` is the training forward (attention
-through the differentiable flash kernels on one device, or through the
-differentiable ring `burst_attn` when the mesh's sequence axes hold more
-than one position; `torch.utils.checkpoint` per block when `cfg.remat` is
-set); `forward` is the dense plain reference (attention through the plain
-tile) that the serving checks teacher-force against.
+through the differentiable flash kernels on one device, or, when the
+mesh's sequence axes hold more than one position, through the
+differentiable ring `burst_attn` or, with `attn_strategy="ulysses"`, the
+all-to-all `ulysses_attn`; `torch.utils.checkpoint` per block when
+`cfg.remat` is set); `forward` is the dense plain reference (attention
+through the plain tile) that the serving checks teacher-force against.
 
 Parameters are a plain dictionary with the JAX pytree's names and shapes:
 {"embed" [V, d], "layers": [{"attn_norm", "wq" [d, N, H], "wk"/"wv"
 [d, Nkv, H], "wo" [N, H, d], "mlp_norm", "w_gate"/"w_up" [d, F],
-"w_down" [F, d]}], "final_norm", "lm_head" [V, d]}.  `params_from_jax`
-turns the JAX tree (as numpy arrays) into this, so both packages compute
-the same function in the tests.
+"w_down" [F, d]}], "final_norm", "lm_head" [V, d]}; an MoE layer
+(`n_experts > 0`) holds "router" [d, E] fp32 and "w_gate"/"w_up"
+[E, d, F], "w_down" [E, F, d] instead (parallel/moe.py).
+`params_from_jax` turns the JAX tree (as numpy arrays) into this, so both
+packages compute the same function in the tests.
+
+MoE routing groups follow the JAX model's shard_map: in training each
+ring (or Ulysses) position's contiguous S/W slice of the layout-order
+tokens routes as its own group, with `capacity_for` of its token count,
+and the aux loss is the mean over the groups; inference (`_mlp(...,
+inference=True)`, every serving path) routes drop-free in chunks of
+MOE_CHUNK tokens, each chunk at capacity = its length, which is exact
+because drop-free routing is per token.
 
 Numerics follow the JAX model: RMSNorm and rotary in fp32, cast back to
 the activation dtype; logits accumulated and returned in fp32.
@@ -32,6 +43,12 @@ from ..ops.flash import flash_attention
 from ..ops.masks import check_window
 from ..ops.tile import single_device_attention
 from ..parallel.burst import burst_attn
+from ..parallel.moe import MoEParams, capacity_for, init_moe_params, \
+    moe_shard
+from ..parallel.ulysses import ulysses_attn
+
+# tokens an inference routing group holds (the JAX _mlp's chunk)
+MOE_CHUNK = 512
 
 
 @dataclass(frozen=True)
@@ -48,8 +65,9 @@ class ModelConfig:
     # attention / parallelism (both packages take the same
     # configurations): layout, attn_backend and seq_axes drive the ring
     # prefill of serving/handoff.py and the training forward's ring
-    # (burst_attn) when the mesh's sequence axes hold more than one
-    # position; dp, tp, ep and pp stay at size 1 (check_mesh)
+    # (burst_attn, or ulysses_attn for attn_strategy="ulysses") when the
+    # mesh's sequence axes hold more than one position; dp, tp, ep and pp
+    # stay at size 1 (check_mesh)
     causal: bool = True
     attn_strategy: str = "burst"
     layout: str = "zigzag"
@@ -71,14 +89,11 @@ class ModelConfig:
     pp_microbatches: int = 1
 
     def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError("MoE layers are not ported yet")
         if self.pp_axis is not None:
-            raise NotImplementedError("pipeline parallelism is not ported yet")
-        check_window(self.window, self.layout, self.causal)
-        if self.attn_strategy != "burst":
             raise NotImplementedError(
-                f"attn_strategy {self.attn_strategy!r} is not ported yet")
+                "pipeline parallelism (pp_axis) is not ported yet "
+                "(ROADMAP A4)")
+        check_window(self.window, self.layout, self.causal)
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads {self.n_heads} must be a multiple of "
                              f"n_kv_heads {self.n_kv_heads}")
@@ -105,17 +120,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "attn_norm": ones(),
             "wq": dense(d, nh, hd),
             "wk": dense(d, nkv, hd),
             "wv": dense(d, nkv, hd),
             "wo": dense(nh, hd, d),
             "mlp_norm": ones(),
-            "w_gate": dense(d, f),
-            "w_up": dense(d, f),
-            "w_down": dense(f, d),
-        })
+        }
+        if cfg.n_experts:
+            layer.update(init_moe_params(rng, d, f, cfg.n_experts,
+                                         dtype=cfg.dtype,
+                                         device=dev)._asdict())
+        else:
+            layer.update(w_gate=dense(d, f), w_up=dense(d, f),
+                         w_down=dense(f, d))
+        layers.append(layer)
     return {
         "embed": dense(cfg.vocab, d),
         "layers": layers,
@@ -149,16 +169,23 @@ def params_from_jax(tree, device=None) -> Params:
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
+# an MoE layer's keys: the router joins the experts' weights
+MOE_LAYER_KEYS = LAYER_KEYS[:6] + ("router",) + LAYER_KEYS[6:]
+
+
+def layer_keys(layer) -> Tuple[str, ...]:
+    """LAYER_KEYS, or MOE_LAYER_KEYS for a layer with a router."""
+    return MOE_LAYER_KEYS if "router" in layer else LAYER_KEYS
 
 
 def param_leaves(params: Params):
     """Every tensor of a parameter dictionary in one fixed order (embed,
-    each layer's LAYER_KEYS, final_norm, lm_head), whatever the
+    each layer's layer_keys, final_norm, lm_head), whatever the
     dictionaries' insertion order: the optimizer's and checkpoints'
     order."""
     yield params["embed"]
     for layer in params["layers"]:
-        for k in LAYER_KEYS:
+        for k in layer_keys(layer):
             yield layer[k]
     yield params["final_norm"]
     yield params["lm_head"]
@@ -198,12 +225,42 @@ def _attn_out(p, o):
     return torch.einsum("bnsh,nhd->bsd", o, p["wo"])
 
 
-def _mlp(p, x):
-    """Dense SwiGLU block (pre-norm)."""
+def _mlp(p, x, cfg: Optional[ModelConfig] = None, mesh=None,
+         inference: bool = False):
+    """The MLP sublayer (pre-norm): dense SwiGLU, or with cfg.n_experts a
+    routed MoE.  Returns (out [B, S, d], aux): aux an fp32 0-d tensor
+    for MoE, the float 0.0 for the dense MLP (no device op), so callers
+    are uniform.
+
+    MoE groups, as the JAX model's shard_map: in training each of the
+    ring_world(cfg, mesh) positions routes its contiguous S/W slice of
+    the (layout-order) tokens, all B rows, as one group at
+    capacity_for(B * S/W tokens), and aux is the mean over the groups.
+    `inference=True` (every serving path) routes drop-free in chunks of
+    MOE_CHUNK tokens at capacity = the chunk's length: silently zeroing a
+    token's MLP output is a training-time trade, and drop-free routing
+    is per token, so the chunks give the one-group result."""
     h = _rms_norm(x, p["mlp_norm"])
-    gate = h @ p["w_gate"]
-    up = h @ p["w_up"]
-    return (F.silu(gate) * up) @ p["w_down"]
+    if cfg is None or not cfg.n_experts:
+        gate = h @ p["w_gate"]
+        up = h @ p["w_up"]
+        out = (F.silu(gate) * up) @ p["w_down"]
+        return out, 0.0
+    mp = MoEParams(p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    b, s, d = h.shape
+    top_k = cfg.moe_top_k
+    if inference:
+        parts = [moe_shard(mp, hc, top_k=top_k, capacity=hc.shape[0])
+                 for hc in h.reshape(b * s, d).split(MOE_CHUNK)]
+        y = torch.cat([y for y, _, _ in parts]).reshape(b, s, d)
+        return y, torch.stack([a for _, a, _ in parts]).mean()
+    groups = ring_world(cfg, mesh)
+    cap = capacity_for(b * s // groups, cfg.n_experts, top_k,
+                       cfg.moe_capacity_factor)
+    parts = [moe_shard(mp, hg.reshape(-1, d), top_k=top_k, capacity=cap)
+             for hg in h.chunk(groups, dim=1)]
+    y = torch.cat([y.reshape(b, -1, d) for y, _, _ in parts], dim=1)
+    return y, torch.stack([a for _, a, _ in parts]).mean()
 
 
 def _logits(x, lm_head):
@@ -215,17 +272,24 @@ def _logits(x, lm_head):
 
 def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
            segment_ids=None):
-    """One decoder block of the training forward: attention, then the
-    SwiGLU MLP.  Attention runs the flash kernels (autograd
-    `flash_attention`) on one device, or the ring (autograd `burst_attn`
-    over cfg.seq_axes, its layout and backend) when the mesh's sequence
-    axes hold more than one position, as the JAX model's `_attention`
-    does; both take the packed-document `segment_ids`.  `stats_out`:
-    None, or a list the ring's DevStats is appended to (collect_stats:
-    the output is the same)."""
+    """One decoder block of the training forward: attention, then the MLP
+    -> (x, the MLP's aux).  Attention runs the flash kernels (autograd
+    `flash_attention`) on one device; when the mesh's sequence axes hold
+    more than one position, the ring (autograd `burst_attn` over
+    cfg.seq_axes, its layout and backend) or, for attn_strategy
+    "ulysses", the all-to-all `ulysses_attn` over cfg.seq_axes[0], as the
+    JAX model's `_attention` does; all take the packed-document
+    `segment_ids`.  `stats_out`: None, or a list the ring's DevStats is
+    appended to (collect_stats: the output is the same)."""
     q, k, v = _qkv_proj(p, x, positions, cfg)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if ring_world(cfg, mesh) > 1:
+    world = ring_world(cfg, mesh)
+    if cfg.attn_strategy == "ulysses" and world > 1:
+        o = ulysses_attn(q, k, v, mesh=dict(mesh), seq_axis=cfg.seq_axes[0],
+                         causal=cfg.causal, backend=cfg.attn_backend,
+                         head_axes=cfg.head_axis, window=cfg.window,
+                         segment_ids=segment_ids)
+    elif world > 1:
         o = burst_attn(q, k, v, mesh=dict(mesh), seq_axes=cfg.seq_axes,
                        causal=cfg.causal, layout=cfg.layout,
                        backend=cfg.attn_backend, window=cfg.window,
@@ -238,7 +302,46 @@ def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
         o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                             segment_ids=segment_ids)
     x = x + _attn_out(p, o)
-    return x + _mlp(p, x)
+    m, aux = _mlp(p, x, cfg, mesh)
+    return x + m, aux
+
+
+def check_strategy(cfg: ModelConfig, collect_stats: bool = False) -> None:
+    """The JAX model's `_attention` checks of cfg.attn_strategy: "burst"
+    or "ulysses"; Ulysses attends in natural token order over one
+    sequence axis (a ring layout's permutation would scramble causality)
+    and has no ring to instrument (collect_stats)."""
+    if cfg.attn_strategy not in ("burst", "ulysses"):
+        raise ValueError(f"unknown attn_strategy {cfg.attn_strategy!r}; "
+                         "expected 'burst' or 'ulysses'")
+    if cfg.attn_strategy != "ulysses":
+        return
+    if collect_stats:
+        raise ValueError(
+            "collect_stats requires attn_strategy='burst' (devstats "
+            f"instruments the ring); got {cfg.attn_strategy!r}")
+    if len(cfg.seq_axes) != 1:
+        raise ValueError("ulysses supports a single sequence axis")
+    if cfg.layout != "contig":
+        raise ValueError(
+            "attn_strategy='ulysses' requires layout='contig' (natural "
+            f"token order); got layout={cfg.layout!r}")
+
+
+def check_expert_axis(cfg: ModelConfig, mesh) -> None:
+    """Raise NotImplementedError for an expert axis (cfg.expert_axis) or,
+    under Ulysses, a head axis (cfg.head_axis) of size > 1 in `mesh`:
+    experts and heads sharded over cards are ROADMAP A7."""
+    if mesh is None:
+        return
+    sizes = dict(mesh)
+    for what, axis, on in (("expert", cfg.expert_axis, cfg.n_experts > 0),
+                           ("head (tp)", cfg.head_axis,
+                            cfg.attn_strategy == "ulysses")):
+        if on and axis is not None and int(sizes.get(axis, 1)) > 1:
+            raise NotImplementedError(
+                f"{what} axis {axis!r} of size {sizes[axis]}: sharding over "
+                "cards comes with the multi-card ring (ROADMAP A7)")
 
 
 def check_mesh(mesh, seq_axes=("sp",)) -> None:
@@ -260,7 +363,8 @@ def check_mesh(mesh, seq_axes=("sp",)) -> None:
 
 def ring_world(cfg: ModelConfig, mesh) -> int:
     """Ring positions over cfg.seq_axes of `mesh` (1 without a mesh),
-    after check_mesh."""
+    after check_expert_axis and check_mesh."""
+    check_expert_axis(cfg, mesh)
     check_mesh(mesh, cfg.seq_axes)
     if mesh is None:
         return 1
@@ -274,9 +378,11 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
                      mesh=None, segment_ids=None, collect_stats=False):
     """Training forward: tokens, positions [B, S] int (layout order over
     the mesh's ring; with one position every layout is the natural order)
-    -> (fp32 logits [B, S, vocab], MoE aux loss = 0).  Attention is
-    differentiable: the flash kernels on one position, burst_attn on a
-    ring; with `cfg.remat` each block goes through torch.utils.checkpoint
+    -> (fp32 logits [B, S, vocab], the layers' summed MoE aux loss; 0
+    for a dense model).  Attention is differentiable: the flash kernels
+    on one position, burst_attn on a ring, ulysses_attn for
+    attn_strategy "ulysses" (check_strategy's checks first); with
+    `cfg.remat` each block goes through torch.utils.checkpoint
     (non-reentrant), the counterpart of jax.checkpoint: its activations
     are recomputed in the backward.  `mesh` names axis sizes ({"sp": W}
     or {"inter": a, "intra": b} with cfg.seq_axes to match; the ring
@@ -289,6 +395,7 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     min) as a third element, `(logits, aux, DevStats)`; logits and
     gradients are bitwise those of collect_stats=False (a remat block's
     recompute in the backward adds no stats of its own to the result)."""
+    check_strategy(cfg, collect_stats)
     if collect_stats and ring_world(cfg, mesh) < 2:
         raise ValueError("collect_stats needs a ring: the mesh's sequence "
                          f"axes {tuple(cfg.seq_axes)} hold one position")
@@ -298,16 +405,17 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
         segment_ids = segment_ids.to(device=x.device,
                                      dtype=torch.int32).contiguous()
     sinks = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["layers"]:
         sink = [] if collect_stats else None
         sinks.append(sink)
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_block, x, p, positions, cfg, mesh, sink,
-                           segment_ids, use_reentrant=False)
+            x, aux_l = checkpoint(_block, x, p, positions, cfg, mesh, sink,
+                                  segment_ids, use_reentrant=False)
         else:
-            x = _block(x, p, positions, cfg, mesh, sink, segment_ids)
+            x, aux_l = _block(x, p, positions, cfg, mesh, sink, segment_ids)
+        aux = aux + aux_l
     logits = _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_stats:
         return logits, aux
     from ..obs import devstats
@@ -326,12 +434,16 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig,
     logits [B, S, vocab].  Causal attention (banded by cfg.window, kept
     inside each packed document by `segment_ids`) through the plain tile
     (single_device_attention), no kernels: the plain reference the
-    serving checks teacher-force against."""
+    serving checks teacher-force against.  An MoE model routes as the
+    JAX forward does on one device: one group at the training capacity
+    (cfg.moe_capacity_factor), so a serving check sets the factor high
+    enough that nothing drops (n_experts / moe_top_k makes the capacity
+    every token)."""
     x = params["embed"][tokens].to(cfg.dtype)
     for p in params["layers"]:
         q, k, v = _qkv_proj(p, x, positions, cfg)
         x = x + _attn_out(p, single_device_attention(
             q, k, v, causal=True, window=cfg.window,
             segment_ids=segment_ids))
-        x = x + _mlp(p, x)
+        x = x + _mlp(p, x, cfg)[0]
     return _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])

@@ -7,9 +7,11 @@ positions that share one device: each position keeps its own shard of
 the sequence, every position runs the same per-position program, and the
 ring's rotation is `ppermute`, which COPIES each position's payload into
 a fresh buffer of its receiver — the bytes a ring has to move are moved.
-Axes other than the sequence axes must have size 1 (data and tensor
-parallelism are not ported yet).  The multi-process communicator of a
-ring across cards comes with a later slice.
+`all_to_all` is the exchange of Ulysses attention (parallel/ulysses.py)
+and of expert parallelism (parallel/moe.py), with the same copy
+semantics.  Axes other than the sequence axes must have size 1 (data and
+tensor parallelism are not ported yet).  The multi-process communicator
+of a ring across cards comes with a later slice.
 """
 
 from typing import Dict, List, Sequence, Tuple, Union
@@ -113,3 +115,23 @@ def ppermute(parts: Sequence[Tuple[torch.Tensor, ...]], axis: str,
         out.append(tuple(t.clone() for t in parts[src]))
     return out
 
+
+def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
+               concat_dim: int) -> List[torch.Tensor]:
+    """The tiled all-to-all of W positions (lax.all_to_all(x, axis,
+    split_axis=split_dim, concat_axis=concat_dim, tiled=True) inside
+    shard_map): each position's tensor splits into W equal chunks along
+    `split_dim`, and position p receives chunk p of every peer,
+    concatenated along `concat_dim` in peer order.  The result is a
+    fresh COPY per position (torch.cat), so the bytes the exchange
+    moves are moved; differentiable through autograd (the transpose of
+    an all-to-all is the all-to-all back)."""
+    w = len(parts)
+    for t in parts:
+        if t.shape[split_dim] % w:
+            raise ValueError(f"dim {split_dim} of length "
+                             f"{t.shape[split_dim]} does not divide by the "
+                             f"{w} positions of the all-to-all")
+    chunks = [t.chunk(w, dim=split_dim) for t in parts]
+    return [torch.cat([chunks[q][p] for q in range(w)], dim=concat_dim)
+            for p in range(w)]

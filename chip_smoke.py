@@ -1589,16 +1589,17 @@ def prefix_wave(device, tails=PREFIX_TAILS,
     return stats, out[True]
 
 
-def ragged_timings(device):
+def ragged_timings(device, cm=None):
     """bf16 RaggedServeEngine: TTFT of one 2048-token prompt (16 chunks),
     a decode tick with 8 live slots at ~2K context, and a mixed tick (one
-    128-token chunk + 7 decodes), with profiler breakdowns."""
+    128-token chunk + 7 decodes), with profiler breakdowns.  `cm`: the
+    (cfg, params) to serve, default the bf16 serving model."""
     import numpy as np
     import torch
 
     from burst_attn_tpu_torch.serving import RaggedServeEngine
 
-    cfg, params = model(torch.bfloat16, device)
+    cfg, params = cm or model(torch.bfloat16, device)
     eng = RaggedServeEngine(params, cfg, slots=SLOTS, n_pages=N_PAGES,
                             page=PAGE, max_pages_per_seq=MAX_PAGES,
                             chunk=CHUNK, device=device)
@@ -2242,19 +2243,21 @@ def split_train_backward():
         yield
 
 
-def train_parity(device, n_layers=2, seq=2048):
+def train_parity(device, n_layers=2, seq=2048, **kw):
     """One step's loss and gradients at full width, fp32: the kernel route
     (flash forward, remat recompute, fused backward) against the same
-    model with plain attention, within LOSS_RTOL and GRAD_RTOL."""
+    model with plain attention, within LOSS_RTOL and GRAD_RTOL.  `kw`
+    configures the model (MOE: its weights from _moe_params)."""
     import torch
 
     from burst_attn_tpu_torch.models import train
     from burst_attn_tpu_torch.models.transformer import (
-        LAYER_KEYS, init_params, param_leaves,
+        init_params, layer_keys, param_leaves,
     )
 
-    cfg = _train_model(n_layers, torch.float32)
-    params = init_params(cfg, seed=0, device=device)
+    cfg = _train_model(n_layers, torch.float32, **kw)
+    params = (_moe_params(cfg, 0, device) if cfg.n_experts
+              else init_params(cfg, seed=0, device=device))
     leaves = list(param_leaves(params))
     for t in leaves:
         t.requires_grad_(True)
@@ -2276,7 +2279,8 @@ def train_parity(device, n_layers=2, seq=2048):
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     assert loss_err <= LOSS_RTOL, (loss_k, loss_p)
     names = ["embed"] + [f"layers.{i}.{k}" for i in range(n_layers)
-                         for k in LAYER_KEYS] + ["final_norm", "lm_head"]
+                         for k in layer_keys(params["layers"][i])] + [
+        "final_norm", "lm_head"]
     worst = (0.0, "")
     for name, a, b in zip(names, grads_k, grads_p):
         ref = float(b.abs().max())
@@ -2284,7 +2288,10 @@ def train_parity(device, n_layers=2, seq=2048):
         assert err <= GRAD_RTOL * ref + 1e-12, \
             f"gradient {name}: max-abs err {err:.3e} of max {ref:.3e}"
         worst = max(worst, (err / max(ref, 1e-30), name))
-    print(f"train parity fp32 ({n_layers} layers at full width, S={seq}): "
+    moe = (f", {cfg.n_experts} experts top-{cfg.moe_top_k}"
+           if cfg.n_experts else "")
+    print(f"train parity fp32 ({n_layers} layers at full width, S={seq}"
+          f"{moe}): "
           f"loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), rel err "
           f"{loss_err:.2e}; worst gradient error {worst[0]:.2e} of its "
           f"largest entry ({worst[1]}); launches {launches}", flush=True)
@@ -2293,7 +2300,7 @@ def train_parity(device, n_layers=2, seq=2048):
 
 
 def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
-                 packed_eos_id=None):
+                 packed_eos_id=None, **kw):
     """runner.fit at full width with `n_layers` layers on a seeded random
     token file (bf16, B=1): an uninterrupted run with an eval at the end;
     then a run that checkpoints at steps/2 (max_to_keep=1) and a second
@@ -2303,8 +2310,11 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     the fused ring kernels.  With `packed_eos_id` the token files are
     EOS-delimited documents (EOS at rate 4 / seq, as make_packed_batch
     draws it) and the run trains and evaluates packed: every attention
-    launch of the run is a SEG instance's.  The files live in a temporary
-    directory under the checkout's build/, deleted at the end."""
+    launch of the run is a SEG instance's.  `kw` configures the model
+    further: MOE (every MLP routed), or attn_strategy="ulysses" (with a
+    mesh: every position launches kernel 1 and the fused backward).  The
+    files live in a temporary directory under the checkout's build/,
+    deleted at the end."""
     import os
     import tempfile
     from pathlib import Path
@@ -2316,9 +2326,12 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     from burst_attn_tpu_torch.models import runner, train
     from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
 
-    ring = mesh is not None
+    ulysses = kw.get("attn_strategy") == "ulysses"
+    ring = mesh is not None and not ulysses
+    pos = mesh["sp"] if ulysses else 1  # kernel launches a layer
     cfg = _train_model(n_layers, torch.bfloat16,
-                       **(dict(attn_backend="fused_ring") if ring else {}))
+                       **(dict(attn_backend="fused_ring") if ring else {}),
+                       **kw)
     tcfg = train.TrainConfig()
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
@@ -2358,9 +2371,9 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     # forward per layer for each eval batch (no grad, so no recompute)
     fwd, bwd = (("fused_ring_fwd", "fused_ring_bwd") if ring
                 else ("flash_fwd", "fused"))
-    n_eval = launches[fwd] - 2 * n_layers * steps
-    assert n_eval > 0 and n_eval % n_layers == 0, launches
-    want = {fwd: launches[fwd], bwd: n_layers * steps}
+    n_eval = launches[fwd] - 2 * n_layers * steps * pos
+    assert n_eval > 0 and n_eval % (n_layers * pos) == 0, launches
+    want = {fwd: launches[fwd], bwd: n_layers * steps * pos}
     if packed_eos_id is not None:  # the train steps and the eval, packed
         want.update({f"{x}_seg": c for x, c in want.items()})
     assert launches == _launches(**want), launches
@@ -2375,6 +2388,8 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     assert diff <= RESUME_RTOL, (loss_a, loss_b)
     print(f"runner.fit ({n_layers} layers at full width, bf16, S={seq}"
           f"{f', mesh {mesh}, fused ring' if ring else ''}"
+          f"{f', mesh {mesh}, ulysses' if ulysses else ''}"
+          f"{f', {cfg.n_experts} experts' if cfg.n_experts else ''}"
           f"{f', packed_eos_id {packed_eos_id}' if packed_eos_id is not None else ''}): "
           f"{steps} steps in {fit_s:.1f} s, losses "
           f"{[round(loss_a[s], 4) for s in sorted(loss_a)]}, eval loss "
@@ -3856,12 +3871,13 @@ def ring_train_phase(device, single):
     return out
 
 
-def ring_train_parity(device, n_layers=2, seq=2048):
+def ring_train_parity(device, n_layers=2, seq=2048, routes=None,
+                      sp=RING_TRAIN_SP):
     """One step's loss and gradients at full width, fp32, on the ring
-    (mesh {"sp": RING_TRAIN_SP}, zigzag) through the fused route and the
-    scan route, each against the single-device kernels on the same
-    weights and batch: loss within LOSS_RTOL, every gradient within
-    GRAD_RTOL of its largest entry."""
+    (mesh {"sp": sp}, zigzag) through the fused route and the scan route
+    (or the `routes` {name: model options}, e.g. Ulysses), each against
+    the single-device kernels on the same weights and batch: loss within
+    LOSS_RTOL, every gradient within GRAD_RTOL of its largest entry."""
     import torch
 
     from burst_attn_tpu_torch.models import train
@@ -3869,7 +3885,9 @@ def ring_train_parity(device, n_layers=2, seq=2048):
         LAYER_KEYS, init_params, param_leaves,
     )
 
-    mesh = {"sp": RING_TRAIN_SP}
+    routes = routes or {b: dict(attn_backend=b)
+                        for b in ("fused_ring", "auto")}
+    mesh = {"sp": sp}
     base = _train_model(n_layers, torch.float32)
     params = init_params(base, seed=0, device=device)
     leaves = list(param_leaves(params))
@@ -3886,8 +3904,8 @@ def ring_train_parity(device, n_layers=2, seq=2048):
     names = ["embed"] + [f"layers.{i}.{k}" for i in range(n_layers)
                          for k in LAYER_KEYS] + ["final_norm", "lm_head"]
     res = {}
-    for backend in ("fused_ring", "auto"):
-        cfg = _train_model(n_layers, torch.float32, attn_backend=backend)
+    for backend, opts in routes.items():
+        cfg = _train_model(n_layers, torch.float32, **opts)
         _reset_counts()
         loss_r, grads_r = loss_grads(cfg, mesh)
         launches = _counts()
@@ -3901,7 +3919,9 @@ def ring_train_parity(device, n_layers=2, seq=2048):
                 f"{backend} gradient {name}: max-abs err {err:.3e} of max " \
                 f"{ref:.3e}"
             worst = max(worst, (err / max(ref, 1e-30), name))
-        print(f"ring train parity fp32 ({backend}, mesh {mesh}, {n_layers} "
+        kind = ("ulysses" if opts.get("attn_strategy") == "ulysses"
+                else "ring")
+        print(f"{kind} train parity fp32 ({backend}, mesh {mesh}, {n_layers} "
               f"layers at full width, S={seq}): loss {loss_r:.6f} (ring) vs "
               f"{loss_1:.6f} (one device), rel err {loss_err:.2e}; worst "
               f"gradient error {worst[0]:.2e} of its largest entry "
@@ -6952,6 +6972,701 @@ def window_bench_phase(device):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# MoE models, served and trained, and Ulysses attention
+
+# the expert count and top-k of Mixtral-8x7B on the repo's widths
+MOE = dict(n_experts=8, moe_top_k=2)
+# serving: n_experts / top_k makes the training capacity every token, so
+# the dense reference forward (which routes with it) drops nothing; the
+# engines route drop-free whatever the factor
+MOE_SERVE_CF = 4.0
+MOE_REQUESTS = 6  # the MoE serve phase's share of the seeded requests
+# training: TRAIN_DIMS' widths at 4 layers: at 16 the expert weights alone
+# are 6.4 B parameters, and with AdamW's state they do not fit in 80 GB
+MOE_TRAIN_LAYERS = 4
+ULYSSES_SP = 4  # the Ulysses train step's positions (4 heads each)
+
+
+# A bf16 MoE stream against the dense MoE forward: besides the near ties
+# of the logits, a token whose top-k expert choice is itself a near tie
+# routes differently on the two sides (their bf16 activations differ by
+# rounding) and moves its logits by O(1).  Such a disagreement is
+# accepted where the dense forward's router logits at that token, in
+# some layer, put the k-th and (k+1)-th expert within ROUTER_TIE (a few
+# bf16 ulps of the hidden state move a router logit by ~0.004 a layer;
+# the router logits have std ~0.9).  fp32 stays token-exact.
+ROUTER_TIE = 0.05
+
+
+def moe_agreement(cfg, params, prompts, toks, device):
+    """agreement()'s teacher-forced pass through the dense MoE forward,
+    recording every layer's router margin (the k-th minus the (k+1)-th
+    router logit) at every position: (agreeing tokens, total, [(index,
+    logit gap, smallest router margin of that position over the
+    layers)] per disagreement)."""
+    from unittest import mock
+
+    import torch
+
+    import burst_attn_tpu_torch.models.transformer as tr
+
+    k = cfg.moe_top_k
+    margins = []
+    real = tr.moe_shard
+
+    def recorded(p, x, **kw):
+        top = torch.topk(x.float() @ p.router.float(), k + 1, dim=-1).values
+        margins.append(top[:, k - 1] - top[:, k])
+        return real(p, x, **kw)
+
+    agree = total = 0
+    out_gaps = []
+    with mock.patch.object(tr, "moe_shard", recorded):
+        for p, out in zip(prompts, toks):
+            margins.clear()
+            a, t, gaps = agreement(cfg, params, [p], [out], device)
+            agree, total = agree + a, total + t
+            m = torch.stack(margins).amin(dim=0)  # over the layers
+            out_gaps += [(i, g, float(m[len(p) - 1 + i])) for i, g in gaps]
+    return agree, total, out_gaps
+
+
+def check_moe_agreement(what, res):
+    """check_agreement for a bf16 MoE stream: >= MIN_AGREE_BF16, and each
+    disagreement a near tie of the logits (<= TIE_GAP) or of the router
+    at that token (<= ROUTER_TIE)."""
+    agree, total, gaps = res
+    shown = [(i, round(g, 4), round(m, 4)) for i, g, m in gaps]
+    print(f"{what}: teacher-forced agreement with the dense MoE forward "
+          f"{agree}/{total} = {agree / total:.4f}; disagreements (index, "
+          f"logit gap, router margin) {shown}", flush=True)
+    assert agree / total >= MIN_AGREE_BF16, what
+    assert all(g <= TIE_GAP or m <= ROUTER_TIE for _, g, m in gaps), \
+        (what, gaps)
+
+
+def _moe_params(cfg, seed, device):
+    """init_params' tree for an MoE `cfg` (norm scales of ones, matrices
+    normal(std 0.02), the router fp32), drawn in fp32 on the card from a
+    torch generator seeded with `seed` and cast to cfg.dtype: the same
+    seed gives the fp32 and bf16 models the same weights.  (numpy's init
+    of the 1.6 B expert weights takes ~20 s of host time.)"""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    d, nh, nkv, hd, f, e = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.d_head, cfg.d_ff, cfg.n_experts)
+
+    def w(*shape, dtype=cfg.dtype):
+        return (torch.randn(*shape, generator=g, device=device)
+                * 0.02).to(dtype)
+
+    def ones():
+        return torch.ones(d, dtype=torch.float32, device=device)
+
+    layers = [{"attn_norm": ones(), "wq": w(d, nh, hd), "wk": w(d, nkv, hd),
+               "wv": w(d, nkv, hd), "wo": w(nh, hd, d), "mlp_norm": ones(),
+               "router": w(d, e, dtype=torch.float32),
+               "w_gate": w(e, d, f), "w_up": w(e, d, f),
+               "w_down": w(e, f, d)} for _ in range(cfg.n_layers)]
+    return {"embed": w(cfg.vocab, d), "layers": layers,
+            "final_norm": ones(), "lm_head": w(cfg.vocab, d)}
+
+
+_MOE_PARAMS = {}
+
+
+def _moe_serve_model(dtype, device):
+    """(cfg, params) of the MoE serving model: SERVE_DIMS with MOE at
+    capacity factor MOE_SERVE_CF, seed 0; made once per dtype."""
+    from burst_attn_tpu_torch.models.transformer import ModelConfig
+
+    cfg = ModelConfig(**SERVE_DIMS, **MOE, moe_capacity_factor=MOE_SERVE_CF,
+                      dtype=dtype, batch_axis=None, head_axis=None)
+    if dtype not in _MOE_PARAMS:
+        _MOE_PARAMS[dtype] = _moe_params(cfg, 0, device)
+    return cfg, _MOE_PARAMS[dtype]
+
+
+def serve_timings(cfg, params, device):
+    """serve_engine_phase's ServeEngine timing on (cfg, params): one
+    2048-token prefill (host ms), then decode steps with all SLOTS slots
+    live at ~2K context (host ms a step, and a profiled step)."""
+    import numpy as np
+
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+
+    eng = ServeEngine(params, cfg, slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+                      max_pages_per_seq=MAX_PAGES, device=device)
+    long_prompt = np.random.default_rng(9).integers(
+        1, cfg.vocab, size=2048, dtype=np.int32)
+
+    def one_prefill():
+        eng.submit(long_prompt, 1)
+        eng.step()
+
+    out = dict(prefill_ms=host_ms(one_prefill))
+    for _ in range(SLOTS):
+        eng.submit(long_prompt[:2048 - 64], 64)
+    eng.step()
+    n_steps = 16
+    out["decode_step_ms"] = host_ms(lambda: [eng.step()
+                                             for _ in range(n_steps)],
+                                    repeats=1) / n_steps
+    out["prof_step"] = device_breakdown(eng.step, 4)
+    eng.drain()
+    return out
+
+
+def _graph_vs_eager(cfg, params, device, k=K_PIPE):
+    """multi_step_decode's CUDA graph of k decode ticks against k eager
+    pipelined ticks from the same paged state (two slots decoding after a
+    prefill tick): the same choices and lengths.  Returns the ragged
+    launches a replay made."""
+    import torch
+
+    from burst_attn_tpu_torch.models import paged_decode as pd
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+    from burst_attn_tpu_torch.serving import model as sm
+
+    st, _ = pd.init_paged_state(cfg, slots=3, n_pages=8, page=PAGE,
+                                max_pages_per_seq=3, device=device)
+    for slot, row in ((0, [1, 2, 3]), (1, [4, 5, 6])):
+        sm.assign_pages(st, slot, row)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab, (3, 100), generator=g).to(device)
+    q_lens = torch.tensor([100, 37, 0], dtype=torch.int32, device=device)
+    with torch.no_grad():
+        logits, _ = sm.ragged_model_step(params, toks, q_lens, st, cfg)
+        first = logits.argmax(-1)
+        live = torch.tensor([1, 1, 0], dtype=torch.int32, device=device)
+        lengths = st.lengths.clone()
+        feed, rows = first, []
+        for _ in range(k):
+            feed, _ = sm.pipelined_tick(params, feed[:, None], live, st,
+                                        None, cfg)
+            rows.append(feed)
+        eager, eager_len = torch.stack(rows), st.lengths.clone()
+        graphs = sm.DecodeGraphs(params, st, cfg, None)
+        moved = []
+        for _ in range(2):  # the first call captures, both replay
+            st.lengths.copy_(lengths)
+            before = rp.ragged_paged_attention.launches
+            choices, _, _ = sm.multi_step_decode(params, first, live, st,
+                                                 None, cfg, k=k,
+                                                 graphs=graphs)
+            torch.cuda.synchronize()
+            assert torch.equal(choices, eager), (choices, eager)
+            assert torch.equal(st.lengths, eager_len)
+            moved.append(rp.ragged_paged_attention.launches - before)
+    assert graphs.captures == 1 and graphs.replays == 2, graphs
+    assert moved[1] == k * cfg.n_layers, moved
+    return moved[1]
+
+
+def moe_serve_phase(device, serve_res, rag, hand):
+    """The MoE serving model (SERVE_DIMS, 8 experts, top-2) through both
+    engines on MOE_REQUESTS of the seeded requests: bf16 (the 95% and
+    near-tie bar against the dense MoE forward) and fp32 (token-exact
+    with it, the two engines equal); the pipelined engine at K=4 (fp32,
+    token-exact with the synchronous engine) and its graph replay against
+    4 eager ticks; one early-exit draft round per request (fp32,
+    token-exact with the plain engine); exact launches of kernels 1, 6
+    and 7; decode tick, mixed tick and TTFT beside the dense model's of
+    this run (serve_res, rag).  Then dist_generate of the MoE model at
+    HANDOFF_PROMPT_FP32 tokens over sp=HANDOFF_SP, fp32, token-exact
+    across the fused and the scan route (kernel 8 / kernel 1, exact
+    launches).  MoE routing is plain PyTorch, as in JAX."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from burst_attn_tpu_torch.models.dist_decode import dist_generate
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.ops import flash, fused_ring
+    from burst_attn_tpu_torch.ops import paged_attention as pa
+    from burst_attn_tpu_torch.ops import ragged_paged as rp
+    from burst_attn_tpu_torch.parallel.mesh import Mesh
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    t0 = time.perf_counter()
+    counters = (flash.flash_fwd, pa.paged_decode_attention,
+                rp.ragged_paged_attention)
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, device=device)
+    n_req = MOE_REQUESTS
+    res = {"launches": dict.fromkeys(("flash_fwd", "paged_decode_attention",
+                                      "ragged_paged_attention"), 0)}
+
+    def add(launches):
+        for k_, v in launches.items():
+            res["launches"][k_] += v
+
+    toks = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        cfg, params = _moe_serve_model(dtype, device)
+        prompts, budgets = requests(cfg, seed=3, n_requests=n_req,
+                                    len_hi=1024, new_lo=16, new_hi=32)
+        n_gen = sum(budgets)
+        min_steps = -(-(n_gen - n_req) // SLOTS)
+        eng = ServeEngine(params, cfg, **kw)
+        t_s, l_s, run_s = drive(eng, prompts, budgets, counters)
+        assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+        assert l_s["flash_fwd"] == cfg.n_layers * n_req, l_s
+        assert l_s["ragged_paged_attention"] == 0, l_s
+        assert l_s["paged_decode_attention"] % cfg.n_layers == 0, l_s
+        assert l_s["paged_decode_attention"] >= cfg.n_layers * min_steps
+        eng = RaggedServeEngine(params, cfg, chunk=CHUNK, **kw)
+        t_r, l_r, run_r = drive(eng, prompts, budgets, counters)
+        assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+        ticks = sum(v for k_, v in eng.stats.items()
+                    if k_.startswith("serve.ragged_batch_launches"))
+        assert not any(k_.startswith("burst.fused_fallback")
+                       for k_ in eng.stats), dict(eng.stats)
+        assert l_r == {"flash_fwd": 0, "paged_decode_attention": 0,
+                       "ragged_paged_attention": cfg.n_layers * ticks}, \
+            (l_r, ticks)
+        if name == "bf16":
+            add(l_s)
+            add(l_r)
+        for eng_name, t in (("ServeEngine", t_s), ("RaggedServeEngine", t_r)):
+            if name == "bf16":
+                check_moe_agreement(f"MoE {eng_name} bf16", moe_agreement(
+                    cfg, params, prompts, t, device))
+            else:
+                check_agreement(f"MoE {eng_name} fp32", agreement(
+                    cfg, params, prompts, t, device), False)
+        print(f"moe serve {name}: {n_req} requests, {n_gen} tokens; "
+              f"ServeEngine {run_s:.2f} s, launches {l_s}; "
+              f"RaggedServeEngine {run_r:.2f} s, {ticks} ticks, launches "
+              f"{l_r}", flush=True)
+        toks[name] = (t_s, t_r, prompts, budgets)
+    t_s, t_r, prompts, budgets = toks["fp32"]
+    assert t_s == t_r, "fp32 MoE engines disagree"
+    agree = {k_: sum(a == b for a, b in zip(*toks[k_][:2]))
+             for k_ in ("bf16", "fp32")}
+    print(f"moe serve: the engines' streams identical bf16 "
+          f"{agree['bf16']}/{n_req}, fp32 {agree['fp32']}/{n_req} (fp32 "
+          f"token-exact with the dense MoE forward)", flush=True)
+
+    # the pipelined engine at K=4 (fp32): token-exact with the synchronous
+    cfg, params = _moe_serve_model(torch.float32, device)
+    eng = RaggedServeEngine(params, cfg, chunk=CHUNK, pipeline=True,
+                            multi_step=K_PIPE, **kw)
+    t_p, l_p, _ = drive(eng, prompts, budgets, counters)
+    assert eng.pool.available == N_PAGES - 1 and eng._pending is None
+    assert t_p == t_r, "pipelined MoE engine differs from the synchronous"
+    assert l_p["ragged_paged_attention"] == \
+        cfg.n_layers * _device_ticks(eng) > 0, (l_p, dict(eng.stats))
+    captures, replays = eng.graphs.captures, eng.graphs.replays
+    assert captures >= 1 and replays >= 1, (captures, replays)
+    cfg16, params16 = _moe_serve_model(torch.bfloat16, device)
+    replay_launches = _graph_vs_eager(cfg16, params16, device)
+    print(f"moe serve pipelined K={K_PIPE} fp32: token-exact with the "
+          f"synchronous engine, ragged launches {l_p}, graph captures "
+          f"{captures}, replays {replays}; bf16 graph replay of {K_PIPE} "
+          f"ticks equal to {K_PIPE} eager ticks ({replay_launches} kernel-7 "
+          f"launches a replay)", flush=True)
+
+    # an early-exit draft (the first SPEC_EXIT_LAYERS layers), fp32: the
+    # speculative stream is the plain engine's
+    draft_cfg = dataclasses.replace(cfg, n_layers=SPEC_EXIT_LAYERS)
+    draft = dict(params, layers=params["layers"][:SPEC_EXIT_LAYERS])
+    eng = ServeEngine(params, cfg, draft_params=draft, draft_cfg=draft_cfg,
+                      spec_k=SPEC_K, **kw)
+    with no_plain_attention():
+        t_d, l_d, _ = drive(eng, prompts[:2], budgets[:2], counters)
+    rounds = eng.spec_rounds
+    assert t_d == t_s[:2], "the MoE draft engine's stream differs"
+    assert rounds > 0 and l_d["flash_fwd"] == (
+        cfg.n_layers + SPEC_EXIT_LAYERS) * 2, (l_d, rounds)
+    assert l_d["paged_decode_attention"] == \
+        SPEC_EXIT_LAYERS * (SPEC_K + 1) * rounds, (l_d, rounds)
+    assert l_d["ragged_paged_attention"] == cfg.n_layers * rounds, l_d
+    res.update(spec_rounds=rounds, spec_acceptance=eng.acceptance_rate,
+               spec_launches=l_d)
+    print(f"moe serve early-exit draft ({SPEC_EXIT_LAYERS} layers, k "
+          f"{SPEC_K}) fp32: token-exact with the plain engine, {rounds} "
+          f"rounds, acceptance {eng.acceptance_rate:.4f}, launches {l_d}",
+          flush=True)
+
+    # the timings (bf16), by the dense model's procedures of this run
+    cfg16, params16 = _moe_serve_model(torch.bfloat16, device)
+    st = serve_timings(cfg16, params16, device)
+    rt = ragged_timings(device, (cfg16, params16))
+    res.update(prefill_ms=st["prefill_ms"],
+               decode_step_ms=st["decode_step_ms"],
+               ttft_ms=rt["ttft_ms"], decode_tick_ms=rt["decode_tick_ms"],
+               mixed_tick_ms=rt["mixed_tick_ms"],
+               prof_decode_tick=rt["prof_decode"][:2],
+               prof_serve_step=st["prof_step"][:2],
+               dense=dict(prefill_ms=serve_res["prefill_ms"],
+                          decode_step_ms=serve_res["decode_step_ms"],
+                          ttft_ms=rag["ttft_ms"],
+                          decode_tick_ms=rag["decode_tick_ms"],
+                          mixed_tick_ms=rag["mixed_tick_ms"],
+                          prof_decode_tick=rag["prof_decode"][:2]))
+    d = res["dense"]
+    print(f"moe serve timings bf16 (MoE vs dense {SERVE_DIMS['n_layers']}-"
+          f"layer model, ms): ServeEngine prefill 2048 tokens "
+          f"{res['prefill_ms']:.2f} vs {d['prefill_ms']:.2f}, decode step "
+          f"({SLOTS} slots) {res['decode_step_ms']:.2f} vs "
+          f"{d['decode_step_ms']:.2f}; RaggedServeEngine TTFT "
+          f"{res['ttft_ms']:.2f} vs {d['ttft_ms']:.2f}, decode tick "
+          f"{res['decode_tick_ms']:.2f} vs {d['decode_tick_ms']:.2f} "
+          f"(device {res['prof_decode_tick'][1]:.2f} vs "
+          f"{d['prof_decode_tick'][1]:.2f}), mixed tick "
+          f"{res['mixed_tick_ms']:.2f} vs {d['mixed_tick_ms']:.2f}",
+          flush=True)
+    print_profile("MoE RaggedServeEngine decode tick", rt["prof_decode"])
+    print_profile("MoE ServeEngine decode step", st["prof_step"])
+
+    # dist_generate of the MoE model (fp32): both routes token-exact
+    mesh = Mesh({"sp": HANDOFF_SP}, device=device)
+    prompt = hand["_fp32_prompt"]
+    p = torch.from_numpy(prompt.astype(np.int64))[None].to(device)
+    dist = {}
+    for backend in ("fused_ring", "auto"):
+        dcfg = dataclasses.replace(cfg, layout="zigzag",
+                                   attn_backend=backend)
+        dc = _kernel_counters()
+        for f in dc:
+            f.launches = 0
+        obs0 = _obs_now()
+        with torch.no_grad():
+            out = dist_generate(params, p, dcfg, mesh, steps=HANDOFF_STEPS)
+        torch.cuda.synchronize()
+        launches = {f.__name__: f.launches for f in dc}
+        want = ({"flash_fwd": 0, "fused_ring_fwd": cfg.n_layers,
+                 "paged_decode_attention": 0} if backend == "fused_ring"
+                else {"flash_fwd": cfg.n_layers * HANDOFF_SP * HANDOFF_SP,
+                      "fused_ring_fwd": 0, "paged_decode_attention": 0})
+        assert launches == want, (backend, launches)
+        assert not any(k_.startswith("burst.fused_fallback")
+                       for k_ in _obs_since(obs0))
+        dist[backend] = ([int(t) for t in out[0]], launches)
+    assert dist["fused_ring"][0] == dist["auto"][0], dist
+    _stream_check("moe dist_generate fp32", cfg, params, prompt,
+                  dist["auto"][0], device, False)
+    res.update(dist_launches={b: v[1] for b, v in dist.items()},
+               dist_tokens=len(dist["auto"][0]))
+    print(f"moe dist_generate fp32 ({len(prompt)}-token prompt, "
+          f"sp={HANDOFF_SP}, zigzag): fused and scan routes token-exact "
+          f"with each other and the dense MoE forward; launches "
+          f"{res['dist_launches']}", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def moe_train_phase(device):
+    """make_train_step on the MoE training model: TRAIN_DIMS' widths at
+    MOE_TRAIN_LAYERS layers, 8 experts, top-2, capacity factor 1.25
+    (JAX's default), bf16, remat, B=1 S=TRAIN_SEQ, weights from
+    _moe_params(seed 0): a warm-up and TRAIN_STEPS timed steps (exact
+    launches: kernel 1 twice and the fused backward once a layer and
+    step), loss finite and falling; the aux loss and dropped share of a
+    forward; the MoE layer's own forward and backward times at the step's
+    shape (its share of the step); step ms and MFU counting only the
+    top-k experts' FLOPs as live work; then fp32 parity at 2 layers and
+    S2048 against plain attention, and runner.fit with a resume at one
+    layer."""
+    import statistics
+    from unittest import mock
+
+    import torch
+
+    import burst_attn_tpu_torch.models.transformer as tr
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.parallel import moe
+
+    t0 = time.perf_counter()
+    n_layers = MOE_TRAIN_LAYERS
+    cfg = _train_model(n_layers, torch.bfloat16, **MOE)
+    tcfg = train.TrainConfig()
+    params = _moe_params(cfg, 0, device)
+    leaves = list(tr.param_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    state = (params, train._optimizer(params, tcfg))
+    n_params = sum(t.numel() for t in leaves)
+    e, k, d, f = cfg.n_experts, cfg.moe_top_k, cfg.d_model, cfg.d_ff
+    live = n_params - n_layers * 3 * d * f * (e - k)
+    batch = train.make_batch(1, cfg, batch=1, seq=TRAIN_SEQ, device=device)
+    step = train.make_train_step(cfg, tcfg, device=device)
+    losses, times = [], []
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = _launches(flash_fwd=2 * n_layers * TRAIN_STEPS,
+                     fused=n_layers * TRAIN_STEPS)
+    assert launches == want, (launches, want)
+    assert all(map(math.isfinite, losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    step_ms = statistics.median(times[1:])
+
+    # the aux loss and every layer's dropped share, from one forward
+    drops = []
+    real = tr.moe_shard
+
+    def recorded(*a, **kw_):
+        y, aux, dropped = real(*a, **kw_)
+        drops.append(dropped)
+        return y, aux, dropped
+
+    with mock.patch.object(tr, "moe_shard", recorded), torch.no_grad():
+        _, aux = tr.forward_with_aux(params, batch["tokens"],
+                                     batch["positions"], cfg)
+    drops = [float(x) for x in drops]
+    assert len(drops) == n_layers and math.isfinite(float(aux))
+
+    # one MoE layer at the step's shape: forward, forward + backward, and
+    # the expert products alone (the rest is routing, dispatch, combine)
+    g = torch.Generator(device=device).manual_seed(41)
+    x = torch.randn(TRAIN_SEQ, d, generator=g, device=device).to(cfg.dtype)
+    mp = moe.MoEParams(*(params["layers"][0][n].detach()
+                         for n in moe.MoEParams._fields))
+    cap = moe.capacity_for(TRAIN_SEQ, e, k, cfg.moe_capacity_factor)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: moe.moe_shard(mp, x, top_k=k, capacity=cap),
+                         iters=5, warmup=1)
+        r = moe.route(x, mp.router, k, cap)
+        h = moe.dispatch(x, r)
+        gemm_ms = time_ms(lambda: moe.expert_mlp(mp.w_gate, mp.w_up,
+                                                 mp.w_down, h),
+                          iters=5, warmup=1)
+    xg = x.detach().requires_grad_(True)
+    mg = moe.MoEParams(*(t.detach().requires_grad_(True) for t in mp))
+
+    def fwd_bwd():
+        y, aux_, _ = moe.moe_shard(mg, xg, top_k=k, capacity=cap)
+        torch.autograd.grad(y.float().square().mean() + aux_,
+                            [xg, *mg])
+
+    fb_ms = time_ms(fwd_bwd, iters=3, warmup=1)
+    # a layer's MoE in a remat step: the forward, its recompute, the
+    # backward
+    moe_step_ms = n_layers * (fwd_ms + fb_ms)
+    attn_flops = (n_layers * 3.5 * 4 * TRAIN_SEQ * TRAIN_SEQ
+                  * TRAIN_DIMS["n_heads"] * TRAIN_DIMS["d_head"] / 2)
+    flops = 6.0 * live * TRAIN_SEQ + attn_flops
+    res = dict(n_params=n_params, live_params=live, seq=TRAIN_SEQ,
+               n_layers=n_layers, losses=losses, step_ms=step_ms,
+               step_ms_all=times[1:],
+               tokens_per_s=TRAIN_SEQ / (step_ms / 1e3),
+               model_tflops_per_s=flops / (step_ms / 1e3) / 1e12,
+               mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+               launches=launches,
+               launches_per_step={k_: v // TRAIN_STEPS
+                                  for k_, v in launches.items() if v},
+               aux=float(aux), dropped=drops, capacity=cap,
+               slot_rows_per_live_row=e * cap / (TRAIN_SEQ * k),
+               moe_layer_fwd_ms=fwd_ms, moe_layer_fwd_bwd_ms=fb_ms,
+               moe_expert_gemm_fwd_ms=gemm_ms,
+               moe_share_of_step=moe_step_ms / step_ms, peak_gb=peak_gb)
+    res["prof"] = device_breakdown(lambda: step(state, batch), 1, top=8)
+    print(f"moe train step ({n_params / 1e9:.3f} B parameters, "
+          f"{live / 1e9:.3f} B live at top-{k} of {e}, {n_layers} layers, "
+          f"bf16, remat, B=1 S={TRAIN_SEQ}, capacity {cap} a expert): "
+          f"{step_ms:.1f} ms (median of {TRAIN_STEPS}: "
+          f"{[round(t_, 1) for t_ in times[1:]]}), "
+          f"{res['tokens_per_s']:.0f} tokens/s, MFU {res['mfu']:.4f} "
+          f"(live FLOPs: only the top-{k} experts' products count); losses "
+          f"{[round(x_, 4) for x_ in losses]}; aux {float(aux):.4f}, "
+          f"dropped share by layer {[round(x_, 4) for x_ in drops]}; "
+          f"launches per step {res['launches_per_step']}; peak "
+          f"{peak_gb:.1f} GB", flush=True)
+    print(f"moe layer at the step's shape (T {TRAIN_SEQ}, bf16): forward "
+          f"{fwd_ms:.3f} ms (expert products {gemm_ms:.3f}, routing, "
+          f"dispatch and combine the rest), forward + backward "
+          f"{fb_ms:.3f} ms; {n_layers} layers' forward, recompute and "
+          f"backward {moe_step_ms:.1f} ms = {res['moe_share_of_step']:.3f} "
+          f"of the step", flush=True)
+    print_profile("moe train step", res["prof"])
+    del state, params, leaves, batch
+    torch.cuda.empty_cache()
+    res["parity"] = train_parity(device, **MOE)
+    # fit with a checkpoint and a resume, one MoE layer at full width
+    res["fit"] = runner_phase(device, n_layers=1, **MOE)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def ulysses_rows(device):
+    """Kernels 1 and 2-3 at the shape each Ulysses position gives them,
+    B1 N4 S8192 D128 bf16 causal: held against their plain versions, with
+    times, bounds and SDPA's time (kernels-line records
+    flash_fwd[ulysses] and flash_bwd_fused[ulysses])."""
+    import torch
+    import torch.nn.functional as F
+
+    from burst_attn_tpu_torch.ops import flash, tile
+
+    n = TRAIN_DIMS["n_heads"] // ULYSSES_SP
+    fwd = check_flash(device, n=n, n_kv=n, s=TRAIN_SEQ, seed=33)
+    fwd["name"] = "flash_fwd[ulysses]"
+    torch.cuda.empty_cache()
+    args = _bwd_inputs(device, torch.bfloat16, n, n, TRAIN_SEQ, True,
+                       seed=34)
+    do, q, k, v, delta, lse, _, _ = args
+    want = tile.tile_bwd(*args)
+    got = flash.flash_bwd(*args, triangular=True)
+    errs = _bwd_errs(got, want, "flash_bwd[ulysses]")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: flash.flash_bwd(*args, triangular=True), iters=10,
+                 warmup=2)
+    plain_ms = time_ms(lambda: tile.tile_bwd(*args), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), do,
+                                                 retain_graph=True),
+                     iters=10, warmup=2)
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    esz = q.element_size()
+    reads = esz * 2 * (q.numel() + k.numel()) + 4 * 2 * delta.numel()
+    bms, by = bound_ms(reads + 4 * (q.numel() + 2 * k.numel()),
+                       5 * 2 * pairs * n * q.shape[-1])
+    bwd = dict(name="flash_bwd_fused[ulysses]", route="cuda",
+               source="burst_attn_tpu_torch/csrc/flash_bwd.cu",
+               replaces="burst_attn_tpu/ops/pallas_flash.py:1379 "
+                        "(_bwd_fused_tri_kernel)",
+               max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    del args, do, q, k, v, delta, lse, o, qr, kr, vr
+    torch.cuda.empty_cache()
+    for rec in (fwd, bwd):
+        print(f"{rec['name']} at B1 N{n}/{n} S={TRAIN_SEQ} D128 bf16 causal:"
+              f" {rec['ms']:.4f} ms (plain {rec['plain_ms']:.2f}, SDPA "
+              f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} by "
+              f"{rec['bound_by']}), max_abs_err {rec['max_abs_err']:.3e}",
+              flush=True)
+    return [fwd, bwd]
+
+
+def ulysses_train_phase(device, single, ring_tr):
+    """make_train_step with attn_strategy="ulysses" (layout contig) on
+    train_smoke's 16-layer model, bf16, remat, B=1 S=TRAIN_SEQ over
+    {"sp": ULYSSES_SP} (the positions share the card), the seed-0 weights
+    and batch of the single-device step: a warm-up and TRAIN_STEPS timed
+    steps with exact launches (each position's kernel 1 twice a layer on
+    its N/W heads over all S tokens, its fused backward once), losses
+    finite and falling, the first two within CONTROL_RTOL of the single
+    device's; one windowed (TRAIN_WINDOW) and one packed step with their
+    WIN / SEG launches; step ms beside one device and both rings of this
+    run; fp32 parity against one device at 2 layers, S2048; runner.fit
+    with a resume and the evaluator on the mesh."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.ops import flash
+
+    t0 = time.perf_counter()
+    w = ULYSSES_SP
+    mesh = {"sp": w}
+    n_layers = TRAIN_DIMS["n_layers"]
+    cfg = _train_model(n_layers, torch.bfloat16, attn_strategy="ulysses",
+                       layout="contig")
+    tcfg = train.TrainConfig()
+    state = _seed_state(cfg, tcfg, device)
+    batch = train.make_batch(1, cfg, mesh, batch=1, seq=TRAIN_SEQ,
+                             device=device)
+    step = train.make_train_step(cfg, tcfg, mesh, device=device)
+    losses, times = [], []
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:
+            _reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = _counts()
+    per_step = dict(flash_fwd=2 * n_layers * w, fused=n_layers * w)
+    want = _launches(**{k: v * TRAIN_STEPS for k, v in per_step.items()})
+    assert launches == want, (launches, want)
+    assert all(map(math.isfinite, losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses, single["losses"])]
+    assert max(diffs[:2]) <= CONTROL_RTOL, (losses, single["losses"])
+    step_ms = statistics.median(times[1:])
+    prof = device_breakdown(lambda: step(state, batch), 1, top=8)
+    res = dict(mesh=mesh, step_ms=step_ms, step_ms_all=times[1:],
+               losses=losses, rel_diff_vs_single=diffs[:2],
+               tokens_per_s=TRAIN_SEQ / (step_ms / 1e3),
+               mfu=single["mfu"] * single["step_ms"] / step_ms,
+               launches=launches, launches_per_step=per_step,
+               prof=prof[:2],
+               single_step_ms=single["step_ms"],
+               ring_step_ms={b: r["step_ms"] for b, r in ring_tr.items()})
+    print(f"ulysses train step (mesh {mesh}, contig, bf16, B=1 "
+          f"S={TRAIN_SEQ}): {step_ms:.1f} ms (median of {TRAIN_STEPS}: "
+          f"{[round(t_, 1) for t_ in times[1:]]}) vs one device "
+          f"{single['step_ms']:.1f}, fused ring "
+          f"{ring_tr['fused_ring']['step_ms']:.1f}, scan ring "
+          f"{ring_tr['auto']['step_ms']:.1f}; MFU {res['mfu']:.4f}; losses "
+          f"{[round(x, 4) for x in losses]} (single device rel diffs "
+          f"{[float(f'{x:.2e}') for x in diffs]}); launches per step "
+          f"{per_step}", flush=True)
+    print_profile("ulysses train step", prof)
+
+    # one windowed and one packed step: the WIN and SEG instances
+    shape = (1, TRAIN_DIMS["n_heads"] // w, TRAIN_SEQ, TRAIN_DIMS["d_head"])
+    route = flash.bwd_route(shape, shape, window=TRAIN_WINDOW)
+    wcfg = dataclasses.replace(cfg, window=TRAIN_WINDOW)
+    extra = {}
+    for what, c, b, tag, rt in (
+            ("windowed", wcfg, batch, "win", route),
+            ("packed", cfg, train.make_packed_batch(
+                PACKED_SEED, cfg, mesh, batch=1, seq=TRAIN_SEQ,
+                device=device), "seg", "fused")):
+        s_ = train.make_train_step(c, tcfg, mesh, device=device)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = s_(state, b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = _counts()
+        want = {"flash_fwd": 2 * n_layers * w,
+                f"flash_fwd_{tag}": 2 * n_layers * w}
+        for r in (("dq", "dkdv") if rt == "split" else (rt,)):
+            want.update({r: n_layers * w, f"{r}_{tag}": n_layers * w})
+        assert got == _launches(**want), (what, got, want)
+        assert math.isfinite(loss), (what, loss)
+        extra[what] = dict(loss=loss, step_ms=ms, launches=want)
+        print(f"ulysses {what} train step: {ms:.1f} ms (one step, "
+              f"untimed warm-up), loss {loss:.4f}, launches {want}",
+              flush=True)
+    res.update(extra)
+    del state, batch
+    torch.cuda.empty_cache()
+    res["parity"] = ring_train_parity(
+        device, routes={"ulysses": dict(attn_strategy="ulysses",
+                                        layout="contig")}, sp=w)
+    # fit with a checkpoint, a resume and the evaluator, on the sp=4 mesh
+    res["fit"] = runner_phase(device, mesh=mesh, attn_strategy="ulysses",
+                              layout="contig")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def _mark(t_start, what):
     """Print the seconds since the smoke started, after `what`."""
     print(f"[{time.perf_counter() - t_start:.1f} s] {what} done", flush=True)
@@ -7208,6 +7923,9 @@ def main() -> int:
     obs_res = obs_phase(device, pticks)
 
     _mark(t_start, "devstats and obs phases")
+    moe_srv = moe_serve_phase(device, serve_res, rag, hand)
+    _MOE_PARAMS.clear()
+    _mark(t_start, "moe serve phase")
     _PARAMS.clear()  # the serving models' weights
     torch.cuda.empty_cache()
     tr = train_phase(device)
@@ -7245,8 +7963,13 @@ def main() -> int:
     wring = window_ring_train_phase(device, wtr)
     print(f"windowed training phases: {time.perf_counter() - t_wt:.1f} s",
           flush=True)
+    uly = ulysses_train_phase(device, tr, ring_tr)
+    uly_rows = ulysses_rows(device)
+    _mark(t_start, "ulysses train phase")
     _SEED_PARAMS.clear()  # the training model's seed-0 weights
     torch.cuda.empty_cache()
+    moe_tr = moe_train_phase(device)
+    _mark(t_start, "moe train phase")
     parity = train_parity(device)
     ring_parity = ring_train_parity(device)
     fit_res = runner_phase(device)
@@ -7319,9 +8042,27 @@ def main() -> int:
         wtr["launches"]["flash_fwd_win"]
         + wring["auto"]["launches"]["flash_fwd_win"]
         + wdist["launches_auto"]["flash_fwd"])
-    for rec in seg_recs + win_recs:
+    # the MoE models: the serve phase's bf16 engine runs (kernels 1, 6,
+    # 7) and its fp32 dist_generate (kernel 8 fused, kernel 1 on the scan
+    # route), the MoE train step's timed steps (kernels 1 and 2-3); the
+    # Ulysses train step's timed steps (kernels 1 and 2-3 at its shape)
+    moe_launches = {
+        "flash_fwd": moe_srv["launches"]["flash_fwd"]
+        + moe_srv["dist_launches"]["auto"]["flash_fwd"]
+        + moe_tr["launches"]["flash_fwd"],
+        "paged_decode": moe_srv["launches"]["paged_decode_attention"],
+        "ragged_paged": moe_srv["launches"]["ragged_paged_attention"],
+        "flash_bwd_fused": moe_tr["launches"]["fused"],
+        "fused_ring_fwd": moe_srv["dist_launches"]["fused_ring"][
+            "fused_ring_fwd"]}
+    for name, n in moe_launches.items():
+        assert n > 0, moe_launches
+        launches[name] += n
+    launches["flash_fwd[ulysses]"] = uly["launches"]["flash_fwd"]
+    launches["flash_bwd_fused[ulysses]"] = uly["launches"]["fused"]
+    for rec in seg_recs + win_recs + uly_rows:
         assert launches[rec["name"]] > 0, (rec["name"], launches)
-    kernels += window_recs + [suffix_rec] + seg_recs + win_recs
+    kernels += window_recs + [suffix_rec] + seg_recs + win_recs + uly_rows
     kernels[2]["pipelined_launches"] = pipe["launches"]
     assert pipe["launches"] > 0
     # the speculative phase's bf16 early-exit runs of both engines
@@ -7354,6 +8095,8 @@ def main() -> int:
             rec["speculative_launches"] = spec_launches[rec["name"]]
         if rec["name"] in ckpt_launches:
             rec["checkpoint_launches"] = ckpt_launches[rec["name"]]
+        if rec["name"] in moe_launches:
+            rec["moe_launches"] = moe_launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     wall, dev, _ = tr["prof"]
@@ -7383,7 +8126,8 @@ def main() -> int:
                                          "routes", "attrs",
                                          "pipelined_launches", "spec_verify",
                                          "speculative_launches",
-                                         "checkpoint_launches", "stats",
+                                         "checkpoint_launches",
+                                         "moe_launches", "stats",
                                          "seg", "window")
                        if k in r}
                     for r in kernels],
@@ -7425,6 +8169,11 @@ def main() -> int:
         "window_ring_train": {k: v for k, v in wring.items()},
         "window_dist_generate": wdist,
         "window_bench": wbench,
+        "moe_serve": moe_srv,
+        "moe_train": {k: v for k, v in moe_tr.items() if k != "prof"}
+        | {"profiled_step_ms": moe_tr["prof"][0],
+           "device_ms": moe_tr["prof"][1]},
+        "ulysses_train": uly,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -858,10 +858,14 @@ def test_ragged_engine_on_the_card_matches_the_cpu_engine(dev, kw):
     assert out["cpu"] == out[str(dev)]
 
 
-def _serving_model(dev, dtype=torch.float32):
+def _serving_model(dev, dtype=torch.float32, **kw):
     cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=8,
-                      n_kv_heads=2, d_head=128, d_ff=512, dtype=dtype)
+                      n_kv_heads=2, d_head=128, d_ff=512, dtype=dtype, **kw)
     return cfg, init_params(cfg, seed=0, device=dev)
+
+
+# an MoE serving model: 8 experts, top-2, the dense forward drop-free
+MOE_KW = dict(n_experts=8, moe_top_k=2, moe_capacity_factor=4.0)
 
 
 @pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_k": 16}],
@@ -871,10 +875,22 @@ def test_multi_step_graph_replay_matches_eager_ticks(dev, sampling):
     the same state: equal choices, lengths and generator state, twice
     (the second replay reuses the capture); a replay counts K launches a
     layer of kernel 7, the capture none."""
+    _check_graph_replay(dev, sampling, {})
+
+
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_k": 16}],
+                         ids=["greedy", "sampled"])
+def test_moe_multi_step_graph_replay_matches_eager_ticks(dev, sampling):
+    """The same for an MoE model: its routing (top-k, slot assignment by
+    cumsum, gathers) captures with fixed shapes and replays exactly."""
+    _check_graph_replay(dev, sampling, MOE_KW)
+
+
+def _check_graph_replay(dev, sampling, model_kw):
     from burst_attn_tpu_torch.models import paged_decode as pd
     from burst_attn_tpu_torch.serving import model as sm
 
-    cfg, params = _serving_model(dev)
+    cfg, params = _serving_model(dev, **model_kw)
     st, _ = pd.init_paged_state(cfg, slots=3, n_pages=8, page=128,
                                 max_pages_per_seq=3, device=dev)
     for slot, row in ((0, [1, 2, 3]), (1, [4, 5, 6])):
@@ -941,7 +957,18 @@ def test_speculative_dispatch_never_syncs(dev, sampling):
     captures every graph it needs, since a capture synchronizes); in the
     second every speculative dispatch runs under sync-debug "error".
     Both runs equal the synchronous engine's from the same seed."""
-    cfg, params = _serving_model(dev)
+    _check_dispatch_never_syncs(dev, sampling, {})
+
+
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_k": 16}],
+                         ids=["greedy", "sampled"])
+def test_moe_speculative_dispatch_never_syncs(dev, sampling):
+    """The same for an MoE model: its routing reads nothing back."""
+    _check_dispatch_never_syncs(dev, sampling, MOE_KW)
+
+
+def _check_dispatch_never_syncs(dev, sampling, model_kw):
+    cfg, params = _serving_model(dev, **model_kw)
     rng = np.random.default_rng(6)
     prompts = [rng.integers(1, cfg.vocab, size=t) for t in (40, 130, 77)]
     kw = dict(slots=3, n_pages=16, max_pages_per_seq=4, chunk=64,
@@ -2559,6 +2586,124 @@ def test_window_train_step_on_the_card_matches_the_cpu(dev, mesh_, backend):
         for i in range(2):
             state, m = step(state, batch)
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                grads = [t.grad.detach().cpu().clone()
+                         for t in param_leaves(state[0])]
+        out[str(where)] = metrics, grads
+    (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    _close_to_max(gg, gc)
+
+
+# ---------------------------------------------------------------------------
+# MoE layers and Ulysses attention
+
+MOE_TRAIN_KW = dict(n_experts=4, moe_top_k=2)  # capacity factor 1.25: drops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ulysses_attn_on_the_card_matches_one_position(dev, dtype):
+    """ulysses_attn over sp=4 (GQA 8/4, causal) against flash_attention on
+    all heads at once, forward and gradients: each position launches
+    kernel 1 once forward and the fused backward once."""
+    from burst_attn_tpu_torch.parallel.ulysses import ulysses_attn
+
+    g = torch.Generator(device=dev).manual_seed(51)
+    q, do = (_rand(g, dev, dtype, 1, 8, 512, 128) for _ in range(2))
+    k, v = (_rand(g, dev, dtype, 1, 4, 512, 128) for _ in range(2))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = flash.flash_fwd.launches, flash.flash_bwd.launches["fused"]
+    o = ulysses_attn(*ins, mesh={"sp": 4}, causal=True)
+    grads = torch.autograd.grad(o, ins, do)
+    torch.cuda.synchronize()
+    assert flash.flash_fwd.launches - f0 == 4
+    assert flash.flash_bwd.launches["fused"] - b0 == 4
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o_ref = flash.flash_attention(*ref, None, True)
+    want = torch.autograd.grad(o_ref, ref, do)
+    torch.testing.assert_close(o, o_ref, **TOL[dtype])
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, **TOL[dtype])
+
+
+@pytest.mark.parametrize("ep,cf", [(None, 8.0), (None, 0.5), (4, 0.5)])
+def test_moe_apply_on_the_card_matches_the_cpu(dev, ep, cf):
+    """moe_apply (fp32) on the card equals the CPU's: the same slot
+    assignment and drops, outputs to fp32 rounding."""
+    from burst_attn_tpu_torch.parallel import moe
+
+    p = moe.init_moe_params(0, 64, 128, 8, device="cpu")
+    x = torch.randn(2, 64, 64, generator=torch.Generator().manual_seed(2))
+    kw = dict(top_k=2, capacity_factor=cf, mesh=None if ep is None
+              else {"ep": ep})
+    y_c, aux_c, drop_c = moe.moe_apply(p, x, **kw)
+    y_g, aux_g, drop_g = moe.moe_apply(
+        moe.MoEParams(*(t.to(dev) for t in p)), x.to(dev), **kw)
+    assert float(drop_g) == float(drop_c)
+    torch.testing.assert_close(y_g.cpu(), y_c, **TOL[torch.float32])
+    torch.testing.assert_close(aux_g.cpu(), aux_c, atol=1e-6, rtol=1e-5)
+
+
+def test_moe_engines_on_the_card_match_the_cpu(dev):
+    """fp32 MoE model: the ServeEngine and the RaggedServeEngine on the
+    card give the CPU engines' greedy tokens; the card's prefills launch
+    kernel 1 once a layer and request."""
+    cfg, params = _serving_model("cpu", **MOE_KW)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, cfg.vocab, size=t) for t in (40, 130, 77)]
+    out = {}
+    for where in ("cpu", dev):
+        p = {k: (v.to(where) if torch.is_tensor(v) else
+                 [{n: w.to(where) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        for cls, extra in ((ServeEngine, {}),
+                           (RaggedServeEngine, {"chunk": 64})):
+            eng = cls(p, cfg, slots=2, n_pages=16, max_pages_per_seq=4,
+                      device=where, **extra)
+            rids = [eng.submit(pr, 8) for pr in prompts]
+            before = flash.flash_fwd.launches
+            res = eng.run()
+            if cls is ServeEngine and str(where) != "cpu":
+                assert flash.flash_fwd.launches - before == \
+                    cfg.n_layers * len(prompts)
+            out[(str(where), cls.__name__)] = [res[r] for r in rids]
+    assert len({tuple(map(tuple, v)) for v in out.values()}) == 1, out
+
+
+@pytest.mark.parametrize("kw,mesh_", [
+    (MOE_TRAIN_KW, None),
+    (dict(attn_strategy="ulysses", layout="contig"), {"sp": 4}),
+    (dict(attn_strategy="ulysses", layout="contig", window=200), {"sp": 4}),
+    (dict(attn_strategy="ulysses", layout="contig", **MOE_TRAIN_KW),
+     {"sp": 2}),
+], ids=["moe", "ulysses", "ulysses-window", "ulysses-moe"])
+def test_moe_and_ulysses_train_step_on_the_card_matches_the_cpu(dev, kw,
+                                                                mesh_):
+    """Two fp32 train steps (remat on) of an MoE model (with drops) and of
+    Ulysses models on the card equal the same steps on the CPU: loss and
+    grad norm to 1e-5, the first step's gradients to 1e-4 of their
+    largest entry; a Ulysses step launches kernel 1 twice a layer on
+    every position."""
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=4, d_head=128, d_ff=512,
+                      dtype=torch.float32, batch_axis=None, head_axis=None,
+                      **kw)
+    tcfg = train.TrainConfig(lr=1e-3)
+    w = 1 if mesh_ is None else mesh_["sp"]
+    out = {}
+    for where in ("cpu", dev):
+        state = train.init_train_state(0, cfg, tcfg, mesh_, device=where)
+        step = train.make_train_step(cfg, tcfg, mesh_, device=where)
+        batch = train.make_batch(3, cfg, mesh_, batch=2, seq=512,
+                                 device=where)
+        metrics = []
+        for i in range(2):
+            before = flash.flash_fwd.launches
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if str(where) != "cpu":
+                assert flash.flash_fwd.launches - before == \
+                    2 * cfg.n_layers * w
             if i == 0:
                 grads = [t.grad.detach().cpu().clone()
                          for t in param_leaves(state[0])]

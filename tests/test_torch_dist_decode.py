@@ -177,8 +177,9 @@ def test_ring_prefill_pages_equal_dist_shards(ref):
 
 def test_window_and_moe_raise(ref):
     """A ring window prefills (the windowed contig ring): its last logits
-    are the dense windowed forward's; MoE layers are not ported
-    (ModelConfig raises)."""
+    are the dense windowed forward's.  MoE layers are ported
+    (tests/test_torch_moe.py holds an MoE dist_generate to JAX's); the
+    pipeline-parallel config still raises (ModelConfig, ROADMAP A4)."""
     cfg = _cfg("contig", window=16)
     prompt = torch.from_numpy(ref["prompt"]).long()
     last, _ = dist_prefill(ref["params"], prompt, cfg, {"sp": 4},
@@ -186,8 +187,8 @@ def test_window_and_moe_raise(ref):
     pos = torch.arange(S)[None].expand(B, S)
     want = forward(ref["params"], prompt, pos, cfg)[:, -1]
     _close(last, want.numpy(), "windowed dist_prefill")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        dataclasses.replace(_cfg(), n_experts=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        dataclasses.replace(_cfg(), pp_axis="pp")
     with pytest.raises(ValueError, match="steps"):
         dist_generate(ref["params"], torch.from_numpy(ref["prompt"]),
                       _cfg(), {"sp": 4}, steps=0)

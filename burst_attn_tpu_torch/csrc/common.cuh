@@ -37,6 +37,25 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// One wire byte (a ring payload quantized by parallel/ring.py
+// wire_quantize) -> fp32: `wire` kInt8 (a signed byte) or kFp8E4M3; exact.
+__device__ __forceinline__ float wire_byte(uint8_t b, int wire) {
+  if (wire == kInt8) return static_cast<float>(static_cast<int8_t>(b));
+  __nv_fp8_e4m3 x;
+  x.__x = b;
+  return static_cast<float>(x);
+}
+
+// The value a wire byte dequantizes to in the compute type T: fp32 times
+// the block's scale, rounded to T, as fp32 (the plain version's
+// (q.float() * scale).to(T)).
+template <typename T>
+__device__ __forceinline__ float wire_value(uint8_t b, float sc, int wire) {
+  const float x = wire_byte(b, wire) * sc;
+  if constexpr (std::is_same<T, float>::value) return x;
+  return to_float(static_cast<T>(x));
+}
+
 // 8 consecutive elements, 16-byte aligned -> fp32
 __device__ __forceinline__ void load8(const float* p, float* o) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];

@@ -70,6 +70,35 @@ __device__ __forceinline__ void load_rows_cg(const T* src, int r0, int S,
   }
 }
 
+// load_rows_cg of a wire payload: rows of D bytes, dequantized to T (and
+// held as fp32) by wire_value.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows_wire(const uint8_t* src, int r0,
+                                               int S, float* dst, int ld,
+                                               float sc, int wire) {
+  constexpr int kChunks = D / 8;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += NT) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    float v[8];
+    if (r0 + r < S) {
+      const uint2 u =
+          __ldcg(reinterpret_cast<const uint2*>(src + (size_t)(r0 + r) * D +
+                                                col));
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&u);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = wire_value<T>(b[e], sc, wire);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    }
+    float4* d = reinterpret_cast<float4*>(dst + r * ld + col);
+    d[0] = make_float4(v[0], v[1], v[2], v[3]);
+    d[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
 // One q tile's online-softmax state (registers).
 template <int D>
 struct Rows {
@@ -105,15 +134,19 @@ struct Rows {
 // leave is computed).  A row that sees no column of a tile keeps its
 // state (m_new = m, alpha = 1, p = 0).  CG reads K/V through L2 only.
 // All threads take part; on return sK/sV may be refilled after a
-// __syncthreads().
-template <typename T, int D, bool CG, bool WIN = false, bool SEG = false>
+// __syncthreads().  WIRE (with CG; kernel 8's quantized slots): with
+// `wire` kInt8 or kFp8E4M3, kb and vb address rows of D wire bytes that
+// load_rows_wire dequantizes by ksc, vsc; with `wire` 0 they are T rows.
+template <typename T, int D, bool CG, bool WIN = false, bool SEG = false,
+          bool WIRE = false>
 __device__ __forceinline__ void fold(Rows<D>& st, const float* sQ, float* sK,
                                      float* sV, const T* kb, const T* vb,
                                      int Skv, int q0, int Sq, int q_lo,
                                      int q_hi, int kv_hi, int causal,
                                      int offset, int window = 0,
                                      const int* qs = nullptr,
-                                     const int* ks = nullptr) {
+                                     const int* ks = nullptr, int wire = 0,
+                                     float ksc = 1.f, float vsc = 1.f) {
   constexpr int LDK = D + 4;  // padded: conflict-free float4 row reads
   constexpr int LDP = BKV + 1;
   constexpr int DC = Rows<D>::DC;
@@ -137,7 +170,12 @@ __device__ __forceinline__ void fold(Rows<D>& st, const float* sQ, float* sK,
 
   for (int j0 = c_begin; j0 < c_end; j0 += BKV) {
     __syncthreads();  // the previous tile's P/V readers are done
-    if constexpr (CG) {
+    if (WIRE && wire != 0) {
+      load_rows_wire<T, D, BKV>(reinterpret_cast<const uint8_t*>(kb), j0,
+                                Skv, sK, LDK, ksc, wire);
+      load_rows_wire<T, D, BKV>(reinterpret_cast<const uint8_t*>(vb), j0,
+                                Skv, sV, D, vsc, wire);
+    } else if constexpr (CG) {
       load_rows_cg<T, D, BKV>(kb, j0, Skv, sK, LDK);
       load_rows_cg<T, D, BKV>(vb, j0, Skv, sV, D);
     } else {

@@ -119,6 +119,28 @@
 // and J0 seeds the slot on a round with no arrival.  The program is the
 // compiler's truncated one (r_live live rounds; ops/fused_ring.py
 // occupancy_r_live).  WIN combines with SEG; not with TRACE or STATS.
+//
+// Wire payloads (WIRE, a compile-time flag; the JAX kernel's `wire`
+// branch, burst_attn_tpu/ops/fused_ring_bwd.py l.110-120 and l.600-625),
+// the code `wire` (kInt8 or kFp8E4M3) read at run time:
+//  * the bundle is quantized once by the host at entry, as the scan ring
+//    does it: first (delta over s, or o over s and d), dO and q as 1-byte
+//    payloads with an fp32 scale per (batch, head); lse stays fp32, and
+//    the three scale vectors [B*N] follow it in the lse operand's slot,
+//    so they ride its copies and credits.  A step stages Q and dO
+//    dequantized to bf16 (deq_tile: plain loads, not cp.async) and reads
+//    delta (or the o rows) dequantized; every round dequantizes, the self
+//    round too (its bundle went through the quantizer like the others);
+//  * a dq partial travels quantized: phase B sums the q tile's fp32
+//    partial (plus a held inter partial), takes its amax over the tile
+//    (one CTA's reduction), scale = max(amax, 1e-30) / QMAX, and writes
+//    x / scale rounded to nearest even (int8: rintf, clipped to +-127;
+//    fp8: the cuda_fp8.h conversion) with the scale into the receiver's
+//    dq wire slot [rows x D bytes, then B*N*nqt scales] (or the owner's
+//    home wire output, which the host dequantizes).  The receiver
+//    dequantizes an arrival into its fp32 dq slot at the start of phase
+//    A, as fold contributor 0 of each q tile, so the folds stay fp32 and
+//    keep their order.  No SEG, STATS or TRACE instance with WIRE.
 
 #include <type_traits>
 
@@ -181,6 +203,12 @@ struct Params {
   int* slot_use;          // [W][2][kMaxSlots] consumes (STATS instances)
   const int* seg;         // [W,B,S] packed-sequence ids (SEG instances)
   int window;             // the band (WIN instances; 0 for the others)
+  // WIRE instances: the wire code, per position the two dq wire banks
+  // [W][2], a dq wire slot's bytes (payload rows x D, then the q tiles'
+  // scales, padded to 16)
+  int wire;
+  const long long* wptrs;
+  long long dq_wslot_bytes;
 };
 
 constexpr int kTraceCols = 16;
@@ -249,19 +277,69 @@ __device__ __forceinline__ void load_rows_l2(const T* src, int r0, int S,
   }
 }
 
+// load_rows_l2 of a wire payload: rows of D bytes dequantized by `sc` to T
+// (held as fp32; common.cuh wire_value)
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows_l2_wire(const uint8_t* src, int r0,
+                                                  int S, float* dst, int ld,
+                                                  float sc, int wire) {
+  constexpr int kChunks = D / 4;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += NT) {
+    const int r = c / kChunks, col = (c % kChunks) * 4;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < S) {
+      const unsigned u = __ldcg(reinterpret_cast<const unsigned*>(
+          src + (size_t)(r0 + r) * D + col));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = wire_value<T>((u >> (8 * e)) & 0xffu, sc, wire);
+    }
+    *reinterpret_cast<float4*>(dst + r * ld + col) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// x / sc as a wire byte, rounded to nearest even (the plain version's
+// parallel/ring.py wire_quantize): int8 rintf clipped to +-127, fp8 e4m3
+// by the cuda_fp8.h conversion (saturating to +-448)
+__device__ __forceinline__ unsigned wire_code(float x, float sc, int wire) {
+  const float y = x / sc;
+  if (wire == kInt8) {
+    const float r = fminf(fmaxf(rintf(y), -127.f), 127.f);
+    return static_cast<unsigned>(__float2int_rn(r)) & 0xffu;
+  }
+  const __nv_fp8_e4m3 f(y);
+  return f.__x;
+}
+
+// four wire bytes (little-endian in u) times sc, as fp32
+__device__ __forceinline__ float4 wire_f4(unsigned u, float sc, int wire) {
+  return make_float4(wire_byte(u & 0xffu, wire) * sc,
+                     wire_byte((u >> 8) & 0xffu, wire) * sc,
+                     wire_byte((u >> 16) & 0xffu, wire) * sc,
+                     wire_byte((u >> 24) & 0xffu, wire) * sc);
+}
+
 // The q tile's row statistics through L2: lse (as base 2; -inf past S) and
 // delta, read from the bundle (OPT) or computed from its o rows and the dO
 // tile already in shared memory.  Ends with __syncthreads.
-template <typename T, int D>
+// WIRE: `first` is the wire payload (delta, or the o rows) with scale fsc.
+template <typename T, int D, bool WIRE = false>
 __device__ __forceinline__ void load_stats(const Tiles<D>& t,
                                            const float* lse,
                                            const void* first, int i0, int S,
-                                           bool opt) {
+                                           bool opt, int wire = 0,
+                                           float fsc = 1.f) {
   for (int r = threadIdx.x; r < BQ; r += NT) {
     const int row = i0 + r;
     const float l = row < S ? __ldcg(lse + row) : neg_inf();
     t.lse2[r] = (l == neg_inf()) ? neg_inf() : l * kLog2e;
-    if (opt)
+    if (opt && WIRE)
+      t.delta[r] =
+          row < S ? wire_byte(__ldcg(static_cast<const uint8_t*>(first) +
+                                     row), wire) * fsc
+                  : 0.f;
+    else if (opt)
       t.delta[r] = row < S ? __ldcg(static_cast<const float*>(first) + row)
                            : 0.f;
   }
@@ -274,7 +352,16 @@ __device__ __forceinline__ void load_stats(const Tiles<D>& t,
       float acc = 0.f;
       if (row < S) {
         float ov[4];
-        load4_cg(o + (size_t)row * D + 4 * lane, ov);
+        if constexpr (WIRE) {
+          const unsigned u = __ldcg(reinterpret_cast<const unsigned*>(
+              static_cast<const uint8_t*>(first) + (size_t)row * D +
+              4 * lane));
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ov[e] = wire_value<T>((u >> (8 * e)) & 0xffu, fsc, wire);
+        } else {
+          load4_cg(o + (size_t)row * D + 4 * lane, ov);
+        }
         const float4 g = *reinterpret_cast<const float4*>(
             t.dO + r * Tiles<D>::LD + 4 * lane);
         acc = ov[0] * g.x + ov[1] * g.y + ov[2] * g.z + ov[3] * g.w;
@@ -308,16 +395,29 @@ __device__ __forceinline__ void load_block(const float* src, int r0, int S,
 // delta = sum(o * dO, -1) of the staged q tile for OPT = 0: o rows from
 // the rotated bundle (through L2), dO from shared memory; rows past S get
 // 0.  Warp w sums rows w, w + 8, ...: lane owns columns 4 lane .. +3.
+// WIRE: o is the wire payload with scale fsc (dequantized to bf16).
+template <bool WIRE = false>
 __device__ __forceinline__ void mma_delta(const mbwd::Smem& sm, int st,
                                           const __nv_bfloat16* o, int i0,
-                                          int S) {
+                                          int S, int wire = 0,
+                                          float fsc = 1.f) {
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   for (int r = w; r < BQ; r += NT / 32) {
     const int row = i0 + r;
     float acc = 0.f;
     if (row < S) {
       float ov[4];
-      load4_cg(o + (size_t)row * 128 + 4 * lane, ov);
+      if constexpr (WIRE) {
+        const unsigned u = __ldcg(reinterpret_cast<const unsigned*>(
+            reinterpret_cast<const uint8_t*>(o) + (size_t)row * 128 +
+            4 * lane));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ov[e] = wire_value<__nv_bfloat16>((u >> (8 * e)) & 0xffu,
+                                                   fsc, wire);
+      } else {
+        load4_cg(o + (size_t)row * 128 + 4 * lane, ov);
+      }
       const uint2 u = *reinterpret_cast<const uint2*>(
           sm.dO(st) + r * mbwd::LD + 4 * lane);
       const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -344,7 +444,8 @@ __device__ __forceinline__ int kv_tiles_seen(const Mask& mk, int i0,
   return (c_end + BKV - 1) / BKV - c_lo / BKV;
 }
 
-template <typename T, int D, bool TRACE, bool STATS, bool SEG, bool WIN>
+template <typename T, int D, bool TRACE, bool STATS, bool SEG, bool WIN,
+          bool WIRE>
 __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   static_assert(D == 128, "thread mapping assumes 32 lanes x 4 columns");
   static_assert(mbwd::NT == NT && mbwd::BQ == BQ && mbwd::BKV == BKV,
@@ -378,10 +479,15 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
   const int* tab = p.sched + (size_t)pos * (p.R + 1) * p.ncol;
   const int* meta = tab + (size_t)p.R * p.ncol;
   const size_t rows = (size_t)p.B * N * S;  // q-side rows of one position
-  // bytes of one slot of each bundle operand: first, dO, q, lse
-  const size_t op_bytes[4] = {p.opt ? rows * 4 : rows * D * sizeof(T),
-                              rows * D * sizeof(T), rows * D * sizeof(T),
-                              rows * 4};
+  // WIRE: the three bundle scale vectors after lse, padded to 16 bytes
+  const size_t scb = ((size_t)3 * p.B * N * 4 + 15) / 16 * 16;
+  // bytes of one slot of each bundle operand: first, dO, q, lse (WIRE:
+  // 1-byte payloads, lse and the scales)
+  const size_t op_bytes[4] = {
+      WIRE ? (p.opt ? rows : rows * D)
+           : (p.opt ? rows * 4 : rows * D * sizeof(T)),
+      rows * D * (WIRE ? 1 : sizeof(T)), rows * D * (WIRE ? 1 : sizeof(T)),
+      rows * 4 + (WIRE ? scb : 0)};
   const char* local[4] = {
       static_cast<const char*>(p.first) + pos * op_bytes[0],
       static_cast<const char*>(p.dO) + pos * op_bytes[1],
@@ -471,6 +577,35 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
         op_slot(pos, cb, 3, cs));
     float* dq_c = dq_slot(pos, dqb, dqs);
     int* folds = p.folds + ((size_t)pos * p.R + r) * n_units;
+    // WIRE: the bundle's per-(batch, head) scales of first, dO, q
+    const float* bsc = lse_c + rows;
+    const size_t n_bh = (size_t)p.B * N;
+    const uint8_t* first_w = reinterpret_cast<const uint8_t*>(first_c);
+    const uint8_t* do_w = reinterpret_cast<const uint8_t*>(do_c);
+    const uint8_t* q_w = reinterpret_cast<const uint8_t*>(q_c);
+    // an arriving dq partial is fold contributor 0 of each q tile (WIRE)
+    const int jshift = WIRE && recv ? 1 : 0;
+    if constexpr (WIRE) {
+      if (recv) {  // dequantize the arrival into the fp32 dq slot
+        const char* wsrc =
+            reinterpret_cast<const char*>(p.wptrs[(size_t)pos * 2 + dqb]) +
+            (size_t)dqs * p.dq_wslot_bytes;
+        const float* wsc = reinterpret_cast<const float*>(wsrc + rows * D);
+        for (int u = j; u < n_units; u += p.G) {
+          const int i0 = (u % nqt) * BQ;
+          const size_t base = ((size_t)(u / nqt) * S + i0) * D;
+          const float sc = __ldcg(wsc + u);
+          const int n = min(BQ, S - i0) * (D / 4);
+          for (int e = threadIdx.x; e < n; e += NT)
+            __stcg(reinterpret_cast<float4*>(dq_c + base) + e,
+                   wire_f4(__ldcg(reinterpret_cast<const unsigned*>(
+                               wsrc + base) + e), sc, p.wire));
+          __threadfence();
+          __syncthreads();
+          if (threadIdx.x == 0) atomicAdd(folds + u, 1);
+        }
+      }
+    }
     const Mask mk{row[0], row[1], row[2], row[3], row[4], S, S};
     const int wnd = WIN ? p.window : 0;  // the band (WIN)
     const bool last = r == p.R - 1;
@@ -510,12 +645,25 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
           const int qt = t_hi - 1 - s % nt, i0 = qt * BQ;
           const size_t bh = (size_t)b * N + hk * group + s / nt;
           const int valid = min(BQ, S - i0);
-          cp_tile<BQ, NT>(sm.q(st), q_c + (bh * S + i0) * D, valid);
-          cp_tile<BQ, NT>(sm.dO(st), do_c + (bh * S + i0) * D, valid);
+          if constexpr (WIRE) {
+            deq_tile<BQ, NT>(sm.q(st), q_w + (bh * S + i0) * D, valid,
+                             __ldcg(bsc + 2 * n_bh + bh), p.wire);
+            deq_tile<BQ, NT>(sm.dO(st), do_w + (bh * S + i0) * D, valid,
+                             __ldcg(bsc + n_bh + bh), p.wire);
+          } else {
+            cp_tile<BQ, NT>(sm.q(st), q_c + (bh * S + i0) * D, valid);
+            cp_tile<BQ, NT>(sm.dO(st), do_c + (bh * S + i0) * D, valid);
+          }
           const int rr = threadIdx.x % BQ;
           if (threadIdx.x < BQ)
             lse_next = rr < valid ? __ldcg(lse_c + bh * S + i0 + rr)
                                   : neg_inf();
+          else if (WIRE && threadIdx.x < 2 * BQ && p.opt)
+            delta_next =
+                rr < valid
+                    ? wire_byte(__ldcg(first_w + bh * S + i0 + rr), p.wire) *
+                          __ldcg(bsc + bh)
+                    : 0.f;
           else if (threadIdx.x < 2 * BQ && p.opt)
             delta_next = rr < valid ? __ldcg(f32_first + bh * S + i0 + rr)
                                     : 0.f;
@@ -550,10 +698,16 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
             sm.qid[threadIdx.x - 2 * BQ] = qid_next;
           __syncthreads();
           if (!p.opt) {
-            mma_delta(sm, st,
-                      reinterpret_cast<const __nv_bfloat16*>(first_c) +
-                          bh * S * D,
-                      i0, S);
+            if constexpr (WIRE)
+              mma_delta<true>(sm, st,
+                              reinterpret_cast<const __nv_bfloat16*>(
+                                  first_w + bh * S * D),
+                              i0, S, p.wire, __ldcg(bsc + bh));
+            else
+              mma_delta(sm, st,
+                        reinterpret_cast<const __nv_bfloat16*>(first_c) +
+                            bh * S * D,
+                        i0, S);
             __syncthreads();
           }
           if (s + 1 < n_st) issue(s + 1, st ^ 1);
@@ -567,9 +721,9 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
           // the tile's contributors fold from its first kv tile on, which
           // seeds the slot on a round with no arrival
           const int jf = jt - first_kv_tile<WIN>(mk, i0, wnd);
-          mbwd::fold_add(dq_c + bh * S * D, folds + bh * nqt + qt, jf, i0, S,
-                         part, p.scale, !recv && jf == 0,
-                         tr ? &fold_ns : nullptr);
+          mbwd::fold_add(dq_c + bh * S * D, folds + bh * nqt + qt,
+                         jf + jshift, i0, S, part, p.scale,
+                         !recv && jf == 0, tr ? &fold_ns : nullptr);
           const long long c2 = tr ? clock64() : 0;
           mbwd::fold_count(folds + bh * nqt + qt);
           if (tr) {
@@ -601,12 +755,27 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
           for (int qt = t_hi - 1; qt >= t_lo; --qt) {
             const int i0 = qt * BQ;
             __syncthreads();  // the previous step's readers of sQ .. sdS
-            load_rows_l2<T, D, BQ>(q_c + bh * S * D, i0, S, t.q, LD);
-            load_rows_l2<T, D, BQ>(do_c + bh * S * D, i0, S, t.dO, LD);
+            if constexpr (WIRE) {
+              load_rows_l2_wire<T, D, BQ>(q_w + bh * S * D, i0, S, t.q, LD,
+                                          __ldcg(bsc + 2 * n_bh + bh),
+                                          p.wire);
+              load_rows_l2_wire<T, D, BQ>(do_w + bh * S * D, i0, S, t.dO,
+                                          LD, __ldcg(bsc + n_bh + bh),
+                                          p.wire);
+            } else {
+              load_rows_l2<T, D, BQ>(q_c + bh * S * D, i0, S, t.q, LD);
+              load_rows_l2<T, D, BQ>(do_c + bh * S * D, i0, S, t.dO, LD);
+            }
             __syncthreads();
-            const char* f = first_c + (p.opt ? bh * S * 4
-                                             : bh * S * D * sizeof(T));
-            load_stats<T, D>(t, lse_c + bh * S, f, i0, S, p.opt != 0);
+            if constexpr (WIRE)
+              load_stats<T, D, true>(
+                  t, lse_c + bh * S, first_w + (p.opt ? bh * S : bh * S * D),
+                  i0, S, p.opt != 0, p.wire, __ldcg(bsc + bh));
+            else
+              load_stats<T, D>(t, lse_c + bh * S,
+                               first_c + (p.opt ? bh * S * 4
+                                                : bh * S * D * sizeof(T)),
+                               i0, S, p.opt != 0);
             scores<D, true, SEG, WIN>(t, scale_log2, i0, j0, mk, qids,
                                       kvids, wnd);
             __syncthreads();
@@ -618,8 +787,8 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
               for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
             accum_q<D>(t, part);
             const int jf = jt - first_kv_tile<WIN>(mk, i0, wnd);
-            fold_dq<D>(dq_c + bh * S * D, folds + bh * nqt + qt, jf, i0, S,
-                       part, p.scale, !recv && jf == 0);
+            fold_dq<D>(dq_c + bh * S * D, folds + bh * nqt + qt, jf + jshift,
+                       i0, S, part, p.scale, !recv && jf == 0);
           }
         }
         if (!resident || last) {
@@ -672,6 +841,69 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
       }
       __syncthreads();
       constexpr int kVec = D / 4;  // float4 per row
+      if constexpr (WIRE) {
+        // quantize each q tile's partial with a fresh scale on the way out
+        __shared__ float red[NT / 32];
+        char* wout =
+            home ? reinterpret_cast<char*>(ptr(dst, kHomePtr + sbank))
+                 : reinterpret_cast<char*>(
+                       p.wptrs[(size_t)dst * 2 + sbank]) +
+                       (size_t)dslot * p.dq_wslot_bytes;
+        const char* hw =
+            dqi ? reinterpret_cast<const char*>(p.wptrs[(size_t)pos * 2 + 1]) +
+                      (size_t)row[kDqiSlot] * p.dq_wslot_bytes
+                : nullptr;
+        const float qmax = p.wire == kInt8 ? 127.f : 448.f;
+        constexpr int kPer = BQ * kVec / NT;  // float4 a thread
+        for (int u = j; u < n_units; u += p.G) {
+          const int qt = u % nqt, i0 = qt * BQ;
+          const size_t base = ((size_t)(u / nqt) * S + i0) * D;
+          const bool zero = !recv && kv_tiles_seen<WIN>(mk, i0, wnd) == 0;
+          const int n = min(BQ, S - i0) * kVec;
+          const float hsc =
+              dqi ? __ldcg(reinterpret_cast<const float*>(hw + rows * D) + u)
+                  : 0.f;
+          float4 a[kPer];
+          float amax = 0.f;
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const int e = threadIdx.x + k * NT;
+            a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (e >= n) continue;
+            if (!zero)
+              a[k] = __ldcg(reinterpret_cast<const float4*>(dq_c + base) + e);
+            if (dqi) {
+              const float4 h = wire_f4(
+                  __ldcg(reinterpret_cast<const unsigned*>(hw + base) + e),
+                  hsc, p.wire);
+              a[k].x += h.x; a[k].y += h.y; a[k].z += h.z; a[k].w += h.w;
+            }
+            amax = fmaxf(amax, fmaxf(fmaxf(fabsf(a[k].x), fabsf(a[k].y)),
+                                     fmaxf(fabsf(a[k].z), fabsf(a[k].w))));
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+          if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
+          __syncthreads();
+#pragma unroll
+          for (int w2 = 0; w2 < NT / 32; ++w2) amax = fmaxf(amax, red[w2]);
+          const float sc = fmaxf(amax, 1e-30f) / qmax;
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const int e = threadIdx.x + k * NT;
+            if (e >= n) continue;
+            const unsigned w4 = wire_code(a[k].x, sc, p.wire) |
+                                wire_code(a[k].y, sc, p.wire) << 8 |
+                                wire_code(a[k].z, sc, p.wire) << 16 |
+                                wire_code(a[k].w, sc, p.wire) << 24;
+            __stcg(reinterpret_cast<unsigned*>(wout + base) + e, w4);
+          }
+          if (threadIdx.x == 0)
+            __stcg(reinterpret_cast<float*>(wout + rows * D) + u, sc);
+          __syncthreads();  // red is read before the next tile's writes
+        }
+      } else
       for (int u = j; u < n_units; u += p.G) {
         const int qt = u % nqt, i0 = qt * BQ;
         const size_t base = ((size_t)(u / nqt) * S + i0) * D;
@@ -727,10 +959,10 @@ __global__ void __launch_bounds__(NT, 1) fused_ring_bwd_kernel(const Params p) {
 }
 
 template <typename T, int D, bool TRACE, bool STATS = false,
-          bool SEG = false, bool WIN = false>
+          bool SEG = false, bool WIN = false, bool WIRE = false>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN>;
+  auto kernel = fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN, WIRE>;
   const size_t smem = smem_size<T, D, SEG>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
@@ -746,31 +978,32 @@ cudaError_t setup(int* max_blocks) {
 }
 
 template <typename T, int D, bool TRACE, bool STATS, bool SEG = false,
-          bool WIN = false>
+          bool WIN = false, bool WIRE = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, TRACE, STATS, SEG, WIN>(&max_blocks);
+  cudaError_t e = setup<T, D, TRACE, STATS, SEG, WIN, WIRE>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(
-          fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN>),
+          fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN, WIRE>),
       dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D, SEG>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool TRACE, bool STATS, bool SEG = false,
-          bool WIN = false>
+          bool WIN = false, bool WIRE = false>
 cudaError_t attrs(int* out) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, TRACE, STATS, SEG, WIN>(&max_blocks);  // smem
+  cudaError_t e =
+      setup<T, D, TRACE, STATS, SEG, WIN, WIRE>(&max_blocks);  // smem
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(
-      &a, fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN>);
+      &a, fused_ring_bwd_kernel<T, D, TRACE, STATS, SEG, WIN, WIRE>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -779,9 +1012,15 @@ cudaError_t attrs(int* out) {
   return cudaSuccess;
 }
 
-// the instances without TRACE and STATS, by (SEG, WIN)
+// the instances without TRACE and STATS, by (SEG, WIN), and the WIRE
+// instances (by WIN; not with SEG)
 template <typename T>
-cudaError_t setup_plain(bool seg, bool win, int* max_blocks) {
+cudaError_t setup_plain(bool seg, bool win, int* max_blocks,
+                        bool wire = false) {
+  if (wire)
+    return seg ? cudaErrorInvalidValue
+           : win ? setup<T, 128, false, false, false, true, true>(max_blocks)
+                 : setup<T, 128, false, false, false, false, true>(max_blocks);
   if (seg)
     return win ? setup<T, 128, false, false, true, true>(max_blocks)
                : setup<T, 128, false, false, true, false>(max_blocks);
@@ -789,7 +1028,11 @@ cudaError_t setup_plain(bool seg, bool win, int* max_blocks) {
              : setup<T, 128, false, false, false, false>(max_blocks);
 }
 template <typename T>
-cudaError_t attrs_plain(bool seg, bool win, int* out) {
+cudaError_t attrs_plain(bool seg, bool win, int* out, bool wire = false) {
+  if (wire)
+    return seg ? cudaErrorInvalidValue
+           : win ? attrs<T, 128, false, false, false, true, true>(out)
+                 : attrs<T, 128, false, false, false, false, true>(out);
   if (seg)
     return win ? attrs<T, 128, false, false, true, true>(out)
                : attrs<T, 128, false, false, true, false>(out);
@@ -799,6 +1042,10 @@ cudaError_t attrs_plain(bool seg, bool win, int* out) {
 template <typename T>
 cudaError_t launch_plain(bool seg, bool win, const Params& p,
                          cudaStream_t st) {
+  if (p.wire != 0)
+    return seg ? cudaErrorInvalidValue
+           : win ? launch<T, 128, false, false, false, true, true>(p, st)
+                 : launch<T, 128, false, false, false, false, true>(p, st);
   if (seg)
     return win ? launch<T, 128, false, false, true, true>(p, st)
                : launch<T, 128, false, false, true, false>(p, st);
@@ -809,38 +1056,46 @@ cudaError_t launch_plain(bool seg, bool win, const Params& p,
 }  // namespace
 
 // How many CTAs the card keeps resident at once for this kernel (its SEG
-// instance when `seg`, its WIN instance when `win`).
+// instance when `seg`, its WIN instance when `win`, its WIRE instance when
+// `wire`).
 extern "C" int fused_ring_bwd_capacity(int D, int dtype, int seg, int win,
-                                       int* max_blocks) {
+                                       int wire, int* max_blocks) {
   if (D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
-    return (int)setup_plain<__nv_bfloat16>(seg, win, max_blocks);
-  if (dtype == kFloat32) return (int)setup_plain<float>(seg, win, max_blocks);
+    return (int)setup_plain<__nv_bfloat16>(seg, win, max_blocks, wire);
+  if (dtype == kFloat32)
+    return (int)setup_plain<float>(seg, win, max_blocks, wire);
   return (int)cudaErrorInvalidValue;
 }
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
 // shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
 // TRACE (bf16 only), bit 1 STATS (not with TRACE), bit 2 SEG, bit 3 WIN
-// (SEG and WIN alone or together, with neither TRACE nor STATS).
+// (SEG and WIN alone or together, with neither TRACE nor STATS), bit 4
+// WIRE (alone or with WIN).
 extern "C" int fused_ring_bwd_attrs(int dtype, int flags, int* out) {
   const int trace = flags & 1, stats = (flags >> 1) & 1,
-            seg = (flags >> 2) & 1, win = (flags >> 3) & 1;
-  if ((trace && stats) || ((seg || win) && (trace || stats)))
+            seg = (flags >> 2) & 1, win = (flags >> 3) & 1,
+            wire = (flags >> 4) & 1;
+  if ((trace && stats) || ((seg || win || wire) && (trace || stats)) ||
+      (wire && seg))
     return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
     return (int)(trace   ? attrs<__nv_bfloat16, 128, true, false>(out)
                  : stats ? attrs<__nv_bfloat16, 128, false, true>(out)
-                         : attrs_plain<__nv_bfloat16>(seg, win, out));
+                         : attrs_plain<__nv_bfloat16>(seg, win, out, wire));
   if (dtype == kFloat32 && !trace)
     return (int)(stats ? attrs<float, 128, false, true>(out)
-                       : attrs_plain<float>(seg, win, out));
+                       : attrs_plain<float>(seg, win, out, wire));
   return (int)cudaErrorInvalidValue;
 }
 
 // seg: null, or every position's ids [W,B,S] int32 (the SEG instances);
 // window: 0, or the band of the WIN instances (>= 1); neither with trace
-// or slot_use
+// or slot_use.  wire: 0, or kInt8 / kFp8E4M3 (the WIRE instances: first,
+// dO, q the quantized bundle, lse followed by its scales, the home
+// outputs wire buffers; wptrs [W][2] the dq wire banks of dq_wslot_bytes
+// a slot); not with seg, trace or slot_use.
 extern "C" int fused_ring_bwd_launch(
     const void* first, const void* dO, const void* q, const void* lse,
     const void* k, const void* v, const void* ptrs, const void* sched,
@@ -848,12 +1103,17 @@ extern "C" int fused_ring_bwd_launch(
     int Nk, int S, int D, int R, int NB, int MS, int MDQ, int G, int ncol,
     int copy_in0, int copy_in1, int dtype, int resident, int opt,
     void* slot_use, const void* seg, int window, float scale,
-    void* stream) {
+    void* stream, int wire, const void* wptrs, long long dq_wslot_bytes) {
   const bool banded = seg != nullptr || window > 0;
   if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || MDQ < 1 ||
       window < 0 ||
       (trace != nullptr && (dtype != kBFloat16 || slot_use != nullptr)) ||
       (banded && (trace != nullptr || slot_use != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (wire != 0 &&
+      ((wire != kInt8 && wire != kFp8E4M3) || seg != nullptr ||
+       trace != nullptr || slot_use != nullptr || wptrs == nullptr ||
+       dq_wslot_bytes % 16 != 0))
     return (int)cudaErrorInvalidValue;
   Params p{first,
            dO,
@@ -873,7 +1133,10 @@ extern "C" int fused_ring_bwd_launch(
            static_cast<long long*>(trace),
            static_cast<int*>(slot_use),
            static_cast<const int*>(seg),
-           window};
+           window,
+           wire,
+           static_cast<const long long*>(wptrs),
+           dq_wslot_bytes};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool stats = slot_use != nullptr;
   const bool sg = seg != nullptr, win = window > 0;

@@ -113,6 +113,25 @@
 // compiler (ops/fused_ring.py occupancy_r_live): the dead rounds have no
 // send, no consume and no slot traffic at all.  A row whose band ends
 // before a live round's chunk keeps its carried state (or lse -inf).
+//
+// Wire payloads (WIRE, a compile-time flag; the JAX kernel's `wire`
+// branch, burst_attn_tpu/ops/fused_ring.py l.678-690 and l.931-937): the
+// host quantizes each position's K and V once before the launch
+// (parallel/ring.py wire_quantize, an fp32 scale per (batch, kv head)),
+// and the slot banks hold that 1-byte payload (int8 or fp8 e4m3, the
+// runtime code `wire`) with its scales behind it in the same slot: a slot
+// is slot_bytes long (the payload, then the B * Nk scales padded to 16
+// bytes), so the scales ride the payload's copies, arrivals and credits
+// with no slot of their own.  A round's chunk is dequantized as it is
+// staged (deq_tile / load_rows_wire: fp32 times the scale, rounded to T),
+// so the tiles compute in T as without WIRE; q is never quantized.  A
+// round that consumes the position's own partition (the op table's PART
+// column) reads the resident full-precision k_in, v_in instead, as the
+// scan ring's self round does: only bytes that cross a link are
+// quantized.  No SEG instance with WIRE, and no RESIDENT one: the WIRE
+// instances keep the state in the scratch between rounds whatever the
+// item count (half the instances to build; the scratch costs well under
+// 1% of a round, see State above).
 
 #include <type_traits>
 
@@ -164,6 +183,12 @@ struct Params {
   int* slot_use;          // [W][2][kMaxSlots] consumes (STATS instances)
   const int* seg;         // [W,B,S] packed-sequence ids (SEG instances)
   int window;             // the band (WIN instances; 0 for the others)
+  // WIRE instances: every position's packed local chunk of K and of V
+  // [W][slot_bytes] (payload, then scales), the wire code, a slot's bytes
+  const char* kq_in;
+  const char* vq_in;
+  int wire;
+  long long slot_bytes;
 };
 
 // one position's counters: arrive, free [NB][MS]; done [R], items taken
@@ -250,7 +275,8 @@ __device__ __forceinline__ void mma_store(const WarpTile& wt, float* st_m,
   }
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN,
+          bool WIRE>
 __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   constexpr bool MMA = kMma<T>;
   constexpr int DC = flash::Rows<D>::DC;
@@ -270,14 +296,23 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   const int* meta = tab + (size_t)p.R * p.ncol;
   const int np = 2 * p.NB + 1;
   const size_t chunk = (size_t)p.B * Nk * S * D;  // elements of K (or V)
-  const size_t bytes = chunk * sizeof(T);
+  // a slot's bytes: the chunk in T, or (WIRE) its 1-byte payload and scales
+  const size_t bytes = WIRE ? (size_t)p.slot_bytes : chunk * sizeof(T);
   const Flags fl{reinterpret_cast<int*>(p.ptrs[(size_t)pos * np + 2 * p.NB]),
                  p.NB, p.MS, p.R};
   auto kslot = [&](int who, int bank, int slot) {
+    if constexpr (WIRE)
+      return reinterpret_cast<T*>(
+          reinterpret_cast<char*>(p.ptrs[(size_t)who * np + bank]) +
+          (size_t)slot * bytes);
     return reinterpret_cast<T*>(p.ptrs[(size_t)who * np + bank]) +
            (size_t)slot * chunk;
   };
   auto vslot = [&](int who, int bank, int slot) {
+    if constexpr (WIRE)
+      return reinterpret_cast<T*>(
+          reinterpret_cast<char*>(p.ptrs[(size_t)who * np + p.NB + bank]) +
+          (size_t)slot * bytes);
     return reinterpret_cast<T*>(p.ptrs[(size_t)who * np + p.NB + bank]) +
            (size_t)slot * chunk;
   };
@@ -285,11 +320,17 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
   // the local chunk into its program-designated slot(s): version 0
   const T* k_in = static_cast<const T*>(p.k_in) + (size_t)pos * chunk;
   const T* v_in = static_cast<const T*>(p.v_in) + (size_t)pos * chunk;
+  const void* k_src = k_in;
+  const void* v_src = v_in;
+  if constexpr (WIRE) {
+    k_src = p.kq_in + (size_t)pos * bytes;
+    v_src = p.vq_in + (size_t)pos * bytes;
+  }
   for (int c = 0; c < 2; ++c) {
     if (p.copy_in[c] == 0) continue;
     const int cb = (p.copy_in[c] - 1) / 16, cs = (p.copy_in[c] - 1) % 16;
-    copy_share<NT>(k_in, kslot(pos, cb, cs), bytes, j, p.G);
-    copy_share<NT>(v_in, vslot(pos, cb, cs), bytes, j, p.G);
+    copy_share<NT>(k_src, kslot(pos, cb, cs), bytes, j, p.G);
+    copy_share<NT>(v_src, vslot(pos, cb, cs), bytes, j, p.G);
     publish(fl.arrive(cb, cs));
   }
 
@@ -340,6 +381,20 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
     const T* vc = vslot(pos, cb, cs);
     const bool last = r == p.R - 1;
     const int part = SEG ? row[kPart] : 0;  // the consumed partition
+    // WIRE: a round of the own partition reads the resident k_in, v_in
+    // (code 0); another dequantizes the slot's payload by its scales
+    const bool own = WIRE && row[kPart] == pos;
+    const int wire = WIRE && !own ? p.wire : 0;
+    const float* ksc = reinterpret_cast<const float*>(
+        reinterpret_cast<const char*>(kc) + chunk);
+    const float* vsc = reinterpret_cast<const float*>(
+        reinterpret_cast<const char*>(vc) + chunk);
+    if (own) {
+      kc = k_in;
+      vc = v_in;
+    }
+    // a (batch, kv head)'s rows: T elements, or payload bytes
+    const size_t kv_rows = (size_t)S * D * (wire != 0 ? 1 : sizeof(T));
     for (int it = next_item(fl.taken(r), &item_slot, j, true, RESIDENT,
                             n_items);
          it < n_items; it = next_item(fl.taken(r), &item_slot, j, false,
@@ -368,7 +423,17 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
         if (r == 0 || !RESIDENT) wt.init();
         if (r > 0 && !RESIDENT)
           mma_load(wt, p.st_m, p.st_l, p.st_acc, at0, q0, S);
-        if constexpr (SEG)
+        if constexpr (WIRE)
+          mma_fold<WIN, false, true>(
+              wt, mQ, mKV,
+              reinterpret_cast<const __nv_bfloat16*>(
+                  reinterpret_cast<const char*>(kc) + bhk * kv_rows),
+              reinterpret_cast<const __nv_bfloat16*>(
+                  reinterpret_cast<const char*>(vc) + bhk * kv_rows),
+              S, S, q0, p.scale_log2, row[0], row[1], row[2], row[3],
+              row[4], WIN ? p.window : 0, nullptr, nullptr, nullptr, wire,
+              wire ? ksc[bhk] : 1.f, wire ? vsc[bhk] : 1.f);
+        else if constexpr (SEG)
           mma_fold<WIN, true>(
               wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S, S, q0,
               p.scale_log2, row[0], row[1], row[2], row[3], row[4],
@@ -426,7 +491,17 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
           }
         }
 
-        if constexpr (SEG)
+        if constexpr (WIRE)
+          flash::fold<T, D, true, WIN, false, true>(
+              st, sQ, sK, sV,
+              reinterpret_cast<const T*>(reinterpret_cast<const char*>(kc) +
+                                         bhk * kv_rows),
+              reinterpret_cast<const T*>(reinterpret_cast<const char*>(vc) +
+                                         bhk * kv_rows),
+              S, q0, S, row[0], row[1], row[2], row[3], row[4],
+              WIN ? p.window : 0, nullptr, nullptr, wire,
+              wire ? ksc[bhk] : 1.f, wire ? vsc[bhk] : 1.f);
+        else if constexpr (SEG)
           flash::fold<T, D, true, WIN, true>(
               st, sQ, sK, sV, kc + bhk * S * D, vc + bhk * S * D, S, q0, S,
               row[0], row[1], row[2], row[3], row[4], WIN ? p.window : 0,
@@ -487,10 +562,10 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
 }
 
 template <typename T, int D, bool RESIDENT, bool STATS = false,
-          bool SEG = false, bool WIN = false>
+          bool SEG = false, bool WIN = false, bool WIRE = false>
 cudaError_t setup(int* max_blocks) {
   static bool smem_set = false;
-  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN>;
+  auto kernel = fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN, WIRE>;
   const size_t smem = smem_size<T, D, SEG>();
   cudaError_t e = allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
@@ -505,31 +580,34 @@ cudaError_t setup(int* max_blocks) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN,
+          bool WIRE>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int max_blocks = 0;
-  cudaError_t e = setup<T, D, RESIDENT, STATS, SEG, WIN>(&max_blocks);
+  cudaError_t e =
+      setup<T, D, RESIDENT, STATS, SEG, WIN, WIRE>(&max_blocks);
   if (e != cudaSuccess) return e;
   if (p.G * p.W > max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   Params args = p;
   void* argv[] = {&args};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(
-          fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN>),
+          fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN, WIRE>),
       dim3(p.W * p.G), dim3(NT), argv, smem_size<T, D, SEG>(), stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN>
+template <typename T, int D, bool RESIDENT, bool STATS, bool SEG, bool WIN,
+          bool WIRE>
 cudaError_t attrs(int* out) {
   int max_blocks = 0;
-  cudaError_t e =
-      setup<T, D, RESIDENT, STATS, SEG, WIN>(&max_blocks);  // smem limit
+  cudaError_t e = setup<T, D, RESIDENT, STATS, SEG, WIN, WIRE>(
+      &max_blocks);  // smem limit
   if (e != cudaSuccess) return e;
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(
-      &a, fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN>);
+      &a, fused_ring_fwd_kernel<T, D, RESIDENT, STATS, SEG, WIN, WIRE>);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -538,27 +616,38 @@ cudaError_t attrs(int* out) {
   return cudaSuccess;
 }
 
-template <typename T, int D, bool STATS, bool SEG, bool WIN>
+// the instances: (SEG, WIN) x (STATS) x (RESIDENT), and WIRE without SEG
+// and RESIDENT
+template <typename T, int D, bool STATS, bool SEG, bool WIN, bool WIRE>
 cudaError_t dispatch_state(int resident, const Params& p, cudaStream_t st) {
-  return resident ? launch<T, D, true, STATS, SEG, WIN>(p, st)
-                  : launch<T, D, false, STATS, SEG, WIN>(p, st);
+  if constexpr (WIRE)
+    return resident ? cudaErrorInvalidValue
+                    : launch<T, D, false, STATS, SEG, WIN, WIRE>(p, st);
+  else
+    return resident ? launch<T, D, true, STATS, SEG, WIN, WIRE>(p, st)
+                    : launch<T, D, false, STATS, SEG, WIN, WIRE>(p, st);
 }
 
-template <typename T, int D, bool SEG, bool WIN>
+template <typename T, int D, bool SEG, bool WIN, bool WIRE>
 cudaError_t dispatch_stats(int resident, const Params& p, cudaStream_t st) {
   return p.slot_use != nullptr
-             ? dispatch_state<T, D, true, SEG, WIN>(resident, p, st)
-             : dispatch_state<T, D, false, SEG, WIN>(resident, p, st);
+             ? dispatch_state<T, D, true, SEG, WIN, WIRE>(resident, p, st)
+             : dispatch_state<T, D, false, SEG, WIN, WIRE>(resident, p, st);
 }
 
 template <typename T, int D>
 cudaError_t dispatch_flags(int resident, const Params& p, cudaStream_t st) {
   const bool seg = p.seg != nullptr, win = p.window > 0;
+  if (p.wire != 0) {
+    if (seg) return cudaErrorInvalidValue;  // no SEG + WIRE instance
+    return win ? dispatch_stats<T, D, false, true, true>(resident, p, st)
+               : dispatch_stats<T, D, false, false, true>(resident, p, st);
+  }
   if (seg)
-    return win ? dispatch_stats<T, D, true, true>(resident, p, st)
-               : dispatch_stats<T, D, true, false>(resident, p, st);
-  return win ? dispatch_stats<T, D, false, true>(resident, p, st)
-             : dispatch_stats<T, D, false, false>(resident, p, st);
+    return win ? dispatch_stats<T, D, true, true, false>(resident, p, st)
+               : dispatch_stats<T, D, true, false, false>(resident, p, st);
+  return win ? dispatch_stats<T, D, false, true, false>(resident, p, st)
+             : dispatch_stats<T, D, false, false, false>(resident, p, st);
 }
 
 template <int D>
@@ -570,83 +659,112 @@ cudaError_t dispatch(int dtype, int resident, const Params& p,
   return cudaErrorInvalidValue;
 }
 
-template <typename T, bool RESIDENT, bool SEG, bool WIN>
+template <typename T, bool RESIDENT, bool SEG, bool WIN, bool WIRE>
 cudaError_t attrs_stats(int stats, int* out) {
-  return stats ? attrs<T, 128, RESIDENT, true, SEG, WIN>(out)
-               : attrs<T, 128, RESIDENT, false, SEG, WIN>(out);
+  return stats ? attrs<T, 128, RESIDENT, true, SEG, WIN, WIRE>(out)
+               : attrs<T, 128, RESIDENT, false, SEG, WIN, WIRE>(out);
 }
 
 template <typename T, bool RESIDENT>
-cudaError_t attrs_of(int stats, int seg, int win, int* out) {
+cudaError_t attrs_of(int stats, int seg, int win, int wire, int* out) {
+  if (wire) {
+    if (seg || RESIDENT) return cudaErrorInvalidValue;
+    return win ? attrs_stats<T, false, false, true, true>(stats, out)
+               : attrs_stats<T, false, false, false, true>(stats, out);
+  }
   if (seg)
-    return win ? attrs_stats<T, RESIDENT, true, true>(stats, out)
-               : attrs_stats<T, RESIDENT, true, false>(stats, out);
-  return win ? attrs_stats<T, RESIDENT, false, true>(stats, out)
-             : attrs_stats<T, RESIDENT, false, false>(stats, out);
+    return win ? attrs_stats<T, RESIDENT, true, true, false>(stats, out)
+               : attrs_stats<T, RESIDENT, true, false, false>(stats, out);
+  return win ? attrs_stats<T, RESIDENT, false, true, false>(stats, out)
+             : attrs_stats<T, RESIDENT, false, false, false>(stats, out);
 }
 
-template <typename T, bool SEG, bool WIN>
+template <typename T, bool SEG, bool WIN, bool WIRE>
 cudaError_t capacity_of(int* max_blocks) {
-  int a = 0, b = 0;
-  cudaError_t e;
-  if ((e = setup<T, 128, true, false, SEG, WIN>(&a)) != cudaSuccess)
-    return e;
-  if ((e = setup<T, 128, false, false, SEG, WIN>(&b)) != cudaSuccess)
-    return e;
-  *max_blocks = a < b ? a : b;
-  return cudaSuccess;
+  if constexpr (WIRE) {  // the scratch state only
+    return setup<T, 128, false, false, SEG, WIN, WIRE>(max_blocks);
+  } else {
+    int a = 0, b = 0;
+    cudaError_t e;
+    if ((e = setup<T, 128, true, false, SEG, WIN, WIRE>(&a)) != cudaSuccess)
+      return e;
+    if ((e = setup<T, 128, false, false, SEG, WIN, WIRE>(&b)) != cudaSuccess)
+      return e;
+    *max_blocks = a < b ? a : b;
+    return cudaSuccess;
+  }
 }
 
 template <typename T>
-cudaError_t capacity_flags(int seg, int win, int* max_blocks) {
+cudaError_t capacity_flags(int seg, int win, int wire, int* max_blocks) {
+  if (wire) {
+    if (seg) return cudaErrorInvalidValue;
+    return win ? capacity_of<T, false, true, true>(max_blocks)
+               : capacity_of<T, false, false, true>(max_blocks);
+  }
   if (seg)
-    return win ? capacity_of<T, true, true>(max_blocks)
-               : capacity_of<T, true, false>(max_blocks);
-  return win ? capacity_of<T, false, true>(max_blocks)
-             : capacity_of<T, false, false>(max_blocks);
+    return win ? capacity_of<T, true, true, false>(max_blocks)
+               : capacity_of<T, true, false, false>(max_blocks);
+  return win ? capacity_of<T, false, true, false>(max_blocks)
+             : capacity_of<T, false, false, false>(max_blocks);
 }
 
 }  // namespace
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
 // shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
-// RESIDENT, bit 1 STATS, bit 2 SEG, bit 3 WIN.
+// RESIDENT, bit 1 STATS, bit 2 SEG, bit 3 WIN, bit 4 WIRE (not with SEG or
+// RESIDENT).
 extern "C" int fused_ring_fwd_attrs(int dtype, int flags, int* out) {
   const int resident = flags & 1, stats = (flags >> 1) & 1,
-            seg = (flags >> 2) & 1, win = (flags >> 3) & 1;
+            seg = (flags >> 2) & 1, win = (flags >> 3) & 1,
+            wire = (flags >> 4) & 1;
   if (dtype == kBFloat16)
-    return (int)(resident
-                     ? attrs_of<__nv_bfloat16, true>(stats, seg, win, out)
-                     : attrs_of<__nv_bfloat16, false>(stats, seg, win, out));
+    return (int)(resident ? attrs_of<__nv_bfloat16, true>(stats, seg, win,
+                                                          wire, out)
+                          : attrs_of<__nv_bfloat16, false>(stats, seg, win,
+                                                           wire, out));
   if (dtype == kFloat32)
-    return (int)(resident ? attrs_of<float, true>(stats, seg, win, out)
-                          : attrs_of<float, false>(stats, seg, win, out));
+    return (int)(resident
+                     ? attrs_of<float, true>(stats, seg, win, wire, out)
+                     : attrs_of<float, false>(stats, seg, win, wire, out));
   return (int)cudaErrorInvalidValue;
 }
 
 // How many CTAs the card keeps resident at once for this kernel (both
 // state modes have the same footprint up to registers; the smaller wins),
-// of the SEG instances when `seg`, of the WIN instances when `win`.
+// of the SEG instances when `seg`, of the WIN instances when `win`, of the
+// WIRE instances when `wire`.
 extern "C" int fused_ring_fwd_capacity(int D, int dtype, int seg, int win,
-                                       int* max_blocks) {
+                                       int wire, int* max_blocks) {
   if (D != 128) return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
-    return (int)capacity_flags<__nv_bfloat16>(seg, win, max_blocks);
+    return (int)capacity_flags<__nv_bfloat16>(seg, win, wire, max_blocks);
   if (dtype == kFloat32)
-    return (int)capacity_flags<float>(seg, win, max_blocks);
+    return (int)capacity_flags<float>(seg, win, wire, max_blocks);
   return (int)cudaErrorInvalidValue;
 }
 
 // seg: null, or every position's ids [W,B,S] int32 (the SEG instances);
-// window: 0, or the band of the WIN instances (>= 1)
+// window: 0, or the band of the WIN instances (>= 1); wire: 0, or kInt8 /
+// kFp8E4M3 with the positions' packed quantized chunks kq_in, vq_in of
+// slot_bytes each (the WIRE instances; k_in, v_in stay the full-precision
+// chunks the own-partition round reads)
 extern "C" int fused_ring_fwd_launch(
     const void* q, const void* k_in, const void* v_in, const void* ptrs,
     const void* sched, void* st_m, void* st_l, void* st_acc, void* o,
     void* lse, int W, int B, int N, int Nk, int S, int D, int R, int NB,
     int MS, int G, int ncol, int copy_in0, int copy_in1, int dtype,
     int resident, void* slot_use, const void* seg, int window, float scale,
-    void* stream) {
+    void* stream, const void* kq_in, const void* vq_in, int wire,
+    long long slot_bytes) {
   if (N % Nk != 0 || D != 128 || NB < 1 || NB > 2 || G < 1 || window < 0)
+    return (int)cudaErrorInvalidValue;
+  if (wire != 0 && (wire != kInt8 && wire != kFp8E4M3))
+    return (int)cudaErrorInvalidValue;
+  if (wire != 0 &&
+      (kq_in == nullptr || vq_in == nullptr || slot_bytes % 16 != 0 ||
+       slot_bytes < (long long)B * Nk * S * D + 4LL * B * Nk))
     return (int)cudaErrorInvalidValue;
   Params p{q,
            k_in,
@@ -663,7 +781,11 @@ extern "C" int fused_ring_fwd_launch(
            scale * kLog2e,
            static_cast<int*>(slot_use),
            static_cast<const int*>(seg),
-           window};
+           window,
+           static_cast<const char*>(kq_in),
+           static_cast<const char*>(vq_in),
+           wire,
+           slot_bytes};
   return (int)dispatch<128>(dtype, resident, p,
                             static_cast<cudaStream_t>(stream));
 }

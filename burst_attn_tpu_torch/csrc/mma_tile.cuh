@@ -120,6 +120,39 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 8 wire bytes (8-byte aligned, through L2) times the block's scale, each
+// rounded to bf16 (fp32 multiply, round to nearest even: the plain
+// version's (q.float() * scale).to(bf16)) and packed as one 16-byte row
+// piece.
+__device__ __forceinline__ uint4 wire_bf16x8(const uint8_t* src, float sc,
+                                             int wire) {
+  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(src));
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(&u);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = pack_bf16(wire_byte(b[2 * i], wire) * sc,
+                     wire_byte(b[2 * i + 1], wire) * sc);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// cp_tile's rows from a wire payload: ROWS rows of kTileD bytes (kTileD
+// apart) dequantized to bf16 into shared rows kTileLd apart by plain loads
+// and stores (the 1-byte rows cannot go through cp.async as bf16); rows
+// [valid, ROWS) zeroed.
+template <int ROWS, int NT>
+__device__ __forceinline__ void deq_tile(__nv_bfloat16* dst,
+                                         const uint8_t* src, int valid,
+                                         float sc, int wire) {
+  constexpr int P = kTileD / 8;  // 16-byte pieces a shared row
+  for (int i = threadIdx.x; i < ROWS * P; i += NT) {
+    const int r = i / P, c = (i % P) * 8;
+    *reinterpret_cast<uint4*>(dst + r * kTileLd + c) =
+        r < valid ? wire_bf16x8(src + (size_t)r * kTileD + c, sc, wire)
+                  : make_uint4(0, 0, 0, 0);
+  }
+}
+
 // (a, b) as two bf16 pairs whose sum carries ~16 significant bits: hi the
 // rounded values, lo the rounded residuals
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
@@ -290,15 +323,22 @@ struct WarpTile {
 // the bounds above leave is computed and masked by id.  A row may then
 // see no column of a chunk while its state is live: WarpTile::step keeps
 // its m, l and alpha as they are (x = -inf, m_new = m, alpha = 1, p = 0).
+// WIRE (a template flag, as WIN) lets the K/V rows be a ring's wire
+// payload (kernel 8's quantized slots): with `wire` kInt8 or kFp8E4M3, kb
+// and vb address 1-byte rows (kTileD bytes apart) whose values times ksc,
+// vsc are staged as bf16 by deq_tile (plain loads, so a chunk's loads are
+// not overlapped with the previous chunk's products); with `wire` 0 the
+// rows are bf16 as without WIRE.
 // The caller has issued, and not committed, the Q tile's copies; all 128
 // threads take part; on return nothing is in flight.
-template <bool WIN, bool SEG = false>
+template <bool WIN, bool SEG = false, bool WIRE = false>
 __device__ __forceinline__ void mma_fold(
     WarpTile& wt, const __nv_bfloat16* sQ, __nv_bfloat16* sKV,
     const __nv_bfloat16* kb, const __nv_bfloat16* vb, int Sq, int Skv,
     int q0, float scale_log2, int q_lo, int q_hi, int kv_hi, int causal,
     int offset, int window, const int* q_ids = nullptr,
-    const int* kv_ids = nullptr, int* sIds = nullptr) {
+    const int* kv_ids = nullptr, int* sIds = nullptr, int wire = 0,
+    float ksc = 1.f, float vsc = 1.f) {
   constexpr int BQ = 64, NT = 128, TILE = 64 * kTileLd;
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
   const int r_lo = max(q0, q_lo), r_hi = min(min(q0 + BQ, q_hi), Sq);
@@ -331,9 +371,19 @@ __device__ __forceinline__ void mma_fold(
   auto issue = [&](int i) {
     __nv_bfloat16* st = sKV + (i & 1) * 2 * TILE;
     const int valid = min(kTileChunk, Skv - kTileChunk * i);
-    cp_tile<kTileChunk, NT>(st, kb + (size_t)kTileChunk * i * kTileD, valid);
-    cp_tile<kTileChunk, NT>(st + TILE, vb + (size_t)kTileChunk * i * kTileD,
-                            valid);
+    if (WIRE && wire != 0) {
+      const size_t at = (size_t)kTileChunk * i * kTileD;  // bytes
+      deq_tile<kTileChunk, NT>(
+          st, reinterpret_cast<const uint8_t*>(kb) + at, valid, ksc, wire);
+      deq_tile<kTileChunk, NT>(
+          st + TILE, reinterpret_cast<const uint8_t*>(vb) + at, valid, vsc,
+          wire);
+    } else {
+      cp_tile<kTileChunk, NT>(st, kb + (size_t)kTileChunk * i * kTileD,
+                              valid);
+      cp_tile<kTileChunk, NT>(st + TILE,
+                              vb + (size_t)kTileChunk * i * kTileD, valid);
+    }
     if constexpr (SEG) {
       if ((int)threadIdx.x < valid)
         cp_async4(sIds + (i & 1) * kTileChunk + threadIdx.x,

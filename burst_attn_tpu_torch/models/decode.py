@@ -26,6 +26,7 @@ from ..ops.flash import flash_attention
 from ..ops.tile import single_device_attention
 from .transformer import (
     ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
+    check_serving,
 )
 
 
@@ -116,6 +117,7 @@ def forward_cached(params, tokens, positions, cache: Cache,
     """One cached forward over T new tokens: tokens, positions [B, T] int
     (natural order) -> (fp32 logits [B, T, vocab], the cache with length
     += T; its buffers were written in place)."""
+    check_serving(cfg)
     if cache.length + tokens.shape[1] > cache.layers[0].k.shape[2]:
         raise ValueError(f"{tokens.shape[1]} tokens at length "
                          f"{cache.length} exceed max_seq "
@@ -127,6 +129,7 @@ def forward_cached(params, tokens, positions, cache: Cache,
 def prefill(params, tokens, cfg: ModelConfig, max_seq: int):
     """Absorb a [B, T] prompt in one pass into a fresh cache on the
     tokens' device.  Returns (fp32 logits [B, T, vocab], cache)."""
+    check_serving(cfg)
     b, t = tokens.shape
     if t > max_seq:
         raise ValueError(f"prompt length {t} exceeds max_seq {max_seq}")
@@ -143,6 +146,7 @@ def generate(params, prompt, cfg: ModelConfig, *, steps: int, max_seq: int,
     the params' device -> [B, steps] int64 tokens.  The first token comes
     from the prefill's last logits, each later one from a single-token
     cached forward (JAX's scan body); sampled draws come from `rng`."""
+    check_serving(cfg)
     prompt = torch.as_tensor(prompt, device=params["embed"].device).long()
     b = prompt.shape[0]
     if prompt.shape[1] + steps > max_seq:

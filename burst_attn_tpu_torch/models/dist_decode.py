@@ -39,7 +39,7 @@ from ..parallel.mesh import as_mesh
 from ..parallel.ring import my_partition, ring_coords
 from .paged_decode import PagedState, _write_tokens
 from .transformer import ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, \
-    _rms_norm
+    _rms_norm, check_serving
 
 
 class DistCache(NamedTuple):
@@ -62,6 +62,7 @@ def ring_forward(params, tokens, cfg: ModelConfig, mesh, on_kv=None):
     k, v)` receives each layer's rope'd K/V in cfg.dtype.  Returns (hidden
     states [B, S, d_model] before the final norm, in layout order; the
     layout permutation)."""
+    check_serving(cfg)
     dev = params["embed"].device
     m = as_mesh(mesh, dev)
     n_inter, n_intra = m.ring(cfg.seq_axes)
@@ -95,6 +96,7 @@ def dist_prefill(params, tokens, cfg: ModelConfig, mesh, *, gen_budget: int):
     (burst_attn(window=): kernel 8's WIN instance, or kernel 1's on the
     live rounds of the scan ring), and each decode step bands the shards
     and the recent buffer by global position."""
+    check_serving(cfg)
     with torch.no_grad():
         ks, vs = [], []
         x, perm = ring_forward(params, tokens, cfg, mesh,
@@ -165,6 +167,7 @@ def dist_decode_step(params, token, position: int, cache: DistCache,
     the token's k/v written into the recent buffer at n_new, a partial
     over the n_new + 1 recent columns, and the final merge.  The recent
     buffers are updated in place."""
+    check_serving(cfg)
     dev = cache.k_shard[0].device
     n_inter, n_intra = as_mesh(mesh, dev).ring(cfg.seq_axes)
     world = n_inter * n_intra
@@ -227,6 +230,7 @@ def dist_generate(params, prompt, cfg: ModelConfig, mesh, *, steps: int,
     params' device.  Sampling is models.decode.sample_logits's, its draws
     from `generator` (a torch.Generator on the params' device; greedy
     needs none)."""
+    check_serving(cfg)
     from .decode import sample_logits
 
     if steps < 1:
@@ -282,6 +286,7 @@ def dist_paged_decode_step(params, tokens, state: PagedState,
     tokens [slots] int -> (fp32 logits [slots, vocab], state).  A live slot
     whose next page was never provisioned gets NaN logits.  n_pages must
     divide by the ring's world (cfg.seq_axes over `mesh`)."""
+    check_serving(cfg)
     if cfg.window is not None:
         raise ValueError(
             "dist_paged_decode_step requires cfg.window=None: pages hold "

@@ -16,8 +16,10 @@ CLI (the card by default; `--device cpu` runs the plain versions):
 on the double ring); `--packed-eos ID` trains (and evaluates) on
 EOS-delimited packed documents; `--n-experts E` makes every MLP a top-2
 MoE, its expert axis "ep" if the mesh has one, else "dp" (size 1 only:
-experts over cards are ROADMAP A7); dp and tp, pipeline microbatches and
-multi-host start come with later slices.  The JAX
+experts over cards are ROADMAP A7); `--mesh pp=2,sp=2 --microbatches 2`
+trains the pipeline-parallel model (stacked layers; microbatches default
+to the stage count, and `--microbatches` without a pp axis exits, as in
+JAX); dp and tp and multi-host start come with later slices.  The JAX
 runner's `--probe-tri-bwd` is a TPU compile probe and has no counterpart
 here.
 """
@@ -182,7 +184,11 @@ def main(argv=None):
     p.add_argument("--seq-len", type=int, default=4096)
     p.add_argument("--mesh", default="sp=1",
                    help="axis sizes, e.g. sp=4 or inter=2,intra=2 (the "
-                        "sequence ring; dp and tp are not ported)")
+                        "sequence ring), pp=2,sp=2 (a pipeline of rings; "
+                        "dp and tp are not ported)")
+    p.add_argument("--microbatches", type=int, default=None,
+                   help="GPipe microbatches of a pp mesh (default: the "
+                        "pp size)")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--ckpt-dir", default=None)
@@ -230,8 +236,16 @@ def main(argv=None):
     if args.n_experts:
         expert_axis = "ep" if "ep" in mesh_axes else (
             "dp" if "dp" in mesh_axes else None)
+    # a pp= axis turns on the pipeline-parallel forward (pipeline_lm.py);
+    # microbatches default to the stage count (the GPipe sweet spot floor)
+    pp_axis = "pp" if "pp" in mesh_axes else None
+    if args.microbatches and not pp_axis:
+        raise SystemExit("--microbatches requires a pp= axis in --mesh")
     cfg = ModelConfig(
         seq_axes=seq_axes, n_experts=args.n_experts, expert_axis=expert_axis,
+        pp_axis=pp_axis,
+        pp_microbatches=(args.microbatches or mesh_axes.get("pp", 1))
+        if pp_axis else 1,
         batch_axis=None, head_axis=None, vocab=args.vocab,
         d_model=args.d_model, n_layers=args.n_layers, n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads or args.n_heads,

@@ -78,7 +78,7 @@ from .paged_decode import (
     paged_prefill, provision_capacity, retire_slot,
 )
 from .spec_round import Draft, SpecCounters
-from .transformer import ModelConfig
+from .transformer import ModelConfig, check_serving
 
 # the JAX ServeEngine's instruments (serving/engine.py shares the names)
 _M_SUBMITTED = obs.counter("serve.requests_submitted")
@@ -125,6 +125,7 @@ class ServeEngine(SpecCounters):
                  max_queue: Optional[int] = None,
                  admission: Optional[AdmissionPolicy] = None,
                  journal=None, device=None):
+        check_serving(cfg)
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving is not ported yet")

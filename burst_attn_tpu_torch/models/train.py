@@ -47,9 +47,15 @@ does; its routing groups are the ring positions' shards (models/
 transformer.py `_mlp`).  A Ulysses model (`attn_strategy="ulysses"`,
 contig) trains on `{"sp": W}` through parallel/ulysses.py.
 
-Not ported yet: dp and tp axes and the pipeline path.  The
-TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
-counterpart: a CUDA kernel either builds or the run stops.
+A pipeline-parallel model (`ModelConfig(pp_axis="pp", pp_microbatches=M)`
+on `make_mesh({"pp": P, "sp": W})`) trains on stacked layers through
+models/pipeline_lm.py; AdamW and the global-norm clip run over the
+stacked leaves with the same math, and the batch keeps its layout
+permutation over the sequence ring only.
+
+Not ported yet: dp and tp axes.  The TPU-only tri-backward compile
+probe (`probe_model_tri_bwd`) has no counterpart: a CUDA kernel either
+builds or the run stops.
 """
 
 import time
@@ -96,12 +102,13 @@ class TrainConfig:
 def make_mesh(axis_sizes: dict, devices=None) -> dict:
     """The axis sizes of a run, as {"sp": 4}-style names to sizes (order
     kept).  The sequence axes ("sp", or "inter" and "intra" for the
-    double ring) take any size, their positions sharing one device; the
-    other axes must have size 1 (dp and tp come with later slices)."""
+    double ring) and a pipeline's "pp" take any size, their positions and
+    stages sharing one device; the other axes must have size 1 (dp and
+    tp come with later slices)."""
     del devices
     sizes = {str(k): int(v) for k, v in dict(axis_sizes).items()}
     check_mesh(sizes, tuple(a for a in ("sp", "inter", "intra")
-                            if a in sizes))
+                            if a in sizes), "pp" if "pp" in sizes else None)
     return sizes
 
 

@@ -1,5 +1,4 @@
-"""Decoder-only transformer LM (port of burst_attn_tpu/models/transformer.py;
-the pipeline-parallel path is not ported).
+"""Decoder-only transformer LM (port of burst_attn_tpu/models/transformer.py).
 
 Two forwards: `forward_with_aux` is the training forward (attention
 through the differentiable flash kernels on one device, or, when the
@@ -8,6 +7,11 @@ differentiable ring `burst_attn` or, with `attn_strategy="ulysses"`, the
 all-to-all `ulysses_attn`; `torch.utils.checkpoint` per block when
 `cfg.remat` is set); `forward` is the dense plain reference (attention
 through the plain tile) that the serving checks teacher-force against.
+With `cfg.pp_axis` set the training forward is the pipeline-parallel one
+(models/pipeline_lm.py): the parameters hold STACKED layers (`layers` a
+dict of [n_layers, ...] leaves, as init_params makes them) and the mesh
+a `pp` axis of stages beside the sequence ring; serving refuses such a
+config (check_serving), as the JAX package has no pp serving path.
 
 Parameters are a plain dictionary with the JAX pytree's names and shapes:
 {"embed" [V, d], "layers": [{"attn_norm", "wq" [d, N, H], "wk"/"wv"
@@ -66,8 +70,9 @@ class ModelConfig:
     # configurations): layout, attn_backend and seq_axes drive the ring
     # prefill of serving/handoff.py and the training forward's ring
     # (burst_attn, or ulysses_attn for attn_strategy="ulysses") when the
-    # mesh's sequence axes hold more than one position; dp, tp, ep and pp
-    # stay at size 1 (check_mesh)
+    # mesh's sequence axes hold more than one position; pp_axis names the
+    # pipeline's stage axis (pp_microbatches must divide the batch); dp,
+    # tp and ep stay at size 1 (check_mesh)
     causal: bool = True
     attn_strategy: str = "burst"
     layout: str = "zigzag"
@@ -89,10 +94,6 @@ class ModelConfig:
     pp_microbatches: int = 1
 
     def __post_init__(self):
-        if self.pp_axis is not None:
-            raise NotImplementedError(
-                "pipeline parallelism (pp_axis) is not ported yet "
-                "(ROADMAP A4)")
         check_window(self.window, self.layout, self.causal)
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads {self.n_heads} must be a multiple of "
@@ -136,6 +137,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
             layer.update(w_gate=dense(d, f), w_up=dense(d, f),
                          w_down=dense(f, d))
         layers.append(layer)
+    if cfg.pp_axis is not None:  # the pipeline slices stacked layers
+        from .pipeline_lm import stack_layers
+
+        layers = stack_layers(layers)
     return {
         "embed": dense(cfg.vocab, d),
         "layers": layers,
@@ -154,7 +159,8 @@ def _to_torch(a, device):
 
 def params_from_jax(tree, device=None) -> Params:
     """The JAX model's parameter tree (arrays convertible by np.asarray)
-    as the port's parameter dictionary, dtypes kept."""
+    as the port's parameter dictionary, dtypes kept (a pp tree's stacked
+    `layers` dict stays stacked)."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -180,11 +186,12 @@ def layer_keys(layer) -> Tuple[str, ...]:
 
 def param_leaves(params: Params):
     """Every tensor of a parameter dictionary in one fixed order (embed,
-    each layer's layer_keys, final_norm, lm_head), whatever the
-    dictionaries' insertion order: the optimizer's and checkpoints'
-    order."""
+    each layer's layer_keys, final_norm, lm_head; stacked layers: each
+    stacked leaf in layer_keys order), whatever the dictionaries'
+    insertion order: the optimizer's and checkpoints' order."""
     yield params["embed"]
-    for layer in params["layers"]:
+    layers = params["layers"]
+    for layer in [layers] if isinstance(layers, dict) else layers:
         for k in layer_keys(layer):
             yield layer[k]
     yield params["final_norm"]
@@ -344,28 +351,43 @@ def check_expert_axis(cfg: ModelConfig, mesh) -> None:
                 "cards comes with the multi-card ring (ROADMAP A7)")
 
 
-def check_mesh(mesh, seq_axes=("sp",)) -> None:
+def check_mesh(mesh, seq_axes=("sp",), pp_axis=None) -> None:
     """Raise unless `mesh` (axis name -> size, or None) is a sequence
-    ring: its sequence axes (`seq_axes`, cfg.seq_axes) take any size, and
-    every other axis (dp, tp, ep, pp) must have size 1: data and tensor
-    parallelism, experts and the pipeline are ROADMAP A2 (the multi-card
-    ring A1)."""
+    ring, or with `pp_axis` (cfg.pp_axis) a pipeline of such rings: its
+    sequence axes (`seq_axes`, cfg.seq_axes) and the pp axis take any
+    size, and every other axis (dp, tp, ep) must have size 1: data and
+    tensor parallelism and experts over cards are ROADMAP A2 (the
+    multi-card ring, A7 in the current numbering)."""
     if mesh is None:
         return
+    keep = tuple(seq_axes) + ((pp_axis,) if pp_axis is not None else ())
     other = {a: int(n) for a, n in dict(mesh).items()
-             if a not in tuple(seq_axes) and int(n) != 1}
+             if a not in keep and int(n) != 1}
     if other:
         raise NotImplementedError(
-            f"mesh axes {other} besides the sequence axes {tuple(seq_axes)}:"
-            " only the sequence ring is ported (data and tensor parallelism,"
-            " experts and the pipeline are ROADMAP A2)")
+            f"mesh axes {other} besides the sequence axes {tuple(seq_axes)}"
+            f"{' and the pp axis' if pp_axis is not None else ''}: data and "
+            "tensor parallelism and experts over cards need more than one "
+            "card (ROADMAP A7: the multi-card ring, ROADMAP A2 before "
+            "the re-numbering)")
+
+
+def check_serving(cfg: ModelConfig) -> None:
+    """Serving entry points take no pipeline config: the pipeline is a
+    training path (the JAX package has no pp serving path)."""
+    if cfg.pp_axis is not None:
+        raise ValueError(
+            f"pp_axis {cfg.pp_axis!r}: the pipeline is a training path; "
+            "serve the model with pp_axis=None (unstack_layers its "
+            "parameters)")
 
 
 def ring_world(cfg: ModelConfig, mesh) -> int:
     """Ring positions over cfg.seq_axes of `mesh` (1 without a mesh),
-    after check_expert_axis and check_mesh."""
+    after check_expert_axis and check_mesh (a pipeline's stages each run
+    a ring of this size)."""
     check_expert_axis(cfg, mesh)
-    check_mesh(mesh, cfg.seq_axes)
+    check_mesh(mesh, cfg.seq_axes, cfg.pp_axis)
     if mesh is None:
         return 1
     n = 1
@@ -394,7 +416,20 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     every layer folded with obs.devstats.merge (counts add, extrema max /
     min) as a third element, `(logits, aux, DevStats)`; logits and
     gradients are bitwise those of collect_stats=False (a remat block's
-    recompute in the backward adds no stats of its own to the result)."""
+    recompute in the backward adds no stats of its own to the result).
+
+    With cfg.pp_axis set: the pipeline-parallel forward on stacked params
+    (pipeline_lm.pp_forward_with_aux), without collect_stats."""
+    if cfg.pp_axis is not None:
+        if collect_stats:
+            raise ValueError(
+                "collect_stats is not supported on the pipeline-parallel "
+                "path (pp_axis set) — the pp schedule slices layers across "
+                "stages and has no single ring to instrument")
+        from .pipeline_lm import pp_forward_with_aux
+
+        return pp_forward_with_aux(params, tokens, positions, cfg, mesh,
+                                   segment_ids=segment_ids)
     check_strategy(cfg, collect_stats)
     if collect_stats and ring_world(cfg, mesh) < 2:
         raise ValueError("collect_stats needs a ring: the mesh's sequence "

@@ -47,8 +47,8 @@ position, in ring-position order); `slot_use*` are [world, MAX_SLOTS]:
                  the same for the second bank (the ccw ring of a bidi
                  topology, the double ring's inter bank); published as
                  dir="ccw"
-  quant_absmax   the wire quantizer's largest |value| (0.0: the port's
-                 wire is dense)
+  quant_absmax   the wire quantizer's largest |value| (max |k|, |v| of
+                 the position under a wire dtype; 0.0 on a dense wire)
 """
 
 from typing import NamedTuple, Optional
@@ -200,16 +200,21 @@ def ring_stats_all(rounds, rounds_live, attn_pairs, total_pairs, head_dim,
     them; slot_use* are [W, slots] device counters.  `lse` -inf entries are
     legal (fully-masked rows): out of the finite range, not corruption.
     No host synchronization: the counts go up in one non-blocking copy and
-    the reductions stay on the device."""
+    the reductions stay on the device.  `quant_absmax`: a host number, W
+    of them, or an fp32 device tensor [W]."""
     w, dev = lse.shape[0], lse.device
+    qam = quant_absmax if torch.is_tensor(quant_absmax) else None
     host = np.empty((7, w), np.float64)
     for row, x in enumerate((rounds, rounds_live, attn_pairs, total_pairs,
-                             fused_rounds, rounds_elided, quant_absmax)):
+                             fused_rounds, rounds_elided,
+                             0.0 if qam is not None else quant_absmax)):
         host[row] = x
     with torch.no_grad():
         up = _upload(host, dev)
         i32 = up[[0, 1, 4, 5]].to(torch.int32)
         f32 = up[[2, 3, 6]].to(torch.float32)
+        if qam is not None:  # a device tensor [W] (the wire's amax)
+            f32[2] = qam.detach().to(device=dev, dtype=torch.float32)
         lse = lse.detach().reshape(w, -1)
         finite = torch.isfinite(lse)
         if torch.is_tensor(acc):

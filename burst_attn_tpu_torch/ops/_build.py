@@ -56,27 +56,31 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "flash_bwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "fused_ring_fwd": {
-        # D dtype seg window, &max_blocks
-        "fused_ring_fwd_capacity": [I, I, I, I, ctypes.POINTER(I)],
+        # D dtype seg window wire, &max_blocks
+        "fused_ring_fwd_capacity": [I, I, I, I, I, ctypes.POINTER(I)],
         # q k_in v_in ptrs sched st_m st_l st_acc o lse,
         # W B N Nk S D R NB MS G ncol copy_in0 copy_in1 dtype resident,
         # slot_use (NULL: the stats-off instance), seg (NULL: no
-        # segments), window (0: none), scale, stream
-        "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [P, P, I, F, P],
+        # segments), window (0: none), scale, stream, kq_in vq_in (NULL:
+        # dense), wire code (0: dense), slot bytes
+        "fused_ring_fwd_launch": [P] * 10 + [I] * 15 + [P, P, I, F, P]
+        + [P, P, I, ctypes.c_longlong],
         # dtype flags (bit 0 resident, bit 1 stats, bit 2 seg, bit 3
-        # window), int out[4]
+        # window, bit 4 wire), int out[4]
         "fused_ring_fwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "fused_ring_bwd": {
-        # D dtype seg window, &max_blocks
-        "fused_ring_bwd_capacity": [I, I, I, I, ctypes.POINTER(I)],
+        # D dtype seg window wire, &max_blocks
+        "fused_ring_bwd_capacity": [I, I, I, I, I, ctypes.POINTER(I)],
         # first dO q lse k v ptrs sched folds dk dv trace,
         # W B N Nk S D R NB MS MDQ G ncol copy_in0 copy_in1 dtype resident
         # opt, slot_use (NULL: the stats-off instance), seg (NULL: no
-        # segments), window (0: none), scale, stream
-        "fused_ring_bwd_launch": [P] * 12 + [I] * 17 + [P, P, I, F, P],
+        # segments), window (0: none), scale, stream, wire code (0:
+        # dense), the dq wire banks' table (NULL: dense), their slot bytes
+        "fused_ring_bwd_launch": [P] * 12 + [I] * 17 + [P, P, I, F, P]
+        + [I, P, ctypes.c_longlong],
         # dtype flags (bit 0 traced, bit 1 stats, bit 2 seg, bit 3
-        # window), int out[4]
+        # window, bit 4 wire), int out[4]
         "fused_ring_bwd_attrs": [I, I, ctypes.POINTER(I)],
     },
     "ragged_paged": {

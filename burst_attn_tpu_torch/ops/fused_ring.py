@@ -40,7 +40,17 @@ and the schedule compiler truncates the program to the live rounds
 {0 .. r_live - 1} (`occupancy_r_live`): a dead round has no send, no
 consume and no slot traffic.
 
-Not ported yet: wire_dtype (it raises in parallel/burst.py).
+Wire payloads (`cfg.wire_dtype` "int8" | "fp8"): K and V are quantized
+once before the launch per (batch, kv head) (parallel/ring.py
+wire_quantize), the slot banks hold the 1-byte payload with its fp32
+scales behind it in the same slot (no new slots, no extra slot writes),
+and each round dequantizes its chunk to the compute dtype as it stages
+it; a round of the position's own partition reads the resident
+full-precision K and V, as the scan ring's self round does.  The kernel's
+WIRE instances (bf16 / fp32, with STATS and WIN, the scratch state mode
+only; none with SEG: a CUDA call with both raises) and the plain version
+implement the same.
+`collect_stats` reports quant_absmax = max(|k|, |v|) of each position.
 """
 
 import ctypes
@@ -62,7 +72,12 @@ from .tuning import (
 )
 from ..obs.devstats import MAX_SLOTS
 from ..parallel import schedule as sched_ir
-from ..parallel.ring import ring_coords, ring_roles
+from ..parallel.ring import (
+    ring_coords, ring_roles, wire_dequantize, wire_quantize,
+)
+
+# the kernels' wire codes (csrc/common.cuh kInt8, kFp8E4M3; 0 = dense)
+WIRE_CODES = {None: 0, "int8": 2, "fp8": 3}
 
 # the kernel's own per-round columns after the program's FWD_COLS: how
 # many versions a slot must have received (the local copy-in is version
@@ -423,19 +438,22 @@ def fused_ring_fwd(q, k, v, cfg, n_inter: int, n_intra: int, *,
         raise ValueError(f"fused_ring_fwd runs on cuda or cpu tensors, got "
                          f"{q.device}")
     slot_use = _slot_counters(prog, w, q.device) if collect_stats else None
+    wire = cfg.wire_dtype
     if q.device.type == "cpu":
         o, lse = fused_ring_reference(q, k, v, prog, tables, scale,
                                       slot_use=slot_use, seg=seg,
-                                      window=cfg.window)
+                                      window=cfg.window, wire=wire)
     else:
         o, lse = _fused_ring_fwd_cuda(
             q, k, v, prog,
             _sched_on(cfg, n_inter, n_intra, s, q.device, "fwd"), scale,
-            slot_use=slot_use, seg=seg, window=cfg.window)
+            slot_use=slot_use, seg=seg, window=cfg.window, wire=wire)
     if not collect_stats:
         return o, lse
+    from ..parallel.burst import quant_absmax
+
     return o, lse, _fused_stats(cfg, n_inter, n_intra, prog, o, lse,
-                                slot_use, s, d)
+                                slot_use, s, d, quant_absmax(k, v, wire))
 
 
 def seg_table(seg, w: int, b: int, s: int, device):
@@ -476,7 +494,7 @@ def _occupancy(cfg, n_inter: int, n_intra: int, s: int):
 
 
 def _fused_stats(cfg, n_inter: int, n_intra: int, prog, o, lse, slot_use,
-                 s: int, d: int):
+                 s: int, d: int, qam=0.0):
     """The fused forward's DevStats (the JAX package's
     fused_ring_fwd(collect_stats=True)): occupancy and liveness from the
     tables' per-round mask scalars, every scheduled round executed in the
@@ -490,12 +508,14 @@ def _fused_stats(cfg, n_inter: int, n_intra: int, prog, o, lse, slot_use,
         total_pairs=float(n_rounds) * s * s, head_dim=d, m=None, lse=lse,
         acc=o, fused_rounds=n_rounds, rounds_elided=prog.world - n_rounds,
         slot_use=slot_use[:, 0],
-        slot_use_ccw=slot_use[:, 1] if prog.n_banks > 1 else None)
+        slot_use_ccw=slot_use[:, 1] if prog.n_banks > 1 else None,
+        quant_absmax=qam)
 
 
 fused_ring_fwd.launches = 0
 fused_ring_fwd.seg_launches = 0  # the launches of the SEG instances
 fused_ring_fwd.win_launches = 0  # the launches of the WIN instances
+fused_ring_fwd.wire_launches = 0  # the launches of the WIRE instances
 
 
 class _Slot:
@@ -508,8 +528,13 @@ class _Slot:
         self.consumed = False
 
 
+def _copy(x):
+    """A slot payload's copy: a tensor, or a (payload, scale) pair."""
+    return tuple(t.clone() for t in x) if isinstance(x, tuple) else x.clone()
+
+
 def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
-                         slot_use=None, seg=None, window=None):
+                         slot_use=None, seg=None, window=None, wire=None):
     """Plain version of the fused kernel: walks the compiled program on
     the host with every position's slot banks as tensors, in the kernel's
     order per round (sends at the round's start, then each position's
@@ -523,7 +548,11 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
     per (position, bank, slot), as the kernel's STATS instance does.
     `seg` [W, B, S]: the positions' segment ids; a round masks by the
     position's own ids against the consumed partition's.  `window`: the
-    band every round's tile applies beside the table's scalars."""
+    band every round's tile applies beside the table's scalars.  `wire`
+    ("int8" | "fp8"): the slots hold (payload, scale) pairs of K and V
+    quantized per (batch, kv head) before the walk; a consume dequantizes
+    to q's dtype, and a round of the position's own partition reads the
+    resident k[p], v[p], as the kernel does."""
     w = q.shape[0]
     n_rounds = prog.n_rounds
     st = kernel_statics(prog)
@@ -531,9 +560,15 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
              for _ in range(w)]
     credits = [[[0] * prog.slots[bk] for bk in range(prog.n_banks)]
                for _ in range(w)]
+    if wire is None:
+        k_in, v_in = k, v
+    else:
+        k_in = list(zip(*wire_quantize(k, wire, (3, 4))))
+        v_in = list(zip(*wire_quantize(v, wire, (3, 4))))
     for p in range(w):
         for cb, cs in prog.copy_in:
-            banks[p][cb][cs] = _Slot(k[p].clone(), v[p].clone(), p, False)
+            banks[p][cb][cs] = _Slot(_copy(k_in[p]), _copy(v_in[p]), p,
+                                     False)
     state = [init_state(*q.shape[1:], device=q.device) for _ in range(w)]
     for r in range(n_rounds):
         for p in range(w):
@@ -556,7 +591,7 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
                         p, r, f"take of slot {ch}/{ds} before its grant")
                     assert old.reads > 0, (p, r, "overwrite before read")
                     credits[dst][ch][ds] -= 1
-                banks[dst][ch][ds] = _Slot(src.k.clone(), src.v.clone(),
+                banks[dst][ch][ds] = _Slot(_copy(src.k), _copy(src.v),
                                            src.part, True)
         for p in range(w):
             row = tables[p][r]
@@ -575,7 +610,14 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
                 slot_use[p, cb, int(row[sched_ir.CONSUME_SLOT])] += 1
             spec = MaskSpec(*(int(x) for x in row[:5]))
             segs = None if seg is None else (seg[p], seg[slot.part])
-            state[p] = tile_fwd(q[p], slot.k, slot.v, *state[p], scale, spec,
+            if wire is None:
+                kk, vv = slot.k, slot.v
+            elif slot.part == p:  # the own partition: the resident chunk
+                kk, vv = k[p], v[p]
+            else:
+                kk = wire_dequantize(*slot.k, q.dtype)
+                vv = wire_dequantize(*slot.v, q.dtype)
+            state[p] = tile_fwd(q[p], kk, vv, *state[p], scale, spec,
                                 window=window, segments=segs)
         for p in range(w):
             row = tables[p][r]
@@ -589,8 +631,24 @@ def fused_ring_reference(q, k, v, prog, tables: List[np.ndarray], scale,
     return o, lse
 
 
+def wire_pack(x, wire, axes):
+    """x quantized by wire_quantize over `axes` and packed per position as
+    kernel 8's slots hold it: uint8 [W, payload bytes + the fp32 scales,
+    padded to 16 bytes]."""
+    xq, sc = wire_quantize(x, wire, axes)
+    w = x.shape[0]
+    payload = xq.view(torch.uint8).reshape(w, -1)
+    scales = sc.reshape(w, -1).contiguous().view(torch.uint8)
+    n = payload.shape[1] + scales.shape[1]
+    out = torch.zeros((w, -(-n // 16) * 16), dtype=torch.uint8,
+                      device=x.device)
+    out[:, :payload.shape[1]] = payload
+    out[:, payload.shape[1]:n] = scales
+    return out
+
+
 def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
-                         seg=None, window=None):
+                         seg=None, window=None, wire=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_fwd kernel takes "
@@ -602,23 +660,40 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
                          f"{KERNEL_HEAD_DIMS}, got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, t, dev, q.dtype)
+    if wire is not None and seg is not None:
+        raise NotImplementedError(
+            "kernel 8 has no SEG + WIRE instance: packed segments with a "
+            "wire dtype run on the scan ring (backend 'auto'; ROADMAP B1)")
     lib = _build.load("fused_ring_fwd")
     code = KERNEL_DTYPES[q.dtype]
     cap = ctypes.c_int(0)
     with torch.cuda.device(dev):
         _build.check(lib.fused_ring_fwd_capacity(
             d, code, int(seg is not None), int(window is not None),
-            ctypes.byref(cap)), "fused_ring_fwd capacity")
+            int(wire is not None), ctypes.byref(cap)),
+            "fused_ring_fwd capacity")
     n_items = b * n * -(-s // FUSED_BLOCK_Q)
     per_pos = cap.value // w
     if per_pos < 1:
         raise RuntimeError(f"the card keeps {cap.value} fused-ring CTAs "
                            f"resident, fewer than the {w} positions")
     ctas = min(per_pos, n_items)
-    resident = n_items <= per_pos
+    # the WIRE instances keep the state in the scratch (no RESIDENT one)
+    resident = n_items <= per_pos and wire is None
     n_banks, max_slots = prog.n_banks, max(prog.slots)
-    kbanks = [torch.empty((w, prog.slots[bk], b, n_kv, s, d), dtype=q.dtype,
-                          device=dev) for bk in range(n_banks)]
+    if wire is None:
+        kq_in = vq_in = None
+        slot_bytes = 0
+        kbanks = [torch.empty((w, prog.slots[bk], b, n_kv, s, d),
+                              dtype=q.dtype, device=dev)
+                  for bk in range(n_banks)]
+    else:  # a slot: the 1-byte chunk, then its (batch, kv head) scales
+        kq_in = wire_pack(k, wire, (3, 4))
+        vq_in = wire_pack(v, wire, (3, 4))
+        slot_bytes = kq_in.shape[1]
+        kbanks = [torch.empty((w, prog.slots[bk], slot_bytes),
+                              dtype=torch.uint8, device=dev)
+                  for bk in range(n_banks)]
     vbanks = [torch.empty_like(t) for t in kbanks]
     # per position: arrival and credit counters per (bank, slot), per
     # round a done counter and the items taken, then (items dealt from the
@@ -626,9 +701,9 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
     flags = torch.zeros((w, 2 * n_banks * max_slots + 2 * prog.n_rounds
                          + (0 if resident else n_items)),
                         dtype=torch.int32, device=dev)
-    item = q.element_size()
     ptrs = torch.tensor(
-        [[t.data_ptr() + p * t.stride(0) * item for t in kbanks + vbanks]
+        [[t.data_ptr() + p * t.stride(0) * t.element_size()
+          for t in kbanks + vbanks]
          + [flags.data_ptr() + p * flags.stride(0) * 4] for p in range(w)],
         dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
     if resident:
@@ -650,11 +725,12 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
             prog.n_rounds, n_banks, max_slots, ctas, KERNEL_COLS,
             copy_in[0], copy_in[1], code, int(resident), _ptr(slot_use),
             _ptr(seg), 0 if window is None else int(window), float(scale),
-            stream)
+            stream, _ptr(kq_in), _ptr(vq_in), WIRE_CODES[wire], slot_bytes)
     _build.check(err, "fused_ring_fwd")
     fused_ring_fwd.launches += 1
     fused_ring_fwd.seg_launches += seg is not None
     fused_ring_fwd.win_launches += window is not None
+    fused_ring_fwd.wire_launches += wire is not None
     return o, lse
 
 
@@ -662,17 +738,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_attrs(stats: bool = False, seg: bool = False, win: bool = False):
+def fwd_attrs(stats: bool = False, seg: bool = False, win: bool = False,
+              wire: bool = False):
     """_build.kernel_attrs of kernel 8's four instances (dtype x state
     mode), or with `stats` of the four STATS instances (labels end in
     " stats"), with `seg` of the SEG instances (" seg" after that), with
-    `win` of the WIN instances (" win" last)."""
+    `win` of the WIN instances (" win"), with `wire` of the WIRE instances
+    (" wire" last; not with seg; the scratch state mode only)."""
     return _build.kernel_attrs("fused_ring_fwd", {
         f"{name}{'' if res else ' scratch'}{' stats' if stats else ''}"
-        f"{' seg' if seg else ''}{' win' if win else ''}":
+        f"{' seg' if seg else ''}{' win' if win else ''}"
+        f"{' wire' if wire else ''}":
             (code, int(res) | (2 if stats else 0) | (4 if seg else 0)
-             | (8 if win else 0))
+             | (8 if win else 0) | (16 if wire else 0))
         for name, code in (("bf16", KERNEL_DTYPES[torch.bfloat16]),
                            ("fp32", KERNEL_DTYPES[torch.float32]))
-        for res in (True, False)})
+        for res in ((False,) if wire else (True, False))})
 

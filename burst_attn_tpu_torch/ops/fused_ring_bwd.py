@@ -37,6 +37,17 @@ kv ids, in the kernel's SEG instance.  A `cfg.window` runs the kernel's
 WIN instances (alone or with SEG) on the truncated program of the
 windowed ring (ops/fused_ring.py); the STATS instance takes no window
 (`collect_stats` with a window raises on the card, as with seg).
+
+Wire payloads (`cfg.wire_dtype` "int8" | "fp8"): the bundle is quantized
+once at entry, as the scan ring does it (first, do, q per (batch, head);
+lse stays fp32, the three scale vectors riding behind it in its slot),
+and every dq partial travels quantized with a fresh scale per (batch,
+head, 64-row q tile), the kernel's own q tile: the sender sums and
+re-quantizes it, the receiver dequantizes it before it folds (the folds
+stay fp32), and the home outputs arrive quantized and are dequantized
+here.  The kernel's WIRE instances (bf16 / fp32, with WIN) and the plain
+version implement the same; SEG, STATS or a trace with a wire dtype
+raise on the card.
 """
 
 import ctypes
@@ -56,7 +67,10 @@ from .masks import MaskSpec
 from .tile import tile_bwd
 from .tuning import FUSED_BLOCK_KV_BWD, FUSED_BLOCK_Q_BWD
 from ..parallel import schedule as sched_ir
-from ..parallel.ring import ring_coords
+from ..parallel.ring import (
+    WIRE_TORCH, ring_coords, wire_dequantize, wire_quantize,
+)
+from .fused_ring import WIRE_CODES
 
 # per position, the kernel's table of device addresses: the four bundle
 # operands of each of two banks, the two dq banks, the two home outputs,
@@ -139,24 +153,41 @@ def fused_ring_bwd(q, k, v, o, lse, do, cfg, n_inter: int, n_intra: int, *,
         raise ValueError(f"fused_ring_bwd runs on cuda or cpu tensors, got "
                          f"{q.device}")
     slot_use = _slot_counters(prog, w, q.device) if collect_stats else None
+    wire = cfg.wire_dtype
     if q.device.type == "cpu":
         out = fused_ring_bwd_reference(q, k, v, o, lse, do, prog, tables,
                                        scale, cfg.optimize_bwd_comm,
                                        head_chunk=head_chunk,
                                        slot_use=slot_use, seg=seg,
-                                       window=cfg.window)
+                                       window=cfg.window, wire=wire)
     else:
         out = _fused_ring_bwd_cuda(
             q, k, v, o, lse, do, prog,
             _sched_on(cfg, n_inter, n_intra, s, q.device, "bwd"), scale,
             cfg.optimize_bwd_comm, trace, slot_use=slot_use, seg=seg,
-            window=cfg.window)
+            window=cfg.window, wire=wire)
     return out + (slot_use,) if collect_stats else out
 
 
 fused_ring_bwd.launches = 0
 fused_ring_bwd.seg_launches = 0  # the launches of the SEG instances
 fused_ring_bwd.win_launches = 0  # the launches of the WIN instances
+fused_ring_bwd.wire_launches = 0  # the launches of the WIRE instances
+
+
+def dq_wire_roundtrip(x, wire):
+    """What a dq partial x [..., S, D] fp32 is after one quantized hop of
+    the kernel: quantized per 64-row q tile (FUSED_BLOCK_Q_BWD) of each
+    leading index, dequantized to fp32."""
+    if wire is None:
+        return x
+    s = x.shape[-2]
+    nqt = -(-s // FUSED_BLOCK_Q_BWD)
+    pad = nqt * FUSED_BLOCK_Q_BWD - s
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
+    t = xp.unflatten(-2, (nqt, FUSED_BLOCK_Q_BWD))
+    back = wire_dequantize(*wire_quantize(t, wire, (-2, -1)), torch.float32)
+    return back.flatten(-3, -2)[..., :s, :]
 
 
 class _Bundle:
@@ -202,7 +233,8 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
                              tables: List[np.ndarray], scale,
                              optimize_bwd_comm: bool = True, *,
                              head_chunk: Optional[int] = None,
-                             slot_use=None, seg=None, window=None):
+                             slot_use=None, seg=None, window=None,
+                             wire=None):
     """Plain version of the fused backward kernel: walks the compiled
     backward program on the host with every position's bundle banks, dq
     slots and home outputs, in the kernel's phases per round (bundle sends
@@ -221,13 +253,24 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
     as the kernel's STATS instance does.  `seg` [W, B, S]: the positions'
     segment ids; a round masks the bundle partition's ids against the
     position's own.  `window`: the band every round applies beside the
-    table's scalars."""
+    table's scalars.  `wire` ("int8" | "fp8"): the bundle is quantized
+    once per (batch, head) and dequantized at every consume, and each dq
+    send delivers dq_wire_roundtrip of the partial, as the kernel's WIRE
+    instances do."""
     w, n_rounds = q.shape[0], prog.n_rounds
     st = kernel_statics(prog)
     if optimize_bwd_comm:
         first = (o.float() * do.float()).sum(-1)
     else:
         first = o
+    if wire is not None:
+        # the bundle as it comes off the wire (quantized once at entry)
+        first = wire_dequantize(
+            *wire_quantize(first, wire, (3,) if optimize_bwd_comm
+                           else (3, 4)),
+            torch.float32 if optimize_bwd_comm else o.dtype)
+        do = wire_dequantize(*wire_quantize(do, wire, (3, 4)), do.dtype)
+        q = wire_dequantize(*wire_quantize(q, wire, (3, 4)), q.dtype)
     banks = [[[None] * prog.slots[bk] for bk in range(prog.n_banks)]
              for _ in range(w)]
     credits = [[[0] * prog.slots[bk] for bk in range(prog.n_banks)]
@@ -323,9 +366,11 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
                 int(row[sched_ir.DQ_SLOT])]
             src.done = True
             dst = int(meta[meta_col])
+            sent = dq_wire_roundtrip(src.value, wire)
             if dslot < 0:
                 assert homes[dst][sbank] is None, (p, r, "home twice")
-                homes[dst][sbank] = src
+                homes[dst][sbank] = _Partial(sent, src.part, src.contrib,
+                                             True)
                 continue
             take = row[sched_ir.DQ_TAKE1 if sbank else sched_ir.DQ_TAKE0]
             old = dq_slots[dst][sbank][dslot]
@@ -337,7 +382,7 @@ def fused_ring_bwd_reference(q, k, v, o, lse, do, prog,
                     p, r, f"take of dq slot {sbank}/{dslot} before its grant")
                 assert old.done, (p, r, "dq overwrite before read")
                 dq_credits[dst][sbank][dslot] -= 1
-            dq_slots[dst][sbank][dslot] = _Partial(src.value, src.part,
+            dq_slots[dst][sbank][dslot] = _Partial(sent, src.part,
                                                    src.contrib, True)
         for p in range(w):  # dq grants, once the round's sends are done
             row = tables[p][r]
@@ -371,12 +416,19 @@ def read_trace(trace):
     return [dict(zip(TRACE_COLS, r)) for r in rows if r[1] > 0]
 
 
-def bwd_attrs(stats: bool = False, seg: bool = False, win: bool = False):
+def bwd_attrs(stats: bool = False, seg: bool = False, win: bool = False,
+              wire: bool = False):
     """_build.kernel_attrs of kernel 9's instances: bf16 (and traced),
     fp32; with `stats` its two STATS instances (bf16 stats, fp32 stats);
     with `seg` and / or `win` its SEG, WIN or SEG + WIN instances (labels
-    "bf16 seg", "fp32 win", "bf16 seg win", ...)."""
+    "bf16 seg", "fp32 win", "bf16 seg win", ...); with `wire` its WIRE
+    instances ("bf16 wire", "fp32 win wire", ...; not with seg)."""
     bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
+    if wire:
+        flag = 16 | (8 if win else 0)
+        tag = (" win" if win else "") + " wire"
+        return _build.kernel_attrs("fused_ring_bwd", {
+            f"bf16{tag}": (bf16, flag), f"fp32{tag}": (fp32, flag)})
     if seg or win:
         flag = (4 if seg else 0) | (8 if win else 0)
         tag = (" seg" if seg else "") + (" win" if win else "")
@@ -390,7 +442,8 @@ def bwd_attrs(stats: bool = False, seg: bool = False, win: bool = False):
 
 
 def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
-                         trace=None, slot_use=None, seg=None, window=None):
+                         trace=None, slot_use=None, seg=None, window=None,
+                         wire=None):
     dev = q.device
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_ring_bwd kernel takes "
@@ -403,13 +456,21 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_kernel_operand(name, t, dev, q.dtype)
     _check_kernel_operand("lse", lse, dev, torch.float32, (w, b, n, s))
+    if wire is not None and (seg is not None or slot_use is not None
+                             or trace is not None):
+        raise NotImplementedError(
+            "kernel 9 has no WIRE instance with SEG, STATS or TRACE: a wire "
+            "dtype with packed segments runs on the scan ring, and "
+            "collect_stats / trace of a wire backward are not built "
+            "(ROADMAP B1)")
     lib = _build.load("fused_ring_bwd")
     code = KERNEL_DTYPES[q.dtype]
     cap = ctypes.c_int(0)
     with torch.cuda.device(dev):
         _build.check(lib.fused_ring_bwd_capacity(
             d, code, int(seg is not None), int(window is not None),
-            ctypes.byref(cap)), "fused_ring_bwd capacity")
+            int(wire is not None), ctypes.byref(cap)),
+            "fused_ring_bwd capacity")
     n_items = b * n_kv * -(-s // FUSED_BLOCK_KV_BWD)
     per_pos = cap.value // w
     if per_pos < 1:
@@ -439,21 +500,50 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
     # or o itself, delta then recomputed per tile
     first = (o.float() * do.float()).sum(-1) if opt_comm else o
     f32 = dict(dtype=torch.float32, device=dev)
+    nqt = -(-s // FUSED_BLOCK_Q_BWD)
+    n_rows = b * n * s
+    # a dq wire slot: the partial's 1-byte payload, then its q tiles'
+    # scales, padded to 16 bytes
+    wslot = n_rows * d + -(-(b * n * nqt * 4) // 16) * 16
+    if wire is None:
+        ops = (first, do, q, lse)
+    else:
+        # the bundle quantized once: 1-byte first, do, q; lse fp32 with the
+        # three (batch, head) scale vectors behind it, padded to 16 bytes
+        fq, fsc = wire_quantize(first, wire, (3,) if opt_comm else (3, 4))
+        doq, dosc = wire_quantize(do, wire, (3, 4))
+        qq, qsc = wire_quantize(q, wire, (3, 4))
+        if n_rows % 16:
+            raise ValueError(f"a wire bundle needs B*N*S a multiple of 16, "
+                             f"got {n_rows}")
+        scales = torch.cat([x.reshape(w, -1) for x in (fsc, dosc, qsc)],
+                           dim=1)
+        scales = torch.nn.functional.pad(
+            scales, (0, -(-scales.shape[1] // 4) * 4 - scales.shape[1]))
+        lse_ext = torch.cat([lse.reshape(w, -1), scales], dim=1)
+        ops = tuple(x.view(torch.uint8).reshape(w, -1)
+                    for x in (fq, doq, qq)) + (lse_ext.contiguous(),)
     banks = []
     for bk in range(prog.n_banks):
         sl = prog.slots[bk]
-        banks.append([torch.empty((w, sl) + first.shape[1:],
-                                  dtype=first.dtype, device=dev),
-                      torch.empty((w, sl) + q.shape[1:], dtype=q.dtype,
-                                  device=dev),
-                      torch.empty((w, sl) + q.shape[1:], dtype=q.dtype,
-                                  device=dev),
-                      torch.empty((w, sl) + lse.shape[1:], **f32)])
+        banks.append([torch.empty((w, sl) + x.shape[1:], dtype=x.dtype,
+                                  device=dev) for x in ops])
     dq_banks = [torch.empty((w, sl) + q.shape[1:], **f32) if sl else None
                 for sl in dq_bank_slots(prog)]
     home_rounds = bwd_statics(prog)
-    homes = [torch.empty(q.shape, **f32) if b_ in home_rounds else None
-             for b_ in range(2)]
+    if wire is None:
+        homes = [torch.empty(q.shape, **f32) if b_ in home_rounds else None
+                 for b_ in range(2)]
+        wbanks, wptrs = [], None
+    else:
+        homes = [torch.empty((w, wslot), dtype=torch.uint8, device=dev)
+                 if b_ in home_rounds else None for b_ in range(2)]
+        wbanks = [torch.empty((w, sl, wslot), dtype=torch.uint8, device=dev)
+                  if sl else None for sl in dq_bank_slots(prog)]
+        wptrs = torch.tensor(
+            [[0 if t is None else t.data_ptr() + p * t.stride(0)
+              for t in wbanks] for p in range(w)],
+            dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
     max_slots = max(prog.slots)
     max_dq = max(dq_bank_slots(prog))
     # per position: bundle arrival and credit counters per (bank, slot),
@@ -461,31 +551,31 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
     # two done counters (compute, dq send) and the items taken
     flags = torch.zeros((w, 2 * prog.n_banks * max_slots + 4 * max_dq
                          + 3 * prog.n_rounds), dtype=torch.int32, device=dev)
-    nqt = -(-s // FUSED_BLOCK_Q_BWD)
     folds = torch.zeros((w, prog.n_rounds, b * n * nqt), dtype=torch.int32,
                         device=dev)
-    rows = []
+    ptr_rows = []
     for p in range(w):
         ptr = [0] * _N_PTRS
-        for bk, ops in enumerate(banks):
-            for i, t in enumerate(ops):
+        for bk, bank in enumerate(banks):
+            for i, t in enumerate(bank):
                 ptr[4 * bk + i] = t.data_ptr() + p * t.stride(0) * \
                     t.element_size()
         for i, t in enumerate(dq_banks + homes):
             if t is not None:
-                ptr[8 + i] = t.data_ptr() + p * t.stride(0) * 4
+                ptr[8 + i] = t.data_ptr() + p * t.stride(0) * \
+                    t.element_size()
         ptr[12] = flags.data_ptr() + p * flags.stride(0) * 4
-        rows.append(ptr)
-    ptrs = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+        ptr_rows.append(ptr)
+    ptrs = torch.tensor(ptr_rows, dtype=torch.int64).pin_memory().to(
         dev, non_blocking=True)
     dk = torch.empty(k.shape, **f32)
     dv = torch.empty(k.shape, **f32)
     copy_in = [bk * 16 + sl + 1 for bk, sl in prog.copy_in] + [0, 0]
-    first = first.contiguous()
+    ops = tuple(x.contiguous() for x in ops)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.fused_ring_bwd_launch(
-            first.data_ptr(), do.data_ptr(), q.data_ptr(), lse.data_ptr(),
+            *(x.data_ptr() for x in ops),
             k.data_ptr(), v.data_ptr(), ptrs.data_ptr(), sched.data_ptr(),
             folds.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if trace is None else trace.data_ptr(), w, b, n, n_kv, s,
@@ -493,10 +583,28 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
             BWD_KERNEL_COLS, copy_in[0], copy_in[1], code, int(resident),
             int(opt_comm), None if slot_use is None else slot_use.data_ptr(),
             None if seg is None else seg.data_ptr(),
-            0 if window is None else int(window), float(scale), stream)
+            0 if window is None else int(window), float(scale), stream,
+            WIRE_CODES[wire], None if wptrs is None else wptrs.data_ptr(),
+            wslot)
     _build.check(err, "fused_ring_bwd")
     fused_ring_bwd.launches += 1
     fused_ring_bwd.seg_launches += seg is not None
     fused_ring_bwd.win_launches += window is not None
+    fused_ring_bwd.wire_launches += wire is not None
+    if wire is not None:  # the homes arrive quantized per q tile
+        homes = [None if h is None else
+                 _dq_from_wire(h, wire, (w, b, n, s, d)) for h in homes]
     dq = homes[0] if homes[1] is None else homes[0] + homes[1]
     return dq, dk, dv
+
+
+def _dq_from_wire(buf, wire, shape):
+    """A dq wire buffer [W, wire slot bytes] (payload [W,B,N,S,D], then a
+    scale per (batch, head, 64-row q tile)) dequantized to fp32."""
+    w, b, n, s, d = shape
+    nqt = -(-s // FUSED_BLOCK_Q_BWD)
+    payload = buf[:, :b * n * s * d].view(WIRE_TORCH[wire]).reshape(shape)
+    scales = buf[:, b * n * s * d:b * n * s * d + 4 * b * n * nqt].view(
+        torch.float32).reshape(w, b, n, nqt, 1)
+    scales = scales.repeat_interleave(FUSED_BLOCK_Q_BWD, dim=3)[:, :, :, :s]
+    return payload.float() * scales

@@ -63,10 +63,12 @@ def resolve_fused(block_q=None, block_kv=None, kv_slots=None,
     """Fill the fused ring kernels' knobs from this card's defaults: the
     forward's tiles and slots, and the backward's (its tiles default to
     the backward kernel's 64 x 64, its slots to two per bank).  Slot
-    counts below 2 cannot double-buffer and are rejected.  `wire_dtype`
-    is not ported yet and raises."""
-    if wire_dtype is not None:
-        raise NotImplementedError("wire_dtype is not ported yet")
+    counts below 2 cannot double-buffer and are rejected.  `wire_dtype`:
+    None (the dense wire, the JAX table's fused_wire_dtype default), "int8"
+    or "fp8"."""
+    if wire_dtype not in (None, "int8", "fp8"):
+        raise ValueError(
+            f"wire_dtype must be None, 'int8' or 'fp8', got {wire_dtype!r}")
     bq = FUSED_BLOCK_Q if block_q is None else int(block_q)
     bkv = FUSED_BLOCK_KV if block_kv is None else int(block_kv)
     slots = FUSED_KV_SLOTS if kv_slots is None else int(kv_slots)
@@ -80,4 +82,4 @@ def resolve_fused(block_q=None, block_kv=None, kv_slots=None,
         if n < 2:
             raise ValueError(f"fused ring needs {name} >= 2, got {n}")
     return ResolvedFused(bq, bkv, slots, SMEM_BUDGET, bqb, bkvb, bslots,
-                         cslots, bcslots, None)
+                         cslots, bcslots, wire_dtype)

@@ -70,9 +70,22 @@ round's (q ids, kv ids) pair (the SEG instances of kernels 1-3); the
 fused ring kernels read every position's ids from one stacked [W, B, S]
 table, the row of the partition a round consumes.
 
+Wire precision (`wire_dtype` "int8" | "fp8"): the ROTATING payloads
+travel quantized with per-block fp32 scales (parallel/ring.wire_quantize),
+as in the JAX package.  The scan ring quantizes each position's K and V
+once at ring entry per (batch, kv head) and dequantizes every round's
+arrival to the compute dtype (the self round reads the resident
+full-precision K and V); the backward quantizes the q-side bundle once
+per (batch, head) (delta over s under optimize_bwd_comm, o over s and d
+otherwise; lse stays fp32), and each dq hop re-quantizes the fp32 partial
+with a refreshed per-(batch, head) scale and dequantizes it on arrival:
+the folds stay fp32.  The fused route runs kernels 8-9's wire instances
+(ops/fused_ring.py, ops/fused_ring_bwd.py).  `collect_stats` reports the
+largest |k|, |v| a position quantized (quant_absmax).
+
 Not ported yet (they raise NotImplementedError): the tile sizes of the
-flash kernels (block_q, block_kv and the backward's), wire_dtype, and
-meshes with data or tensor parallel axes of size > 1.
+flash kernels (block_q, block_kv and the backward's), and meshes with
+data or tensor parallel axes of size > 1.
 """
 
 import logging
@@ -92,7 +105,10 @@ from ..ops.masks import (
 from ..ops.tile import finalize, init_state, tile_bwd, tile_fwd
 from . import schedule as sched_ir
 from .mesh import as_mesh, ppermute, shard, unshard
-from .ring import partition_at_round, ring_coords, ring_round_counts
+from .ring import (
+    partition_at_round, ring_coords, ring_round_counts, wire_dequantize,
+    wire_quantize,
+)
 
 logger = logging.getLogger("burst_attn_tpu_torch")
 
@@ -176,8 +192,6 @@ class BurstConfig:
             raise ValueError(
                 f"wire_dtype must be None, 'int8' or 'fp8', got "
                 f"{self.wire_dtype!r}")
-        if self.wire_dtype is not None:
-            raise NotImplementedError("wire_dtype is not ported yet")
         if self.fused_topology not in ("auto", "uni", "bidi", "double"):
             raise ValueError(
                 f"fused_topology must be auto|uni|bidi|double, got "
@@ -344,6 +358,7 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
 
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
     coords = [ring_coords(p, n_inter, n_intra) for p in range(world)]
+    wire = cfg.wire_dtype
     # devstats (collect only): per position [rounds, live rounds, pairs],
     # host ints from the round's mask scalars (the spec the kernels run)
     tally = [[0, 0, 0] for _ in range(world)]
@@ -364,6 +379,11 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
             # a future round, or one past the band's reach: nothing
             # attends, skip the launch
             return st
+        if wire is not None:
+            # rescale on consume: the arrival goes back to the compute
+            # dtype before any tile math
+            kv_c = (wire_dequantize(kv_c[0], kv_c[1], k.dtype),
+                    wire_dequantize(kv_c[2], kv_c[3], v.dtype)) + kv_c[4:]
         segs = None if seg is None else (seg[p], kv_c[2])
         return _tile_fwd(cfg, q[p], kv_c[0], kv_c[1], *st, scale, spec,
                          segs)
@@ -372,9 +392,17 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
         return [compute(p, states[p], kv[p], r) for p in range(world)]
 
     r_live = _r_live(cfg, s, s_kv, n_inter, n_intra)
-    # the KV payload, with the kv side's segment ids riding along
-    kv = [(k[p], v[p]) + (() if seg is None else (seg[p],))
-          for p in range(world)]
+    # the KV payload, with the kv side's segment ids riding along; under
+    # a wire dtype quantized ONCE at ring entry per (batch, kv head): the
+    # payload rotates unchanged, so that is quantize-on-send at every hop
+    if wire is None:
+        kv = [(k[p], v[p]) + (() if seg is None else (seg[p],))
+              for p in range(world)]
+    else:
+        kq, ksc = wire_quantize(k, wire, (3, 4))
+        vq, vsc = wire_quantize(v, wire, (3, 4))
+        kv = [(kq[p], ksc[p], vq[p], vsc[p])
+              + (() if seg is None else (seg[p],)) for p in range(world)]
     kv_base = kv
     # round 0 is always the self round: a statically empty carry
     spec0 = [round_spec(p, p, s, s_kv, cfg.causal, cfg.layout,
@@ -410,8 +438,18 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
         total_pairs=[r * s * s_kv for r in rounds], head_dim=d,
         rounds_elided=[world - r for r in rounds],
         m=torch.stack([st[0] for st in state]), lse=lse,
-        acc=[st[2] for st in state])
+        acc=[st[2] for st in state], quant_absmax=quant_absmax(k, v, wire))
     return o, lse, stats
+
+
+def quant_absmax(k, v, wire):
+    """Per position, the largest |value| the wire quantizer maps to its
+    top code: max(|k|, |v|) of each stacked shard [W, ...] (fp32 [W] on
+    the device), or 0.0 for a dense wire."""
+    if wire is None:
+        return 0.0
+    return torch.maximum(k.detach().float().abs().flatten(1).amax(1),
+                         v.detach().float().abs().flatten(1).amax(1))
 
 
 # ---------------------------------------------------------------------------
@@ -444,13 +482,35 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
     # optimize_bwd_comm: the ring payload (delta, not o) shrinks by a
     # factor of head_dim
     first = (o.float() * do.float()).sum(-1) if cfg.optimize_bwd_comm else o
-    payload = [(first[p], do[p], q[p], lse[p])
-               + (() if seg is None else (seg[p],)) for p in range(world)]
+    wire = cfg.wire_dtype
+    if wire is None:
+        payload = [(first[p], do[p], q[p], lse[p])
+                   + (() if seg is None else (seg[p],)) for p in range(world)]
+    else:
+        # the q-side bundle quantized once at ring entry (it rotates
+        # unchanged) per (batch, head); lse stays fp32
+        fq, fsc = wire_quantize(first, wire,
+                                (3,) if cfg.optimize_bwd_comm else (3, 4))
+        doq, dosc = wire_quantize(do, wire, (3, 4))
+        qq, qsc = wire_quantize(q, wire, (3, 4))
+        payload = [(fq[p], fsc[p], doq[p], dosc[p], qq[p], qsc[p], lse[p])
+                   + (() if seg is None else (seg[p],)) for p in range(world)]
+
+    def unpack(pay):
+        """(first, do, q, lse, q ids or None) of a payload, dequantized
+        to the dense ring's dtypes under a wire dtype."""
+        if wire is None:
+            return pay[:4] + (pay[4] if seg is not None else None,)
+        return (wire_dequantize(pay[0], pay[1], torch.float32
+                                if cfg.optimize_bwd_comm else o.dtype),
+                wire_dequantize(pay[2], pay[3], do.dtype),
+                wire_dequantize(pay[4], pay[5], q.dtype), pay[6],
+                pay[7] if seg is not None else None)
 
     def compute(p, pay, r):
         """(dq, dk, dv) of position p's round r: the rotated q side
         against the resident k/v (roles flip against the forward)."""
-        first_r, do_r, q_r, lse_r = pay[:4]
+        first_r, do_r, q_r, lse_r, qseg_r = unpack(pay)
         delta_r = first_r if cfg.optimize_bwd_comm else (
             first_r.float() * do_r.float()).sum(-1)
         q_part = partition_at_round(r, *coords[p], n_inter, n_intra)
@@ -459,7 +519,7 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
         if (cfg.layout == "contig" and cfg.causal
                 and not spec_live(spec, cfg.window)):
             return None  # a dead round: exact zeros, no launch
-        segs = None if seg is None else (pay[4], seg[p])
+        segs = None if seg is None else (qseg_r, seg[p])
         return _tile_bwd(cfg, do_r, q_r, k[p], v[p], delta_r, lse_r, scale,
                          spec, segs)
 
@@ -483,9 +543,16 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
             out.append(dq_acc[p] + got[0])
         return out
 
-    def hop(dqs, axis, hops=1):
-        return [t for (t,) in ppermute([(x,) for x in dqs], axis, n_inter,
-                                       n_intra, hops)]
+    def hop(dqs, axis):
+        """One dq hop; under a wire dtype quantize-before-send with a
+        refreshed per-(batch, head) scale (the partial grew since the
+        last hop) and dequantize-after-receive to fp32."""
+        if wire is None:
+            return [t for (t,) in ppermute([(x,) for x in dqs], axis,
+                                           n_inter, n_intra)]
+        sent = [wire_quantize(x, wire, (2, 3)) for x in dqs]
+        return [wire_dequantize(g, sc, torch.float32) for g, sc in
+                ppermute(sent, axis, n_inter, n_intra)]
 
     # Static round truncation, bwd roles: with the q side rotating, round
     # r's q part is me - r, so a truncated contig ring's LIVE rounds are
@@ -635,8 +702,10 @@ def burst_attn(
     sharded like q): attention never crosses a segment boundary, on both
     routes and in the backward.  window: the sliding-window band (contig
     causal only, >= 1; both routes, both passes, the single ring truncated
-    to its live rounds).  wire_dtype and the tile sizes away from their
-    defaults raise (BurstConfig)."""
+    to its live rounds).  wire_dtype: "int8" | "fp8" quantizes the
+    rotating ring payloads (both routes, both passes); None, the default
+    (as the JAX table's fused_wire_dtype), keeps the dense wire.  The tile
+    sizes away from their defaults raise (BurstConfig)."""
     if isinstance(seq_axes, str):
         seq_axes = (seq_axes,)
     if len(seq_axes) == 1:

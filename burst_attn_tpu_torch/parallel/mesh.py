@@ -10,8 +10,11 @@ a fresh buffer of its receiver — the bytes a ring has to move are moved.
 `all_to_all` is the exchange of Ulysses attention (parallel/ulysses.py)
 and of expert parallelism (parallel/moe.py), with the same copy
 semantics.  Axes other than the sequence axes must have size 1 (data and
-tensor parallelism are not ported yet).  The multi-process communicator
-of a ring across cards comes with a later slice.
+tensor parallelism are not ported yet).  A pipeline's `pp` axis holds
+stages, not ring positions (parallel/pipeline.py): each stage's ring sees
+only its sequence axes (`seq_mesh`), so the ring never counts pp as an
+extra axis.  The multi-process communicator of a ring across cards comes
+with a later slice.
 """
 
 from typing import Dict, List, Sequence, Tuple, Union
@@ -71,6 +74,13 @@ def as_mesh(mesh: Union[Mesh, Dict[str, int]], device) -> Mesh:
                              f"{mesh.device}")
         return mesh
     return Mesh(mesh, device=device)
+
+
+def seq_mesh(mesh, seq_axes) -> Dict[str, int]:
+    """What one pipeline stage's ring sees of `mesh` ({axis: size} or a
+    Mesh): its sequence axes alone, {axis: size}."""
+    shape = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
+    return {a: int(shape[a]) for a in _names(seq_axes) if a in shape}
 
 
 def _names(axes) -> Tuple[str, ...]:

@@ -8,12 +8,50 @@ intra_rank.  Every function here takes those coordinates explicitly; the
 rotation itself (copies between the positions' buffers) lives in
 parallel/mesh.py.
 
-Not ported yet: `wire_quantize` (BurstConfig.wire_dtype raises).
+`wire_quantize` / `wire_dequantize` are the symmetric int8 / fp8 ring
+payload quantizers (BurstConfig.wire_dtype): per-block scalar fp32
+scales, the JAX package's arithmetic bit for bit.
 """
 
 import numpy as np
+import torch
 
 from . import schedule
+
+# one representable-range constant per wire dtype: int8 maps amax ->
+# +-127, fp8 (e4m3fn, no inf) maps amax -> +-448, its finite max
+WIRE_QMAX = {"int8": 127.0, "fp8": 448.0}
+# the torch dtype each wire ships
+WIRE_TORCH = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def wire_quantize(x, wire, axes):
+    """(payload, scale) for one ring hop (the JAX package's wire_quantize).
+    `axes` are the amax-reduction dims (everything inside one scale
+    block); the scale keeps dims, so dequantization is a broadcast
+    multiply.  amax in fp32, scale = max(amax, 1e-30) / QMAX, x / scale
+    (a division), int8 rounded half to even and clipped to +-127, fp8 the
+    e4m3fn cast.  wire=None passes `x` through with scale None."""
+    if wire is None:
+        return x, None
+    if wire not in WIRE_QMAX:
+        raise ValueError(f"wire must be None, 'int8' or 'fp8', got {wire!r}")
+    f = x.float()
+    amax = f.abs().amax(dim=tuple(axes), keepdim=True)
+    scale = amax.clamp(min=1e-30) / WIRE_QMAX[wire]
+    if wire == "int8":
+        q = torch.clamp(torch.round(f / scale), -127.0, 127.0).to(torch.int8)
+    else:
+        q = (f / scale).to(torch.float8_e4m3fn)
+    return q, scale
+
+
+def wire_dequantize(q, scale, dtype):
+    """Inverse of wire_quantize: rescale in fp32, then cast to the compute
+    dtype the dense ring would have shipped; scale None passes q."""
+    if scale is None:
+        return q
+    return (q.float() * scale).to(dtype)
 
 
 def ring_round_counts(n_inter: int, n_intra: int, r_live=None):

@@ -760,28 +760,43 @@ def bank_dirs(program: RingProgram) -> Tuple[str, ...]:
     return program.channels
 
 
+def wire_itemsize(wire: Optional[str], dense_itemsize: int = 4) -> int:
+    """Bytes per element a rotating operand ships under a wire dtype."""
+    if wire is None:
+        return dense_itemsize
+    if wire not in ("int8", "fp8"):
+        raise ScheduleError(f"unknown wire dtype {wire!r}")
+    return 1
+
+
 def wire_round_bytes(pass_: str, wire: Optional[str], *, b: int, n: int,
                      n_kv: int, s: int, d: int, opt_comm: bool = True,
                      itemsize: int = 4) -> Dict[str, int]:
     """Per-round per-position payload bytes each rotating stream ships over
-    one ring hop, by stream name (the JAX package's derivation, dense wire
-    only: the port has no wire quantizer):
+    one ring hop, by stream name (the JAX package's derivation):
 
-      fwd  {"kv": ...}                    the k+v chunk
-      bwd  {"bundle": ..., "dq": ...}     the q-side bundle and the
-                                          streamed dq partial
+      fwd  {"kv": ...}                    the k+v chunk (+ scales)
+      bwd  {"bundle": ..., "dq": ...}     the q-side bundle (+ scales) and
+                                          the streamed dq partial
 
-    `itemsize` is the per-element width the count assumes (4, the JAX
-    package's fp32 rows, by default); lse always ships b*n*s fp32.
-    Shapes are per position.  The burst.wire_bytes counters integrate
-    it per dispatch."""
-    if wire is not None:
-        raise NotImplementedError("wire_dtype is not ported yet")
+    `itemsize` is the dense per-element width the count assumes (4, the
+    JAX package's fp32 rows, by default).  Quantized streams ship 1 byte
+    an element plus one fp32 scale per quantized block at the scan ring's
+    granularity (fwd: per (batch, kv head); bundle: per (batch, head) per
+    operand; dq: per (batch, head)); lse always ships b*n*s fp32.  Shapes
+    are per position.  The burst.wire_bytes counters integrate it per
+    dispatch."""
+    wi = wire_itemsize(wire, itemsize)
+    scale_b = 0 if wire is None else 4
     if pass_ == "fwd":
-        return {"kv": 2 * b * n_kv * s * d * itemsize}
+        return {"kv": 2 * b * n_kv * s * d * wi + 2 * b * n_kv * scale_b}
     if pass_ != "bwd":
         raise ValueError(f"pass_ must be 'fwd' or 'bwd', got {pass_!r}")
-    # bundle: (delta | o), do, q; lse fp32
-    first = b * n * s * 4 if opt_comm else b * n * s * d * itemsize
-    bundle = first + 2 * b * n * s * d * itemsize + b * n * s * 4
-    return {"bundle": bundle, "dq": b * n * s * d * 4}
+    # bundle: (delta | o), do, q quantize; lse stays fp32
+    first = b * n * s * (4 if wire is None else 1) if opt_comm \
+        else b * n * s * d * wi
+    bundle = (first + 2 * b * n * s * d * wi      # do + q
+              + b * n * s * 4                      # lse (fp32, exempt)
+              + 3 * b * n * scale_b)               # delta|o, do, q scales
+    dq = b * n * s * d * (4 if wire is None else 1) + b * n * scale_b
+    return {"bundle": bundle, "dq": dq}

@@ -107,7 +107,7 @@ from ..device import resolve_device
 from ..models.decode import skip_draws
 from ..models.paged_decode import PrefixCache, init_paged_state
 from ..models.spec_round import Draft, SpecCounters
-from ..models.transformer import ModelConfig
+from ..models.transformer import ModelConfig, check_serving
 from ..ops.ragged_paged import ragged_supported
 from .model import (
     DecodeGraphs, assign_pages, cow_pages, free_slot, free_slots,
@@ -266,6 +266,7 @@ class RaggedServeEngine(SpecCounters):
                  prefix_cache: bool = False, group_attn: bool = True,
                  journal=None, pipeline: bool = False, multi_step: int = 1,
                  device=None):
+        check_serving(cfg)
         if multi_step < 1:
             raise ValueError(f"multi_step must be >= 1, got {multi_step}")
         if multi_step > 1 and not pipeline:

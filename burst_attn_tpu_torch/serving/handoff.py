@@ -32,7 +32,7 @@ from ..models.paged_decode import (
     PagedState, PagePool, _scatter_pages, provision_capacity,
 )
 from ..models.transformer import (
-    ModelConfig, _logits, _rms_norm,
+    ModelConfig, _logits, _rms_norm, check_serving,
 )
 from ..parallel import layouts
 
@@ -82,6 +82,7 @@ def ring_prefill_to_pages(params, tokens, state: PagedState, pool: PagePool,
     multiple and divide by the ring's world (as the layout requires);
     every precondition is checked first, and a failure during the pass
     releases the pages it acquired."""
+    check_serving(cfg)
     tokens = np.asarray(tokens).reshape(-1)
     n_need = check_handoff_preconditions(state, pool, slot,
                                          int(tokens.shape[0]), cfg)
@@ -143,6 +144,7 @@ def handoff_generate(params, prompt, state: PagedState, pool: PagePool,
     all-or-nothing: the decode budget is validated with the prompt's
     pages before the ring pass runs, so a rejected request mutates
     nothing."""
+    check_serving(cfg)
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     prompt = np.asarray(prompt).reshape(-1)
@@ -188,6 +190,7 @@ def handoff_decode(params, state: PagedState, cfg: ModelConfig, mesh, *,
     the continuation the dead decode would have produced.  A step whose
     logits are NaN (the slot stepped past its provisioned pages)
     raises."""
+    check_serving(cfg)
     feed = torch.zeros(state.lengths.shape[0], dtype=torch.long)
     cur = int(last_token)
     out = []

@@ -78,9 +78,13 @@ class Checkpointer:
         payload = torch.load(self._path(step), map_location=dev,
                              weights_only=True)
         params = payload["params"]
-        if len(params["layers"]) != cfg.n_layers:
-            raise ValueError(f"checkpoint has {len(params['layers'])} layers,"
-                             f" the config {cfg.n_layers}")
+        layers = params["layers"]
+        # stacked (pp) layers: the leading dim of any leaf
+        n = (next(iter(layers.values())).shape[0]
+             if isinstance(layers, dict) else len(layers))
+        if n != cfg.n_layers:
+            raise ValueError(f"checkpoint has {n} layers, the config "
+                             f"{cfg.n_layers}")
         for t in param_leaves(params):
             t.requires_grad_(True)
         opt = _optimizer(params, tcfg)

@@ -2300,7 +2300,7 @@ def train_parity(device, n_layers=2, seq=2048, **kw):
 
 
 def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
-                 packed_eos_id=None, **kw):
+                 packed_eos_id=None, batch=1, **kw):
     """runner.fit at full width with `n_layers` layers on a seeded random
     token file (bf16, B=1): an uninterrupted run with an eval at the end;
     then a run that checkpoints at steps/2 (max_to_keep=1) and a second
@@ -2311,10 +2311,12 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     EOS-delimited documents (EOS at rate 4 / seq, as make_packed_batch
     draws it) and the run trains and evaluates packed: every attention
     launch of the run is a SEG instance's.  `kw` configures the model
-    further: MOE (every MLP routed), or attn_strategy="ulysses" (with a
-    mesh: every position launches kernel 1 and the fused backward).  The
-    files live in a temporary directory under the checkout's build/,
-    deleted at the end."""
+    further: MOE (every MLP routed), attn_strategy="ulysses" (with a
+    mesh: every position launches kernel 1 and the fused backward), or
+    pp_axis="pp" with pp_microbatches (a mesh with a pp axis, `batch`
+    rows: the stacked checkpoint, each kernel launched a layer a
+    microbatch).  The files live in a temporary directory under the
+    checkout's build/, deleted at the end."""
     import os
     import tempfile
     from pathlib import Path
@@ -2327,8 +2329,10 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
 
     ulysses = kw.get("attn_strategy") == "ulysses"
-    ring = mesh is not None and not ulysses
-    pos = mesh["sp"] if ulysses else 1  # kernel launches a layer
+    ring = mesh is not None and not ulysses and mesh.get("sp", 1) > 1
+    # kernel launches a layer: a Ulysses position each, a pp microbatch each
+    pp = kw.get("pp_axis") is not None
+    pos = mesh["sp"] if ulysses else kw.get("pp_microbatches", 1)
     cfg = _train_model(n_layers, torch.bfloat16,
                        **(dict(attn_backend="fused_ring") if ring else {}),
                        **kw)
@@ -2347,7 +2351,7 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
                 toks = np.where(rng.random(size) < 4.0 / seq, packed_eos_id,
                                 np.maximum(toks, 1))
             write_token_file(path, toks)
-        kw = dict(data_path=data, batch=1, seq_len=seq, log_every=1,
+        kw = dict(data_path=data, batch=batch, seq_len=seq, log_every=1,
                   eval_data_path=held, eval_every=steps, eval_batches=2,
                   packed_eos_id=packed_eos_id)
         ck = os.path.join(tmp, "ckpt")
@@ -2389,6 +2393,7 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     print(f"runner.fit ({n_layers} layers at full width, bf16, S={seq}"
           f"{f', mesh {mesh}, fused ring' if ring else ''}"
           f"{f', mesh {mesh}, ulysses' if ulysses else ''}"
+          f"{f', B{batch}, {pos} microbatches' if pp else ''}"
           f"{f', {cfg.n_experts} experts' if cfg.n_experts else ''}"
           f"{f', packed_eos_id {packed_eos_id}' if packed_eos_id is not None else ''}): "
           f"{steps} steps in {fit_s:.1f} s, losses "
@@ -3515,14 +3520,15 @@ def _check_grads_bf16(what, got, want):
 
 
 def _bwd_bound(tables, prog, b, n, n_kv, s, d, esz, opt=True, pairs=None,
-               extra_bytes=0):
+               extra_bytes=0, wire=None):
     """(bound ms, bound_by, attended pairs) of one kernel-9 launch: the
     pairs the table's swapped-role specs attend (10 * D flops each: S, dP,
     dV, dK and dQ), or `pairs` (those a packed mask leaves); the bytes of
     q, do, k, v and the bundle's delta and lse read once, of dq, dk, dv
     (fp32) written once, of every copy the program makes: each bundle
     copy-in and send, each dq hop (read and written), and `extra_bytes`
-    (the segment ids)."""
+    (the segment ids).  With a `wire` dtype a bundle copy and a dq hop
+    move schedule.wire_round_bytes' quantized bytes."""
     from burst_attn_tpu_torch.ops import masks
     from burst_attn_tpu_torch.parallel import schedule as sched_ir
 
@@ -3538,11 +3544,16 @@ def _bwd_bound(tables, prog, b, n, n_kv, s, d, esz, opt=True, pairs=None,
     copies = w * (sum(prog.rows["send0"]) + sum(prog.rows["send1"])
                   + len(prog.copy_in))
     dq_slot = 4 * b * n * s * d
+    dq_hop = dq_slot
+    if wire is not None:
+        wr = sched_ir.wire_round_bytes("bwd", wire, b=b, n=n, n_kv=n_kv,
+                                       s=s, d=d, opt_comm=opt)
+        bundle, dq_hop = wr["bundle"], wr["dq"]
     dq_hops = w * sum(1 for r in range(prog.n_rounds)
                       if prog.rows["dq_send"][r] != sched_ir.DQ_NONE)
     n_bytes = (w * (2 * q_bytes + kv_bytes + 2 * stats)
                + w * (dq_slot + 4 * 2 * b * n_kv * s * d)
-               + 2 * copies * bundle + 2 * dq_hops * dq_slot + extra_bytes)
+               + 2 * copies * bundle + 2 * dq_hops * dq_hop + extra_bytes)
     bms, by = bound_ms(n_bytes, 10 * d * pairs)
     return bms, by, pairs
 
@@ -7667,6 +7678,579 @@ def ulysses_train_phase(device, single, ring_tr):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the pipeline-parallel model: make_train_step on a pp mesh (stages sharing
+# the card, GPipe microbatches), at the training model's full width
+
+PP_B, PP_SEQ = 4, 2048  # the single-device step's 8192 tokens, 4 rows
+PP_CASES = (  # (name, mesh, microbatches, attention backend)
+    ("pp4", {"pp": 4, "sp": 1}, 4, "auto"),
+    ("pp2 x sp2", {"pp": 2, "sp": 2}, 2, "fused_ring"),
+)
+
+
+def _pp_state(cfg, tcfg, device):
+    """(params, optimizer) of a pp model: _seed_state's seed-0 weights of
+    the regular model of the same shape, its layers stacked."""
+    import dataclasses
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import layer_keys
+
+    base = dataclasses.replace(cfg, pp_axis=None, pp_microbatches=1)
+    params, _ = _seed_state(base, tcfg, device)
+    layers = params["layers"]
+    stacked = {k: torch.stack([x[k].detach() for x in layers])
+               for k in layer_keys(layers[0])}
+    del layers
+    params = dict(params, layers=stacked)
+    for k in ("embed", "final_norm", "lm_head"):
+        params[k] = params[k].detach().requires_grad_(True)
+    for t in stacked.values():
+        t.requires_grad_(True)
+    return params, train._optimizer(params, tcfg)
+
+
+def pp_train_phase(device):
+    """make_train_step on the pipeline-parallel model at train_smoke's
+    width and depth (16 layers, bf16, remat), B=PP_B S=PP_SEQ (the
+    single-device step's 8192 tokens), the seed-0 weights and one batch:
+    one device (the control, B4 in one launch a layer), then PP_CASES:
+    pp=4 x sp=1 at 4 microbatches (kernel 1 twice and the fused backward
+    once a layer a microbatch) and pp=2 x sp=2 at 2 microbatches on the
+    fused ring (kernel 8 twice and kernel 9 once a layer a microbatch);
+    each a warm-up and TRAIN_STEPS timed steps with exact launches, losses
+    finite and falling, the first two within CONTROL_RTOL of the one
+    device's; a profiled step each (device ms, busy share); one pp=4 step
+    through the split backward (kernels 4-5); fp32 parity at 2 layers
+    against one device (pp_train_parity); runner.fit with a stacked
+    checkpoint and a resume on {"pp": 2, "sp": 2}."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import param_leaves
+
+    t0 = time.perf_counter()
+    n_layers = TRAIN_DIMS["n_layers"]
+    tcfg = train.TrainConfig()
+    base = _train_model(n_layers, torch.bfloat16)
+    tokens = PP_B * PP_SEQ
+    attn_flops = (n_layers * 3.5 * 4 * PP_SEQ * PP_SEQ * PP_B
+                  * TRAIN_DIMS["n_heads"] * TRAIN_DIMS["d_head"] / 2)
+    out = {}
+    runs = [("one device", None, 1, "auto")] + list(PP_CASES)
+    for name, mesh, m, backend in runs:
+        cfg = (base if mesh is None else dataclasses.replace(
+            base, pp_axis="pp", pp_microbatches=m, attn_backend=backend))
+        state = (_seed_state(cfg, tcfg, device) if mesh is None
+                 else _pp_state(cfg, tcfg, device))
+        batch = train.make_batch(1, cfg, mesh, batch=PP_B, seq=PP_SEQ,
+                                 device=device)
+        step = train.make_train_step(cfg, tcfg, mesh, device=device)
+        obs0 = _obs_now()
+        losses, times = [], []
+        for i in range(1 + TRAIN_STEPS):
+            if i == 1:
+                _reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        launches = _counts()
+        per = n_layers * m  # a layer a microbatch
+        per_step = ({"fused_ring_fwd": 2 * per, "fused_ring_bwd": per}
+                    if backend == "fused_ring"
+                    else {"flash_fwd": 2 * per, "fused": per})
+        want = _launches(**{k: v * TRAIN_STEPS for k, v in per_step.items()})
+        assert launches == want, (name, launches, want)
+        assert not any(key.startswith("burst.fused_fallback")
+                       for key in _obs_since(obs0)), dict(_obs_since(obs0))
+        assert all(map(math.isfinite, losses)), (name, losses)
+        assert losses[-1] < losses[0], f"{name}: loss did not fall: {losses}"
+        if mesh is not None:
+            one = out["one device"]["losses"]
+            diffs = [abs(a - b) / abs(b) for a, b in zip(losses, one)]
+            assert max(diffs[:2]) <= CONTROL_RTOL, (name, losses, one)
+        else:
+            diffs = [0.0, 0.0]
+            n_params = sum(t.numel() for t in param_leaves(state[0]))
+        step_ms = statistics.median(times[1:])
+        prof = device_breakdown(lambda: step(state, batch), 1, top=8)
+        flops = 6.0 * n_params * tokens + attn_flops
+        res = dict(mesh=mesh, microbatches=m, step_ms=step_ms,
+                   step_ms_all=times[1:], losses=losses,
+                   rel_diff_vs_one_device=diffs[:2],
+                   tokens_per_s=tokens / (step_ms / 1e3),
+                   mfu=flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+                   launches=launches, launches_per_step=per_step,
+                   profiled_step_ms=prof[0], device_ms=prof[1],
+                   busy=prof[1] / prof[0])
+        if name == "pp4":  # one step through the split backward
+            with split_train_backward():
+                _reset_counts()
+                _, met = step(state, batch)
+                split_loss = float(met["loss"])
+                split_launches = _counts()
+            want = _launches(flash_fwd=2 * per, dq=per, dkdv=per)
+            assert split_launches == want, (split_launches, want)
+            assert math.isfinite(split_loss)
+            res.update(split_launches=split_launches, split_loss=split_loss)
+        out[name] = res
+        print(f"pp train step ({name}, mesh {mesh}, {m} microbatches, "
+              f"{backend}, bf16, B={PP_B} S={PP_SEQ}, {n_layers} layers): "
+              f"{step_ms:.1f} ms (median of {TRAIN_STEPS}: "
+              f"{[round(t_, 1) for t_ in times[1:]]}), "
+              f"{res['tokens_per_s']:.0f} tokens/s, MFU {res['mfu']:.4f}; "
+              f"losses {[round(x, 4) for x in losses]} (one-device rel "
+              f"diffs {[float(f'{x:.2e}') for x in diffs[:2]]}); launches "
+              f"per step {per_step}", flush=True)
+        print_profile(f"pp train step, {name}", prof)
+        del state, batch, step
+        torch.cuda.empty_cache()
+    out["parity"] = pp_train_parity(device)
+    out["fit"] = runner_phase(device, mesh={"pp": 2, "sp": 2}, batch=2,
+                              pp_axis="pp", pp_microbatches=2)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def pp_train_parity(device, n_layers=2, seq=2048, b=2):
+    """One step's loss and gradients at full width, fp32, B2 S2048: the pp
+    model at 2 microbatches on {"pp": 2, "sp": 1} (kernel 1, the fused
+    backward) and on {"pp": 2, "sp": 2} through the fused ring (kernels 8
+    and 9), each against the single-device kernels on the same weights
+    and tokens: loss within LOSS_RTOL, every gradient within GRAD_RTOL of
+    its largest entry."""
+    import dataclasses
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.pipeline_lm import stack_layers
+    from burst_attn_tpu_torch.models.transformer import (
+        init_params, layer_keys, param_leaves,
+    )
+
+    base = _train_model(n_layers, torch.float32)
+    params = init_params(base, seed=0, device=device)
+
+    def loss_grads(cfg, mesh, p):
+        leaves = list(param_leaves(p))
+        for t in leaves:
+            t.requires_grad_(True)
+        batch = train.make_batch(2, cfg, mesh, batch=b, seq=seq,
+                                 device=device)
+        loss = train.loss_fn(p, batch["tokens"], batch["positions"],
+                             batch["labels"], cfg, mesh)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    loss_1, grads_1 = loss_grads(base, None, params)
+    # the regular leaves by layer, stacked per key as the pp leaves are
+    keys = layer_keys(params["layers"][0])
+    per_layer = grads_1[1:-2]
+    want = ([grads_1[0]]
+            + [torch.stack(per_layer[j::len(keys)]) for j in range(len(keys))]
+            + list(grads_1[-2:]))
+    names = ["embed"] + [f"layers.{k}" for k in keys] + ["final_norm",
+                                                         "lm_head"]
+    stacked = dict(params, layers=stack_layers(
+        [{k: t.detach() for k, t in x.items()} for x in params["layers"]]))
+    res = {}
+    for name, mesh, backend in (("pp2", {"pp": 2, "sp": 1}, "auto"),
+                                ("pp2 x sp2", {"pp": 2, "sp": 2},
+                                 "fused_ring")):
+        cfg = dataclasses.replace(base, pp_axis="pp", pp_microbatches=2,
+                                  attn_backend=backend)
+        p = {k: (v.detach().clone() if k != "layers" else
+                 {kk: t.detach().clone() for kk, t in v.items()})
+             for k, v in stacked.items()}
+        _reset_counts()
+        loss_p, grads_p = loss_grads(cfg, mesh, p)
+        launches = _counts()
+        loss_err = abs(loss_p - loss_1) / abs(loss_1)
+        assert loss_err <= LOSS_RTOL, (name, loss_p, loss_1)
+        worst = (0.0, "")
+        for nm, a, w_ in zip(names, grads_p, want):
+            ref = float(w_.abs().max())
+            err = _max_err(a, w_)
+            assert err <= GRAD_RTOL * ref + 1e-12, \
+                f"pp {name} gradient {nm}: {err:.3e} of max {ref:.3e}"
+            worst = max(worst, (err / max(ref, 1e-30), nm))
+        print(f"pp train parity fp32 ({name}, mesh {mesh}, 2 microbatches, "
+              f"{n_layers} layers at full width, B{b} S={seq}): loss "
+              f"{loss_p:.6f} vs {loss_1:.6f} (one device), rel err "
+              f"{loss_err:.2e}; worst gradient error {worst[0]:.2e} of its "
+              f"largest entry ({worst[1]}); launches {launches}", flush=True)
+        res[name] = dict(loss_rel_err=loss_err, grad_rel_err=worst[0],
+                         grad_worst=worst[1])
+    del params, stacked
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# int8 / fp8 ring payloads (wire_dtype): kernels 8 and 9's WIRE instances
+
+WIRE_DTYPES = ("int8", "fp8")
+# tests/test_wire_quant.py's tolerances against the dense ring (l.48-49)
+WIRE_TOL_FWD = {"int8": 0.04, "fp8": 0.2}
+WIRE_TOL_GRAD = {"int8": 0.25, "fp8": 1.5}
+# kernel 9 against its plain version under a wire dtype.  The wrapper
+# quantizes the bundle once, so both read the same codes: dk and dv differ
+# by summation order alone and are held to BWD_RTOL, as the dense
+# instances.  dq's partial is re-quantized per 64-row q tile at every hop,
+# and the two sum it in another order, so a code can flip at a rounding
+# boundary: each q tile of dq within WIRE_DQ_CODES codes of that tile's
+# own scale, one code being the step at the tile's largest entry (1/127
+# of it for int8; 32/448 for fp8, e4m3's spacing at the top of its range;
+# tests/test_torch_cuda.py holds the same)
+WIRE_DQ_STEP = {"int8": 1 / 127, "fp8": 32 / 448}
+# the largest readings on an H100 (the card tests and the smoke): 2.0 codes
+# int8 (two hops each flipping one), 1.5 fp8; the limit about twice that
+WIRE_DQ_CODES = {"int8": 4, "fp8": 3}
+
+
+def _wire_bwd_errs(got, want, wire, what):
+    """Assert kernel 9's WIRE (dq, dk, dv) match the plain ones: dk, dv
+    within BWD_RTOL (_bwd_errs), dq per 64-row q tile within
+    WIRE_DQ_CODES codes of the tile's scale + BWD_ATOL.  Returns (the
+    three max-abs errors, dq's largest tile error in codes)."""
+    import torch
+
+    errs = [_max_err(got[0], want[0])] + _bwd_errs(
+        got[1:], want[1:], what)[:2]
+    s = want[0].shape[-2]
+    nqt = -(-s // 64)
+    err = (got[0].float() - want[0].float()).abs()
+    ref = want[0].float().abs()
+    if nqt * 64 != s:
+        err, ref = (torch.nn.functional.pad(t, (0, 0, 0, nqt * 64 - s))
+                    for t in (err, ref))
+    err, ref = (t.unflatten(-2, (nqt, 64)).amax((-2, -1))
+                for t in (err, ref))
+    step = WIRE_DQ_STEP[wire] * ref
+    codes = float((err / step.clamp_min(1e-30)).max())
+    bad = int((err > WIRE_DQ_CODES[wire] * step + BWD_ATOL).sum())
+    assert not bad, (f"{what} dq: {bad} q tiles beyond "
+                     f"{WIRE_DQ_CODES[wire]} codes of their scale (largest "
+                     f"{codes:.2f} codes)")
+    return errs, codes
+
+
+def _wire_k8_bound(cfg, ring, q, k, lse, pairs, wire):
+    """(bound ms, bound_by) of one kernel-8 launch with a wire dtype: q, k,
+    v, o (bf16) and lse once, 4 D flops a pair, and every program copy
+    (copy-in and sends) of the quantized K+V chunk, read and written."""
+    from burst_attn_tpu_torch.ops import fused_ring
+    from burst_attn_tpu_torch.parallel import schedule as sched_ir
+
+    w, b, n, s, d = q.shape
+    fprog = fused_ring.ring_plan(cfg, *ring, s, "fwd")[0]
+    copies = w * (sum(fprog.rows["send0"]) + sum(fprog.rows["send1"])
+                  + len(fprog.copy_in))
+    chunk = sched_ir.wire_round_bytes("fwd", wire, b=b, n=n,
+                                      n_kv=k.shape[2], s=s, d=d)["kv"]
+    n_bytes = (2 * 2 * q.numel() + 2 * 2 * k.numel() + 4 * lse.numel()
+               + 2 * copies * chunk)
+    return bound_ms(n_bytes, 4 * d * pairs)
+
+
+def wire_phase(device):
+    """burst_attn(wire_dtype=) on kernels 8 and 9's WIRE instances at the
+    ring train step's shape (B1 N16/16 S_local 2048 D128 bf16, sp=4,
+    zigzag), int8 and fp8: the fused route (one launch each, no fallback)
+    against the scan ring with the same wire (the forward at the bf16
+    O_TOL, the gradients within WIRE_TOL_GRAD) and against the dense fused
+    route (WIRE_TOL_FWD / WIRE_TOL_GRAD); each kernel against its own
+    plain version (kernel 8 at O_TOL: its dequantized tiles are the plain
+    version's; kernel 9's dk, dv within BWD_RTOL and dq within
+    WIRE_DQ_CODES codes of each q tile's scale, by head chunks); the
+    STATS instance's slot counts equal to the dense run's and quant_absmax
+    the positions' max |k|, |v|; the time of a launch of each beside the
+    dense launch in turns (dense, int8, fp8, fp8, int8, dense), registers
+    and spills, the bound from the quantized schedule.wire_round_bytes.  Then one windowed contig launch pair (the
+    windowed ring step's shape, int8) against the scan ring, and one int8
+    forward + backward at bench.py's headline shape (B1 N32 S65536 D128,
+    sp=8) beside the dense call.  Returns (the kernels-line records
+    fused_ring_fwd[wire int8|fp8], fused_ring_bwd[wire int8|fp8], the
+    phase's numbers)."""
+    import dataclasses
+
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd, masks
+    from burst_attn_tpu_torch.parallel import burst, layouts, mesh
+
+    t_phase = time.perf_counter()
+    bf16, d = torch.bfloat16, 128
+    w, n = RING_TRAIN_SP, TRAIN_DIMS["n_heads"]
+    n_kv, S = TRAIN_DIMS["n_kv_heads"], TRAIN_SEQ
+    s = S // w
+    g = torch.Generator(device=device).manual_seed(41)
+    q, k, v, do = (layouts.to_layout(
+        torch.randn(1, h, S, d, generator=g, device=device).to(bf16),
+        "zigzag", w, 2) for h in (n, n_kv, n_kv, n))
+    kw = dict(mesh={"sp": w}, causal=True, layout="zigzag")
+    main_launches = {("fwd", x): 0 for x in WIRE_DTYPES}
+    main_launches.update({("bwd", x): 0 for x in WIRE_DTYPES})
+
+    def fwd_bwd(backend, wire, qq=q, kk=k, vv=v, dd=do, **extra):
+        """(o, grads) of burst_attn; a fused call with a wire dtype counts
+        its launches as the phase's main-path launches."""
+        n8 = fused_ring.fused_ring_fwd.wire_launches
+        n9 = fused_ring_bwd.fused_ring_bwd.wire_launches
+        leaves = [t.detach().requires_grad_() for t in (qq, kk, vv)]
+        o = burst.burst_attn(*leaves, backend=backend, wire_dtype=wire,
+                             **dict(kw, **extra))
+        grads = torch.autograd.grad(o, leaves, dd)
+        torch.cuda.synchronize()
+        if wire is not None and backend == "fused_ring":
+            main_launches["fwd", wire] += (
+                fused_ring.fused_ring_fwd.wire_launches - n8)
+            main_launches["bwd", wire] += (
+                fused_ring_bwd.fused_ring_bwd.wire_launches - n9)
+        return o.detach(), grads
+
+    res = {}
+    o_d, g_d = fwd_bwd("fused_ring", None)
+    cfgs = {x: burst.BurstConfig(causal=True, layout="zigzag",
+                                 backend="fused_ring", wire_dtype=x)
+            for x in (None,) + WIRE_DTYPES}
+    qs, ks, vs, dos = (mesh.shard(t, w) for t in (q, k, v, do))
+    prog, tables, _ = fused_ring.ring_plan(cfgs["int8"], 1, w, s, "bwd")
+    fprog, ftables, _ = fused_ring.ring_plan(cfgs["int8"], 1, w, s, "fwd")
+    pairs = n * sum(masks.spec_pair_count(
+        masks.MaskSpec(*map(int, tb[r, :5])), s, s)
+        for tb in ftables for r in range(fprog.n_rounds))
+    for wire in WIRE_DTYPES:
+        obs0 = _obs_now()
+        _reset_counts()
+        o_f, g_f = fwd_bwd("fused_ring", wire)
+        assert _counts() == _launches(fused_ring_fwd=1, fused_ring_bwd=1), \
+            _counts()
+        o_s, g_s = fwd_bwd("auto", wire)
+        assert not any(x.startswith("burst.fused_fallback")
+                       for x in _obs_since(obs0)), dict(_obs_since(obs0))
+        r = {"fwd_vs_scan": _check_o(f"wire {wire} kernel 8 vs the scan ring",
+                                     o_f, o_s, bf16),
+             "fwd_vs_dense": _max_err(o_f, o_d),
+             "grad_vs_scan": [_max_err(a, b) for a, b in zip(g_f, g_s)],
+             "grad_vs_dense": [_max_err(a, b) for a, b in zip(g_f, g_d)]}
+        assert r["fwd_vs_dense"] < WIRE_TOL_FWD[wire], r
+        assert max(r["grad_vs_scan"]) < WIRE_TOL_GRAD[wire], r
+        assert max(r["grad_vs_dense"]) < WIRE_TOL_GRAD[wire], r
+        del o_s, g_s, g_f
+        # each kernel against its own plain version
+        cfg = cfgs[wire]
+        o8, lse8 = fused_ring.fused_ring_fwd(qs, ks, vs, cfg, 1, w)
+        assert torch.equal(mesh.unshard(o8), o_f), \
+            "kernel 8 alone differs from burst_attn's wire forward"
+        t0 = time.perf_counter()
+        po, plse = fused_ring.fused_ring_reference(
+            qs, ks, vs, fprog, ftables, d ** -0.5, wire=wire)
+        torch.cuda.synchronize()
+        r["plain_fwd_ms"] = (time.perf_counter() - t0) * 1e3
+        r["k8_vs_plain"] = _check_o(f"wire {wire} kernel 8 vs its plain "
+                                    "version", o8, po, bf16)
+        r["k8_lse_vs_plain"] = _max_err(lse8, plse)
+        assert r["k8_lse_vs_plain"] <= STATS_ATOL["bf16"], r
+        del po, plse
+        got = fused_ring_bwd.fused_ring_bwd(qs, ks, vs, o8, lse8, dos, cfg,
+                                            1, w)
+        t0 = time.perf_counter()
+        want = fused_ring_bwd.fused_ring_bwd_reference(
+            qs, ks, vs, o8, lse8, dos, prog, tables, d ** -0.5,
+            head_chunk=4, wire=wire)
+        torch.cuda.synchronize()
+        r["plain_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+        r["k9_vs_plain"], r["k9_dq_codes"] = _wire_bwd_errs(
+            got, want, wire, f"wire {wire} kernel 9 vs its plain version")
+        del got, want
+        # slot counts and quant_absmax (the STATS instance)
+        _, st = burst.burst_attn(q, k, v, backend="fused_ring",
+                                 wire_dtype=wire, collect_stats=True, **kw)
+        _, st0 = burst.burst_attn(q, k, v, backend="fused_ring",
+                                  collect_stats=True, **kw)
+        assert torch.equal(st.slot_use, st0.slot_use), (st.slot_use,
+                                                        st0.slot_use)
+        want_qam = torch.maximum(ks.float().abs().flatten(1).amax(1),
+                                 vs.float().abs().flatten(1).amax(1))
+        assert torch.equal(st.quant_absmax, want_qam), (st.quant_absmax,
+                                                        want_qam)
+        assert float(st0.quant_absmax.abs().max()) == 0.0
+        r["slot_use"] = st.slot_use.tolist()
+        r["quant_absmax"] = st.quant_absmax.tolist()
+        res[wire] = r
+        del o8, lse8, o_f
+        torch.cuda.empty_cache()
+        print(f"wire {wire} at the ring train step's shape (W={w} B1 "
+              f"N{n}/{n_kv} S_local {s} bf16 zigzag): kernel 8 vs the scan "
+              f"ring with {wire} {r['fwd_vs_scan']:.3e}, vs its plain version "
+              f"{r['k8_vs_plain']:.3e} (lse {r['k8_lse_vs_plain']:.3e}), vs "
+              f"the dense ring {r['fwd_vs_dense']:.3e}; gradients vs the scan "
+              f"ring {[float(f'{x:.3e}') for x in r['grad_vs_scan']]}, "
+              f"kernel 9 vs its plain version "
+              f"{[float(f'{x:.3e}') for x in r['k9_vs_plain']]} (dq "
+              f"{r['k9_dq_codes']:.2f} codes of its q tile's scale at the "
+              f"worst tile), vs the dense "
+              f"ring {[float(f'{x:.3e}') for x in r['grad_vs_dense']]}; "
+              f"slot_use equal to the dense run's; quant_absmax "
+              f"{max(r['quant_absmax']):.4f}", flush=True)
+    del o_d, g_d
+    # a launch of each in turns, beside the dense launch
+    o_by, lse_by = {}, {}
+    for x in (None,) + WIRE_DTYPES:
+        o_by[x], lse_by[x] = fused_ring.fused_ring_fwd(qs, ks, vs, cfgs[x],
+                                                       1, w)
+    turns = {(kern, x): [] for kern in ("k8", "k9")
+             for x in (None,) + WIRE_DTYPES}
+    for x in (None, "int8", "fp8", "fp8", "int8", None):
+        turns["k8", x].append(time_ms(lambda: fused_ring.fused_ring_fwd(
+            qs, ks, vs, cfgs[x], 1, w), iters=10, warmup=2))
+        turns["k9", x].append(time_ms(lambda: fused_ring_bwd.fused_ring_bwd(
+            qs, ks, vs, o_by[x], lse_by[x], dos, cfgs[x], 1, w), iters=10,
+            warmup=2))
+    ms = {key: sum(v_) / len(v_) for key, v_ in turns.items()}
+    attrs = {"k8": {a["instance"]: a for a in
+                    fused_ring.fwd_attrs(wire=True)
+                    + fused_ring.fwd_attrs(stats=True, wire=True)
+                    + fused_ring.fwd_attrs(win=True, wire=True)
+                    + fused_ring.fwd_attrs(stats=True, win=True, wire=True)},
+             "k9": {a["instance"]: a for a in
+                    fused_ring_bwd.bwd_attrs(wire=True)
+                    + fused_ring_bwd.bwd_attrs(win=True, wire=True)}}
+    for kern, rows in attrs.items():
+        for a in rows.values():
+            assert 0 < a["regs"] <= 255 and a["ctas"] >= 1, (kern, a)
+            print(f"{'fused_ring_fwd' if kern == 'k8' else 'fused_ring_bwd'}"
+                  f" {a['instance']}: {a['regs']} registers, "
+                  f"{a['local_bytes']} local (spill) bytes a thread, "
+                  f"{a['smem']} B of shared memory, {a['ctas']} CTAs "
+                  f"resident", flush=True)
+    bounds = {}
+    for x in WIRE_DTYPES:
+        bounds["k8", x] = _wire_k8_bound(cfgs[x], (1, w), qs, ks,
+                                         lse_by[x], pairs, x)
+        bounds["k9", x] = _bwd_bound(tables, prog, 1, n, n_kv, s, d, 2,
+                                     wire=x)[:2]
+    del o_by, lse_by
+    torch.cuda.empty_cache()
+    print(f"wire kernels at the ring train step's shape, ms a launch (turns "
+          f"dense int8 fp8 fp8 int8 dense, mean of 10 each): kernel 8 dense "
+          f"{ms['k8', None]:.4f}, int8 {ms['k8', 'int8']:.4f}, fp8 "
+          f"{ms['k8', 'fp8']:.4f}; kernel 9 dense {ms['k9', None]:.4f}, int8 "
+          f"{ms['k9', 'int8']:.4f}, fp8 {ms['k9', 'fp8']:.4f}; bounds int8 "
+          f"{bounds['k8', 'int8'][0]:.4f} ({bounds['k8', 'int8'][1]}) / "
+          f"{bounds['k9', 'int8'][0]:.4f} ({bounds['k9', 'int8'][1]}) ms",
+          flush=True)
+
+    # one windowed contig launch pair: the windowed ring step's shape
+    wg = torch.Generator(device=device).manual_seed(43)
+    wq, wk, wv, wdo = (torch.randn(1, h, S, d, generator=wg,
+                                   device=device).to(bf16)
+                       for h in (n, n_kv, n_kv, n))
+    win = dict(layout="contig", window=TRAIN_WINDOW)
+    o_wf, g_wf = fwd_bwd("fused_ring", "int8", wq, wk, wv, wdo, **win)
+    o_ws, g_ws = fwd_bwd("auto", "int8", wq, wk, wv, wdo, **win)
+    o_wd, g_wd = fwd_bwd("fused_ring", None, wq, wk, wv, wdo, **win)
+    res["window"] = {
+        "fwd_vs_scan": _check_o("wire int8 windowed kernel 8 vs the scan ring",
+                                o_wf, o_ws, bf16),
+        "grad_vs_scan": [_max_err(a, b) for a, b in zip(g_wf, g_ws)],
+        "fwd_vs_dense": _max_err(o_wf, o_wd),
+        "grad_vs_dense": [_max_err(a, b) for a, b in zip(g_wf, g_wd)]}
+    assert max(res["window"]["grad_vs_scan"]) < WIRE_TOL_GRAD["int8"]
+    assert res["window"]["fwd_vs_dense"] < WIRE_TOL_FWD["int8"]
+    assert max(res["window"]["grad_vs_dense"]) < WIRE_TOL_GRAD["int8"]
+    wcfg = dataclasses.replace(cfgs["int8"], layout="contig",
+                               window=TRAIN_WINDOW)
+    wqs, wks, wvs, wdos = (mesh.shard(t, w) for t in (wq, wk, wv, wdo))
+    wo, wl = fused_ring.fused_ring_fwd(wqs, wks, wvs, wcfg, 1, w)
+    res["window"]["k8_ms"] = time_ms(lambda: fused_ring.fused_ring_fwd(
+        wqs, wks, wvs, wcfg, 1, w), iters=10, warmup=2)
+    res["window"]["k9_ms"] = time_ms(lambda: fused_ring_bwd.fused_ring_bwd(
+        wqs, wks, wvs, wo, wl, wdos, wcfg, 1, w), iters=10, warmup=2)
+    print(f"wire int8 windowed contig ring (W={w} N{n}/{n_kv} S_local {s} "
+          f"window {TRAIN_WINDOW}): kernel 8 vs the scan ring "
+          f"{res['window']['fwd_vs_scan']:.3e}, gradients "
+          f"{[float(f'{x:.3e}') for x in res['window']['grad_vs_scan']]}; "
+          f"vs the dense windowed ring {res['window']['fwd_vs_dense']:.3e} / "
+          f"{[float(f'{x:.3e}') for x in res['window']['grad_vs_dense']]}; "
+          f"ms a launch: kernel 8 {res['window']['k8_ms']:.4f}, kernel 9 "
+          f"{res['window']['k9_ms']:.4f}", flush=True)
+    del wq, wk, wv, wdo, wqs, wks, wvs, wdos, wo, wl, o_wf, g_wf, o_ws
+    del g_ws, o_wd, g_wd, q, k, v, do, qs, ks, vs, dos
+    torch.cuda.empty_cache()
+
+    # the headline shape: one int8 forward + backward beside the dense one
+    b, hn, hs, hw = RING_B, RING_N, RING_S, RING_W
+    hg = torch.Generator(device=device).manual_seed(47)
+    hq, hk, hv, hdo = (layouts.to_layout(
+        torch.randn(b, hn, hs, d, generator=hg, device=device).to(bf16),
+        "zigzag", hw, 2) for _ in range(4))
+    kw = dict(mesh={"sp": hw}, causal=True, layout="zigzag")
+    o_i, g_i = fwd_bwd("fused_ring", "int8", hq, hk, hv, hdo)
+    o_h, g_h = fwd_bwd("fused_ring", None, hq, hk, hv, hdo)
+    head = {"fwd_vs_dense": _max_err(o_i, o_h),
+            "grad_vs_dense": [_max_err(a, b_) for a, b_ in zip(g_i, g_h)]}
+    assert head["fwd_vs_dense"] < WIRE_TOL_FWD["int8"], head
+    assert max(head["grad_vs_dense"]) < WIRE_TOL_GRAD["int8"], head
+    del o_i, g_i, o_h, g_h
+    head["dense_ms"] = time_ms(lambda: fwd_bwd("fused_ring", None, hq, hk,
+                                               hv, hdo), iters=1, warmup=0)
+    head["int8_ms"] = time_ms(lambda: fwd_bwd("fused_ring", "int8", hq, hk,
+                                              hv, hdo), iters=1, warmup=0)
+    res["headline"] = head
+    print(f"wire int8 burst_attn forward + backward at B{b} N{hn} S{hs} D{d} "
+          f"bf16 causal zigzag, mesh {{'sp': {hw}}}: {head['int8_ms']:.2f} ms "
+          f"(dense {head['dense_ms']:.2f} ms in the same run); vs the dense "
+          f"ring {head['fwd_vs_dense']:.3e} / "
+          f"{[float(f'{x:.3e}') for x in head['grad_vs_dense']]}", flush=True)
+    del hq, hk, hv, hdo
+    torch.cuda.empty_cache()
+
+    recs = []
+    for kern, name, src, rep_ in (
+            ("k8", "fused_ring_fwd", "fused_ring_fwd.cu",
+             "burst_attn_tpu/ops/fused_ring.py:1049 (_fused_fwd_kernel, "
+             "wire: l.678-690, l.931-937)"),
+            ("k9", "fused_ring_bwd", "fused_ring_bwd.cu",
+             "burst_attn_tpu/ops/fused_ring_bwd.py:1087 (_fused_bwd_kernel, "
+             "_wire_quant_tile: l.110-120, l.608-625)")):
+        for x in WIRE_DTYPES:
+            r = res[x]
+            err = (max(r["fwd_vs_scan"], r["k8_vs_plain"]) if kern == "k8"
+                   else max(r["k9_vs_plain"]))
+            recs.append(dict(
+                name=f"{name}[wire {x}]", route="cuda",
+                source=f"burst_attn_tpu_torch/csrc/{src}", replaces=rep_,
+                launches=main_launches["fwd" if kern == "k8" else "bwd", x],
+                max_abs_err=err, ms=ms[kern, x],
+                plain_ms=r["plain_fwd_ms" if kern == "k8"
+                           else "plain_bwd_ms"],
+                bound_ms=bounds[kern, x][0], bound_by=bounds[kern, x][1],
+                library_ms=None,
+                wire={"shape": f"W={w} B1 N{n}/{n_kv} S_local {s} D{d} bf16 "
+                               "zigzag (the ring train step's)",
+                      "ms_dense": ms[kern, None],
+                      "turns_ms": turns[kern, x],
+                      "turns_ms_dense": turns[kern, None],
+                      "attrs": [a for a in attrs[kern].values()
+                                if " win" not in a["instance"]
+                                and " stats" not in a["instance"]]}))
+    res["main_launches"] = {f"{p_} {x}": c
+                            for (p_, x), c in main_launches.items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    return recs, res
+
+
 def _mark(t_start, what):
     """Print the seconds since the smoke started, after `what`."""
     print(f"[{time.perf_counter() - t_start:.1f} s] {what} done", flush=True)
@@ -7966,10 +8550,14 @@ def main() -> int:
     uly = ulysses_train_phase(device, tr, ring_tr)
     uly_rows = ulysses_rows(device)
     _mark(t_start, "ulysses train phase")
+    pp_res = pp_train_phase(device)
+    _mark(t_start, "pp train phase")
     _SEED_PARAMS.clear()  # the training model's seed-0 weights
     torch.cuda.empty_cache()
     moe_tr = moe_train_phase(device)
     _mark(t_start, "moe train phase")
+    wire_recs, wire_res = wire_phase(device)
+    _mark(t_start, "wire phase")
     parity = train_parity(device)
     ring_parity = ring_train_parity(device)
     fit_res = runner_phase(device)
@@ -8060,9 +8648,31 @@ def main() -> int:
         launches[name] += n
     launches["flash_fwd[ulysses]"] = uly["launches"]["flash_fwd"]
     launches["flash_bwd_fused[ulysses]"] = uly["launches"]["fused"]
-    for rec in seg_recs + win_recs + uly_rows:
+    # the pipeline-parallel model: the pp=4 steps (kernel 1 and the fused
+    # backward, its split step kernels 4-5), the pp=2 x sp=2 steps and fit
+    # on the fused ring (kernels 8-9)
+    pp4, pp22, ppfit = (pp_res["pp4"], pp_res["pp2 x sp2"],
+                        pp_res["fit"]["launches"])
+    pp_launches = {
+        "flash_fwd": pp4["launches"]["flash_fwd"]
+        + pp4["split_launches"]["flash_fwd"],
+        "flash_bwd_fused": pp4["launches"]["fused"],
+        "flash_bwd_dq": pp4["split_launches"]["dq"],
+        "flash_bwd_dkdv": pp4["split_launches"]["dkdv"],
+        "fused_ring_fwd": pp22["launches"]["fused_ring_fwd"]
+        + ppfit["fused_ring_fwd"],
+        "fused_ring_bwd": pp22["launches"]["fused_ring_bwd"]
+        + ppfit["fused_ring_bwd"]}
+    for name, n in pp_launches.items():
+        assert n > 0, pp_launches
+        launches[name] += n
+    # the wire phase's burst_attn calls on the fused route
+    for rec in wire_recs:
+        launches[rec["name"]] = rec["launches"]
+    for rec in seg_recs + win_recs + uly_rows + wire_recs:
         assert launches[rec["name"]] > 0, (rec["name"], launches)
-    kernels += window_recs + [suffix_rec] + seg_recs + win_recs + uly_rows
+    kernels += (window_recs + [suffix_rec] + seg_recs + win_recs + uly_rows
+                + wire_recs)
     kernels[2]["pipelined_launches"] = pipe["launches"]
     assert pipe["launches"] > 0
     # the speculative phase's bf16 early-exit runs of both engines
@@ -8097,6 +8707,8 @@ def main() -> int:
             rec["checkpoint_launches"] = ckpt_launches[rec["name"]]
         if rec["name"] in moe_launches:
             rec["moe_launches"] = moe_launches[rec["name"]]
+        if rec["name"] in pp_launches:
+            rec["pp_launches"] = pp_launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     wall, dev, _ = tr["prof"]
@@ -8127,8 +8739,8 @@ def main() -> int:
                                          "pipelined_launches", "spec_verify",
                                          "speculative_launches",
                                          "checkpoint_launches",
-                                         "moe_launches", "stats",
-                                         "seg", "window")
+                                         "moe_launches", "pp_launches",
+                                         "stats", "seg", "window", "wire")
                        if k in r}
                     for r in kernels],
         "card": card,
@@ -8174,6 +8786,8 @@ def main() -> int:
         | {"profiled_step_ms": moe_tr["prof"][0],
            "device_ms": moe_tr["prof"][1]},
         "ulysses_train": uly,
+        "pp_train": pp_res,
+        "wire": wire_res,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

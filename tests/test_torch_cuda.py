@@ -2711,3 +2711,249 @@ def test_moe_and_ulysses_train_step_on_the_card_matches_the_cpu(dev, kw,
     (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
     np.testing.assert_allclose(mg, mc, rtol=1e-5)
     _close_to_max(gg, gc)
+
+
+# -- int8 / fp8 ring payloads (wire_dtype): kernels 8 and 9's WIRE
+# instances -----------------------------------------------------------------
+
+# tests/test_wire_quant.py's tolerances against the dense ring
+WIRE_TOL_FWD = {"int8": 0.04, "fp8": 0.2}
+WIRE_TOL_GRAD = {"int8": 0.25, "fp8": 1.5}
+# kernel 9 against its plain version under a wire dtype.  The wrapper
+# quantizes the bundle once, so both read the same codes: dk and dv differ
+# by summation order alone (_close_to_max's BWD_RTOL, as the dense
+# instances).  dq's partial is re-quantized per 64-row q tile at every
+# hop, and the two sum it in another order, so a code can flip at a
+# rounding boundary: each q tile within WIRE_DQ_CODES codes of its own
+# scale, one code being the step at the tile's largest entry (1/127 of it
+# for int8; 32/448 for fp8, e4m3's spacing at the top of its range), as
+# chip_smoke holds it
+WIRE_DQ_STEP = {"int8": 1 / 127, "fp8": 32 / 448}
+# the largest readings on an H100 (the card tests and the smoke): 2.0 codes
+# int8 (two hops each flipping one), 1.5 fp8; the limit about twice that
+WIRE_DQ_CODES = {"int8": 4, "fp8": 3}
+
+
+def _wire_dq_close(got, want, wire):
+    """dq [..., S, D] within WIRE_DQ_CODES codes of each 64-row q tile's
+    scale (+ 1e-6)."""
+    s = want.shape[-2]
+    nqt = -(-s // 64)
+    err = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    if nqt * 64 != s:
+        err, ref = (torch.nn.functional.pad(t, (0, 0, 0, nqt * 64 - s))
+                    for t in (err, ref))
+    err, ref = (t.unflatten(-2, (nqt, 64)).amax((-2, -1))
+                for t in (err, ref))
+    step = WIRE_DQ_STEP[wire] * ref
+    codes = float((err / step.clamp_min(1e-30)).max())
+    print(f"{wire} dq: {codes:.3f} codes of its q tile's scale at the worst "
+          "tile")
+    assert (err <= WIRE_DQ_CODES[wire] * step + 1e-6).all(), \
+        f"dq beyond {WIRE_DQ_CODES[wire]} codes of a q tile's scale: " \
+        f"{codes:.2f}"
+WIRE_CASES = [
+    # (positions, layout, causal, heads, kv heads, local S, dtype, knobs)
+    (4, "zigzag", True, 4, 2, 256, torch.bfloat16, {}),
+    (4, "zigzag", True, 4, 2, 256, torch.float32,
+     dict(optimize_bwd_comm=False)),
+    (4, "striped", True, 4, 4, 256, torch.bfloat16,
+     dict(fused_topology="bidi")),
+    (4, "zigzag", True, 4, 2, 256, torch.bfloat16,
+     dict(fused_seq_factor=(2, 2))),
+    (4, "contig", True, 4, 2, 256, torch.bfloat16, dict(window=300)),
+    (4, "zigzag", True, 8, 2, 256, torch.bfloat16,
+     dict(optimize_bwd_comm=False)),
+    # more tiles than resident CTAs: the scratch state, dk / dv in memory
+    (8, "zigzag", True, 16, 4, 1024, torch.bfloat16, {}),
+]
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("w,layout,causal,n,n_kv,s,dtype,knobs", WIRE_CASES)
+def test_fused_ring_wire_kernels_match_plain(dev, w, layout, causal, n, n_kv,
+                                             s, dtype, knobs, wire):
+    """Kernels 8 and 9's WIRE instances against their plain versions with
+    the same wire dtype (kernel 8 at the dense tolerance: its dequantized
+    tiles are the plain version's bit for bit; kernel 9's dk, dv at the
+    dense tolerance and dq within WIRE_DQ_CODES codes of each q tile's
+    scale), two launches equal, one WIRE
+    launch each counted; and against the dense kernels within
+    tests/test_wire_quant.py's tolerances."""
+    knobs = dict(knobs, wire_dtype=wire)
+    cfg, ring, (q, k, v, o, lse, do), prog, tables = _ring_bwd_case(
+        dev, w, layout, causal, n, n_kv, s, dtype, knobs)
+    fprog, ftables, _ = fused_ring.ring_plan(cfg, *ring, s, "fwd")
+    ro, rlse = fused_ring.fused_ring_reference(
+        q, k, v, fprog, ftables, 128 ** -0.5, window=cfg.window, wire=wire)
+    torch.testing.assert_close(o, ro, **TOL[dtype])
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    n8, n9 = (fused_ring.fused_ring_fwd.wire_launches,
+              fused_ring_bwd.fused_ring_bwd.wire_launches)
+    o2, lse2 = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring)
+    got = fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, *ring)
+    again = fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, *ring)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert fused_ring.fused_ring_fwd.wire_launches == n8 + 1
+    assert fused_ring_bwd.fused_ring_bwd.wire_launches == n9 + 2
+    want = fused_ring_bwd.fused_ring_bwd_reference(
+        q, k, v, o, lse, do, prog, tables, 128 ** -0.5,
+        cfg.optimize_bwd_comm, window=cfg.window, wire=wire)
+    _close_to_max(got[1:], want[1:])
+    _wire_dq_close(got[0], want[0], wire)
+    dense = dataclasses.replace(cfg, wire_dtype=None)
+    od, lsed = fused_ring.fused_ring_fwd(q, k, v, dense, *ring)
+    assert float((o.float() - od.float()).abs().max()) < WIRE_TOL_FWD[wire]
+    gd = fused_ring_bwd.fused_ring_bwd(q, k, v, od, lsed, do, dense, *ring)
+    for a, b in zip(got, gd):
+        assert float((a - b).abs().max()) < WIRE_TOL_GRAD[wire]
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+def test_burst_attn_wire_fused_matches_scan(dev, wire):
+    """burst_attn with a wire dtype through kernels 8 and 9 against the
+    scan ring with the same wire (bf16, sp=4, zigzag, GQA): the forward
+    at the bf16 tolerance, the gradients within tests/test_wire_quant.py's
+    TOL_GRAD; slot counters those of the dense run and quant_absmax the
+    positions' max |k|, |v|; the burst.wire_bytes counters the quantized
+    bytes."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = _rand(g, dev, torch.bfloat16, 1, 8, 2048, 128)
+    k, v = (_rand(g, dev, torch.bfloat16, 1, 2, 2048, 128) for _ in range(2))
+    kw = dict(mesh={"sp": 4}, causal=True, layout="zigzag", wire_dtype=wire)
+    res = {}
+    for backend in ("fused_ring", "auto"):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = obs.counter_values()
+        o = burst.burst_attn(*ts, backend=backend, **kw)
+        grads = torch.autograd.grad(o.float().square().sum(), ts)
+        moved = obs.counter_deltas(before)
+        assert not any(x.startswith("burst.fused_fallback") for x in moved)
+        res[backend] = o.detach(), grads
+    torch.testing.assert_close(res["fused_ring"][0], res["auto"][0],
+                               **TOL[torch.bfloat16])
+    for a, b in zip(res["fused_ring"][1], res["auto"][1]):
+        assert float((a.float() - b.float()).abs().max()) < \
+            WIRE_TOL_GRAD[wire]
+    per = 2048 // 4
+    bwd = burst.sched_ir.wire_round_bytes("bwd", wire, b=1, n=8, n_kv=2,
+                                          s=per, d=128)
+    assert moved["burst.wire_bytes{dir=dq,pass=bwd}"] == bwd["dq"]
+    _, st = burst.burst_attn(q, k, v, backend="fused_ring",
+                             collect_stats=True, **kw)
+    _, st0 = burst.burst_attn(q, k, v, backend="fused_ring",
+                              collect_stats=True, mesh={"sp": 4},
+                              causal=True, layout="zigzag")
+    assert torch.equal(st.slot_use, st0.slot_use)
+    assert (st0.quant_absmax == 0).all()
+    want = torch.maximum(k.float().abs().reshape(1, 2, 4, per, 128).amax(
+        (0, 1, 3, 4)), v.float().abs().reshape(1, 2, 4, per, 128).amax(
+        (0, 1, 3, 4)))
+    torch.testing.assert_close(st.quant_absmax.cpu(), want.cpu(), atol=0,
+                               rtol=0)
+
+
+def test_wire_combinations_not_built_raise(dev):
+    """A kernel combination without an instance raises on the card, with
+    a message, and does not fall back: SEG + WIRE on kernels 8 and 9,
+    collect_stats or a trace of a WIRE backward."""
+    cfg, ring, (q, k, v, o, lse, do), _, _ = _ring_bwd_case(
+        dev, 4, "zigzag", True, 4, 2, 256, torch.bfloat16,
+        dict(wire_dtype="int8"))
+    seg = torch.zeros((4, 1, 256), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="SEG"):
+        fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+    with pytest.raises(NotImplementedError, match="SEG"):
+        fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, *ring,
+                                      seg=seg)
+    with pytest.raises(NotImplementedError, match="STATS"):
+        fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, *ring,
+                                      collect_stats=True)
+    trace = torch.zeros((1024, len(fused_ring_bwd.TRACE_COLS)),
+                        dtype=torch.int64, device=dev)
+    with pytest.raises(NotImplementedError, match="TRACE"):
+        fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, *ring,
+                                      trace=trace)
+    # the scan ring takes segments with a wire dtype
+    ids = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
+    o_scan = burst.burst_attn(*(mesh.unshard(t) for t in (q, k, v)),
+                              mesh={"sp": 4}, causal=True, segment_ids=ids,
+                              wire_dtype="int8")
+    assert torch.isfinite(o_scan.float()).all()
+
+
+def test_wire_instances_attributes(dev):
+    """Every WIRE instance of kernels 8 and 9 fits its launch; the
+    instances without WIRE keep their registers and spills."""
+    rows = (fused_ring.fwd_attrs(wire=True)
+            + fused_ring.fwd_attrs(stats=True, wire=True)
+            + fused_ring.fwd_attrs(win=True, wire=True)
+            + fused_ring.fwd_attrs(stats=True, win=True, wire=True)
+            + fused_ring_bwd.bwd_attrs(wire=True)
+            + fused_ring_bwd.bwd_attrs(win=True, wire=True))
+    for a in rows:
+        print(a)
+        assert 0 < a["regs"] <= 255 and a["ctas"] >= 1, a
+    now = {"fused_ring_fwd": fused_ring.fwd_attrs(),
+           "fused_ring_bwd": fused_ring_bwd.bwd_attrs()}
+    for pins in (NO_SEG_ATTRS, FUSED_TILE_ATTRS):
+        for lib, want in pins.items():
+            if lib not in now:
+                continue
+            got = {a["instance"]: (a["regs"], a["local_bytes"])
+                   for a in now[lib]}
+            assert {k: got[k] for k in want} == want, (lib, got)
+
+
+# -- the pipeline-parallel model ---------------------------------------------
+
+@pytest.mark.parametrize("mesh_,m", [({"pp": 2, "sp": 1}, 2),
+                                     ({"pp": 2, "sp": 2}, 2)])
+def test_pp_train_step_on_the_card(dev, mesh_, m):
+    """Two fp32 pp train steps (2 layers, remat on) on the card equal the
+    same steps on the CPU (loss and grad norm to 1e-5, the first step's
+    gradients to 1e-4 of their largest entry), with exact launches: one
+    device per stage ring: kernel 1 twice a layer a microbatch (forward
+    and remat recompute), the fused backward once; on the sp=2 ring with
+    the fused route, kernels 8 (twice) and 9 (once) a layer a
+    microbatch."""
+    ring = mesh_["sp"] > 1
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=4, d_head=128, d_ff=512,
+                      dtype=torch.float32, batch_axis=None, head_axis=None,
+                      pp_axis="pp", pp_microbatches=m,
+                      attn_backend="fused_ring" if ring else "auto")
+    tcfg = train.TrainConfig(lr=1e-3)
+    out = {}
+    for where in ("cpu", dev):
+        state = train.init_train_state(0, cfg, tcfg, mesh_, device=where)
+        step = train.make_train_step(cfg, tcfg, mesh_, device=where)
+        batch = train.make_batch(3, cfg, mesh_, batch=2, seq=512,
+                                 device=where)
+        metrics = []
+        for i in range(2):
+            counts = (flash.flash_fwd.launches,
+                      flash.flash_bwd.launches["fused"],
+                      fused_ring.fused_ring_fwd.launches,
+                      fused_ring_bwd.fused_ring_bwd.launches)
+            state, m_ = step(state, batch)
+            metrics.append((float(m_["loss"]), float(m_["grad_norm"])))
+            if str(where) != "cpu":
+                got = tuple(a - b for a, b in zip(
+                    (flash.flash_fwd.launches,
+                     flash.flash_bwd.launches["fused"],
+                     fused_ring.fused_ring_fwd.launches,
+                     fused_ring_bwd.fused_ring_bwd.launches), counts))
+                per = cfg.n_layers * m
+                assert got == ((0, 0, 2 * per, per) if ring
+                               else (2 * per, per, 0, 0)), got
+            if i == 0:
+                grads = [t.grad.detach().cpu().clone()
+                         for t in param_leaves(state[0])]
+        out[str(where)] = metrics, grads
+    (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    _close_to_max(gg, gc)

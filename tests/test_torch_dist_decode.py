@@ -179,7 +179,7 @@ def test_window_and_moe_raise(ref):
     """A ring window prefills (the windowed contig ring): its last logits
     are the dense windowed forward's.  MoE layers are ported
     (tests/test_torch_moe.py holds an MoE dist_generate to JAX's); the
-    pipeline-parallel config still raises (ModelConfig, ROADMAP A4)."""
+    pipeline-parallel config is a training path: serving refuses it."""
     cfg = _cfg("contig", window=16)
     prompt = torch.from_numpy(ref["prompt"]).long()
     last, _ = dist_prefill(ref["params"], prompt, cfg, {"sp": 4},
@@ -187,8 +187,10 @@ def test_window_and_moe_raise(ref):
     pos = torch.arange(S)[None].expand(B, S)
     want = forward(ref["params"], prompt, pos, cfg)[:, -1]
     _close(last, want.numpy(), "windowed dist_prefill")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        dataclasses.replace(_cfg(), pp_axis="pp")
+    with pytest.raises(ValueError, match="training path"):
+        dist_prefill(ref["params"], prompt,
+                     dataclasses.replace(_cfg(), pp_axis="pp"), {"sp": 4},
+                     gen_budget=2)
     with pytest.raises(ValueError, match="steps"):
         dist_generate(ref["params"], torch.from_numpy(ref["prompt"]),
                       _cfg(), {"sp": 4}, steps=0)

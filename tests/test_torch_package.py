@@ -35,8 +35,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "burst_attn_tpu"))
 ring = ["parallel.mesh", "parallel.ring", "parallel.schedule",
         "parallel.burst", "parallel.ulysses", "parallel.moe",
-        "ops.fused_ring", "ops.tuning", "models.dist_decode",
-        "serving.handoff"]
+        "parallel.pipeline", "ops.fused_ring", "ops.tuning",
+        "models.dist_decode", "models.pipeline_lm", "serving.handoff"]
 bench = ["bench", "bench.step_probe"]
 obs = ["obs", "obs.registry", "obs.logs", "obs.spans", "obs.trace",
        "obs.aggregate", "obs.__main__", "obs.devstats"]

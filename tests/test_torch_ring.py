@@ -169,10 +169,11 @@ def test_kernel_reads_the_table_columns_of_the_schedule():
         col_src_need=fused_ring.SRC_NEED,
         col_take_need=fused_ring.TAKE_NEED,
         meta_dst=(schedule.META_CH0_DST, schedule.META_CH1_DST))
-    # the five mask scalars lead each row (row[0] .. row[4])
+    # the five mask scalars lead each row (row[0] .. row[4]); both tiles
+    # pass them: the SEG, the WIRE and the other instances
     assert schedule.SPEC0 == 0 and schedule.CONSUME_BANK == 5
     assert len(re.findall(r"row\[0\],\s*row\[1\],\s*row\[2\],\s*row\[3\],"
-                          r"\s*row\[4\],", src)) == 4  # both tiles, +- SEG
+                          r"\s*row\[4\],", src)) == 6
     # the consumed partition (packed segments) is the last column
     assert fused_ring.PART == max(fused_ring.TAKE_NEED) + 1
     assert fused_ring.KERNEL_COLS == fused_ring.PART + 1
@@ -483,9 +484,16 @@ def test_burst_attn_declines_and_rejects():
                      window=8)
     want = single_device_attention(q, q, q, causal=True, window=8)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
-    with pytest.raises(NotImplementedError):
+    # int8 / fp8 ring payloads are ported (tests/test_torch_wire.py): an
+    # int8 ring stays within its quantization tolerance of the dense one;
+    # a wire dtype the quantizer lacks is refused
+    dense = burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig")
+    wired = burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
+                       wire_dtype="int8")
+    assert float((wired - dense).abs().max()) < 0.04
+    with pytest.raises(ValueError, match="wire_dtype"):
         burst_attn(q, q, q, mesh={"sp": 2}, causal=True, layout="contig",
-                   wire_dtype="int8")
+                   wire_dtype="int4")
     # packed segments are ported: one segment is the unsegmented ring; a
     # cross-attention ring takes none
     one = torch.zeros(1, 32, dtype=torch.int32)

@@ -208,7 +208,7 @@ def test_plain_version_catches_a_faulty_bwd_program():
 # -- the kernel's counter protocol, under every interleaving ---------------
 
 
-def _simulate_bwd_kernel(prog, ktab, seed, ctas=2, tiles=3):
+def _simulate_bwd_kernel(prog, ktab, seed, ctas=2, tiles=3, wire=False):
     """Run the fused backward kernel's protocol with `ctas` CTAs per
     position, each an independent stream of steps, in a random
     interleaving.  Per round: S, each bundle send (wait the source's
@@ -224,7 +224,10 @@ def _simulate_bwd_kernel(prog, ktab, seed, ctas=2, tiles=3):
     of a wrong or torn bundle, a fold or send that finds a partial of the
     wrong partition or without the contributions it should hold, an
     overwrite before the last read, or a home output missing a
-    contribution."""
+    contribution.  `wire`: the WIRE instances' dq protocol, where each CTA
+    first dequantizes its share of an arriving partial's tiles into the
+    fold slot and counts the tile's fold counter, so the kv-tile
+    contributors fold from count 1 on."""
     world, n_rounds = len(ktab), prog.n_rounds
     fr = fused_ring
     shares, reads = {}, {}
@@ -250,6 +253,13 @@ def _simulate_bwd_kernel(prog, ktab, seed, ctas=2, tiles=3):
         key = (p, cb, cs, sh[0][1])
         reads[key] = reads.get(key, 0) + 1
 
+    def convert(p, bank, slot, t, want):
+        tile = dq.get((p, bank, slot, t))
+        assert tile is not None and tile["part"] == want, "wrong dq arrival"
+        assert tile["remote"] and not tile["done"], "no dq arrival"
+        tile["remote"] = False
+        tile["converted"] = True
+
     def fold(p, j, bank, slot, t, want, recv):
         tile = dq.get((p, bank, slot, t))
         if j == 0 and not recv:
@@ -258,7 +268,10 @@ def _simulate_bwd_kernel(prog, ktab, seed, ctas=2, tiles=3):
                                           remote=False, done=False)
             return
         assert tile is not None and tile["part"] == want, "wrong dq partial"
-        if j == 0:
+        if j == 0 and wire:
+            assert tile.get("converted") and not tile["done"], \
+                "fold before the arrival's dequantization"
+        elif j == 0:
             assert tile["remote"] and not tile["done"], "no dq arrival"
             tile["remote"] = False
         else:
@@ -328,9 +341,16 @@ def _simulate_bwd_kernel(prog, ktab, seed, ctas=2, tiles=3):
                    and (dq_arrive.get((p, dqb, dqs), 0) >= dq_need if recv
                         else r == 0 or done_b.get((p, r - 1), 0) >= ctas)), \
                 (lambda cb=cb, cs=cs, want=want: consume(p, cb, cs, want))
+            shift = int(wire and recv)
+            for t in range(j, tiles, ctas) if shift else ():
+                key = (p, r, t)
+                yield None, (lambda key=key, t=t, dqb=dqb, dqs=dqs, want=want:
+                             (convert(p, dqb, dqs, t, want),
+                              folds.__setitem__(key, folds.get(key, 0) + 1)))
             for t in reversed(range(tiles)):
                 key = (p, r, t)
-                yield (lambda key=key: folds.get(key, 0) >= j), \
+                yield (lambda key=key, shift=shift:
+                       folds.get(key, 0) >= j + shift), \
                     (lambda key=key, t=t, dqb=dqb, dqs=dqs, want=want,
                      recv=recv: (fold(p, j, dqb, dqs, t, want, recv),
                                  folds.__setitem__(key, folds.get(key, 0)
@@ -414,6 +434,25 @@ def test_bwd_kernel_protocol_delivers_under_any_interleaving(
             ktab = _bwd_tables(prog)
             for seed in range(8):
                 _simulate_bwd_kernel(prog, ktab, seed)
+
+
+@pytest.mark.parametrize("topology,n_inter,n_intra", [
+    ("uni", 1, 4), ("bidi", 1, 3), ("double", 2, 2)])
+def test_bwd_wire_protocol_delivers_under_any_interleaving(
+        topology, n_inter, n_intra):
+    """The WIRE instances' dq protocol (an arrival dequantized as fold
+    contributor 0 by each CTA's share) delivers under random
+    interleavings, the truncated uni programs included."""
+    progs = [schedule.compile_bwd(topology, n_intra, n_inter, slots=2,
+                                  slots1=2)]
+    if topology == "uni":
+        progs += [schedule.compile_bwd("uni", n_intra, r_live=r)
+                  for r in range(2, n_intra)]
+    for prog in progs:
+        ktab = _bwd_tables(prog)
+        for seed in range(4):
+            _simulate_bwd_kernel(prog, ktab, seed, ctas=3, tiles=4,
+                                 wire=True)
 
 
 def test_bwd_protocol_simulation_catches_a_mutated_program():

@@ -65,18 +65,17 @@ from ..ops.ragged_paged import (
     ragged_paged_attention, ragged_paged_attention_grouped,
     ragged_paged_reference,
 )
+from ..protocols import pool as pool_proto
 from .decode import _flash_prompt_attention
 from .transformer import (
     ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
 )
 
 
-class PoolExhausted(RuntimeError):
-    pass
-
-
-class PoolRefError(ValueError):
-    pass
+# the pool machine's exception types (RuntimeError / ValueError
+# subclasses), importable from here as before
+PoolExhausted = pool_proto.PoolExhausted
+PoolRefError = pool_proto.PoolRefError
 
 
 def resolve_pool_dtype(quantize, default):
@@ -116,16 +115,29 @@ class PagePool:
     reference to live pages.  The pool never touches device memory: pages
     are recycled by table rewrite, stale contents are simply never
     addressed.  Page 0 is the reserved write sink and never enters the
-    free list.  Same transitions, ids and messages as the JAX package's
-    pool machine (protocols/pool.py).  `dtype` is the storage tag of the
-    pools it fronts: None = full precision, "int8" / "fp8" = 1 B pages
-    with scale banks."""
+    free list.  `dtype` is the storage tag of the pools it fronts: None =
+    full precision, "int8" / "fp8" = 1 B pages with scale banks.
+
+    Every mutation runs through the pure transition function
+    `protocols.pool.step` (the JAX package's machine, same ids and
+    messages), with `_free` / `_refs` kept as the mutable mirror of the
+    machine state (snapshots read them directly)."""
 
     def __init__(self, n_pages: int, dtype: Optional[str] = None):
         self.n_pages = n_pages
         self.dtype = dtype
         self._free: List[int] = list(range(n_pages - 1, 0, -1))
         self._refs = [0] * n_pages
+
+    def proto_state(self) -> pool_proto.PoolState:
+        """The allocator as the machine's immutable PoolState."""
+        return pool_proto.from_lists(self.n_pages, self._free, self._refs)
+
+    def _step(self, event):
+        st, out = pool_proto.step(self.proto_state(), event)
+        self._free = list(st.free)
+        self._refs = list(st.refs)
+        return out
 
     @property
     def available(self) -> int:
@@ -152,45 +164,17 @@ class PagePool:
         return self._refs[int(i)]
 
     def acquire(self, n: int) -> List[int]:
-        n = int(n)
-        if n > len(self._free):
-            raise PoolExhausted(
-                f"page pool exhausted: want {n}, have {len(self._free)}")
-        ids = [self._free[-1 - k] for k in range(n)]  # pop order
-        del self._free[len(self._free) - n:]
-        for i in ids:
-            self._refs[i] = 1
-        return ids
+        out = self._step(("acquire", int(n)))
+        return list(out[0][1])
 
     def share(self, ids) -> None:
         """Add one reference to already-live pages."""
-        ids = [int(i) for i in ids]
-        for i in ids:
-            if not 0 < i < self.n_pages:
-                raise PoolRefError(f"bad page id {i}")
-            if self._refs[i] == 0:
-                raise PoolRefError(
-                    f"page {i} is free; share() needs a live page")
-        for i in ids:
-            self._refs[i] += 1
+        self._step(("share", tuple(int(i) for i in ids)))
 
     def release(self, ids) -> None:
-        # validate the whole batch before mutating anything: an
-        # over-release would put a still-referenced page on the free list
-        ids = [int(i) for i in ids]
-        counts: dict = {}
-        for i in ids:
-            counts[i] = counts.get(i, 0) + 1
-        for i, c in counts.items():
-            if not 0 < i < self.n_pages:  # page 0 is the reserved sink
-                raise PoolRefError(f"bad page id {i}")
-            if self._refs[i] < c:
-                raise PoolRefError(
-                    f"page {i} released {c}x but has {self._refs[i]} refs")
-        for i in ids:
-            self._refs[i] -= 1
-            if self._refs[i] == 0:
-                self._free.append(i)
+        # the machine validates the whole batch before mutating anything:
+        # an over-release would put a still-referenced page on the free list
+        self._step(("release", tuple(int(i) for i in ids)))
 
 
 class PrefixCache:
@@ -365,6 +349,16 @@ def init_paged_state(cfg: ModelConfig, *, slots: int, n_pages: int,
     return state, PagePool(n_pages, dtype=tag)
 
 
+def write_table_row(state: PagedState, slot: int, row) -> PagedState:
+    """Point `slot`'s table row at the page ids `row` (a sequence or an
+    integer tensor), the rest of the row at the sink page 0, IN PLACE
+    (JAX's `_write_table_row`)."""
+    row = torch.as_tensor(row, dtype=torch.int32)
+    state.page_table[slot] = 0
+    state.page_table[slot, :row.numel()] = row.to(state.page_table.device)
+    return state
+
+
 def _scatter_pages(pages, new, page_ids, scales=None):
     """Write [1, Nkv, T, D] rope'd K/V into pool pages `page_ids` IN PLACE
     (T padded to a whole number of pages by the caller).  A quantized pool
@@ -507,9 +501,7 @@ def _prefill_suffix(params, suffix, state: PagedState, ctx_ids, suf_ids,
         x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x[:, t_suf - 1:t_suf], params["final_norm"])
     logits = _logits(x, params["lm_head"])[0, 0]
-    state.page_table[slot] = 0
-    state.page_table[slot, :len(ctx_ids) + len(suf_ids)] = torch.cat(
-        [ctx, page_ids]).to(torch.int32)
+    write_table_row(state, slot, torch.cat([ctx, page_ids]))
     state.lengths[slot] = t_pre + t_suf
     return logits
 
@@ -537,8 +529,7 @@ def _prefill(params, tokens, state: PagedState, ids, slot, cfg):
         x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x[:, -1:], params["final_norm"])
     logits = _logits(x, params["lm_head"])[0, 0]
-    state.page_table[slot] = 0
-    state.page_table[slot, :len(ids)] = page_ids.to(torch.int32)
+    write_table_row(state, slot, page_ids)
     state.lengths[slot] = t
     return logits
 

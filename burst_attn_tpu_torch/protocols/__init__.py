@@ -16,7 +16,11 @@ process death has protocol-visible semantics.
 
 Modules:
 
-  journal   write-ahead token journal (append/sync/deliver/crash)
+  pool        PagePool refcount/free-list algebra + the CoW write barrier
+  journal     write-ahead token journal (append/sync/deliver/crash)
+  transport   frame parse (CRC/torn-tail) + (rid, seq) dedup
+  kvtransfer  transactional KV page transfer (stage/commit/abort + the
+              sender's hold-until-ack plan)
 """
 
 
@@ -26,5 +30,5 @@ class ProtocolError(Exception):
     sites keep their `except` behavior)."""
 
 
-# the submodule imports ProtocolError from the package, so it must exist first
-from . import journal  # noqa: E402,F401
+# the submodules import ProtocolError from the package, so it must exist first
+from . import journal, kvtransfer, pool, transport  # noqa: E402,F401

@@ -30,6 +30,7 @@ from ..models.decode import sample_logits
 from ..models.dist_decode import dist_paged_decode_step, ring_forward
 from ..models.paged_decode import (
     PagedState, PagePool, _scatter_pages, provision_capacity,
+    write_table_row,
 )
 from ..models.transformer import (
     ModelConfig, _logits, _rms_norm, check_serving,
@@ -126,8 +127,7 @@ def _ring_prefill(params, tokens, state: PagedState, ids, slot,
     last = int(layouts.inverse_permutation(perm)[s - 1])
     xf = _rms_norm(x[:, last:last + 1], params["final_norm"])
     logits = _logits(xf, params["lm_head"])[0, 0]
-    state.page_table[slot] = 0
-    state.page_table[slot, :len(ids)] = page_ids.to(torch.int32)
+    write_table_row(state, slot, page_ids)
     state.lengths[slot] = s
     return logits
 

@@ -178,7 +178,22 @@ Phases (any failure exits non-zero; nothing is caught):
      admission and tick arithmetic (K=4 equal to synchronous), every
      TTFT breakdown summing to its TTFT, the exported JSONL rendered by
      `python -m burst_attn_tpu_torch.obs` (--json, --prom, --trace), the
-     instruments' host cost a tick;
+     instruments' host cost a tick; then serving under load (the `fleet`
+     phase, the serving model at 2 layers, every worker process on the
+     card, all loading one weights file): the seed-0 trace (24 requests,
+     2 poison) replayed open-loop through a RaggedServeEngine in fp32
+     (token-exact with `oracle_replay`) and bf16 (the teacher-forced bar)
+     with its SLO report and kernel 7 once a layer a ragged launch; the
+     LoadGenCluster of 2 ServeEngine workers (fp32, journaled) through a
+     kill and a restart, then the kill with resume off (token-exact, the
+     resume re-decoding strictly fewer tokens), recovery and boot
+     seconds; the FleetCluster of 1 prefill worker (sp=2, kernel 8) and 2
+     decode replicas (sp=2): fp32 over queues with a replica dying after
+     its first received page and the other restarted mid-stream
+     (token-exact with `fleet_oracle`), bf16 over sockets (digests equal
+     on both ends, the near-tie bar); zero pages left in any pool, KV MB
+     and ms a page, TTFT; each worker life's reported kernel launches
+     held to its own work counters;
   9. (run after phase 3) sliding-window serving and kernel 10: kernel 1
      with windows 1, 100, 1024 and 4096 (>= S: bitwise the unwindowed
      kernel) at B1 N16/4 S2048 bf16, offset 0 and -1 with a ragged
@@ -8251,6 +8266,490 @@ def wire_phase(device):
     return recs, res
 
 
+# ---------------------------------------------------------------------------
+# serving under load: the loadgen trace replayed open-loop in process, the
+# multi-process serve cluster with a kill and a restart, the disaggregated
+# prefill / decode fleet with its KV plane (every worker on the card)
+
+# the serving model at its full width, 2 layers: every worker process
+# draws its own weights (numpy, seed 0) and the phase boots ~10 of them
+FLEET_DIMS = dict(SERVE_DIMS, n_layers=2)
+# the trace: seed 0, 24 requests (prompts 100-2048 tokens, budgets 16-64,
+# bursty arrivals over ~1.3 s), 2 of them poison (an empty prompt, a zero
+# budget)
+LOAD_TRACE = dict(n_requests=24, seed=0, prompt_len_min=100,
+                  prompt_len_max=2048, prompt_len_log_mean=6.5,
+                  prompt_len_log_sigma=0.8, max_new_min=16, max_new_max=64,
+                  max_new_mean=32.0, poison_rate=0.05)
+LOAD_ENGINE = dict(kind="ragged", slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+                   max_pages_per_seq=MAX_PAGES, chunk=CHUNK, max_queue=32)
+# the cluster: the ServeEngine kind (kernels 1 and 6), fp32, journaled
+CLUSTER_ENGINE = dict(kind="legacy", slots=4, n_pages=40, page=PAGE,
+                      max_pages_per_seq=9, max_queue=32)
+CLUSTER_TRACE = dict(n_requests=8, seed=1, prompt_len_min=100,
+                     prompt_len_max=1024, prompt_len_log_mean=6.0,
+                     mean_interarrival_s=0.25, max_new_min=24,
+                     max_new_max=48, max_new_mean=32.0)
+# the fleet: 1 ring-prefill worker (sp=2, the fused ring: kernel 8) and 2
+# decode replicas (sp=2), page-multiple prompts
+FLEET_PROMPTS = (512, 1024, 384, 896, 640, 768)
+FLEET_BUDGETS = (24, 16, 32, 20, 28, 18)
+FLEET_PSPEC = dict(sp=2, page=PAGE, n_pages=10, max_pages_per_seq=9,
+                   warm_len=512)
+FLEET_DSPEC = dict(sp=2, slots=2, page=PAGE, n_pages=20, max_pages_per_seq=9)
+FLEET_LIMITS = dict(start_timeout_s=300.0, restart_timeout_s=300.0)
+
+
+_FLEET_WEIGHTS = {}  # "path": the phase's save_weights file
+
+
+def _fleet_spec(dtype, **kw):
+    """A worker's model spec: the seed-0 weights from the phase's file
+    (each process loads them instead of drawing them again)."""
+    return dict(FLEET_DIMS, seed=0, dtype=dtype,
+                weights=_FLEET_WEIGHTS["path"], **kw)
+
+
+def _last_export(path):
+    """The metric records of an obs file's last snapshot (a killed worker
+    may leave a torn final line; the snapshot before it is whole)."""
+    from burst_attn_tpu_torch.obs.aggregate import load_records_tolerant
+
+    recs, _ = load_records_tolerant(path)
+    last = []
+    for r in recs:
+        last = [] if r["kind"] == "meta" else last + [r]
+    return last
+
+
+def _ctr(recs, name, **labels):
+    return sum(int(r.get("value", 0)) for r in recs
+               if r["kind"] == "counter" and r["name"] == name
+               and all(r["labels"].get(k) == v for k, v in labels.items()))
+
+
+def _registry_window(before, after):
+    """Merged-export-shaped metric records of what the registry counted
+    between two snapshots (counters and histograms; the window's max is
+    the later snapshot's)."""
+    key = (lambda r: (r["kind"], r["name"],
+                      tuple(sorted(r["labels"].items()))))
+    old = {key(r): r for r in before}
+    out = []
+    for r in after:
+        o = old.get(key(r))
+        if r["kind"] == "counter":
+            out.append(dict(r, value=r["value"] - (o["value"] if o else 0)))
+        elif r["kind"] == "histogram":
+            d = dict(r)
+            if o:
+                d["bucket_counts"] = [a - b for a, b in zip(
+                    r["bucket_counts"], o["bucket_counts"])]
+                d["overflow"] = r["overflow"] - o["overflow"]
+                d["count"] = r["count"] - o["count"]
+            out.append(d)
+    return out
+
+
+def _load_trace():
+    from burst_attn_tpu_torch.loadgen import synthesize_trace
+
+    kw = dict(LOAD_TRACE)
+    trace = synthesize_trace(kw.pop("n_requests"), vocab=FLEET_DIMS["vocab"],
+                             **kw)
+    assert sum(r.poison for r in trace.requests) == 2
+    return trace
+
+
+def load_replay_phase(device):
+    """(a) The trace replayed open-loop (speed 1: virtual seconds are wall
+    seconds) through a RaggedServeEngine in this process, fp32 then bf16:
+    fp32 token-exact with `oracle_replay`, bf16 to the teacher-forced
+    near-tie bar; the poison requests rejected; kernel 7 launched once a
+    layer for every ragged launch the engine counted; the SLO report of
+    the replay's window of the registry."""
+    import torch
+
+    from burst_attn_tpu_torch import obs
+    from burst_attn_tpu_torch.loadgen import (
+        assert_token_exact, compute_slo, format_slo, oracle_replay,
+        replay_trace,
+    )
+    from burst_attn_tpu_torch.loadgen.worker import model_from_spec
+    from burst_attn_tpu_torch.ops import ragged_paged
+    from burst_attn_tpu_torch.serving import RaggedServeEngine
+
+    trace = _load_trace()
+    k7 = ragged_paged.ragged_paged_attention
+    res = {"launches": 0}
+    for dtype in ("float32", "bfloat16"):
+        params, cfg, dev = model_from_spec(_fleet_spec(dtype))
+        es = {k: v for k, v in LOAD_ENGINE.items() if k != "kind"}
+
+        def make(max_queue=es["max_queue"]):
+            return RaggedServeEngine(params, cfg, device=dev,
+                                     **dict(es, max_queue=max_queue))
+
+        eng = make()
+        snap0, c0 = obs.snapshot(), obs.counter_values()
+        k7.launches = 0
+        rep = replay_trace(eng, trace, speed=1.0, max_wall_s=300.0)
+        launches = k7.launches
+        window = _registry_window(snap0, obs.snapshot())
+        dc = obs.counter_deltas(c0)
+        ticks = sum(n for k, n in dc.items()
+                    if k.startswith("serve.ragged_batch_launches"))
+        assert launches == cfg.n_layers * ticks > 0, (launches, ticks)
+        assert rep.n_done == len(trace.normal()), rep.outcomes
+        assert sorted(o.reason for o in rep.by_status("rejected")) == \
+            ["bad-budget", "empty-prompt"]
+        slo = compute_slo(window, duration_s=rep.duration_v,
+                          completed_tokens=rep.completed_tokens,
+                          n_done=rep.n_done, n_rejected=rep.n_rejected)
+        done = rep.completed()
+        if dtype == "float32":
+            t0 = time.perf_counter()
+            oracle = oracle_replay(trace, lambda: make(None))
+            oracle_s = time.perf_counter() - t0
+            assert_token_exact(done, oracle)
+            agree = None
+        else:
+            oracle_s = None
+            rids = sorted(done)
+            prompts = [trace.requests[r].prompt(cfg.vocab) for r in rids]
+            agree = agreement(cfg, params, prompts, [done[r] for r in rids],
+                              dev)
+            check_agreement("loadgen replay, bf16", agree, True)
+        res[dtype] = {
+            "wall_s": rep.wall_s, "done": rep.n_done,
+            "rejected": rep.n_rejected, "shed": rep.n_shed,
+            "completed_tokens": rep.completed_tokens, "ticks": ticks,
+            "ragged_launches": launches, "oracle_s": oracle_s,
+            "agreement": agree[:2] if agree else None,
+            "slo": {k: v for k, v in slo.items()}}
+        res["launches"] += launches
+        print(f"loadgen replay ({dtype}, {len(trace.requests)} requests, "
+              f"{rep.n_done} done, {rep.n_rejected} rejected, "
+              f"{rep.completed_tokens} tokens in {rep.wall_s:.2f} s wall; "
+              f"{ticks} ragged ticks, kernel 7 x {launches}): TTFT p50 "
+              f"{slo['ttft_p50_s'] * 1e3:.1f} ms p99 "
+              f"{slo['ttft_p99_s'] * 1e3:.1f} ms, token latency p50 "
+              f"{slo['token_latency_p50_s'] * 1e3:.2f} ms p99 "
+              f"{slo['token_latency_p99_s'] * 1e3:.2f} ms, goodput "
+              f"{slo['goodput_tokens_per_s']:.1f} tok/s, shed rate "
+              f"{slo['shed_rate']:.3f}", flush=True)
+        print(format_slo(slo), flush=True)
+        del eng, params
+        torch.cuda.empty_cache()
+    return res
+
+
+def _cluster_trace():
+    from burst_attn_tpu_torch.loadgen import synthesize_trace
+
+    kw = dict(CLUSTER_TRACE)
+    return synthesize_trace(kw.pop("n_requests"), vocab=FLEET_DIMS["vocab"],
+                            **kw)
+
+
+def _check_worker_lives(paths, n_layers, legacy):
+    """Each worker life's last obs export: its kernel launches against the
+    work it counted in the same snapshot.  ServeEngine: kernel 1 once a
+    layer an admission, kernel 6 a whole number of layers' worth, at most
+    one decode a step; RaggedServeEngine: kernel 7 once a layer a ragged
+    launch.  Returns the launches summed over the lives."""
+    total = {"flash_fwd": 0, "paged_decode": 0, "ragged_paged": 0}
+    for path in paths:
+        recs = _last_export(path)
+        k = {n: _ctr(recs, "kernel.launches", kernel=n) for n in total}
+        if legacy:
+            assert k["flash_fwd"] == n_layers * _ctr(
+                recs, "serve.requests_admitted"), (path, k)
+            assert k["paged_decode"] % n_layers == 0 and k["paged_decode"] \
+                <= n_layers * _ctr(recs, "serve.engine_steps"), (path, k)
+            assert k["ragged_paged"] == 0, (path, k)
+        else:
+            assert k["ragged_paged"] == n_layers * _ctr(
+                recs, "serve.ragged_batch_launches"), (path, k)
+        for n in total:
+            total[n] += k[n]
+    return total
+
+
+def cluster_phase(out_root):
+    """(b) LoadGenCluster: 2 ServeEngine workers on the card, fp32,
+    journaled and snapshotted; worker 0 killed mid-decode, worker 1
+    restarted from snapshot + journal; fp32 token-exact with the oracle.
+    Then the same trace and kill with journal resume off: the resumed run
+    re-decodes strictly fewer tokens than the replay from scratch."""
+    import threading
+
+    from burst_attn_tpu_torch.loadgen import (
+        FaultEvent, LoadGenCluster, assert_token_exact, oracle_replay,
+    )
+    from burst_attn_tpu_torch.loadgen.worker import build_engine
+
+    spec = _fleet_spec("float32")
+    trace = _cluster_trace()
+    t0 = time.perf_counter()
+    oracle = oracle_replay(trace, lambda: build_engine(
+        spec, dict(CLUSTER_ENGINE, max_queue=None)))
+    res = {"oracle_s": time.perf_counter() - t0}
+    faults = {True: [FaultEvent(t=0.05, kind="kill", worker=0),
+                     FaultEvent(t=0.1, kind="restart", worker=1)],
+              False: [FaultEvent(t=0.05, kind="kill", worker=0)]}
+    launches = {"flash_fwd": 0, "paged_decode": 0}
+    clusters = {resume: LoadGenCluster(
+        spec, CLUSTER_ENGINE, n_workers=2,
+        out_dir=os.path.join(out_root, f"r{resume:d}"), checkpoint=True,
+        resume=resume, **FLEET_LIMITS) for resume in (True, False)}
+    # both clusters' workers boot together; the replays run one at a time
+    t0 = time.perf_counter()
+    errors = []
+
+    def start_scratch():
+        try:
+            clusters[False].start()
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    starter = threading.Thread(target=start_scratch)
+    starter.start()
+    try:
+        clusters[True].start()
+        starter.join()
+        if errors:
+            raise errors[0]
+        res["start_s"] = time.perf_counter() - t0
+        for resume in (True, False):
+            cl = clusters[resume]
+            t0 = time.perf_counter()
+            rep = cl.replay(trace, faults[resume], speed=1.0,
+                            max_wall_s=300.0)
+            cl.stop()
+            boots, stopped, paths = cl.boot_s, cl.stopped, cl.obs_paths
+            assert all(b["device"].startswith("cuda") for b in boots), boots
+            assert rep.n_done == len(trace.requests), rep.outcomes
+            assert_token_exact(rep.completed(), oracle)
+            kills = [(k["worker"], k.get("restarted", False),
+                      k["detected_by"]) for k in rep.kills]
+            assert kills == ([(0, False, "scheduled-kill"),
+                              (1, True, "scheduled-restart")] if resume
+                             else [(0, False, "scheduled-kill")]), rep.kills
+            for info in stopped.values():
+                assert info["pool_free"] == info["pool_usable"], stopped
+            lives = _check_worker_lives(paths, FLEET_DIMS["n_layers"], True)
+            if resume:
+                for n in launches:
+                    launches[n] += lives[n]
+            res["resume" if resume else "scratch"] = {
+                "wall_s": rep.wall_s, "cluster_s": time.perf_counter() - t0,
+                "kills": rep.kills, "recovery_s": rep.recovery_s(),
+                "replayed": rep.recovered_tokens_replayed,
+                "resumed": rep.recovered_tokens_resumed,
+                "boot_s": boots, "worker_launches": lives}
+            print(f"cluster ({'resume' if resume else 'scratch'}, 2 "
+                  f"ServeEngine workers, fp32, {len(trace.requests)} "
+                  f"requests): token-exact; kills {kills}; recovery "
+                  f"{['%.3f' % s for s in rep.recovery_s()]} s; tokens "
+                  f"re-decoded {rep.recovered_tokens_replayed}, resumed "
+                  f"{rep.recovered_tokens_resumed}; boot s a worker "
+                  + ", ".join(f"w{b['worker']}g{b['gen']} {b['s']:.1f} "
+                              f"(build {b['build_s']:.1f}, warm "
+                              f"{b['warm_s']:.2f})" for b in boots)
+                  + f"; kernel 1 x {lives['flash_fwd']}, kernel 6 x "
+                  f"{lives['paged_decode']}", flush=True)
+    finally:
+        starter.join()
+        for cl in clusters.values():
+            cl.stop()
+    assert res["resume"]["resumed"] > 0
+    assert res["resume"]["replayed"] < res["scratch"]["replayed"], res
+    res["launches"] = launches
+    return res
+
+
+def _fleet_trace():
+    from burst_attn_tpu_torch.loadgen.trace import Trace, TraceRequest
+
+    return Trace(meta={"vocab": FLEET_DIMS["vocab"]}, requests=[
+        TraceRequest(rid=i, t_arrival=0.1 * i, prompt_len=n,
+                     prompt_seed=500 + i, max_new_tokens=b)
+        for i, (n, b) in enumerate(zip(FLEET_PROMPTS, FLEET_BUDGETS))])
+
+
+def _fleet_numbers(paths):
+    """KV bytes and pages shipped, the ship and transfer spans a page, the
+    prefill worker's kernel launches against its ring passes."""
+    shipped = pages = 0
+    ship_s = xfer_s = 0.0
+    k8 = passes = k1 = 0
+    for path in paths:  # the members' exports
+        recs = _last_export(path)
+        if os.path.basename(path).startswith("obs_p"):
+            # what the prefill workers shipped (a replica's export of its
+            # committed pages for the digest echo counts there too)
+            shipped += _ctr(recs, "fleet.kv_bytes_shipped")
+            pages += _ctr(recs, "fleet.kv_pages_shipped")
+        for r in recs:
+            if r["kind"] == "trace" and r["name"] == "fleet.ship":
+                ship_s += r["duration_s"]
+            if r["kind"] == "trace" and r["name"] == "fleet.transfer":
+                xfer_s += r["duration_s"]
+        n8 = _ctr(recs, "kernel.launches", kernel="fused_ring_fwd")
+        n_pass = _ctr(recs, "fleet.ring_prefills")
+        assert n8 == FLEET_DIMS["n_layers"] * n_pass, (path, n8, n_pass)
+        assert _ctr(recs, "burst.fused_fallback") == 0, path
+        k8 += n8
+        passes += n_pass
+        k1 += _ctr(recs, "kernel.launches", kernel="flash_fwd")
+    assert k1 == 0  # the fused route: no scan-ring round ran
+    return {"kv_mb": shipped / 1e6, "pages": pages,
+            "ship_ms_a_page": 1e3 * ship_s / max(pages, 1),
+            "transfer_ms_a_page": 1e3 * xfer_s / max(pages, 1),
+            "fused_ring_launches": k8, "ring_passes": passes}
+
+
+def fleet_run_phase(out_root):
+    """(c) FleetCluster: 1 prefill worker (sp=2, kernel 8) and 2 decode
+    replicas (sp=2), every member on the card.  fp32 over queues: a
+    decode replica dies after receiving its first page (the buffered
+    transfer re-ships to its sibling) and the other is killed mid-stream
+    and restarted from its snapshot; token-exact with `fleet_oracle`, zero
+    pages left in any pool.  bf16 over sockets: the 2-byte pages'
+    digests, recomputed from the replica's pool after each commit, match
+    the sender's; the streams meet the teacher-forced near-tie bar."""
+    from burst_attn_tpu_torch.fleet import FleetCluster, FleetFault, \
+        fleet_oracle
+    from burst_attn_tpu_torch.loadgen.worker import model_from_spec
+
+    trace = _fleet_trace()
+    res = {}
+    t0 = time.perf_counter()
+    oracle, _ = fleet_oracle(
+        trace, _fleet_spec("float32", attn_backend="fused_ring"),
+        prefill_spec=FLEET_PSPEC, decode_spec=FLEET_DSPEC)
+    res["oracle_s"] = time.perf_counter() - t0
+    runs = (("float32", "queue", dict(FLEET_DSPEC), [
+                FleetFault(t=0.0, pool="decode", worker=1,
+                           kind="die_mid_recv", arg=1),
+                FleetFault(t=0.2, pool="decode", worker=0, kind="restart")]),
+            ("bfloat16", "socket", dict(FLEET_DSPEC, echo_digests=True), []))
+    launches = 0
+    for dtype, transport, dspec, faults in runs:
+        spec = _fleet_spec(dtype, attn_backend="fused_ring")
+        t0 = time.perf_counter()
+        with FleetCluster(spec, prefill_spec=FLEET_PSPEC, decode_spec=dspec,
+                          n_prefill=1, n_decode=2,
+                          out_dir=os.path.join(out_root, dtype),
+                          transport=transport, checkpoint_every=1,
+                          trace=True, **FLEET_LIMITS) as fc:
+            start_s = time.perf_counter() - t0
+            rep = fc.replay(trace, faults, speed=1.0, max_wall_s=300.0)
+            fc.stop()
+            boots, stopped = fc.boot_s, fc.stopped
+            paths = [p for p in fc.obs_paths
+                     if not p.endswith("obs_router.jsonl")]
+        assert all(b["device"].startswith("cuda") for b in boots), boots
+        assert rep.n_done == len(trace.requests), rep.outcomes
+        for info in stopped.values():  # zero pages leaked anywhere
+            assert info["pool_free"] == info["pool_usable"], stopped
+        nums = _fleet_numbers(paths)
+        launches += nums["fused_ring_launches"]
+        done = rep.completed()
+        # arrival to admission on a replica (the first token, sampled by
+        # the prefill, rides the transfer); journal-completed requests
+        # have no admission
+        ttft = sorted((o.t_submit - o.t_arrival) * 1e3
+                      for o in rep.outcomes.values()
+                      if o.t_submit is not None)
+        if dtype == "float32":
+            assert done == oracle, (done, oracle)
+            assert rep.transfers["reshipped"] >= 1, rep.transfers
+            assert sorted((k["pool"], k["worker"], bool(k.get("restarted")))
+                          for k in rep.kills) == [("decode", 0, True),
+                                                  ("decode", 1, False)]
+            agree = None
+        else:
+            assert rep.transfers["digest_checked"] == len(trace.requests)
+            assert rep.transfers["digest_mismatch"] == 0, rep.transfers
+            params, cfg, dev = model_from_spec(spec)
+            rids = sorted(done)
+            agree = agreement(cfg, params,
+                              [trace.requests[r].prompt(cfg.vocab)
+                               for r in rids], [done[r] for r in rids], dev)
+            del params
+            # 138 tokens are too few for a 95% rate at the ~3.5% flip
+            # rate: every disagreement a near tie
+            check_agreement("fleet, bf16", agree, True, min_agree=0.0)
+        res[dtype] = {"transport": transport, "wall_s": rep.wall_s,
+                      "start_s": start_s,
+                      "fleet_s": time.perf_counter() - t0,
+                      "kills": rep.kills, "transfers": {
+                          k: v for k, v in rep.transfers.items()
+                          if k != "aborts"},
+                      "recovery_s": rep.recovery_s(),
+                      "ttft_ms": ttft, "boot_s": boots,
+                      "agreement": agree[:2] if agree else None, **nums}
+        print(f"fleet ({dtype}, {transport}, 1 prefill sp=2 fused ring + "
+              f"2 decode sp=2, {len(trace.requests)} requests): "
+              f"{'token-exact' if agree is None else 'near-tie bar met'}; "
+              f"{rep.transfers['committed']} transfers committed, "
+              f"{rep.transfers['reshipped']} re-shipped; KV "
+              f"{nums['kv_mb']:.1f} MB in {nums['pages']} pages, ship "
+              f"{nums['ship_ms_a_page']:.2f} ms a page, transfer "
+              f"{nums['transfer_ms_a_page']:.2f} ms a page; TTFT from "
+              f"arrival p50 {ttft[len(ttft) // 2]:.0f} ms max "
+              f"{ttft[-1]:.0f} ms; kernel 8 x {nums['fused_ring_launches']}"
+              f" = {FLEET_DIMS['n_layers']} x {nums['ring_passes']} ring "
+              f"passes; boot s " + ", ".join(
+                  f"{b['pool'][0]}{b['worker']}g{b['gen']} {b['s']:.1f}"
+                  for b in boots), flush=True)
+    res["launches"] = launches
+    return res
+
+
+def fleet_phase(device):
+    """Serving under load, (a)-(c); every number a wall time on the card's
+    host clock.  Returns the results with the launches each kernel made
+    in this phase (in this process and, reported, in the workers)."""
+    import shutil
+
+    import torch
+
+    from burst_attn_tpu_torch.obs import trace as tracing
+
+    from burst_attn_tpu_torch.loadgen.worker import (
+        model_from_spec, save_weights,
+    )
+
+    t0 = time.perf_counter()
+    out_root = os.path.join(_ckpt_dir().parent, "fleet")
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.makedirs(out_root)
+    params, _, _ = model_from_spec(dict(FLEET_DIMS, seed=0, device=device))
+    _FLEET_WEIGHTS["path"] = save_weights(
+        params, os.path.join(out_root, "weights.pt"))
+    del params
+    res = {"weights_s": time.perf_counter() - t0}
+    res["load"] = load_replay_phase(device)
+    torch.cuda.empty_cache()
+    res["cluster"] = cluster_phase(out_root)
+    res["fleet"] = fleet_run_phase(out_root)
+    res["launches"] = {
+        "ragged_paged": res["load"]["launches"],
+        "flash_fwd": res["cluster"]["launches"]["flash_fwd"],
+        "paged_decode": res["cluster"]["launches"]["paged_decode"],
+        "fused_ring_fwd": res["fleet"]["launches"]}
+    for name, n in res["launches"].items():
+        assert n > 0, res["launches"]
+    tracing.enable(False)  # the fleet's router switched it on here
+    os.remove(_FLEET_WEIGHTS.pop("path"))
+    res["seconds"] = time.perf_counter() - t0
+    print(f"fleet phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def _mark(t_start, what):
     """Print the seconds since the smoke started, after `what`."""
     print(f"[{time.perf_counter() - t_start:.1f} s] {what} done", flush=True)
@@ -8507,6 +9006,8 @@ def main() -> int:
     obs_res = obs_phase(device, pticks)
 
     _mark(t_start, "devstats and obs phases")
+    fleet_res = fleet_phase(device)
+    _mark(t_start, "fleet phase")
     moe_srv = moe_serve_phase(device, serve_res, rag, hand)
     _MOE_PARAMS.clear()
     _mark(t_start, "moe serve phase")
@@ -8699,6 +9200,11 @@ def main() -> int:
     for name, n in ckpt_launches.items():
         assert n > 0, ckpt_launches
         launches[name] += n
+    # serving under load: the in-process replays' kernel 7, the cluster's
+    # ServeEngine workers' kernels 1 and 6 and the fleet's prefill
+    # worker's kernel 8, as the workers reported them
+    for name, n in fleet_res["launches"].items():
+        launches[name] += n
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in spec_launches:
@@ -8709,6 +9215,8 @@ def main() -> int:
             rec["moe_launches"] = moe_launches[rec["name"]]
         if rec["name"] in pp_launches:
             rec["pp_launches"] = pp_launches[rec["name"]]
+        if rec["name"] in fleet_res["launches"]:
+            rec["fleet_launches"] = fleet_res["launches"][rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     wall, dev, _ = tr["prof"]
@@ -8740,6 +9248,7 @@ def main() -> int:
                                          "speculative_launches",
                                          "checkpoint_launches",
                                          "moe_launches", "pp_launches",
+                                         "fleet_launches",
                                          "stats", "seg", "window", "wire")
                        if k in r}
                     for r in kernels],
@@ -8788,6 +9297,7 @@ def main() -> int:
         "ulysses_train": uly,
         "pp_train": pp_res,
         "wire": wire_res,
+        "fleet": {k: v for k, v in fleet_res.items() if k != "launches"},
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2957,3 +2957,204 @@ def test_pp_train_step_on_the_card(dev, mesh_, m):
     (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
     np.testing.assert_allclose(mg, mc, rtol=1e-5)
     _close_to_max(gg, gc)
+
+
+# ---------------------------------------------------------------------------
+# serving under load on the card: the cluster's and the fleet's fault
+# matrix, every worker process on the card (the model spec names no
+# device), each run with its own time limits
+
+LOAD_SPEC = dict(vocab=512, d_model=256, n_layers=1, n_heads=2,
+                 n_kv_heads=1, d_head=128, d_ff=512, seed=0)
+LOAD_LIMITS = dict(start_timeout_s=240.0, restart_timeout_s=240.0)
+FLEET_PSPEC = dict(sp=2, page=128, n_pages=4, max_pages_per_seq=8)
+FLEET_DSPEC = dict(sp=2, slots=2, page=128, n_pages=8, max_pages_per_seq=4)
+
+
+def _fleet_trace(n, *, prompt_len=128, seed0=100, max_new=4, dt=0.05,
+                 extra=()):
+    from burst_attn_tpu_torch.loadgen.trace import Trace, TraceRequest
+
+    reqs = [TraceRequest(rid=i, t_arrival=dt * i, prompt_len=prompt_len,
+                         prompt_seed=seed0 + i, max_new_tokens=max_new)
+            for i in range(n)]
+    return Trace(meta={"vocab": LOAD_SPEC["vocab"]},
+                 requests=reqs + list(extra))
+
+
+def _fleet_exact(rep, oracle):
+    for rid, o in rep.outcomes.items():
+        assert o.status == "done", (rid, o)
+        assert o.tokens == oracle[rid], (rid, o.tokens, oracle[rid])
+
+
+def _on_card(boots):
+    assert boots and all(b["device"].startswith("cuda") for b in boots), \
+        boots
+
+
+def test_cluster_hog_stall_hang_on_card(dev, tmp_path):
+    """Ragged workers on the card: a pool hog (sheds, then the unhog lets
+    the backlog drain), a stall (slow, not dead) and a hang (caught by
+    the heartbeat only); token-exact with the oracle, every worker life's
+    kernel 7 launches one a layer a ragged launch."""
+    from burst_attn_tpu_torch.loadgen import (
+        FaultEvent, LoadGenCluster, assert_token_exact, oracle_replay,
+        synthesize_trace,
+    )
+    from burst_attn_tpu_torch.loadgen.worker import build_engine
+    from burst_attn_tpu_torch.obs.aggregate import load_records_tolerant
+
+    spec = dict(kind="ragged", slots=2, n_pages=6, page=128,
+                max_pages_per_seq=2, chunk=16, max_queue=16)
+    trace = synthesize_trace(8, seed=13, vocab=LOAD_SPEC["vocab"],
+                             mean_interarrival_s=0.25, prompt_len_max=40,
+                             max_new_min=24, max_new_mean=32, max_new_max=48)
+    faults = [FaultEvent(t=0.1, kind="hog", worker=1, arg=5),
+              FaultEvent(t=0.3, kind="stall", worker=1, arg=1.0),
+              FaultEvent(t=0.4, kind="hang", worker=0),
+              FaultEvent(t=2.5, kind="unhog", worker=1)]
+    with LoadGenCluster(LOAD_SPEC, spec, n_workers=2, out_dir=str(tmp_path),
+                        hb_interval_s=0.25, hb_timeout_s=6.0,
+                        **LOAD_LIMITS) as cl:
+        rep = cl.replay(trace, faults, speed=1.0, max_wall_s=240)
+        cl.stop()
+        boots, paths = cl.boot_s, cl.obs_paths
+    _on_card(boots)
+    assert [k["detected_by"] for k in rep.kills] == ["heartbeat"]
+    assert rep.n_done == len(trace.normal())
+    assert_token_exact(rep.completed(), oracle_replay(
+        trace, lambda: build_engine(LOAD_SPEC, dict(spec, max_queue=None))))
+    for path in paths:
+        recs, _ = load_records_tolerant(path)
+        last = []
+        for r in recs:
+            last = [] if r["kind"] == "meta" else last + [r]
+        k7 = sum(r["value"] for r in last if r["name"] == "kernel.launches"
+                 and r["labels"].get("kernel") == "ragged_paged")
+        ticks = sum(r["value"] for r in last
+                    if r["name"] == "serve.ragged_batch_launches")
+        assert k7 == LOAD_SPEC["n_layers"] * ticks > 0, (path, k7, ticks)
+
+
+def _fleet(tmp_path, requests, faults=(), *, spec=None, speed=25.0, **kw):
+    from burst_attn_tpu_torch.fleet import FleetCluster, fleet_oracle
+
+    spec = spec or dict(LOAD_SPEC, attn_backend="fused_ring")
+    oracle, _ = fleet_oracle(requests, spec, prefill_spec=FLEET_PSPEC,
+                             decode_spec=FLEET_DSPEC)
+    kw = dict(dict(n_prefill=1, n_decode=1, out_dir=str(tmp_path)), **kw)
+    with FleetCluster(spec, prefill_spec=FLEET_PSPEC,
+                      decode_spec=FLEET_DSPEC, **LOAD_LIMITS, **kw) as fc:
+        rep = fc.replay(requests, list(faults), speed=speed,
+                        max_wall_s=240.0)
+        fc.stop()
+        boots, stopped = fc.boot_s, fc.stopped
+    _on_card(boots)
+    _fleet_exact(rep, oracle)
+    for info in stopped.values():  # no hog left: every pool drained
+        assert info["pool_free"] == info["pool_usable"], stopped
+    return rep, fc, stopped
+
+
+def test_fleet_hog_stall_cross_boundary_on_card(dev, tmp_path):
+    """A hogged prefill pool (retryable prefill failures until the unhog)
+    and a stalled replica: absorbed by the router's retries."""
+    from burst_attn_tpu_torch.fleet import FleetFault
+
+    rep, _, stopped = _fleet(tmp_path, _fleet_trace(3, dt=0.1), [
+        FleetFault(t=0.0, pool="prefill", worker=0, kind="hog", arg=3),
+        FleetFault(t=50.0, pool="prefill", worker=0, kind="unhog"),
+        FleetFault(t=0.0, pool="decode", worker=0, kind="stall", arg=1.5)])
+    assert any(o.retries > 0 for o in rep.outcomes.values())
+    info = stopped[("prefill", 0)]
+    assert info["kernels"]["fused_ring_fwd"] == \
+        LOAD_SPEC["n_layers"] * info["ring_prefills"] > 0, info
+
+
+def test_fleet_hang_heartbeat_both_pools_on_card(dev, tmp_path):
+    from burst_attn_tpu_torch.fleet import FleetFault
+
+    rep, _, _ = _fleet(tmp_path, _fleet_trace(3), [
+        FleetFault(t=0.0, pool="prefill", worker=0, kind="hang"),
+        FleetFault(t=0.3, pool="decode", worker=0, kind="hang")],
+        n_prefill=2, n_decode=2, checkpoint_every=1, hb_interval_s=0.5,
+        hb_timeout_s=8.0)
+    hb = {(k["pool"], k["worker"]) for k in rep.kills
+          if k["detected_by"] == "heartbeat"}
+    assert ("prefill", 0) in hb and ("decode", 0) in hb, rep.kills
+
+
+def test_fleet_prefill_kill_and_scan_route_on_card(dev, tmp_path):
+    """A busy prefill worker SIGKILLed: its request re-runs on the
+    sibling.  The prefill ring here is the scan route (kernel 1 in every
+    round): its launches W^2 a layer a pass, no kernel 8."""
+    from burst_attn_tpu_torch.fleet import FleetFault
+
+    rep, _, stopped = _fleet(
+        tmp_path, _fleet_trace(3, prompt_len=256, seed0=300, dt=0.02),
+        [FleetFault(t=0.1, pool="prefill", worker=0, kind="kill")],
+        spec=dict(LOAD_SPEC, attn_backend="auto"), n_prefill=2)
+    assert any(k["pool"] == "prefill" for k in rep.kills), rep.kills
+    info = stopped[("prefill", 1)]
+    w = FLEET_PSPEC["sp"]
+    assert info["kernels"]["fused_ring_fwd"] == 0
+    assert info["kernels"]["flash_fwd"] == \
+        LOAD_SPEC["n_layers"] * w * w * info["ring_prefills"] > 0, info
+
+
+def test_fleet_autoscale_on_card(dev, tmp_path):
+    """Sustained pressure (requests waiting, no free decode slot) spawns a
+    replica, at most max_decode even while it boots, and the idle fleet
+    scales back down.  The card decodes faster than the requests arrive,
+    so a stalled replica makes the pressure; the late arrival keeps the
+    replay open while the new replica boots, the fleet idles (10 scale
+    checks of 0.2 s) and scales down.  Speed 1: the re-ship backoff of the
+    transfers the stalled replica refuses runs in wall seconds."""
+    from burst_attn_tpu_torch.fleet import FleetFault
+    from burst_attn_tpu_torch.loadgen.trace import TraceRequest
+
+    late = TraceRequest(rid=5, t_arrival=30.0, prompt_len=128,
+                        prompt_seed=405, max_new_tokens=3)
+    rep, _, _ = _fleet(tmp_path, _fleet_trace(5, seed0=400, max_new=6,
+                                              dt=0.02, extra=[late]),
+                       [FleetFault(t=0.0, pool="decode", worker=0,
+                                   kind="stall", arg=3.0)],
+                       speed=1.0, autoscale=True, max_decode=2,
+                       scale_check_interval_s=0.2, scale_up_after=2,
+                       scale_down_after=10)
+    ups = [e for e in rep.scale_events if e["action"] == "up"]
+    downs = [e for e in rep.scale_events if e["action"] == "down"]
+    assert ups and downs, rep.scale_events
+    assert len(ups) - len(downs) <= 1, rep.scale_events
+
+
+def test_fleet_trace_tree_on_card(dev, tmp_path):
+    """A traced fleet replay: complete trees across router, prefill,
+    transfer and decode processes, whose phases sum to the TTFT."""
+    from burst_attn_tpu_torch.obs import trace as tracing
+    from burst_attn_tpu_torch.obs.aggregate import build_trace_trees
+
+    try:
+        rep, fc, _ = _fleet(tmp_path, _fleet_trace(3, seed0=500),
+                            trace=True)
+    finally:
+        tracing.enable(False)
+    _metrics, _spans, meta = fc.merged()
+    trees = build_trace_trees(meta.get("traces", ()),
+                              meta.get("truncated_processes", ()))
+    need = {"fleet.request", "fleet.first_token", "fleet.prefill",
+            "fleet.ship", "fleet.transfer", "fleet.commit", "fleet.decode"}
+    ok = 0
+    for tree in trees:
+        names = {s["name"] for s in tree["spans"]}
+        procs = {str(s.get("process_index")) for s in tree["spans"]}
+        bd = tracing.ttft_breakdown(tree["spans"])
+        if not (tree["complete"] and need <= names and len(procs) >= 2
+                and bd and bd["ttft_s"] > 0):
+            continue
+        assert abs(sum(bd["phases"].values()) - bd["ttft_s"]) \
+            <= 0.01 * bd["ttft_s"], (tree["trace_id"], bd)
+        ok += 1
+    assert ok >= 1, [(t["trace_id"], sorted({s["name"] for s in t["spans"]}))
+                     for t in trees]

@@ -40,7 +40,12 @@ ring = ["parallel.mesh", "parallel.ring", "parallel.schedule",
 bench = ["bench", "bench.step_probe"]
 obs = ["obs", "obs.registry", "obs.logs", "obs.spans", "obs.trace",
        "obs.aggregate", "obs.__main__", "obs.devstats"]
-bad += [m for m in ring + bench + obs
+serving_under_load = [
+    "protocols.pool", "protocols.transport", "protocols.kvtransfer",
+    "loadgen", "loadgen.trace", "loadgen.driver", "loadgen.slo",
+    "loadgen.worker", "loadgen.cluster", "loadgen.__main__", "fleet",
+    "fleet.transport", "fleet.kvplane", "fleet.policy", "fleet.fleet"]
+bad += [m for m in ring + bench + obs + serving_under_load
         if pkg.__name__ + "." + m not in names]
 print(len(names), bad)
 """
@@ -75,6 +80,48 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Mesh({"sp": 2})
     assert Mesh({"sp": 2}, device="cpu").device == torch.device("cpu")
+
+
+def test_worker_specs_default_to_the_card():
+    """A loadgen / fleet worker spec without "device" resolves to the
+    card: without one the worker's build raises (its loop turns that into
+    an "error" frame), it never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA behaviour")
+    from burst_attn_tpu_torch.loadgen import worker
+
+    spec = dict(vocab=16, d_model=8, n_layers=1, n_heads=1, n_kv_heads=1,
+                d_head=8, d_ff=8, seed=0)
+    engine = dict(slots=1, n_pages=2, max_pages_per_seq=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.build_engine(spec, engine)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.model_from_spec(spec)
+    eng = worker.build_engine(dict(spec, device="cpu"), engine)
+    assert eng.device == torch.device("cpu")
+
+
+_NO_ML_DTYPES = """
+import sys
+sys.modules["ml_dtypes"] = None
+sys.modules["msgpack"] = None
+import torch
+from burst_attn_tpu_torch.fleet import kvplane, transport
+page = {"k": [torch.ones(1, 128, 8, dtype=torch.bfloat16)],
+        "v": [torch.ones(1, 128, 8).to(torch.float8_e4m3fn)]}
+msg = transport.decode_message(transport.encode_message(page))
+assert transport._msgpack is None
+assert kvplane.page_digest(msg) == kvplane.page_digest(page)
+print("ok")
+"""
+
+
+def test_fleet_wire_imports_without_ml_dtypes_or_msgpack():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _NO_ML_DTYPES], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_training_entry_points_default_to_the_card(tmp_path):

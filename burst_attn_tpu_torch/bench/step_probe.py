@@ -37,10 +37,12 @@ import sys
 import numpy as np
 import torch
 
+from ..analysis.costmodel import HW
 from ..ops import _build
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
-PEAK_BF16_FLOPS = 989e12
+# the H100's roofline (the cost model's h100 row: the one source)
+HBM_BYTES_PER_S = HW["h100"].hbm_bw
+PEAK_BF16_FLOPS = HW["h100"].peak_flops
 L2_BYTES = 50 * 2**20        # the H100's L2
 ROWS_PER_CTA = 16            # q rows per CTA (csrc/step_probe.cu RQ)
 OUT_COLS = 128               # the accumulator's columns

@@ -824,6 +824,23 @@ cudaError_t dispatch_pool(int kv_dtype, int dtype, const Params& p,
   return cudaErrorInvalidValue;
 }
 
+// The attributes (common.cuh kernel_attrs) of the untraced instance
+// without a window for q `T` on a pool of `KV` (the other instances of a
+// pool share its shared memory)
+template <typename T, typename KV, bool QUANT>
+cudaError_t attrs_of(int* out) {
+  return kernel_attrs(ragged_kernel<T, KV, QUANT, false, false>, NT,
+                      smem_bytes<T, KV, QUANT>(), out);
+}
+
+template <typename T>
+cudaError_t attrs_pool(int kv_dtype, int dtype, int* out) {
+  if (kv_dtype == dtype) return attrs_of<T, T, false>(out);
+  if (kv_dtype == kInt8) return attrs_of<T, int8_t, true>(out);
+  if (kv_dtype == kFp8E4M3) return attrs_of<T, __nv_fp8_e4m3, true>(out);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q_lens may be null: one query token per slot whose kv_lens is > 0 (paged
@@ -901,5 +918,15 @@ extern "C" int ragged_paged_launch(
     return (int)dispatch_pool<__nv_bfloat16>(kv_dtype, dtype, p, st);
   if (dtype == kFloat32)
     return (int)dispatch_pool<float>(kv_dtype, dtype, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One instance's registers a thread, local (spill) bytes a thread, dynamic
+// shared memory and resident CTAs on the card: out[0..3], for q `dtype` on
+// a `kv_dtype` pool (kv_dtype == dtype: a pool in q's dtype).
+extern "C" int ragged_paged_attrs(int dtype, int kv_dtype, int* out) {
+  if (dtype == kBFloat16)
+    return (int)attrs_pool<__nv_bfloat16>(kv_dtype, dtype, out);
+  if (dtype == kFloat32) return (int)attrs_pool<float>(kv_dtype, dtype, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,7 @@
 """Disaggregated prefill/decode serving fleet (port of
-burst_attn_tpu/fleet; the JAX package's simulator, `sim.py`, is not
-ported yet).
+burst_attn_tpu/fleet).
 
-Four modules, bottom up:
+Five modules, bottom up:
 
   transport.py  one wire protocol — length-prefixed, CRC-framed msgpack
                 (JSON fallback) — with two carriers: multiprocessing
@@ -19,6 +18,10 @@ Four modules, bottom up:
                 paged-decode replica pool behind one router, with
                 cross-boundary failover (heartbeats, journaled resume,
                 snapshot restarts) and load-aware routing + autoscaling.
+  sim.py        the discrete-event simulator of a fleet, on the same
+                policy functions, priced by the cost model
+                (analysis/costmodel.py) or by rates calibrated from a
+                fleet run (imported on its own: `fleet.sim`).
 """
 
 from .transport import (  # noqa: F401

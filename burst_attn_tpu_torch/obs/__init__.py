@@ -98,13 +98,15 @@ def _process_index() -> int:
     """This process's index in a multi-process job: torch.distributed's
     rank when a process group is up, else RANK from the environment, else
     0."""
-    try:
-        import torch.distributed as dist
+    import torch.distributed as dist
 
-        if dist.is_available() and dist.is_initialized():
+    if dist.is_available() and dist.is_initialized():
+        try:
             return int(dist.get_rank())
-    except Exception:  # noqa: BLE001 - no process group == process 0
-        pass
+        except (RuntimeError, ValueError) as e:  # a group torn down
+            get_logger("obs").warning(
+                "torch.distributed.get_rank() failed (%s: %s); taking the "
+                "process index from RANK", type(e).__name__, e)
     try:
         return int(os.environ.get("RANK", "0"))
     except ValueError:

@@ -88,6 +88,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # out acc m l ws counters trace, S Nkv G QT D page width window
         # ppd nsd ppf nsf n_ws dtype kv_dtype, scale, stream
         "ragged_paged_launch": [P] * 16 + [I] * 15 + [F] + [P],
+        # q dtype, pool dtype (kInt8 / kFp8E4M3, or q's), int out[4]
+        "ragged_paged_attrs": [I, I, ctypes.POINTER(I)],
     },
     "step_probe": {
         # q pool out sums, bq bkv d n_pool steps matmul n_cta, stream

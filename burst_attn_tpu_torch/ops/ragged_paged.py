@@ -337,6 +337,26 @@ def launch(q, k_pages, v_pages, page_table, q_lens, kv_lens, k_scales,
     return result
 
 
+def ragged_attrs():
+    """_build.kernel_attrs of the kernel's instances, one per (q dtype,
+    pool dtype): labels "bf16", "bf16 int8", "bf16 fp8", "fp32", "fp32
+    int8", "fp32 fp8" (a pool in q's dtype, or a 1-byte one with its
+    scales; the window and trace instances share their pool's shared
+    memory)."""
+    from .paged_attention import KERNEL_POOL_DTYPES
+
+    inst = {}
+    for q_name, q_dtype in (("bf16", torch.bfloat16),
+                            ("fp32", torch.float32)):
+        code = KERNEL_DTYPES[q_dtype]
+        inst[q_name] = (code, code)
+        for pool_name, pool_dtype in (("int8", torch.int8),
+                                      ("fp8", torch.float8_e4m3fn)):
+            inst[f"{q_name} {pool_name}"] = (code,
+                                             KERNEL_POOL_DTYPES[pool_dtype])
+    return _build.kernel_attrs("ragged_paged", inst)
+
+
 TRACE_FIELDS = ("kind", "a", "e", "t0_ns", "t1_ns", "cycles")
 TRACE_KINDS = ("exit", "decode", "prefill")
 

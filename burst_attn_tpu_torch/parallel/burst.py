@@ -549,10 +549,10 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
         last hop) and dequantize-after-receive to fp32."""
         if wire is None:
             return [t for (t,) in ppermute([(x,) for x in dqs], axis,
-                                           n_inter, n_intra)]
+                                           n_inter, n_intra, cls="dq")]
         sent = [wire_quantize(x, wire, (2, 3)) for x in dqs]
         return [wire_dequantize(g, sc, torch.float32) for g, sc in
-                ppermute(sent, axis, n_inter, n_intra)]
+                ppermute(sent, axis, n_inter, n_intra, cls="dq")]
 
     # Static round truncation, bwd roles: with the q side rotating, round
     # r's q part is me - r, so a truncated contig ring's LIVE rounds are

@@ -15,9 +15,18 @@ stages, not ring positions (parallel/pipeline.py): each stage's ring sees
 only its sequence axes (`seq_mesh`), so the ring never counts pp as an
 extra axis.  The multi-process communicator of a ring across cards comes
 with a later slice.
+
+`record_collectives()` is the analyzer's recorder (analysis/
+ringcheck.py): while it is active, every `ppermute` appends (cls, axis,
+hops) — the rotation offset derived from the copies it actually made,
+None if they were not a uniform rotation — and every `all_to_all`
+appends ("a2a", axis, None).  The class is the call site's ("pay" for a
+payload rotation, "dq" for the backward's dq ring).  Off, it costs each
+collective one `None` check.
 """
 
-from typing import Dict, List, Sequence, Tuple, Union
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -107,27 +116,74 @@ def unshard(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
     return x.movedim(0, dim).flatten(dim, dim + 1)
 
 
+# the active recorder's event list, or None (see record_collectives)
+_RECORDER: Optional[List[Tuple[str, str, Optional[int]]]] = None
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Record every collective issued inside the block: yields the list
+    the ppermute / all_to_all calls append (cls, axis, hops) to, in issue
+    order.  Nests: an inner recorder sees only its own block's events."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, []
+    try:
+        yield _RECORDER
+    finally:
+        _RECORDER = prev
+
+
+def rotation_offset(pairs, n: int) -> Optional[int]:
+    """Uniform rotation offset of a permutation given as (src, dst) ranks
+    over 0..n-1 (every dst = src + offset mod n), or None when it is not
+    a bijective constant-offset rotation."""
+    srcs = sorted(s for s, _ in pairs)
+    dsts = sorted(d for _, d in pairs)
+    if srcs != list(range(n)) or dsts != list(range(n)):
+        return None
+    offs = {(d - s) % n for s, d in pairs}
+    return offs.pop() if len(offs) == 1 else None
+
+
+def record_permutation(cls: str, axis: str, pairs, n: int) -> None:
+    """Append one permutation of `axis` (size n; (src, dst) rank pairs)
+    to the active recorder, as (cls, axis, its rotation offset)."""
+    if _RECORDER is not None:
+        _RECORDER.append((cls, axis, rotation_offset(pairs, n)))
+
+
 def ppermute(parts: Sequence[Tuple[torch.Tensor, ...]], axis: str,
-             n_inter: int, n_intra: int, hops: int = 1
+             n_inter: int, n_intra: int, hops: int = 1, cls: str = "pay"
              ) -> List[Tuple[torch.Tensor, ...]]:
     """Rotate every position's payload (a tuple of tensors) `hops`
     positions forward along the ring's "intra" or "inter" axis: position
-    p receives a COPY of the payload of the position `hops` behind it."""
+    p receives a COPY of the payload of the position `hops` behind it.
+    `cls` names the stream for the recorder ("pay" or "dq")."""
     if axis not in ("intra", "inter"):
         raise ValueError(f"axis must be 'intra' or 'inter', got {axis!r}")
-    out = []
+    out, srcs = [], []
     for p in range(n_inter * n_intra):
         ii, si = ring_coords(p, n_inter, n_intra)
         if axis == "intra":
             src = ii * n_intra + (si - hops) % n_intra
         else:
             src = ((ii - hops) % n_inter) * n_intra + si
+        srcs.append(src)
         out.append(tuple(t.clone() for t in parts[src]))
+    if _RECORDER is not None:
+        # the (src, dst) ranks along the axis of the copies just made
+        k = 1 if axis == "intra" else 0
+        moves = {(ring_coords(src, n_inter, n_intra)[k],
+                  ring_coords(p, n_inter, n_intra)[k])
+                 for p, src in enumerate(srcs)}
+        record_permutation(cls, axis, moves,
+                           n_intra if axis == "intra" else n_inter)
     return out
 
 
 def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
-               concat_dim: int) -> List[torch.Tensor]:
+               concat_dim: int, axis: Optional[str] = None
+               ) -> List[torch.Tensor]:
     """The tiled all-to-all of W positions (lax.all_to_all(x, axis,
     split_axis=split_dim, concat_axis=concat_dim, tiled=True) inside
     shard_map): each position's tensor splits into W equal chunks along
@@ -135,13 +191,16 @@ def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
     concatenated along `concat_dim` in peer order.  The result is a
     fresh COPY per position (torch.cat), so the bytes the exchange
     moves are moved; differentiable through autograd (the transpose of
-    an all-to-all is the all-to-all back)."""
+    an all-to-all is the all-to-all back).  `axis` names the mesh axis
+    for the recorder."""
     w = len(parts)
     for t in parts:
         if t.shape[split_dim] % w:
             raise ValueError(f"dim {split_dim} of length "
                              f"{t.shape[split_dim]} does not divide by the "
                              f"{w} positions of the all-to-all")
+    if _RECORDER is not None:
+        _RECORDER.append(("a2a", axis, None))
     chunks = [t.chunk(w, dim=split_dim) for t in parts]
     return [torch.cat([chunks[q][p] for q in range(w)], dim=concat_dim)
             for p in range(w)]

@@ -192,12 +192,12 @@ def moe_apply(p: MoEParams, x, *, mesh=None, axis: Optional[str] = "ep",
     # [E, C, d] a position -> [E/ep, C*ep, d]: its experts' slots of
     # every peer
     hs = all_to_all([dispatch(xp, r) for xp, r in zip(xs, rs)],
-                    split_dim=0, concat_dim=1)
+                    split_dim=0, concat_dim=1, axis=axis)
     el = e // ep
     outs = [expert_mlp(*(w[i * el:(i + 1) * el]
                          for w in (p.w_gate, p.w_up, p.w_down)), h)
             for i, h in enumerate(hs)]
-    outs = all_to_all(outs, split_dim=1, concat_dim=0)
+    outs = all_to_all(outs, split_dim=1, concat_dim=0, axis=axis)
     y = torch.cat([combine(o, r, x.dtype).reshape(b, t // ep, d)
                    for o, r in zip(outs, rs)], dim=1)
     aux = torch.stack([r.aux for r in rs]).mean()

@@ -90,11 +90,12 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
     # tensors (position p holds slice p), copied only by the exchange
     qs, ks, vs = (t.chunk(w, dim=2) for t in (q, k, v))
     # scatter heads, gather the sequence: [B, N/W, S, D] a position
-    qh = all_to_all(qs, split_dim=1, concat_dim=2)
-    kh = all_to_all(ks, split_dim=1, concat_dim=2)
-    vh = all_to_all(vs, split_dim=1, concat_dim=2)
+    qh = all_to_all(qs, split_dim=1, concat_dim=2, axis=seq_axis)
+    kh = all_to_all(ks, split_dim=1, concat_dim=2, axis=seq_axis)
+    vh = all_to_all(vs, split_dim=1, concat_dim=2, axis=seq_axis)
     oh = [_local_attention(qh[p], kh[p], vh[p], scale, causal, backend,
                            window=window, segment_ids=segment_ids)
           for p in range(w)]
     # scatter the sequence back, gather the heads
-    return torch.cat(all_to_all(oh, split_dim=2, concat_dim=1), dim=2)
+    return torch.cat(all_to_all(oh, split_dim=2, concat_dim=1,
+                                axis=seq_axis), dim=2)

@@ -233,7 +233,18 @@ Phases (any failure exits non-zero; nothing is caught):
      launches, losses against plain attention under the band and one
      device, fp32 parity at 2 layers); `[t s]` marks give the seconds
      since the start after each group of phases;
- 11. a `train` JSON line, a `kernels` JSON line, then the result line
+ 11. (after the fleet phase) the analyzer (burst_attn_tpu_torch.analysis)
+     in-process: its CPU families and its card half, zero findings —
+     every planned kernel instance's shared memory equal to
+     cudaFuncGetAttributes', <= 227 KB, at the CTAs an SM the plan
+     assumes; fused-ring-fused on the card's fused route (zero
+     rotations, one launch a pass, kernel 8's slot counters the
+     program's); the measured times of kernels 8-9 at the headline and
+     6-7 at their decode shapes beside the cost model's h100 floors (none
+     under 0.95 x); the simulator calibrated from the fleet phase's bf16
+     run (fidelity within SIM_FIDELITY_RTOL) beside the cost table's
+     h100 rates;
+ 12. a `train` JSON line, a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -248,9 +259,12 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), from the
+# cost model's h100 row, the one source of the port's roofline
+from burst_attn_tpu_torch.analysis.costmodel import HW
+
+PEAK_BF16_FLOPS = HW["h100"].peak_flops
+PEAK_HBM_BYTES = HW["h100"].hbm_bw
 
 # the serving benchmark's model (benchmarks/serve_bench.py defaults) at
 # its full width; depth cut from 8 layers to 4 so that the smoke, with
@@ -593,8 +607,12 @@ def _table(seed, lengths, n_pages, page, width, device):
     return torch.from_numpy(table).to(device)
 
 
+# the paged decode kernel's check batch: 8 slots of ragged lengths
+PAGED_LENGTHS = (0, 1, 128, 2112, 2048, 1000, 129, 1536)
+
+
 def check_paged_decode(device, n_kv=4, group=4, d=128, page=PAGE,
-                       lengths=(0, 1, 128, 2112, 2048, 1000, 129, 1536),
+                       lengths=PAGED_LENGTHS,
                        n_pages=N_PAGES, width=MAX_PAGES, dtype=None,
                        quant=None, seed=0, timing=True):
     """paged_decode_attention against paged_decode_reference on the card
@@ -8682,6 +8700,10 @@ def fleet_run_phase(out_root):
             # 138 tokens are too few for a 95% rate at the ~3.5% flip
             # rate: every disagreement a near tie
             check_agreement("fleet, bf16", agree, True, min_agree=0.0)
+        if dtype == "bfloat16":  # the fault-free run: the sim's input
+            res["_sim"] = dict(trace=trace, outcomes=rep.outcomes,
+                               n_replicas=2, slots=dspec["slots"],
+                               n_prefill=1)
         res[dtype] = {"transport": transport, "wall_s": rep.wall_s,
                       "start_s": start_s,
                       "fleet_s": time.perf_counter() - t0,
@@ -8736,6 +8758,7 @@ def fleet_phase(device):
     torch.cuda.empty_cache()
     res["cluster"] = cluster_phase(out_root)
     res["fleet"] = fleet_run_phase(out_root)
+    res["_sim"] = res["fleet"].pop("_sim")
     res["launches"] = {
         "ragged_paged": res["load"]["launches"],
         "flash_fwd": res["cluster"]["launches"]["flash_fwd"],
@@ -8747,6 +8770,106 @@ def fleet_phase(device):
     os.remove(_FLEET_WEIGHTS.pop("path"))
     res["seconds"] = time.perf_counter() - t0
     print(f"fleet phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def analysis_phase(sim_in, k8_rec, k9_rec, k6_rec, k7_rec):
+    """The analyzer on the card: its CPU families and its card half in
+    this process (zero findings); the measured times the smoke already
+    took beside the cost model's h100 floors; the simulator calibrated
+    from the fleet phase's bf16 run.  Returns the numbers."""
+    import torch
+
+    from burst_attn_tpu_torch.analysis import costcheck, ringcheck
+    from burst_attn_tpu_torch.analysis import costmodel as cm
+    from burst_attn_tpu_torch.analysis.core import (
+        RULES, register_all, run_analysis,
+    )
+    from burst_attn_tpu_torch.fleet import sim
+    from burst_attn_tpu_torch.ops.tuning import resolve_fused
+
+    t0 = time.perf_counter()
+    register_all()
+    not_run = {}
+    findings = run_analysis(not_run=not_run)
+    t_cpu = time.perf_counter() - t0
+    # the card half: what run_analysis(card=True) adds to the families
+    t1 = time.perf_counter()
+    card = costcheck.check_card() + ringcheck.check_card()
+    t_card = time.perf_counter() - t1
+    findings += card
+    assert not findings, "\n".join(f.format() for f in findings)
+    plans = cm.kernel_smem_plans()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"analysis: {len(RULES)} rules, zero findings; CPU families "
+          f"{t_cpu:.1f} s (not run without the card: {sorted(not_run)}), "
+          f"card half {t_card:.1f} s: {len(plans)} kernel instances' "
+          f"shared memory equal to their plans (largest "
+          f"{max(p.smem for p in plans)} B of {cm.SMEM_LIMIT}), resident "
+          f"CTAs within the plans on {n_sm} SMs; fused-ring-fused clean on "
+          f"{len(ringcheck.CARD_CASES)} fused configs", flush=True)
+
+    # the measured times beside the model's floors (seconds)
+    rf = resolve_fused()
+    shape = dict(b=RING_B, n=RING_N, n_kv=RING_N, s=RING_S // RING_W, d=128)
+    rows = []
+    for rec, pass_ in ((k8_rec, "fwd"), (k9_rec, "bwd")):
+        prog = cm.compile_program(pass_, "uni", RING_W, rf)
+        est = cm.roofline(pass_, "h100", prog, layout="zigzag", causal=True,
+                          itemsize=2, **shape)
+        rows.append((rec["name"], rec["ms"] / 1e3, est.floor_s))
+    dec = dict(n_kv=4, group=4, d_head=128, pool_dtype="bf16", q_itemsize=2)
+    rows.append((k6_rec["name"] + " (device)", k6_rec["graph_ms"] / 1e3,
+                 cm.ragged_floor_s(PAGED_LENGTHS, **dec)))
+    rows.append((k7_rec["name"] + " (device)", k7_rec["graph_ms"] / 1e3,
+                 cm.ragged_floor_s(RAGGED_KV_LENS, q_lens=RAGGED_Q_LENS,
+                                   **dec)))
+    bad = costcheck.measured_floor_findings(rows)
+    assert not bad, "\n".join(f.format() for f in bad)
+    res = {"findings": 0, "rules": len(RULES), "not_run_on_cpu":
+           sorted(not_run), "cpu_s": t_cpu, "card_s": t_card,
+           "instances": len(plans), "n_sm": n_sm, "floors": []}
+    for name, meas, floor in rows:
+        res["floors"].append({"name": name, "ms": meas * 1e3,
+                              "floor_ms": floor * 1e3,
+                              "ratio": meas / floor})
+        print(f"analysis floor {name}: measured {meas * 1e3:.4f} ms, the "
+              f"cost model's h100 floor {floor * 1e3:.4f} ms, ratio "
+              f"{meas / floor:.3f}", flush=True)
+    for want, (name, _, floor) in zip((35.576, 88.941), rows[:2]):
+        assert abs(floor * 1e3 - want) <= 1e-3 * want, (name, floor, want)
+
+    # the simulator calibrated from the fleet phase's bf16 run
+    verdict = sim.fidelity_check(
+        sim_in["trace"], sim_in["outcomes"],
+        n_replicas=sim_in["n_replicas"], slots=sim_in["slots"],
+        n_prefill=sim_in["n_prefill"])
+    table = sim.rates_from_cost_table(generation="h100")
+    cal = verdict["rates"]
+    sim.save_rates(sim.SimRates(**cal),
+                   os.path.join(_ckpt_dir().parent, "fleet_rates.json"))
+    res["fidelity"] = {k: verdict[k] for k in (
+        "measured_goodput", "simulated_goodput", "ratio", "rtol", "ok")}
+    # the ship rate calibrates to infinity (folded into the prefill
+    # span): JSON has no inf, so it is written as null
+    res["rates"] = {"calibrated": {k: None if v == math.inf else v
+                                   for k, v in cal.items()},
+                    "table_h100": dict(table.__dict__)}
+    res["rates_ratio"] = {k: cal[k] / getattr(table, k) for k in (
+        "prefill_tokens_per_s", "decode_steps_per_s")}
+    print(f"analysis sim: fidelity on the fleet's bf16 run: measured "
+          f"goodput {verdict['measured_goodput']:.2f} tok/s (virtual), "
+          f"simulated {verdict['simulated_goodput']:.2f}, ratio "
+          f"{verdict['ratio']:.3f} (rtol {verdict['rtol']}); calibrated "
+          f"rates prefill {cal['prefill_tokens_per_s']:.1f} tok/s, decode "
+          f"{cal['decode_steps_per_s']:.2f} steps/s; the cost table's h100 "
+          f"rates prefill {table.prefill_tokens_per_s:.1f} tok/s, decode "
+          f"{table.decode_steps_per_s:.1f} steps/s; calibrated / table "
+          + ", ".join(f"{k} {v:.3g}" for k, v in res["rates_ratio"].items()),
+          flush=True)
+    assert verdict["ok"], verdict
+    res["seconds"] = time.perf_counter() - t0
+    print(f"analysis phase: {res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -9008,6 +9131,9 @@ def main() -> int:
     _mark(t_start, "devstats and obs phases")
     fleet_res = fleet_phase(device)
     _mark(t_start, "fleet phase")
+    analysis_res = analysis_phase(
+        fleet_res["_sim"], ring_rec, ring_bwd_rec, kernels[1], kernels[2])
+    _mark(t_start, "analysis phase")
     moe_srv = moe_serve_phase(device, serve_res, rag, hand)
     _MOE_PARAMS.clear()
     _mark(t_start, "moe serve phase")
@@ -9297,7 +9423,9 @@ def main() -> int:
         "ulysses_train": uly,
         "pp_train": pp_res,
         "wire": wire_res,
-        "fleet": {k: v for k, v in fleet_res.items() if k != "launches"},
+        "fleet": {k: v for k, v in fleet_res.items()
+                  if k not in ("launches", "_sim")},
+        "analysis": analysis_res,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

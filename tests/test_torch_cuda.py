@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from burst_attn_tpu_torch import obs
+from burst_attn_tpu_torch.analysis import ringcheck
 from burst_attn_tpu_torch.models import train
 from burst_attn_tpu_torch.models.serve import ServeEngine
 from burst_attn_tpu_torch.models.transformer import (
@@ -3158,3 +3159,74 @@ def test_fleet_trace_tree_on_card(dev, tmp_path):
         ok += 1
     assert ok >= 1, [(t["trace_id"], sorted({s["name"] for s in t["spans"]}))
                      for t in trees]
+
+
+# ---------------------------------------------------------------------------
+# the analyzer's card half: the cost model's shared-memory plans against
+# the compiled kernels, and fused-ring-fused on the fused route
+
+
+def test_smem_plans_equal_kernel_attrs(dev):
+    """Every instance the cost model plans is one the card reports, with
+    exactly the planned shared memory (<= 227 KB) and at least the CTAs an
+    SM its design assumes; no instance goes unplanned."""
+    from burst_attn_tpu_torch.analysis import costcheck, costmodel
+
+    attrs = costcheck.card_attrs()
+    plans = costmodel.kernel_smem_plans()
+    assert len(attrs) == len(plans)
+    for p in plans:
+        a = attrs[(p.lib, p.instance)]
+        assert a["smem"] == p.smem <= costmodel.SMEM_LIMIT, (p, a)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    findings = costcheck.check_attrs(attrs, n_sm)
+    assert findings == [], [f.format() for f in findings]
+
+
+def test_smem_plan_mutation_fires_on_the_card(dev):
+    """A plan off by one row of a tile is caught against the card."""
+    from burst_attn_tpu_torch.analysis import costcheck, costmodel
+
+    attrs = costcheck.card_attrs()
+    plans = costmodel.kernel_smem_plans()
+    bad = [p._replace(smem=p.smem + 2 * 136) if p.lib == "fused_ring_fwd"
+           else p for p in plans]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    findings = costcheck.check_attrs(attrs, n_sm, plans=bad)
+    assert findings and all(f.rule == "kernel-smem-budget"
+                            for f in findings)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ringcheck.CARD_CASES])
+def test_fused_ring_fused_on_the_card(dev, case):
+    """fused-ring-fused at W=4 (uni, bidi, double 2x2, a windowed elided
+    program): zero rotations outside kernels 8 and 9, one launch a pass,
+    kernel 8's slot counters the program's."""
+    spec = {c[0]: c for c in ringcheck.CARD_CASES}[case]
+    findings = ringcheck.verify_fused_case(*spec)
+    assert findings == [], [f.format() for f in findings]
+
+
+def test_fused_ring_fused_catches_a_scan_fallback(dev, monkeypatch):
+    """A fused gate that declines (the scan ring rotates in its place) is
+    caught: rotations recorded, no kernel launch, the fallback counted."""
+    monkeypatch.setattr(fused_ring, "supported",
+                        lambda *a, **k: "dtype forced off for the test")
+    findings = ringcheck.verify_fused_case(*ringcheck.CARD_CASES[0])
+    msgs = " ".join(f.message for f in findings)
+    assert "rotations" in msgs and "launches" in msgs, msgs
+
+
+def test_analysis_cli_card_exits_zero(dev):
+    """`python -m burst_attn_tpu_torch.analysis --card` on the card: the
+    CPU families and the card half, zero findings, nothing left not run."""
+    import json
+    import subprocess
+    import sys
+
+    r = subprocess.run([sys.executable, "-m", "burst_attn_tpu_torch.analysis",
+                        "--card", "--json"], capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    out = json.loads(r.stdout)
+    assert out["n_findings"] == 0 and out["not_run"] == {}

@@ -45,7 +45,13 @@ serving_under_load = [
     "loadgen", "loadgen.trace", "loadgen.driver", "loadgen.slo",
     "loadgen.worker", "loadgen.cluster", "loadgen.__main__", "fleet",
     "fleet.transport", "fleet.kvplane", "fleet.policy", "fleet.fleet"]
-bad += [m for m in ring + bench + obs + serving_under_load
+analyzer = ["analysis", "analysis.core", "analysis.__main__",
+            "analysis.astlint", "analysis.oracle", "analysis.ringcheck",
+            "analysis.modelcheck", "analysis.protocheck",
+            "analysis.poolcheck", "analysis.policycheck",
+            "analysis.costmodel", "analysis.costcheck", "fleet.sim",
+            "utils.testing"]
+bad += [m for m in ring + bench + obs + serving_under_load + analyzer
         if pkg.__name__ + "." + m not in names]
 print(len(names), bad)
 """
@@ -235,3 +241,32 @@ def test_chip_smoke_refuses_without_the_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_testing_helpers_match_jax():
+    """utils/testing.py: check_close with the JAX helper's tolerances and
+    NaN probe; random_qkv on an explicit generator and device."""
+    from burst_attn_tpu.utils import testing as jt
+
+    from burst_attn_tpu_torch.utils import testing as pt
+
+    assert (pt.RTOL, pt.ATOL) == (jt.RTOL, jt.ATOL)
+    a = np.linspace(-1, 1, 12, dtype=np.float32)
+    for shift, ok in ((5e-3, True), (5e-2, False)):
+        results = []
+        for fn, x in ((jt.check_close, a + shift),
+                      (pt.check_close, torch.from_numpy(a + shift))):
+            try:
+                fn(x, a)
+                results.append(True)
+            except AssertionError:
+                results.append(False)
+        assert results == [ok, ok]
+    with pytest.raises(AssertionError, match="NaN"):
+        pt.check_close(torch.tensor([float("nan")]), np.zeros(1))
+    g1, g2 = (torch.Generator().manual_seed(3) for _ in range(2))
+    q, k, v, do = pt.random_qkv(g1, 1, 4, 16, 8, kv_heads=2)
+    assert q.shape == do.shape == (1, 4, 16, 8) and q.dtype == torch.bfloat16
+    assert k.shape == v.shape == (1, 2, 16, 8)
+    assert all(torch.equal(x, y) for x, y in
+               zip((q, k, v, do), pt.random_qkv(g2, 1, 4, 16, 8, kv_heads=2)))

@@ -232,15 +232,18 @@ def card_attrs():
                 a for stats in (False, True) for seg in (False, True)
                 for win in (False, True)
                 for a in fused_ring.fwd_attrs(stats=stats, seg=seg, win=win)]
-            + fused_ring.fwd_attrs(wire=True)
-            + fused_ring.fwd_attrs(win=True, wire=True),
+            + [a for stats in (False, True) for seg in (False, True)
+               for win in (False, True)
+               for a in fused_ring.fwd_attrs(stats=stats, seg=seg, win=win,
+                                             wire=True)],
             "fused_ring_bwd": fused_ring_bwd.bwd_attrs()
             + fused_ring_bwd.bwd_attrs(stats=True)
             + fused_ring_bwd.bwd_attrs(seg=True)
             + fused_ring_bwd.bwd_attrs(win=True)
             + fused_ring_bwd.bwd_attrs(seg=True, win=True)
-            + fused_ring_bwd.bwd_attrs(wire=True)
-            + fused_ring_bwd.bwd_attrs(win=True, wire=True),
+            + [a for seg in (False, True) for win in (False, True)
+               for a in fused_ring_bwd.bwd_attrs(seg=seg, win=win,
+                                                 wire=True)],
             "ragged_paged": ragged_paged.ragged_attrs()}
     return {(lib, a["instance"]): a for lib, lst in rows.items()
             for a in lst}

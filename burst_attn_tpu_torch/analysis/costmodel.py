@@ -34,7 +34,7 @@ for "h100") prices a pass as the whole ring on one card: t_mxu = all
 positions' FLOPs / peak; the HBM time counts every position's compulsory
 traffic plus each rotation's bytes twice (read and write) at the HBM
 rate; t_comm is those copies alone.  With one position a card
-(`shared=False`, the multi-card ring of ROADMAP A7) a rotation crosses
+(`shared=False`, the multi-card ring of ROADMAP A7b) a rotation crosses
 NVLink: `ici_bw` is the H100 SXM's NVLink 4 rate in one direction
 (450 GB/s of its 900 GB/s total), spec-derived and calibration-pending
 until the multi-card ring can measure it.
@@ -249,19 +249,26 @@ def kernel_smem_plans() -> List[SmemPlan]:
                                      mma_fwd_smem(seg), 128, 2))
                     out.append(_plan("fused_ring_fwd", "fp32" + res + t,
                                      simt_fwd_smem(), 128, 2))
-    for win in (False, True):
-        t = (" win" if win else "") + " wire"
-        out.append(_plan("fused_ring_fwd", "bf16 scratch" + t,
-                         mma_fwd_smem(), 128, 2))
-        out.append(_plan("fused_ring_fwd", "fp32 scratch" + t,
-                         simt_fwd_smem(), 128, 2))
+    # the WIRE instances (scratch state only), SEG + WIRE with the SEG
+    # instances' id stages: the wire's scales ride the slots, not smem
+    for stats in (False, True):
+        for seg in (False, True):
+            for win in (False, True):
+                t = ((" stats" if stats else "") + (" seg" if seg else "")
+                     + (" win" if win else "") + " wire")
+                out.append(_plan("fused_ring_fwd", "bf16 scratch" + t,
+                                 mma_fwd_smem(seg), 128, 2))
+                out.append(_plan("fused_ring_fwd", "fp32 scratch" + t,
+                                 simt_fwd_smem(), 128, 2))
     bwd = [("bf16", False), ("bf16 traced", False), ("bf16 stats", False)]
-    bwd += [(f"bf16{a}", "seg" in a) for a in (" seg", " win", " seg win",
-                                                " wire", " win wire")]
+    bwd += [(f"bf16{a}", "seg" in a) for a in (
+        " seg", " win", " seg win", " wire", " win wire", " seg wire",
+        " seg win wire")]
     for lbl, seg in bwd:
         out.append(_plan("fused_ring_bwd", lbl, mma_bwd_smem(seg), 256))
     for lbl in ("fp32", "fp32 stats", "fp32 seg", "fp32 win", "fp32 seg win",
-                "fp32 wire", "fp32 win wire"):
+                "fp32 wire", "fp32 win wire", "fp32 seg wire",
+                "fp32 seg win wire"):
         out.append(_plan("fused_ring_bwd", lbl, simt_bwd_smem(), 256))
     for q in ("bf16", "fp32"):
         for pool, sfx in ((q, ""), ("int8", " int8"), ("fp8", " fp8")):

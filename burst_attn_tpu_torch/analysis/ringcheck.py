@@ -4,8 +4,11 @@ The JAX family abstractly traces the shard programs and walks their
 jaxprs for collectives.  The port's ring runs eagerly on one device, so
 the port RECORDS its collectives instead: parallel/mesh.py's
 `record_collectives()` makes every `ppermute` append (cls, axis, hops) —
-hops derived from the copies it actually made — and every `all_to_all`
-("a2a", axis, None).  The real forward and backward of the scan ring
+hops derived from the copies it actually made — every `all_to_all`
+("a2a", axis, None), and each Megatron collective of the dp and tp axes
+(all_reduce, broadcast, all_gather, reduce_scatter: mesh.py's
+COLLECTIVE_CLASSES) (cls, axis, None); those and the all-to-alls are no
+ring rotation, and the ring rules set them aside (_not_ring).  The real forward and backward of the scan ring
 (`burst_attn` on the CPU, backend "jnp", tiny shapes: B1 N2 D16, S = 16 x
 W) run under the recorder over a matrix of flat and double rings, and the
 recorded streams are held to the host-side schedule oracle
@@ -129,6 +132,14 @@ def _anchor(fn) -> Tuple[str, int]:
         return "<trace>", 0
 
 
+def _not_ring(cls: str) -> bool:
+    """A recorded class that is no ring rotation: an all-to-all or one of
+    the dp / tp collectives."""
+    from ..parallel.mesh import COLLECTIVE_CLASSES
+
+    return cls == "a2a" or cls in COLLECTIVE_CLASSES
+
+
 def _encode(events, findings, where, anchor):
     """Run-length encode recorded (cls, axis, hops) events into the
     oracle's (cls, axis, hops, count) form; a non-rotation is a
@@ -136,7 +147,7 @@ def _encode(events, findings, where, anchor):
     path, line = anchor
     clean = []
     for cls, axis, hops in events:
-        if cls == "a2a":
+        if _not_ring(cls):
             continue
         if hops is None:
             findings.append(Finding(
@@ -316,7 +327,7 @@ def verify_ulysses() -> List[Finding]:
         ulysses.ulysses_attn(q, k, v, mesh={"sp": 4}, causal=True,
                              backend="jnp")
     a2a = [e for e in ev if e[0] == "a2a"]
-    pperm = [e for e in ev if e[0] != "a2a"]
+    pperm = [e for e in ev if not _not_ring(e[0])]
     if len(a2a) != 4 or any(e[1] != "sp" for e in a2a):
         findings.append(Finding(
             rule="ring-order", file=anchor[0], line=anchor[1],

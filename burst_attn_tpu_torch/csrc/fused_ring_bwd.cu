@@ -140,7 +140,9 @@
 //    home wire output, which the host dequantizes).  The receiver
 //    dequantizes an arrival into its fp32 dq slot at the start of phase
 //    A, as fold contributor 0 of each q tile, so the folds stay fp32 and
-//    keep their order.  No SEG, STATS or TRACE instance with WIRE.
+//    keep their order.  WIRE combines with SEG (the ids stay int32 in
+//    the side table; the bundle's quantized q and dO are masked by them
+//    as the full-precision ones are) and WIN, not with STATS or TRACE.
 
 #include <type_traits>
 
@@ -1013,12 +1015,13 @@ cudaError_t attrs(int* out) {
 }
 
 // the instances without TRACE and STATS, by (SEG, WIN), and the WIRE
-// instances (by WIN; not with SEG)
+// instances (by SEG and WIN)
 template <typename T>
 cudaError_t setup_plain(bool seg, bool win, int* max_blocks,
                         bool wire = false) {
   if (wire)
-    return seg ? cudaErrorInvalidValue
+    return seg ? (win ? setup<T, 128, false, false, true, true, true>(max_blocks)
+                      : setup<T, 128, false, false, true, false, true>(max_blocks))
            : win ? setup<T, 128, false, false, false, true, true>(max_blocks)
                  : setup<T, 128, false, false, false, false, true>(max_blocks);
   if (seg)
@@ -1030,7 +1033,8 @@ cudaError_t setup_plain(bool seg, bool win, int* max_blocks,
 template <typename T>
 cudaError_t attrs_plain(bool seg, bool win, int* out, bool wire = false) {
   if (wire)
-    return seg ? cudaErrorInvalidValue
+    return seg ? (win ? attrs<T, 128, false, false, true, true, true>(out)
+                      : attrs<T, 128, false, false, true, false, true>(out))
            : win ? attrs<T, 128, false, false, false, true, true>(out)
                  : attrs<T, 128, false, false, false, false, true>(out);
   if (seg)
@@ -1043,7 +1047,8 @@ template <typename T>
 cudaError_t launch_plain(bool seg, bool win, const Params& p,
                          cudaStream_t st) {
   if (p.wire != 0)
-    return seg ? cudaErrorInvalidValue
+    return seg ? (win ? launch<T, 128, false, false, true, true, true>(p, st)
+                      : launch<T, 128, false, false, true, false, true>(p, st))
            : win ? launch<T, 128, false, false, false, true, true>(p, st)
                  : launch<T, 128, false, false, false, false, true>(p, st);
   if (seg)
@@ -1072,13 +1077,12 @@ extern "C" int fused_ring_bwd_capacity(int D, int dtype, int seg, int win,
 // shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
 // TRACE (bf16 only), bit 1 STATS (not with TRACE), bit 2 SEG, bit 3 WIN
 // (SEG and WIN alone or together, with neither TRACE nor STATS), bit 4
-// WIRE (alone or with WIN).
+// WIRE (alone or with SEG and WIN, with neither TRACE nor STATS).
 extern "C" int fused_ring_bwd_attrs(int dtype, int flags, int* out) {
   const int trace = flags & 1, stats = (flags >> 1) & 1,
             seg = (flags >> 2) & 1, win = (flags >> 3) & 1,
             wire = (flags >> 4) & 1;
-  if ((trace && stats) || ((seg || win || wire) && (trace || stats)) ||
-      (wire && seg))
+  if ((trace && stats) || ((seg || win || wire) && (trace || stats)))
     return (int)cudaErrorInvalidValue;
   if (dtype == kBFloat16)
     return (int)(trace   ? attrs<__nv_bfloat16, 128, true, false>(out)
@@ -1095,7 +1099,7 @@ extern "C" int fused_ring_bwd_attrs(int dtype, int flags, int* out) {
 // or slot_use.  wire: 0, or kInt8 / kFp8E4M3 (the WIRE instances: first,
 // dO, q the quantized bundle, lse followed by its scales, the home
 // outputs wire buffers; wptrs [W][2] the dq wire banks of dq_wslot_bytes
-// a slot); not with seg, trace or slot_use.
+// a slot); not with trace or slot_use.
 extern "C" int fused_ring_bwd_launch(
     const void* first, const void* dO, const void* q, const void* lse,
     const void* k, const void* v, const void* ptrs, const void* sched,
@@ -1111,8 +1115,7 @@ extern "C" int fused_ring_bwd_launch(
       (banded && (trace != nullptr || slot_use != nullptr)))
     return (int)cudaErrorInvalidValue;
   if (wire != 0 &&
-      ((wire != kInt8 && wire != kFp8E4M3) || seg != nullptr ||
-       trace != nullptr || slot_use != nullptr || wptrs == nullptr ||
+      ((wire != kInt8 && wire != kFp8E4M3) || trace != nullptr || slot_use != nullptr || wptrs == nullptr ||
        dq_wslot_bytes % 16 != 0))
     return (int)cudaErrorInvalidValue;
   Params p{first,

@@ -128,7 +128,9 @@
 // round that consumes the position's own partition (the op table's PART
 // column) reads the resident full-precision k_in, v_in instead, as the
 // scan ring's self round does: only bytes that cross a link are
-// quantized.  No SEG instance with WIRE, and no RESIDENT one: the WIRE
+// quantized.  WIRE combines with SEG (the kv ids of the consumed
+// partition stay full int32 in the side table: only K and V cross a link
+// quantized) and with WIN, but has no RESIDENT instance: the WIRE
 // instances keep the state in the scratch between rounds whatever the
 // item count (half the instances to build; the scratch costs well under
 // 1% of a round, see State above).
@@ -424,15 +426,17 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
         if (r > 0 && !RESIDENT)
           mma_load(wt, p.st_m, p.st_l, p.st_acc, at0, q0, S);
         if constexpr (WIRE)
-          mma_fold<WIN, false, true>(
+          mma_fold<WIN, SEG, true>(
               wt, mQ, mKV,
               reinterpret_cast<const __nv_bfloat16*>(
                   reinterpret_cast<const char*>(kc) + bhk * kv_rows),
               reinterpret_cast<const __nv_bfloat16*>(
                   reinterpret_cast<const char*>(vc) + bhk * kv_rows),
               S, S, q0, p.scale_log2, row[0], row[1], row[2], row[3],
-              row[4], WIN ? p.window : 0, nullptr, nullptr, nullptr, wire,
-              wire ? ksc[bhk] : 1.f, wire ? vsc[bhk] : 1.f);
+              row[4], WIN ? p.window : 0, qids, kvids,
+              SEG ? reinterpret_cast<int*>(mKV + 4 * 64 * kTileLd)
+                  : nullptr,
+              wire, wire ? ksc[bhk] : 1.f, wire ? vsc[bhk] : 1.f);
         else if constexpr (SEG)
           mma_fold<WIN, true>(
               wt, mQ, mKV, kc + bhk * S * D, vc + bhk * S * D, S, S, q0,
@@ -492,14 +496,14 @@ __global__ void __launch_bounds__(NT) fused_ring_fwd_kernel(const Params p) {
         }
 
         if constexpr (WIRE)
-          flash::fold<T, D, true, WIN, false, true>(
+          flash::fold<T, D, true, WIN, SEG, true>(
               st, sQ, sK, sV,
               reinterpret_cast<const T*>(reinterpret_cast<const char*>(kc) +
                                          bhk * kv_rows),
               reinterpret_cast<const T*>(reinterpret_cast<const char*>(vc) +
                                          bhk * kv_rows),
               S, q0, S, row[0], row[1], row[2], row[3], row[4],
-              WIN ? p.window : 0, nullptr, nullptr, wire,
+              WIN ? p.window : 0, qids, kvids, wire,
               wire ? ksc[bhk] : 1.f, wire ? vsc[bhk] : 1.f);
         else if constexpr (SEG)
           flash::fold<T, D, true, WIN, true>(
@@ -616,8 +620,8 @@ cudaError_t attrs(int* out) {
   return cudaSuccess;
 }
 
-// the instances: (SEG, WIN) x (STATS) x (RESIDENT), and WIRE without SEG
-// and RESIDENT
+// the instances: (SEG, WIN) x (STATS) x (RESIDENT), and WIRE by (SEG, WIN)
+// x (STATS) without RESIDENT
 template <typename T, int D, bool STATS, bool SEG, bool WIN, bool WIRE>
 cudaError_t dispatch_state(int resident, const Params& p, cudaStream_t st) {
   if constexpr (WIRE)
@@ -639,7 +643,9 @@ template <typename T, int D>
 cudaError_t dispatch_flags(int resident, const Params& p, cudaStream_t st) {
   const bool seg = p.seg != nullptr, win = p.window > 0;
   if (p.wire != 0) {
-    if (seg) return cudaErrorInvalidValue;  // no SEG + WIRE instance
+    if (seg)
+      return win ? dispatch_stats<T, D, true, true, true>(resident, p, st)
+                 : dispatch_stats<T, D, true, false, true>(resident, p, st);
     return win ? dispatch_stats<T, D, false, true, true>(resident, p, st)
                : dispatch_stats<T, D, false, false, true>(resident, p, st);
   }
@@ -668,7 +674,10 @@ cudaError_t attrs_stats(int stats, int* out) {
 template <typename T, bool RESIDENT>
 cudaError_t attrs_of(int stats, int seg, int win, int wire, int* out) {
   if (wire) {
-    if (seg || RESIDENT) return cudaErrorInvalidValue;
+    if (RESIDENT) return cudaErrorInvalidValue;
+    if (seg)
+      return win ? attrs_stats<T, false, true, true, true>(stats, out)
+                 : attrs_stats<T, false, true, false, true>(stats, out);
     return win ? attrs_stats<T, false, false, true, true>(stats, out)
                : attrs_stats<T, false, false, false, true>(stats, out);
   }
@@ -698,7 +707,9 @@ cudaError_t capacity_of(int* max_blocks) {
 template <typename T>
 cudaError_t capacity_flags(int seg, int win, int wire, int* max_blocks) {
   if (wire) {
-    if (seg) return cudaErrorInvalidValue;
+    if (seg)
+      return win ? capacity_of<T, true, true, true>(max_blocks)
+                 : capacity_of<T, true, false, true>(max_blocks);
     return win ? capacity_of<T, false, true, true>(max_blocks)
                : capacity_of<T, false, false, true>(max_blocks);
   }
@@ -713,7 +724,7 @@ cudaError_t capacity_flags(int seg, int win, int wire, int* max_blocks) {
 
 // One instance's registers a thread, local (spill) bytes a thread, dynamic
 // shared memory and resident CTAs on the card: out[0..3].  flags: bit 0
-// RESIDENT, bit 1 STATS, bit 2 SEG, bit 3 WIN, bit 4 WIRE (not with SEG or
+// RESIDENT, bit 1 STATS, bit 2 SEG, bit 3 WIN, bit 4 WIRE (not with
 // RESIDENT).
 extern "C" int fused_ring_fwd_attrs(int dtype, int flags, int* out) {
   const int resident = flags & 1, stats = (flags >> 1) & 1,

@@ -15,6 +15,12 @@ burst_attn_tpu/models/decode.py).
   * models/speculative.py decodes speculatively over this cache: its
     verify is one multi-token `forward_cached`, its rollback a shorter
     `Cache.length`.
+  * Parameters split over tp (transformer.shard_params; the tree carries
+    its mesh, so the signatures take none, as JAX's take sharded arrays)
+    run each tp position on its heads: the cache is split over kv heads
+    (each buffer stacked [tp, B, Nkv / tp, max_seq, D]), a prompt runs
+    the flash kernel once a position, the row-parallel sums meet in
+    all_reduce and the logits are all_gathered.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -25,13 +31,13 @@ from ..device import resolve_device
 from ..ops.flash import flash_attention
 from ..ops.tile import single_device_attention
 from .transformer import (
-    ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
-    check_serving,
+    ModelConfig, ShardedParams, _attn_out, _embed, _logits, _mlp,
+    _qkv_from_h, _rms_norm, check_serving, params_device, tp_parts, tp_sum,
 )
 
 
 class LayerCache(NamedTuple):
-    k: torch.Tensor  # [B, Nkv, max_seq, D]
+    k: torch.Tensor  # [B, Nkv, max_seq, D] (tp: [tp, B, Nkv / tp, ...])
     v: torch.Tensor  # [B, Nkv, max_seq, D]
 
 
@@ -41,11 +47,14 @@ class Cache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device=None) -> Cache:
+               device=None, tp: int = 1) -> Cache:
     """Zeroed [batch, Nkv, max_seq, D] K/V buffers per layer in cfg.dtype,
-    length 0."""
+    length 0; with `tp` > 1 each stacked [tp, batch, Nkv / tp, max_seq,
+    D], tp position t's kv heads the contiguous [t]."""
     dev = resolve_device(device)
     shape = (batch, cfg.n_kv_heads, max_seq, cfg.d_head)
+    if tp > 1:
+        shape = (tp, batch, cfg.n_kv_heads // tp, max_seq, cfg.d_head)
     layers = tuple(
         LayerCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
                    torch.zeros(shape, dtype=cfg.dtype, device=dev))
@@ -70,32 +79,46 @@ def _cached_attention(p, x, positions, lc: LayerCache, cache_len: int,
     """Attend the T new tokens against cache positions [0, cache_len + T),
     writing their K/V at cache_len IN PLACE; returns the block's attention
     output [B, T, d].  `fresh` marks an empty cache: the prompt attends
-    only to itself, through the flash path."""
+    only to itself, through the flash path.  A layer split over tp runs
+    each position on its heads and its shard of the cache, and
+    all_reduces the wo partial sums."""
     t = x.shape[1]
-    q, k, v = _qkv_proj(p, x, positions, cfg)
-    lc.k[:, :, cache_len:cache_len + t] = k.to(lc.k.dtype)
-    lc.v[:, :, cache_len:cache_len + t] = v.to(lc.v.dtype)
-    if fresh:
-        o = _flash_prompt_attention(q, k.to(lc.k.dtype), v.to(lc.v.dtype),
-                                    window=cfg.window)
-    else:
-        # GQA via a grouped query axis: the cache is never repeated
-        group = cfg.n_heads // cfg.n_kv_heads
-        b = q.shape[0]
-        qg = q.reshape(b, cfg.n_kv_heads, group, t, cfg.d_head)
-        s = torch.einsum("bngih,bnjh->bngij", qg.float(),
-                         lc.k.float()) * (cfg.d_head ** -0.5)
-        rows = torch.arange(t, device=x.device)[:, None]
-        cols = torch.arange(lc.k.shape[2], device=x.device)[None, :]
-        visible = cols <= cache_len + rows
-        if cfg.window is not None:
-            # the query at position cache_len + row sees its last `window`
-            visible = visible & (cols > cache_len + rows - cfg.window)
-        s = s.masked_fill(~visible, float("-inf"))
-        prob = torch.softmax(s, dim=-1).to(lc.v.dtype)
-        o = torch.einsum("bngij,bnjh->bngih", prob, lc.v)
-        o = o.reshape(b, cfg.n_heads, t, cfg.d_head)
-    return _attn_out(p, o)
+    h = _rms_norm(x, p["attn_norm"])
+    parts = tp_parts(p)
+    outs = []
+    for i, pt in enumerate(parts):
+        kc, vc = (lc.k, lc.v) if len(parts) == 1 else (lc.k[i], lc.v[i])
+        q, k, v = _qkv_from_h(pt, h, positions, cfg)
+        kc[:, :, cache_len:cache_len + t] = k.to(kc.dtype)
+        vc[:, :, cache_len:cache_len + t] = v.to(vc.dtype)
+        if fresh:
+            o = _flash_prompt_attention(q, k.to(kc.dtype), v.to(vc.dtype),
+                                        window=cfg.window)
+        else:
+            o = _grouped_cache_attention(q, kc, vc, cache_len, cfg)
+        outs.append(_attn_out(pt, o))
+    return tp_sum(outs, cfg.head_axis)
+
+
+def _grouped_cache_attention(q, kc, vc, cache_len: int, cfg: ModelConfig):
+    """q [B, N, T, D] over the cache kc, vc [B, Nkv, max_seq, D] (rows at
+    positions cache_len ..): GQA via a grouped query axis, the cache
+    never repeated; plain torch, as the JAX path outside its kernels."""
+    b, n, t, d = q.shape
+    n_kv = kc.shape[1]
+    qg = q.reshape(b, n_kv, n // n_kv, t, d)
+    s = torch.einsum("bngih,bnjh->bngij", qg.float(),
+                     kc.float()) * (cfg.d_head ** -0.5)
+    rows = torch.arange(t, device=q.device)[:, None]
+    cols = torch.arange(kc.shape[2], device=q.device)[None, :]
+    visible = cols <= cache_len + rows
+    if cfg.window is not None:
+        # the query at position cache_len + row sees its last `window`
+        visible = visible & (cols > cache_len + rows - cfg.window)
+    s = s.masked_fill(~visible, float("-inf"))
+    prob = torch.softmax(s, dim=-1).to(vc.dtype)
+    o = torch.einsum("bngij,bnjh->bngih", prob, vc)
+    return o.reshape(b, n, t, d)
 
 
 def _forward_cached_impl(params, tokens, positions, cache: Cache,
@@ -103,7 +126,7 @@ def _forward_cached_impl(params, tokens, positions, cache: Cache,
     """`fresh` asserts the cache is EMPTY (only `prefill` passes it): the
     prompt then takes the O(T)-memory flash path, which ignores cache
     contents."""
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _embed(params, tokens, cfg)
     for p, lc in zip(params["layers"], cache.layers):
         x = x + _cached_attention(p, x, positions, lc, cache.length, cfg,
                                   fresh=fresh)
@@ -118,10 +141,10 @@ def forward_cached(params, tokens, positions, cache: Cache,
     (natural order) -> (fp32 logits [B, T, vocab], the cache with length
     += T; its buffers were written in place)."""
     check_serving(cfg)
-    if cache.length + tokens.shape[1] > cache.layers[0].k.shape[2]:
+    if cache.length + tokens.shape[1] > cache.layers[0].k.shape[-2]:
         raise ValueError(f"{tokens.shape[1]} tokens at length "
                          f"{cache.length} exceed max_seq "
-                         f"{cache.layers[0].k.shape[2]}")
+                         f"{cache.layers[0].k.shape[-2]}")
     return _forward_cached_impl(params, tokens, positions, cache, cfg,
                                 fresh=False)
 
@@ -133,7 +156,9 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int):
     b, t = tokens.shape
     if t > max_seq:
         raise ValueError(f"prompt length {t} exceeds max_seq {max_seq}")
-    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    cache = init_cache(cfg, b, max_seq, device=tokens.device,
+                       tp=params.tp if isinstance(params, ShardedParams)
+                       else 1)
     positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
     return _forward_cached_impl(params, tokens, positions, cache, cfg,
                                 fresh=True)
@@ -147,7 +172,7 @@ def generate(params, prompt, cfg: ModelConfig, *, steps: int, max_seq: int,
     from the prefill's last logits, each later one from a single-token
     cached forward (JAX's scan body); sampled draws come from `rng`."""
     check_serving(cfg)
-    prompt = torch.as_tensor(prompt, device=params["embed"].device).long()
+    prompt = torch.as_tensor(prompt, device=params_device(params)).long()
     b = prompt.shape[0]
     if prompt.shape[1] + steps > max_seq:
         raise ValueError("prompt + steps exceeds max_seq")

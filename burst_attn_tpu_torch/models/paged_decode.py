@@ -42,7 +42,21 @@ index of full prompt pages the ragged engine shares through the pool's
 refcounts; `to_meta` / `from_meta` carry it through an engine snapshot
 (serving/checkpoint.py).
 
-Not ported yet: tensor-parallel meshes.
+Tensor-parallel serving (`mesh` with cfg.head_axis, as the JAX
+functions take it): `init_paged_state(mesh=)` gives every tp position its
+own kv-head shard of each layer's pool and scale banks (a bank is then
+stacked [tp, P, Nkv / tp, page, D], position t's shard the contiguous
+[t]); the page table and lengths stay shared.  Each position projects
+its heads with its shard of the weights (transformer.shard_params, once;
+plain parameters with a tp mesh are a ValueError) and launches its own kernel on its
+own shard, as JAX's shard_map does per device: kernel 1 for a prompt
+(`_prompt_attention_dispatch`) and for a cached prefix's suffix
+(`_suffix_attention_dispatch`), kernel 6 for a decode step
+(`_paged_attention_dispatch`: tp launches a layer).  The row-parallel
+wo and w_down partial sums meet in all_reduce, the vocab-parallel embed
+masks each shard's ids before its all_reduce, and the logits are
+all_gathered.  ragged_model_step (RaggedServeEngine, which takes no mesh
+in JAX) refuses a tp state.
 """
 
 import hashlib
@@ -68,7 +82,8 @@ from ..ops.ragged_paged import (
 from ..protocols import pool as pool_proto
 from .decode import _flash_prompt_attention
 from .transformer import (
-    ModelConfig, _attn_out, _logits, _mlp, _qkv_proj, _rms_norm,
+    ModelConfig, _attn_out, _embed, _logits, _mlp, _qkv_from_h, _qkv_proj,
+    _rms_norm, check_tp, tp_of, tp_parts, tp_sum,
 )
 
 
@@ -103,6 +118,67 @@ class PagedState:
     lengths: torch.Tensor        # [slots] int32 (0 = empty slot)
     k_scales: Optional[List[torch.Tensor]] = None  # each [P, Nkv, page]
     v_scales: Optional[List[torch.Tensor]] = None
+    # tp positions sharing the pool: > 1 stacks every bank [tp, P, Nkv/tp,
+    # ...] (position t's kv-head shard the contiguous [t])
+    tp: int = 1
+
+
+def page_size(state: PagedState) -> int:
+    """Tokens a pool page holds."""
+    return state.k_pages[0].shape[-2]
+
+
+def _bank(state: PagedState, li: int, t: int):
+    """(k pages, v pages, k scales, v scales) of layer li as tp position t
+    holds them (the whole banks without tp; scales None unless
+    quantized)."""
+    pick = ((lambda b: b) if state.tp == 1 else (lambda b: b[t]))
+    quant = state.k_scales is not None
+    return (pick(state.k_pages[li]), pick(state.v_pages[li]),
+            pick(state.k_scales[li]) if quant else None,
+            pick(state.v_scales[li]) if quant else None)
+
+
+def _check_tp(params, state: PagedState, cfg: ModelConfig, mesh) -> None:
+    """Raise unless the parameters' tp split agrees with `mesh` (tp_of,
+    strict as JAX's _check_tp_mesh) and with the state's kv-head
+    shards."""
+    tp = tp_of(params, cfg, mesh, strict=True)
+    if tp != state.tp:
+        raise ValueError(f"the paged state holds {state.tp} tp shard(s), "
+                         f"the call runs tp={tp}: pass the same mesh to "
+                         "init_paged_state")
+
+
+def _prompt_attention_dispatch(qs, ks, vs, cfg: ModelConfig):
+    """Prompt attention of every tp position on its head shard: one flash
+    kernel (kernel 1) launch a position on a CUDA tensor (JAX's
+    head-sharded shard_map)."""
+    return [_flash_prompt_attention(q, k, v, window=cfg.window)
+            for q, k, v in zip(qs, ks, vs)]
+
+
+def _paged_attention_dispatch(qgs, state: PagedState, li: int, lengths,
+                              cfg: ModelConfig):
+    """Paged decode attention of every tp position over its own kv-head
+    shard of layer li's pool (and scales): kernel 6 once a position, the
+    page table and lengths shared."""
+    out = []
+    for t, qg in enumerate(qgs):
+        kp, vp, ks, vs = _bank(state, li, t)
+        out.append(paged_decode_attention(qg, kp, vp, state.page_table,
+                                          lengths, k_scales=ks, v_scales=vs,
+                                          window=cfg.window))
+    return out
+
+
+def _suffix_attention_dispatch(qs, ks, vs, t_pre, q_hi, kv_hi,
+                               cfg: ModelConfig):
+    """The prefix cache's suffix attention of every tp position on its
+    head shard (kernel 1 on the offset mask, once a position)."""
+    return [_suffix_attention(q, k, v, t_pre, q_hi=q_hi, kv_hi=kv_hi,
+                              window=cfg.window)
+            for q, k, v in zip(qs, ks, vs)]
 
 
 class PagePool:
@@ -319,18 +395,24 @@ class PrefixCache:
 
 def init_paged_state(cfg: ModelConfig, *, slots: int, n_pages: int,
                      page: int = 128, max_pages_per_seq: int = 64,
-                     quantize=False, device=None):
+                     quantize=False, mesh=None, device=None):
     """Fresh pool + allocator: (PagedState, PagePool).  `page` must be a
     multiple of 128, as in the JAX package, so both accept the same
     configurations.  Total pool capacity is n_pages * page tokens shared
     by all slots.  `quantize`: False = pools in cfg.dtype; True or "int8"
     = int8 pools; "fp8" = float8_e4m3fn pools, each with fp32 scale banks
-    [n_pages, Nkv, page] initialized to ones."""
+    [n_pages, Nkv, page] initialized to ones.  `mesh` with cfg.head_axis
+    of size tp > 1: every bank stacked [tp, ...] over the tp positions,
+    each holding its Nkv / tp kv heads (the JAX pool's kv-head
+    sharding)."""
     if page % 128:
         raise ValueError(f"page size {page} must be a multiple of 128")
     dt, tag = resolve_pool_dtype(quantize, cfg.dtype)
     dev = resolve_device(device)
+    tp = check_tp(cfg, mesh, strict=True)
     shape = (n_pages, cfg.n_kv_heads, page, cfg.d_head)
+    if tp > 1:
+        shape = (tp, n_pages, cfg.n_kv_heads // tp, page, cfg.d_head)
 
     def banks(shape, dtype):
         return [torch.zeros(shape, dtype=dtype, device=dev)
@@ -340,11 +422,11 @@ def init_paged_state(cfg: ModelConfig, *, slots: int, n_pages: int,
         banks(shape, dt), banks(shape, dt),
         torch.zeros((slots, max_pages_per_seq), dtype=torch.int32,
                     device=dev),
-        torch.zeros((slots,), dtype=torch.int32, device=dev))
+        torch.zeros((slots,), dtype=torch.int32, device=dev), tp=tp)
     if tag is not None:
-        state.k_scales = [b.fill_(1.0) for b in banks(shape[:3],
+        state.k_scales = [b.fill_(1.0) for b in banks(shape[:-1],
                                                       torch.float32)]
-        state.v_scales = [b.fill_(1.0) for b in banks(shape[:3],
+        state.v_scales = [b.fill_(1.0) for b in banks(shape[:-1],
                                                       torch.float32)]
     return state, PagePool(n_pages, dtype=tag)
 
@@ -417,13 +499,16 @@ def paged_prefill(params, tokens, state: PagedState, pool: PagePool,
     (_suffix_attention) — and the prompt's own full pages are registered
     (the whole chain, hits included).  At least one suffix token always
     stays: its logits are the caller's.  On a failure the lookup's
-    references are released with the acquired pages."""
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel meshes are not ported yet")
+    references are released with the acquired pages.
+
+    `mesh` with cfg.head_axis: tensor-parallel (the state from
+    init_paged_state(mesh=)); every tp position runs its own kernel
+    launches on its head shard."""
+    _check_tp(params, state, cfg, mesh)
     dev = state.lengths.device
     tokens = torch.as_tensor(tokens, device=dev).reshape(-1).long()
     t = tokens.numel()
-    page = state.k_pages[0].shape[2]
+    page = page_size(state)
     max_pages = state.page_table.shape[1]
     n_need = -(-t // page)
     if n_need > max_pages:
@@ -470,34 +555,42 @@ def _prefill_suffix(params, suffix, state: PagedState, ctx_ids, suf_ids,
     K/V already sit in cached pages: q/k/v for the SUFFIX only (padded to
     whole pages), attention over the gathered context + suffix through
     one offset mask, the suffix K/V scattered into suf_ids, and the slot's
-    table row pointed at [ctx_ids | suf_ids].  Returns the last prompt
+    table row pointed at [ctx_ids | suf_ids].  Each tp position gathers
+    its own kv-head shard of the context.  Returns the last prompt
     token's logits [vocab] fp32."""
     t_suf = suffix.numel()
     dev = suffix.device
-    page = state.k_pages[0].shape[2]
+    page = page_size(state)
     t_pre = len(ctx_ids) * page
     t_pad = len(suf_ids) * page
     toks = F.pad(suffix, (0, t_pad - t_suf))[None]
     pos = t_pre + torch.arange(t_pad, device=dev)[None]
     ctx = torch.tensor(ctx_ids, dtype=torch.long, device=dev)
     page_ids = torch.tensor(suf_ids, dtype=torch.long, device=dev)
-    x = params["embed"][toks].to(cfg.dtype)
-    quant = state.k_scales is not None
+    x = _embed(params, toks, cfg)
     for li, p in enumerate(params["layers"]):
-        ks = state.k_scales[li] if quant else None
-        vs = state.v_scales[li] if quant else None
-        q, k, v = _qkv_proj(p, x, pos, cfg)
-        # the context dequantized through the pool's gather; the padded
-        # suffix rows and columns stay invisible (q_hi, kv_hi)
-        kc = gather_pages(state.k_pages[li], ks, ctx)[None].to(cfg.dtype)
-        vc = gather_pages(state.v_pages[li], vs, ctx)[None].to(cfg.dtype)
-        o = _suffix_attention(q, torch.cat([kc, k.to(cfg.dtype)], dim=2),
-                              torch.cat([vc, v.to(cfg.dtype)], dim=2),
-                              t_pre, q_hi=t_suf, kv_hi=t_pre + t_suf,
-                              window=cfg.window)
-        _scatter_pages(state.k_pages[li], k, page_ids, ks)
-        _scatter_pages(state.v_pages[li], v, page_ids, vs)
-        x = x + _attn_out(p, o)
+        h = _rms_norm(x, p["attn_norm"])
+        parts = tp_parts(p)
+        qs, ks_, vs_, news = [], [], [], []
+        for t, pt in enumerate(parts):
+            kp, vp, ksc, vsc = _bank(state, li, t)
+            q, k, v = _qkv_from_h(pt, h, pos, cfg)
+            # the context dequantized through the pool's gather; the
+            # padded suffix rows and columns stay invisible (q_hi, kv_hi)
+            kc = gather_pages(kp, ksc, ctx)[None].to(cfg.dtype)
+            vc = gather_pages(vp, vsc, ctx)[None].to(cfg.dtype)
+            qs.append(q)
+            ks_.append(torch.cat([kc, k.to(cfg.dtype)], dim=2))
+            vs_.append(torch.cat([vc, v.to(cfg.dtype)], dim=2))
+            news.append((k, v))
+        os = _suffix_attention_dispatch(qs, ks_, vs_, t_pre, t_suf,
+                                        t_pre + t_suf, cfg)
+        for t, (k, v) in enumerate(news):
+            kp, vp, ksc, vsc = _bank(state, li, t)
+            _scatter_pages(kp, k, page_ids, ksc)
+            _scatter_pages(vp, v, page_ids, vsc)
+        x = x + tp_sum([_attn_out(pt, o) for pt, o in zip(parts, os)],
+                       cfg.head_axis)
         x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x[:, t_suf - 1:t_suf], params["final_norm"])
     logits = _logits(x, params["lm_head"])[0, 0]
@@ -509,23 +602,25 @@ def _prefill_suffix(params, suffix, state: PagedState, ctx_ids, suf_ids,
 def _prefill(params, tokens, state: PagedState, ids, slot, cfg):
     t = tokens.numel()
     dev = tokens.device
-    page = state.k_pages[0].shape[2]
+    page = page_size(state)
     t_pad = len(ids) * page
     pos = torch.arange(t, device=dev)[None]
     page_ids = torch.tensor(ids, dtype=torch.long, device=dev)
-    x = params["embed"][tokens[None]].to(cfg.dtype)
-    quant = state.k_scales is not None
+    x = _embed(params, tokens[None], cfg)
+    pad = (0, 0, 0, t_pad - t)
     for li, p in enumerate(params["layers"]):
-        q, k, v = _qkv_proj(p, x, pos, cfg)
+        h = _rms_norm(x, p["attn_norm"])
+        parts = tp_parts(p)
+        qkv = [_qkv_from_h(pt, h, pos, cfg) for pt in parts]
         # the prompt attends its own full-precision K/V; only the pool
         # stores the (possibly quantized) copies
-        o = _flash_prompt_attention(q, k, v, window=cfg.window)
-        pad = (0, 0, 0, t_pad - t)
-        _scatter_pages(state.k_pages[li], F.pad(k, pad), page_ids,
-                       state.k_scales[li] if quant else None)
-        _scatter_pages(state.v_pages[li], F.pad(v, pad), page_ids,
-                       state.v_scales[li] if quant else None)
-        x = x + _attn_out(p, o)
+        os = _prompt_attention_dispatch(*zip(*qkv), cfg)
+        for pos_t, (_, k, v) in enumerate(qkv):
+            kp, vp, ksc, vsc = _bank(state, li, pos_t)
+            _scatter_pages(kp, F.pad(k, pad), page_ids, ksc)
+            _scatter_pages(vp, F.pad(v, pad), page_ids, vsc)
+        x = x + tp_sum([_attn_out(pt, o) for pt, o in zip(parts, os)],
+                       cfg.head_axis)
         x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x[:, -1:], params["final_norm"])
     logits = _logits(x, params["lm_head"])[0, 0]
@@ -542,18 +637,20 @@ def paged_decode_step(params, tokens, state: PagedState, cfg: ModelConfig,
     slots).  Every live slot must already own the page its next token
     lands in (`ensure_capacity` / `provision_capacity`); a live slot that
     does not gets NaN logits instead of silently writing into the sink.
-    Returns ([slots, vocab] fp32 logits, state).  No host sync."""
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel meshes are not ported yet")
+    Returns ([slots, vocab] fp32 logits, state).  No host sync.
+
+    `mesh` with cfg.head_axis: tensor-parallel; each tp position writes
+    its kv heads into its pool shard and runs kernel 6 over it."""
+    _check_tp(params, state, cfg, mesh)
     dev = state.lengths.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     slots = tokens.shape[0]
-    page = state.k_pages[0].shape[2]
+    page = page_size(state)
     width = state.page_table.shape[1]
     lengths = state.lengths
     live = lengths > 0
     pos = lengths.long()  # next position = current length (0 when dead)
-    x = params["embed"][tokens[:, None]].to(cfg.dtype)  # [slots, 1, d]
+    x = _embed(params, tokens[:, None], cfg)  # [slots, 1, d]
     group = cfg.n_heads // cfg.n_kv_heads
 
     # which (page, offset) receives the new token per slot
@@ -568,21 +665,21 @@ def paged_decode_step(params, tokens, state: PagedState, cfg: ModelConfig,
     boundary_unassigned = live & (page_id == 0)
     page_id = torch.where(live, page_id, 0).long()  # dead slots -> sink
     new_lengths = lengths + live.to(torch.int32)
-    quant = state.k_scales is not None
 
     for li, p in enumerate(params["layers"]):
-        kp, vp = state.k_pages[li], state.v_pages[li]
-        q, k, v = _qkv_proj(p, x, pos[:, None], cfg)
-        ks = state.k_scales[li] if quant else None
-        vs = state.v_scales[li] if quant else None
-        _write_tokens(kp, ks, page_id, offset, k[:, :, 0])
-        _write_tokens(vp, vs, page_id, offset, v[:, :, 0])
-        qg = q.reshape(slots, cfg.n_kv_heads, group, cfg.d_head).contiguous()
-        o = paged_decode_attention(qg, kp, vp, state.page_table, new_lengths,
-                                   k_scales=ks, v_scales=vs,
-                                   window=cfg.window)
-        o = o.reshape(slots, cfg.n_heads, 1, cfg.d_head)
-        x = x + _attn_out(p, o)
+        h = _rms_norm(x, p["attn_norm"])
+        parts = tp_parts(p)
+        qgs = []
+        for t, pt in enumerate(parts):
+            kp, vp, ks, vs = _bank(state, li, t)
+            q, k, v = _qkv_from_h(pt, h, pos[:, None], cfg)
+            _write_tokens(kp, ks, page_id, offset, k[:, :, 0])
+            _write_tokens(vp, vs, page_id, offset, v[:, :, 0])
+            qgs.append(q.reshape(slots, k.shape[1], group,
+                                 cfg.d_head).contiguous())
+        os = _paged_attention_dispatch(qgs, state, li, new_lengths, cfg)
+        x = x + tp_sum([_attn_out(pt, o.reshape(slots, -1, 1, cfg.d_head))
+                        for pt, o in zip(parts, os)], cfg.head_axis)
         x = x + _mlp(p, x, cfg, inference=True)[0]
     x = _rms_norm(x, params["final_norm"])
     logits = _logits(x, params["lm_head"])[:, 0]
@@ -620,11 +717,15 @@ def ragged_model_step(params, tokens, q_lens, state: PagedState,
                               or shared_lens is None):
         raise ValueError("attn='grouped' needs group_id, shared_table "
                          "and shared_lens")
+    if state.tp > 1:
+        raise ValueError("ragged_model_step takes no tp state: the ragged "
+                         "engine serves without a mesh, as in the JAX "
+                         "package")
     dev = state.lengths.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     q_lens = torch.as_tensor(q_lens, device=dev).to(torch.int32)
     slots, qt = tokens.shape
-    page = state.k_pages[0].shape[2]
+    page = page_size(state)
     width = state.page_table.shape[1]
     quant = state.k_scales is not None
     live = q_lens > 0
@@ -728,7 +829,7 @@ def ensure_capacity(state: PagedState, pool: PagePool, slot: int
     """Host-side: guarantee `slot` has a page for its next token, acquiring
     one if its last page is full.  Call before paged_decode_step."""
     length = int(state.lengths[slot])
-    page = state.k_pages[0].shape[2]
+    page = page_size(state)
     if length % page != 0 or length == 0:
         return state  # room in the current page (or empty slot)
     slot_page = length // page
@@ -754,7 +855,7 @@ def provision_capacity(state: PagedState, pool: PagePool, slot: int,
         raise RuntimeError(
             f"slot {slot} is empty; paged_prefill acquires its own pages — "
             "provisioning now would leak them when prefill rewrites the row")
-    page = state.k_pages[0].shape[2]
+    page = page_size(state)
     need_through = (length + n_tokens - 1) // page  # highest column needed
     if need_through >= state.page_table.shape[1]:
         raise RuntimeError(

@@ -24,8 +24,8 @@ The head (final norm, fp32 logits) runs on the banked activations.  With
 cfg.remat each layer goes through torch.utils.checkpoint; the backward is
 autograd through the tick loop.
 
-A pp mesh with dp, tp or ep of size > 1 raises NotImplementedError: it
-needs more than one card (ROADMAP A7).
+A pp mesh with dp, tp or ep of size > 1 raises NotImplementedError: the
+pipeline beside those axes is ROADMAP A7a's second half.
 """
 
 import torch
@@ -105,7 +105,7 @@ def check_pp(cfg: ModelConfig, mesh, b: int) -> int:
         raise ValueError(
             f"per-dp-shard batch {b_local} not divisible by "
             f"pp_microbatches {m}")
-    # what one card cannot hold: dp, tp, ep > 1 (ROADMAP A7)
+    # not yet beside a pipeline: dp, tp, ep > 1 (ROADMAP A7a)
     check_expert_axis(cfg, sizes)
     check_mesh(sizes, cfg.seq_axes, cfg.pp_axis)
     return n_stages

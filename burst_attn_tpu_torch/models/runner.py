@@ -1,6 +1,6 @@
 """End-to-end training runner + CLI (port of
-burst_attn_tpu/models/runner.py), on one device or a sequence ring whose
-positions share it.
+burst_attn_tpu/models/runner.py), on one device or a mesh of dp, sp and
+tp positions that share it.
 
 Ties together the native data loader (data/loader.py), the train step
 (models/train.py), checkpoints (utils/checkpoint.py), step timing
@@ -13,15 +13,17 @@ CLI (the card by default; `--device cpu` runs the plain versions):
         --steps 100 --d-model 2048 --n-layers 16 --n-heads 16 --seq-len 8192
 
 `--mesh sp=4` trains on a ring of 4 positions (`--mesh inter=2,intra=2`
-on the double ring); `--packed-eos ID` trains (and evaluates) on
-EOS-delimited packed documents; `--n-experts E` makes every MLP a top-2
-MoE, its expert axis "ep" if the mesh has one, else "dp" (size 1 only:
-experts over cards are ROADMAP A7); `--mesh pp=2,sp=2 --microbatches 2`
-trains the pipeline-parallel model (stacked layers; microbatches default
-to the stage count, and `--microbatches` without a pp axis exits, as in
-JAX); dp and tp and multi-host start come with later slices.  The JAX
-runner's `--probe-tri-bwd` is a TPU compile probe and has no counterpart
-here.
+on the double ring); `--mesh dp=2,sp=2,tp=2` adds data and tensor
+parallelism (each dp group its rows of the batch, the parameters split
+over tp; every position shares the device); `--packed-eos ID` trains
+(and evaluates) on EOS-delimited packed documents; `--n-experts E` makes
+every MLP a top-2 MoE, its expert axis "ep" if the mesh has one, else
+"dp" (an expert axis of size > 1 is ROADMAP A7a's second half); `--mesh
+pp=2,sp=2 --microbatches 2` trains the pipeline-parallel model (stacked
+layers; microbatches default to the stage count, and `--microbatches`
+without a pp axis exits, as in JAX; pp beside dp or tp is ROADMAP A7a's
+second half); multi-host start comes with ROADMAP A7b.  The JAX runner's
+`--probe-tri-bwd` is a TPU compile probe and has no counterpart here.
 """
 
 import argparse
@@ -176,7 +178,7 @@ def _parse_mesh(spec: str) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="Train the LM on a token file, on one device or a "
-                    "sequence ring.")
+                    "mesh of dp, sp and tp positions sharing it.")
     p.add_argument("--data", required=True,
                    help="BATD token file (data.write_token_file)")
     p.add_argument("--steps", type=int, required=True)
@@ -184,8 +186,9 @@ def main(argv=None):
     p.add_argument("--seq-len", type=int, default=4096)
     p.add_argument("--mesh", default="sp=1",
                    help="axis sizes, e.g. sp=4 or inter=2,intra=2 (the "
-                        "sequence ring), pp=2,sp=2 (a pipeline of rings; "
-                        "dp and tp are not ported)")
+                        "sequence ring), dp=2,sp=2,tp=2 (data and tensor "
+                        "parallelism beside the ring), pp=2,sp=2 (a "
+                        "pipeline of rings; not with dp or tp)")
     p.add_argument("--microbatches", type=int, default=None,
                    help="GPipe microbatches of a pp mesh (default: the "
                         "pp size)")
@@ -246,15 +249,16 @@ def main(argv=None):
         pp_axis=pp_axis,
         pp_microbatches=(args.microbatches or mesh_axes.get("pp", 1))
         if pp_axis else 1,
-        batch_axis=None, head_axis=None, vocab=args.vocab,
+        batch_axis="dp" if "dp" in mesh_axes else None,
+        head_axis="tp" if "tp" in mesh_axes else None, vocab=args.vocab,
         d_model=args.d_model, n_layers=args.n_layers, n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads or args.n_heads,
         d_head=args.d_model // args.n_heads,
         d_ff=args.d_ff or 4 * args.d_model, layout=args.layout,
         remat=not args.no_remat,
     )
-    check_expert_axis(cfg, mesh_axes)  # an expert axis > 1: ROADMAP A7
-    mesh = make_mesh(mesh_axes)  # raises on dp or tp > 1
+    check_expert_axis(cfg, mesh_axes)  # an expert axis > 1: ROADMAP A7a
+    mesh = make_mesh(mesh_axes)  # raises on pp beside dp or tp > 1
     tcfg = TrainConfig(lr=args.lr, grad_accum=args.grad_accum)
     run = RunConfig(
         data_path=args.data, steps=args.steps, batch=args.batch,

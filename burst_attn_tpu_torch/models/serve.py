@@ -55,7 +55,13 @@ tracing on (`obs.trace.enable()`) each request records serve.queued,
 serve.prefill, the serve.first_token marker, serve.decode and its
 serve.request root.
 
-Not ported yet: tensor-parallel meshes.
+`mesh` with cfg.head_axis "tp" (JAX's tensor-parallel ServeEngine): the
+engine splits the parameters over the tp positions once
+(transformer.shard_params; split ones are taken as they are), gives each
+position its kv-head shard of the pool (init_paged_state(mesh=)), and
+every prefill and decode step runs each position's kernel launches on
+its own shard (models/paged_decode.py): a decode tick launches kernel 6
+tp times a layer.  Speculative serving takes no mesh (JAX's ValueError).
 """
 
 import time
@@ -78,7 +84,9 @@ from .paged_decode import (
     paged_prefill, provision_capacity, retire_slot,
 )
 from .spec_round import Draft, SpecCounters
-from .transformer import ModelConfig, check_serving
+from .transformer import (
+    ModelConfig, check_serving, check_tp, fp32_head, shard_params,
+)
 
 # the JAX ServeEngine's instruments (serving/engine.py shares the names)
 _M_SUBMITTED = obs.counter("serve.requests_submitted")
@@ -126,13 +134,17 @@ class ServeEngine(SpecCounters):
                  admission: Optional[AdmissionPolicy] = None,
                  journal=None, device=None):
         check_serving(cfg)
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet")
+        if draft_params is not None and draft_cfg is not None \
+                and mesh is not None:
+            raise ValueError("speculative serving requires no tp mesh "
+                             "and temperature == 0")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if check_tp(cfg, mesh, strict=True) > 1:
+            params = shard_params(params, cfg, mesh)
         # the logits accumulate in fp32: upcast lm_head once here, so no
         # step makes a fresh fp32 copy of it (_logits' cast is then a no-op)
-        self.params = dict(params, lm_head=params["lm_head"].float())
+        self.params = fp32_head(params)
         self.cfg = cfg
         self.eos_id = eos_id
         self.page = page
@@ -150,7 +162,7 @@ class ServeEngine(SpecCounters):
         self.state, self.pool = init_paged_state(
             cfg, slots=slots, n_pages=n_pages, page=page,
             max_pages_per_seq=max_pages_per_seq, quantize=quantize,
-            device=self.device)
+            mesh=mesh, device=self.device)
         self.cache = PrefixCache(self.pool) if prefix_cache else None
         # speculative serving: a DRAFT model with its own paged state whose
         # slot geometry and pool dtype mirror the target's; greedy only
@@ -333,7 +345,7 @@ class ServeEngine(SpecCounters):
             try:
                 logits, _ = paged_prefill(self.params, req.prompt, self.state,
                                           self.pool, slot, self.cfg,
-                                          cache=self.cache)
+                                          mesh=self.mesh, cache=self.cache)
                 provision_capacity(self.state, self.pool, slot,
                                    req.max_new_tokens + self._slack())
                 if self.draft is not None:
@@ -478,7 +490,7 @@ class ServeEngine(SpecCounters):
             return done
         logits, _ = paged_decode_step(
             self.params, torch.from_numpy(self._next_tok).to(self.device),
-            self.state, self.cfg)
+            self.state, self.cfg, mesh=self.mesh)
         toks = self._sample(logits)  # waits on the device: the window ends
         self._tick_dev_s += time.perf_counter() - td0
         added = 0

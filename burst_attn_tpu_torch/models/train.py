@@ -53,9 +53,22 @@ models/pipeline_lm.py; AdamW and the global-norm clip run over the
 stacked leaves with the same math, and the batch keeps its layout
 permutation over the sequence ring only.
 
-Not ported yet: dp and tp axes.  The TPU-only tri-backward compile
-probe (`probe_model_tri_bwd`) has no counterpart: a CUDA kernel either
-builds or the run stops.
+Data and tensor parallelism (`make_mesh({"dp": 2, "sp": 2, "tp": 2})`,
+every position on one device): `init_train_state` splits the parameters
+over tp (transformer.shard_params; AdamW and the clip run over the
+shards, which hold every element once, so the global norm is the
+unsplit tree's), the model runs Megatron's column- and row-parallel
+layers with their all_reduces and a vocab-parallel cross entropy (the
+max, the sum of exponentials and the target logit all_reduced over the
+vocab shards), and each dp group runs its forward and backward on its
+rows of the batch: the step then averages the groups' gradients with
+all_reduce(mean) over dp (parallel/mesh.py), as a data-parallel run
+across cards does, before the clip and the update.  Each group's
+objective carries the dp factor of the global normalization (the valid
+labels of the whole batch), so the mean is the whole batch's gradient.
+
+The TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
+counterpart: a CUDA kernel either builds or the run stops.
 """
 
 import time
@@ -69,9 +82,10 @@ import torch.nn.functional as F
 from .. import obs
 from ..device import resolve_device
 from ..parallel import layouts
+from ..parallel.mesh import all_reduce
 from .transformer import (
-    ModelConfig, check_mesh, forward_with_aux, init_params, param_leaves,
-    ring_world,
+    ModelConfig, check_mesh, check_tp, dp_groups, forward_parts,
+    group_mesh, init_params, param_leaves, ring_world, shard_params,
 )
 
 logger = obs.get_logger(__name__)
@@ -100,11 +114,12 @@ class TrainConfig:
 
 
 def make_mesh(axis_sizes: dict, devices=None) -> dict:
-    """The axis sizes of a run, as {"sp": 4}-style names to sizes (order
-    kept).  The sequence axes ("sp", or "inter" and "intra" for the
-    double ring) and a pipeline's "pp" take any size, their positions and
-    stages sharing one device; the other axes must have size 1 (dp and
-    tp come with later slices)."""
+    """The axis sizes of a run, as {"dp": 2, "sp": 2, "tp": 2}-style names
+    to sizes (order kept).  The sequence axes ("sp", or "inter" and
+    "intra" for the double ring), "dp", "tp" and a pipeline's "pp" take
+    any size, their positions and stages sharing one device; other axes,
+    and dp or tp beside pp, must have size 1 (ROADMAP A7a's second
+    half)."""
     del devices
     sizes = {str(k): int(v) for k, v in dict(axis_sizes).items()}
     check_mesh(sizes, tuple(a for a in ("sp", "inter", "intra")
@@ -126,14 +141,23 @@ def _optimizer(params, tcfg: TrainConfig) -> torch.optim.AdamW:
                              weight_decay=tcfg.weight_decay)
 
 
+def place_params(params, cfg: ModelConfig, mesh=None):
+    """`params` as a step on `mesh` takes them: split over its tp axis
+    (shard_params) when that has size > 1, every leaf requiring grad."""
+    if check_tp(cfg, mesh) > 1:
+        params = shard_params(params, cfg, mesh)
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    return params
+
+
 def init_train_state(seed: int, cfg: ModelConfig, tcfg: TrainConfig,
                      mesh=None, *, device=None):
     """(params, optimizer): random parameters from a numpy seed on
-    `device` (default: the card), each requiring grad."""
+    `device` (default: the card), split over the mesh's tp axis when it
+    has one of size > 1 (place_params), each requiring grad."""
     _world(cfg, mesh)
-    params = init_params(cfg, seed, device=device)
-    for t in param_leaves(params):
-        t.requires_grad_(True)
+    params = place_params(init_params(cfg, seed, device=device), cfg, mesh)
     return params, _optimizer(params, tcfg)
 
 
@@ -142,14 +166,36 @@ def _loss_parts(params, tokens, positions, labels, cfg: ModelConfig,
     """(sum of the masked next-token nll, MoE aux): the linear pieces of
     the objective.  labels < 0 are masked out.  `collect_stats` appends the
     ring telemetry (forward_with_aux)."""
-    out = forward_with_aux(params, tokens, positions, cfg, mesh,
-                           segment_ids=segment_ids,
-                           collect_stats=collect_stats)
-    logits, aux = out[:2]
+    out = forward_parts(params, tokens, positions, cfg, mesh,
+                        segment_ids=segment_ids, collect_stats=collect_stats)
+    parts, aux = out[:2]
+    if len(parts) > 1:
+        nll_sum = _vocab_parallel_nll(parts, labels, cfg.head_axis).sum()
+        return (nll_sum, aux) + tuple(out[2:])
     target = torch.where(labels >= 0, labels, -100).long()
-    nll_sum = F.cross_entropy(logits.flatten(0, 1), target.flatten(),
+    nll_sum = F.cross_entropy(parts[0].flatten(0, 1), target.flatten(),
                               ignore_index=-100, reduction="sum")
     return (nll_sum, aux) + tuple(out[2:])
+
+
+def _vocab_parallel_nll(parts, labels, axis="tp"):
+    """Megatron's vocab-parallel cross entropy: the per-token nll [B, S]
+    (0 where labels < 0) from each tp position's fp32 logits over its
+    vocab shard, without gathering the logits: the max (a constant of the
+    gradient), the sum of exponentials and the target's logit, each an
+    all_reduce over the shards."""
+    m = all_reduce([p.detach().amax(-1) for p in parts], "max", axis)[0]
+    sum_exp, target, lo = [], [], 0
+    for p in parts:
+        sum_exp.append((p - m[..., None]).exp().sum(-1))
+        local = labels.long() - lo
+        ok = (local >= 0) & (local < p.shape[-1])
+        hit = p.gather(-1, local.clamp(0, p.shape[-1] - 1)[..., None])[..., 0]
+        target.append(torch.where(ok, hit, 0.0))
+        lo += p.shape[-1]
+    se = all_reduce(sum_exp, "sum", axis)[0]
+    tl = all_reduce(target, "sum", axis)[0]
+    return torch.where(labels >= 0, se.log() + m - tl, 0.0)
 
 
 def loss_fn(params, tokens, positions, labels, cfg: ModelConfig, mesh=None,
@@ -235,7 +281,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         seg = batch.get("segment_ids")
         opt.zero_grad(set_to_none=True)
         stats = None
-        if accum == 1:
+        groups = dp_groups(cfg, mesh, tokens.shape[0])
+        if accum == 1 and len(groups) == 1:
             loss = loss_fn(params, tokens, positions, labels, cfg, mesh,
                            moe_aux_weight=aux_w, segment_ids=seg,
                            collect_stats=collect)
@@ -243,37 +290,75 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                 loss, stats = loss
             loss.backward()
             loss = loss.detach()
+            for t in leaves:
+                if t.grad is None:  # a parameter the loss does not reach
+                    t.grad = torch.zeros_like(t)
         else:
-            b0 = tokens.shape[0]
-            if b0 % accum:
-                raise ValueError(f"batch {b0} not divisible by grad_accum "
-                                 f"{accum}")
-            # microbatches, normalized by the GLOBAL valid count (known
-            # from the labels alone), so uneven masking gives exactly the
-            # full-batch objective; the aux term rides each microbatch
-            # with weight v_total / accum
-            v_total = (labels >= 0).sum().clamp(min=1).float()
-            mb = b0 // accum
-            s_sum = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(accum):
-                sl = slice(i * mb, (i + 1) * mb)
-                nll_sum, aux = _loss_parts(
-                    params, tokens[sl], positions[sl], labels[sl], cfg, mesh,
-                    segment_ids=None if seg is None else seg[sl])
-                s = nll_sum + aux_w * aux * (v_total / accum)
-                s.backward()
-                s_sum += s.detach()
-            loss = s_sum / v_total
-        for t in leaves:
-            if t.grad is None:  # a parameter the loss does not reach
-                t.grad = torch.zeros_like(t)
-            elif accum > 1:
-                t.grad.div_(v_total)
+            loss, stats = _grouped_backward(params, leaves, tokens,
+                                            positions, labels, seg, groups)
         grads = [t.grad for t in leaves]
         gnorm = _global_norm(grads)
         _clip_(grads, gnorm, tcfg.grad_clip)
         opt.step()
         return ((params, opt), {"loss": loss, "grad_norm": gnorm}), stats
+
+    def _grouped_backward(params, leaves, tokens, positions, labels, seg,
+                          groups):
+        """The gradients of the whole batch's objective through each dp
+        group's rows (and, with grad_accum, each group's microbatches),
+        averaged over the groups with all_reduce(mean) into the leaves'
+        .grad; returns (loss, merged DevStats or None).  The global
+        valid-label count (known from the labels alone) normalizes every
+        piece, so uneven masking gives exactly the full-batch objective;
+        a group's pieces carry the factor dp, and the MoE aux rides each
+        microbatch with weight v_total / accum."""
+        dp = len(groups)
+        gm = group_mesh(cfg, mesh)
+        per = groups[0].stop - groups[0].start
+        if per % accum:
+            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                             f"grad_accum {accum}"
+                             + (f" within its {dp} dp groups" if dp > 1
+                                else ""))
+        v_total = (labels >= 0).sum().clamp(min=1).float()
+        mb = per // accum
+        group_grads, group_loss, stats = [], [], None
+        for g in groups:
+            s_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(accum):
+                sl = slice(g.start + i * mb, g.start + (i + 1) * mb)
+                out = _loss_parts(
+                    params, tokens[sl], positions[sl], labels[sl], cfg, gm,
+                    segment_ids=None if seg is None else seg[sl],
+                    collect_stats=collect)
+                nll_sum, aux = out[:2]
+                if collect:
+                    from ..obs import devstats
+
+                    stats = out[2] if stats is None else devstats.merge(
+                        stats, out[2])
+                piece = dp * nll_sum + aux_w * aux * (v_total / accum)
+                piece.backward()
+                s_sum += piece.detach()
+            for t in leaves:  # scaled in place
+                if t.grad is None:  # a parameter the loss does not reach
+                    t.grad = torch.zeros_like(t)
+                t.grad.div_(v_total)
+            group_loss.append(s_sum / v_total)
+            if dp > 1:  # the group's gradients, held as its card would
+                group_grads.append([t.grad for t in leaves])
+                for t in leaves:
+                    t.grad = None
+        if dp == 1:
+            return group_loss[0], stats
+        # leaf by leaf, each group's gradient freed once its mean is made
+        for i, t in enumerate(leaves):
+            parts = [gg[i] for gg in group_grads]
+            for gg in group_grads:
+                gg[i] = None
+            t.grad = all_reduce(parts, "mean", cfg.batch_axis)[0]
+            del parts
+        return all_reduce(group_loss, "mean", cfg.batch_axis)[0], stats
 
     return guarded_step
 

@@ -32,6 +32,26 @@ because drop-free routing is per token.
 
 Numerics follow the JAX model: RMSNorm and rotary in fp32, cast back to
 the activation dtype; logits accumulated and returned in fp32.
+
+Data and tensor parallelism (`batch_axis`, `head_axis` of the mesh) as
+positions on one device: `param_specs` is the JAX tree of Megatron
+specs, and `shard_params` splits the parameters over the head (tp) axis
+by it, into a `ShardedParams` tree that carries its mesh (as a JAX array
+carries its sharding) and whose split leaves are `Shards`, one
+contiguous tensor a tp position.  Every forward of this package takes
+such a tree: each tp position projects its heads (column-parallel wq,
+wk, wv; w_gate, w_up), the training forward runs the positions'
+attention in one launch over all their heads (the serving paths launch
+once a position, on its shard), and each position's row-parallel wo and
+w_down give partial sums that `all_reduce` adds
+(parallel/mesh.py); the vocab-parallel embedding masks the ids outside
+a position's shard before its all_reduce, and the logits are
+`all_gather`ed (training reduces the cross entropy over the vocab
+shards instead: max, sum-exp and target logit, each an all_reduce).
+Activations every tp position holds alike (x, the normed h) are held
+once.  A dp axis splits the batch: each dp group runs the forward on its
+rows (its own sequence ring), and the trainer averages the groups'
+gradients with all_reduce(mean) (models/train.py).
 """
 
 from dataclasses import dataclass
@@ -47,6 +67,7 @@ from ..ops.flash import flash_attention
 from ..ops.masks import check_window
 from ..ops.tile import single_device_attention
 from ..parallel.burst import burst_attn
+from ..parallel.mesh import all_gather, all_reduce, axis_size, seq_mesh
 from ..parallel.moe import MoEParams, capacity_for, init_moe_params, \
     moe_shard
 from ..parallel.ulysses import ulysses_attn
@@ -71,8 +92,10 @@ class ModelConfig:
     # prefill of serving/handoff.py and the training forward's ring
     # (burst_attn, or ulysses_attn for attn_strategy="ulysses") when the
     # mesh's sequence axes hold more than one position; pp_axis names the
-    # pipeline's stage axis (pp_microbatches must divide the batch); dp,
-    # tp and ep stay at size 1 (check_mesh)
+    # pipeline's stage axis (pp_microbatches must divide the batch);
+    # batch_axis (dp) splits the batch and head_axis (tp) the heads, MLP
+    # columns and vocab (param_specs); ep and a pp axis beside dp or tp
+    # stay at size 1 (check_mesh)
     causal: bool = True
     attn_strategy: str = "burst"
     layout: str = "zigzag"
@@ -184,11 +207,11 @@ def layer_keys(layer) -> Tuple[str, ...]:
     return MOE_LAYER_KEYS if "router" in layer else LAYER_KEYS
 
 
-def param_leaves(params: Params):
-    """Every tensor of a parameter dictionary in one fixed order (embed,
-    each layer's layer_keys, final_norm, lm_head; stacked layers: each
-    stacked leaf in layer_keys order), whatever the dictionaries'
-    insertion order: the optimizer's and checkpoints' order."""
+def tree_leaves(params: Params):
+    """Every leaf of a parameter dictionary (a tensor, or the Shards of a
+    split one) in one fixed order: embed, each layer's layer_keys,
+    final_norm, lm_head; stacked layers: each stacked leaf in layer_keys
+    order, whatever the dictionaries' insertion order."""
     yield params["embed"]
     layers = params["layers"]
     for layer in [layers] if isinstance(layers, dict) else layers:
@@ -196,6 +219,182 @@ def param_leaves(params: Params):
             yield layer[k]
     yield params["final_norm"]
     yield params["lm_head"]
+
+
+def param_leaves(params: Params):
+    """Every tensor of a parameter dictionary in tree_leaves' order, a
+    split leaf's tp shards in position order: the optimizer's and
+    checkpoints' order."""
+    for leaf in tree_leaves(params):
+        if isinstance(leaf, Shards):
+            yield from leaf.parts
+        else:
+            yield leaf
+
+
+class P(tuple):
+    """A partition spec: one mesh axis name (or None) a dimension, as
+    jax.sharding.PartitionSpec (a tuple of them)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return f"P{tuple(self)!r}"
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The JAX package's PartitionSpec tree of init_params' parameters:
+    Megatron tensor parallelism over cfg.head_axis.  qkv projections are
+    column-parallel (heads split), the output projection row-parallel,
+    the MLP gate / up column- and down row-parallel; embed and lm_head
+    split the vocab; norm scales are replicated.  MoE experts split over
+    cfg.expert_axis only; a pipeline (cfg.pp_axis) stacks the layer specs
+    behind the stage axis and replicates embed and lm_head."""
+    tp = cfg.head_axis
+    layer = {"attn_norm": P(None), "wq": P(None, tp, None),
+             "wk": P(None, tp, None), "wv": P(None, tp, None),
+             "wo": P(tp, None, None), "mlp_norm": P(None)}
+    if cfg.n_experts:
+        ep = cfg.expert_axis
+        layer.update(router=P(None, None), w_gate=P(ep, None, None),
+                     w_up=P(ep, None, None), w_down=P(ep, None, None))
+    else:
+        layer.update(w_gate=P(None, tp), w_up=P(None, tp),
+                     w_down=P(tp, None))
+    if cfg.pp_axis is not None:
+        layer = {k: P(cfg.pp_axis, *v) for k, v in layer.items()}
+        return {"embed": P(None, None), "layers": layer,
+                "final_norm": P(None), "lm_head": P(None, None)}
+    return {"embed": P(tp, None), "layers": [layer] * cfg.n_layers,
+            "final_norm": P(None), "lm_head": P(tp, None)}
+
+
+class Shards:
+    """A parameter split over the tp positions of mesh axis `axis` along
+    dimension `dim` of the whole tensor: `parts[t]` is position t's
+    contiguous shard."""
+
+    def __init__(self, parts, dim: int, axis: Optional[str] = None):
+        self.parts = list(parts)
+        self.dim = int(dim)
+        self.axis = axis
+
+    def __len__(self):
+        return len(self.parts)
+
+    def full(self) -> torch.Tensor:
+        """The whole tensor (the shards joined along `dim`)."""
+        return torch.cat([t.detach() for t in self.parts], dim=self.dim)
+
+    def map(self, fn) -> "Shards":
+        return Shards([fn(t) for t in self.parts], self.dim, self.axis)
+
+
+class ShardedParams(dict):
+    """A parameter dictionary split over a mesh's head axis by
+    param_specs (shard_params): its Megatron leaves are Shards, the
+    others (norms, an MoE layer's router and experts) whole tensors held
+    once.  `mesh` ({axis: size}), `axis` (cfg.head_axis) and `tp` (its
+    size) travel with the tree, as a JAX array's sharding does."""
+
+    def __init__(self, tree, mesh, axis: str, tp: int):
+        super().__init__(tree)
+        self.mesh = dict(mesh)
+        self.axis = axis
+        self.tp = int(tp)
+
+    def replace(self, **leaves) -> "ShardedParams":
+        """A copy of the tree with some top-level entries replaced."""
+        return ShardedParams(dict(self, **leaves), self.mesh, self.axis,
+                             self.tp)
+
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    return {str(a): int(n) for a, n in (
+        mesh.shape if hasattr(mesh, "shape") else dict(mesh)).items()}
+
+
+def check_tp(cfg: ModelConfig, mesh, *, strict: bool = False) -> int:
+    """The tp size of `mesh` (its cfg.head_axis; 1 without a mesh or a
+    head axis), after the JAX package's checks (the serving paths'
+    _check_tp_mesh, models/paged_decode.py): n_heads, n_kv_heads and, as
+    the vocab-parallel embed and lm_head need, vocab divisible by it.
+    `strict` (the serving paths, as in JAX): a head_axis the mesh lacks
+    is a ValueError, not size 1."""
+    if mesh is None or cfg.head_axis is None:
+        return 1
+    shape = _mesh_shape(mesh)
+    if strict and cfg.head_axis not in shape:
+        raise ValueError(
+            f"head_axis {cfg.head_axis!r} is not an axis of the mesh "
+            f"{shape}; pass mesh=None for single-device serving or set "
+            "cfg.head_axis to a mesh axis")
+    tp = shape.get(cfg.head_axis, 1)
+    if tp > 1 and (cfg.n_kv_heads % tp or cfg.n_heads % tp):
+        raise ValueError(
+            f"n_heads {cfg.n_heads} / n_kv_heads {cfg.n_kv_heads} not "
+            f"divisible by {cfg.head_axis!r} mesh size {tp}")
+    if tp > 1 and cfg.vocab % tp:
+        raise ValueError(f"vocab {cfg.vocab} not divisible by "
+                         f"{cfg.head_axis!r} mesh size {tp} (embed and "
+                         "lm_head split the vocab)")
+    return tp
+
+
+def shard_params(params: Params, cfg: ModelConfig, mesh) -> ShardedParams:
+    """The port's parameters (init_params, params_from_jax) split over
+    the tp positions of `mesh` by param_specs: a ShardedParams whose
+    Megatron leaves are Shards (contiguous copies, one a position) and
+    whose replicated leaves are the given tensors.  A tree already split
+    for this mesh's tp is returned as it is; one split for another tp is
+    joined and split again (checkpoints restore across tp sizes)."""
+    if cfg.pp_axis is not None:
+        raise NotImplementedError(
+            "tensor parallelism of the pipeline model: pp with dp, tp or ep "
+            "comes with ROADMAP A7a's second half")
+    tp = check_tp(cfg, mesh, strict=True)
+    if isinstance(params, ShardedParams):
+        if params.tp == tp:
+            return params
+        params = unshard_params(params)
+    specs = param_specs(cfg)
+
+    def split(x, spec):
+        if isinstance(x, dict):
+            return {k: split(x[k], spec[k]) for k in x}
+        if isinstance(x, list):
+            return [split(a, b) for a, b in zip(x, spec)]
+        if cfg.head_axis is None or cfg.head_axis not in spec:
+            return x
+        dim = spec.index(cfg.head_axis)
+        return Shards([c.contiguous() for c in x.detach().chunk(tp, dim)],
+                      dim, cfg.head_axis)
+
+    return ShardedParams(split(dict(params), specs), _mesh_shape(mesh),
+                         cfg.head_axis, tp)
+
+
+def unshard_params(params) -> Params:
+    """A plain parameter dictionary with every Shards joined into its
+    whole tensor (the all_gather of each split leaf); a plain tree is
+    returned as it is."""
+    if not isinstance(params, ShardedParams):
+        return params
+
+    def join(x):
+        if isinstance(x, dict):
+            return {k: join(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [join(v) for v in x]
+        return x.full() if isinstance(x, Shards) else x
+
+    return join(dict(params))
+
+
+def params_device(params) -> torch.device:
+    """The device of a (possibly split) parameter tree."""
+    return next(iter(param_leaves(params))).device
 
 
 def _rms_norm(x, scale, eps=1e-6):
@@ -219,7 +418,12 @@ def _rope(x, positions, theta):
 def _qkv_proj(p, x, positions, cfg: ModelConfig):
     """Norm + qkv projections + rotary: x [B, S, d] -> q [B, N, S, H],
     k, v [B, Nkv, S, H]."""
-    h = _rms_norm(x, p["attn_norm"])
+    return _qkv_from_h(p, _rms_norm(x, p["attn_norm"]), positions, cfg)
+
+
+def _qkv_from_h(p, h, positions, cfg: ModelConfig):
+    """qkv projections + rotary of the normed h [B, S, d] (one tp
+    position's heads when p is its part of a split layer)."""
     q = torch.einsum("bsd,dnh->bnsh", h, p["wq"])
     k = torch.einsum("bsd,dnh->bnsh", h, p["wk"])
     v = torch.einsum("bsd,dnh->bnsh", h, p["wv"])
@@ -228,12 +432,51 @@ def _qkv_proj(p, x, positions, cfg: ModelConfig):
 
 
 def _attn_out(p, o):
-    """Output projection: o [B, N, S, H] -> [B, S, d]."""
+    """Output projection: o [B, N, S, H] -> [B, S, d] (a tp position's
+    partial sum when p is its part of a split layer)."""
     return torch.einsum("bnsh,nhd->bsd", o, p["wo"])
 
 
-def _mlp(p, x, cfg: Optional[ModelConfig] = None, mesh=None,
-         inference: bool = False):
+def tp_parts(p) -> list:
+    """A layer as its tp positions see it: [p] for a whole layer, else one
+    dict a position holding its shard of every split leaf (whole leaves
+    shared)."""
+    n = max((len(v) for v in p.values() if isinstance(v, Shards)),
+            default=0)
+    if n == 0:
+        return [p]
+    return [{k: v.parts[t] if isinstance(v, Shards) else v
+             for k, v in p.items()} for t in range(n)]
+
+
+def tp_sum(parts, axis: Optional[str]):
+    """The replicated sum of the tp positions' partial sums over mesh axis
+    `axis` (cfg.head_axis; one part: the part itself; more: all_reduce,
+    every position's copy alike, so the one value every position holds
+    is kept)."""
+    if len(parts) == 1:
+        return parts[0]
+    return all_reduce(parts, "sum", axis)[0]
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    """The embedding rows of `tokens` in cfg.dtype; a vocab-parallel embed
+    (Shards over tp): each position looks up the ids of its vocab shard,
+    zeros the others, and all_reduce adds the positions' rows."""
+    emb = params["embed"]
+    if not isinstance(emb, Shards):
+        return emb[tokens].to(cfg.dtype)
+    parts, lo = [], 0
+    for e in emb.parts:
+        local = tokens - lo
+        ok = (local >= 0) & (local < e.shape[0])
+        rows = e[local.clamp(0, e.shape[0] - 1)].to(cfg.dtype)
+        parts.append(rows.masked_fill(~ok[..., None], 0))
+        lo += e.shape[0]
+    return tp_sum(parts, emb.axis)
+
+
+def _mlp(p, x, cfg: ModelConfig, mesh=None, inference: bool = False):
     """The MLP sublayer (pre-norm): dense SwiGLU, or with cfg.n_experts a
     routed MoE.  Returns (out [B, S, d], aux): aux an fp32 0-d tensor
     for MoE, the float 0.0 for the dense MLP (no device op), so callers
@@ -248,11 +491,11 @@ def _mlp(p, x, cfg: Optional[ModelConfig] = None, mesh=None,
     token's MLP output is a training-time trade, and drop-free routing
     is per token, so the chunks give the one-group result."""
     h = _rms_norm(x, p["mlp_norm"])
-    if cfg is None or not cfg.n_experts:
-        gate = h @ p["w_gate"]
-        up = h @ p["w_up"]
-        out = (F.silu(gate) * up) @ p["w_down"]
-        return out, 0.0
+    if not cfg.n_experts:
+        # split over tp: column-parallel gate / up, row-parallel down
+        outs = [(F.silu(h @ pt["w_gate"]) * (h @ pt["w_up"])) @ pt["w_down"]
+                for pt in tp_parts(p)]
+        return tp_sum(outs, cfg.head_axis), 0.0
     mp = MoEParams(p["router"], p["w_gate"], p["w_up"], p["w_down"])
     b, s, d = h.shape
     top_k = cfg.moe_top_k
@@ -273,8 +516,31 @@ def _mlp(p, x, cfg: Optional[ModelConfig] = None, mesh=None,
 def _logits(x, lm_head):
     """fp32 logits [..., vocab] (the JAX model's preferred_element_type
     accumulation).  A caller that computes logits every step passes an
-    fp32 `lm_head` (ServeEngine does), and the cast costs nothing."""
-    return x.float() @ lm_head.float().t()
+    fp32 `lm_head` (ServeEngine does), and the cast costs nothing.  A
+    vocab-parallel lm_head (Shards): each tp position's logits over its
+    vocab shard, all_gathered."""
+    parts = _logit_parts(x, lm_head)
+    if len(parts) == 1:
+        return parts[0]
+    return all_gather(parts, dim=-1, axis=lm_head.axis)[0]
+
+
+def _logit_parts(x, lm_head) -> list:
+    """Each tp position's fp32 logits over its vocab shard (one part for a
+    whole lm_head)."""
+    heads = lm_head.parts if isinstance(lm_head, Shards) else [lm_head]
+    return [x.float() @ w.float().t() for w in heads]
+
+
+def fp32_head(params):
+    """`params` with lm_head upcast to fp32 once (the serving engines'
+    per-step logits then make no fresh fp32 copy of it)."""
+    head = params["lm_head"]
+    head = (head.map(lambda t: t.float()) if isinstance(head, Shards)
+            else head.float())
+    if isinstance(params, ShardedParams):
+        return params.replace(lm_head=head)
+    return dict(params, lm_head=head)
 
 
 def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
@@ -286,21 +552,32 @@ def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
     cfg.seq_axes, its layout and backend) or, for attn_strategy
     "ulysses", the all-to-all `ulysses_attn` over cfg.seq_axes[0], as the
     JAX model's `_attention` does; all take the packed-document
-    `segment_ids`.  `stats_out`: None, or a list the ring's DevStats is
-    appended to (collect_stats: the output is the same)."""
-    q, k, v = _qkv_proj(p, x, positions, cfg)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    `segment_ids`.  A layer split over tp projects each position's heads
+    with its shard of the weights, runs the positions' attention in one
+    launch over all their heads (burst_attn with cfg.head_axis as its
+    head axis: each position's ring is independent of the others'),
+    and all_reduces the positions' wo partial sums.  `stats_out`: None,
+    or a list the ring's DevStats is appended to (collect_stats: the
+    output is the same)."""
     world = ring_world(cfg, mesh)
+    h = _rms_norm(x, p["attn_norm"])
+    parts = tp_parts(p)
+    qkv = [_qkv_from_h(pt, h, positions, cfg) for pt in parts]
+    q, k, v = (torch.cat(t, dim=1) if len(parts) > 1 else t[0].contiguous()
+               for t in zip(*qkv))
     if cfg.attn_strategy == "ulysses" and world > 1:
-        o = ulysses_attn(q, k, v, mesh=dict(mesh), seq_axis=cfg.seq_axes[0],
-                         causal=cfg.causal, backend=cfg.attn_backend,
-                         head_axes=cfg.head_axis, window=cfg.window,
+        o = ulysses_attn(q, k, v, mesh=seq_mesh(mesh, cfg.seq_axes),
+                         seq_axis=cfg.seq_axes[0], causal=cfg.causal,
+                         backend=cfg.attn_backend, window=cfg.window,
                          segment_ids=segment_ids)
     elif world > 1:
-        o = burst_attn(q, k, v, mesh=dict(mesh), seq_axes=cfg.seq_axes,
-                       causal=cfg.causal, layout=cfg.layout,
-                       backend=cfg.attn_backend, window=cfg.window,
-                       segment_ids=segment_ids,
+        ring = seq_mesh(mesh, cfg.seq_axes)
+        if len(parts) > 1:
+            ring[cfg.head_axis] = len(parts)
+        o = burst_attn(q, k, v, mesh=ring, seq_axes=cfg.seq_axes,
+                       head_axes=cfg.head_axis, causal=cfg.causal,
+                       layout=cfg.layout, backend=cfg.attn_backend,
+                       window=cfg.window, segment_ids=segment_ids,
                        collect_stats=stats_out is not None)
         if stats_out is not None:
             o, st = o
@@ -308,7 +585,9 @@ def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
     else:
         o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                             segment_ids=segment_ids)
-    x = x + _attn_out(p, o)
+    os = o.chunk(len(parts), dim=1)
+    x = x + tp_sum([_attn_out(pt, ot) for pt, ot in zip(parts, os)],
+                   cfg.head_axis)
     m, aux = _mlp(p, x, cfg, mesh)
     return x + m, aux
 
@@ -338,38 +617,49 @@ def check_strategy(cfg: ModelConfig, collect_stats: bool = False) -> None:
 def check_expert_axis(cfg: ModelConfig, mesh) -> None:
     """Raise NotImplementedError for an expert axis (cfg.expert_axis) or,
     under Ulysses, a head axis (cfg.head_axis) of size > 1 in `mesh`:
-    experts and heads sharded over cards are ROADMAP A7."""
+    experts over positions in the model and Ulysses with tensor
+    parallelism are ROADMAP A7a's second half."""
     if mesh is None:
         return
-    sizes = dict(mesh)
+    sizes = _mesh_shape(mesh)
     for what, axis, on in (("expert", cfg.expert_axis, cfg.n_experts > 0),
                            ("head (tp)", cfg.head_axis,
                             cfg.attn_strategy == "ulysses")):
         if on and axis is not None and int(sizes.get(axis, 1)) > 1:
             raise NotImplementedError(
-                f"{what} axis {axis!r} of size {sizes[axis]}: sharding over "
-                "cards comes with the multi-card ring (ROADMAP A7)")
+                f"{what} axis {axis!r} of size {sizes[axis]}"
+                f"{' under ulysses' if what != 'expert' else ''}: comes "
+                "with ROADMAP A7a's second half (ROADMAP A7 before the "
+                "split)")
 
 
-def check_mesh(mesh, seq_axes=("sp",), pp_axis=None) -> None:
-    """Raise unless `mesh` (axis name -> size, or None) is a sequence
-    ring, or with `pp_axis` (cfg.pp_axis) a pipeline of such rings: its
-    sequence axes (`seq_axes`, cfg.seq_axes) and the pp axis take any
-    size, and every other axis (dp, tp, ep) must have size 1: data and
-    tensor parallelism and experts over cards are ROADMAP A2 (the
-    multi-card ring, A7 in the current numbering)."""
+def check_mesh(mesh, seq_axes=("sp",), pp_axis=None, batch_axis="dp",
+               head_axis="tp") -> None:
+    """Raise unless `mesh` (axis name -> size, or None) is a sequence ring
+    with data (`batch_axis`) and tensor (`head_axis`) positions beside
+    it, or with `pp_axis` (cfg.pp_axis) a pipeline of sequence rings: the
+    sequence axes (`seq_axes`, cfg.seq_axes), dp, tp and the pp axis take
+    any size.  Every other axis must have size 1, and so must dp, tp and
+    any other axis beside a pp axis: experts over positions and the
+    pipeline with dp, tp or ep are ROADMAP A7a's second half (ROADMAP A2
+    before the re-numberings)."""
     if mesh is None:
         return
-    keep = tuple(seq_axes) + ((pp_axis,) if pp_axis is not None else ())
-    other = {a: int(n) for a, n in dict(mesh).items()
+    if pp_axis is not None:
+        keep = tuple(seq_axes) + (pp_axis,)
+    else:
+        keep = tuple(seq_axes) + tuple(a for a in (batch_axis, head_axis)
+                                       if a is not None)
+    other = {a: int(n) for a, n in _mesh_shape(mesh).items()
              if a not in keep and int(n) != 1}
     if other:
         raise NotImplementedError(
             f"mesh axes {other} besides the sequence axes {tuple(seq_axes)}"
-            f"{' and the pp axis' if pp_axis is not None else ''}: data and "
-            "tensor parallelism and experts over cards need more than one "
-            "card (ROADMAP A7: the multi-card ring, ROADMAP A2 before "
-            "the re-numbering)")
+            f"{' and the pp axis' if pp_axis is not None else ''}"
+            f"{'' if pp_axis is not None else ', dp and tp'}: experts over "
+            "positions and the pipeline with dp, tp or ep come with "
+            "ROADMAP A7a's second half (ROADMAP A2 before the "
+            "re-numberings)")
 
 
 def check_serving(cfg: ModelConfig) -> None:
@@ -384,16 +674,57 @@ def check_serving(cfg: ModelConfig) -> None:
 
 def ring_world(cfg: ModelConfig, mesh) -> int:
     """Ring positions over cfg.seq_axes of `mesh` (1 without a mesh),
-    after check_expert_axis and check_mesh (a pipeline's stages each run
-    a ring of this size)."""
+    after check_expert_axis, check_mesh and check_tp (a pipeline's stages
+    and each (dp, tp) group run a ring of this size)."""
     check_expert_axis(cfg, mesh)
-    check_mesh(mesh, cfg.seq_axes, cfg.pp_axis)
+    check_mesh(mesh, cfg.seq_axes, cfg.pp_axis, cfg.batch_axis,
+               cfg.head_axis)
+    check_tp(cfg, mesh)
     if mesh is None:
         return 1
     n = 1
     for a in cfg.seq_axes:
-        n *= int(dict(mesh).get(a, 1))
+        n *= int(_mesh_shape(mesh).get(a, 1))
     return n
+
+
+def tp_of(params, cfg: ModelConfig, mesh, *, strict: bool = False) -> int:
+    """The tp size a forward runs: the parameters' split (ShardedParams),
+    which must be the mesh's tp (check_tp, `strict` as there) when a mesh
+    is given: plain parameters on a tp mesh are a ValueError, split once
+    with shard_params."""
+    have = params.tp if isinstance(params, ShardedParams) else 1
+    if mesh is not None:
+        want = check_tp(cfg, mesh, strict=strict)
+        if want != have:
+            raise ValueError(
+                f"the parameters are split over {have} tp position(s), the "
+                f"mesh's {cfg.head_axis!r} axis has {want}: pass "
+                "shard_params(params, cfg, mesh)")
+    return have
+
+
+def dp_groups(cfg: ModelConfig, mesh, batch: int):
+    """The batch rows of each data-parallel group: [slice] a group of
+    cfg.batch_axis's size in `mesh` (one whole slice without dp).  The
+    batch must divide by it, as JAX's batch sharding needs."""
+    dp = axis_size(mesh, cfg.batch_axis)
+    if batch % dp:
+        raise ValueError(f"batch {batch} not divisible by the "
+                         f"{cfg.batch_axis!r} axis size {dp}")
+    per = batch // dp
+    return [slice(g * per, (g + 1) * per) for g in range(dp)]
+
+
+def group_mesh(cfg: ModelConfig, mesh):
+    """What one data-parallel group runs on: `mesh` with cfg.batch_axis at
+    size 1."""
+    if mesh is None or cfg.batch_axis is None:
+        return mesh
+    shape = _mesh_shape(mesh)
+    if cfg.batch_axis in shape:
+        shape[cfg.batch_axis] = 1
+    return shape
 
 
 def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
@@ -407,10 +738,15 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     `cfg.remat` each block goes through torch.utils.checkpoint
     (non-reentrant), the counterpart of jax.checkpoint: its activations
     are recomputed in the backward.  `mesh` names axis sizes ({"sp": W}
-    or {"inter": a, "intra": b} with cfg.seq_axes to match; the ring
-    positions share the tokens' device).  `segment_ids` [B, S] ints in
-    the tokens' order pack documents into a row: every layer's attention
-    stays inside a document (flash_attention / burst_attn(segment_ids=)).
+    or {"inter": a, "intra": b} with cfg.seq_axes to match, beside
+    cfg.batch_axis "dp" and cfg.head_axis "tp"; the positions share the
+    tokens' device).  A dp axis splits the batch into groups, each its
+    own forward (the logits joined along the batch, the aux their mean);
+    a tp axis of size > 1 needs the parameters split for it
+    (shard_params), and the logits come all_gathered from the vocab
+    shards.  `segment_ids` [B, S] ints in the tokens' order pack
+    documents into a row: every layer's attention stays inside a
+    document (flash_attention / burst_attn(segment_ids=)).
 
     `collect_stats` (a ring only): also return the ring telemetry of
     every layer folded with obs.devstats.merge (counts add, extrema max /
@@ -420,6 +756,20 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
 
     With cfg.pp_axis set: the pipeline-parallel forward on stacked params
     (pipeline_lm.pp_forward_with_aux), without collect_stats."""
+    out = forward_parts(params, tokens, positions, cfg, mesh,
+                        segment_ids=segment_ids, collect_stats=collect_stats)
+    parts = out[0]
+    logits = (parts[0] if len(parts) == 1
+              else all_gather(parts, dim=-1, axis=cfg.head_axis)[0])
+    return (logits,) + tuple(out[1:])
+
+
+def forward_parts(params: Params, tokens, positions, cfg: ModelConfig,
+                  mesh=None, segment_ids=None, collect_stats=False):
+    """forward_with_aux with the logits left on their tp positions: (a
+    list of each position's fp32 logits over its vocab shard, one entry
+    without tp; aux[, DevStats]).  The trainer's vocab-parallel cross
+    entropy reads them so."""
     if cfg.pp_axis is not None:
         if collect_stats:
             raise ValueError(
@@ -428,14 +778,40 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
                 "stages and has no single ring to instrument")
         from .pipeline_lm import pp_forward_with_aux
 
-        return pp_forward_with_aux(params, tokens, positions, cfg, mesh,
-                                   segment_ids=segment_ids)
+        out = pp_forward_with_aux(params, tokens, positions, cfg, mesh,
+                                  segment_ids=segment_ids)
+        return ([out[0]],) + tuple(out[1:])
     check_strategy(cfg, collect_stats)
     if collect_stats and ring_world(cfg, mesh) < 2:
         raise ValueError("collect_stats needs a ring: the mesh's sequence "
                          f"axes {tuple(cfg.seq_axes)} hold one position")
     ring_world(cfg, mesh)
-    x = params["embed"][tokens].to(cfg.dtype)
+    tp_of(params, cfg, mesh)
+    groups = dp_groups(cfg, mesh, tokens.shape[0])
+    if len(groups) == 1:
+        return _forward_group(params, tokens, positions, cfg, mesh,
+                              segment_ids, collect_stats)
+    gm = group_mesh(cfg, mesh)
+    outs = [_forward_group(params, tokens[g], positions[g], cfg, gm,
+                           None if segment_ids is None else segment_ids[g],
+                           collect_stats) for g in groups]
+    parts = [torch.cat([o[0][t] for o in outs]) for t in range(
+        len(outs[0][0]))]
+    aux = torch.stack([torch.as_tensor(o[1]) for o in outs]).mean()
+    if not collect_stats:
+        return parts, aux
+    from ..obs import devstats
+
+    stats = outs[0][2]
+    for o in outs[1:]:
+        stats = devstats.merge(stats, o[2])
+    return parts, aux, stats
+
+
+def _forward_group(params, tokens, positions, cfg: ModelConfig, mesh,
+                   segment_ids, collect_stats):
+    """One data-parallel group's forward_parts (its batch rows)."""
+    x = _embed(params, tokens, cfg)
     if segment_ids is not None:  # once, as the kernels take them
         segment_ids = segment_ids.to(device=x.device,
                                      dtype=torch.int32).contiguous()
@@ -450,9 +826,10 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
         else:
             x, aux_l = _block(x, p, positions, cfg, mesh, sink, segment_ids)
         aux = aux + aux_l
-    logits = _logits(_rms_norm(x, params["final_norm"]), params["lm_head"])
+    parts = _logit_parts(_rms_norm(x, params["final_norm"]),
+                         params["lm_head"])
     if not collect_stats:
-        return logits, aux
+        return parts, aux
     from ..obs import devstats
 
     # each layer's first entry is its forward's (a remat recompute in the
@@ -460,7 +837,7 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     stats = sinks[0][0]
     for sink in sinks[1:]:
         stats = devstats.merge(stats, sink[0])
-    return logits, aux, stats
+    return parts, aux, stats
 
 
 def forward(params: Params, tokens, positions, cfg: ModelConfig,

@@ -47,9 +47,8 @@ scales behind it in the same slot (no new slots, no extra slot writes),
 and each round dequantizes its chunk to the compute dtype as it stages
 it; a round of the position's own partition reads the resident
 full-precision K and V, as the scan ring's self round does.  The kernel's
-WIRE instances (bf16 / fp32, with STATS and WIN, the scratch state mode
-only; none with SEG: a CUDA call with both raises) and the plain version
-implement the same.
+WIRE instances (bf16 / fp32, with STATS, SEG and WIN, the scratch state
+mode only) and the plain version implement the same.
 `collect_stats` reports quant_absmax = max(|k|, |v|) of each position.
 """
 
@@ -660,10 +659,6 @@ def _fused_ring_fwd_cuda(q, k, v, prog, sched, scale, slot_use=None,
                          f"{KERNEL_HEAD_DIMS}, got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, t, dev, q.dtype)
-    if wire is not None and seg is not None:
-        raise NotImplementedError(
-            "kernel 8 has no SEG + WIRE instance: packed segments with a "
-            "wire dtype run on the scan ring (backend 'auto'; ROADMAP B1)")
     lib = _build.load("fused_ring_fwd")
     code = KERNEL_DTYPES[q.dtype]
     cap = ctypes.c_int(0)
@@ -744,7 +739,7 @@ def fwd_attrs(stats: bool = False, seg: bool = False, win: bool = False,
     mode), or with `stats` of the four STATS instances (labels end in
     " stats"), with `seg` of the SEG instances (" seg" after that), with
     `win` of the WIN instances (" win"), with `wire` of the WIRE instances
-    (" wire" last; not with seg; the scratch state mode only)."""
+    (" wire" last; the scratch state mode only)."""
     return _build.kernel_attrs("fused_ring_fwd", {
         f"{name}{'' if res else ' scratch'}{' stats' if stats else ''}"
         f"{' seg' if seg else ''}{' win' if win else ''}"

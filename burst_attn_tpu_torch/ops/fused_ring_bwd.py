@@ -45,8 +45,8 @@ and every dq partial travels quantized with a fresh scale per (batch,
 head, 64-row q tile), the kernel's own q tile: the sender sums and
 re-quantizes it, the receiver dequantizes it before it folds (the folds
 stay fp32), and the home outputs arrive quantized and are dequantized
-here.  The kernel's WIRE instances (bf16 / fp32, with WIN) and the plain
-version implement the same; SEG, STATS or a trace with a wire dtype
+here.  The kernel's WIRE instances (bf16 / fp32, with SEG and WIN) and
+the plain version implement the same; STATS or a trace with a wire dtype
 raise on the card.
 """
 
@@ -422,11 +422,12 @@ def bwd_attrs(stats: bool = False, seg: bool = False, win: bool = False,
     fp32; with `stats` its two STATS instances (bf16 stats, fp32 stats);
     with `seg` and / or `win` its SEG, WIN or SEG + WIN instances (labels
     "bf16 seg", "fp32 win", "bf16 seg win", ...); with `wire` its WIRE
-    instances ("bf16 wire", "fp32 win wire", ...; not with seg)."""
+    instances ("bf16 wire", "fp32 win wire", "bf16 seg wire", ...)."""
     bf16, fp32 = KERNEL_DTYPES[torch.bfloat16], KERNEL_DTYPES[torch.float32]
     if wire:
-        flag = 16 | (8 if win else 0)
-        tag = (" win" if win else "") + " wire"
+        flag = 16 | (8 if win else 0) | (4 if seg else 0)
+        tag = ((" seg" if seg else "") + (" win" if win else "")
+               + " wire")
         return _build.kernel_attrs("fused_ring_bwd", {
             f"bf16{tag}": (bf16, flag), f"fp32{tag}": (fp32, flag)})
     if seg or win:
@@ -456,11 +457,9 @@ def _fused_ring_bwd_cuda(q, k, v, o, lse, do, prog, sched, scale, opt_comm,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_kernel_operand(name, t, dev, q.dtype)
     _check_kernel_operand("lse", lse, dev, torch.float32, (w, b, n, s))
-    if wire is not None and (seg is not None or slot_use is not None
-                             or trace is not None):
+    if wire is not None and (slot_use is not None or trace is not None):
         raise NotImplementedError(
-            "kernel 9 has no WIRE instance with SEG, STATS or TRACE: a wire "
-            "dtype with packed segments runs on the scan ring, and "
+            "kernel 9 has no WIRE instance with STATS or TRACE: "
             "collect_stats / trace of a wire backward are not built "
             "(ROADMAP B1)")
     lib = _build.load("fused_ring_bwd")

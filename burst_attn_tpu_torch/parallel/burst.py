@@ -104,7 +104,7 @@ from ..ops.masks import (
 )
 from ..ops.tile import finalize, init_state, tile_bwd, tile_fwd
 from . import schedule as sched_ir
-from .mesh import as_mesh, ppermute, shard, unshard
+from .mesh import _names, as_mesh, ppermute, shard, unshard
 from .ring import (
     partition_at_round, ring_coords, ring_round_counts, wire_dequantize,
     wire_quantize,
@@ -685,7 +685,10 @@ def burst_attn(
     in q's dtype.
 
     mesh: {axis: size} or a parallel.mesh.Mesh; its ring positions share
-    the tensors' device.  seq_axes: ("sp",) for a single ring or
+    the tensors' device.  batch_axes / head_axes name the mesh's dp / tp
+    axes: each of their groups runs its own ring, all in the one launch
+    over the whole B and N (any other axis of size > 1 is a
+    ValueError).  seq_axes: ("sp",) for a single ring or
     ("inter", "intra") for the hierarchical double ring.  backend: "auto"
     / "pallas" (kernel 1 per round on a CUDA tensor), "jnp" (the plain
     tile), "fused_ring" (kernel 8, the whole ring in one launch).  Skv !=
@@ -719,7 +722,10 @@ def burst_attn(
             f"cross-attention (s_q {q.shape[2]} != s_kv {k.shape[2]}) "
             "supports non-causal attention without segment_ids only")
     m = as_mesh(mesh, q.device)
-    n_inter, n_intra = m.ring(seq_axes)
+    # the (dp, tp) groups' rings run in this one launch over the whole B
+    # and N: attention is independent across batch rows and heads
+    n_inter, n_intra = m.ring(seq_axes, _names(batch_axes)
+                              + _names(head_axes))
     cfg = BurstConfig(
         causal=causal, layout=layout, scale=scale, intra_axis=intra_axis,
         inter_axis=inter_axis, backend=backend,

@@ -61,7 +61,7 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
 
     Raises ValueError unless N and Nkv divide by W ("divisible"), and
     NotImplementedError for a tensor-parallel `head_axes` of size > 1
-    (ROADMAP A7: the port's axes other than the sequence's have size 1).
+    (ROADMAP A7a's second half).
     The JAX signature's block sizes and batch axes have no counterpart:
     the kernels' tiles are fixed and the batch is whole on the device."""
     shape = dict(mesh.shape if isinstance(mesh, Mesh) else mesh)
@@ -71,8 +71,8 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
         tp *= int(shape.get(a, 1))
     if tp > 1:
         raise NotImplementedError(
-            f"ulysses with head_axes {head_axes!r} of size {tp}: tensor "
-            "parallelism rides with the multi-card ring (ROADMAP A7)")
+            f"ulysses with head_axes {head_axes!r} of size {tp}: Ulysses "
+            "with tensor parallelism is ROADMAP A7a's second half")
     if q.shape[1] % w or k.shape[1] % w:
         raise ValueError(
             f"ulysses needs q heads {q.shape[1]} and kv heads {k.shape[1]} "

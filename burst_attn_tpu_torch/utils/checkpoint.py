@@ -5,7 +5,11 @@ One file per step, `ckpt_<step>.pt` in the run directory: `torch.save` of
 {params, optimizer state_dict, step}, written to a temporary file, fsynced,
 then renamed into place, so a crash never leaves a torn checkpoint under
 the final name.  Restore is exact: the same bits, placed on the device the
-caller names.
+caller names.  Parameters split over a tp axis (transformer.ShardedParams)
+and their AdamW moments are saved whole (each split leaf's shards
+joined), so a checkpoint holds the same tensors whatever the tp size it
+was written at, and `restore` splits them again for the mesh it is given:
+a tp=2 run restores at tp=1 and back.
 
     ckpt = Checkpointer(dir)
     ckpt.save(step, state)                         # state = (params, opt)
@@ -44,8 +48,11 @@ class Checkpointer:
     def save(self, step: int, state) -> None:
         """Write (params, optimizer) at `step` durably, then drop the
         oldest checkpoints beyond `max_to_keep`."""
+        from ..models.transformer import unshard_params
+
         params, opt = state
-        payload = {"params": _detach(params), "opt": opt.state_dict(),
+        payload = {"params": _detach(unshard_params(params)),
+                   "opt": _whole_opt_state(params, opt.state_dict()),
                    "step": int(step)}
         final = self._path(step)
         tmp = final.with_suffix(f".tmp.{os.getpid()}")
@@ -69,9 +76,9 @@ class Checkpointer:
     def restore(self, step: int, cfg, tcfg, mesh=None, *,
                 device=None) -> Tuple[Any, int]:
         """The state saved at `step` as (params, optimizer) on `device`
-        (default: the card)."""
-        from ..models.train import _optimizer, _world
-        from ..models.transformer import param_leaves
+        (default: the card), split over `mesh`'s tp axis when it has one
+        of size > 1."""
+        from ..models.train import _optimizer, _world, place_params
 
         _world(cfg, mesh)
         dev = resolve_device(device)
@@ -85,10 +92,9 @@ class Checkpointer:
         if n != cfg.n_layers:
             raise ValueError(f"checkpoint has {n} layers, the config "
                              f"{cfg.n_layers}")
-        for t in param_leaves(params):
-            t.requires_grad_(True)
+        params = place_params(params, cfg, mesh)
         opt = _optimizer(params, tcfg)
-        opt.load_state_dict(payload["opt"])
+        opt.load_state_dict(_split_opt_state(params, payload["opt"]))
         return (params, opt), int(payload["step"])
 
     def restore_latest(self, cfg, tcfg, mesh=None, *, device=None
@@ -110,3 +116,51 @@ def _detach(tree):
         return [_detach(v) for v in tree]
     return tree.detach()
 
+
+def _leaf_splits(params):
+    """(dim, shards) of every leaf in tree_leaves' order: (None, 1) for a
+    whole tensor, (the split dim, tp) for a Shards."""
+    from ..models.transformer import Shards, tree_leaves
+
+    return [(x.dim, len(x)) if isinstance(x, Shards) else (None, 1)
+            for x in tree_leaves(params)]
+
+
+def _whole_opt_state(params, sd):
+    """An optimizer state_dict over split parameters as the one over the
+    whole tree: each split leaf's per-shard moments joined along its dim
+    (the scalar `step` kept once)."""
+    splits = _leaf_splits(params)
+    if all(n == 1 for _, n in splits):
+        return sd
+    state, i = {}, 0
+    for j, (dim, n) in enumerate(splits):
+        got = [sd["state"].get(i + k) for k in range(n)]
+        i += n
+        if got[0] is None:
+            continue
+        state[j] = {key: (torch.cat([g[key] for g in got], dim=dim)
+                          if dim is not None and got[0][key].dim() > 0
+                          else got[0][key]) for key in got[0]}
+    groups = [dict(g, params=list(range(len(splits))))
+              for g in sd["param_groups"]]
+    return {"state": state, "param_groups": groups}
+
+
+def _split_opt_state(params, sd):
+    """The inverse of _whole_opt_state for `params`' splits."""
+    splits = _leaf_splits(params)
+    if all(n == 1 for _, n in splits):
+        return sd
+    state, i = {}, 0
+    for j, (dim, n) in enumerate(splits):
+        got = sd["state"].get(j)
+        if got is not None:
+            for k in range(n):
+                state[i + k] = {
+                    key: (v.chunk(n, dim=dim)[k].contiguous()
+                          if dim is not None and v.dim() > 0 else v.clone())
+                    for key, v in got.items()}
+        i += n
+    groups = [dict(g, params=list(range(i))) for g in sd["param_groups"]]
+    return {"state": state, "param_groups": groups}

@@ -1474,6 +1474,95 @@ def serve_engine_phase(device):
     return res
 
 
+# the tp sizes of the tp phase: the serving model's 4 kv heads split in
+# two and in four
+TP_SIZES = (2, 4)
+# an fp32 near tie: tp changes only the summation order of the wo and
+# w_down partial sums (~1e-7 relative), so a tp stream may part from the
+# unsharded one only where the dense forward's two choices lie closer
+TP_TIE_GAP = 1e-4
+
+
+def tp_serve_phase(device, serve_res):
+    """Tensor-parallel serving at the serving width (fp32, SERVE_DIMS, 4
+    kv heads): ServeEngine(mesh={"tp": T}) for T in TP_SIZES on the 12
+    seeded requests, the parameters split over T positions (the vocab
+    too), each position's kv-head shard of the pool.  Its tokens equal
+    the unsharded fp32 engine's (serve_engine_phase; a parting only at an
+    fp32 near tie of the dense forward, TP_TIE_GAP); kernel 1 launches T
+    times a request a layer and kernel 6 T times a layer a decode tick
+    (the counters read around one tick with every slot live); then the
+    decode tick's host ms (every slot live at ~2K context) beside the
+    unsharded engine's.  Returns the phase's numbers, its launches under
+    "launches"."""
+    import dataclasses
+
+    import torch
+
+    from burst_attn_tpu_torch.models.serve import ServeEngine
+    from burst_attn_tpu_torch.models.transformer import ShardedParams
+    from burst_attn_tpu_torch.ops import flash, paged_attention as pa
+
+    t_phase = time.perf_counter()
+    counters = (flash.flash_fwd, pa.paged_decode_attention)
+    kw = dict(slots=SLOTS, n_pages=N_PAGES, page=PAGE,
+              max_pages_per_seq=MAX_PAGES, device=device)
+    cfg, params = model(torch.float32, device)
+    cfgt = dataclasses.replace(cfg, head_axis="tp")
+    prompts, budgets = requests(cfg)
+    want = serve_res["fp32"]["toks"]
+    base = serve_res["fp32"]["launches"]
+    long_prompt = prompts[1]
+
+    def tick_ms(eng):
+        """host ms of a decode tick with every slot live at ~2K, and the
+        launches of one such tick"""
+        for _ in range(SLOTS):
+            eng.submit(long_prompt[:2048 - 64], 64)
+        eng.step()  # admits every slot
+        for f in counters:
+            f.launches = 0
+        eng.step()
+        torch.cuda.synchronize()
+        one = {f.__name__: f.launches for f in counters}
+        ms = host_ms(lambda: [eng.step() for _ in range(16)],
+                     repeats=1) / 16
+        eng.drain()
+        return ms, one
+
+    res = {"launches": {"flash_fwd": 0, "paged_decode_attention": 0},
+           "tick_ms": {1: tick_ms(serve_res["fp32"]["eng"])[0]}}
+    for tp in TP_SIZES:
+        eng = ServeEngine(params, cfgt, mesh={"tp": tp}, **kw)
+        assert isinstance(eng.params, ShardedParams) and eng.state.tp == tp
+        toks, launches, run_s = drive(eng, prompts, budgets, counters)
+        assert eng.pool.available == N_PAGES - 1, "pool did not drain"
+        assert launches == {k: tp * v for k, v in base.items()}, (launches,
+                                                                   base)
+        flips = near_tie_flips(cfg, params, prompts, toks, want, device)
+        same = sum(a == b for a, b in zip(toks, want))
+        assert all(g <= TP_TIE_GAP for _, _, g in flips), flips
+        ms, one = tick_ms(eng)
+        assert one == {"flash_fwd": 0,
+                       "paged_decode_attention": tp * cfg.n_layers}, one
+        for k_, v_ in launches.items():
+            res["launches"][k_] += v_
+        res[f"tp{tp}"] = dict(same=same, flips=flips, run_s=run_s,
+                              launches=launches, tick_launches=one)
+        res["tick_ms"][tp] = ms
+        print(f"tp ServeEngine fp32, tp={tp}: 12 requests in {run_s:.2f} s, "
+              f"{same}/{N_REQUESTS} streams equal the unsharded engine's, "
+              f"flips {flips}; launches {launches} (unsharded {base}); a "
+              f"decode tick launches {one} (kernel 6 = tp x {cfg.n_layers} "
+              f"layers), {ms:.3f} ms (unsharded {res['tick_ms'][1]:.3f} ms)",
+              flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"tp serve phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def ragged_engine_phase(device, serve_res):
     """RaggedServeEngine runs at the serving width: bf16 (launch counts,
     agreement), plain-attention control, fp32 (exact vs the dense forward
@@ -2238,6 +2327,147 @@ def train_phase(device):
           f"{c_times[-1]:.1f} ms; losses {[round(x, 4) for x in c_losses]} "
           f"(kernels {[round(x, 4) for x in losses]}; rel diffs "
           f"{[float(f'{d:.2e}') for d in diffs]})", flush=True)
+    return res
+
+
+# the dp x sp x tp train step: its mesh, the training model's width at
+# 4 layers (depth cut: one device holds every position's shard), B = dp
+MESH_TRAIN = {"dp": 2, "sp": 2, "tp": 2}
+MESH_TRAIN_LAYERS = 4
+MESH_TRAIN_STEPS = 2  # after the first; every step compared, these timed
+# the mesh step against one device, same weights and batch, bf16: each
+# loss, and the first step's grad norm, within MESH_TRAIN_RTOL (H100
+# readings 9.8e-6 to 9.8e-5, grad norm 1.3e-4); each (clipped) gradient of
+# the first step within MESH_GRAD_RTOL in relative l2 norm (readings
+# 5.1e-3 to 2.5e-2 a leaf; two single-device routes, the kernels and plain
+# attention, read 3.7e-3 to 1.8e-2: bf16 rounding through 4 layers); a
+# wrong kernel-9 output or dp reduction moves a leaf by O(1), a wrong
+# gradient scale moves the grad norm
+MESH_TRAIN_RTOL = 1e-3
+MESH_GRAD_RTOL = 5e-2
+
+
+def _whole_grads(params):
+    """(name, gradient) of every tree leaf of `params` after a step, a
+    split leaf's shards' gradients joined into its whole tensor."""
+    import torch
+
+    from burst_attn_tpu_torch.models.transformer import (
+        Shards, layer_keys, tree_leaves,
+    )
+
+    names = ["embed"] + [f"layers[{i}].{k}" for i, layer in enumerate(
+        params["layers"]) for k in layer_keys(layer)] + [
+        "final_norm", "lm_head"]
+    grads = [torch.cat([t.grad for t in x.parts], dim=x.dim)
+             if isinstance(x, Shards) else x.grad.clone()
+             for x in tree_leaves(params)]
+    return list(zip(names, grads))
+
+
+def mesh_train_phase(device):
+    """A dp=2 sp=2 tp=2 train step at the training model's width (bf16,
+    remat, 4 layers, B=2 S=TRAIN_SEQ, the fused ring over each dp group's
+    sp=2 ring, its tp positions' heads in one launch) against the same
+    model, weights and batch on one device (the flash kernels): every
+    loss of 1 + MESH_TRAIN_STEPS steps and the first step's grad norm
+    within MESH_TRAIN_RTOL, and each of the first step's (clipped)
+    gradients, joined over tp, within MESH_GRAD_RTOL in relative l2
+    norm; launches a mesh step:
+    kernel 8 twice (forward, remat recompute) and kernel 9 once a layer
+    and a dp group; step ms of both (median of the steps after the
+    first).  Returns the phase's numbers."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.transformer import (
+        ModelConfig, ShardedParams,
+    )
+
+    t_phase = time.perf_counter()
+    layers, b = MESH_TRAIN_LAYERS, MESH_TRAIN["dp"]
+    cfg1 = _train_model(TRAIN_DIMS["n_layers"], torch.bfloat16)
+    tcfg = train.TrainConfig()
+    key = (cfg1.n_layers, cfg1.d_model, cfg1.n_heads, cfg1.n_kv_heads,
+           cfg1.d_ff, cfg1.vocab, cfg1.dtype)
+    if key not in _SEED_PARAMS:
+        _seed_state(cfg1, tcfg, device)
+    leaves = _SEED_PARAMS[key]
+    per = len(leaves[1:-2]) // cfg1.n_layers
+    # the seed's embed, first `layers` layers, final norm and lm_head
+    cut = leaves[:1 + per * layers] + leaves[-2:]
+    one_cfg = _train_model(layers, torch.bfloat16)
+    mesh_cfg = ModelConfig(**{**TRAIN_DIMS, "n_layers": layers},
+                           dtype=torch.bfloat16, remat=True,
+                           attn_backend="fused_ring")
+    res = {"mesh": MESH_TRAIN, "layers": layers, "batch": b,
+           "seq": TRAIN_SEQ}
+    grads = {}
+    for name, cfg, mesh in (("one device", one_cfg, None),
+                            ("mesh", mesh_cfg, train.make_mesh(MESH_TRAIN))):
+        params = train.place_params(_params_like(cut, one_cfg), cfg, mesh)
+        assert isinstance(params, ShardedParams) == (mesh is not None)
+        state = (params, train._optimizer(params, tcfg))
+        step = train.make_train_step(cfg, tcfg, mesh, device=device)
+        batch = train.make_batch(1, cfg, mesh, batch=b, seq=TRAIN_SEQ,
+                                 device=device)
+        losses, gnorms, times, launches = [], [], [], []
+        for i in range(1 + MESH_TRAIN_STEPS):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            launches.append(_counts())
+            if i == 0:
+                grads[name] = _whole_grads(params)
+        assert all(map(math.isfinite, losses + gnorms)), (name, losses)
+        if mesh is None:
+            want = _launches(flash_fwd=2 * layers, fused=layers)
+        else:
+            want = _launches(fused_ring_fwd=2 * layers * MESH_TRAIN["dp"],
+                             fused_ring_bwd=layers * MESH_TRAIN["dp"])
+        assert all(x == want for x in launches), (name, launches, want)
+        res[name] = dict(losses=losses, grad_norms=gnorms,
+                         step_ms=statistics.median(times[1:]),
+                         step_ms_all=times, launches_per_step=launches[0])
+        del state, step, params
+        torch.cuda.empty_cache()
+    one, mesh_r = res["one device"], res["mesh"]
+    rels = [abs(a - c) / abs(c) for a, c in zip(
+        mesh_r["losses"] + mesh_r["grad_norms"][:1],
+        one["losses"] + one["grad_norms"][:1])]
+    assert max(rels) <= MESH_TRAIN_RTOL, (rels, mesh_r, one)
+    res["loss_rel_diffs"] = rels[:-1]
+    res["grad_norm_rel_diff"] = rels[-1]
+    errs = {}
+    for (what, a), (what1, c) in zip(grads["mesh"], grads["one device"]):
+        assert what == what1 and a.shape == c.shape, (what, what1)
+        errs[what] = float((a.float() - c.float()).norm()
+                           / c.float().norm().clamp(min=1e-30))
+    del grads
+    worst = max(errs, key=errs.get)
+    res["grad_rel_l2"] = errs
+    print(f"mesh train step gradients, relative l2 error a leaf: {errs}",
+          flush=True)
+    assert errs[worst] <= MESH_GRAD_RTOL, (worst, errs[worst])
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh train step {MESH_TRAIN} ({layers} layers of the training "
+          f"model, bf16, remat, B={b} S={TRAIN_SEQ}, fused ring): "
+          f"{mesh_r['step_ms']:.1f} ms (one device "
+          f"{one['step_ms']:.1f} ms, same weights and batch); losses "
+          f"{mesh_r['losses']} (one device {one['losses']}; rel diffs "
+          f"{[float(f'{d:.2e}') for d in rels[:-1]]}); first grad norm "
+          f"{mesh_r['grad_norms'][0]} (one device {one['grad_norms'][0]}; "
+          f"rel diff {rels[-1]:.2e}); largest relative l2 error of a "
+          f"gradient {errs[worst]:.2e} ({worst}); launches "
+          f"a step {mesh_r['launches_per_step']}; phase "
+          f"{res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -5356,8 +5586,9 @@ def journal_ticks(device, n_steps=16):
 def checkpoint_phase(device):
     """The checkpoint phase (after the speculative one): snapshot round
     trips of four engines (ServeEngine, the synchronous and the pipelined
-    RaggedServeEngine, the ragged prefix wave) and the two synchronous
-    engines' crash recoveries, in fp32 and bf16; then the journal's cost
+    RaggedServeEngine, the ragged prefix wave; the last two in bf16 only)
+    and the two synchronous engines' crash recoveries, in fp32 and bf16;
+    then the journal's cost
     on the ragged decode tick, synchronous and pipelined.  Returns its
     results, with the bf16 runs' launches of kernels 1, 6 and 7 summed
     under "launches"."""
@@ -5368,7 +5599,12 @@ def checkpoint_phase(device):
     launches = {"flash_fwd": 0, "paged_decode_attention": 0,
                 "ragged_paged_attention": 0}
     for dtype in (torch.float32, torch.bfloat16):
-        for kind in ("ServeEngine", "ragged", "pipelined", "prefix"):
+        # the pipelined engine's and the prefix wave's round trips in bf16
+        # only (their fp32 twins are cut for the tp and mesh phases' time:
+        # the bf16 restores are held token-exact to their uninterrupted
+        # runs all the same)
+        for kind in ("ServeEngine", "ragged") + (
+                ("pipelined", "prefix") if dtype is torch.bfloat16 else ()):
             r = checkpoint_run(kind, dtype, device)
             res[f"{kind}_{_dtype_key(dtype)}"] = r
             if dtype is torch.bfloat16:
@@ -8284,6 +8520,203 @@ def wire_phase(device):
     return recs, res
 
 
+def seg_wire_phase(device):
+    """Kernels 8 and 9's SEG + WIRE instances (packed ids with an int8 or
+    fp8 ring payload) at the ring train step's shape (W=4 B1 N16/16
+    S_local 2048 D128 bf16 causal zigzag) on the packed pattern's ids
+    (_seg_patterns): burst_attn(segment_ids=, wire_dtype=) on the fused
+    route (one launch of each SEG + WIRE instance, no fallback) against
+    the scan ring with the same ids and wire (the forward at the bf16
+    O_TOL, the gradients within WIRE_TOL_GRAD); each kernel against its
+    plain version with the same ids and wire (kernel 8 at O_TOL, kernel 9
+    by _wire_bwd_errs); two launches equal; ms a launch beside the SEG
+    launch without a wire.  Bound: the pairs the ids leave (4 D flops a
+    pair forward, 10 D backward), q, k, v, o, lse and the ids once, every
+    program copy of the quantized chunk or bundle.  No library call
+    computes a quantized ring (library_ms null).  Returns the
+    kernels-line records fused_ring_fwd[seg+wire int8|fp8] and
+    fused_ring_bwd[seg+wire int8|fp8], and the phase's numbers."""
+    import torch
+
+    from burst_attn_tpu_torch.ops import fused_ring, fused_ring_bwd
+    from burst_attn_tpu_torch.parallel import burst, layouts, mesh
+
+    t_phase = time.perf_counter()
+    bf16, d, b = torch.bfloat16, 128, 1
+    w, n = RING_TRAIN_SP, TRAIN_DIMS["n_heads"]
+    n_kv, S = TRAIN_DIMS["n_kv_heads"], TRAIN_SEQ
+    s = S // w
+    ids_np = _seg_patterns(S)["packed"]
+    ids = layouts.to_layout(torch.from_numpy(ids_np), "zigzag", w,
+                            axis=1).to(device)
+    seg = mesh.shard(ids, w, dim=1)
+    g = torch.Generator(device=device).manual_seed(53)
+    q, k, v, do = (layouts.to_layout(
+        torch.randn(1, h, S, d, generator=g, device=device).to(bf16),
+        "zigzag", w, 2) for h in (n, n_kv, n_kv, n))
+    qs, ks, vs, dos = (mesh.shard(t, w) for t in (q, k, v, do))
+    kw = dict(mesh={"sp": w}, causal=True, layout="zigzag", segment_ids=ids)
+    pairs = _live_pairs(ids_np) * b * n
+    res, recs = {"live_pairs": pairs}, []
+    for wire in WIRE_DTYPES:
+        out, launched = {}, {}
+        for backend in ("fused_ring", "auto"):
+            obs0 = _obs_now()
+            n8 = fused_ring.fused_ring_fwd.wire_launches
+            n9 = fused_ring_bwd.fused_ring_bwd.wire_launches
+            s8 = fused_ring.fused_ring_fwd.seg_launches
+            s9 = fused_ring_bwd.fused_ring_bwd.seg_launches
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = burst.burst_attn(*leaves, backend=backend, wire_dtype=wire,
+                                 **kw)
+            grads = torch.autograd.grad(o, leaves, do)
+            torch.cuda.synchronize()
+            assert not any(x.startswith("burst.fused_fallback")
+                           for x in _obs_since(obs0)), \
+                dict(_obs_since(obs0))
+            launched[backend] = (
+                fused_ring.fused_ring_fwd.wire_launches - n8,
+                fused_ring_bwd.fused_ring_bwd.wire_launches - n9,
+                fused_ring.fused_ring_fwd.seg_launches - s8,
+                fused_ring_bwd.fused_ring_bwd.seg_launches - s9)
+            out[backend] = o.detach(), grads
+        # the fused route's launches are the SEG + WIRE instances'
+        assert launched["fused_ring"] == (1, 1, 1, 1), launched
+        assert launched["auto"] == (0, 0, 0, 0), launched
+        (o_f, g_f), (o_s, g_s) = out["fused_ring"], out["auto"]
+        r = {"main_launches": launched["fused_ring"][:2],
+             "fwd_vs_scan": _check_o(f"seg+wire {wire} kernel 8 vs the scan "
+                                     "ring", o_f, o_s, bf16),
+             "grad_vs_scan": [_max_err(a, b_) for a, b_ in zip(g_f, g_s)]}
+        assert max(r["grad_vs_scan"]) < WIRE_TOL_GRAD[wire], r
+        del out, g_f, g_s, o_s
+        cfg = burst.BurstConfig(causal=True, layout="zigzag",
+                                backend="fused_ring", wire_dtype=wire)
+        fprog, ftables, _ = fused_ring.ring_plan(cfg, 1, w, s, "fwd")
+        prog, tables, _ = fused_ring.ring_plan(cfg, 1, w, s, "bwd")
+        o8, lse8 = fused_ring.fused_ring_fwd(qs, ks, vs, cfg, 1, w, seg=seg)
+        again = fused_ring.fused_ring_fwd(qs, ks, vs, cfg, 1, w, seg=seg)
+        assert torch.equal(again[0], o8) and torch.equal(again[1], lse8)
+        assert torch.equal(mesh.unshard(o8), o_f), \
+            "kernel 8 alone differs from burst_attn's seg + wire forward"
+        t0 = time.perf_counter()
+        po, plse = fused_ring.fused_ring_reference(
+            qs, ks, vs, fprog, ftables, d ** -0.5, seg=seg, wire=wire)
+        torch.cuda.synchronize()
+        r["plain_fwd_ms"] = (time.perf_counter() - t0) * 1e3
+        r["k8_vs_plain"] = _check_o(f"seg+wire {wire} kernel 8 vs its plain "
+                                    "version", o8, po, bf16)
+        r["k8_lse_vs_plain"] = _stats_close(
+            f"seg+wire {wire} kernel 8 lse", lse8, plse, "bf16")
+        del po, plse, again
+        bargs = (qs, ks, vs, o8, lse8, dos)
+        got = fused_ring_bwd.fused_ring_bwd(*bargs, cfg, 1, w, seg=seg)
+        again = fused_ring_bwd.fused_ring_bwd(*bargs, cfg, 1, w, seg=seg)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        t0 = time.perf_counter()
+        want = fused_ring_bwd.fused_ring_bwd_reference(
+            *bargs, prog, tables, d ** -0.5, cfg.optimize_bwd_comm, seg=seg,
+            head_chunk=4, wire=wire)
+        torch.cuda.synchronize()
+        r["plain_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+        r["k9_vs_plain"], r["k9_dq_codes"] = _wire_bwd_errs(
+            got, want, wire, f"seg+wire {wire} kernel 9 vs its plain version")
+        del got, again, want
+        torch.cuda.empty_cache()
+        dense = burst.BurstConfig(causal=True, layout="zigzag",
+                                  backend="fused_ring")
+        od, lsed = fused_ring.fused_ring_fwd(qs, ks, vs, dense, 1, w,
+                                             seg=seg)
+        turns = {x: {"k8": [], "k9": []} for x in ("seg", "seg+wire")}
+        for x in ("seg", "seg+wire", "seg+wire", "seg"):
+            c, oo, ll = (dense, od, lsed) if x == "seg" else (cfg, o8, lse8)
+            turns[x]["k8"].append(time_ms(lambda: fused_ring.fused_ring_fwd(
+                qs, ks, vs, c, 1, w, seg=seg), iters=10, warmup=2))
+            turns[x]["k9"].append(time_ms(
+                lambda: fused_ring_bwd.fused_ring_bwd(
+                    qs, ks, vs, oo, ll, dos, c, 1, w, seg=seg), iters=10,
+                warmup=2))
+        ms = {x: {kern: sum(v_) / len(v_) for kern, v_ in t_.items()}
+              for x, t_ in turns.items()}
+        copies = w * (sum(fprog.rows["send0"]) + sum(fprog.rows["send1"])
+                      + len(fprog.copy_in))
+        from burst_attn_tpu_torch.parallel import schedule as sched_ir
+
+        chunk = sched_ir.wire_round_bytes("fwd", wire, b=b, n=n, n_kv=n_kv,
+                                          s=s, d=d)["kv"]
+        ids_bytes = 4 * b * S
+        k8_bound = bound_ms(2 * 2 * q.numel() + 2 * 2 * k.numel()
+                            + 4 * lse8.numel() + 2 * copies * chunk
+                            + ids_bytes, 4 * d * pairs)
+        k9_bound = _bwd_bound(tables, prog, b, n, n_kv, s, d, 2,
+                              pairs=pairs, extra_bytes=ids_bytes,
+                              wire=wire)[:2]
+        del od, lsed, o8, lse8, bargs, o_f
+        torch.cuda.empty_cache()
+        r.update(ms=ms, turns_ms=turns, k8_bound=k8_bound, k9_bound=k9_bound)
+        res[wire] = r
+        print(f"seg+wire {wire} at the ring train step's shape (W={w} B1 "
+              f"N{n}/{n_kv} S_local {s} bf16 zigzag, packed ids, "
+              f"{pairs} live pairs): kernel 8 vs the scan ring "
+              f"{r['fwd_vs_scan']:.3e}, vs its plain version "
+              f"{r['k8_vs_plain']:.3e}; gradients vs the scan ring "
+              f"{[float(f'{x:.3e}') for x in r['grad_vs_scan']]}, kernel 9 "
+              f"vs its plain version "
+              f"{[float(f'{x:.3e}') for x in r['k9_vs_plain']]} (dq "
+              f"{r['k9_dq_codes']:.2f} codes); ms a launch (turns seg, "
+              f"seg+wire, seg+wire, seg): kernel 8 {ms['seg+wire']['k8']:.4f}"
+              f" (seg alone {ms['seg']['k8']:.4f}), kernel 9 "
+              f"{ms['seg+wire']['k9']:.4f} (seg alone {ms['seg']['k9']:.4f});"
+              f" bounds {k8_bound[0]:.4f} ({k8_bound[1]}) / "
+              f"{k9_bound[0]:.4f} ({k9_bound[1]}) ms; plain versions "
+              f"{r['plain_fwd_ms']:.0f} / {r['plain_bwd_ms']:.0f} ms",
+              flush=True)
+    attrs = {"k8": [a for x in (False, True) for a in fused_ring.fwd_attrs(
+                 seg=True, win=x, wire=True)],
+             "k9": [a for x in (False, True) for a in
+                    fused_ring_bwd.bwd_attrs(seg=True, win=x, wire=True)]}
+    for kern, rows in attrs.items():
+        for a in rows:
+            assert 0 < a["regs"] <= 255 and a["ctas"] >= 1, (kern, a)
+            print(f"{'fused_ring_fwd' if kern == 'k8' else 'fused_ring_bwd'}"
+                  f" {a['instance']}: {a['regs']} registers, "
+                  f"{a['local_bytes']} local (spill) bytes a thread, "
+                  f"{a['smem']} B of shared memory, {a['ctas']} CTAs "
+                  f"resident", flush=True)
+    for kern, name, src, rep_ in (
+            ("k8", "fused_ring_fwd", "fused_ring_fwd.cu",
+             "burst_attn_tpu/ops/fused_ring.py:1049 (_fused_fwd_kernel, "
+             "has_seg with wire: l.401, l.678-690)"),
+            ("k9", "fused_ring_bwd", "fused_ring_bwd.cu",
+             "burst_attn_tpu/ops/fused_ring_bwd.py:1087 (_fused_bwd_kernel, "
+             "has_seg with wire: l.168-173)")):
+        for x in WIRE_DTYPES:
+            r = res[x]
+            err = (max(r["fwd_vs_scan"], r["k8_vs_plain"]) if kern == "k8"
+                   else max(r["k9_vs_plain"]))
+            bnd = r[f"{kern}_bound"]
+            recs.append(dict(
+                name=f"{name}[seg+wire {x}]", route="cuda",
+                source=f"burst_attn_tpu_torch/csrc/{src}", replaces=rep_,
+                launches=r["main_launches"][0 if kern == "k8" else 1],
+                max_abs_err=err, ms=r["ms"]["seg+wire"][kern],
+                plain_ms=r["plain_fwd_ms" if kern == "k8"
+                           else "plain_bwd_ms"],
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                wire={"shape": f"W={w} B1 N{n}/{n_kv} S_local {s} D{d} bf16 "
+                               "causal zigzag, packed ids (the ring train "
+                               "step's)",
+                      "ms_seg_alone": r["ms"]["seg"][kern],
+                      "turns_ms": r["turns_ms"]["seg+wire"][kern],
+                      "turns_ms_seg": r["turns_ms"]["seg"][kern],
+                      "attrs": attrs[kern]}))
+    del q, k, v, do, qs, ks, vs, dos
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"seg+wire phase: {res['seconds']:.1f} s", flush=True)
+    return recs, res
+
+
 # ---------------------------------------------------------------------------
 # serving under load: the loadgen trace replayed open-loop in process, the
 # multi-process serve cluster with a kill and a restart, the disaggregated
@@ -9068,6 +9501,7 @@ def main() -> int:
           flush=True)
     print_profile("ServeEngine prefill", serve_res["prof_prefill"])
     print_profile("ServeEngine decode step", serve_res["prof_step"])
+    tpsrv = tp_serve_phase(device, serve_res)
     sprefix = serve_prefix_phase(device)
 
     rag = ragged_engine_phase(device, serve_res)
@@ -9177,6 +9611,8 @@ def main() -> int:
     uly = ulysses_train_phase(device, tr, ring_tr)
     uly_rows = ulysses_rows(device)
     _mark(t_start, "ulysses train phase")
+    mtr = mesh_train_phase(device)
+    _mark(t_start, "mesh train phase")
     pp_res = pp_train_phase(device)
     _mark(t_start, "pp train phase")
     _SEED_PARAMS.clear()  # the training model's seed-0 weights
@@ -9184,7 +9620,8 @@ def main() -> int:
     moe_tr = moe_train_phase(device)
     _mark(t_start, "moe train phase")
     wire_recs, wire_res = wire_phase(device)
-    _mark(t_start, "wire phase")
+    sw_recs, sw_res = seg_wire_phase(device)
+    _mark(t_start, "wire and seg+wire phases")
     parity = train_parity(device)
     ring_parity = ring_train_parity(device)
     fit_res = runner_phase(device)
@@ -9293,13 +9730,28 @@ def main() -> int:
     for name, n in pp_launches.items():
         assert n > 0, pp_launches
         launches[name] += n
-    # the wire phase's burst_attn calls on the fused route
-    for rec in wire_recs:
+    # the wire and seg+wire phases' burst_attn calls on the fused route
+    for rec in wire_recs + sw_recs:
         launches[rec["name"]] = rec["launches"]
-    for rec in seg_recs + win_recs + uly_rows + wire_recs:
+    for rec in seg_recs + win_recs + uly_rows + wire_recs + sw_recs:
         assert launches[rec["name"]] > 0, (rec["name"], launches)
     kernels += (window_recs + [suffix_rec] + seg_recs + win_recs + uly_rows
-                + wire_recs)
+                + wire_recs + sw_recs)
+    # tensor parallelism: the tp phase's engines (kernels 1 and 6, every
+    # tp position's launches), the mesh train step (kernels 8 and 9, every
+    # dp group's, its tp positions' heads in one launch)
+    tp_launches = {"flash_fwd": tpsrv["launches"]["flash_fwd"],
+                   "paged_decode": tpsrv["launches"][
+                       "paged_decode_attention"]}
+    mesh_launches = {
+        "fused_ring_fwd": sum(mtr["mesh"]["launches_per_step"][
+            "fused_ring_fwd"] for _ in mtr["mesh"]["losses"]),
+        "fused_ring_bwd": sum(mtr["mesh"]["launches_per_step"][
+            "fused_ring_bwd"] for _ in mtr["mesh"]["losses"])}
+    for extra in (tp_launches, mesh_launches):
+        for name, n in extra.items():
+            assert n > 0, extra
+            launches[name] += n
     kernels[2]["pipelined_launches"] = pipe["launches"]
     assert pipe["launches"] > 0
     # the speculative phase's bf16 early-exit runs of both engines
@@ -9343,6 +9795,10 @@ def main() -> int:
             rec["pp_launches"] = pp_launches[rec["name"]]
         if rec["name"] in fleet_res["launches"]:
             rec["fleet_launches"] = fleet_res["launches"][rec["name"]]
+        if rec["name"] in tp_launches:
+            rec["tp_launches"] = tp_launches[rec["name"]]
+        if rec["name"] in mesh_launches:
+            rec["mesh_launches"] = mesh_launches[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     wall, dev, _ = tr["prof"]
@@ -9374,7 +9830,8 @@ def main() -> int:
                                          "speculative_launches",
                                          "checkpoint_launches",
                                          "moe_launches", "pp_launches",
-                                         "fleet_launches",
+                                         "fleet_launches", "tp_launches",
+                                         "mesh_launches",
                                          "stats", "seg", "window", "wire")
                        if k in r}
                     for r in kernels],
@@ -9423,6 +9880,9 @@ def main() -> int:
         "ulysses_train": uly,
         "pp_train": pp_res,
         "wire": wire_res,
+        "seg_wire": sw_res,
+        "tp_serve": {k: v for k, v in tpsrv.items() if k != "launches"},
+        "mesh_train": mtr,
         "fleet": {k: v for k, v in fleet_res.items()
                   if k not in ("launches", "_sim")},
         "analysis": analysis_res,

@@ -1022,6 +1022,93 @@ def test_prefix_cache_serve_engine_on_the_card_matches_the_cpu_engine(dev):
         out[(str(dev), False)]
 
 
+@pytest.mark.parametrize("tp,quantize,cache", [(2, False, True),
+                                               (2, "int8", True),
+                                               (4, False, False)])
+def test_tp_serve_engine_on_the_card_matches_unsharded(dev, tp, quantize,
+                                                       cache):
+    """fp32 ServeEngine(mesh={"tp": T}) on the card (the parameters and the
+    pool's kv heads split over T positions): the unsharded engine's tokens
+    (and the plain CPU tp engine's), with the prefix cache and an int8
+    pool; every tp position launches its own kernels: kernel 1 T times a
+    prompt's layer (or its suffix's) and kernel 6 a multiple of T x
+    layers."""
+    cfg = ModelConfig(vocab=512, d_model=512, n_layers=2, n_heads=8,
+                      n_kv_heads=4, d_head=128, d_ff=1024,
+                      dtype=torch.float32, batch_axis=None, head_axis=None)
+    cfgt = dataclasses.replace(cfg, head_axis="tp")
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(17)
+    tmpl = rng.integers(1, cfg.vocab, size=256)
+    prompts = [np.concatenate([tmpl, rng.integers(1, cfg.vocab, size=t)])
+               for t in (1, 40, 100)]
+    kw = dict(slots=2, n_pages=16, max_pages_per_seq=4, quantize=quantize,
+              prefix_cache=cache)
+    out = {}
+    for where, mesh_ in (("cpu", {"tp": tp}), (dev, None), (dev, {"tp": tp})):
+        p = {k: (v.to(where) if torch.is_tensor(v) else
+                 [{n: w.to(where) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        eng = ServeEngine(p, cfgt if mesh_ else cfg, mesh=mesh_,
+                          device=where, **kw)
+        for pr in prompts:
+            eng.submit(pr, 6)
+        before = (flash.flash_fwd.launches,
+                  paged_attention.paged_decode_attention.launches)
+        out[(str(where), mesh_ is not None)] = eng.run()
+        moved = [a - b for a, b in zip(
+            (flash.flash_fwd.launches,
+             paged_attention.paged_decode_attention.launches), before)]
+        if str(where) == "cpu":
+            assert moved == [0, 0]
+        else:
+            t = tp if mesh_ else 1
+            assert moved[0] == t * cfg.n_layers * len(prompts), moved
+            assert moved[1] > 0 and moved[1] % (t * cfg.n_layers) == 0
+        assert eng.pool.available == 15 - (len(eng.cache) if cache else 0)
+    assert out[(str(dev), True)] == out[(str(dev), False)] == \
+        out[("cpu", True)]
+
+
+def test_mesh_train_step_on_the_card_matches_the_cpu(dev):
+    """Two fp32 train steps on a dp=2 sp=2 tp=2 mesh (2 layers, remat, the
+    fused ring) on the card equal the same steps on the CPU (loss and grad
+    norm to 1e-5) and one device's first loss and grad norm; kernel 8
+    launches twice and kernel 9 once a layer and a dp group (the tp
+    positions' heads in one launch)."""
+    cfg = ModelConfig(vocab=512, d_model=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_head=128, d_ff=1024,
+                      dtype=torch.float32, attn_backend="fused_ring")
+    mesh_ = train.make_mesh({"dp": 2, "sp": 2, "tp": 2})
+    tcfg = train.TrainConfig(lr=1e-3)
+    out = {}
+    for where in ("cpu", dev):
+        state = train.init_train_state(0, cfg, tcfg, mesh_, device=where)
+        step = train.make_train_step(cfg, tcfg, mesh_, device=where)
+        batch = train.make_batch(3, cfg, mesh_, batch=2, seq=512,
+                                 device=where)
+        metrics = []
+        for _ in range(2):
+            counts = (fused_ring.fused_ring_fwd.launches,
+                      fused_ring_bwd.fused_ring_bwd.launches)
+            state, m_ = step(state, batch)
+            metrics.append((float(m_["loss"]), float(m_["grad_norm"])))
+            got = (fused_ring.fused_ring_fwd.launches - counts[0],
+                   fused_ring_bwd.fused_ring_bwd.launches - counts[1])
+            per = cfg.n_layers * 2
+            assert got == ((0, 0) if where == "cpu" else (2 * per, per)), \
+                got
+        out[str(where)] = metrics
+    np.testing.assert_allclose(out[str(dev)], out["cpu"], rtol=1e-5)
+    one_cfg = dataclasses.replace(cfg, layout="contig", attn_backend="auto")
+    one = train.init_train_state(0, one_cfg, tcfg, device=dev)
+    _, m1 = train.make_train_step(one_cfg, tcfg, device=dev)(
+        one, train.make_batch(3, one_cfg, batch=2, seq=512, device=dev))
+    np.testing.assert_allclose(
+        [float(m1["loss"]), float(m1["grad_norm"])], out[str(dev)][0],
+        rtol=1e-5)
+
+
 @pytest.mark.parametrize("n_heads,n_kv", [(2, 2), (4, 2)])
 def test_train_step_on_the_card_matches_the_cpu(dev, n_heads, n_kv):
     """Two fp32 train steps (remat on) through the kernels equal the same
@@ -2858,18 +2945,31 @@ def test_burst_attn_wire_fused_matches_scan(dev, wire):
 
 
 def test_wire_combinations_not_built_raise(dev):
-    """A kernel combination without an instance raises on the card, with
-    a message, and does not fall back: SEG + WIRE on kernels 8 and 9,
+    """SEG + WIRE on kernels 8 and 9 runs fused (one launch each of the
+    SEG + WIRE instances, finite); the combinations still without an
+    instance raise on the card, with a message, and do not fall back:
     collect_stats or a trace of a WIRE backward."""
     cfg, ring, (q, k, v, o, lse, do), _, _ = _ring_bwd_case(
         dev, 4, "zigzag", True, 4, 2, 256, torch.bfloat16,
         dict(wire_dtype="int8"))
     seg = torch.zeros((4, 1, 256), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="SEG"):
-        fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
-    with pytest.raises(NotImplementedError, match="SEG"):
-        fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, *ring,
-                                      seg=seg)
+    counts = (fused_ring.fused_ring_fwd.seg_launches,
+              fused_ring.fused_ring_fwd.wire_launches,
+              fused_ring_bwd.fused_ring_bwd.seg_launches,
+              fused_ring_bwd.fused_ring_bwd.wire_launches)
+    so, slse = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+    grads = fused_ring_bwd.fused_ring_bwd(q, k, v, so, slse, do, cfg, *ring,
+                                          seg=seg)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(
+        (fused_ring.fused_ring_fwd.seg_launches,
+         fused_ring.fused_ring_fwd.wire_launches,
+         fused_ring_bwd.fused_ring_bwd.seg_launches,
+         fused_ring_bwd.fused_ring_bwd.wire_launches), counts)) == (1, 1, 1, 1)
+    # one document: the SEG + WIRE launches are the WIRE launches
+    assert torch.equal(so, o) and torch.equal(slse, lse)
+    for t in grads:
+        assert torch.isfinite(t).all()
     with pytest.raises(NotImplementedError, match="STATS"):
         fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, *ring,
                                       collect_stats=True)
@@ -2878,7 +2978,7 @@ def test_wire_combinations_not_built_raise(dev):
     with pytest.raises(NotImplementedError, match="TRACE"):
         fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg, *ring,
                                       trace=trace)
-    # the scan ring takes segments with a wire dtype
+    # the scan ring takes segments with a wire dtype too
     ids = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
     o_scan = burst.burst_attn(*(mesh.unshard(t) for t in (q, k, v)),
                               mesh={"sp": 4}, causal=True, segment_ids=ids,
@@ -2886,15 +2986,121 @@ def test_wire_combinations_not_built_raise(dev):
     assert torch.isfinite(o_scan.float()).all()
 
 
+# (positions, layout, causal, heads, kv heads, local S, dtype, knobs,
+# documents in the global row)
+SEG_WIRE_CASES = [
+    (4, "zigzag", True, 4, 2, 256, torch.bfloat16, {}, 5),
+    (4, "zigzag", True, 4, 2, 256, torch.float32,
+     dict(optimize_bwd_comm=False), 5),
+    (4, "contig", True, 4, 2, 256, torch.bfloat16, dict(window=300), 3),
+    (4, "striped", True, 4, 4, 256, torch.bfloat16,
+     dict(fused_topology="bidi"), 6),
+    # more tiles than resident CTAs: the scratch state, dk / dv in memory
+    (8, "zigzag", True, 16, 4, 1024, torch.bfloat16, {}, 16),
+]
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("w,layout,causal,n,n_kv,s,dtype,knobs,docs",
+                         SEG_WIRE_CASES)
+def test_fused_ring_seg_wire_kernels_match_plain(dev, w, layout, causal, n,
+                                                 n_kv, s, dtype, knobs, docs,
+                                                 wire):
+    """Kernels 8 and 9's SEG + WIRE instances against their plain versions
+    with the same ids and wire dtype, at the WIRE tolerances of
+    test_fused_ring_wire_kernels_match_plain; two launches equal; each
+    launch counted as SEG and as WIRE."""
+    knobs = dict(knobs, wire_dtype=wire)
+    cfg, ring, args, seg, prog, tables = _ring_seg_case(
+        dev, w, layout, causal, n, n_kv, s, dtype, knobs, docs)
+    q, k, v, o, lse, do = args
+    fprog, ftables, _ = fused_ring.ring_plan(cfg, *ring, s, "fwd")
+    ro, rlse = fused_ring.fused_ring_reference(
+        q, k, v, fprog, ftables, 128 ** -0.5, seg=seg, window=cfg.window,
+        wire=wire)
+    torch.testing.assert_close(o, ro, **TOL[dtype])
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    counts = (fused_ring.fused_ring_fwd.seg_launches,
+              fused_ring.fused_ring_fwd.wire_launches,
+              fused_ring_bwd.fused_ring_bwd.seg_launches,
+              fused_ring_bwd.fused_ring_bwd.wire_launches)
+    o2, lse2 = fused_ring.fused_ring_fwd(q, k, v, cfg, *ring, seg=seg)
+    got = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, seg=seg)
+    again = fused_ring_bwd.fused_ring_bwd(*args, cfg, *ring, seg=seg)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert tuple(a - b for a, b in zip(
+        (fused_ring.fused_ring_fwd.seg_launches,
+         fused_ring.fused_ring_fwd.wire_launches,
+         fused_ring_bwd.fused_ring_bwd.seg_launches,
+         fused_ring_bwd.fused_ring_bwd.wire_launches), counts)) == (1, 1, 2, 2)
+    want = fused_ring_bwd.fused_ring_bwd_reference(
+        *args, prog, tables, 128 ** -0.5, cfg.optimize_bwd_comm, seg=seg,
+        window=cfg.window, wire=wire, head_chunk=8)
+    _close_to_max(got[1:], want[1:])
+    _wire_dq_close(got[0], want[0], wire)
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+def test_burst_attn_seg_wire_fused_matches_scan(dev, wire):
+    """burst_attn(segment_ids=, wire_dtype=) on the fused route runs
+    kernels 8 and 9 (their SEG + WIRE instances, no burst.fused_fallback
+    count) and matches the scan ring with the same ids and wire (bf16,
+    sp=4, zigzag, GQA): the forward at the bf16 tolerance, the gradients
+    within WIRE_TOL_GRAD."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    q = _rand(g, dev, torch.bfloat16, 1, 8, 2048, 128)
+    k, v = (_rand(g, dev, torch.bfloat16, 1, 2, 2048, 128) for _ in range(2))
+    ids = layouts.to_layout(torch.from_numpy(_packed_ids(31, 1, 2048, 5)),
+                            "zigzag", 4, axis=1).to(dev)
+    kw = dict(mesh={"sp": 4}, causal=True, layout="zigzag", wire_dtype=wire,
+              segment_ids=ids)
+    res = {}
+    for backend in ("fused_ring", "auto"):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = obs.counter_values()
+        counts = (fused_ring.fused_ring_fwd.seg_launches,
+                  fused_ring.fused_ring_fwd.wire_launches,
+                  fused_ring_bwd.fused_ring_bwd.seg_launches,
+                  fused_ring_bwd.fused_ring_bwd.wire_launches)
+        o = burst.burst_attn(*ts, backend=backend, **kw)
+        grads = torch.autograd.grad(o.float().square().sum(), ts)
+        torch.cuda.synchronize()
+        moved = obs.counter_deltas(before)
+        assert not any(x.startswith("burst.fused_fallback") for x in moved)
+        launched = tuple(a - b for a, b in zip(
+            (fused_ring.fused_ring_fwd.seg_launches,
+             fused_ring.fused_ring_fwd.wire_launches,
+             fused_ring_bwd.fused_ring_bwd.seg_launches,
+             fused_ring_bwd.fused_ring_bwd.wire_launches), counts))
+        assert launched == ((1, 1, 1, 1) if backend == "fused_ring"
+                            else (0, 0, 0, 0)), (backend, launched)
+        res[backend] = o.detach(), grads
+    torch.testing.assert_close(res["fused_ring"][0], res["auto"][0],
+                               **TOL[torch.bfloat16])
+    for a, b in zip(res["fused_ring"][1], res["auto"][1]):
+        assert float((a.float() - b.float()).abs().max()) < \
+            WIRE_TOL_GRAD[wire]
+
+
 def test_wire_instances_attributes(dev):
-    """Every WIRE instance of kernels 8 and 9 fits its launch; the
-    instances without WIRE keep their registers and spills."""
+    """Every WIRE instance of kernels 8 and 9 (the SEG + WIRE ones too)
+    fits its launch; the instances without WIRE keep their registers and
+    spills."""
     rows = (fused_ring.fwd_attrs(wire=True)
             + fused_ring.fwd_attrs(stats=True, wire=True)
             + fused_ring.fwd_attrs(win=True, wire=True)
             + fused_ring.fwd_attrs(stats=True, win=True, wire=True)
+            + fused_ring.fwd_attrs(seg=True, wire=True)
+            + fused_ring.fwd_attrs(stats=True, seg=True, wire=True)
+            + fused_ring.fwd_attrs(seg=True, win=True, wire=True)
+            + fused_ring.fwd_attrs(stats=True, seg=True, win=True,
+                                   wire=True)
             + fused_ring_bwd.bwd_attrs(wire=True)
-            + fused_ring_bwd.bwd_attrs(win=True, wire=True))
+            + fused_ring_bwd.bwd_attrs(win=True, wire=True)
+            + fused_ring_bwd.bwd_attrs(seg=True, wire=True)
+            + fused_ring_bwd.bwd_attrs(seg=True, win=True, wire=True))
     for a in rows:
         print(a)
         assert 0 < a["regs"] <= 255 and a["ctas"] >= 1, a

@@ -510,8 +510,13 @@ def test_burst_attn_declines_and_rejects():
     assert torch.equal(o, burst_attn(q, q, q, mesh={"sp": 2}, causal=True,
                                      layout="contig"))
     assert st.rounds.tolist() == [2, 2]
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        burst_attn(q, q, q, mesh={"sp": 2, "tp": 2}, head_axes="tp")
+    # the tp groups' rings run in the one launch over all heads; an axis
+    # that is neither the ring's nor a named batch / head axis is refused
+    assert torch.equal(
+        burst_attn(q, q, q, mesh={"sp": 2, "tp": 2}, head_axes="tp"),
+        burst_attn(q, q, q, mesh={"sp": 2}))
+    with pytest.raises(ValueError, match="neither"):
+        burst_attn(q, q, q, mesh={"sp": 2, "tp": 2})
     with pytest.raises(ValueError, match="backend"):
         burst_attn(q, q, q, mesh={"sp": 2}, backend="xla")
 

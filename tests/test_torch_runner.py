@@ -163,10 +163,11 @@ def test_cli_trains_on_the_cpu_and_refuses_a_ring(data_path, tmp_path):
             "--ckpt-dir", str(tmp_path / "c")]
     runner.main(argv)
     assert Checkpointer(str(tmp_path / "c")).steps() == [1]
-    # the sequence ring trains (test_fit_on_a_ring_matches_one_position);
+    # the sequence ring trains (test_fit_on_a_ring_matches_one_position),
+    # and so do dp and tp (tests/test_torch_tp_train.py); a pipeline beside
     # a data-parallel axis is refused
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        runner.main(argv + ["--mesh", "dp=2,sp=2"])
+        runner.main(argv + ["--mesh", "pp=2,dp=2"])
     assert runner._parse_mesh("dp=1,sp=1") == {"dp": 1, "sp": 1}
     with pytest.raises(ValueError):
         runner._parse_mesh("sp1")

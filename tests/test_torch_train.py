@@ -249,7 +249,11 @@ def test_ring_train_steps_match_jax_and_one_position(setup):
 
 
 def test_unported_paths_raise():
+    # dp and tp are ported (tests/test_torch_tp_train.py); beside a
+    # pipeline they are not
     for sizes in ({"dp": 2, "sp": 1}, {"sp": 4, "tp": 2}):
+        assert train.make_mesh(sizes) == sizes
+    for sizes in ({"pp": 2, "dp": 2}, {"pp": 2, "sp": 4, "tp": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP A2"):
             train.make_mesh(sizes)
     # ring telemetry is ported: it takes one microbatch

@@ -11,30 +11,41 @@ packed-segment ids travel with it (the activation is the tree (x,
 positions, ids)); stage 0 injects and the last stage banks.  Only the live
 (stage, microbatch) pairs run (the P stages share the card): the JAX
 program's bubble ticks compute masked garbage that reaches no output.
-Each layer is transformer._block, the regular path's math, with the
-stage's mesh restricted to cfg.seq_axes (mesh.seq_mesh): attention runs
-burst_attn over the stage's sequence ring (sp, or inter x intra), or the
-flash kernels when that ring has one position; the window comes from
-cfg.window.  An MoE layer routes each sequence shard of the microbatch
-as one group: the JAX module's `_moe_block` (its per-shard moe_shard
-call) is transformer._mlp's training call here, which groups the same
-tokens.  The aux counts live ticks only (the stage function adds up each
-run's), is summed over the stages and divided by the microbatch count.
+Each layer is transformer._blocks, the regular path's math: attention
+runs burst_attn over the stage's sequence ring (sp, or inter x intra;
+mesh.seq_mesh), or the flash kernels when that ring has one position;
+the window comes from cfg.window.  An MoE layer routes each sequence
+shard of the microbatch as one group: the JAX module's `_moe_block` (its
+per-shard moe_shard call) is transformer._mlp_groups here, which groups
+the same tokens.  The aux counts live ticks only (the stage function adds
+up each run's), is summed over the stages and divided by the microbatch
+count.
 The head (final norm, fp32 logits) runs on the banked activations.  With
 cfg.remat each layer goes through torch.utils.checkpoint; the backward is
 autograd through the tick loop.
 
-A pp mesh with dp, tp or ep of size > 1 raises NotImplementedError: the
-pipeline beside those axes is ROADMAP A7a's second half.
+Beside the stages a pp mesh takes dp, tp and an expert axis, as the JAX
+module's shard_map over the whole mesh does.  Each dp group runs its own
+pipeline on its rows (models/transformer.forward_groups), unless the
+expert axis is dp: then the groups' ticks run in lockstep, each stage's
+MoE exchanging slots between the groups (the JAX `_moe_block`'s
+moe_shard over the expert axis).  Under tp the stacked leaves arrive as
+Shards split by param_specs' pp branch (stage dim first, tp dim after):
+a stage's layers slice them (Shards[i]), and each layer is the regular
+path's Megatron block (column-parallel projections, the tp positions'
+heads in one ring launch, all_reduce of the row-parallel partial sums),
+which is the JAX `_layer_fwd`'s hand-written psums.  Embed and lm_head
+stay whole under pp, as in JAX.
 """
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.mesh import seq_mesh
+from ..parallel.mesh import axis_size
 from ..parallel.pipeline import pipeline, tree_map
 from .transformer import (
-    ModelConfig, _block, _logits, _rms_norm, check_expert_axis, check_mesh,
+    ModelConfig, Shards, _blocks, _embed, _logits, _rms_norm,
+    check_expert_axis, check_mesh,
 )
 
 
@@ -45,19 +56,23 @@ def stack_layers(layers):
 
 
 def unstack_layers(stacked, n_layers):
-    """Inverse of stack_layers (views of the stacked leaves)."""
+    """Inverse of stack_layers (views of the stacked leaves; a split
+    leaf's Shards slice into the layer's Shards)."""
     return [{k: a[i] for k, a in stacked.items()} for i in range(n_layers)]
 
 
-def _layer_fwd(p, x, positions, cfg: ModelConfig, mesh, seg=None):
-    """One transformer block of a stage, the regular path's _block on the
-    stage's sequence mesh -> (x, the MoE aux; 0.0 for a dense layer)."""
-    return _block(x, p, positions, cfg, mesh, None, seg)
+def _stages(a, n_stages: int, per: int):
+    """A stacked leaf [L, ...] as [P, L / P, ...] (stage p's layers at
+    [p]); a Shards leaf shard by shard, its split dim one further."""
+    if isinstance(a, Shards):
+        return Shards([_stages(t, n_stages, per) for t in a.parts],
+                      a.dim + 1, a.axis)
+    return a.reshape(n_stages, per, *a.shape[1:])
 
 
 def check_pp(cfg: ModelConfig, mesh, b: int) -> int:
-    """The JAX pp_forward_with_aux checks, in its order, then the axes
-    that need more than one card; returns the stage count."""
+    """The JAX pp_forward_with_aux checks, in its order, then the mesh's
+    (check_mesh); returns the stage count."""
     sizes = dict(mesh.shape if hasattr(mesh, "shape") else mesh)
     if cfg.head_axis is not None:
         if cfg.head_axis not in sizes:
@@ -105,48 +120,56 @@ def check_pp(cfg: ModelConfig, mesh, b: int) -> int:
         raise ValueError(
             f"per-dp-shard batch {b_local} not divisible by "
             f"pp_microbatches {m}")
-    # not yet beside a pipeline: dp, tp, ep > 1 (ROADMAP A7a)
     check_expert_axis(cfg, sizes)
-    check_mesh(sizes, cfg.seq_axes, cfg.pp_axis)
+    check_mesh(sizes, cfg.seq_axes, cfg.pp_axis, cfg.batch_axis,
+               cfg.head_axis, cfg.expert_axis if cfg.n_experts else None)
     return n_stages
 
 
-def pp_forward_with_aux(params, tokens, positions, cfg: ModelConfig, mesh,
-                        segment_ids=None):
-    """Pipeline-parallel forward_with_aux: fp32 logits [B, S, vocab] + the
-    MoE aux loss (0 for dense models), on stacked params.  Same contract
-    as transformer.forward_with_aux, which dispatches here when
-    cfg.pp_axis is set.  With pp_microbatches > 1 the MoE aux and routing
-    groups are per microbatch, the mean over microbatches (as grad
-    accumulation's microbatches are); m == 1 matches the regular path."""
-    b, s = tokens.shape
-    n_stages = check_pp(cfg, mesh, b)
+def pp_forward_groups(params, tokens, positions, cfg: ModelConfig, mesh,
+                      segment_ids):
+    """transformer.forward_groups on a pipeline: lists a data-parallel
+    group (stacked parameter trees, tokens, positions, segment ids), the
+    groups' mesh (`mesh`, dp at size 1) -> [([logits], aux)] a group.
+    The tokens are embedded once, split into cfg.pp_microbatches
+    microbatches along the batch and pushed through
+    parallel/pipeline.pipeline, every group's microbatch t - s at stage s
+    on tick t (their positions and ids travel with them); each layer is
+    transformer._blocks over the groups in lockstep.  A group's aux
+    counts live ticks only, summed over the stages and divided by the
+    microbatch count."""
+    n_stages = axis_size(mesh, cfg.pp_axis)
     m = cfg.pp_microbatches
-    stage_mesh = seq_mesh(mesh, cfg.seq_axes)
     per = cfg.n_layers // n_stages
+    n = len(params)
     # [P, L / P, ...] views of the stacked leaves: stage p's layers
-    stage_params = {k: a.reshape(n_stages, per, *a.shape[1:])
-                    for k, a in params["layers"].items()}
-    x = params["embed"][tokens].to(cfg.dtype)
-    if segment_ids is not None:  # once, as the kernels take them
-        segment_ids = segment_ids.to(device=x.device,
-                                     dtype=torch.int32).contiguous()
-    auxes = []  # one per live (stage, microbatch) run
+    stage_params = [{k: _stages(a, n_stages, per)
+                     for k, a in p["layers"].items()} for p in params]
+    xs = [_embed(p, t, cfg) for p, t in zip(params, tokens)]
+    segs = [None if s is None else s.to(device=x.device,
+                                        dtype=torch.int32).contiguous()
+            for s, x in zip(segment_ids, xs)]
+    auxes = [[] for _ in range(n)]  # a group: one per live stage run
 
-    def stage_fn(p, act):
-        xs, pos, seg = act
-        aux = torch.zeros((), dtype=torch.float32, device=xs.device)
-        for layer in unstack_layers(p, per):
+    def stage_fn(ps, acts):
+        xs_, pos, seg = (list(t) for t in zip(*acts))
+        aux = [torch.zeros((), dtype=torch.float32, device=x.device)
+               for x in xs_]
+        layers = [unstack_layers(p, per) for p in ps]
+        for li in range(per):
+            lp = [layer[li] for layer in layers]
             if cfg.remat and torch.is_grad_enabled():
-                xs, aux_l = checkpoint(_layer_fwd, layer, xs, pos, cfg,
-                                       stage_mesh, seg, use_reentrant=False)
+                xs_, aux_l = checkpoint(_blocks, xs_, lp, pos, cfg, mesh,
+                                        None, seg, use_reentrant=False)
             else:
-                xs, aux_l = _layer_fwd(layer, xs, pos, cfg, stage_mesh, seg)
-            aux = aux + aux_l
-        auxes.append(aux)
-        return xs, pos, seg
+                xs_, aux_l = _blocks(xs_, lp, pos, cfg, mesh, None, seg)
+            aux = [a + b for a, b in zip(aux, aux_l)]
+        for g, a in enumerate(aux):
+            auxes[g].append(a)
+        return [(x, p_, s_) for x, p_, s_ in zip(xs_, pos, seg)]
 
-    xf, _, _ = pipeline(stage_fn, stage_params, (x, positions, segment_ids),
-                        mesh=mesh, axis=cfg.pp_axis, microbatches=m)
-    logits = _logits(_rms_norm(xf, params["final_norm"]), params["lm_head"])
-    return logits, sum(auxes) / m
+    out = pipeline(stage_fn, stage_params,
+                   [(x, p_, s_) for x, p_, s_ in zip(xs, positions, segs)],
+                   mesh=mesh, axis=cfg.pp_axis, microbatches=m)
+    return [([_logits(_rms_norm(xf, p["final_norm"]), p["lm_head"])],
+             sum(a) / m) for (xf, _, _), p, a in zip(out, params, auxes)]

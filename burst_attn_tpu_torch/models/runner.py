@@ -1,6 +1,6 @@
 """End-to-end training runner + CLI (port of
-burst_attn_tpu/models/runner.py), on one device or a mesh of dp, sp and
-tp positions that share it.
+burst_attn_tpu/models/runner.py), on one device or a mesh of pp, dp, sp,
+tp and ep positions that share it.
 
 Ties together the native data loader (data/loader.py), the train step
 (models/train.py), checkpoints (utils/checkpoint.py), step timing
@@ -18,12 +18,15 @@ parallelism (each dp group its rows of the batch, the parameters split
 over tp; every position shares the device); `--packed-eos ID` trains
 (and evaluates) on EOS-delimited packed documents; `--n-experts E` makes
 every MLP a top-2 MoE, its expert axis "ep" if the mesh has one, else
-"dp" (an expert axis of size > 1 is ROADMAP A7a's second half); `--mesh
-pp=2,sp=2 --microbatches 2` trains the pipeline-parallel model (stacked
-layers; microbatches default to the stage count, and `--microbatches`
-without a pp axis exits, as in JAX; pp beside dp or tp is ROADMAP A7a's
-second half); multi-host start comes with ROADMAP A7b.  The JAX runner's
-`--probe-tri-bwd` is a TPU compile probe and has no counterpart here.
+"dp" (then the MoE exchange runs between the dp groups, which train in
+lockstep); `--mesh pp=2,sp=2 --microbatches 2` trains the
+pipeline-parallel model (stacked layers; microbatches default to the
+stage count, and `--microbatches` without a pp axis exits, as in JAX),
+beside dp, tp and ep too (`--mesh pp=2,dp=2,sp=2`, `--mesh
+pp=2,tp=2,sp=2`).  `--multihost` (the JAX runner's multi-host start)
+raises NotImplementedError: the ring across cards is ROADMAP A7b.  The
+JAX runner's `--probe-tri-bwd` is a TPU compile probe and has no
+counterpart here.
 """
 
 import argparse
@@ -42,7 +45,7 @@ from .train import (
     TrainConfig, _world, init_train_state, make_mesh, make_train_step,
     prefetch_batches,
 )
-from .transformer import ModelConfig, check_expert_axis
+from .transformer import ModelConfig
 
 
 @dataclass(frozen=True)
@@ -178,7 +181,7 @@ def _parse_mesh(spec: str) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="Train the LM on a token file, on one device or a "
-                    "mesh of dp, sp and tp positions sharing it.")
+                    "mesh of pp, dp, sp, tp and ep positions sharing it.")
     p.add_argument("--data", required=True,
                    help="BATD token file (data.write_token_file)")
     p.add_argument("--steps", type=int, required=True)
@@ -188,10 +191,12 @@ def main(argv=None):
                    help="axis sizes, e.g. sp=4 or inter=2,intra=2 (the "
                         "sequence ring), dp=2,sp=2,tp=2 (data and tensor "
                         "parallelism beside the ring), pp=2,sp=2 (a "
-                        "pipeline of rings; not with dp or tp)")
+                        "pipeline of rings; dp, tp and ep beside it too)")
     p.add_argument("--microbatches", type=int, default=None,
                    help="GPipe microbatches of a pp mesh (default: the "
                         "pp size)")
+    p.add_argument("--multihost", action="store_true",
+                   help="start a run across hosts (ROADMAP A7b: not yet)")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--ckpt-dir", default=None)
@@ -224,6 +229,10 @@ def main(argv=None):
                         "end, e.g. results/obs.jsonl (default: the "
                         "BURST_OBS_EXPORT path, if set)")
     args = p.parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost: a run across hosts and cards comes with ROADMAP "
+            "A7b; every position of this mesh shares one device")
 
     mesh_axes = _parse_mesh(args.mesh)
     # a double-ring mesh (inter, intra) maps straight onto seq_axes; any
@@ -234,7 +243,7 @@ def main(argv=None):
         seq_axes = ("sp",)
         mesh_axes.setdefault("sp", 1)
     # experts shard over "ep" when the mesh has it, else ride "dp" (the
-    # JAX runner's GShard layout); both must have size 1 here
+    # JAX runner's GShard layout)
     expert_axis = None
     if args.n_experts:
         expert_axis = "ep" if "ep" in mesh_axes else (
@@ -257,8 +266,7 @@ def main(argv=None):
         d_ff=args.d_ff or 4 * args.d_model, layout=args.layout,
         remat=not args.no_remat,
     )
-    check_expert_axis(cfg, mesh_axes)  # an expert axis > 1: ROADMAP A7a
-    mesh = make_mesh(mesh_axes)  # raises on pp beside dp or tp > 1
+    mesh = make_mesh(mesh_axes)
     tcfg = TrainConfig(lr=args.lr, grad_accum=args.grad_accum)
     run = RunConfig(
         data_path=args.data, steps=args.steps, batch=args.batch,

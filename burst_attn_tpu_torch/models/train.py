@@ -66,6 +66,15 @@ all_reduce(mean) over dp (parallel/mesh.py), as a data-parallel run
 across cards does, before the clip and the update.  Each group's
 objective carries the dp factor of the global normalization (the valid
 labels of the whole batch), so the mean is the whole batch's gradient.
+An MoE model whose expert axis is dp (`expert_axis="dp"`, the runner's
+default on a dp mesh) exchanges slots between the groups in the middle of
+every layer, so their forwards run in lockstep in one graph and one
+backward (`_coupled_backward`): each group holds its own copy of the
+replicated leaves (whose gradients meet in the same all_reduce(mean)) and
+the experts stay sharded, each owner's gradient the sum over every
+group's tokens.  A pipeline takes dp (each dp group its own pipeline, or
+its ticks in lockstep with the experts on dp), tp and ep beside its
+stages.
 
 The TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
 counterpart: a CUDA kernel either builds or the run stops.
@@ -84,7 +93,8 @@ from ..device import resolve_device
 from ..parallel import layouts
 from ..parallel.mesh import all_reduce
 from .transformer import (
-    ModelConfig, check_mesh, check_tp, dp_groups, forward_parts,
+    ModelConfig, alias_params, check_mesh, check_tp, dp_groups,
+    ep_on_batch, expert_leaf_ids, forward_groups, forward_parts,
     group_mesh, init_params, param_leaves, ring_world, shard_params,
 )
 
@@ -114,16 +124,16 @@ class TrainConfig:
 
 
 def make_mesh(axis_sizes: dict, devices=None) -> dict:
-    """The axis sizes of a run, as {"dp": 2, "sp": 2, "tp": 2}-style names
-    to sizes (order kept).  The sequence axes ("sp", or "inter" and
-    "intra" for the double ring), "dp", "tp" and a pipeline's "pp" take
-    any size, their positions and stages sharing one device; other axes,
-    and dp or tp beside pp, must have size 1 (ROADMAP A7a's second
-    half)."""
+    """The axis sizes of a run, as {"pp": 2, "dp": 2, "sp": 2,
+    "tp": 2}-style names to sizes (order kept).  The sequence axes ("sp",
+    or "inter" and "intra" for the double ring), "dp", "tp", "ep" and a
+    pipeline's "pp" take any size, in any combination, their positions
+    and stages sharing one device; any other axis must have size 1
+    (ValueError: the model splits no work over it)."""
     del devices
     sizes = {str(k): int(v) for k, v in dict(axis_sizes).items()}
     check_mesh(sizes, tuple(a for a in ("sp", "inter", "intra")
-                            if a in sizes), "pp" if "pp" in sizes else None)
+                            if a in sizes), "pp", "dp", "tp", "ep")
     return sizes
 
 
@@ -168,14 +178,18 @@ def _loss_parts(params, tokens, positions, labels, cfg: ModelConfig,
     ring telemetry (forward_with_aux)."""
     out = forward_parts(params, tokens, positions, cfg, mesh,
                         segment_ids=segment_ids, collect_stats=collect_stats)
-    parts, aux = out[:2]
+    return (_nll_sum(out[0], labels, cfg),) + tuple(out[1:])
+
+
+def _nll_sum(parts, labels, cfg: ModelConfig):
+    """The masked next-token nll summed over the tokens, from the logits
+    of forward_parts (one part, or the vocab shards of the tp
+    positions)."""
     if len(parts) > 1:
-        nll_sum = _vocab_parallel_nll(parts, labels, cfg.head_axis).sum()
-        return (nll_sum, aux) + tuple(out[2:])
+        return _vocab_parallel_nll(parts, labels, cfg.head_axis).sum()
     target = torch.where(labels >= 0, labels, -100).long()
-    nll_sum = F.cross_entropy(parts[0].flatten(0, 1), target.flatten(),
-                              ignore_index=-100, reduction="sum")
-    return (nll_sum, aux) + tuple(out[2:])
+    return F.cross_entropy(parts[0].flatten(0, 1), target.flatten(),
+                           ignore_index=-100, reduction="sum")
 
 
 def _vocab_parallel_nll(parts, labels, axis="tp"):
@@ -293,6 +307,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
             for t in leaves:
                 if t.grad is None:  # a parameter the loss does not reach
                     t.grad = torch.zeros_like(t)
+        elif ep_on_batch(cfg, mesh):
+            loss, stats = _coupled_backward(params, leaves, tokens,
+                                            positions, labels, seg, groups)
         else:
             loss, stats = _grouped_backward(params, leaves, tokens,
                                             positions, labels, seg, groups)
@@ -301,6 +318,18 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         _clip_(grads, gnorm, tcfg.grad_clip)
         opt.step()
         return ((params, opt), {"loss": loss, "grad_norm": gnorm}), stats
+
+    def _microbatches(tokens, labels, groups):
+        """(rows a microbatch, v_total) of the grad_accum microbatches of
+        each dp group: the global valid-label count normalizes every
+        piece of the objective."""
+        per = groups[0].stop - groups[0].start
+        if per % accum:
+            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                             f"grad_accum {accum}"
+                             + (f" within its {len(groups)} dp groups"
+                                if len(groups) > 1 else ""))
+        return per // accum, (labels >= 0).sum().clamp(min=1).float()
 
     def _grouped_backward(params, leaves, tokens, positions, labels, seg,
                           groups):
@@ -314,14 +343,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         microbatch with weight v_total / accum."""
         dp = len(groups)
         gm = group_mesh(cfg, mesh)
-        per = groups[0].stop - groups[0].start
-        if per % accum:
-            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
-                             f"grad_accum {accum}"
-                             + (f" within its {dp} dp groups" if dp > 1
-                                else ""))
-        v_total = (labels >= 0).sum().clamp(min=1).float()
-        mb = per // accum
+        mb, v_total = _microbatches(tokens, labels, groups)
         group_grads, group_loss, stats = [], [], None
         for g in groups:
             s_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -359,6 +381,65 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
             t.grad = all_reduce(parts, "mean", cfg.batch_axis)[0]
             del parts
         return all_reduce(group_loss, "mean", cfg.batch_axis)[0], stats
+
+    def _coupled_backward(params, leaves, tokens, positions, labels, seg,
+                          groups):
+        """_grouped_backward when the MoE exchange runs between the dp
+        groups (ep_on_batch): each microbatch's forward runs the groups in
+        lockstep (forward_groups) and one backward takes every group's
+        piece.  Each group holds its own copy of the replicated leaves
+        (aliases of the same storage, as every dp position holds its
+        own), whose gradients are its tokens' alone: all_reduce(mean)
+        over dp makes them the whole batch's, as in _grouped_backward.
+        The experts are sharded over dp, not replicated: dp position i
+        owns experts [i E/dp, (i+1) E/dp) and the exchange brings every
+        group's slots, and their cotangents, to their owner, so an expert
+        leaf's gradient is its owner's alone, the sum over every group's
+        tokens (JAX's shard_map transpose of the all_to_all), with no
+        reduction over dp.  The pieces carry the factor dp of the
+        group mean, so the experts' sum is divided by dp too."""
+        dp = len(groups)
+        gm = group_mesh(cfg, mesh)
+        mb, v_total = _microbatches(tokens, labels, groups)
+        experts = expert_leaf_ids(params)
+        trees = [alias_params(params, experts) for _ in groups]
+        group_leaves = [list(param_leaves(t)) for t in trees]
+        sums = [torch.zeros((), dtype=torch.float32, device=dev)
+                for _ in groups]
+        stats = None
+        for i in range(accum):
+            sls = [slice(g.start + i * mb, g.start + (i + 1) * mb)
+                   for g in groups]
+            outs = forward_groups(
+                trees, [tokens[sl] for sl in sls],
+                [positions[sl] for sl in sls], cfg, gm,
+                None if seg is None else [seg[sl] for sl in sls],
+                collect_stats=collect)
+            pieces = []
+            for o, sl in zip(outs, sls):
+                pieces.append(dp * _nll_sum(o[0], labels[sl], cfg)
+                              + aux_w * o[1] * (v_total / accum))
+                if collect:
+                    from ..obs import devstats
+
+                    stats = o[2] if stats is None else devstats.merge(
+                        stats, o[2])
+            torch.stack(pieces).sum().backward()
+            sums = [s + p.detach() for s, p in zip(sums, pieces)]
+        for j, t in enumerate(leaves):
+            if id(t) in experts:
+                g = t.grad if t.grad is not None else torch.zeros_like(t)
+                t.grad = g / (dp * v_total)
+                continue
+            parts = [(gl[j].grad if gl[j].grad is not None
+                      else torch.zeros_like(t)) / v_total
+                     for gl in group_leaves]
+            for gl in group_leaves:
+                gl[j].grad = None
+            t.grad = all_reduce(parts, "mean", cfg.batch_axis)[0]
+            del parts
+        return all_reduce([s / v_total for s in sums], "mean",
+                          cfg.batch_axis)[0], stats
 
     return guarded_step
 

@@ -23,9 +23,13 @@ Parameters are a plain dictionary with the JAX pytree's names and shapes:
 packages compute the same function in the tests.
 
 MoE routing groups follow the JAX model's shard_map: in training each
-ring (or Ulysses) position's contiguous S/W slice of the layout-order
-tokens routes as its own group, with `capacity_for` of its token count,
-and the aux loss is the mean over the groups; inference (`_mlp(...,
+(dp group, ring or Ulysses position) routes its contiguous S/W slice of
+the layout-order tokens as its own group, with `capacity_for` of its
+token count, and the aux loss is the mean over the groups; with
+cfg.expert_axis of size > 1 the groups along it exchange their slots
+with the experts' owners (parallel/moe.py `moe_shard(axis=)`): over dp
+the dp groups run in lockstep (forward_groups), over an axis of its own
+(or tp) the group's replicas exchange.  Inference (`_mlp(...,
 inference=True)`, every serving path) routes drop-free in chunks of
 MOE_CHUNK tokens, each chunk at capacity = its length, which is exact
 because drop-free routing is per token.
@@ -51,9 +55,15 @@ shards instead: max, sum-exp and target logit, each an all_reduce).
 Activations every tp position holds alike (x, the normed h) are held
 once.  A dp axis splits the batch: each dp group runs the forward on its
 rows (its own sequence ring), and the trainer averages the groups'
-gradients with all_reduce(mean) (models/train.py).
+gradients with all_reduce(mean) (models/train.py); when dp is the MoE
+expert axis the groups run layer by layer in lockstep (ep_on_batch).
+The same tree of a pipeline (cfg.pp_axis) splits its stacked leaves
+behind the stage dim, and a pp mesh takes dp, tp and the expert axis
+beside its stages (models/pipeline_lm.py).
 """
 
+import itertools
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -92,10 +102,10 @@ class ModelConfig:
     # prefill of serving/handoff.py and the training forward's ring
     # (burst_attn, or ulysses_attn for attn_strategy="ulysses") when the
     # mesh's sequence axes hold more than one position; pp_axis names the
-    # pipeline's stage axis (pp_microbatches must divide the batch);
-    # batch_axis (dp) splits the batch and head_axis (tp) the heads, MLP
-    # columns and vocab (param_specs); ep and a pp axis beside dp or tp
-    # stay at size 1 (check_mesh)
+    # pipeline's stage axis (pp_microbatches must divide each dp group's
+    # rows); batch_axis (dp) splits the batch and head_axis (tp) the
+    # heads, MLP columns and vocab (param_specs); expert_axis (an axis of
+    # its own, dp or a sequence axis) splits an MoE layer's experts
     causal: bool = True
     attn_strategy: str = "burst"
     layout: str = "zigzag"
@@ -290,6 +300,16 @@ class Shards:
     def map(self, fn) -> "Shards":
         return Shards([fn(t) for t in self.parts], self.dim, self.axis)
 
+    def __getitem__(self, i: int) -> "Shards":
+        """The shards of x[i] along the leading dim of a stacked (pp) leaf,
+        which is never the split one (views)."""
+        if self.dim == 0:
+            raise IndexError("the leading dim of these Shards is the split "
+                             "one")
+        return Shards([t[i] for t in self.parts], self.dim - 1, self.axis)
+
+    __iter__ = None  # indexing slices the stacked dim; iterate `parts`
+
 
 class ShardedParams(dict):
     """A parameter dictionary split over a mesh's head axis by
@@ -319,7 +339,8 @@ def check_tp(cfg: ModelConfig, mesh, *, strict: bool = False) -> int:
     """The tp size of `mesh` (its cfg.head_axis; 1 without a mesh or a
     head axis), after the JAX package's checks (the serving paths'
     _check_tp_mesh, models/paged_decode.py): n_heads, n_kv_heads and, as
-    the vocab-parallel embed and lm_head need, vocab divisible by it.
+    the vocab-parallel embed and lm_head need, vocab divisible by it (a
+    pipeline keeps both whole).
     `strict` (the serving paths, as in JAX): a head_axis the mesh lacks
     is a ValueError, not size 1."""
     if mesh is None or cfg.head_axis is None:
@@ -335,7 +356,7 @@ def check_tp(cfg: ModelConfig, mesh, *, strict: bool = False) -> int:
         raise ValueError(
             f"n_heads {cfg.n_heads} / n_kv_heads {cfg.n_kv_heads} not "
             f"divisible by {cfg.head_axis!r} mesh size {tp}")
-    if tp > 1 and cfg.vocab % tp:
+    if tp > 1 and cfg.vocab % tp and cfg.pp_axis is None:
         raise ValueError(f"vocab {cfg.vocab} not divisible by "
                          f"{cfg.head_axis!r} mesh size {tp} (embed and "
                          "lm_head split the vocab)")
@@ -348,11 +369,9 @@ def shard_params(params: Params, cfg: ModelConfig, mesh) -> ShardedParams:
     Megatron leaves are Shards (contiguous copies, one a position) and
     whose replicated leaves are the given tensors.  A tree already split
     for this mesh's tp is returned as it is; one split for another tp is
-    joined and split again (checkpoints restore across tp sizes)."""
-    if cfg.pp_axis is not None:
-        raise NotImplementedError(
-            "tensor parallelism of the pipeline model: pp with dp, tp or ep "
-            "comes with ROADMAP A7a's second half")
+    joined and split again (checkpoints restore across tp sizes).  A
+    pipeline's stacked leaves split by param_specs' pp branch: the stage
+    dim first, then the leaf's tp dim (embed and lm_head stay whole)."""
     tp = check_tp(cfg, mesh, strict=True)
     if isinstance(params, ShardedParams):
         if params.tp == tp:
@@ -390,6 +409,35 @@ def unshard_params(params) -> Params:
         return x.full() if isinstance(x, Shards) else x
 
     return join(dict(params))
+
+
+def expert_leaf_ids(params) -> set:
+    """ids of the expert weights (an MoE layer's w_gate, w_up, w_down;
+    stacked or per layer) of a parameter tree."""
+    layers = params["layers"]
+    return {id(layer[k]) for layer in ([layers] if isinstance(layers, dict)
+                                       else layers)
+            if "router" in layer for k in ("w_gate", "w_up", "w_down")}
+
+
+def alias_params(params, keep=frozenset()):
+    """A tree of the same structure whose tensors are fresh leaves on the
+    same storage (detach, requiring grad), so that their gradients
+    collect apart from the originals'; tensors whose id is in `keep` stay
+    the originals.  A ShardedParams stays one, each shard aliased."""
+    def alias(x):
+        if isinstance(x, dict):
+            return {k: alias(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [alias(v) for v in x]
+        if isinstance(x, Shards):
+            return x.map(alias)
+        return x if id(x) in keep else x.detach().requires_grad_(True)
+
+    tree = alias(dict(params))
+    if isinstance(params, ShardedParams):
+        return ShardedParams(tree, params.mesh, params.axis, params.tp)
+    return tree
 
 
 def params_device(params) -> torch.device:
@@ -477,40 +525,101 @@ def _embed(params, tokens, cfg: ModelConfig):
 
 
 def _mlp(p, x, cfg: ModelConfig, mesh=None, inference: bool = False):
-    """The MLP sublayer (pre-norm): dense SwiGLU, or with cfg.n_experts a
-    routed MoE.  Returns (out [B, S, d], aux): aux an fp32 0-d tensor
-    for MoE, the float 0.0 for the dense MLP (no device op), so callers
-    are uniform.
+    """The MLP sublayer (pre-norm) of one group: dense SwiGLU, or with
+    cfg.n_experts a routed MoE (_mlp_groups).  Returns (out [B, S, d],
+    aux): aux an fp32 0-d tensor for MoE, the float 0.0 for the dense MLP
+    (no device op), so callers are uniform.
 
-    MoE groups, as the JAX model's shard_map: in training each of the
-    ring_world(cfg, mesh) positions routes its contiguous S/W slice of
-    the (layout-order) tokens, all B rows, as one group at
-    capacity_for(B * S/W tokens), and aux is the mean over the groups.
     `inference=True` (every serving path) routes drop-free in chunks of
     MOE_CHUNK tokens at capacity = the chunk's length: silently zeroing a
     token's MLP output is a training-time trade, and drop-free routing
     is per token, so the chunks give the one-group result."""
-    h = _rms_norm(x, p["mlp_norm"])
-    if not cfg.n_experts:
-        # split over tp: column-parallel gate / up, row-parallel down
-        outs = [(F.silu(h @ pt["w_gate"]) * (h @ pt["w_up"])) @ pt["w_down"]
-                for pt in tp_parts(p)]
-        return tp_sum(outs, cfg.head_axis), 0.0
-    mp = MoEParams(p["router"], p["w_gate"], p["w_up"], p["w_down"])
-    b, s, d = h.shape
-    top_k = cfg.moe_top_k
-    if inference:
-        parts = [moe_shard(mp, hc, top_k=top_k, capacity=hc.shape[0])
+    if inference and cfg.n_experts:
+        h = _rms_norm(x, p["mlp_norm"])
+        mp = MoEParams(p["router"], p["w_gate"], p["w_up"], p["w_down"])
+        b, s, d = h.shape
+        parts = [moe_shard(mp, hc, top_k=cfg.moe_top_k, capacity=hc.shape[0])
                  for hc in h.reshape(b * s, d).split(MOE_CHUNK)]
         y = torch.cat([y for y, _, _ in parts]).reshape(b, s, d)
         return y, torch.stack([a for _, a, _ in parts]).mean()
-    groups = ring_world(cfg, mesh)
-    cap = capacity_for(b * s // groups, cfg.n_experts, top_k,
+    ys, auxes = _mlp_groups([p], [x], cfg, mesh)
+    return ys[0], auxes[0]
+
+
+def _moe_sets(cfg: ModelConfig, mesh, n_groups: int):
+    """The training routing groups of `n_groups` data-parallel groups run
+    in lockstep on `mesh` (their mesh: dp at size 1), flat k = g * W + j
+    for dp group g and sequence position j of the W = ring_world ones
+    (row-major over cfg.seq_axes), arranged as the JAX `_mlp`'s shard_map
+    exchanges them: (sets, r), each set the groups that swap slots over
+    cfg.expert_axis in that axis's order, and r the copies of each member
+    (> 1 when the expert axis holds replicas of the tokens: an axis of
+    its own, or tp).  No expert axis: every group alone, r = 1."""
+    axes = [(cfg.batch_axis, n_groups)] + [
+        (a, axis_size(mesh, a)) for a in cfg.seq_axes]
+    n = math.prod(size for _, size in axes)
+    ea = cfg.expert_axis
+    names = [a for a, _ in axes]
+    if ea is None or not cfg.n_experts:
+        return [[k] for k in range(n)], 1
+    if ea in names:
+        i = names.index(ea)
+        sets = {}
+        for k, c in enumerate(itertools.product(*(range(size)
+                                                  for _, size in axes))):
+            sets.setdefault(c[:i] + c[i + 1:], []).append(k)
+        return list(sets.values()), 1
+    return [[k] for k in range(n)], axis_size(mesh, ea)
+
+
+def _mlp_groups(ps, xs, cfg: ModelConfig, mesh=None):
+    """The training MLP sublayer of data-parallel groups in lockstep: ps,
+    xs the groups' layers and activations [B, S, d] -> ([out], [aux]).
+
+    MoE groups, as the JAX model's shard_map: each of the ring_world(cfg,
+    mesh) positions of a dp group routes its contiguous S/W slice of the
+    (layout-order) tokens, all B rows, as one group at capacity_for(B *
+    S/W tokens); with cfg.expert_axis the groups _moe_sets names exchange
+    their slots (moe_shard(axis=)): over dp (several groups in xs, the
+    trainer's coupled groups), over a sequence axis, or as replicas of
+    one group over an axis of its own or tp (the replicas' outputs are
+    alike: the first is kept).  A group's aux is the mean over its
+    slices of its exchange's mean, so every dp group of an exchange over
+    dp holds the mean over all groups, as JAX's pmeans give it."""
+    hs = [_rms_norm(x, p["mlp_norm"]) for p, x in zip(ps, xs)]
+    if not cfg.n_experts:
+        # split over tp: column-parallel gate / up, row-parallel down
+        return [tp_sum([(F.silu(h @ pt["w_gate"]) * (h @ pt["w_up"]))
+                        @ pt["w_down"] for pt in tp_parts(p)], cfg.head_axis)
+                for p, h in zip(ps, hs)], [0.0] * len(ps)
+    w = ring_world(cfg, mesh)
+    b, s, d = hs[0].shape
+    top_k = cfg.moe_top_k
+    cap = capacity_for(b * s // w, cfg.n_experts, top_k,
                        cfg.moe_capacity_factor)
-    parts = [moe_shard(mp, hg.reshape(-1, d), top_k=top_k, capacity=cap)
-             for hg in h.chunk(groups, dim=1)]
-    y = torch.cat([y.reshape(b, -1, d) for y, _, _ in parts], dim=1)
-    return y, torch.stack([a for _, a, _ in parts]).mean()
+    mps = [MoEParams(p["router"], p["w_gate"], p["w_up"], p["w_down"])
+           for p in ps]
+    chunks = [c.reshape(-1, d) for h in hs for c in h.chunk(w, dim=1)]
+    ys, auxes = [None] * len(chunks), [None] * len(chunks)
+    sets, r = _moe_sets(cfg, mesh, len(ps))
+    for members in sets:
+        if len(members) == 1 and r == 1:
+            k = members[0]
+            ys[k], auxes[k], _ = moe_shard(mps[k // w], chunks[k],
+                                           top_k=top_k, capacity=cap)
+            continue
+        out, aux, _ = moe_shard([mps[k // w] for k in members
+                                 for _ in range(r)],
+                                [chunks[k] for k in members
+                                 for _ in range(r)],
+                                top_k=top_k, capacity=cap,
+                                axis=cfg.expert_axis)
+        for i, k in enumerate(members):
+            ys[k], auxes[k] = out[i * r], aux
+    return ([torch.cat([y.reshape(b, -1, d) for y in ys[g * w:(g + 1) * w]],
+                       dim=1) for g in range(len(ps))],
+            [torch.stack(auxes[g * w:(g + 1) * w]).mean()
+             for g in range(len(ps))])
 
 
 def _logits(x, lm_head):
@@ -543,19 +652,19 @@ def fp32_head(params):
     return dict(params, lm_head=head)
 
 
-def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
-           segment_ids=None):
-    """One decoder block of the training forward: attention, then the MLP
-    -> (x, the MLP's aux).  Attention runs the flash kernels (autograd
-    `flash_attention`) on one device; when the mesh's sequence axes hold
-    more than one position, the ring (autograd `burst_attn` over
-    cfg.seq_axes, its layout and backend) or, for attn_strategy
-    "ulysses", the all-to-all `ulysses_attn` over cfg.seq_axes[0], as the
-    JAX model's `_attention` does; all take the packed-document
-    `segment_ids`.  A layer split over tp projects each position's heads
-    with its shard of the weights, runs the positions' attention in one
-    launch over all their heads (burst_attn with cfg.head_axis as its
-    head axis: each position's ring is independent of the others'),
+def _attention(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
+               segment_ids=None):
+    """x plus the attention sublayer of one group (pre-norm).  Attention
+    runs the flash kernels (autograd `flash_attention`) on one device;
+    when the mesh's sequence axes hold more than one position, the ring
+    (autograd `burst_attn` over cfg.seq_axes, its layout and backend) or,
+    for attn_strategy "ulysses", the all-to-all `ulysses_attn` over
+    cfg.seq_axes[0], as the JAX model's `_attention` does; all take the
+    packed-document `segment_ids`.  A layer split over tp projects each
+    position's heads with its shard of the weights, runs the positions'
+    attention in one launch over all their heads a sequence position
+    (burst_attn or ulysses_attn with cfg.head_axis as the head axis: each
+    tp position's ring, or all-to-all, is independent of the others'),
     and all_reduces the positions' wo partial sums.  `stats_out`: None,
     or a list the ring's DevStats is appended to (collect_stats: the
     output is the same)."""
@@ -565,15 +674,15 @@ def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
     qkv = [_qkv_from_h(pt, h, positions, cfg) for pt in parts]
     q, k, v = (torch.cat(t, dim=1) if len(parts) > 1 else t[0].contiguous()
                for t in zip(*qkv))
+    ring = seq_mesh(mesh, cfg.seq_axes) if world > 1 else None
+    if ring is not None and len(parts) > 1:
+        ring[cfg.head_axis] = len(parts)
     if cfg.attn_strategy == "ulysses" and world > 1:
-        o = ulysses_attn(q, k, v, mesh=seq_mesh(mesh, cfg.seq_axes),
-                         seq_axis=cfg.seq_axes[0], causal=cfg.causal,
-                         backend=cfg.attn_backend, window=cfg.window,
+        o = ulysses_attn(q, k, v, mesh=ring, seq_axis=cfg.seq_axes[0],
+                         causal=cfg.causal, backend=cfg.attn_backend,
+                         head_axes=cfg.head_axis, window=cfg.window,
                          segment_ids=segment_ids)
     elif world > 1:
-        ring = seq_mesh(mesh, cfg.seq_axes)
-        if len(parts) > 1:
-            ring[cfg.head_axis] = len(parts)
         o = burst_attn(q, k, v, mesh=ring, seq_axes=cfg.seq_axes,
                        head_axes=cfg.head_axis, causal=cfg.causal,
                        layout=cfg.layout, backend=cfg.attn_backend,
@@ -586,17 +695,34 @@ def _block(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
         o = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                             segment_ids=segment_ids)
     os = o.chunk(len(parts), dim=1)
-    x = x + tp_sum([_attn_out(pt, ot) for pt, ot in zip(parts, os)],
-                   cfg.head_axis)
-    m, aux = _mlp(p, x, cfg, mesh)
-    return x + m, aux
+    return x + tp_sum([_attn_out(pt, ot) for pt, ot in zip(parts, os)],
+                      cfg.head_axis)
 
 
-def check_strategy(cfg: ModelConfig, collect_stats: bool = False) -> None:
+def _blocks(xs, ps, positions, cfg: ModelConfig, mesh=None, sinks=None,
+            segment_ids=None):
+    """One decoder block of the training forward over data-parallel groups
+    in lockstep (lists a group: activations, layers, positions, DevStats
+    sinks, segment ids): each group's attention (_attention), then the
+    groups' MLPs together (_mlp_groups: an MoE exchange over dp couples
+    them) -> (xs, each group's aux)."""
+    n = len(xs)
+    sinks = sinks or [None] * n
+    segment_ids = segment_ids or [None] * n
+    xs = [_attention(x, p, pos, cfg, mesh, sink, seg) for x, p, pos, sink,
+          seg in zip(xs, ps, positions, sinks, segment_ids)]
+    ms, auxes = _mlp_groups(ps, xs, cfg, mesh)
+    return [x + m for x, m in zip(xs, ms)], auxes
+
+
+def check_strategy(cfg: ModelConfig, collect_stats: bool = False,
+                   mesh=None) -> None:
     """The JAX model's `_attention` checks of cfg.attn_strategy: "burst"
     or "ulysses"; Ulysses attends in natural token order over one
-    sequence axis (a ring layout's permutation would scramble causality)
-    and has no ring to instrument (collect_stats)."""
+    sequence axis (a ring layout's permutation would scramble causality),
+    has no ring to instrument (collect_stats) and needs each tp group's
+    q and kv heads divisible by the sequence axis of `mesh` (the
+    ulysses_attn check, made before any layer runs)."""
     if cfg.attn_strategy not in ("burst", "ulysses"):
         raise ValueError(f"unknown attn_strategy {cfg.attn_strategy!r}; "
                          "expected 'burst' or 'ulysses'")
@@ -612,54 +738,53 @@ def check_strategy(cfg: ModelConfig, collect_stats: bool = False) -> None:
         raise ValueError(
             "attn_strategy='ulysses' requires layout='contig' (natural "
             f"token order); got layout={cfg.layout!r}")
+    w = axis_size(mesh, cfg.seq_axes[0])
+    tp = axis_size(mesh, cfg.head_axis)
+    if w > 1 and ((cfg.n_heads // tp) % w or (cfg.n_kv_heads // tp) % w):
+        raise ValueError(
+            f"ulysses needs per-group q heads {cfg.n_heads}/{tp} and kv "
+            f"heads {cfg.n_kv_heads}/{tp} divisible by the "
+            f"{cfg.seq_axes[0]!r} axis size {w}")
 
 
 def check_expert_axis(cfg: ModelConfig, mesh) -> None:
-    """Raise NotImplementedError for an expert axis (cfg.expert_axis) or,
-    under Ulysses, a head axis (cfg.head_axis) of size > 1 in `mesh`:
-    experts over positions in the model and Ulysses with tensor
-    parallelism are ROADMAP A7a's second half."""
-    if mesh is None:
+    """The JAX package's expert-axis checks (ValueError): n_experts must
+    divide by the size of cfg.expert_axis in `mesh`, and the expert axis
+    cannot be the pipeline's stage axis (the stacked expert specs would
+    name it twice, which JAX refuses)."""
+    if mesh is None or not cfg.n_experts or cfg.expert_axis is None:
         return
-    sizes = _mesh_shape(mesh)
-    for what, axis, on in (("expert", cfg.expert_axis, cfg.n_experts > 0),
-                           ("head (tp)", cfg.head_axis,
-                            cfg.attn_strategy == "ulysses")):
-        if on and axis is not None and int(sizes.get(axis, 1)) > 1:
-            raise NotImplementedError(
-                f"{what} axis {axis!r} of size {sizes[axis]}"
-                f"{' under ulysses' if what != 'expert' else ''}: comes "
-                "with ROADMAP A7a's second half (ROADMAP A7 before the "
-                "split)")
+    if cfg.expert_axis == cfg.pp_axis:
+        raise ValueError(f"expert_axis {cfg.expert_axis!r} is the pp axis: "
+                         "experts split over another axis than the stages")
+    ep = axis_size(mesh, cfg.expert_axis)
+    if cfg.n_experts % ep:
+        raise ValueError(f"n_experts {cfg.n_experts} not divisible by "
+                         f"expert_axis {cfg.expert_axis!r} size {ep}")
 
 
 def check_mesh(mesh, seq_axes=("sp",), pp_axis=None, batch_axis="dp",
-               head_axis="tp") -> None:
-    """Raise unless `mesh` (axis name -> size, or None) is a sequence ring
-    with data (`batch_axis`) and tensor (`head_axis`) positions beside
-    it, or with `pp_axis` (cfg.pp_axis) a pipeline of sequence rings: the
-    sequence axes (`seq_axes`, cfg.seq_axes), dp, tp and the pp axis take
-    any size.  Every other axis must have size 1, and so must dp, tp and
-    any other axis beside a pp axis: experts over positions and the
-    pipeline with dp, tp or ep are ROADMAP A7a's second half (ROADMAP A2
-    before the re-numberings)."""
+               head_axis="tp", expert_axis=None) -> None:
+    """Raise ValueError unless every axis of `mesh` (axis name -> size, or
+    None) with size > 1 is one the model splits its work over: the
+    sequence axes (`seq_axes`, cfg.seq_axes), data (`batch_axis`), tensor
+    (`head_axis`) and expert (`expert_axis`) parallelism and a pipeline's
+    stages (`pp_axis`), each of any size, in any combination.  Any other
+    axis of size > 1 would only replicate the work (its positions share
+    the one device)."""
     if mesh is None:
         return
-    if pp_axis is not None:
-        keep = tuple(seq_axes) + (pp_axis,)
-    else:
-        keep = tuple(seq_axes) + tuple(a for a in (batch_axis, head_axis)
-                                       if a is not None)
+    keep = tuple(seq_axes) + tuple(a for a in (pp_axis, batch_axis,
+                                               head_axis, expert_axis)
+                                   if a is not None)
     other = {a: int(n) for a, n in _mesh_shape(mesh).items()
              if a not in keep and int(n) != 1}
     if other:
-        raise NotImplementedError(
-            f"mesh axes {other} besides the sequence axes {tuple(seq_axes)}"
-            f"{' and the pp axis' if pp_axis is not None else ''}"
-            f"{'' if pp_axis is not None else ', dp and tp'}: experts over "
-            "positions and the pipeline with dp, tp or ep come with "
-            "ROADMAP A7a's second half (ROADMAP A2 before the "
-            "re-numberings)")
+        raise ValueError(
+            f"mesh axes {other} are none of the sequence axes "
+            f"{tuple(seq_axes)} and the pp, batch, head and expert axes "
+            f"{(pp_axis, batch_axis, head_axis, expert_axis)}: the model "
+            "splits no work over them")
 
 
 def check_serving(cfg: ModelConfig) -> None:
@@ -678,7 +803,7 @@ def ring_world(cfg: ModelConfig, mesh) -> int:
     and each (dp, tp) group run a ring of this size)."""
     check_expert_axis(cfg, mesh)
     check_mesh(mesh, cfg.seq_axes, cfg.pp_axis, cfg.batch_axis,
-               cfg.head_axis)
+               cfg.head_axis, cfg.expert_axis if cfg.n_experts else None)
     check_tp(cfg, mesh)
     if mesh is None:
         return 1
@@ -727,6 +852,15 @@ def group_mesh(cfg: ModelConfig, mesh):
     return shape
 
 
+def ep_on_batch(cfg: ModelConfig, mesh) -> bool:
+    """Whether an MoE model's expert axis is its batch (dp) axis of size
+    > 1 in `mesh`: the MoE exchange then runs between the dp groups,
+    whose forwards (and backward) must run in lockstep (forward_groups)."""
+    return bool(cfg.n_experts and cfg.expert_axis is not None
+                and cfg.expert_axis == cfg.batch_axis
+                and axis_size(mesh, cfg.batch_axis) > 1)
+
+
 def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
                      mesh=None, segment_ids=None, collect_stats=False):
     """Training forward: tokens, positions [B, S] int (layout order over
@@ -739,11 +873,12 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     (non-reentrant), the counterpart of jax.checkpoint: its activations
     are recomputed in the backward.  `mesh` names axis sizes ({"sp": W}
     or {"inter": a, "intra": b} with cfg.seq_axes to match, beside
-    cfg.batch_axis "dp" and cfg.head_axis "tp"; the positions share the
-    tokens' device).  A dp axis splits the batch into groups, each its
-    own forward (the logits joined along the batch, the aux their mean);
-    a tp axis of size > 1 needs the parameters split for it
-    (shard_params), and the logits come all_gathered from the vocab
+    cfg.batch_axis "dp", cfg.head_axis "tp" and cfg.expert_axis; the
+    positions share the tokens' device).  A dp axis splits the batch into
+    groups, each its own forward (the logits joined along the batch, the
+    aux their mean), run in lockstep when the expert axis is dp
+    (ep_on_batch); a tp axis of size > 1 needs the parameters split for
+    it (shard_params), and the logits come all_gathered from the vocab
     shards.  `segment_ids` [B, S] ints in the tokens' order pack
     documents into a row: every layer's attention stays inside a
     document (flash_attention / burst_attn(segment_ids=)).
@@ -755,7 +890,7 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     recompute in the backward adds no stats of its own to the result).
 
     With cfg.pp_axis set: the pipeline-parallel forward on stacked params
-    (pipeline_lm.pp_forward_with_aux), without collect_stats."""
+    (models/pipeline_lm.py), without collect_stats."""
     out = forward_parts(params, tokens, positions, cfg, mesh,
                         segment_ids=segment_ids, collect_stats=collect_stats)
     parts = out[0]
@@ -768,33 +903,37 @@ def forward_parts(params: Params, tokens, positions, cfg: ModelConfig,
                   mesh=None, segment_ids=None, collect_stats=False):
     """forward_with_aux with the logits left on their tp positions: (a
     list of each position's fp32 logits over its vocab shard, one entry
-    without tp; aux[, DevStats]).  The trainer's vocab-parallel cross
-    entropy reads them so."""
+    without tp or with pp; aux[, DevStats]).  The trainer's
+    vocab-parallel cross entropy reads them so."""
     if cfg.pp_axis is not None:
         if collect_stats:
             raise ValueError(
                 "collect_stats is not supported on the pipeline-parallel "
                 "path (pp_axis set) — the pp schedule slices layers across "
                 "stages and has no single ring to instrument")
-        from .pipeline_lm import pp_forward_with_aux
+        from .pipeline_lm import check_pp
 
-        out = pp_forward_with_aux(params, tokens, positions, cfg, mesh,
-                                  segment_ids=segment_ids)
-        return ([out[0]],) + tuple(out[1:])
-    check_strategy(cfg, collect_stats)
-    if collect_stats and ring_world(cfg, mesh) < 2:
-        raise ValueError("collect_stats needs a ring: the mesh's sequence "
-                         f"axes {tuple(cfg.seq_axes)} hold one position")
-    ring_world(cfg, mesh)
+        check_pp(cfg, mesh, tokens.shape[0])
+    else:
+        check_strategy(cfg, collect_stats, mesh)
+        if collect_stats and ring_world(cfg, mesh) < 2:
+            raise ValueError("collect_stats needs a ring: the mesh's "
+                             f"sequence axes {tuple(cfg.seq_axes)} hold one "
+                             "position")
+        ring_world(cfg, mesh)
     tp_of(params, cfg, mesh)
     groups = dp_groups(cfg, mesh, tokens.shape[0])
-    if len(groups) == 1:
-        return _forward_group(params, tokens, positions, cfg, mesh,
-                              segment_ids, collect_stats)
     gm = group_mesh(cfg, mesh)
-    outs = [_forward_group(params, tokens[g], positions[g], cfg, gm,
-                           None if segment_ids is None else segment_ids[g],
-                           collect_stats) for g in groups]
+    outs = []
+    for run in ([groups] if ep_on_batch(cfg, mesh)
+                else [[g] for g in groups]):
+        outs += forward_groups(
+            [params] * len(run), [tokens[g] for g in run],
+            [positions[g] for g in run], cfg, gm,
+            None if segment_ids is None else [segment_ids[g] for g in run],
+            collect_stats)
+    if len(outs) == 1:
+        return outs[0]
     parts = [torch.cat([o[0][t] for o in outs]) for t in range(
         len(outs[0][0]))]
     aux = torch.stack([torch.as_tensor(o[1]) for o in outs]).mean()
@@ -808,36 +947,57 @@ def forward_parts(params: Params, tokens, positions, cfg: ModelConfig,
     return parts, aux, stats
 
 
-def _forward_group(params, tokens, positions, cfg: ModelConfig, mesh,
-                   segment_ids, collect_stats):
-    """One data-parallel group's forward_parts (its batch rows)."""
-    x = _embed(params, tokens, cfg)
-    if segment_ids is not None:  # once, as the kernels take them
-        segment_ids = segment_ids.to(device=x.device,
-                                     dtype=torch.int32).contiguous()
-    sinks = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params["layers"]:
-        sink = [] if collect_stats else None
+def forward_groups(params, tokens, positions, cfg: ModelConfig, mesh,
+                   segment_ids=None, collect_stats=False):
+    """The training forward of data-parallel groups in lockstep, lists a
+    group (parameter trees, tokens, positions, segment ids or None) on
+    `mesh`, the groups' mesh (cfg.batch_axis at size 1, group_mesh):
+    layer by layer every group's block, its MLPs together, so that an MoE
+    exchange over the batch axis (ep_on_batch) runs between them; a
+    pipeline (cfg.pp_axis) runs its ticks so.  -> [(logit parts, aux[,
+    DevStats])] a group.  The trainer passes each group a tree of its
+    own (its copies of the replicated leaves), as each dp position holds
+    its own; forward_parts passes the one tree."""
+    if segment_ids is None:
+        segment_ids = [None] * len(tokens)
+    if cfg.pp_axis is not None:
+        from .pipeline_lm import pp_forward_groups
+
+        return pp_forward_groups(params, tokens, positions, cfg, mesh,
+                                 segment_ids)
+    xs = [_embed(p, t, cfg) for p, t in zip(params, tokens)]
+    # once, as the kernels take them
+    segs = [None if s is None else s.to(device=x.device,
+                                        dtype=torch.int32).contiguous()
+            for s, x in zip(segment_ids, xs)]
+    sinks = []  # a layer: a list a group
+    auxes = [torch.zeros((), dtype=torch.float32, device=x.device)
+             for x in xs]
+    for li in range(len(params[0]["layers"])):
+        ps = [p["layers"][li] for p in params]
+        sink = [[] if collect_stats else None for _ in xs]
         sinks.append(sink)
         if cfg.remat and torch.is_grad_enabled():
-            x, aux_l = checkpoint(_block, x, p, positions, cfg, mesh, sink,
-                                  segment_ids, use_reentrant=False)
+            xs, aux_l = checkpoint(_blocks, xs, ps, positions, cfg, mesh,
+                                   sink, segs, use_reentrant=False)
         else:
-            x, aux_l = _block(x, p, positions, cfg, mesh, sink, segment_ids)
-        aux = aux + aux_l
-    parts = _logit_parts(_rms_norm(x, params["final_norm"]),
-                         params["lm_head"])
-    if not collect_stats:
-        return parts, aux
-    from ..obs import devstats
+            xs, aux_l = _blocks(xs, ps, positions, cfg, mesh, sink, segs)
+        auxes = [a + b for a, b in zip(auxes, aux_l)]
+    outs = []
+    for g, (p, x) in enumerate(zip(params, xs)):
+        parts = _logit_parts(_rms_norm(x, p["final_norm"]), p["lm_head"])
+        if not collect_stats:
+            outs.append((parts, auxes[g]))
+            continue
+        from ..obs import devstats
 
-    # each layer's first entry is its forward's (a remat recompute in the
-    # backward appends later ones)
-    stats = sinks[0][0]
-    for sink in sinks[1:]:
-        stats = devstats.merge(stats, sink[0])
-    return parts, aux, stats
+        # each layer's first entry is its forward's (a remat recompute in
+        # the backward appends later ones)
+        stats = sinks[0][g][0]
+        for sink in sinks[1:]:
+            stats = devstats.merge(stats, sink[g][0])
+        outs.append((parts, auxes[g], stats))
+    return outs
 
 
 def forward(params: Params, tokens, positions, cfg: ModelConfig,

@@ -24,12 +24,15 @@ layer in a CUDA graph and run it under the sync-debug mode.  The
 load-balancing loss is the Switch aux loss, E * sum_e(mean top-1
 one-hot_e * mean prob_e), returned with the share of dropped choices.
 
-Expert parallelism (`moe_apply(mesh={"ep": W})`): W positions sharing one
-device each route their contiguous share of the tokens; `mesh.all_to_all`
-regroups [E, C, d] so position p holds its E/W experts' slots from every
-peer ([E/W, C*W, d]), the local experts run, and a second all-to-all
-sends the results home.  aux and dropped are averaged over the positions
-(the JAX package's pmean).
+Expert parallelism (`moe_shard(axis=)`, the JAX per-shard function): W
+positions sharing one device each route their own tokens;
+`mesh.all_to_all` regroups [E, C, d] so position p holds its E/W
+experts' slots from every peer ([E/W, C*W, d]), the local experts run,
+and a second all-to-all sends the results home.  aux and dropped are
+averaged over the positions (the JAX package's pmean).  `moe_apply(mesh=
+{"ep": W})` splits the tokens into W contiguous shares for it; the LM
+(models/transformer.py `_mlp_groups`) hands it its routing groups along
+the model's expert axis.
 """
 
 from typing import NamedTuple, Optional
@@ -145,12 +148,51 @@ def expert_mlp(w_gate, w_up, w_down, h):
     return torch.bmm(F.silu(g) * u, w_down)
 
 
-def moe_shard(p: MoEParams, x, *, top_k: int, capacity: int):
-    """Dense MoE of one routing group, [T, d] tokens -> (y [T, d] in x's
-    dtype, aux, dropped)."""
-    r = route(x, p.router, top_k, capacity)
-    out = expert_mlp(p.w_gate, p.w_up, p.w_down, dispatch(x, r))
-    return combine(out, r, x.dtype), r.aux, r.dropped
+def moe_shard(p, x, *, top_k: int, capacity: int,
+              axis: Optional[str] = None):
+    """MoE of routing groups -> (y, aux, dropped).
+
+    Without `axis`: one group, p a MoEParams and x [T, d] tokens -> (y
+    [T, d] in x's dtype, aux, dropped).  With `axis` (the JAX
+    moe_shard's expert axis): x is the list of the W positions' [T, d]
+    tokens along mesh axis `axis` and p one MoEParams, or a list of one
+    a position (each position's copy of the replicated router).  Each
+    position routes its own tokens at `capacity`; all_to_all regroups the
+    [E, C, d] slots so that position i holds its experts [i*E/W,
+    (i+1)*E/W) of p[i]'s weights with every peer's slots ([E/W, C*W, d]),
+    the local experts run, and a second all_to_all sends the results
+    home.  Returns ([y_p], aux, dropped), aux and dropped the means over
+    the positions (JAX's pmean).  A position whose tokens and router are
+    the very tensors of an earlier one (tokens replicated over the axis)
+    reuses that position's routing."""
+    if axis is None:
+        r = route(x, p.router, top_k, capacity)
+        out = expert_mlp(p.w_gate, p.w_up, p.w_down, dispatch(x, r))
+        return combine(out, r, x.dtype), r.aux, r.dropped
+    w = len(x)
+    ps = [p] * w if isinstance(p, MoEParams) else list(p)
+    e = ps[0].router.shape[1]
+    if e % w:
+        raise ValueError(f"experts {e} not divisible by {axis!r} axis "
+                         f"size {w}")
+    seen, rs = {}, []
+    for xp, pp in zip(x, ps):
+        key = (id(xp), id(pp.router))
+        if key not in seen:
+            seen[key] = route(xp, pp.router, top_k, capacity)
+        rs.append(seen[key])
+    # [E, C, d] a position -> [E/W, C*W, d]: its experts' slots of every
+    # peer
+    hs = all_to_all([dispatch(xp, r) for xp, r in zip(x, rs)],
+                    split_dim=0, concat_dim=1, axis=axis)
+    el = e // w
+    outs = [expert_mlp(*(t[i * el:(i + 1) * el]
+                         for t in (pp.w_gate, pp.w_up, pp.w_down)), h)
+            for i, (pp, h) in enumerate(zip(ps, hs))]
+    outs = all_to_all(outs, split_dim=1, concat_dim=0, axis=axis)
+    ys = [combine(o, r, xp.dtype) for o, r, xp in zip(outs, rs, x)]
+    return (ys, torch.stack([r.aux for r in rs]).mean(),
+            torch.stack([r.dropped for r in rs]).mean())
 
 
 def capacity_for(tokens: int, experts: int, top_k: int,
@@ -187,19 +229,8 @@ def moe_apply(p: MoEParams, x, *, mesh=None, axis: Optional[str] = "ep",
     if t % ep:
         raise ValueError(f"tokens {t} not divisible by ep axis size {ep}")
     cap = capacity_for(b * t // ep, e, top_k, capacity_factor)
-    xs = [c.reshape(-1, d) for c in x.chunk(ep, dim=1)]
-    rs = [route(xp, p.router, top_k, cap) for xp in xs]
-    # [E, C, d] a position -> [E/ep, C*ep, d]: its experts' slots of
-    # every peer
-    hs = all_to_all([dispatch(xp, r) for xp, r in zip(xs, rs)],
-                    split_dim=0, concat_dim=1, axis=axis)
-    el = e // ep
-    outs = [expert_mlp(*(w[i * el:(i + 1) * el]
-                         for w in (p.w_gate, p.w_up, p.w_down)), h)
-            for i, h in enumerate(hs)]
-    outs = all_to_all(outs, split_dim=1, concat_dim=0, axis=axis)
-    y = torch.cat([combine(o, r, x.dtype).reshape(b, t // ep, d)
-                   for o, r in zip(outs, rs)], dim=1)
-    aux = torch.stack([r.aux for r in rs]).mean()
-    dropped = torch.stack([r.dropped for r in rs]).mean()
+    ys, aux, dropped = moe_shard(
+        p, [c.reshape(-1, d) for c in x.chunk(ep, dim=1)], top_k=top_k,
+        capacity=cap, axis=axis)
+    y = torch.cat([yp.reshape(b, t // ep, d) for yp in ys], dim=1)
     return (y[0] if squeeze else y), aux, dropped

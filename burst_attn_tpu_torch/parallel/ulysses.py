@@ -20,6 +20,12 @@ GQA: the tiled all-to-all hands position p the p-th contiguous chunk of
 the q heads and the p-th chunk of the kv heads; with G = N / Nkv, q head h
 reads kv head h // G, so the grouping survives because both are split in
 contiguous chunks.  Hence the check that N and Nkv divide by W.
+
+With a tensor-parallel head axis the heads come in tp groups of N/tp
+contiguous heads (the tp positions' column-parallel projections side by
+side): each group's all-to-all exchanges its own heads only, and each
+sequence position runs one launch over its share of every group's heads,
+so the check is per group: N/tp and Nkv/tp divide by W.
 """
 
 from typing import Optional
@@ -59,9 +65,14 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
     documents (each position holds the whole sequence after the
     exchange, so the ids need none).
 
-    Raises ValueError unless N and Nkv divide by W ("divisible"), and
-    NotImplementedError for a tensor-parallel `head_axes` of size > 1
-    (ROADMAP A7a's second half).
+    `head_axes` (the mesh's tensor-parallel axis, or None) splits the heads
+    into tp groups of N/tp contiguous heads, as the JAX shard_map spec
+    P(batch, head, seq, None) does: each tp group's all-to-all exchanges
+    only its own heads, and after the exchange every sequence position
+    runs ONE attention launch over its share of every tp group's heads
+    (the groups are independent; one launch a position and tp group would
+    only split the work).  Raises ValueError unless each tp group's q and
+    kv heads divide by W ("divisible").
     The JAX signature's block sizes and batch axes have no counterpart:
     the kernels' tiles are fixed and the batch is whole on the device."""
     shape = dict(mesh.shape if isinstance(mesh, Mesh) else mesh)
@@ -69,14 +80,11 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
     tp = 1
     for a in _names(head_axes):
         tp *= int(shape.get(a, 1))
-    if tp > 1:
-        raise NotImplementedError(
-            f"ulysses with head_axes {head_axes!r} of size {tp}: Ulysses "
-            "with tensor parallelism is ROADMAP A7a's second half")
-    if q.shape[1] % w or k.shape[1] % w:
+    if (q.shape[1] % tp or k.shape[1] % tp or (q.shape[1] // tp) % w
+            or (k.shape[1] // tp) % w):
         raise ValueError(
-            f"ulysses needs q heads {q.shape[1]} and kv heads {k.shape[1]} "
-            f"divisible by the '{seq_axis}' axis size {w}")
+            f"ulysses needs per-group q heads {q.shape[1]}/{tp} and kv heads "
+            f"{k.shape[1]}/{tp} divisible by the '{seq_axis}' axis size {w}")
     if q.shape[2] % w:
         raise ValueError(f"sequence length {q.shape[2]} does not divide by "
                          f"the '{seq_axis}' axis size {w}")
@@ -86,16 +94,25 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
         scale = q.shape[-1] ** -0.5
     if segment_ids is not None:
         segment_ids = segment_ids.to(device=q.device, dtype=torch.int32)
-    # the positions' sequence shards [B, N, S/W, D]: views of the global
-    # tensors (position p holds slice p), copied only by the exchange
-    qs, ks, vs = (t.chunk(w, dim=2) for t in (q, k, v))
-    # scatter heads, gather the sequence: [B, N/W, S, D] a position
-    qh = all_to_all(qs, split_dim=1, concat_dim=2, axis=seq_axis)
-    kh = all_to_all(ks, split_dim=1, concat_dim=2, axis=seq_axis)
-    vh = all_to_all(vs, split_dim=1, concat_dim=2, axis=seq_axis)
+
+    def exchange(t):
+        """Each tp group's heads of t: its positions' sequence shards
+        [B, N/tp, S/W, D] (views of the global tensor, copied only by the
+        exchange) all-to-all'd into [B, N/tp/W, S, D] a position."""
+        return [all_to_all(g.chunk(w, dim=2), split_dim=1, concat_dim=2,
+                           axis=seq_axis) for g in t.chunk(tp, dim=1)]
+
+    # scatter heads, gather the sequence, then each position's heads of
+    # every tp group side by side: [B, N/W, S, D] a position
+    qh, kh, vh = ([torch.cat([g[p] for g in x], dim=1) if tp > 1
+                   else x[0][p] for p in range(w)]
+                  for x in (exchange(q), exchange(k), exchange(v)))
     oh = [_local_attention(qh[p], kh[p], vh[p], scale, causal, backend,
                            window=window, segment_ids=segment_ids)
           for p in range(w)]
-    # scatter the sequence back, gather the heads
-    return torch.cat(all_to_all(oh, split_dim=2, concat_dim=1,
-                                axis=seq_axis), dim=2)
+    # scatter the sequence back, gather the heads: a tp group at a time
+    heads = [o.chunk(tp, dim=1) for o in oh]
+    return torch.cat([torch.cat(all_to_all([h[t] for h in heads],
+                                           split_dim=2, concat_dim=1,
+                                           axis=seq_axis), dim=2)
+                      for t in range(tp)], dim=1)

@@ -2185,8 +2185,9 @@ def _train_model(n_layers, dtype, **kw):
 
     from burst_attn_tpu_torch.models.transformer import ModelConfig
 
-    return ModelConfig(**{**TRAIN_DIMS, "n_layers": n_layers}, dtype=dtype,
-                       batch_axis=None, head_axis=None, remat=True, **kw)
+    return ModelConfig(**{**TRAIN_DIMS, "n_layers": n_layers}, **{
+        "dtype": dtype, "batch_axis": None, "head_axis": None,
+        "remat": True, **kw})
 
 
 _SEED_PARAMS = {}
@@ -2349,15 +2350,19 @@ MESH_GRAD_RTOL = 5e-2
 
 def _whole_grads(params):
     """(name, gradient) of every tree leaf of `params` after a step, a
-    split leaf's shards' gradients joined into its whole tensor."""
+    split leaf's shards' gradients joined into its whole tensor (a pp
+    tree's stacked leaves named "layers.<key>")."""
     import torch
 
     from burst_attn_tpu_torch.models.transformer import (
         Shards, layer_keys, tree_leaves,
     )
 
-    names = ["embed"] + [f"layers[{i}].{k}" for i, layer in enumerate(
-        params["layers"]) for k in layer_keys(layer)] + [
+    layers = params["layers"]
+    names = ["embed"] + ([f"layers.{k}" for k in layer_keys(layers)]
+                         if isinstance(layers, dict) else
+                         [f"layers[{i}].{k}" for i, layer in enumerate(
+                             layers) for k in layer_keys(layer)]) + [
         "final_norm", "lm_head"]
     grads = [torch.cat([t.grad for t in x.parts], dim=x.dim)
              if isinstance(x, Shards) else x.grad.clone()
@@ -2471,6 +2476,348 @@ def mesh_train_phase(device):
     return res
 
 
+# the pipeline beside dp and tp, the MoE model's expert axis on dp, Ulysses
+# with tp, every position on the one card; the training model's
+# width, bf16, remat, 4 layers (every position's share on the one card)
+MESH2_LAYERS = 4
+PP_MESH = {"pp": 2, "dp": 2, "sp": 2, "tp": 2}
+PP_MESH_B, PP_MESH_SEQ = 4, 2048  # m=2: one row a microbatch and dp group
+EP_MESH = {"dp": 2, "sp": 2, "tp": 2}
+EP_B = 2
+ULY_TP_MESH = {"sp": 4, "tp": 2}
+# the MoE step with its experts on dp against the same mesh without an
+# expert axis: the first two losses (the forward, one update) within
+# EP_LOSS_RTOL (the exchange moves slots, not results: the forwards
+# agree to the last bit, and the expert gradients differ by their
+# summation order, [E/2, 2C, d] rows against two groups' [E, C, d]; the
+# third loss, after two bf16 AdamW updates of routed weights, read
+# 8.2e-4 on an H100 and is reported, as train_phase reports its control's
+# later losses); the dropped share a layer within EP_DROP_ATOL (a routing
+# near tie in a later layer may flip a choice; equal on the H100)
+EP_LOSS_RTOL = 1e-3
+EP_DROP_ATOL = 1e-3
+
+
+def _stacked_grads(named, n_layers):
+    """_whole_grads of a list-of-layers tree with each key's layers
+    stacked, named as a pp tree's leaves ("layers.<key>")."""
+    import torch
+
+    head, body, tail = named[:1], named[1:-2], named[-2:]
+    per = len(body) // n_layers
+    return head + [(f"layers.{name.split('.', 1)[1]}",
+                    torch.stack([g for _, g in body[j::per]]))
+                   for j, name in ((j, body[j][0]) for j in range(per))] \
+        + tail
+
+
+def _rel_l2(got, want):
+    """{name: relative l2 error} of two (name, gradient) lists."""
+    errs = {}
+    for (what, a), (what1, c) in zip(got, want):
+        assert what == what1 and a.shape == c.shape, (what, what1)
+        errs[what] = float((a.float() - c.float()).norm()
+                           / c.float().norm().clamp(min=1e-30))
+    return errs
+
+
+def _mesh_steps(name, cfg, mesh, params, batch, device, want):
+    """1 + MESH_TRAIN_STEPS make_train_step steps of `params` on `mesh`
+    (None: one device): losses, first-step grad norm and whole gradients
+    (joined over tp), host ms a step, each step's launches (each must be
+    `want`, a _counts() dict) and no fused-ring fallback."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+
+    tcfg = train.TrainConfig()
+    state = (params, train._optimizer(params, tcfg))
+    step = train.make_train_step(cfg, tcfg, mesh, device=device)
+    obs0 = _obs_now()
+    losses, gnorms, times, launches, grads = [], [], [], [], None
+    for i in range(1 + MESH_TRAIN_STEPS):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        launches.append(_counts())
+        if i == 0:
+            grads = _whole_grads(params)
+    assert all(map(math.isfinite, losses + gnorms)), (name, losses)
+    assert all(x == want for x in launches), (name, launches, want)
+    assert not any(k.startswith("burst.fused_fallback")
+                   for k in _obs_since(obs0)), (name, _obs_since(obs0))
+    return dict(losses=losses, grad_norms=gnorms,
+                step_ms=statistics.median(times[1:]), step_ms_all=times,
+                launches_per_step=launches[0]), grads
+
+
+def _against_one(name, res, one, grads, grads1, card):
+    """The mesh run `res` against the one-device run `one`: each loss and
+    the first grad norm within MESH_TRAIN_RTOL, each first-step gradient
+    within MESH_GRAD_RTOL relative l2; records and prints them."""
+    rels = [abs(a - c) / abs(c) for a, c in zip(
+        res["losses"] + res["grad_norms"][:1],
+        one["losses"] + one["grad_norms"][:1])]
+    assert max(rels) <= MESH_TRAIN_RTOL, (name, rels, res, one)
+    errs = _rel_l2(grads, grads1)
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= MESH_GRAD_RTOL, (name, worst, errs)
+    res.update(loss_rel_diffs=rels[:-1], grad_norm_rel_diff=rels[-1],
+               grad_rel_l2=errs, one_device=one)
+    print(f"{name}: {res['step_ms']:.1f} ms a step (one device "
+          f"{one['step_ms']:.1f} ms, same weights and batch); losses "
+          f"{res['losses']} (one device {one['losses']}; rel diffs "
+          f"{[float(f'{d:.2e}') for d in rels[:-1]]}); first grad norm rel "
+          f"diff {rels[-1]:.2e}; largest relative l2 error of a gradient "
+          f"{errs[worst]:.2e} ({worst}); launches a step "
+          f"{res['launches_per_step']}; {card}", flush=True)
+
+
+def _tree_grads(params, loss):
+    """(name, whole gradient) of every tree leaf of `params` from
+    torch.autograd.grad of `loss` (a split leaf's shards joined)."""
+    import torch
+
+    from burst_attn_tpu_torch.models.transformer import (
+        Shards, param_leaves, tree_leaves,
+    )
+
+    flat = list(torch.autograd.grad(loss, list(param_leaves(params))))
+    out = []
+    for x in tree_leaves(params):
+        n = len(x) if isinstance(x, Shards) else 1
+        g, flat = flat[:n], flat[n:]
+        out.append(torch.cat(g, dim=x.dim) if isinstance(x, Shards)
+                   else g[0])
+    return out
+
+
+def mesh2_train_phase(device):
+    """The pipeline beside dp and tp, the expert axis on dp and Ulysses
+    with tp at the training model's width (bf16,
+    remat, MESH2_LAYERS layers of the seed-0 weights, fused ring):
+    (1) the pipeline beside dp and tp, PP_MESH at m=2, B4 S2048, against
+    one device on the same weights and batch: each of the 1 +
+    MESH_TRAIN_STEPS losses and the first grad norm within
+    MESH_TRAIN_RTOL, each first-step gradient (joined over tp, the
+    one device's stacked per key) within MESH_GRAD_RTOL relative l2,
+    exactly 2 kernel-8 and 1 kernel-9 launches a layer, microbatch and dp
+    group; (2) the MoE model (8 experts, top-2, factor 1.25) with its
+    experts on dp on EP_MESH, B2 S8192, against the same mesh without an
+    expert axis: the losses, each layer's dropped share
+    within EP_DROP_ATOL, the same launches, both step times (the first
+    two losses within EP_LOSS_RTOL, the third reported); (3) Ulysses
+    on ULY_TP_MESH, B1 S8192, against one device as (1), kernel 1 twice
+    and the fused backward once a layer and sequence position; (4) fp32
+    parity at 2 layers, S2048: pp=2 tp=2 sp=2 MoE at m=1 on the kernels
+    against the regular tp=2 sp=2 path, loss within LOSS_RTOL, each
+    gradient within GRAD_RTOL of its largest entry; (5) runner.fit with a
+    resume on {"pp": 2, "dp": 2, "sp": 2}.  Every part prints its
+    numbers beside the card's name and power limit."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import burst_attn_tpu_torch.models.transformer as tr
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.models.pipeline_lm import stack_layers
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    layers = MESH2_LAYERS
+    cfg1 = _train_model(TRAIN_DIMS["n_layers"], torch.bfloat16)
+    key = (cfg1.n_layers, cfg1.d_model, cfg1.n_heads, cfg1.n_kv_heads,
+           cfg1.d_ff, cfg1.vocab, cfg1.dtype)
+    if key not in _SEED_PARAMS:
+        _seed_state(cfg1, train.TrainConfig(), device)
+    leaves = _SEED_PARAMS[key]
+    per = len(leaves[1:-2]) // cfg1.n_layers
+    cut = leaves[:1 + per * layers] + leaves[-2:]
+    one_cfg = _train_model(layers, torch.bfloat16)
+    res = {"card": card}
+
+    # (1) pp x dp x sp x tp
+    pp_cfg = _train_model(layers, torch.bfloat16, attn_backend="fused_ring",
+                          batch_axis="dp", head_axis="tp", pp_axis="pp",
+                          pp_microbatches=2)
+    one_batch = train.make_batch(1, one_cfg, batch=PP_MESH_B,
+                                 seq=PP_MESH_SEQ, device=device)
+    one, g1 = _mesh_steps("pp one device", one_cfg, None,
+                          train.place_params(_params_like(cut, one_cfg),
+                                             one_cfg), one_batch, device,
+                          _launches(flash_fwd=2 * layers, fused=layers))
+    del one_batch
+    flat = _params_like(cut, one_cfg)
+    stacked = dict(flat, layers=stack_layers(
+        [{k: t.detach() for k, t in x.items()} for x in flat["layers"]]))
+    del flat
+    mesh = train.make_mesh(PP_MESH)
+    n = layers * pp_cfg.pp_microbatches * PP_MESH["dp"]
+    pp_res, g = _mesh_steps(
+        "pp x dp x sp x tp", pp_cfg, mesh,
+        train.place_params(stacked, pp_cfg, mesh),
+        train.make_batch(1, pp_cfg, mesh, batch=PP_MESH_B, seq=PP_MESH_SEQ,
+                         device=device), device,
+        _launches(fused_ring_fwd=2 * n, fused_ring_bwd=n))
+    _against_one(f"pp x dp x sp x tp train step {PP_MESH} ({layers} layers "
+                 f"of the training model, bf16, remat, B={PP_MESH_B} "
+                 f"S={PP_MESH_SEQ}, m=2, fused ring)", pp_res, one, g,
+                 _stacked_grads(g1, layers), card)
+    res["pp_dp_sp_tp"] = pp_res
+    del stacked, g, g1
+    torch.cuda.empty_cache()
+
+    # (2) the MoE model with its experts on dp, against no expert axis
+    runs = {}
+    for ea in ("dp", None):
+        cfg = _train_model(layers, torch.bfloat16, **MOE,
+                           attn_backend="fused_ring", batch_axis="dp",
+                           head_axis="tp", expert_axis=ea)
+        mesh = train.make_mesh(EP_MESH)
+        params = train.place_params(_moe_params(cfg, 0, device), cfg, mesh)
+        batch = train.make_batch(1, cfg, mesh, batch=EP_B, seq=TRAIN_SEQ,
+                                 device=device)
+        # each layer's dropped share, from one forward of the seed-0
+        # weights: the mean over its routing calls (an sp position's
+        # exchange over dp, which averages the dp groups; without an
+        # expert axis a dp group's sp position each, dp group by dp group)
+        drops = []
+        real = tr.moe_shard
+
+        def recorded(*a, _drops=drops, **kw):
+            out = real(*a, **kw)
+            _drops.append(float(out[2]))
+            return out
+
+        with mock.patch.object(tr, "moe_shard", recorded), \
+                torch.no_grad():
+            tr.forward_with_aux(params, batch["tokens"], batch["positions"],
+                                cfg, mesh)
+        drops = np.array(drops).reshape(-1, layers, EP_MESH["sp"])
+        n = layers * EP_MESH["dp"]
+        r, _ = _mesh_steps(f"moe expert_axis={ea}", cfg, mesh, params,
+                           batch, device,
+                           _launches(fused_ring_fwd=2 * n,
+                                     fused_ring_bwd=n))
+        r["dropped"] = [float(x) for x in drops.mean(axis=(0, 2))]
+        runs[ea] = r
+        del params, batch
+        torch.cuda.empty_cache()
+    ep, none = runs["dp"], runs[None]
+    rels = [abs(a - c) / abs(c) for a, c in zip(ep["losses"],
+                                                 none["losses"])]
+    drop_diff = [abs(a - c) for a, c in zip(ep["dropped"], none["dropped"])]
+    assert max(rels[:2]) <= EP_LOSS_RTOL, (rels, ep, none)
+    assert max(drop_diff) <= EP_DROP_ATOL, (ep["dropped"], none["dropped"])
+    assert ep["launches_per_step"] == none["launches_per_step"]
+    res["moe_ep_on_dp"] = dict(ep, loss_rel_diffs=rels,
+                               dropped_abs_diffs=drop_diff,
+                               no_expert_axis=none)
+    print(f"moe train step, experts on dp, {EP_MESH} ({layers} layers, "
+          f"{MOE['n_experts']} experts top-{MOE['moe_top_k']}, factor 1.25, "
+          f"bf16, remat, B={EP_B} S={TRAIN_SEQ}, fused ring): "
+          f"{ep['step_ms']:.1f} ms a step (no expert axis "
+          f"{none['step_ms']:.1f} ms); losses {ep['losses']} (no expert "
+          f"axis {none['losses']}; rel diffs "
+          f"{[float(f'{d:.2e}') for d in rels]}); dropped share a layer "
+          f"{[round(x, 6) for x in ep['dropped']]} (no expert axis "
+          f"{[round(x, 6) for x in none['dropped']]}; equal: "
+          f"{ep['dropped'] == none['dropped']}); launches a step "
+          f"{ep['launches_per_step']}; {card}", flush=True)
+
+    # (3) Ulysses with tp
+    uly_cfg = _train_model(layers, torch.bfloat16, attn_strategy="ulysses",
+                           layout="contig", head_axis="tp")
+    one_c = dataclasses.replace(one_cfg, layout="contig")
+    one, g1 = _mesh_steps(
+        "ulysses one device", one_c, None,
+        train.place_params(_params_like(cut, one_c), one_c),
+        train.make_batch(1, one_c, batch=1, seq=TRAIN_SEQ, device=device),
+        device, _launches(flash_fwd=2 * layers, fused=layers))
+    mesh = train.make_mesh(ULY_TP_MESH)
+    n = layers * ULY_TP_MESH["sp"]
+    uly, g = _mesh_steps(
+        "ulysses x tp", uly_cfg, mesh,
+        train.place_params(_params_like(cut, one_c), uly_cfg, mesh),
+        train.make_batch(1, uly_cfg, mesh, batch=1, seq=TRAIN_SEQ,
+                         device=device), device,
+        _launches(flash_fwd=2 * n, fused=n))
+    _against_one(f"ulysses x tp train step {ULY_TP_MESH} ({layers} layers, "
+                 f"bf16, remat, B=1 S={TRAIN_SEQ}; a sequence position's "
+                 f"kernel launches take both tp groups' heads)", uly, one,
+                 g, g1, card)
+    res["ulysses_tp"] = uly
+    del g, g1
+    torch.cuda.empty_cache()
+
+    # (4) fp32 parity: pp x tp x sp MoE (m=1) against the regular path
+    base = _train_model(2, torch.float32, **MOE, attn_backend="fused_ring",
+                        head_axis="tp")
+    params = _moe_params(base, 0, device)
+    got = {}
+    for name, cfg, mesh in (
+            ("regular", base, {"tp": 2, "sp": 2}),
+            ("pp", dataclasses.replace(base, pp_axis="pp"),
+             {"pp": 2, "tp": 2, "sp": 2})):
+        p = {k: (v.detach().clone() if k != "layers" else
+                 [{kk: t.detach().clone() for kk, t in x.items()}
+                  for x in v]) for k, v in params.items()}
+        if cfg.pp_axis is not None:
+            p["layers"] = stack_layers(p["layers"])
+        p = train.place_params(p, cfg, mesh)
+        batch = train.make_batch(2, cfg, mesh, batch=2, seq=2048,
+                                 device=device)
+        _reset_counts()
+        loss = train.loss_fn(p, batch["tokens"], batch["positions"],
+                             batch["labels"], cfg, mesh,
+                             moe_aux_weight=0.01)
+        grads = _tree_grads(p, loss)
+        launches = _counts()
+        assert launches == _launches(fused_ring_fwd=2 * 2,
+                                     fused_ring_bwd=2), (name, launches)
+        got[name] = float(loss.detach()), grads
+        del p, batch
+    (loss_r, gr), (loss_p, gp) = got["regular"], got["pp"]
+    keys = len(gr[1:-2]) // 2
+    gr = ([gr[0]] + [torch.stack(gr[1:-2][j::keys]) for j in range(keys)]
+          + gr[-2:])
+    loss_err = abs(loss_p - loss_r) / abs(loss_r)
+    assert loss_err <= LOSS_RTOL, (loss_p, loss_r)
+    worst = 0.0
+    for a, b in zip(gp, gr):
+        ref = float(b.abs().max())
+        err = _max_err(a, b)
+        assert err <= GRAD_RTOL * ref + 1e-12, (err, ref)
+        worst = max(worst, err / max(ref, 1e-30))
+    res["pp_tp_moe_parity"] = dict(loss_rel_err=loss_err,
+                                   grad_rel_err=worst, launches=launches)
+    print(f"pp x tp x sp MoE parity fp32 ({{'pp': 2, 'tp': 2, 'sp': 2}}, "
+          f"m=1, 2 layers at full width, B2 S2048, fused ring, experts "
+          f"whole on every tp position): loss {loss_p:.6f} vs {loss_r:.6f} "
+          f"(tp=2 sp=2), rel err {loss_err:.2e}; worst gradient error "
+          f"{worst:.2e} of its largest entry; {card}", flush=True)
+    del params, got, gr, gp
+    torch.cuda.empty_cache()
+
+    # (5) fit with a checkpoint and a resume beside dp
+    res["fit"] = runner_phase(device, mesh={"pp": 2, "dp": 2, "sp": 2},
+                              batch=4, pp_axis="pp", pp_microbatches=2,
+                              batch_axis="dp")
+    print(f"  ({card})", flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh2 phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 @contextlib.contextmanager
 def plain_train_attention():
     """Route the training forward's attention through the plain tile
@@ -2578,7 +2925,8 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     mesh: every position launches kernel 1 and the fused backward), or
     pp_axis="pp" with pp_microbatches (a mesh with a pp axis, `batch`
     rows: the stacked checkpoint, each kernel launched a layer a
-    microbatch).  The files live in a temporary directory under the
+    microbatch), with batch_axis="dp" beside it (each dp group's
+    launches).  The files live in a temporary directory under the
     checkout's build/, deleted at the end."""
     import os
     import tempfile
@@ -2595,7 +2943,10 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     ring = mesh is not None and not ulysses and mesh.get("sp", 1) > 1
     # kernel launches a layer: a Ulysses position each, a pp microbatch each
     pp = kw.get("pp_axis") is not None
-    pos = mesh["sp"] if ulysses else kw.get("pp_microbatches", 1)
+    n_mb = kw.get("pp_microbatches", 1)
+    pos = mesh["sp"] if ulysses else n_mb
+    if kw.get("batch_axis"):  # each dp group its own launches
+        pos *= mesh[kw["batch_axis"]]
     cfg = _train_model(n_layers, torch.bfloat16,
                        **(dict(attn_backend="fused_ring") if ring else {}),
                        **kw)
@@ -2656,7 +3007,7 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
     print(f"runner.fit ({n_layers} layers at full width, bf16, S={seq}"
           f"{f', mesh {mesh}, fused ring' if ring else ''}"
           f"{f', mesh {mesh}, ulysses' if ulysses else ''}"
-          f"{f', B{batch}, {pos} microbatches' if pp else ''}"
+          f"{f', B{batch}, {n_mb} microbatches' if pp else ''}"
           f"{f', {cfg.n_experts} experts' if cfg.n_experts else ''}"
           f"{f', packed_eos_id {packed_eos_id}' if packed_eos_id is not None else ''}): "
           f"{steps} steps in {fit_s:.1f} s, losses "
@@ -9613,6 +9964,8 @@ def main() -> int:
     _mark(t_start, "ulysses train phase")
     mtr = mesh_train_phase(device)
     _mark(t_start, "mesh train phase")
+    m2 = mesh2_train_phase(device)
+    _mark(t_start, "mesh2 train phase")
     pp_res = pp_train_phase(device)
     _mark(t_start, "pp train phase")
     _SEED_PARAMS.clear()  # the training model's seed-0 weights
@@ -9748,7 +10101,26 @@ def main() -> int:
             "fused_ring_fwd"] for _ in mtr["mesh"]["losses"]),
         "fused_ring_bwd": sum(mtr["mesh"]["launches_per_step"][
             "fused_ring_bwd"] for _ in mtr["mesh"]["losses"])}
-    for extra in (tp_launches, mesh_launches):
+    # the mesh2 phase: the pp x dp x sp x tp steps, the fp32 pp
+    # x tp x sp MoE parity and the pp x dp fit (kernels 8-9), the MoE steps
+    # with and without the experts on dp (kernels 8-9), the Ulysses x tp
+    # steps (kernels 1 and 2-3, every sequence position's launch over both
+    # tp groups' heads)
+    def _steps(r, name):
+        return r["launches_per_step"][name] * len(r["losses"])
+
+    pp_mesh_launches = {
+        name: _steps(m2["pp_dp_sp_tp"], name) + m2["fit"]["launches"][name]
+        + m2["pp_tp_moe_parity"]["launches"][name]
+        for name in ("fused_ring_fwd", "fused_ring_bwd")}
+    ep_launches = {
+        name: sum(_steps(r, name) for r in (
+            m2["moe_ep_on_dp"], m2["moe_ep_on_dp"]["no_expert_axis"]))
+        for name in ("fused_ring_fwd", "fused_ring_bwd")}
+    uly_tp_launches = {"flash_fwd": _steps(m2["ulysses_tp"], "flash_fwd"),
+                       "flash_bwd_fused": _steps(m2["ulysses_tp"], "fused")}
+    for extra in (tp_launches, mesh_launches, pp_mesh_launches, ep_launches,
+                  uly_tp_launches):
         for name, n in extra.items():
             assert n > 0, extra
             launches[name] += n
@@ -9799,6 +10171,11 @@ def main() -> int:
             rec["tp_launches"] = tp_launches[rec["name"]]
         if rec["name"] in mesh_launches:
             rec["mesh_launches"] = mesh_launches[rec["name"]]
+        for tag, extra in (("pp_mesh_launches", pp_mesh_launches),
+                           ("ep_launches", ep_launches),
+                           ("ulysses_tp_launches", uly_tp_launches)):
+            if rec["name"] in extra:
+                rec[tag] = extra[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     wall, dev, _ = tr["prof"]
@@ -9831,7 +10208,8 @@ def main() -> int:
                                          "checkpoint_launches",
                                          "moe_launches", "pp_launches",
                                          "fleet_launches", "tp_launches",
-                                         "mesh_launches",
+                                         "mesh_launches", "pp_mesh_launches",
+                                         "ep_launches", "ulysses_tp_launches",
                                          "stats", "seg", "window", "wire")
                        if k in r}
                     for r in kernels],
@@ -9883,6 +10261,7 @@ def main() -> int:
         "seg_wire": sw_res,
         "tp_serve": {k: v for k, v in tpsrv.items() if k != "launches"},
         "mesh_train": mtr,
+        "mesh2_train": m2,
         "fleet": {k: v for k, v in fleet_res.items()
                   if k not in ("launches", "_sim")},
         "analysis": analysis_res,

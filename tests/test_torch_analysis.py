@@ -503,7 +503,7 @@ def test_transformer_mesh_sizes_stay_quiet():
         src = f.read().split("\n")
     jax_hits = sorted(f.line for f in jax_astlint.lint_file(path)
                       if f.rule == "host-transfer-in-jit")
-    assert len(jax_hits) == 2
+    assert len(jax_hits) == 1
     assert all("int(" in src[i - 1] and ".get(a" in src[i - 1]
                for i in jax_hits), [src[i - 1] for i in jax_hits]
     port = astlint.lint_paths(astlint.default_paths(PKG))

@@ -3166,6 +3166,70 @@ def test_pp_train_step_on_the_card(dev, mesh_, m):
     _close_to_max(gg, gc)
 
 
+# the expert axis on dp, the pipeline beside dp, tp and ep, Ulysses with
+# tp: (model options, mesh, batch, launches a step per layer: kernel 1,
+# the fused backward, kernel 8, kernel 9)
+MESH2_CASES = {
+    "moe-ep-on-dp": (dict(MOE_TRAIN_KW, expert_axis="dp",
+                          attn_backend="fused_ring"),
+                     {"dp": 2, "sp": 2, "tp": 2}, 2, (0, 0, 4, 2)),
+    "pp-dp-sp-tp": (dict(pp_axis="pp", pp_microbatches=2,
+                         attn_backend="fused_ring"),
+                    {"pp": 2, "dp": 2, "sp": 2, "tp": 2}, 4, (0, 0, 8, 4)),
+    "pp-ep-moe": (dict(MOE_TRAIN_KW, pp_axis="pp", expert_axis="ep",
+                       batch_axis=None, head_axis=None,
+                       attn_backend="fused_ring"),
+                  {"pp": 2, "ep": 2, "sp": 2}, 2, (0, 0, 2, 1)),
+    "ulysses-tp": (dict(attn_strategy="ulysses", layout="contig",
+                        batch_axis=None),
+                   {"sp": 4, "tp": 2}, 2, (8, 4, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(MESH2_CASES))
+def test_mesh_combination_train_step_on_the_card_matches_the_cpu(dev, case):
+    """Two fp32 train steps (2 layers, remat on) with the expert axis on
+    dp, the pipeline beside dp and tp and beside ep, and Ulysses with tp,
+    on the card equal the same steps
+    on the CPU (loss and grad norm to 1e-5, the first step's gradients to
+    1e-4 of their largest entry), with exact launches: the fused ring's
+    kernels 8 (forward, remat recompute) and 9 a layer, microbatch and dp
+    group, every tp position's heads in one launch; Ulysses' kernel 1 and
+    fused backward a layer and sequence position over both tp groups'
+    heads."""
+    kw, mesh_, b, per_layer = MESH2_CASES[case]
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=8,
+                      n_kv_heads=8, d_head=128, d_ff=512,
+                      dtype=torch.float32, **kw)
+    tcfg = train.TrainConfig(lr=1e-3)
+    out = {}
+    for where in ("cpu", dev):
+        state = train.init_train_state(0, cfg, tcfg, mesh_, device=where)
+        step = train.make_train_step(cfg, tcfg, mesh_, device=where)
+        batch = train.make_batch(3, cfg, mesh_, batch=b, seq=512,
+                                 device=where)
+        metrics = []
+        for i in range(2):
+            counters = lambda: (flash.flash_fwd.launches,  # noqa: E731
+                                flash.flash_bwd.launches["fused"],
+                                fused_ring.fused_ring_fwd.launches,
+                                fused_ring_bwd.fused_ring_bwd.launches)
+            before = counters()
+            state, m_ = step(state, batch)
+            metrics.append((float(m_["loss"]), float(m_["grad_norm"])))
+            if str(where) != "cpu":
+                got = tuple(a - c for a, c in zip(counters(), before))
+                assert got == tuple(cfg.n_layers * x for x in per_layer), \
+                    got
+            if i == 0:
+                grads = [t.grad.detach().cpu().clone()
+                         for t in param_leaves(state[0])]
+        out[str(where)] = metrics, grads
+    (mc, gc), (mg, gg) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    _close_to_max(gg, gc)
+
+
 # ---------------------------------------------------------------------------
 # serving under load on the card: the cluster's and the fleet's fault
 # matrix, every worker process on the card (the model spec names no

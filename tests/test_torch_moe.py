@@ -335,9 +335,10 @@ def test_moe_dist_generate_and_handoff_match_jax(model):
 
 
 def test_runner_cli_and_fit_with_moe_and_ulysses(tmp_path):
-    """`--n-experts` trains an MoE model from the CLI (an expert axis of
-    size > 1 is ROADMAP A7); `fit` of a Ulysses MoE model on sp=2
-    checkpoints, resumes to the uninterrupted run's losses and evaluates."""
+    """`--n-experts` trains an MoE model from the CLI, on one device and
+    with an expert axis of size 2 (4 experts over ep=3 is JAX's
+    ValueError); `fit` of a Ulysses MoE model on sp=2 checkpoints,
+    resumes to the uninterrupted run's losses and evaluates."""
     from burst_attn_tpu_torch.data import write_token_file
     from burst_attn_tpu_torch.models import runner
 
@@ -348,8 +349,11 @@ def test_runner_cli_and_fit_with_moe_and_ulysses(tmp_path):
             "128", "--d-model", "64", "--n-layers", "1", "--n-heads", "4",
             "--d-ff", "64", "--n-experts", "4", "--device", "cpu"]
     runner.main(argv)
-    with pytest.raises(NotImplementedError, match="A7"):
-        runner.main(argv + ["--mesh", "ep=2,sp=1"])
+    runner.main(argv + ["--mesh", "ep=2,sp=1", "--ckpt-dir",
+                        str(tmp_path / "ep")])
+    assert Checkpointer(str(tmp_path / "ep")).steps() == [1]
+    with pytest.raises(ValueError, match="not divisible"):
+        runner.main(argv + ["--mesh", "ep=3,sp=1"])
     cfg = ModelConfig(**dict(DIMS, n_layers=1), attn_strategy="ulysses",
                       layout="contig", dtype=torch.float32, batch_axis=None,
                       head_axis=None)

@@ -3,7 +3,7 @@ loss and gradients of the port's pp forward against the JAX package's
 `pp_forward_with_aux` / `loss_fn` on the same stacked weights
 (params_from_jax), the port's pp forward against its own regular path,
 remat, MoE layers (ep size 1), packed segment ids, a window on a contig
-ring, the raises for what needs more than one card (ROADMAP A7), the
+ring, the JAX package's ValueErrors, the
 stacked layout's helpers, a stacked checkpoint, the runner's `--mesh
 pp=2,sp=2` and the serving refusal; fp32 on the CPU.
 
@@ -215,8 +215,10 @@ def test_pp_segments_and_window(weights, case):
 
 
 def test_pp_raises(weights):
-    """JAX's checks raise ValueError; what needs more than one card (dp,
-    tp, ep > 1) raises NotImplementedError naming ROADMAP A7."""
+    """JAX's checks raise ValueError, the expert axis's among them; dp, tp
+    and ep beside the pp axis are meshes make_mesh takes (their parity:
+    tests/test_torch_pp_mesh.py), an axis the model splits nothing over
+    is a ValueError."""
     _, stacked = weights
     params = params_from_jax(stacked, device="cpu")
     tok = torch.zeros((B, S), dtype=torch.int64)
@@ -226,23 +228,24 @@ def test_pp_raises(weights):
            (_pp(_cfg()), {"sp": 2}, ValueError, "pp_axis"),
            (_pp(_cfg(attn_strategy="ulysses", layout="contig")),
             {"pp": 2, "sp": 1}, ValueError, "burst"),
-           (_pp(_cfg(batch_axis="dp"), m=1), {"pp": 2, "dp": 2},
-            NotImplementedError,
-            "ROADMAP A7"),
-           (_pp(_cfg(head_axis="tp")), {"pp": 2, "tp": 2}, NotImplementedError,
-            "ROADMAP A7"),
-           (_pp(_cfg(n_experts=4, expert_axis="ep")), {"pp": 2, "ep": 2},
-            NotImplementedError, "ROADMAP A7")]
+           (_pp(_cfg(batch_axis="dp"), m=2), {"pp": 2, "dp": 2},
+            ValueError, "per-dp-shard batch"),
+           (_pp(_cfg(head_axis="tp", d_ff=127)), {"pp": 2, "tp": 2},
+            ValueError, "d_ff"),
+           (_pp(_cfg(n_experts=4, expert_axis="ep")), {"pp": 2, "ep": 3},
+            ValueError, "not divisible"),
+           (_pp(_cfg(n_experts=4, expert_axis="ep")), {"pp": 2},
+            ValueError, "expert_axis"),
+           (_pp(_cfg()), {"pp": 2, "xp": 2}, ValueError, "splits no work")]
     for cfg, mesh, exc, match in bad:
         with pytest.raises(exc, match=match):
             forward_with_aux(params, tok, pos, cfg, mesh)
     with pytest.raises(ValueError, match="collect_stats"):
         forward_with_aux(params, tok, pos, _pp(_cfg()), {"pp": 2, "sp": 2},
                          collect_stats=True)
-    for mesh in ({"pp": 2, "dp": 2}, {"pp": 2, "tp": 2, "sp": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-            train.make_mesh(mesh)
-    assert train.make_mesh({"pp": 4, "sp": 2}) == {"pp": 4, "sp": 2}
+    for mesh in ({"pp": 2, "dp": 2}, {"pp": 2, "tp": 2, "sp": 2},
+                 {"pp": 4, "sp": 2}):
+        assert train.make_mesh(mesh) == mesh
 
 
 def test_stack_unstack_and_jax_layout(weights):

@@ -63,6 +63,15 @@ def _cfg(**kw):
     return ModelConfig(**CFG, dtype=torch.float32, **kw)
 
 
+def init_params_np(cfg):
+    """The port's seed-0 init of `cfg` as a numpy tree (params_from_jax's
+    input)."""
+    from burst_attn_tpu_torch.models.transformer import init_params
+
+    return jax.tree.map(lambda t: t.numpy(),
+                        init_params(cfg, seed=0, device="cpu"))
+
+
 def test_forward_matches_single_device(weights):
     """tests/test_model.py's first test: the dp=2 sp=2 tp=2 forward
     (zigzag ring, parameters split over tp, logits all_gathered) equals the
@@ -249,18 +258,52 @@ def test_fit_runs_and_logs(data_path, tmp_path):
 
 
 def test_out_of_slice_combinations_raise():
-    """What stays for ROADMAP A7a's second half raises NotImplementedError
-    naming it: an expert axis of size > 1 in the model, Ulysses with tp,
-    the pipeline beside dp, tp or ep."""
-    tok = torch.zeros((2, 64), dtype=torch.long)
-    params = {"embed": torch.zeros(8, 8), "layers": []}
-    for cfg, mesh in (
-            (_cfg(n_experts=4, expert_axis="ep"), {"ep": 2, "sp": 1}),
+    """Combinations with tp and an expert axis run on this file's model:
+    an expert axis of size > 1 (its forward is the one without
+    one: the exchange moves slots, not results), Ulysses with tp and the
+    pipeline beside tp (each the one-device forward); what stays raises
+    is JAX's ValueErrors: experts not divisible by the expert axis, the
+    expert axis on the pp axis, Ulysses heads a tp group not divisible by
+    sp, and an axis the model splits no work over."""
+    b, seq = 2, 64
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, CFG["vocab"], (b, seq)))
+    pos = torch.arange(seq).expand(b, seq)
+    moe = dict(n_experts=4, head_axis=None, batch_axis=None,
+               layout="contig")
+    flat = params_from_jax(init_params_np(_cfg(**moe)), device="cpu")
+    want, aux = forward_with_aux(flat, tok, pos, _cfg(**moe), {"sp": 1})
+    got, aux2 = forward_with_aux(flat, tok, pos, _cfg(
+        **moe, expert_axis="ep"), {"ep": 2, "sp": 1})
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(aux2, aux)
+    dense = dict(layout="contig", batch_axis=None)
+    params = params_from_jax(init_params_np(_cfg(**dense)), device="cpu")
+    one = forward_with_aux(params, tok, pos, _cfg(**dense))[0]
+    uly = dataclasses.replace(_cfg(**dense, attn_strategy="ulysses"),
+                              n_kv_heads=4)
+    p4 = params_from_jax(init_params_np(uly), device="cpu")
+    torch.testing.assert_close(
+        forward_with_aux(shard_params(p4, uly, {"sp": 2, "tp": 2}), tok,
+                         pos, uly, {"sp": 2, "tp": 2})[0],
+        forward_with_aux(p4, tok, pos, dataclasses.replace(
+            uly, attn_strategy="burst"))[0], rtol=RTOL, atol=ATOL)
+    from burst_attn_tpu_torch.models.pipeline_lm import stack_layers
+    pp = _cfg(**dense, pp_axis="pp")
+    stacked = dict(params, layers=stack_layers(params["layers"]))
+    got = forward_with_aux(shard_params(stacked, pp, {"pp": 2, "tp": 2}),
+                           tok, pos, pp, {"pp": 2, "tp": 2})[0]
+    torch.testing.assert_close(got, one, rtol=RTOL, atol=ATOL)
+    for cfg, mesh, match in (
+            (_cfg(**moe, expert_axis="ep"), {"ep": 3}, "not divisible"),
+            (_cfg(**moe, expert_axis="pp", pp_axis="pp"), {"pp": 2},
+             "pp axis"),
             (_cfg(attn_strategy="ulysses", layout="contig"),
-             {"sp": 2, "tp": 2}),
-            (_cfg(pp_axis="pp", batch_axis=None), {"pp": 2, "tp": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
-            forward_with_aux(params, tok, tok, cfg, mesh)
-    for sizes in ({"pp": 2, "dp": 2}, {"pp": 2, "tp": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
-            train.make_mesh(sizes)
+             {"sp": 2, "tp": 2}, "divisible"),
+            (_cfg(**dense), {"sp": 2, "xp": 2}, "splits no work")):
+        with pytest.raises(ValueError, match=match):
+            forward_with_aux(flat, tok, pos, cfg, mesh)
+    for sizes in ({"pp": 2, "dp": 2}, {"pp": 2, "tp": 2, "ep": 2}):
+        assert train.make_mesh(sizes) == sizes
+    with pytest.raises(ValueError, match="splits no work"):
+        train.make_mesh({"pp": 2, "xp": 2})

@@ -249,13 +249,14 @@ def test_ring_train_steps_match_jax_and_one_position(setup):
 
 
 def test_unported_paths_raise():
-    # dp and tp are ported (tests/test_torch_tp_train.py); beside a
-    # pipeline they are not
-    for sizes in ({"dp": 2, "sp": 1}, {"sp": 4, "tp": 2}):
+    # dp and tp are ported (tests/test_torch_tp_train.py), and beside a
+    # pipeline too (tests/test_torch_pp_mesh.py); an axis the model splits
+    # no work over is refused
+    for sizes in ({"dp": 2, "sp": 1}, {"sp": 4, "tp": 2},
+                  {"pp": 2, "dp": 2}, {"pp": 2, "sp": 4, "tp": 2}):
         assert train.make_mesh(sizes) == sizes
-    for sizes in ({"pp": 2, "dp": 2}, {"pp": 2, "sp": 4, "tp": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-            train.make_mesh(sizes)
+    with pytest.raises(ValueError, match="splits no work"):
+        train.make_mesh({"sp": 2, "xp": 2})
     # ring telemetry is ported: it takes one microbatch
     with pytest.raises(ValueError, match="grad_accum"):
         train.make_train_step(_cfg(), jtrain.TrainConfig(

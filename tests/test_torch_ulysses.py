@@ -134,8 +134,14 @@ def test_ulysses_refusals():
         ulysses_attn(q, q[:, :2], q[:, :2], mesh={"sp": 4})
     with pytest.raises(ValueError, match="causal"):
         ulysses_attn(q, q, q, mesh={"sp": 2}, window=8)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ulysses_attn(q, q, q, mesh={"sp": 2, "tp": 2}, head_axes="tp")
+    # a tp head axis splits the heads into groups: 4 heads over tp 2 are
+    # 2 a group, divisible by sp=2 (the same attention), not by sp=4
+    with pytest.raises(ValueError, match="divisible"):
+        ulysses_attn(q, q, q, mesh={"sp": 4, "tp": 2}, head_axes="tp")
+    x = torch.from_numpy(_inputs(4, 4, 64, 16, 5)[0])
+    torch.testing.assert_close(
+        ulysses_attn(x, x, x, mesh={"sp": 2, "tp": 2}, head_axes="tp"),
+        ulysses_attn(x, x, x, mesh={"sp": 2}), rtol=1e-6, atol=1e-6)
     params = {"embed": torch.zeros(8, 8), "layers": []}
     tok = torch.zeros(1, 64, dtype=torch.long)
     for cfg, mesh, err, match in (
@@ -144,8 +150,8 @@ def test_ulysses_refusals():
              ValueError, "single sequence axis"),
             (_cfg(attn_strategy="star"), {"sp": 2}, ValueError,
              "unknown attn_strategy"),
-            (_cfg(head_axis="tp"), {"sp": 2, "tp": 2}, NotImplementedError,
-             "A7")):
+            (_cfg(head_axis="tp"), {"sp": 4, "tp": 2}, ValueError,
+             "divisible")):
         with pytest.raises(err, match=match):
             forward_with_aux(params, tok, tok, cfg, mesh)
     with pytest.raises(ValueError, match="collect_stats requires"):

@@ -21,7 +21,19 @@ Families (each a module here, registered in core.RULES):
   * costcheck    the shared-memory plans, the cost model's identities and
                  the tuning defaults (costmodel.py); on the card, the
                  plans against the compiled kernels;
-  * policycheck  fleet/policy.py is provably pure.
+  * policycheck  fleet/policy.py is provably pure;
+  * numerics     fp32 accumulation and fp32 softmax stats: the csrc mma
+                 strings and stat types, the plain versions' and the
+                 bf16 ring's op streams; on the card the kernels' SASS;
+  * obscheck     no host read in the ring (stats on and off), the serve
+                 steps and the fused decode; the stats-off and the K=1
+                 streams equal their references; on the card sync-debug
+                 runs and CUDA-graph captures with their node census;
+  * servecheck   the ragged serving launch: device q_lens, no host read,
+                 no collective; on the card captured and replayed bitwise.
+
+The dynamic families record the real functions' op streams with
+opstream.py (the counterpart of the JAX package's jaxpr_tools.py).
 
 CLI: python -m burst_attn_tpu_torch.analysis [--json] [--card] ...
 """

@@ -46,7 +46,9 @@ def main(argv=None) -> int:
     ap.add_argument("--card", action="store_true",
                     help="add the card half (fused-ring-fused, the "
                          "shared-memory plans against the compiled "
-                         "kernels); fails without a CUDA device")
+                         "kernels, their SASS accumulators, the sync-debug "
+                         "runs and CUDA-graph captures); fails without a "
+                         "CUDA device")
     args = ap.parse_args(argv)
 
     from .core import (RULES, register_all, render, render_sarif,

@@ -12,7 +12,8 @@ disable those with --disable on the CLI or the `disable` argument of
 run_analysis).
 
 Rules that need the card (the `--card` half: `fused-ring-fused`, and the
-card half of `kernel-smem-budget`) do not run on a machine without one.
+card halves of `kernel-smem-budget`, the numerics, obscheck and
+servecheck rules) do not run on a machine without one.
 run_analysis records each of them in its `not_run` dict with the reason,
 and render() says so: a run without the card is never reported as
 having checked them.
@@ -85,6 +86,10 @@ def filter_suppressed(findings: List[Finding], src_lines: List[str]):
 # re-proves it.
 FAMILY_WATCH = {
     "ringcheck": ("ops/", "parallel/", "csrc/", "analysis/"),
+    "numerics": ("ops/", "parallel/", "csrc/", "analysis/"),
+    "obscheck": ("obs/", "models/", "parallel/", "serving/", "ops/",
+                 "analysis/"),
+    "servecheck": ("ops/", "serving/", "models/", "csrc/", "analysis/"),
     "poolcheck": ("serving/", "models/", "ops/", "analysis/"),
     "protocheck": ("protocols/", "fleet/", "serving/", "models/",
                    "analysis/"),
@@ -139,8 +144,9 @@ def _family_touched(family: str, changed: List[str]) -> bool:
 
 def register_all() -> None:
     """Import every rule family, so RULES holds all registrations."""
-    from . import (astlint, costcheck, policycheck, poolcheck,  # noqa: F401
-                   protocheck, ringcheck)
+    from . import (astlint, costcheck, numerics, obscheck,  # noqa: F401
+                   policycheck, poolcheck, protocheck, ringcheck,
+                   servecheck)
 
 
 def require_card() -> None:
@@ -151,8 +157,9 @@ def require_card() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError(
             "--card runs the analyzer's card half (fused-ring-fused, the "
-            "shared-memory plans against the compiled kernels) and needs "
-            "a CUDA device; none is visible here")
+            "shared-memory plans against the compiled kernels, the SASS "
+            "accumulators, the sync-debug runs and CUDA-graph captures) "
+            "and needs a CUDA device; none is visible here")
 
 
 def run_analysis(root=None, *, disable=(), ast_only=False, paths=None,
@@ -212,10 +219,13 @@ def _one_thread():
 def _run_families(changed, card, not_run) -> List[Finding]:
     """The dynamic families; `changed` (a changed-file list, or None for
     all) skips the families whose watchlist it does not touch."""
-    from . import costcheck, policycheck, poolcheck, protocheck, ringcheck
+    from . import (costcheck, numerics, obscheck, policycheck, poolcheck,
+                   protocheck, ringcheck, servecheck)
 
     findings: List[Finding] = []
-    families = (("ringcheck", ringcheck), ("poolcheck", poolcheck),
+    families = (("ringcheck", ringcheck), ("numerics", numerics),
+                ("obscheck", obscheck), ("servecheck", servecheck),
+                ("poolcheck", poolcheck),
                 ("protocheck", protocheck), ("costcheck", costcheck),
                 ("policycheck", policycheck))
     for name, mod in families:

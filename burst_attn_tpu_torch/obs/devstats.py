@@ -204,15 +204,18 @@ def ring_stats_all(rounds, rounds_live, attn_pairs, total_pairs, head_dim,
     of them, or an fp32 device tensor [W]."""
     w, dev = lse.shape[0], lse.device
     qam = quant_absmax if torch.is_tensor(quant_absmax) else None
+    # the int32 rows first, then the fp32 rows: each group a slice of
+    # the one upload (a list index would send its index tensor up with a
+    # synchronizing copy)
     host = np.empty((7, w), np.float64)
-    for row, x in enumerate((rounds, rounds_live, attn_pairs, total_pairs,
-                             fused_rounds, rounds_elided,
+    for row, x in enumerate((rounds, rounds_live, fused_rounds,
+                             rounds_elided, attn_pairs, total_pairs,
                              0.0 if qam is not None else quant_absmax)):
         host[row] = x
     with torch.no_grad():
         up = _upload(host, dev)
-        i32 = up[[0, 1, 4, 5]].to(torch.int32)
-        f32 = up[[2, 3, 6]].to(torch.float32)
+        i32 = up[:4].to(torch.int32)
+        f32 = up[4:].to(torch.float32)
         if qam is not None:  # a device tensor [W] (the wire's amax)
             f32[2] = qam.detach().to(device=dev, dtype=torch.float32)
         lse = lse.detach().reshape(w, -1)

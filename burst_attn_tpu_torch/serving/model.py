@@ -153,7 +153,8 @@ class DecodeGraphs:
     adds the kernel launches its capture recorded to the wrappers'
     counters (the capture itself launches nothing and counts nothing).
     `captures`, `replays` and `warmup_ticks` (the ticks the warm-ups ran)
-    count."""
+    count.  Each graph keeps its captured cudaGraph_t beside the
+    executable (`raw_cuda_graph()`: the analyzer lists its nodes)."""
 
     def __init__(self, params, state: PagedState, cfg: ModelConfig,
                  generator: Optional[torch.Generator]):
@@ -204,12 +205,13 @@ class DecodeGraphs:
             body()  # the warm-up, at q_len 0
         if rng is not None:
             rng.set_state(saved)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if rng is not None:
             graph.register_generator_state(rng)
         before = _rp.ragged_paged_attention.launches
         with torch.cuda.graph(graph, stream=stream):
             out = body()
+        graph.instantiate()
         launches = _rp.ragged_paged_attention.launches - before
         _rp.ragged_paged_attention.launches = before
         torch.cuda.current_stream(dev).wait_stream(stream)

@@ -78,7 +78,8 @@ Phases (any failure exits non-zero; nothing is caught):
      refused, launches of kernels 1, 6 and 7 exactly as the rounds say,
      both pools drained; tokens/s of a plain tick, a self-draft round and
      an early-exit round (bf16, 8 slots at ~2K) with busy shares; then
-     crash-consistent serving (serving/checkpoint.py), fp32 and bf16: the
+     crash-consistent serving (serving/checkpoint.py), bf16 (fp32's
+     recoveries are the fuzz phase's, phase 11): the
      12 requests through the ServeEngine, the synchronous and the
      pipelined (K=4) RaggedServeEngine, and the ragged prefix wave, a
      snapshot mid-run (MB, save ms), a fresh engine restored from it (load
@@ -87,8 +88,8 @@ Phases (any failure exits non-zero; nothing is caught):
      run; the two synchronous engines journaled (TokenJournal), killed
      after the snapshot with the journal's last line torn, recovered with
      recover_engine from snapshot + journal (token-exact; replayed tokens
-     below the replay-from-scratch count) and from the journal alone (fp32
-     token-exact; bf16 at the teacher-forced bar, partings near ties);
+     below the replay-from-scratch count) and from the journal alone (at
+     the teacher-forced bar, partings near ties);
      launches of kernels 1, 6, 7 held to each run's admissions and ticks;
      the bf16 decode tick (8 slots at ~2K), synchronous and K=4, with and
      without the journal, and its fsyncs (one a step);
@@ -234,8 +235,14 @@ Phases (any failure exits non-zero; nothing is caught):
      device, fp32 parity at 2 layers); `[t s]` marks give the seconds
      since the start after each group of phases;
  11. (after the fleet phase) the analyzer (burst_attn_tpu_torch.analysis)
-     in-process: its CPU families and its card half, zero findings —
-     every planned kernel instance's shared memory equal to
+     in-process: its 30 rules' CPU families and card halves, zero
+     findings — every HMMA of every built library's SASS on an F32
+     accumulator; the ring (scan and fused routes, stats on and off),
+     the serve steps, the K=4 decode graphs, the K=1 tick and the ragged
+     launch under sync-debug "error", the steps and launches captured in
+     CUDA graphs whose nodes (listed by the CUDA driver API) are kernels,
+     memsets and device copies only, the K=1 replay equal to the eager
+     tick; every planned kernel instance's shared memory equal to
      cudaFuncGetAttributes', <= 227 KB, at the CTAs an SM the plan
      assumes; fused-ring-fused on the card's fused route (zero
      rotations, one launch a pass, kernel 8's slot counters the
@@ -243,7 +250,14 @@ Phases (any failure exits non-zero; nothing is caught):
      6-7 at their decode shapes beside the cost model's h100 floors (none
      under 0.95 x); the simulator calibrated from the fleet phase's bf16
      run (fidelity within SIM_FIDELITY_RTOL) beside the cost table's
-     h100 rates;
+     h100 rates; then the crash-recovery fuzzer (tools/fuzz_checkpoint.py)
+     in-process at the serving width (2 layers, fp32): a sync seed
+     through both engines (snapshot + journal and journal-only recovery),
+     a prefix-cache seed (mid-CoW, mid-admission, mid-scale-scatter on an
+     fp8 pool: killed between a token's bytes and its scales), a pipelined
+     seed (mid-flight, mid-multi-step-scan, mid-readback) and two
+     transport seeds, every mode exact, killed and leak-free, with its
+     kernel 7 / 1 / 6 launches;
  12. a `train` JSON line, a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
@@ -251,6 +265,7 @@ Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
 
+import atexit
 import contextlib
 import json
 import math
@@ -5719,12 +5734,12 @@ def checkpoint_run(kind, dtype, device):
     uninterrupted streams.  A fresh engine of the same spec (the
     pipelined one warmed first, so its K-tick graph exists before the
     restore) loads and restores the snapshot (ms; graph captures must not
-    grow) and finishes: token-exact, both dtypes.  The synchronous
-    engines then recover from the torn journal with the snapshot
-    (token-exact, both dtypes; replayed < baseline) and without it (fp32
-    token-exact; bf16 at the teacher-forced bar, every parting from the
-    uninterrupted stream a near tie).  Launches of kernels 1, 6, 7 held
-    to each run's admissions and ticks."""
+    grow) and finishes: token-exact.  The synchronous engines then
+    recover from the torn journal with the snapshot (token-exact;
+    replayed < baseline) and without it (in bf16 at the teacher-forced
+    bar, every parting from the uninterrupted stream a near tie; the
+    fuzz phase holds fp32 journal-only recovery token-exact).  Launches
+    of kernels 1, 6, 7 held to each run's admissions and ticks."""
     import os
     import shutil
 
@@ -5836,8 +5851,6 @@ def checkpoint_run(kind, dtype, device):
         if use_snap:
             assert info.total_replayed < info.baseline_replay, rec
             assert same == len(rids), f"{what}: snapshot recovery differs"
-        elif key == "fp32":
-            assert same == len(rids), f"{what}: journal recovery differs"
         else:
             # the resumed streams re-prefill prompt + prefix, which the
             # original decoded: bf16 rounding may part them at near ties
@@ -5849,6 +5862,11 @@ def checkpoint_run(kind, dtype, device):
             rec["flips"] = flips
         res["snapshot_recovery" if use_snap else "journal_recovery"] = rec
     return res
+
+
+# the journal cost's requests: every slot stays live through the timed
+# ticks (K_PIPE x 34 tokens at most), and the drain after them stays short
+JOURNAL_BUDGET = 160
 
 
 def journal_ticks(device, n_steps=16):
@@ -5882,9 +5900,9 @@ def journal_ticks(device, n_steps=16):
                                     max_pages_per_seq=MAX_PAGES, chunk=CHUNK,
                                     journal=journal, device=device, **extra)
             for _ in range(SLOTS):
-                rid = eng.submit(prompt, 256)
+                rid = eng.submit(prompt, JOURNAL_BUDGET)
                 if journal is not None:
-                    journal.submit(rid, rid, prompt, 256)
+                    journal.submit(rid, rid, prompt, JOURNAL_BUDGET)
             while eng.pending or any(r is None or r.n_prefilled
                                      < len(r.prompt) for r in eng.slots):
                 eng.step()
@@ -5937,9 +5955,8 @@ def journal_ticks(device, n_steps=16):
 def checkpoint_phase(device):
     """The checkpoint phase (after the speculative one): snapshot round
     trips of four engines (ServeEngine, the synchronous and the pipelined
-    RaggedServeEngine, the ragged prefix wave; the last two in bf16 only)
-    and the two synchronous engines' crash recoveries, in fp32 and bf16;
-    then the journal's cost
+    RaggedServeEngine, the ragged prefix wave) and the two synchronous
+    engines' crash recoveries, in bf16; then the journal's cost
     on the ragged decode tick, synchronous and pipelined.  Returns its
     results, with the bf16 runs' launches of kernels 1, 6 and 7 summed
     under "launches"."""
@@ -5949,22 +5966,19 @@ def checkpoint_phase(device):
     res = {}
     launches = {"flash_fwd": 0, "paged_decode_attention": 0,
                 "ragged_paged_attention": 0}
-    for dtype in (torch.float32, torch.bfloat16):
-        # the pipelined engine's and the prefix wave's round trips in bf16
-        # only (their fp32 twins are cut for the tp and mesh phases' time:
-        # the bf16 restores are held token-exact to their uninterrupted
-        # runs all the same)
-        for kind in ("ServeEngine", "ragged") + (
-                ("pipelined", "prefix") if dtype is torch.bfloat16 else ()):
-            r = checkpoint_run(kind, dtype, device)
-            res[f"{kind}_{_dtype_key(dtype)}"] = r
-            if dtype is torch.bfloat16:
-                runs = [r["launches"]["roundtrip"]] + [
-                    r[k]["launches"] for k in ("snapshot_recovery",
-                                               "journal_recovery") if k in r]
-                for run in runs:
-                    for name, n in run.items():
-                        launches[name] += n
+    # bf16 only: the fp32 recoveries (token-exact journal-only recovery of
+    # both engines, the pipelined and prefix-cache recoveries) are the
+    # fuzz phase's, at the same width on 2 layers
+    dtype = torch.bfloat16
+    for kind in ("ServeEngine", "ragged", "pipelined", "prefix"):
+        r = checkpoint_run(kind, dtype, device)
+        res[f"{kind}_{_dtype_key(dtype)}"] = r
+        runs = [r["launches"]["roundtrip"]] + [
+            r[k]["launches"] for k in ("snapshot_recovery",
+                                       "journal_recovery") if k in r]
+        for run in runs:
+            for name, n in run.items():
+                launches[name] += n
     torch.cuda.empty_cache()
     res["ticks"] = jt = journal_ticks(device)
     print("journal cost, bf16 decode tick (8 slots at ~2K), ms a tick "
@@ -9557,14 +9571,17 @@ def fleet_phase(device):
     return res
 
 
-def analysis_phase(sim_in, k8_rec, k9_rec, k6_rec, k7_rec):
-    """The analyzer on the card: its CPU families and its card half in
-    this process (zero findings); the measured times the smoke already
-    took beside the cost model's h100 floors; the simulator calibrated
-    from the fleet phase's bf16 run.  Returns the numbers."""
+def analysis_phase(sim_in, k8_rec, k9_rec, k6_rec, k7_rec, sass_jobs):
+    """The analyzer on the card: its CPU families and its card halves in
+    this process (zero findings; the SASS from `sass_jobs`, started after
+    the build); the measured times the smoke already took beside the cost
+    model's h100 floors; the simulator calibrated from the fleet phase's
+    bf16 run.  Returns the numbers."""
     import torch
 
-    from burst_attn_tpu_torch.analysis import costcheck, ringcheck
+    from burst_attn_tpu_torch.analysis import (
+        costcheck, numerics, obscheck, ringcheck, servecheck,
+    )
     from burst_attn_tpu_torch.analysis import costmodel as cm
     from burst_attn_tpu_torch.analysis.core import (
         RULES, register_all, run_analysis,
@@ -9577,21 +9594,42 @@ def analysis_phase(sim_in, k8_rec, k9_rec, k6_rec, k7_rec):
     not_run = {}
     findings = run_analysis(not_run=not_run)
     t_cpu = time.perf_counter() - t0
-    # the card half: what run_analysis(card=True) adds to the families
+    # the card halves: what run_analysis(card=True) adds to the families,
+    # each timed
+    halves = {}
     t1 = time.perf_counter()
-    card = costcheck.check_card() + ringcheck.check_card()
-    t_card = time.perf_counter() - t1
-    findings += card
+    sass = numerics.finish_sass(sass_jobs)
+    halves["SASS dumps (waited for)"] = time.perf_counter() - t1
+    for name, fn in (("kernel-smem-budget", costcheck.check_card),
+                     ("fused-ring-fused", ringcheck.check_card),
+                     ("numerics (SASS, bf16 ring)",
+                      lambda: numerics.check_card(sass)),
+                     ("obscheck ring", obscheck.check_ring_card),
+                     ("obscheck serve steps", obscheck.check_steps_card),
+                     ("obscheck decode graphs",
+                      obscheck.check_decode_graphs_card),
+                     ("obscheck K=1 tick", obscheck.check_tick_card),
+                     ("servecheck", lambda: servecheck.check_card(sass))):
+        t1 = time.perf_counter()
+        findings += fn()
+        halves[name] = time.perf_counter() - t1
+    t_card = sum(halves.values())
     assert not findings, "\n".join(f.format() for f in findings)
+    assert len(RULES) == 30, sorted(RULES)
     plans = cm.kernel_smem_plans()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"analysis: {len(RULES)} rules, zero findings; CPU families "
           f"{t_cpu:.1f} s (not run without the card: {sorted(not_run)}), "
-          f"card half {t_card:.1f} s: {len(plans)} kernel instances' "
+          f"card halves {t_card:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in halves.items())
+          + f"): {len(plans)} kernel instances' "
           f"shared memory equal to their plans (largest "
           f"{max(p.smem for p in plans)} B of {cm.SMEM_LIMIT}), resident "
           f"CTAs within the plans on {n_sm} SMs; fused-ring-fused clean on "
-          f"{len(ringcheck.CARD_CASES)} fused configs", flush=True)
+          f"{len(ringcheck.CARD_CASES)} fused configs; every HMMA of the "
+          "built libraries on an F32 accumulator; the steps, decode graphs "
+          "and ragged launches sync-free and captured with kernel, memset "
+          "and device-copy nodes only", flush=True)
 
     # the measured times beside the model's floors (seconds)
     rf = resolve_fused()
@@ -9612,7 +9650,8 @@ def analysis_phase(sim_in, k8_rec, k9_rec, k6_rec, k7_rec):
     assert not bad, "\n".join(f.format() for f in bad)
     res = {"findings": 0, "rules": len(RULES), "not_run_on_cpu":
            sorted(not_run), "cpu_s": t_cpu, "card_s": t_card,
-           "instances": len(plans), "n_sm": n_sm, "floors": []}
+           "card_halves_s": halves, "instances": len(plans), "n_sm": n_sm,
+           "floors": []}
     for name, meas, floor in rows:
         res["floors"].append({"name": name, "ms": meas * 1e3,
                               "floor_ms": floor * 1e3,
@@ -9657,6 +9696,118 @@ def analysis_phase(sim_in, k8_rec, k9_rec, k6_rec, k7_rec):
     return res
 
 
+def _fuzz_tool():
+    """tools/fuzz_checkpoint.py of this checkout, imported as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "fuzz_checkpoint.py")
+    spec = importlib.util.spec_from_file_location("fuzz_checkpoint", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+FUZZ_LAYERS = 2  # the fuzz model: the serving width's first 2 layers
+
+
+def fuzz_phase(device):
+    """The crash-recovery fuzzer in-process on the card, at the serving
+    width (SERVE_DIMS' fp32 weights, its first FUZZ_LAYERS layers): one
+    sync seed through each engine (snapshot + journal and journal-only),
+    one prefix-cache seed (3 kill points, mid-scale-scatter on an fp8
+    pool), one pipelined seed (3 kill points), two transport seeds.
+    Kernels 7, 1 and 6's counters are set to 0 before each seed and read
+    after; every mode must be exact, killed and leak-free, and every seed
+    must launch its engine's kernels.  Returns the launches summed and
+    the per-mode results."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from burst_attn_tpu_torch.ops import flash, paged_attention, ragged_paged
+
+    fz = _fuzz_tool()
+    t0 = time.perf_counter()
+    cfg, params = model(torch.float32, device)
+    fm = fz.FuzzModel(dict(params, layers=params["layers"][:FUZZ_LAYERS]),
+                      dataclasses.replace(cfg, n_layers=FUZZ_LAYERS), device)
+    counters = {"ragged_paged": ragged_paged.ragged_paged_attention,
+                "flash_fwd": flash.flash_fwd,
+                "paged_decode": paged_attention.paged_decode_attention}
+    launches = dict.fromkeys(counters, 0)
+    res = {"modes": {}}
+
+    def seed_run(what, fn):
+        for f in counters.values():
+            f.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        n = {k: f.launches for k, f in counters.items()}
+        for k, v in n.items():
+            launches[k] += v
+        return out, n, time.perf_counter() - t
+
+    strict = False
+    with tempfile.TemporaryDirectory(dir=_ckpt_dir()) as td:
+        for kind in ("ragged", "legacy"):
+            r, n, sec = seed_run(kind, lambda: fz.run_seed(0, 4, td, fm,
+                                                           kind))
+            want = (("ragged_paged",) if kind == "ragged"
+                    else ("flash_fwd", "paged_decode"))
+            assert all(n[k] > 0 for k in want), (kind, n)
+            for label in ("snapshot+journal", "journal-only"):
+                res["modes"][f"{kind} {label}"] = r[label]
+                strict = strict or r[label]["strict"]
+            print(f"fuzz sync seed 0 ({kind}): {sec:.1f} s, launches "
+                  f"kernel 7 {n['ragged_paged']}, kernel 1 "
+                  f"{n['flash_fwd']}, kernel 6 {n['paged_decode']}",
+                  flush=True)
+        for what, fn in (("cache", fz.run_cache_seed),
+                         ("pipeline", fz.run_pipeline_seed)):
+            r, n, sec = seed_run(what, lambda: fn(0, 4, td, fm))
+            assert n["ragged_paged"] > 0, (what, n)
+            res["modes"].update({f"{what} {m}": v for m, v in r.items()})
+            print(f"fuzz {what} seed 0: {sec:.1f} s, launches kernel 7 "
+                  f"{n['ragged_paged']}, kernel 1 {n['flash_fwd']}, "
+                  f"kernel 6 {n['paged_decode']}", flush=True)
+    assert strict, "no sync recovery re-decoded fewer than the baseline"
+    for name, r in res["modes"].items():
+        k = r["launches"]
+        print(f"fuzz {name}: exact={r['exact']} killed={r['killed']} "
+              f"leak_free={r.get('leak_free', True)}"
+              + (f" torn={r['torn']}" if "torn" in r else "")
+              + f"; launches kernel 7 {k['ragged_paged_attention']}, "
+              f"kernel 1 {k['flash_fwd']}, kernel 6 "
+              f"{k['paged_decode_attention']}", flush=True)
+        assert fz.mode_ok(r), (name, r)
+    assert res["modes"]["cache mid-scale-scatter"]["torn"], \
+        "the scale-scatter kill did not land between bytes and scales"
+    for seed in (0, 1):
+        st = fz.run_transport_seed(seed)
+        print(f"fuzz transport seed {seed}: flipped {st['flipped']} "
+              f"crc_rejected {st['crc_rejected']} dups "
+              f"{st['dups']}/{st['dup_dropped']} torn {st['torn']} resent "
+              f"{st['resent']}", flush=True)
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"fuzz phase: {len(res['modes'])} modes exact, killed and "
+          f"leak-free at the serving width ({FUZZ_LAYERS} layers, fp32) "
+          f"on {device}; launches kernel 7 {launches['ragged_paged']}, "
+          f"kernel 1 {launches['flash_fwd']}, kernel 6 "
+          f"{launches['paged_decode']}; {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def _stop_jobs(jobs):
+    """Kill the processes of `jobs` ({name: (Popen, ...)}) still running."""
+    for proc, *_ in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def _mark(t_start, what):
     """Print the seconds since the smoke started, after `what`."""
     print(f"[{time.perf_counter() - t_start:.1f} s] {what} done", flush=True)
@@ -9679,6 +9830,12 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the analysis phase's SASS dumps (one cuobjdump a library) run beside
+    # the phases before it; any still running at exit are stopped
+    from burst_attn_tpu_torch.analysis import numerics
+
+    sass_jobs = numerics.start_sass()
+    atexit.register(_stop_jobs, sass_jobs)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -9917,8 +10074,11 @@ def main() -> int:
     fleet_res = fleet_phase(device)
     _mark(t_start, "fleet phase")
     analysis_res = analysis_phase(
-        fleet_res["_sim"], ring_rec, ring_bwd_rec, kernels[1], kernels[2])
+        fleet_res["_sim"], ring_rec, ring_bwd_rec, kernels[1], kernels[2],
+        sass_jobs)
     _mark(t_start, "analysis phase")
+    fuzz_res = fuzz_phase(device)
+    _mark(t_start, "fuzz phase")
     moe_srv = moe_serve_phase(device, serve_res, rag, hand)
     _MOE_PARAMS.clear()
     _mark(t_start, "moe serve phase")
@@ -10155,6 +10315,11 @@ def main() -> int:
     # worker's kernel 8, as the workers reported them
     for name, n in fleet_res["launches"].items():
         launches[name] += n
+    # the fuzz phase's seeds (kernel 7 in every ragged tick and K=4 graph,
+    # kernels 1 and 6 in the ServeEngine's)
+    for name, n in fuzz_res["launches"].items():
+        assert n > 0, fuzz_res["launches"]
+        launches[name] += n
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in spec_launches:
@@ -10163,6 +10328,8 @@ def main() -> int:
             rec["checkpoint_launches"] = ckpt_launches[rec["name"]]
         if rec["name"] in moe_launches:
             rec["moe_launches"] = moe_launches[rec["name"]]
+        if rec["name"] in fuzz_res["launches"]:
+            rec["fuzz_launches"] = fuzz_res["launches"][rec["name"]]
         if rec["name"] in pp_launches:
             rec["pp_launches"] = pp_launches[rec["name"]]
         if rec["name"] in fleet_res["launches"]:

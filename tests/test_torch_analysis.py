@@ -20,8 +20,8 @@ from burst_attn_tpu.analysis import core as jax_core
 from burst_attn_tpu.analysis import oracle as jax_oracle
 
 from burst_attn_tpu_torch.analysis import (
-    astlint, core, costcheck, modelcheck as mc, oracle, policycheck,
-    poolcheck, protocheck, ringcheck,
+    astlint, core, costcheck, modelcheck as mc, numerics, obscheck, oracle,
+    policycheck, poolcheck, protocheck, ringcheck, servecheck,
 )
 from burst_attn_tpu_torch.analysis.core import RULES, register_all
 from burst_attn_tpu_torch.parallel import burst, mesh as mesh_mod, schedule
@@ -31,10 +31,6 @@ from burst_attn_tpu_torch.protocols import pool as pp
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(core.__file__)))
 ANCHOR = ("seeded.py", 7)
-
-# the JAX families the port does not carry yet (jaxpr-only: ROADMAP A6)
-JAXPR_ONLY = {"fp32-accum", "lse-fp32", "devstats-pure", "ckpt-jit-safe",
-              "pipe-fused-pure", "pipe-tick-identity", "ragged-serve-safe"}
 
 register_all()
 
@@ -59,9 +55,8 @@ def _jax_rules():
 def test_registry_is_the_jax_names_less_the_jaxpr_families():
     jax = _jax_rules()
     assert len(jax) == 30
-    want = (jax - JAXPR_ONLY - {"kernel-vmem-budget"}) | {
-        "kernel-smem-budget"}
-    assert set(RULES) == want and len(RULES) == 23
+    want = (jax - {"kernel-vmem-budget"}) | {"kernel-smem-budget"}
+    assert set(RULES) == want and len(RULES) == 30
     # two registries: importing the port touched nothing of JAX's
     assert "kernel-vmem-budget" in jax_core.RULES
     assert "kernel-smem-budget" not in jax_core.RULES
@@ -77,6 +72,13 @@ def test_cli_clean_on_the_port_and_card_rules_not_run(capsys):
     # the card rules say they did not run; they are never counted clean
     assert "fused-ring-fused" in d["not_run"]
     assert "--card" in d["not_run"]["fused-ring-fused"]
+    # every other entry is the card half of a rule that ran its CPU half
+    halves = {k[:-len(" (card half)")] for k in d["not_run"]
+              if k != "fused-ring-fused"}
+    assert halves == {"kernel-smem-budget", "fp32-accum", "lse-fp32",
+                      "obs-jit-safe", "devstats-pure", "ckpt-jit-safe",
+                      "pipe-fused-pure", "pipe-tick-identity",
+                      "ragged-serve-safe"}, sorted(d["not_run"])
 
 
 def test_cli_list_rules_and_card_without_a_card(capsys):
@@ -84,7 +86,7 @@ def test_cli_list_rules_and_card_without_a_card(capsys):
 
     assert main(["--list-rules"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 23
+    assert len(lines) == 30
     if not torch.cuda.is_available():
         assert main(["--card", "--ast-only"]) == 2
         assert "needs a CUDA device" in capsys.readouterr().err
@@ -844,7 +846,9 @@ def test_cli_sarif_flag_writes_file(tmp_path):
 
 def _spy_families(monkeypatch):
     ran = []
-    for name, mod in (("ringcheck", ringcheck), ("poolcheck", poolcheck),
+    for name, mod in (("ringcheck", ringcheck), ("numerics", numerics),
+                      ("obscheck", obscheck), ("servecheck", servecheck),
+                      ("poolcheck", poolcheck),
                       ("protocheck", protocheck), ("costcheck", costcheck),
                       ("policycheck", policycheck)):
         monkeypatch.setattr(mod, "check_all",
@@ -865,5 +869,6 @@ def test_changed_only_falls_back_to_full_run_without_git(monkeypatch):
     ran = _spy_families(monkeypatch)
     monkeypatch.setattr(core, "changed_files", lambda root: None)
     core.run_analysis(changed_only=True, ast_only=False)
-    assert sorted(ran) == ["costcheck", "policycheck", "poolcheck",
-                           "protocheck", "ringcheck"]
+    assert sorted(ran) == ["costcheck", "numerics", "obscheck",
+                           "policycheck", "poolcheck", "protocheck",
+                           "ringcheck", "servecheck"]

@@ -3500,3 +3500,116 @@ def test_analysis_cli_card_exits_zero(dev):
     assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
     out = json.loads(r.stdout)
     assert out["n_findings"] == 0 and out["not_run"] == {}
+
+
+# ---------------------------------------------------------------------------
+# the analyzer's last seven rules on the card (numerics, obscheck,
+# servecheck) and the crash-recovery fuzzer on cuda
+
+
+def test_sass_accumulators_are_f32(dev):
+    from burst_attn_tpu_torch.analysis import numerics
+    from burst_attn_tpu_torch.ops import _build
+
+    texts = numerics.finish_sass(numerics.start_sass())
+    for lib in numerics.TENSOR_CORE_LIBS:
+        mmas = [m for fn in numerics.sass_census(texts[lib]).values()
+                for m in fn]
+        assert mmas and all(".F32" in mods for _, mods in mmas), lib
+    assert numerics.check_sass(sass=texts) == []
+    assert sorted(texts) == sorted(_build.SIGNATURES)
+
+
+def test_bf16_ring_stats_stay_fp32_on_the_card(dev):
+    from burst_attn_tpu_torch.analysis import numerics
+
+    assert numerics.check_ring("cuda") == []
+
+
+@pytest.mark.parametrize("check", ["ring", "steps", "decode_graphs", "tick"])
+def test_obscheck_card_halves_clean(dev, check):
+    from burst_attn_tpu_torch.analysis import obscheck
+
+    fn = getattr(obscheck, f"check_{check}_card")
+    assert fn() == []
+
+
+def test_servecheck_card_half_clean(dev):
+    from burst_attn_tpu_torch.analysis import servecheck
+
+    assert servecheck.check_card() == []
+
+
+def _d2h(out, t):
+    """A device-to-host copy seeded into a step: non-blocking into pinned
+    memory, so it captures (as a memcpy node) instead of failing."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    out.append(host)
+
+
+def test_d2h_in_a_captured_step_fires_ckpt(dev, monkeypatch):
+    from burst_attn_tpu_torch.analysis import obscheck
+    from burst_attn_tpu_torch.serving import model as sm
+
+    real, keep = sm.ragged_model_step, []
+
+    def step(*a, **k):
+        logits, state = real(*a, **k)
+        _d2h(keep, logits)
+        return logits, state
+
+    monkeypatch.setattr(sm, "ragged_model_step", step)
+    findings = obscheck.check_steps_card()
+    assert {f.rule for f in findings} == {"ckpt-jit-safe"}
+    assert any("dtoh" in f.message for f in findings), findings
+
+
+@pytest.mark.parametrize("seed", ["sync", "d2h"])
+def test_seeded_decode_body_fires_pipe_fused(dev, monkeypatch, seed):
+    from burst_attn_tpu_torch.analysis import obscheck
+    from burst_attn_tpu_torch.serving import model as sm
+
+    real, keep = sm.pipelined_tick, []
+
+    def tick(*a, **k):
+        choice, state = real(*a, **k)
+        if seed == "sync":
+            choice.sum().item()
+        else:
+            _d2h(keep, choice)
+        return choice, state
+
+    monkeypatch.setattr(sm, "pipelined_tick", tick)
+    findings = obscheck.check_decode_graphs_card()
+    assert {f.rule for f in findings} == {"pipe-fused-pure"}
+    needle = "capture failed" if seed == "sync" else "dtoh"
+    assert all(needle in f.message for f in findings), findings
+
+
+def test_k1_graph_equals_the_eager_tick(dev):
+    from burst_attn_tpu_torch.analysis import obscheck
+
+    assert obscheck.check_tick_card() == []
+
+
+def test_fuzz_mid_scale_scatter_on_cuda(dev, tmp_path):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "fuzz_checkpoint.py"
+    spec = importlib.util.spec_from_file_location("fuzz_checkpoint", path)
+    fz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fz)
+    model = fz.load_model(None, dict(vocab=256, d_model=256, n_layers=1,
+                                     n_heads=2, n_kv_heads=1, d_head=128,
+                                     d_ff=512, seed=0))
+    assert model.device.type == "cuda"
+    before = ragged_paged.ragged_paged_attention.launches
+    res = fz.run_cache_seed(0, 4, str(tmp_path), model)
+    r = res["mid-scale-scatter"]
+    assert r["exact"] and r["killed"] and r["leak_free"] and r["torn"], r
+    assert r["launches"]["ragged_paged_attention"] > 0
+    assert ragged_paged.ragged_paged_attention.launches > before
+    assert all(fz.mode_ok(v) for v in res.values()), res

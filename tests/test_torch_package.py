@@ -25,12 +25,15 @@ from burst_attn_tpu_torch.serving import RaggedServeEngine
 ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import burst_attn_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+spec = importlib.util.spec_from_file_location("fuzz_checkpoint",
+                                              "tools/fuzz_checkpoint.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "burst_attn_tpu"))
 ring = ["parallel.mesh", "parallel.ring", "parallel.schedule",
@@ -50,7 +53,8 @@ analyzer = ["analysis", "analysis.core", "analysis.__main__",
             "analysis.modelcheck", "analysis.protocheck",
             "analysis.poolcheck", "analysis.policycheck",
             "analysis.costmodel", "analysis.costcheck", "fleet.sim",
-            "utils.testing"]
+            "utils.testing", "analysis.opstream", "analysis.numerics",
+            "analysis.obscheck", "analysis.servecheck"]
 bad += [m for m in ring + bench + obs + serving_under_load + analyzer
         if pkg.__name__ + "." + m not in names]
 print(len(names), bad)

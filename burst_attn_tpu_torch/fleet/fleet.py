@@ -1110,6 +1110,11 @@ class FleetCluster:
         hb_seq = 0
         last_hb = time.monotonic()
         last_scale = time.monotonic()
+        # the heartbeat window opens with the replay, as LoadGenCluster's
+        # does: a member idle between start() and replay() was never
+        # pinged, so it has not been silent
+        for m in self._m.values():
+            m["last_pong"] = last_hb
         pressure_ticks = 0
         idle_ticks: Dict[int, int] = {}
         t0 = time.perf_counter()

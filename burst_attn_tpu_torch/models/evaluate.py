@@ -1,6 +1,10 @@
 """Held-out evaluation: mean next-token cross entropy / perplexity over a
 token file, with the training forward and no optimizer (port of
-burst_attn_tpu/models/evaluate.py)."""
+burst_attn_tpu/models/evaluate.py).  In a run across processes each
+process reads its shard of the file (the loader's shard_id / num_shards,
+train.data_shard, as the JAX evaluator) and the token-weighted loss is
+taken over every process's sums (parallel/collectives.gather_obj), the
+same on each."""
 
 import math
 
@@ -8,7 +12,8 @@ import torch
 
 from ..data import DataLoader
 from ..device import resolve_device
-from .train import _loss_parts, batch_from_host
+from ..parallel.collectives import gather_obj
+from .train import _loss_parts, batch_from_host, data_shard
 from .transformer import ModelConfig
 
 
@@ -43,7 +48,10 @@ class Evaluator:
         self._cfg, self._mesh = cfg, mesh
         self._packed_eos_id = packed_eos_id
         self._device = resolve_device(device)
-        self._loader = DataLoader(data_path, batch, seq_len, shuffle=False)
+        shard_id, num_shards = data_shard(cfg, mesh)
+        self._loader = DataLoader(data_path, batch, seq_len,
+                                  shard_id=shard_id, num_shards=num_shards,
+                                  shuffle=False)
         self._n = min(max_batches,
                       max(1, self._loader.windows_per_epoch // batch))
 
@@ -57,6 +65,9 @@ class Evaluator:
                 packed_eos_id=self._packed_eos_id, device=self._device))
             nll_total += float(nll)
             n_total += int(n)
+        sums = gather_obj((nll_total, n_total))
+        nll_total = sum(x for x, _ in sums)
+        n_total = sum(n for _, n in sums)
         loss = nll_total / max(n_total, 1)
         return {"eval_loss": loss, "ppl": math.exp(min(loss, 50.0))}
 

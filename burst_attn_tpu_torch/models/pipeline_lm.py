@@ -41,7 +41,7 @@ stay whole under pp, as in JAX.
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.mesh import axis_size
+from ..parallel.mesh import axis_size, local_size
 from ..parallel.pipeline import pipeline, tree_map
 from .transformer import (
     ModelConfig, Shards, _blocks, _embed, _logits, _rms_norm,
@@ -114,7 +114,8 @@ def check_pp(cfg: ModelConfig, mesh, b: int) -> int:
         raise ValueError(
             f"n_layers {cfg.n_layers} not divisible by pp={n_stages}")
     m = cfg.pp_microbatches
-    dp = sizes.get(cfg.batch_axis, 1) if cfg.batch_axis else 1
+    # the dp groups this process holds (1 when dp spans processes)
+    dp = local_size(mesh, cfg.batch_axis)
     b_local = b // dp
     if b_local % m:
         raise ValueError(

@@ -24,9 +24,21 @@ pipeline-parallel model (stacked layers; microbatches default to the
 stage count, and `--microbatches` without a pp axis exits, as in JAX),
 beside dp, tp and ep too (`--mesh pp=2,dp=2,sp=2`, `--mesh
 pp=2,tp=2,sp=2`).  `--multihost` (the JAX runner's multi-host start)
-raises NotImplementedError: the ring across cards is ROADMAP A7b.  The
-JAX runner's `--probe-tri-bwd` is a TPU compile probe and has no
-counterpart here.
+joins the process group (utils/multihost.initialize: torchrun's env://
+over gloo) and spans the mesh's leading axes over the processes
+(parallel/mesh.py `process_axes_for`): `--mesh dp=2,sp=2` in two
+processes puts a dp group in each, every process reading its shard of
+the token stream; `--mesh inter=2,intra=2` puts a half of the double
+ring's positions in each (both read the same rows).  Only dp and the
+inter axis may span the processes of a training run; anything else
+raises NotImplementedError naming ROADMAP A7b.  Only the
+primary process logs and writes checkpoints; `--obs-export` writes one
+file a process (`.p<rank>` before the suffix), which `python -m
+burst_attn_tpu_torch.obs --merge` folds.  The JAX runner's
+`--probe-tri-bwd` is a TPU compile probe and has no counterpart here.
+
+    torchrun --nproc-per-node 2 -m burst_attn_tpu_torch.models.runner \
+        --multihost --mesh dp=2,sp=2 --data tokens.batd --steps 100
 """
 
 import argparse
@@ -39,11 +51,12 @@ from .. import obs
 from ..data import DataLoader
 from ..device import resolve_device
 from ..obs import StepTimer
-from ..utils import log_helper
+from ..parallel.mesh import process_axes_for
+from ..utils import log_helper, multihost
 from ..utils.checkpoint import Checkpointer
 from .train import (
-    TrainConfig, _world, init_train_state, make_mesh, make_train_step,
-    prefetch_batches,
+    TrainConfig, _world, data_shard, init_train_state, make_mesh,
+    make_train_step, prefetch_batches,
 )
 from .transformer import ModelConfig
 
@@ -79,7 +92,10 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
     `device` (default: the card).  Returns (state, history), history a
     list of {step, loss, grad_norm, step_s} and eval rows.  Each eval is
     the span `train.eval`; at the end the obs state goes to run.obs_export
-    (or the BURST_OBS_EXPORT path) as a JSONL export."""
+    (or the BURST_OBS_EXPORT path) as a JSONL export, one file a process
+    in a run across processes (multihost.process_path).  Each process
+    reads its shard of the token stream (the loader's shard_id /
+    num_shards: train.data_shard)."""
     log = log_helper.get_logger("burst_attn_tpu_torch.runner")
     primary = log_helper.is_primary()
     dev = resolve_device(device)
@@ -123,7 +139,9 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
             log.info("%s", json.dumps(row))
 
     try:
+        shard_id, num_shards = data_shard(cfg, mesh)
         with DataLoader(run.data_path, run.batch, run.seq_len,
+                        shard_id=shard_id, num_shards=num_shards,
                         seed=run.seed, num_threads=run.loader_threads) as dl:
             if start_step:
                 dl.seek(start_step)
@@ -157,6 +175,7 @@ def fit(cfg: ModelConfig, tcfg: TrainConfig, run: RunConfig, mesh=None, *,
         log.info("done: %d steps, mean %.3fs/step", s["steps"], s["mean_s"])
     export_path = run.obs_export or os.environ.get("BURST_OBS_EXPORT")
     if export_path:
+        export_path = multihost.process_path(export_path)
         parent = os.path.dirname(export_path)
         if parent:
             os.makedirs(parent, exist_ok=True)
@@ -179,6 +198,8 @@ def _parse_mesh(spec: str) -> dict:
 
 
 def main(argv=None):
+    """The CLI: parse `argv`, train (fit) and return fit's (state,
+    history)."""
     p = argparse.ArgumentParser(
         description="Train the LM on a token file, on one device or a "
                     "mesh of pp, dp, sp, tp and ep positions sharing it.")
@@ -196,7 +217,9 @@ def main(argv=None):
                    help="GPipe microbatches of a pp mesh (default: the "
                         "pp size)")
     p.add_argument("--multihost", action="store_true",
-                   help="start a run across hosts (ROADMAP A7b: not yet)")
+                   help="join the process group (torchrun's env:// over "
+                        "gloo) and span the mesh's leading axes over the "
+                        "processes (dp, or the double ring's inter axis)")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--ckpt-dir", default=None)
@@ -230,9 +253,7 @@ def main(argv=None):
                         "BURST_OBS_EXPORT path, if set)")
     args = p.parse_args(argv)
     if args.multihost:
-        raise NotImplementedError(
-            "--multihost: a run across hosts and cards comes with ROADMAP "
-            "A7b; every position of this mesh shares one device")
+        multihost.initialize()
 
     mesh_axes = _parse_mesh(args.mesh)
     # a double-ring mesh (inter, intra) maps straight onto seq_axes; any
@@ -266,7 +287,8 @@ def main(argv=None):
         d_ff=args.d_ff or 4 * args.d_model, layout=args.layout,
         remat=not args.no_remat,
     )
-    mesh = make_mesh(mesh_axes)
+    mesh = make_mesh(mesh_axes, process_axes=process_axes_for(
+        mesh_axes, multihost.process_count()), device=args.device)
     tcfg = TrainConfig(lr=args.lr, grad_accum=args.grad_accum)
     run = RunConfig(
         data_path=args.data, steps=args.steps, batch=args.batch,
@@ -277,7 +299,7 @@ def main(argv=None):
         eval_batches=args.eval_batches, packed_eos_id=args.packed_eos,
         obs_export=args.obs_export,
     )
-    fit(cfg, tcfg, run, mesh, device=args.device)
+    return fit(cfg, tcfg, run, mesh, device=args.device)
 
 
 if __name__ == "__main__":

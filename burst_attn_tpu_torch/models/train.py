@@ -76,6 +76,22 @@ group's tokens.  A pipeline takes dp (each dp group its own pipeline, or
 its ticks in lockstep with the experts on dp), tp and ep beside its
 stages.
 
+Across processes (`make_mesh({"dp": 2, "sp": 2}, process_axes=("dp",))`
+in a process group, utils/multihost.py): each process holds its own dp
+group and its rows of the batch (batch_from_host takes the process's
+LOCAL rows, so the global batch is local_B x the processes on dp), the
+valid-label count is summed over the processes, and the all_reduce(mean)
+of the groups' gradients and losses gathers the other processes' parts
+(parallel/mesh.py): the clip and AdamW then see the same gradients on
+every process, bit for bit those of the one-process dp step.  The double
+ring's inter axis may span processes too (`process_axes=("inter",)`):
+each process then holds its part of the sequence, its ring hops cross
+to the next process, and the replicated leaves' gradients and the loss,
+each process's tokens' share, are summed over the ring's processes
+(equal to the one-process step up to fp32 summation order).  No other
+axis may span the processes of a training run, nor an MoE model's
+experts or ring (ROADMAP A7b).
+
 The TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
 counterpart: a CUDA kernel either builds or the run stops.
 """
@@ -91,7 +107,7 @@ import torch.nn.functional as F
 from .. import obs
 from ..device import resolve_device
 from ..parallel import layouts
-from ..parallel.mesh import all_reduce
+from ..parallel.mesh import Mesh, all_reduce, axis_size, process_axes
 from .transformer import (
     ModelConfig, alias_params, check_mesh, check_tp, dp_groups,
     ep_on_batch, expert_leaf_ids, forward_groups, forward_parts,
@@ -123,23 +139,76 @@ class TrainConfig:
     collect_devstats: bool = False
 
 
-def make_mesh(axis_sizes: dict, devices=None) -> dict:
+def make_mesh(axis_sizes: dict, devices=None, *, process_axes=(),
+              device=None):
     """The axis sizes of a run, as {"pp": 2, "dp": 2, "sp": 2,
     "tp": 2}-style names to sizes (order kept).  The sequence axes ("sp",
     or "inter" and "intra" for the double ring), "dp", "tp", "ep" and a
     pipeline's "pp" take any size, in any combination, their positions
     and stages sharing one device; any other axis must have size 1
-    (ValueError: the model splits no work over it)."""
+    (ValueError: the model splits no work over it).  `process_axes`: the
+    outermost axes that span the processes of the run (parallel/mesh.py
+    `process_axes_for`); then the result is a parallel.mesh.Mesh on
+    `device` carrying them."""
     del devices
     sizes = {str(k): int(v) for k, v in dict(axis_sizes).items()}
     check_mesh(sizes, tuple(a for a in ("sp", "inter", "intra")
                             if a in sizes), "pp", "dp", "tp", "ep")
+    if process_axes:
+        return Mesh(sizes, device=device, process_axes=process_axes)
     return sizes
 
 
 def _world(cfg: ModelConfig, mesh) -> int:
-    """Ring size over cfg.seq_axes of `mesh`."""
+    """Ring size over cfg.seq_axes of `mesh`, after the process-axis
+    check (_check_processes)."""
+    _check_processes(cfg, mesh)
     return ring_world(cfg, mesh)
+
+
+def _check_processes(cfg: ModelConfig, mesh) -> None:
+    """A training mesh may span processes on its batch axis and its double
+    ring's inter axis (NotImplementedError naming ROADMAP A7b otherwise);
+    an MoE model only on the batch axis, its experts not on it (the
+    exchange and the ring positions' routing groups across processes)."""
+    axes = process_axes(mesh)
+    other = [a for a in axes if a not in (cfg.batch_axis, _ring_procs(
+        cfg, mesh))]
+    if other:
+        raise NotImplementedError(
+            f"training with mesh axes {other} across processes: only the "
+            f"batch axis {cfg.batch_axis!r} and a double ring's inter axis "
+            "may span the processes of a training run (ROADMAP A7b)")
+    if axes and (ep_on_batch(cfg, mesh)
+                 or (cfg.n_experts and _ring_procs(cfg, mesh))):
+        raise NotImplementedError(
+            f"an MoE model with its experts or its ring on mesh axes "
+            f"{axes} across processes: the expert exchange and the ring "
+            "positions' routing groups across processes are ROADMAP A7b")
+
+
+def _ring_procs(cfg: ModelConfig, mesh):
+    """The double ring's inter axis when it spans processes, else None."""
+    if len(cfg.seq_axes) == 2 and cfg.seq_axes[0] in process_axes(mesh):
+        return cfg.seq_axes[0]
+    return None
+
+
+def data_shard(cfg: ModelConfig, mesh):
+    """(shard_id, num_shards) of this process's rows of the token stream:
+    its index on the batch axis among the processes there (the processes
+    along a ring's inter axis read the same rows, each keeping its part
+    of the sequence); for a mesh without process axes its rank among the
+    run's processes, as the JAX runner shards its loader."""
+    axes = process_axes(mesh)
+    if not axes:
+        from ..utils.multihost import process_count, process_index
+
+        return process_index(), process_count()
+    if cfg.batch_axis in axes:
+        return (mesh.process_coords[cfg.batch_axis],
+                axis_size(mesh, cfg.batch_axis))
+    return 0, 1
 
 
 def _optimizer(params, tcfg: TrainConfig) -> torch.optim.AdamW:
@@ -296,7 +365,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         opt.zero_grad(set_to_none=True)
         stats = None
         groups = dp_groups(cfg, mesh, tokens.shape[0])
-        if accum == 1 and len(groups) == 1:
+        if (accum == 1 and axis_size(mesh, cfg.batch_axis) == 1
+                and not process_axes(mesh)):
             loss = loss_fn(params, tokens, positions, labels, cfg, mesh,
                            moe_aux_weight=aux_w, segment_ids=seg,
                            collect_stats=collect)
@@ -321,15 +391,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
 
     def _microbatches(tokens, labels, groups):
         """(rows a microbatch, v_total) of the grad_accum microbatches of
-        each dp group: the global valid-label count normalizes every
-        piece of the objective."""
+        each dp group: the global valid-label count (summed over the
+        processes when dp spans them) normalizes every piece of the
+        objective."""
         per = groups[0].stop - groups[0].start
         if per % accum:
             raise ValueError(f"batch {tokens.shape[0]} not divisible by "
                              f"grad_accum {accum}"
                              + (f" within its {len(groups)} dp groups"
                                 if len(groups) > 1 else ""))
-        return per // accum, (labels >= 0).sum().clamp(min=1).float()
+        v = (labels >= 0).sum()
+        for a in process_axes(mesh):
+            v = all_reduce([v], "sum", a, mesh=mesh)[0]
+        return per // accum, v.clamp(min=1).float()
 
     def _grouped_backward(params, leaves, tokens, positions, labels, seg,
                           groups):
@@ -340,8 +414,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         valid-label count (known from the labels alone) normalizes every
         piece, so uneven masking gives exactly the full-batch objective;
         a group's pieces carry the factor dp, and the MoE aux rides each
-        microbatch with weight v_total / accum."""
-        dp = len(groups)
+        microbatch with weight v_total / accum.  When dp spans processes
+        `groups` are this process's own and the mean meets the others';
+        when the ring's inter axis does, each process's gradients and
+        loss are its tokens' share, summed over the ring's processes."""
+        dp = axis_size(mesh, cfg.batch_axis)
         gm = group_mesh(cfg, mesh)
         mb, v_total = _microbatches(tokens, labels, groups)
         group_grads, group_loss, stats = [], [], None
@@ -371,16 +448,25 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                 group_grads.append([t.grad for t in leaves])
                 for t in leaves:
                     t.grad = None
-        if dp == 1:
-            return group_loss[0], stats
-        # leaf by leaf, each group's gradient freed once its mean is made
-        for i, t in enumerate(leaves):
-            parts = [gg[i] for gg in group_grads]
-            for gg in group_grads:
-                gg[i] = None
-            t.grad = all_reduce(parts, "mean", cfg.batch_axis)[0]
-            del parts
-        return all_reduce(group_loss, "mean", cfg.batch_axis)[0], stats
+        loss = group_loss[0]
+        if dp > 1:
+            # leaf by leaf, each group's gradient freed once its mean is
+            # made
+            for i, t in enumerate(leaves):
+                parts = [gg[i] for gg in group_grads]
+                for gg in group_grads:
+                    gg[i] = None
+                t.grad = all_reduce(parts, "mean", cfg.batch_axis,
+                                    mesh=mesh)[0]
+                del parts
+            loss = all_reduce(group_loss, "mean", cfg.batch_axis,
+                              mesh=mesh)[0]
+        sx = _ring_procs(cfg, mesh)
+        if sx is not None:
+            for t in leaves:
+                t.grad = all_reduce([t.grad], "sum", sx, mesh=mesh)[0]
+            loss = all_reduce([loss], "sum", sx, mesh=mesh)[0]
+        return loss, stats
 
     def _coupled_backward(params, leaves, tokens, positions, labels, seg,
                           groups):
@@ -454,9 +540,13 @@ def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
                     packed_eos_id=None, *, device=None):
     """A host batch (data.DataLoader's inputs/targets [B, S] int32 numpy,
     natural order) as the layout-ordered batch dict `make_train_step`
-    consumes, on `device` (default: the card).  Labels were shifted by the
-    loader; here they only get the layout permutation at the mesh's ring
-    world (the identity on one position).
+    consumes, on `device` (default: the card).  In a run across processes
+    these are the process's LOCAL rows (its shard of the loader's
+    stream); the global batch is local_B x the processes on dp.  When the
+    ring's inter axis spans processes the batch keeps this process's part
+    of the layout-order sequence (its inter row's shards).  Labels were
+    shifted by the loader; here they only get the layout permutation at
+    the mesh's ring world (the identity on one position).
 
     `packed_eos_id`: treat the stream as EOS-delimited packed documents:
     positions restart per document, labels are re-derived with boundary
@@ -466,6 +556,10 @@ def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
     tokens, labels = np.asarray(tokens), np.asarray(labels)
     b, s = tokens.shape
     perm = layouts.seq_permutation(cfg.layout, s, _world(cfg, mesh))
+    sx = _ring_procs(cfg, mesh)
+    if sx is not None:  # this process's inter row of the ring's shards
+        n, i = axis_size(mesh, sx), mesh.process_coords[sx]
+        perm = perm[i * s // n:(i + 1) * s // n]
 
     def put(a):
         return torch.from_numpy(np.array(a, dtype=np.int64)).to(dev)
@@ -478,7 +572,7 @@ def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
                 "labels": put(labels_packed[:, perm]),
                 "segment_ids": put(seg[:, perm])}
     return {"tokens": put(tokens[:, perm]),
-            "positions": put(np.broadcast_to(perm[None, :], (b, s))),
+            "positions": put(np.broadcast_to(perm[None, :], (b, len(perm)))),
             "labels": put(labels[:, perm])}
 
 

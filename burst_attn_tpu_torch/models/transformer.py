@@ -77,7 +77,9 @@ from ..ops.flash import flash_attention
 from ..ops.masks import check_window
 from ..ops.tile import single_device_attention
 from ..parallel.burst import burst_attn
-from ..parallel.mesh import all_gather, all_reduce, axis_size, seq_mesh
+from ..parallel.mesh import (
+    all_gather, all_reduce, axis_size, local_size, seq_mesh, sub_mesh,
+)
 from ..parallel.moe import MoEParams, capacity_for, init_moe_params, \
     moe_shard
 from ..parallel.ulysses import ulysses_attn
@@ -676,7 +678,8 @@ def _attention(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
                for t in zip(*qkv))
     ring = seq_mesh(mesh, cfg.seq_axes) if world > 1 else None
     if ring is not None and len(parts) > 1:
-        ring[cfg.head_axis] = len(parts)
+        ring = sub_mesh(mesh, dict(ring.shape if hasattr(ring, "shape")
+                                   else ring, **{cfg.head_axis: len(parts)}))
     if cfg.attn_strategy == "ulysses" and world > 1:
         o = ulysses_attn(q, k, v, mesh=ring, seq_axis=cfg.seq_axes[0],
                          causal=cfg.causal, backend=cfg.attn_backend,
@@ -830,10 +833,12 @@ def tp_of(params, cfg: ModelConfig, mesh, *, strict: bool = False) -> int:
 
 
 def dp_groups(cfg: ModelConfig, mesh, batch: int):
-    """The batch rows of each data-parallel group: [slice] a group of
-    cfg.batch_axis's size in `mesh` (one whole slice without dp).  The
-    batch must divide by it, as JAX's batch sharding needs."""
-    dp = axis_size(mesh, cfg.batch_axis)
+    """The batch rows of each data-parallel group this process holds:
+    [slice] a group of cfg.batch_axis's size in `mesh` (one whole slice
+    without dp, or when dp spans processes: `batch` is then this
+    process's rows, its one group).  The batch must divide by it, as
+    JAX's batch sharding needs."""
+    dp = local_size(mesh, cfg.batch_axis)
     if batch % dp:
         raise ValueError(f"batch {batch} not divisible by the "
                          f"{cfg.batch_axis!r} axis size {dp}")
@@ -843,13 +848,14 @@ def dp_groups(cfg: ModelConfig, mesh, batch: int):
 
 def group_mesh(cfg: ModelConfig, mesh):
     """What one data-parallel group runs on: `mesh` with cfg.batch_axis at
-    size 1."""
+    size 1 (a Mesh.sub, when `mesh` spans processes, that keeps a ring
+    axis across them)."""
     if mesh is None or cfg.batch_axis is None:
         return mesh
     shape = _mesh_shape(mesh)
     if cfg.batch_axis in shape:
         shape[cfg.batch_axis] = 1
-    return shape
+    return sub_mesh(mesh, shape)
 
 
 def ep_on_batch(cfg: ModelConfig, mesh) -> bool:

@@ -181,7 +181,8 @@ def _compile_for(cfg, topology: str, n_inter: int, n_intra: int,
 
 def supported(cfg, q_shape, k_shape, has_segments: bool = False, *,
               world: int, n_inter: int = 1, pass_: str = "fwd",
-              dtype=None, device=None) -> Optional[str]:
+              dtype=None, device=None, spans_processes: bool = False
+              ) -> Optional[str]:
     """None if the fused ring can run this config, else the reason (the
     JAX package's reason prefixes; the TPU's VMEM plan is this card's
     shared-memory plan).  `pass_` ("fwd" | "bwd") selects which kernel's
@@ -191,10 +192,17 @@ def supported(cfg, q_shape, k_shape, has_segments: bool = False, *,
     the inter axis size.  With `device` cuda the kernel's own limits
     apply (bf16 / fp32, head dim 128); the plain version on the CPU takes
     any.  Packed segments (`has_segments`) run on both kernels' SEG
-    instances: they decline nothing."""
+    instances: they decline nothing.  A ring whose inter axis spans
+    processes (`spans_processes`) is declined: both kernels hold all W
+    positions in one launch through a per-position address table in
+    this process's memory (across processes: ROADMAP A7b)."""
     del has_segments
     if pass_ not in ("fwd", "bwd"):
         raise ValueError(f"pass_ must be 'fwd' or 'bwd', got {pass_!r}")
+    if spans_processes:
+        return ("ring axis spans processes: the fused kernels address "
+                "every position's slot banks in this process's memory "
+                "(ROADMAP A7b)")
     b, n, s, d = q_shape
     if k_shape[2] != s:
         return "cross-attention shard lengths"

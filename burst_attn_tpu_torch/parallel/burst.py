@@ -83,13 +83,26 @@ the folds stay fp32.  The fused route runs kernels 8-9's wire instances
 (ops/fused_ring.py, ops/fused_ring_bwd.py).  `collect_stats` reports the
 largest |k|, |v| a position quantized (quant_absmax).
 
+Across processes (a Mesh whose "inter" axis spans processes, utils/
+multihost.py): q, k, v are this process's part of the sequence (its
+inter row's n_intra shards, in layout order), the per-position loops run
+over its positions, and the double ring's inter hop goes to the process
+one inter index ahead (mesh.ppermute_start over gloo).  The forward's KV
+base and the backward's q-side base are posted before the intra cycle
+and waited for after it, the reference's prefetch one intra cycle early:
+gloo's threads move the bytes while the card runs the intra rounds.  The
+fused kernels address every position's slot banks in this process's
+memory, so the fused gate declines such a ring ("ring axis spans
+processes", counted under burst.fused_fallback) and it takes the scan
+ring.
+
 Not ported yet (they raise NotImplementedError): the tile sizes of the
-flash kernels (block_q, block_kv and the backward's), and meshes with
-data or tensor parallel axes of size > 1.
+flash kernels (block_q, block_kv and the backward's).
 """
 
 import logging
 from dataclasses import dataclass, fields
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -104,7 +117,10 @@ from ..ops.masks import (
 )
 from ..ops.tile import finalize, init_state, tile_bwd, tile_fwd
 from . import schedule as sched_ir
-from .mesh import _names, as_mesh, ppermute, shard, unshard
+from .mesh import (
+    _names, as_mesh, ppermute, ppermute_start, ring_positions, shard,
+    unshard,
+)
 from .ring import (
     partition_at_round, ring_coords, ring_round_counts, wire_dequantize,
     wire_quantize,
@@ -279,6 +295,7 @@ _FALLBACK_LABELS = (
     ("shared-memory plan", "smem-budget"),
     ("head dim", "head-dim"),
     ("dtype", "dtype"),
+    ("ring axis spans processes", "spans-processes"),
 )
 
 
@@ -317,7 +334,8 @@ def _note_dispatch(cfg, reason, q_shape, k_shape, n_inter, n_intra,
         _M_WIRE.inc(nbytes, **{"pass": pass_, "dir": stream})
 
 
-def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str):
+def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str,
+              procs=None):
     """The fused gate's reason for declining pass_ (None: the fused kernel
     runs; also None for a scan backend), logged and counted with the
     dispatch."""
@@ -326,7 +344,8 @@ def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str):
         reason = fused_ring.supported(cfg, q.shape[1:], k.shape[1:],
                                       world=n_intra, n_inter=n_inter,
                                       pass_=pass_, dtype=q.dtype,
-                                      device=q.device)
+                                      device=q.device,
+                                      spans_processes=procs is not None)
         if reason is not None:
             logger.info("fused_ring %s falling back to the scan ring: %s",
                         "backend" if pass_ == "fwd" else "backward", reason)
@@ -339,41 +358,55 @@ def _dispatch(cfg, q, k, n_inter: int, n_intra: int, pass_: str):
 # forward
 
 
+def _rotations(n_inter: int, n_intra: int, procs):
+    """(rotate, rotate_start): mesh.ppermute and ppermute_start bound to
+    this ring's sizes and its process ring `procs` (None: every position
+    local)."""
+    ring = dict(n_inter=n_inter, n_intra=n_intra, procs=procs)
+    return partial(ppermute, **ring), partial(ppermute_start, **ring)
+
+
 def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
-              collect: bool = False, seg=None):
+              collect: bool = False, seg=None, procs=None):
     """Ring forward of every position: q [W,B,N,S,D], k/v [W,B,Nk,Skv,D]
     stacked shards (position p at index p) -> (o [W,B,N,S,D] in q.dtype,
     lse [W,B,N,S] f32), plus the ring's DevStats (leading axis W) when
     `collect`.  Every stats step sits behind `if collect` and only reads
     the ring's state, so o and lse are bitwise the collect=False ones.
     `seg`: the positions' segment ids [W,B,S] int32 (or None); the kv
-    side's ride the KV rotation."""
+    side's ride the KV rotation.  With `procs` (mesh.ProcRing: the inter
+    axis spans processes) the stacked shards are this process's n_intra
+    positions (mesh.ring_positions) and W above reads n_intra."""
     world = n_inter * n_intra
     b, n, s, d = q.shape[1:]
     s_kv = k.shape[3]
-    reason = _dispatch(cfg, q, k, n_inter, n_intra, "fwd")
+    reason = _dispatch(cfg, q, k, n_inter, n_intra, "fwd", procs)
     if cfg.backend == "fused_ring" and reason is None:
         return fused_ring.fused_ring_fwd(q, k, v, cfg, n_inter, n_intra,
                                          collect_stats=collect, seg=seg)
 
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
-    coords = [ring_coords(p, n_inter, n_intra) for p in range(world)]
+    # the global ring positions held here, in stacked order
+    pos = ring_positions(n_inter, n_intra, procs)
+    held = range(len(pos))
+    coords = [ring_coords(p, n_inter, n_intra) for p in pos]
+    rotate, rotate_start = _rotations(n_inter, n_intra, procs)
     wire = cfg.wire_dtype
     # devstats (collect only): per position [rounds, live rounds, pairs],
     # host ints from the round's mask scalars (the spec the kernels run)
-    tally = [[0, 0, 0] for _ in range(world)]
+    tally = [[0, 0, 0] for _ in held]
 
-    def count(p, spec):
+    def count(j, spec):
         if collect:
-            tally[p][0] += 1
-            tally[p][1] += spec_live(spec, cfg.window)
-            tally[p][2] += spec_pair_count(spec, s, s_kv, window=cfg.window)
+            tally[j][0] += 1
+            tally[j][1] += spec_live(spec, cfg.window)
+            tally[j][2] += spec_pair_count(spec, s, s_kv, window=cfg.window)
 
-    def compute(p, st, kv_c, r):
-        kv_part = partition_at_round(r, *coords[p], n_inter, n_intra)
-        spec = round_spec(p, kv_part, s, s_kv, cfg.causal, cfg.layout,
+    def compute(j, st, kv_c, r):
+        kv_part = partition_at_round(r, *coords[j], n_inter, n_intra)
+        spec = round_spec(pos[j], kv_part, s, s_kv, cfg.causal, cfg.layout,
                           window=cfg.window)
-        count(p, spec)
+        count(j, spec)
         if (cfg.layout == "contig" and cfg.causal
                 and not spec_live(spec, cfg.window)):
             # a future round, or one past the band's reach: nothing
@@ -384,50 +417,51 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
             # dtype before any tile math
             kv_c = (wire_dequantize(kv_c[0], kv_c[1], k.dtype),
                     wire_dequantize(kv_c[2], kv_c[3], v.dtype)) + kv_c[4:]
-        segs = None if seg is None else (seg[p], kv_c[2])
-        return _tile_fwd(cfg, q[p], kv_c[0], kv_c[1], *st, scale, spec,
+        segs = None if seg is None else (seg[j], kv_c[2])
+        return _tile_fwd(cfg, q[j], kv_c[0], kv_c[1], *st, scale, spec,
                          segs)
 
     def compute_all(states, kv, r):
-        return [compute(p, states[p], kv[p], r) for p in range(world)]
+        return [compute(j, states[j], kv[j], r) for j in held]
 
     r_live = _r_live(cfg, s, s_kv, n_inter, n_intra)
     # the KV payload, with the kv side's segment ids riding along; under
     # a wire dtype quantized ONCE at ring entry per (batch, kv head): the
     # payload rotates unchanged, so that is quantize-on-send at every hop
     if wire is None:
-        kv = [(k[p], v[p]) + (() if seg is None else (seg[p],))
-              for p in range(world)]
+        kv = [(k[j], v[j]) + (() if seg is None else (seg[j],))
+              for j in held]
     else:
         kq, ksc = wire_quantize(k, wire, (3, 4))
         vq, vsc = wire_quantize(v, wire, (3, 4))
-        kv = [(kq[p], ksc[p], vq[p], vsc[p])
-              + (() if seg is None else (seg[p],)) for p in range(world)]
+        kv = [(kq[j], ksc[j], vq[j], vsc[j])
+              + (() if seg is None else (seg[j],)) for j in held]
     kv_base = kv
     # round 0 is always the self round: a statically empty carry
     spec0 = [round_spec(p, p, s, s_kv, cfg.causal, cfg.layout,
-                        window=cfg.window) for p in range(world)]
-    for p in range(world):
-        count(p, spec0[p])
-    state = [_tile_fwd(cfg, q[p], k[p], v[p], None, None, None, scale,
-                       spec0[p], None if seg is None else (seg[p], seg[p]))
-             for p in range(world)]
+                        window=cfg.window) for p in pos]
+    for j in held:
+        count(j, spec0[j])
+    state = [_tile_fwd(cfg, q[j], k[j], v[j], None, None, None, scale,
+                       spec0[j], None if seg is None else (seg[j], seg[j]))
+             for j in held]
     for c in range(n_inter):
         if c < n_inter - 1:
-            # prefetch the next cycle's base one full intra cycle early
-            kv_base_next = ppermute(kv_base, "inter", n_inter, n_intra)
+            # prefetch the next cycle's base one full intra cycle early:
+            # posted here, waited for after the cycle's rounds
+            kv_base_next = rotate_start(kv_base, "inter")
         start = 1 if c == 0 else 0  # cycle 0's round 0 was peeled above
         if not (c == 0 and r_live == 1):
             if c == 0:
-                kv = ppermute(kv, "intra", n_inter, n_intra)
+                kv = rotate(kv, "intra")
             for s_idx in range(start, r_live - 1):
-                kv_next = ppermute(kv, "intra", n_inter, n_intra)
+                kv_next = rotate(kv, "intra")
                 state = compute_all(state, kv, c * n_intra + s_idx)
                 kv = kv_next
             # last round of the cycle: no intra send
             state = compute_all(state, kv, c * n_intra + r_live - 1)
         if c < n_inter - 1:
-            kv = kv_base = kv_base_next
+            kv = kv_base = kv_base_next.wait()
     o = torch.stack([finalize(*st, q.dtype) for st in state])
     lse = torch.stack([st[1] for st in state])
     if not collect:
@@ -457,7 +491,7 @@ def quant_absmax(k, v, wire):
 
 
 def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
-              n_intra: int, seg=None):
+              n_intra: int, seg=None, procs=None):
     """Communication-optimized ring backward of every position (stacked
     shards as _fwd_impl's; o, do [W,B,N,S,D], lse [W,B,N,S] f32 the
     forward's) -> fp32 (dq, dk, dv) stacked.
@@ -468,24 +502,29 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
     ring and is returned home by the final hops.  The ONE backward
     dispatch point: with backend="fused_ring" both rotating streams run
     inside kernel 9 (ops/fused_ring_bwd.py) when the backward gate admits
-    the config; declined configs fall through to the scan ring below."""
-    reason = _dispatch(cfg, q, k, n_inter, n_intra, "bwd")
+    the config; declined configs fall through to the scan ring below.
+    `procs`: the inter axis spans processes (as _fwd_impl); the q-side
+    base is prefetched over it one intra cycle early, the dq hops over it
+    are blocking."""
+    reason = _dispatch(cfg, q, k, n_inter, n_intra, "bwd", procs)
     if cfg.backend == "fused_ring" and reason is None:
         return fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg,
                                              n_inter, n_intra, seg=seg)
 
-    world = n_inter * n_intra
     b, n, s, d = q.shape[1:]
     s_kv = k.shape[3]
     scale = cfg.scale if cfg.scale is not None else d ** -0.5
-    coords = [ring_coords(p, n_inter, n_intra) for p in range(world)]
+    pos = ring_positions(n_inter, n_intra, procs)
+    held = range(len(pos))
+    coords = [ring_coords(p, n_inter, n_intra) for p in pos]
+    rotate, rotate_start = _rotations(n_inter, n_intra, procs)
     # optimize_bwd_comm: the ring payload (delta, not o) shrinks by a
     # factor of head_dim
     first = (o.float() * do.float()).sum(-1) if cfg.optimize_bwd_comm else o
     wire = cfg.wire_dtype
     if wire is None:
-        payload = [(first[p], do[p], q[p], lse[p])
-                   + (() if seg is None else (seg[p],)) for p in range(world)]
+        payload = [(first[j], do[j], q[j], lse[j])
+                   + (() if seg is None else (seg[j],)) for j in held]
     else:
         # the q-side bundle quantized once at ring entry (it rotates
         # unchanged) per (batch, head); lse stays fp32
@@ -493,8 +532,8 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
                                 (3,) if cfg.optimize_bwd_comm else (3, 4))
         doq, dosc = wire_quantize(do, wire, (3, 4))
         qq, qsc = wire_quantize(q, wire, (3, 4))
-        payload = [(fq[p], fsc[p], doq[p], dosc[p], qq[p], qsc[p], lse[p])
-                   + (() if seg is None else (seg[p],)) for p in range(world)]
+        payload = [(fq[j], fsc[j], doq[j], dosc[j], qq[j], qsc[j], lse[j])
+                   + (() if seg is None else (seg[j],)) for j in held]
 
     def unpack(pay):
         """(first, do, q, lse, q ids or None) of a payload, dequantized
@@ -507,40 +546,41 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
                 wire_dequantize(pay[4], pay[5], q.dtype), pay[6],
                 pay[7] if seg is not None else None)
 
-    def compute(p, pay, r):
-        """(dq, dk, dv) of position p's round r: the rotated q side
+    def compute(j, pay, r):
+        """(dq, dk, dv) of held position j's round r: the rotated q side
         against the resident k/v (roles flip against the forward)."""
         first_r, do_r, q_r, lse_r, qseg_r = unpack(pay)
         delta_r = first_r if cfg.optimize_bwd_comm else (
             first_r.float() * do_r.float()).sum(-1)
-        q_part = partition_at_round(r, *coords[p], n_inter, n_intra)
-        spec = round_spec(q_part, p, s, s_kv, cfg.causal, cfg.layout,
+        q_part = partition_at_round(r, *coords[j], n_inter, n_intra)
+        spec = round_spec(q_part, pos[j], s, s_kv, cfg.causal, cfg.layout,
                           window=cfg.window)
         if (cfg.layout == "contig" and cfg.causal
                 and not spec_live(spec, cfg.window)):
             return None  # a dead round: exact zeros, no launch
-        segs = None if seg is None else (qseg_r, seg[p])
-        return _tile_bwd(cfg, do_r, q_r, k[p], v[p], delta_r, lse_r, scale,
+        segs = None if seg is None else (qseg_r, seg[j])
+        return _tile_bwd(cfg, do_r, q_r, k[j], v[j], delta_r, lse_r, scale,
                          spec, segs)
 
     f32 = dict(dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, **f32)
     dv = torch.zeros(v.shape, **f32)
-    dq_intra = [torch.zeros(q.shape[1:], **f32) for _ in range(world)]
-    dq_inter = [torch.zeros(q.shape[1:], **f32) for _ in range(world)]
+    dq_intra = [torch.zeros(q.shape[1:], **f32) for _ in held]
+    dq_inter = [torch.zeros(q.shape[1:], **f32) for _ in held]
 
     def fold(dq_acc, pays, r):
-        """Every position's round r: dk, dv accumulate in place; returns
-        the dq accumulators with this round's contributions added."""
+        """Every held position's round r: dk, dv accumulate in place;
+        returns the dq accumulators with this round's contributions
+        added."""
         out = []
-        for p in range(world):
-            got = compute(p, pays[p], r)
+        for j in held:
+            got = compute(j, pays[j], r)
             if got is None:
-                out.append(dq_acc[p])
+                out.append(dq_acc[j])
                 continue
-            dk[p] += got[1]
-            dv[p] += got[2]
-            out.append(dq_acc[p] + got[0])
+            dk[j] += got[1]
+            dv[j] += got[2]
+            out.append(dq_acc[j] + got[0])
         return out
 
     def hop(dqs, axis):
@@ -548,11 +588,11 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
         refreshed per-(batch, head) scale (the partial grew since the
         last hop) and dequantize-after-receive to fp32."""
         if wire is None:
-            return [t for (t,) in ppermute([(x,) for x in dqs], axis,
-                                           n_inter, n_intra, cls="dq")]
+            return [t for (t,) in rotate([(x,) for x in dqs], axis,
+                                         cls="dq")]
         sent = [wire_quantize(x, wire, (2, 3)) for x in dqs]
         return [wire_dequantize(g, sc, torch.float32) for g, sc in
-                ppermute(sent, axis, n_inter, n_intra, cls="dq")]
+                rotate(sent, axis, cls="dq")]
 
     # Static round truncation, bwd roles: with the q side rotating, round
     # r's q part is me - r, so a truncated contig ring's LIVE rounds are
@@ -566,8 +606,9 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
     pay_base = payload
     for c in range(n_inter):
         if c < n_inter - 1:
-            # prefetch the next cycle's base one full intra cycle early
-            pay_base_next = ppermute(pay_base, "inter", n_inter, n_intra)
+            # prefetch the next cycle's base one full intra cycle early:
+            # posted here, waited for after the cycle's rounds
+            pay_base_next = rotate_start(pay_base, "inter")
         if c > 0:
             # cycle boundary: fold the intra accumulator into the inter
             # ring's running sum, hop it, and restart the intra ring
@@ -583,9 +624,9 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
         if r_live > 1:
             # start == 1 without truncation: the jump is a single hop
             start = n_intra - (r_live - 1)
-            payload = ppermute(payload, "intra", n_inter, n_intra, start)
+            payload = rotate(payload, "intra", hops=start)
             for s_idx in range(start, n_intra - 1):
-                pay_next = ppermute(payload, "intra", n_inter, n_intra)
+                pay_next = rotate(payload, "intra")
                 # dq leaves with the payload it accumulated for; the
                 # arriving dq belongs to the payload held this round
                 dq_intra = fold(hop(dq_intra, "intra"), payload,
@@ -595,7 +636,7 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
             dq_intra = fold(hop(dq_intra, "intra"), payload,
                             c * n_intra + n_intra - 1)
         if c < n_inter - 1:
-            payload = pay_base = pay_base_next
+            payload = pay_base = pay_base_next.wait()
     # final return-home hops: fold, one inter hop, one intra hop; then the
     # held-out round-0 dq (truncated rings only: it never travelled)
     dq = [a + b_ for a, b_ in zip(dq_inter, dq_intra)]
@@ -617,16 +658,16 @@ class _BurstAttn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, cfg, n_inter, n_intra, stats_out=None,
-                seg=None):
-        world = n_inter * n_intra
-        qs, ks, vs = (shard(t, world) for t in (q, k, v))
+                seg=None, procs=None):
+        held = len(ring_positions(n_inter, n_intra, procs))
+        qs, ks, vs = (shard(t, held) for t in (q, k, v))
         out = _fwd_impl(qs, ks, vs, cfg, n_inter, n_intra,
-                        collect=stats_out is not None, seg=seg)
+                        collect=stats_out is not None, seg=seg, procs=procs)
         o, lse = out[:2]
         if stats_out is not None:
             stats_out.append(out[2])
         ctx.save_for_backward(qs, ks, vs, o, lse, seg)
-        ctx.cfg, ctx.ring = cfg, (n_inter, n_intra)
+        ctx.cfg, ctx.ring, ctx.procs = cfg, (n_inter, n_intra), procs
         return unshard(o)
 
     @staticmethod
@@ -634,10 +675,12 @@ class _BurstAttn(torch.autograd.Function):
         qs, ks, vs, o, lse, seg = ctx.saved_tensors
         n_inter, n_intra = ctx.ring
         dq, dk, dv = _bwd_impl(qs, ks, vs, o, lse,
-                               shard(do.to(qs.dtype), n_inter * n_intra),
-                               ctx.cfg, n_inter, n_intra, seg=seg)
+                               shard(do.to(qs.dtype), qs.shape[0]),
+                               ctx.cfg, n_inter, n_intra, seg=seg,
+                               procs=ctx.procs)
         return (unshard(dq).to(qs.dtype), unshard(dk).to(ks.dtype),
-                unshard(dv).to(vs.dtype), None, None, None, None, None)
+                unshard(dv).to(vs.dtype), None, None, None, None, None,
+                None)
 
 
 # ---------------------------------------------------------------------------
@@ -685,7 +728,11 @@ def burst_attn(
     in q's dtype.
 
     mesh: {axis: size} or a parallel.mesh.Mesh; its ring positions share
-    the tensors' device.  batch_axes / head_axes name the mesh's dp / tp
+    the tensors' device.  On a Mesh whose "inter" axis spans processes
+    (utils/multihost.make_hybrid_mesh) q, k, v, segment_ids and o are
+    this process's part of S: its inter row's n_intra shards, the
+    contiguous slice inter_index * S / n_inter onward of the layout-order
+    sequence.  batch_axes / head_axes name the mesh's dp / tp
     axes: each of their groups runs its own ring, all in the one launch
     over the whole B and N (any other axis of size > 1 is a
     ValueError).  seq_axes: ("sp",) for a single ring or
@@ -741,7 +788,8 @@ def burst_attn(
         fused_ccw_slots=fused_ccw_slots,
         fused_bwd_ccw_slots=fused_bwd_ccw_slots, wire_dtype=wire_dtype,
         mesh_axes=tuple(m.shape.items()))
-    world = n_inter * n_intra
+    procs = m.ring_procs(seq_axes)
+    world = len(ring_positions(n_inter, n_intra, procs))  # shards held
     seg = None
     if segment_ids is not None:
         if tuple(segment_ids.shape) != (q.shape[0], q.shape[2]):
@@ -752,10 +800,12 @@ def burst_attn(
                     world, dim=1)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         sink = [] if collect_stats else None
-        o = _BurstAttn.apply(q, k, v, cfg, n_inter, n_intra, sink, seg)
+        o = _BurstAttn.apply(q, k, v, cfg, n_inter, n_intra, sink, seg,
+                             procs)
         return (o, sink[0]) if collect_stats else o
     out = _fwd_impl(shard(q, world), shard(k, world), shard(v, world), cfg,
-                    n_inter, n_intra, collect=collect_stats, seg=seg)
+                    n_inter, n_intra, collect=collect_stats, seg=seg,
+                    procs=procs)
     return (unshard(out[0]), out[2]) if collect_stats else unshard(out[0])
 
 

@@ -17,8 +17,26 @@ collectives.py over lax), which take one part per position and give each
 position a fresh copy of its result.  A pipeline's `pp` axis holds
 stages, not ring positions (parallel/pipeline.py): each stage's ring sees
 only its sequence axes (`seq_mesh`), so the ring never counts pp as an
-extra axis.  The multi-process communicator of a ring across cards comes
-with a later slice, with collectives.synchronize and gather_obj.
+extra axis.
+
+Process axes (`Mesh(shape, process_axes=("dp",))`, utils/multihost.py
+`make_hybrid_mesh`): the mesh's outermost axes may span the processes of
+a run, one index a process, as JAX's process-major device order lays out
+the leading axes; every other axis stays positions on this process's
+device, and the per-position loops run over this process's positions
+only (`ring_positions`, `local_size`).  Only "dp" and the double ring's
+"inter" may span processes; anything else (tp, ep, pp or sp across
+processes, an axis split between processes) raises NotImplementedError
+naming ROADMAP A7b.  A `ppermute` over a process axis sends each local
+position's payload to the process `hops` ahead (parallel/collectives.py
+`ProcessTransport`: gloo, CUDA payloads staged through pinned host
+buffers) and comes in two halves, `ppermute_start` and the handle's
+`wait()`, so that the ring can post the inter hop one intra cycle early.
+The four collectives over a process axis (their `mesh=` argument) gather
+every position's part from every process, then run the one-process code
+on the whole position-ordered list: sums keep position order and the
+parts' dtype, so a run across processes equals the one-process run bit
+for bit.
 
 `record_collectives()` is the analyzer's recorder (analysis/
 ringcheck.py): while it is active, every `ppermute` appends (cls, axis,
@@ -31,26 +49,164 @@ dq ring).  Off, it costs each collective one `None` check.
 """
 
 import contextlib
+import math
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from .ring import ring_coords
 
+# the axes that may span processes in this slice (ROADMAP A7b: the rest)
+PROCESS_AXES = ("dp", "inter")
+
+
+def process_axes_for(shape: Dict[str, int], n_procs: int) -> Tuple[str, ...]:
+    """The leading axes of `shape` ({axis: size}, in mesh order) that
+    span `n_procs` processes, one index a process (JAX's process-major
+    device order): the shortest prefix whose sizes multiply to n_procs.
+    An axis split between processes (no prefix multiplies to it exactly)
+    raises NotImplementedError naming ROADMAP A7b."""
+    if n_procs == 1:
+        return ()
+    prod, names = 1, []
+    for a, n in shape.items():
+        if prod == n_procs:
+            break
+        if prod * n > n_procs or n_procs % (prod * n):
+            raise NotImplementedError(
+                f"mesh axis {a!r} of size {n} split between {n_procs} "
+                f"processes: each axis that spans processes must hold one "
+                "index a process (ROADMAP A7b)")
+        prod *= n
+        names.append(a)
+    if prod != n_procs:
+        raise ValueError(f"mesh {shape} holds {prod} processes, the run "
+                         f"has {n_procs}")
+    return tuple(names)
+
 
 class Mesh:
-    """Named axis sizes {axis: size} on one device (default: the card)."""
+    """Named axis sizes {axis: size} on one device (default: the card).
+    `process_axes`: the outermost axes that span the processes of the run
+    (one index a process; the group must be up, utils/multihost.py), each
+    of PROCESS_AXES; this process holds the positions at its coordinates
+    on them (`process_coords`).  `sub(shape)` derives
+    the mesh a part of the program runs on (a dp group's, a ring's)."""
 
-    def __init__(self, shape: Dict[str, int], device=None):
+    def __init__(self, shape: Dict[str, int], device=None,
+                 process_axes: Sequence[str] = ()):
         self.shape = {str(a): int(n) for a, n in dict(shape).items()}
         bad = {a: n for a, n in self.shape.items() if n < 1}
         if bad:
             raise ValueError(f"mesh axis sizes must be >= 1, got {bad}")
         self.device = resolve_device(device)
+        self.process_axes = tuple(process_axes)
+        self.process_coords: Dict[str, int] = {}
+        self.process_index = 0
+        self.transport = None
+        # the rank at each coordinate of the process axes
+        self._ranks = np.zeros((), dtype=np.int64)
+        if self.process_axes:
+            self._init_processes()
+
+    def _init_processes(self) -> None:
+        axes = self.process_axes
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown:
+            raise ValueError(f"process axes {unknown} are not axes of the "
+                             f"mesh {self.shape}")
+        gated = [a for a in axes if a not in PROCESS_AXES]
+        if gated:
+            raise NotImplementedError(
+                f"mesh axes {gated} across processes: only "
+                f"{PROCESS_AXES} may span processes (ROADMAP A7b)")
+        self._check_outermost()
+        import torch.distributed as dist
+
+        from .collectives import ProcessTransport
+
+        sizes = tuple(self.shape[a] for a in axes)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if math.prod(sizes) != world:
+            raise ValueError(f"process axes {axes} of {self.shape} hold "
+                             f"{math.prod(sizes)} processes, the run has "
+                             f"{world} processes")
+        self.process_index = dist.get_rank()
+        self._ranks = np.arange(world).reshape(sizes)
+        coords = np.unravel_index(self.process_index, sizes)
+        self.process_coords = {a: int(c) for a, c in zip(axes, coords)}
+        self.transport = ProcessTransport()
+
+    def _check_outermost(self) -> None:
+        # axes of size 1 hold no positions: their place is free
+        names = tuple(a for a, n in self.shape.items()
+                      if n > 1 or a in self.process_axes)
+        if self.process_axes != names[:len(self.process_axes)]:
+            raise NotImplementedError(
+                f"process axes {self.process_axes} must be the mesh's "
+                f"outermost axes, in its order {names} (ROADMAP A7b)")
 
     def __repr__(self):
-        return f"Mesh({self.shape}, device={self.device})"
+        procs = (f", process_axes={self.process_axes}"
+                 if self.process_axes else "")
+        return f"Mesh({self.shape}, device={self.device}{procs})"
+
+    def sub(self, shape: Dict[str, int]) -> "Mesh":
+        """The mesh of `shape` ({axis: size}) as a part of this one: a
+        process axis it keeps at its size still spans the processes, one
+        it drops or sets to 1 is fixed at this process's coordinate (a dp
+        group's mesh, a ring's); every other axis is local.  Shares the
+        transport."""
+        shape = {str(a): int(n) for a, n in shape.items()}
+        m = Mesh.__new__(Mesh)
+        m.shape, m.device = shape, self.device
+        m.process_axes = tuple(a for a in self.process_axes
+                               if shape.get(a) == self.shape[a])
+        m.process_coords = {a: self.process_coords[a]
+                            for a in m.process_axes}
+        m.process_index = self.process_index
+        m._ranks = self._ranks[tuple(
+            slice(None) if a in m.process_axes else self.process_coords[a]
+            for a in self.process_axes)]
+        m.transport = self.transport if m.process_axes else None
+        m._check_outermost()
+        return m
+
+    def local_size(self, axis) -> int:
+        """The positions of `axis` this process holds: 1 on a process
+        axis, its size otherwise (1 for an axis the mesh lacks)."""
+        if axis in self.process_axes:
+            return 1
+        return self.shape.get(axis, 1) if axis is not None else 1
+
+    def axis_ranks(self, axis: str) -> List[int]:
+        """The ranks of the processes along process axis `axis` that share
+        this process's coordinates on the other process axes, in the
+        axis's index order."""
+        idx = tuple(slice(None) if a == axis else self.process_coords[a]
+                    for a in self.process_axes)
+        return [int(r) for r in self._ranks[idx]]
+
+    def ring_procs(self, seq_axes) -> Optional["ProcRing"]:
+        """The process ring of a ring over `seq_axes`: None when every
+        ring position is local, else the inter axis's processes (a double
+        ring whose inter axis spans processes); a single ring or an intra
+        axis across processes raises NotImplementedError (ROADMAP A7b)."""
+        seq_axes = _names(seq_axes)
+        across = [a for a in seq_axes if a in self.process_axes]
+        if not across:
+            return None
+        if len(seq_axes) != 2 or across != [seq_axes[0]]:
+            raise NotImplementedError(
+                f"ring axes {across} of {seq_axes} across processes: only "
+                "a double ring's inter axis may span processes (ROADMAP "
+                "A7b)")
+        a = seq_axes[0]
+        return ProcRing(self.process_coords[a], tuple(self.axis_ranks(a)),
+                        self.transport)
 
     def size(self, axes) -> int:
         """Product of the sizes of `axes` (a name, a sequence of names or
@@ -92,6 +248,32 @@ class Mesh:
         return {a: out[a] for a in self.shape}
 
 
+@dataclass(frozen=True)
+class ProcRing:
+    """The processes of a double ring's inter axis: this process's inter
+    index, the rank of each inter index, and the transport between them.
+    Its positions are the n_intra positions of inter row `index`."""
+
+    index: int
+    ranks: Tuple[int, ...]
+    transport: object
+
+    def peers(self, hops: int) -> Tuple[int, int]:
+        """(rank `hops` ahead, rank `hops` behind) on the inter ring."""
+        n = len(self.ranks)
+        return (self.ranks[(self.index + hops) % n],
+                self.ranks[(self.index - hops) % n])
+
+
+def ring_positions(n_inter: int, n_intra: int,
+                   procs: Optional[ProcRing] = None) -> List[int]:
+    """The flat ring positions a process holds: all of them, or with
+    `procs` the n_intra positions of its inter row."""
+    if procs is None:
+        return list(range(n_inter * n_intra))
+    return [procs.index * n_intra + si for si in range(n_intra)]
+
+
 def as_mesh(mesh: Union[Mesh, Dict[str, int]], device) -> Mesh:
     """`mesh` as a Mesh; a plain {axis: size} dict takes `device` (the
     device of the tensors it will shard)."""
@@ -112,12 +294,34 @@ def axis_size(mesh, axis) -> int:
     return int(shape.get(axis, 1))
 
 
-def seq_mesh(mesh, seq_axes) -> Dict[str, int]:
+def local_size(mesh, axis) -> int:
+    """The positions of `axis` this process holds (axis_size, but 1 on a
+    Mesh's process axis)."""
+    if isinstance(mesh, Mesh):
+        return mesh.local_size(axis)
+    return axis_size(mesh, axis)
+
+
+def process_axes(mesh) -> Tuple[str, ...]:
+    """The axes of `mesh` that span processes (none for a dict)."""
+    return mesh.process_axes if isinstance(mesh, Mesh) else ()
+
+
+def seq_mesh(mesh, seq_axes):
     """What one pipeline stage's ring, or one (dp, tp) group's, sees of
     `mesh` ({axis: size} or a Mesh): its sequence axes alone, {axis:
-    size}."""
+    size}, or the Mesh.sub of them when `mesh` spans processes."""
     shape = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
-    return {a: int(shape[a]) for a in _names(seq_axes) if a in shape}
+    out = {a: int(shape[a]) for a in _names(seq_axes) if a in shape}
+    return sub_mesh(mesh, out)
+
+
+def sub_mesh(mesh, shape: Dict[str, int]):
+    """`shape` ({axis: size}) as a part of `mesh`: Mesh.sub when `mesh`
+    spans processes, else the dict itself."""
+    if isinstance(mesh, Mesh) and mesh.process_axes:
+        return mesh.sub(shape)
+    return dict(shape)
 
 
 def _names(axes) -> Tuple[str, ...]:
@@ -180,15 +384,55 @@ def record_permutation(cls: str, axis: str, pairs, n: int) -> None:
         _RECORDER.append((cls, axis, rotation_offset(pairs, n)))
 
 
-def ppermute(parts: Sequence[Tuple[torch.Tensor, ...]], axis: str,
-             n_inter: int, n_intra: int, hops: int = 1, cls: str = "pay"
-             ) -> List[Tuple[torch.Tensor, ...]]:
-    """Rotate every position's payload (a tuple of tensors) `hops`
-    positions forward along the ring's "intra" or "inter" axis: position
-    p receives a COPY of the payload of the position `hops` behind it.
-    `cls` names the stream for the recorder ("pay" or "dq")."""
+class _Done:
+    """A rotation whose copies are already made (every position local)."""
+
+    def __init__(self, out):
+        self._out = out
+
+    def wait(self):
+        return self._out
+
+
+class _Arriving:
+    """A process hop in flight: wait() regroups the arrival into the
+    payload tuples of the local positions."""
+
+    def __init__(self, exchange, sizes):
+        self._x, self._sizes = exchange, sizes
+
+    def wait(self):
+        flat, out, i = self._x.wait(), [], 0
+        for n in self._sizes:
+            out.append(tuple(flat[i:i + n]))
+            i += n
+        return out
+
+
+def ppermute_start(parts: Sequence[Tuple[torch.Tensor, ...]], axis: str,
+                   n_inter: int, n_intra: int, hops: int = 1,
+                   cls: str = "pay", procs: Optional[ProcRing] = None):
+    """Start `ppermute`; returns a handle whose `wait()` gives the
+    rotated payloads.  Local copies are made here; an inter hop across
+    processes (`procs`) is posted here (the local positions' payloads
+    staged and sent to the process `hops` ahead, the arrival from the one
+    `hops` behind received) and waited for by the handle."""
     if axis not in ("intra", "inter"):
         raise ValueError(f"axis must be 'intra' or 'inter', got {axis!r}")
+    n_axis = n_intra if axis == "intra" else n_inter
+    if procs is not None:
+        # the parts are this process's inter row, in intra order
+        record_permutation(cls, axis, {(i, (i + hops) % n_axis)
+                                       for i in range(n_axis)}, n_axis)
+        if axis == "intra":
+            return _Done([tuple(t.clone() for t in parts[(si - hops)
+                                                         % n_intra])
+                          for si in range(n_intra)])
+        send_to, recv_from = procs.peers(hops)
+        flat = [t for pay in parts for t in pay]
+        return _Arriving(procs.transport.exchange_start(
+            flat, send_to, recv_from, tag=_tag(cls)),
+            [len(pay) for pay in parts])
     out, srcs = [], []
     for p in range(n_inter * n_intra):
         ii, si = ring_coords(p, n_inter, n_intra)
@@ -204,9 +448,28 @@ def ppermute(parts: Sequence[Tuple[torch.Tensor, ...]], axis: str,
         moves = {(ring_coords(src, n_inter, n_intra)[k],
                   ring_coords(p, n_inter, n_intra)[k])
                  for p, src in enumerate(srcs)}
-        record_permutation(cls, axis, moves,
-                           n_intra if axis == "intra" else n_inter)
-    return out
+        record_permutation(cls, axis, moves, n_axis)
+    return _Done(out)
+
+
+def _tag(cls: str) -> int:
+    from .collectives import TAGS
+
+    return TAGS.get(cls, 0)
+
+
+def ppermute(parts: Sequence[Tuple[torch.Tensor, ...]], axis: str,
+             n_inter: int, n_intra: int, hops: int = 1, cls: str = "pay",
+             procs: Optional[ProcRing] = None
+             ) -> List[Tuple[torch.Tensor, ...]]:
+    """Rotate every position's payload (a tuple of tensors) `hops`
+    positions forward along the ring's "intra" or "inter" axis: position
+    p receives a COPY of the payload of the position `hops` behind it.
+    `cls` names the stream for the recorder ("pay" or "dq").  With
+    `procs` the parts are this process's positions (its inter row) and an
+    inter hop crosses processes (ppermute_start, then its wait)."""
+    return ppermute_start(parts, axis, n_inter, n_intra, hops, cls,
+                          procs).wait()
 
 
 def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
@@ -253,16 +516,34 @@ def _replicate(x: torch.Tensor, w: int) -> List[torch.Tensor]:
     return [x] + [x.clone() for _ in range(w - 1)]
 
 
+def _gathered(parts: Sequence[torch.Tensor], axis: Optional[str], mesh
+              ) -> Tuple[List[torch.Tensor], int]:
+    """(every position's part in position order, the index of this
+    process's first part in it): over a process axis of `mesh`, gathered
+    from the processes along it (ProcessTransport.all_gather); else the
+    parts themselves."""
+    if not isinstance(mesh, Mesh) or axis not in mesh.process_axes:
+        return list(parts), 0
+    got = mesh.transport.all_gather(list(parts), mesh.axis_ranks(axis))
+    return [t for part in got for t in part], \
+        mesh.process_coords[axis] * len(parts)
+
+
 def all_reduce(parts: Sequence[torch.Tensor], op: str = "sum",
-               axis: Optional[str] = None) -> List[torch.Tensor]:
+               axis: Optional[str] = None, mesh=None) -> List[torch.Tensor]:
     """lax.psum / pmean / pmax / pmin over W positions: every position
     receives its own copy of the reduction of all W parts (in the parts'
     dtype, summed in position order).  Differentiable (sum and mean: each
     part's gradient is the sum of the results' gradients, the all-reduce
-    again).  `axis` names the mesh axis for the recorder."""
+    again).  `axis` names the mesh axis for the recorder; when it is a
+    process axis of `mesh`, the parts are this process's positions and
+    the others' are gathered first (host code: no autograd across
+    processes)."""
     if op not in _REDUCE_OPS:
         raise ValueError(f"unknown op {op!r}")
     _record("all_reduce", axis)
+    n_local = len(parts)
+    parts, _ = _gathered(parts, axis, mesh)
     if op in ("sum", "mean"):
         r = parts[0]
         for t in parts[1:]:
@@ -274,34 +555,45 @@ def all_reduce(parts: Sequence[torch.Tensor], op: str = "sum",
     else:
         r = torch.stack(list(parts))
         r = r.amax(0) if op == "max" else r.amin(0)
-    return _replicate(r, len(parts))
+    return _replicate(r, n_local)
 
 
 def broadcast(parts: Sequence[torch.Tensor], root: int = 0,
-              axis: Optional[str] = None) -> List[torch.Tensor]:
+              axis: Optional[str] = None, mesh=None) -> List[torch.Tensor]:
     """Every position receives a copy of position `root`'s part (the JAX
-    broadcast, a masked psum)."""
+    broadcast, a masked psum); over a process axis of `mesh` as
+    all_reduce."""
+    n_local = len(parts)
+    parts, _ = _gathered(parts, axis, mesh)
     if not 0 <= root < len(parts):
         raise ValueError(f"root {root} outside the {len(parts)} positions")
     _record("broadcast", axis)
-    return _replicate(parts[root].clone(), len(parts))
+    return _replicate(parts[root].clone(), n_local)
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int = 0,
-               axis: Optional[str] = None, tiled: bool = True
+               axis: Optional[str] = None, tiled: bool = True, mesh=None
                ) -> List[torch.Tensor]:
     """lax.all_gather: every position receives the W parts in position
-    order, concatenated along `dim` (tiled) or stacked in a new `dim`."""
+    order, concatenated along `dim` (tiled) or stacked in a new `dim`;
+    over a process axis of `mesh` as all_reduce."""
     _record("all_gather", axis)
+    n_local = len(parts)
+    parts, _ = _gathered(parts, axis, mesh)
     x = torch.cat(list(parts), dim=dim) if tiled else torch.stack(
         list(parts), dim=dim)
-    return _replicate(x, len(parts))
+    return _replicate(x, n_local)
 
 
 def reduce_scatter(parts: Sequence[torch.Tensor], dim: int = 0,
-                   axis: Optional[str] = None) -> List[torch.Tensor]:
+                   axis: Optional[str] = None, mesh=None
+                   ) -> List[torch.Tensor]:
     """lax.psum_scatter(tiled=True): the sum of the W parts, split into W
-    equal chunks along `dim`; position p receives chunk p (a copy)."""
+    equal chunks along `dim`; position p receives chunk p (a copy); over
+    a process axis of `mesh` as all_reduce, each local position its own
+    chunk."""
+    n_local = len(parts)
+    parts, lo = _gathered(parts, axis, mesh)
     w = len(parts)
     if parts[0].shape[dim] % w:
         raise ValueError(f"dim {dim} of length {parts[0].shape[dim]} does "
@@ -311,7 +603,7 @@ def reduce_scatter(parts: Sequence[torch.Tensor], dim: int = 0,
     for t in parts[1:]:
         r = r + t
     return [c.contiguous() if w > 1 else c.clone()
-            for c in r.chunk(w, dim=dim)]
+            for c in r.chunk(w, dim=dim)][lo:lo + n_local]
 
 
 def rank(mesh, axis: str, position: int) -> int:

@@ -9,7 +9,12 @@ caller names.  Parameters split over a tp axis (transformer.ShardedParams)
 and their AdamW moments are saved whole (each split leaf's shards
 joined), so a checkpoint holds the same tensors whatever the tp size it
 was written at, and `restore` splits them again for the mesh it is given:
-a tp=2 run restores at tp=1 and back.
+a tp=2 run restores at tp=1 and back.  In a run across processes
+(utils/multihost.py) the primary process writes and every process waits
+at a barrier after it (parallel/collectives.synchronize on a
+`wait_group` of `write_timeout_s`, so that a write longer than the run's
+group timeout does not fail the waiting processes); every process reads,
+so a resumed run continues exactly on each.
 
     ckpt = Checkpointer(dir)
     ckpt.save(step, state)                         # state = (params, opt)
@@ -29,14 +34,18 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 class Checkpointer:
-    """Keeps the newest `max_to_keep` checkpoints of one run directory."""
+    """Keeps the newest `max_to_keep` checkpoints of one run directory.
+    `write_timeout_s`: how long the other processes of a run wait for the
+    primary's write."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 write_timeout_s: float = 3600.0):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self.dir = Path(directory).resolve()
         self.dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.write_timeout_s = write_timeout_s
 
     def _path(self, step: int) -> Path:
         return self.dir / f"ckpt_{step:08d}.pt"
@@ -47,7 +56,18 @@ class Checkpointer:
 
     def save(self, step: int, state) -> None:
         """Write (params, optimizer) at `step` durably, then drop the
-        oldest checkpoints beyond `max_to_keep`."""
+        oldest checkpoints beyond `max_to_keep`: on the primary process,
+        every process then waiting for it (the state is the same on
+        each: replicated over the processes' dp groups)."""
+        from ..parallel.collectives import synchronize, wait_group
+        from .log_helper import is_primary
+
+        group = wait_group(self.write_timeout_s)  # made before the write
+        if is_primary():
+            self._write(step, state)
+        synchronize(group)
+
+    def _write(self, step: int, state) -> None:
         from ..models.transformer import unshard_params
 
         params, opt = state

@@ -1,9 +1,9 @@
 """Rank-aware logging helpers (port of burst_attn_tpu/utils/log_helper.py).
 
 `get_logger` delegates to the obs logger (obs/logs.py), so every record
-is counted in the registry (`log.events{level=...}`).  The port runs one
-process on one card, so the process is always the primary one; the
-helpers keep the JAX package's call sites."""
+is counted in the registry (`log.events{level=...}`).  In a run across
+processes (utils/multihost.py) the primary process is rank 0; without a
+process group, the only process."""
 
 import logging
 from typing import Optional
@@ -19,8 +19,11 @@ def get_logger(name: str, level=logging.INFO, file: Optional[str] = None):
 
 
 def is_primary() -> bool:
-    """True on the process that should emit logs (the only one here)."""
-    return True
+    """True on the process that should emit logs: rank 0 of the process
+    group, or the only process when no group is up."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def print_rank0(*args, **kwargs):

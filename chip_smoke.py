@@ -71,7 +71,8 @@ Phases (any failure exits non-zero; nothing is caught):
      self-draft token-exact with `generate`, every proposal accepted;
      bf16 early exit equal or parted at a near tie; fp32 sampled
      self-draft accepting >= 99%); both engines' draft modes on the 12
-     requests (fp32 self-draft token-exact with the plain fp32 engine at
+     requests at half their budgets, 4 of them in slots just retired
+     (fp32 self-draft token-exact with the plain fp32 engine at
      acceptance 1, bf16 early exit held to the teacher-forced bar, an
      int8 pool against the plain int8 engine; the ragged engine also
      pipelined and on the prefix wave), every plain paged attention
@@ -258,7 +259,24 @@ Phases (any failure exits non-zero; nothing is caught):
      seed (mid-flight, mid-multi-step-scan, mid-readback) and two
      transport seeds, every mode exact, killed and leak-free, with its
      kernel 7 / 1 / 6 launches;
- 12. a `train` JSON line, a `kernels` JSON line, then the result line
+ 12. (after the mesh2 phase, beside which its processes boot) the run
+     across processes: two processes on the one card (utils/multihost.
+     spawn, gloo over tcp://127.0.0.1, the CUDA payloads staged through
+     pinned host buffers): burst_attn
+     forward and backward on inter=2 (the processes) x intra=2 at the
+     ring train step's shard (B1 N16 S_local 2048 D128 bf16 causal
+     zigzag), the fused backend declined and counted, against the
+     one-process scan ring (bitwise expected, gated at the ring phases'
+     bf16 tolerances), its ms and the ms each prefetched inter hop
+     waited after its intra cycle; the dp=2 (the processes) x sp=2 train
+     step at the training width (4 layers, S 8192, a row a process) from
+     the seed weights, every loss and the first step's gradients against
+     the one-process dp=2 x sp=2 step (MESH_TRAIN_RTOL / MESH_GRAD_RTOL,
+     bitwise expected), step and staging ms; `runner --multihost --mesh
+     dp=2,sp=2` (1 layer at the training width): a checkpoint written by
+     rank 0 alone while the other waits, and a resume in both; a child that fails or
+     times out fails the run;
+ 13. a `train` JSON line, a `kernels` JSON line, then the result line
      {"ok": true, "device": {...}} last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -2489,6 +2507,460 @@ def mesh_train_phase(device):
           f"a step {mesh_r['launches_per_step']}; phase "
           f"{res['seconds']:.1f} s", flush=True)
     return res
+
+
+# the run across processes: two processes share the one card (gloo, the
+# payloads staged through pinned host buffers; NCCL refuses two ranks on
+# one device), each check against the one-process run on the card
+MH_RING = dict(b=1, n=16, s=2048, d=128)  # a ring position's shard: the
+# ring train step's (N16, S_local 2048), on inter=2 (the processes) x
+# intra=2 (local): S = 8192
+MH_MESH = {"dp": 2, "sp": 2}  # the train step: dp across the processes
+MH_STEPS = 2  # after the first; every step compared, these timed
+MH_RING_CALLS = 3  # the ring op: a compared call, then these timed
+MH_TIMEOUT_S = 600.0  # a child not done by then fails the phase
+# runner --multihost: the loader shards, the rank-0 checkpoint (written
+# while the other process waits) and the resume at the training model's
+# full width, 1 layer, S 2048
+MH_RUNNER = dict(vocab=TRAIN_DIMS["vocab"], d_model=TRAIN_DIMS["d_model"],
+                 n_layers=1, n_heads=TRAIN_DIMS["n_heads"],
+                 d_ff=TRAIN_DIMS["d_ff"], seq=2048)
+
+
+def _mh_ring_inputs(device):
+    """The ring op's q, k, v, do (bf16, layout order, the whole S) from a
+    seeded generator on the card: the same tensors in every process."""
+    import torch
+
+    r = MH_RING
+    g = torch.Generator(device=device).manual_seed(41)
+    return [torch.randn(r["b"], r["n"], 4 * r["s"], r["d"], generator=g,
+                        device=device).to(torch.bfloat16) for _ in range(4)]
+
+
+def _mh_ring(mesh, backend, q, k, v, do):
+    """burst_attn forward and backward on `mesh`'s double ring ->
+    (o, dq, dk, dv)."""
+    from burst_attn_tpu_torch.parallel import burst
+
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    o = burst.burst_attn(qs, ks, vs, mesh=mesh, seq_axes=("inter", "intra"),
+                         causal=True, layout="zigzag", backend=backend)
+    o.backward(do)
+    return o.detach(), qs.grad, ks.grad, vs.grad
+
+
+def _mh_train_cfg(layers):
+    import torch
+
+    return _train_model(layers, torch.bfloat16, batch_axis="dp")
+
+
+def _mh_steps(step, state, batch, n):
+    """n train steps: (losses, grad norms, host ms a step)."""
+    import torch
+
+    losses, norms, times = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = step(state, batch)  # the state is updated in place
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return losses, norms, times
+
+
+def _mh_wait(paths, key):
+    """Block until the parent has written paths[key] ("go": the children
+    may take the card; "ready": the one-process references are written)
+    or given up (paths["abort"]: raises); returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not os.path.exists(paths[key]):
+        if os.path.exists(paths["abort"]):
+            raise RuntimeError("the parent's one-process references failed")
+        if time.perf_counter() - t0 > MH_TIMEOUT_S:
+            raise TimeoutError(f"the parent wrote no {key!r} file")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _mh_runner(paths):
+    """(c) runner --multihost --mesh dp=2,sp=2 at MH_RUNNER's size: a
+    step with a checkpoint, then a run resuming from it: both histories,
+    this rank's checkpoint writes, the checkpoint steps left, seconds."""
+    from burst_attn_tpu_torch.models import runner
+    from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
+
+    writes = []
+    write = Checkpointer._write
+
+    def counted(self, step_, state_):
+        writes.append(step_)
+        return write(self, step_, state_)
+
+    Checkpointer._write = counted
+    d = MH_RUNNER
+    argv = ["--data", paths["tokens"], "--multihost", "--mesh", "dp=2,sp=2",
+            "--batch", "1", "--seq-len", str(d["seq"]), "--vocab",
+            str(d["vocab"]), "--d-model", str(d["d_model"]), "--n-layers",
+            str(d["n_layers"]), "--n-heads", str(d["n_heads"]),
+            "--d-ff", str(d["d_ff"]), "--log-every", "1", "--ckpt-dir",
+            paths["ckpt"], "--ckpt-every", "1", "--ckpt-keep", "1",
+            "--device", paths["device"]]
+    t = time.perf_counter()
+    try:
+        _, first = runner.main(argv + ["--steps", "1"])
+        _, resumed = runner.main(argv + ["--steps", "2"])
+    finally:
+        Checkpointer._write = write
+    return dict(first=first, resumed=resumed, writes=writes,
+                steps=Checkpointer(paths["ckpt"]).steps(),
+                s=time.perf_counter() - t)
+
+
+def _mh_child(paths):
+    """One of the two processes of the multihost phase (rank from the
+    group), booted beside the phase before it: once the parent writes
+    "go", (c) runner --multihost (while the parent computes the
+    one-process references); then (a) the ring op on its half of S,
+    checked against the one-process output in paths["ring"]; (b) the dp=2
+    x sp=2 train step on its row of the batch from the seed weights in
+    paths["seed"], every loss and the first step's gradients against
+    paths["train"].  Returns the numbers; any mismatch raises."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch import obs
+    from burst_attn_tpu_torch.device import resolve_device
+    from burst_attn_tpu_torch.models import train
+    from burst_attn_tpu_torch.utils import multihost
+
+    out = {"go_wait_s": _mh_wait(paths, "go")}
+    t_child = time.perf_counter()
+    device = resolve_device(paths["device"])
+    rank = multihost.process_index()
+    out.update(rank=rank, runner=_mh_runner(paths))
+    torch.cuda.empty_cache()
+    out["ready_wait_s"] = _mh_wait(paths, "ready")
+    # (a) the ring op, inter across the processes
+    mesh = multihost.make_hybrid_mesh(ici={"intra": 2}, dcn={"inter": 2},
+                                      device=device)
+    half = 2 * MH_RING["s"]
+    sl = slice(rank * half, (rank + 1) * half)
+    q, k, v, do = (t[:, :, sl].contiguous()
+                   for t in _mh_ring_inputs(device))
+    want = [t[:, :, sl] for t in torch.load(paths["ring"],
+                                            map_location=device)]
+    obs0 = obs.counter_values()
+    _reset_counts()
+    # the fused backend: declined across processes, the scan ring runs
+    got = _mh_ring(mesh, "fused_ring", q, k, v, do)
+    torch.cuda.synchronize()
+    out["ring_launches"] = _counts()
+    out["ring_fallback"] = {k_: v_ for k_, v_ in obs.counter_deltas(
+        obs0).items() if k_.startswith("burst.fused_fallback")}
+    out["ring_o_err"] = _check_o("multihost ring o", got[0], want[0],
+                                 torch.bfloat16)
+    out["ring_grad_err"] = _check_grads_bf16("multihost ring", got[1:],
+                                             want[1:])
+    out["ring_bitwise"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    del got, want
+    mesh.transport.reset_stats()
+    times = []
+    for _ in range(MH_RING_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _mh_ring(mesh, "fused_ring", q, k, v, do)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    st = mesh.transport.stats
+    out["ring_ms"] = statistics.median(times)
+    out["ring_ms_all"] = times
+    out["ring_transport"] = st
+    # the inter hops waited for after their intra cycle: the payload
+    # stream's (the forward's KV base, the backward's q-side base)
+    n_pay, s_pay = st["waits_by_tag"].get(1, [0, 0.0])
+    n_dq, s_dq = st["waits_by_tag"].get(2, [0, 0.0])
+    out["prefetch_wait_ms"] = s_pay / max(n_pay, 1) * 1e3
+    out["dq_hop_wait_ms"] = s_dq / max(n_dq, 1) * 1e3
+    out["stage_ms_a_call"] = st["stage_s"] / MH_RING_CALLS * 1e3
+    del q, k, v, do
+    # (b) the train step, dp across the processes
+    ref = torch.load(paths["train"], map_location=device)
+    cfg = _mh_train_cfg(ref["layers"])
+    tcfg = train.TrainConfig()
+    mesh = train.make_mesh(MH_MESH, process_axes=("dp",), device=device)
+    cut = torch.load(paths["seed"], map_location=device)
+    params = train.place_params(_params_like(cut, cfg), cfg, mesh)
+    del cut
+    state = (params, train._optimizer(params, tcfg))
+    step = train.make_train_step(cfg, tcfg, mesh, device=device)
+    full = train.make_batch(1, cfg, MH_MESH, batch=MH_MESH["dp"],
+                            seq=TRAIN_SEQ, device=device)
+    batch = {k_: v_[rank:rank + 1] for k_, v_ in full.items()}
+    _reset_counts()
+    losses, norms, times = _mh_steps(step, state, batch, 1)
+    out["train_launches"] = _counts()
+    errs = {}
+    for (what, a), b in zip(_whole_grads(params), ref["grads"]):
+        errs[what] = (float((a.float() - b.float()).norm()
+                            / b.float().norm().clamp(min=1e-30)),
+                      _max_err(a, b))
+    del ref["grads"]
+    mesh.transport.reset_stats()
+    more = _mh_steps(step, state, batch, MH_STEPS)
+    losses, norms, times = (x + y for x, y in zip((losses, norms, times),
+                                                  more))
+    st = mesh.transport.stats
+    out.update(losses=losses, grad_norms=norms, step_ms_all=times,
+               step_ms=statistics.median(times[1:]),
+               stage_ms_a_step=st["stage_s"] / MH_STEPS * 1e3,
+               gather_wait_ms_a_step=st["wait_s"] / MH_STEPS * 1e3,
+               gathered_mb_a_step=st["bytes"] / MH_STEPS / 1e6,
+               grad_errs=errs)
+    rels = [abs(a - c) / abs(c) for a, c in zip(
+        losses + norms[:1], ref["losses"] + ref["grad_norms"][:1])]
+    out["loss_rel_diffs"] = rels
+    out["train_bitwise"] = (losses == ref["losses"]
+                            and norms == ref["grad_norms"]
+                            and all(e[1] == 0 for e in errs.values()))
+    assert max(rels) <= MESH_TRAIN_RTOL, (rels, losses, ref["losses"])
+    worst = max(errs, key=lambda w: errs[w][0])
+    assert errs[worst][0] <= MESH_GRAD_RTOL, (worst, errs[worst])
+    out["child_s"] = time.perf_counter() - t_child
+    return out
+
+
+def _mh_references(device, paths):
+    """The one-process references the children check against, written
+    under `paths`: (a)'s ring op on the same mesh on the scan route
+    (outputs, and its ms), (b)'s seed weights (the training model's first
+    MESH_TRAIN_LAYERS layers) and the one-process dp=2 x sp=2 step on
+    them (every loss and grad norm, the first step's gradients, ms)."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+
+    ring1 = {"inter": 2, "intra": 2}
+    inputs = _mh_ring_inputs(device)
+    torch.save(list(_mh_ring(ring1, "auto", *inputs)), paths["ring"])
+    times = []
+    for _ in range(MH_RING_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _mh_ring(ring1, "auto", *inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    del inputs
+    layers = MESH_TRAIN_LAYERS
+    cfg1 = _train_model(TRAIN_DIMS["n_layers"], torch.bfloat16)
+    key = (cfg1.n_layers, cfg1.d_model, cfg1.n_heads, cfg1.n_kv_heads,
+           cfg1.d_ff, cfg1.vocab, cfg1.dtype)
+    if key not in _SEED_PARAMS:
+        _seed_state(cfg1, train.TrainConfig(), device)
+    leaves = _SEED_PARAMS[key]
+    per = len(leaves[1:-2]) // cfg1.n_layers
+    cut = leaves[:1 + per * layers] + leaves[-2:]
+    torch.save(cut, paths["seed"])
+    cfg = _mh_train_cfg(layers)
+    tcfg = train.TrainConfig()
+    params = train.place_params(_params_like(cut, cfg), cfg, MH_MESH)
+    state = (params, train._optimizer(params, tcfg))
+    step = train.make_train_step(cfg, tcfg, MH_MESH, device=device)
+    batch = train.make_batch(1, cfg, MH_MESH, batch=MH_MESH["dp"],
+                             seq=TRAIN_SEQ, device=device)
+    losses, norms, _ = _mh_steps(step, state, batch, 1)
+    grads = [g for _, g in _whole_grads(params)]
+    more = _mh_steps(step, state, batch, MH_STEPS)
+    one = dict(losses=losses + more[0], grad_norms=norms + more[1],
+               step_ms=statistics.median(more[2]))
+    torch.save(dict(layers=layers, grads=grads, **one), paths["train"])
+    del state, step, params, batch, grads
+    torch.cuda.empty_cache()
+    return statistics.median(times), one
+
+
+class MultihostPhase:
+    """Two processes on the one card (tests/torch_multiproc_workers.py's
+    spawn, a tcp://127.0.0.1 rendezvous, gloo), started here so that their boot
+    (imports, the group) runs beside the phase before this one: they hold
+    no CUDA context until finish() writes "go".  Then (a) burst_attn
+    forward and backward at the ring train step's shard (B1 N16 S_local
+    2048 D128 bf16 causal zigzag) on inter=2 (the processes) x intra=2,
+    the fused backend declined (counted) and the scan ring's kernels 1-5
+    launched, against the one-process run on the same mesh; (b) the dp=2
+    (the processes) x sp=2 train step of the training model's width at
+    MESH_TRAIN_LAYERS layers (bf16, remat, S=TRAIN_SEQ, a row a process)
+    from the seed weights, every loss of 1 + MH_STEPS steps and the first
+    step's gradients against the one-process dp=2 x sp=2 step
+    (MESH_TRAIN_RTOL / MESH_GRAD_RTOL; bitwise expected); (c) runner
+    --multihost --mesh dp=2,sp=2 (MH_RUNNER): a step with a checkpoint
+    written by rank 0 alone, then a resume in both.  The children run (c)
+    while finish() computes the one-process references (_mh_references),
+    which reach them through files under build/multihost/ (with the token
+    file; a "ready" file last).  A child that fails or outlives
+    MH_TIMEOUT_S fails the phase; a smoke that fails before finish()
+    writes "abort" at exit, and the children stop."""
+
+    def __init__(self, device):
+        import shutil
+        import threading
+        from pathlib import Path
+
+        import numpy as np
+
+        from burst_attn_tpu_torch.data import write_token_file
+
+        self.device = device
+        self.root = Path(__file__).resolve().parent / "build" / "multihost"
+        shutil.rmtree(self.root, ignore_errors=True)
+        self.root.mkdir(parents=True)
+        self.paths = {k: str(self.root / f) for k, f in (
+            ("ring", "ring_ref.pt"), ("seed", "seed.pt"),
+            ("train", "train_ref.pt"), ("tokens", "train.batd"),
+            ("ckpt", "ckpt"), ("go", "go"), ("ready", "ready"),
+            ("abort", "abort"))}
+        self.paths["device"] = str(device)
+        rng = np.random.default_rng(5)  # runner_phase's token file
+        write_token_file(self.paths["tokens"], rng.integers(
+            0, MH_RUNNER["vocab"], size=16 * (MH_RUNNER["seq"] + 1)))
+        self.got, self.t_spawn = {}, time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        atexit.register(self._abort)
+
+    def _run(self):
+        sys.path.insert(0, str(self.root.parents[1] / "tests"))
+        import torch_multiproc_workers as W
+
+        try:
+            self.got["res"] = W.spawn(
+                _mh_child, 2, (self.paths,),
+                init_method=f"tcp://127.0.0.1:{W.free_port()}",
+                timeout_s=MH_TIMEOUT_S, out_dir=str(self.root))
+        except BaseException as e:  # noqa: BLE001 -- raised by finish()
+            self.got["error"] = e
+        self.got["s"] = time.perf_counter() - self.t_spawn
+
+    def _abort(self):
+        if self.root.exists():
+            (self.root / "abort").touch()
+
+    def finish(self):
+        """Run the phase: "go", the references, "ready", the children's
+        results checked and printed.  Returns the numbers with the
+        children's kernel launches."""
+        import shutil
+        from pathlib import Path
+
+        t_phase = time.perf_counter()
+        paths = self.paths
+        Path(paths["go"]).touch()
+        try:
+            t0 = time.perf_counter()
+            ring1_ms, one = _mh_references(self.device, paths)
+            t_refs = time.perf_counter() - t0
+            Path(paths["ready"]).touch()
+        except BaseException:
+            Path(paths["abort"]).touch()
+            raise
+        finally:
+            self.thread.join()
+        if "error" in self.got:
+            raise self.got["error"]
+        out = _mh_report(self.got["res"], ring1_ms, one, t_refs)
+        shutil.rmtree(self.root, ignore_errors=True)
+        out["children_s"] = self.got["s"]
+        out["boot_overlap_s"] = t_phase - self.t_spawn
+        out["seconds"] = time.perf_counter() - t_phase
+        waits = [round(r["ready_wait_s"], 1) for r in out["ranks"]]
+        print(f"multihost phase: {out['seconds']:.1f} s (the children "
+              f"booted beside the phase before it, "
+              f"{out['boot_overlap_s']:.1f} s earlier; the one-process "
+              f"references {t_refs:.1f} s beside their runner; the "
+              f"children waited {waits} s for them)", flush=True)
+        return out
+
+
+def _mh_report(res, ring1_ms, one, t_refs):
+    """The multihost phase's checks of the children's results `res`, its
+    lines and numbers."""
+    card = card_line()
+    layers = MESH_TRAIN_LAYERS
+    launches = {}
+    for r in res:
+        # the scan ring: kernel 1 every round, the flash backward's route
+        # every backward round, kernels 8-9 never (declined)
+        rl, tl = r["ring_launches"], r["train_launches"]
+        assert rl["flash_fwd"] > 0 and rl["fused_ring_fwd"] == 0 and rl[
+            "fused_ring_bwd"] == 0, rl
+        assert rl["fused"] + rl["dq"] + rl["dkdv"] > 0, rl
+        assert r["ring_fallback"] == {
+            "burst.fused_fallback{pass=fwd,reason=spans-processes}": 1,
+            "burst.fused_fallback{pass=bwd,reason=spans-processes}": 1}, \
+            r["ring_fallback"]
+        assert tl["flash_fwd"] > 0 and tl["fused"] + tl["dq"] > 0, tl
+        for src in (rl, tl):
+            for name, n in src.items():
+                launches[name] = launches.get(name, 0) + n
+        # every dp replica saw the same losses, the resume continued
+        rn = r["runner"]
+        assert [h["step"] for h in rn["first"]] == [1], rn
+        assert [h["step"] for h in rn["resumed"]] == [2], rn
+        assert all(map(math.isfinite, [h["loss"] for h in rn["first"]
+                                       + rn["resumed"]])), rn
+        assert rn["steps"] == [2], rn
+    assert res[0]["runner"]["writes"] == [1, 2], res[0]["runner"]
+    assert res[1]["runner"]["writes"] == [], res[1]["runner"]
+    for run in ("first", "resumed"):  # the dp replicas' losses agree
+        assert [h["loss"] for h in res[0]["runner"][run]] == [
+            h["loss"] for h in res[1]["runner"][run]], run
+    out = {"references_s": t_refs,
+           "ring_one_process_ms": ring1_ms, "train_one_process": one,
+           "launches": {k: v for k, v in launches.items() if v},
+           "ranks": [{k: v for k, v in r.items() if k != "runner"}
+                     | {"runner": {k: v for k, v in r["runner"].items()
+                                   if k != "writes"}} for r in res]}
+    r0 = res[0]
+    print(f"multihost ring op (2 processes on one card, gloo; inter=2 "
+          f"across the processes x intra=2, B1 N16 S_local 2048 D128 bf16 "
+          f"causal zigzag, S 8192; {card}): "
+          f"{[round(r['ring_ms'], 2) for r in res]} ms a forward + "
+          f"backward (one process, same mesh: {ring1_ms:.2f} ms); max "
+          f"|o diff| {[r['ring_o_err'] for r in res]}, max |grad diff| "
+          f"{[r['ring_grad_err'] for r in res]} (bitwise "
+          f"{[r['ring_bitwise'] for r in res]}); prefetched inter hop "
+          f"waited {[round(r['prefetch_wait_ms'], 3) for r in res]} ms "
+          f"after its intra cycle, dq hop "
+          f"{[round(r['dq_hop_wait_ms'], 3) for r in res]} ms; staging "
+          f"{[round(r['stage_ms_a_call'], 3) for r in res]} ms a call; "
+          f"{r0['ring_transport']['bytes'] / MH_RING_CALLS / 1e6:.1f} MB "
+          f"sent a call; launches {r0['ring_launches']}; fused fallback "
+          f"{r0['ring_fallback']}", flush=True)
+    print(f"multihost train step (dp=2 across 2 processes on one card x "
+          f"sp=2; {layers} layers of the training model, bf16, remat, a "
+          f"row of S={TRAIN_SEQ} a process; {card}): "
+          f"{[round(r['step_ms'], 1) for r in res]} ms (one process, dp=2 x "
+          f"sp=2: {one['step_ms']:.1f} ms); losses {r0['losses']} (one "
+          f"process {one['losses']}; bitwise "
+          f"{[r['train_bitwise'] for r in res]}); largest max |grad diff| "
+          f"{max(e[1] for r in res for e in r['grad_errs'].values())}; "
+          f"staging {[round(r['stage_ms_a_step'], 1) for r in res]} ms a "
+          f"step, gather wait "
+          f"{[round(r['gather_wait_ms_a_step'], 1) for r in res]} ms a "
+          f"step, {r0['gathered_mb_a_step']:.0f} MB gathered a step; "
+          f"launches a step {r0['train_launches']}", flush=True)
+    print(f"multihost runner --multihost --mesh dp=2,sp=2 ({MH_RUNNER}): "
+          f"step 1 loss {r0['runner']['first'][0]['loss']:.4f} (checkpoint "
+          f"written by rank 0 alone), resumed step 2 loss "
+          f"{r0['runner']['resumed'][0]['loss']:.4f} on both ranks; "
+          f"{[round(r['runner']['s'], 1) for r in res]} s", flush=True)
+    return out
 
 
 # the pipeline beside dp and tp, the MoE model's expert axis on dp, Ulysses
@@ -5204,6 +5676,11 @@ SPEC_K = 4  # proposals a round (serve_bench.py --spec-k's default)
 # (serve_bench.py --spec-layers 2)
 SPEC_EXIT_LAYERS = 2
 SPEC_STEPS = 64  # speculative_generate's tokens on the longest prompt
+# the draft engines' runs serve all 12 seeded requests at their budgets
+# over SPEC_BUDGET_DIV (16-32 new tokens): the 8 slots fill and 4 requests
+# take slots just retired, in half the rounds of the full budgets (a cut
+# to make room for the multihost phase)
+SPEC_BUDGET_DIV = 2
 # kernel 7 at the verify width: 8 slots decoding at the serving run's
 # context lengths, every one with k+1 query tokens
 VERIFY_KV_LENS = (2117, 2053, 1797, 1500, 1029, 700, 305, 5)
@@ -5397,8 +5874,8 @@ def spec_generate_phase(device, prompts):
 
 
 def _spec_run(eng_cls, dtype, device, draft, quantize=False, **extra):
-    """The 12 requests through a draft engine with every plain paged
-    attention refused; the launch counters of kernels 1, 6, 7 set to 0
+    """The seeded requests at SPEC_BUDGET_DIV of their budgets through a
+    draft engine with every plain paged attention refused; the launch counters of kernels 1, 6, 7 set to 0
     just before the run and read just after, and kernel 7's counter read
     around every speculative round: launches["spec_verify"] is the sum of
     those deltas, the verify launches the wrapper counted.  Returns (cfg,
@@ -5409,6 +5886,7 @@ def _spec_run(eng_cls, dtype, device, draft, quantize=False, **extra):
     cfg, params, drafts = spec_drafts(dtype, device)
     dp, dc = drafts[draft]
     prompts, budgets = requests(cfg)
+    budgets = [n // SPEC_BUDGET_DIV for n in budgets]
     eng = eng_cls(params, cfg, slots=SLOTS, n_pages=N_PAGES, page=PAGE,
                   max_pages_per_seq=MAX_PAGES, quantize=quantize,
                   draft_params=dp, draft_cfg=dc, spec_k=SPEC_K,
@@ -5440,12 +5918,12 @@ def _spec_run(eng_cls, dtype, device, draft, quantize=False, **extra):
         n_draft * (SPEC_K + 1) * rounds, (launches, rounds)
     pool = f" {quantize} pool" if quantize else ""
     print(f"{eng_cls.__name__} {_dtype_key(dtype)}{pool} {draft}-draft: "
-          f"{N_REQUESTS} requests, "
+          f"{len(prompts)} requests, "
           f"{sum(map(len, toks))} tokens in {run_s:.2f} s, {rounds} rounds, "
           f"acceptance {eng.acceptance_rate:.4f}, launches {launches}",
           flush=True)
     if eng_cls.__name__ == "ServeEngine":
-        assert launches["flash_fwd"] == (n_tgt + n_draft) * N_REQUESTS
+        assert launches["flash_fwd"] == (n_tgt + n_draft) * len(prompts)
         assert launches["ragged_paged_attention"] == n_tgt * rounds
     else:
         st = eng.stats
@@ -5453,16 +5931,23 @@ def _spec_run(eng_cls, dtype, device, draft, quantize=False, **extra):
         ticks = sum(v for k, v in st.items()
                     if k.startswith("serve.ragged_batch_launches"))
         assert st["serve.ragged_batch_launches{kind=spec-verify}"] == rounds
-        assert launches["flash_fwd"] == n_draft * N_REQUESTS
+        assert launches["flash_fwd"] == n_draft * len(prompts)
         assert launches["ragged_paged_attention"] == n_tgt * ticks \
             + n_draft * st["serve.draft_catchup_launches"], (launches, st)
         assert eng.graphs is None
     return cfg, params, prompts, eng, toks, launches
 
 
+def _heads(streams, toks):
+    """Each of `streams` (a plain engine's tokens by request) cut to the
+    length of the matching stream of `toks` (a run at shorter budgets)."""
+    return [w[:len(t)] for w, t in zip(streams, toks, strict=True)]
+
+
 def spec_engines_phase(device, serve_res, rag):
-    """Both engines' draft modes on the 12 requests: fp32 self-draft
-    token-exact with the plain fp32 engine (every proposal accepted),
+    """Both engines' draft modes on the seeded requests at shorter budgets
+    (_spec_run): fp32 self-draft token-exact with the heads of the plain
+    fp32 engine's streams (every proposal accepted),
     bf16 early-exit draft held to the teacher-forced bar, fp32 self-draft
     on an int8 pool against the plain int8 engine (equal, or a flip at a
     near tie); the RaggedServeEngine also pipelined (delegated: the same
@@ -5481,7 +5966,9 @@ def spec_engines_phase(device, serve_res, rag):
         name = eng_cls.__name__
         _, _, _, eng, toks, launches = _spec_run(eng_cls, fp32, device,
                                                  "self", **extra)
-        assert toks == plain["fp32"]["toks"], f"{name} fp32 self-draft"
+        n = len(toks)
+        assert toks == _heads(plain["fp32"]["toks"], toks), \
+            f"{name} fp32 self-draft"
         assert eng.acceptance_rate == 1.0, eng.acceptance_rate
         rec = {"fp32_self_rounds": eng.spec_rounds, "fp32_self": launches}
         cfg, params, prompts, eng, toks, launches = _spec_run(
@@ -5490,13 +5977,13 @@ def spec_engines_phase(device, serve_res, rag):
             cfg, params, prompts, toks, device), True)
         rec.update(bf16_exit=launches, bf16_exit_rounds=eng.spec_rounds,
                    bf16_exit_acceptance=eng.acceptance_rate)
-        want = (rag["quant_toks_int8"] if eng_cls is RaggedServeEngine
-                else serve_res["quant_toks"])
         cfg, params, prompts, _, toks, _ = _spec_run(
             eng_cls, fp32, device, "self", quantize="int8", **extra)
+        want = _heads(rag["quant_toks_int8"] if eng_cls is RaggedServeEngine
+                      else serve_res["quant_toks"], toks)
         flips = near_tie_flips(cfg, params, prompts, toks, want, device)
         same = sum(a == b for a, b in zip(toks, want))
-        print(f"{name} fp32 int8 pool self-draft: {same}/{N_REQUESTS} "
+        print(f"{name} fp32 int8 pool self-draft: {same}/{n} "
               f"streams equal the plain int8 engine's; flips (request, "
               f"token, dense-forward logit gap) {flips}", flush=True)
         assert all(g <= TIE_GAP for _, _, g in flips), flips
@@ -5505,7 +5992,8 @@ def spec_engines_phase(device, serve_res, rag):
     _, _, _, eng, toks, _ = _spec_run(RaggedServeEngine, fp32, device, "self",
                                       chunk=CHUNK, pipeline=True,
                                       multi_step=K_PIPE)
-    assert toks == rag["fp32"]["toks"] and eng._pending is None
+    assert toks == _heads(rag["fp32"]["toks"], toks)
+    assert eng._pending is None
     print("RaggedServeEngine fp32 self-draft, pipeline=True multi_step="
           f"{K_PIPE}: tokens equal the synchronous engine's, no graph",
           flush=True)
@@ -9426,7 +9914,63 @@ def _fleet_numbers(paths):
             "fused_ring_launches": k8, "ring_passes": passes}
 
 
-def fleet_run_phase(out_root):
+def _fleet_runs():
+    """fleet_run_phase's two fleets: (dtype, transport, decode spec,
+    faults)."""
+    from burst_attn_tpu_torch.fleet import FleetFault
+
+    return (("float32", "queue", dict(FLEET_DSPEC), [
+                FleetFault(t=0.0, pool="decode", worker=1,
+                           kind="die_mid_recv", arg=1),
+                FleetFault(t=0.2, pool="decode", worker=0, kind="restart")]),
+            ("bfloat16", "socket", dict(FLEET_DSPEC, echo_digests=True), []))
+
+
+class _FleetBoot:
+    """fleet_run_phase's two FleetClusters, each started in a thread of its
+    own, so that their members boot beside the cluster phase's workers;
+    `join()` waits for both (raising a start's error) and gives the
+    seconds from here, `stop()` stops both."""
+
+    def __init__(self, out_root):
+        import threading
+
+        from burst_attn_tpu_torch.fleet import FleetCluster
+
+        self.fleets = {dtype: FleetCluster(
+            _fleet_spec(dtype, attn_backend="fused_ring"),
+            prefill_spec=FLEET_PSPEC, decode_spec=dspec, n_prefill=1,
+            n_decode=2, out_dir=os.path.join(out_root, dtype),
+            transport=transport, checkpoint_every=1, trace=True,
+            **FLEET_LIMITS) for dtype, transport, dspec, _ in _fleet_runs()}
+        self.errors = []
+        self.t0 = time.perf_counter()
+        self.threads = [threading.Thread(target=self._start, args=(fc,))
+                        for fc in self.fleets.values()]
+        for t in self.threads:
+            t.start()
+
+    def _start(self, fc):
+        try:
+            fc.start()
+        except Exception as e:  # noqa: BLE001 — raised by join()
+            self.errors.append(e)
+
+    def join(self) -> float:
+        for t in self.threads:
+            t.join()
+        if self.errors:
+            raise self.errors[0]
+        return time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        for t in self.threads:
+            t.join()
+        for fc in self.fleets.values():
+            fc.stop()
+
+
+def fleet_run_phase(out_root, boot):
     """(c) FleetCluster: 1 prefill worker (sp=2, kernel 8) and 2 decode
     replicas (sp=2), every member on the card.  fp32 over queues: a
     decode replica dies after receiving its first page (the buffered
@@ -9434,10 +9978,10 @@ def fleet_run_phase(out_root):
     and restarted from its snapshot; token-exact with `fleet_oracle`, zero
     pages left in any pool.  bf16 over sockets: the 2-byte pages'
     digests, recomputed from the replica's pool after each commit, match
-    the sender's; the streams meet the teacher-forced near-tie bar."""
-    from burst_attn_tpu_torch.fleet import FleetCluster, FleetFault, \
-        fleet_oracle
-    from burst_attn_tpu_torch.loadgen.worker import model_from_spec
+    the sender's; the streams meet the teacher-forced near-tie bar.  The
+    two fleets (`boot`, a _FleetBoot) booted beside the cluster phase;
+    they replay one at a time."""
+    from burst_attn_tpu_torch.fleet import fleet_oracle
 
     trace = _fleet_trace()
     res = {}
@@ -9446,87 +9990,88 @@ def fleet_run_phase(out_root):
         trace, _fleet_spec("float32", attn_backend="fused_ring"),
         prefill_spec=FLEET_PSPEC, decode_spec=FLEET_DSPEC)
     res["oracle_s"] = time.perf_counter() - t0
-    runs = (("float32", "queue", dict(FLEET_DSPEC), [
-                FleetFault(t=0.0, pool="decode", worker=1,
-                           kind="die_mid_recv", arg=1),
-                FleetFault(t=0.2, pool="decode", worker=0, kind="restart")]),
-            ("bfloat16", "socket", dict(FLEET_DSPEC, echo_digests=True), []))
+    start_s = boot.join()
     launches = 0
-    for dtype, transport, dspec, faults in runs:
-        spec = _fleet_spec(dtype, attn_backend="fused_ring")
+    for dtype, transport, dspec, faults in _fleet_runs():
         t0 = time.perf_counter()
-        with FleetCluster(spec, prefill_spec=FLEET_PSPEC, decode_spec=dspec,
-                          n_prefill=1, n_decode=2,
-                          out_dir=os.path.join(out_root, dtype),
-                          transport=transport, checkpoint_every=1,
-                          trace=True, **FLEET_LIMITS) as fc:
-            start_s = time.perf_counter() - t0
-            rep = fc.replay(trace, faults, speed=1.0, max_wall_s=300.0)
-            fc.stop()
-            boots, stopped = fc.boot_s, fc.stopped
-            paths = [p for p in fc.obs_paths
-                     if not p.endswith("obs_router.jsonl")]
-        assert all(b["device"].startswith("cuda") for b in boots), boots
-        assert rep.n_done == len(trace.requests), rep.outcomes
-        for info in stopped.values():  # zero pages leaked anywhere
-            assert info["pool_free"] == info["pool_usable"], stopped
-        nums = _fleet_numbers(paths)
-        launches += nums["fused_ring_launches"]
-        done = rep.completed()
-        # arrival to admission on a replica (the first token, sampled by
-        # the prefill, rides the transfer); journal-completed requests
-        # have no admission
-        ttft = sorted((o.t_submit - o.t_arrival) * 1e3
-                      for o in rep.outcomes.values()
-                      if o.t_submit is not None)
-        if dtype == "float32":
-            assert done == oracle, (done, oracle)
-            assert rep.transfers["reshipped"] >= 1, rep.transfers
-            assert sorted((k["pool"], k["worker"], bool(k.get("restarted")))
-                          for k in rep.kills) == [("decode", 0, True),
-                                                  ("decode", 1, False)]
-            agree = None
-        else:
-            assert rep.transfers["digest_checked"] == len(trace.requests)
-            assert rep.transfers["digest_mismatch"] == 0, rep.transfers
-            params, cfg, dev = model_from_spec(spec)
-            rids = sorted(done)
-            agree = agreement(cfg, params,
-                              [trace.requests[r].prompt(cfg.vocab)
-                               for r in rids], [done[r] for r in rids], dev)
-            del params
-            # 138 tokens are too few for a 95% rate at the ~3.5% flip
-            # rate: every disagreement a near tie
-            check_agreement("fleet, bf16", agree, True, min_agree=0.0)
-        if dtype == "bfloat16":  # the fault-free run: the sim's input
-            res["_sim"] = dict(trace=trace, outcomes=rep.outcomes,
-                               n_replicas=2, slots=dspec["slots"],
-                               n_prefill=1)
-        res[dtype] = {"transport": transport, "wall_s": rep.wall_s,
-                      "start_s": start_s,
-                      "fleet_s": time.perf_counter() - t0,
-                      "kills": rep.kills, "transfers": {
-                          k: v for k, v in rep.transfers.items()
-                          if k != "aborts"},
-                      "recovery_s": rep.recovery_s(),
-                      "ttft_ms": ttft, "boot_s": boots,
-                      "agreement": agree[:2] if agree else None, **nums}
-        print(f"fleet ({dtype}, {transport}, 1 prefill sp=2 fused ring + "
-              f"2 decode sp=2, {len(trace.requests)} requests): "
-              f"{'token-exact' if agree is None else 'near-tie bar met'}; "
-              f"{rep.transfers['committed']} transfers committed, "
-              f"{rep.transfers['reshipped']} re-shipped; KV "
-              f"{nums['kv_mb']:.1f} MB in {nums['pages']} pages, ship "
-              f"{nums['ship_ms_a_page']:.2f} ms a page, transfer "
-              f"{nums['transfer_ms_a_page']:.2f} ms a page; TTFT from "
-              f"arrival p50 {ttft[len(ttft) // 2]:.0f} ms max "
-              f"{ttft[-1]:.0f} ms; kernel 8 x {nums['fused_ring_launches']}"
-              f" = {FLEET_DIMS['n_layers']} x {nums['ring_passes']} ring "
-              f"passes; boot s " + ", ".join(
-                  f"{b['pool'][0]}{b['worker']}g{b['gen']} {b['s']:.1f}"
-                  for b in boots), flush=True)
+        fc = boot.fleets[dtype]
+        rep = fc.replay(trace, faults, speed=1.0, max_wall_s=300.0)
+        fc.stop()
+        paths = [p for p in fc.obs_paths
+                 if not p.endswith("obs_router.jsonl")]
+        launches += _fleet_run_check(dtype, transport, dspec, rep,
+                                     fc.boot_s, fc.stopped, paths, trace,
+                                     oracle, start_s, t0, res)
     res["launches"] = launches
     return res
+
+
+def _fleet_run_check(dtype, transport, dspec, rep, boots, stopped, paths,
+                     trace, oracle, start_s, t0, res):
+    """fleet_run_phase's checks and numbers of one fleet's replay (into
+    res[dtype]); returns its kernel 8 launches."""
+    from burst_attn_tpu_torch.loadgen.worker import model_from_spec
+
+    spec = _fleet_spec(dtype, attn_backend="fused_ring")
+    assert all(b["device"].startswith("cuda") for b in boots), boots
+    assert rep.n_done == len(trace.requests), rep.outcomes
+    for info in stopped.values():  # zero pages leaked anywhere
+        assert info["pool_free"] == info["pool_usable"], stopped
+    nums = _fleet_numbers(paths)
+    done = rep.completed()
+    # arrival to admission on a replica (the first token, sampled by
+    # the prefill, rides the transfer); journal-completed requests
+    # have no admission
+    ttft = sorted((o.t_submit - o.t_arrival) * 1e3
+                  for o in rep.outcomes.values()
+                  if o.t_submit is not None)
+    if dtype == "float32":
+        assert done == oracle, (done, oracle)
+        assert rep.transfers["reshipped"] >= 1, rep.transfers
+        assert sorted((k["pool"], k["worker"], bool(k.get("restarted")))
+                      for k in rep.kills) == [("decode", 0, True),
+                                              ("decode", 1, False)]
+        agree = None
+    else:
+        assert rep.transfers["digest_checked"] == len(trace.requests)
+        assert rep.transfers["digest_mismatch"] == 0, rep.transfers
+        params, cfg, dev = model_from_spec(spec)
+        rids = sorted(done)
+        agree = agreement(cfg, params,
+                          [trace.requests[r].prompt(cfg.vocab)
+                           for r in rids], [done[r] for r in rids], dev)
+        del params
+        # 138 tokens are too few for a 95% rate at the ~3.5% flip
+        # rate: every disagreement a near tie
+        check_agreement("fleet, bf16", agree, True, min_agree=0.0)
+    if dtype == "bfloat16":  # the fault-free run: the sim's input
+        res["_sim"] = dict(trace=trace, outcomes=rep.outcomes,
+                           n_replicas=2, slots=dspec["slots"],
+                           n_prefill=1)
+    res[dtype] = {"transport": transport, "wall_s": rep.wall_s,
+                  "start_s": start_s,
+                  "fleet_s": time.perf_counter() - t0,
+                  "kills": rep.kills, "transfers": {
+                      k: v for k, v in rep.transfers.items()
+                      if k != "aborts"},
+                  "recovery_s": rep.recovery_s(),
+                  "ttft_ms": ttft, "boot_s": boots,
+                  "agreement": agree[:2] if agree else None, **nums}
+    print(f"fleet ({dtype}, {transport}, 1 prefill sp=2 fused ring + "
+          f"2 decode sp=2, {len(trace.requests)} requests): "
+          f"{'token-exact' if agree is None else 'near-tie bar met'}; "
+          f"{rep.transfers['committed']} transfers committed, "
+          f"{rep.transfers['reshipped']} re-shipped; KV "
+          f"{nums['kv_mb']:.1f} MB in {nums['pages']} pages, ship "
+          f"{nums['ship_ms_a_page']:.2f} ms a page, transfer "
+          f"{nums['transfer_ms_a_page']:.2f} ms a page; TTFT from "
+          f"arrival p50 {ttft[len(ttft) // 2]:.0f} ms max "
+          f"{ttft[-1]:.0f} ms; kernel 8 x {nums['fused_ring_launches']}"
+          f" = {FLEET_DIMS['n_layers']} x {nums['ring_passes']} ring "
+          f"passes; boot s " + ", ".join(
+              f"{b['pool'][0]}{b['worker']}g{b['gen']} {b['s']:.1f}"
+              for b in boots), flush=True)
+    return nums["fused_ring_launches"]
 
 
 def fleet_phase(device):
@@ -9554,8 +10099,13 @@ def fleet_phase(device):
     res = {"weights_s": time.perf_counter() - t0}
     res["load"] = load_replay_phase(device)
     torch.cuda.empty_cache()
-    res["cluster"] = cluster_phase(out_root)
-    res["fleet"] = fleet_run_phase(out_root)
+    # the fleets' members boot beside the cluster phase's workers
+    boot = _FleetBoot(out_root)
+    try:
+        res["cluster"] = cluster_phase(out_root)
+        res["fleet"] = fleet_run_phase(out_root, boot)
+    finally:
+        boot.stop()
     res["_sim"] = res["fleet"].pop("_sim")
     res["launches"] = {
         "ragged_paged": res["load"]["launches"],
@@ -10124,8 +10674,12 @@ def main() -> int:
     _mark(t_start, "ulysses train phase")
     mtr = mesh_train_phase(device)
     _mark(t_start, "mesh train phase")
+    # the multihost phase's two processes boot beside the mesh2 phase
+    mh_run = MultihostPhase(device)
     m2 = mesh2_train_phase(device)
     _mark(t_start, "mesh2 train phase")
+    mh = mh_run.finish()
+    _mark(t_start, "multihost phase")
     pp_res = pp_train_phase(device)
     _mark(t_start, "pp train phase")
     _SEED_PARAMS.clear()  # the training model's seed-0 weights
@@ -10279,8 +10833,15 @@ def main() -> int:
         for name in ("fused_ring_fwd", "fused_ring_bwd")}
     uly_tp_launches = {"flash_fwd": _steps(m2["ulysses_tp"], "flash_fwd"),
                        "flash_bwd_fused": _steps(m2["ulysses_tp"], "fused")}
+    # the multihost phase's two processes: the ring op across them and the
+    # dp train step (kernels 1-5 by the route each round takes)
+    mh_launches = {name: mh["launches"].get(key, 0) for name, key in (
+        ("flash_fwd", "flash_fwd"), ("flash_bwd_fused", "fused"),
+        ("flash_bwd_dq", "dq"), ("flash_bwd_dkdv", "dkdv"))}
+    mh_launches = {k: v for k, v in mh_launches.items() if v}
+    assert mh_launches.get("flash_fwd"), mh_launches
     for extra in (tp_launches, mesh_launches, pp_mesh_launches, ep_launches,
-                  uly_tp_launches):
+                  uly_tp_launches, mh_launches):
         for name, n in extra.items():
             assert n > 0, extra
             launches[name] += n
@@ -10340,7 +10901,8 @@ def main() -> int:
             rec["mesh_launches"] = mesh_launches[rec["name"]]
         for tag, extra in (("pp_mesh_launches", pp_mesh_launches),
                            ("ep_launches", ep_launches),
-                           ("ulysses_tp_launches", uly_tp_launches)):
+                           ("ulysses_tp_launches", uly_tp_launches),
+                           ("multihost_launches", mh_launches)):
             if rec["name"] in extra:
                 rec[tag] = extra[rec["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -10377,7 +10939,8 @@ def main() -> int:
                                          "fleet_launches", "tp_launches",
                                          "mesh_launches", "pp_mesh_launches",
                                          "ep_launches", "ulysses_tp_launches",
-                                         "stats", "seg", "window", "wire")
+                                         "multihost_launches", "stats",
+                                         "seg", "window", "wire")
                        if k in r}
                     for r in kernels],
         "card": card,
@@ -10429,6 +10992,7 @@ def main() -> int:
         "tp_serve": {k: v for k, v in tpsrv.items() if k != "launches"},
         "mesh_train": mtr,
         "mesh2_train": m2,
+        "multihost": mh,
         "fleet": {k: v for k, v in fleet_res.items()
                   if k not in ("launches", "_sim")},
         "analysis": analysis_res,

@@ -206,8 +206,9 @@ def test_real_dq_ring_on_the_payload_class_fires(monkeypatch):
     matches the proven return-home stream."""
     real = mesh_mod.ppermute
 
-    def mislabelled(parts, axis, n_inter, n_intra, hops=1, cls="pay"):
-        return real(parts, axis, n_inter, n_intra, hops, "pay")
+    def mislabelled(parts, axis, n_inter, n_intra, hops=1, cls="pay",
+                    procs=None):
+        return real(parts, axis, n_inter, n_intra, hops, "pay", procs)
 
     monkeypatch.setattr(burst, "ppermute", mislabelled)
     findings = ringcheck.verify_ring_entry(ringcheck.ENTRIES[1])

@@ -3613,3 +3613,61 @@ def test_fuzz_mid_scale_scatter_on_cuda(dev, tmp_path):
     assert r["launches"]["ragged_paged_attention"] > 0
     assert ragged_paged.ragged_paged_attention.launches > before
     assert all(fz.mode_ok(v) for v in res.values()), res
+
+
+# -- two processes sharing the card (utils/multihost.py, gloo) --------------
+
+
+def test_two_processes_double_ring_bf16_on_card(dev, tmp_path):
+    """The bf16 double ring inter=2 (two processes on the one card, gloo,
+    the payloads staged through pinned host buffers) x intra=2 (local):
+    forward and gradients bitwise the one-process ring's on the card;
+    kernel 1 launched in each process; the second call reuses the first
+    call's staging buffers."""
+    import torch_multiproc_workers as W
+
+    rng = np.random.default_rng(31)
+    q, k, v, g = (rng.standard_normal((1, 4, 1024, 128), np.float32)
+                  for _ in range(4))
+    res = W.spawn(W.ring_op, 2, (q, k, v, g, "cuda", "auto", "bfloat16", 2),
+                  init_method=f"file://{tmp_path / 'rdzv'}", timeout_s=300)
+    tq, tk, tv = (torch.from_numpy(x).to(dev, torch.bfloat16)
+                  .requires_grad_() for x in (q, k, v))
+    o = burst.burst_attn(tq, tk, tv, mesh={"inter": 2, "intra": 2},
+                         seq_axes=("inter", "intra"), causal=True,
+                         layout="zigzag", backend="auto")
+    gb = torch.from_numpy(g).to(dev, torch.bfloat16).float()
+    (o.float() * gb).sum().backward()
+    for name, want in (("o", o), ("dq", tq.grad), ("dk", tk.grad),
+                       ("dv", tv.grad)):
+        got = np.concatenate([r[name] for r in res], axis=2)
+        np.testing.assert_array_equal(got, want.detach().float().cpu()
+                                      .numpy(), err_msg=name)
+    for r in res:
+        assert r["allocs"][0] == r["allocs"][1] > 0, r["allocs"]
+        assert r["stats"]["hops"] == 2 * 4, r["stats"]
+        assert r["flash_fwd_launches"] > 0
+
+
+def test_two_processes_dp_step_on_card(dev, tmp_path):
+    """The bf16 dp=2 (two processes on the one card) x sp=2 train step:
+    every loss, grad norm and first-step gradient bitwise the one-process
+    dp=2 x sp=2 step's on the card, the kernels launched in each
+    process."""
+    import torch_multiproc_workers as W
+
+    dims = dict(vocab=256, d_model=256, n_layers=1, n_heads=2, n_kv_heads=2,
+                d_head=128, d_ff=512)
+    tok = np.random.default_rng(7).integers(0, 256, (2, 257)).astype(
+        np.int32)
+    kw = dict(device="cuda", dtype="bfloat16", steps=2, dims=dims)
+    res = W.spawn(
+        W.train_steps, 2, (None, tok, W.DP_SP, ("dp",)) + tuple(kw.values()),
+        init_method=f"file://{tmp_path / 'rdzv'}", timeout_s=300)
+    one = W.train_steps(None, tok, W.DP_SP, (), **kw)
+    for r in res:
+        assert r["losses"] == one["losses"] and r["norms"] == one["norms"]
+        for i, (a, b) in enumerate(zip(r["grads"], one["grads"])):
+            np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
+        assert r["flash_fwd_launches"] > 0
+        assert r["stats"]["gathers"] > 0

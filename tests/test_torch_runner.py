@@ -165,10 +165,14 @@ def test_cli_trains_on_the_cpu_and_refuses_a_ring(data_path, tmp_path):
     assert Checkpointer(str(tmp_path / "c")).steps() == [1]
     # the sequence ring trains (test_fit_on_a_ring_matches_one_position),
     # and so do dp and tp (tests/test_torch_tp_train.py) and a pipeline
-    # beside them (tests/test_torch_pp_mesh.py); a run across hosts is
-    # ROADMAP A7b, and an axis the model splits no work over is refused
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        runner.main(argv + ["--multihost"])
+    # beside them (tests/test_torch_pp_mesh.py); --multihost without a
+    # cluster environment starts no process group and runs the
+    # one-process run (here: resumes the step-1 checkpoint, nothing left
+    # to train; across processes: tests/test_torch_multiproc.py), and an
+    # axis the model splits no work over is refused
+    runner.main(argv + ["--multihost"])
+    assert not torch.distributed.is_initialized()
+    assert Checkpointer(str(tmp_path / "c")).steps() == [1]
     with pytest.raises(ValueError, match="splits no work"):
         runner.main(argv + ["--mesh", "xp=2"])
     assert runner._parse_mesh("dp=1,sp=1") == {"dp": 1, "sp": 1}

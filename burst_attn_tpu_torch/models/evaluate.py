@@ -3,8 +3,11 @@ token file, with the training forward and no optimizer (port of
 burst_attn_tpu/models/evaluate.py).  In a run across processes each
 process reads its shard of the file (the loader's shard_id / num_shards,
 train.data_shard, as the JAX evaluator) and the token-weighted loss is
-taken over every process's sums (parallel/collectives.gather_obj), the
-same on each."""
+taken over the sums of the processes that hold distinct tokens
+(parallel/collectives.gather_obj): each row, and each part of a sequence
+split between processes, counts once, whatever other axis (tp, an expert
+axis of its own, a pipeline's stages: its last) replicates it; the same
+on each process."""
 
 import math
 
@@ -13,6 +16,7 @@ import torch
 from ..data import DataLoader
 from ..device import resolve_device
 from ..parallel.collectives import gather_obj
+from ..parallel.mesh import Mesh
 from .train import _loss_parts, batch_from_host, data_shard
 from .transformer import ModelConfig
 
@@ -49,6 +53,14 @@ class Evaluator:
         self._packed_eos_id = packed_eos_id
         self._device = resolve_device(device)
         shard_id, num_shards = data_shard(cfg, mesh)
+        # the one process that counts these tokens among those that hold
+        # them alike: the first along a replicating axis, the last along
+        # a pipeline's stages (the one with the logits)
+        data = (cfg.batch_axis, *cfg.seq_axes)
+        coords = mesh.process_coords if isinstance(mesh, Mesh) else {}
+        self._first_replica = all(
+            i == (len(mesh.axis_ranks(a)) - 1 if a == cfg.pp_axis else 0)
+            for a, i in coords.items() if a not in data)
         self._loader = DataLoader(data_path, batch, seq_len,
                                   shard_id=shard_id, num_shards=num_shards,
                                   shuffle=False)
@@ -65,9 +77,9 @@ class Evaluator:
                 packed_eos_id=self._packed_eos_id, device=self._device))
             nll_total += float(nll)
             n_total += int(n)
-        sums = gather_obj((nll_total, n_total))
-        nll_total = sum(x for x, _ in sums)
-        n_total = sum(n for _, n in sums)
+        sums = gather_obj((nll_total, n_total, self._first_replica))
+        nll_total = sum(x for x, _, first in sums if first)
+        n_total = sum(n for _, n, first in sums if first)
         loss = nll_total / max(n_total, 1)
         return {"eval_loss": loss, "ppl": math.exp(min(loss, 50.0))}
 

@@ -36,6 +36,12 @@ path's Megatron block (column-parallel projections, the tp positions'
 heads in one ring launch, all_reduce of the row-parallel partial sums),
 which is the JAX `_layer_fwd`'s hand-written psums.  Embed and lm_head
 stay whole under pp, as in JAX.
+
+Across processes (a pp axis that spans them, parallel/pipeline.py): each
+process runs its own stages; a process without the last stage computes
+no logits (its parts are empty) and adds its sends' tokens (value 0) to
+its first group's aux, which carries their gradients' arrival into the
+caller's backward.
 """
 
 import torch
@@ -65,8 +71,8 @@ def _stages(a, n_stages: int, per: int):
     """A stacked leaf [L, ...] as [P, L / P, ...] (stage p's layers at
     [p]); a Shards leaf shard by shard, its split dim one further."""
     if isinstance(a, Shards):
-        return Shards([_stages(t, n_stages, per) for t in a.parts],
-                      a.dim + 1, a.axis)
+        return a._like([_stages(t, n_stages, per) for t in a.parts],
+                       a.dim + 1)
     return a.reshape(n_stages, per, *a.shape[1:])
 
 
@@ -169,8 +175,13 @@ def pp_forward_groups(params, tokens, positions, cfg: ModelConfig, mesh,
             auxes[g].append(a)
         return [(x, p_, s_) for x, p_, s_ in zip(xs_, pos, seg)]
 
+    tokens = []
     out = pipeline(stage_fn, stage_params,
                    [(x, p_, s_) for x, p_, s_ in zip(xs, positions, segs)],
-                   mesh=mesh, axis=cfg.pp_axis, microbatches=m)
+                   mesh=mesh, axis=cfg.pp_axis, microbatches=m,
+                   tokens=tokens)
+    if out is None:  # the last stage is another process's
+        return [([], sum(a) / m + (sum(tokens) if g == 0 else 0.0))
+                for g, a in enumerate(auxes)]
     return [([_logits(_rms_norm(xf, p["final_norm"]), p["lm_head"])],
              sum(a) / m) for (xf, _, _), p, a in zip(out, params, auxes)]

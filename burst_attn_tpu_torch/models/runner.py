@@ -25,13 +25,17 @@ stage count, and `--microbatches` without a pp axis exits, as in JAX),
 beside dp, tp and ep too (`--mesh pp=2,dp=2,sp=2`, `--mesh
 pp=2,tp=2,sp=2`).  `--multihost` (the JAX runner's multi-host start)
 joins the process group (utils/multihost.initialize: torchrun's env://
-over gloo) and spans the mesh's leading axes over the processes
-(parallel/mesh.py `process_axes_for`): `--mesh dp=2,sp=2` in two
-processes puts a dp group in each, every process reading its shard of
-the token stream; `--mesh inter=2,intra=2` puts a half of the double
-ring's positions in each (both read the same rows).  Only dp and the
-inter axis may span the processes of a training run; anything else
-raises NotImplementedError naming ROADMAP A7b.  Only the
+over gloo) and lays the mesh over the processes in JAX's process-major
+order (parallel/mesh.py `process_layout`, derived from the process
+count): `--mesh dp=2,sp=2` in two processes puts a dp group in each,
+every process reading its shard of the token stream; `--mesh
+inter=2,intra=2` puts a half of the double ring's positions in each
+(both read the same rows); `--mesh sp=4` splits the ring 2 + 2;
+`--mesh tp=2,sp=2` puts a tp position's shards in each; `--mesh
+ep=2,sp=2 --n-experts 4` an expert owner; `--mesh pp=2,sp=2` a stage.
+A mesh whose positions do not divide between the processes raises
+ValueError; a pipeline model with its sequence, tp or expert axis across
+processes raises NotImplementedError naming ROADMAP A7b.  Only the
 primary process logs and writes checkpoints; `--obs-export` writes one
 file a process (`.p<rank>` before the suffix), which `python -m
 burst_attn_tpu_torch.obs --merge` folds.  The JAX runner's

@@ -76,21 +76,27 @@ group's tokens.  A pipeline takes dp (each dp group its own pipeline, or
 its ticks in lockstep with the experts on dp), tp and ep beside its
 stages.
 
-Across processes (`make_mesh({"dp": 2, "sp": 2}, process_axes=("dp",))`
-in a process group, utils/multihost.py): each process holds its own dp
-group and its rows of the batch (batch_from_host takes the process's
-LOCAL rows, so the global batch is local_B x the processes on dp), the
-valid-label count is summed over the processes, and the all_reduce(mean)
-of the groups' gradients and losses gathers the other processes' parts
-(parallel/mesh.py): the clip and AdamW then see the same gradients on
-every process, bit for bit those of the one-process dp step.  The double
-ring's inter axis may span processes too (`process_axes=("inter",)`):
-each process then holds its part of the sequence, its ring hops cross
-to the next process, and the replicated leaves' gradients and the loss,
-each process's tokens' share, are summed over the ring's processes
-(equal to the one-process step up to fp32 summation order).  No other
-axis may span the processes of a training run, nor an MoE model's
-experts or ring (ROADMAP A7b).
+Across processes (`make_mesh(sizes, process_axes="auto")` in a process
+group, utils/multihost.py): the mesh is laid over the processes in JAX's
+process-major order (parallel/mesh.py process_layout), so any axis may
+span them.  Each process holds its positions: its dp groups and their
+rows of the batch (batch_from_host takes the process's LOCAL rows, so the
+global batch is local_B x the processes on dp), its part of the sequence
+when a ring's (or Ulysses') axis spans processes, its tp shards, its
+experts.  The valid-label count is summed over the processes that hold
+distinct tokens (dp and the sequence axes); the dp groups' gradients and
+losses meet in all_reduce(mean) over the processes (bit for bit the
+one-process dp step); over a sequence axis across processes each
+process's gradients and loss are its tokens' share, summed over them in
+position order (the one-process step up to fp32 summation order); tp
+across processes keeps Megatron's conventions (transformer.py: every
+process's replicated leaves carry the whole gradient, the global norm
+gathers the other processes' shards' squares); an MoE model's expert
+leaves, each owned by one process of the expert axis, are summed over
+it.  A pipeline's stages may span processes (a stage or more a process:
+models/pipeline_lm.py, parallel/pipeline.py), its gradients and the loss
+then summed over them; a pipeline model's sequence, tp or expert axis
+across processes is ROADMAP A7b.
 
 The TPU-only tri-backward compile probe (`probe_model_tri_bwd`) has no
 counterpart: a CUDA kernel either builds or the run stops.
@@ -107,11 +113,14 @@ import torch.nn.functional as F
 from .. import obs
 from ..device import resolve_device
 from ..parallel import layouts
-from ..parallel.mesh import Mesh, all_reduce, axis_size, process_axes
+from ..parallel.mesh import (
+    Mesh, _gathered, all_reduce, axis_size, crosses, process_axes,
+)
 from .transformer import (
-    ModelConfig, alias_params, check_mesh, check_tp, dp_groups,
-    ep_on_batch, expert_leaf_ids, forward_groups, forward_parts,
+    ModelConfig, Shards, alias_params, check_mesh, check_tp,
+    dp_groups, ep_on_batch, expert_leaf_ids, forward_groups, forward_parts,
     group_mesh, init_params, param_leaves, ring_world, shard_params,
+    tree_leaves,
 )
 
 logger = obs.get_logger(__name__)
@@ -146,10 +155,10 @@ def make_mesh(axis_sizes: dict, devices=None, *, process_axes=(),
     or "inter" and "intra" for the double ring), "dp", "tp", "ep" and a
     pipeline's "pp" take any size, in any combination, their positions
     and stages sharing one device; any other axis must have size 1
-    (ValueError: the model splits no work over it).  `process_axes`: the
-    outermost axes that span the processes of the run (parallel/mesh.py
-    `process_axes_for`); then the result is a parallel.mesh.Mesh on
-    `device` carrying them."""
+    (ValueError: the model splits no work over it).  `process_axes`:
+    "auto" (or the axes parallel/mesh.py `process_axes_for` gives) lays
+    the mesh over the processes of the run; then the result is a
+    parallel.mesh.Mesh on `device`."""
     del devices
     sizes = {str(k): int(v) for k, v in dict(axis_sizes).items()}
     check_mesh(sizes, tuple(a for a in ("sp", "inter", "intra")
@@ -160,54 +169,39 @@ def make_mesh(axis_sizes: dict, devices=None, *, process_axes=(),
 
 
 def _world(cfg: ModelConfig, mesh) -> int:
-    """Ring size over cfg.seq_axes of `mesh`, after the process-axis
-    check (_check_processes)."""
-    _check_processes(cfg, mesh)
+    """Ring size over cfg.seq_axes of `mesh`; a pipeline model's mesh may
+    span processes on its stage and batch axes only (NotImplementedError
+    naming ROADMAP A7b)."""
+    if cfg.pp_axis is not None:
+        other = [a for a in process_axes(mesh)
+                 if a not in (cfg.pp_axis, cfg.batch_axis)]
+        if other:
+            raise NotImplementedError(
+                f"a pipeline model with mesh axes {other} across processes:"
+                f" its sequence, tp or expert axis across processes is "
+                "ROADMAP A7b; only its stage and batch axes may span them")
     return ring_world(cfg, mesh)
 
 
-def _check_processes(cfg: ModelConfig, mesh) -> None:
-    """A training mesh may span processes on its batch axis and its double
-    ring's inter axis (NotImplementedError naming ROADMAP A7b otherwise);
-    an MoE model only on the batch axis, its experts not on it (the
-    exchange and the ring positions' routing groups across processes)."""
-    axes = process_axes(mesh)
-    other = [a for a in axes if a not in (cfg.batch_axis, _ring_procs(
-        cfg, mesh))]
-    if other:
-        raise NotImplementedError(
-            f"training with mesh axes {other} across processes: only the "
-            f"batch axis {cfg.batch_axis!r} and a double ring's inter axis "
-            "may span the processes of a training run (ROADMAP A7b)")
-    if axes and (ep_on_batch(cfg, mesh)
-                 or (cfg.n_experts and _ring_procs(cfg, mesh))):
-        raise NotImplementedError(
-            f"an MoE model with its experts or its ring on mesh axes "
-            f"{axes} across processes: the expert exchange and the ring "
-            "positions' routing groups across processes are ROADMAP A7b")
-
-
-def _ring_procs(cfg: ModelConfig, mesh):
-    """The double ring's inter axis when it spans processes, else None."""
-    if len(cfg.seq_axes) == 2 and cfg.seq_axes[0] in process_axes(mesh):
-        return cfg.seq_axes[0]
-    return None
+def _crossing(mesh, axes):
+    """The axes of `axes` (names or None) that span processes of `mesh`."""
+    return [a for a in axes if a is not None and crosses(mesh, a)]
 
 
 def data_shard(cfg: ModelConfig, mesh):
     """(shard_id, num_shards) of this process's rows of the token stream:
-    its index on the batch axis among the processes there (the processes
-    along a ring's inter axis read the same rows, each keeping its part
-    of the sequence); for a mesh without process axes its rank among the
-    run's processes, as the JAX runner shards its loader."""
-    axes = process_axes(mesh)
-    if not axes:
+    its index among the processes along the batch axis when that spans
+    processes (the rows of every dp index it holds; the processes of any
+    other axis read the same rows, a sequence axis's each keeping its
+    part of the sequence); for a mesh not laid over processes its rank
+    among the run's processes, as the JAX runner shards its loader."""
+    if not isinstance(mesh, Mesh) or mesh.transport is None:
         from ..utils.multihost import process_count, process_index
 
         return process_index(), process_count()
-    if cfg.batch_axis in axes:
-        return (mesh.process_coords[cfg.batch_axis],
-                axis_size(mesh, cfg.batch_axis))
+    if mesh.crosses(cfg.batch_axis):
+        return (mesh.axis_index(cfg.batch_axis),
+                len(mesh.axis_ranks(cfg.batch_axis)))
     return 0, 1
 
 
@@ -247,28 +241,36 @@ def _loss_parts(params, tokens, positions, labels, cfg: ModelConfig,
     ring telemetry (forward_with_aux)."""
     out = forward_parts(params, tokens, positions, cfg, mesh,
                         segment_ids=segment_ids, collect_stats=collect_stats)
-    return (_nll_sum(out[0], labels, cfg),) + tuple(out[1:])
+    return (_nll_sum(out[0], labels, cfg, mesh),) + tuple(out[1:])
 
 
-def _nll_sum(parts, labels, cfg: ModelConfig):
+def _nll_sum(parts, labels, cfg: ModelConfig, mesh=None):
     """The masked next-token nll summed over the tokens, from the logits
-    of forward_parts (one part, or the vocab shards of the tp
-    positions)."""
-    if len(parts) > 1:
-        return _vocab_parallel_nll(parts, labels, cfg.head_axis).sum()
+    of forward_parts (one part, or the vocab shards of the tp positions:
+    this process's when tp spans processes of `mesh`; none on a pipeline
+    process without the last stage: 0)."""
+    if not parts:
+        return torch.zeros((), dtype=torch.float32, device=labels.device)
+    if len(parts) > 1 or crosses(mesh, cfg.head_axis):
+        return _vocab_parallel_nll(parts, labels, cfg.head_axis,
+                                   mesh).sum()
     target = torch.where(labels >= 0, labels, -100).long()
     return F.cross_entropy(parts[0].flatten(0, 1), target.flatten(),
                            ignore_index=-100, reduction="sum")
 
 
-def _vocab_parallel_nll(parts, labels, axis="tp"):
+def _vocab_parallel_nll(parts, labels, axis="tp", mesh=None):
     """Megatron's vocab-parallel cross entropy: the per-token nll [B, S]
     (0 where labels < 0) from each tp position's fp32 logits over its
     vocab shard, without gathering the logits: the max (a constant of the
     gradient), the sum of exponentials and the target's logit, each an
-    all_reduce over the shards."""
-    m = all_reduce([p.detach().amax(-1) for p in parts], "max", axis)[0]
-    sum_exp, target, lo = [], [], 0
+    all_reduce over the shards (across the processes when `axis` spans
+    them: the parts are this process's shards)."""
+    m = all_reduce([p.detach().amax(-1) for p in parts], "max", axis,
+                   mesh=mesh)[0]
+    lo = (mesh.local_start(axis) * parts[0].shape[-1]
+          if crosses(mesh, axis) else 0)
+    sum_exp, target = [], []
     for p in parts:
         sum_exp.append((p - m[..., None]).exp().sum(-1))
         local = labels.long() - lo
@@ -276,8 +278,8 @@ def _vocab_parallel_nll(parts, labels, axis="tp"):
         hit = p.gather(-1, local.clamp(0, p.shape[-1] - 1)[..., None])[..., 0]
         target.append(torch.where(ok, hit, 0.0))
         lo += p.shape[-1]
-    se = all_reduce(sum_exp, "sum", axis)[0]
-    tl = all_reduce(target, "sum", axis)[0]
+    se = all_reduce(sum_exp, "sum", axis, mesh=mesh)[0]
+    tl = all_reduce(target, "sum", axis, mesh=mesh)[0]
     return torch.where(labels >= 0, se.log() + m - tl, 0.0)
 
 
@@ -294,9 +296,26 @@ def loss_fn(params, tokens, positions, labels, cfg: ModelConfig, mesh=None,
     return (loss, out[2]) if collect_stats else loss
 
 
-def _global_norm(grads) -> torch.Tensor:
-    """fp32 l2 norm over every gradient (optax.global_norm)."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def _global_norm(params) -> torch.Tensor:
+    """fp32 l2 norm over every gradient (optax.global_norm), summed in
+    param_leaves' order; when tp spans processes the other processes'
+    shards' squares are gathered, so every process sums the whole tree's
+    squares in the one-process order."""
+    sq, mine, mesh, axis = [], [], None, None
+    for leaf in tree_leaves(params):
+        ts = leaf.parts if isinstance(leaf, Shards) else [leaf]
+        got = [t.grad.float().square().sum() for t in ts]
+        if isinstance(leaf, Shards) and leaf.total > len(ts):
+            sq.append((len(mine), len(ts)))
+            mine += got
+            mesh, axis = leaf.mesh, leaf.axis
+        else:
+            sq.append(got)
+    if mine:
+        procs = _gathered([torch.stack(mine)], axis, mesh)[0]
+        sq = [[v[i] for v in procs for i in range(at[0], at[0] + at[1])]
+              if isinstance(at, tuple) else at for at in sq]
+    return torch.sqrt(sum(x for got in sq for x in got))
 
 
 def _clip_(grads, norm: torch.Tensor, max_norm: float) -> None:
@@ -366,7 +385,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         stats = None
         groups = dp_groups(cfg, mesh, tokens.shape[0])
         if (accum == 1 and axis_size(mesh, cfg.batch_axis) == 1
-                and not process_axes(mesh)):
+                and not _crossing(mesh, cfg.seq_axes)):
+            # every process holds all the tokens (a tp or expert axis
+            # across processes replicates them): the one-process step
             loss = loss_fn(params, tokens, positions, labels, cfg, mesh,
                            moe_aux_weight=aux_w, segment_ids=seg,
                            collect_stats=collect)
@@ -377,6 +398,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
             for t in leaves:
                 if t.grad is None:  # a parameter the loss does not reach
                     t.grad = torch.zeros_like(t)
+            if process_axes(mesh):
+                loss = _reduce_across(params, leaves, loss)
         elif ep_on_batch(cfg, mesh):
             loss, stats = _coupled_backward(params, leaves, tokens,
                                             positions, labels, seg, groups)
@@ -384,7 +407,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
             loss, stats = _grouped_backward(params, leaves, tokens,
                                             positions, labels, seg, groups)
         grads = [t.grad for t in leaves]
-        gnorm = _global_norm(grads)
+        gnorm = _global_norm(params)
         _clip_(grads, gnorm, tcfg.grad_clip)
         opt.step()
         return ((params, opt), {"loss": loss, "grad_norm": gnorm}), stats
@@ -401,7 +424,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                              + (f" within its {len(groups)} dp groups"
                                 if len(groups) > 1 else ""))
         v = (labels >= 0).sum()
-        for a in process_axes(mesh):
+        for a in _crossing(mesh, (cfg.batch_axis,) + tuple(cfg.seq_axes)):
             v = all_reduce([v], "sum", a, mesh=mesh)[0]
         return per // accum, v.clamp(min=1).float()
 
@@ -416,8 +439,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         a group's pieces carry the factor dp, and the MoE aux rides each
         microbatch with weight v_total / accum.  When dp spans processes
         `groups` are this process's own and the mean meets the others';
-        when the ring's inter axis does, each process's gradients and
-        loss are its tokens' share, summed over the ring's processes."""
+        then _reduce_across."""
         dp = axis_size(mesh, cfg.batch_axis)
         gm = group_mesh(cfg, mesh)
         mb, v_total = _microbatches(tokens, labels, groups)
@@ -461,12 +483,36 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                 del parts
             loss = all_reduce(group_loss, "mean", cfg.batch_axis,
                               mesh=mesh)[0]
-        sx = _ring_procs(cfg, mesh)
-        if sx is not None:
+        return _reduce_across(params, leaves, loss), stats
+
+    def _reduce_across(params, leaves, loss):
+        """The sums across processes after the dp mean: over each
+        sequence axis that spans processes, every gradient and the loss
+        (each process's tokens' share), in position order; over an expert
+        axis of its own (or tp) that spans them, the expert leaves (each
+        process's gradient holds its own experts' rows alone); over a
+        pipeline's stage axis that spans them (after the stage hops'
+        gradient sends), every gradient and the loss: each process holds
+        its stages' (and the embed's or the head's) alone and its share of
+        the objective.  Returns the loss."""
+        if _crossing(mesh, (cfg.pp_axis,)):
+            mesh.transport.drain()
             for t in leaves:
-                t.grad = all_reduce([t.grad], "sum", sx, mesh=mesh)[0]
-            loss = all_reduce([loss], "sum", sx, mesh=mesh)[0]
-        return loss, stats
+                t.grad = all_reduce([t.grad], "sum", cfg.pp_axis,
+                                    mesh=mesh)[0]
+            loss = all_reduce([loss], "sum", cfg.pp_axis, mesh=mesh)[0]
+        for a in _crossing(mesh, cfg.seq_axes):
+            for t in leaves:
+                t.grad = all_reduce([t.grad], "sum", a, mesh=mesh)[0]
+            loss = all_reduce([loss], "sum", a, mesh=mesh)[0]
+        ea = cfg.expert_axis
+        if (cfg.n_experts and ea not in (cfg.batch_axis, *cfg.seq_axes)
+                and _crossing(mesh, (ea,))):
+            experts = expert_leaf_ids(params)
+            for t in leaves:
+                if id(t) in experts:
+                    t.grad = all_reduce([t.grad], "sum", ea, mesh=mesh)[0]
+        return loss
 
     def _coupled_backward(params, leaves, tokens, positions, labels, seg,
                           groups):
@@ -483,8 +529,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
         leaf's gradient is its owner's alone, the sum over every group's
         tokens (JAX's shard_map transpose of the all_to_all), with no
         reduction over dp.  The pieces carry the factor dp of the
-        group mean, so the experts' sum is divided by dp too."""
-        dp = len(groups)
+        group mean, so the experts' sum is divided by dp too.  When dp
+        spans processes each holds its own groups and experts: the
+        exchange and the aux mean cross them (transformer._mlp_groups),
+        and each expert leaf's gradient, nonzero on its owner's rows
+        alone, is summed over them."""
+        dp = axis_size(mesh, cfg.batch_axis)
         gm = group_mesh(cfg, mesh)
         mb, v_total = _microbatches(tokens, labels, groups)
         experts = expert_leaf_ids(params)
@@ -503,7 +553,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                 collect_stats=collect)
             pieces = []
             for o, sl in zip(outs, sls):
-                pieces.append(dp * _nll_sum(o[0], labels[sl], cfg)
+                pieces.append(dp * _nll_sum(o[0], labels[sl], cfg, gm)
                               + aux_w * o[1] * (v_total / accum))
                 if collect:
                     from ..obs import devstats
@@ -512,9 +562,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                         stats, o[2])
             torch.stack(pieces).sum().backward()
             sums = [s + p.detach() for s, p in zip(sums, pieces)]
+        across = _crossing(mesh, (cfg.batch_axis,))
         for j, t in enumerate(leaves):
             if id(t) in experts:
                 g = t.grad if t.grad is not None else torch.zeros_like(t)
+                if across:
+                    g = all_reduce([g], "sum", cfg.batch_axis, mesh=mesh)[0]
                 t.grad = g / (dp * v_total)
                 continue
             parts = [(gl[j].grad if gl[j].grad is not None
@@ -522,10 +575,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                      for gl in group_leaves]
             for gl in group_leaves:
                 gl[j].grad = None
-            t.grad = all_reduce(parts, "mean", cfg.batch_axis)[0]
+            t.grad = all_reduce(parts, "mean", cfg.batch_axis, mesh=mesh)[0]
             del parts
-        return all_reduce([s / v_total for s in sums], "mean",
-                          cfg.batch_axis)[0], stats
+        loss = all_reduce([s / v_total for s in sums], "mean",
+                          cfg.batch_axis, mesh=mesh)[0]
+        return _reduce_across(params, leaves, loss), stats
 
     return guarded_step
 
@@ -542,9 +596,9 @@ def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
     natural order) as the layout-ordered batch dict `make_train_step`
     consumes, on `device` (default: the card).  In a run across processes
     these are the process's LOCAL rows (its shard of the loader's
-    stream); the global batch is local_B x the processes on dp.  When the
-    ring's inter axis spans processes the batch keeps this process's part
-    of the layout-order sequence (its inter row's shards).  Labels were
+    stream); the global batch is local_B x the processes on dp.  When a
+    sequence axis spans processes the batch keeps this process's part of
+    the layout-order sequence (its ring positions' shards).  Labels were
     shifted by the loader; here they only get the layout permutation at
     the mesh's ring world (the identity on one position).
 
@@ -556,10 +610,10 @@ def batch_from_host(tokens, labels, cfg: ModelConfig, mesh=None,
     tokens, labels = np.asarray(tokens), np.asarray(labels)
     b, s = tokens.shape
     perm = layouts.seq_permutation(cfg.layout, s, _world(cfg, mesh))
-    sx = _ring_procs(cfg, mesh)
-    if sx is not None:  # this process's inter row of the ring's shards
-        n, i = axis_size(mesh, sx), mesh.process_coords[sx]
-        perm = perm[i * s // n:(i + 1) * s // n]
+    procs = mesh.ring_procs(cfg.seq_axes) if isinstance(mesh, Mesh) else None
+    if procs is not None:  # this process's ring positions' shards
+        w = len(procs.owners)
+        perm = perm[procs.pos[0] * s // w:(procs.pos[-1] + 1) * s // w]
 
     def put(a):
         return torch.from_numpy(np.array(a, dtype=np.int64)).to(dev)

@@ -60,6 +60,21 @@ expert axis the groups run layer by layer in lockstep (ep_on_batch).
 The same tree of a pipeline (cfg.pp_axis) splits its stacked leaves
 behind the stage dim, and a pp mesh takes dp, tp and the expert axis
 beside its stages (models/pipeline_lm.py).
+
+Across processes (a parallel/mesh.py Mesh laid over the processes of a
+run): every loop above runs over this process's positions only.  tp
+across processes holds only this process's shards (`Shards.first`,
+`.total`; `full()` gathers the others'), and the activations every tp
+position holds alike are held once a process: they enter the positions'
+column-parallel products through Megatron's f (mesh.copy_to: the
+backward sums their gradient over the processes) and leave the
+row-parallel ones through its g (all_reduce over the processes, whose
+backward hands each process the whole gradient), so every process's
+replicated activations and replicated leaves carry the whole gradient.
+An MoE layer's routing groups are this process's (dp groups, ring
+positions), its exchange reaches the other processes' over an expert
+axis that spans them (moe_shard(mesh=)); over a sequence axis that
+spans processes each process's aux is its slices' share of the mean.
 """
 
 import itertools
@@ -78,7 +93,8 @@ from ..ops.masks import check_window
 from ..ops.tile import single_device_attention
 from ..parallel.burst import burst_attn
 from ..parallel.mesh import (
-    all_gather, all_reduce, axis_size, local_size, seq_mesh, sub_mesh,
+    _gathered, all_gather, all_reduce, axis_size, copy_to, crosses,
+    local_size, seq_mesh, sub_mesh,
 )
 from ..parallel.moe import MoEParams, capacity_for, init_moe_params, \
     moe_shard
@@ -284,23 +300,37 @@ def param_specs(cfg: ModelConfig) -> Params:
 
 class Shards:
     """A parameter split over the tp positions of mesh axis `axis` along
-    dimension `dim` of the whole tensor: `parts[t]` is position t's
-    contiguous shard."""
+    dimension `dim` of the whole tensor: `parts[t]` is position
+    `first + t`'s contiguous shard, of `total` (this process's positions
+    when tp spans processes of `mesh`; all of them otherwise)."""
 
-    def __init__(self, parts, dim: int, axis: Optional[str] = None):
+    def __init__(self, parts, dim: int, axis: Optional[str] = None, *,
+                 total: Optional[int] = None, first: int = 0, mesh=None):
         self.parts = list(parts)
         self.dim = int(dim)
         self.axis = axis
+        self.total = len(self.parts) if total is None else int(total)
+        self.first = int(first)
+        self.mesh = mesh
 
     def __len__(self):
         return len(self.parts)
 
+    def _like(self, parts, dim) -> "Shards":
+        return Shards(parts, dim, self.axis, total=self.total,
+                      first=self.first, mesh=self.mesh)
+
     def full(self) -> torch.Tensor:
-        """The whole tensor (the shards joined along `dim`)."""
-        return torch.cat([t.detach() for t in self.parts], dim=self.dim)
+        """The whole tensor (the shards joined along `dim`; across
+        processes the others' gathered first: every process of the tp
+        axis calls it)."""
+        parts = [t.detach() for t in self.parts]
+        if self.total > len(parts):
+            parts = _gathered(parts, self.axis, self.mesh)[0]
+        return torch.cat(parts, dim=self.dim)
 
     def map(self, fn) -> "Shards":
-        return Shards([fn(t) for t in self.parts], self.dim, self.axis)
+        return self._like([fn(t) for t in self.parts], self.dim)
 
     def __getitem__(self, i: int) -> "Shards":
         """The shards of x[i] along the leading dim of a stacked (pp) leaf,
@@ -308,7 +338,7 @@ class Shards:
         if self.dim == 0:
             raise IndexError("the leading dim of these Shards is the split "
                              "one")
-        return Shards([t[i] for t in self.parts], self.dim - 1, self.axis)
+        return self._like([t[i] for t in self.parts], self.dim - 1)
 
     __iter__ = None  # indexing slices the stacked dim; iterate `parts`
 
@@ -373,13 +403,18 @@ def shard_params(params: Params, cfg: ModelConfig, mesh) -> ShardedParams:
     for this mesh's tp is returned as it is; one split for another tp is
     joined and split again (checkpoints restore across tp sizes).  A
     pipeline's stacked leaves split by param_specs' pp branch: the stage
-    dim first, then the leaf's tp dim (embed and lm_head stay whole)."""
+    dim first, then the leaf's tp dim (embed and lm_head stay whole).
+    When tp spans processes of `mesh`, each Shards holds this process's
+    positions only."""
     tp = check_tp(cfg, mesh, strict=True)
     if isinstance(params, ShardedParams):
         if params.tp == tp:
             return params
         params = unshard_params(params)
     specs = param_specs(cfg)
+    across = crosses(mesh, cfg.head_axis)
+    first = mesh.local_start(cfg.head_axis) if across else 0
+    held = mesh.local_size(cfg.head_axis) if across else tp
 
     def split(x, spec):
         if isinstance(x, dict):
@@ -389,8 +424,9 @@ def shard_params(params: Params, cfg: ModelConfig, mesh) -> ShardedParams:
         if cfg.head_axis is None or cfg.head_axis not in spec:
             return x
         dim = spec.index(cfg.head_axis)
-        return Shards([c.contiguous() for c in x.detach().chunk(tp, dim)],
-                      dim, cfg.head_axis)
+        return Shards([c.contiguous() for c in x.detach().chunk(tp, dim)
+                       [first:first + held]], dim, cfg.head_axis, total=tp,
+                      first=first, mesh=mesh if across else None)
 
     return ShardedParams(split(dict(params), specs), _mesh_shape(mesh),
                          cfg.head_axis, tp)
@@ -499,31 +535,46 @@ def tp_parts(p) -> list:
              for k, v in p.items()} for t in range(n)]
 
 
-def tp_sum(parts, axis: Optional[str]):
+def tp_sum(parts, axis: Optional[str], mesh=None):
     """The replicated sum of the tp positions' partial sums over mesh axis
     `axis` (cfg.head_axis; one part: the part itself; more: all_reduce,
     every position's copy alike, so the one value every position holds
-    is kept)."""
-    if len(parts) == 1:
+    is kept).  When `axis` spans processes of `mesh` the parts are this
+    process's and the sum is Megatron's g across them."""
+    if len(parts) == 1 and not crosses(mesh, axis):
         return parts[0]
-    return all_reduce(parts, "sum", axis)[0]
+    return all_reduce(parts, "sum", axis, mesh=mesh)[0]
 
 
-def _embed(params, tokens, cfg: ModelConfig):
+def tp_inputs(x, n: int, axis: Optional[str], mesh=None) -> list:
+    """`x` (alike on every tp position) as the input of each of this
+    process's `n` tp positions: one alias a position when n > 1, so that
+    autograd sums x's gradient position by position, the last first; when
+    `axis` spans processes of `mesh`, through Megatron's f (mesh.copy_to,
+    which sums over the processes in the same order: one tp position a
+    process gives the one-process run's gradient bit for bit)."""
+    x = copy_to(x, axis, mesh)
+    if n == 1:
+        return [x]
+    return [x.view_as(x) for _ in range(n)]
+
+
+
+def _embed(params, tokens, cfg: ModelConfig, mesh=None):
     """The embedding rows of `tokens` in cfg.dtype; a vocab-parallel embed
     (Shards over tp): each position looks up the ids of its vocab shard,
     zeros the others, and all_reduce adds the positions' rows."""
     emb = params["embed"]
     if not isinstance(emb, Shards):
         return emb[tokens].to(cfg.dtype)
-    parts, lo = [], 0
+    parts, lo = [], emb.first * emb.parts[0].shape[0]
     for e in emb.parts:
         local = tokens - lo
         ok = (local >= 0) & (local < e.shape[0])
         rows = e[local.clamp(0, e.shape[0] - 1)].to(cfg.dtype)
         parts.append(rows.masked_fill(~ok[..., None], 0))
         lo += e.shape[0]
-    return tp_sum(parts, emb.axis)
+    return tp_sum(parts, emb.axis, mesh)
 
 
 def _mlp(p, x, cfg: ModelConfig, mesh=None, inference: bool = False):
@@ -553,25 +604,27 @@ def _moe_sets(cfg: ModelConfig, mesh, n_groups: int):
     in lockstep on `mesh` (their mesh: dp at size 1), flat k = g * W + j
     for dp group g and sequence position j of the W = ring_world ones
     (row-major over cfg.seq_axes), arranged as the JAX `_mlp`'s shard_map
-    exchanges them: (sets, r), each set the groups that swap slots over
-    cfg.expert_axis in that axis's order, and r the copies of each member
-    (> 1 when the expert axis holds replicas of the tokens: an axis of
-    its own, or tp).  No expert axis: every group alone, r = 1."""
+    exchanges them: (sets, r, replicated), each set the groups that swap
+    slots over cfg.expert_axis in that axis's order, r the copies of each
+    member (> 1 when the expert axis holds replicas of the tokens: an axis
+    of its own, or tp) and whether the axis holds such replicas.  No
+    expert axis: every group alone, r = 1.  Across processes the groups
+    and copies are this process's (local_size)."""
     axes = [(cfg.batch_axis, n_groups)] + [
-        (a, axis_size(mesh, a)) for a in cfg.seq_axes]
+        (a, local_size(mesh, a)) for a in cfg.seq_axes]
     n = math.prod(size for _, size in axes)
     ea = cfg.expert_axis
     names = [a for a, _ in axes]
     if ea is None or not cfg.n_experts:
-        return [[k] for k in range(n)], 1
+        return [[k] for k in range(n)], 1, False
     if ea in names:
         i = names.index(ea)
         sets = {}
         for k, c in enumerate(itertools.product(*(range(size)
                                                   for _, size in axes))):
             sets.setdefault(c[:i] + c[i + 1:], []).append(k)
-        return list(sets.values()), 1
-    return [[k] for k in range(n)], axis_size(mesh, ea)
+        return list(sets.values()), 1, False
+    return [[k] for k in range(n)], local_size(mesh, ea), True
 
 
 def _mlp_groups(ps, xs, cfg: ModelConfig, mesh=None):
@@ -591,37 +644,50 @@ def _mlp_groups(ps, xs, cfg: ModelConfig, mesh=None):
     hs = [_rms_norm(x, p["mlp_norm"]) for p, x in zip(ps, xs)]
     if not cfg.n_experts:
         # split over tp: column-parallel gate / up, row-parallel down
-        return [tp_sum([(F.silu(h @ pt["w_gate"]) * (h @ pt["w_up"]))
-                        @ pt["w_down"] for pt in tp_parts(p)], cfg.head_axis)
-                for p, h in zip(ps, hs)], [0.0] * len(ps)
+        out = []
+        for p, h in zip(ps, hs):
+            parts = tp_parts(p)
+            ins = tp_inputs(h, len(parts), cfg.head_axis, mesh)
+            out.append(tp_sum([(F.silu(hp @ pt["w_gate"])
+                                * (hp @ pt["w_up"])) @ pt["w_down"]
+                               for pt, hp in zip(parts, ins)],
+                              cfg.head_axis, mesh))
+        return out, [0.0] * len(ps)
     w = ring_world(cfg, mesh)
+    wl = math.prod(local_size(mesh, a) for a in cfg.seq_axes)  # held here
     b, s, d = hs[0].shape
     top_k = cfg.moe_top_k
-    cap = capacity_for(b * s // w, cfg.n_experts, top_k,
+    cap = capacity_for(b * s // wl, cfg.n_experts, top_k,
                        cfg.moe_capacity_factor)
     mps = [MoEParams(p["router"], p["w_gate"], p["w_up"], p["w_down"])
            for p in ps]
-    chunks = [c.reshape(-1, d) for h in hs for c in h.chunk(w, dim=1)]
+    chunks = [c.reshape(-1, d) for h in hs for c in h.chunk(wl, dim=1)]
     ys, auxes = [None] * len(chunks), [None] * len(chunks)
-    sets, r = _moe_sets(cfg, mesh, len(ps))
+    sets, r, replicated = _moe_sets(cfg, mesh, len(ps))
+    across = crosses(mesh, cfg.expert_axis)
     for members in sets:
-        if len(members) == 1 and r == 1:
+        if len(members) == 1 and r == 1 and not across:
             k = members[0]
-            ys[k], auxes[k], _ = moe_shard(mps[k // w], chunks[k],
+            ys[k], auxes[k], _ = moe_shard(mps[k // wl], chunks[k],
                                            top_k=top_k, capacity=cap)
             continue
-        out, aux, _ = moe_shard([mps[k // w] for k in members
+        out, aux, _ = moe_shard([mps[k // wl] for k in members
                                  for _ in range(r)],
                                 [chunks[k] for k in members
                                  for _ in range(r)],
                                 top_k=top_k, capacity=cap,
-                                axis=cfg.expert_axis)
+                                axis=cfg.expert_axis, mesh=mesh,
+                                replicated=replicated)
         for i, k in enumerate(members):
             ys[k], auxes[k] = out[i * r], aux
-    return ([torch.cat([y.reshape(b, -1, d) for y in ys[g * w:(g + 1) * w]],
-                       dim=1) for g in range(len(ps))],
-            [torch.stack(auxes[g * w:(g + 1) * w]).mean()
-             for g in range(len(ps))])
+    # a sequence split between processes: each its slices' share of the
+    # mean over all w (the trainer sums the shares)
+    share = ((lambda a: torch.stack(a).sum() / w) if wl < w
+             else (lambda a: torch.stack(a).mean()))
+    return ([torch.cat([y.reshape(b, -1, d) for y in ys[g * wl:(g + 1)
+                                                          * wl]], dim=1)
+             for g in range(len(ps))],
+            [share(auxes[g * wl:(g + 1) * wl]) for g in range(len(ps))])
 
 
 def _logits(x, lm_head):
@@ -636,11 +702,14 @@ def _logits(x, lm_head):
     return all_gather(parts, dim=-1, axis=lm_head.axis)[0]
 
 
-def _logit_parts(x, lm_head) -> list:
+def _logit_parts(x, lm_head, mesh=None) -> list:
     """Each tp position's fp32 logits over its vocab shard (one part for a
-    whole lm_head)."""
-    heads = lm_head.parts if isinstance(lm_head, Shards) else [lm_head]
-    return [x.float() @ w.float().t() for w in heads]
+    whole lm_head; this process's positions' when tp spans processes of
+    `mesh`, x entering them through Megatron's f)."""
+    if not isinstance(lm_head, Shards):
+        return [x.float() @ lm_head.float().t()]
+    ins = tp_inputs(x, len(lm_head), lm_head.axis, mesh)
+    return [xp.float() @ w.float().t() for xp, w in zip(ins, lm_head.parts)]
 
 
 def fp32_head(params):
@@ -671,9 +740,11 @@ def _attention(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
     or a list the ring's DevStats is appended to (collect_stats: the
     output is the same)."""
     world = ring_world(cfg, mesh)
-    h = _rms_norm(x, p["attn_norm"])
     parts = tp_parts(p)
-    qkv = [_qkv_from_h(pt, h, positions, cfg) for pt in parts]
+    ins = tp_inputs(_rms_norm(x, p["attn_norm"]), len(parts), cfg.head_axis,
+                    mesh)
+    qkv = [_qkv_from_h(pt, hp, positions, cfg)
+           for pt, hp in zip(parts, ins)]
     q, k, v = (torch.cat(t, dim=1) if len(parts) > 1 else t[0].contiguous()
                for t in zip(*qkv))
     ring = seq_mesh(mesh, cfg.seq_axes) if world > 1 else None
@@ -699,7 +770,7 @@ def _attention(x, p, positions, cfg: ModelConfig, mesh=None, stats_out=None,
                             segment_ids=segment_ids)
     os = o.chunk(len(parts), dim=1)
     return x + tp_sum([_attn_out(pt, ot) for pt, ot in zip(parts, os)],
-                      cfg.head_axis)
+                      cfg.head_axis, mesh)
 
 
 def _blocks(xs, ps, positions, cfg: ModelConfig, mesh=None, sinks=None,
@@ -900,8 +971,9 @@ def forward_with_aux(params: Params, tokens, positions, cfg: ModelConfig,
     out = forward_parts(params, tokens, positions, cfg, mesh,
                         segment_ids=segment_ids, collect_stats=collect_stats)
     parts = out[0]
-    logits = (parts[0] if len(parts) == 1
-              else all_gather(parts, dim=-1, axis=cfg.head_axis)[0])
+    logits = (parts[0] if len(parts) == 1 and not crosses(
+        mesh, cfg.head_axis) else all_gather(
+            parts, dim=-1, axis=cfg.head_axis, mesh=mesh)[0])
     return (logits,) + tuple(out[1:])
 
 
@@ -971,7 +1043,7 @@ def forward_groups(params, tokens, positions, cfg: ModelConfig, mesh,
 
         return pp_forward_groups(params, tokens, positions, cfg, mesh,
                                  segment_ids)
-    xs = [_embed(p, t, cfg) for p, t in zip(params, tokens)]
+    xs = [_embed(p, t, cfg, mesh) for p, t in zip(params, tokens)]
     # once, as the kernels take them
     segs = [None if s is None else s.to(device=x.device,
                                         dtype=torch.int32).contiguous()
@@ -991,7 +1063,8 @@ def forward_groups(params, tokens, positions, cfg: ModelConfig, mesh,
         auxes = [a + b for a, b in zip(auxes, aux_l)]
     outs = []
     for g, (p, x) in enumerate(zip(params, xs)):
-        parts = _logit_parts(_rms_norm(x, p["final_norm"]), p["lm_head"])
+        parts = _logit_parts(_rms_norm(x, p["final_norm"]), p["lm_head"],
+                             mesh)
         if not collect_stats:
             outs.append((parts, auxes[g]))
             continue

@@ -83,14 +83,19 @@ the folds stay fp32.  The fused route runs kernels 8-9's wire instances
 (ops/fused_ring.py, ops/fused_ring_bwd.py).  `collect_stats` reports the
 largest |k|, |v| a position quantized (quant_absmax).
 
-Across processes (a Mesh whose "inter" axis spans processes, utils/
-multihost.py): q, k, v are this process's part of the sequence (its
-inter row's n_intra shards, in layout order), the per-position loops run
-over its positions, and the double ring's inter hop goes to the process
-one inter index ahead (mesh.ppermute_start over gloo).  The forward's KV
-base and the backward's q-side base are posted before the intra cycle
-and waited for after it, the reference's prefetch one intra cycle early:
-gloo's threads move the bytes while the card runs the intra rounds.  The
+Across processes (a Mesh laid over the processes of a run, utils/
+multihost.py, whose ring axes span them: a single ring split between
+processes, one position a process, or a double ring's inter axis): q, k,
+v are this process's part of the sequence (its ring positions' shards,
+contiguous in layout order), the per-position loops run over its
+positions, and each rotation's pairs whose destination another process
+holds go to it (mesh.ppermute_start over gloo).  Every payload hop is
+posted before the round it feeds on is computed and waited for after: a
+single ring's KV (and the backward's q-side bundle) one round early, the
+first before the self round, a double ring's inter hop one full intra
+cycle early, the reference's prefetch: gloo's threads move the bytes
+while the card runs the rounds.  The dq hops are blocking (each round's
+fold adds the arrival).  The
 fused kernels address every position's slot banks in this process's
 memory, so the fused gate declines such a ring ("ring axis spans
 processes", counted under burst.fused_fallback) and it takes the scan
@@ -374,9 +379,9 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
     `collect`.  Every stats step sits behind `if collect` and only reads
     the ring's state, so o and lse are bitwise the collect=False ones.
     `seg`: the positions' segment ids [W,B,S] int32 (or None); the kv
-    side's ride the KV rotation.  With `procs` (mesh.ProcRing: the inter
-    axis spans processes) the stacked shards are this process's n_intra
-    positions (mesh.ring_positions) and W above reads n_intra."""
+    side's ride the KV rotation.  With `procs` (mesh.ProcRing: the ring
+    spans processes) the stacked shards are this process's positions
+    (mesh.ring_positions) and W above reads their count."""
     world = n_inter * n_intra
     b, n, s, d = q.shape[1:]
     s_kv = k.shape[3]
@@ -442,6 +447,9 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
                         window=cfg.window) for p in pos]
     for j in held:
         count(j, spec0[j])
+    # a single ring posts round 1's hop before the self round
+    first = (rotate_start(kv, "intra") if n_inter == 1 and r_live > 1
+             else None)
     state = [_tile_fwd(cfg, q[j], k[j], v[j], None, None, None, scale,
                        spec0[j], None if seg is None else (seg[j], seg[j]))
              for j in held]
@@ -453,11 +461,13 @@ def _fwd_impl(q, k, v, cfg: BurstConfig, n_inter: int, n_intra: int,
         start = 1 if c == 0 else 0  # cycle 0's round 0 was peeled above
         if not (c == 0 and r_live == 1):
             if c == 0:
-                kv = rotate(kv, "intra")
+                kv = first.wait() if first is not None else rotate(
+                    kv, "intra")
             for s_idx in range(start, r_live - 1):
-                kv_next = rotate(kv, "intra")
+                # the next round's hop rides beside this round's kernels
+                kv_next = rotate_start(kv, "intra")
                 state = compute_all(state, kv, c * n_intra + s_idx)
-                kv = kv_next
+                kv = kv_next.wait()
             # last round of the cycle: no intra send
             state = compute_all(state, kv, c * n_intra + r_live - 1)
         if c < n_inter - 1:
@@ -503,9 +513,10 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
     dispatch point: with backend="fused_ring" both rotating streams run
     inside kernel 9 (ops/fused_ring_bwd.py) when the backward gate admits
     the config; declined configs fall through to the scan ring below.
-    `procs`: the inter axis spans processes (as _fwd_impl); the q-side
-    base is prefetched over it one intra cycle early, the dq hops over it
-    are blocking."""
+    `procs`: the ring spans processes (as _fwd_impl); every payload hop
+    is posted before the round it feeds and waited for after it (a double
+    ring's q-side base one intra cycle early), the dq hops are
+    blocking."""
     reason = _dispatch(cfg, q, k, n_inter, n_intra, "bwd", procs)
     if cfg.backend == "fused_ring" and reason is None:
         return fused_ring_bwd.fused_ring_bwd(q, k, v, o, lse, do, cfg,
@@ -584,9 +595,10 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
         return out
 
     def hop(dqs, axis):
-        """One dq hop; under a wire dtype quantize-before-send with a
-        refreshed per-(batch, head) scale (the partial grew since the
-        last hop) and dequantize-after-receive to fp32."""
+        """One dq hop (blocking: the fold needs it); under a wire dtype
+        quantize-before-send with a refreshed per-(batch, head) scale (the
+        partial grew since the last hop) and dequantize-after-receive to
+        fp32."""
         if wire is None:
             return [t for (t,) in rotate([(x,) for x in dqs], axis,
                                          cls="dq")]
@@ -615,6 +627,11 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
             dq_inter = hop([a + b_ for a, b_ in zip(dq_inter, dq_intra)],
                            "inter")
             dq_intra = [torch.zeros_like(x) for x in dq_intra]
+        if r_live > 1:
+            # start == 1 without truncation: the jump is a single hop,
+            # posted before the cycle's first round
+            start = n_intra - (r_live - 1)
+            jump = rotate_start(payload, "intra", hops=start)
         # first round of the cycle: no dq rotation
         if truncated:
             dq_home = fold([torch.zeros_like(x) for x in dq_intra], payload,
@@ -622,16 +639,14 @@ def _bwd_impl(q, k, v, o, lse, do, cfg: BurstConfig, n_inter: int,
         else:
             dq_intra = fold(dq_intra, payload, c * n_intra)
         if r_live > 1:
-            # start == 1 without truncation: the jump is a single hop
-            start = n_intra - (r_live - 1)
-            payload = rotate(payload, "intra", hops=start)
+            payload = jump.wait()
             for s_idx in range(start, n_intra - 1):
-                pay_next = rotate(payload, "intra")
+                pay_next = rotate_start(payload, "intra")
                 # dq leaves with the payload it accumulated for; the
                 # arriving dq belongs to the payload held this round
                 dq_intra = fold(hop(dq_intra, "intra"), payload,
                                 c * n_intra + s_idx)
-                payload = pay_next
+                payload = pay_next.wait()
             # last round of the cycle: rotate dq but not the payload
             dq_intra = fold(hop(dq_intra, "intra"), payload,
                             c * n_intra + n_intra - 1)
@@ -728,11 +743,10 @@ def burst_attn(
     in q's dtype.
 
     mesh: {axis: size} or a parallel.mesh.Mesh; its ring positions share
-    the tensors' device.  On a Mesh whose "inter" axis spans processes
+    the tensors' device.  On a Mesh whose ring axes span processes
     (utils/multihost.make_hybrid_mesh) q, k, v, segment_ids and o are
-    this process's part of S: its inter row's n_intra shards, the
-    contiguous slice inter_index * S / n_inter onward of the layout-order
-    sequence.  batch_axes / head_axes name the mesh's dp / tp
+    this process's part of S: its ring positions' shards, the contiguous
+    slice pos[0] * S / W onward of the layout-order sequence.  batch_axes / head_axes name the mesh's dp / tp
     axes: each of their groups runs its own ring, all in the one launch
     over the whole B and N (any other axis of size > 1 is a
     ValueError).  seq_axes: ("sp",) for a single ring or

@@ -11,11 +11,15 @@ unbounded length (the primary's checkpoint write) runs on a group of its
 own, `wait_group(timeout_s)`, instead of the run's group, whose waits
 end after utils/multihost.GROUP_TIMEOUT_S.
 
-`ProcessTransport` moves bytes between the processes of a mesh whose
-outer axes span processes (parallel/mesh.py `Mesh(process_axes=)`):
-gloo point-to-point for a ring hop (`exchange_start` posts the send and
-the receive in one `batch_isend_irecv` and returns a handle whose
-`wait()` gives the arrival) and gloo's `all_gather` for the collectives.
+`ProcessTransport` moves bytes between the processes of a mesh laid
+over them (parallel/mesh.py `Mesh(process_axes="auto")`): gloo
+point-to-point for a ring hop or an all-to-all (`exchange_start` posts
+one send a peer and one receive a peer, to and from any number of peers,
+in one `batch_isend_irecv`, and returns a handle whose `wait()` gives the
+arrivals by peer) and gloo's `all_gather` for the collectives.  Each
+stream has its own tag (TAGS: a ring's payload and dq hops on each of
+its axes, the all-to-all's), so that hops of two streams between the
+same two processes may be in flight together.
 gloo reads and writes host memory, so a CUDA payload is STAGED: its
 tensors are copied into one pinned host buffer, with a sync on that copy
 alone before the send is posted, and an arrival is copied back to the
@@ -37,9 +41,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-# send / receive tags of the rotating streams: a payload hop and a dq hop
-# between the same two processes may be in flight together
-TAGS = {"pay": 1, "dq": 2}
+# send / receive tags of the ring's streams, (class, axis) -> tag: a
+# payload hop and a dq hop between the same two processes, on either
+# axis, may be in flight together; and the all-to-all's
+TAGS = {("pay", "inter"): 1, ("dq", "inter"): 2, ("pay", "intra"): 3,
+        ("dq", "intra"): 4}
+A2A_TAG = 9
 
 
 def _group_up() -> bool:
@@ -136,6 +143,13 @@ class ProcessTransport:
         self._free: Dict[Tuple[int, bool], List[_Buffer]] = {}
         self.stats = {}
         self.reset_stats()
+        # sends posted and not waited for yet (a pipeline's stage hops)
+        self.pending: List["Exchange"] = []
+
+    def drain(self) -> None:
+        """Wait for every send in `pending`."""
+        while self.pending:
+            self.pending.pop(0).wait()
 
     def reset_stats(self) -> None:
         """Zero the counters: hops and gathers made, bytes sent, buffers
@@ -194,21 +208,30 @@ class ProcessTransport:
         self.stats["stage_s"] += time.perf_counter() - t0
         return out
 
-    def exchange_start(self, tensors: Sequence[torch.Tensor], send_to: int,
-                       recv_from: int, tag: int = 0) -> "Exchange":
-        """Post the send of `tensors` (one staged buffer) to rank
-        `send_to` and the receive of the same layout from `recv_from`;
-        returns the handle whose wait() gives the arrival."""
-        device = tensors[0].device
-        buf, lay = self.stage(tensors)
-        rbuf = self._take(lay.nbytes, buf.pinned)
-        rbuf.writable()
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, buf.data, send_to, tag=tag),
-            dist.P2POp(dist.irecv, rbuf.data, recv_from, tag=tag)])
+    def exchange_start(self, send: Dict[int, Sequence[torch.Tensor]],
+                       recv: Dict[int, Sequence[torch.Tensor]],
+                       tag: int = 0) -> "Exchange":
+        """Post the send of `send[peer]`'s tensors (one staged buffer a
+        peer) to each peer, and the receive from each peer of `recv`
+        tensors of the layout of `recv[peer]` (shape and dtype templates);
+        returns the handle whose wait() gives {peer: arrival}."""
+        device = next(t for ts in (*send.values(), *recv.values())
+                      for t in ts).device
+        ops, bufs, rbufs = [], [], {}
+        for peer, tensors in send.items():
+            buf, lay = self.stage(tensors)
+            bufs.append(buf)
+            ops.append(dist.P2POp(dist.isend, buf.data, peer, tag=tag))
+            self.stats["bytes"] += lay.nbytes
+        for peer, like in recv.items():
+            lay = _Layout(like)
+            rbuf = self._take(lay.nbytes, device.type == "cuda")
+            rbuf.writable()
+            rbufs[peer] = (rbuf, lay)
+            ops.append(dist.P2POp(dist.irecv, rbuf.data, peer, tag=tag))
+        reqs = dist.batch_isend_irecv(ops) if ops else []
         self.stats["hops"] += 1
-        self.stats["bytes"] += lay.nbytes
-        return Exchange(self, reqs, buf, rbuf, lay, device, tag)
+        return Exchange(self, reqs, bufs, rbufs, device, tag)
 
     def all_gather(self, tensors: Sequence[torch.Tensor],
                    ranks: Sequence[int]) -> List[List[torch.Tensor]]:
@@ -241,19 +264,19 @@ class ProcessTransport:
 class Exchange:
     """An exchange in flight (ProcessTransport.exchange_start)."""
 
-    def __init__(self, transport, reqs, buf, rbuf, lay, device, tag):
+    def __init__(self, transport, reqs, bufs, rbufs, device, tag):
         self._t, self._reqs, self._tag = transport, reqs, tag
-        self._buf, self._rbuf, self._lay, self._device = (buf, rbuf, lay,
-                                                          device)
+        self._bufs, self._rbufs, self._device = bufs, rbufs, device
 
-    def wait(self) -> List[torch.Tensor]:
-        """Block until the send and the receive are done; the arrival's
-        tensors on the payload's device."""
+    def wait(self) -> Dict[int, List[torch.Tensor]]:
+        """Block until the sends and the receives are done; {peer: the
+        arrival's tensors on the payload's device}."""
         t0 = time.perf_counter()
         for r in self._reqs:
             r.wait()
         self._t._note_wait(time.perf_counter() - t0, self._tag)
-        out = self._t.unstage(self._rbuf, self._lay, self._device)
-        self._t._give(self._buf)
-        self._t._give(self._rbuf)
+        out = {peer: self._t.unstage(buf, lay, self._device)
+               for peer, (buf, lay) in self._rbufs.items()}
+        for buf in self._bufs + [b for b, _ in self._rbufs.values()]:
+            self._t._give(buf)
         return out

@@ -33,6 +33,19 @@ averaged over the positions (the JAX package's pmean).  `moe_apply(mesh=
 {"ep": W})` splits the tokens into W contiguous shares for it; the LM
 (models/transformer.py `_mlp_groups`) hands it its routing groups along
 the model's expert axis.
+
+Across processes (`moe_shard(axis=, mesh=)` with a Mesh whose `axis`
+spans them): the positions listed are this process's along the axis, the
+all-to-alls reach the other processes' (mesh.all_to_all), and position i
+here is the axis's position (axis index) * len(x) + i, owning those
+experts.  Distinct token groups (dp groups, ring positions) average aux
+and dropped over every process (mesh.mean_across); replicas of one group
+(`replicated=True`: an expert axis of its own, or tp, whose processes
+hold the same tokens) route alike on every process, so the slots enter
+the exchange through Megatron's f (mesh.copy_to: their gradient summed
+over the processes) and, as the one-process run keeps the first
+replica's output, only replica 0's output hands the experts a gradient
+(mesh.keep_grad).
 """
 
 from typing import NamedTuple, Optional
@@ -42,7 +55,9 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .mesh import Mesh, all_to_all
+from .mesh import (
+    Mesh, all_to_all, copy_to, crosses, keep_grad, mean_across,
+)
 
 
 class MoEParams(NamedTuple):
@@ -149,7 +164,8 @@ def expert_mlp(w_gate, w_up, w_down, h):
 
 
 def moe_shard(p, x, *, top_k: int, capacity: int,
-              axis: Optional[str] = None):
+              axis: Optional[str] = None, mesh=None,
+              replicated: bool = False):
     """MoE of routing groups -> (y, aux, dropped).
 
     Without `axis`: one group, p a MoEParams and x [T, d] tokens -> (y
@@ -164,13 +180,18 @@ def moe_shard(p, x, *, top_k: int, capacity: int,
     home.  Returns ([y_p], aux, dropped), aux and dropped the means over
     the positions (JAX's pmean).  A position whose tokens and router are
     the very tensors of an earlier one (tokens replicated over the axis)
-    reuses that position's routing."""
+    reuses that position's routing.  When `axis` spans processes of
+    `mesh`, x lists this process's positions (module docstring;
+    `replicated`: they and the other processes' are replicas of one
+    group)."""
     if axis is None:
         r = route(x, p.router, top_k, capacity)
         out = expert_mlp(p.w_gate, p.w_up, p.w_down, dispatch(x, r))
         return combine(out, r, x.dtype), r.aux, r.dropped
-    w = len(x)
-    ps = [p] * w if isinstance(p, MoEParams) else list(p)
+    across = crosses(mesh, axis)
+    first = mesh.axis_index(axis) * len(x) if across else 0
+    w = len(x) * (len(mesh.axis_ranks(axis)) if across else 1)
+    ps = [p] * len(x) if isinstance(p, MoEParams) else list(p)
     e = ps[0].router.shape[1]
     if e % w:
         raise ValueError(f"experts {e} not divisible by {axis!r} axis "
@@ -181,16 +202,23 @@ def moe_shard(p, x, *, top_k: int, capacity: int,
         if key not in seen:
             seen[key] = route(xp, pp.router, top_k, capacity)
         rs.append(seen[key])
+    slots = [dispatch(xp, r) for xp, r in zip(x, rs)]
+    if across and replicated:
+        slots = [copy_to(h, axis, mesh) for h in slots]
     # [E, C, d] a position -> [E/W, C*W, d]: its experts' slots of every
     # peer
-    hs = all_to_all([dispatch(xp, r) for xp, r in zip(x, rs)],
-                    split_dim=0, concat_dim=1, axis=axis)
+    hs = all_to_all(slots, split_dim=0, concat_dim=1, axis=axis, mesh=mesh)
     el = e // w
-    outs = [expert_mlp(*(t[i * el:(i + 1) * el]
+    outs = [expert_mlp(*(t[(first + i) * el:(first + i + 1) * el]
                          for t in (pp.w_gate, pp.w_up, pp.w_down)), h)
             for i, (pp, h) in enumerate(zip(ps, hs))]
-    outs = all_to_all(outs, split_dim=1, concat_dim=0, axis=axis)
+    outs = all_to_all(outs, split_dim=1, concat_dim=0, axis=axis, mesh=mesh)
+    if across and replicated:
+        outs = [keep_grad(o, first + i == 0) for i, o in enumerate(outs)]
     ys = [combine(o, r, xp.dtype) for o, r, xp in zip(outs, rs, x)]
+    if across and not replicated:
+        return (ys, mean_across([r.aux for r in rs], axis, mesh),
+                mean_across([r.dropped for r in rs], axis, mesh))
     return (ys, torch.stack([r.aux for r in rs]).mean(),
             torch.stack([r.dropped for r in rs]).mean())
 

@@ -26,6 +26,13 @@ contiguous heads (the tp positions' column-parallel projections side by
 side): each group's all-to-all exchanges its own heads only, and each
 sequence position runs one launch over its share of every group's heads,
 so the check is per group: N/tp and Nkv/tp divide by W.
+
+Across processes (a Mesh whose sequence axis spans them, utils/
+multihost.py): q, k, v and o are this process's part of S (its
+positions' shards), the all-to-alls reach the other processes'
+positions (mesh.all_to_all over the transport), and the packed-document
+ids, which every position needs whole after the exchange, are gathered
+from the processes first.
 """
 
 from typing import Optional
@@ -34,7 +41,7 @@ import torch
 
 from ..ops.flash import flash_attention
 from ..ops.tile import single_device_attention
-from .mesh import Mesh, _names, all_to_all
+from .mesh import Mesh, _gathered, _names, all_to_all, local_size
 
 
 def _local_attention(q, k, v, scale, causal, backend, window=None,
@@ -77,6 +84,7 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
     the kernels' tiles are fixed and the batch is whole on the device."""
     shape = dict(mesh.shape if isinstance(mesh, Mesh) else mesh)
     w = int(shape.get(seq_axis, 1))
+    m = local_size(mesh, seq_axis)  # the positions held here
     tp = 1
     for a in _names(head_axes):
         tp *= int(shape.get(a, 1))
@@ -85,7 +93,7 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
         raise ValueError(
             f"ulysses needs per-group q heads {q.shape[1]}/{tp} and kv heads "
             f"{k.shape[1]}/{tp} divisible by the '{seq_axis}' axis size {w}")
-    if q.shape[2] % w:
+    if q.shape[2] % m:
         raise ValueError(f"sequence length {q.shape[2]} does not divide by "
                          f"the '{seq_axis}' axis size {w}")
     if window is not None and not causal:
@@ -94,25 +102,29 @@ def ulysses_attn(q, k, v, *, mesh, seq_axis: str = "sp",
         scale = q.shape[-1] ** -0.5
     if segment_ids is not None:
         segment_ids = segment_ids.to(device=q.device, dtype=torch.int32)
+        if m < w:  # the whole sequence's ids, from every process
+            segment_ids = torch.cat(_gathered(
+                [segment_ids.contiguous()], seq_axis, mesh)[0], dim=1)
 
     def exchange(t):
         """Each tp group's heads of t: its positions' sequence shards
         [B, N/tp, S/W, D] (views of the global tensor, copied only by the
         exchange) all-to-all'd into [B, N/tp/W, S, D] a position."""
-        return [all_to_all(g.chunk(w, dim=2), split_dim=1, concat_dim=2,
-                           axis=seq_axis) for g in t.chunk(tp, dim=1)]
+        return [all_to_all(g.chunk(m, dim=2), split_dim=1, concat_dim=2,
+                           axis=seq_axis, mesh=mesh)
+                for g in t.chunk(tp, dim=1)]
 
     # scatter heads, gather the sequence, then each position's heads of
     # every tp group side by side: [B, N/W, S, D] a position
     qh, kh, vh = ([torch.cat([g[p] for g in x], dim=1) if tp > 1
-                   else x[0][p] for p in range(w)]
+                   else x[0][p] for p in range(m)]
                   for x in (exchange(q), exchange(k), exchange(v)))
     oh = [_local_attention(qh[p], kh[p], vh[p], scale, causal, backend,
                            window=window, segment_ids=segment_ids)
-          for p in range(w)]
+          for p in range(m)]
     # scatter the sequence back, gather the heads: a tp group at a time
     heads = [o.chunk(tp, dim=1) for o in oh]
     return torch.cat([torch.cat(all_to_all([h[t] for h in heads],
                                            split_dim=2, concat_dim=1,
-                                           axis=seq_axis), dim=2)
+                                           axis=seq_axis, mesh=mesh), dim=2)
                       for t in range(tp)], dim=1)

@@ -10,8 +10,10 @@ and their AdamW moments are saved whole (each split leaf's shards
 joined), so a checkpoint holds the same tensors whatever the tp size it
 was written at, and `restore` splits them again for the mesh it is given:
 a tp=2 run restores at tp=1 and back.  In a run across processes
-(utils/multihost.py) the primary process writes and every process waits
-at a barrier after it (parallel/collectives.synchronize on a
+(utils/multihost.py) every process first joins the whole tensors (a tp
+axis that spans processes gathers its shards and their moments from
+them), then the primary process writes and every process waits at a
+barrier after it (parallel/collectives.synchronize on a
 `wait_group` of `write_timeout_s`, so that a write longer than the run's
 group timeout does not fail the waiting processes); every process reads,
 so a resumed run continues exactly on each.
@@ -62,18 +64,19 @@ class Checkpointer:
         from ..parallel.collectives import synchronize, wait_group
         from .log_helper import is_primary
 
-        group = wait_group(self.write_timeout_s)  # made before the write
-        if is_primary():
-            self._write(step, state)
-        synchronize(group)
-
-    def _write(self, step: int, state) -> None:
         from ..models.transformer import unshard_params
 
+        group = wait_group(self.write_timeout_s)  # made before the write
         params, opt = state
+        # on every process: the gathers of shards other processes hold
         payload = {"params": _detach(unshard_params(params)),
                    "opt": _whole_opt_state(params, opt.state_dict()),
                    "step": int(step)}
+        if is_primary():
+            self._write(step, payload)
+        synchronize(group)
+
+    def _write(self, step: int, payload) -> None:
         final = self._path(step)
         tmp = final.with_suffix(f".tmp.{os.getpid()}")
         with open(tmp, "wb") as f:
@@ -138,47 +141,59 @@ def _detach(tree):
 
 
 def _leaf_splits(params):
-    """(dim, shards) of every leaf in tree_leaves' order: (None, 1) for a
-    whole tensor, (the split dim, tp) for a Shards."""
+    """(dim, shards held, the Shards or None) of every leaf in
+    tree_leaves' order: (None, 1, None) for a whole tensor, (the split
+    dim, its shards here, it) for a Shards."""
     from ..models.transformer import Shards, tree_leaves
 
-    return [(x.dim, len(x)) if isinstance(x, Shards) else (None, 1)
+    return [(x.dim, len(x), x) if isinstance(x, Shards) else (None, 1, None)
             for x in tree_leaves(params)]
 
 
 def _whole_opt_state(params, sd):
     """An optimizer state_dict over split parameters as the one over the
     whole tree: each split leaf's per-shard moments joined along its dim
-    (the scalar `step` kept once)."""
+    (the scalar `step` kept once); shards other processes hold gathered
+    from them (every process calls it)."""
+    from ..parallel.mesh import _gathered
+
     splits = _leaf_splits(params)
-    if all(n == 1 for _, n in splits):
+    if all(x is None for _, _, x in splits):
         return sd
     state, i = {}, 0
-    for j, (dim, n) in enumerate(splits):
+    for j, (dim, n, x) in enumerate(splits):
         got = [sd["state"].get(i + k) for k in range(n)]
         i += n
         if got[0] is None:
             continue
-        state[j] = {key: (torch.cat([g[key] for g in got], dim=dim)
-                          if dim is not None and got[0][key].dim() > 0
-                          else got[0][key]) for key in got[0]}
+        whole = {}
+        for key in got[0]:
+            if dim is None or got[0][key].dim() == 0:
+                whole[key] = got[0][key]
+                continue
+            parts = [g[key] for g in got]
+            if x.total > n:
+                parts = _gathered(parts, x.axis, x.mesh)[0]
+            whole[key] = torch.cat(parts, dim=dim)
+        state[j] = whole
     groups = [dict(g, params=list(range(len(splits))))
               for g in sd["param_groups"]]
     return {"state": state, "param_groups": groups}
 
 
 def _split_opt_state(params, sd):
-    """The inverse of _whole_opt_state for `params`' splits."""
+    """The inverse of _whole_opt_state for `params`' splits (the shards
+    this process holds)."""
     splits = _leaf_splits(params)
-    if all(n == 1 for _, n in splits):
+    if all(x is None for _, _, x in splits):
         return sd
     state, i = {}, 0
-    for j, (dim, n) in enumerate(splits):
+    for j, (dim, n, x) in enumerate(splits):
         got = sd["state"].get(j)
         if got is not None:
             for k in range(n):
                 state[i + k] = {
-                    key: (v.chunk(n, dim=dim)[k].contiguous()
+                    key: (v.chunk(x.total, dim=dim)[x.first + k].contiguous()
                           if dim is not None and v.dim() > 0 else v.clone())
                     for key, v in got.items()}
         i += n

@@ -2,11 +2,15 @@
 
 Every process runs the same program.  `initialize` starts the process
 group (torch.distributed over gloo: the reference's torchrun rendezvous,
-test.sh:6), and `make_hybrid_mesh` gives a parallel/mesh.py `Mesh` whose
-`dcn` axes (outermost) span the processes, one index a process, while its
-`ici` axes stay positions on this process's device, as every mesh axis
-does in one process.  The double ring's "inter" axis maps onto the
-processes and its "intra" ring onto the positions of each.
+test.sh:6), and `make_hybrid_mesh` gives a parallel/mesh.py `Mesh` of
+the `dcn` axes (outermost) then the `ici` axes, laid over the processes
+in JAX's process-major order: process r holds the flat positions
+[r N/P, (r+1) N/P).  With dcn axes that multiply to the process count
+each process holds one dcn index and every ici position (the double
+ring's "inter" axis on the processes, its "intra" ring on the positions
+of each); otherwise an axis may split between processes (sp=4 over two:
+positions 0-1 in rank 0, 2-3 in rank 1), as JAX's reshape of the
+process-major devices does.
 
 Typical launch (one process per rank, e.g. under torchrun):
 
@@ -20,7 +24,6 @@ A7b.
 """
 
 import datetime
-import math
 import os
 from typing import Dict, Optional
 
@@ -129,21 +132,16 @@ def process_path(path: str) -> str:
 
 def make_hybrid_mesh(ici: Dict[str, int], dcn: Dict[str, int], *,
                      device=None):
-    """A Mesh whose `dcn` axes span the processes (outermost, one index a
-    process) and whose `ici` axes are positions on this process's device
-    (default: the card).  In one process the dcn axes are positions too
-    (the JAX package's process-major fallback).  With P processes the dcn
-    axes' sizes must multiply to P (ValueError); axes other than "dp" and
-    "inter" across processes raise NotImplementedError (ROADMAP A7b)."""
+    """A Mesh of the `dcn` axes (outermost) then the `ici` axes on this
+    process's device (default: the card), laid over the run's processes
+    in JAX's process-major order (parallel/mesh.py process_layout): any
+    axes, any sizes; in one process every axis is positions here.  The
+    mesh's positions must divide between the processes (ValueError)."""
     from ..parallel.mesh import Mesh
 
     shape = dict(dcn, **ici)
     if len(shape) != len(dcn) + len(ici):
         raise ValueError(f"an axis is in both dcn {dcn} and ici {ici}")
-    n_proc = process_count()
-    if n_proc == 1:
+    if process_count() == 1:
         return Mesh(shape, device=device)
-    if math.prod(dcn.values()) != n_proc:
-        raise ValueError(f"dcn axes {dcn} hold {math.prod(dcn.values())} "
-                         f"processes, the run has {n_proc} processes")
-    return Mesh(shape, device=device, process_axes=tuple(dcn))
+    return Mesh(shape, device=device, process_axes="auto")

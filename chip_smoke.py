@@ -2229,12 +2229,23 @@ _SEED_PARAMS = {}
 def _seed_state(cfg, tcfg, device):
     """(params, optimizer) equal to train.init_train_state(0, cfg, tcfg):
     the random init (~25 s for the 1.21 B model, numpy on the host) runs
-    once per model shape and dtype, and every later call copies it."""
+    once per model shape and dtype, and every later call copies it.  A
+    shallower model of the same widths and dtype takes the deeper seed's
+    first layers (the pp phase)."""
     from burst_attn_tpu_torch.models import train
     from burst_attn_tpu_torch.models.transformer import param_leaves
 
     key = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
            cfg.d_ff, cfg.vocab, cfg.dtype)
+    deeper = [k for k in _SEED_PARAMS if k[1:] == key[1:] and k[0] > key[0]]
+    if key not in _SEED_PARAMS and deeper:
+        # a shallower model of the same widths: the deeper seed's first
+        # layers (init_params draws layer by layer, embed first, the
+        # final norm and lm_head last: these are not init_params(cfg)'s
+        # values, but the same seed's at every width)
+        leaves = _SEED_PARAMS[deeper[0]]
+        per = len(leaves[1:-2]) // deeper[0][0]
+        _SEED_PARAMS[key] = leaves[:1 + per * cfg.n_layers] + leaves[-2:]
     if key not in _SEED_PARAMS:
         params, opt = train.init_train_state(0, cfg, tcfg, device=device)
         _SEED_PARAMS[key] = [t.detach().clone() for t in
@@ -2525,6 +2536,82 @@ MH_TIMEOUT_S = 600.0  # a child not done by then fails the phase
 MH_RUNNER = dict(vocab=TRAIN_DIMS["vocab"], d_model=TRAIN_DIMS["d_model"],
                  n_layers=1, n_heads=TRAIN_DIMS["n_heads"],
                  d_ff=TRAIN_DIMS["d_ff"], seq=2048)
+# (d) the single ring sp=4 split 2 + 2 between the processes (every hop
+# crosses them), at MH_RING's shard: S 8192
+MH_SP_RING = {"sp": 4}
+# (e) a train step a newly crossing axis, at the training model's width
+# (MH_NEW_LAYERS layer a stage, bf16, remat, S TRAIN_SEQ): tp=2 across
+# the processes x sp=2, the MoE model (MOE) with its experts on dp=2
+# across them x sp=2, the pipeline pp=2 across them (a stage a process,
+# 2 microbatches of a row) x sp=2; a compared step, then MH_NEW_STEPS
+# timed
+MH_NEW_MESH = {"tp": {"tp": 2, "sp": 2}, "ep": {"dp": 2, "sp": 2},
+               "pp": {"pp": 2, "sp": 2}}
+MH_NEW_LAYERS = 1
+MH_NEW_STEPS = 1
+MH_MOE_SEED = 3  # _moe_params' seed of (e)'s MoE weights
+
+
+def _mh_new_cfg(name):
+    """(e)'s model for `name` ("tp", "ep" or "pp")."""
+    import torch
+
+    kw = {"tp": dict(head_axis="tp"),
+          "ep": dict(batch_axis="dp", expert_axis="dp", **MOE),
+          "pp": dict(pp_axis="pp", pp_microbatches=2)}[name]
+    stages = MH_NEW_MESH[name].get("pp", 1)
+    return _train_model(MH_NEW_LAYERS * stages, torch.bfloat16, **kw)
+
+
+def _mh_new_params(name, cfg, paths, device):
+    """(e)'s weights, whole: the seed weights' first layers (tp; pp's
+    stacked), or _moe_params from MH_MOE_SEED on the card (ep): the same
+    in every process."""
+    import dataclasses
+
+    import torch
+
+    from burst_attn_tpu_torch.models.pipeline_lm import stack_layers
+
+    if name == "ep":
+        return _moe_params(cfg, MH_MOE_SEED, device)
+    cut = torch.load(paths["seed"], map_location=device)
+    per = len(cut[1:-2]) // MESH_TRAIN_LAYERS
+    flat = dataclasses.replace(cfg, pp_axis=None, pp_microbatches=1)
+    params = _params_like(cut[:1 + per * cfg.n_layers] + cut[-2:], flat)
+    if cfg.pp_axis is None:
+        return params
+    return dict(params, layers=stack_layers(
+        [{k: t.detach() for k, t in x.items()} for x in params["layers"]]))
+
+
+def _mh_ring_launches(r, held, w, what):
+    """Kernels 1-5 on the scan ring in one process: `held` positions x `w`
+    rounds of kernel 1, of the flash backward on the route it took (the
+    fused kernel, or the split pair), kernels 8-9 never."""
+    n = held * w
+    assert r["flash_fwd"] == n and r["fused_ring_fwd"] == 0 and r[
+        "fused_ring_bwd"] == 0, (what, r)
+    assert (r["fused"] == n and r["dq"] == r["dkdv"] == 0) or (
+        r["fused"] == 0 and r["dq"] == r["dkdv"] == n), (what, r)
+
+
+def _mh_gathered_grads(params):
+    """_whole_grads of a tree whose tp shards may lie in several
+    processes: their gradients gathered first (every process calls it)."""
+    import torch
+
+    from burst_attn_tpu_torch.models.transformer import Shards, tree_leaves
+    from burst_attn_tpu_torch.parallel.mesh import _gathered
+
+    named = _whole_grads(params)
+    out = []
+    for (what, g), x in zip(named, tree_leaves(params)):
+        if isinstance(x, Shards) and x.total > len(x.parts):
+            g = torch.cat(_gathered([t.grad for t in x.parts], x.axis,
+                                    x.mesh)[0], dim=x.dim)
+        out.append((what, g))
+    return out
 
 
 def _mh_ring_inputs(device):
@@ -2538,13 +2625,13 @@ def _mh_ring_inputs(device):
                         device=device).to(torch.bfloat16) for _ in range(4)]
 
 
-def _mh_ring(mesh, backend, q, k, v, do):
-    """burst_attn forward and backward on `mesh`'s double ring ->
-    (o, dq, dk, dv)."""
+def _mh_ring(mesh, backend, q, k, v, do, seq_axes=("inter", "intra")):
+    """burst_attn forward and backward on `mesh`'s ring over `seq_axes`
+    (the double ring by default) -> (o, dq, dk, dv)."""
     from burst_attn_tpu_torch.parallel import burst
 
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    o = burst.burst_attn(qs, ks, vs, mesh=mesh, seq_axes=("inter", "intra"),
+    o = burst.burst_attn(qs, ks, vs, mesh=mesh, seq_axes=seq_axes,
                          causal=True, layout="zigzag", backend=backend)
     o.backward(do)
     return o.detach(), qs.grad, ks.grad, vs.grad
@@ -2620,6 +2707,125 @@ def _mh_runner(paths):
                 s=time.perf_counter() - t)
 
 
+def _mh_sp_ring(paths, device, rank):
+    """(d) in a child: the single ring sp=4 split 2 + 2 between the two
+    processes on its half of S (positions 2 rank, 2 rank + 1), the fused
+    backend declined (counted) and kernels 1-5 launched on the scan ring,
+    bitwise against the one-process sp=4 ring in paths["sp4"]; then
+    MH_RING_CALLS timed calls: ms, bytes staged, the wait of the
+    payload hops posted a round early and of the blocking dq hops."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch import obs
+    from burst_attn_tpu_torch.parallel.collectives import TAGS
+    from burst_attn_tpu_torch.utils import multihost
+
+    mesh = multihost.make_hybrid_mesh(ici={}, dcn=MH_SP_RING, device=device)
+    half = 2 * MH_RING["s"]
+    sl = slice(rank * half, (rank + 1) * half)
+    q, k, v, do = (t[:, :, sl].contiguous()
+                   for t in _mh_ring_inputs(device))
+    want = [t[:, :, sl] for t in torch.load(paths["sp4"],
+                                            map_location=device)]
+    obs0 = obs.counter_values()
+    _reset_counts()
+    got = _mh_ring(mesh, "fused_ring", q, k, v, do, seq_axes=("sp",))
+    torch.cuda.synchronize()
+    out = {"launches": _counts()}
+    _mh_ring_launches(out["launches"], 2, MH_SP_RING["sp"], "sp4 ring")
+    out["fallback"] = {k_: v_ for k_, v_ in obs.counter_deltas(
+        obs0).items() if k_.startswith("burst.fused_fallback")}
+    assert out["fallback"] == {
+        "burst.fused_fallback{pass=fwd,reason=spans-processes}": 1,
+        "burst.fused_fallback{pass=bwd,reason=spans-processes}": 1}, \
+        out["fallback"]
+    bad = [n for n, a, b in zip(("o", "dq", "dk", "dv"), got, want)
+           if not torch.equal(a, b)]
+    assert not bad, f"sp=4 ring across processes differs in {bad}"
+    del got, want
+    mesh.transport.reset_stats()
+    times = []
+    for _ in range(MH_RING_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _mh_ring(mesh, "fused_ring", q, k, v, do, seq_axes=("sp",))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    st = mesh.transport.stats
+    n_pay, s_pay = st["waits_by_tag"].get(TAGS[("pay", "intra")], [0, 0.0])
+    n_dq, s_dq = st["waits_by_tag"].get(TAGS[("dq", "intra")], [0, 0.0])
+    out.update(ms=statistics.median(times), ms_all=times, transport=st,
+               staged_mb_a_call=st["bytes"] / MH_RING_CALLS / 1e6,
+               stage_ms_a_call=st["stage_s"] / MH_RING_CALLS * 1e3,
+               pay_hop_wait_ms=s_pay / max(n_pay, 1) * 1e3,
+               dq_hop_wait_ms=s_dq / max(n_dq, 1) * 1e3,
+               hops_a_call=st["hops"] / MH_RING_CALLS)
+    return out
+
+
+def _mh_new_step(paths, device, rank, name):
+    """(e) in a child: the train step of `name` (MH_NEW_MESH) laid over
+    the two processes from the whole weights every process makes alike
+    (its tp shards, its dp group's row and experts, or its stage): the
+    compared step's loss, grad norm and every gradient (tp shards
+    gathered) bitwise the one-process step's in paths[name], its kernel
+    1-5 launches (this process's ring: 2 positions x 2 rounds a layer
+    run, its stage's layers x the microbatches; kernel 1 twice with
+    remat); then MH_NEW_STEPS timed steps: ms and the transport's bytes a
+    step."""
+    import statistics
+
+    import torch
+
+    from burst_attn_tpu_torch.models import train
+
+    sizes = MH_NEW_MESH[name]
+    ref = torch.load(paths[name], map_location=device)
+    cfg = _mh_new_cfg(name)
+    # a process's layer runs a step: its stage's layers x the microbatches
+    units = cfg.n_layers // sizes.get("pp", 1) * cfg.pp_microbatches
+    tcfg = train.TrainConfig()
+    mesh = train.make_mesh(sizes, process_axes="auto", device=device)
+    params = train.place_params(_mh_new_params(name, cfg, paths, device),
+                                cfg, mesh)
+    state = (params, train._optimizer(params, tcfg))
+    step = train.make_train_step(cfg, tcfg, mesh, device=device)
+    batch = train.make_batch(1, cfg, sizes, batch=sizes.get("dp", 1)
+                             * cfg.pp_microbatches, seq=TRAIN_SEQ,
+                             device=device)
+    if "dp" in sizes:
+        batch = {k_: v_[rank:rank + 1] for k_, v_ in batch.items()}
+    _reset_counts()
+    losses, norms, _ = _mh_steps(step, state, batch, 1)
+    launches = _counts()
+    w = sizes["sp"]
+    per = {k_: v_ // units for k_, v_ in launches.items()}
+    _mh_ring_launches(dict(per, flash_fwd=per["flash_fwd"] // 2), w, w,
+                      f"{name} step")
+    grads = _mh_gathered_grads(params)
+    bad = [what for (what, a), b in zip(grads, ref["grads"])
+           if not torch.equal(a, b)]
+    del grads, ref["grads"]
+    assert not bad, f"{name} step across processes differs in {bad}"
+    assert losses == ref["losses"][:1] and norms == ref["grad_norms"][:1], (
+        losses, norms, ref)
+    mesh.transport.reset_stats()
+    more = _mh_steps(step, state, batch, MH_NEW_STEPS)
+    st = mesh.transport.stats
+    assert more[0] == ref["losses"][1:], (more[0], ref["losses"])
+    out = dict(launches=launches, losses=losses + more[0],
+               grad_norms=norms + more[1], ms_all=more[2],
+               ms=statistics.median(more[2]), transport=st,
+               staged_mb_a_step=st["bytes"] / MH_NEW_STEPS / 1e6,
+               stage_ms_a_step=st["stage_s"] / MH_NEW_STEPS * 1e3,
+               wait_ms_a_step=st["wait_s"] / MH_NEW_STEPS * 1e3)
+    del state, step, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mh_child(paths):
     """One of the two processes of the multihost phase (rank from the
     group), booted beside the phase before it: once the parent writes
@@ -2628,7 +2834,10 @@ def _mh_child(paths):
     checked against the one-process output in paths["ring"]; (b) the dp=2
     x sp=2 train step on its row of the batch from the seed weights in
     paths["seed"], every loss and the first step's gradients against
-    paths["train"].  Returns the numbers; any mismatch raises."""
+    paths["train"]; (d) the single ring sp=4 split between the processes
+    (_mh_sp_ring); (e) the tp step, the MoE step with its experts on dp
+    and the pp step, tp, dp and pp across the processes (_mh_new_step).
+    Returns the numbers; any mismatch raises."""
     import statistics
 
     import torch
@@ -2730,6 +2939,13 @@ def _mh_child(paths):
     assert max(rels) <= MESH_TRAIN_RTOL, (rels, losses, ref["losses"])
     worst = max(errs, key=lambda w: errs[w][0])
     assert errs[worst][0] <= MESH_GRAD_RTOL, (worst, errs[worst])
+    del state, step, params, batch, full
+    torch.cuda.empty_cache()
+    # (d) the single ring split between the processes; (e) tp and the
+    # MoE experts on dp across them
+    out["sp4"] = _mh_sp_ring(paths, device, rank)
+    for name in MH_NEW_MESH:
+        out[name] = _mh_new_step(paths, device, rank, name)
     out["child_s"] = time.perf_counter() - t_child
     return out
 
@@ -2739,7 +2955,9 @@ def _mh_references(device, paths):
     under `paths`: (a)'s ring op on the same mesh on the scan route
     (outputs, and its ms), (b)'s seed weights (the training model's first
     MESH_TRAIN_LAYERS layers) and the one-process dp=2 x sp=2 step on
-    them (every loss and grad norm, the first step's gradients, ms)."""
+    them (every loss and grad norm, the first step's gradients, ms), (d)'s
+    one-process sp=4 ring and (e)'s one-process steps likewise.  Returns
+    ((a)'s ms, (b)'s numbers, (d) and (e)'s)."""
     import statistics
 
     import torch
@@ -2749,13 +2967,17 @@ def _mh_references(device, paths):
     ring1 = {"inter": 2, "intra": 2}
     inputs = _mh_ring_inputs(device)
     torch.save(list(_mh_ring(ring1, "auto", *inputs)), paths["ring"])
-    times = []
+    torch.save(list(_mh_ring(MH_SP_RING, "auto", *inputs,
+                             seq_axes=("sp",))), paths["sp4"])
+    times, sp4_times = [], []
     for _ in range(MH_RING_CALLS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _mh_ring(ring1, "auto", *inputs)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
+        for mesh, seq_axes, ts in ((ring1, ("inter", "intra"), times),
+                                   (MH_SP_RING, ("sp",), sp4_times)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _mh_ring(mesh, "auto", *inputs, seq_axes=seq_axes)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
     del inputs
     layers = MESH_TRAIN_LAYERS
     cfg1 = _train_model(TRAIN_DIMS["n_layers"], torch.bfloat16)
@@ -2782,7 +3004,25 @@ def _mh_references(device, paths):
     torch.save(dict(layers=layers, grads=grads, **one), paths["train"])
     del state, step, params, batch, grads
     torch.cuda.empty_cache()
-    return statistics.median(times), one
+    new = {"sp4_ms": statistics.median(sp4_times), "sp4_ms_all": sp4_times}
+    for name, sizes in MH_NEW_MESH.items():
+        cfg = _mh_new_cfg(name)
+        params = train.place_params(_mh_new_params(name, cfg, paths, device),
+                                    cfg, sizes)
+        state = (params, train._optimizer(params, tcfg))
+        step = train.make_train_step(cfg, tcfg, sizes, device=device)
+        batch = train.make_batch(1, cfg, sizes, batch=sizes.get("dp", 1)
+                                 * cfg.pp_microbatches, seq=TRAIN_SEQ,
+                                 device=device)
+        losses, norms, _ = _mh_steps(step, state, batch, 1)
+        grads = [g for _, g in _whole_grads(params)]
+        more = _mh_steps(step, state, batch, MH_NEW_STEPS)
+        new[name] = dict(losses=losses + more[0], grad_norms=norms + more[1],
+                         step_ms=statistics.median(more[2]))
+        torch.save(dict(grads=grads, **new[name]), paths[name])
+        del state, step, params, batch, grads
+        torch.cuda.empty_cache()
+    return statistics.median(times), one, new
 
 
 class MultihostPhase:
@@ -2800,7 +3040,14 @@ class MultihostPhase:
     step's gradients against the one-process dp=2 x sp=2 step
     (MESH_TRAIN_RTOL / MESH_GRAD_RTOL; bitwise expected); (c) runner
     --multihost --mesh dp=2,sp=2 (MH_RUNNER): a step with a checkpoint
-    written by rank 0 alone, then a resume in both.  The children run (c)
+    written by rank 0 alone, then a resume in both; (d) the single ring
+    sp=4 split 2 + 2 between the processes at (a)'s shard, bitwise the
+    one-process sp=4 ring, each process's kernel 1-5 launches exact (its 2
+    positions x 4 rounds), the fused backend's decline counted; (e) a
+    step at the training model's width (MH_NEW_LAYERS layer a stage) on
+    tp=2 across the processes x sp=2, on the MoE model with its experts on
+    dp=2 across them x sp=2 and on the pipeline pp=2 across them x sp=2,
+    each bitwise the one-process step on the same weights and batch.  The children run (c)
     while finish() computes the one-process references (_mh_references),
     which reach them through files under build/multihost/ (with the token
     file; a "ready" file last).  A child that fails or outlives
@@ -2822,6 +3069,8 @@ class MultihostPhase:
         self.root.mkdir(parents=True)
         self.paths = {k: str(self.root / f) for k, f in (
             ("ring", "ring_ref.pt"), ("seed", "seed.pt"),
+            ("sp4", "sp4_ref.pt"), ("tp", "tp_ref.pt"), ("ep", "ep_ref.pt"),
+            ("pp", "pp_ref.pt"),
             ("train", "train_ref.pt"), ("tokens", "train.batd"),
             ("ckpt", "ckpt"), ("go", "go"), ("ready", "ready"),
             ("abort", "abort"))}
@@ -2863,7 +3112,7 @@ class MultihostPhase:
         Path(paths["go"]).touch()
         try:
             t0 = time.perf_counter()
-            ring1_ms, one = _mh_references(self.device, paths)
+            ring1_ms, one, new = _mh_references(self.device, paths)
             t_refs = time.perf_counter() - t0
             Path(paths["ready"]).touch()
         except BaseException:
@@ -2873,7 +3122,7 @@ class MultihostPhase:
             self.thread.join()
         if "error" in self.got:
             raise self.got["error"]
-        out = _mh_report(self.got["res"], ring1_ms, one, t_refs)
+        out = _mh_report(self.got["res"], ring1_ms, one, new, t_refs)
         shutil.rmtree(self.root, ignore_errors=True)
         out["children_s"] = self.got["s"]
         out["boot_overlap_s"] = t_phase - self.t_spawn
@@ -2887,7 +3136,7 @@ class MultihostPhase:
         return out
 
 
-def _mh_report(res, ring1_ms, one, t_refs):
+def _mh_report(res, ring1_ms, one, new, t_refs):
     """The multihost phase's checks of the children's results `res`, its
     lines and numbers."""
     card = card_line()
@@ -2905,7 +3154,8 @@ def _mh_report(res, ring1_ms, one, t_refs):
             "burst.fused_fallback{pass=bwd,reason=spans-processes}": 1}, \
             r["ring_fallback"]
         assert tl["flash_fwd"] > 0 and tl["fused"] + tl["dq"] > 0, tl
-        for src in (rl, tl):
+        for src in (rl, tl, r["sp4"]["launches"],
+                    *(r[name]["launches"] for name in MH_NEW_MESH)):
             for name, n in src.items():
                 launches[name] = launches.get(name, 0) + n
         # every dp replica saw the same losses, the resume continued
@@ -2922,6 +3172,7 @@ def _mh_report(res, ring1_ms, one, t_refs):
             h["loss"] for h in res[1]["runner"][run]], run
     out = {"references_s": t_refs,
            "ring_one_process_ms": ring1_ms, "train_one_process": one,
+           "one_process_new": new,
            "launches": {k: v for k, v in launches.items() if v},
            "ranks": [{k: v for k, v in r.items() if k != "runner"}
                      | {"runner": {k: v for k, v in r["runner"].items()
@@ -2955,6 +3206,37 @@ def _mh_report(res, ring1_ms, one, t_refs):
           f"{[round(r['gather_wait_ms_a_step'], 1) for r in res]} ms a "
           f"step, {r0['gathered_mb_a_step']:.0f} MB gathered a step; "
           f"launches a step {r0['train_launches']}", flush=True)
+    sp4 = [r["sp4"] for r in res]
+    print(f"multihost single ring (sp=4 split 2 + 2 between 2 processes on "
+          f"one card, gloo; B1 N16 S_local 2048 D128 bf16 causal zigzag, S "
+          f"8192; {card}): {[round(x['ms'], 2) for x in sp4]} ms a forward "
+          f"+ backward (one process, sp=4: {new['sp4_ms']:.2f} ms); bitwise "
+          f"the one-process ring; staged "
+          f"{[round(x['staged_mb_a_call'], 1) for x in sp4]} MB a call "
+          f"({[round(x['stage_ms_a_call'], 2) for x in sp4]} ms of staging; "
+          f"{sp4[0]['hops_a_call']:.0f} hops); the payload hops posted a "
+          f"round early waited {[round(x['pay_hop_wait_ms'], 3) for x in sp4]}"
+          f" ms each, the dq hops "
+          f"{[round(x['dq_hop_wait_ms'], 3) for x in sp4]} ms; launches "
+          f"{sp4[0]['launches']}; fused fallback {sp4[0]['fallback']}",
+          flush=True)
+    for name, what in (("tp", "tp=2 across the processes x sp=2"),
+                       ("ep", "MoE (8 experts, top-2), its experts on dp=2 "
+                              "across the processes x sp=2"),
+                       ("pp", "pp=2 across the processes, a stage each, x "
+                              "sp=2, 2 microbatches of a row")):
+        rs = [r[name] for r in res]
+        print(f"multihost {name} train step ({what}; {MH_NEW_LAYERS} layer "
+              f"a stage of the training model, bf16, remat, "
+              f"S={TRAIN_SEQ}; {card}): "
+              f"{[round(x['ms'], 1) for x in rs]} ms (one process, same "
+              f"weights and batch: {new[name]['step_ms']:.1f} ms); losses "
+              f"{rs[0]['losses']} (one process {new[name]['losses']}), "
+              f"gradients bitwise; staged "
+              f"{[round(x['staged_mb_a_step'], 1) for x in rs]} MB a step "
+              f"({[round(x['stage_ms_a_step'], 1) for x in rs]} ms staging, "
+              f"{[round(x['wait_ms_a_step'], 1) for x in rs]} ms waiting); "
+              f"launches {rs[0]['launches']}", flush=True)
     print(f"multihost runner --multihost --mesh dp=2,sp=2 ({MH_RUNNER}): "
           f"step 1 loss {r0['runner']['first'][0]['loss']:.4f} (checkpoint "
           f"written by rank 0 alone), resumed step 2 loss "
@@ -3396,6 +3678,45 @@ def train_parity(device, n_layers=2, seq=2048, **kw):
                 grad_worst=worst[1])
 
 
+def _tree_copy(x):
+    """A copy of a parameter tree (dicts, lists, Shards, tensors), every
+    tensor a fresh leaf requiring grad."""
+    from burst_attn_tpu_torch.models.transformer import Shards
+
+    if isinstance(x, dict):
+        return {k: _tree_copy(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_tree_copy(v) for v in x]
+    if isinstance(x, Shards):
+        return x.map(_tree_copy)
+    return x.detach().clone().requires_grad_(True)
+
+
+@contextlib.contextmanager
+def _one_init(runner):
+    """Inside the block, runner.fit's first init_train_state runs and is
+    kept; a later one (the same seed and model: a fit's rerun from
+    scratch) gets a copy of it with a fresh optimizer instead of numpy's
+    init again (~5 s of host time at full width, 2 layers)."""
+    from burst_attn_tpu_torch.models import train
+
+    real, kept = runner.init_train_state, []
+
+    def init(seed, cfg, tcfg, mesh=None, *, device=None):
+        if kept:
+            params = _tree_copy(kept[0])
+            return params, train._optimizer(params, tcfg)
+        params, opt = real(seed, cfg, tcfg, mesh, device=device)
+        kept.append(_tree_copy(params))
+        return params, opt
+
+    runner.init_train_state = init
+    try:
+        yield
+    finally:
+        runner.init_train_state = real
+
+
 def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
                  packed_eos_id=None, batch=1, **kw):
     """runner.fit at full width with `n_layers` layers on a seeded random
@@ -3458,13 +3779,15 @@ def runner_phase(device, n_layers=2, seq=2048, steps=4, mesh=None,
         ck = os.path.join(tmp, "ckpt")
         _reset_counts()
         t0 = time.perf_counter()
-        _, full = runner.fit(cfg, tcfg, runner.RunConfig(steps=steps, **kw),
-                             mesh, device=device)
-        fit_s = time.perf_counter() - t0
-        launches = _counts()
-        ckw = dict(ckpt_dir=ck, ckpt_every=half, ckpt_keep=1, **kw)
-        runner.fit(cfg, tcfg, runner.RunConfig(steps=half, **ckw), mesh,
-                   device=device)
+        with _one_init(runner):
+            _, full = runner.fit(cfg, tcfg,
+                                 runner.RunConfig(steps=steps, **kw), mesh,
+                                 device=device)
+            fit_s = time.perf_counter() - t0
+            launches = _counts()
+            ckw = dict(ckpt_dir=ck, ckpt_every=half, ckpt_keep=1, **kw)
+            runner.fit(cfg, tcfg, runner.RunConfig(steps=half, **ckw), mesh,
+                       device=device)
         assert Checkpointer(ck).steps() == [half], Checkpointer(ck).steps()
         _, resumed = runner.fit(cfg, tcfg,
                                 runner.RunConfig(steps=steps, **ckw), mesh,
@@ -8805,6 +9128,8 @@ def ulysses_train_phase(device, single, ring_tr):
 # the card, GPipe microbatches), at the training model's full width
 
 PP_B, PP_SEQ = 4, 2048  # the single-device step's 8192 tokens, 4 rows
+PP_LAYERS = 8  # half the training model's depth (cut to free the
+# multihost phase's seconds: the pp steps and their control halve)
 PP_CASES = (  # (name, mesh, microbatches, attention backend)
     ("pp4", {"pp": 4, "sp": 1}, 4, "auto"),
     ("pp2 x sp2", {"pp": 2, "sp": 2}, 2, "fused_ring"),
@@ -8837,8 +9162,9 @@ def _pp_state(cfg, tcfg, device):
 
 def pp_train_phase(device):
     """make_train_step on the pipeline-parallel model at train_smoke's
-    width and depth (16 layers, bf16, remat), B=PP_B S=PP_SEQ (the
-    single-device step's 8192 tokens), the seed-0 weights and one batch:
+    width and PP_LAYERS layers (bf16, remat), B=PP_B S=PP_SEQ (the
+    single-device step's 8192 tokens), the seed-0 weights' first PP_LAYERS
+    layers (_seed_state) and one batch:
     one device (the control, B4 in one launch a layer), then PP_CASES:
     pp=4 x sp=1 at 4 microbatches (kernel 1 twice and the fused backward
     once a layer a microbatch) and pp=2 x sp=2 at 2 microbatches on the
@@ -8858,7 +9184,7 @@ def pp_train_phase(device):
     from burst_attn_tpu_torch.models.transformer import param_leaves
 
     t0 = time.perf_counter()
-    n_layers = TRAIN_DIMS["n_layers"]
+    n_layers = PP_LAYERS
     tcfg = train.TrainConfig()
     base = _train_model(n_layers, torch.bfloat16)
     tokens = PP_B * PP_SEQ

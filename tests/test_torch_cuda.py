@@ -3649,6 +3649,90 @@ def test_two_processes_double_ring_bf16_on_card(dev, tmp_path):
         assert r["flash_fwd_launches"] > 0
 
 
+def test_two_processes_single_ring_bf16_on_card(dev, tmp_path):
+    """The bf16 single ring sp=4 split 2 + 2 between two processes on the
+    one card (every hop crosses them): forward and gradients bitwise the
+    one-process ring's on the card; kernel 1 launched in each process;
+    the fused backend declined (spans-processes)."""
+    import torch_multiproc_workers as W
+
+    rng = np.random.default_rng(33)
+    q, k, v, g = (rng.standard_normal((1, 4, 1024, 128), np.float32)
+                  for _ in range(4))
+    res = W.spawn(W.ring_op, 2, (q, k, v, g, "cuda", "fused_ring",
+                                 "bfloat16", 2, {"sp": 4}, {}, ("sp",)),
+                  init_method=f"file://{tmp_path / 'rdzv'}", timeout_s=300)
+    tq, tk, tv = (torch.from_numpy(x).to(dev, torch.bfloat16)
+                  .requires_grad_() for x in (q, k, v))
+    o = burst.burst_attn(tq, tk, tv, mesh={"sp": 4}, seq_axes=("sp",),
+                         causal=True, layout="zigzag", backend="auto")
+    gb = torch.from_numpy(g).to(dev, torch.bfloat16).float()
+    (o.float() * gb).sum().backward()
+    for name, want in (("o", o), ("dq", tq.grad), ("dk", tk.grad),
+                       ("dv", tv.grad)):
+        got = np.concatenate([r[name] for r in res], axis=2)
+        np.testing.assert_array_equal(got, want.detach().float().cpu()
+                                      .numpy(), err_msg=name)
+    for r in res:
+        # 3 forward hops, 3 payload and 3 dq hops, dq home: a call
+        assert r["stats"]["hops"] == 2 * 10, r["stats"]
+        assert r["flash_fwd_launches"] > 0
+        assert r["fallback"] == {
+            "burst.fused_fallback{pass=fwd,reason=spans-processes}": 2,
+            "burst.fused_fallback{pass=bwd,reason=spans-processes}": 2}
+
+
+def test_two_processes_tp_step_on_card(dev, tmp_path):
+    """The bf16 tp=2 (across two processes on the one card) x sp=2 train
+    step: every loss, grad norm and first-step gradient bitwise the
+    one-process tp=2 x sp=2 step's on the card (Megatron's f and g
+    across the processes), the kernels launched in each process."""
+    import torch_multiproc_workers as W
+
+    dims = dict(vocab=256, d_model=256, n_layers=1, n_heads=2, n_kv_heads=2,
+                d_head=128, d_ff=512)
+    tok = np.random.default_rng(7).integers(0, 256, (2, 257)).astype(
+        np.int32)
+    kw = dict(device="cuda", dtype="bfloat16", steps=2, dims=dims)
+    res = W.spawn(
+        W.train_steps, 2, (None, tok, W.TP_SP, "auto") + tuple(kw.values()),
+        init_method=f"file://{tmp_path / 'rdzv'}", timeout_s=300)
+    one = W.train_steps(None, tok, W.TP_SP, (), **kw)
+    for r in res:
+        assert r["losses"] == one["losses"] and r["norms"] == one["norms"]
+        for i, (a, b) in enumerate(zip(r["grads"], one["grads"])):
+            np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
+        assert r["flash_fwd_launches"] > 0
+        assert r["stats"]["gathers"] > 0
+
+
+def test_two_processes_pp_step_on_card(dev, tmp_path):
+    """The bf16 pipeline pp=2 (a stage in each of two processes on the one
+    card) x sp=2 train step at 2 microbatches: every loss, grad norm and
+    first-step gradient bitwise the one-process pp=2 x sp=2 step's on the
+    card (the stage hops and their gradients across the processes), the
+    kernels launched in each process."""
+    import torch_multiproc_workers as W
+
+    dims = dict(vocab=256, d_model=256, n_layers=2, n_heads=2, n_kv_heads=2,
+                d_head=128, d_ff=512)
+    tok = np.random.default_rng(7).integers(0, 256, (2, 257)).astype(
+        np.int32)
+    sizes = {"pp": 2, "sp": 2}
+    kw = dict(device="cuda", dtype="bfloat16", steps=2, dims=dims,
+              model=dict(pp_axis="pp", pp_microbatches=2))
+    res = W.spawn(
+        W.train_steps, 2, (None, tok, sizes, "auto") + tuple(kw.values()),
+        init_method=f"file://{tmp_path / 'rdzv'}", timeout_s=300)
+    one = W.train_steps(None, tok, sizes, (), **kw)
+    for r in res:
+        assert r["losses"] == one["losses"] and r["norms"] == one["norms"]
+        for i, (a, b) in enumerate(zip(r["grads"], one["grads"])):
+            np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
+        assert r["flash_fwd_launches"] > 0
+        assert r["stats"]["hops"] > 0 and r["stats"]["gathers"] > 0
+
+
 def test_two_processes_dp_step_on_card(dev, tmp_path):
     """The bf16 dp=2 (two processes on the one card) x sp=2 train step:
     every loss, grad norm and first-step gradient bitwise the one-process

@@ -122,38 +122,57 @@ def test_synchronize_and_gather_obj_single_process():
     ({"dp": 2, "inter": 2, "intra": 2}, 4, ("dp", "inter")),
     ({"dp": 2, "sp": 2}, 1, ()),
     ({"tp": 2, "sp": 2}, 2, ("tp",)),
-    ({"sp": 4}, 2, NotImplementedError),
-    ({"dp": 4, "sp": 2}, 2, NotImplementedError),
-    ({"dp": 2, "sp": 2}, 3, NotImplementedError),
+    ({"sp": 4}, 2, ("sp",)),  # split 2 + 2
+    ({"dp": 4, "sp": 2}, 2, ("dp",)),  # dp split 2 + 2
+    ({"dp": 2, "sp": 2}, 3, ValueError),  # 4 positions, 3 processes
+    ({"a": 3, "b": 2}, 2, ValueError),  # 3 positions a process: no grid
+    ({"dp": 2, "inter": 2, "intra": 4}, 4, ("dp", "inter")),
+    ({"inter": 2, "intra": 4}, 4, ("inter", "intra")),  # intra split
 ])
 def test_process_axes_for(shape, n, want):
-    """The leading axes that span n processes, one index a process; an
-    axis split between processes raises naming ROADMAP A7b."""
-    if isinstance(want, tuple):
-        assert pmesh.process_axes_for(shape, n) == want
-    else:
-        with pytest.raises(want, match="ROADMAP A7b"):
+    """The axes that span n processes in JAX's process-major order (the
+    leading ones one index a process, at most one split between
+    processes), and the positions each rank then holds: the flat
+    [r N/n, (r+1) N/n) of the mesh's row-major order, enumerated from the
+    layout's sub-grid; a mesh whose positions do not divide between the
+    processes, or do not form a sub-grid, raises ValueError."""
+    if not isinstance(want, tuple):
+        with pytest.raises(want, match="processes"):
             pmesh.process_axes_for(shape, n)
+        return
+    assert pmesh.process_axes_for(shape, n) == want
+    total = int(np.prod(list(shape.values())))
+    for r in range(n):
+        assert pmesh.layout_positions(shape, n, r) == list(
+            range(r * total // n, (r + 1) * total // n))
 
 
 @pytest.mark.parametrize("shape,axes", [
     ({"tp": 2, "sp": 2}, ("tp",)),
     ({"pp": 2, "sp": 2}, ("pp",)),
     ({"ep": 2, "sp": 2}, ("ep",)),
-    ({"sp": 2, "dp": 2}, ("dp",)),  # not outermost
+    ({"sp": 2, "dp": 2}, ("sp",)),  # sp outermost: it spans the two
 ])
 def test_gated_process_axes_raise(shape, axes):
-    """tp, pp, ep (or any axis but dp and inter) across processes, or a
-    process axis that is not outermost: NotImplementedError naming
-    ROADMAP A7b, before any process group is needed."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        pmesh.Mesh(shape, device="cpu", process_axes=axes)
+    """tp, pp, ep or any outermost axis spans the processes now (they
+    raised NotImplementedError before any axis but dp and inter could):
+    over two processes each rank holds one index of the leading axis and
+    every position of the other; a process_axes request other than the
+    layout's is a ValueError, made before any process group is needed."""
+    assert pmesh.process_layout(shape, 2) == {axes[0]: 1}
+    assert [pmesh.layout_positions(shape, 2, r) for r in range(2)] == [
+        [0, 1], [2, 3]]
+    other = tuple(a for a in shape if a not in axes)
+    with pytest.raises(ValueError, match="process-major"):
+        pmesh.Mesh(shape, device="cpu", process_axes=other)
 
 
 def test_two_processes(tmp_path):
     """gather_obj is rank-ordered and the barrier passes in two gloo
-    processes; a dcn product other than the process count raises
-    ValueError naming it; each process sits at its rank's dp index;
+    processes; a mesh whose positions do not divide between the
+    processes raises ValueError naming their count; each process sits at
+    its rank's dp index, and holds the layout's positions of the meshes
+    of LAYOUTS (a split axis, tp or sp outermost);
     all_reduce (sum, mean, max), broadcast, all_gather and reduce_scatter
     over dp across the processes equal the one-process collectives on the
     two parts (bf16 sums in bf16), recorded as the one-process ones."""
@@ -163,6 +182,9 @@ def test_two_processes(tmp_path):
         assert got["gather"] == [{"rank": 0, "sq": 0}, {"rank": 1, "sq": 1}]
         assert "2 processes" in got["mismatch"]
         assert got["coords"] == ({"dp": r}, [0, 1])
+        for shape, (axes, held) in zip(W.LAYOUTS, got["layouts"]):
+            assert axes == pmesh.process_axes_for(shape, 2)
+            assert held == pmesh.layout_positions(shape, 2, r)
     parts = [torch.from_numpy(got["part"]) for got in res]
     with pmesh.record_collectives() as ev:
         want = {

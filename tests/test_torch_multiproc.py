@@ -17,8 +17,10 @@ own one-process run on the same inputs.
     one-process step at those tolerances;
   * runner.main --multihost --mesh dp=2,sp=2: two steps, checkpoints by
     rank 0 only, a resume, losses equal to the one-process train loop on
-    the two loader shards' rows joined in rank order; the meshes that
-    raise NotImplementedError naming ROADMAP A7b."""
+    the two loader shards' rows joined in rank order; a step on tp, pp
+    and ep across the processes and on sp=4 split over them against the
+    one-process runner; a pipeline with tp across them raises
+    NotImplementedError naming ROADMAP A7b."""
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +35,7 @@ from burst_attn_tpu.models import ModelConfig as JConfig
 from burst_attn_tpu.models import train as jtrain
 from burst_attn_tpu_torch import burst_attn
 from burst_attn_tpu_torch.data import DataLoader, write_token_file
-from burst_attn_tpu_torch.models import train
+from burst_attn_tpu_torch.models import runner, train
 from burst_attn_tpu_torch.models.transformer import (
     ModelConfig, init_params, param_leaves, params_from_jax,
 )
@@ -201,7 +203,9 @@ def test_runner_multihost_trains_checkpoints_and_resumes(tmp_path):
     checkpoints, both resume from step 1 to the same step-2 loss; each
     process exports its own obs file and the merge folds both; a step on
     inter=2 x intra=2 has the one-process ring's loss; tp, pp and ep
-    across the processes and sp=4 split over them raise."""
+    across the processes and sp=4 split over them train a step each, the
+    loss the one-process runner's (tp, pp, ep: bit for bit); a pipeline
+    with tp across them raises naming ROADMAP A7b."""
     seq, vocab = 64, 512
     data = str(tmp_path / "train.batd")
     write_token_file(data, np.random.default_rng(5).integers(
@@ -237,10 +241,23 @@ def test_runner_multihost_trains_checkpoints_and_resumes(tmp_path):
         assert [(h["step"], h["loss"]) for h in r["resumed"]] == [
             (2, want[1])]
         assert r["steps_a"] == [1, 2] and r["steps_b"] == [1, 2]
-        assert sorted(r["raised"]) == ["ep=2,sp=2", "pp=2,sp=2", "sp=4",
-                                       "tp=2,sp=2"], r["raised"]
+        assert sorted(r["raised"]) == ["tp=2,pp=2,sp=2"], r["raised"]
         assert all("ROADMAP A7b" in msg for msg in r["raised"].values())
+        assert sorted(r["ran"]) == ["ep=2,sp=2", "pp=2,sp=2", "sp=4",
+                                    "tp=2,sp=2"]
     assert res[0]["writes"] == [1, 2, 2] and res[1]["writes"] == []
+    # the meshes that raised before: tp, pp and ep across the processes
+    # equal the one-process runner, the ring split 2 + 2 within LOSS_RTOL
+    for mesh, hist in res[0]["ran"].items():
+        _, one = runner.main(argv + W.RUNNER_EXTRA.get(mesh, []) + [
+            "--mesh", mesh, "--device", "cpu", "--steps", "1"])
+        assert [h["step"] for h in hist] == [1], mesh
+        assert hist == [dict(h, step_s=hist[0]["step_s"]) for h in one] \
+            or mesh == "sp=4", (mesh, hist, one)
+        np.testing.assert_allclose(hist[0]["loss"], one[0]["loss"],
+                                   rtol=LOSS_RTOL, err_msg=mesh)
+        assert [h["loss"] for h in res[1]["ran"][mesh]] == [
+            h["loss"] for h in hist], mesh
     # --mesh inter=2,intra=2: both processes read the same rows, each its
     # half of the sequence; the loss is the one-process ring's
     cfg2 = ModelConfig(vocab=vocab, d_model=64, n_layers=2, n_heads=4,
@@ -259,5 +276,6 @@ def test_runner_multihost_trains_checkpoints_and_resumes(tmp_path):
     metrics, _, meta = merge_files([str(tmp_path / "obs.p*.jsonl")])
     assert meta["processes"] == 2
     steps = [m_ for m_ in metrics if m_["name"] == "train.steps"]
-    # each process: 2 + 1 dp steps and the inter step
-    assert steps and sum(m_["value"] for m_ in steps) == 2 * (3 + 1)
+    # each process: 2 + 1 dp steps, the inter step and the tp, pp, ep
+    # and sp=4 steps (the last export is the sp=4 run's)
+    assert steps and sum(m_["value"] for m_ in steps) == 2 * (3 + 1 + 4)

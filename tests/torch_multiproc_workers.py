@@ -96,6 +96,25 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+# meshes laid over two processes (test_torch_multihost.py): an axis split
+# 2 + 2, tp outermost, sp outermost before a local dp
+LAYOUTS = ({"sp": 4}, {"dp": 4, "sp": 2}, {"tp": 2, "sp": 2},
+           {"sp": 2, "dp": 2})
+
+
+def _held(mesh):
+    """(the process axes of `mesh`, the flat positions this process holds:
+    each axis's local_start / local_size, in row-major order)."""
+    import itertools
+
+    ranges = [range(mesh.local_start(a),
+                    mesh.local_start(a) + mesh.local_size(a))
+              for a in mesh.shape]
+    return mesh.process_axes, [
+        int(np.ravel_multi_index(c, tuple(mesh.shape.values())))
+        for c in itertools.product(*ranges)]
+
+
 def host_helpers():
     """gather_obj rank-ordered, the barrier, a mismatched dcn product and
     the four collectives over a process axis (dp across the processes,
@@ -104,13 +123,16 @@ def host_helpers():
     rank = multihost.process_index()
     got = {"gather": gather_obj({"rank": rank, "sq": rank * rank})}
     synchronize()
-    try:
-        multihost.make_hybrid_mesh(ici={"sp": 2}, dcn={"dp": 4},
+    try:  # 3 positions do not divide between the 2 processes
+        multihost.make_hybrid_mesh(ici={"sp": 1}, dcn={"dp": 3},
                                    device="cpu")
     except ValueError as e:
         got["mismatch"] = str(e)
     m = pmesh.Mesh({"dp": 2, "sp": 2}, device="cpu", process_axes=("dp",))
     got["coords"] = (m.process_coords, m.axis_ranks("dp"))
+    got["layouts"] = [_held(pmesh.Mesh(shape, device="cpu",
+                                       process_axes="auto"))
+                      for shape in LAYOUTS]
     x = torch.arange(8, dtype=torch.float32).reshape(2, 4) * (rank + 1) + 0.1
     with pmesh.record_collectives() as ev:
         got["all_reduce"] = _np(pmesh.all_reduce([x], "sum", "dp", mesh=m)[0])
@@ -128,11 +150,24 @@ def host_helpers():
     return got
 
 
+def ring_slice(mesh, seq_axes, s: int) -> slice:
+    """This process's part of a layout-order sequence of length s on the
+    ring over `seq_axes` of `mesh` (its ring positions' shards)."""
+    procs = mesh.ring_procs(seq_axes)
+    if procs is None:
+        return slice(0, s)
+    w = len(procs.owners)
+    return slice(procs.pos[0] * s // w, (procs.pos[-1] + 1) * s // w)
+
+
 def ring_op(q, k, v, g, device="cpu", backend="jnp", dtype="float32",
-            calls=1):
-    """burst_attn forward and backward on the double ring inter=2 (the
-    processes) x intra=2 (local), causal zigzag, on this process's half
-    of the layout-order sequence: (o, dq, dk, dv) of the half, the
+            calls=1, dcn=None, ici=None, seq_axes=("inter", "intra"),
+            layout="zigzag", seg=None, **kw):
+    """burst_attn forward and backward on the mesh of `dcn` x `ici`
+    (default: the double ring inter=2, the processes, x intra=2, local),
+    causal, on this process's part of the layout-order sequence (and of
+    the packed-document ids `seg` [B, S], if given; `kw`: more burst_attn
+    options, a window, a wire dtype): (o, dq, dk, dv) of the part, the
     collectives recorded in the last call, the transport's counters and
     the fused-fallback deltas.  `calls` repeats the call (the staging
     buffers' reuse)."""
@@ -141,11 +176,10 @@ def ring_op(q, k, v, g, device="cpu", backend="jnp", dtype="float32",
 
     torch.set_num_threads(1)
     dt = getattr(torch, dtype)
-    m = multihost.make_hybrid_mesh(ici={"intra": 2}, dcn={"inter": 2},
-                                   device=device)
-    rank = multihost.process_index()
-    half = q.shape[2] // 2
-    sl = slice(rank * half, (rank + 1) * half)
+    m = multihost.make_hybrid_mesh(
+        ici={"intra": 2} if ici is None else ici,
+        dcn={"inter": 2} if dcn is None else dcn, device=device)
+    sl = ring_slice(m, seq_axes, q.shape[2])
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a[:, :, sl])).to(
@@ -157,8 +191,10 @@ def ring_op(q, k, v, g, device="cpu", backend="jnp", dtype="float32",
     for _ in range(calls):
         tq, tk, tv = (put(x).requires_grad_() for x in (q, k, v))
         with pmesh.record_collectives() as ev:
-            o = burst_attn(tq, tk, tv, mesh=m, seq_axes=("inter", "intra"),
-                           causal=True, layout="zigzag", backend=backend)
+            o = burst_attn(tq, tk, tv, mesh=m, seq_axes=seq_axes,
+                           causal=True, layout=layout, backend=backend,
+                           segment_ids=None if seg is None else
+                           torch.from_numpy(seg[:, sl]), **kw)
             (o.float() * put(g).float()).sum().backward()
         allocs.append(m.transport.stats["allocs"])
     if device != "cpu":
@@ -172,31 +208,74 @@ def ring_op(q, k, v, g, device="cpu", backend="jnp", dtype="float32",
                 flash_fwd_launches=flash.flash_fwd.launches - launches0)
 
 
+def ring_cases(q, k, v, g, cases):
+    """ring_op of each (dcn, ici, layout, kw) of `cases` (a single ring
+    over "sp", the fused backend: declined across processes) in turn, in
+    the same processes."""
+    return [ring_op(q, k, v, g, "cpu", "fused_ring", dcn=dcn, ici=ici,
+                    seq_axes=("sp",), layout=layout, **kw)
+            for dcn, ici, layout, kw in cases]
+
+
+def ulysses_op(q, k, v, g, seg, dcn, ici):
+    """ulysses_attn (causal, the flash path's plain version) forward and
+    backward over "sp" of the mesh dcn x ici, on this process's part of
+    the natural-order sequence, packed documents `seg` ([B, S] or None):
+    (o, dq, dk, dv) of the part, the collectives recorded, the
+    transport's counters."""
+    from burst_attn_tpu_torch.parallel.ulysses import ulysses_attn
+
+    torch.set_num_threads(1)
+    m = multihost.make_hybrid_mesh(ici=ici, dcn=dcn, device="cpu")
+    n, s = m.shape["sp"], q.shape[2]
+    lo = m.local_start("sp")
+    sl = slice(lo * s // n, (lo + m.local_size("sp")) * s // n)
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(x[:, :, sl]))
+                  .requires_grad_() for x in (q, k, v))
+    with pmesh.record_collectives() as ev:
+        o = ulysses_attn(tq, tk, tv, mesh=m, seq_axis="sp", causal=True,
+                         backend="auto", segment_ids=None if seg is None
+                         else torch.from_numpy(seg[:, sl]))
+        (o * torch.from_numpy(np.ascontiguousarray(g[:, :, sl]))
+         ).sum().backward()
+    return dict(o=_np(o), dq=_np(tq.grad), dk=_np(tk.grad), dv=_np(tv.grad),
+                events=list(ev), stats=dict(m.transport.stats))
+
+
 def _cfg(sizes, dtype=torch.float32, dims=None, **kw):
     """The narrow model on mesh `sizes`: the double ring when it has an
-    "inter" axis, dp when it has one; `kw` configures it further."""
-    return ModelConfig(**(dims or DIMS), dtype=dtype, remat=False,
-                       seq_axes=(("inter", "intra") if "inter" in sizes
-                                 else ("sp",)),
-                       batch_axis="dp" if "dp" in sizes else None,
-                       head_axis=None, **kw)
+    "inter" axis, dp and tp when it has them; `kw` configures it
+    further."""
+    return ModelConfig(**{**dict(dims or DIMS), **dict(
+        dtype=dtype, remat=False,
+        seq_axes=("inter", "intra") if "inter" in sizes else ("sp",),
+        batch_axis="dp" if "dp" in sizes else None,
+        head_axis="tp" if "tp" in sizes else None), **kw})
 
 
 def whole_grads(params):
-    """Every tree leaf's gradient (a split leaf's joined), as numpy."""
-    return [_np(torch.cat([t.grad for t in x.parts], dim=x.dim))
-            if isinstance(x, Shards) else _np(x.grad)
-            for x in tree_leaves(params)]
+    """Every tree leaf's gradient (a split leaf's joined, its shards in
+    other processes gathered: every process calls it), as numpy."""
+    out = []
+    for x in tree_leaves(params):
+        if not isinstance(x, Shards):
+            out.append(_np(x.grad))
+            continue
+        parts = [t.grad for t in x.parts]
+        if x.total > len(parts):
+            parts = pmesh._gathered(parts, x.axis, x.mesh)[0]
+        out.append(_np(torch.cat(parts, dim=x.dim)))
+    return out
 
 
 def train_steps(tree, tok, sizes=DP_SP, across=("dp",), device="cpu",
                 dtype="float32", steps=1, dims=None, model=None):
     """`steps` train steps of the `dims` model (default DIMS) on mesh
     `sizes` from the numpy `tree` (None: init_params seed 0) at lr 0
-    without clipping.  `across`: the mesh's axes that span the processes
-    (each process takes its rows of `tok` [B, S + 1] by train.data_shard
-    and, on a ring across them, its part of the sequence); () runs every
-    position in this process on all rows.  Each step's loss and grad
+    without clipping.  `across`: "auto" or the mesh's axes that span the
+    processes (each process takes its rows of `tok` [B, S + 1] by
+    train.data_shard and, on a sequence axis across them, its part of
+    the sequence); () runs every position in this process on all rows.  Each step's loss and grad
     norm, the first step's gradients, the collectives the first step
     recorded, the transport's counters and the flash forward's
     launches.  `model`: more ModelConfig fields (an MoE's)."""
@@ -205,7 +284,8 @@ def train_steps(tree, tok, sizes=DP_SP, across=("dp",), device="cpu",
 
     torch.set_num_threads(1)
     cfg = _cfg(sizes, getattr(torch, dtype), dims, **(model or {}))
-    tcfg = train.TrainConfig(lr=0.0, weight_decay=0.0, grad_clip=1e9)
+    tcfg = train.TrainConfig(lr=0.0, weight_decay=0.0, grad_clip=1e9,
+                             moe_aux_weight=0.01)
     mesh = train.make_mesh(sizes, process_axes=across, device=device)
     params = train.place_params(
         init_params(cfg, 0, device=device) if tree is None
@@ -244,9 +324,10 @@ def runner_run(argv, ckpt_dir):
     checkpoint every step, then (rank 0 dropping the step-2 checkpoint) a
     run resuming from step 1: both runs' histories, the checkpoint writes
     this rank made, the checkpoint steps seen after each run; a step on
-    --mesh inter=2,intra=2 (the ring across the processes); then the
-    cases that raise (tp, pp, ep across processes, sp=4 split over
-    the two processes) by their messages."""
+    --mesh inter=2,intra=2 (the ring across the processes); then a step
+    each on tp, pp, ep across the processes and sp=4 split over them
+    (their histories), and a pipeline with tp across them, which raises
+    (its message)."""
     from burst_attn_tpu_torch.models import runner
     from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -271,16 +352,24 @@ def runner_run(argv, ckpt_dir):
     steps_b = Checkpointer(ckpt_dir).steps()
     _, inter = runner.main(argv + ["--multihost", "--mesh", "inter=2,intra=2",
                                    "--device", "cpu", "--steps", "1"])
-    raised = {}
-    for mesh in ("tp=2,sp=2", "pp=2,sp=2", "ep=2,sp=2", "sp=4"):
-        extra = ["--n-experts", "4"] if mesh.startswith("ep") else []
+    ran, raised = {}, {}
+    for mesh in ("tp=2,sp=2", "pp=2,sp=2", "ep=2,sp=2", "sp=4",
+                 "tp=2,pp=2,sp=2"):
         try:
-            runner.main(argv + extra + ["--multihost", "--mesh", mesh,
-                                        "--device", "cpu", "--steps", "1"])
+            ran[mesh] = runner.main(
+                argv + RUNNER_EXTRA.get(mesh, []) + [
+                    "--multihost", "--mesh", mesh, "--device", "cpu",
+                    "--steps", "1"])[1]
         except NotImplementedError as e:
             raised[mesh] = str(e)
     return dict(full=full, resumed=resumed, inter=inter, writes=writes,
-                steps_a=steps_a, steps_b=steps_b, raised=raised)
+                steps_a=steps_a, steps_b=steps_b, ran=ran, raised=raised)
+
+
+# the runner's extra flags for a mesh of runner_run's
+RUNNER_EXTRA = {"ep=2,sp=2": ["--n-experts", "4"],
+                "pp=2,sp=2": ["--microbatches", "1"],
+                "tp=2,pp=2,sp=2": ["--microbatches", "1"]}
 
 
 def slow_checkpoint(ckpt_dir, group_s, write_s):
@@ -328,3 +417,66 @@ def fail_or_sleep(failing_rank, sleep_s):
         raise ValueError(f"rank {failing_rank} fails")
     time.sleep(sleep_s)
     synchronize()
+
+
+TP_SP = {"tp": 2, "sp": 2}  # tp across the two processes, sp local
+
+
+def tp_checkpoint(tok, ckpt_dir):
+    """A step of the narrow model on tp=2 (across the processes) x sp=2 at
+    lr 1e-3 (moments nonzero), saved by Checkpointer (rank 0 writes after
+    the shards' gather), then restored into both processes: the whole
+    tree (gathered), whether the restored shards and moments equal the
+    saved ones, the next step's loss from the saved and from the restored
+    state, the checkpoint steps seen."""
+    from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
+
+    torch.set_num_threads(1)
+    cfg = _cfg(TP_SP)
+    tcfg = train.TrainConfig(lr=1e-3)
+    mesh = train.make_mesh(TP_SP, process_axes="auto", device="cpu")
+    state = train.init_train_state(0, cfg, tcfg, mesh, device="cpu")
+    step = train.make_train_step(cfg, tcfg, mesh, device="cpu")
+    batch = train.batch_from_host(tok[:, :-1], tok[:, 1:], cfg, mesh,
+                                  device="cpu")
+    state, _ = step(state, batch)
+    ckpt = Checkpointer(ckpt_dir)
+    ckpt.save(1, state)
+    whole = [_np(x.full()) if isinstance(x, Shards) else _np(x).copy()
+             for x in tree_leaves(state[0])]  # before the next in-place step
+    (params, opt), at = ckpt.restore_latest(cfg, tcfg, mesh, device="cpu")
+    same = (at == 1 and all(torch.equal(a, b) for a, b in zip(
+        train.param_leaves(params), train.param_leaves(state[0]))))
+    sa, sb = state[1].state_dict()["state"], opt.state_dict()["state"]
+    same = same and sa.keys() == sb.keys() and all(
+        torch.equal(sa[i][key], sb[i][key]) for i in sa for key in sa[i])
+    _, m_a = step(state, batch)
+    _, m_b = step((params, opt), batch)
+    return dict(whole=whole, same=same, loss_a=float(m_a["loss"]),
+                loss_b=float(m_b["loss"]), steps=ckpt.steps())
+
+
+def runner_meshes(argv, ckpt_root, meshes):
+    """runner.main(argv + --multihost --mesh M) for each mesh M: 2 steps
+    with a checkpoint every step, then (rank 0 dropping the step-2
+    checkpoint) a run resuming from step 1: both runs' histories and the
+    checkpoint steps seen after each, by mesh."""
+    from burst_attn_tpu_torch.models import runner
+    from burst_attn_tpu_torch.utils.checkpoint import Checkpointer
+
+    torch.set_num_threads(1)
+    out = {}
+    for mesh in meshes:
+        d = os.path.join(ckpt_root, mesh.replace(",", "_").replace("=", ""))
+        base = argv + ["--multihost", "--mesh", mesh, "--device", "cpu",
+                       "--ckpt-dir", d, "--ckpt-every", "1", "--steps", "2"]
+        _, full = runner.main(base)
+        steps_a = Checkpointer(d).steps()
+        synchronize()  # both listed before rank 0 drops a file
+        if multihost.process_index() == 0:
+            os.remove(os.path.join(d, "ckpt_00000002.pt"))
+        synchronize()
+        _, resumed = runner.main(base)
+        out[mesh] = dict(full=full, resumed=resumed, steps_a=steps_a,
+                         steps_b=Checkpointer(d).steps())
+    return out
